@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure raises and the script exits
+non-zero:
+  1. device  - the card's name and power limit (nvidia-smi), torch and CUDA.
+  2. build   - nvcc builds both kernels from reversible_raytracer_tpu_torch/
+               ops/kernels/csrc (one process per source, in parallel), and
+               with them the contracted builds of phase 7.
+  3. render  - the forward render kernel against its plain version (eager
+               torch on the same card): config 2 at 512^2, config 3 at 256^2
+               (two lights, two visibility planes), config 1 at 64^2 (no
+               shadows, no planes). Image: fewer than 0.1% of pixel-channels
+               off by more than 2e-3 and a mean error under 1e-4 (the rule of
+               tests/test_render_vs_oracle.py). Visibility: under 0.1% of the
+               pixels that hit an object differ (on a miss the plane holds
+               the shadow test of a ray cast from the BIG sentinel, noise in
+               any implementation, and nothing reads it).
+  4. step    - the fused step kernel against autograd and against the eager
+               hand-written adjoint, config 2 at 512^2 from
+               perturb(scale=0.1, seed=4): loss within 1e-4 relative, every
+               gradient leaf within 1e-2 of the leaf's scale.
+  5. main    - the port's CLI: invert --config 2 --size 512 --iters 50 on the
+               card, with the launch counts read around it.
+  6. times   - each kernel and its plain version at 512^2 with CUDA events
+               (median of 20 after warm-up), beside the kernel's bound.
+  7. fmad    - both kernels built as the port builds them (--fmad=false)
+               and with nvcc's default FMA contraction, timed on the same
+               inputs, and the contracted build's distance from the plain
+               version (reported, not held).
+Then the card's nvidia-smi line, the {"kernels": [...]} line, and last
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, non-tensor float32, at 700 W
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def run_phase(name, fn, *args):
+    try:
+        return fn(*args)
+    except BaseException as exc:
+        emit(name, ok=False, error=f"{type(exc).__name__}: {exc}")
+        raise
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit("device", ok=True, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    return smi
+
+
+def _ptxas(log):
+    return [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def phase_build():
+    """Build both kernels as the port builds them, and alongside (all four
+    nvcc processes at once) the same sources with nvcc's default FMA
+    contraction, for phase fmad. Returns the contracted libraries."""
+    import ctypes
+    import time
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.ops.kernels._build import (
+        BUILD_DIR, NVCC_FLAGS, build_all, nvcc_path)
+
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f != "--fmad=false"]
+    procs = {k.name: subprocess.Popen(
+        [nvcc_path(), *flags, "-o", str(BUILD_DIR / f"lib{k.name}_fmad.so"), str(k.source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in fused.KERNELS}
+    try:
+        seconds = build_all(fused.KERNELS)
+        logs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    contracted = {}
+    for k in fused.KERNELS:
+        if procs[k.name].returncode != 0:
+            raise RuntimeError(f"nvcc (contracted) failed for {k.source.name}:\n{logs[k.name]}")
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{k.name}_fmad.so"))
+        for fn, (argtypes, restype) in k.signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        contracted[k.name] = lib
+    emit("build", ok=True, seconds=seconds, with_contracted_seconds=time.perf_counter() - t0,
+         ptxas={k.name: _ptxas(k.build_log) for k in fused.KERNELS},
+         ptxas_contracted={name: _ptxas(log) for name, log in logs.items()})
+    return contracted
+
+
+def _hit_mask(scene, cfg):
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+
+    o, d = pl.primary_rays(scene, cfg)
+    return pl.trace_nearest(scene, o, d, cfg.shape)[1]
+
+
+def phase_render():
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+
+    rows = []
+    for num, size, planes in ((2, 512, 1), (3, 256, 2), (1, 64, 0)):
+        scene, _, cfg = configs.CONFIGS[num](size=size, device="cuda")
+        img_k, vis_k = fused.render_fused(scene, cfg)
+        img_p, vis_p = fused.render_fused_plain(scene, cfg)
+        torch.cuda.synchronize()
+        if img_k.shape != img_p.shape or vis_k.shape != vis_p.shape or vis_k.shape[0] != planes:
+            raise AssertionError(f"config {num}: shapes {img_k.shape}/{vis_k.shape} "
+                                 f"vs {img_p.shape}/{vis_p.shape}")
+        if not torch.isfinite(img_k).all():
+            raise AssertionError(f"config {num}: non-finite pixels")
+        err = (img_k - img_p).abs()
+        frac_bad = float((err > 2e-3).float().mean())
+        mean_err = float(err.mean())
+        hit = _hit_mask(scene, cfg)
+        vis_hit = float((vis_k != vis_p)[:, hit].float().mean()) if planes else 0.0
+        vis_all = float((vis_k != vis_p).float().mean()) if planes else 0.0
+        row = dict(config=num, size=size, planes=planes, frac_bad=frac_bad, mean_err=mean_err,
+                   max_abs_err=float(err.max()), vis_diff_hit=vis_hit, vis_diff_all=vis_all)
+        rows.append(row)
+        if not (frac_bad < 1e-3 and mean_err < 1e-4 and vis_hit < 1e-3):
+            raise AssertionError(f"forward kernel disagrees with its plain version: {row}")
+    emit("render", ok=True, rows=rows)
+    return max(r["max_abs_err"] for r in rows if r["config"] == 2)
+
+
+def _grad_errors(ga, gb):
+    """Worst |a - b| / scale(a) per leaf (the rule of tests/test_fused_step.py)."""
+    from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves
+
+    out = {}
+    for path, a, b in zip(leaf_paths(ga), tree_leaves(ga), tree_leaves(gb)):
+        if a.numel():
+            scale = max(float(a.abs().max()), 1e-6)
+            out[path] = float((a - b).abs().max()) / scale
+    return out
+
+
+def phase_step():
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+
+    scene, spec, cfg = configs.config2_four_spheres(size=512, device="cuda")
+    start = configs.perturb(scene, spec, scale=0.1, seed=4)
+    target = fused.render_fused_plain(scene, cfg)[0]
+    l_k, g_k = fused.loss_grad_fused(start, cfg, target)
+    l_p, g_p = fused.loss_grad_fused_plain(start, cfg, target)
+    l_a, g_a = fused.loss_grad_adjoint_eager(start, cfg, target)
+    torch.cuda.synchronize()
+    report = {}
+    for name, (l_ref, g_ref) in (("autograd", (l_p, g_p)), ("adjoint_eager", (l_a, g_a))):
+        rel = abs(float(l_k) - float(l_ref)) / max(abs(float(l_ref)), 1e-12)
+        errs = _grad_errors(g_ref, g_k)
+        worst = max(errs, key=errs.get)
+        report[name] = dict(loss_rel=rel, worst_leaf=worst, worst_err=errs[worst])
+        if not (rel <= 1e-4 and errs[worst] <= 1e-2):
+            raise AssertionError(f"step kernel disagrees with {name}: {report[name]}")
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
+    emit("step", ok=True, loss=float(l_k), **report)
+    return start, target, cfg, max_abs, g_p
+
+
+def phase_main():
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+
+    out_dir = REPO / "smoke_out"
+    png = out_dir / "final.png"
+    for k in fused.KERNELS:
+        k.launches = 0
+    summary = cli.main(["invert", "--config", "2", "--size", "512", "--iters", "50",
+                        "--perturb", "0.1", "--seed", "0", "--log-every", "10",
+                        "--metrics", str(out_dir / "metrics.jsonl"), "-o", str(png)])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in fused.KERNELS}
+    hist = summary["history"]
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    ok = (launches["fused_render"] >= 2 and launches["fused_step"] == 50
+          and math.isfinite(last) and last < first and png.exists()
+          and math.isfinite(summary["param_err"]))
+    emit("main", ok=ok, launches=launches, first_loss=first, final_loss=last,
+         param_err=summary["param_err"], seconds=summary["seconds"], png_bytes=png.stat().st_size
+         if png.exists() else 0)
+    if not ok:
+        raise AssertionError("main path did not run through both kernels or did not descend")
+    return launches
+
+
+def _launch(lib, fn, *args):
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+
+
+def phase_fmad(contracted, step_inputs, g_plain):
+    """Both kernels as built (--fmad=false) and with nvcc's default FMA
+    contraction, timed on the same inputs in the order built, contracted,
+    contracted, built; and how far the contracted build is from the plain
+    version (reported, not held: the port ships the --fmad=false build)."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+
+    start, target, cfg = step_inputs
+    geom = fused._geometry(start, cfg)
+    flat = fused._cuda_flat(start, cfg)
+    stream = torch.cuda.current_stream().cuda_stream
+    H, W = cfg.height, cfg.width
+    img = torch.empty((H, W, 3), device="cuda")
+    vis = torch.empty((start.lights.count if cfg.shadows else 0, H, W), device="cuda")
+    scratch = torch.empty((fused.FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5]),),
+                          device="cuda")
+    out = torch.empty((1 + flat.numel(),), device="cuda")
+    w = 1.0 / (H * W * 3)
+    libs = {"built": (fused.FUSED_RENDER.lib(), fused.FUSED_STEP.lib()),
+            "contracted": (contracted["fused_render"], contracted["fused_step"])}
+
+    def render(which):
+        return lambda: _launch(libs[which][0], "rrt_render", flat.data_ptr(), *geom,
+                               img.data_ptr(), vis.data_ptr(), stream)
+
+    def step(which):
+        return lambda: _launch(libs[which][1], "rrt_step", flat.data_ptr(), *geom,
+                               target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream)
+
+    times = {}
+    for kname, make in (("fused_render", render), ("fused_step", step)):
+        runs = [(which, time_ms(make(which)))
+                for which in ("built", "contracted", "contracted", "built")]
+        times[kname] = {which: [t for wh, t in runs if wh == which]
+                        for which in ("built", "contracted")}
+    render("contracted")()
+    step("contracted")()
+    torch.cuda.synchronize()
+    img_p, vis_p = fused.render_fused_plain(start, cfg)
+    err = (img - img_p).abs()
+    errs = _grad_errors(g_plain, fused.unflatten_scene(start, out[1:]))
+    worst = max(errs, key=errs.get)
+    emit("fmad", ok=True, size=H, ms=times,
+         contracted_render=dict(frac_bad=float((err > 2e-3).float().mean()),
+                                mean_err=float(err.mean()), max_abs_err=float(err.max()),
+                                vis_diff_all=float((vis != vis_p).float().mean())),
+         contracted_step=dict(worst_leaf=worst, worst_err=errs[worst]))
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the operations and bytes that this run's work needs, counted from
+# the code (csrc/render_common.cuh, csrc/fused_step.cu). Each add, subtract,
+# multiply, divide, sqrt, rsqrt, floor, exp, log and tan counts one;
+# comparisons, selects, min/max and negations count none. A value is counted
+# once where it is needed once: what depends only on the scene (the camera
+# basis, per-object and per-rect constants such as the rect normal and
+# 1/|edge|^2, the sphere's |eye - c|^2 - r^2) once per launch, what depends
+# only on a pixel's column or row once per column or row, and a pixel's own
+# work once per pixel. The kernels recompute some of this per pixel, and the
+# step's adjoint recomputes the forward of each lit light and of the winning
+# object; the bound counts none of that. Each per-pixel term of the step's
+# gradient counts one add into the sum over pixels.
+OPS = dict(
+    camera=43,  # basis, tan(fov/2), tan(fov/2) * aspect: once per launch
+    sphere_const=13,  # eye - c, |eye - c|^2 - r^2, 1/r, 1/r^2, 2r: per sphere
+    rect_const=40,  # normal, its unit and rsqrt^3, 1/|eu|^2, 1/|ev|^2, p0 - eye, num
+    material_const=15,  # ambient * ka, color * ka, color * ambient (both colors)
+    cam_chain=100,  # the step's camera_basis / normalize / tan chain, once
+    line=7,  # per column (ax, sx, right sx) and per row (ay, sy, up sy)
+    ray=15,  # fwd + right sx + up sy, its norm, rsqrt, d
+    sphere_primary=9,  # b = (eye - c) . d, b^2 - c0, sqrt, -b - sqrt
+    rect_primary=27,  # d . n, num / denom, o + d t - p0, a, b
+    sphere_shadow=18,  # the same tests from the shadow origin
+    rect_shadow=35,
+    surf_sphere=25,  # hit point, p - c, n, checker parity
+    surf_rect=18,  # facing, n, checker parity (a, b and p from the trace)
+    miss_point=6,  # o + d BIG on a miss (its shadow rays fill the vis planes)
+    so=6,  # shadow origin
+    light=13,  # light_geometry of one light
+    phong=34,  # diffuse + specular terms of one lit light
+    resid=14,  # residual, squared error, 2 w residual, clip gradient
+    adj_base=28,  # ambient adjoint, shadow-origin adjoint
+    adj_camera=36,  # normalize adjoint of the ray, g_tan, g_dt sx, g_dt sy
+    adj_light=98,  # one lit light's adjoint (forward values reused)
+    adj_sphere=53, adj_rect=61,  # the winning object's adjoint
+    sum_pixel=1, sum_miss=3, sum_hit=16,  # adds into the sums: sq; bg; ambient, eye, camera 10
+    sum_sphere=14, sum_rect=19, sum_light=6,  # object fields; light position and color
+)
+
+
+def work_counts(scene, cfg):
+    """Pixels by winner type, lit (pixel, light) pairs, and the shadow-ray
+    sphere and rect tests the kernels run (the any-hit loop tests spheres,
+    then rects, and stops at the first occluder), on hit pixels and on all
+    pixels."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+
+    H, W = cfg.height, cfg.width
+    dev = scene.device
+    sp, rc = scene.spheres, scene.rects
+    o, d = pl.primary_rays(scene, cfg)
+    t_best = torch.full((H, W), pl.BIG, device=dev)
+    kind = torch.zeros((H, W), dtype=torch.int32, device=dev)  # 0 miss, 1 sphere, 2 rect
+    tests = [(1, lambda oo, dd, k=k: pl.intersect_sphere(oo, dd, sp.center[k], sp.radius[k]))
+             for k in range(sp.count)]
+    tests += [(2, lambda oo, dd, k=k: pl.intersect_rect(oo, dd, rc.origin[k], rc.edge_u[k],
+                                                        rc.edge_v[k])[0])
+              for k in range(rc.count)]
+    for kk, test in tests:
+        t = test(o, d)
+        closer = t < t_best
+        t_best = torch.where(closer, t, t_best)
+        kind = torch.where(closer, kk, kind)
+    hit = kind > 0
+    _, _, at = pl.trace_nearest(scene, o, d, (H, W))
+    so = pl.shadow_origin(o, d, t_best, (at["nx"], at["ny"], at["nz"]))
+    shadow = {(kk, where): 0 for kk in (1, 2) for where in ("hit", "all")}
+    lit = 0
+    for li in range(scene.lights.count):
+        ldir, dist = pl.light_geometry(scene.lights, li, so)
+        done = torch.zeros((H, W), dtype=torch.bool, device=dev)
+        for kk, test in tests:
+            if cfg.shadows:
+                shadow[kk, "hit"] += int((hit & ~done).sum())
+                shadow[kk, "all"] += int((~done).sum())
+            done = done | (test(so, ldir) < dist)
+        lit += int((hit & ~done).sum()) if cfg.shadows else int(hit.sum())
+    return dict(height=H, width=W, pixels=H * W, sph=int((kind == 1).sum()),
+                rect=int((kind == 2).sum()), hit=int(hit.sum()), lit=lit,
+                shadow_sph_hit=shadow[1, "hit"], shadow_rect_hit=shadow[2, "hit"],
+                shadow_sph_all=shadow[1, "all"], shadow_rect_all=shadow[2, "all"],
+                n_sph=sp.count, n_rect=rc.count, lights=scene.lights.count)
+
+
+def _common_ops(c):
+    """Per launch, per column and row, and the primary ray and its trace."""
+    n_obj = c["n_sph"] + c["n_rect"]
+    launch = (OPS["camera"] + c["n_sph"] * OPS["sphere_const"] + c["n_rect"] * OPS["rect_const"]
+              + n_obj * OPS["material_const"])
+    lines = (c["height"] + c["width"]) * OPS["line"]
+    trace = c["n_sph"] * OPS["sphere_primary"] + c["n_rect"] * OPS["rect_primary"]
+    return launch + lines + c["pixels"] * (OPS["ray"] + trace)
+
+
+def render_ops(c):
+    miss = c["pixels"] - c["hit"]
+    return (_common_ops(c) + c["pixels"] * (OPS["so"] + c["lights"] * OPS["light"])
+            + miss * OPS["miss_point"] + c["sph"] * OPS["surf_sphere"]
+            + c["rect"] * OPS["surf_rect"] + c["lit"] * OPS["phong"]
+            + c["shadow_sph_all"] * OPS["sphere_shadow"]
+            + c["shadow_rect_all"] * OPS["rect_shadow"])
+
+
+def step_ops(c):
+    miss = c["pixels"] - c["hit"]
+    per_hit = (OPS["so"] + c["lights"] * OPS["light"] + OPS["adj_base"] + OPS["adj_camera"]
+               + OPS["sum_hit"])
+    return (_common_ops(c) + OPS["cam_chain"]
+            + c["pixels"] * (OPS["resid"] + OPS["sum_pixel"]) + miss * OPS["sum_miss"]
+            + c["hit"] * per_hit
+            + c["sph"] * (OPS["surf_sphere"] + OPS["adj_sphere"] + OPS["sum_sphere"])
+            + c["rect"] * (OPS["surf_rect"] + OPS["adj_rect"] + OPS["sum_rect"])
+            + c["lit"] * (OPS["phong"] + OPS["adj_light"] + OPS["sum_light"])
+            + c["shadow_sph_hit"] * OPS["sphere_shadow"]
+            + c["shadow_rect_hit"] * OPS["rect_shadow"])
+
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_times(step_inputs, launches, render_err, step_err):
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+
+    start, target, cfg = step_inputs
+    scene = start
+    S = fused.flatten_scene(scene).numel()
+    geom = fused._geometry(scene, cfg)
+    flat = fused._cuda_flat(scene, cfg)
+    stream = torch.cuda.current_stream().cuda_stream
+    H, W = cfg.height, cfg.width
+    n_vis = scene.lights.count if cfg.shadows else 0
+    img = torch.empty((H, W, 3), device="cuda")
+    vis = torch.empty((n_vis, H, W), device="cuda")
+    scratch = torch.empty((fused.FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5]),),
+                          device="cuda")
+    out = torch.empty((1 + S,), device="cuda")
+    w = 1.0 / (H * W * 3)
+    saved = {k.name: k.launches for k in fused.KERNELS}
+
+    render_ms = time_ms(lambda: fused.FUSED_RENDER.call(
+        "rrt_render", flat.data_ptr(), *geom, img.data_ptr(), vis.data_ptr(), stream))
+    step_ms = time_ms(lambda: fused.FUSED_STEP.call(
+        "rrt_step", flat.data_ptr(), *geom, target.data_ptr(), w, scratch.data_ptr(),
+        out.data_ptr(), stream))
+    render_plain_ms = time_ms(lambda: fused.render_fused_plain(scene, cfg))
+    step_plain_ms = time_ms(lambda: fused.loss_grad_fused_plain(scene, cfg, target))
+    for k in fused.KERNELS:
+        k.launches = saved[k.name]
+
+    c = work_counts(scene, cfg)
+    r_bound, r_by = bound(render_ops(c), 4 * (S + H * W * (3 + n_vis)))
+    s_bound, s_by = bound(step_ops(c), 4 * (S + H * W * 3 + 1 + S))
+    kernels = [
+        dict(name="fused_step", route="cuda",
+             source="reversible_raytracer_tpu_torch/ops/kernels/csrc/fused_step.cu",
+             replaces="reversible_raytracer_tpu/ops/kernels/fused.py:394",
+             launches=launches["fused_step"], max_abs_err=step_err, ms=step_ms,
+             plain_ms=step_plain_ms, bound_ms=s_bound, bound_by=s_by, library_ms=None),
+        dict(name="fused_render", route="cuda",
+             source="reversible_raytracer_tpu_torch/ops/kernels/csrc/fused_render.cu",
+             replaces="reversible_raytracer_tpu/ops/kernels/fused.py:224",
+             launches=launches["fused_render"], max_abs_err=render_err, ms=render_ms,
+             plain_ms=render_plain_ms, bound_ms=r_bound, bound_by=r_by, library_ms=None),
+    ]
+    emit("times", ok=True, size=H, work=c, render_ops=render_ops(c), step_ops=step_ops(c),
+         step_rays_per_s=H * W / (step_ms * 1e-3))
+    return kernels
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if not (REPO / "reversible_raytracer_tpu_torch" / "ops" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's package is not beside {Path(__file__).name}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = run_phase("device", phase_device)
+    contracted = run_phase("build", phase_build)
+    render_err = run_phase("render", phase_render)
+    start, target, cfg, step_err, g_plain = run_phase("step", phase_step)
+    launches = run_phase("main", phase_main)
+    kernels = run_phase("times", phase_times, (start, target, cfg), launches, render_err, step_err)
+    run_phase("fmad", phase_fmad, contracted, (start, target, cfg), g_plain)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,143 @@
+"""Benchmark scenes 1-3 as builders, and the inverse-render start.
+
+The counterpart of `reversible_raytracer_tpu.models.configs` for the
+configs the CUDA kernels cover (hard shading, untextured). Each builder
+returns ``(scene, spec, cfg)``: the ground-truth Scene on ``device``, the
+ParamSpec of what the inverse render optimizes, and the RenderConfig.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.pipeline import RenderConfig
+from .scene import (
+    Camera,
+    Lights,
+    Materials,
+    ParamSpec,
+    Scene,
+    ground_plane,
+    merge_spheres,
+    resolve_device,
+    sphere,
+    tree_leaves,
+    tree_unflatten,
+)
+
+
+def _lights(positions, colors, dev) -> Lights:
+    return Lights(
+        position=torch.tensor(positions, dtype=torch.float32, device=dev),
+        color=torch.tensor(colors, dtype=torch.float32, device=dev),
+    )
+
+
+def config1_single_sphere(size: int = 64, device="cuda"):
+    """Config 1: single sphere, Lambertian, no shadows; optimize
+    center+radius."""
+    dev = resolve_device(device)
+    mat = Materials.make((0.9, 0.2, 0.2), ka=0.15, kd=0.9, ks=0.0, device=dev)
+    scene = Scene.make(
+        spheres=sphere((0.0, 0.0, 0.0), 1.0, mat, device=dev),
+        lights=_lights([[3.0, 4.0, 5.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 0.0, 4.0), (0.0, 0.0, 0.0), fov_deg=50.0,
+                           device=dev),
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("spheres.center", lower=-3.0, upper=3.0)
+        .train("spheres.radius", lower=0.2, upper=2.5)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=False)
+
+
+def config2_four_spheres(size: int = 128, device="cuda"):
+    """Config 2: 4 spheres + ground plane, Phong specular, hard shadows;
+    optimize centers/radii/albedos."""
+    dev = resolve_device(device)
+    m = lambda c, **kw: Materials.make(c, device=dev, **kw)
+    parts = [
+        sphere((-1.1, 0.0, 0.0), 0.55, m((0.9, 0.2, 0.2), ks=0.5, shininess=40.0), device=dev),
+        sphere((1.1, 0.1, 0.3), 0.6, m((0.2, 0.8, 0.3), ks=0.5, shininess=40.0), device=dev),
+        sphere((0.0, 0.9, -0.6), 0.5, m((0.25, 0.35, 0.9), ks=0.6, shininess=60.0), device=dev),
+        sphere((0.1, -0.5, 1.0), 0.35, m((0.9, 0.8, 0.2), ks=0.4, shininess=25.0), device=dev),
+    ]
+    plane = ground_plane(-1.1, 12.0, m((0.6, 0.6, 0.6), ka=0.15, kd=0.85), device=dev)
+    scene = Scene.make(
+        spheres=merge_spheres(parts),
+        rects=plane,
+        lights=_lights([[4.0, 6.0, 4.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 1.0, 5.0), (0.0, 0.0, 0.0), fov_deg=55.0,
+                           device=dev),
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("spheres.center", lower=-3.0, upper=3.0)
+        .train("spheres.radius", lower=0.15, upper=2.0)
+        .train("spheres.material.color", lower=0.0, upper=1.0)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True)
+
+
+def config3_multi_light(size: int = 256, device="cuda"):
+    """Config 3: two lights with shadow rays; optimize light position +
+    materials."""
+    dev = resolve_device(device)
+    m = lambda c, **kw: Materials.make(c, device=dev, **kw)
+    parts = [
+        sphere((-0.9, -0.1, 0.0), 0.6, m((0.85, 0.3, 0.25), ks=0.4, shininess=35.0), device=dev),
+        sphere((0.9, 0.0, -0.4), 0.7, m((0.25, 0.45, 0.85), ks=0.4, shininess=35.0), device=dev),
+        sphere((0.0, 0.8, 0.6), 0.4, m((0.3, 0.8, 0.35), ks=0.5, shininess=50.0), device=dev),
+    ]
+    plane = ground_plane(-0.8, 14.0, m((0.55, 0.55, 0.58), ka=0.15, kd=0.85), device=dev)
+    scene = Scene.make(
+        spheres=merge_spheres(parts),
+        rects=plane,
+        lights=_lights([[4.0, 5.0, 3.0], [-4.0, 4.0, 1.5]],
+                       [[0.8, 0.75, 0.7], [0.35, 0.4, 0.5]], dev),
+        camera=Camera.make((0.0, 1.2, 5.0), (0.0, 0.0, 0.0), fov_deg=55.0,
+                           device=dev),
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("lights.position", lower=-8.0, upper=8.0)
+        .train("spheres.material.color", lower=0.0, upper=1.0)
+        .train("spheres.material.ks", lower=0.0, upper=1.0)
+        .train("spheres.material.kd", lower=0.0, upper=1.0)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True)
+
+
+CONFIGS = {
+    1: config1_single_sphere,
+    2: config2_four_spheres,
+    3: config3_multi_light,
+}
+
+
+def perturb(scene: Scene, spec: ParamSpec, scale: float = 0.25, seed: int = 0) -> Scene:
+    """Additive-noise perturbation of the trainable leaves: noise of
+    ``max(std, 1) * scale`` from numpy's ``default_rng(seed)``, drawn leaf by
+    leaf in treedef order (the JAX package's draw order, so both packages
+    start from the same scene), clipped to the bounds."""
+    leaves = tree_leaves(scene)
+    tr = tree_leaves(spec.trainable)
+    lo = tree_leaves(spec.lower)
+    hi = tree_leaves(spec.upper)
+    rng = np.random.default_rng(seed)
+    out = []
+    for leaf, t, l, h in zip(leaves, tr, lo, hi):
+        if not t:
+            out.append(leaf)
+            continue
+        host = leaf.detach().cpu().numpy()
+        mag = max(float(np.std(host)), 1.0) * scale
+        noise = rng.normal(0.0, mag, size=host.shape).astype(np.float32)
+        moved = np.clip(host + noise, np.float32(l), np.float32(h))
+        out.append(torch.from_numpy(moved).to(leaf.device))
+    return tree_unflatten(scene, out)

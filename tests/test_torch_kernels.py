@@ -1,0 +1,88 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA device and skip without one. Nothing here imports
+JAX: on the card run them with
+``python -m pytest --noconftest tests/test_torch_kernels.py``, which skips
+the JAX set-up that tests/conftest.py does for the other test files.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from reversible_raytracer_tpu_torch.models import configs
+from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves
+from reversible_raytracer_tpu_torch.ops import pipeline
+from reversible_raytracer_tpu_torch.ops.kernels import fused
+from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _hit(scene, cfg):
+    o, d = pipeline.primary_rays(scene, cfg)
+    return pipeline.trace_nearest(scene, o, d, cfg.shape)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num, H, W", [(1, 64, 64), (2, 128, 160), (3, 96, 72)])
+def test_render_kernel_matches_plain(cuda, num, H, W):
+    """Oracle rule of tests/test_render_vs_oracle.py on the image; on hit
+    pixels the visibility planes agree (on a miss they hold the shadow test
+    of a ray from the BIG sentinel, which nothing reads)."""
+    scene, _, _ = configs.CONFIGS[num](device=cuda)
+    cfg = RenderConfig(height=H, width=W, shadows=num != 1)
+    img_k, vis_k = fused.render_fused(scene, cfg)
+    img_p, vis_p = fused.render_fused_plain(scene, cfg)
+    err = (img_k - img_p).abs()
+    assert float((err > 2e-3).float().mean()) < 1e-3
+    assert float(err.mean()) < 1e-4
+    assert vis_k.shape == vis_p.shape == (pipeline.n_vis_planes(scene, cfg), H, W)
+    if vis_k.numel():
+        assert float((vis_k != vis_p)[:, _hit(scene, cfg)].float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num, loss", [(1, "sum"), (2, "mse"), (3, "mse")])
+def test_step_kernel_matches_adjoint(cuda, num, loss):
+    """Loss within 1e-4 relative, every leaf within 1e-2 of its scale,
+    against the eager hand-written adjoint and against autograd."""
+    scene, spec, _ = configs.CONFIGS[num](device=cuda)
+    cfg = RenderConfig(height=96, width=120, shadows=num != 1)
+    start = configs.perturb(scene, spec, scale=0.1, seed=4)
+    target = fused.render_fused_plain(scene, cfg)[0]
+    before = fused.FUSED_STEP.launches
+    l_k, g_k = fused.loss_grad_fused(start, cfg, target, loss)
+    assert fused.FUSED_STEP.launches == before + 1
+    for ref in (fused.loss_grad_adjoint_eager, fused.loss_grad_fused_plain):
+        l_r, g_r = ref(start, cfg, target, loss)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        for path, a, b in zip(leaf_paths(g_r), tree_leaves(g_r), tree_leaves(g_k)):
+            if a.numel():
+                a, b = a.cpu().numpy(), b.cpu().numpy()
+                scale = max(np.abs(a).max(), 1e-6)
+                np.testing.assert_allclose(b, a, atol=1e-2 * scale, rtol=0, err_msg=path)
+
+
+@pytest.mark.cuda
+def test_step_kernel_is_deterministic(cuda):
+    scene, spec, cfg = configs.config2_four_spheres(size=200, device=cuda)
+    start = configs.perturb(scene, spec, scale=0.1, seed=1)
+    target = fused.render_fused(scene, cfg)[0]
+    runs = [fused.loss_grad_fused(start, cfg, target) for _ in range(3)]
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    assert all(torch.equal(flat[0], f) for f in flat[1:])
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_cover(cuda):
+    scene, _, cfg = configs.config2_four_spheres(size=32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        fused.render_fused(scene, RenderConfig(height=32, width=32, spp=4))
+    with pytest.raises(ValueError):
+        fused.loss_grad_fused(scene, cfg, torch.zeros((32, 32, 3), device=cuda, dtype=torch.float64))

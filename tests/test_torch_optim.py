@@ -1,0 +1,104 @@
+"""The port's optimizer against the JAX package: the schedule, one flat
+Adam update, and 20-step inverse-render trajectories from the same start."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reversible_raytracer_tpu import optim as joptim
+from reversible_raytracer_tpu.models import configs as jconfigs
+from reversible_raytracer_tpu.ops.pipeline import RenderConfig as JRenderConfig
+from reversible_raytracer_tpu.ops.render import render_jnp
+from reversible_raytracer_tpu_torch import optim
+from reversible_raytracer_tpu_torch.bridge import scene_from_numpy, scene_to_numpy
+from reversible_raytracer_tpu_torch.models import configs
+from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
+
+
+def _np_leaves(tree):
+    return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("schedule", ["cosine", "constant"])
+def test_schedule_matches_optax(schedule):
+    jo = joptim.OptConfig(iters=17, lr=3e-2, schedule=schedule)
+    to = optim.OptConfig(iters=17, lr=3e-2, schedule=schedule)
+    lr = jo.learning_rate()
+    for count in range(20):
+        want = float(lr(jnp.asarray(count, jnp.int32))) if callable(lr) else lr
+        got = float(to.learning_rate(count, "cpu"))
+        assert got == pytest.approx(want, rel=1e-6, abs=1e-12)
+
+
+@pytest.mark.parametrize("lr_scales", [(), (("spheres.radius", 0.3),)])
+def test_flat_update_matches_jax(lr_scales):
+    js, jspec, _ = jconfigs.config2_four_spheres()
+    ts, tspec, _ = configs.config2_four_spheres(device="cpu")
+    jo = joptim.OptConfig(iters=5, lr=2e-2, lr_scales=lr_scales)
+    to = optim.OptConfig(iters=5, lr=2e-2, lr_scales=lr_scales)
+    jinit, japply = joptim.make_flat_update(js, jspec, jo)
+    tinit, tapply = optim.make_flat_update(ts, tspec, to)
+    jstate, tstate = jinit(js), tinit(ts)
+    rng = np.random.default_rng(0)
+    jscene, tscene = js, ts
+    for _ in range(3):
+        grads = [rng.normal(0.0, 1e-3, size=np.shape(l)).astype(np.float32)
+                 for l in _np_leaves(js)]
+        jg = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(js),
+                                          [jnp.asarray(g) for g in grads])
+        tg = scene_from_numpy(grads, like=ts, device="cpu")
+        jscene, jstate, jn = japply(jscene, jstate, joptim.mask_grads(jg, jspec))
+        tscene, tstate, tn = tapply(tscene, tstate, optim.mask_grads(tg, tspec))
+        assert float(tn) == pytest.approx(float(jn), rel=1e-5)
+        for a, b in zip(_np_leaves(jscene), scene_to_numpy(tscene)):
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
+
+
+def test_mask_project_and_param_error_match_jax():
+    js, jspec, _ = jconfigs.config2_four_spheres()
+    ts, tspec, _ = configs.config2_four_spheres(device="cpu")
+    far = [l * np.float32(3.0) + np.float32(1.5) for l in _np_leaves(js)]
+    jfar = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(js),
+                                        [jnp.asarray(x) for x in far])
+    tfar = scene_from_numpy(far, like=ts, device="cpu")
+    for a, b in zip(_np_leaves(joptim.project_bounds(jfar, jspec)),
+                    scene_to_numpy(optim.project_bounds(tfar, tspec))):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(_np_leaves(joptim.mask_grads(jfar, jspec)),
+                    scene_to_numpy(optim.mask_grads(tfar, tspec))):
+        np.testing.assert_array_equal(a, b)
+    assert float(optim.param_error(tfar, ts, tspec)) == pytest.approx(
+        float(joptim.param_error(jfar, js, jspec)), rel=1e-6)
+
+
+@pytest.mark.parametrize("num", [1, 2])
+def test_trajectory_matches_jax(num):
+    """20 Adam steps from the same start: losses within 1e-4 per step,
+    final leaves within 1e-3. Short trajectories at 32^2 are chaotic at
+    sphere limbs, where the two frameworks' rays differ by an ulp (see
+    test_torch_step.py); the start (seed 0) and lr 3e-3 keep this one
+    clear of that."""
+    size = 32
+    js, jspec, _ = jconfigs.CONFIGS[num]()
+    ts, tspec, _ = configs.CONFIGS[num](device="cpu")
+    jcfg = JRenderConfig(height=size, width=size, shadows=num != 1)
+    tcfg = RenderConfig(height=size, width=size, shadows=num != 1)
+    jtarget = np.asarray(render_jnp(js, jcfg))
+    jstart = jconfigs.perturb(js, jspec, scale=0.1, seed=0)
+    tstart = scene_from_numpy(_np_leaves(jstart), like=ts, device="cpu")
+    jo = joptim.OptConfig(iters=20, lr=3e-3)
+    to = optim.OptConfig(iters=20, lr=3e-3)
+
+    jfinal, jhist = joptim.optimize(jstart, jtarget, jspec, jcfg, jo, log_every=1)
+    tfinal, thist = optim.optimize(tstart, torch.from_numpy(jtarget.copy()), tspec, tcfg, to,
+                                   log_every=1)
+    assert len(thist) == len(jhist) == 20
+    for a, b in zip(jhist, thist):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-4), (a, b)
+    for a, b in zip(_np_leaves(jfinal), scene_to_numpy(tfinal)):
+        np.testing.assert_allclose(b, a, atol=1e-3, rtol=0)
+    assert thist[-1]["loss"] < thist[0]["loss"]
+    assert tree_leaves(tspec.trainable).count(True) >= 2
