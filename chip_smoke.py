@@ -6,9 +6,9 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero:
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA.
-  2. build   - nvcc builds both kernels from reversible_raytracer_tpu_torch/
-               ops/kernels/csrc (one process per source, in parallel), and
-               with them the contracted builds of phase 7.
+  2. build   - nvcc builds the four kernels from reversible_raytracer_tpu_torch/
+               ops/kernels/csrc (one process per source, all started
+               together), and with them the contracted builds of phase 7.
   3. render  - the forward render kernel against its plain version (eager
                torch on the same card): config 2 at 512^2, config 3 at 256^2
                (two lights, two visibility planes), config 1 at 64^2 (no
@@ -30,6 +30,23 @@ non-zero:
                and with nvcc's default FMA contraction, timed on the same
                inputs, and the contracted build's distance from the plain
                version (reported, not held).
+  8. vec_render - the object-chunked forward kernel against its plain
+               version (render_vec_plain) by the same rules as phase 3, on
+               config 5 (64 spheres + ground) at 1024^2 and on bench.py's
+               513-object shape (512 spheres + ground) at 512^2; whether the
+               images are bit-identical.
+  9. vec_step - the object-chunked step kernel against autograd
+               (loss_grad_vec_plain) and the eager adjoint at both shapes,
+               from perturb(scale=0.05, seed=4): loss within 1e-4 relative,
+               every leaf within 1e-2 of its scale; two calls bit-identical.
+ 10. refuse  - a CUDA render refuses a scene whose leaves require grad (the
+               render backward kernels are not ported) and renders one that
+               does not, for both kernel families.
+ 11. vec_main - the port's CLI: invert --config 5 --size 1024 --iters 20 on
+               the card, with the launch counts read around it.
+ 12. vec_times - both vec kernels and their plain versions at the two shapes
+               of phase 8 (CUDA events, median of 20 after warm-up), beside
+               their bounds.
 Then the card's nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.
 """
@@ -80,13 +97,14 @@ def _ptxas(log):
 
 
 def phase_build():
-    """Build both kernels as the port builds them, and alongside (all four
-    nvcc processes at once) the same sources with nvcc's default FMA
-    contraction, for phase fmad. Returns the contracted libraries."""
+    """Build the four kernels as the port builds them, and alongside (all
+    six nvcc processes at once) the two small-scene sources with nvcc's
+    default FMA contraction, for phase fmad. Returns the contracted
+    libraries."""
     import ctypes
     import time
 
-    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
     from reversible_raytracer_tpu_torch.ops.kernels._build import (
         BUILD_DIR, NVCC_FLAGS, build_all, nvcc_path)
 
@@ -97,7 +115,7 @@ def phase_build():
         [nvcc_path(), *flags, "-o", str(BUILD_DIR / f"lib{k.name}_fmad.so"), str(k.source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in fused.KERNELS}
     try:
-        seconds = build_all(fused.KERNELS)
+        seconds = build_all(fused.KERNELS + fused_vec.KERNELS)
         logs = {name: proc.communicate()[0] for name, proc in procs.items()}
     finally:
         for proc in procs.values():
@@ -114,9 +132,15 @@ def phase_build():
             getattr(lib, fn).restype = restype
         contracted[k.name] = lib
     emit("build", ok=True, seconds=seconds, with_contracted_seconds=time.perf_counter() - t0,
-         ptxas={k.name: _ptxas(k.build_log) for k in fused.KERNELS},
+         ptxas={k.name: _ptxas(k.build_log) for k in fused.KERNELS + fused_vec.KERNELS},
          ptxas_contracted={name: _ptxas(log) for name, log in logs.items()})
     return contracted
+
+
+def _all_kernels():
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+
+    return fused.KERNELS + fused_vec.KERNELS
 
 
 def _hit_mask(scene, cfg):
@@ -202,20 +226,20 @@ def phase_main():
     import torch
 
     from reversible_raytracer_tpu_torch import cli
-    from reversible_raytracer_tpu_torch.ops.kernels import fused
 
     out_dir = REPO / "smoke_out"
     png = out_dir / "final.png"
-    for k in fused.KERNELS:
+    for k in _all_kernels():
         k.launches = 0
     summary = cli.main(["invert", "--config", "2", "--size", "512", "--iters", "50",
                         "--perturb", "0.1", "--seed", "0", "--log-every", "10",
                         "--metrics", str(out_dir / "metrics.jsonl"), "-o", str(png)])
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in fused.KERNELS}
+    launches = {k.name: k.launches for k in _all_kernels()}
     hist = summary["history"]
     first, last = hist[0]["loss"], hist[-1]["loss"]
     ok = (launches["fused_render"] >= 2 and launches["fused_step"] == 50
+          and launches["fused_vec_render"] == 0 and launches["fused_vec_step"] == 0
           and math.isfinite(last) and last < first and png.exists()
           and math.isfinite(summary["param_err"]))
     emit("main", ok=ok, launches=launches, first_loss=first, final_loss=last,
@@ -477,6 +501,221 @@ def phase_times(step_inputs, launches, render_err, step_err):
     return kernels
 
 
+
+# ---------------------------------------------------------------------------
+# The object-chunked kernels (scenes of more than 24 objects)
+# ---------------------------------------------------------------------------
+
+# bench.py:717-747: config 5 as BASELINE.json defines it (64 spheres +
+# ground, 1024^2) and the 513-object shape (512 spheres + ground, 512^2).
+VEC_SHAPES = (("config5_1024", 64, 1024), ("513obj_512", 512, 512))
+
+
+def _vec_case(n_spheres, size):
+    from reversible_raytracer_tpu_torch.models import configs
+
+    scene, spec, cfg = configs.config5_many_spheres(size=size, n_spheres=n_spheres,
+                                                    device="cuda")
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    return scene, start, cfg
+
+
+def _vec_hit_mask(scene, cfg):
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
+
+    o, d = pl.primary_rays(scene, cfg)
+    return nearest_vec(scene, o, d)[1] >= 0
+
+
+def phase_vec_render():
+    """Row 4 against render_vec_plain; returns the largest image difference
+    at config 5 and the targets (plain renders of the true scenes)."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
+
+    rows, targets = [], {}
+    for label, n_spheres, size in VEC_SHAPES:
+        scene, _, cfg = _vec_case(n_spheres, size)
+        img_k, vis_k = fused_vec.render_vec(scene, cfg)
+        img_p, vis_p = fused_vec.render_vec_plain(scene, cfg)
+        torch.cuda.synchronize()
+        if img_k.shape != img_p.shape or vis_k.shape != vis_p.shape or vis_k.shape[0] != 1:
+            raise AssertionError(f"{label}: shapes {img_k.shape}/{vis_k.shape} "
+                                 f"vs {img_p.shape}/{vis_p.shape}")
+        if not torch.isfinite(img_k).all():
+            raise AssertionError(f"{label}: non-finite pixels")
+        err = (img_k - img_p).abs()
+        hit = _vec_hit_mask(scene, cfg)
+        row = dict(shape=label, objects=n_spheres + 1, size=size,
+                   frac_bad=float((err > 2e-3).float().mean()), mean_err=float(err.mean()),
+                   max_abs_err=float(err.max()),
+                   bit_identical=bool(torch.equal(img_k, img_p) and
+                                      torch.equal(vis_k[:, hit], vis_p[:, hit])),
+                   vis_diff_hit=float((vis_k != vis_p)[:, hit].float().mean()))
+        rows.append(row)
+        if not (row["frac_bad"] < 1e-3 and row["mean_err"] < 1e-4 and row["vis_diff_hit"] < 1e-3):
+            raise AssertionError(f"vec forward kernel disagrees with its plain version: {row}")
+        targets[label] = img_p
+    emit("vec_render", ok=True, rows=rows)
+    return rows[0]["max_abs_err"], targets
+
+
+def phase_vec_step(targets):
+    """Row 6 against autograd and the eager adjoint, and two calls bit for
+    bit; returns the largest gradient difference from autograd at config 5."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+
+    rows, max_abs = [], None
+    for label, n_spheres, size in VEC_SHAPES:
+        _, start, cfg = _vec_case(n_spheres, size)
+        target = targets[label]
+        l_k, g_k = fused_vec.loss_grad_vec(start, cfg, target)
+        l_k2, g_k2 = fused_vec.loss_grad_vec(start, cfg, target)
+        torch.cuda.reset_peak_memory_stats()
+        l_p, g_p = fused_vec.loss_grad_vec_plain(start, cfg, target)
+        plain_peak = torch.cuda.max_memory_allocated()
+        l_a, g_a = fused_vec.loss_grad_vec_adjoint_eager(start, cfg, target)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
+                                torch.cat([l_k2.reshape(1), fused.flatten_scene(g_k2)])))
+        row = dict(shape=label, loss=float(l_k), deterministic=same,
+                   plain_peak_gb=plain_peak / 1e9)
+        for name, (l_ref, g_ref) in (("autograd", (l_p, g_p)), ("adjoint_eager", (l_a, g_a))):
+            rel = abs(float(l_k) - float(l_ref)) / max(abs(float(l_ref)), 1e-12)
+            errs = _grad_errors(g_ref, g_k)
+            worst = max(errs, key=errs.get)
+            row[name] = dict(loss_rel=rel, worst_leaf=worst, worst_err=errs[worst])
+            if not (rel <= 1e-4 and errs[worst] <= 1e-2):
+                raise AssertionError(f"vec step kernel disagrees with {name}: {row}")
+        if not same:
+            raise AssertionError(f"vec step kernel is not bit-identical from call to call: {row}")
+        rows.append(row)
+        if max_abs is None:
+            max_abs = max(float((a - b).abs().max())
+                          for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
+    emit("vec_step", ok=True, rows=rows)
+    return max_abs
+
+
+def phase_refuse():
+    """A CUDA render of a scene that requires grad raises (no render
+    backward kernel yet); the same scene renders under no_grad and detached."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    rows = []
+    for num in (2, 5):
+        scene, _, cfg = configs.CONFIGS[num](size=64, device="cuda")
+        leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
+        try:
+            render(tree_unflatten(scene, leaves), cfg)
+            refused = None
+        except NotImplementedError as exc:
+            refused = str(exc)
+        with torch.no_grad():
+            img = render(tree_unflatten(scene, leaves), cfg)
+        ok = refused is not None and torch.equal(img, render(scene, cfg))
+        rows.append(dict(config=num, refused=refused, renders_without_grad=ok))
+        if not ok:
+            raise AssertionError(f"config {num}: the CUDA render did not refuse a scene that "
+                                 f"requires grad, or did not render one that does not")
+    emit("refuse", ok=True, rows=rows)
+
+
+def phase_vec_main():
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+
+    out_dir = REPO / "smoke_out"
+    png = out_dir / "final_config5.png"
+    for k in _all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    summary = cli.main(["invert", "--config", "5", "--size", "1024", "--iters", "20",
+                        "--seed", "0", "--log-every", "5",
+                        "--metrics", str(out_dir / "metrics_config5.jsonl"), "-o", str(png)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _all_kernels()}
+    hist = summary["history"]
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    ok = (launches["fused_vec_render"] >= 2 and launches["fused_vec_step"] == 20
+          and launches["fused_render"] == 0 and launches["fused_step"] == 0
+          and math.isfinite(last) and last < first and png.exists()
+          and math.isfinite(summary["param_err"]))
+    emit("vec_main", ok=ok, launches=launches, first_loss=first, final_loss=last,
+         param_err=summary["param_err"], loop_seconds=summary["seconds"], wall_seconds=wall,
+         png_bytes=png.stat().st_size if png.exists() else 0)
+    if not ok:
+        raise AssertionError("config-5 main path did not run through the vec kernels only, "
+                             "or did not descend")
+    return launches
+
+
+def vec_step_bytes(c, Sg, ns_pad, nr_pad):
+    """Inputs read once (globals, rows, target), outputs written once (loss,
+    gradients), and the per-block partial rows written and read back."""
+    rows = Sg + ns_pad * 17 + nr_pad * 22
+    row = 1 + Sg + 10 + ns_pad * 17 + nr_pad * 22
+    blocks = math.ceil(c["width"] / 32) * math.ceil(c["height"] / 8)
+    return 4 * (rows + 3 * c["pixels"] + 1 + rows + 2 * blocks * row + 2 * row)
+
+
+def phase_vec_times():
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+
+    stream = torch.cuda.current_stream().cuda_stream
+    saved = {k.name: k.launches for k in _all_kernels()}
+    rows = {}
+    for label, n_spheres, size in VEC_SHAPES:
+        scene, start, cfg = _vec_case(n_spheres, size)
+        H, W = cfg.height, cfg.width
+        target = fused_vec.render_vec_plain(scene, cfg)[0]
+        glob, sph, rct = fused_vec._cuda_inputs(start, cfg)
+        geom = fused_vec._geometry(start, cfg)
+        img = torch.empty((H, W, 3), device="cuda")
+        vis = torch.empty((1, H, W), device="cuda")
+        scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_scratch_floats(
+            *geom[2:7]),), device="cuda")
+        out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
+        w = 1.0 / (H * W * 3)
+        render_ms = time_ms(lambda: fused_vec.VEC_RENDER.call(
+            "rrt_vec_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
+            img.data_ptr(), vis.data_ptr(), stream))
+        step_ms = time_ms(lambda: fused_vec.VEC_STEP.call(
+            "rrt_vec_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
+            target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream))
+        render_plain_ms = time_ms(lambda: fused_vec.render_vec_plain(start, cfg), reps=10)
+        step_plain_ms = time_ms(lambda: fused_vec.loss_grad_vec_plain(start, cfg, target),
+                                reps=10)
+        c = work_counts(start, cfg)
+        Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
+        in_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
+        r_bound = bound(render_ops(c), in_rows + 4 * H * W * 4)
+        s_bound = bound(step_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad))
+        rows[label] = dict(render_ms=render_ms, step_ms=step_ms, render_plain_ms=render_plain_ms,
+                           step_plain_ms=step_plain_ms, render_bound=r_bound, step_bound=s_bound,
+                           render_ops=render_ops(c), step_ops=step_ops(c),
+                           step_bytes=vec_step_bytes(c, Sg, ns_pad, nr_pad), work=c,
+                           step_rays_per_s=H * W / (step_ms * 1e-3))
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    emit("vec_times", ok=True, rows=rows)
+    return rows
+
 def main() -> int:
     try:
         import torch
@@ -501,6 +740,24 @@ def main() -> int:
     launches = run_phase("main", phase_main)
     kernels = run_phase("times", phase_times, (start, target, cfg), launches, render_err, step_err)
     run_phase("fmad", phase_fmad, contracted, (start, target, cfg), g_plain)
+    vec_render_err, targets = run_phase("vec_render", phase_vec_render)
+    vec_step_err = run_phase("vec_step", phase_vec_step, targets)
+    run_phase("refuse", phase_refuse)
+    vec_launches = run_phase("vec_main", phase_vec_main)
+    vt = run_phase("vec_times", phase_vec_times)["config5_1024"]
+    src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
+    kernels += [
+        dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
+             replaces="reversible_raytracer_tpu/ops/kernels/fused_vec.py:979",
+             launches=vec_launches["fused_vec_step"], max_abs_err=vec_step_err,
+             ms=vt["step_ms"], plain_ms=vt["step_plain_ms"], bound_ms=vt["step_bound"][0],
+             bound_by=vt["step_bound"][1], library_ms=None),
+        dict(name="fused_vec_render", route="cuda", source=src + "fused_vec_render.cu",
+             replaces="reversible_raytracer_tpu/ops/kernels/fused_vec.py:897",
+             launches=vec_launches["fused_vec_render"], max_abs_err=vec_render_err,
+             ms=vt["render_ms"], plain_ms=vt["render_plain_ms"], bound_ms=vt["render_bound"][0],
+             bound_by=vt["render_bound"][1], library_ms=None),
+    ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""Command-line interface: ``render`` and ``invert`` for configs 1-3.
+"""Command-line interface: ``render`` and ``invert`` for configs 1-3 and 5.
 
 Examples:
     python -m reversible_raytracer_tpu_torch.cli render --config 2 --size 512 -o out.png
@@ -16,9 +16,9 @@ import time
 
 
 def _add_common(p):
-    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3],
+    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3, 5],
                    help="benchmark config (1: one sphere, 2: four spheres + ground, "
-                        "3: two lights)")
+                        "3: two lights, 5: 64 spheres + ground)")
     p.add_argument("--size", type=int, default=None,
                    help="image size (default: the config's native size)")
     p.add_argument("--device", default="cuda",

@@ -1,4 +1,4 @@
-"""Benchmark scenes 1-3 as builders, and the inverse-render start.
+"""Benchmark scenes 1-3 and 5, and the inverse-render start.
 
 The counterpart of `reversible_raytracer_tpu.models.configs` for the
 configs the CUDA kernels cover (hard shading, untextured). Each builder
@@ -113,10 +113,51 @@ def config3_multi_light(size: int = 256, device="cuda"):
     return scene, spec, RenderConfig(height=size, width=size, shadows=True)
 
 
+def config5_many_spheres(size: int = 1024, n_spheres: int = 64, seed: int = 0,
+                         device="cuda"):
+    """Config 5: a jittered square grid of spheres (8x8 by default) over a
+    ground plane, hard shadows; full joint inverse render (centers, radii,
+    albedos and the light). The spheres come from numpy's
+    ``default_rng(seed)`` in the JAX package's draw order (x, z, y, radius,
+    colour per sphere), so both packages build the same scene."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    g = int(np.ceil(np.sqrt(n_spheres)))
+    parts = []
+    for k in range(n_spheres):
+        gx, gz = k % g, k // g
+        x = (gx - (g - 1) / 2) * 1.1 + rng.uniform(-0.2, 0.2)
+        z = (gz - (g - 1) / 2) * 1.1 + rng.uniform(-0.2, 0.2)
+        y = rng.uniform(-0.1, 0.45)
+        radius = rng.uniform(0.28, 0.5)
+        color = rng.uniform(0.15, 0.95, size=3)
+        parts.append(sphere((x, y, z), radius,
+                            Materials.make(color, ks=0.35, shininess=40.0, device=dev),
+                            device=dev))
+    plane = ground_plane(-0.6, 30.0, Materials.make((0.6, 0.6, 0.62), ka=0.15, kd=0.85,
+                                                    device=dev), device=dev)
+    scene = Scene.make(
+        spheres=merge_spheres(parts),
+        rects=plane,
+        lights=_lights([[6.0, 12.0, 6.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 7.0, 9.5), (0.0, 0.0, 0.0), fov_deg=60.0, device=dev),
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("spheres.center", lower=-8.0, upper=8.0)
+        .train("spheres.radius", lower=0.15, upper=1.0)
+        .train("spheres.material.color", lower=0.0, upper=1.0)
+        .train("lights.position", lower=-16.0, upper=16.0)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True)
+
+
 CONFIGS = {
     1: config1_single_sphere,
     2: config2_four_spheres,
     3: config3_multi_light,
+    5: config5_many_spheres,
 }
 
 

@@ -25,22 +25,15 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     render_kernel(const float* __restrict__ flat, Params p, Layout ly, float* __restrict__ img,
                   float* __restrict__ vis) {
   extern __shared__ float sc[];
-  stage_scene(sc, flat, ly.S);
+  stage(sc, flat, ly.S);
   __syncthreads();
 
   const int j = blockIdx.x * BLOCK_X + threadIdx.x;
   const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
   if (i >= p.H || j >= p.W) return;
 
-  const Camera cam = camera(sc, ly);
-  const Ray r = primary_ray(cam, p, i, j);
-  const Nearest h = trace(sc, ly, cam.eye, r.d);
-  const Surface s = surface(sc, ly, cam.eye, r.d, h);
   unsigned bits;
-  V3 col = shade_hit(sc, ly, p, cam.eye, r.d, h.t, s, &bits);
-  if (h.k < 0) col = ld3(sc + ly.background);
-  if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
-
+  const V3 col = render_pixel(FlatScene{sc, ly}, p, i, j, &bits);
   const long long px = (long long)i * p.W + j;
   img[3 * px + 0] = col.x;
   img[3 * px + 1] = col.y;
@@ -55,9 +48,7 @@ extern "C" int rrt_render(const float* flat, int n_sph, int n_rect, int n_light,
                           int shadows, int clip, float* img, float* vis, void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
   const Params p = make_params(H, W, shadows, clip);
-  const dim3 block(BLOCK_X, BLOCK_Y);
-  const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y);
-  render_kernel<<<grid, block, ly.S * sizeof(float), (cudaStream_t)stream>>>(flat, p, ly, img,
-                                                                            vis);
+  render_kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
+                  (cudaStream_t)stream>>>(flat, p, ly, img, vis);
   return (int)cudaGetLastError();
 }

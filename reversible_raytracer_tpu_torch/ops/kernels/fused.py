@@ -112,29 +112,45 @@ def flat_offsets(n_sph: int, n_rect: int, n_light: int) -> dict:
     }
 
 
+def uncovered(scene, cfg: RenderConfig):
+    """What neither kernel family covers (a reason), or None."""
+    if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
+        return "soft_tau/checker_tau"
+    if cfg.reflections:
+        return "mirror reflections"
+    if cfg.spp != 1:
+        return f"spp={cfg.spp}"
+    if cfg.shader != "phong":
+        return f"the {cfg.shader} shader"
+    if cfg.projection != "perspective":
+        return f"the {cfg.projection} projection"
+    if scene.spheres.textured or scene.rects.textured:
+        return "object textures"
+    if scene.env_mapped:
+        return "environment maps"
+    if scene.lights.count > MAX_LIGHTS:
+        return f"more than {MAX_LIGHTS} lights"
+    return None
+
+
 def check_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for what the two kernels do not cover."""
-    why = None
-    if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
-        why = "soft_tau/checker_tau"
-    elif cfg.reflections:
-        why = "mirror reflections"
-    elif cfg.spp != 1:
-        why = f"spp={cfg.spp}"
-    elif cfg.shader != "phong":
-        why = f"the {cfg.shader} shader"
-    elif cfg.projection != "perspective":
-        why = f"the {cfg.projection} projection"
-    elif scene.spheres.textured or scene.rects.textured:
-        why = "object textures"
-    elif scene.env_mapped:
-        why = "environment maps"
-    elif scene.spheres.count + scene.rects.count > MAX_OBJECTS:
+    why = uncovered(scene, cfg)
+    if why is None and scene.spheres.count + scene.rects.count > MAX_OBJECTS:
         why = f"more than {MAX_OBJECTS} objects"
-    elif scene.lights.count > MAX_LIGHTS:
-        why = f"more than {MAX_LIGHTS} lights"
     if why is not None:
         raise NotImplementedError(f"the CUDA kernels do not cover {why}")
+
+
+def refuse_grad(scene, backward: str) -> None:
+    """Raise when autograd would need a gradient of a CUDA render: grad mode
+    is on and a scene leaf requires grad. ``backward`` names the render
+    backward kernel that is not ported yet."""
+    if torch.is_grad_enabled() and any(l.requires_grad for l in tree_leaves(scene)):
+        raise NotImplementedError(
+            f"render on CUDA carries no gradient: its backward ({backward}) is not ported "
+            "yet. Render a scene whose leaves do not require grad (or under "
+            "torch.no_grad()), or take the training step from ops.render.loss_and_grad_fn")
 
 
 def _geometry(scene, cfg: RenderConfig):
@@ -180,6 +196,7 @@ def render_fused(scene, cfg: RenderConfig):
         return render_fused_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render kernel for device {dev}")
+    refuse_grad(scene, "fused.py:252 _make_fused.bwd_kernel, the render backward")
     flat = _cuda_flat(scene, cfg)
     img = torch.empty((cfg.height, cfg.width, 3), device=dev)
     vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
@@ -239,11 +256,19 @@ def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
 
 def loss_grad_fused_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
     """torch.autograd of ``loss(render_eager(scene), target)``."""
-    from ..render import LOSSES, render_eager
+    from ..render import render_eager
+
+    return autograd_loss_grad(render_eager, scene, cfg, target, loss)
+
+
+def autograd_loss_grad(render_fn, scene, cfg: RenderConfig, target, loss: str = "mse"):
+    """``(loss, grads as a Scene)`` of ``loss(render_fn(scene, cfg), target)``
+    by torch autograd (the plain version of a step kernel)."""
+    from ..render import LOSSES
 
     leaves = [l.detach().clone().requires_grad_(True) for l in tree_leaves(scene)]
     with torch.enable_grad():
-        value = LOSSES[loss](render_eager(tree_unflatten(scene, leaves), cfg), target)
+        value = LOSSES[loss](render_fn(tree_unflatten(scene, leaves), cfg), target)
         grads = torch.autograd.grad(value, leaves, allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g for l, g in zip(leaves, grads)]
     return value.detach(), tree_unflatten(scene, grads)
@@ -308,10 +333,32 @@ def loss_grad_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse")
     norm = _loss_norm(cfg, loss)
     _check_target(target, cfg, scene)
     with torch.no_grad():
-        return _adjoint(scene, cfg, target, norm)
+        return _adjoint(scene, cfg, target, norm, nearest=_nearest_chain, occluded_fn=occluded)
 
 
-def _adjoint(scene, cfg, target, norm):
+def _nearest_chain(scene, o, d):
+    """(t, k) of every ray's nearest hit by the first-wins where chain:
+    spheres 0..N-1, rects N..N+M-1, -1 on a miss."""
+    sp, rc = scene.spheres, scene.rects
+    N = sp.count
+    t_best = torch.full(o[0].shape, BIG, device=scene.device, dtype=scene.ambient.dtype)
+    kbest = torch.full(o[0].shape, -1, dtype=torch.long, device=scene.device)
+    for k in range(N):
+        t = intersect_sphere(o, d, sp.center[k], sp.radius[k])
+        closer = t < t_best
+        t_best = torch.where(closer, t, t_best)
+        kbest = torch.where(closer, k, kbest)
+    for k in range(rc.count):
+        t, _, _, _ = intersect_rect(o, d, rc.origin[k], rc.edge_u[k], rc.edge_v[k])
+        closer = t < t_best
+        t_best = torch.where(closer, t, t_best)
+        kbest = torch.where(closer, N + k, kbest)
+    return t_best, kbest
+
+
+def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
+    """The per-pixel step adjoint; ``nearest(scene, o, d) -> (t, k)`` and
+    ``occluded_fn`` are the trace's nearest hit and any-hit test."""
     dev = scene.device
     H, W = cfg.height, cfg.width
     sp, rc, lt, cam = scene.spheres, scene.rects, scene.lights, scene.camera
@@ -336,18 +383,7 @@ def _adjoint(scene, cfg, target, norm):
     o = vm.vbroadcast(vm.splat(cam.eye), (H, W))
 
     # ---- nearest hit: winner index kbest (spheres 0..N-1, rects N..N+M-1)
-    t_best = torch.full((H, W), BIG, **like)
-    kbest = torch.full((H, W), -1, dtype=torch.long, device=dev)
-    for k in range(N):
-        t = intersect_sphere(o, d, sp.center[k], sp.radius[k])
-        closer = t < t_best
-        t_best = torch.where(closer, t, t_best)
-        kbest = torch.where(closer, k, kbest)
-    for k in range(M):
-        t, _, _, _ = intersect_rect(o, d, rc.origin[k], rc.edge_u[k], rc.edge_v[k])
-        closer = t < t_best
-        t_best = torch.where(closer, t, t_best)
-        kbest = torch.where(closer, N + k, kbest)
+    t_best, kbest = nearest(scene, o, d)
     t = t_best
     is_sph = (kbest >= 0) & (kbest < N)
     is_rct = kbest >= N
@@ -418,7 +454,7 @@ def _adjoint(scene, cfg, target, norm):
         dist = torch.sqrt(torch.where(dist2 > 0.0, dist2, 1.0))
         inv_l = 1.0 / torch.where(dist > 1e-9, dist, 1.0)
         ldir = vm.vscale(lvec, inv_l)
-        vis = (torch.where(occluded(scene, so, ldir, dist), 0.0, 1.0)
+        vis = (torch.where(occluded_fn(scene, so, ldir, dist), 0.0, 1.0)
                if cfg.shadows else zero + 1.0)
         ndl = vm.vdot(n, ldir)
         ndotl = vm.vmax0(ndl)

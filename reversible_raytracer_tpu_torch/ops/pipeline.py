@@ -138,15 +138,28 @@ def intersect_rect(o: Vec3, d: Vec3, origin, edge_u, edge_v):
 
 
 # ---------------------------------------------------------------------------
-# Materials
+# Materials and the attributes of a hit
 # ---------------------------------------------------------------------------
 
 
-def _checker_select(mat, k, parity) -> Vec3:
+def _xyz(v) -> Vec3:
+    """The last axis of a (..., 3) tensor as a Vec3."""
+    return (v[..., 0], v[..., 1], v[..., 2])
+
+
+def material_rows(mat, pick) -> dict:
+    """The material parameters of the objects ``pick`` selects: ``pick`` maps
+    a stacked (K, ...) leaf to one object's row (``lambda x: x[k]``) or to
+    each pixel's winner's row (a per-pixel gather)."""
+    return dict(color=_xyz(pick(mat.color)), color2=_xyz(pick(mat.color2)),
+                checker=pick(mat.checker), scale=pick(mat.checker_scale), ka=pick(mat.ka),
+                kd=pick(mat.kd), ks=pick(mat.ks), shin=pick(mat.shininess))
+
+
+def _checker_select(m, parity) -> Vec3:
     """color2 where the checker parity is odd, else color (a step: no
     gradient to positions)."""
-    use2 = mat.checker[k] * parity
-    return vm.vwhere(use2 > 0.5, vm.splat(mat.color2[k]), vm.splat(mat.color[k]))
+    return vm.vwhere(m["checker"] * parity > 0.5, m["color2"], m["color"])
 
 
 def miss_color(scene, d: Vec3, shape) -> Vec3:
@@ -155,23 +168,28 @@ def miss_color(scene, d: Vec3, shape) -> Vec3:
     return vm.vbroadcast(vm.splat(scene.background), shape)
 
 
-def rect_color(rc, k, a, b) -> Vec3:
-    if rc.textured:
-        raise NotImplementedError("object textures are not ported yet")
-    s = rc.material.checker_scale[k]
-    parity = torch.remainder(torch.floor(a * s) + torch.floor(b * s), 2.0)
-    return _checker_select(rc.material, k, parity)
-
-
-def sphere_color(sp, k, p_local: Vec3, n_unit: Vec3) -> Vec3:
-    if sp.textured:
-        raise NotImplementedError("object textures are not ported yet")
-    s = sp.material.checker_scale[k]
+def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m):
+    """(t, unit normal, base colour) of a sphere with material rows ``m``."""
+    t = intersect_sphere(o, d, center, radius)
+    p_local = vm.vsub(vm.vadd(o, vm.vscale(d, t)), center)
+    n_unit = vm.vscale(p_local, 1.0 / radius)
+    s = m["scale"]
     parity = torch.remainder(
         torch.floor(p_local[0] * s) + torch.floor(p_local[1] * s)
         + torch.floor(p_local[2] * s), 2.0,
     )
-    return _checker_select(sp.material, k, parity)
+    return t, n_unit, _checker_select(m, parity)
+
+
+def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m):
+    """(t, unit normal facing the ray, base colour) of a rect."""
+    t, a, b, n = intersect_rect(o, d, origin, edge_u, edge_v)
+    n_unit = vm.vnormalize(n)
+    # Two-sided shading: flip the normal toward the incoming ray.
+    facing = torch.where(vm.vdot(n_unit, d) < 0.0, 1.0, -1.0)
+    s = m["scale"]
+    parity = torch.remainder(torch.floor(a * s) + torch.floor(b * s), 2.0)
+    return t, vm.vscale(n_unit, facing), _checker_select(m, parity)
 
 
 # ---------------------------------------------------------------------------
@@ -181,39 +199,41 @@ def sphere_color(sp, k, p_local: Vec3, n_unit: Vec3) -> Vec3:
 _ATTRS = ("nx", "ny", "nz", "cr", "cg", "cb", "ka", "kd", "ks", "shin")
 
 
+def init_attrs(shape, like) -> dict:
+    """The attributes of a pixel that hits nothing."""
+    best = {k: torch.zeros(shape, **like) for k in _ATTRS}
+    best["shin"] = torch.ones(shape, **like)
+    return best
+
+
+def merge_attrs(best: dict, mask, n_unit: Vec3, col: Vec3, m) -> dict:
+    """``best`` with the attributes of a hit where ``mask`` holds."""
+    new = dict(zip(_ATTRS, (*n_unit, *col, m["ka"], m["kd"], m["ks"], m["shin"])))
+    return {key: torch.where(mask, new[key], best[key]) for key in best}
+
+
 def trace_nearest(scene, o: Vec3, d: Vec3, shape):
     """Closest hit over all spheres, then all rects. Returns (t, hit, attrs)
     with per-pixel unit normal, base color and material scalars."""
+    if scene.spheres.textured or scene.rects.textured:
+        raise NotImplementedError("object textures are not ported yet")
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     t_best = torch.full(shape, BIG, **like)
-    zero = torch.zeros(shape, **like)
-    best = {k: zero for k in _ATTRS}
-    best["shin"] = torch.ones(shape, **like)
-
-    def update(t_new, n_unit, col, mat, k):
-        nonlocal t_best, best
-        closer = t_new < t_best
-        t_best = torch.where(closer, t_new, t_best)
-        new = dict(zip(_ATTRS, (*n_unit, *col, mat.ka[k], mat.kd[k], mat.ks[k],
-                                mat.shininess[k])))
-        best = {key: torch.where(closer, new[key], best[key]) for key in best}
-
-    sp = scene.spheres
+    best = init_attrs(shape, like)
+    sp, rc = scene.spheres, scene.rects
     for k in range(sp.count):
-        t = intersect_sphere(o, d, sp.center[k], sp.radius[k])
-        p_local = vm.vsub(vm.vadd(o, vm.vscale(d, t)), vm.splat(sp.center[k]))
-        n_unit = vm.vscale(p_local, 1.0 / sp.radius[k])
-        update(t, n_unit, sphere_color(sp, k, p_local, n_unit), sp.material, k)
-
-    rc = scene.rects
+        m = material_rows(sp.material, lambda x: x[k])
+        t, n_unit, col = sphere_hit(o, d, _xyz(sp.center[k]), sp.radius[k], m)
+        closer = t < t_best
+        t_best = torch.where(closer, t, t_best)
+        best = merge_attrs(best, closer, n_unit, col, m)
     for k in range(rc.count):
-        t, a, b, n = intersect_rect(o, d, rc.origin[k], rc.edge_u[k], rc.edge_v[k])
-        n_unit = vm.vnormalize(n)
-        # Two-sided shading: flip the normal toward the incoming ray.
-        facing = torch.where(vm.vdot(n_unit, d) < 0.0, 1.0, -1.0)
-        n_unit = vm.vscale(n_unit, facing)
-        update(t, n_unit, rect_color(rc, k, a, b), rc.material, k)
-
+        m = material_rows(rc.material, lambda x: x[k])
+        t, n_unit, col = rect_hit(o, d, _xyz(rc.origin[k]), _xyz(rc.edge_u[k]),
+                                  _xyz(rc.edge_v[k]), m)
+        closer = t < t_best
+        t_best = torch.where(closer, t, t_best)
+        best = merge_attrs(best, closer, n_unit, col, m)
     return t_best, t_best < BIG * 0.5, best
 
 
@@ -249,9 +269,10 @@ def light_geometry(lights, li: int, shadow_o: Vec3):
 
 
 def shade_from_attrs(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape,
-                     t, hit, at, return_vis: bool = False):
+                     t, hit, at, return_vis: bool = False, occluded_fn=occluded):
     """Shade nearest-hit results: ambient + per light (hard shadow,
-    Lambertian + Phong), background on a miss, optional [0, 1] clip."""
+    Lambertian + Phong), background on a miss, optional [0, 1] clip.
+    ``occluded_fn(scene, o, ldir, dist)`` is the any-hit shadow test."""
     if cfg.shader == "depth":
         z = torch.where(hit, 1.0 / (1.0 + t), 0.0)
         return ((z, z, z), ()) if return_vis else (z, z, z)
@@ -270,7 +291,7 @@ def shade_from_attrs(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape,
         lcol = vm.splat(lights.color[li])
         ldir, dist = light_geometry(lights, li, shadow_o)
         if cfg.shadows:
-            vis = torch.where(occluded(scene, shadow_o, ldir, dist), 0.0, 1.0)
+            vis = torch.where(occluded_fn(scene, shadow_o, ldir, dist), 0.0, 1.0)
         else:
             vis = torch.ones(shape, device=scene.device, dtype=scene.ambient.dtype)
         vis_out.append(vis)
@@ -310,9 +331,11 @@ SPP_OFFSETS = {1: [(0.0, 0.0)],
 
 
 def render_tile(scene, cfg: RenderConfig, row0, col0, bh: int, bw: int,
-                return_vis: bool = False):
+                return_vis: bool = False, shade_fn=shade):
     """Render the (bh, bw) tile whose top-left pixel is (row0, col0).
-    Returns SoA (r, g, b), plus the visibility planes with ``return_vis``."""
+    Returns SoA (r, g, b), plus the visibility planes with ``return_vis``.
+    ``shade_fn`` traces and shades one subsample's rays: `shade` (the
+    where chain) or `pipeline_vec.shade_vec` (objects on a leading axis)."""
     _require_hard(scene, cfg)
     if cfg.spp not in SPP_OFFSETS:
         raise ValueError(f"spp must be 1 or 4, got {cfg.spp}")
@@ -328,7 +351,7 @@ def render_tile(scene, cfg: RenderConfig, row0, col0, bh: int, bw: int,
                            cfg.projection)
         o = vm.vbroadcast(o, (bh, bw))
         d = vm.vbroadcast(d, (bh, bw))
-        out = shade(scene, o, d, cfg, (bh, bw), return_vis=return_vis)
+        out = shade_fn(scene, o, d, cfg, (bh, bw), return_vis=return_vis)
         col, vis = out if return_vis else (out, ())
         acc = col if acc is None else vm.vadd(acc, col)
         vis_all.extend(vis)

@@ -2,18 +2,24 @@
 the CUDA kernels.
 
 The counterpart of `reversible_raytracer_tpu.ops.render`. Dispatch is by
-the scene's device, not by a backend flag: tensors on the CPU take the
-eager twin, tensors on a CUDA device take the hand-written kernels, and a
-configuration the kernels do not cover raises on CUDA rather than running
-somewhere else.
+the scene's device and object count, not by a backend flag: tensors on the
+CPU take an eager twin, tensors on a CUDA device take the hand-written
+kernels, and a configuration the kernels do not cover raises on CUDA rather
+than running somewhere else. Scenes of at most `VEC_THRESHOLD` objects take
+the unrolled family (`kernels.fused`; `render_eager`), larger ones the
+object-chunked family (`kernels.fused_vec`; `render_eager_vec`), the JAX
+package's threshold.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import fused
+from .kernels import fused, fused_vec
 from .pipeline import RenderConfig, render_tile
+from .pipeline_vec import render_eager_vec
+
+VEC_THRESHOLD = fused.MAX_OBJECTS  # 24, as render.py:137 of the JAX package
 
 
 def render_eager(scene, cfg: RenderConfig):
@@ -24,38 +30,49 @@ def render_eager(scene, cfg: RenderConfig):
 
 
 def resolve_impl(scene, cfg: RenderConfig) -> str:
-    """``"cuda"`` for a scene on a CUDA device whose configuration the
-    kernels cover, ``"eager"`` on the CPU; raises otherwise."""
+    """``"cuda"`` / ``"cuda_vec"`` for a scene on a CUDA device whose
+    configuration the kernels cover, ``"eager"`` / ``"eager_vec"`` on the
+    CPU, by object count; raises otherwise."""
+    vec = scene.spheres.count + scene.rects.count > VEC_THRESHOLD
     dev = scene.device
     if dev.type == "cpu":
-        return "eager"
+        return "eager_vec" if vec else "eager"
     if dev.type == "cuda":
+        if vec:
+            fused_vec.check_vec_kernel_config(scene, cfg)
+            return "cuda_vec"
         fused.check_kernel_config(scene, cfg)
         return "cuda"
     raise NotImplementedError(f"no renderer for device {dev}")
 
 
 def resolve_step_impl(scene_like, cfg: RenderConfig, loss: str = "mse") -> str:
-    """The training-step counterpart of `resolve_impl`: the fused step
-    kernel on CUDA, autograd over the eager renderer on the CPU."""
+    """The training-step counterpart of `resolve_impl`: a fused step kernel
+    on CUDA, autograd over the eager renderer on the CPU."""
     if loss not in LOSSES:
         raise ValueError(f"unknown loss {loss!r}")
     return resolve_impl(scene_like, cfg)
 
 
+_RENDER = {"cuda": lambda s, c: fused.render_fused(s, c)[0],
+           "cuda_vec": lambda s, c: fused_vec.render_vec(s, c)[0],
+           "eager": render_eager, "eager_vec": render_eager_vec}
+
+
 def render(scene, cfg: RenderConfig):
-    """Render the full (H, W, 3) image: the forward kernel on CUDA, the
-    eager twin on the CPU (`resolve_impl`)."""
-    if resolve_impl(scene, cfg) == "cuda":
-        return fused.render_fused(scene, cfg)[0]
-    return render_eager(scene, cfg)
+    """Render the full (H, W, 3) image: a forward kernel on CUDA, an eager
+    twin on the CPU (`resolve_impl`). On CUDA the image carries no gradient
+    (the render backward kernels are not ported yet), and a scene whose
+    leaves require grad is refused; on the CPU it is differentiable."""
+    return _RENDER[resolve_impl(scene, cfg)](scene, cfg)
 
 
 def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
-    """``f(scene, target) -> (loss, grads)``: one fused step kernel launch
-    per call on CUDA, torch autograd over `render_eager` on the CPU."""
-    resolve_step_impl(scene_like, cfg, loss)
-    return lambda scene, target: fused.loss_grad_fused(scene, cfg, target, loss=loss)
+    """``f(scene, target) -> (loss, grads)``: one fused step kernel call per
+    call on CUDA, torch autograd over the eager renderer on the CPU."""
+    impl = resolve_step_impl(scene_like, cfg, loss)
+    step = fused_vec.loss_grad_vec if impl.endswith("_vec") else fused.loss_grad_fused
+    return lambda scene, target: step(scene, cfg, target, loss=loss)
 
 
 def mse_loss(image, target):

@@ -10,12 +10,12 @@ import torch
 from reversible_raytracer_tpu import optim as joptim
 from reversible_raytracer_tpu.models import configs as jconfigs
 from reversible_raytracer_tpu.ops.pipeline import RenderConfig as JRenderConfig
-from reversible_raytracer_tpu.ops.render import render_jnp
 from reversible_raytracer_tpu_torch import optim
 from reversible_raytracer_tpu_torch.bridge import scene_from_numpy, scene_to_numpy
 from reversible_raytracer_tpu_torch.models import configs
 from reversible_raytracer_tpu_torch.models.scene import tree_leaves
 from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
+from reversible_raytracer_tpu_torch.ops.render import render_eager
 
 
 def _np_leaves(tree):
@@ -86,7 +86,7 @@ def test_trajectory_matches_jax(num):
     ts, tspec, _ = configs.CONFIGS[num](device="cpu")
     jcfg = JRenderConfig(height=size, width=size, shadows=num != 1)
     tcfg = RenderConfig(height=size, width=size, shadows=num != 1)
-    jtarget = np.asarray(render_jnp(js, jcfg))
+    jtarget = render_eager(ts, tcfg).numpy()  # the same target for both
     jstart = jconfigs.perturb(js, jspec, scale=0.1, seed=0)
     tstart = scene_from_numpy(_np_leaves(jstart), like=ts, device="cpu")
     jo = joptim.OptConfig(iters=20, lr=3e-3)

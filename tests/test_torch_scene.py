@@ -24,7 +24,7 @@ from reversible_raytracer_tpu_torch.ops.kernels.fused import (
     unflatten_scene,
 )
 
-CONFIGS = [1, 2, 3]
+CONFIGS = [1, 2, 3, 5]
 
 
 def _jax_leaves(tree):

