@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero:
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA.
-  2. build   - nvcc builds the four kernels from reversible_raytracer_tpu_torch/
+  2. build   - nvcc builds the six kernels from reversible_raytracer_tpu_torch/
                ops/kernels/csrc (one process per source, all started
                together), and with them the contracted builds of phase 7.
   3. render  - the forward render kernel against its plain version (eager
@@ -47,6 +47,24 @@ non-zero:
  12. vec_times - both vec kernels and their plain versions at the two shapes
                of phase 8 (CUDA events, median of 20 after warm-up), beside
                their bounds.
+ 13. soft_render - the soft forward kernel (soft_tau > 0) against its plain
+               version (render_vec_soft_plain) by the rule of phase 3, on
+               config 5 at 512^2 and 1024^2 at tau 0.08 and 0.01 and on the
+               513-object shape at 512^2 (tau 0.08), with shadows.
+ 14. soft_step - the soft step kernel against autograd of the plain version
+               and against the eager adjoint at the shapes of phase 13, from
+               perturb(scale=0.05, seed=4): loss within 1e-4 relative, every
+               leaf within 1e-2 of its scale; two calls bit-identical.
+ 15. anneal_main - the port's CLI: invert --config 5 --size 1024 --anneal
+               0.08,0.03,0.01,0 --anneal-size 512 --lr 2e-3 --perturb 0.03
+               --iters 20 on the card, with the launch counts read around it:
+               the soft forward 3 times (the stage targets), the soft step
+               60, the vec step 20, the vec forward at least twice, rows 1-2
+               never; each soft stage's loss falls; the final parameter RMS
+               is below the start's.
+ 16. soft_times - both soft kernels and their plain versions at config 5
+               (512^2 and 1024^2, tau 0.08) and at 513 objects (512^2), with
+               CUDA events (median of 20 after warm-up), beside their bounds.
 Then the card's nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.
 """
@@ -97,14 +115,14 @@ def _ptxas(log):
 
 
 def phase_build():
-    """Build the four kernels as the port builds them, and alongside (all
-    six nvcc processes at once) the two small-scene sources with nvcc's
+    """Build the six kernels as the port builds them, and alongside (all
+    eight nvcc processes at once) the two small-scene sources with nvcc's
     default FMA contraction, for phase fmad. Returns the contracted
     libraries."""
     import ctypes
     import time
 
-    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
     from reversible_raytracer_tpu_torch.ops.kernels._build import (
         BUILD_DIR, NVCC_FLAGS, build_all, nvcc_path)
 
@@ -115,7 +133,7 @@ def phase_build():
         [nvcc_path(), *flags, "-o", str(BUILD_DIR / f"lib{k.name}_fmad.so"), str(k.source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in fused.KERNELS}
     try:
-        seconds = build_all(fused.KERNELS + fused_vec.KERNELS)
+        seconds = build_all(_all_kernels())
         logs = {name: proc.communicate()[0] for name, proc in procs.items()}
     finally:
         for proc in procs.values():
@@ -132,15 +150,15 @@ def phase_build():
             getattr(lib, fn).restype = restype
         contracted[k.name] = lib
     emit("build", ok=True, seconds=seconds, with_contracted_seconds=time.perf_counter() - t0,
-         ptxas={k.name: _ptxas(k.build_log) for k in fused.KERNELS + fused_vec.KERNELS},
+         ptxas={k.name: _ptxas(k.build_log) for k in _all_kernels()},
          ptxas_contracted={name: _ptxas(log) for name, log in logs.items()})
     return contracted
 
 
 def _all_kernels():
-    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
 
-    return fused.KERNELS + fused_vec.KERNELS
+    return fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS
 
 
 def _hit_mask(scene, cfg):
@@ -239,7 +257,8 @@ def phase_main():
     hist = summary["history"]
     first, last = hist[0]["loss"], hist[-1]["loss"]
     ok = (launches["fused_render"] >= 2 and launches["fused_step"] == 50
-          and launches["fused_vec_render"] == 0 and launches["fused_vec_step"] == 0
+          and all(n == 0 for name, n in launches.items() if name not in ("fused_render",
+                                                                      "fused_step"))
           and math.isfinite(last) and last < first and png.exists()
           and math.isfinite(summary["param_err"]))
     emit("main", ok=ok, launches=launches, first_loss=first, final_loss=last,
@@ -651,7 +670,8 @@ def phase_vec_main():
     hist = summary["history"]
     first, last = hist[0]["loss"], hist[-1]["loss"]
     ok = (launches["fused_vec_render"] >= 2 and launches["fused_vec_step"] == 20
-          and launches["fused_render"] == 0 and launches["fused_step"] == 0
+          and all(n == 0 for name, n in launches.items() if name not in ("fused_vec_render",
+                                                                      "fused_vec_step"))
           and math.isfinite(last) and last < first and png.exists()
           and math.isfinite(summary["param_err"]))
     emit("vec_main", ok=ok, launches=launches, first_loss=first, final_loss=last,
@@ -716,6 +736,255 @@ def phase_vec_times():
     emit("vec_times", ok=True, rows=rows)
     return rows
 
+# ---------------------------------------------------------------------------
+# The soft-visibility kernels (soft_tau > 0: the annealed inversion)
+# ---------------------------------------------------------------------------
+
+# (label, spheres, size, tau): config 5 at the anneal's soft size and at its
+# published size, at the first and last soft stages' taus, and bench.py's
+# 513-object shape.
+SOFT_CASES = (("config5_512_t0.08", 64, 512, 0.08), ("config5_512_t0.01", 64, 512, 0.01),
+              ("config5_1024_t0.08", 64, 1024, 0.08), ("config5_1024_t0.01", 64, 1024, 0.01),
+              ("513obj_512_t0.08", 512, 512, 0.08))
+SOFT_TIMED = ("config5_512_t0.08", "config5_1024_t0.08", "513obj_512_t0.08")
+
+
+def _soft_case(n_spheres, size, tau):
+    import dataclasses
+
+    scene, start, cfg = _vec_case(n_spheres, size)
+    return scene, start, dataclasses.replace(cfg, soft_tau=tau)
+
+
+def phase_soft_render():
+    """Row 7 against render_vec_soft_plain; returns the largest image
+    difference at config 5, 512^2, tau 0.08 (the anneal's first stage)."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
+
+    rows = []
+    for label, n_spheres, size, tau in SOFT_CASES:
+        scene, _, cfg = _soft_case(n_spheres, size, tau)
+        img_k = fused_vec_soft.render_vec_soft(scene, cfg)
+        img_p = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+        torch.cuda.synchronize()
+        if img_k.shape != img_p.shape or not torch.isfinite(img_k).all():
+            raise AssertionError(f"{label}: shape {tuple(img_k.shape)} or non-finite pixels")
+        err = (img_k - img_p).abs()
+        row = dict(case=label, frac_bad=float((err > 2e-3).float().mean()),
+                   mean_err=float(err.mean()), max_abs_err=float(err.max()),
+                   bit_identical=bool(torch.equal(img_k, img_p)))
+        rows.append(row)
+        if not (row["frac_bad"] < 1e-3 and row["mean_err"] < 1e-4):
+            raise AssertionError(f"soft forward kernel disagrees with its plain version: {row}")
+    emit("soft_render", ok=True, rows=rows)
+    return rows[0]["max_abs_err"]
+
+
+def phase_soft_step():
+    """Row 9 against autograd and the eager adjoint, and two calls bit for
+    bit; returns the largest gradient difference from autograd at config 5,
+    512^2, tau 0.08."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec_soft
+
+    rows, max_abs = [], None
+    for label, n_spheres, size, tau in SOFT_CASES:
+        scene, start, cfg = _soft_case(n_spheres, size, tau)
+        target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+        l_k, g_k = fused_vec_soft.loss_grad_vec_soft(start, cfg, target)
+        l_k2, g_k2 = fused_vec_soft.loss_grad_vec_soft(start, cfg, target)
+        torch.cuda.reset_peak_memory_stats()
+        l_p, g_p = fused_vec_soft.loss_grad_vec_soft_plain(start, cfg, target)
+        plain_peak = torch.cuda.max_memory_allocated()
+        l_a, g_a = fused_vec_soft.loss_grad_vec_soft_adjoint_eager(start, cfg, target)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
+                                torch.cat([l_k2.reshape(1), fused.flatten_scene(g_k2)])))
+        row = dict(case=label, loss=float(l_k), deterministic=same,
+                   plain_peak_gb=plain_peak / 1e9)
+        for name, (l_ref, g_ref) in (("autograd", (l_p, g_p)), ("adjoint_eager", (l_a, g_a))):
+            rel = abs(float(l_k) - float(l_ref)) / max(abs(float(l_ref)), 1e-12)
+            errs = _grad_errors(g_ref, g_k)
+            worst = max(errs, key=errs.get)
+            row[name] = dict(loss_rel=rel, worst_leaf=worst, worst_err=errs[worst])
+        rows.append(row)
+        for name in ("autograd", "adjoint_eager"):
+            if not (row[name]["loss_rel"] <= 1e-4 and row[name]["worst_err"] <= 1e-2):
+                raise AssertionError(f"soft step kernel disagrees with {name}: {row}")
+        if not same:
+            raise AssertionError(f"soft step kernel is not bit-identical from call to call: {row}")
+        if max_abs is None:
+            max_abs = max(float((a - b).abs().max())
+                          for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
+    emit("soft_step", ok=True, rows=rows)
+    return max_abs
+
+
+ANNEAL_TAUS = (0.08, 0.03, 0.01, 0.0)
+ANNEAL_ITERS = 20
+
+
+def phase_anneal_main():
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+
+    out_dir = REPO / "smoke_out"
+    png = out_dir / "final_anneal.png"
+    for k in _all_kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    summary = cli.main(["invert", "--config", "5", "--size", "1024", "--anneal",
+                        ",".join(str(t) for t in ANNEAL_TAUS), "--anneal-size", "512",
+                        "--lr", "2e-3", "--perturb", "0.03", "--iters", str(ANNEAL_ITERS),
+                        "--seed", "0", "--metrics", str(out_dir / "metrics_anneal.jsonl"),
+                        "-o", str(png)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _all_kernels()}
+    la = summary["losses"]
+    stages = [la[i * ANNEAL_ITERS:(i + 1) * ANNEAL_ITERS] for i in range(len(ANNEAL_TAUS))]
+    soft_fall = [st[-1] < st[0] for st, tau in zip(stages, ANNEAL_TAUS) if tau > 0]
+    expect = {"fused_vec_soft_render": 3, "fused_vec_soft_step": 3 * ANNEAL_ITERS,
+              "fused_vec_step": ANNEAL_ITERS, "fused_render": 0, "fused_step": 0}
+    ok = (all(launches[name] == n for name, n in expect.items())
+          and launches["fused_vec_render"] >= 2 and all(soft_fall)
+          and all(math.isfinite(x) for x in la) and png.exists()
+          and summary["param_err"] < summary["start_param_err"])
+    emit("anneal_main", ok=ok, launches=launches, expected=expect,
+         stage_first_last=[[st[0], st[-1]] for st in stages], soft_stages_fall=soft_fall,
+         start_param_err=summary["start_param_err"], param_err=summary["param_err"],
+         loop_seconds=summary["seconds"], wall_seconds=wall,
+         png_bytes=png.stat().st_size if png.exists() else 0)
+    if not ok:
+        raise AssertionError("the annealed path did not run through the expected kernels, a "
+                             "soft stage did not descend, or the parameters did not improve")
+    return launches
+
+
+# Soft terms, counted as the rest of OPS (csrc/soft_common.cuh,
+# csrc/fused_vec_soft_step.cu): the sigmoid of a ranked near miss; one soft
+# shadow test (a sphere's coverage of a shadow ray and its factor in the
+# product), counted for every sphere, live layer and light; its adjoint,
+# counted where the coverage is not gated to zero; a live sphere layer's
+# coverage and its adjoint; the composite and its adjoint per pixel.
+SOFT_OPS = dict(rank_sigmoid=4, shadow_soft=26, adj_shadow=42, layer_alpha=4,
+                adj_alpha=12, composite=18, adj_composite=30)
+
+
+def soft_work_counts(scene, cfg):
+    """What the soft kernels' work depends on in this run's data: live
+    layers by winner type, sphere-ray pairs that rank by their sigmoid, and
+    the soft shadow tests and the ones whose coverage is not gated to zero,
+    over both layers and every light."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops import pipeline_vec as pv
+
+    with torch.no_grad():
+        H, W = cfg.height, cfg.width
+        tau = cfg.soft_tau
+        sp, rc = scene.spheres, scene.rects
+        N, M, L = sp.count, rc.count, scene.lights.count
+        o, d = pl.primary_rays(scene, cfg)
+        c, r = pv.sphere_axis(sp)
+        oc = pl.vm.vsub(pv._lead(o), c)
+        b = pl.vm.vdot(oc, pv._lead(d))
+        disc = b * b - (pl.vm.vdot(oc, oc) - r * r)
+        t = -b - pl.vm.safe_sqrt(disc)
+        ranked = int(((~((disc > 0) & (t > pl.T_EPS))) & (-b > pl.T_EPS)).sum())
+        del oc, b, disc, t
+        live = live_sph = live_rect = gated = 0
+        for _, k in pv.two_layers(scene, o, d, tau):
+            tt, lv, at, _ = pv.soft_layer(scene, o, d, k, tau, (H, W))
+            live += int(lv.sum())
+            live_sph += int(((k >= 0) & (k < N)).sum())
+            live_rect += int((k >= N).sum())
+            so = pl.shadow_origin(o, d, tt, (at["nx"], at["ny"], at["nz"]))
+            for li in range(L):
+                ldir, dist = pl.light_geometry(scene.lights, li, so)
+                alpha = pv.sphere_shadow_alpha(c, r, pv._lead(so), pv._lead(ldir), dist[None],
+                                               tau)
+                gated += int(((alpha > 0) & lv[None]).sum())
+        shadows = live * L if cfg.shadows else 0
+    return dict(height=H, width=W, pixels=H * W, n_sph=N, n_rect=M, lights=L, live=live,
+                live_sph=live_sph, live_rect=live_rect, ranked_sigmoid=ranked,
+                shadow_tests=shadows * N, shadow_rect=shadows * M,
+                shadow_gated=gated if cfg.shadows else 0)
+
+
+def soft_render_ops(c):
+    return (_common_ops(c) + c["ranked_sigmoid"] * SOFT_OPS["rank_sigmoid"]
+            + c["live_sph"] * (OPS["surf_sphere"] + SOFT_OPS["layer_alpha"])
+            + c["live_rect"] * OPS["surf_rect"]
+            + c["live"] * (OPS["so"] + c["lights"] * (OPS["light"] + OPS["phong"]))
+            + c["shadow_tests"] * SOFT_OPS["shadow_soft"] + c["shadow_rect"] * OPS["rect_shadow"]
+            + c["pixels"] * SOFT_OPS["composite"])
+
+
+def soft_step_ops(c):
+    return (soft_render_ops(c) + OPS["cam_chain"]
+            + c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] + SOFT_OPS["adj_composite"]
+                             + OPS["adj_camera"] + OPS["sum_hit"])
+            + c["live"] * (OPS["adj_base"] + c["lights"] * (OPS["adj_light"] + OPS["sum_light"]))
+            + c["live_sph"] * (OPS["adj_sphere"] + SOFT_OPS["adj_alpha"] + OPS["sum_sphere"])
+            + c["live_rect"] * (OPS["adj_rect"] + OPS["sum_rect"])
+            + c["shadow_gated"] * SOFT_OPS["adj_shadow"])
+
+
+def phase_soft_times():
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec, fused_vec_soft
+
+    stream = torch.cuda.current_stream().cuda_stream
+    saved = {k.name: k.launches for k in _all_kernels()}
+    rows = {}
+    for label, n_spheres, size, tau in SOFT_CASES:
+        if label not in SOFT_TIMED:
+            continue
+        scene, start, cfg = _soft_case(n_spheres, size, tau)
+        H, W = cfg.height, cfg.width
+        target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+        glob, sph, rct = fused_vec_soft._cuda_inputs(start, cfg)
+        geom = fused_vec._geometry(start, cfg)
+        img = torch.empty((H, W, 3), device="cuda")
+        scratch = torch.empty((fused_vec_soft.SOFT_STEP.lib().rrt_soft_step_scratch_floats(
+            *geom[2:7]),), device="cuda")
+        out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
+        w = 1.0 / (H * W * 3)
+        render_ms = time_ms(lambda: fused_vec_soft.SOFT_RENDER.call(
+            "rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau,
+            img.data_ptr(), stream))
+        step_ms = time_ms(lambda: fused_vec_soft.SOFT_STEP.call(
+            "rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau,
+            target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream))
+        render_plain_ms = time_ms(lambda: fused_vec_soft.render_vec_soft_plain(start, cfg),
+                                  reps=5, warmup=1)
+        step_plain_ms = time_ms(
+            lambda: fused_vec_soft.loss_grad_vec_soft_plain(start, cfg, target), reps=5, warmup=1)
+        c = soft_work_counts(start, cfg)
+        Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
+        in_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
+        r_bound = bound(soft_render_ops(c), in_rows + 4 * H * W * 3)
+        s_bound = bound(soft_step_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad))
+        rows[label] = dict(render_ms=render_ms, step_ms=step_ms, render_plain_ms=render_plain_ms,
+                           step_plain_ms=step_plain_ms, render_bound=r_bound, step_bound=s_bound,
+                           render_ops=soft_render_ops(c), step_ops=soft_step_ops(c), work=c,
+                           step_rays_per_s=H * W / (step_ms * 1e-3))
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    emit("soft_times", ok=True, rows=rows)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -745,6 +1014,10 @@ def main() -> int:
     run_phase("refuse", phase_refuse)
     vec_launches = run_phase("vec_main", phase_vec_main)
     vt = run_phase("vec_times", phase_vec_times)["config5_1024"]
+    soft_render_err = run_phase("soft_render", phase_soft_render)
+    soft_step_err = run_phase("soft_step", phase_soft_step)
+    anneal_launches = run_phase("anneal_main", phase_anneal_main)
+    st = run_phase("soft_times", phase_soft_times)["config5_512_t0.08"]
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -757,6 +1030,16 @@ def main() -> int:
              launches=vec_launches["fused_vec_render"], max_abs_err=vec_render_err,
              ms=vt["render_ms"], plain_ms=vt["render_plain_ms"], bound_ms=vt["render_bound"][0],
              bound_by=vt["render_bound"][1], library_ms=None),
+        dict(name="fused_vec_soft_step", route="cuda", source=src + "fused_vec_soft_step.cu",
+             replaces="reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:547",
+             launches=anneal_launches["fused_vec_soft_step"], max_abs_err=soft_step_err,
+             ms=st["step_ms"], plain_ms=st["step_plain_ms"], bound_ms=st["step_bound"][0],
+             bound_by=st["step_bound"][1], library_ms=None),
+        dict(name="fused_vec_soft_render", route="cuda", source=src + "fused_vec_soft_render.cu",
+             replaces="reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:494",
+             launches=anneal_launches["fused_vec_soft_render"], max_abs_err=soft_render_err,
+             ms=st["render_ms"], plain_ms=st["render_plain_ms"], bound_ms=st["render_bound"][0],
+             bound_by=st["render_bound"][1], library_ms=None),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

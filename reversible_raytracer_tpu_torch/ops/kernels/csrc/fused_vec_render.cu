@@ -34,12 +34,6 @@ using namespace rrt;
 
 namespace {
 
-inline size_t render_smem(int ns_pad, int nr_pad, int n_light) {
-  return (size_t)(make_glayout(n_light).Sg + ns_pad * P_SPH + nr_pad * P_RCT) * sizeof(float);
-}
-
-inline int pad16(int n) { return ((n > 1 ? n : 1) + 15) / 16 * 16; }
-
 __global__ void __launch_bounds__(BLOCK_THREADS)
     vec_render_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                       const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,

@@ -52,8 +52,6 @@ struct StepPlan {
   size_t smem;
 };
 
-inline int pad16(int n) { return ((n > 1 ? n : 1) + 15) / 16 * 16; }
-
 inline StepPlan step_plan(int ns_pad, int nr_pad, int n_light) {
   StepPlan s;
   s.Sg = make_glayout(n_light).Sg;
@@ -165,21 +163,6 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     prow[s] = acc;
   }
   for (int s = tid; s < OROW; s += BLOCK_THREADS) prow[GROW + s] = orow[s];
-}
-
-// out = [sq, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)];
-// then the camera chain, once.
-__global__ void vec_finalize_kernel(const float* __restrict__ rowsum,
-                                    const float* __restrict__ glob, GLayout gl, int OROW,
-                                    float* __restrict__ out) {
-  const int GROW = 1 + gl.Sg + CAM_EXTRA;
-  for (int s = threadIdx.x; s < 1 + gl.Sg; s += blockDim.x) out[s] = rowsum[s];
-  for (int s = threadIdx.x; s < OROW; s += blockDim.x) out[1 + gl.Sg + s] = rowsum[GROW + s];
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  camera_chain(rowsum + 1 + gl.Sg, ld3(glob + gl.c_eye), ld3(glob + gl.c_look),
-               ld3(glob + gl.c_up), glob[gl.c_fov], out + 1, gl.c_eye, gl.c_look, gl.c_up,
-               gl.c_fov);
 }
 
 constexpr int REDUCE_RY = 32;  // row subsets per slot in the reduction

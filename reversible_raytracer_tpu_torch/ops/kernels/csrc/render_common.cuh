@@ -1,7 +1,8 @@
-// Device code shared by the four kernels: the two scene layouts, the
-// per-pixel camera ray, sphere and rect intersection, the first-wins
-// nearest-hit loop, the any-hit shadow test, Phong shading, and the fused
-// training step's per-pixel forward and hand-written adjoint.
+// Device code shared by the kernels: the two scene layouts, the per-pixel
+// camera ray, sphere and rect intersection, the first-wins nearest-hit
+// loop, the any-hit shadow test, Phong shading, the fused training step's
+// per-pixel forward and hand-written adjoint, and the steps' reduction and
+// camera-chain passes. soft_common.cuh adds the soft-visibility code.
 //
 // Two layouts of the same scene, read through one interface, so that every
 // kernel runs the same arithmetic:
@@ -774,6 +775,30 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partials, int nrows
     for (int y = 0; y < RY; ++y) t += acc[y][threadIdx.x];
     rowsum[slot] = t;
   }
+}
+
+// out = [sq, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)];
+// then the camera chain, once.
+__global__ void vec_finalize_kernel(const float* __restrict__ rowsum,
+                                    const float* __restrict__ glob, GLayout gl, int OROW,
+                                    float* __restrict__ out) {
+  const int GROW = 1 + gl.Sg + CAM_EXTRA;
+  for (int s = threadIdx.x; s < 1 + gl.Sg; s += blockDim.x) out[s] = rowsum[s];
+  for (int s = threadIdx.x; s < OROW; s += blockDim.x) out[1 + gl.Sg + s] = rowsum[GROW + s];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  camera_chain(rowsum + 1 + gl.Sg, ld3(glob + gl.c_eye), ld3(glob + gl.c_look),
+               ld3(glob + gl.c_up), glob[gl.c_fov], out + 1, gl.c_eye, gl.c_look, gl.c_up,
+               gl.c_fov);
+}
+
+// Rows of a packed group after padding (one dummy chunk for an empty group).
+inline int pad16(int n) { return ((n > 1 ? n : 1) + 15) / 16 * 16; }
+
+// Shared memory of a forward kernel that stages the globals and the packed
+// sphere and rect rows.
+inline size_t render_smem(int ns_pad, int nr_pad, int n_light) {
+  return (size_t)(make_glayout(n_light).Sg + ns_pad * P_SPH + nr_pad * P_RCT) * sizeof(float);
 }
 
 inline dim3 pixel_grid(int H, int W) {

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses as dc
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from .. import vecmath as vm
 from ..pipeline import (
     BIG,
     SHADOW_EPS,
+    T_EPS,
     RenderConfig,
     camera_basis,
     intersect_rect,
@@ -356,6 +358,241 @@ def _nearest_chain(scene, o, d):
     return t_best, kbest
 
 
+def primary_ray_terms(scene, cfg: RenderConfig):
+    """The perspective primary rays with the intermediates their adjoint
+    needs: o = eye, d = normalize(dt), dt = fwd + right sx + up sy."""
+    H, W = cfg.height, cfg.width
+    like = dict(device=scene.device, dtype=scene.ambient.dtype)
+    right, up, fwd = camera_basis(scene.camera)
+    tanf = torch.tan(scene.camera.fov_deg * (math.pi / 180.0) * 0.5)
+    aspect = W / H
+    ii = torch.arange(H, **like)[:, None].expand(H, W)
+    jj = torch.arange(W, **like)[None, :].expand(H, W)
+    ax = (jj + 0.5) * (2.0 / W) - 1.0
+    ay = 1.0 - (ii + 0.5) * (2.0 / H)
+    sx = ax * tanf * aspect
+    sy = ay * tanf
+    dt = vm.vadd(fwd, vm.vadd(vm.vscale(right, sx), vm.vscale(up, sy)))
+    n2d = vm.vdot(dt, dt)
+    inv_d = torch.rsqrt(torch.where(n2d > 1e-12, n2d, 1.0))
+    return SimpleNamespace(o=vm.vbroadcast(vm.splat(scene.camera.eye), (H, W)),
+                           d=vm.vscale(dt, inv_d), dt=dt, n2d=n2d, inv_d=inv_d, ax=ax, ay=ay,
+                           sx=sx, sy=sy, aspect=aspect, right=right, up=up)
+
+
+def camera_grads(cam, ray, g_o, g_d):
+    """(eye, look_at, up, fov_deg) cotangents from the per-pixel cotangents
+    of the ray origin and direction (zero where nothing was hit)."""
+    g_dt = _normalize_adjoint(ray.dt, ray.inv_d, ray.n2d, g_d)
+    G_fwd = tuple(torch.sum(g) for g in g_dt)
+    G_right = tuple(torch.sum(g * ray.sx) for g in g_dt)
+    G_up = tuple(torch.sum(g * ray.sy) for g in g_dt)
+    G_tan = torch.sum(vm.vdot(g_dt, ray.right) * ray.ax * ray.aspect
+                      + vm.vdot(g_dt, ray.up) * ray.ay)
+    g_eye, g_look, g_uph, g_fov = camera_adjoint(cam, G_fwd, G_right, G_up, G_tan)
+    return g_eye + torch.stack([torch.sum(g) for g in g_o]), g_look, g_uph, g_fov
+
+
+def light_terms(lights, li: int, so, n, d, base, kd, ksp, shin):
+    """Light ``li``'s geometry from the shadow origin ``so`` and its
+    unshadowed Phong term q (per colour channel), with intermediates."""
+    f = SimpleNamespace(lcol=vm.splat(lights.color[li]))
+    f.lvec = vm.vsub(vm.splat(lights.position[li]), so)
+    f.dist2 = vm.vdot(f.lvec, f.lvec)
+    f.dist = torch.sqrt(torch.where(f.dist2 > 0.0, f.dist2, 1.0))
+    f.inv_l = 1.0 / torch.where(f.dist > 1e-9, f.dist, 1.0)
+    f.ldir = vm.vscale(f.lvec, f.inv_l)
+    f.ndl = vm.vdot(n, f.ldir)
+    f.ndotl = vm.vmax0(f.ndl)
+    f.refl = vm.vsub(vm.vscale(n, 2.0 * f.ndotl), f.ldir)
+    f.rdv = vm.vdot(f.refl, vm.vneg(d))
+    f.rdotv = vm.vmax0(f.rdv)
+    f.pw = vm.safe_pow(f.rdotv, shin)
+    spec = ksp * f.pw
+    f.q = tuple(kd * f.ndotl * base[c] + spec for c in range(3))
+    return f
+
+
+def light_adjoint(f, gh, vis, n, d, base, kd, ksp, shin):
+    """Per-pixel cotangents of light ``f``'s term vis * q * lcol, given the
+    colour cotangent ``gh``: of lcol, vis, kd, ks, shin, base, n, d and the
+    light direction."""
+    view = vm.vneg(d)
+    g = SimpleNamespace(lcol=tuple(gh[c] * vis * f.q[c] for c in range(3)),
+                        vis=sum(gh[c] * f.q[c] * f.lcol[c] for c in range(3)))
+    g_q = tuple(gh[c] * vis * f.lcol[c] for c in range(3))
+    g_spec = g_q[0] + g_q[1] + g_q[2]
+    g.kd = sum(g_q[c] * f.ndotl * base[c] for c in range(3))
+    g_ndotl = sum(g_q[c] * kd * base[c] for c in range(3))
+    g.base = tuple(g_q[c] * kd * f.ndotl for c in range(3))
+    g.ks = g_spec * f.pw
+    g_pw = g_spec * ksp
+    pos = f.rdotv > 0.0
+    safe_r = torch.where(pos, f.rdotv, 1.0)
+    g_rdotv = torch.where(pos, g_pw * f.pw * shin / safe_r, 0.0)
+    g.shin = torch.where(pos, g_pw * f.pw * torch.log(safe_r), 0.0)
+    g_rdv = g_rdotv * _maxgrad(f.rdv)
+    g_refl = vm.vscale(view, g_rdv)
+    g.d = vm.vneg(vm.vscale(f.refl, g_rdv))
+    g_ndotl = g_ndotl + 2.0 * vm.vdot(g_refl, n)
+    g_ndl = g_ndotl * _maxgrad(f.ndl)
+    g.n = vm.vadd(vm.vscale(g_refl, 2.0 * f.ndotl), vm.vscale(f.ldir, g_ndl))
+    g.ldir = vm.vsub(vm.vscale(n, g_ndl), g_refl)
+    return g
+
+
+def light_geometry_adjoint(f, g_ldir):
+    """Cotangent of lvec = light position - shadow origin, given that of
+    ldir = lvec / guarded(dist), dist = guarded sqrt(|lvec|^2)."""
+    g_lvec = vm.vscale(g_ldir, f.inv_l)
+    g_inv = vm.vdot(g_ldir, f.lvec)
+    g_dist = torch.where(f.dist > 1e-9, -g_inv * f.inv_l * f.inv_l, 0.0)
+    g_dist2 = torch.where(f.dist2 > 0.0, g_dist * 0.5 / f.dist, 0.0)
+    return vm.vadd(g_lvec, vm.vscale(f.lvec, 2.0 * g_dist2))
+
+
+def sphere_winner_adjoint(o, d, t, c, r, g_t, g_n, soft=None):
+    """Cotangents (o, d, center, radius) of a winning sphere's n = (o + d t
+    - c) / r and t = -b - sqrt(disc) (-b for a soft layer's near miss: no
+    sqrt term where the ray misses). ``soft = (tau, g_alpha)`` adds the
+    coverage alpha = sigmoid(disc / (tau r^2))."""
+    inv_r = 1.0 / r
+    pl = vm.vsub(vm.vadd(o, vm.vscale(d, t)), c)
+    g_pl = vm.vscale(g_n, inv_r)
+    g_r = -vm.vdot(g_n, pl) * inv_r * inv_r
+    g_o = g_pl
+    g_d = vm.vscale(g_pl, t)
+    g_ts = g_t + vm.vdot(g_pl, d)
+    g_c = vm.vneg(g_pl)
+    oc = vm.vsub(o, c)
+    b = vm.vdot(oc, d)
+    disc = b * b - (vm.vdot(oc, oc) - r * r)
+    sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    hit = (disc > 0.0) & (-b - sq > T_EPS)
+    g_b = -g_ts
+    g_disc = torch.where(hit, -g_ts * 0.5 / sq, 0.0)
+    if soft is not None:
+        tau, g_alpha = soft
+        den = tau * r * r
+        s = torch.sigmoid(disc / den)
+        g_x = g_alpha * s * (1.0 - s)
+        g_disc = g_disc + g_x / den
+        g_r = g_r - g_x * disc / (den * den) * (2.0 * tau * r)
+    g_b = g_b + g_disc * 2.0 * b
+    g_cc = -g_disc
+    g_oc = vm.vadd(vm.vscale(oc, 2.0 * g_cc), vm.vscale(d, g_b))
+    g_r = g_r - g_cc * 2.0 * r
+    g_d = vm.vadd(g_d, vm.vscale(oc, g_b))
+    g_o = vm.vadd(g_o, g_oc)
+    g_c = vm.vsub(g_c, g_oc)
+    return g_o, g_d, g_c, g_r
+
+
+def rect_winner_adjoint(o, d, p0, eu, ev, is_rct, g_t, g_n):
+    """Cotangents (o, d, origin, edge_u, edge_v) of a winning rect's t =
+    ((p0 - o) . nraw) / (d . nraw) and n = facing * normalize(nraw), nraw =
+    edge_u x edge_v (facing is a sign with no gradient)."""
+    nraw = vm.vcross(eu, ev)
+    nn2 = vm.vdot(nraw, nraw)
+    inv_n = torch.rsqrt(torch.where(nn2 > 1e-12, nn2, 1.0))
+    facing = torch.where(vm.vdot(vm.vscale(nraw, inv_n), d) < 0.0, 1.0, -1.0)
+    denom = torch.where(is_rct, vm.vdot(d, nraw), 1.0)
+    num = vm.vdot(vm.vsub(p0, o), nraw)
+    g_num = g_t / denom
+    g_den = -g_t * num / (denom * denom)
+    g_p0 = vm.vscale(nraw, g_num)
+    g_nraw = vm.vscale(vm.vsub(p0, o), g_num)
+    g_nraw = vm.vadd(g_nraw, vm.vscale(d, g_den))
+    g_nraw = vm.vadd(g_nraw, _normalize_adjoint(nraw, inv_n, nn2, vm.vscale(g_n, facing)))
+    return (vm.vneg(g_p0), vm.vscale(nraw, g_den), g_p0, vm.vcross(ev, g_nraw),
+            vm.vcross(g_nraw, eu))
+
+
+def gather_rows(leaf, idx, zero, fill=0.0):
+    """Per-pixel rows of a stacked leaf (a Vec3 for (K, 3) leaves); the
+    constant ``fill`` for an empty group."""
+    if leaf.shape[0] == 0:
+        return zero + fill if leaf.dim() == 1 else (zero + fill,) * 3
+    g = leaf[idx]
+    return g if leaf.dim() == 1 else (g[..., 0], g[..., 1], g[..., 2])
+
+
+def winner_rows(count, idx, mask, vals, like):
+    """Sum per-pixel values into the row of each pixel's winner."""
+    v = torch.stack([torch.where(mask, x, 0.0) for x in vals], dim=-1)
+    out = torch.zeros((count, len(vals)), **like)
+    return out.index_add_(0, idx.reshape(-1), v.reshape(-1, len(vals)))
+
+
+def material_grads(mat_like, count, idx, mask, use2, g, like):
+    """The material leaves' gradients of the winners: ``g`` holds the
+    per-pixel cotangents base (Vec3), ka, kd, ks, shin; base goes to color
+    or color2 as the checker picked."""
+    rows = winner_rows(count, idx, mask, [g.ka, g.kd, g.ks, g.shin], like)
+    return dc.replace(mat_like,
+                      color=winner_rows(count, idx, mask & ~use2, g.base, like),
+                      color2=winner_rows(count, idx, mask & use2, g.base, like),
+                      ka=rows[:, 0], kd=rows[:, 1], ks=rows[:, 2], shininess=rows[:, 3])
+
+
+def winner_geometry(scene, k, zero):
+    """The per-pixel winner ``k`` (spheres 0..N-1, rects N..N+M-1, -1 for
+    none): its masks ``is_sph``/``is_rct``/``hit``, its clamped rows
+    ``ks``/``kr``, and its geometry ``sc``, ``sr``, ``p0``, ``eu``, ``ev``."""
+    sp, rc = scene.spheres, scene.rects
+    N, M = sp.count, rc.count
+    w = SimpleNamespace(is_sph=(k >= 0) & (k < N), is_rct=k >= N)
+    w.hit = w.is_sph | w.is_rct
+    w.ks = k.clamp(0, max(N - 1, 0))
+    w.kr = (k - N).clamp(0, max(M - 1, 0))
+    w.sc = gather_rows(sp.center, w.ks, zero)
+    w.sr = gather_rows(sp.radius, w.ks, zero, 1.0)
+    w.p0, w.eu, w.ev = (gather_rows(getattr(rc, f), w.kr, zero)
+                        for f in ("origin", "edge_u", "edge_v"))
+    return w
+
+
+def winner_surface(scene, w, o, d, t, zero):
+    """Add to ``w`` (from `winner_geometry`) the winner's surface at ray
+    distance ``t``: the normal ``n`` (a sphere's is (p - c) / r), the
+    checker pick ``use2``, the ``base`` colour, ``ka``/``kd``/``ksp``/
+    ``shin``, and ``pick(sphere_value, rect_value, miss_value)``."""
+    sp, rc = scene.spheres, scene.rects
+    p = vm.vadd(o, vm.vscale(d, t))
+    s_pl = vm.vsub(p, w.sc)
+    s_n = vm.vscale(s_pl, 1.0 / w.sr)
+    s_par = torch.remainder(sum(torch.floor(c * gather_rows(sp.material.checker_scale, w.ks, zero))
+                                for c in s_pl), 2.0)
+    s_use2 = gather_rows(sp.material.checker, w.ks, zero) * s_par > 0.5
+
+    nu = vm.vnormalize(vm.vcross(w.eu, w.ev))
+    r_n = vm.vscale(nu, torch.where(vm.vdot(nu, d) < 0.0, 1.0, -1.0))
+    rel = vm.vsub(p, w.p0)
+    ra = vm.vdot(rel, w.eu) * (1.0 / vm.vdot(w.eu, w.eu))
+    rb = vm.vdot(rel, w.ev) * (1.0 / vm.vdot(w.ev, w.ev))
+    r_cs = gather_rows(rc.material.checker_scale, w.kr, zero)
+    r_par = torch.remainder(torch.floor(ra * r_cs) + torch.floor(rb * r_cs), 2.0)
+    r_use2 = gather_rows(rc.material.checker, w.kr, zero) * r_par > 0.5
+
+    def pick(sv, rv, miss):
+        return torch.where(w.is_sph, sv, torch.where(w.is_rct, rv, miss))
+
+    def mat(name, miss=0.0):
+        return pick(gather_rows(getattr(sp.material, name), w.ks, zero),
+                    gather_rows(getattr(rc.material, name), w.kr, zero), zero + miss)
+
+    w.pick = pick
+    w.n = tuple(pick(a, b, zero) for a, b in zip(s_n, r_n))
+    w.use2 = torch.where(w.is_sph, s_use2, r_use2)
+    w.base = tuple(pick(torch.where(s_use2, a2, a1), torch.where(r_use2, b2, b1), zero)
+                   for a1, a2, b1, b2 in zip(gather_rows(sp.material.color, w.ks, zero),
+                                             gather_rows(sp.material.color2, w.ks, zero),
+                                             gather_rows(rc.material.color, w.kr, zero),
+                                             gather_rows(rc.material.color2, w.kr, zero)))
+    w.ka, w.kd, w.ksp, w.shin = mat("ka"), mat("kd"), mat("ks"), mat("shininess", 1.0)
+    return w
+
+
 def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
     """The per-pixel step adjoint; ``nearest(scene, o, d) -> (t, k)`` and
     ``occluded_fn`` are the trace's nearest hit and any-hit test."""
@@ -367,106 +604,28 @@ def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
     zero = torch.zeros((H, W), **like)
 
     # ---- forward: camera ray (perspective), kept with its intermediates
-    right, up, fwd = camera_basis(cam)
-    tanf = torch.tan(cam.fov_deg * (math.pi / 180.0) * 0.5)
-    aspect = W / H
-    ii = torch.arange(H, **like)[:, None].expand(H, W)
-    jj = torch.arange(W, **like)[None, :].expand(H, W)
-    ax = (jj + 0.5) * (2.0 / W) - 1.0
-    ay = 1.0 - (ii + 0.5) * (2.0 / H)
-    sx = ax * tanf * aspect
-    sy = ay * tanf
-    dt = vm.vadd(fwd, vm.vadd(vm.vscale(right, sx), vm.vscale(up, sy)))
-    n2d = vm.vdot(dt, dt)
-    inv_d = torch.rsqrt(torch.where(n2d > 1e-12, n2d, 1.0))
-    d = vm.vscale(dt, inv_d)
-    o = vm.vbroadcast(vm.splat(cam.eye), (H, W))
+    ray = primary_ray_terms(scene, cfg)
+    o, d = ray.o, ray.d
 
-    # ---- nearest hit: winner index kbest (spheres 0..N-1, rects N..N+M-1)
-    t_best, kbest = nearest(scene, o, d)
-    t = t_best
-    is_sph = (kbest >= 0) & (kbest < N)
-    is_rct = kbest >= N
-    hit = is_sph | is_rct
-
-    # ---- winner attributes (gathered by kbest)
-    ks_ = kbest.clamp(0, max(N - 1, 0))
-    kr_ = (kbest - N).clamp(0, max(M - 1, 0))
-
-    def gather(leaf, idx, fill=0.0):
-        if leaf.shape[0] == 0:
-            return zero + fill if leaf.dim() == 1 else (zero + fill,) * 3
-        g = leaf[idx]
-        return g if leaf.dim() == 1 else (g[..., 0], g[..., 1], g[..., 2])
-
-    sc = gather(sp.center, ks_)
-    sr = gather(sp.radius, ks_, 1.0)
-    p = vm.vadd(o, vm.vscale(d, t))
-    s_pl = vm.vsub(p, sc)
-    s_invr = 1.0 / sr
-    s_n = vm.vscale(s_pl, s_invr)
-    s_par = torch.remainder(sum(torch.floor(c * gather(sp.material.checker_scale, ks_))
-                                for c in s_pl), 2.0)
-    s_use2 = gather(sp.material.checker, ks_) * s_par > 0.5
-
-    p0 = gather(rc.origin, kr_)
-    eu = gather(rc.edge_u, kr_)
-    ev = gather(rc.edge_v, kr_)
-    nraw = vm.vcross(eu, ev)
-    nn2 = vm.vdot(nraw, nraw)
-    inv_n = torch.rsqrt(torch.where(nn2 > 1e-12, nn2, 1.0))
-    nu = vm.vscale(nraw, inv_n)
-    facing = torch.where(vm.vdot(nu, d) < 0.0, 1.0, -1.0)
-    r_n = vm.vscale(nu, facing)
-    rel = vm.vsub(p, p0)
-    ra = vm.vdot(rel, eu) * (1.0 / vm.vdot(eu, eu))
-    rb = vm.vdot(rel, ev) * (1.0 / vm.vdot(ev, ev))
-    r_cs = gather(rc.material.checker_scale, kr_)
-    r_par = torch.remainder(torch.floor(ra * r_cs) + torch.floor(rb * r_cs), 2.0)
-    r_use2 = gather(rc.material.checker, kr_) * r_par > 0.5
-
-    def pick(sv, rv, miss):
-        return torch.where(is_sph, sv, torch.where(is_rct, rv, miss))
-
-    def mat(name, miss=0.0):
-        return pick(gather(getattr(sp.material, name), ks_),
-                    gather(getattr(rc.material, name), kr_), zero + miss)
-
-    n = tuple(pick(a, b, zero) for a, b in zip(s_n, r_n))
-    use2 = torch.where(is_sph, s_use2, r_use2)
-    base = tuple(pick(torch.where(s_use2, a2, a1), torch.where(r_use2, b2, b1), zero)
-                 for a1, a2, b1, b2 in zip(gather(sp.material.color, ks_),
-                                           gather(sp.material.color2, ks_),
-                                           gather(rc.material.color, kr_),
-                                           gather(rc.material.color2, kr_)))
-    ka, kd, ksp, shin = mat("ka"), mat("kd"), mat("ks"), mat("shininess", 1.0)
+    # ---- nearest hit and the winner's attributes
+    t, kbest = nearest(scene, o, d)
+    w = winner_surface(scene, winner_geometry(scene, kbest, zero), o, d, t, zero)
+    is_sph, is_rct, hit, ks_, kr_ = w.is_sph, w.is_rct, w.hit, w.ks, w.kr
+    sc, sr, p0, eu, ev = w.sc, w.sr, w.p0, w.eu, w.ev
+    pick, n, use2, base = w.pick, w.n, w.use2, w.base
+    ka, kd, ksp, shin = w.ka, w.kd, w.ksp, w.shin
 
     # ---- shade forward
     amb = vm.splat(scene.ambient)
     col = vm.vscale(vm.vmul(base, amb), ka)
-    view = vm.vneg(d)
     so = vm.vadd(vm.vadd(o, vm.vscale(d, t)), vm.vscale(n, SHADOW_EPS))
     per_light = []
     for li in range(L):
-        lpos, lcol = vm.splat(lt.position[li]), vm.splat(lt.color[li])
-        lvec = vm.vsub(lpos, so)
-        dist2 = vm.vdot(lvec, lvec)
-        dist = torch.sqrt(torch.where(dist2 > 0.0, dist2, 1.0))
-        inv_l = 1.0 / torch.where(dist > 1e-9, dist, 1.0)
-        ldir = vm.vscale(lvec, inv_l)
-        vis = (torch.where(occluded_fn(scene, so, ldir, dist), 0.0, 1.0)
+        f = light_terms(lt, li, so, n, d, base, kd, ksp, shin)
+        vis = (torch.where(occluded_fn(scene, so, f.ldir, f.dist), 0.0, 1.0)
                if cfg.shadows else zero + 1.0)
-        ndl = vm.vdot(n, ldir)
-        ndotl = vm.vmax0(ndl)
-        refl = vm.vsub(vm.vscale(n, 2.0 * ndotl), ldir)
-        rdv = vm.vdot(refl, view)
-        rdotv = vm.vmax0(rdv)
-        pw = vm.safe_pow(rdotv, shin)
-        spec = ksp * pw
-        q = tuple(kd * ndotl * base[c] + spec for c in range(3))
-        col = vm.vadd(col, tuple(vis * q[c] * lcol[c] for c in range(3)))
-        per_light.append((lvec, dist2, dist, inv_l, ldir, vis, ndl, ndotl, refl,
-                          rdv, rdotv, pw, q, lcol))
+        col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
+        per_light.append((f, vis))
     bg = vm.splat(scene.background)
     pre = tuple(torch.where(hit, c, b) for c, b in zip(col, bg))
     img = tuple(vm.clip01(c) for c in pre) if cfg.clip else pre
@@ -480,41 +639,21 @@ def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
     # ---- shade adjoint (hit pixels; everything below is masked by hit)
     gh = tuple(torch.where(hit, g, 0.0) for g in gc)
     g_bg = tuple(torch.sum(torch.where(hit, 0.0, g)) for g in gc)
-    g_base = tuple(gh[c] * amb[c] * ka for c in range(3))
+    g = SimpleNamespace(base=tuple(gh[c] * amb[c] * ka for c in range(3)),
+                        ka=sum(gh[c] * base[c] * amb[c] for c in range(3)),
+                        kd=zero, ks=zero, shin=zero)
     g_amb = tuple(torch.sum(gh[c] * base[c] * ka) for c in range(3))
-    g_ka = sum(gh[c] * base[c] * amb[c] for c in range(3))
-    g_kd, g_ks, g_shin = zero, zero, zero
     g_n, g_d, g_so = (zero,) * 3, (zero,) * 3, (zero,) * 3
     g_lpos, g_lcol = [], []
-    for (lvec, dist2, dist, inv_l, ldir, vis, ndl, ndotl, refl, rdv, rdotv, pw, q,
-         lcol) in per_light:
-        g_lcol.append(tuple(torch.sum(gh[c] * vis * q[c]) for c in range(3)))
-        g_q = tuple(gh[c] * vis * lcol[c] for c in range(3))
-        g_spec = g_q[0] + g_q[1] + g_q[2]
-        g_kd = g_kd + sum(g_q[c] * ndotl * base[c] for c in range(3))
-        g_ndotl = sum(g_q[c] * kd * base[c] for c in range(3))
-        g_base = tuple(g_base[c] + g_q[c] * kd * ndotl for c in range(3))
-        g_ks = g_ks + g_spec * pw
-        g_pw = g_spec * ksp
-        pos = rdotv > 0.0
-        safe_r = torch.where(pos, rdotv, 1.0)
-        g_rdotv = torch.where(pos, g_pw * pw * shin / safe_r, 0.0)
-        g_shin = g_shin + torch.where(pos, g_pw * pw * torch.log(safe_r), 0.0)
-        g_rdv = g_rdotv * _maxgrad(rdv)
-        g_refl = vm.vscale(view, g_rdv)
-        g_d = vm.vsub(g_d, vm.vscale(refl, g_rdv))
-        g_n = vm.vadd(g_n, vm.vscale(g_refl, 2.0 * ndotl))
-        g_ndotl = g_ndotl + 2.0 * vm.vdot(g_refl, n)
-        g_ldir = vm.vneg(g_refl)
-        g_ndl = g_ndotl * _maxgrad(ndl)
-        g_n = vm.vadd(g_n, vm.vscale(ldir, g_ndl))
-        g_ldir = vm.vadd(g_ldir, vm.vscale(n, g_ndl))
-        g_lvec = vm.vscale(g_ldir, inv_l)
-        g_inv = vm.vdot(g_ldir, lvec)
-        g_dist = torch.where(dist > 1e-9, -g_inv * inv_l * inv_l, 0.0)
-        g_dist2 = torch.where(dist2 > 0.0, g_dist * 0.5 / dist, 0.0)
-        g_lvec = vm.vadd(g_lvec, vm.vscale(lvec, 2.0 * g_dist2))
-        g_lpos.append(tuple(torch.sum(g) for g in g_lvec))
+    for f, vis in per_light:
+        gl = light_adjoint(f, gh, vis, n, d, base, kd, ksp, shin)
+        g_lcol.append(tuple(torch.sum(x) for x in gl.lcol))
+        g.kd, g.ks, g.shin = g.kd + gl.kd, g.ks + gl.ks, g.shin + gl.shin
+        g.base = vm.vadd(g.base, gl.base)
+        g_d = vm.vadd(g_d, gl.d)
+        g_n = vm.vadd(g_n, gl.n)
+        g_lvec = light_geometry_adjoint(f, gl.ldir)
+        g_lpos.append(tuple(torch.sum(x) for x in g_lvec))
         g_so = vm.vsub(g_so, g_lvec)
     # so = (o + d t) + n * SHADOW_EPS
     g_o = g_so
@@ -522,82 +661,33 @@ def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
     g_t = vm.vdot(g_so, d)
     g_n = vm.vadd(g_n, vm.vscale(g_so, SHADOW_EPS))
 
-    # ---- winning sphere: n = (o + d t - c) / r, t = -b - sqrt(b^2 - |oc|^2 + r^2)
-    g_pl = vm.vscale(g_n, s_invr)
-    g_r = -vm.vdot(g_n, s_pl) * s_invr * s_invr
-    s_go = g_pl
-    s_gd = vm.vscale(g_pl, t)
-    s_gt = g_t + vm.vdot(g_pl, d)
-    g_c = vm.vneg(g_pl)
-    oc = vm.vsub(o, sc)
-    b = vm.vdot(oc, d)
-    disc = b * b - (vm.vdot(oc, oc) - sr * sr)
-    g_b = -s_gt
-    g_disc = torch.where(disc > 0.0, -s_gt * 0.5 / torch.sqrt(torch.where(disc > 0.0, disc, 1.0)), 0.0)
-    g_b = g_b + g_disc * 2.0 * b
-    g_cc = -g_disc
-    g_oc = vm.vadd(vm.vscale(oc, 2.0 * g_cc), vm.vscale(d, g_b))
-    g_r = g_r - g_cc * 2.0 * sr
-    s_gd = vm.vadd(s_gd, vm.vscale(oc, g_b))
-    s_go = vm.vadd(s_go, g_oc)
-    g_c = vm.vsub(g_c, g_oc)
-
-    # ---- winning rect: t = dot(p0 - o, nraw) / dot(d, nraw), n = facing * normalize(nraw)
-    denom = vm.vdot(d, nraw)
-    denom = torch.where(is_rct, denom, 1.0)
-    num = vm.vdot(vm.vsub(p0, o), nraw)
-    g_num = g_t / denom
-    g_den = -g_t * num / (denom * denom)
-    g_p0 = vm.vscale(nraw, g_num)
-    r_go = vm.vneg(g_p0)
-    g_nraw = vm.vscale(vm.vsub(p0, o), g_num)
-    r_gd = vm.vscale(nraw, g_den)
-    g_nraw = vm.vadd(g_nraw, vm.vscale(d, g_den))
-    g_nraw = vm.vadd(g_nraw, _normalize_adjoint(nraw, inv_n, nn2, vm.vscale(g_n, facing)))
-    g_eu = vm.vcross(ev, g_nraw)
-    g_ev = vm.vcross(g_nraw, eu)
-
+    # ---- the winning object
+    s_go, s_gd, g_c, g_r = sphere_winner_adjoint(o, d, t, sc, sr, g_t, g_n)
+    r_go, r_gd, g_p0, g_eu, g_ev = rect_winner_adjoint(o, d, p0, eu, ev, is_rct, g_t, g_n)
     g_o = tuple(g_o[c] + pick(s_go[c], r_go[c], zero) for c in range(3))
     g_d = tuple(g_d[c] + pick(s_gd[c], r_gd[c], zero) for c in range(3))
 
-    # ---- camera: d = normalize(fwd + right sx + up sy), o = eye
-    g_dt = _normalize_adjoint(dt, inv_d, n2d, tuple(torch.where(hit, g, 0.0) for g in g_d))
-    G_fwd = tuple(torch.sum(g) for g in g_dt)
-    G_right = tuple(torch.sum(g * sx) for g in g_dt)
-    G_up = tuple(torch.sum(g * sy) for g in g_dt)
-    G_tan = torch.sum(vm.vdot(g_dt, right) * ax * aspect + vm.vdot(g_dt, up) * ay)
-    g_eye, g_look, g_uph, g_fov = camera_adjoint(cam, G_fwd, G_right, G_up, G_tan)
-    g_eye = g_eye + torch.stack([torch.sum(torch.where(hit, g, 0.0)) for g in g_o])
-
-    # ---- reduction into the scene's leaves
-    def winner_rows(count, idx, mask, vals):
-        """Sum per-pixel values into the row of each pixel's winner."""
-        v = torch.stack([torch.where(mask, x, 0.0) for x in vals], dim=-1)
-        out = torch.zeros((count, len(vals)), **like)
-        return out.index_add_(0, idx.reshape(-1), v.reshape(-1, len(vals)))
-
-    def material_grads(mat_like, count, idx, mask):
-        rows = winner_rows(count, idx, mask, [g_ka, g_kd, g_ks, g_shin])
-        return dc.replace(mat_like,
-                          color=winner_rows(count, idx, mask & ~use2, g_base),
-                          color2=winner_rows(count, idx, mask & use2, g_base),
-                          ka=rows[:, 0], kd=rows[:, 1], ks=rows[:, 2], shininess=rows[:, 3])
-
+    # ---- camera, and the reduction into the scene's leaves
+    g_eye, g_look, g_uph, g_fov = camera_grads(
+        cam, ray, tuple(torch.where(hit, x, 0.0) for x in g_o),
+        tuple(torch.where(hit, x, 0.0) for x in g_d))
     grads = tree_unflatten(scene, [torch.zeros_like(l) for l in tree_leaves(scene)])
     spheres, rects = grads.spheres, grads.rects
     if N:
-        spheres = dc.replace(spheres, center=winner_rows(N, ks_, is_sph, g_c),
-                             radius=winner_rows(N, ks_, is_sph, [g_r])[:, 0],
-                             material=material_grads(spheres.material, N, ks_, is_sph))
+        spheres = dc.replace(spheres, center=winner_rows(N, ks_, is_sph, g_c, like),
+                             radius=winner_rows(N, ks_, is_sph, [g_r], like)[:, 0],
+                             material=material_grads(spheres.material, N, ks_, is_sph, use2,
+                                                     g, like))
     if M:
-        rects = dc.replace(rects, origin=winner_rows(M, kr_, is_rct, g_p0),
-                           edge_u=winner_rows(M, kr_, is_rct, g_eu),
-                           edge_v=winner_rows(M, kr_, is_rct, g_ev),
-                           material=material_grads(rects.material, M, kr_, is_rct))
+        rects = dc.replace(rects, origin=winner_rows(M, kr_, is_rct, g_p0, like),
+                           edge_u=winner_rows(M, kr_, is_rct, g_eu, like),
+                           edge_v=winner_rows(M, kr_, is_rct, g_ev, like),
+                           material=material_grads(rects.material, M, kr_, is_rct, use2, g,
+                                                   like))
     lights = grads.lights
     if L:
-        lights = dc.replace(lights, position=torch.stack([torch.stack(g) for g in g_lpos]),
-                            color=torch.stack([torch.stack(g) for g in g_lcol]))
+        lights = dc.replace(lights, position=torch.stack([torch.stack(x) for x in g_lpos]),
+                            color=torch.stack([torch.stack(x) for x in g_lcol]))
     camera = dc.replace(grads.camera, eye=g_eye, look_at=g_look, up=g_uph, fov_deg=g_fov)
     grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights, camera=camera,
                        ambient=torch.stack(g_amb), background=torch.stack(g_bg))

@@ -193,7 +193,7 @@ def _geometry(scene, cfg: RenderConfig):
             cfg.height, cfg.width, int(cfg.shadows), int(cfg.clip)]
 
 
-def _check_smem(kernel: Kernel, entry: str, scene) -> None:
+def check_smem(kernel: Kernel, entry: str, scene) -> None:
     """Refuse, with the numbers, a scene whose rows do not fit the shared
     memory a block of this card can have."""
     lib = kernel.lib()
@@ -207,8 +207,13 @@ def _check_smem(kernel: Kernel, entry: str, scene) -> None:
 
 
 def _cuda_inputs(scene, cfg: RenderConfig):
-    """(globals, padded sphere rows, padded rect rows), contiguous float32."""
     check_vec_kernel_config(scene, cfg)
+    return packed_inputs(scene)
+
+
+def packed_inputs(scene):
+    """(globals, padded sphere rows, padded rect rows), contiguous float32,
+    without gradient."""
     if scene.ambient.dtype != torch.float32:
         raise ValueError(f"the kernels take float32 scenes, not {scene.ambient.dtype}")
     ns_pad, nr_pad = row_plan(scene)
@@ -247,7 +252,7 @@ def render_vec(scene, cfg: RenderConfig):
         raise NotImplementedError(f"no render kernel for device {dev}")
     fused.refuse_grad(scene, "fused_vec.py:979 make_bwd_kernel(False), the vec render backward")
     glob, sph, rct = _cuda_inputs(scene, cfg)
-    _check_smem(VEC_RENDER, "rrt_vec_render_smem", scene)
+    check_smem(VEC_RENDER, "rrt_vec_render_smem", scene)
     img = torch.empty((cfg.height, cfg.width, 3), device=dev)
     vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
     VEC_RENDER.call("rrt_vec_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
@@ -275,7 +280,7 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
     if dev.type != "cuda":
         raise NotImplementedError(f"no step kernel for device {dev}")
     glob, sph, rct = _cuda_inputs(scene, cfg)
-    _check_smem(VEC_STEP, "rrt_vec_step_smem", scene)
+    check_smem(VEC_STEP, "rrt_vec_step_smem", scene)
     target = target.contiguous()
     geom = _geometry(scene, cfg)
     n_scratch = VEC_STEP.lib().rrt_vec_step_scratch_floats(*geom[2:7])

@@ -1,11 +1,13 @@
-"""The differentiable raytracing pipeline in eager torch (hard semantics).
+"""The differentiable raytracing pipeline in eager torch.
 
 The counterpart of `reversible_raytracer_tpu.ops.pipeline`, restricted to
-what the first slice of the port covers: pinhole and orthographic cameras,
-spheres and rects with solid or checker materials, nearest hit by a
-first-wins ``where`` chain, hard shadow rays, and the phong, depth and
-normal shaders with spp 1 or 4. Textures, environment maps and mirror
-reflections raise `NotImplementedError`.
+what the port covers: pinhole and orthographic cameras, spheres and rects
+with solid or checker materials, nearest hit by a first-wins ``where``
+chain, hard shadow rays, and the phong, depth and normal shaders with spp 1
+or 4. `shade_from_attrs` also takes a soft occlusion in [0, 1], which the
+soft renderer (`pipeline_vec.shade_soft`, ``soft_tau > 0``) feeds it.
+Textures, environment maps, mirror reflections and the soft checker
+(``checker_tau > 0``) raise `NotImplementedError`.
 
 This is the plain version of the CUDA kernels (`ops.kernels.fused`): on
 the CPU it is the renderer, and on the card it is what the kernels are held
@@ -52,14 +54,25 @@ class RenderConfig:
 
 
 def _require_hard(scene, cfg: RenderConfig) -> None:
-    if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
-        raise NotImplementedError("soft_tau/checker_tau rendering is not ported yet")
+    """Raise for what no eager renderer covers. ``soft_tau > 0`` passes: the
+    shader that `render_tile` is given decides (`shade` and
+    `pipeline_vec.shade_vec` refuse it, `pipeline_vec.shade_soft` needs it)."""
+    if cfg.checker_tau > 0.0:
+        raise NotImplementedError("checker_tau (soft checker) rendering is not ported yet")
     if cfg.reflections and cfg.shader == "phong":
         raise NotImplementedError("mirror reflections are not ported yet")
     if scene.env_mapped:
         raise NotImplementedError("environment maps are not ported yet")
     if scene.spheres.textured or scene.rects.textured:
         raise NotImplementedError("object textures are not ported yet")
+
+
+def require_hard_visibility(cfg: RenderConfig) -> None:
+    """The hard shaders' refusal of ``soft_tau > 0``, which the soft shader
+    (`pipeline_vec.shade_soft`) renders."""
+    if cfg.soft_tau > 0.0:
+        raise NotImplementedError(
+            "soft_tau > 0 renders through pipeline_vec.shade_soft (render_eager_vec)")
 
 
 # ---------------------------------------------------------------------------
@@ -168,9 +181,13 @@ def miss_color(scene, d: Vec3, shape) -> Vec3:
     return vm.vbroadcast(vm.splat(scene.background), shape)
 
 
-def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m):
-    """(t, unit normal, base colour) of a sphere with material rows ``m``."""
-    t = intersect_sphere(o, d, center, radius)
+def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m, t=None):
+    """(t, normal, base colour) of a sphere with material rows ``m``. A
+    given ``t`` (a soft layer's rank t, which may be a near miss's closest
+    approach) replaces the intersection; the normal (p - c) / r is then not
+    a unit vector, as in the JAX package's `_gather_layer`."""
+    if t is None:
+        t = intersect_sphere(o, d, center, radius)
     p_local = vm.vsub(vm.vadd(o, vm.vscale(d, t)), center)
     n_unit = vm.vscale(p_local, 1.0 / radius)
     s = m["scale"]
@@ -270,9 +287,11 @@ def light_geometry(lights, li: int, shadow_o: Vec3):
 
 def shade_from_attrs(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape,
                      t, hit, at, return_vis: bool = False, occluded_fn=occluded):
-    """Shade nearest-hit results: ambient + per light (hard shadow,
-    Lambertian + Phong), background on a miss, optional [0, 1] clip.
-    ``occluded_fn(scene, o, ldir, dist)`` is the any-hit shadow test."""
+    """Shade nearest-hit results: ambient + per light (shadow, Lambertian +
+    Phong), background on a miss, optional [0, 1] clip.
+    ``occluded_fn(scene, o, ldir, dist)`` is the shadow test: a boolean
+    any-hit (hard, no gradient) or a float occlusion in [0, 1] (soft), whose
+    visibility 1 - occ carries gradient to the occluders."""
     if cfg.shader == "depth":
         z = torch.where(hit, 1.0 / (1.0 + t), 0.0)
         return ((z, z, z), ()) if return_vis else (z, z, z)
@@ -291,7 +310,8 @@ def shade_from_attrs(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape,
         lcol = vm.splat(lights.color[li])
         ldir, dist = light_geometry(lights, li, shadow_o)
         if cfg.shadows:
-            vis = torch.where(occluded_fn(scene, shadow_o, ldir, dist), 0.0, 1.0)
+            occ = occluded_fn(scene, shadow_o, ldir, dist)
+            vis = torch.where(occ, 0.0, 1.0) if occ.dtype == torch.bool else 1.0 - occ
         else:
             vis = torch.ones(shape, device=scene.device, dtype=scene.ambient.dtype)
         vis_out.append(vis)
@@ -312,6 +332,7 @@ def shade_from_attrs(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape,
 
 def shade(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape, return_vis: bool = False):
     """Trace + shade with no mirror bounces."""
+    require_hard_visibility(cfg)
     if cfg.reflections and cfg.shader == "phong":
         raise NotImplementedError("mirror reflections are not ported yet")
     t, hit, at = trace_nearest(scene, o, d, shape)

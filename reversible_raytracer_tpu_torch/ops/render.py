@@ -8,14 +8,16 @@ kernels, and a configuration the kernels do not cover raises on CUDA rather
 than running somewhere else. Scenes of at most `VEC_THRESHOLD` objects take
 the unrolled family (`kernels.fused`; `render_eager`), larger ones the
 object-chunked family (`kernels.fused_vec`; `render_eager_vec`), the JAX
-package's threshold.
+package's threshold. A soft render (``soft_tau > 0``) takes the soft
+kernels (`kernels.fused_vec_soft`) on CUDA and the soft branch of
+`render_eager_vec` on the CPU, whatever the object count.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import fused, fused_vec
+from .kernels import fused, fused_vec, fused_vec_soft
 from .pipeline import RenderConfig, render_tile
 from .pipeline_vec import render_eager_vec
 
@@ -32,12 +34,17 @@ def render_eager(scene, cfg: RenderConfig):
 def resolve_impl(scene, cfg: RenderConfig) -> str:
     """``"cuda"`` / ``"cuda_vec"`` for a scene on a CUDA device whose
     configuration the kernels cover, ``"eager"`` / ``"eager_vec"`` on the
-    CPU, by object count; raises otherwise."""
-    vec = scene.spheres.count + scene.rects.count > VEC_THRESHOLD
+    CPU, by object count; ``"cuda_vec_soft"`` / ``"eager_vec"`` for
+    ``soft_tau > 0`` (the JAX package's render.py:51-71); raises otherwise."""
+    soft = cfg.soft_tau > 0.0
+    vec = soft or scene.spheres.count + scene.rects.count > VEC_THRESHOLD
     dev = scene.device
     if dev.type == "cpu":
         return "eager_vec" if vec else "eager"
     if dev.type == "cuda":
+        if soft:
+            fused_vec_soft.check_soft_kernel_config(scene, cfg)
+            return "cuda_vec_soft"
         if vec:
             fused_vec.check_vec_kernel_config(scene, cfg)
             return "cuda_vec"
@@ -56,6 +63,7 @@ def resolve_step_impl(scene_like, cfg: RenderConfig, loss: str = "mse") -> str:
 
 _RENDER = {"cuda": lambda s, c: fused.render_fused(s, c)[0],
            "cuda_vec": lambda s, c: fused_vec.render_vec(s, c)[0],
+           "cuda_vec_soft": fused_vec_soft.render_vec_soft,
            "eager": render_eager, "eager_vec": render_eager_vec}
 
 
@@ -69,9 +77,14 @@ def render(scene, cfg: RenderConfig):
 
 def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
     """``f(scene, target) -> (loss, grads)``: one fused step kernel call per
-    call on CUDA, torch autograd over the eager renderer on the CPU."""
+    call on CUDA, torch autograd over the eager renderer on the CPU. A soft
+    step (``soft_tau > 0``) at spp 4 raises on CUDA: it would need the soft
+    render backward (row 8)."""
     impl = resolve_step_impl(scene_like, cfg, loss)
-    step = fused_vec.loss_grad_vec if impl.endswith("_vec") else fused.loss_grad_fused
+    if cfg.soft_tau > 0.0:
+        step = fused_vec_soft.loss_grad_vec_soft
+    else:
+        step = fused_vec.loss_grad_vec if impl.endswith("_vec") else fused.loss_grad_fused
     return lambda scene, target: step(scene, cfg, target, loss=loss)
 
 

@@ -14,7 +14,7 @@ from reversible_raytracer_tpu_torch.models import configs
 from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves
 from reversible_raytracer_tpu_torch.models.scene import tree_unflatten
 from reversible_raytracer_tpu_torch.ops import pipeline
-from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
 from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
 from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
 from reversible_raytracer_tpu_torch.ops.render import render, resolve_impl
@@ -166,3 +166,58 @@ def test_cuda_render_refuses_a_scene_that_requires_grad(cuda, num):
         img = render(tree_unflatten(scene, leaves), cfg)
     torch.testing.assert_close(img, render(scene, cfg), rtol=0, atol=0)
     assert resolve_impl(scene, cfg) == ("cuda_vec" if num == 5 else "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_spheres, H, W, tau", [(64, 128, 160, 0.08), (200, 96, 96, 0.01)])
+def test_soft_render_kernel_matches_plain(cuda, n_spheres, H, W, tau):
+    """The soft forward kernel against `render_vec_soft_plain`, by the
+    oracle rule."""
+    scene, _, _ = configs.config5_many_spheres(n_spheres=n_spheres, device=cuda)
+    cfg = RenderConfig(height=H, width=W, shadows=True, soft_tau=tau)
+    before = fused_vec_soft.SOFT_RENDER.launches
+    img_k = fused_vec_soft.render_vec_soft(scene, cfg)
+    assert fused_vec_soft.SOFT_RENDER.launches == before + 1
+    err = (img_k - fused_vec_soft.render_vec_soft_plain(scene, cfg)).abs()
+    assert float((err > 2e-3).float().mean()) < 1e-3
+    assert float(err.mean()) < 1e-4
+    assert resolve_impl(scene, cfg) == "cuda_vec_soft"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss, shadows", [("mse", True), ("sum", False)])
+def test_soft_step_kernel_matches_adjoint(cuda, loss, shadows):
+    """Loss within 1e-4 relative, every leaf within 1e-2 of its scale,
+    against the eager hand-written adjoint and against autograd; two calls
+    bit-identical; pad rows' and untrained columns' gradients exactly 0."""
+    scene, spec, _ = configs.config5_many_spheres(device=cuda)
+    cfg = RenderConfig(height=96, width=120, shadows=shadows, soft_tau=0.05)
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    before = fused_vec_soft.SOFT_STEP.launches
+    l_k, g_k = fused_vec_soft.loss_grad_vec_soft(start, cfg, target, loss)
+    assert fused_vec_soft.SOFT_STEP.launches == before + 1
+    for ref in (fused_vec_soft.loss_grad_vec_soft_adjoint_eager,
+                fused_vec_soft.loss_grad_vec_soft_plain):
+        l_r, g_r = ref(start, cfg, target, loss)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    l_2, g_2 = fused_vec_soft.loss_grad_vec_soft(start, cfg, target, loss)
+    assert torch.equal(fused.flatten_scene(g_k), fused.flatten_scene(g_2))
+    for leaf in (g_k.spheres.material.checker, g_k.spheres.material.mirror,
+                 g_k.rects.material.checker_scale):
+        assert not leaf.any()
+
+
+@pytest.mark.cuda
+def test_soft_kernels_refuse(cuda):
+    """spp 4 names the missing soft render backward; a scene that requires
+    grad is refused by the soft forward."""
+    scene, _, _ = configs.config5_many_spheres(size=32, device=cuda)
+    with pytest.raises(NotImplementedError, match="row 8"):
+        fused_vec_soft.loss_grad_vec_soft(scene, RenderConfig(height=32, width=32, spp=4,
+                                                              soft_tau=0.05),
+                                          torch.zeros((32, 32, 3), device=cuda))
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
+    with pytest.raises(NotImplementedError, match="backward"):
+        render(tree_unflatten(scene, leaves), RenderConfig(height=32, width=32, soft_tau=0.05))

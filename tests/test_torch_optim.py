@@ -93,8 +93,8 @@ def test_trajectory_matches_jax(num):
     to = optim.OptConfig(iters=20, lr=3e-3)
 
     jfinal, jhist = joptim.optimize(jstart, jtarget, jspec, jcfg, jo, log_every=1)
-    tfinal, thist = optim.optimize(tstart, torch.from_numpy(jtarget.copy()), tspec, tcfg, to,
-                                   log_every=1)
+    tfinal, thist, _ = optim.optimize(tstart, torch.from_numpy(jtarget.copy()), tspec, tcfg,
+                                      to, log_every=1)
     assert len(thist) == len(jhist) == 20
     for a, b in zip(jhist, thist):
         assert b["loss"] == pytest.approx(a["loss"], rel=1e-4), (a, b)
