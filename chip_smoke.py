@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure raises and the script exits
 non-zero:
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA.
-  2. build   - nvcc builds the six kernels from reversible_raytracer_tpu_torch/
+  2. build   - nvcc builds the nine kernels from reversible_raytracer_tpu_torch/
                ops/kernels/csrc (one process per source, all started
                together), and with them the contracted builds of phase 7.
   3. render  - the forward render kernel against its plain version (eager
@@ -39,32 +39,47 @@ non-zero:
                (loss_grad_vec_plain) and the eager adjoint at both shapes,
                from perturb(scale=0.05, seed=4): loss within 1e-4 relative,
                every leaf within 1e-2 of its scale; two calls bit-identical.
- 10. refuse  - a CUDA render refuses a scene whose leaves require grad (the
-               render backward kernels are not ported) and renders one that
-               does not, for both kernel families.
- 11. vec_main - the port's CLI: invert --config 5 --size 1024 --iters 20 on
+ 10. vec_main - the port's CLI: invert --config 5 --size 1024 --iters 20 on
                the card, with the launch counts read around it.
- 12. vec_times - both vec kernels and their plain versions at the two shapes
+ 11. vec_times - both vec kernels and their plain versions at the two shapes
                of phase 8 (CUDA events, median of 20 after warm-up), beside
                their bounds.
- 13. soft_render - the soft forward kernel (soft_tau > 0) against its plain
+ 12. soft_render - the soft forward kernel (soft_tau > 0) against its plain
                version (render_vec_soft_plain) by the rule of phase 3, on
                config 5 at 512^2 and 1024^2 at tau 0.08 and 0.01 and on the
                513-object shape at 512^2 (tau 0.08), with shadows.
- 14. soft_step - the soft step kernel against autograd of the plain version
-               and against the eager adjoint at the shapes of phase 13, from
+ 13. soft_step - the soft step kernel against autograd of the plain version
+               and against the eager adjoint at the shapes of phase 12, from
                perturb(scale=0.05, seed=4): loss within 1e-4 relative, every
                leaf within 1e-2 of its scale; two calls bit-identical.
- 15. anneal_main - the port's CLI: invert --config 5 --size 1024 --anneal
+ 14. anneal_main - the port's CLI: invert --config 5 --size 1024 --anneal
                0.08,0.03,0.01,0 --anneal-size 512 --lr 2e-3 --perturb 0.03
                --iters 20 on the card, with the launch counts read around it:
                the soft forward 3 times (the stage targets), the soft step
                60, the vec step 20, the vec forward at least twice, rows 1-2
                never; each soft stage's loss falls; the final parameter RMS
                is below the start's.
- 16. soft_times - both soft kernels and their plain versions at config 5
+ 15. soft_times - both soft kernels and their plain versions at config 5
                (512^2 and 1024^2, tau 0.08) and at 513 objects (512^2), with
                CUDA events (median of 20 after warm-up), beside their bounds.
+ 16. render_grad - the three render backward kernels (rows 3, 5, 8) at config
+               2 512^2, config 5 1024^2 and config 5 512^2 tau 0.08, from
+               perturb(seed=4): each against its plain version (autograd of
+               the eager render) for a seeded normal cotangent, every leaf
+               within 1e-2 of its scale; the mse gradient of a differentiable
+               `render` against the matching step kernel's (rows 1, 6, 9), by
+               the same rule; two calls bit-identical; an expanded (stride-0)
+               cotangent, from `render(...).sum().backward()`, bit-identical
+               to its contiguous copy.
+ 17. render_grad_main - 20 steps of optimize(render_fn=render) on each of the
+               three shapes (the JAX package's make_step route): the forward
+               kernel 21 times (the target and one per step), the backward
+               20, the step kernels and every other kernel never; the loss
+               falls.
+ 18. render_grad_times - each backward kernel, its plain version, the forward
+               and backward together, and the matching step kernel at the
+               three shapes (CUDA events, median of 20 after 3 warm-ups),
+               beside the backward's bound.
 Then the card's nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.
 """
@@ -115,10 +130,10 @@ def _ptxas(log):
 
 
 def phase_build():
-    """Build the six kernels as the port builds them, and alongside (all
-    eight nvcc processes at once) the two small-scene sources with nvcc's
-    default FMA contraction, for phase fmad. Returns the contracted
-    libraries."""
+    """Build the nine kernels as the port builds them, and alongside (all
+    eleven nvcc processes at once) the small-scene render and step sources
+    with nvcc's default FMA contraction, for phase fmad. Returns the
+    contracted libraries."""
     import ctypes
     import time
 
@@ -129,9 +144,10 @@ def phase_build():
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in NVCC_FLAGS if f != "--fmad=false"]
+    timed = (fused.FUSED_RENDER, fused.FUSED_STEP)
     procs = {k.name: subprocess.Popen(
         [nvcc_path(), *flags, "-o", str(BUILD_DIR / f"lib{k.name}_fmad.so"), str(k.source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in fused.KERNELS}
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in timed}
     try:
         seconds = build_all(_all_kernels())
         logs = {name: proc.communicate()[0] for name, proc in procs.items()}
@@ -141,7 +157,7 @@ def phase_build():
                 proc.kill()
                 proc.wait()
     contracted = {}
-    for k in fused.KERNELS:
+    for k in timed:
         if procs[k.name].returncode != 0:
             raise RuntimeError(f"nvcc (contracted) failed for {k.source.name}:\n{logs[k.name]}")
         lib = ctypes.CDLL(str(BUILD_DIR / f"lib{k.name}_fmad.so"))
@@ -621,34 +637,6 @@ def phase_vec_step(targets):
     return max_abs
 
 
-def phase_refuse():
-    """A CUDA render of a scene that requires grad raises (no render
-    backward kernel yet); the same scene renders under no_grad and detached."""
-    import torch
-
-    from reversible_raytracer_tpu_torch.models import configs
-    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
-    from reversible_raytracer_tpu_torch.ops.render import render
-
-    rows = []
-    for num in (2, 5):
-        scene, _, cfg = configs.CONFIGS[num](size=64, device="cuda")
-        leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
-        try:
-            render(tree_unflatten(scene, leaves), cfg)
-            refused = None
-        except NotImplementedError as exc:
-            refused = str(exc)
-        with torch.no_grad():
-            img = render(tree_unflatten(scene, leaves), cfg)
-        ok = refused is not None and torch.equal(img, render(scene, cfg))
-        rows.append(dict(config=num, refused=refused, renders_without_grad=ok))
-        if not ok:
-            raise AssertionError(f"config {num}: the CUDA render did not refuse a scene that "
-                                 f"requires grad, or did not render one that does not")
-    emit("refuse", ok=True, rows=rows)
-
-
 def phase_vec_main():
     import time
 
@@ -683,13 +671,13 @@ def phase_vec_main():
     return launches
 
 
-def vec_step_bytes(c, Sg, ns_pad, nr_pad):
-    """Inputs read once (globals, rows, target), outputs written once (loss,
-    gradients), and the per-block partial rows written and read back."""
+def vec_step_bytes(c, Sg, ns_pad, nr_pad, planes=0):
+    """The bytes the function needs: inputs read once (globals, rows, the
+    target or the image cotangent, ``planes`` visibility planes), outputs
+    written once (loss, gradients). The per-block partial rows are the
+    kernels' own scratch, not counted."""
     rows = Sg + ns_pad * 17 + nr_pad * 22
-    row = 1 + Sg + 10 + ns_pad * 17 + nr_pad * 22
-    blocks = math.ceil(c["width"] / 32) * math.ceil(c["height"] / 8)
-    return 4 * (rows + 3 * c["pixels"] + 1 + rows + 2 * blocks * row + 2 * row)
+    return 4 * (rows + (3 + planes) * c["pixels"] + 1 + rows)
 
 
 def phase_vec_times():
@@ -984,6 +972,281 @@ def phase_soft_times():
     emit("soft_times", ok=True, rows=rows)
     return rows
 
+# ---------------------------------------------------------------------------
+# The render backward kernels (rows 3, 5, 8): a differentiable render
+# ---------------------------------------------------------------------------
+
+# (label, family, spheres, size, tau, perturb scale and lr of the main run):
+# config 2 at bench.py's 512^2, config 5 at its BASELINE 1024^2, and config 5
+# at the anneal's soft size and first stage (the scales and rates of the
+# CLI runs of phases main, vec_main and anneal_main).
+GRAD_CASES = (("config2_512", "fused", 4, 512, 0.0, 0.1, 1e-2),
+              ("config5_1024", "vec", 64, 1024, 0.0, 0.05, 1e-2),
+              ("config5_512_t0.08", "soft", 64, 512, 0.08, 0.03, 2e-3))
+BWD_NAMES = {"fused": "fused_render_bwd", "vec": "fused_vec_render_bwd",
+             "soft": "fused_vec_soft_render_bwd"}
+FWD_NAMES = {"fused": "fused_render", "vec": "fused_vec_render", "soft": "fused_vec_soft_render"}
+BWD_REPLACES = {"fused": "reversible_raytracer_tpu/ops/kernels/fused.py:252",
+                "vec": "reversible_raytracer_tpu/ops/kernels/fused_vec.py:979",
+                "soft": "reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:547"}
+
+
+def _grad_case(family, n_spheres, size, tau):
+    import dataclasses
+
+    from reversible_raytracer_tpu_torch.models import configs
+
+    if family == "fused":
+        scene, spec, cfg = configs.config2_four_spheres(size=size, device="cuda")
+    else:
+        scene, spec, cfg = configs.config5_many_spheres(size=size, n_spheres=n_spheres,
+                                                        device="cuda")
+    return scene, spec, dataclasses.replace(cfg, soft_tau=tau)
+
+
+def _grad_start(family, scene, spec):
+    from reversible_raytracer_tpu_torch.models import configs
+
+    return configs.perturb(scene, spec, scale=0.1 if family == "fused" else 0.05, seed=4)
+
+
+def _bwd(scene, cfg, g):
+    """The scene's gradient for cotangent ``g`` by the main path's route,
+    autograd of `render`: one forward and one backward-kernel launch."""
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    return fused.autograd_vjp(render, scene, cfg, g)
+
+
+def _bwd_plain(family):
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+
+    return {"fused": fused.render_fused_bwd_plain, "vec": fused_vec.render_vec_bwd_plain,
+            "soft": fused_vec_soft.render_vec_soft_bwd_plain}[family]
+
+
+def _seeded_cotangent(cfg):
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(0).normal(size=(cfg.height, cfg.width, 3)).astype(np.float32)
+    return torch.from_numpy(g).cuda()
+
+
+def phase_render_grad():
+    """Rows 3, 5 and 8, reached as the main path reaches them (autograd of
+    `render`), against their plain versions and against the step kernels'
+    mse gradient; returns each family's largest absolute gradient
+    difference from its plain version."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render
+
+    rows, max_abs = [], {}
+    for label, family, n_spheres, size, tau, *_ in GRAD_CASES:
+        scene, spec, cfg = _grad_case(family, n_spheres, size, tau)
+        start = _grad_start(family, scene, spec)
+        target = render(scene, cfg)
+        g = _seeded_cotangent(cfg)
+        kernel = {k.name: k for k in _all_kernels()}[BWD_NAMES[family]]
+        before = kernel.launches
+        got = _bwd(start, cfg, g)
+        one_launch = kernel.launches == before + 1
+        again = _bwd(start, cfg, g)
+        plain = _bwd_plain(family)(start, cfg, g)
+        leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+        ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+        grads = lambda: [torch.zeros_like(l) if l.grad is None else l.grad  # noqa: E731
+                         for l in leaves]
+        by_render = tree_unflatten(start, grads())
+        by_step = loss_and_grad_fn(start, cfg)(start, target)[1]
+        for l in leaves:
+            l.grad = None
+        render(tree_unflatten(start, leaves), cfg).sum().backward()
+        expanded = torch.cat([x.reshape(-1) for x in grads()])
+        ones = _bwd(start, cfg, torch.ones_like(g))
+        torch.cuda.synchronize()
+        row = dict(case=label, kernel=BWD_NAMES[family], one_launch=one_launch,
+                   deterministic=bool(torch.equal(fused.flatten_scene(got),
+                                                  fused.flatten_scene(again))),
+                   expanded_cotangent_same=bool(torch.equal(expanded, fused.flatten_scene(ones))))
+        for name, ref, test in (("plain", plain, got), ("mse_vs_step", by_step, by_render)):
+            errs = _grad_errors(ref, test)
+            worst = max(errs, key=errs.get)
+            row[name] = dict(worst_leaf=worst, worst_err=errs[worst])
+        max_abs[family] = max(float((a - b).abs().max())
+                              for a, b in zip(tree_leaves(plain), tree_leaves(got)) if a.numel())
+        row["plain"]["max_abs_err"] = max_abs[family]
+        rows.append(row)
+        if not (row["plain"]["worst_err"] <= 1e-2 and row["mse_vs_step"]["worst_err"] <= 1e-2
+                and row["one_launch"] and row["deterministic"]
+                and row["expanded_cotangent_same"]):
+            raise AssertionError(f"render backward kernel failed a check: {row}")
+    emit("render_grad", ok=True, rows=rows)
+    return max_abs
+
+
+GRAD_ITERS = 20
+
+
+def phase_render_grad_main():
+    """optimize(render_fn=render): each step autograd through the forward and
+    the backward kernel. Returns the launch counts of each shape's run."""
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize, param_error
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    rows, counts = [], {}
+    for label, family, n_spheres, size, tau, scale, lr in GRAD_CASES:
+        scene, spec, cfg = _grad_case(family, n_spheres, size, tau)
+        for k in _all_kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        target = render(scene, cfg)
+        start = configs.perturb(scene, spec, scale=scale, seed=0)
+        final, _, losses = optimize(start, target, spec, cfg, OptConfig(iters=GRAD_ITERS, lr=lr),
+                                    log_every=0, render_fn=lambda s, cfg=cfg: render(s, cfg))
+        la = losses.cpu().tolist()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _all_kernels()}
+        expect = {FWD_NAMES[family]: GRAD_ITERS + 1, BWD_NAMES[family]: GRAD_ITERS}
+        row = dict(case=label, launches=launches, expected=expect, first_loss=la[0],
+                   final_loss=la[-1], start_param_err=float(param_error(start, scene, spec)),
+                   param_err=float(param_error(final, scene, spec)), wall_seconds=wall)
+        rows.append(row)
+        counts[label] = launches
+        ok = (all(launches[name] == expect.get(name, 0) for name in launches)
+              and all(math.isfinite(x) for x in la) and la[-1] < la[0])
+        if not ok:
+            raise AssertionError(f"optimize(render_fn=render) did not run through the forward "
+                                 f"and backward kernels only, or did not descend: {row}")
+    emit("render_grad_main", ok=True, rows=rows)
+    return counts
+
+
+# The backward's operations: the step's, without the shadow rays' any-hit
+# tests for the hard families (the planes are read instead), and with the
+# caller's cotangent times the clip gradient (3 multiplies) in place of the
+# residual and the squared error.
+OPS_COT = 3
+
+
+def bwd_ops(c):
+    return (step_ops(c) - c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] - OPS_COT)
+            - c["shadow_sph_hit"] * OPS["sphere_shadow"]
+            - c["shadow_rect_hit"] * OPS["rect_shadow"])
+
+
+def soft_bwd_ops(c):
+    return soft_step_ops(c) - c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] - OPS_COT)
+
+
+def _raw_calls(family, start, cfg, g, target):
+    """(forward, backward, step) launches of the family's C entries on fixed
+    buffers (no wrapper, no counter), the backward's bound and the work
+    counts. The forward runs once here, so the planes the backward reads
+    are this scene's."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+
+    stream = torch.cuda.current_stream().cuda_stream
+    H, W = cfg.height, cfg.width
+    w = 1.0 / (H * W * 3)
+    img = torch.empty((H, W, 3), device="cuda")
+    if family == "fused":
+        flat = fused._cuda_flat(start, cfg)
+        geom = fused._geometry(start, cfg)
+        S = flat.numel()
+        vis = torch.empty((start.lights.count, H, W), device="cuda")
+        scratch = torch.empty((fused.FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5]),),
+                              device="cuda")
+        out = torch.empty((1 + S,), device="cuda")
+        fwd = lambda: fused.FUSED_RENDER.call("rrt_render", flat.data_ptr(), *geom,  # noqa: E731
+                                              img.data_ptr(), vis.data_ptr(), stream)
+        bwd = lambda: fused.FUSED_RENDER_BWD.call(  # noqa: E731
+            "rrt_render_bwd", flat.data_ptr(), *geom, g.data_ptr(), vis.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), stream)
+        step = lambda: fused.FUSED_STEP.call(  # noqa: E731
+            "rrt_step", flat.data_ptr(), *geom, target.data_ptr(), w, scratch.data_ptr(),
+            out.data_ptr(), stream)
+        fwd()
+        c = work_counts(start, cfg)
+        return fwd, bwd, step, bound(bwd_ops(c), 4 * (S + H * W * (3 + vis.shape[0]) + 1 + S)), c
+    glob, sph, rct = fused_vec.packed_inputs(start)
+    geom = fused_vec._geometry(start, cfg)
+    Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
+
+    def rows():  # the lambdas below keep the row tensors alive through this
+        return glob.data_ptr(), sph.data_ptr(), rct.data_ptr()
+
+    if family == "vec":
+        vis = torch.empty((start.lights.count, H, W), device="cuda")
+        scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_scratch_floats(
+            *geom[2:7]),), device="cuda")
+        fwd = lambda: fused_vec.VEC_RENDER.call(  # noqa: E731
+            "rrt_vec_render", *rows(), *geom, img.data_ptr(), vis.data_ptr(), stream)
+        bwd = lambda: fused_vec.VEC_RENDER_BWD.call(  # noqa: E731
+            "rrt_vec_render_bwd", *rows(), *geom, g.data_ptr(), vis.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), stream)
+        step = lambda: fused_vec.VEC_STEP.call(  # noqa: E731
+            "rrt_vec_step", *rows(), *geom, target.data_ptr(), w, scratch.data_ptr(),
+            out.data_ptr(), stream)
+        fwd()
+        c = work_counts(start, cfg)
+        nbytes = vec_step_bytes(c, Sg, ns_pad, nr_pad, planes=vis.shape[0])
+        return fwd, bwd, step, bound(bwd_ops(c), nbytes), c
+    tau = float(cfg.soft_tau)
+    scratch = torch.empty((fused_vec_soft.SOFT_STEP.lib().rrt_soft_step_scratch_floats(
+        *geom[2:7]),), device="cuda")
+    fwd = lambda: fused_vec_soft.SOFT_RENDER.call(  # noqa: E731
+        "rrt_soft_render", *rows(), *geom, tau, img.data_ptr(), stream)
+    bwd = lambda: fused_vec_soft.SOFT_RENDER_BWD.call(  # noqa: E731
+        "rrt_soft_render_bwd", *rows(), *geom, tau, g.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), stream)
+    step = lambda: fused_vec_soft.SOFT_STEP.call(  # noqa: E731
+        "rrt_soft_step", *rows(), *geom, tau, target.data_ptr(), w, scratch.data_ptr(),
+        out.data_ptr(), stream)
+    c = soft_work_counts(start, cfg)
+    return fwd, bwd, step, bound(soft_bwd_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad)), c
+
+
+def phase_render_grad_times():
+    """Each backward kernel, its plain version, forward + backward and the
+    matching step kernel (CUDA events, median of 20 after 3 warm-ups; the
+    plain version 10 or 5), beside the backward's bound."""
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    rows = {}
+    for label, family, n_spheres, size, tau, *_ in GRAD_CASES:
+        scene, spec, cfg = _grad_case(family, n_spheres, size, tau)
+        start = _grad_start(family, scene, spec)
+        target = render(scene, cfg)
+        g = _seeded_cotangent(cfg)
+        fwd, bwd, step, b, c = _raw_calls(family, start, cfg, g, target)
+        plain = _bwd_plain(family)
+        soft = family == "soft"
+        rows[label] = dict(
+            bwd_ms=time_ms(bwd),
+            plain_ms=time_ms(lambda: plain(start, cfg, g), reps=5 if soft else 10,
+                             warmup=1 if soft else 3),
+            fwd_bwd_ms=time_ms(lambda: (fwd(), bwd())), step_ms=time_ms(step), bound=b,
+            ops=soft_bwd_ops(c) if soft else bwd_ops(c), work=c)
+        rows[label]["rays_per_s"] = cfg.height * cfg.width / (rows[label]["bwd_ms"] * 1e-3)
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    emit("render_grad_times", ok=True, rows=rows)
+    return rows
+
 
 def main() -> int:
     try:
@@ -1011,13 +1274,15 @@ def main() -> int:
     run_phase("fmad", phase_fmad, contracted, (start, target, cfg), g_plain)
     vec_render_err, targets = run_phase("vec_render", phase_vec_render)
     vec_step_err = run_phase("vec_step", phase_vec_step, targets)
-    run_phase("refuse", phase_refuse)
     vec_launches = run_phase("vec_main", phase_vec_main)
     vt = run_phase("vec_times", phase_vec_times)["config5_1024"]
     soft_render_err = run_phase("soft_render", phase_soft_render)
     soft_step_err = run_phase("soft_step", phase_soft_step)
     anneal_launches = run_phase("anneal_main", phase_anneal_main)
     st = run_phase("soft_times", phase_soft_times)["config5_512_t0.08"]
+    grad_err = run_phase("render_grad", phase_render_grad)
+    grad_launches = run_phase("render_grad_main", phase_render_grad_main)
+    gt = run_phase("render_grad_times", phase_render_grad_times)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -1041,6 +1306,13 @@ def main() -> int:
              ms=st["render_ms"], plain_ms=st["render_plain_ms"], bound_ms=st["render_bound"][0],
              bound_by=st["render_bound"][1], library_ms=None),
     ]
+    for label, family, *_ in GRAD_CASES:
+        name = BWD_NAMES[family]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + f"{name}.cu", replaces=BWD_REPLACES[family],
+            launches=grad_launches[label][name], max_abs_err=grad_err[family],
+            ms=gt[label]["bwd_ms"], plain_ms=gt[label]["plain_ms"],
+            bound_ms=gt[label]["bound"][0], bound_by=gt[label]["bound"][1], library_ms=None))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,41 @@
+// Render backward kernel for scenes of at most 24 objects: the gradient of
+// every scalar of the flat scene for a cotangent (gr, gg, gb) of the
+// rendered image, in one call (three launches on one stream).
+//
+// Replaces the TPU kernel _make_fused.bwd_kernel
+// (reversible_raytracer_tpu/ops/kernels/fused.py:252, pallas_call at
+// :281), the custom_vjp partner of the forward render (fused.py:297-311):
+// it replays render_tile per tile with the forward's saved visibility
+// planes under jax.vjp and adds each tile's d flat into one output row
+// across the in-order TPU grid.
+//
+// Design: the fused training step's kernels (flat_step.cuh) with
+// CotangentSource in place of the residual. Each thread replays its
+// pixel's forward, reading light l's visibility from the forward's plane
+// vis[l, i, j] where its ray hit instead of casting a shadow ray, takes
+// the caller's cotangent of the clipped image (zero past the ragged edge)
+// through the clip's gradient, and runs the step's hand-written adjoint;
+// warp shuffles, one partial row per block and a fixed-order second pass
+// reduce it, and the camera chain runs once. No atomics: bit-for-bit the
+// same from call to call. For an mse cotangent 2 (img - target) / n the
+// result is the step's gradient, up to how the cotangent was rounded.
+//
+// Bound: operations: the step's per-pixel work without the shadow rays'
+// any-hit loops, against 12 bytes of cotangent and 4 bytes per visibility
+// plane read per pixel (chip_smoke.py counts both).
+#include "flat_step.cuh"
+
+using namespace rrt;
+
+extern "C" long long rrt_render_bwd_scratch_floats(int n_sph, int n_rect, int n_light, int H,
+                                                   int W) {
+  return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
+}
+
+// out = [0, d flat (S)].
+extern "C" int rrt_render_bwd(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, const float* g_img,
+                              const float* vis, float* scratch, float* out, void* stream) {
+  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
+                          CotangentSource{g_img, vis}, scratch, out, stream);
+}

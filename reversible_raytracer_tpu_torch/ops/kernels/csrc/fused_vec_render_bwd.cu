@@ -1,0 +1,47 @@
+// Object-chunked render backward kernel: the gradient of the globals and
+// of every packed sphere and rect row for a cotangent (gr, gg, gb) of the
+// rendered image, for a scene of any object count, in one call (three
+// launches on one stream).
+//
+// Replaces the TPU kernel make_bwd_kernel(False)
+// (reversible_raytracer_tpu/ops/kernels/fused_vec.py:979, bwd_call at
+// :1283), the custom_vjp partner of the vec forward (fused_vec.py:1340-1364):
+// the same body as the TPU step kernel, reading the cotangent planes where
+// the step forms its residual and the forward's visibility planes where
+// the step casts shadow rays.
+//
+// Design: the object-chunked step's kernels (vec_step.cuh) with
+// CotangentSource: each thread replays its pixel's trace and shading,
+// reading light l's visibility from vis[l, i, j] where its ray hit, takes
+// the caller's cotangent of the clipped image through the clip's gradient
+// (zero past the ragged edge), and runs the step's adjoint; the per-warp
+// winner lists, the block row of every object field, the partial rows and
+// vec_finalize_kernel carry over unchanged. No atomics: bit-for-bit the
+// same from call to call; pad rows' gradients are exactly zero. Shared
+// memory as the step's (33 KB per block at config 5, 94 KB at 513 objects).
+//
+// Bound: operations: the step's per-pixel work without the shadow rays'
+// any-hit loops; bytes: the cotangent (12 bytes per pixel), 4 bytes per
+// visibility plane, and the partial rows (chip_smoke.py counts both).
+#include "vec_step.cuh"
+
+using namespace rrt;
+
+// Shared memory a block of the backward kernel needs, in bytes.
+extern "C" long long rrt_vec_render_bwd_smem(int n_sph, int n_rect, int n_light) {
+  return (long long)step_plan(pad16(n_sph), pad16(n_rect), n_light).smem;
+}
+
+extern "C" long long rrt_vec_render_bwd_scratch_floats(int ns_pad, int nr_pad, int n_light,
+                                                       int H, int W) {
+  return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
+}
+
+// out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)].
+extern "C" int rrt_vec_render_bwd(const float* glob, const float* sph, const float* rct,
+                                  int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                  int H, int W, int shadows, int clip, const float* g_img,
+                                  const float* vis, float* scratch, float* out, void* stream) {
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
+                         clip, CotangentSource{g_img, vis}, scratch, out, stream);
+}

@@ -1,7 +1,9 @@
 // Device code shared by the kernels: the two scene layouts, the per-pixel
 // camera ray, sphere and rect intersection, the first-wins nearest-hit
-// loop, the any-hit shadow test, Phong shading, the fused training step's
-// per-pixel forward and hand-written adjoint, and the steps' reduction and
+// loop, the any-hit shadow test, Phong shading, the per-pixel forward and
+// hand-written adjoint of the fused training steps and the render
+// backwards (pixel_step, with the two sources of its cotangent and
+// visibility: ResidualSource, CotangentSource), and the reduction and
 // camera-chain passes. soft_common.cuh adds the soft-visibility code.
 //
 // Two layouts of the same scene, read through one interface, so that every
@@ -422,10 +424,10 @@ __device__ __forceinline__ V3 shadow_origin(V3 o, V3 d, float t, V3 n) {
 }
 
 // Unclipped Phong color of a hit pixel; bit l of *vis is light l's
-// visibility (all set when shadows are off).
-template <class S>
-__device__ __forceinline__ V3 shade_hit(const S& sc, const Params& p, V3 o, V3 d, float t,
-                                        const Surface& s, unsigned* vis) {
+// visibility, lit(l, so, g) for the shadow origin so and light geometry g.
+template <class S, class Lit>
+__device__ __forceinline__ V3 shade_hit(const S& sc, V3 o, V3 d, float t, const Surface& s,
+                                        Lit lit_fn, unsigned* vis) {
   const V3 amb = sc.ambient();
   V3 col = {s.base.x * amb.x * s.ka, s.base.y * amb.y * s.ka, s.base.z * amb.z * s.ka};
   const V3 view = -d;
@@ -433,7 +435,7 @@ __device__ __forceinline__ V3 shade_hit(const S& sc, const Params& p, V3 o, V3 d
   unsigned bits = 0;
   for (int l = 0; l < sc.n_light(); ++l) {
     const LightGeo g = light_geometry(sc.l_pos(l), so);
-    const bool lit = !p.shadows || !occluded(sc, so, g.ldir, g.dist);
+    const bool lit = lit_fn(l, so, g);
     bits |= (lit ? 1u : 0u) << l;
     const float v = lit ? 1.0f : 0.0f;
     const float ndotl = fmaxf(dot(s.n, g.ldir), 0.0f);
@@ -459,7 +461,12 @@ __device__ __forceinline__ V3 render_pixel(const S& sc, const Params& p, int i, 
   const Ray r = primary_ray(cam, p, i, j);
   const Nearest h = trace(sc, cam.eye, r.d);
   const Surface s = surface(sc, cam.eye, r.d, h);
-  V3 col = shade_hit(sc, p, cam.eye, r.d, h.t, s, bits);
+  V3 col = shade_hit(
+      sc, cam.eye, r.d, h.t, s,
+      [&](int, V3 so, const LightGeo& g) {
+        return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
+      },
+      bits);
   if (h.k < 0) col = sc.background();
   if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
   return col;
@@ -511,6 +518,56 @@ __device__ __forceinline__ void put3(float* row, int slot, V3 v, int lane) {
   put(row, slot + 2, v.z, lane);
 }
 
+// Where pixel_step's image cotangent and light visibility come from.
+//
+// ResidualSource, the fused training steps: the cotangent of the clipped
+// image is 2 w (render - target), zero outside the image (the TPU padding
+// mask), and the squared residual feeds the loss; a light's visibility is
+// the any-hit test of a shadow ray.
+struct ResidualSource {
+  const float* target;  // (H, W, 3)
+  float w;
+
+  __device__ __forceinline__ V3 cotangent(const Params& p, int i, int j, bool inside, V3 img,
+                                          float* sq) const {
+    V3 res = zero3();
+    if (inside) {
+      const float* tp = target + 3 * ((long long)i * p.W + j);
+      res = {img.x - tp[0], img.y - tp[1], img.z - tp[2]};
+    }
+    *sq = res.x * res.x + res.y * res.y + res.z * res.z;
+    return res * (2.0f * w);
+  }
+
+  template <class S>
+  __device__ __forceinline__ bool lit(const S& sc, const Params& p, int, int, int, V3 so,
+                                      const LightGeo& g) const {
+    return !p.shadows || !occluded(sc, so, g.ldir, g.dist);
+  }
+};
+
+// CotangentSource, the render backwards: the caller's cotangent of the
+// clipped image (zero outside the image) and no loss; a light's visibility
+// is the forward's saved plane. lit() runs only where the ray hit (on a
+// miss the plane holds the test of a ray from the BIG sentinel), and not
+// at all without shadows, when there are no planes.
+struct CotangentSource {
+  const float* g_img;  // (H, W, 3)
+  const float* vis;    // (n_vis, H, W); unused by the soft backward
+
+  __device__ __forceinline__ V3 cotangent(const Params& p, int i, int j, bool inside, V3,
+                                          float* sq) const {
+    *sq = 0.0f;
+    return inside ? ld3(g_img + 3 * ((long long)i * p.W + j)) : zero3();
+  }
+
+  template <class S>
+  __device__ __forceinline__ bool lit(const S&, const Params& p, int i, int j, int l, V3,
+                                      const LightGeo&) const {
+    return !p.shadows || vis[((long long)l * p.H + i) * p.W + j] != 0.0f;
+  }
+};
+
 // What one pixel adds to the gradient. The camera part is kept as the
 // cotangents of its linear ray form dt = fwd + right sx + up sy (g_dt, with
 // sx, sy to scale it, and g_tan of tan(fov/2)); camera_chain pulls their
@@ -523,18 +580,19 @@ struct PixelGrad {
   float obj[RECT_FIELDS];  // its gradient, SPH_FIELDS or RECT_FIELDS order
 };
 
-// Forward, residual against the target (zero outside the image: the TPU
-// padding mask) and the hand-written adjoint of pixel (i, j): shade
-// adjoint, then the adjoint of the winning object only (the where chain
-// passes no gradient to the losers, and visibility is a step with zero
-// gradient, though the shadow origin still carries gradient through
-// light_geometry into t, n and d), then the camera. Light l's position and
+// Forward, the image cotangent from src (ResidualSource: the residual
+// against the target; CotangentSource: the caller's) and the hand-written
+// adjoint of pixel (i, j): shade adjoint, then the adjoint of the winning
+// object only (the where chain passes no gradient to the losers, and
+// visibility is a step with zero gradient, though the shadow origin still
+// carries gradient through light_geometry into t, n and d), then the camera. Light l's position and
 // color gradients go to on_light(l, g_lpos, g_lcol, warp_hit) inside the
-// light loop, which every lane of a warp runs together.
-template <class S, class OnLight>
+// light loop, which every lane of a warp runs together. Lanes outside the
+// image run every step with zero cotangents: the warp-wide shuffles and
+// votes need all 32.
+template <class S, class Src, class OnLight>
 __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, int i, int j,
-                                                bool inside, const float* __restrict__ target,
-                                                float w, OnLight on_light) {
+                                                bool inside, const Src& src, OnLight on_light) {
   PixelGrad out;
   // ---- forward
   const Camera cam = camera(sc);
@@ -545,17 +603,14 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
   const Surface s = surface(sc, o, d, h);
   unsigned bits = 0;
   V3 pre = sc.background();
-  if (hit) pre = shade_hit(sc, p, o, d, h.t, s, &bits);
+  if (hit)
+    pre = shade_hit(
+        sc, o, d, h.t, s,
+        [&](int l, V3 so, const LightGeo& g) { return src.lit(sc, p, i, j, l, so, g); }, &bits);
   const V3 img = p.clip ? V3{clip01(pre.x), clip01(pre.y), clip01(pre.z)} : pre;
 
-  // ---- residual; its cotangent is 2 w (render - target)
-  V3 res = zero3();
-  if (inside) {
-    const float* tp = target + 3 * ((long long)i * p.W + j);
-    res = {img.x - tp[0], img.y - tp[1], img.z - tp[2]};
-  }
-  out.sq = res.x * res.x + res.y * res.y + res.z * res.z;
-  V3 gc = res * (2.0f * w);
+  // ---- the clipped image's cotangent, then the clip's
+  V3 gc = src.cotangent(p, i, j, inside, img, &out.sq);
   if (p.clip) gc = {gc.x * clipgrad(pre.x), gc.y * clipgrad(pre.y), gc.z * clipgrad(pre.z)};
 
   // ---- shade adjoint: ambient term, then light by light

@@ -1,20 +1,31 @@
-"""The two CUDA kernels of the inverse-render path, their wrappers and
+"""The CUDA kernels of scenes of at most 24 objects, their wrappers and
 their plain versions.
 
 - `render_fused`: the forward render kernel (``csrc/fused_render.cu``),
   replacing the TPU kernel ``_make_fused.fwd_kernel``
   (reversible_raytracer_tpu/ops/kernels/fused.py:224). It writes the
   (H, W, 3) image and the shadow-visibility planes. Plain version:
-  `render_fused_plain`.
+  `render_fused_plain`. On CUDA the image is differentiable: `_FusedRender`
+  pairs this kernel with the render backward, as the JAX package's
+  ``custom_vjp`` (fused.py:297-311) pairs its two.
+- the render backward kernel (``csrc/fused_render_bwd.cu``), replacing
+  ``_make_fused.bwd_kernel`` (fused.py:252, pallas_call at :281), launched
+  only by `_FusedRender.backward`. It pulls the cotangent of the image back
+  to every scene scalar, reading the forward's visibility planes instead of
+  casting shadow rays. Plain version: `render_fused_bwd_plain` (autograd);
+  `render_bwd_adjoint_eager` runs its hand-written adjoint in eager torch.
 - `loss_grad_fused`: the fused training-step kernel (``csrc/fused_step.cu``),
   replacing ``_make_loss_grad.kernel`` (fused.py:394). One launch gives the
   squared-error loss against a target and its gradient with respect to
   every scene scalar. Plain version: `loss_grad_fused_plain` (autograd).
   `loss_grad_adjoint_eager` runs the kernel's own hand-written adjoint,
   pixel for pixel, in eager torch: it is how the adjoint is tested on the
-  CPU before it is trusted in CUDA.
+  CPU before it is trusted in CUDA. The step and the render backward share
+  that adjoint (`_adjoint`); they differ in where the image's cotangent
+  comes from (a residual against a target, or the caller) and where the
+  visibility comes from (shadow rays, or the forward's planes).
 
-The scene enters both kernels as one flat float32 vector in the leaf
+The scene enters the kernels as one flat float32 vector in the leaf
 order of `models.scene.tree_leaves` (`flatten_scene`); the kernels find
 each leaf from the object and light counts alone (`flat_offsets`).
 
@@ -31,6 +42,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...models.scene import tree_leaves, tree_unflatten
 from .. import vecmath as vm
@@ -61,7 +73,11 @@ FUSED_STEP = Kernel("fused_step", {
     "rrt_step": ([_P, *_GEOM, _P, _F, _P, _P, _P], _I),
     "rrt_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
-KERNELS = (FUSED_RENDER, FUSED_STEP)
+FUSED_RENDER_BWD = Kernel("fused_render_bwd", {
+    "rrt_render_bwd": ([_P, *_GEOM, _P, _P, _P, _P, _P], _I),
+    "rrt_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+})
+KERNELS = (FUSED_RENDER, FUSED_STEP, FUSED_RENDER_BWD)
 
 
 # ---------------------------------------------------------------------------
@@ -144,17 +160,6 @@ def check_kernel_config(scene, cfg: RenderConfig) -> None:
         raise NotImplementedError(f"the CUDA kernels do not cover {why}")
 
 
-def refuse_grad(scene, backward: str) -> None:
-    """Raise when autograd would need a gradient of a CUDA render: grad mode
-    is on and a scene leaf requires grad. ``backward`` names the render
-    backward kernel that is not ported yet."""
-    if torch.is_grad_enabled() and any(l.requires_grad for l in tree_leaves(scene)):
-        raise NotImplementedError(
-            f"render on CUDA carries no gradient: its backward ({backward}) is not ported "
-            "yet. Render a scene whose leaves do not require grad (or under "
-            "torch.no_grad()), or take the training step from ops.render.loss_and_grad_fn")
-
-
 def _geometry(scene, cfg: RenderConfig):
     return [scene.spheres.count, scene.rects.count, scene.lights.count,
             cfg.height, cfg.width, int(cfg.shadows), int(cfg.clip)]
@@ -192,20 +197,79 @@ def render_fused_plain(scene, cfg: RenderConfig):
 
 def render_fused(scene, cfg: RenderConfig):
     """Image (H, W, 3) and visibility planes (n_vis, H, W). The forward
-    kernel on CUDA, `render_fused_plain` on the CPU."""
+    kernel on CUDA, `render_fused_plain` on the CPU. The image carries the
+    scene's gradient on both: on CUDA through the render backward kernel
+    (the planes carry none)."""
     dev = scene.device
     if dev.type == "cpu":
         return render_fused_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render kernel for device {dev}")
-    refuse_grad(scene, "fused.py:252 _make_fused.bwd_kernel, the render backward")
-    flat = _cuda_flat(scene, cfg)
-    img = torch.empty((cfg.height, cfg.width, 3), device=dev)
-    vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
-    FUSED_RENDER.call("rrt_render", flat.data_ptr(), *_geometry(scene, cfg),
-                      img.data_ptr(), vis.data_ptr(), _stream(dev))
-    FUSED_RENDER.launches += 1
-    return img, vis
+    return _FusedRender.apply(scene, cfg, *tree_leaves(scene))
+
+
+class _FusedRender(torch.autograd.Function):
+    """The forward kernel and the render backward kernel as one
+    differentiable function of the scene's leaves (the ``custom_vjp`` of
+    fused.py:297-311): the forward saves the flat scene and the visibility
+    planes, the backward launches the backward kernel once."""
+
+    @staticmethod
+    def forward(ctx, scene, cfg, *leaves):
+        flat = _cuda_flat(scene, cfg)
+        img = torch.empty((cfg.height, cfg.width, 3), device=flat.device)
+        vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=flat.device)
+        FUSED_RENDER.call("rrt_render", flat.data_ptr(), *_geometry(scene, cfg),
+                          img.data_ptr(), vis.data_ptr(), _stream(flat.device))
+        FUSED_RENDER.launches += 1
+        ctx.scene, ctx.cfg = scene, cfg
+        ctx.save_for_backward(flat, vis)
+        ctx.mark_non_differentiable(vis)
+        ctx.set_materialize_grads(False)
+        return img, vis
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_img, _g_vis):
+        flat, vis = ctx.saved_tensors
+        if g_img is None:
+            return (None, None, *(None for _ in tree_leaves(ctx.scene)))
+        dflat = _render_bwd_launch(ctx.scene, ctx.cfg, flat, g_img, vis)
+        return (None, None, *tree_leaves(unflatten_scene(ctx.scene, dflat)))
+
+
+# ---------------------------------------------------------------------------
+# Render backward kernel
+# ---------------------------------------------------------------------------
+
+
+def cotangent_f32(g_img, cfg: RenderConfig):
+    """The image cotangent as the kernels read it: (H, W, 3), contiguous
+    float32 (autograd may hand over an expanded or strided view)."""
+    if tuple(g_img.shape) != (cfg.height, cfg.width, 3):
+        raise ValueError(f"cotangent shape {tuple(g_img.shape)} != {(cfg.height, cfg.width, 3)}")
+    return g_img.to(torch.float32).contiguous()
+
+
+def _render_bwd_launch(scene_like, cfg, flat, g_img, vis):
+    """d flat (S,) from one backward-kernel call."""
+    dev = flat.device
+    g_img = cotangent_f32(g_img, cfg)
+    geom = _geometry(scene_like, cfg)
+    scratch = torch.empty((FUSED_RENDER_BWD.lib().rrt_render_bwd_scratch_floats(*geom[:5]),),
+                          device=dev)
+    out = torch.empty((1 + flat.numel(),), device=dev)
+    FUSED_RENDER_BWD.call("rrt_render_bwd", flat.data_ptr(), *geom, g_img.data_ptr(),
+                          vis.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(dev))
+    FUSED_RENDER_BWD.launches += 1
+    return out[1:]
+
+
+def render_fused_bwd_plain(scene, cfg: RenderConfig, g_img):
+    """torch.autograd of `render_eager` for the image cotangent ``g_img``."""
+    from ..render import render_eager
+
+    return autograd_vjp(render_eager, scene, cfg, g_img)
 
 
 # ---------------------------------------------------------------------------
@@ -221,14 +285,15 @@ def _loss_norm(cfg: RenderConfig, loss: str) -> float:
     raise ValueError(f"the step kernel takes loss 'mse' or 'sum', not {loss!r}")
 
 
-def _check_target(target, cfg: RenderConfig, scene) -> None:
-    """The target must be (H, W, 3) on the scene's device, in its dtype
-    (float32 for the kernel; the plain versions also take float64)."""
+def _check_target(target, cfg: RenderConfig, scene, what: str = "target") -> None:
+    """The target (or an image cotangent) must be (H, W, 3) on the scene's
+    device, in its dtype (float32 for the kernel; the plain versions also
+    take float64)."""
     if tuple(target.shape) != (cfg.height, cfg.width, 3):
-        raise ValueError(f"target shape {tuple(target.shape)} != {(cfg.height, cfg.width, 3)}")
+        raise ValueError(f"{what} shape {tuple(target.shape)} != {(cfg.height, cfg.width, 3)}")
     want = (scene.device, scene.ambient.dtype)
     if (target.device, target.dtype) != want:
-        raise ValueError(f"target must be {want[1]} on {want[0]}, "
+        raise ValueError(f"{what} must be {want[1]} on {want[0]}, "
                          f"got {target.dtype} on {target.device}")
 
 
@@ -274,6 +339,18 @@ def autograd_loss_grad(render_fn, scene, cfg: RenderConfig, target, loss: str = 
         grads = torch.autograd.grad(value, leaves, allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g for l, g in zip(leaves, grads)]
     return value.detach(), tree_unflatten(scene, grads)
+
+
+def autograd_vjp(render_fn, scene, cfg: RenderConfig, g_img):
+    """The scene's gradient (a Scene) of ``render_fn(scene, cfg)`` for the
+    image cotangent ``g_img``, by torch autograd (the plain version of a
+    render backward kernel)."""
+    leaves = [l.detach().clone().requires_grad_(True) for l in tree_leaves(scene)]
+    with torch.enable_grad():
+        img = render_fn(tree_unflatten(scene, leaves), cfg)
+        grads = torch.autograd.grad(img, leaves, g_img.to(img.dtype), allow_unused=True)
+    return tree_unflatten(scene, [torch.zeros_like(l) if g is None else g
+                                  for l, g in zip(leaves, grads)])
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +412,57 @@ def loss_grad_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse")
     norm = _loss_norm(cfg, loss)
     _check_target(target, cfg, scene)
     with torch.no_grad():
-        return _adjoint(scene, cfg, target, norm, nearest=_nearest_chain, occluded_fn=occluded)
+        sq, grads = _adjoint(scene, cfg, _nearest_chain, residual_cotangent(target, norm),
+                             traced_visibility(scene, cfg, occluded))
+    return norm * sq, grads
+
+
+def render_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img, vis):
+    """The render backward kernel's algorithm in eager torch: the step's
+    adjoint (`_adjoint`) with the image cotangent ``g_img`` (H, W, 3) in
+    place of the residual and the forward's visibility planes ``vis`` in
+    place of the shadow rays: the scene's gradient (a Scene)."""
+    check_kernel_config(scene, cfg)
+    _check_target(g_img, cfg, scene, "cotangent")
+    with torch.no_grad():
+        return _adjoint(scene, cfg, _nearest_chain, image_cotangent(g_img),
+                        saved_visibility(cfg, vis))[1]
+
+
+def residual_cotangent(target, norm):
+    """The step's source of the image cotangent: ``img -> (2 norm (img -
+    target) per channel, sum of squared residuals)``."""
+    def cotangent(img):
+        resid = tuple(img[c] - target[..., c] for c in range(3))
+        return tuple(2.0 * norm * r for r in resid), sum(torch.sum(r * r) for r in resid)
+    return cotangent
+
+
+def image_cotangent(g_img):
+    """The render backward's source of the image cotangent: the caller's
+    (H, W, 3) ``g_img``, whatever the image; no squared error (0)."""
+    return lambda img: (tuple(g_img[..., c] for c in range(3)), 0.0)
+
+
+def traced_visibility(scene, cfg: RenderConfig, occluded_fn):
+    """The step's visibility of light ``li``: a shadow ray from the shadow
+    origin toward it, tested by ``occluded_fn`` (1 everywhere without
+    shadows)."""
+    def visibility(li, so, f, zero):
+        if not cfg.shadows:
+            return zero + 1.0
+        return torch.where(occluded_fn(scene, so, f.ldir, f.dist), 0.0, 1.0)
+    return visibility
+
+
+def saved_visibility(cfg: RenderConfig, vis):
+    """The render backward's visibility of light ``li``: the forward's plane
+    (`n_vis_planes` layout; a miss pixel's value is never used, as its
+    cotangents are masked to zero)."""
+    if tuple(vis.shape[1:]) != (cfg.height, cfg.width):
+        raise ValueError(f"visibility planes {tuple(vis.shape)} do not fit "
+                         f"{(cfg.height, cfg.width)}")
+    return lambda li, so, f, zero: vis[li].to(zero.dtype) if cfg.shadows else zero + 1.0
 
 
 def _nearest_chain(scene, o, d):
@@ -593,9 +720,14 @@ def winner_surface(scene, w, o, d, t, zero):
     return w
 
 
-def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
-    """The per-pixel step adjoint; ``nearest(scene, o, d) -> (t, k)`` and
-    ``occluded_fn`` are the trace's nearest hit and any-hit test."""
+def _adjoint(scene, cfg, nearest, cotangent, visibility):
+    """The per-pixel adjoint of the step and of the render backward: ``(sum
+    of squared residuals, grads as a Scene)``. ``nearest(scene, o, d) -> (t,
+    k)`` is the trace's nearest hit; ``cotangent(img)`` gives the cotangent
+    of the clipped image per channel and the squared error
+    (`residual_cotangent`, `image_cotangent`); ``visibility(li, so, f,
+    zero)`` gives light li's visibility plane (`traced_visibility`,
+    `saved_visibility`)."""
     dev = scene.device
     H, W = cfg.height, cfg.width
     sp, rc, lt, cam = scene.spheres, scene.rects, scene.lights, scene.camera
@@ -622,19 +754,16 @@ def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
     per_light = []
     for li in range(L):
         f = light_terms(lt, li, so, n, d, base, kd, ksp, shin)
-        vis = (torch.where(occluded_fn(scene, so, f.ldir, f.dist), 0.0, 1.0)
-               if cfg.shadows else zero + 1.0)
+        vis = visibility(li, so, f, zero)
         col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
         per_light.append((f, vis))
     bg = vm.splat(scene.background)
     pre = tuple(torch.where(hit, c, b) for c, b in zip(col, bg))
     img = tuple(vm.clip01(c) for c in pre) if cfg.clip else pre
 
-    # ---- residual and loss
-    resid = tuple(img[c] - target[..., c] for c in range(3))
-    sq = sum(torch.sum(r * r) for r in resid)
-    gc = tuple(2.0 * norm * r * (_clipgrad(p_) if cfg.clip else 1.0)
-               for r, p_ in zip(resid, pre))
+    # ---- the image's cotangent, through the clip
+    g_img, sq = cotangent(img)
+    gc = tuple(g * (_clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, pre))
 
     # ---- shade adjoint (hit pixels; everything below is masked by hit)
     gh = tuple(torch.where(hit, g, 0.0) for g in gc)
@@ -691,4 +820,4 @@ def _adjoint(scene, cfg, target, norm, nearest, occluded_fn):
     camera = dc.replace(grads.camera, eye=g_eye, look_at=g_look, up=g_uph, fov_deg=g_fov)
     grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights, camera=camera,
                        ambient=torch.stack(g_amb), background=torch.stack(g_bg))
-    return norm * sq, grads
+    return sq, grads

@@ -5,7 +5,15 @@ wrappers and their plain versions.
   the TPU kernel ``_make_fused_vec.fwd_kernel``
   (reversible_raytracer_tpu/ops/kernels/fused_vec.py:897). It writes the
   (H, W, 3) image and one visibility plane per light. Plain version:
-  `render_vec_plain`.
+  `render_vec_plain`. On CUDA the image is differentiable through the
+  render backward (`_VecRender`, the ``custom_vjp`` of fused_vec.py:1340).
+- the render backward kernel (``csrc/fused_vec_render_bwd.cu``),
+  replacing ``make_bwd_kernel(False)`` (fused_vec.py:979, ``bwd_call`` at
+  :1283), launched only by `_VecRender.backward`: the image cotangent and
+  the forward's visibility planes -> the gradient of every scene scalar.
+  Plain version: `render_vec_bwd_plain` (autograd);
+  `render_vec_bwd_adjoint_eager` runs its hand-written adjoint in eager
+  torch.
 - `loss_grad_vec`: the fused training step (``csrc/fused_vec_step.cu``),
   replacing ``make_bwd_kernel(True)`` (fused_vec.py:979, ``step_call`` at
   :1310). One call gives the squared-error loss against a target and its
@@ -27,7 +35,8 @@ Covered: hard shading, spp 1, perspective, Phong, untextured objects, no
 environment map, no mirror bounces (the TPU kernels' spp-4 loop, reflection
 levels, texel tails and env global are not ported yet and raise). On a CPU
 tensor each wrapper runs its plain version; on a CUDA tensor it launches its
-kernel or raises.
+kernel or raises. The step (gradient rows of the padded packing) and the
+render backward deliver their gradients alike, through `unpack_grads`.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...models.scene import tree_leaves, tree_unflatten
 from ..pipeline import RenderConfig, n_vis_planes, render_tile
@@ -66,7 +76,12 @@ VEC_STEP = Kernel("fused_vec_step", {
     "rrt_vec_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_vec_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
-KERNELS = (VEC_RENDER, VEC_STEP)
+VEC_RENDER_BWD = Kernel("fused_vec_render_bwd", {
+    "rrt_vec_render_bwd": ([_P, _P, _P, *_GEOM, _P, _P, _P, _P, _P], _I),
+    "rrt_vec_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    "rrt_vec_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
+})
+KERNELS = (VEC_RENDER, VEC_STEP, VEC_RENDER_BWD)
 
 
 # ---------------------------------------------------------------------------
@@ -244,22 +259,83 @@ def render_vec_plain(scene, cfg: RenderConfig):
 
 def render_vec(scene, cfg: RenderConfig):
     """Image (H, W, 3) and visibility planes (n_vis, H, W). The forward
-    kernel on CUDA, `render_vec_plain` on the CPU."""
+    kernel on CUDA, `render_vec_plain` on the CPU. The image carries the
+    scene's gradient on both: on CUDA through the render backward kernel
+    (the planes carry none)."""
     dev = scene.device
     if dev.type == "cpu":
         return render_vec_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render kernel for device {dev}")
-    fused.refuse_grad(scene, "fused_vec.py:979 make_bwd_kernel(False), the vec render backward")
-    glob, sph, rct = _cuda_inputs(scene, cfg)
-    check_smem(VEC_RENDER, "rrt_vec_render_smem", scene)
-    img = torch.empty((cfg.height, cfg.width, 3), device=dev)
-    vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
-    VEC_RENDER.call("rrt_vec_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                    *_geometry(scene, cfg), img.data_ptr(), vis.data_ptr(),
-                    fused._stream(dev))
-    VEC_RENDER.launches += 1
-    return img, vis
+    return _VecRender.apply(scene, cfg, *tree_leaves(scene))
+
+
+class _VecRender(torch.autograd.Function):
+    """The vec forward and render backward kernels as one differentiable
+    function of the scene's leaves (the ``custom_vjp`` of
+    fused_vec.py:1340-1364): the forward saves the packed rows and the
+    visibility planes, the backward launches the backward kernel once."""
+
+    @staticmethod
+    def forward(ctx, scene, cfg, *leaves):
+        glob, sph, rct = _cuda_inputs(scene, cfg)
+        check_smem(VEC_RENDER, "rrt_vec_render_smem", scene)
+        if any(ctx.needs_input_grad):
+            check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_smem", scene)
+        dev = glob.device
+        img = torch.empty((cfg.height, cfg.width, 3), device=dev)
+        vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
+        VEC_RENDER.call("rrt_vec_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
+                        *_geometry(scene, cfg), img.data_ptr(), vis.data_ptr(),
+                        fused._stream(dev))
+        VEC_RENDER.launches += 1
+        ctx.scene, ctx.cfg = scene, cfg
+        ctx.save_for_backward(glob, sph, rct, vis)
+        ctx.mark_non_differentiable(vis)
+        ctx.set_materialize_grads(False)
+        return img, vis
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_img, _g_vis):
+        if g_img is None:
+            return (None, None, *(None for _ in tree_leaves(ctx.scene)))
+        glob, sph, rct, vis = ctx.saved_tensors
+        grads = _render_bwd_launch(ctx.scene, ctx.cfg, glob, sph, rct, g_img, vis)
+        return (None, None, *tree_leaves(grads))
+
+
+# ---------------------------------------------------------------------------
+# Render backward kernel
+# ---------------------------------------------------------------------------
+
+
+def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img, vis):
+    """The scene's gradient (a Scene) from one backward-kernel call."""
+    dev = glob.device
+    g_img = fused.cotangent_f32(g_img, cfg)
+    geom = _geometry(scene_like, cfg)
+    scratch = torch.empty((VEC_RENDER_BWD.lib().rrt_vec_render_bwd_scratch_floats(*geom[2:7]),),
+                          device=dev)
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
+    VEC_RENDER_BWD.call("rrt_vec_render_bwd", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
+                        *geom, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
+                        out.data_ptr(), fused._stream(dev))
+    VEC_RENDER_BWD.launches += 1
+    return _unpack_out(scene_like, out, glob, sph, rct)
+
+
+def _unpack_out(scene_like, out, glob, sph, rct):
+    """A step or backward kernel's output [sq, dglob, dsph, drct] -> the
+    scene's gradient (a Scene)."""
+    a = 1 + glob.numel()
+    b = a + sph.numel()
+    return unpack_grads(scene_like, out[1:a], out[a:b].view(sph.shape), out[b:].view(rct.shape))
+
+
+def render_vec_bwd_plain(scene, cfg: RenderConfig, g_img):
+    """torch.autograd of `render_eager_vec` for the image cotangent."""
+    return fused.autograd_vjp(render_eager_vec, scene, cfg, g_img)
 
 
 # ---------------------------------------------------------------------------
@@ -290,10 +366,7 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
                   target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
                   fused._stream(dev))
     VEC_STEP.launches += 1
-    a = 1 + glob.numel()
-    b = a + sph.numel()
-    return norm * out[0], unpack_grads(scene, out[1:a], out[a:b].view(sph.shape),
-                                       out[b:].view(rct.shape))
+    return norm * out[0], _unpack_out(scene, out, glob, sph, rct)
 
 
 def loss_grad_vec_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
@@ -310,5 +383,18 @@ def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "m
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
     with torch.no_grad():
-        return fused._adjoint(scene, cfg, target, norm, nearest=nearest_vec,
-                              occluded_fn=occluded_any)
+        sq, grads = fused._adjoint(scene, cfg, nearest_vec, fused.residual_cotangent(target, norm),
+                                   fused.traced_visibility(scene, cfg, occluded_any))
+    return norm * sq, grads
+
+
+def render_vec_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img, vis):
+    """The vec render backward kernel's algorithm in eager torch: the vec
+    step's adjoint with the image cotangent ``g_img`` in place of the
+    residual and the forward's planes ``vis`` in place of the shadow rays:
+    the scene's gradient (a Scene)."""
+    check_vec_kernel_config(scene, cfg)
+    fused._check_target(g_img, cfg, scene, "cotangent")
+    with torch.no_grad():
+        return fused._adjoint(scene, cfg, nearest_vec, fused.image_cotangent(g_img),
+                              fused.saved_visibility(cfg, vis))[1]

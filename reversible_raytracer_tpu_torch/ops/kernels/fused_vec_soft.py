@@ -6,6 +6,16 @@ their plain versions: the annealed inversion's soft stages.
   (reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:494, pallas_call at
   :511). It writes the (H, W, 3) image only. Plain version:
   `render_vec_soft_plain` (`pipeline_vec.render_eager_vec` with soft_tau).
+  On CUDA the image is differentiable through the soft render backward
+  (`_SoftRender`, the ``custom_vjp`` of fused_vec_soft.py:1008-1040).
+- the soft render backward kernel (``csrc/fused_vec_soft_render_bwd.cu``),
+  replacing ``make_bwd_kernel(False)`` (fused_vec_soft.py:547, ``bwd_call``
+  at :943), launched only by `_SoftRender.backward`: the image cotangent ->
+  the gradient of every scene scalar. No saved
+  visibility: soft shadows carry gradient, so the backward recomputes
+  them. Plain version: `render_vec_soft_bwd_plain` (autograd);
+  `render_vec_soft_bwd_adjoint_eager` runs its hand-written adjoint in
+  eager torch, the soft step's adjoint with the caller's cotangent.
 - `loss_grad_vec_soft`: the soft training step
   (``csrc/fused_vec_soft_step.cu``), replacing ``make_bwd_kernel(True)``
   (fused_vec_soft.py:547, ``step_call`` at :975). Plain version:
@@ -35,6 +45,7 @@ import dataclasses as dc
 from types import SimpleNamespace
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...models.scene import tree_leaves, tree_unflatten
 from .. import vecmath as vm
@@ -62,9 +73,13 @@ SOFT_STEP = Kernel("fused_vec_soft_step", {
     "rrt_soft_step_smem": ([_I, _I, _I], ctypes.c_longlong),
     "rrt_soft_max_spheres": ([], _I),
 })
-KERNELS = (SOFT_RENDER, SOFT_STEP)
-
-ROW8 = "fused_vec_soft.py:547 make_bwd_kernel(False), the soft render backward (row 8)"
+SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
+    "rrt_soft_render_bwd": ([_P, _P, _P, *_GEOM, _F, _P, _P, _P, _P], _I),
+    "rrt_soft_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    "rrt_soft_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
+    "rrt_soft_max_spheres": ([], _I),
+})
+KERNELS = (SOFT_RENDER, SOFT_STEP, SOFT_RENDER_BWD)
 
 
 def soft_kernel_ok(scene_like) -> bool:
@@ -78,7 +93,8 @@ def soft_kernel_ok(scene_like) -> bool:
 def soft_uncovered(scene, cfg: RenderConfig):
     """What the soft kernels do not cover (a reason), or None."""
     if cfg.spp != 1:
-        return f"spp={cfg.spp} (a spp-4 soft stage needs {ROW8})"
+        return (f"spp={cfg.spp} (a spp-4 soft stage needs subsample offsets in the soft "
+                "forward and backward kernels)")
     if cfg.checker_tau > 0.0:
         return "checker_tau > 0 (the soft checker)"
     if cfg.reflections:
@@ -120,21 +136,83 @@ def render_vec_soft_plain(scene, cfg: RenderConfig):
 
 def render_vec_soft(scene, cfg: RenderConfig):
     """The soft (H, W, 3) image: the forward kernel on CUDA,
-    `render_vec_soft_plain` on the CPU."""
+    `render_vec_soft_plain` on the CPU. Differentiable on both: on CUDA
+    through the soft render backward kernel."""
     dev = scene.device
     if dev.type == "cpu":
         return render_vec_soft_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft render kernel for device {dev}")
-    fused.refuse_grad(scene, ROW8)
-    glob, sph, rct = _cuda_inputs(scene, cfg)
-    fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
-    img = torch.empty((cfg.height, cfg.width, 3), device=dev)
-    SOFT_RENDER.call("rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                     *fused_vec._geometry(scene, cfg), float(cfg.soft_tau), img.data_ptr(),
-                     fused._stream(dev))
-    SOFT_RENDER.launches += 1
-    return img
+    return _SoftRender.apply(scene, cfg, *tree_leaves(scene))
+
+
+def _check_soft_adjoint(kernel, smem_entry: str, scene) -> None:
+    """Refuse a scene the soft step or backward kernel cannot take: rows
+    beyond a block's shared memory, or more spheres than the exclusive
+    products' chunk boundaries hold."""
+    fused_vec.check_smem(kernel, smem_entry, scene)
+    most = kernel.lib().rrt_soft_max_spheres()
+    if scene.spheres.count > most:
+        raise NotImplementedError(f"{kernel.name} takes at most {most} spheres, "
+                                  f"not {scene.spheres.count}")
+
+
+class _SoftRender(torch.autograd.Function):
+    """The soft forward and soft render backward kernels as one
+    differentiable function of the scene's leaves (the ``custom_vjp`` of
+    fused_vec_soft.py:1008-1040): the forward saves the packed rows (tau
+    is in the saved configuration), the backward launches the backward
+    kernel once."""
+
+    @staticmethod
+    def forward(ctx, scene, cfg, *leaves):
+        glob, sph, rct = _cuda_inputs(scene, cfg)
+        fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
+        if any(ctx.needs_input_grad):
+            _check_soft_adjoint(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
+        img = torch.empty((cfg.height, cfg.width, 3), device=glob.device)
+        SOFT_RENDER.call("rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
+                         *fused_vec._geometry(scene, cfg), float(cfg.soft_tau), img.data_ptr(),
+                         fused._stream(glob.device))
+        SOFT_RENDER.launches += 1
+        ctx.scene, ctx.cfg = scene, cfg
+        ctx.save_for_backward(glob, sph, rct)
+        ctx.set_materialize_grads(False)
+        return img
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_img):
+        if g_img is None:
+            return (None, None, *(None for _ in tree_leaves(ctx.scene)))
+        glob, sph, rct = ctx.saved_tensors
+        grads = _render_bwd_launch(ctx.scene, ctx.cfg, glob, sph, rct, g_img)
+        return (None, None, *tree_leaves(grads))
+
+
+# ---------------------------------------------------------------------------
+# Render backward kernel (row 8)
+# ---------------------------------------------------------------------------
+
+
+def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img):
+    """The scene's gradient (a Scene) from one soft backward-kernel call."""
+    dev = glob.device
+    g_img = fused.cotangent_f32(g_img, cfg)
+    geom = fused_vec._geometry(scene_like, cfg)
+    scratch = torch.empty(
+        (SOFT_RENDER_BWD.lib().rrt_soft_render_bwd_scratch_floats(*geom[2:7]),), device=dev)
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
+    SOFT_RENDER_BWD.call("rrt_soft_render_bwd", glob.data_ptr(), sph.data_ptr(),
+                         rct.data_ptr(), *geom, float(cfg.soft_tau), g_img.data_ptr(),
+                         scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+    SOFT_RENDER_BWD.launches += 1
+    return fused_vec._unpack_out(scene_like, out, glob, sph, rct)
+
+
+def render_vec_soft_bwd_plain(scene, cfg: RenderConfig, g_img):
+    """torch.autograd of the soft render for the image cotangent."""
+    return fused.autograd_vjp(render_eager_vec, scene, cfg, g_img)
 
 
 # ---------------------------------------------------------------------------
@@ -154,11 +232,7 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft step kernel for device {dev}")
     glob, sph, rct = _cuda_inputs(scene, cfg)
-    fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
-    most = SOFT_STEP.lib().rrt_soft_max_spheres()
-    if scene.spheres.count > most:
-        raise NotImplementedError(f"the soft step kernel takes at most {most} spheres, "
-                                  f"not {scene.spheres.count}")
+    _check_soft_adjoint(SOFT_STEP, "rrt_soft_step_smem", scene)
     target = target.contiguous()
     geom = fused_vec._geometry(scene, cfg)
     scratch = torch.empty((SOFT_STEP.lib().rrt_soft_step_scratch_floats(*geom[2:7]),),
@@ -168,10 +242,7 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
                    float(cfg.soft_tau), target.data_ptr(), norm, scratch.data_ptr(),
                    out.data_ptr(), fused._stream(dev))
     SOFT_STEP.launches += 1
-    a = 1 + glob.numel()
-    b = a + sph.numel()
-    return norm * out[0], fused_vec.unpack_grads(scene, out[1:a], out[a:b].view(sph.shape),
-                                                 out[b:].view(rct.shape))
+    return norm * out[0], fused_vec._unpack_out(scene, out, glob, sph, rct)
 
 
 def loss_grad_vec_soft_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
@@ -191,7 +262,18 @@ def loss_grad_vec_soft_adjoint_eager(scene, cfg: RenderConfig, target, loss: str
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
     with torch.no_grad():
-        return _soft_adjoint(scene, cfg, target, norm)
+        sq, grads = _soft_adjoint(scene, cfg, fused.residual_cotangent(target, norm))
+    return norm * sq, grads
+
+
+def render_vec_soft_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img):
+    """The soft render backward kernel's algorithm in eager torch: the soft
+    step's adjoint (`_soft_adjoint`) with the image cotangent ``g_img`` in
+    place of the residual: the scene's gradient (a Scene)."""
+    check_soft_kernel_config(scene, cfg)
+    fused._check_target(g_img, cfg, scene, "cotangent")
+    with torch.no_grad():
+        return _soft_adjoint(scene, cfg, fused.image_cotangent(g_img))[1]
 
 
 def _exclusive_products(one_m):
@@ -279,7 +361,11 @@ def _layer(scene, cfg, ray, k, tau, zero):
     return y
 
 
-def _soft_adjoint(scene, cfg, target, norm):
+def _soft_adjoint(scene, cfg, cotangent):
+    """The per-pixel soft adjoint of the step and of the render backward:
+    ``(sum of squared residuals, grads as a Scene)``; ``cotangent(img)``
+    gives the clipped image's cotangent per channel and the squared error
+    (`fused.residual_cotangent`, `fused.image_cotangent`)."""
     tau = cfg.soft_tau
     sp, rc, lt = scene.spheres, scene.rects, scene.lights
     N, M, L = sp.count, rc.count, lt.count
@@ -289,15 +375,13 @@ def _soft_adjoint(scene, cfg, target, norm):
     o, d = ray.o, ray.d
     y1, y2 = (_layer(scene, cfg, ray, k, tau, zero) for _, k in two_layers(scene, o, d, tau))
 
-    # ---- composite, residual and loss
+    # ---- composite, and the image's cotangent through the clip
     bg = vm.splat(scene.background)
     behind = tuple(y2.a * y2.col[c] + (1.0 - y2.a) * bg[c] for c in range(3))
     comp = tuple(y1.a * y1.col[c] + (1.0 - y1.a) * behind[c] for c in range(3))
     img = tuple(vm.clip01(c) for c in comp) if cfg.clip else comp
-    resid = tuple(img[c] - target[..., c] for c in range(3))
-    sq = sum(torch.sum(r * r) for r in resid)
-    g_comp = tuple(2.0 * norm * r * (fused._clipgrad(p_) if cfg.clip else 1.0)
-                   for r, p_ in zip(resid, comp))
+    g_img, sq = cotangent(img)
+    g_comp = tuple(g * (fused._clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, comp))
 
     # ---- composite adjoint
     y1.g_a = sum(g_comp[c] * (y1.col[c] - behind[c]) for c in range(3))
@@ -384,7 +468,7 @@ def _soft_adjoint(scene, cfg, target, norm):
     grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights, camera=camera,
                        ambient=torch.stack([x.sum() for x in g_amb]),
                        background=torch.stack([x.sum() for x in g_bg]))
-    return norm * sq, grads
+    return sq, grads
 
 
 def _add_materials(acc, inc):

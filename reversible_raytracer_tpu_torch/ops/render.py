@@ -69,23 +69,33 @@ _RENDER = {"cuda": lambda s, c: fused.render_fused(s, c)[0],
 
 def render(scene, cfg: RenderConfig):
     """Render the full (H, W, 3) image: a forward kernel on CUDA, an eager
-    twin on the CPU (`resolve_impl`). On CUDA the image carries no gradient
-    (the render backward kernels are not ported yet), and a scene whose
-    leaves require grad is refused; on the CPU it is differentiable."""
+    twin on the CPU (`resolve_impl`). The image is differentiable in the
+    scene's leaves on both, as the JAX package's `render` is on every
+    backend: on CUDA its backward is one launch of the family's render
+    backward kernel (`fused._FusedRender`, `fused_vec._VecRender`,
+    `fused_vec_soft._SoftRender`)."""
     return _RENDER[resolve_impl(scene, cfg)](scene, cfg)
 
 
 def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
     """``f(scene, target) -> (loss, grads)``: one fused step kernel call per
     call on CUDA, torch autograd over the eager renderer on the CPU. A soft
-    step (``soft_tau > 0``) at spp 4 raises on CUDA: it would need the soft
-    render backward (row 8)."""
+    step (``soft_tau > 0``) at spp 4 raises on CUDA (the soft kernels take
+    no subsample offsets yet)."""
     impl = resolve_step_impl(scene_like, cfg, loss)
     if cfg.soft_tau > 0.0:
         step = fused_vec_soft.loss_grad_vec_soft
     else:
         step = fused_vec.loss_grad_vec if impl.endswith("_vec") else fused.loss_grad_fused
     return lambda scene, target: step(scene, cfg, target, loss=loss)
+
+
+def autograd_loss_and_grad_fn(render_fn, cfg: RenderConfig, loss: str = "mse"):
+    """``f(scene, target) -> (loss, grads)`` by torch autograd of the loss
+    over ``render_fn(scene)``, the JAX package's `make_step` route: with
+    `render` on CUDA, one forward and one render backward launch per call."""
+    return lambda scene, target: fused.autograd_loss_grad(lambda s, _cfg: render_fn(s), scene,
+                                                          cfg, target, loss)
 
 
 def mse_loss(image, target):

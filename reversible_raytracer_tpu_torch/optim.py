@@ -138,17 +138,23 @@ def make_flat_update(template: Scene, spec: ParamSpec, ocfg: OptConfig):
 
 
 def optimize(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig, ocfg: OptConfig,
-             vag_fn=None, logger=None, log_every: int = 10, truth: Scene | None = None):
+             vag_fn=None, logger=None, log_every: int = 10, truth: Scene | None = None,
+             render_fn=None):
     """Host-driven optimization loop. ``vag_fn(scene, target) -> (loss,
     grads)`` defaults to `ops.render.loss_and_grad_fn` (the fused step
-    kernel on CUDA). Each step's loss (before that step's update) goes into
-    a device tensor; only the steps logged every ``log_every`` (0: none)
+    kernel on CUDA). Given ``render_fn(scene) -> (H, W, 3)`` and no
+    ``vag_fn``, each step is torch autograd of ``ocfg.loss`` over it, as
+    the JAX package's `make_step` takes ``jax.value_and_grad`` (with
+    `ops.render.render` on CUDA: the forward and the render backward
+    kernels). Each step's loss (before that step's update) goes into a
+    device tensor; only the steps logged every ``log_every`` (0: none)
     wait for the device. Returns (final_scene, history, losses[iters]),
     where history holds the logged steps' loss and grad norm."""
     if vag_fn is None:
-        from .ops.render import loss_and_grad_fn
+        from .ops.render import autograd_loss_and_grad_fn, loss_and_grad_fn
 
-        vag_fn = loss_and_grad_fn(scene, rcfg, loss=ocfg.loss)
+        vag_fn = (loss_and_grad_fn(scene, rcfg, loss=ocfg.loss) if render_fn is None
+                  else autograd_loss_and_grad_fn(render_fn, rcfg, loss=ocfg.loss))
     init, apply = make_flat_update(scene, spec, ocfg)
     state = init(scene)
     history = []

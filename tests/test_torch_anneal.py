@@ -94,7 +94,7 @@ def test_anneal_stage_decisions():
         for cfg in (soft, hard):
             with pytest.raises(NotImplementedError):
                 resolve_impl(bad, cfg)
-    with pytest.raises(NotImplementedError, match="row 8"):
+    with pytest.raises(NotImplementedError, match="subsample offsets"):
         resolve_impl(card(), dataclasses.replace(soft, spp=4))
     with pytest.raises(NotImplementedError):
         resolve_impl(card(device="meta"), soft)

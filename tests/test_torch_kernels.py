@@ -17,7 +17,7 @@ from reversible_raytracer_tpu_torch.ops import pipeline
 from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
 from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
 from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
-from reversible_raytracer_tpu_torch.ops.render import render, resolve_impl
+from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render, resolve_impl
 
 
 @pytest.fixture()
@@ -151,21 +151,75 @@ def test_vec_step_kernel_is_deterministic(cuda):
     assert all(torch.equal(flat[0], f) for f in flat[1:])
 
 
+# (family, config number, soft_tau): the three render backward kernels
+BWD_CASES = [("fused", 2, 0.0), ("vec", 5, 0.0), ("soft", 5, 0.05)]
+
+
+def _bwd_case(cuda, num, tau, size=64):
+    scene, spec, _ = configs.CONFIGS[num](size=size, device=cuda)
+    cfg = RenderConfig(height=size, width=size + 16, shadows=True, soft_tau=tau)
+    return scene, configs.perturb(scene, spec, scale=0.05, seed=4), cfg
+
+
+def _bwd_kernel(family):
+    return {"fused": fused.FUSED_RENDER_BWD, "vec": fused_vec.VEC_RENDER_BWD,
+            "soft": fused_vec_soft.SOFT_RENDER_BWD}[family]
+
+
+def _bwd_call(family, scene, cfg, g):
+    """The family's backward kernel, reached through autograd of `render`,
+    and its plain version for cotangent g."""
+    plain = {"fused": fused.render_fused_bwd_plain, "vec": fused_vec.render_vec_bwd_plain,
+             "soft": fused_vec_soft.render_vec_soft_bwd_plain}[family]
+    return fused.autograd_vjp(render, scene, cfg, g), plain(scene, cfg, g)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("num", [2, 5])
-def test_cuda_render_refuses_a_scene_that_requires_grad(cuda, num):
-    """Until the render backward kernels are ported, a CUDA render cannot
-    carry a gradient, so it refuses rather than return an image that
-    silently has none; a scene that needs no gradient renders."""
-    scene, _, _ = configs.CONFIGS[num](size=32, device=cuda)
-    cfg = RenderConfig(height=32, width=32, shadows=True)
-    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
-    with pytest.raises(NotImplementedError, match="backward"):
-        render(tree_unflatten(scene, leaves), cfg)
+@pytest.mark.parametrize("family, num, tau", BWD_CASES)
+def test_render_bwd_kernel_matches_plain(cuda, family, num, tau):
+    """Each render backward kernel against autograd of its family's eager
+    render, for a seeded cotangent: every leaf within 1e-2 of its scale;
+    two calls bit-identical."""
+    _, start, cfg = _bwd_case(cuda, num, tau)
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    kernel = _bwd_kernel(family)
+    before = kernel.launches
+    got, ref = _bwd_call(family, start, cfg, g)
+    assert kernel.launches == before + 1
+    _close_leaves(ref, got)
+    again = _bwd_call(family, start, cfg, g)[0]
+    assert torch.equal(fused.flatten_scene(got), fused.flatten_scene(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family, num, tau", BWD_CASES)
+def test_cuda_render_carries_the_gradient(cuda, family, num, tau):
+    """`render` of a scene that requires grad is differentiable on the card:
+    one backward launch per backward, the mse gradient the step kernel's
+    (1e-2 of each leaf's scale), an expanded cotangent (``sum()``) the same
+    bits as its contiguous copy, and no gradient work under no_grad."""
+    scene, start, cfg = _bwd_case(cuda, num, tau)
+    target = render(scene, cfg)
+    kernel = _bwd_kernel(family)
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    img = render(tree_unflatten(start, leaves), cfg)
+    before = kernel.launches
+    ((img - target) ** 2).mean().backward()
+    assert kernel.launches == before + 1
+    got = tree_unflatten(start, [torch.zeros_like(l) if l.grad is None else l.grad
+                                 for l in leaves])
+    _close_leaves(loss_and_grad_fn(start, cfg)(start, target)[1], got)
+    for l in leaves:
+        l.grad = None
+    render(tree_unflatten(start, leaves), cfg).sum().backward()
+    ones = _bwd_call(family, start, cfg, torch.ones((cfg.height, cfg.width, 3), device=cuda))[0]
+    assert torch.equal(torch.cat([l.grad.reshape(-1) for l in leaves]),
+                       fused.flatten_scene(ones))
     with torch.no_grad():
-        img = render(tree_unflatten(scene, leaves), cfg)
-    torch.testing.assert_close(img, render(scene, cfg), rtol=0, atol=0)
-    assert resolve_impl(scene, cfg) == ("cuda_vec" if num == 5 else "cuda")
+        img = render(tree_unflatten(start, leaves), cfg)
+    assert img.grad_fn is None
+    torch.testing.assert_close(img, render(start, cfg), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -211,13 +265,12 @@ def test_soft_step_kernel_matches_adjoint(cuda, loss, shadows):
 
 @pytest.mark.cuda
 def test_soft_kernels_refuse(cuda):
-    """spp 4 names the missing soft render backward; a scene that requires
-    grad is refused by the soft forward."""
+    """spp 4 names what the soft kernels lack (subsample offsets), in the
+    step and in a render that would need the backward."""
     scene, _, _ = configs.config5_many_spheres(size=32, device=cuda)
-    with pytest.raises(NotImplementedError, match="row 8"):
-        fused_vec_soft.loss_grad_vec_soft(scene, RenderConfig(height=32, width=32, spp=4,
-                                                              soft_tau=0.05),
-                                          torch.zeros((32, 32, 3), device=cuda))
+    spp4 = RenderConfig(height=32, width=32, spp=4, soft_tau=0.05)
+    with pytest.raises(NotImplementedError, match="subsample offsets"):
+        fused_vec_soft.loss_grad_vec_soft(scene, spp4, torch.zeros((32, 32, 3), device=cuda))
     leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
-    with pytest.raises(NotImplementedError, match="backward"):
-        render(tree_unflatten(scene, leaves), RenderConfig(height=32, width=32, soft_tau=0.05))
+    with pytest.raises(NotImplementedError, match="subsample offsets"):
+        render(tree_unflatten(scene, leaves), spp4)

@@ -182,7 +182,7 @@ def test_soft_dispatch_on_cpu():
 
 
 @pytest.mark.parametrize("kw, exc, why", [
-    (dict(spp=4), NotImplementedError, "row 8"),
+    (dict(spp=4), NotImplementedError, "subsample offsets"),
     (dict(checker_tau=0.1), NotImplementedError, "checker"),
     (dict(reflections=1), NotImplementedError, "reflections"),
     (dict(soft_tau=0.0), ValueError, "soft_tau > 0"),

@@ -29,7 +29,7 @@ from reversible_raytracer_tpu.ops.pipeline_vec import render_jnp_vec
 from reversible_raytracer_tpu_torch import cli
 from reversible_raytracer_tpu_torch.bridge import scene_from_numpy
 from reversible_raytracer_tpu_torch.models import configs
-from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_map, tree_unflatten
+from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
 from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
 from reversible_raytracer_tpu_torch.ops.pipeline_vec import render_eager_vec
 from reversible_raytracer_tpu_torch.ops.render import (
@@ -151,18 +151,21 @@ def test_cpu_dispatch_by_object_count(pair):
 
 
 def test_cpu_render_stays_differentiable(pair):
-    """The CPU twins carry gradients; the CUDA refusal (`refuse_grad`)
-    names the missing backward kernel."""
+    """The CPU twins carry gradients, and the vec render backward's eager
+    twin (the vec kernel's algorithm) gives autograd's for the cotangent of
+    ``sum()`` (float32: 1e-4 of each leaf's scale, two summation orders)."""
     _, _, ts, tcfg = pair
     leaves = [l.clone().requires_grad_(True) for l in tree_leaves(ts)]
     scene = tree_unflatten(ts, leaves)
     render(scene, tcfg).sum().backward()
     assert float(leaves[0].grad.abs().sum()) > 0  # spheres.center
-    with pytest.raises(NotImplementedError, match="make_bwd_kernel"):
-        fused.refuse_grad(scene, "fused_vec.py:979 make_bwd_kernel(False)")
-    with torch.no_grad():
-        fused.refuse_grad(scene, "unused")
-    fused.refuse_grad(tree_map(lambda x: x.detach(), scene), "unused")
+    twin = fused_vec.render_vec_bwd_adjoint_eager(ts, tcfg, torch.ones((SIZE, SIZE, 3)),
+                                                  fused_vec.render_vec_plain(ts, tcfg)[1])
+    for leaf, got in zip(leaves, tree_leaves(twin)):
+        ref = torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
+        if ref.numel():
+            scale = max(float(ref.abs().max()), 1e-6)
+            assert float((got - ref).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("kw, why", [
