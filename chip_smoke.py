@@ -51,7 +51,12 @@ non-zero:
  13. soft_step - the soft step kernel against autograd of the plain version
                and against the eager adjoint at the shapes of phase 12, from
                perturb(scale=0.05, seed=4): loss within 1e-4 relative, every
-               leaf within 1e-2 of its scale; two calls bit-identical.
+               leaf within 1e-2 of its scale; two calls bit-identical; and
+               against the soft forward kernel's own image of the true scene
+               a loss of exactly 0 and every gradient exactly 0 (the step's
+               culled forward is the forward kernel's, bit for bit); the
+               most spheres a block of this card takes with config 5's rect
+               and light.
  14. anneal_main - the port's CLI: invert --config 5 --size 1024 --anneal
                0.08,0.03,0.01,0 --anneal-size 512 --lr 2e-3 --perturb 0.03
                --iters 20 on the card, with the launch counts read around it:
@@ -61,16 +66,20 @@ non-zero:
                is below the start's.
  15. soft_times - both soft kernels and their plain versions at config 5
                (512^2 and 1024^2, tau 0.08) and at 513 objects (512^2), with
-               CUDA events (median of 20 after warm-up), beside their bounds.
+               CUDA events (median of 20 after warm-up), beside their bounds
+               (the step's with the shadow cull, and without it as before);
+               the (pixel, sphere, layer, light) shadow pairs the cull keeps
+               against all pairs, and the warps' candidate visits.
  16. render_grad - the three render backward kernels (rows 3, 5, 8) at config
                2 512^2, config 5 1024^2 and config 5 512^2 tau 0.08, from
                perturb(seed=4): each against its plain version (autograd of
-               the eager render) for a seeded normal cotangent, every leaf
-               within 1e-2 of its scale; the mse gradient of a differentiable
-               `render` against the matching step kernel's (rows 1, 6, 9), by
-               the same rule; two calls bit-identical; an expanded (stride-0)
-               cotangent, from `render(...).sum().backward()`, bit-identical
-               to its contiguous copy.
+               the eager render) for a seeded normal cotangent, and row 8
+               against its eager twin, every leaf within 1e-2 of its scale;
+               the mse gradient of a differentiable `render` against the
+               matching step kernel's (rows 1, 6, 9), by the same rule; two
+               calls bit-identical; an expanded (stride-0) cotangent, from
+               `render(...).sum().backward()`, bit-identical to its
+               contiguous copy.
  17. render_grad_main - 20 steps of optimize(render_fn=render) on each of the
                three shapes (the JAX package's make_step route): the forward
                kernel 21 times (the target and one per step), the backward
@@ -799,16 +808,24 @@ def phase_soft_step():
             errs = _grad_errors(g_ref, g_k)
             worst = max(errs, key=errs.get)
             row[name] = dict(loss_rel=rel, worst_leaf=worst, worst_err=errs[worst])
+        # the true scene against the forward kernel's image of it
+        img = fused_vec_soft.render_vec_soft(scene, cfg)
+        l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg, img)
+        torch.cuda.synchronize()
+        row["zero_residual_exact"] = bool(float(l_0) == 0.0
+                                          and not fused.flatten_scene(g_0).any())
         rows.append(row)
         for name in ("autograd", "adjoint_eager"):
             if not (row[name]["loss_rel"] <= 1e-4 and row[name]["worst_err"] <= 1e-2):
                 raise AssertionError(f"soft step kernel disagrees with {name}: {row}")
         if not same:
             raise AssertionError(f"soft step kernel is not bit-identical from call to call: {row}")
+        if not row["zero_residual_exact"]:
+            raise AssertionError(f"soft step kernel's forward is not the soft forward's: {row}")
         if max_abs is None:
             max_abs = max(float((a - b).abs().max())
                           for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
-    emit("soft_step", ok=True, rows=rows)
+    emit("soft_step", ok=True, rows=rows, most_spheres=fused_vec_soft.most_spheres())
     return max_abs
 
 
@@ -857,24 +874,38 @@ def phase_anneal_main():
 
 
 # Soft terms, counted as the rest of OPS (csrc/soft_common.cuh,
-# csrc/fused_vec_soft_step.cu): the sigmoid of a ranked near miss; one soft
-# shadow test (a sphere's coverage of a shadow ray and its factor in the
-# product), counted for every sphere, live layer and light; its adjoint,
-# counted where the coverage is not gated to zero; a live sphere layer's
-# coverage and its adjoint; the composite and its adjoint per pixel.
-SOFT_OPS = dict(rank_sigmoid=4, shadow_soft=26, adj_shadow=42, layer_alpha=4,
-                adj_alpha=12, composite=18, adj_composite=30)
+# csrc/soft_step.cuh): the sigmoid of a ranked near miss; one soft shadow
+# test (a sphere's coverage of a shadow ray and its factor in the product),
+# counted for every sphere, live layer and light in the forward; its
+# adjoint; the per-pixel cull test of a (pixel, sphere) pair the step drops
+# (oc, b, |oc|^2 - r^2, disc); the per-warp test of one sphere against a
+# warp's ball of shadow origins (c - c_w, its projection on the segment to
+# the light, clamped, the offset and its square against (R + rho)^2); a
+# live sphere layer's coverage and its adjoint; the composite and its
+# adjoint per pixel. The step's shadow terms are counted with the cull at
+# what the cheapest known algorithm spends: per (warp, sphere, layer,
+# light) with a live lane the warp test, per live lane of a warp's
+# candidate the pixel test, and a kept pair at its soft test and adjoint;
+# and, as before the cull, every pair at its soft test and each pair whose
+# coverage is not gated to zero at its adjoint.
+SOFT_OPS = dict(rank_sigmoid=4, shadow_soft=26, adj_shadow=42, shadow_cull=16, warp_test=25,
+                layer_alpha=4, adj_alpha=12, composite=18, adj_composite=30)
 
 
 def soft_work_counts(scene, cfg):
     """What the soft kernels' work depends on in this run's data: live
     layers by winner type, sphere-ray pairs that rank by their sigmoid, and
-    the soft shadow tests and the ones whose coverage is not gated to zero,
-    over both layers and every light."""
+    the soft shadow tests, the ones whose coverage is not gated to zero and
+    the ones the cull keeps, over both layers and every light; by
+    `fused_vec_soft.warp_candidates`, the warps' sphere tests (a warp with a
+    live lane tests every sphere), their candidate visits (each a walk step
+    of 32 lanes), the live (pixel, sphere) pairs inside those candidates,
+    and the layer-and-light walks with a candidate."""
     import torch
 
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
     from reversible_raytracer_tpu_torch.ops import pipeline_vec as pv
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft as fvs
 
     with torch.no_grad():
         H, W = cfg.height, cfg.width
@@ -889,7 +920,7 @@ def soft_work_counts(scene, cfg):
         t = -b - pl.vm.safe_sqrt(disc)
         ranked = int(((~((disc > 0) & (t > pl.T_EPS))) & (-b > pl.T_EPS)).sum())
         del oc, b, disc, t
-        live = live_sph = live_rect = gated = 0
+        live = live_sph = live_rect = gated = kept = tests = visits = pairs = walks = 0
         for _, k in pv.two_layers(scene, o, d, tau):
             tt, lv, at, _ = pv.soft_layer(scene, o, d, k, tau, (H, W))
             live += int(lv.sum())
@@ -901,11 +932,23 @@ def soft_work_counts(scene, cfg):
                 alpha = pv.sphere_shadow_alpha(c, r, pv._lead(so), pv._lead(ldir), dist[None],
                                                tau)
                 gated += int(((alpha > 0) & lv[None]).sum())
+                kept += int((fvs.shadow_kept(c, r, pv._lead(so), pv._lead(ldir), dist[None], tau)
+                             & lv[None]).sum())
+                n = fvs.warp_candidates(sp, so, lv, scene.lights.position[li], tau).sum(-1)
+                lanes = torch.nn.functional.pad(lv, (0, -W % 32)).reshape(H, -1, 32).sum(-1)
+                tests += int((lanes > 0).sum()) * N
+                visits += int(n.sum())
+                pairs += int((n * lanes).sum())
+                walks += int((n > 0).sum())
         shadows = live * L if cfg.shadows else 0
     return dict(height=H, width=W, pixels=H * W, n_sph=N, n_rect=M, lights=L, live=live,
                 live_sph=live_sph, live_rect=live_rect, ranked_sigmoid=ranked,
                 shadow_tests=shadows * N, shadow_rect=shadows * M,
-                shadow_gated=gated if cfg.shadows else 0)
+                shadow_gated=gated if cfg.shadows else 0,
+                shadow_kept=kept if cfg.shadows else 0,
+                warp_tests=tests if cfg.shadows else 0,
+                warp_visits=visits if cfg.shadows else 0,
+                candidate_pairs=pairs if cfg.shadows else 0, walks=walks if cfg.shadows else 0)
 
 
 def soft_render_ops(c):
@@ -917,14 +960,23 @@ def soft_render_ops(c):
             + c["pixels"] * SOFT_OPS["composite"])
 
 
-def soft_step_ops(c):
-    return (soft_render_ops(c) + OPS["cam_chain"]
+def soft_step_ops(c, cull=True):
+    """The soft step's operations; ``cull=False`` counts the shadow terms
+    as before the cull."""
+    if cull:
+        shadow = (c["warp_tests"] * SOFT_OPS["warp_test"]
+                  + max(c["candidate_pairs"] - c["shadow_kept"], 0) * SOFT_OPS["shadow_cull"]
+                  + c["shadow_kept"] * (SOFT_OPS["shadow_soft"] + SOFT_OPS["adj_shadow"]))
+    else:
+        shadow = (c["shadow_tests"] * SOFT_OPS["shadow_soft"]
+                  + c["shadow_gated"] * SOFT_OPS["adj_shadow"])
+    return (soft_render_ops(c) - c["shadow_tests"] * SOFT_OPS["shadow_soft"] + shadow
+            + OPS["cam_chain"]
             + c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] + SOFT_OPS["adj_composite"]
                              + OPS["adj_camera"] + OPS["sum_hit"])
             + c["live"] * (OPS["adj_base"] + c["lights"] * (OPS["adj_light"] + OPS["sum_light"]))
             + c["live_sph"] * (OPS["adj_sphere"] + SOFT_OPS["adj_alpha"] + OPS["sum_sphere"])
-            + c["live_rect"] * (OPS["adj_rect"] + OPS["sum_rect"])
-            + c["shadow_gated"] * SOFT_OPS["adj_shadow"])
+            + c["live_rect"] * (OPS["adj_rect"] + OPS["sum_rect"]))
 
 
 def phase_soft_times():
@@ -961,10 +1013,13 @@ def phase_soft_times():
         c = soft_work_counts(start, cfg)
         Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
         in_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
+        s_bytes = vec_step_bytes(c, Sg, ns_pad, nr_pad)
         r_bound = bound(soft_render_ops(c), in_rows + 4 * H * W * 3)
-        s_bound = bound(soft_step_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad))
+        s_bound = bound(soft_step_ops(c), s_bytes)
         rows[label] = dict(render_ms=render_ms, step_ms=step_ms, render_plain_ms=render_plain_ms,
                            step_plain_ms=step_plain_ms, render_bound=r_bound, step_bound=s_bound,
+                           step_bound_uncull=bound(soft_step_ops(c, cull=False), s_bytes),
+                           kept_pairs=c["shadow_kept"], all_pairs=c["shadow_tests"],
                            render_ops=soft_render_ops(c), step_ops=soft_step_ops(c), work=c,
                            step_rays_per_s=H * W / (step_ms * 1e-3))
     for k in _all_kernels():
@@ -1073,7 +1128,13 @@ def phase_render_grad():
                    deterministic=bool(torch.equal(fused.flatten_scene(got),
                                                   fused.flatten_scene(again))),
                    expanded_cotangent_same=bool(torch.equal(expanded, fused.flatten_scene(ones))))
-        for name, ref, test in (("plain", plain, got), ("mse_vs_step", by_step, by_render)):
+        checks = [("plain", plain, got), ("mse_vs_step", by_step, by_render)]
+        if family == "soft":  # row 8 against its eager twin too
+            from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
+
+            checks.append(("twin", fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g),
+                           got))
+        for name, ref, test in checks:
             errs = _grad_errors(ref, test)
             worst = max(errs, key=errs.get)
             row[name] = dict(worst_leaf=worst, worst_err=errs[worst])
@@ -1081,7 +1142,7 @@ def phase_render_grad():
                               for a, b in zip(tree_leaves(plain), tree_leaves(got)) if a.numel())
         row["plain"]["max_abs_err"] = max_abs[family]
         rows.append(row)
-        if not (row["plain"]["worst_err"] <= 1e-2 and row["mse_vs_step"]["worst_err"] <= 1e-2
+        if not (all(row[name]["worst_err"] <= 1e-2 for name, *_ in checks)
                 and row["one_launch"] and row["deterministic"]
                 and row["expanded_cotangent_same"]):
             raise AssertionError(f"render backward kernel failed a check: {row}")
@@ -1144,8 +1205,8 @@ def bwd_ops(c):
             - c["shadow_rect_hit"] * OPS["rect_shadow"])
 
 
-def soft_bwd_ops(c):
-    return soft_step_ops(c) - c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] - OPS_COT)
+def soft_bwd_ops(c, cull=True):
+    return soft_step_ops(c, cull) - c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] - OPS_COT)
 
 
 def _raw_calls(family, start, cfg, g, target):
@@ -1216,6 +1277,7 @@ def _raw_calls(family, start, cfg, g, target):
         "rrt_soft_step", *rows(), *geom, tau, target.data_ptr(), w, scratch.data_ptr(),
         out.data_ptr(), stream)
     c = soft_work_counts(start, cfg)
+    c["bound_uncull"] = bound(soft_bwd_ops(c, cull=False), vec_step_bytes(c, Sg, ns_pad, nr_pad))
     return fwd, bwd, step, bound(soft_bwd_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad)), c
 
 

@@ -14,17 +14,18 @@
 // of the clipped image (zero past the ragged edge) through the clip's
 // gradient, and runs the soft adjoint. There are no saved visibility
 // planes: soft shadows carry gradient to every covering sphere, so the
-// backward recomputes them. The exclusive shadow products (chunk-boundary
-// prefixes and a backward suffix walk, never a division), the per-warp
+// backward recomputes them. The shadow cull (per warp a bound on its
+// shadow rays, per pixel the spheres whose factor is exactly 1 dropped),
+// the one forward walk over the candidates with its kept prefixes and the
+// backward walk (exclusive products, never a division), the per-warp
 // shadow rows, the winner lists, the partial rows and vec_finalize_kernel
-// carry over unchanged, and so does the limit of 1024 spheres
-// (rrt_soft_max_spheres). No atomics: bit-for-bit the same from call to
-// call. Shared memory as the step's (40 KB per block at config 5, 163 KB at
-// 513 objects).
+// are the step's. No atomics: bit-for-bit the same from call to call.
+// Shared memory as the step's (55 KB per block at config 5, 171 KB at 513
+// objects; up to 832 spheres and a rect fit the H100's 227 KB).
 //
-// Bound: operations, as the soft step's less its residual; bytes: the
-// cotangent (12 bytes per pixel) and the partial rows (chip_smoke.py
-// counts both).
+// Bound: operations, as the soft step's less its residual; bytes: the rows
+// and the cotangent (12 bytes per pixel) read once, the gradient written
+// once (chip_smoke.py counts both).
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -33,9 +34,6 @@ using namespace rrt;
 extern "C" long long rrt_soft_render_bwd_smem(int n_sph, int n_rect, int n_light) {
   return (long long)soft_plan(pad16(n_sph), pad16(n_rect), n_light).smem;
 }
-
-// The most spheres the exclusive products' chunk boundaries can hold.
-extern "C" int rrt_soft_max_spheres() { return soft_max_spheres(); }
 
 extern "C" long long rrt_soft_render_bwd_scratch_floats(int ns_pad, int nr_pad, int n_light,
                                                         int H, int W) {

@@ -11,17 +11,25 @@
 // per-object vjps for the two layers' winners, and adds each tile's rows
 // into SMEM outputs across the in-order TPU grid. CUDA has no autodiff and
 // a GPU grid no order: each thread runs the forward and the hand-written
-// soft adjoint of its pixel, with exclusive shadow products that never
-// divide, per-warp shadow rows for the dense sphere gradient, per-warp
-// winner lists for the two layers, per-block partial rows and a
-// fixed-order reduction, no atomics. The kernels live in soft_step.cuh,
-// shared with the soft render backward (fused_vec_soft_render_bwd.cu).
+// soft adjoint of its pixel; per-warp shadow rows take the dense sphere
+// gradient, per-warp winner lists the two layers' winners, and per-block
+// partial rows a fixed-order reduction, no atomics. The kernels live in
+// soft_step.cuh, shared with the soft render backward
+// (fused_vec_soft_render_bwd.cu).
 //
 // Bound: operations. Per pixel: the ranking of every object, and per live
-// layer and light three walks over the sphere occluders (the forward
-// product, pass 1 and pass 2, each an exponential per sphere) plus the
-// adjoint of every covering sphere; chip_smoke.py counts each soft shadow
-// term once, and the partial rows as bytes.
+// layer and light the soft shadow product and its adjoint over the sphere
+// occluders. The design cuts the latter to what the data needs: the
+// TPU kernel skips a 16-sphere chunk whose product is exactly 1 over its
+// tile; here each warp (32 pixels of a row) bounds its shadow rays by a
+// ball and visits only the spheres near the ball's segment to the light,
+// and each pixel drops those whose factor 1 - sigmoid(x) is exactly 1 in
+// float32 (x < -18), so the image is the soft forward's to the bit. The
+// forward walks the candidates once and keeps each prefix for the backward
+// walk, which forms the exclusive products without a division.
+// chip_smoke.py counts the warp test once per warp, sphere, layer and
+// light, the per-pixel test for each live pixel of a warp's candidate, and
+// a kept pair at the sigmoid, the factor and its adjoint.
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -30,9 +38,6 @@ using namespace rrt;
 extern "C" long long rrt_soft_step_smem(int n_sph, int n_rect, int n_light) {
   return (long long)soft_plan(pad16(n_sph), pad16(n_rect), n_light).smem;
 }
-
-// The most spheres the exclusive products' chunk boundaries can hold.
-extern "C" int rrt_soft_max_spheres() { return soft_max_spheres(); }
 
 extern "C" long long rrt_soft_step_scratch_floats(int ns_pad, int nr_pad, int n_light, int H,
                                                   int W) {

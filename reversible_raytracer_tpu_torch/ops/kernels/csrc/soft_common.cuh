@@ -109,17 +109,18 @@ __device__ __forceinline__ float layer_alpha(const S& sc, V3 o, V3 d, Nearest h,
 
 // Unclipped Phong colour of a live layer with soft shadows (the layer's
 // surface s at its rank t; a sphere's normal (p - c) / r is not a unit
-// vector for a near miss).
-template <class S>
-__device__ __forceinline__ V3 shade_soft_layer(const S& sc, const Params& p, V3 o, V3 d,
-                                               float t, const Surface& s, float tau) {
+// vector for a near miss); vis_fn(l, so, g) is light l's visibility from
+// the shadow origin so with light geometry g.
+template <class S, class Vis>
+__device__ __forceinline__ V3 shade_soft_layer(const S& sc, V3 o, V3 d, float t,
+                                               const Surface& s, Vis vis_fn) {
   const V3 amb = sc.ambient();
   V3 col = {s.base.x * amb.x * s.ka, s.base.y * amb.y * s.ka, s.base.z * amb.z * s.ka};
   const V3 view = -d;
   const V3 so = shadow_origin(o, d, t, s.n);
   for (int l = 0; l < sc.n_light(); ++l) {
     const LightGeo g = light_geometry(sc.l_pos(l), so);
-    const float v = p.shadows ? soft_vis(sc, so, g.ldir, g.dist, tau) : 1.0f;
+    const float v = vis_fn(l, so, g);
     const float ndotl = fmaxf(dot(s.n, g.ldir), 0.0f);
     const V3 refl = s.n * (2.0f * ndotl) - g.ldir;
     const float spec = s.ks * safe_pow(fmaxf(dot(refl, view), 0.0f), s.shin);
@@ -142,7 +143,10 @@ __device__ __forceinline__ LayerColor layer_color(const S& sc, const Params& p, 
                                                   Nearest h, float tau) {
   if (h.k < 0) return {sc.background(), 0.0f};
   const Surface s = surface(sc, o, d, h);
-  return {shade_soft_layer(sc, p, o, d, h.t, s, tau), layer_alpha(sc, o, d, h, tau)};
+  auto vis = [&](int, V3 so, const LightGeo& g) {
+    return p.shadows ? soft_vis(sc, so, g.ldir, g.dist, tau) : 1.0f;
+  };
+  return {shade_soft_layer(sc, o, d, h.t, s, vis), layer_alpha(sc, o, d, h, tau)};
 }
 
 // a1 c1 + (1 - a1) (a2 c2 + (1 - a2) bg), per channel; behind gets

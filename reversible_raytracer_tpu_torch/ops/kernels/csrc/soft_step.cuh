@@ -5,28 +5,46 @@
 // are not read: soft shadows carry gradient and are recomputed): one body,
 // two kernels, as the TPU's make_bwd_kernel builds its step and backward.
 //
-// 1. soft_step_kernel: one thread per pixel, 32 x 8 pixels per block, the
-//    globals and packed rows staged in shared memory. Each thread runs the
-//    forward (soft_common.cuh), takes the image cotangent from its source,
-//    and runs the hand-written adjoint that ops/kernels/fused_vec_soft.py's
-//    _soft_adjoint runs in eager torch: the composite, then per layer the
-//    shading, the soft shadow product's transpose, the light geometry and
-//    the layer's winner, then the camera as 10 ray-form cotangents.
-//    - The shadow product's transpose needs, per occluding sphere k, the
-//      exclusive product prod_{j != k} (1 - alpha_j) times the rect factor,
-//      exact where a factor is 0 (a hard rect, a saturated sigmoid), so
-//      never a division. Pass 1 keeps the running product at each boundary
-//      of 16 spheres (a short per-thread array); pass 2 walks the chunks
-//      backward with the suffix, recomputing each chunk's 16 factors and
-//      their in-chunk prefixes in registers.
+// 1. soft_step_kernel: one thread per pixel, 32 x 8 pixels per block (a
+//    warp is 32 pixels of a row), the globals and packed rows staged in
+//    shared memory. Each thread ranks its two layers, shades them, takes
+//    the image cotangent from its source, and runs the hand-written adjoint
+//    that ops/kernels/fused_vec_soft.py's _soft_adjoint runs in eager
+//    torch: the composite, then per layer the shading, the soft shadow
+//    product's transpose, the light geometry and the layer's winner, then
+//    the camera as 10 ray-form cotangents.
+//    - The shadow cull. A sphere's factor in a shadow product is 1 -
+//      sigmoid(x), x = disc / (tau r^2); below x = -SOFT_CULL it is exactly
+//      1 in float32, so the per-pixel rule (shadow_term) drops the sphere
+//      there, and where it is not between the surface and the light: the
+//      product keeps its bits (the image is row 7's, bit for bit) and the
+//      adjoint loses terms each under 2^-25 of its cotangent.
+//    - The warp's candidates. Per layer and light the live lanes' shadow
+//      origins lie in a ball (centre c_w, radius rho, by shuffles), so each
+//      lane's segment [so, light] lies within rho of [c_w, light]; a sphere
+//      can pass the per-pixel rule only if its centre lies within R + rho of
+//      that segment, R = r sqrt(1 + SOFT_CULL tau) (plus an allowance for
+//      rounding). The lanes test 32 spheres at a time and __ballot_sync
+//      writes the candidates as mask words, in row order.
+//    - One walk forward, one back. The forward (shadow_pass1) walks the
+//      candidates once per layer and light: each lane's product, so its
+//      visibility, which the shading reads, and the prefix before each
+//      candidate, kept in the warp's shared slots (pcap per lane, up to
+//      PCAP, as many as the block's shared memory leaves room for) while
+//      they last. The adjoint (shadow_pass2) walks the candidates backward
+//      with the suffix: a sphere's factor is the exclusive product, prefix
+//      times suffix, exact where a factor is 0 (a hard rect, a saturated
+//      sigmoid), never a division. A layer and light whose prefixes did not
+//      fit (and every one after it) rebuild them pcap at a time in the
+//      then free slots, walking forward again from the first candidate.
 //    - Every sphere gets a shadow-silhouette gradient from every pixel whose
-//      shadow ray it softly covers: dense in N. Each warp reduces the 4
-//      geometry cotangents (center, radius) of each sphere by shuffle, and
-//      lane 0 adds them into the warp's own row of ns_pad x 4 floats in
+//      shadow ray keeps it. Each warp reduces the 4 geometry cotangents
+//      (center, radius) of a candidate by shuffle, only where some lane's is
+//      not 0, and adds them into the warp's own row of ns_pad x 4 floats in
 //      shared memory; the warps' rows are summed in warp order at the end.
 //    - The two layers' winners go, layer by layer, through per-warp lists
-//      of at most 32 distinct objects (as vec_step.cuh) into one block
-//      row of every object field, warp by warp.
+//      of at most 32 distinct objects, entry e's sums held by lane e, into
+//      one block row of every object field, warp by warp.
 //    The block writes one partial row: [sq, dglob, camera (10), sphere
 //    rows, rect rows].
 // 2. reduce_rows_kernel sums the partial rows in a fixed order.
@@ -42,27 +60,49 @@
 
 namespace rrt {
 
-constexpr int CH = 16;          // spheres per chunk of the exclusive products
-constexpr int MAX_CHUNKS = 64;  // so at most 1024 spheres
-constexpr int GEO = 4;          // center (3) and radius: the shadow gradient per sphere
+constexpr float SOFT_CULL = 18.0f;  // sigmoid(-18) < 2^-25: 1 - alpha rounds to 1
+constexpr float CULL_REL = 1e-3f;   // the warp test's allowance for float32 rounding:
+constexpr float CULL_ABS = 2e-3f;   // relative, and per unit of the distances rounded over
+constexpr int PCAP = 32;            // the most prefix slots per lane of a warp
+constexpr int GEO = 4;              // center (3) and radius: the shadow gradient per sphere
+
+// The most shared memory a block may have on the current device (opt-in).
+inline long long smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
 
 struct SoftPlan {
-  int Sg, GROW, OROW, ROW;
+  int Sg, GROW, OROW, ROW, NWP, NC, pcap;
   size_t smem;
 };
 
+// The block's shared memory, with as many prefix slots per lane (pcap, at
+// least 1, at most PCAP) as the card's opt-in leaves room for; a scene that
+// does not fit with one slot gets a size over the opt-in, which the
+// wrappers refuse.
 inline SoftPlan soft_plan(int ns_pad, int nr_pad, int n_light) {
   SoftPlan s;
   s.Sg = make_glayout(n_light).Sg;
   s.GROW = 1 + s.Sg + CAM_EXTRA;
   s.OROW = ns_pad * P_SPH + nr_pad * P_RCT;
   s.ROW = s.GROW + s.OROW;
-  // globals, rows, warp rows, block object row, warp lists, warp shadow rows;
-  // then the lists' ids and counts
-  s.smem = (size_t)(s.Sg + s.OROW + NWARPS * s.GROW + s.OROW + NWARPS * 32 * RECT_FIELDS +
-                    NWARPS * ns_pad * GEO) *
-               sizeof(float) +
-           (size_t)(NWARPS * 32 + NWARPS) * sizeof(int);
+  s.NWP = (ns_pad + 31) / 32;  // candidate mask words per layer and light
+  s.NC = 2 * n_light;          // layers x lights
+  // globals, rows, warp rows, block object row, warp shadow rows, warp
+  // visibilities; the candidate masks and per layer and light [slot, count,
+  // rect bits]; then the warps' prefix slots
+  const size_t base = (size_t)(s.Sg + s.OROW + NWARPS * s.GROW + s.OROW +
+                               NWARPS * ns_pad * GEO + NWARPS * s.NC * 32) *
+                          sizeof(float) +
+                      (size_t)(NWARPS * s.NC * (s.NWP + 3)) * sizeof(int);
+  const size_t per_slot = (size_t)NWARPS * 32 * sizeof(float);
+  const long long room = (smem_optin() - (long long)base) / (long long)per_slot;
+  s.pcap = (int)(room < 1 ? 1 : room > PCAP ? PCAP : room);
+  s.smem = base + s.pcap * per_slot;
   return s;
 }
 
@@ -78,51 +118,240 @@ __device__ __forceinline__ void add3(float* row, int slot, V3 v, int lane) {
   add(row, slot + 2, v.z, lane);
 }
 
-// Cotangents of the shadow coverage alpha of sphere (c, r) for the ray
-// (so, ld) toward a light at dist, given g_alpha: adds to g_so and g_ld
-// and returns those of the center (x, y, z) and radius (w). The gate, and
-// with it dist, carries no gradient.
-__device__ __forceinline__ float4 shadow_alpha_adjoint(V3 so, V3 ld, float dist, V3 c, float r,
+// Adds the warp's sums of the 4 components of v to row[0..3] in 6 shuffles
+// (a fixed tree: halves trade components, then a butterfly); lanes 0, 8,
+// 16 and 24 hold the sums of x, y, z and w.
+__device__ __forceinline__ void add4(float* row, float4 v, int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  const float a0 = (hi16 ? v.z : v.x) + __shfl_xor_sync(FULL, hi16 ? v.x : v.z, 16);
+  const float a1 = (hi16 ? v.w : v.y) + __shfl_xor_sync(FULL, hi16 ? v.y : v.w, 16);
+  float s = (hi8 ? a1 : a0) + __shfl_xor_sync(FULL, hi8 ? a0 : a1, 8);
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  if ((lane & 7) == 0) row[lane >> 3] += s;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// One sphere (c, r) against one lane's shadow ray (so, ld) toward a light
+// at dist, by the per-pixel cull rule: kept where the sphere is hit, or
+// passed closest, between the surface and the light and disc is not below
+// -SOFT_CULL tau r^2; then s = alpha = sigmoid(disc / (tau r^2)), computed
+// as shadow_alpha computes it (soft_common.cuh), so that 1 - s is the
+// factor soft_vis multiplies by. Elsewhere that factor is exactly 1.
+struct ShadowTerm {
+  V3 oc;
+  float b, disc, s;
+  bool kept;
+};
+
+__device__ __forceinline__ ShadowTerm shadow_term(V3 so, V3 ld, float dist, V3 c, float r,
+                                                  float tau) {
+  ShadowTerm st;
+  st.oc = so - c;
+  st.b = dot(st.oc, ld);
+  st.disc = st.b * st.b - (dot(st.oc, st.oc) - r * r);
+  st.s = 0.0f;
+  st.kept = false;
+  if (st.disc < -SOFT_CULL * tau * r * r) return st;
+  const float t = -st.b - sqrtf(st.disc > 0.0f ? st.disc : 1.0f);
+  st.kept = (st.disc > 0.0f && t > T_EPS && t < dist) || (-st.b > T_EPS && -st.b < dist);
+  if (st.kept) st.s = sigmoid(st.disc / (tau * r * r));
+  return st;
+}
+
+// Cotangents of the shadow coverage alpha of a kept sphere of radius r for
+// the ray direction ld, given g_alpha: adds to g_so and g_ld and returns
+// those of the center (x, y, z) and radius (w). The gate, and with it
+// dist, carries no gradient.
+__device__ __forceinline__ float4 shadow_alpha_adjoint(const ShadowTerm& st, V3 ld, float r,
                                                        float tau, float g_alpha, V3* g_so,
                                                        V3* g_ld) {
-  const V3 oc = so - c;
-  const float b = dot(oc, ld);
-  const float disc = b * b - (dot(oc, oc) - r * r);
-  const float t = -b - sqrtf(disc > 0.0f ? disc : 1.0f);
-  const bool between =
-      (disc > 0.0f && t > T_EPS && t < dist) || (-b > T_EPS && -b < dist);
-  if (!between) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float den = tau * r * r;
-  const float s = sigmoid(disc / den);
-  const float g_x = g_alpha * s * (1.0f - s);
+  const float g_x = g_alpha * st.s * (1.0f - st.s);
   const float g_disc = g_x / den;
-  float g_r = -g_x * disc / (den * den) * (2.0f * tau * r);
-  const float g_b = 2.0f * b * g_disc;
+  float g_r = -g_x * st.disc / (den * den) * (2.0f * tau * r);
+  const float g_b = 2.0f * st.b * g_disc;
   const float g_cc = -g_disc;
-  const V3 g_oc = oc * (2.0f * g_cc) + ld * g_b;
+  const V3 g_oc = st.oc * (2.0f * g_cc) + ld * g_b;
   g_r = g_r - 2.0f * r * g_cc;
   *g_so = *g_so + g_oc;
-  *g_ld = *g_ld + oc * g_b;
+  *g_ld = *g_ld + st.oc * g_b;
   return make_float4(-g_oc.x, -g_oc.y, -g_oc.z, g_r);
 }
 
+// A warp's candidate spheres for one layer and light: the live lanes'
+// shadow origins bound by a ball, then each sphere against the ball's
+// segment to the light, 32 at a time, into mask words wm (bit u of word w:
+// sphere 32 w + u). Returns the number of candidates (the same in every
+// lane). Call from the whole warp.
+template <class S>
+__device__ __forceinline__ int warp_candidates(const S& sc, V3 so, V3 lpos, bool live,
+                                               float tau, int lane, unsigned* wm) {
+  const float inf = __int_as_float(0x7f800000);
+  const V3 lo = {warp_min(live ? so.x : inf), warp_min(live ? so.y : inf),
+                 warp_min(live ? so.z : inf)};
+  const V3 hi = {warp_max(live ? so.x : -inf), warp_max(live ? so.y : -inf),
+                 warp_max(live ? so.z : -inf)};
+  const V3 cw = (lo + hi) * 0.5f;
+  const V3 dv = so - cw;
+  const float rho = sqrtf(warp_max(live ? dot(dv, dv) : 0.0f));
+  const V3 u = lpos - cw;
+  const float len2 = dot(u, u);
+  const float grow = sqrtf(1.0f + SOFT_CULL * tau);
+  const float slack = CULL_ABS * (rho + sqrtf(len2));
+  const int nw = (sc.n_sph() + 31) >> 5;
+  int n = 0;
+  for (int w = 0; w < nw; ++w) {
+    const int k = w * 32 + lane;
+    bool near = false;
+    if (k < sc.n_sph()) {
+      const V3 wc = sc.s_center(k) - cw;
+      const float sp = len2 > 0.0f ? fminf(fmaxf(dot(wc, u) / len2, 0.0f), 1.0f) : 0.0f;
+      const V3 q = wc - u * sp;
+      const float lim = (sc.s_radius(k) * grow + rho) * (1.0f + CULL_REL) +
+                        CULL_ABS * sqrtf(dot(wc, wc)) + slack;
+      near = dot(q, q) <= lim * lim;
+    }
+    const unsigned m = __ballot_sync(FULL, near);
+    if (lane == 0) wm[w] = m;
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
+
+// Pass 1, the forward of one layer and light: the warp's candidates, then
+// one walk over them in row order. Each live lane's product of its kept
+// factors; the prefix before each candidate into the warp's pcap slots from
+// *slot while all of them fit (else this layer and light, and every later
+// one, keep none); the rect factor's zero lanes as a bit mask. info gets
+// [first slot or -1, count, rect bits]. Returns the visibility 1 - (1 - P
+// rf) (1 on a dead lane). Call from the whole warp.
+template <class S>
+__device__ __forceinline__ float shadow_pass1(const S& sc, V3 so, const LightGeo& lg, V3 lpos,
+                                              bool live, float tau, int lane, unsigned* wm,
+                                              int* info, float* wpre, int pcap, int* slot) {
+  const int n = __any_sync(FULL, live) ? warp_candidates(sc, so, lpos, live, tau, lane, wm) : 0;
+  const int first = *slot;
+  const bool keep = first + n <= pcap;
+  *slot = keep ? first + n : pcap + 1;
+  float run = 1.0f;
+  for (int w = 0, i = 0; i < n; ++w) {
+    for (unsigned m = wm[w]; m; m &= m - 1, ++i) {
+      const int k = w * 32 + __ffs(m) - 1;
+      if (keep) wpre[(first + i) * 32 + lane] = run;
+      if (live) {
+        const ShadowTerm st =
+            shadow_term(so, lg.ldir, lg.dist, sc.s_center(k), sc.s_radius(k), tau);
+        if (st.kept) run *= 1.0f - st.s;
+      }
+    }
+  }
+  const float rf = live ? rect_factor(sc, so, lg.ldir, lg.dist) : 1.0f;
+  const unsigned rfz = __ballot_sync(FULL, rf == 0.0f);
+  if (lane == 0) {
+    info[0] = keep ? first : -1;
+    info[1] = n;
+    info[2] = (int)rfz;
+  }
+  return live ? 1.0f - (1.0f - run * rf) : 1.0f;
+}
+
+// Pass 2, the adjoint of one layer and light's product P, per lane given
+// g_prod, the cotangent of each (1 - alpha) factor's product (0 on a lane
+// with nothing to propagate): the candidates walked backward with the
+// suffix, each kept sphere's g_alpha = -g_prod * prefix * suffix, its
+// geometry cotangents into the warp's shadow rows wsh (where some lane's
+// is not 0) and those of so and ld into g_so, g_ld. Prefixes come from
+// the slots pass 1 kept, or are rebuilt pcap at a time from slot 0 (free
+// by then: the layers and lights before this one are done, the ones after
+// it kept none). Call from the whole warp.
+template <class S>
+__device__ __forceinline__ void shadow_pass2(const S& sc, V3 so, const LightGeo& lg, float tau,
+                                             float g_prod, int lane, const unsigned* wm,
+                                             const int* info, float* wpre, int pcap, float* wsh,
+                                             V3* g_so, V3* g_ld) {
+  const int first = info[0], n = info[1];
+  const int nw = (sc.n_sph() + 31) >> 5;
+  float suf = 1.0f;
+  for (int hi = n; hi > 0;) {
+    const int lo = first >= 0 ? 0 : max(hi - pcap, 0);
+    const int base = first >= 0 ? first : 0;
+    if (first < 0) {  // rebuild the prefixes of candidates [lo, hi)
+      float run = 1.0f;
+      for (int w = 0, i = 0; i < hi; ++w) {
+        for (unsigned m = wm[w]; m && i < hi; m &= m - 1, ++i) {
+          const int k = w * 32 + __ffs(m) - 1;
+          if (i >= lo) wpre[(i - lo) * 32 + lane] = run;
+          if (g_prod != 0.0f) {
+            const ShadowTerm st =
+                shadow_term(so, lg.ldir, lg.dist, sc.s_center(k), sc.s_radius(k), tau);
+            if (st.kept) run *= 1.0f - st.s;
+          }
+        }
+      }
+    }
+    int i = n;
+    for (int w = nw - 1; w >= 0 && i > lo; --w) {
+      for (unsigned m = wm[w]; m && i > lo;) {
+        const int u = 31 - __clz(m);
+        m ^= 1u << u;
+        if (--i >= hi) continue;
+        const int k = w * 32 + u;
+        float4 gk = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (g_prod != 0.0f) {
+          const float r = sc.s_radius(k);
+          const ShadowTerm st = shadow_term(so, lg.ldir, lg.dist, sc.s_center(k), r, tau);
+          if (st.kept) {
+            gk = shadow_alpha_adjoint(st, lg.ldir, r, tau,
+                                      g_prod * wpre[(base + i - lo) * 32 + lane] * suf, g_so,
+                                      g_ld);
+            suf *= 1.0f - st.s;
+          }
+        }
+        if (__any_sync(FULL, gk.x != 0.0f || gk.y != 0.0f || gk.z != 0.0f || gk.w != 0.0f))
+          add4(wsh + k * GEO, gk, lane);
+      }
+    }
+    hi = lo;
+  }
+}
+
+// Two blocks per SM: 128 registers a thread. One block lets ptxas keep
+// everything in 172 registers, but half the warps in flight took it from
+// 0.20 to 0.30 ms at config 5, 512^2 (PERF.md).
 template <class Src>
-__global__ void __launch_bounds__(BLOCK_THREADS)
+__global__ void __launch_bounds__(BLOCK_THREADS, 2)
     soft_step_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                      const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
-                     GLayout gl, Params p, float tau, Src src, float* __restrict__ partials) {
+                     GLayout gl, Params p, float tau, int pcap, Src src,
+                     float* __restrict__ partials) {
   extern __shared__ float smem[];
   const int GROW = 1 + gl.Sg + CAM_EXTRA;
   const int OROW = ns_pad * P_SPH + nr_pad * P_RCT;
+  const int NWP = (ns_pad + 31) / 32;
+  const int NC = 2 * gl.L;
   float* g = smem;
   float* s_sph = g + gl.Sg;
   float* s_rct = s_sph + ns_pad * P_SPH;
   float* wp = s_rct + nr_pad * P_RCT;  // NWARPS rows of GROW
   float* orow = wp + NWARPS * GROW;    // the block's object row (OROW)
-  float* wval = orow + OROW;           // NWARPS x 32 entries of RECT_FIELDS
-  float* shp = wval + NWARPS * 32 * RECT_FIELDS;  // NWARPS rows of ns_pad x GEO
-  int* wid = (int*)(shp + NWARPS * ns_pad * GEO);  // NWARPS x 32 winner ids
-  int* wcnt = wid + NWARPS * 32;                   // entries per warp
+  float* shp = orow + OROW;            // NWARPS rows of ns_pad x GEO
+  float* vsh = shp + NWARPS * ns_pad * GEO;          // NWARPS x NC x 32 visibilities
+  unsigned* cmask = (unsigned*)(vsh + NWARPS * NC * 32);  // NWARPS x NC x NWP candidate masks
+  int* cinfo = (int*)(cmask + NWARPS * NC * NWP);   // NWARPS x NC x [slot, count, rect bits]
+  float* pre = (float*)(cinfo + NWARPS * NC * 3);   // NWARPS x pcap slots x 32 lanes
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -136,23 +365,49 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   float* gs = wrow + 1;
   float* gx = wrow + 1 + gl.Sg;
   float* wsh = shp + warp * ns_pad * GEO;
+  float* wpre = pre + warp * pcap * 32;
+  float* wvis = vsh + warp * NC * 32;
+  unsigned* wmask = cmask + warp * NC * NWP;
+  int* winfo = cinfo + warp * NC * 3;
 
   const int j = blockIdx.x * BLOCK_X + threadIdx.x;
   const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
   const bool inside = i < p.H && j < p.W;
   const PackedScene sc{g, s_sph, s_rct, gl, N, M, ns_pad};
 
-  // ---- forward
-  const Camera cam = camera(sc);
-  const Ray r = primary_ray(cam, p, inside ? i : 0, inside ? j : 0);
-  const V3 o = cam.eye, d = r.d;
+  // ---- forward: per layer and light, pass 1 over the warp's candidates
+  // gives the visibility, which the shading reads (as row 7's soft_vis)
+  const V3 o = sc.eye();
+  const V3 d = primary_ray(camera(sc), p, inside ? i : 0, inside ? j : 0).d;
   Layers y = {{{BIG, -1}, {BIG, -1}}};
   if (inside) y = two_layers(sc, o, d, tau);
-  const LayerColor lc[2] = {layer_color(sc, p, o, d, y.l[0], tau),
-                            layer_color(sc, p, o, d, y.l[1], tau)};
+  LayerColor lc0, lc1;  // the layers' colours and coverage (no local array: ly is runtime)
+  int slot = 0;  // the warp's prefix slots in use (the same in every lane)
+#pragma unroll 1
+  for (int ly = 0; ly < 2; ++ly) {
+    const Nearest h = y.l[ly];
+    const bool live = h.k >= 0;  // implies inside
+    const Surface s = surface(sc, o, d, h);
+    const V3 so = shadow_origin(o, d, live ? h.t : 0.0f, s.n);
+    for (int l = 0; l < sc.n_light(); ++l) {
+      const int cb = ly * gl.L + l;
+      float vis = 1.0f;
+      if (p.shadows)
+        vis = shadow_pass1(sc, so, light_geometry(sc.l_pos(l), so), sc.l_pos(l), live, tau,
+                           lane, wmask + cb * NWP, winfo + cb * 3, wpre, pcap, &slot);
+      wvis[cb * 32 + lane] = vis;
+    }
+    auto stored = [&](int l, V3, const LightGeo&) { return wvis[(ly * gl.L + l) * 32 + lane]; };
+    const LayerColor lc = live ? LayerColor{shade_soft_layer(sc, o, d, h.t, s, stored),
+                                            layer_alpha(sc, o, d, h, tau)}
+                               : LayerColor{sc.background(), 0.0f};
+    if (ly == 0) lc0 = lc;
+    else lc1 = lc;
+  }
+  __syncwarp();  // lane 0's candidate masks and counts, for the adjoint
   const V3 bg = sc.background();
   V3 behind;
-  const V3 comp = composite(lc[0], lc[1], bg, &behind);
+  const V3 comp = composite(lc0, lc1, bg, &behind);
   const V3 img = p.clip ? V3{clip01(comp.x), clip01(comp.y), clip01(comp.z)} : comp;
 
   // ---- the clipped image's cotangent (its source's), then the clip's
@@ -163,16 +418,14 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
               g_comp.z * clipgrad(comp.z)};
 
   // ---- composite adjoint
-  float g_a[2];
-  V3 g_col[2];
-  g_a[0] = g_comp.x * (lc[0].col.x - behind.x) + g_comp.y * (lc[0].col.y - behind.y) +
-           g_comp.z * (lc[0].col.z - behind.z);
-  g_col[0] = g_comp * lc[0].a;
-  const V3 g_beh = g_comp * (1.0f - lc[0].a);
-  g_a[1] = g_beh.x * (lc[1].col.x - bg.x) + g_beh.y * (lc[1].col.y - bg.y) +
-           g_beh.z * (lc[1].col.z - bg.z);
-  g_col[1] = g_beh * lc[1].a;
-  V3 g_bg = g_beh * (1.0f - lc[1].a);
+  const float g_a0 = g_comp.x * (lc0.col.x - behind.x) + g_comp.y * (lc0.col.y - behind.y) +
+                     g_comp.z * (lc0.col.z - behind.z);
+  const V3 g_col0 = g_comp * lc0.a;
+  const V3 g_beh = g_comp * (1.0f - lc0.a);
+  const float g_a1 = g_beh.x * (lc1.col.x - bg.x) + g_beh.y * (lc1.col.y - bg.y) +
+                     g_beh.z * (lc1.col.z - bg.z);
+  const V3 g_col1 = g_beh * lc1.a;
+  V3 g_bg = g_beh * (1.0f - lc1.a);
   V3 g_amb = zero3(), g_o_cam = zero3(), g_d_cam = zero3();
   const V3 amb = sc.ambient();
   const V3 view = -d;
@@ -181,9 +434,10 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   for (int ly = 0; ly < 2; ++ly) {
     const Nearest h = y.l[ly];
     const bool live = h.k >= 0;  // implies inside
-    if (!live) g_bg = g_bg + g_col[ly];
-    const V3 gh = live ? g_col[ly] : zero3();
-    const float g_alpha = live ? g_a[ly] : 0.0f;
+    const V3 g_col = ly == 0 ? g_col0 : g_col1;
+    if (!live) g_bg = g_bg + g_col;
+    const V3 gh = live ? g_col : zero3();
+    const float g_alpha = live ? (ly == 0 ? g_a0 : g_a1) : 0.0f;
     const Surface s = surface(sc, o, d, h);
     const float t = live ? h.t : 0.0f;
     V3 g_base = {gh.x * amb.x * s.ka, gh.y * amb.y * s.ka, gh.z * amb.z * s.ka};
@@ -193,30 +447,12 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     float g_kd = 0.0f, g_ks = 0.0f, g_shin = 0.0f;
     V3 g_n = zero3(), g_d = zero3(), g_so = zero3();
     const V3 so = shadow_origin(o, d, t, s.n);
-    const bool warp_live = __any_sync(FULL, live);
 
     for (int l = 0; l < sc.n_light(); ++l) {
+      const int cb = ly * gl.L + l;
       const LightGeo lg = light_geometry(sc.l_pos(l), so);
-      // pass 1: the running product of the sphere factors at each chunk
-      // boundary, the rect factor, and the visibility
-      float cpre[MAX_CHUNKS];
-      float rf = 1.0f, vis = 1.0f;
-      const int nch = (N + CH - 1) / CH;
-      if (live && p.shadows) {
-        float run = 1.0f;
-        for (int c = 0; c < nch; ++c) {
-          cpre[c] = run;
-#pragma unroll
-          for (int u = 0; u < CH; ++u) {
-            const int k = c * CH + u;
-            if (k < N)
-              run *= 1.0f - shadow_alpha(so, lg.ldir, lg.dist, sc.s_center(k), sc.s_radius(k),
-                                         tau);
-          }
-        }
-        rf = rect_factor(sc, so, lg.ldir, lg.dist);
-        vis = 1.0f - (1.0f - run * rf);
-      }
+      const float vis = wvis[cb * 32 + lane];
+      const float rf = (p.shadows && ((winfo[cb * 3 + 2] >> lane) & 1)) ? 0.0f : 1.0f;
       // shading forward and adjoint of this light
       V3 g_lpos = zero3(), g_lcol = zero3();
       float g_vis = 0.0f;
@@ -255,63 +491,25 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
         g_n = g_n + (g_refl * (2.0f * ndotl) + lg.ldir * g_ndl);
         g_ldir = s.n * g_ndl - g_refl;
       }
-      // pass 2: vis = 1 - (1 - rf prod_k (1 - alpha_k)); the factor of
-      // sphere k is the exclusive product, walked backward chunk by chunk
+      add3(gs, gl.l_col + 3 * l, g_lcol, lane);
+      // pass 2: vis = 1 - (1 - rf prod_k (1 - alpha_k)); each kept sphere's
+      // factor is the exclusive product, walked backward over the candidates
       const float g_prod = (live && p.shadows) ? -g_vis * rf : 0.0f;  // per (1 - alpha) factor
-      V3 g_so_sh = zero3(), g_ld_sh = zero3();
-      if (p.shadows && __any_sync(FULL, g_prod != 0.0f)) {
-        float suf = 1.0f;
-        for (int c = nch - 1; c >= 0; --c) {
-          float om[CH], inpre[CH];
-          float run = 1.0f;
-#pragma unroll
-          for (int u = 0; u < CH; ++u) {
-            const int k = c * CH + u;
-            om[u] = (g_prod != 0.0f && k < N)
-                        ? 1.0f - shadow_alpha(so, lg.ldir, lg.dist, sc.s_center(k),
-                                              sc.s_radius(k), tau)
-                        : 1.0f;
-            inpre[u] = run;
-            run *= om[u];
-          }
-          const float exterior = (g_prod != 0.0f) ? cpre[c] * suf : 0.0f;
-          float insuf = 1.0f;
-#pragma unroll
-          for (int u = CH - 1; u >= 0; --u) {
-            const int k = c * CH + u;
-            float4 gk = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (g_prod != 0.0f && k < N)
-              gk = shadow_alpha_adjoint(so, lg.ldir, lg.dist, sc.s_center(k), sc.s_radius(k),
-                                        tau, g_prod * exterior * inpre[u] * insuf, &g_so_sh,
-                                        &g_ld_sh);
-            insuf *= om[u];
-            if (k < N && __any_sync(FULL, gk.x != 0.0f || gk.y != 0.0f || gk.z != 0.0f ||
-                                              gk.w != 0.0f)) {
-              float* row = wsh + k * GEO;
-              add(row, 0, gk.x, lane);
-              add(row, 1, gk.y, lane);
-              add(row, 2, gk.z, lane);
-              add(row, 3, gk.w, lane);
-            }
-          }
-          suf *= run;
-        }
-      }
-      if (live) {
-        g_ldir = g_ldir + g_ld_sh;
+      if (p.shadows && __any_sync(FULL, g_prod != 0.0f))
+        shadow_pass2(sc, so, lg, tau, g_prod, lane, wmask + cb * NWP, winfo + cb * 3, wpre, pcap,
+                     wsh, &g_so, &g_ldir);
+      if (live) {  // the light's geometry again, rather than held through pass 2
+        const LightGeo lga = light_geometry(sc.l_pos(l), so);
         // ldir = lvec / guarded(dist), dist = guarded sqrt(|lvec|^2)
-        V3 g_lvec = g_ldir * lg.inv;
-        const float g_inv = dot(g_ldir, lg.lvec);
-        const float g_dist = lg.dist > 1e-9f ? -g_inv * lg.inv * lg.inv : 0.0f;
-        const float g_dist2 = lg.dist2 > 0.0f ? g_dist * 0.5f / lg.dist : 0.0f;
-        g_lvec = g_lvec + lg.lvec * (2.0f * g_dist2);
+        V3 g_lvec = g_ldir * lga.inv;
+        const float g_inv = dot(g_ldir, lga.lvec);
+        const float g_dist = lga.dist > 1e-9f ? -g_inv * lga.inv * lga.inv : 0.0f;
+        const float g_dist2 = lga.dist2 > 0.0f ? g_dist * 0.5f / lga.dist : 0.0f;
+        g_lvec = g_lvec + lga.lvec * (2.0f * g_dist2);
         g_lpos = g_lvec;
-        g_so = g_so + g_so_sh - g_lvec;
+        g_so = g_so - g_lvec;
       }
-      if (warp_live) {
-        add3(gs, gl.l_pos + 3 * l, g_lpos, lane);
-        add3(gs, gl.l_col + 3 * l, g_lcol, lane);
-      }
+      add3(gs, gl.l_pos + 3 * l, g_lpos, lane);
     }
     // shadow origin so = (o + d t) + n SHADOW_EPS
     V3 g_o = g_so;
@@ -417,10 +615,13 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
       g_d_cam = g_d_cam + g_d;
     }
 
-    // ---- this layer's winners: the warp's list, then the block's row
+    // ---- this layer's winners: the warp's list (lane e holds entry e's
+    // sums, as lane 0 reduced them), then the block's row, warp by warp
     const int kw = live ? h.k : -1;
-    const int base = warp * 32;
-    int n = 0;
+    int n = 0, ke = -1;
+    float acc[RECT_FIELDS];
+#pragma unroll
+    for (int f = 0; f < RECT_FIELDS; ++f) acc[f] = 0.0f;
     for (unsigned todo = __ballot_sync(FULL, kw >= 0); todo;) {
       const int k = __shfl_sync(FULL, kw, __ffs(todo) - 1);
       const unsigned same = __ballot_sync(FULL, kw == k);
@@ -429,27 +630,23 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
 #pragma unroll
       for (int f = 0; f < RECT_FIELDS; ++f) {
         if (f < nf) {
-          const float v = warp_sum(mine ? obj[f] : 0.0f);
-          if (lane == 0) wval[(base + n) * RECT_FIELDS + f] = v;
+          const float v = __shfl_sync(FULL, warp_sum(mine ? obj[f] : 0.0f), 0);
+          if (lane == n) acc[f] = v;
         }
       }
-      if (lane == 0) wid[base + n] = k;
+      if (lane == n) ke = k;
       ++n;
       todo &= ~same;
     }
-    if (lane == 0) wcnt[warp] = n;
-    __syncthreads();
     for (int v = 0; v < NWARPS; ++v) {
-      const int cnt = wcnt[v];
-      for (int e = tid; e < cnt * RECT_FIELDS; e += BLOCK_THREADS) {
-        const int idx = e / RECT_FIELDS;
-        const int f = e - idx * RECT_FIELDS;
-        const int k = wid[v * 32 + idx];
-        const float val = wval[(v * 32 + idx) * RECT_FIELDS + f];
-        if (k < ns_pad) {
-          if (f < SPH_FIELDS) orow[k * P_SPH + sph_col(f)] += val;
+      if (v == warp && ke >= 0) {
+        if (ke < ns_pad) {
+#pragma unroll
+          for (int f = 0; f < SPH_FIELDS; ++f) orow[ke * P_SPH + sph_col(f)] += acc[f];
         } else {
-          orow[ns_pad * P_SPH + (k - ns_pad) * P_RCT + rct_col(f)] += val;
+#pragma unroll
+          for (int f = 0; f < RECT_FIELDS; ++f)
+            orow[ns_pad * P_SPH + (ke - ns_pad) * P_RCT + rct_col(f)] += acc[f];
         }
       }
       __syncthreads();
@@ -457,6 +654,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   }
 
   // ---- camera: o = eye, d = normalize(dt), dt = fwd + right sx + up sy
+  // (the ray again, rather than its terms held through the adjoint)
+  const Camera cam = camera(sc);
+  const Ray r = primary_ray(cam, p, inside ? i : 0, inside ? j : 0);
   const V3 g_dt = normalize_adjoint(r.dt, r.inv, r.n2, g_d_cam);
   const float g_tan = dot(g_dt, cam.right) * r.ax * p.aspect + dot(g_dt, cam.up) * r.ay;
   add(wrow, 0, sq, lane);
@@ -495,9 +695,6 @@ inline long long soft_step_scratch_floats(int ns_pad, int nr_pad, int n_light, i
   return ((long long)grid.x * grid.y + 1) * soft_plan(ns_pad, nr_pad, n_light).ROW;
 }
 
-// The most spheres the exclusive products' chunk boundaries can hold.
-inline int soft_max_spheres() { return CH * MAX_CHUNKS; }
-
 // The three launches on one stream; out = [sq, dglob, dsph, drct].
 template <class Src>
 int launch_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
@@ -518,7 +715,7 @@ int launch_soft_step(const float* glob, const float* sph, const float* rct, int 
     if (err != cudaSuccess) return (int)err;
   }
   soft_step_kernel<Src><<<grid, dim3(BLOCK_X, BLOCK_Y), plan.smem, st>>>(
-      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, tau, src, partials);
+      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, tau, plan.pcap, src, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_rows_kernel<SOFT_REDUCE_RY><<<(plan.ROW + 31) / 32, dim3(32, SOFT_REDUCE_RY), 0, st>>>(

@@ -23,6 +23,14 @@ their plain versions: the annealed inversion's soft stages.
   `loss_grad_vec_soft_adjoint_eager` runs the kernel's hand-written adjoint
   in eager torch.
 
+The step and the backward drop a sphere from a pixel's shadow product where
+its factor 1 - alpha is exactly 1 (`shadow_kept`, `SOFT_CULL`), and each
+warp of 32 pixels visits only the spheres its conservative test keeps
+(`warp_candidates`, the plain version of that test, used by the tests):
+their images are the forward's to the bit, and their gradients drop terms
+each under 2^-25 of their cotangent. The eager twins apply the same
+per-pixel rule.
+
 Semantics are the JAX package's `_render_soft`: two layers ranked by the
 soft t (strict < ranking, first-wins ties), sphere coverage alpha =
 sigmoid(disc / (tau r^2)), rect coverage 1, per layer and light a soft
@@ -71,13 +79,11 @@ SOFT_STEP = Kernel("fused_vec_soft_step", {
     "rrt_soft_step": ([_P, _P, _P, *_GEOM, _F, _P, _F, _P, _P, _P], _I),
     "rrt_soft_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_step_smem": ([_I, _I, _I], ctypes.c_longlong),
-    "rrt_soft_max_spheres": ([], _I),
 })
 SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
     "rrt_soft_render_bwd": ([_P, _P, _P, *_GEOM, _F, _P, _P, _P, _P], _I),
     "rrt_soft_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
-    "rrt_soft_max_spheres": ([], _I),
 })
 KERNELS = (SOFT_RENDER, SOFT_STEP, SOFT_RENDER_BWD)
 
@@ -134,6 +140,19 @@ def render_vec_soft_plain(scene, cfg: RenderConfig):
     return render_eager_vec(scene, cfg)
 
 
+def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
+    """The most spheres, in the rows' steps of 16, that the soft step and
+    soft render backward take beside ``n_rect`` rects and ``n_light``
+    lights on the current card: what a block's shared memory holds with one
+    prefix slot per lane (csrc/soft_step.cuh `soft_plan`)."""
+    have = fused_vec.VEC_RENDER.lib().rrt_smem_optin()
+    lib = SOFT_STEP.lib()
+    n = 0
+    while lib.rrt_soft_step_smem(n + 16, n_rect, n_light) <= have:
+        n += 16
+    return n
+
+
 def render_vec_soft(scene, cfg: RenderConfig):
     """The soft (H, W, 3) image: the forward kernel on CUDA,
     `render_vec_soft_plain` on the CPU. Differentiable on both: on CUDA
@@ -144,17 +163,6 @@ def render_vec_soft(scene, cfg: RenderConfig):
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft render kernel for device {dev}")
     return _SoftRender.apply(scene, cfg, *tree_leaves(scene))
-
-
-def _check_soft_adjoint(kernel, smem_entry: str, scene) -> None:
-    """Refuse a scene the soft step or backward kernel cannot take: rows
-    beyond a block's shared memory, or more spheres than the exclusive
-    products' chunk boundaries hold."""
-    fused_vec.check_smem(kernel, smem_entry, scene)
-    most = kernel.lib().rrt_soft_max_spheres()
-    if scene.spheres.count > most:
-        raise NotImplementedError(f"{kernel.name} takes at most {most} spheres, "
-                                  f"not {scene.spheres.count}")
 
 
 class _SoftRender(torch.autograd.Function):
@@ -169,7 +177,7 @@ class _SoftRender(torch.autograd.Function):
         glob, sph, rct = _cuda_inputs(scene, cfg)
         fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
         if any(ctx.needs_input_grad):
-            _check_soft_adjoint(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
+            fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
         img = torch.empty((cfg.height, cfg.width, 3), device=glob.device)
         SOFT_RENDER.call("rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
                          *fused_vec._geometry(scene, cfg), float(cfg.soft_tau), img.data_ptr(),
@@ -232,7 +240,7 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft step kernel for device {dev}")
     glob, sph, rct = _cuda_inputs(scene, cfg)
-    _check_soft_adjoint(SOFT_STEP, "rrt_soft_step_smem", scene)
+    fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
     target = target.contiguous()
     geom = fused_vec._geometry(scene, cfg)
     scratch = torch.empty((SOFT_STEP.lib().rrt_soft_step_scratch_floats(*geom[2:7]),),
@@ -254,10 +262,11 @@ def loss_grad_vec_soft_adjoint_eager(scene, cfg: RenderConfig, target, loss: str
     """The soft step kernel's algorithm in eager torch, vectorized over
     pixels: the two-layer ranking, each layer's winner, coverage and soft
     shadow products, the residual, then the adjoint of the composite, of
-    each layer's shading, of its shadow products (each occluder's factor is
-    the exclusive product of the others, from prefix and suffix products,
-    never a division), of the light geometry and of the layer's winner, and
-    the camera chain once. Same contract as `loss_grad_vec_soft`."""
+    each layer's shading, of its shadow products (each kept occluder's
+    factor is the exclusive product of the others, from prefix and suffix
+    products, never a division), of the light geometry and of the layer's
+    winner, and the camera chain once. Same contract as
+    `loss_grad_vec_soft`."""
     check_soft_kernel_config(scene, cfg)
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
@@ -276,6 +285,67 @@ def render_vec_soft_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img):
         return _soft_adjoint(scene, cfg, fused.image_cotangent(g_img))[1]
 
 
+# The shadow cull: a sphere whose shadow-ray coverage x = disc / (tau r^2)
+# lies below -SOFT_CULL has sigmoid(x) under half an ulp below 1 in the
+# dtype, so its factor 1 - alpha is exactly 1 and it is dropped, with its
+# adjoint (each such term is under 2^-25 of its cotangent in float32, as the
+# TPU kernel's chunk skip drops them). float32 is the kernels' threshold.
+SOFT_CULL = {torch.float32: 18.0, torch.float64: 38.0}
+# The per-warp test's allowance for float32 rounding: relative, and in
+# proportion to the distances the per-lane rule rounds over (the constants
+# of csrc/soft_step.cuh, as SOFT_CULL's float32 entry is).
+CULL_REL, CULL_ABS = 1e-3, 2e-3
+
+
+def shadow_kept(c, r, so, ld, dist, tau):
+    """The per-pixel cull rule of the soft step and backward kernels: for
+    each sphere (axis 0) and pixel, whether the sphere is between the
+    surface and the light and its shadow-ray coverage is not below
+    -SOFT_CULL (``disc`` computed as `sphere_shadow_alpha` computes it)."""
+    oc = vm.vsub(so, c)
+    b = vm.vdot(oc, ld)
+    disc = b * b - (vm.vdot(oc, oc) - r * r)
+    t = -b - torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    between = (((disc > 0.0) & (t > fused.T_EPS) & (t < dist))
+               | ((-b > fused.T_EPS) & (-b < dist)))
+    return between & ~(disc < -SOFT_CULL[disc.dtype] * tau * r * r)
+
+
+def warp_candidates(spheres, so, live, lpos, tau):
+    """The spheres each run of 32 pixels of a row (one warp of the kernels)
+    visits for one light, by the kernels' conservative test: the live
+    pixels' shadow origins lie in a ball (centre c_w, the midpoint of their
+    box; radius rho, the farthest from it), so every shadow segment [so,
+    light] lies within rho of [c_w, light]; sphere k is a candidate if its
+    centre lies within (R_k + rho)(1 + CULL_REL) + CULL_ABS (|c_k - c_w| +
+    rho + |light - c_w|) of that segment, R_k = r_k sqrt(1 + SOFT_CULL tau).
+    ``so`` is a Vec3 of (H, W) tensors, ``live`` (H, W) bool, ``lpos`` (3,).
+    Returns (H, ceil(W / 32), N) bool. Used by the tests, as the plain
+    version of the kernels' per-warp test."""
+    H, W = live.shape
+
+    def runs(x, fill):  # (H, W) -> (H, ceil(W / 32), 32), padded with fill
+        return torch.nn.functional.pad(x, (0, -W % 32), value=fill).reshape(H, -1, 32)
+
+    lv = runs(live, False)
+    xyz = torch.stack([runs(x, 0.0) for x in so], dim=-1)  # (H, R, 32, 3)
+    inf = torch.tensor(float("inf"), dtype=xyz.dtype)
+    lo = torch.where(lv[..., None], xyz, inf).amin(2)
+    hi = torch.where(lv[..., None], xyz, -inf).amax(2)
+    cw = torch.where(lv.any(2)[..., None], (lo + hi) * 0.5, 0.0)  # (H, R, 3)
+    off = xyz - cw[:, :, None]
+    rho = torch.sqrt(torch.where(lv, (off * off).sum(-1), 0.0).amax(2))  # (H, R)
+    u = lpos - cw
+    len2 = (u * u).sum(-1)
+    w = spheres.center[:, None, None] - cw  # (N, H, R, 3)
+    s = torch.clamp((w * u).sum(-1) / torch.where(len2 > 0.0, len2, 1.0), 0.0, 1.0)
+    q = w - u * s[..., None]
+    R = spheres.radius[:, None, None] * (1.0 + SOFT_CULL[torch.float32] * tau) ** 0.5
+    lim = ((R + rho) * (1.0 + CULL_REL)
+           + CULL_ABS * (torch.sqrt((w * w).sum(-1)) + rho + torch.sqrt(len2)))
+    return (((q * q).sum(-1) <= lim * lim) & lv.any(2)).permute(1, 2, 0)
+
+
 def _exclusive_products(one_m):
     """prod_{j != k} one_m[j] for every k along axis 0, as the product of
     the prefix before k and the suffix after it."""
@@ -286,22 +356,21 @@ def _exclusive_products(one_m):
 
 
 def _shadow_alpha_adjoint(spheres, so, ld, dist, tau, g_alpha):
-    """Cotangents of ``sphere_shadow_alpha`` over all sphere occluders
-    (axis 0) for the per-occluder cotangents ``g_alpha`` (N, H, W): of the
-    shadow origin and direction (summed over occluders), and of each
-    sphere's center and radius (summed over pixels). The gate, and with it
-    the distance to the light, carries no gradient."""
+    """Cotangents of ``sphere_shadow_alpha`` over the sphere occluders the
+    cull keeps (axis 0; `shadow_kept`) for the per-occluder cotangents
+    ``g_alpha`` (N, H, W): of the shadow origin and direction (summed over
+    occluders), and of each sphere's center and radius (summed over
+    pixels). The gate, and with it the distance to the light, carries no
+    gradient."""
     c, r = sphere_axis(spheres)
     oc = vm.vsub(tuple(x[None] for x in so), c)
     ldl = tuple(x[None] for x in ld)
     b = vm.vdot(oc, ldl)
     disc = b * b - (vm.vdot(oc, oc) - r * r)
-    t = -b - torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
-    between = (((disc > 0.0) & (t > fused.T_EPS) & (t < dist[None]))
-               | ((-b > fused.T_EPS) & (-b < dist[None])))
+    kept = shadow_kept(c, r, tuple(x[None] for x in so), ldl, dist[None], tau)
     den = tau * r * r
     s = torch.sigmoid(disc / den)
-    g_x = torch.where(between, g_alpha * s * (1.0 - s), 0.0)
+    g_x = torch.where(kept, g_alpha * s * (1.0 - s), 0.0)
     g_disc = g_x / den
     g_r = -g_x * disc / (den * den) * (2.0 * tau * r)
     g_b = 2.0 * b * g_disc
@@ -317,8 +386,8 @@ def _shadow_alpha_adjoint(spheres, so, ld, dist, tau, g_alpha):
 def _layer(scene, cfg, ray, k, tau, zero):
     """One soft layer's forward with the intermediates its adjoint needs:
     the winner's geometry and coverage, its surface, and per light the
-    Phong terms and the shadow factors (sphere 1 - alpha, the hard rect
-    factor) and visibility."""
+    Phong terms and the shadow factors (sphere 1 - alpha, exactly 1 where
+    `shadow_kept` drops the sphere; the hard rect factor) and visibility."""
     sp, rc, lt = scene.spheres, scene.rects, scene.lights
     N, M = sp.count, rc.count
     o, d = ray.o, ray.d
@@ -347,11 +416,12 @@ def _layer(scene, cfg, ray, k, tau, zero):
             if M:
                 rect_f = torch.where((rect_ts(rc, y.so, f.ldir) < f.dist).any(0), 0.0, 1.0)
             f.rect_f, f.vis = rect_f, rect_f
-            if N:
+            if N:  # a culled factor is exactly 1 already: the product keeps its bits
                 c, r = sphere_axis(sp)
-                f.one_m = 1.0 - sphere_shadow_alpha(c, r, tuple(x[None] for x in y.so),
-                                                    tuple(x[None] for x in f.ldir),
-                                                    f.dist[None], tau)
+                so, ld = tuple(x[None] for x in y.so), tuple(x[None] for x in f.ldir)
+                f.one_m = torch.where(shadow_kept(c, r, so, ld, f.dist[None], tau),
+                                      1.0 - sphere_shadow_alpha(c, r, so, ld, f.dist[None], tau),
+                                      1.0)
                 f.vis = 1.0 - (1.0 - torch.prod(f.one_m, 0) * rect_f)
         col = vm.vadd(col, tuple(f.vis * f.q[c] * f.lcol[c] for c in range(3)))
         y.lights.append(f)

@@ -202,8 +202,10 @@ def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m):
     """(t, unit normal facing the ray, base colour) of a rect."""
     t, a, b, n = intersect_rect(o, d, origin, edge_u, edge_v)
     n_unit = vm.vnormalize(n)
-    # Two-sided shading: flip the normal toward the incoming ray.
-    facing = torch.where(vm.vdot(n_unit, d) < 0.0, 1.0, -1.0)
+    # Two-sided shading: flip the normal toward the incoming ray. The sign
+    # takes the scene's dtype: a 0-d normal times a float32 (H, W) sign would
+    # round a float64 normal to float32.
+    facing = torch.where(vm.vdot(n_unit, d) < 0.0, 1.0, -1.0).to(t.dtype)
     s = m["scale"]
     parity = torch.remainder(torch.floor(a * s) + torch.floor(b * s), 2.0)
     return t, vm.vscale(n_unit, facing), _checker_select(m, parity)

@@ -6,6 +6,9 @@ JAX: on the card run them with
 the JAX set-up that tests/conftest.py does for the other test files.
 """
 
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -274,3 +277,145 @@ def test_soft_kernels_refuse(cuda):
     leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
     with pytest.raises(NotImplementedError, match="subsample offsets"):
         render(tree_unflatten(scene, leaves), spp4)
+
+
+# ---------------------------------------------------------------------------
+# The shadow cull of rows 8 and 9 (csrc/soft_step.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _with_spheres(scene, centres, radii):
+    """The scene with more spheres (sphere 0's material) at the end."""
+    sp = scene.spheres
+    k = len(radii)
+    more = lambda x: torch.cat([x, x[:1].expand(k, *x.shape[1:])])  # noqa: E731
+    mat = dataclasses.replace(sp.material, **{f.name: more(getattr(sp.material, f.name))
+                                              for f in dataclasses.fields(sp.material)})
+    return dataclasses.replace(scene, spheres=type(sp)(
+        center=torch.cat([sp.center, torch.stack(centres)]),
+        radius=torch.cat([sp.radius, torch.tensor(radii, device=sp.radius.device)]),
+        material=mat, texture=more(sp.texture)))
+
+
+def _bound_scene(scene, cfg):
+    """Config 5 with spheres at the edges of the cull: for several warps (32
+    pixels of a row) of the first layer, one sphere of radius 0.1 at (R +
+    rho)(1 - 1%) and one at (R + rho)(1 + 1%) from the warp's segment [c_w,
+    light] (R = r sqrt(1 + 18 tau), the warp's test), and one at R (1 - 1%)
+    and one at R (1 + 1%) from its farthest pixel's shadow segment (the
+    per-pixel rule), each placed off the far side of the segment."""
+    tau = cfg.soft_tau
+    zero = torch.zeros((cfg.height, cfg.width), device=scene.device)
+    ray = fused.primary_ray_terms(scene, cfg)
+    k = fused_vec_soft.two_layers(scene, ray.o, ray.d, tau)[0][1]
+    y = fused_vec_soft._layer(scene, cfg, ray, k, tau, zero)
+    lpos = scene.lights.position[0]
+    radius = 0.1
+    R = radius * math.sqrt(1.0 + fused_vec_soft.SOFT_CULL[torch.float32] * tau)
+    centres = []
+    for row in range(cfg.height // 8, cfg.height, cfg.height // 4):
+        for run in range(cfg.width // 32):
+            cols = slice(32 * run, 32 * run + 32)
+            live = y.hit[row, cols]
+            if int(live.sum()) < 2:
+                continue
+            so = torch.stack([x[row, cols] for x in y.so], dim=-1)[live]
+            cw = (so.amin(0) + so.amax(0)) * 0.5
+            dist2 = ((so - cw) ** 2).sum(-1)
+            far, rho = so[torch.argmax(dist2)], float(torch.sqrt(dist2.max()))
+            for start, reach in ((cw, R + rho), (far, R)):
+                seg = lpos - start
+                u = seg / torch.linalg.norm(seg)
+                away = (far - cw) - u * torch.dot(far - cw, u)
+                away = away / max(float(torch.linalg.norm(away)), 1e-12)
+                for f in (0.99, 1.01):
+                    centres.append(start + seg * 0.3 + away * (reach * f))
+    assert len(centres) >= 8
+    return _with_spheres(scene, centres, [radius] * len(centres))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau, bound_spheres", [(0.05, False), (0.01, False), (0.08, True)])
+def test_soft_step_forward_is_the_soft_forward(cuda, tau, bound_spheres):
+    """Row 9 against row 7's image of the same scene: a loss of exactly 0 and
+    every gradient exactly 0, so the step's culled shadow products are the
+    forward's unculled ones to the bit; with ``bound_spheres`` on a scene
+    with spheres at the edges of the warp test and of the per-pixel rule,
+    where the step is also held to its eager twin (1e-3 of each leaf's
+    scale) and row 8 to the twin of the backward."""
+    scene, _, _ = configs.config5_many_spheres(device=cuda)
+    cfg = RenderConfig(height=64, width=96, shadows=True, soft_tau=tau)
+    if bound_spheres:
+        scene = _bound_scene(scene, cfg)
+    img = fused_vec_soft.render_vec_soft(scene, cfg)
+    l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg, img)
+    assert float(l_0) == 0.0
+    assert not fused.flatten_scene(g_0).any()
+    if bound_spheres:
+        start = tree_unflatten(scene, [l + 0.01 * torch.sin(torch.arange(l.numel(), device=cuda)
+                                                            ).reshape(l.shape)
+                                       if l.is_floating_point() else l
+                                       for l in tree_leaves(scene)])
+        target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+        _close_leaves(fused_vec_soft.loss_grad_vec_soft_adjoint_eager(start, cfg, target)[1],
+                      fused_vec_soft.loss_grad_vec_soft(start, cfg, target)[1], rel=1e-3)
+        g = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+        _close_leaves(fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g),
+                      fused.autograd_vjp(render, start, cfg, g), rel=1e-3)
+
+
+@pytest.mark.cuda
+def test_soft_kernels_match_the_twins_at_513_objects(cuda):
+    """Rows 9 and 8 at bench.py's 513-object shape, 128^2, against their
+    eager twins (1e-3 of each leaf's scale), and bit-identical twice."""
+    scene, spec, _ = configs.config5_many_spheres(n_spheres=512, device=cuda)
+    cfg = RenderConfig(height=128, width=128, shadows=True, soft_tau=0.08)
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    l_k, g_k = fused_vec_soft.loss_grad_vec_soft(start, cfg, target)
+    l_a, g_a = fused_vec_soft.loss_grad_vec_soft_adjoint_eager(start, cfg, target)
+    assert abs(float(l_k) - float(l_a)) <= 1e-4 * float(l_a)
+    _close_leaves(g_a, g_k, rel=1e-3)
+    assert torch.equal(fused.flatten_scene(g_k),
+                       fused.flatten_scene(fused_vec_soft.loss_grad_vec_soft(start, cfg,
+                                                                             target)[1]))
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    _close_leaves(fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g),
+                  fused.autograd_vjp(render, start, cfg, g), rel=1e-3)
+
+
+@pytest.mark.cuda
+def test_soft_kernels_at_the_shared_memory_limit(cuda):
+    """Rows 9 and 8 at the most spheres a block's shared memory holds, where
+    a warp keeps the fewest prefix slots and rebuilds them most: the step
+    against row 7's image (a loss of exactly 0, gradients exactly 0), both
+    against their eager twins (1e-3 of each leaf's scale), bit-identical
+    twice; 16 spheres more are refused with the numbers. With the H100's
+    227 KB a block takes at least 784 spheres and a rect."""
+    n = fused_vec_soft.most_spheres()
+    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448:
+        assert n >= 784
+    scene, spec, _ = configs.config5_many_spheres(n_spheres=n, device=cuda)
+    cfg = RenderConfig(height=64, width=96, shadows=True, soft_tau=0.08)
+    l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg,
+                                                 fused_vec_soft.render_vec_soft(scene, cfg))
+    assert float(l_0) == 0.0
+    assert not fused.flatten_scene(g_0).any()
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    l_k, g_k = fused_vec_soft.loss_grad_vec_soft(start, cfg, target)
+    l_a, g_a = fused_vec_soft.loss_grad_vec_soft_adjoint_eager(start, cfg, target)
+    assert abs(float(l_k) - float(l_a)) <= 1e-4 * float(l_a)
+    _close_leaves(g_a, g_k, rel=1e-3)
+    assert torch.equal(fused.flatten_scene(g_k),
+                       fused.flatten_scene(fused_vec_soft.loss_grad_vec_soft(start, cfg,
+                                                                             target)[1]))
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    _close_leaves(fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g),
+                  fused.autograd_vjp(render, start, cfg, g), rel=1e-3)
+    more, _, _ = configs.config5_many_spheres(n_spheres=n + 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+        fused_vec_soft.loss_grad_vec_soft(more, cfg, target)

@@ -7,10 +7,9 @@ the step and the backward sharing one adjoint, and `optimize(render_fn=)`.
   `render_eager_vec` to 1e-10 of each leaf's scale (they agree to ~1e-14).
   The small-scene twin is held to the same autograd, which on scenes of at
   most 24 objects gives `render_eager`'s image bit for bit, at 1e-10; and
-  to autograd of `render_eager` itself at 1e-6 of scale: that where-chain
-  graph's gradient of the rects' edges differs from both by up to 6e-8 of
-  scale (the step twin's, tests/test_torch_step.py, by the same), while its
-  image is the same to the bit.
+  to autograd of `render_eager` itself, the where-chain graph, at the same
+  1e-10 (they agree to ~1e-14 since its rect normals keep the scene's
+  dtype; before, a float32 sign took the rects' edges 6e-8 of scale off).
 - twin vs `jax.vjp` of the JAX package's plain renderers, which the JAX
   suite holds its Pallas backwards to (tests/test_fused_vec.py): config 2
   at 40x72 through `render_jnp`, config 5 cut to 25 spheres at 26x26
@@ -124,7 +123,7 @@ def test_bwd_twin_matches_autograd_float64(family, shadows, clip):
     if family == "fused":
         ref = fused.render_fused_bwd_plain(start, cfg, g)  # autograd of render_eager
         errs = _errors([x.numpy() for x in tree_leaves(ref)], got)
-        assert max(errs.values()) <= 1e-6, errs
+        assert max(errs.values()) <= 1e-10, errs
         print(f"fused vs render_eager: {max(errs.values()):.1e} of scale")
 
 

@@ -15,7 +15,9 @@ Tolerances:
   such pixels, so from some starts they leave the 1e-2 band, as jitted and
   op-by-op JAX partly do between themselves.
 - adjoint vs autograd, float64: 1e-5 of scale (both are torch, same hit
-  decisions; they agree to ~1e-13 in float64);
+  decisions; they agree to ~2e-14 in float64, now that the where chain's
+  rect normals keep the scene's dtype: a float32 sign had taken the rects'
+  edges 4e-8 of scale off on configs 2 and 3);
 - adjoint vs autograd, float32: 1e-4 of scale. The camera leaves are small
   nets of large per-pixel terms, and the two orders of float32 summation
   differ by a few 1e-5 of that scale on config 2.
