@@ -38,12 +38,20 @@ non-zero:
   9. vec_step - the object-chunked step kernel against autograd
                (loss_grad_vec_plain) and the eager adjoint at both shapes,
                from perturb(scale=0.05, seed=4): loss within 1e-4 relative,
-               every leaf within 1e-2 of its scale; two calls bit-identical.
+               every leaf within 1e-2 of its scale; two calls bit-identical;
+               and against the vec forward kernel's own image of the same
+               scene (the true one, and perturb seeds 0-2) a loss of exactly
+               0 and every gradient exactly 0 (the step's culled walks give
+               the forward's full walks' bits); the most spheres a block of
+               this card takes with config 5's rect and light.
  10. vec_main - the port's CLI: invert --config 5 --size 1024 --iters 20 on
                the card, with the launch counts read around it.
  11. vec_times - both vec kernels and their plain versions at the two shapes
                of phase 8 (CUDA events, median of 20 after warm-up), beside
-               their bounds.
+               their bounds (the step's with the per-warp culls, and without
+               them as before); the culls' counters: candidate visits per
+               warp walk, and the (pixel, sphere) pairs they keep against all
+               pairs, for the primary and the shadow rays.
  12. soft_render - the soft forward kernel (soft_tau > 0) against its plain
                version (render_vec_soft_plain) by the rule of phase 3, on
                config 5 at 512^2 and 1024^2 at tau 0.08 and 0.01 and on the
@@ -76,7 +84,8 @@ non-zero:
                the eager render) for a seeded normal cotangent, and row 8
                against its eager twin, every leaf within 1e-2 of its scale;
                the mse gradient of a differentiable `render` against the
-               matching step kernel's (rows 1, 6, 9), by the same rule; two
+               matching step kernel's (rows 1, 6, 9), by the same rule, and
+               bit-equal for rows 5 and 6 (one body, one grid); two
                calls bit-identical; an expanded (stride-0) cotangent, from
                `render(...).sum().backward()`, bit-identical to its
                contiguous copy.
@@ -88,8 +97,10 @@ non-zero:
  18. render_grad_times - each backward kernel, its plain version, the forward
                and backward together, and the matching step kernel at the
                three shapes (CUDA events, median of 20 after 3 warm-ups),
-               beside the backward's bound.
-Then the card's nvidia-smi line, the {"kernels": [...]} line, and last
+               beside the backward's bound (row 5's with the primary cull,
+               and without it as before).
+Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
+with its status as PERF.md's table of TPU kernels records it), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -392,14 +403,22 @@ OPS = dict(
 )
 
 
-def work_counts(scene, cfg):
+def work_counts(scene, cfg, cull=False):
     """Pixels by winner type, lit (pixel, light) pairs, and the shadow-ray
     sphere and rect tests the kernels run (the any-hit loop tests spheres,
     then rects, and stops at the first occluder), on hit pixels and on all
-    pixels."""
+    pixels. With ``cull``, also the per-warp culls' work (csrc/cull.cuh, by
+    the plain versions in ops/kernels/cull.py; a warp is 32 pixels of a row):
+    the warps and their primary candidates, the (pixel, candidate) pairs
+    the primary rays test; per light the warps with a hit lane, their shadow
+    candidates, the (hit pixel, candidate) pairs inside them, and the
+    sphere tests of the hit pixels' any-hit walks over the candidates until
+    the first occluder."""
     import torch
 
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops.kernels import cull as cl
+    from reversible_raytracer_tpu_torch.ops.pipeline_vec import sphere_ts
 
     H, W = cfg.height, cfg.width
     dev = scene.device
@@ -431,11 +450,40 @@ def work_counts(scene, cfg):
                 shadow[kk, "all"] += int((~done).sum())
             done = done | (test(so, ldir) < dist)
         lit += int((hit & ~done).sum()) if cfg.shadows else int(hit.sum())
-    return dict(height=H, width=W, pixels=H * W, sph=int((kind == 1).sum()),
-                rect=int((kind == 2).sum()), hit=int(hit.sum()), lit=lit,
-                shadow_sph_hit=shadow[1, "hit"], shadow_rect_hit=shadow[2, "hit"],
-                shadow_sph_all=shadow[1, "all"], shadow_rect_all=shadow[2, "all"],
-                n_sph=sp.count, n_rect=rc.count, lights=scene.lights.count)
+    out = dict(height=H, width=W, pixels=H * W, sph=int((kind == 1).sum()),
+               rect=int((kind == 2).sum()), hit=int(hit.sum()), lit=lit,
+               shadow_sph_hit=shadow[1, "hit"], shadow_rect_hit=shadow[2, "hit"],
+               shadow_sph_all=shadow[1, "all"], shadow_rect_all=shadow[2, "all"],
+               n_sph=sp.count, n_rect=rc.count, lights=scene.lights.count)
+    if not cull:
+        return out
+    with torch.no_grad():
+        lanes = cl.runs(torch.ones((H, W), dtype=torch.bool, device=dev), False).sum(-1)
+        n_p = cl.primary_candidates(sp, scene.camera.eye, d).sum(-1)  # (H, R)
+        out.update(warps=lanes.numel(), prim_visits=int(n_p.sum()),
+                   prim_pairs=int((n_p * lanes).sum()), prim_all=H * W * sp.count,
+                   shadow_warps=0, shadow_visits=0, shadow_pairs=0, shadow_all=0,
+                   shadow_sph_culled=0)
+        if not cfg.shadows:
+            return out
+        hit_lanes = cl.runs(hit, False).sum(-1)
+        for li in range(scene.lights.count):
+            ldir, dist = pl.light_geometry(scene.lights, li, so)
+            cand = cl.warp_candidates(sp, so, hit, scene.lights.position[li], 0.0)
+            n_s = cand.sum(-1)
+            keep = cl.per_pixel(cand, W)
+            occ = (sphere_ts(sp, so, ldir) < dist[None]) & keep
+            visited = torch.cumsum(keep, 0, dtype=torch.int16)
+            first = occ.to(torch.uint8).argmax(0)
+            tests_px = torch.where(occ.any(0), visited.gather(0, first[None])[0],
+                                   visited[-1])
+            out["shadow_warps"] += int((hit_lanes > 0).sum())
+            out["shadow_visits"] += int(n_s.sum())
+            out["shadow_pairs"] += int((n_s * hit_lanes).sum())
+            out["shadow_all"] += int(hit.sum()) * sp.count
+            out["shadow_sph_culled"] += int(tests_px[hit].sum())
+            del occ, visited, keep
+    return out
 
 
 def _common_ops(c):
@@ -457,11 +505,39 @@ def render_ops(c):
             + c["shadow_rect_all"] * OPS["rect_shadow"])
 
 
-def step_ops(c):
+# The per-warp culls of rows 5-6 (csrc/cull.cuh), counted as the rest of
+# OPS at what the cheapest known algorithm spends: per sphere once, its
+# offset from the eye, distance, widened radius r' and sqrt(D^2 - r'^2); per
+# warp the cone (the axis from its lanes' directions, its cosine and sine);
+# per (warp, sphere) the cone test (a . (c - eye) against cos theta
+# sqrt(D^2 - r'^2) - sin theta r'); per (warp, sphere, light) with a hit
+# lane the segment test (SOFT_OPS' warp_test); then per (pixel, candidate)
+# the primary sphere test, and per hit pixel the shadow sphere tests over
+# the candidates until the first occluder.
+CULL_OPS = dict(cone_sphere=12, cone_warp=30, cone_test=8)
+
+
+def _cull_ops(c, shadows=True):
+    """The culled walks' operations, and the full walks' they replace."""
+    culled = (c["n_sph"] * CULL_OPS["cone_sphere"]
+              + c["warps"] * (CULL_OPS["cone_warp"] + c["n_sph"] * CULL_OPS["cone_test"])
+              + c["prim_pairs"] * OPS["sphere_primary"])
+    full = c["pixels"] * c["n_sph"] * OPS["sphere_primary"]
+    if shadows:
+        culled += (c["shadow_warps"] * c["n_sph"] * SOFT_OPS["warp_test"]
+                   + c["shadow_sph_culled"] * OPS["sphere_shadow"])
+        full += c["shadow_sph_hit"] * OPS["sphere_shadow"]
+    return culled, full
+
+
+def step_ops(c, cull=False):
+    """The step's operations; ``cull`` counts rows 5-6's per-warp culls in
+    place of the full walks (the counts of `work_counts(..., cull=True)`)."""
+    culled, full = _cull_ops(c) if cull else (0, 0)
     miss = c["pixels"] - c["hit"]
     per_hit = (OPS["so"] + c["lights"] * OPS["light"] + OPS["adj_base"] + OPS["adj_camera"]
                + OPS["sum_hit"])
-    return (_common_ops(c) + OPS["cam_chain"]
+    return (_common_ops(c) + OPS["cam_chain"] + culled - full
             + c["pixels"] * (OPS["resid"] + OPS["sum_pixel"]) + miss * OPS["sum_miss"]
             + c["hit"] * per_hit
             + c["sph"] * (OPS["surf_sphere"] + OPS["adj_sphere"] + OPS["sum_sphere"])
@@ -606,17 +682,33 @@ def phase_vec_render():
     return rows[0]["max_abs_err"], targets
 
 
+# The most spheres a block of rows 5-6 took with config 5's rect and light
+# on the H100 (232,448 bytes of shared memory a block) before the per-warp
+# culls: the layout with them must take at least as many.
+VEC_MOST_SPHERES_BEFORE = 1520
+
+
 def phase_vec_step(targets):
-    """Row 6 against autograd and the eager adjoint, and two calls bit for
-    bit; returns the largest gradient difference from autograd at config 5."""
+    """Row 6 against autograd and the eager adjoint, two calls bit for bit,
+    and against row 4's own image of the same scene (the true one, and
+    perturb seeds 0-2) a loss and gradient of exactly 0; returns the largest
+    gradient difference from autograd at config 5."""
     import torch
 
+    from reversible_raytracer_tpu_torch.models import configs
     from reversible_raytracer_tpu_torch.models.scene import tree_leaves
     from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
 
     rows, max_abs = [], None
     for label, n_spheres, size in VEC_SHAPES:
-        _, start, cfg = _vec_case(n_spheres, size)
+        scene, start, cfg = _vec_case(n_spheres, size)
+        spec = configs.config5_many_spheres(size=size, n_spheres=n_spheres, device="cuda")[1]
+        zero = {}
+        for seed in (None, 0, 1, 2):
+            sc = scene if seed is None else configs.perturb(scene, spec, scale=0.05, seed=seed)
+            l_0, g_0 = fused_vec.loss_grad_vec(sc, cfg, fused_vec.render_vec(sc, cfg)[0].detach())
+            zero["true" if seed is None else f"seed{seed}"] = bool(
+                float(l_0) == 0.0 and not fused.flatten_scene(g_0).any())
         target = targets[label]
         l_k, g_k = fused_vec.loss_grad_vec(start, cfg, target)
         l_k2, g_k2 = fused_vec.loss_grad_vec(start, cfg, target)
@@ -628,7 +720,7 @@ def phase_vec_step(targets):
         same = bool(torch.equal(torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
                                 torch.cat([l_k2.reshape(1), fused.flatten_scene(g_k2)])))
         row = dict(shape=label, loss=float(l_k), deterministic=same,
-                   plain_peak_gb=plain_peak / 1e9)
+                   plain_peak_gb=plain_peak / 1e9, zero_residual_exact=zero)
         for name, (l_ref, g_ref) in (("autograd", (l_p, g_p)), ("adjoint_eager", (l_a, g_a))):
             rel = abs(float(l_k) - float(l_ref)) / max(abs(float(l_ref)), 1e-12)
             errs = _grad_errors(g_ref, g_k)
@@ -638,11 +730,18 @@ def phase_vec_step(targets):
                 raise AssertionError(f"vec step kernel disagrees with {name}: {row}")
         if not same:
             raise AssertionError(f"vec step kernel is not bit-identical from call to call: {row}")
+        if not all(zero.values()):
+            raise AssertionError(f"vec step kernel's forward is not the vec forward's: {row}")
         rows.append(row)
         if max_abs is None:
             max_abs = max(float((a - b).abs().max())
                           for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
-    emit("vec_step", ok=True, rows=rows)
+    most = fused_vec.most_spheres()
+    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448 and most < VEC_MOST_SPHERES_BEFORE:
+        raise AssertionError(f"a block of the vec step takes {most} spheres, fewer than the "
+                             f"{VEC_MOST_SPHERES_BEFORE} it took before the culls")
+    emit("vec_step", ok=True, rows=rows, most_spheres=most,
+         most_spheres_before=VEC_MOST_SPHERES_BEFORE)
     return max_abs
 
 
@@ -689,6 +788,18 @@ def vec_step_bytes(c, Sg, ns_pad, nr_pad, planes=0):
     return 4 * (rows + (3 + planes) * c["pixels"] + 1 + rows)
 
 
+def cull_counters(c):
+    """Rows 5-6's cull counters from `work_counts(..., cull=True)`: candidate
+    visits per warp walk, and the (pixel, sphere) pairs the culls keep
+    against all pairs, for the primary rays and the step's shadow rays."""
+    return dict(primary_visits_per_walk=c["prim_visits"] / max(c["warps"], 1),
+                primary_kept_pairs=c["prim_pairs"], primary_all_pairs=c["prim_all"],
+                shadow_visits_per_walk=c["shadow_visits"] / max(c["shadow_warps"], 1),
+                shadow_kept_pairs=c["shadow_pairs"], shadow_all_pairs=c["shadow_all"],
+                shadow_sphere_tests=c["shadow_sph_culled"],
+                shadow_sphere_tests_uncull=c["shadow_sph_hit"])
+
+
 def phase_vec_times():
     import torch
 
@@ -718,15 +829,18 @@ def phase_vec_times():
         render_plain_ms = time_ms(lambda: fused_vec.render_vec_plain(start, cfg), reps=10)
         step_plain_ms = time_ms(lambda: fused_vec.loss_grad_vec_plain(start, cfg, target),
                                 reps=10)
-        c = work_counts(start, cfg)
+        c = work_counts(start, cfg, cull=True)
         Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
         in_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
+        s_bytes = vec_step_bytes(c, Sg, ns_pad, nr_pad)
         r_bound = bound(render_ops(c), in_rows + 4 * H * W * 4)
-        s_bound = bound(step_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad))
+        s_bound = bound(step_ops(c, cull=True), s_bytes)
         rows[label] = dict(render_ms=render_ms, step_ms=step_ms, render_plain_ms=render_plain_ms,
                            step_plain_ms=step_plain_ms, render_bound=r_bound, step_bound=s_bound,
-                           render_ops=render_ops(c), step_ops=step_ops(c),
-                           step_bytes=vec_step_bytes(c, Sg, ns_pad, nr_pad), work=c,
+                           step_bound_uncull=bound(step_ops(c), s_bytes),
+                           render_ops=render_ops(c), step_ops=step_ops(c, cull=True),
+                           step_ops_uncull=step_ops(c), step_bytes=s_bytes,
+                           cull=cull_counters(c), work=c,
                            step_rays_per_s=H * W / (step_ms * 1e-3))
     for k in _all_kernels():
         k.launches = saved[k.name]
@@ -897,7 +1011,7 @@ def soft_work_counts(scene, cfg):
     layers by winner type, sphere-ray pairs that rank by their sigmoid, and
     the soft shadow tests, the ones whose coverage is not gated to zero and
     the ones the cull keeps, over both layers and every light; by
-    `fused_vec_soft.warp_candidates`, the warps' sphere tests (a warp with a
+    `cull.warp_candidates`, the warps' sphere tests (a warp with a
     live lane tests every sphere), their candidate visits (each a walk step
     of 32 lanes), the live (pixel, sphere) pairs inside those candidates,
     and the layer-and-light walks with a candidate."""
@@ -905,6 +1019,7 @@ def soft_work_counts(scene, cfg):
 
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
     from reversible_raytracer_tpu_torch.ops import pipeline_vec as pv
+    from reversible_raytracer_tpu_torch.ops.kernels import cull
     from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft as fvs
 
     with torch.no_grad():
@@ -934,7 +1049,7 @@ def soft_work_counts(scene, cfg):
                 gated += int(((alpha > 0) & lv[None]).sum())
                 kept += int((fvs.shadow_kept(c, r, pv._lead(so), pv._lead(ldir), dist[None], tau)
                              & lv[None]).sum())
-                n = fvs.warp_candidates(sp, so, lv, scene.lights.position[li], tau).sum(-1)
+                n = cull.warp_candidates(sp, so, lv, scene.lights.position[li], tau).sum(-1)
                 lanes = torch.nn.functional.pad(lv, (0, -W % 32)).reshape(H, -1, 32).sum(-1)
                 tests += int((lanes > 0).sum()) * N
                 visits += int(n.sum())
@@ -1127,7 +1242,9 @@ def phase_render_grad():
         row = dict(case=label, kernel=BWD_NAMES[family], one_launch=one_launch,
                    deterministic=bool(torch.equal(fused.flatten_scene(got),
                                                   fused.flatten_scene(again))),
-                   expanded_cotangent_same=bool(torch.equal(expanded, fused.flatten_scene(ones))))
+                   expanded_cotangent_same=bool(torch.equal(expanded, fused.flatten_scene(ones))),
+                   mse_bit_equal=bool(torch.equal(fused.flatten_scene(by_render),
+                                                  fused.flatten_scene(by_step))))
         checks = [("plain", plain, got), ("mse_vs_step", by_step, by_render)]
         if family == "soft":  # row 8 against its eager twin too
             from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
@@ -1144,7 +1261,8 @@ def phase_render_grad():
         rows.append(row)
         if not (all(row[name]["worst_err"] <= 1e-2 for name, *_ in checks)
                 and row["one_launch"] and row["deterministic"]
-                and row["expanded_cotangent_same"]):
+                and row["expanded_cotangent_same"]
+                and (row["mse_bit_equal"] or family != "vec")):
             raise AssertionError(f"render backward kernel failed a check: {row}")
     emit("render_grad", ok=True, rows=rows)
     return max_abs
@@ -1199,10 +1317,16 @@ def phase_render_grad_main():
 OPS_COT = 3
 
 
-def bwd_ops(c):
-    return (step_ops(c) - c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] - OPS_COT)
-            - c["shadow_sph_hit"] * OPS["sphere_shadow"]
-            - c["shadow_rect_hit"] * OPS["rect_shadow"])
+def bwd_ops(c, cull=False):
+    """The render backward's operations: the step's without its shadow rays
+    (``cull``: with the primary cull, as rows 5-6 walk)."""
+    ops = (step_ops(c) - c["pixels"] * (OPS["resid"] + OPS["sum_pixel"] - OPS_COT)
+           - c["shadow_sph_hit"] * OPS["sphere_shadow"]
+           - c["shadow_rect_hit"] * OPS["rect_shadow"])
+    if cull:
+        culled, full = _cull_ops(c, shadows=False)
+        ops += culled - full
+    return ops
 
 
 def soft_bwd_ops(c, cull=True):
@@ -1262,9 +1386,11 @@ def _raw_calls(family, start, cfg, g, target):
             "rrt_vec_step", *rows(), *geom, target.data_ptr(), w, scratch.data_ptr(),
             out.data_ptr(), stream)
         fwd()
-        c = work_counts(start, cfg)
+        c = work_counts(start, cfg, cull=True)
         nbytes = vec_step_bytes(c, Sg, ns_pad, nr_pad, planes=vis.shape[0])
-        return fwd, bwd, step, bound(bwd_ops(c), nbytes), c
+        c["bound_uncull"] = bound(bwd_ops(c), nbytes)
+        c["cull"] = cull_counters(c)
+        return fwd, bwd, step, bound(bwd_ops(c, cull=True), nbytes), c
     tau = float(cfg.soft_tau)
     scratch = torch.empty((fused_vec_soft.SOFT_STEP.lib().rrt_soft_step_scratch_floats(
         *geom[2:7]),), device="cuda")
@@ -1302,12 +1428,27 @@ def phase_render_grad_times():
             plain_ms=time_ms(lambda: plain(start, cfg, g), reps=5 if soft else 10,
                              warmup=1 if soft else 3),
             fwd_bwd_ms=time_ms(lambda: (fwd(), bwd())), step_ms=time_ms(step), bound=b,
-            ops=soft_bwd_ops(c) if soft else bwd_ops(c), work=c)
+            ops=soft_bwd_ops(c) if soft else bwd_ops(c, cull=family == "vec"), work=c)
         rows[label]["rays_per_s"] = cfg.height * cfg.width / (rows[label]["bwd_ms"] * 1e-3)
     for k in _all_kernels():
         k.launches = saved[k.name]
     emit("render_grad_times", ok=True, rows=rows)
     return rows
+
+
+def kernel_status():
+    """Each kernel's status as PERF.md's table of TPU kernels records it
+    (ported, and redesigned, and when), by the CUDA source in its row."""
+    import re
+
+    status = {}
+    perf = REPO / "PERF.md"
+    for line in perf.read_text().splitlines() if perf.exists() else []:
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        found = re.search(r"csrc/(\w+)\.cu", line)
+        if len(cells) > 3 and cells[0].isdigit() and found:
+            status[found.group(1)] = re.sub(r" \(.*\)$", "", cells[2])
+    return status
 
 
 def main() -> int:
@@ -1375,6 +1516,9 @@ def main() -> int:
             launches=grad_launches[label][name], max_abs_err=grad_err[family],
             ms=gt[label]["bwd_ms"], plain_ms=gt[label]["plain_ms"],
             bound_ms=gt[label]["bound"][0], bound_by=gt[label]["bound"][1], library_ms=None))
+    status = kernel_status()
+    for k in kernels:
+        k["status"] = status.get(k["name"], "not recorded")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
   const FlatScene scene{sc, ly};
   const PixelGrad g = pixel_step(
-      scene, p, i, j, i < p.H && j < p.W, src,
+      scene, p, i, j, i < p.H && j < p.W, src, FullWalk{},
       [&](int l, V3 g_lpos, V3 g_lcol, bool warp_hit) {
         if (warp_hit) {
           put3(gs, ly.l_pos + 3 * l, g_lpos, lane);

@@ -11,18 +11,19 @@
 // the step casts shadow rays.
 //
 // Design: the object-chunked step's kernels (vec_step.cuh) with
-// CotangentSource: each thread replays its pixel's trace and shading,
-// reading light l's visibility from vis[l, i, j] where its ray hit, takes
-// the caller's cotangent of the clipped image through the clip's gradient
-// (zero past the ragged edge), and runs the step's adjoint; the per-warp
-// winner lists, the block row of every object field, the partial rows and
-// vec_finalize_kernel carry over unchanged. No atomics: bit-for-bit the
-// same from call to call; pad rows' gradients are exactly zero. Shared
-// memory as the step's (33 KB per block at config 5, 94 KB at 513 objects).
+// CotangentSource: each thread replays its pixel's trace (over its warp's
+// primary candidates, cull.cuh) and shading, reading light l's visibility
+// from vis[l, i, j] where its ray hit, takes the caller's cotangent of the
+// clipped image through the clip's gradient (zero past the ragged edge),
+// and runs the step's adjoint; the per-warp winner lists, the block row of
+// every object field, one partial row per block and vec_finalize_kernel
+// carry over unchanged. No atomics: bit-for-bit the same from call to call;
+// pad rows' gradients are exactly zero. Shared memory as the step's (13 KB
+// per block at config 5, 73 KB at 513 objects).
 //
-// Bound: operations: the step's per-pixel work without the shadow rays'
-// any-hit loops; bytes: the cotangent (12 bytes per pixel), 4 bytes per
-// visibility plane, and the partial rows (chip_smoke.py counts both).
+// Bound: operations: the step's per-pixel work without the shadow rays
+// (their votes and any-hit walks); bytes: the cotangent (12 bytes per
+// pixel) and 4 bytes per visibility plane (chip_smoke.py counts both).
 #include "vec_step.cuh"
 
 using namespace rrt;

@@ -6,20 +6,24 @@
 // Replaces the TPU kernel make_bwd_kernel(True)
 // (reversible_raytracer_tpu/ops/kernels/fused_vec.py:979, step_call at
 // :1310), which replays the trace per tile, takes jax.vjp of the shading,
-// runs masked per-object vjps over chunks of 16 rows, and adds each tile's
-// gradient rows into SMEM outputs across the in-order TPU grid. A GPU grid
-// has no order and CUDA has no autodiff: each thread runs the forward and
-// the hand-written adjoint of its pixel (render_common.cuh's pixel_step,
-// the same code as the small-scene step kernel, reading the packed
-// layout), and per-warp winner lists, one block row of every object field,
-// per-block partial rows and a fixed-order reduction sum the gradient
-// without atomics. The kernels live in vec_step.cuh, shared with the
-// render backward (fused_vec_render_bwd.cu).
+// runs masked per-object vjps over chunks of 16 rows (skipping the chunks
+// no pixel of the tile can reach), and adds each tile's gradient rows into
+// SMEM outputs across the in-order TPU grid. A GPU grid has no order and
+// CUDA has no autodiff: each thread runs the forward and the hand-written
+// adjoint of its pixel (render_common.cuh's pixel_step, the same code as the
+// small-scene step kernel, reading the packed layout), with the chunk skip
+// redone per warp: the primary rays and each light's shadow rays walk only
+// the spheres that a conservative per-warp test keeps (cull.cuh). Per-warp
+// winner lists, one block row of every object field kept across the tiles
+// a block walks, one partial row per block and a fixed-order reduction sum
+// the gradient without atomics. The kernels live in vec_step.cuh, shared
+// with the render backward (fused_vec_render_bwd.cu).
 //
-// Bound: operations (every object tested per pixel for the primary ray and
-// for each shadow ray until an occluder); the partial rows add
-// 2 * blocks * row floats of traffic (24 MB each way for 64 spheres at
-// 1024^2). chip_smoke.py counts both.
+// Bound: operations (per warp the cone test of every sphere and, per light
+// with a hit lane, the segment test; per pixel the sphere tests of the
+// warp's candidates for its primary ray and for each shadow ray until an
+// occluder, the shading and the adjoint; chip_smoke.py counts them). The
+// partial rows, one per block (a few hundred), are 1-2 MB of scratch.
 #include "vec_step.cuh"
 
 using namespace rrt;

@@ -332,6 +332,17 @@ struct Nearest {
   int k;
 };
 
+// The rects' part of the nearest loop, after the spheres' h.
+template <class S>
+__device__ __forceinline__ Nearest trace_rects(const S& sc, V3 o, V3 d, Nearest h) {
+  for (int k = 0; k < sc.n_rect(); ++k) {
+    float a, b;
+    const float t = hit_rect(o, d, sc.r_origin(k), sc.r_eu(k), sc.r_ev(k), &a, &b);
+    if (t < h.t) h = {t, sc.rect_base() + k};
+  }
+  return h;
+}
+
 // The t-only nearest loop: one intersection and a compare per object; the
 // winner's attributes are evaluated once afterwards (surface).
 template <class S>
@@ -341,12 +352,17 @@ __device__ __forceinline__ Nearest trace(const S& sc, V3 o, V3 d) {
     const float t = hit_sphere(o, d, sc.s_center(k), sc.s_radius(k));
     if (t < h.t) h = {t, k};
   }
+  return trace_rects(sc, o, d, h);
+}
+
+// The rects' part of the any-hit loop.
+template <class S>
+__device__ __forceinline__ bool occluded_rects(const S& sc, V3 o, V3 ldir, float dist) {
   for (int k = 0; k < sc.n_rect(); ++k) {
     float a, b;
-    const float t = hit_rect(o, d, sc.r_origin(k), sc.r_eu(k), sc.r_ev(k), &a, &b);
-    if (t < h.t) h = {t, sc.rect_base() + k};
+    if (hit_rect(o, ldir, sc.r_origin(k), sc.r_eu(k), sc.r_ev(k), &a, &b) < dist) return true;
   }
-  return h;
+  return false;
 }
 
 // Any-hit toward a light: stops at the first occluder (same boolean).
@@ -354,11 +370,7 @@ template <class S>
 __device__ __forceinline__ bool occluded(const S& sc, V3 o, V3 ldir, float dist) {
   for (int k = 0; k < sc.n_sph(); ++k)
     if (hit_sphere(o, ldir, sc.s_center(k), sc.s_radius(k)) < dist) return true;
-  for (int k = 0; k < sc.n_rect(); ++k) {
-    float a, b;
-    if (hit_rect(o, ldir, sc.r_origin(k), sc.r_eu(k), sc.r_ev(k), &a, &b) < dist) return true;
-  }
-  return false;
+  return occluded_rects(sc, o, ldir, dist);
 }
 
 // Shading attributes of the winning object (the trace_nearest defaults on
@@ -518,13 +530,27 @@ __device__ __forceinline__ void put3(float* row, int slot, V3 v, int lane) {
   put(row, slot + 2, v.z, lane);
 }
 
+// Lane 0 adds the warp's sum of v to slot (a row that sums several layers
+// or tiles).
+__device__ __forceinline__ void add(float* row, int slot, float v, int lane) {
+  v = warp_sum(v);
+  if (lane == 0) row[slot] += v;
+}
+
+__device__ __forceinline__ void add3(float* row, int slot, V3 v, int lane) {
+  add(row, slot, v.x, lane);
+  add(row, slot + 1, v.y, lane);
+  add(row, slot + 2, v.z, lane);
+}
+
 // Where pixel_step's image cotangent and light visibility come from.
 //
 // ResidualSource, the fused training steps: the cotangent of the clipped
 // image is 2 w (render - target), zero outside the image (the TPU padding
 // mask), and the squared residual feeds the loss; a light's visibility is
-// the any-hit test of a shadow ray.
+// the any-hit test of a shadow ray, occ() (the walk's).
 struct ResidualSource {
+  static constexpr bool casts_shadows = true;
   const float* target;  // (H, W, 3)
   float w;
 
@@ -539,10 +565,9 @@ struct ResidualSource {
     return res * (2.0f * w);
   }
 
-  template <class S>
-  __device__ __forceinline__ bool lit(const S& sc, const Params& p, int, int, int, V3 so,
-                                      const LightGeo& g) const {
-    return !p.shadows || !occluded(sc, so, g.ldir, g.dist);
+  template <class Occ>
+  __device__ __forceinline__ bool lit(const Params& p, int, int, int, Occ occ) const {
+    return !p.shadows || !occ();
   }
 };
 
@@ -552,6 +577,7 @@ struct ResidualSource {
 // miss the plane holds the test of a ray from the BIG sentinel), and not
 // at all without shadows, when there are no planes.
 struct CotangentSource {
+  static constexpr bool casts_shadows = false;
   const float* g_img;  // (H, W, 3)
   const float* vis;    // (n_vis, H, W); unused by the soft backward
 
@@ -561,10 +587,27 @@ struct CotangentSource {
     return inside ? ld3(g_img + 3 * ((long long)i * p.W + j)) : zero3();
   }
 
-  template <class S>
-  __device__ __forceinline__ bool lit(const S&, const Params& p, int i, int j, int l, V3,
-                                      const LightGeo&) const {
+  template <class Occ>
+  __device__ __forceinline__ bool lit(const Params& p, int i, int j, int l, Occ) const {
     return !p.shadows || vis[((long long)l * p.H + i) * p.W + j] != 0.0f;
+  }
+};
+
+// How pixel_step walks the objects. FullWalk, the small-scene step and
+// render backward (flat_step.cuh): every object for the primary ray and for
+// each shadow ray. vec_step.cuh's WarpCull walks the candidates of per-warp
+// culls (cull.cuh) instead, and casts its warp-wide votes in shadows(),
+// which pixel_step calls from every lane before it branches on the hit.
+struct FullWalk {
+  template <class S>
+  __device__ __forceinline__ Nearest trace(const S& sc, V3 o, V3 d, bool inside) const {
+    return inside ? rrt::trace(sc, o, d) : Nearest{BIG, -1};
+  }
+  template <class S, class Src>
+  __device__ __forceinline__ void shadows(const S&, const Params&, const Src&, V3, bool) const {}
+  template <class S>
+  __device__ __forceinline__ bool occluded(const S& sc, int, V3 so, const LightGeo& g) const {
+    return rrt::occluded(sc, so, g.ldir, g.dist);
   }
 };
 
@@ -580,33 +623,38 @@ struct PixelGrad {
   float obj[RECT_FIELDS];  // its gradient, SPH_FIELDS or RECT_FIELDS order
 };
 
-// Forward, the image cotangent from src (ResidualSource: the residual
-// against the target; CotangentSource: the caller's) and the hand-written
-// adjoint of pixel (i, j): shade adjoint, then the adjoint of the winning
-// object only (the where chain passes no gradient to the losers, and
-// visibility is a step with zero gradient, though the shadow origin still
-// carries gradient through light_geometry into t, n and d), then the camera. Light l's position and
-// color gradients go to on_light(l, g_lpos, g_lcol, warp_hit) inside the
-// light loop, which every lane of a warp runs together. Lanes outside the
-// image run every step with zero cotangents: the warp-wide shuffles and
-// votes need all 32.
-template <class S, class Src, class OnLight>
+// Forward (its objects walked as walk walks them), the image cotangent from
+// src (ResidualSource: the residual against the target; CotangentSource:
+// the caller's) and the hand-written adjoint of pixel (i, j): shade adjoint,
+// then the adjoint of the winning object only (the where chain passes no
+// gradient to the losers, and visibility is a step with zero gradient,
+// though the shadow origin still carries gradient through light_geometry
+// into t, n and d), then the camera. Light l's position and color gradients
+// go to on_light(l, g_lpos, g_lcol, warp_hit) inside the light loop, which
+// every lane of a warp runs together. Lanes outside the image run every step
+// with zero cotangents: the warp-wide shuffles and votes need all 32.
+template <class S, class Src, class Walk, class OnLight>
 __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, int i, int j,
-                                                bool inside, const Src& src, OnLight on_light) {
+                                                bool inside, const Src& src, const Walk& walk,
+                                                OnLight on_light) {
   PixelGrad out;
   // ---- forward
   const Camera cam = camera(sc);
   const Ray r = primary_ray(cam, p, inside ? i : 0, inside ? j : 0);
   const V3 o = cam.eye, d = r.d;
-  const Nearest h = inside ? trace(sc, o, d) : Nearest{BIG, -1};
+  const Nearest h = walk.trace(sc, o, d, inside);
   const bool hit = h.k >= 0;
   const Surface s = surface(sc, o, d, h);
+  walk.shadows(sc, p, src, shadow_origin(o, d, h.t, s.n), hit);
   unsigned bits = 0;
   V3 pre = sc.background();
   if (hit)
     pre = shade_hit(
         sc, o, d, h.t, s,
-        [&](int l, V3 so, const LightGeo& g) { return src.lit(sc, p, i, j, l, so, g); }, &bits);
+        [&](int l, V3 so, const LightGeo& g) {
+          return src.lit(p, i, j, l, [&] { return walk.occluded(sc, l, so, g); });
+        },
+        &bits);
   const V3 img = p.clip ? V3{clip01(pre.x), clip01(pre.y), clip01(pre.z)} : pre;
 
   // ---- the clipped image's cotangent, then the clip's
@@ -856,7 +904,7 @@ inline size_t render_smem(int ns_pad, int nr_pad, int n_light) {
   return (size_t)(make_glayout(n_light).Sg + ns_pad * P_SPH + nr_pad * P_RCT) * sizeof(float);
 }
 
-inline dim3 pixel_grid(int H, int W) {
+__host__ __device__ inline dim3 pixel_grid(int H, int W) {
   return dim3((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y);
 }
 

@@ -24,8 +24,7 @@
 //      lane's segment [so, light] lies within rho of [c_w, light]; a sphere
 //      can pass the per-pixel rule only if its centre lies within R + rho of
 //      that segment, R = r sqrt(1 + SOFT_CULL tau) (plus an allowance for
-//      rounding). The lanes test 32 spheres at a time and __ballot_sync
-//      writes the candidates as mask words, in row order.
+//      rounding): cull.cuh's warp_candidates, which the hard step shares.
 //    - One walk forward, one back. The forward (shadow_pass1) walks the
 //      candidates once per layer and light: each lane's product, so its
 //      visibility, which the shading reads, and the prefix before each
@@ -56,13 +55,11 @@
 // the checker, checker-scale and mirror columns.
 #pragma once
 
+#include "cull.cuh"
 #include "soft_common.cuh"
 
 namespace rrt {
 
-constexpr float SOFT_CULL = 18.0f;  // sigmoid(-18) < 2^-25: 1 - alpha rounds to 1
-constexpr float CULL_REL = 1e-3f;   // the warp test's allowance for float32 rounding:
-constexpr float CULL_ABS = 2e-3f;   // relative, and per unit of the distances rounded over
 constexpr int PCAP = 32;            // the most prefix slots per lane of a warp
 constexpr int GEO = 4;              // center (3) and radius: the shadow gradient per sphere
 
@@ -106,18 +103,6 @@ inline SoftPlan soft_plan(int ns_pad, int nr_pad, int n_light) {
   return s;
 }
 
-// Lane 0 adds the warp's sum of v to slot (both layers add to one slot).
-__device__ __forceinline__ void add(float* row, int slot, float v, int lane) {
-  v = warp_sum(v);
-  if (lane == 0) row[slot] += v;
-}
-
-__device__ __forceinline__ void add3(float* row, int slot, V3 v, int lane) {
-  add(row, slot, v.x, lane);
-  add(row, slot + 1, v.y, lane);
-  add(row, slot + 2, v.z, lane);
-}
-
 // Adds the warp's sums of the 4 components of v to row[0..3] in 6 shuffles
 // (a fixed tree: halves trade components, then a butterfly); lanes 0, 8,
 // 16 and 24 hold the sums of x, y, z and w.
@@ -129,18 +114,6 @@ __device__ __forceinline__ void add4(float* row, float4 v, int lane) {
 #pragma unroll
   for (int off = 4; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
   if ((lane & 7) == 0) row[lane >> 3] += s;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
 }
 
 // One sphere (c, r) against one lane's shadow ray (so, ld) toward a light
@@ -188,47 +161,6 @@ __device__ __forceinline__ float4 shadow_alpha_adjoint(const ShadowTerm& st, V3 
   *g_so = *g_so + g_oc;
   *g_ld = *g_ld + st.oc * g_b;
   return make_float4(-g_oc.x, -g_oc.y, -g_oc.z, g_r);
-}
-
-// A warp's candidate spheres for one layer and light: the live lanes'
-// shadow origins bound by a ball, then each sphere against the ball's
-// segment to the light, 32 at a time, into mask words wm (bit u of word w:
-// sphere 32 w + u). Returns the number of candidates (the same in every
-// lane). Call from the whole warp.
-template <class S>
-__device__ __forceinline__ int warp_candidates(const S& sc, V3 so, V3 lpos, bool live,
-                                               float tau, int lane, unsigned* wm) {
-  const float inf = __int_as_float(0x7f800000);
-  const V3 lo = {warp_min(live ? so.x : inf), warp_min(live ? so.y : inf),
-                 warp_min(live ? so.z : inf)};
-  const V3 hi = {warp_max(live ? so.x : -inf), warp_max(live ? so.y : -inf),
-                 warp_max(live ? so.z : -inf)};
-  const V3 cw = (lo + hi) * 0.5f;
-  const V3 dv = so - cw;
-  const float rho = sqrtf(warp_max(live ? dot(dv, dv) : 0.0f));
-  const V3 u = lpos - cw;
-  const float len2 = dot(u, u);
-  const float grow = sqrtf(1.0f + SOFT_CULL * tau);
-  const float slack = CULL_ABS * (rho + sqrtf(len2));
-  const int nw = (sc.n_sph() + 31) >> 5;
-  int n = 0;
-  for (int w = 0; w < nw; ++w) {
-    const int k = w * 32 + lane;
-    bool near = false;
-    if (k < sc.n_sph()) {
-      const V3 wc = sc.s_center(k) - cw;
-      const float sp = len2 > 0.0f ? fminf(fmaxf(dot(wc, u) / len2, 0.0f), 1.0f) : 0.0f;
-      const V3 q = wc - u * sp;
-      const float lim = (sc.s_radius(k) * grow + rho) * (1.0f + CULL_REL) +
-                        CULL_ABS * sqrtf(dot(wc, wc)) + slack;
-      near = dot(q, q) <= lim * lim;
-    }
-    const unsigned m = __ballot_sync(FULL, near);
-    if (lane == 0) wm[w] = m;
-    n += __popc(m);
-  }
-  __syncwarp();
-  return n;
 }
 
 // Pass 1, the forward of one layer and light: the warp's candidates, then

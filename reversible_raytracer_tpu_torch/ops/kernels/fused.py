@@ -448,7 +448,7 @@ def traced_visibility(scene, cfg: RenderConfig, occluded_fn):
     """The step's visibility of light ``li``: a shadow ray from the shadow
     origin toward it, tested by ``occluded_fn`` (1 everywhere without
     shadows)."""
-    def visibility(li, so, f, zero):
+    def visibility(li, so, f, zero, hit):
         if not cfg.shadows:
             return zero + 1.0
         return torch.where(occluded_fn(scene, so, f.ldir, f.dist), 0.0, 1.0)
@@ -462,7 +462,7 @@ def saved_visibility(cfg: RenderConfig, vis):
     if tuple(vis.shape[1:]) != (cfg.height, cfg.width):
         raise ValueError(f"visibility planes {tuple(vis.shape)} do not fit "
                          f"{(cfg.height, cfg.width)}")
-    return lambda li, so, f, zero: vis[li].to(zero.dtype) if cfg.shadows else zero + 1.0
+    return lambda li, so, f, zero, hit: vis[li].to(zero.dtype) if cfg.shadows else zero + 1.0
 
 
 def _nearest_chain(scene, o, d):
@@ -726,8 +726,8 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility):
     k)`` is the trace's nearest hit; ``cotangent(img)`` gives the cotangent
     of the clipped image per channel and the squared error
     (`residual_cotangent`, `image_cotangent`); ``visibility(li, so, f,
-    zero)`` gives light li's visibility plane (`traced_visibility`,
-    `saved_visibility`)."""
+    zero, hit)`` gives light li's visibility plane where the rays ``hit``
+    (`traced_visibility`, `saved_visibility`)."""
     dev = scene.device
     H, W = cfg.height, cfg.width
     sp, rc, lt, cam = scene.spheres, scene.rects, scene.lights, scene.camera
@@ -754,7 +754,7 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility):
     per_light = []
     for li in range(L):
         f = light_terms(lt, li, so, n, d, base, kd, ksp, shin)
-        vis = visibility(li, so, f, zero)
+        vis = visibility(li, so, f, zero, hit)
         col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
         per_light.append((f, vis))
     bg = vm.splat(scene.background)

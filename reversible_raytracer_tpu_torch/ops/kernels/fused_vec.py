@@ -22,6 +22,14 @@ wrappers and their plain versions.
   `loss_grad_vec_adjoint_eager` runs the kernel's hand-written adjoint in
   eager torch.
 
+The step and the render backward walk, for each warp of 32 pixels of a row,
+only the spheres that a conservative per-warp test keeps (``csrc/cull.cuh``;
+`cull.primary_candidates` for the primary rays, `cull.warp_candidates` at
+tau = 0 for the step's shadow rays): a dropped sphere misses every ray of
+the warp, so winners, t and visibility are those of the walk over every
+sphere, to the bit. Their eager twins walk the same candidates; the plain
+versions and `render_eager_vec` walk every object.
+
 The scene enters both kernels as the JAX package's packed rows: one flat
 vector of the object-count-independent globals (`flatten_globals`), the
 sphere rows (`pack_spheres`, ``P_SPH`` scalars each) and the rect rows
@@ -52,6 +60,7 @@ from ..pipeline import RenderConfig, n_vis_planes, render_tile
 from ..pipeline_vec import nearest_vec, occluded_any, render_eager_vec, shade_vec
 from . import fused
 from ._build import Kernel
+from .cull import per_pixel, primary_candidates, warp_candidates
 
 P_SPH = 17  # center(3) radius color(3) color2(3) checker cscale ka kd ks shin mirror
 P_RCT = 22  # origin(3) edge_u(3) edge_v(3) + the same 13 material scalars
@@ -208,6 +217,33 @@ def _geometry(scene, cfg: RenderConfig):
             cfg.height, cfg.width, int(cfg.shadows), int(cfg.clip)]
 
 
+def most_rows(smem_fn, n_rect: int, n_light: int) -> int:
+    """The most spheres, in the rows' steps of 16, whose block needs at most
+    the shared memory the current card allows, by ``smem_fn(n_sph, n_rect,
+    n_light)`` (bytes a block of some kernel needs)."""
+    have = VEC_RENDER.lib().rrt_smem_optin()
+    n = 0
+    while smem_fn(n + 16, n_rect, n_light) <= have:
+        n += 16
+    return n
+
+
+def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
+    """The most spheres that the vec step and render backward take beside
+    ``n_rect`` rects and ``n_light`` lights on the current card
+    (csrc/vec_step.cuh `step_plan`)."""
+    return most_rows(VEC_STEP.lib().rrt_vec_step_smem, n_rect, n_light)
+
+
+def _scratch(kernel: Kernel, entry: str, geom, dev):
+    """The partial rows a step or backward call writes, sized for this
+    card's grid."""
+    n = getattr(kernel.lib(), entry)(*geom[2:7])
+    if n <= 0:
+        raise RuntimeError(f"{kernel.name}: the card's SM count could not be read")
+    return torch.empty((n,), device=dev)
+
+
 def check_smem(kernel: Kernel, entry: str, scene) -> None:
     """Refuse, with the numbers, a scene whose rows do not fit the shared
     memory a block of this card can have."""
@@ -315,8 +351,7 @@ def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img, vis):
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
-    scratch = torch.empty((VEC_RENDER_BWD.lib().rrt_vec_render_bwd_scratch_floats(*geom[2:7]),),
-                          device=dev)
+    scratch = _scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_scratch_floats", geom, dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     VEC_RENDER_BWD.call("rrt_vec_render_bwd", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
                         *geom, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
@@ -359,8 +394,7 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
     check_smem(VEC_STEP, "rrt_vec_step_smem", scene)
     target = target.contiguous()
     geom = _geometry(scene, cfg)
-    n_scratch = VEC_STEP.lib().rrt_vec_step_scratch_floats(*geom[2:7])
-    scratch = torch.empty((n_scratch,), device=dev)
+    scratch = _scratch(VEC_STEP, "rrt_vec_step_scratch_floats", geom, dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     VEC_STEP.call("rrt_vec_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
                   target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
@@ -374,27 +408,49 @@ def loss_grad_vec_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
     return fused.autograd_loss_grad(render_eager_vec, scene, cfg, target, loss)
 
 
+def culled_nearest(scene, o, d):
+    """`nearest_vec` over each warp's primary candidates
+    (`cull.primary_candidates`), as the step and backward kernels walk."""
+    keep = per_pixel(primary_candidates(scene.spheres, scene.camera.eye, d), d[0].shape[1])
+    return nearest_vec(scene, o, d, keep)
+
+
+def culled_visibility(scene, cfg: RenderConfig):
+    """The step kernel's visibility of light ``li``: the any-hit test over
+    each warp's shadow candidates for its hit pixels (`cull.warp_candidates`
+    at tau = 0), then the rects (1 everywhere without shadows)."""
+    def visibility(li, so, f, zero, hit):
+        if not cfg.shadows:
+            return zero + 1.0
+        cand = warp_candidates(scene.spheres, so, hit, scene.lights.position[li], 0.0)
+        occ = occluded_any(scene, so, f.ldir, f.dist, per_pixel(cand, cfg.width))
+        return torch.where(occ, 0.0, 1.0)
+    return visibility
+
+
 def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse"):
     """The vec step kernel's algorithm in eager torch: the object-vectorized
-    nearest hit and any-hit shadow test, then the same per-pixel adjoint as
-    the small-scene step (`fused.loss_grad_adjoint_eager`): shade, the
-    winning object only, the camera. Same contract as `loss_grad_vec`."""
+    nearest hit over each warp's primary candidates and any-hit shadow test
+    over its shadow candidates, then the same per-pixel adjoint as the
+    small-scene step (`fused.loss_grad_adjoint_eager`): shade, the winning
+    object only, the camera. Same contract as `loss_grad_vec`."""
     check_vec_kernel_config(scene, cfg)
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
     with torch.no_grad():
-        sq, grads = fused._adjoint(scene, cfg, nearest_vec, fused.residual_cotangent(target, norm),
-                                   fused.traced_visibility(scene, cfg, occluded_any))
+        sq, grads = fused._adjoint(scene, cfg, culled_nearest,
+                                   fused.residual_cotangent(target, norm),
+                                   culled_visibility(scene, cfg))
     return norm * sq, grads
 
 
 def render_vec_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img, vis):
     """The vec render backward kernel's algorithm in eager torch: the vec
-    step's adjoint with the image cotangent ``g_img`` in place of the
-    residual and the forward's planes ``vis`` in place of the shadow rays:
-    the scene's gradient (a Scene)."""
+    step's adjoint (over the same primary candidates) with the image
+    cotangent ``g_img`` in place of the residual and the forward's planes
+    ``vis`` in place of the shadow rays: the scene's gradient (a Scene)."""
     check_vec_kernel_config(scene, cfg)
     fused._check_target(g_img, cfg, scene, "cotangent")
     with torch.no_grad():
-        return fused._adjoint(scene, cfg, nearest_vec, fused.image_cotangent(g_img),
+        return fused._adjoint(scene, cfg, culled_nearest, fused.image_cotangent(g_img),
                               fused.saved_visibility(cfg, vis))[1]

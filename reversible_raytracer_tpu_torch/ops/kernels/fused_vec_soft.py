@@ -26,7 +26,7 @@ their plain versions: the annealed inversion's soft stages.
 The step and the backward drop a sphere from a pixel's shadow product where
 its factor 1 - alpha is exactly 1 (`shadow_kept`, `SOFT_CULL`), and each
 warp of 32 pixels visits only the spheres its conservative test keeps
-(`warp_candidates`, the plain version of that test, used by the tests):
+(`cull.warp_candidates`, the plain version of that test, used by the tests):
 their images are the forward's to the bit, and their gradients drop terms
 each under 2^-25 of their cotangent. The eager twins apply the same
 per-pixel rule.
@@ -66,6 +66,7 @@ from ..pipeline_vec import (
     two_layers,
 )
 from . import fused, fused_vec
+from .cull import SOFT_CULL
 from ._build import Kernel
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -145,12 +146,7 @@ def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
     soft render backward take beside ``n_rect`` rects and ``n_light``
     lights on the current card: what a block's shared memory holds with one
     prefix slot per lane (csrc/soft_step.cuh `soft_plan`)."""
-    have = fused_vec.VEC_RENDER.lib().rrt_smem_optin()
-    lib = SOFT_STEP.lib()
-    n = 0
-    while lib.rrt_soft_step_smem(n + 16, n_rect, n_light) <= have:
-        n += 16
-    return n
+    return fused_vec.most_rows(SOFT_STEP.lib().rrt_soft_step_smem, n_rect, n_light)
 
 
 def render_vec_soft(scene, cfg: RenderConfig):
@@ -285,18 +281,6 @@ def render_vec_soft_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img):
         return _soft_adjoint(scene, cfg, fused.image_cotangent(g_img))[1]
 
 
-# The shadow cull: a sphere whose shadow-ray coverage x = disc / (tau r^2)
-# lies below -SOFT_CULL has sigmoid(x) under half an ulp below 1 in the
-# dtype, so its factor 1 - alpha is exactly 1 and it is dropped, with its
-# adjoint (each such term is under 2^-25 of its cotangent in float32, as the
-# TPU kernel's chunk skip drops them). float32 is the kernels' threshold.
-SOFT_CULL = {torch.float32: 18.0, torch.float64: 38.0}
-# The per-warp test's allowance for float32 rounding: relative, and in
-# proportion to the distances the per-lane rule rounds over (the constants
-# of csrc/soft_step.cuh, as SOFT_CULL's float32 entry is).
-CULL_REL, CULL_ABS = 1e-3, 2e-3
-
-
 def shadow_kept(c, r, so, ld, dist, tau):
     """The per-pixel cull rule of the soft step and backward kernels: for
     each sphere (axis 0) and pixel, whether the sphere is between the
@@ -309,41 +293,6 @@ def shadow_kept(c, r, so, ld, dist, tau):
     between = (((disc > 0.0) & (t > fused.T_EPS) & (t < dist))
                | ((-b > fused.T_EPS) & (-b < dist)))
     return between & ~(disc < -SOFT_CULL[disc.dtype] * tau * r * r)
-
-
-def warp_candidates(spheres, so, live, lpos, tau):
-    """The spheres each run of 32 pixels of a row (one warp of the kernels)
-    visits for one light, by the kernels' conservative test: the live
-    pixels' shadow origins lie in a ball (centre c_w, the midpoint of their
-    box; radius rho, the farthest from it), so every shadow segment [so,
-    light] lies within rho of [c_w, light]; sphere k is a candidate if its
-    centre lies within (R_k + rho)(1 + CULL_REL) + CULL_ABS (|c_k - c_w| +
-    rho + |light - c_w|) of that segment, R_k = r_k sqrt(1 + SOFT_CULL tau).
-    ``so`` is a Vec3 of (H, W) tensors, ``live`` (H, W) bool, ``lpos`` (3,).
-    Returns (H, ceil(W / 32), N) bool. Used by the tests, as the plain
-    version of the kernels' per-warp test."""
-    H, W = live.shape
-
-    def runs(x, fill):  # (H, W) -> (H, ceil(W / 32), 32), padded with fill
-        return torch.nn.functional.pad(x, (0, -W % 32), value=fill).reshape(H, -1, 32)
-
-    lv = runs(live, False)
-    xyz = torch.stack([runs(x, 0.0) for x in so], dim=-1)  # (H, R, 32, 3)
-    inf = torch.tensor(float("inf"), dtype=xyz.dtype)
-    lo = torch.where(lv[..., None], xyz, inf).amin(2)
-    hi = torch.where(lv[..., None], xyz, -inf).amax(2)
-    cw = torch.where(lv.any(2)[..., None], (lo + hi) * 0.5, 0.0)  # (H, R, 3)
-    off = xyz - cw[:, :, None]
-    rho = torch.sqrt(torch.where(lv, (off * off).sum(-1), 0.0).amax(2))  # (H, R)
-    u = lpos - cw
-    len2 = (u * u).sum(-1)
-    w = spheres.center[:, None, None] - cw  # (N, H, R, 3)
-    s = torch.clamp((w * u).sum(-1) / torch.where(len2 > 0.0, len2, 1.0), 0.0, 1.0)
-    q = w - u * s[..., None]
-    R = spheres.radius[:, None, None] * (1.0 + SOFT_CULL[torch.float32] * tau) ** 0.5
-    lim = ((R + rho) * (1.0 + CULL_REL)
-           + CULL_ABS * (torch.sqrt((w * w).sum(-1)) + rho + torch.sqrt(len2)))
-    return (((q * q).sum(-1) <= lim * lim) & lv.any(2)).permute(1, 2, 0)
 
 
 def _exclusive_products(one_m):

@@ -73,25 +73,31 @@ def rect_ts(rects, o, d):
     return t
 
 
-def occluded_any(scene, o, ldir, dist):
-    """Any-hit shadow test over all objects at once (a step: no gradient)."""
+def occluded_any(scene, o, ldir, dist, keep=None):
+    """Any-hit shadow test over all objects at once (a step: no gradient).
+    ``keep`` (N, H, W) bool, if given, limits each ray's spheres to those it
+    marks (the kernels' culled walk)."""
     with torch.no_grad():
         occ = torch.zeros_like(dist, dtype=torch.bool)
         if scene.spheres.count:
-            occ = occ | (sphere_ts(scene.spheres, o, ldir) < dist).any(dim=0)
+            hits = sphere_ts(scene.spheres, o, ldir) < dist
+            occ = occ | (hits if keep is None else hits & keep).any(dim=0)
         if scene.rects.count:
             occ = occ | (rect_ts(scene.rects, o, ldir) < dist).any(dim=0)
     return occ
 
 
-def nearest_vec(scene, o, d):
+def nearest_vec(scene, o, d, keep=None):
     """(t, k) of every ray's nearest hit: spheres are 0..N-1 and rects
     N..N+M-1 in k, a miss is k = -1 with t = BIG. Argmin over the stacked t
-    with first-wins ties (strict <, as the where chain); no gradient."""
+    with first-wins ties (strict <, as the where chain); no gradient.
+    ``keep`` (N, H, W) bool, if given, limits each ray's spheres to those it
+    marks (the kernels' culled walk)."""
     with torch.no_grad():
         parts = []
         if scene.spheres.count:
-            parts.append(sphere_ts(scene.spheres, o, d))
+            ts = sphere_ts(scene.spheres, o, d)
+            parts.append(ts if keep is None else torch.where(keep, ts, BIG))
         if scene.rects.count:
             parts.append(rect_ts(scene.rects, o, d))
         t_all = torch.cat(parts)

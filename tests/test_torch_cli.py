@@ -14,6 +14,18 @@ from reversible_raytracer_tpu_torch import cli
 from reversible_raytracer_tpu_torch.utils.imageio import save_png
 from reversible_raytracer_tpu_torch.utils.metrics import MetricsLogger
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -23,6 +23,17 @@ from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
 from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render, resolve_impl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -419,3 +430,119 @@ def test_soft_kernels_at_the_shared_memory_limit(cuda):
     more, _, _ = configs.config5_many_spheres(n_spheres=n + 16, device=cuda)
     with pytest.raises(NotImplementedError, match="bytes of shared memory"):
         fused_vec_soft.loss_grad_vec_soft(more, cfg, target)
+
+
+# ---------------------------------------------------------------------------
+# The per-warp culls of rows 5 and 6 (csrc/vec_step.cuh, csrc/cull.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _vec_zero_residual(scene, cfg):
+    """Row 6 against row 4's image of the same scene: a loss of exactly 0
+    and every gradient exactly 0, so the step's culled walks gave every
+    pixel row 4's winner, t and visibility, bit for bit."""
+    img = fused_vec.render_vec(scene, cfg)[0].detach()
+    l_0, g_0 = fused_vec.loss_grad_vec(scene, cfg, img)
+    assert float(l_0) == 0.0
+    assert not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [None, 0, 1, 2])
+def test_vec_step_forward_is_the_vec_forward_at_a_ragged_size(cuda, seed):
+    """At 200x333 the last warp of each row has 13 live lanes and the last
+    tile row 0 of 8 dead rows: the true scene and perturb seeds 0-2."""
+    scene, spec, _ = configs.config5_many_spheres(device=cuda)
+    if seed is not None:
+        scene = configs.perturb(scene, spec, scale=0.05, seed=seed)
+    _vec_zero_residual(scene, RenderConfig(height=200, width=333, shadows=True))
+
+
+def _cull_edge_scene(scene, cfg):
+    """Config 5 with spheres at the edges of the culls: for pixels on both
+    sides of warp boundaries (columns 32 k - 1 and 32 k), one sphere of
+    radius 0.15 whose centre lies 0.999 r and one 1.001 r off the pixel's
+    primary ray (a grazing limb, straddling two warps), and two the same
+    distances off its shadow ray toward the light, a third of the way along
+    it."""
+    ray = fused.primary_ray_terms(scene, cfg)
+    t, k = nearest_vec(scene, ray.o, ray.d)
+    zero = torch.zeros((cfg.height, cfg.width), device=scene.device)
+    w = fused.winner_surface(scene, fused.winner_geometry(scene, k, zero), ray.o, ray.d, t, zero)
+    so = pipeline.shadow_origin(ray.o, ray.d, t, w.n)
+    lpos = scene.lights.position[0]
+    radius, eye = 0.15, scene.camera.eye
+    centres = []
+    for i in range(cfg.height // 6, cfg.height, cfg.height // 3):
+        for j in range(31, cfg.width - 1, 64):
+            for jj in (j, j + 1):
+                d = torch.stack([x[i, jj] for x in ray.d])
+                off = torch.linalg.cross(d, torch.tensor([0.0, 1.0, 0.0], device=d.device))
+                off = off / torch.linalg.norm(off)
+                for f in (0.999, 1.001):
+                    centres.append(eye + d * 6.0 + off * (radius * f))
+                if int(k[i, jj]) >= 0:
+                    o = torch.stack([x[i, jj] for x in so])
+                    seg = lpos - o
+                    u = seg / torch.linalg.norm(seg)
+                    side = torch.linalg.cross(u, off)
+                    side = side / torch.linalg.norm(side)
+                    for f in (0.999, 1.001):
+                        centres.append(o + seg / 3.0 + side * (radius * f))
+    assert len(centres) >= 16
+    return _with_spheres(scene, centres, [radius] * len(centres))
+
+
+@pytest.mark.cuda
+def test_vec_kernels_at_the_edges_of_the_culls(cuda):
+    """Spheres straddling warp boundaries and grazing the limb of a pixel's
+    primary or shadow ray: row 6 against row 4's image (a loss and gradient
+    of exactly 0), and rows 6 and 5 against their eager twins, which walk
+    the same candidates (1e-2 of each leaf's scale)."""
+    scene, _, _ = configs.config5_many_spheres(device=cuda)
+    cfg = RenderConfig(height=96, width=160, shadows=True)
+    scene = _cull_edge_scene(scene, cfg)
+    _vec_zero_residual(scene, cfg)
+    start = tree_unflatten(scene, [l + 0.01 * torch.sin(torch.arange(l.numel(), device=cuda)
+                                                        ).reshape(l.shape)
+                                   if l.is_floating_point() else l
+                                   for l in tree_leaves(scene)])
+    target = fused_vec.render_vec_plain(scene, cfg)[0]
+    _close_leaves(fused_vec.loss_grad_vec_adjoint_eager(start, cfg, target)[1],
+                  fused_vec.loss_grad_vec(start, cfg, target)[1])
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    vis = fused_vec.render_vec(start, cfg)[1]
+    _close_leaves(fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g, vis),
+                  fused.autograd_vjp(render, start, cfg, g))
+
+
+@pytest.mark.cuda
+def test_vec_kernels_at_the_shared_memory_limit(cuda):
+    """Rows 6 and 5 at the most spheres a block's shared memory holds (read
+    from the card: at least the 1520 of the layout before the culls, with
+    the H100's 227 KB): row 6 against row 4's image (exactly 0), against
+    its eager twin (1e-2 of each leaf's scale), bit-identical twice; row 5
+    against its plain version; 16 spheres more are refused with the
+    numbers."""
+    n = fused_vec.most_spheres()
+    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448:
+        assert n >= 1520
+    scene, spec, _ = configs.config5_many_spheres(n_spheres=n, device=cuda)
+    cfg = RenderConfig(height=64, width=96, shadows=True)
+    _vec_zero_residual(scene, cfg)
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    target = fused_vec.render_vec_plain(scene, cfg)[0]
+    l_k, g_k = fused_vec.loss_grad_vec(start, cfg, target)
+    l_a, g_a = fused_vec.loss_grad_vec_adjoint_eager(start, cfg, target)
+    assert abs(float(l_k) - float(l_a)) <= 1e-4 * float(l_a)
+    _close_leaves(g_a, g_k)
+    assert torch.equal(fused.flatten_scene(g_k),
+                       fused.flatten_scene(fused_vec.loss_grad_vec(start, cfg, target)[1]))
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    got, ref = _bwd_call("vec", start, cfg, g)
+    _close_leaves(ref, got)
+    more, _, _ = configs.config5_many_spheres(n_spheres=n + 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+        fused_vec.loss_grad_vec(more, cfg, target)

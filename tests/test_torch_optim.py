@@ -18,6 +18,17 @@ from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
 from reversible_raytracer_tpu_torch.ops.render import render_eager
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_leaves(tree):
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
 

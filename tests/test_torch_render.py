@@ -20,6 +20,17 @@ from reversible_raytracer_tpu_torch.ops.kernels import fused
 from reversible_raytracer_tpu_torch.ops.render import render, render_eager, resolve_impl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _oracle_rule(img, ref, atol=2e-3):
     err = np.abs(np.asarray(img) - np.asarray(ref))
     frac_bad = float((err > atol).mean())

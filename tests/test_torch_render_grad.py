@@ -57,6 +57,17 @@ from reversible_raytracer_tpu_torch.ops.pipeline_vec import render_eager_vec
 from reversible_raytracer_tpu_torch.ops.render import render, render_eager
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _errors(ref, got):
     """Worst |got - ref| / scale(ref) per non-empty leaf."""
     out = {}

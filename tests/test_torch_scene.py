@@ -24,6 +24,18 @@ from reversible_raytracer_tpu_torch.ops.kernels.fused import (
     unflatten_scene,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CONFIGS = [1, 2, 3, 5]
 
 

@@ -54,6 +54,17 @@ from reversible_raytracer_tpu_torch.ops.render import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _edge_mask(*images, thresh=0.02, dilate=1):
     """Pixels whose neighborhood contains a discontinuity in ANY image (a
     copy of tests/test_fused_vec.py's)."""

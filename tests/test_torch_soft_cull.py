@@ -5,7 +5,7 @@ coverage x = disc / (tau r^2) lies below -SOFT_CULL, or whose sphere is not
 between the surface and the light: its factor 1 - sigmoid(x) is exactly 1,
 so the product keeps its bits, and its adjoint is under 2^-25 of its
 cotangent. A warp visits only the spheres that its conservative test
-(`fused_vec_soft.warp_candidates`) keeps. Held here:
+(`cull.warp_candidates`) keeps. Held here:
 
 - (a) over a dense grid of x in [-100, 0], in float32 and float64,
   x < -SOFT_CULL[dtype] gives 1 - sigmoid(x) == 1 exactly, for torch's
@@ -36,7 +36,7 @@ import torch
 
 from reversible_raytracer_tpu_torch.models import configs
 from reversible_raytracer_tpu_torch.models.scene import Spheres, leaf_paths, tree_leaves
-from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec_soft
+from reversible_raytracer_tpu_torch.ops.kernels import cull, fused, fused_vec_soft
 from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
 from reversible_raytracer_tpu_torch.ops.pipeline_vec import render_eager_vec, sphere_axis
 
@@ -96,7 +96,7 @@ def _uncovered(scene, cfg):
             so = tuple(x[None] for x in y.so)
             kept = fused_vec_soft.shadow_kept(c, r, so, tuple(x[None] for x in f.ldir),
                                               f.dist[None], tau) & y.hit[None]
-            cand = fused_vec_soft.warp_candidates(scene.spheres, y.so, y.hit,
+            cand = cull.warp_candidates(scene.spheres, y.so, y.hit,
                                                   scene.lights.position[li], tau)
             per_px = cand.repeat_interleave(32, dim=1)[:, :cfg.width].permute(2, 0, 1)
             missed += int((kept & ~per_px).sum())

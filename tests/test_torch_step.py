@@ -40,6 +40,17 @@ from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
 from reversible_raytracer_tpu_torch.ops.render import render_eager
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cmp_trees(ref_leaves, got_leaves, paths, rel):
     for path, a, b in zip(paths, ref_leaves, got_leaves):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

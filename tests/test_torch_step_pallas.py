@@ -6,6 +6,8 @@ leaf's scale."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from reversible_raytracer_tpu.models import configs as jconfigs
 from reversible_raytracer_tpu.ops.kernels.fused import loss_grad_pallas
@@ -16,6 +18,17 @@ from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves
 from reversible_raytracer_tpu_torch.ops.kernels import fused
 from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
 from reversible_raytracer_tpu_torch.ops.render import render_eager
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_plain_matches_pallas_step_interpret():

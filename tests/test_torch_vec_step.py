@@ -41,6 +41,18 @@ from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves,
 from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
 from reversible_raytracer_tpu_torch.ops.pipeline_vec import render_eager_vec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small tensors: the suite runs six test
+    processes at once, and torch's default of a thread per core slows this
+    file and the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIZE, N_SPHERES = 26, 25
 
 
