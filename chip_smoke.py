@@ -21,11 +21,15 @@ non-zero:
   4. step    - the fused step kernel against autograd and against the eager
                hand-written adjoint, config 2 at 512^2 from
                perturb(scale=0.1, seed=4): loss within 1e-4 relative, every
-               gradient leaf within 1e-2 of the leaf's scale.
+               gradient leaf within 1e-2 of the leaf's scale; three calls
+               bit-identical.
   5. main    - the port's CLI: invert --config 2 --size 512 --iters 50 on the
                card, with the launch counts read around it.
   6. times   - each kernel and its plain version at 512^2 with CUDA events
-               (median of 20 after warm-up), beside the kernel's bound.
+               (median of 20 after warm-up), beside the kernel's bound; and
+               each kernel's device time by launch and its launches per call
+               (torch.profiler's CUDA activity over 20 calls: `device`); the
+               step kernel must make one launch a call.
   7. fmad    - both kernels built as the port builds them (--fmad=false)
                and with nvcc's default FMA contraction, timed on the same
                inputs, and the contracted build's distance from the plain
@@ -85,8 +89,9 @@ non-zero:
                against its eager twin, every leaf within 1e-2 of its scale;
                the mse gradient of a differentiable `render` against the
                matching step kernel's (rows 1, 6, 9), by the same rule, and
-               bit-equal for rows 5 and 6 (one body, one grid); two
-               calls bit-identical; an expanded (stride-0) cotangent, from
+               bit-equal for rows 3 and 1 and rows 5 and 6 (one body, one
+               grid); three calls bit-identical; an expanded (stride-0)
+               cotangent, from
                `render(...).sum().backward()`, bit-identical to its
                contiguous copy.
  17. render_grad_main - 20 steps of optimize(render_fn=render) on each of the
@@ -98,9 +103,13 @@ non-zero:
                and backward together, and the matching step kernel at the
                three shapes (CUDA events, median of 20 after 3 warm-ups),
                beside the backward's bound (row 5's with the primary cull,
-               and without it as before).
+               and without it as before); the backward's device time by
+               launch and its launches per call, as in phase 6
+               (`bwd_device`; row 3 must make one launch a call).
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
-with its status as PERF.md's table of TPU kernels records it), and last
+with its status as PERF.md's table of TPU kernels records it; `ms` is the
+event time, and rows 1-3, 5 and 8 add `device_ms`, their kernels' device
+time per call, and `launches_per_call`), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -108,10 +117,11 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+from tools.kernel_timing import device_ms, time_ms
 
 REPO = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, non-tensor float32, at 700 W
@@ -258,7 +268,10 @@ def phase_step():
     scene, spec, cfg = configs.config2_four_spheres(size=512, device="cuda")
     start = configs.perturb(scene, spec, scale=0.1, seed=4)
     target = fused.render_fused_plain(scene, cfg)[0]
-    l_k, g_k = fused.loss_grad_fused(start, cfg, target)
+    runs = [fused.loss_grad_fused(start, cfg, target) for _ in range(3)]
+    l_k, g_k = runs[0]
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    deterministic = all(torch.equal(flat[0], f) for f in flat[1:])
     l_p, g_p = fused.loss_grad_fused_plain(start, cfg, target)
     l_a, g_a = fused.loss_grad_adjoint_eager(start, cfg, target)
     torch.cuda.synchronize()
@@ -270,9 +283,11 @@ def phase_step():
         report[name] = dict(loss_rel=rel, worst_leaf=worst, worst_err=errs[worst])
         if not (rel <= 1e-4 and errs[worst] <= 1e-2):
             raise AssertionError(f"step kernel disagrees with {name}: {report[name]}")
+    if not deterministic:
+        raise AssertionError("step kernel: three calls are not bit-identical")
     max_abs = max(float((a - b).abs().max())
                   for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
-    emit("step", ok=True, loss=float(l_k), **report)
+    emit("step", ok=True, loss=float(l_k), deterministic=deterministic, **report)
     return start, target, cfg, max_abs, g_p
 
 
@@ -552,24 +567,6 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def phase_times(step_inputs, launches, render_err, step_err):
     import torch
 
@@ -591,11 +588,15 @@ def phase_times(step_inputs, launches, render_err, step_err):
     w = 1.0 / (H * W * 3)
     saved = {k.name: k.launches for k in fused.KERNELS}
 
-    render_ms = time_ms(lambda: fused.FUSED_RENDER.call(
-        "rrt_render", flat.data_ptr(), *geom, img.data_ptr(), vis.data_ptr(), stream))
-    step_ms = time_ms(lambda: fused.FUSED_STEP.call(
+    render = lambda: fused.FUSED_RENDER.call(  # noqa: E731
+        "rrt_render", flat.data_ptr(), *geom, img.data_ptr(), vis.data_ptr(), stream)
+    step = lambda: fused.FUSED_STEP.call(  # noqa: E731
         "rrt_step", flat.data_ptr(), *geom, target.data_ptr(), w, scratch.data_ptr(),
-        out.data_ptr(), stream))
+        out.data_ptr(), stream)
+    render_ms, step_ms = time_ms(render), time_ms(step)
+    device = {"fused_render": device_ms(render), "fused_step": device_ms(step)}
+    if device["fused_step"]["launches"] != 1:  # one cooperative launch a call
+        raise AssertionError(f"row 1 did not make one launch a call: {device['fused_step']}")
     render_plain_ms = time_ms(lambda: fused.render_fused_plain(scene, cfg))
     step_plain_ms = time_ms(lambda: fused.loss_grad_fused_plain(scene, cfg, target))
     for k in fused.KERNELS:
@@ -609,15 +610,20 @@ def phase_times(step_inputs, launches, render_err, step_err):
              source="reversible_raytracer_tpu_torch/ops/kernels/csrc/fused_step.cu",
              replaces="reversible_raytracer_tpu/ops/kernels/fused.py:394",
              launches=launches["fused_step"], max_abs_err=step_err, ms=step_ms,
-             plain_ms=step_plain_ms, bound_ms=s_bound, bound_by=s_by, library_ms=None),
+             plain_ms=step_plain_ms, bound_ms=s_bound, bound_by=s_by, library_ms=None,
+             device_ms=device["fused_step"]["ms"],
+             launches_per_call=device["fused_step"]["launches"]),
         dict(name="fused_render", route="cuda",
              source="reversible_raytracer_tpu_torch/ops/kernels/csrc/fused_render.cu",
              replaces="reversible_raytracer_tpu/ops/kernels/fused.py:224",
              launches=launches["fused_render"], max_abs_err=render_err, ms=render_ms,
-             plain_ms=render_plain_ms, bound_ms=r_bound, bound_by=r_by, library_ms=None),
+             plain_ms=render_plain_ms, bound_ms=r_bound, bound_by=r_by, library_ms=None,
+             device_ms=device["fused_render"]["ms"],
+             launches_per_call=device["fused_render"]["launches"]),
     ]
     emit("times", ok=True, size=H, work=c, render_ops=render_ops(c), step_ops=step_ops(c),
-         step_rays_per_s=H * W / (step_ms * 1e-3))
+         step_rays_per_s=H * W / (step_ms * 1e-3), ms={"fused_render": render_ms,
+                                                       "fused_step": step_ms}, device=device)
     return kernels
 
 
@@ -1225,7 +1231,7 @@ def phase_render_grad():
         before = kernel.launches
         got = _bwd(start, cfg, g)
         one_launch = kernel.launches == before + 1
-        again = _bwd(start, cfg, g)
+        again = [_bwd(start, cfg, g) for _ in range(2)]
         plain = _bwd_plain(family)(start, cfg, g)
         leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
         ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
@@ -1240,8 +1246,8 @@ def phase_render_grad():
         ones = _bwd(start, cfg, torch.ones_like(g))
         torch.cuda.synchronize()
         row = dict(case=label, kernel=BWD_NAMES[family], one_launch=one_launch,
-                   deterministic=bool(torch.equal(fused.flatten_scene(got),
-                                                  fused.flatten_scene(again))),
+                   deterministic=all(torch.equal(fused.flatten_scene(got),
+                                                 fused.flatten_scene(a)) for a in again),
                    expanded_cotangent_same=bool(torch.equal(expanded, fused.flatten_scene(ones))),
                    mse_bit_equal=bool(torch.equal(fused.flatten_scene(by_render),
                                                   fused.flatten_scene(by_step))))
@@ -1262,7 +1268,7 @@ def phase_render_grad():
         if not (all(row[name]["worst_err"] <= 1e-2 for name, *_ in checks)
                 and row["one_launch"] and row["deterministic"]
                 and row["expanded_cotangent_same"]
-                and (row["mse_bit_equal"] or family != "vec")):
+                and (row["mse_bit_equal"] or family == "soft")):
             raise AssertionError(f"render backward kernel failed a check: {row}")
     emit("render_grad", ok=True, rows=rows)
     return max_abs
@@ -1424,7 +1430,7 @@ def phase_render_grad_times():
         plain = _bwd_plain(family)
         soft = family == "soft"
         rows[label] = dict(
-            bwd_ms=time_ms(bwd),
+            bwd_ms=time_ms(bwd), bwd_device=device_ms(bwd),
             plain_ms=time_ms(lambda: plain(start, cfg, g), reps=5 if soft else 10,
                              warmup=1 if soft else 3),
             fwd_bwd_ms=time_ms(lambda: (fwd(), bwd())), step_ms=time_ms(step), bound=b,
@@ -1432,6 +1438,9 @@ def phase_render_grad_times():
         rows[label]["rays_per_s"] = cfg.height * cfg.width / (rows[label]["bwd_ms"] * 1e-3)
     for k in _all_kernels():
         k.launches = saved[k.name]
+    if rows["config2_512"]["bwd_device"]["launches"] != 1:  # one cooperative launch a call
+        raise AssertionError(f"row 3 did not make one launch a call: "
+                             f"{rows['config2_512']['bwd_device']}")
     emit("render_grad_times", ok=True, rows=rows)
     return rows
 
@@ -1515,7 +1524,9 @@ def main() -> int:
             name=name, route="cuda", source=src + f"{name}.cu", replaces=BWD_REPLACES[family],
             launches=grad_launches[label][name], max_abs_err=grad_err[family],
             ms=gt[label]["bwd_ms"], plain_ms=gt[label]["plain_ms"],
-            bound_ms=gt[label]["bound"][0], bound_by=gt[label]["bound"][1], library_ms=None))
+            bound_ms=gt[label]["bound"][0], bound_by=gt[label]["bound"][1], library_ms=None,
+            device_ms=gt[label]["bwd_device"]["ms"],
+            launches_per_call=gt[label]["bwd_device"]["launches"]))
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

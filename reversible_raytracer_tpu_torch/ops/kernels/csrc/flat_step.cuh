@@ -1,29 +1,42 @@
-// The kernels of the fused step for a flat scene (at most 24 objects),
+// The kernel of the fused step for a flat scene (at most 24 objects),
 // shared by the training step (fused_step.cu, ResidualSource) and the
 // render backward (fused_render_bwd.cu, CotangentSource): one body, two
 // kernels, as the TPU's make_bwd_kernel builds its step and backward.
 //
-// 1. flat_step_kernel: one thread per pixel, 32 x 8 pixels per block, scene
-//    in shared memory. Each thread runs render_common.cuh's pixel_step: the
-//    forward, the image cotangent from its source, and the hand-written
-//    adjoint of the pixel. Each warp sums every gradient slot with shuffles
-//    (skipping objects no lane of the warp hit) into its row of shared
-//    memory; the block adds its 8 warp rows in order and writes one partial
-//    row of 1 + S + 10 floats.
-// 2. reduce_rows_kernel sums the partial rows, slot by slot, in a fixed
-//    order.
-// 3. flat_finalize_kernel copies [sq, grads] out and applies the
-//    camera_basis / normalize / tan(deg2rad) chain once.
+// One cooperative launch of flat_step_kernel per call, on a grid of as many
+// blocks of 32 x 8 threads as the card holds at once (step_blocks), each
+// walking the image's 32 x 8 tiles in a fixed stride with the scene staged
+// in shared memory once. Each thread runs render_common.cuh's pixel_step
+// for its pixel of the tile: the forward, the image cotangent from its
+// source, and the hand-written adjoint.
+//   - The slots that every pixel writes (sq, ambient, background, eye, the
+//     camera's 10 ray-form sums and each light's position and color) are
+//     summed by each lane across its tiles: the first 20 in registers, the
+//     lights' 6 L in shared memory, one column per thread. A warp reduces
+//     them with shuffles once, at the end.
+//   - The fields of the objects that some lane of the warp hit are reduced
+//     per tile, in one transposing shuffle tree per object (warp_sum_many:
+//     16 shuffles for a sphere's 14 fields, 31 for a rect's 19, where a
+//     tree per field took 70 and 95), and added to the warp's row.
+//   - The block adds its 8 warp rows in order and writes one partial row of
+//     1 + S + 10 floats (264 rows at 512^2 on 132 SMs, where one row per
+//     tile was 1024).
+//   - After a grid-wide sync, block 0 sums the partial rows in a fixed
+//     order, writes [sq, grads] and applies the camera_basis / normalize /
+//     tan(deg2rad) chain once.
 //
-// No atomics: for a given image size the result is bit-for-bit the same
-// from run to run on one card.
+// No atomics and no counter: nothing in the scratch is read before this
+// call writes it, and the grid follows from the card and the scene alone,
+// so for a given image size the result is bit-for-bit the same from call to
+// call on one card, and the render backward's gradient for the mse
+// cotangent is the step's, bit for bit (same body, same grid, same order).
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "render_common.cuh"
 
 namespace rrt {
-
-__host__ __device__ inline int row_len(const Layout& ly) { return 1 + ly.S + CAM_EXTRA; }
 
 // Flat index of field f of sphere k: center (3), radius, color (3),
 // color2 (3), ka, kd, ks, shininess.
@@ -52,107 +65,232 @@ __device__ __forceinline__ int rect_slot(const Layout& ly, int k, int f) {
   return ly.r_shin + k;
 }
 
+// One exchange round of warp_sum_many: lanes l and l ^ H swap halves of the
+// 2H values each holds, each keeping the half its lane bit H picks plus the
+// partner's copy of it; then the rounds of H / 2, ..., 1. The rounds are
+// templates so that every index is a constant and v stays in registers (a
+// loop over the rounds left it in local memory).
+template <int H, int V>
+__device__ __forceinline__ void exchange_rounds(float (&v)[V], int lane) {
+  const bool upper = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, H);
+  }
+  if constexpr (H > 1) exchange_rounds<H / 2>(v, lane);
+}
+
+// The warp's sums of V values a lane (V a power of two, at most 32): lane l
+// gets the sum over the 32 lanes of v[l % V]. The exchange rounds halve the
+// values a lane holds; then plain rounds sum across the groups of V lanes.
+// V - 1 + 5 - log2(V) shuffles, where a warp_sum per value takes 5 V; a fixed
+// order, so the same bits from call to call.
+template <int V>
+__device__ __forceinline__ float warp_sum_many(float (&v)[V], int lane) {
+  static_assert(V >= 2 && V <= 32 && (V & (V - 1)) == 0, "V is a power of two, 2 to 32");
+  exchange_rounds<V / 2>(v, lane);
+  float s = v[0];
+#pragma unroll
+  for (int o = V; o < 32; o *= 2) s += __shfl_xor_sync(FULL, s, o);
+  return s;
+}
+
+// Rows block 0 loads at once per thread when it sums the partial rows: one
+// load at a time waits out the L2's latency 33 times at 512^2 on 132 SMs.
+constexpr int SUM_LOADS = 16;
+
+// The shared memory of a block, in floats: block 0's row subsets (the
+// partial rows as float4 columns), the scene, the warp rows, the lanes'
+// light sums.
+struct FlatPlan {
+  int ROW, ROWP, SUB;
+  size_t smem;
+};
+
+inline FlatPlan flat_plan(const Layout& ly) {
+  FlatPlan f;
+  f.ROW = 1 + ly.S + CAM_EXTRA;  // [sq, scene grads (S), camera basis (10)]
+  f.ROWP = (f.ROW + 3) / 4 * 4;  // a partial row, padded to float4
+  const int cols = f.ROWP / 4;
+  f.SUB = cols >= BLOCK_THREADS ? 1 : BLOCK_THREADS / cols;
+  f.smem = (size_t)(f.SUB * f.ROWP + ly.S + NWARPS * f.ROW + 6 * ly.L * BLOCK_THREADS) *
+           sizeof(float);
+  return f;
+}
+
 template <class Src>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    flat_step_kernel(const float* __restrict__ flat, Params p, Layout ly, Src src,
-                     float* __restrict__ partials) {
-  extern __shared__ float smem[];
-  float* sc = smem;
-  const int ROW = row_len(ly);
-  float* wp = smem + ly.S;  // NWARPS rows of ROW slots
+__global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
+    flat_step_kernel(const float* __restrict__ flat, Params p, Layout ly, FlatPlan fp, Src src,
+                     float* __restrict__ partials, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* sub = (float*)smem4;          // block 0's SUB row subsets (ROWP each)
+  float* sc = sub + fp.SUB * fp.ROWP;  // the scene (S)
+  const int ROW = fp.ROW;
+  float* wp = sc + ly.S;               // NWARPS rows of ROW slots
+  float* lacc = wp + NWARPS * ROW;     // 6 L sums per thread, slot-major
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   stage(sc, flat, ly.S);
   for (int s = tid; s < NWARPS * ROW; s += BLOCK_THREADS) wp[s] = 0.0f;
+  for (int s = tid; s < 6 * ly.L * BLOCK_THREADS; s += BLOCK_THREADS) lacc[s] = 0.0f;
   __syncthreads();
   float* wrow = wp + warp * ROW;  // [sq, scene grads (S), camera basis (10)]
   float* gs = wrow + 1;
   float* gx = wrow + 1 + ly.S;
+  float* mine = lacc + tid;  // this lane's light sum q at mine[q * BLOCK_THREADS]
 
-  const int j = blockIdx.x * BLOCK_X + threadIdx.x;
-  const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
+  float a_sq = 0.0f, a_tan = 0.0f;
+  V3 a_amb = zero3(), a_bg = zero3(), a_eye = zero3(), a_dt = zero3(), a_dtx = zero3(),
+     a_dty = zero3();
   const FlatScene scene{sc, ly};
-  const PixelGrad g = pixel_step(
-      scene, p, i, j, i < p.H && j < p.W, src, FullWalk{},
-      [&](int l, V3 g_lpos, V3 g_lcol, bool warp_hit) {
-        if (warp_hit) {
-          put3(gs, ly.l_pos + 3 * l, g_lpos, lane);
-          put3(gs, ly.l_col + 3 * l, g_lcol, lane);
-        }
-      });
+  const dim3 tiles = pixel_grid(p.H, p.W);
+  for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
+    const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
+    const int i = (t / tiles.x) * BLOCK_Y + threadIdx.y;
+    const PixelGrad g = pixel_step(
+        scene, p, i, j, i < p.H && j < p.W, src, FullWalk{},
+        [&](int l, V3 g_lpos, V3 g_lcol, bool) {
+          float* q = mine + 6 * l * BLOCK_THREADS;
+          q[0] += g_lpos.x;
+          q[BLOCK_THREADS] += g_lpos.y;
+          q[2 * BLOCK_THREADS] += g_lpos.z;
+          q[3 * BLOCK_THREADS] += g_lcol.x;
+          q[4 * BLOCK_THREADS] += g_lcol.y;
+          q[5 * BLOCK_THREADS] += g_lcol.z;
+        });
+    a_sq += g.sq;
+    a_amb = a_amb + g.g_amb;
+    a_bg = a_bg + g.g_bg;
+    a_eye = a_eye + g.g_eye;
+    a_dt = a_dt + g.g_dt;
+    a_dtx = a_dtx + g.g_dt * g.sx;
+    a_dty = a_dty + g.g_dt * g.sy;
+    a_tan += g.g_tan;
 
-  // ---- warp sums into this warp's row, then the block's partial row
-  put(wrow, 0, g.sq, lane);
-  put3(gs, ly.ambient, g.g_amb, lane);
-  put3(gs, ly.background, g.g_bg, lane);
-  put3(gs, ly.c_eye, g.g_eye, lane);
-  put3(gx, 0, g.g_dt, lane);
-  put3(gx, 3, g.g_dt * g.sx, lane);
-  put3(gx, 6, g.g_dt * g.sy, lane);
-  put(gx, 9, g.g_tan, lane);
-  for (int k = 0; k < ly.N; ++k) {
-    if (!__any_sync(FULL, g.k == k)) continue;  // every lane agrees
-    const bool mine = g.k == k;
+    // ---- the fields of each object some lane hit, one tree per object,
+    // in the order of the lowest lane that hit it (each object's slots get
+    // one add per tile, so the order of objects does not touch the bits)
+    for (unsigned todo = __ballot_sync(FULL, g.k >= 0); todo;) {
+      const int k = __shfl_sync(FULL, g.k, __ffs(todo) - 1);
+      const bool hit_k = g.k == k;
+      todo &= ~__ballot_sync(FULL, hit_k);
+      if (k < ly.N) {
+        float v[16] = {};
 #pragma unroll
-    for (int f = 0; f < SPH_FIELDS; ++f) put(gs, sphere_slot(ly, k, f), mine ? g.obj[f] : 0.0f, lane);
+        for (int f = 0; f < SPH_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
+        const float s = warp_sum_many(v, lane);
+        if (lane < SPH_FIELDS) gs[sphere_slot(ly, k, lane)] += s;
+      } else {
+        float v[32] = {};
+#pragma unroll
+        for (int f = 0; f < RECT_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
+        const float s = warp_sum_many(v, lane);
+        if (lane < RECT_FIELDS) gs[rect_slot(ly, k - ly.N, lane)] += s;
+      }
+    }
   }
-  for (int k = 0; k < ly.M; ++k) {
-    if (!__any_sync(FULL, g.k == ly.N + k)) continue;
-    const bool mine = g.k == ly.N + k;
+
+  // ---- the lanes' sums, once per warp, then the block's partial row
+  add(wrow, 0, a_sq, lane);
+  add3(gs, ly.ambient, a_amb, lane);
+  add3(gs, ly.background, a_bg, lane);
+  add3(gs, ly.c_eye, a_eye, lane);
+  add3(gx, 0, a_dt, lane);
+  add3(gx, 3, a_dtx, lane);
+  add3(gx, 6, a_dty, lane);
+  add(gx, 9, a_tan, lane);
+  for (int l = 0; l < ly.L; ++l)
+    for (int c = 0; c < 6; ++c)
+      add(gs, (c < 3 ? ly.l_pos : ly.l_col) + 3 * l + c % 3, mine[(6 * l + c) * BLOCK_THREADS],
+          lane);
+  __syncthreads();
+  float* prow = partials + (long long)blockIdx.x * fp.ROWP;
+  for (int s = tid; s < fp.ROWP; s += BLOCK_THREADS) {
+    float acc = 0.0f;
+    for (int v = 0; v < NWARPS && s < ROW; ++v) acc += wp[v * ROW + s];
+    prow[s] = acc;  // the pad slots 0
+  }
+
+  // ---- block 0: the partial rows' sum, in a fixed order: thread it of
+  // column c (4 slots) and subset y adds rows y, y + SUB, ...; then the
+  // subsets in order
+  cooperative_groups::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  const int cols = fp.ROWP / 4, nb = gridDim.x;
+  const float4* rows4 = (const float4*)partials;
+  for (int it = tid; it < cols * fp.SUB; it += BLOCK_THREADS) {
+    const int c = it % cols, y = it / cols;
+    float4 a = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int b = y; b < nb; b += SUM_LOADS * fp.SUB) {
+      float4 r[SUM_LOADS];  // loads in flight together, then added in row order
 #pragma unroll
-    for (int f = 0; f < RECT_FIELDS; ++f) put(gs, rect_slot(ly, k, f), mine ? g.obj[f] : 0.0f, lane);
+      for (int u = 0; u < SUM_LOADS; ++u) {
+        const int bu = b + u * fp.SUB;
+        r[u] = bu < nb ? __ldcg(rows4 + (long long)bu * cols + c) : float4{0.0f, 0.0f, 0.0f, 0.0f};
+      }
+#pragma unroll
+      for (int u = 0; u < SUM_LOADS; ++u) {
+        a.x += r[u].x;
+        a.y += r[u].y;
+        a.z += r[u].z;
+        a.w += r[u].w;
+      }
+    }
+    smem4[y * cols + c] = a;
   }
   __syncthreads();
-  float* prow = partials + (long long)(blockIdx.y * gridDim.x + blockIdx.x) * ROW;
+  float* rowsum = wp;
   for (int s = tid; s < ROW; s += BLOCK_THREADS) {
     float acc = 0.0f;
-    for (int v = 0; v < NWARPS; ++v) acc += wp[v * ROW + s];
-    prow[s] = acc;
+    for (int y = 0; y < fp.SUB; ++y) acc += sub[y * fp.ROWP + s];
+    rowsum[s] = acc;
+    if (s < 1 + ly.S) out[s] = acc;
   }
-}
-
-// out = [sq, grads]; then the camera chain, once.
-__global__ void flat_finalize_kernel(const float* __restrict__ rowsum,
-                                     const float* __restrict__ flat, Layout ly,
-                                     float* __restrict__ out) {
-  for (int s = threadIdx.x; s < 1 + ly.S; s += blockDim.x) out[s] = rowsum[s];
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  camera_chain(rowsum + 1 + ly.S, ld3(flat + ly.c_eye), ld3(flat + ly.c_look),
-               ld3(flat + ly.c_up), flat[ly.c_fov], out + 1, ly.c_eye, ly.c_look, ly.c_up,
-               ly.c_fov);
+  if (tid == 0)
+    camera_chain(rowsum + 1 + ly.S, ld3(sc + ly.c_eye), ld3(sc + ly.c_look), ld3(sc + ly.c_up),
+                 sc[ly.c_fov], out + 1, ly.c_eye, ly.c_look, ly.c_up, ly.c_fov);
 }
 
-
+// Floats of scratch a call needs (the partial rows); -1 if the card cannot
+// be queried.
 inline long long flat_step_scratch_floats(int n_sph, int n_rect, int n_light, int H, int W) {
-  const dim3 grid = pixel_grid(H, W);
-  return ((long long)grid.x * grid.y + 1) * row_len(make_layout(n_sph, n_rect, n_light));
+  const FlatPlan fp = flat_plan(make_layout(n_sph, n_rect, n_light));
+  const int nblocks = step_blocks(fp.smem, H, W);
+  return nblocks > 0 ? (long long)nblocks * fp.ROWP : -1;
 }
 
-// The three launches on one stream; out = [sq, grads (S)].
+// The one cooperative launch on the caller's stream; out = [sq, grads (S)].
 template <class Src>
 int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
                      int shadows, int clip, Src src, float* scratch, float* out,
                      void* stream) {
-  const Layout ly = make_layout(n_sph, n_rect, n_light);
-  const Params p = make_params(H, W, shadows, clip);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid = pixel_grid(H, W);
-  const int nrows = grid.x * grid.y;
-  const int ROW = row_len(ly);
-  float* partials = scratch;
-  float* rowsum = scratch + (long long)nrows * ROW;
-  const size_t smem = (size_t)(ly.S + NWARPS * ROW) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // > 24 objects; refused in Python
-
-  flat_step_kernel<Src><<<grid, dim3(BLOCK_X, BLOCK_Y), smem, st>>>(flat, p, ly, src, partials);
-  cudaError_t err = cudaGetLastError();
+  Layout ly = make_layout(n_sph, n_rect, n_light);
+  Params p = make_params(H, W, shadows, clip);
+  FlatPlan fp = flat_plan(ly);
+  const int nblocks = step_blocks(fp.smem, H, W);
+  if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<8><<<(ROW + 31) / 32, dim3(32, 8), 0, st>>>(partials, nrows, ROW, rowsum);
-  err = cudaGetLastError();
+  // At most 24 objects and 16 lights (more are refused in Python) take
+  // 124,304 bytes.
+  if (fp.smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if (fp.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(flat_step_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)fp.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  void* args[] = {&flat, &p, &ly, &fp, &src, &scratch, &out};
+  err = cudaLaunchCooperativeKernel((const void*)flat_step_kernel<Src>, dim3(nblocks),
+                                    dim3(BLOCK_X, BLOCK_Y), args, fp.smem,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  flat_finalize_kernel<<<1, 256, 0, st>>>(rowsum, flat, ly, out);
   return (int)cudaGetLastError();
 }
 

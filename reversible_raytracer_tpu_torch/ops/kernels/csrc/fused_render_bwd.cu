@@ -1,6 +1,7 @@
 // Render backward kernel for scenes of at most 24 objects: the gradient of
 // every scalar of the flat scene for a cotangent (gr, gg, gb) of the
-// rendered image, in one call (three launches on one stream).
+// rendered image, in one call (one cooperative launch on the caller's
+// stream).
 //
 // Replaces the TPU kernel _make_fused.bwd_kernel
 // (reversible_raytracer_tpu/ops/kernels/fused.py:252, pallas_call at
@@ -9,15 +10,15 @@
 // planes under jax.vjp and adds each tile's d flat into one output row
 // across the in-order TPU grid.
 //
-// Design: the fused training step's kernels (flat_step.cuh) with
+// Design: the fused training step's kernel (flat_step.cuh) with
 // CotangentSource in place of the residual. Each thread replays its
 // pixel's forward, reading light l's visibility from the forward's plane
 // vis[l, i, j] where its ray hit instead of casting a shadow ray, takes
 // the caller's cotangent of the clipped image (zero past the ragged edge)
 // through the clip's gradient, and runs the step's hand-written adjoint;
-// warp shuffles, one partial row per block and a fixed-order second pass
-// reduce it, and the camera chain runs once. No atomics: bit-for-bit the
-// same from call to call. For an mse cotangent 2 (img - target) / n the
+// the step's lane, warp and block sums and block 0's fixed-order sum of
+// the partial rows reduce it, and the camera chain runs once. No atomics:
+// bit-for-bit the same from call to call. For an mse cotangent 2 (img - target) / n the
 // result is the step's gradient, up to how the cotangent was rounded.
 //
 // Bound: operations: the step's per-pixel work without the shadow rays'

@@ -1,6 +1,6 @@
 // Fused training-step kernel: the squared-error loss of the render against
 // a target, and its gradient with respect to every scalar of the flat
-// scene, in one call (three launches on one stream).
+// scene, in one call (one cooperative launch on the caller's stream).
 //
 // Replaces the TPU kernel _make_loss_grad.kernel
 // (reversible_raytracer_tpu/ops/kernels/fused.py:394, pallas_call at :436),
@@ -17,16 +17,21 @@
 // then the camera. The camera part is accumulated as the cotangents of the
 // per-pixel linear form dt = fwd + right sx + up sy (g_fwd, g_right, g_up
 // and g_tan of tan(fov/2)): 10 scalars instead of pulling 10 camera leaves
-// through camera_basis in every pixel. Warp shuffles, one partial row per
-// block and a fixed-order second pass reduce them: no atomics, bit-for-bit
-// the same from run to run. The kernels live in flat_step.cuh, shared with
-// the render backward (fused_render_bwd.cu); the per-pixel forward and
-// adjoint (pixel_step) and the camera chain in render_common.cuh, shared
-// with the object-chunked kernels.
+// through camera_basis in every pixel. Each lane sums what every pixel
+// writes across its tiles, each warp the winners' fields per tile, each
+// block its warps into one partial row, and after a grid-wide sync block 0
+// sums the rows in a fixed order and runs the camera chain: no atomics,
+// bit-for-bit the same from run to run. The kernel lives in flat_step.cuh,
+// shared with the render backward (fused_render_bwd.cu); the per-pixel
+// forward and adjoint (pixel_step) and the camera chain in
+// render_common.cuh, shared with the object-chunked kernels.
 //
 // Bound: operations. Per pixel the forward and its adjoint are a few
 // hundred to a few thousand float operations (the shadow rays test every
 // object), against 12 bytes of target read. chip_smoke.py counts them.
+// The kernel takes some 20x that (PERF.md): IEEE divisions, square roots,
+// exp and log cost many instructions each, and the per-pixel adjoint
+// (tools/flat_step_split.py) is most of its time.
 #include "flat_step.cuh"
 
 using namespace rrt;

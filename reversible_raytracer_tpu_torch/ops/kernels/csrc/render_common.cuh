@@ -40,6 +40,8 @@ constexpr int BLOCK_X = 32;  // one warp along a row: coalesced pixel access
 constexpr int BLOCK_Y = 8;
 constexpr int BLOCK_THREADS = BLOCK_X * BLOCK_Y;
 constexpr int NWARPS = BLOCK_THREADS / 32;
+// Blocks per SM of the flat and vec steps: ptxas keeps a thread in 128 registers.
+constexpr int STEP_BLOCKS_PER_SM = 2;
 constexpr int CAM_EXTRA = 10;  // g_fwd (3), g_right (3), g_up (3), g_tan
 constexpr int SPH_FIELDS = 14;  // center (3), radius, color (3), color2 (3), ka, kd, ks, shin
 constexpr int RECT_FIELDS = 19;  // origin, edge_u, edge_v, color, color2 (3 each), ka, kd, ks, shin
@@ -906,6 +908,25 @@ inline size_t render_smem(int ns_pad, int nr_pad, int n_light) {
 
 __host__ __device__ inline dim3 pixel_grid(int H, int W) {
   return dim3((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y);
+}
+
+// The grid of the flat and vec steps: the blocks of smem bytes that the
+// current card holds at once (its SM count times STEP_BLOCKS_PER_SM, fewer
+// where shared memory allows fewer), never more than the image has tiles;
+// 0 if the card cannot be queried.
+inline int step_blocks(size_t smem, int H, int W) {
+  int dev = 0, sms = 0, smem_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
+          cudaSuccess)
+    return 0;
+  const long long by_smem = smem_sm / ((long long)smem + 1024);  // 1 KB reserved a block
+  const int per_sm = by_smem < 1 ? 1 : by_smem < STEP_BLOCKS_PER_SM ? (int)by_smem
+                                                                     : STEP_BLOCKS_PER_SM;
+  const dim3 tiles = pixel_grid(H, W);
+  const long long n = (long long)tiles.x * tiles.y;
+  return (int)(n < (long long)sms * per_sm ? n : (long long)sms * per_sm);
 }
 
 }  // namespace rrt

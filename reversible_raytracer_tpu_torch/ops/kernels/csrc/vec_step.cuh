@@ -55,9 +55,6 @@
 
 namespace rrt {
 
-// Two blocks per SM: ptxas keeps a thread in 128 registers.
-constexpr int STEP_BLOCKS_PER_SM = 2;
-
 struct StepPlan {
   int Sg, GROW, OROW, ROW, NWP;
   size_t smem;
@@ -75,24 +72,6 @@ inline StepPlan step_plan(int ns_pad, int nr_pad, int n_light) {
   s.smem = (size_t)(s.Sg + s.OROW + NWARPS * s.GROW + s.OROW) * sizeof(float) +
            (size_t)NWARPS * (1 + n_light) * s.NWP * sizeof(unsigned);
   return s;
-}
-
-// The step's grid: the blocks that the current card holds at once (its SM
-// count times STEP_BLOCKS_PER_SM, fewer where shared memory allows fewer),
-// never more than the image has tiles; 0 if the card cannot be queried.
-inline int step_blocks(const StepPlan& plan, int H, int W) {
-  int dev = 0, sms = 0, smem_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
-          cudaSuccess)
-    return 0;
-  const long long by_smem = smem_sm / ((long long)plan.smem + 1024);  // 1 KB reserved a block
-  const int per_sm = by_smem < 1 ? 1 : by_smem < STEP_BLOCKS_PER_SM ? (int)by_smem
-                                                                     : STEP_BLOCKS_PER_SM;
-  const dim3 tiles = pixel_grid(H, W);
-  const long long n = (long long)tiles.x * tiles.y;
-  return (int)(n < (long long)sms * per_sm ? n : (long long)sms * per_sm);
 }
 
 // vec_step's walk (see the notes at the top): the spheres culled per warp,
@@ -246,7 +225,7 @@ constexpr int VEC_REDUCE_RY = 32;  // row subsets per slot in the reduction
 // the card cannot be queried.
 inline long long vec_step_scratch_floats(int ns_pad, int nr_pad, int n_light, int H, int W) {
   const StepPlan plan = step_plan(ns_pad, nr_pad, n_light);
-  const int nblocks = step_blocks(plan, H, W);
+  const int nblocks = step_blocks(plan.smem, H, W);
   return nblocks > 0 ? ((long long)nblocks + 1) * plan.ROW : -1;
 }
 
@@ -259,7 +238,7 @@ int launch_vec_step(const float* glob, const float* sph, const float* rct, int n
   const Params p = make_params(H, W, shadows, clip);
   const StepPlan plan = step_plan(ns_pad, nr_pad, n_light);
   const cudaStream_t st = (cudaStream_t)stream;
-  const int nblocks = step_blocks(plan, H, W);
+  const int nblocks = step_blocks(plan.smem, H, W);
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
   float* partials = scratch;
   float* rowsum = scratch + (long long)nblocks * plan.ROW;

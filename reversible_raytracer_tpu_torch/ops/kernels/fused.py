@@ -180,6 +180,15 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _scratch(kernel: Kernel, entry: str, dims, dev):
+    """The partial rows a step or backward call writes, sized for this
+    card's grid (``dims``: the entry's scene counts and image size)."""
+    n = getattr(kernel.lib(), entry)(*dims)
+    if n <= 0:
+        raise RuntimeError(f"{kernel.name}: the card's SM count could not be read")
+    return torch.empty((n,), device=dev)
+
+
 # ---------------------------------------------------------------------------
 # Forward render kernel
 # ---------------------------------------------------------------------------
@@ -256,8 +265,7 @@ def _render_bwd_launch(scene_like, cfg, flat, g_img, vis):
     dev = flat.device
     g_img = cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
-    scratch = torch.empty((FUSED_RENDER_BWD.lib().rrt_render_bwd_scratch_floats(*geom[:5]),),
-                          device=dev)
+    scratch = _scratch(FUSED_RENDER_BWD, "rrt_render_bwd_scratch_floats", geom[:5], dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
     FUSED_RENDER_BWD.call("rrt_render_bwd", flat.data_ptr(), *geom, g_img.data_ptr(),
                           vis.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(dev))
@@ -312,8 +320,7 @@ def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
     flat = _cuda_flat(scene, cfg)
     target = target.contiguous()
     geom = _geometry(scene, cfg)
-    n_scratch = FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5])
-    scratch = torch.empty((n_scratch,), device=dev)
+    scratch = _scratch(FUSED_STEP, "rrt_step_scratch_floats", geom[:5], dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
     FUSED_STEP.call("rrt_step", flat.data_ptr(), *geom, target.data_ptr(),
                     norm, scratch.data_ptr(), out.data_ptr(), _stream(dev))

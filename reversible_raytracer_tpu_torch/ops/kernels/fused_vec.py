@@ -235,15 +235,6 @@ def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
     return most_rows(VEC_STEP.lib().rrt_vec_step_smem, n_rect, n_light)
 
 
-def _scratch(kernel: Kernel, entry: str, geom, dev):
-    """The partial rows a step or backward call writes, sized for this
-    card's grid."""
-    n = getattr(kernel.lib(), entry)(*geom[2:7])
-    if n <= 0:
-        raise RuntimeError(f"{kernel.name}: the card's SM count could not be read")
-    return torch.empty((n,), device=dev)
-
-
 def check_smem(kernel: Kernel, entry: str, scene) -> None:
     """Refuse, with the numbers, a scene whose rows do not fit the shared
     memory a block of this card can have."""
@@ -351,7 +342,8 @@ def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img, vis):
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
-    scratch = _scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_scratch_floats", geom, dev)
+    scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_scratch_floats", geom[2:7],
+                             dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     VEC_RENDER_BWD.call("rrt_vec_render_bwd", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
                         *geom, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
@@ -394,7 +386,7 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
     check_smem(VEC_STEP, "rrt_vec_step_smem", scene)
     target = target.contiguous()
     geom = _geometry(scene, cfg)
-    scratch = _scratch(VEC_STEP, "rrt_vec_step_scratch_floats", geom, dev)
+    scratch = fused._scratch(VEC_STEP, "rrt_vec_step_scratch_floats", geom[2:7], dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     VEC_STEP.call("rrt_vec_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
                   target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),

@@ -546,3 +546,140 @@ def test_vec_kernels_at_the_shared_memory_limit(cuda):
     more, _, _ = configs.config5_many_spheres(n_spheres=n + 16, device=cuda)
     with pytest.raises(NotImplementedError, match="bytes of shared memory"):
         fused_vec.loss_grad_vec(more, cfg, target)
+
+
+# ---------------------------------------------------------------------------
+# Rows 1 and 3 on one cooperative launch (csrc/flat_step.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _seeded(cfg, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+
+
+def _flat_rows_hold(start, target, cfg, loss="mse", g_seed=0):
+    """Row 1 against the eager adjoint and autograd (loss within 1e-4
+    relative, every leaf within 1e-2 of its scale), one launch a call, the
+    same bits over 3 calls; row 3 for a seeded cotangent against its plain
+    version, one launch, the same bits twice; returns row 1's gradient."""
+    before = fused.FUSED_STEP.launches
+    runs = [fused.loss_grad_fused(start, cfg, target, loss) for _ in range(3)]
+    assert fused.FUSED_STEP.launches == before + 3
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    assert all(torch.equal(flat[0], f) for f in flat[1:])
+    l_k, g_k = runs[0]
+    for ref in (fused.loss_grad_adjoint_eager, fused.loss_grad_fused_plain):
+        l_r, g_r = ref(start, cfg, target, loss)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    g = _seeded(cfg, g_seed, start.device)
+    before = fused.FUSED_RENDER_BWD.launches
+    got, ref = _bwd_call("fused", start, cfg, g)
+    again = _bwd_call("fused", start, cfg, g)[0]
+    assert fused.FUSED_RENDER_BWD.launches == before + 2
+    _close_leaves(ref, got)
+    assert torch.equal(fused.flatten_scene(got), fused.flatten_scene(again))
+    return g_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W", [(24, 40), (200, 333)])
+def test_flat_kernels_at_the_grid_edges(cuda, H, W):
+    """24x40 has 6 tiles, fewer than the grid's blocks on any card; at
+    200x333 the last warp of each row has 13 live lanes and the last tile row
+    0 of 8 dead rows. Rows 1 and 3 against their references, and row 3's mse
+    gradient, by autograd of `render`, row 1's to the bit."""
+    scene, spec, _ = configs.config2_four_spheres(device=cuda)
+    cfg = RenderConfig(height=H, width=W, shadows=True)
+    start = configs.perturb(scene, spec, scale=0.1, seed=4)
+    target = fused.render_fused_plain(scene, cfg)[0]
+    g_k = _flat_rows_hold(start, target, cfg)
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([(torch.zeros_like(l) if l.grad is None else l.grad).reshape(-1)
+                           for l in leaves])
+    assert torch.equal(by_render, fused.flatten_scene(g_k))
+
+
+def _crowded(scene, n_lights):
+    """Config 3 (3 spheres, the ground) with 20 more spheres of radius 0.12
+    in a 5x4 grid before it, so 24 objects, and ``n_lights`` lights on a
+    ring above (2: config 3's own), every leaf moved off the true scene by
+    0.01 sin(index)."""
+    centres = [torch.tensor([-1.6 + 0.8 * c, -0.5 + 0.6 * r, 1.4], device=scene.ambient.device)
+               for r in range(4) for c in range(5)]
+    scene = _with_spheres(scene, centres, [0.12] * len(centres))
+    if n_lights != scene.lights.count:
+        a = torch.arange(n_lights, device=scene.ambient.device) * (2 * math.pi / n_lights)
+        pos = torch.stack([4.0 * torch.cos(a), 4.0 + 0.1 * a, 4.0 * torch.sin(a)], dim=-1)
+        scene = dataclasses.replace(scene, lights=type(scene.lights)(
+            position=pos, color=torch.full((n_lights, 3), 0.9 / n_lights, device=pos.device)))
+    start = tree_unflatten(scene, [l + 0.01 * torch.sin(torch.arange(l.numel(), device=l.device)
+                                                        ).reshape(l.shape)
+                                   if l.is_floating_point() else l
+                                   for l in tree_leaves(scene)])
+    return scene, start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lights", [2, fused.MAX_LIGHTS])
+def test_flat_kernels_at_the_most_objects(cuda, n_lights):
+    """The largest flat scene the dispatch sends, 24 objects, with 2 lights
+    and with the 16 that take the most shared memory (the lanes' light
+    sums, past the 48 KB a block gets without opting in): rows 1 and 3
+    against their references; 25 objects and 17 lights are refused."""
+    scene, _, _ = configs.config3_multi_light(device=cuda)
+    scene, start = _crowded(scene, n_lights)
+    assert scene.spheres.count + scene.rects.count == fused.MAX_OBJECTS
+    cfg = RenderConfig(height=72, width=104, shadows=True)
+    target = fused.render_fused_plain(scene, cfg)[0]
+    _flat_rows_hold(start, target, cfg, g_seed=1)
+    more = _with_spheres(scene, [scene.spheres.center[0] * 0.5], [0.1])
+    with pytest.raises(NotImplementedError, match="more than 24 objects"):
+        fused.loss_grad_fused(more, cfg, target)
+    many = dataclasses.replace(scene, lights=type(scene.lights)(
+        position=scene.lights.position[:1].expand(fused.MAX_LIGHTS + 1, 3),
+        color=scene.lights.color[:1].expand(fused.MAX_LIGHTS + 1, 3)))
+    with pytest.raises(NotImplementedError, match="more than 16 lights"):
+        fused.loss_grad_fused(many, cfg, target)
+
+
+@pytest.mark.cuda
+def test_flat_kernels_without_shadows_clip_or_mse(cuda):
+    """shadows=False (no shadow rays, no planes), clip=False (the clip's
+    gradient skipped) and loss 'sum': rows 1 and 3 against their
+    references."""
+    scene, spec, _ = configs.config3_multi_light(device=cuda)
+    cfg = RenderConfig(height=64, width=96, shadows=False, clip=False)
+    start = configs.perturb(scene, spec, scale=0.1, seed=2)
+    target = fused.render_fused_plain(scene, cfg)[0]
+    _flat_rows_hold(start, target, cfg, loss="sum", g_seed=2)
+
+
+@pytest.mark.cuda
+def test_flat_kernels_leave_no_state_in_their_scratch(cuda):
+    """Two scenes stepped back to back through one scratch buffer, then the
+    first again: the same bits as with a buffer of its own (the grid sync
+    keeps nothing between calls, and no slot is read before it is
+    written)."""
+    scene, spec, _ = configs.config2_four_spheres(device=cuda)
+    cfg = RenderConfig(height=120, width=200, shadows=True)
+    target = fused.render_fused_plain(scene, cfg)[0]
+    flat_a = fused._cuda_flat(configs.perturb(scene, spec, scale=0.1, seed=0), cfg)
+    flat_b = fused._cuda_flat(configs.perturb(scene, spec, scale=0.1, seed=1), cfg)
+    geom = fused._geometry(scene, cfg)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def step(flat, scratch):
+        out = torch.empty((1 + flat.numel(),), device=cuda)
+        fused.FUSED_STEP.call("rrt_step", flat.data_ptr(), *geom, target.data_ptr(),
+                              1.0 / target.numel(), scratch.data_ptr(), out.data_ptr(), stream)
+        return out
+
+    n = fused.FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5])
+    shared = torch.full((n,), float("nan"), device=cuda)
+    first, other, again = step(flat_a, shared), step(flat_b, shared), step(flat_a, shared)
+    alone = step(flat_a, torch.full((n,), 7.0, device=cuda))
+    assert torch.equal(first, again) and torch.equal(first, alone)
+    assert not torch.equal(first, other)

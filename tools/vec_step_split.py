@@ -46,6 +46,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from kernel_timing import time_ms
+
 HERE = Path(__file__).resolve().parent.parent
 
 # Device pointers the cut variants read: the winner plane and the
@@ -149,23 +151,6 @@ CUTS_CULLED = {
 }
 
 
-def time_ms(fn, reps=20, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def make_variant(csrc: Path, root: Path, subs, source: str) -> Path:
     """A copy of ``csrc`` under ``root`` with the substitutions applied and
     the setter appended to ``source``; returns that source."""
@@ -181,6 +166,35 @@ def make_variant(csrc: Path, root: Path, subs, source: str) -> Path:
     path = root / source
     path.write_text(path.read_text() + SETTER)
     return path
+
+
+def build_variants(_build, cuts, kernel, kernel_fn):
+    """Build every variant of ``cuts`` for ``kernel`` (one nvcc process each,
+    all started together) under the tree's build directory and load them;
+    returns ``(libs, ptxas)``, ptxas's lines on ``kernel_fn`` and registers
+    for each."""
+    build = _build.BUILD_DIR / "split"
+    procs = {}
+    for name, subs in cuts.items():
+        src = make_variant(_build.CSRC, build / name, subs, kernel.source.name)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(build / f"lib{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, ptxas = {}, {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if kernel_fn in ln or "registers" in ln or "spill" in ln]
+        lib = ctypes.CDLL(str(build / f"lib{name}.so"))
+        for fn, (argtypes, restype) in kernel.signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        lib.rrt_split_set.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.rrt_split_set.restype = ctypes.c_int
+        libs[name] = lib
+    return libs, ptxas
 
 
 def main() -> int:
@@ -202,34 +216,13 @@ def main() -> int:
     from reversible_raytracer_tpu_torch.ops.kernels import _build, fused_vec
     from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
 
-    csrc = _build.CSRC
-    culled = (csrc / "cull.cuh").exists()
+    culled = (_build.CSRC / "cull.cuh").exists()
     cuts = CUTS_CULLED if culled else CUTS_PARENT
     step = args.kernel == "step"
     kernel = fused_vec.VEC_STEP if step else fused_vec.VEC_RENDER_BWD
     if not step:
         cuts = {name: subs for name, subs in cuts.items() if name != "shadow_lit"}
-    build = _build.BUILD_DIR / "split"
-    procs = {}
-    for name, subs in cuts.items():
-        src = make_variant(csrc, build / name, subs, kernel.source.name)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(build / f"lib{name}.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, ptxas = {}, {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "vec_step_kernel" in ln or "registers" in ln]
-        lib = ctypes.CDLL(str(build / f"lib{name}.so"))
-        for fn, (argtypes, restype) in kernel.signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        lib.rrt_split_set.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.rrt_split_set.restype = ctypes.c_int
-        libs[name] = lib
+    libs, ptxas = build_variants(_build, cuts, kernel, "vec_step_kernel")
     print(json.dumps({"split": "build", "kernel": kernel.name,
                       "cuts": "culled" if culled else "parent",
                       "ptxas": ptxas}), flush=True)
