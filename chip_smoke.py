@@ -37,8 +37,11 @@ non-zero:
   8. vec_render - the object-chunked forward kernel against its plain
                version (render_vec_plain) by the same rules as phase 3, on
                config 5 (64 spheres + ground) at 1024^2 and on bench.py's
-               513-object shape (512 spheres + ground) at 512^2; whether the
-               images are bit-identical.
+               513-object shape (512 spheres + ground) at 512^2; the image
+               and the planes on hit pixels must be bit-identical
+               (`bit_identical`: the per-warp culls keep the full walks'
+               bits) and the planes 0 where the ray hits nothing; the culls'
+               counters (`cull`, as phase 11 prints them).
   9. vec_step - the object-chunked step kernel against autograd
                (loss_grad_vec_plain) and the eager adjoint at both shapes,
                from perturb(scale=0.05, seed=4): loss within 1e-4 relative,
@@ -47,19 +50,25 @@ non-zero:
                scene (the true one, and perturb seeds 0-2) a loss of exactly
                0 and every gradient exactly 0 (the step's culled walks give
                the forward's full walks' bits); the most spheres a block of
-               this card takes with config 5's rect and light.
+               this card takes with config 5's rect and light, in rows 5-6
+               and in row 4 (at least 1520 and 3392, what they took before
+               the culls, on a card with the H100's 227 KB a block).
  10. vec_main - the port's CLI: invert --config 5 --size 1024 --iters 20 on
                the card, with the launch counts read around it.
  11. vec_times - both vec kernels and their plain versions at the two shapes
                of phase 8 (CUDA events, median of 20 after warm-up), beside
-               their bounds (the step's with the per-warp culls, and without
-               them as before); the culls' counters: candidate visits per
-               warp walk, and the (pixel, sphere) pairs they keep against all
-               pairs, for the primary and the shadow rays.
+               their bounds (with the per-warp culls, and without them as
+               before: `render_bound_uncull`, `step_bound_uncull`) and row
+               4's device time by launch (`render_device`); the culls'
+               counters: candidate visits per warp walk, and the (pixel,
+               sphere) pairs they keep against all pairs, for the primary
+               and the shadow rays.
  12. soft_render - the soft forward kernel (soft_tau > 0) against its plain
                version (render_vec_soft_plain) by the rule of phase 3, on
                config 5 at 512^2 and 1024^2 at tau 0.08 and 0.01 and on the
-               513-object shape at 512^2 (tau 0.08), with shadows.
+               513-object shape at 512^2 (tau 0.08), with shadows; whether
+               the images are bit-identical, and the culls' counters
+               (`cull`: the ranking's widened cone, the shadow candidates).
  13. soft_step - the soft step kernel against autograd of the plain version
                and against the eager adjoint at the shapes of phase 12, from
                perturb(scale=0.05, seed=4): loss within 1e-4 relative, every
@@ -68,7 +77,7 @@ non-zero:
                a loss of exactly 0 and every gradient exactly 0 (the step's
                culled forward is the forward kernel's, bit for bit); the
                most spheres a block of this card takes with config 5's rect
-               and light.
+               and light in rows 8-9 and in row 7 (at least 3392).
  14. anneal_main - the port's CLI: invert --config 5 --size 1024 --anneal
                0.08,0.03,0.01,0 --anneal-size 512 --lr 2e-3 --perturb 0.03
                --iters 20 on the card, with the launch counts read around it:
@@ -79,9 +88,10 @@ non-zero:
  15. soft_times - both soft kernels and their plain versions at config 5
                (512^2 and 1024^2, tau 0.08) and at 513 objects (512^2), with
                CUDA events (median of 20 after warm-up), beside their bounds
-               (the step's with the shadow cull, and without it as before);
-               the (pixel, sphere, layer, light) shadow pairs the cull keeps
-               against all pairs, and the warps' candidate visits.
+               (with the culls, and without them as before); row 7's device
+               time by launch; the (pixel, sphere, layer, light) shadow pairs
+               the cull keeps against all pairs, and the warps' candidate
+               visits, for the shadows and for row 7's ranking.
  16. render_grad - the three render backward kernels (rows 3, 5, 8) at config
                2 512^2, config 5 1024^2 and config 5 512^2 tau 0.08, from
                perturb(seed=4): each against its plain version (autograd of
@@ -108,7 +118,7 @@ non-zero:
                (`bwd_device`; row 3 must make one launch a call).
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
-event time, and rows 1-3, 5 and 8 add `device_ms`, their kernels' device
+event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
 time per call, and `launches_per_call`), and last
 {"ok": true, "device": {...}}.
 """
@@ -511,16 +521,26 @@ def _common_ops(c):
     return launch + lines + c["pixels"] * (OPS["ray"] + trace)
 
 
-def render_ops(c):
+def render_ops(c, cull=False):
+    """A hard forward's operations: every object's primary test per pixel
+    and, as rows 2 and 4 shaded before the culls, the shadow rays of every
+    pixel (a miss's from the BIG sentinel); ``cull``: row 4's per-warp culls
+    (`_cull_ops` over the counts of `work_counts(..., cull=True)`) and no
+    shadow rays where the ray hits nothing."""
     miss = c["pixels"] - c["hit"]
+    shade = c["sph"] * OPS["surf_sphere"] + c["rect"] * OPS["surf_rect"] + c["lit"] * OPS["phong"]
+    if cull:
+        culled, _ = _cull_ops(c)
+        return (_common_ops(c) - c["pixels"] * c["n_sph"] * OPS["sphere_primary"] + culled
+                + c["hit"] * (OPS["so"] + c["lights"] * OPS["light"]) + shade
+                + c["shadow_rect_hit"] * OPS["rect_shadow"])
     return (_common_ops(c) + c["pixels"] * (OPS["so"] + c["lights"] * OPS["light"])
-            + miss * OPS["miss_point"] + c["sph"] * OPS["surf_sphere"]
-            + c["rect"] * OPS["surf_rect"] + c["lit"] * OPS["phong"]
+            + miss * OPS["miss_point"] + shade
             + c["shadow_sph_all"] * OPS["sphere_shadow"]
             + c["shadow_rect_all"] * OPS["rect_shadow"])
 
 
-# The per-warp culls of rows 5-6 (csrc/cull.cuh), counted as the rest of
+# The per-warp culls of rows 4-6 (csrc/cull.cuh), counted as the rest of
 # OPS at what the cheapest known algorithm spends: per sphere once, its
 # offset from the eye, distance, widened radius r' and sqrt(D^2 - r'^2); per
 # warp the cone (the axis from its lanes' directions, its cosine and sine);
@@ -679,9 +699,12 @@ def phase_vec_render():
                    max_abs_err=float(err.max()),
                    bit_identical=bool(torch.equal(img_k, img_p) and
                                       torch.equal(vis_k[:, hit], vis_p[:, hit])),
-                   vis_diff_hit=float((vis_k != vis_p)[:, hit].float().mean()))
+                   vis_diff_hit=float((vis_k != vis_p)[:, hit].float().mean()),
+                   vis_on_miss_zero=not bool(vis_k[:, ~hit].any()),
+                   cull=cull_counters(work_counts(scene, cfg, cull=True)))
         rows.append(row)
-        if not (row["frac_bad"] < 1e-3 and row["mean_err"] < 1e-4 and row["vis_diff_hit"] < 1e-3):
+        if not (row["frac_bad"] < 1e-3 and row["mean_err"] < 1e-4 and row["vis_diff_hit"] < 1e-3
+                and row["bit_identical"] and row["vis_on_miss_zero"]):
             raise AssertionError(f"vec forward kernel disagrees with its plain version: {row}")
         targets[label] = img_p
     emit("vec_render", ok=True, rows=rows)
@@ -690,8 +713,10 @@ def phase_vec_render():
 
 # The most spheres a block of rows 5-6 took with config 5's rect and light
 # on the H100 (232,448 bytes of shared memory a block) before the per-warp
-# culls: the layout with them must take at least as many.
+# culls, and a block of rows 4 and 7: the layouts with the culls must take
+# at least as many.
 VEC_MOST_SPHERES_BEFORE = 1520
+FWD_MOST_SPHERES_BEFORE = 3392
 
 
 def phase_vec_step(targets):
@@ -742,12 +767,15 @@ def phase_vec_step(targets):
         if max_abs is None:
             max_abs = max(float((a - b).abs().max())
                           for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
-    most = fused_vec.most_spheres()
-    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448 and most < VEC_MOST_SPHERES_BEFORE:
-        raise AssertionError(f"a block of the vec step takes {most} spheres, fewer than the "
-                             f"{VEC_MOST_SPHERES_BEFORE} it took before the culls")
+    most, most_fwd = fused_vec.most_spheres(), fused_vec.most_render_spheres()
+    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448 and (
+            most < VEC_MOST_SPHERES_BEFORE or most_fwd < FWD_MOST_SPHERES_BEFORE):
+        raise AssertionError(f"a block of the vec step takes {most} spheres and one of the vec "
+                             f"forward {most_fwd}, fewer than the {VEC_MOST_SPHERES_BEFORE} and "
+                             f"{FWD_MOST_SPHERES_BEFORE} they took before the culls")
     emit("vec_step", ok=True, rows=rows, most_spheres=most,
-         most_spheres_before=VEC_MOST_SPHERES_BEFORE)
+         most_spheres_before=VEC_MOST_SPHERES_BEFORE, most_render_spheres=most_fwd,
+         most_render_spheres_before=FWD_MOST_SPHERES_BEFORE)
     return max_abs
 
 
@@ -826,9 +854,10 @@ def phase_vec_times():
             *geom[2:7]),), device="cuda")
         out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
         w = 1.0 / (H * W * 3)
-        render_ms = time_ms(lambda: fused_vec.VEC_RENDER.call(
+        render = lambda: fused_vec.VEC_RENDER.call(  # noqa: E731
             "rrt_vec_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
-            img.data_ptr(), vis.data_ptr(), stream))
+            img.data_ptr(), vis.data_ptr(), stream)
+        render_ms, render_device = time_ms(render), device_ms(render)
         step_ms = time_ms(lambda: fused_vec.VEC_STEP.call(
             "rrt_vec_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
             target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream))
@@ -839,12 +868,16 @@ def phase_vec_times():
         Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
         in_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
         s_bytes = vec_step_bytes(c, Sg, ns_pad, nr_pad)
-        r_bound = bound(render_ops(c), in_rows + 4 * H * W * 4)
+        r_bytes = in_rows + 4 * H * W * 4
         s_bound = bound(step_ops(c, cull=True), s_bytes)
         rows[label] = dict(render_ms=render_ms, step_ms=step_ms, render_plain_ms=render_plain_ms,
-                           step_plain_ms=step_plain_ms, render_bound=r_bound, step_bound=s_bound,
+                           step_plain_ms=step_plain_ms,
+                           render_bound=bound(render_ops(c, cull=True), r_bytes),
+                           render_bound_uncull=bound(render_ops(c), r_bytes),
+                           render_device=render_device, step_bound=s_bound,
                            step_bound_uncull=bound(step_ops(c), s_bytes),
-                           render_ops=render_ops(c), step_ops=step_ops(c, cull=True),
+                           render_ops=render_ops(c, cull=True),
+                           render_ops_uncull=render_ops(c), step_ops=step_ops(c, cull=True),
                            step_ops_uncull=step_ops(c), step_bytes=s_bytes,
                            cull=cull_counters(c), work=c,
                            step_rays_per_s=H * W / (step_ms * 1e-3))
@@ -891,12 +924,26 @@ def phase_soft_render():
         err = (img_k - img_p).abs()
         row = dict(case=label, frac_bad=float((err > 2e-3).float().mean()),
                    mean_err=float(err.mean()), max_abs_err=float(err.max()),
-                   bit_identical=bool(torch.equal(img_k, img_p)))
+                   bit_identical=bool(torch.equal(img_k, img_p)),
+                   cull=soft_cull_counters(soft_work_counts(scene, cfg)))
         rows.append(row)
         if not (row["frac_bad"] < 1e-3 and row["mean_err"] < 1e-4):
             raise AssertionError(f"soft forward kernel disagrees with its plain version: {row}")
     emit("soft_render", ok=True, rows=rows)
     return rows[0]["max_abs_err"]
+
+
+def soft_cull_counters(c):
+    """Row 7's cull counters from `soft_work_counts`: candidate visits per
+    warp walk and the (pixel, sphere) pairs kept against all pairs, for the
+    ranking's cone and for the shadow products (layer-and-light walks with
+    a candidate; live pairs inside the candidates, and those the per-pixel
+    rule keeps)."""
+    return dict(primary_visits_per_walk=c["prim_visits"] / max(c["warps"], 1),
+                primary_kept_pairs=c["prim_pairs"], primary_all_pairs=c["prim_all"],
+                shadow_visits_per_walk=c["warp_visits"] / max(c["walks"], 1),
+                shadow_kept_pairs=c["candidate_pairs"], shadow_rule_kept_pairs=c["shadow_kept"],
+                shadow_all_pairs=c["shadow_tests"])
 
 
 def phase_soft_step():
@@ -906,7 +953,7 @@ def phase_soft_step():
     import torch
 
     from reversible_raytracer_tpu_torch.models.scene import tree_leaves
-    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec_soft
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
 
     rows, max_abs = [], None
     for label, n_spheres, size, tau in SOFT_CASES:
@@ -945,7 +992,12 @@ def phase_soft_step():
         if max_abs is None:
             max_abs = max(float((a - b).abs().max())
                           for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel())
-    emit("soft_step", ok=True, rows=rows, most_spheres=fused_vec_soft.most_spheres())
+    most_fwd = fused_vec_soft.most_render_spheres()
+    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448 and most_fwd < FWD_MOST_SPHERES_BEFORE:
+        raise AssertionError(f"a block of the soft forward takes {most_fwd} spheres, fewer than "
+                             f"the {FWD_MOST_SPHERES_BEFORE} it took before the culls")
+    emit("soft_step", ok=True, rows=rows, most_spheres=fused_vec_soft.most_spheres(),
+         most_render_spheres=most_fwd, most_render_spheres_before=FWD_MOST_SPHERES_BEFORE)
     return max_abs
 
 
@@ -1020,7 +1072,10 @@ def soft_work_counts(scene, cfg):
     `cull.warp_candidates`, the warps' sphere tests (a warp with a
     live lane tests every sphere), their candidate visits (each a walk step
     of 32 lanes), the live (pixel, sphere) pairs inside those candidates,
-    and the layer-and-light walks with a candidate."""
+    and the layer-and-light walks with a candidate; by
+    `cull.primary_candidates` at tau (row 7's ranking), the warps, their
+    candidate visits, the (pixel, candidate) pairs the ranking tests, and
+    those of them that rank by their sigmoid."""
     import torch
 
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
@@ -1039,8 +1094,16 @@ def soft_work_counts(scene, cfg):
         b = pl.vm.vdot(oc, pv._lead(d))
         disc = b * b - (pl.vm.vdot(oc, oc) - r * r)
         t = -b - pl.vm.safe_sqrt(disc)
-        ranked = int(((~((disc > 0) & (t > pl.T_EPS))) & (-b > pl.T_EPS)).sum())
-        del oc, b, disc, t
+        sigm = (~((disc > 0) & (t > pl.T_EPS))) & (-b > pl.T_EPS)
+        n_p = cull.primary_candidates(sp, scene.camera.eye, d, tau)  # (H, R, N)
+        keep = cull.per_pixel(n_p, W)
+        lanes_p = cull.runs(torch.ones((H, W), dtype=torch.bool, device=scene.device),
+                            False).sum(-1)
+        prim = dict(warps=lanes_p.numel(), prim_visits=int(n_p.sum()),
+                    prim_pairs=int((n_p.sum(-1) * lanes_p).sum()), prim_all=H * W * N,
+                    ranked_sigmoid_cull=int((sigm & keep).sum()))
+        ranked = int(sigm.sum())
+        del oc, b, disc, t, sigm, keep
         live = live_sph = live_rect = gated = kept = tests = visits = pairs = walks = 0
         for _, k in pv.two_layers(scene, o, d, tau):
             tt, lv, at, _ = pv.soft_layer(scene, o, d, k, tau, (H, W))
@@ -1063,7 +1126,7 @@ def soft_work_counts(scene, cfg):
                 walks += int((n > 0).sum())
         shadows = live * L if cfg.shadows else 0
     return dict(height=H, width=W, pixels=H * W, n_sph=N, n_rect=M, lights=L, live=live,
-                live_sph=live_sph, live_rect=live_rect, ranked_sigmoid=ranked,
+                live_sph=live_sph, live_rect=live_rect, ranked_sigmoid=ranked, **prim,
                 shadow_tests=shadows * N, shadow_rect=shadows * M,
                 shadow_gated=gated if cfg.shadows else 0,
                 shadow_kept=kept if cfg.shadows else 0,
@@ -1072,22 +1135,41 @@ def soft_work_counts(scene, cfg):
                 candidate_pairs=pairs if cfg.shadows else 0, walks=walks if cfg.shadows else 0)
 
 
-def soft_render_ops(c):
-    return (_common_ops(c) + c["ranked_sigmoid"] * SOFT_OPS["rank_sigmoid"]
-            + c["live_sph"] * (OPS["surf_sphere"] + SOFT_OPS["layer_alpha"])
-            + c["live_rect"] * OPS["surf_rect"]
-            + c["live"] * (OPS["so"] + c["lights"] * (OPS["light"] + OPS["phong"]))
-            + c["shadow_tests"] * SOFT_OPS["shadow_soft"] + c["shadow_rect"] * OPS["rect_shadow"]
-            + c["pixels"] * SOFT_OPS["composite"])
+def _soft_shadow_cull_ops(c):
+    """The soft shadow products over the warps' candidates (rows 7-9): per
+    warp with a live lane the warp test of every sphere, per live lane of a
+    candidate the per-pixel rule, and a kept pair at its soft test."""
+    return (c["warp_tests"] * SOFT_OPS["warp_test"]
+            + max(c["candidate_pairs"] - c["shadow_kept"], 0) * SOFT_OPS["shadow_cull"]
+            + c["shadow_kept"] * SOFT_OPS["shadow_soft"])
+
+
+def soft_render_ops(c, cull=False):
+    """The soft forward's operations: every object ranked per pixel and
+    every sphere's soft shadow test per live layer and light; ``cull``: row
+    7's culls, the ranking over each warp's candidates of the widened cone
+    and the shadow products over the warps' shadow candidates."""
+    ops = (_common_ops(c) + c["ranked_sigmoid"] * SOFT_OPS["rank_sigmoid"]
+           + c["live_sph"] * (OPS["surf_sphere"] + SOFT_OPS["layer_alpha"])
+           + c["live_rect"] * OPS["surf_rect"]
+           + c["live"] * (OPS["so"] + c["lights"] * (OPS["light"] + OPS["phong"]))
+           + c["shadow_tests"] * SOFT_OPS["shadow_soft"] + c["shadow_rect"] * OPS["rect_shadow"]
+           + c["pixels"] * SOFT_OPS["composite"])
+    if cull:
+        n = c["n_sph"]
+        ops += (n * CULL_OPS["cone_sphere"] + c["warps"] * (CULL_OPS["cone_warp"]
+                                                            + n * CULL_OPS["cone_test"])
+                + (c["prim_pairs"] - c["pixels"] * n) * OPS["sphere_primary"]
+                + (c["ranked_sigmoid_cull"] - c["ranked_sigmoid"]) * SOFT_OPS["rank_sigmoid"]
+                + _soft_shadow_cull_ops(c) - c["shadow_tests"] * SOFT_OPS["shadow_soft"])
+    return ops
 
 
 def soft_step_ops(c, cull=True):
     """The soft step's operations; ``cull=False`` counts the shadow terms
     as before the cull."""
     if cull:
-        shadow = (c["warp_tests"] * SOFT_OPS["warp_test"]
-                  + max(c["candidate_pairs"] - c["shadow_kept"], 0) * SOFT_OPS["shadow_cull"]
-                  + c["shadow_kept"] * (SOFT_OPS["shadow_soft"] + SOFT_OPS["adj_shadow"]))
+        shadow = _soft_shadow_cull_ops(c) + c["shadow_kept"] * SOFT_OPS["adj_shadow"]
     else:
         shadow = (c["shadow_tests"] * SOFT_OPS["shadow_soft"]
                   + c["shadow_gated"] * SOFT_OPS["adj_shadow"])
@@ -1121,9 +1203,10 @@ def phase_soft_times():
             *geom[2:7]),), device="cuda")
         out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
         w = 1.0 / (H * W * 3)
-        render_ms = time_ms(lambda: fused_vec_soft.SOFT_RENDER.call(
+        render = lambda: fused_vec_soft.SOFT_RENDER.call(  # noqa: E731
             "rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau,
-            img.data_ptr(), stream))
+            img.data_ptr(), stream)
+        render_ms, render_device = time_ms(render), device_ms(render)
         step_ms = time_ms(lambda: fused_vec_soft.SOFT_STEP.call(
             "rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau,
             target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream))
@@ -1135,13 +1218,18 @@ def phase_soft_times():
         Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
         in_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
         s_bytes = vec_step_bytes(c, Sg, ns_pad, nr_pad)
-        r_bound = bound(soft_render_ops(c), in_rows + 4 * H * W * 3)
+        r_bytes = in_rows + 4 * H * W * 3
         s_bound = bound(soft_step_ops(c), s_bytes)
         rows[label] = dict(render_ms=render_ms, step_ms=step_ms, render_plain_ms=render_plain_ms,
-                           step_plain_ms=step_plain_ms, render_bound=r_bound, step_bound=s_bound,
+                           step_plain_ms=step_plain_ms,
+                           render_bound=bound(soft_render_ops(c, cull=True), r_bytes),
+                           render_bound_uncull=bound(soft_render_ops(c), r_bytes),
+                           render_device=render_device, step_bound=s_bound,
                            step_bound_uncull=bound(soft_step_ops(c, cull=False), s_bytes),
                            kept_pairs=c["shadow_kept"], all_pairs=c["shadow_tests"],
-                           render_ops=soft_render_ops(c), step_ops=soft_step_ops(c), work=c,
+                           render_ops=soft_render_ops(c, cull=True),
+                           render_ops_uncull=soft_render_ops(c), step_ops=soft_step_ops(c),
+                           cull=soft_cull_counters(c), work=c,
                            step_rays_per_s=H * W / (step_ms * 1e-3))
     for k in _all_kernels():
         k.launches = saved[k.name]
@@ -1506,7 +1594,9 @@ def main() -> int:
              replaces="reversible_raytracer_tpu/ops/kernels/fused_vec.py:897",
              launches=vec_launches["fused_vec_render"], max_abs_err=vec_render_err,
              ms=vt["render_ms"], plain_ms=vt["render_plain_ms"], bound_ms=vt["render_bound"][0],
-             bound_by=vt["render_bound"][1], library_ms=None),
+             bound_by=vt["render_bound"][1], library_ms=None,
+             device_ms=vt["render_device"]["ms"],
+             launches_per_call=vt["render_device"]["launches"]),
         dict(name="fused_vec_soft_step", route="cuda", source=src + "fused_vec_soft_step.cu",
              replaces="reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:547",
              launches=anneal_launches["fused_vec_soft_step"], max_abs_err=soft_step_err,
@@ -1516,7 +1606,9 @@ def main() -> int:
              replaces="reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:494",
              launches=anneal_launches["fused_vec_soft_render"], max_abs_err=soft_render_err,
              ms=st["render_ms"], plain_ms=st["render_plain_ms"], bound_ms=st["render_bound"][0],
-             bound_by=st["render_bound"][1], library_ms=None),
+             bound_by=st["render_bound"][1], library_ms=None,
+             device_ms=st["render_device"]["ms"],
+             launches_per_call=st["render_device"]["launches"]),
     ]
     for label, family, *_ in GRAD_CASES:
         name = BWD_NAMES[family]

@@ -9,26 +9,44 @@
 // loop, a chunk-skipped resolve of the winner's attributes, an any-hit
 // shadow loop per light, then shading.
 //
-// Design: one thread per pixel, 32 x 8 pixels per block. The globals and
-// the packed object rows (about 6 KB for 64 spheres and a rect, 36 KB for
-// 512 spheres and a rect) are staged once per block into shared memory,
-// where every thread of the block reads the same row at the same time (a
-// broadcast). Per pixel: the t-only nearest loop over the real sphere rows
-// then the real rect rows (strict <: ties go to the first object; rects
-// numbered from ns_pad in winner space), then only the winner's attributes,
-// then per light an any-hit loop that stops at the first occluder. A GPU
-// thread has no tile of pixels that could share a skipped chunk, so there
-// is no chunk-skip: the winner is one index per thread.
+// Design: as many blocks of 32 x 8 threads as the card holds at once
+// (resident_blocks), each walking the image's 32 x 8 tiles in a fixed
+// stride, one thread per pixel of a tile. The globals and the packed rows
+// (the sphere rows without their mirror column) are staged into shared
+// memory once per block, not once per tile (one block a tile took 0.002 ms
+// longer at config 5: tools/vec_step_split.py). A warp is 32 pixels of a row,
+// and the TPU kernel's chunk skip is redone per warp with the culls of rows
+// 5-6 (cull.cuh):
+//   - the primary rays: the spheres inside the cone of the warp's rays
+//     widened by each sphere's angular radius (primary_candidates); each
+//     lane's t-only nearest loop walks only those, in ascending index, then
+//     every rect (strict <: ties go to the first object; rects numbered from
+//     ns_pad in winner space), so the winner and its t are those of the walk
+//     over every sphere, to the bit;
+//   - per light, the shadow rays of the warp's hit lanes: the spheres near
+//     the segment from a ball of their shadow origins to the light
+//     (warp_candidates at tau = 0); each hit lane's any-hit loop walks only
+//     those, then the rects, and stops at the first occluder: the visibility
+//     bits of the full walk.
+// Each warp keeps one cull's mask words in shared memory (ceil(N / 32)
+// words), which its primary rays and then each light take in turn, so a
+// block holds more spheres than the full walk's did (68 bytes a sphere
+// then, 64 and one byte of masks now). Then only the winner's attributes,
+// and the Phong terms of each light. Every lane runs every warp-wide vote,
+// those past the ragged edge as dead lanes; only the lanes inside the image
+// write.
 //
-// Bound: operations. Each pixel tests every object for its primary ray and
-// for each light's shadow ray until an occluder, against 12 bytes of image
-// and 4 bytes per visibility plane written (chip_smoke.py counts both).
+// Bound: operations. Per warp the cone test of every sphere and, per light
+// with a hit lane, the segment test; per pixel the sphere tests of the
+// warp's candidates for its primary ray and for each light's shadow ray
+// until an occluder, against 12 bytes of image and 4 bytes per visibility
+// plane written (chip_smoke.py counts both).
 //
-// The visibility plane of a light is 1 where the shadow ray reaches it. On
-// a pixel that hits nothing it holds the shadow test of a ray cast from the
-// BIG sentinel, which carries no meaning and which the render backward
-// reads only where the ray hit.
-#include "render_common.cuh"
+// The visibility plane of a light is 1 where the shadow ray of a hit pixel
+// reaches it and 0 where it is blocked, and 0 on a pixel that hits nothing
+// (there is no surface, and the culls give such a lane no candidates); the
+// render backward reads the planes only where the ray hit.
+#include "cull.cuh"
 
 using namespace rrt;
 
@@ -39,27 +57,51 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
                       const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
                       GLayout gl, Params p, float* __restrict__ img, float* __restrict__ vis) {
   extern __shared__ float smem[];
-  float* g = smem;
-  float* s_sph = g + gl.Sg;
-  float* s_rct = s_sph + ns_pad * P_SPH;
-  stage(g, glob, gl.Sg);
-  stage(s_sph, sph, ns_pad * P_SPH);
-  stage(s_rct, rct, nr_pad * P_RCT);
-  __syncthreads();
+  const ForwardBlock fb = stage_forward(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
+  const auto& sc = fb.sc;
+  const int lane = threadIdx.x;
+  const Camera cam = camera(sc);
+  const V3 o = cam.eye;
+  const dim3 tiles = pixel_grid(p.H, p.W);
+  const long long plane = (long long)p.H * p.W;
 
-  const int j = blockIdx.x * BLOCK_X + threadIdx.x;
-  const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
-  if (i >= p.H || j >= p.W) return;
-
-  unsigned bits;
-  const V3 col = render_pixel(PackedScene{g, s_sph, s_rct, gl, N, M, ns_pad}, p, i, j, &bits);
-  const long long px = (long long)i * p.W + j;
-  img[3 * px + 0] = col.x;
-  img[3 * px + 1] = col.y;
-  img[3 * px + 2] = col.z;
-  if (p.shadows) {
-    const long long plane = (long long)p.H * p.W;
-    for (int l = 0; l < gl.L; ++l) vis[l * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
+  for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
+    const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
+    const int i = (t / tiles.x) * BLOCK_Y + threadIdx.y;
+    const bool inside = i < p.H && j < p.W;
+    if (!__any_sync(FULL, inside)) continue;  // a warp wholly past the ragged edge
+    const V3 d = primary_ray(cam, p, inside ? i : 0, inside ? j : 0).d;
+    __syncwarp();  // the previous tile's walks are done with the mask words
+    primary_candidates(sc, o, d, inside, 0.0f, lane, fb.wm);
+    const Nearest h = inside ? trace_candidates(sc, o, d, fb.wm, fb.nw) : Nearest{BIG, -1};
+    const bool hit = h.k >= 0;
+    const Surface s = surface(sc, o, d, h);
+    const V3 so = shadow_origin(o, d, h.t, s.n);
+    unsigned bits = p.shadows ? 0u : ~0u;  // without shadows every light is lit
+    if (p.shadows && __any_sync(FULL, hit)) {
+      for (int l = 0; l < gl.L; ++l) {
+        __syncwarp();
+        warp_candidates(sc, so, sc.l_pos(l), hit, 0.0f, lane, fb.wm);
+        if (hit && !occluded_candidates(sc, so, light_geometry(sc.l_pos(l), so), fb.wm, fb.nw))
+          bits |= 1u << l;
+      }
+    }
+    V3 col = sc.background();
+    if (hit) {
+      unsigned lit;
+      col = shade_hit(
+          sc, o, d, h.t, s, [&](int l, V3, const LightGeo&) { return ((bits >> l) & 1u) != 0; },
+          &lit);
+    }
+    if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
+    if (!inside) continue;
+    const long long px = (long long)i * p.W + j;
+    img[3 * px + 0] = col.x;
+    img[3 * px + 1] = col.y;
+    img[3 * px + 2] = col.z;
+    if (p.shadows)
+      for (int l = 0; l < gl.L; ++l)
+        vis[l * plane + px] = (hit && ((bits >> l) & 1u)) ? 1.0f : 0.0f;
   }
 }
 
@@ -67,7 +109,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
 
 // Shared memory a block of this kernel needs, in bytes.
 extern "C" long long rrt_vec_render_smem(int n_sph, int n_rect, int n_light) {
-  return (long long)render_smem(pad16(n_sph), pad16(n_rect), n_light);
+  return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light);
 }
 
 // The most shared memory a block may have on the current device (opt-in).
@@ -84,13 +126,15 @@ extern "C" int rrt_vec_render(const float* glob, const float* sph, const float* 
                               int shadows, int clip, float* img, float* vis, void* stream) {
   const GLayout gl = make_glayout(n_light);
   const Params p = make_params(H, W, shadows, clip);
-  const size_t smem = render_smem(ns_pad, nr_pad, n_light);
+  const size_t smem = forward_smem(ns_pad, nr_pad, n_light);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         vec_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  vec_render_kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
+  const int nblocks = resident_blocks(vec_render_kernel, smem, H, W);
+  if (nblocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  vec_render_kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
       glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, img, vis);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,10 @@
 // kernel runs the same arithmetic:
 //   - FlatScene: the flat scene vector in models/scene.py leaf order
 //     (fused_render.cu, fused_step.cu, scenes of at most 24 objects);
-//   - PackedScene: the JAX package's packed rows (fused_vec.py: globals,
+//   - PackedRows: the JAX package's packed rows (fused_vec.py: globals,
 //     P_SPH = 17 scalars per sphere, P_RCT = 22 per rect, each group padded
-//     to a multiple of 16 rows; fused_vec_render.cu, fused_vec_step.cu).
+//     to a multiple of 16 rows; the object-chunked and soft kernels), the
+//     forwards' sphere rows staged without the mirror column.
 //     Rects are numbered from the padded sphere count (ns_pad) in winner
 //     space, so a pad row's index never names a real object.
 //
@@ -185,9 +186,13 @@ inline GLayout make_glayout(int L) {
   return {L, 0, 3, 6, 9, 12, 15, 16, 16 + 3 * L, 16 + 6 * L};
 }
 
-struct PackedScene {
+// The packed rows as staged in shared memory, PS floats a sphere row: the
+// step kernels stage all P_SPH columns, the forwards (FWD_SPH) all but the
+// mirror column, which no kernel reads.
+template <int PS>
+struct PackedRows {
   const float* g;    // Sg globals
-  const float* sph;  // ns_pad rows of P_SPH
+  const float* sph;  // ns_pad rows of PS
   const float* rct;  // nr_pad rows of P_RCT
   GLayout gl;
   int N, M, ns_pad;
@@ -197,7 +202,7 @@ struct PackedScene {
   __device__ int n_light() const { return gl.L; }
   __device__ int rect_base() const { return ns_pad; }
 
-  __device__ const float* srow(int k) const { return sph + P_SPH * k; }
+  __device__ const float* srow(int k) const { return sph + PS * k; }
   __device__ const float* rrow(int k) const { return rct + P_RCT * k; }
   __device__ V3 s_center(int k) const { return ld3(srow(k)); }
   __device__ float s_radius(int k) const { return srow(k)[3]; }
@@ -229,6 +234,9 @@ struct PackedScene {
   __device__ V3 up_hint() const { return ld3(g + gl.c_up); }
   __device__ float fov() const { return g[gl.c_fov]; }
 };
+
+using PackedScene = PackedRows<P_SPH>;
+constexpr int FWD_SPH = 16;  // a sphere row of the forwards: center .. shininess
 
 // Packed column of field f of the step's per-object gradient (SPH_FIELDS /
 // RECT_FIELDS order): the checker and checker-scale columns, which get no
@@ -490,6 +498,15 @@ __device__ __forceinline__ V3 render_pixel(const S& sc, const Params& p, int i, 
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int s = tid; s < n; s += blockDim.x * blockDim.y) dst[s] = src[s];
+}
+
+// Stage n rows of `from` floats into rows of their first TO columns.
+template <int TO>
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ src, int n,
+                                           int from) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int s = tid; s < n * TO; s += blockDim.x * blockDim.y)
+    dst[s] = src[(s / TO) * from + s % TO];
 }
 
 // ---------------------------------------------------------------------------
@@ -900,12 +917,6 @@ __global__ void vec_finalize_kernel(const float* __restrict__ rowsum,
 // Rows of a packed group after padding (one dummy chunk for an empty group).
 inline int pad16(int n) { return ((n > 1 ? n : 1) + 15) / 16 * 16; }
 
-// Shared memory of a forward kernel that stages the globals and the packed
-// sphere and rect rows.
-inline size_t render_smem(int ns_pad, int nr_pad, int n_light) {
-  return (size_t)(make_glayout(n_light).Sg + ns_pad * P_SPH + nr_pad * P_RCT) * sizeof(float);
-}
-
 __host__ __device__ inline dim3 pixel_grid(int H, int W) {
   return dim3((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y);
 }
@@ -924,6 +935,23 @@ inline int step_blocks(size_t smem, int H, int W) {
   const long long by_smem = smem_sm / ((long long)smem + 1024);  // 1 KB reserved a block
   const int per_sm = by_smem < 1 ? 1 : by_smem < STEP_BLOCKS_PER_SM ? (int)by_smem
                                                                      : STEP_BLOCKS_PER_SM;
+  const dim3 tiles = pixel_grid(H, W);
+  const long long n = (long long)tiles.x * tiles.y;
+  return (int)(n < (long long)sms * per_sm ? n : (long long)sms * per_sm);
+}
+
+// The grid of the forwards: as many blocks of `kernel` with smem bytes of
+// dynamic shared memory as the current card holds at once (its SM count
+// times the occupancy calculator's blocks per SM), never more than the image
+// has tiles; 0 if the card cannot be queried or a block does not fit.
+template <class K>
+inline int resident_blocks(K kernel, size_t smem, int H, int W) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK_THREADS, smem) !=
+          cudaSuccess)
+    return 0;
   const dim3 tiles = pixel_grid(H, W);
   const long long n = (long long)tiles.x * tiles.y;
   return (int)(n < (long long)sms * per_sm ? n : (long long)sms * per_sm);

@@ -116,33 +116,6 @@ __device__ __forceinline__ void add4(float* row, float4 v, int lane) {
   if ((lane & 7) == 0) row[lane >> 3] += s;
 }
 
-// One sphere (c, r) against one lane's shadow ray (so, ld) toward a light
-// at dist, by the per-pixel cull rule: kept where the sphere is hit, or
-// passed closest, between the surface and the light and disc is not below
-// -SOFT_CULL tau r^2; then s = alpha = sigmoid(disc / (tau r^2)), computed
-// as shadow_alpha computes it (soft_common.cuh), so that 1 - s is the
-// factor soft_vis multiplies by. Elsewhere that factor is exactly 1.
-struct ShadowTerm {
-  V3 oc;
-  float b, disc, s;
-  bool kept;
-};
-
-__device__ __forceinline__ ShadowTerm shadow_term(V3 so, V3 ld, float dist, V3 c, float r,
-                                                  float tau) {
-  ShadowTerm st;
-  st.oc = so - c;
-  st.b = dot(st.oc, ld);
-  st.disc = st.b * st.b - (dot(st.oc, st.oc) - r * r);
-  st.s = 0.0f;
-  st.kept = false;
-  if (st.disc < -SOFT_CULL * tau * r * r) return st;
-  const float t = -st.b - sqrtf(st.disc > 0.0f ? st.disc : 1.0f);
-  st.kept = (st.disc > 0.0f && t > T_EPS && t < dist) || (-st.b > T_EPS && -st.b < dist);
-  if (st.kept) st.s = sigmoid(st.disc / (tau * r * r));
-  return st;
-}
-
 // Cotangents of the shadow coverage alpha of a kept sphere of radius r for
 // the ray direction ld, given g_alpha: adds to g_so and g_ld and returns
 // those of the center (x, y, z) and radius (w). The gate, and with it
@@ -164,10 +137,11 @@ __device__ __forceinline__ float4 shadow_alpha_adjoint(const ShadowTerm& st, V3 
 }
 
 // Pass 1, the forward of one layer and light: the warp's candidates, then
-// one walk over them in row order. Each live lane's product of its kept
-// factors; the prefix before each candidate into the warp's pcap slots from
-// *slot while all of them fit (else this layer and light, and every later
-// one, keep none); the rect factor's zero lanes as a bit mask. info gets
+// one walk over them in row order (shadow_product, which row 7 walks too).
+// Each live lane's product of its kept factors; the prefix before each
+// candidate into the warp's pcap slots from *slot while all of them fit
+// (else this layer and light, and every later one, keep none); the rect
+// factor's zero lanes as a bit mask. info gets
 // [first slot or -1, count, rect bits]. Returns the visibility 1 - (1 - P
 // rf) (1 on a dead lane). Call from the whole warp.
 template <class S>
@@ -178,18 +152,9 @@ __device__ __forceinline__ float shadow_pass1(const S& sc, V3 so, const LightGeo
   const int first = *slot;
   const bool keep = first + n <= pcap;
   *slot = keep ? first + n : pcap + 1;
-  float run = 1.0f;
-  for (int w = 0, i = 0; i < n; ++w) {
-    for (unsigned m = wm[w]; m; m &= m - 1, ++i) {
-      const int k = w * 32 + __ffs(m) - 1;
-      if (keep) wpre[(first + i) * 32 + lane] = run;
-      if (live) {
-        const ShadowTerm st =
-            shadow_term(so, lg.ldir, lg.dist, sc.s_center(k), sc.s_radius(k), tau);
-        if (st.kept) run *= 1.0f - st.s;
-      }
-    }
-  }
+  const float run = shadow_product(sc, so, lg, live, tau, wm, n, [&](int i, float pre) {
+    if (keep) wpre[(first + i) * 32 + lane] = pre;
+  });
   const float rf = live ? rect_factor(sc, so, lg.ldir, lg.dist) : 1.0f;
   const unsigned rfz = __ballot_sync(FULL, rf == 0.0f);
   if (lane == 0) {
@@ -308,7 +273,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
   const PackedScene sc{g, s_sph, s_rct, gl, N, M, ns_pad};
 
   // ---- forward: per layer and light, pass 1 over the warp's candidates
-  // gives the visibility, which the shading reads (as row 7's soft_vis)
+  // gives the visibility, which the shading reads (row 7's soft_visibility)
   const V3 o = sc.eye();
   const V3 d = primary_ray(camera(sc), p, inside ? i : 0, inside ? j : 0).d;
   Layers y = {{{BIG, -1}, {BIG, -1}}};

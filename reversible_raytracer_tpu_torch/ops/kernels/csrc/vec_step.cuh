@@ -85,16 +85,9 @@ struct WarpCull {
   template <class S>
   __device__ __forceinline__ Nearest trace(const S& sc, V3 o, V3 d, bool inside) const {
     if (!__any_sync(FULL, inside)) return {BIG, -1};
-    primary_candidates(sc, o, d, inside, lane, wm);
+    primary_candidates(sc, o, d, inside, 0.0f, lane, wm);
     if (!inside) return {BIG, -1};
-    Nearest h = {BIG, -1};
-    for (int w = 0; w < nw; ++w)
-      for (unsigned m = wm[w]; m; m &= m - 1) {
-        const int k = w * 32 + __ffs(m) - 1;
-        const float t = hit_sphere(o, d, sc.s_center(k), sc.s_radius(k));
-        if (t < h.t) h = {t, k};
-      }
-    return trace_rects(sc, o, d, h);
+    return trace_candidates(sc, o, d, wm, nw);
   }
 
   template <class S, class Src>
@@ -109,13 +102,7 @@ struct WarpCull {
 
   template <class S>
   __device__ __forceinline__ bool occluded(const S& sc, int l, V3 so, const LightGeo& g) const {
-    const unsigned* lm = wm + (1 + l) * nw;
-    for (int w = 0; w < nw; ++w)
-      for (unsigned m = lm[w]; m; m &= m - 1) {
-        const int k = w * 32 + __ffs(m) - 1;
-        if (hit_sphere(so, g.ldir, sc.s_center(k), sc.s_radius(k)) < g.dist) return true;
-      }
-    return occluded_rects(sc, so, g.ldir, g.dist);
+    return occluded_candidates(sc, so, g, wm + (1 + l) * nw, nw);
   }
 };
 

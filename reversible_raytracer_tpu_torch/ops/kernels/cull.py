@@ -8,9 +8,10 @@ tests, with the kernels' constants and arithmetic; they return (H, R, N)
 bool candidates for R = ceil(W / 32) runs per row and N spheres, nothing
 for a run without a live pixel. `per_pixel` spreads them to (N, H, W).
 
-- `warp_candidates`: the shadow rays of a run toward one light (rows 5-6's
-  hard any-hit at tau = 0; rows 8-9's soft shadow products at tau > 0);
-- `primary_candidates`: the primary rays of a run, which all leave the eye.
+- `warp_candidates`: the shadow rays of a run toward one light (rows 4-6's
+  hard any-hit at tau = 0; rows 7-9's soft shadow products at tau > 0);
+- `primary_candidates`: the primary rays of a run, which all leave the eye
+  (rows 4-6's nearest hit at tau = 0; row 7's soft ranking at tau > 0).
 """
 
 from __future__ import annotations
@@ -72,16 +73,19 @@ def warp_candidates(spheres, so, live, lpos, tau):
     return (((q * q).sum(-1) <= lim * lim) & lv.any(2)).permute(1, 2, 0)
 
 
-def primary_candidates(spheres, eye, d):
+def primary_candidates(spheres, eye, d, tau=0.0):
     """The spheres each run of 32 pixels of a row visits for its primary
     rays, by the kernels' cone test: the live pixels' unit directions ``d``
     (a Vec3 of (H, W) tensors) lie within theta of their normalized sum a
     (cos theta the least d . a, sin theta the largest |d x a|), and a sphere
     at the angle gamma from a, D = |c - eye| away, is a candidate if gamma <=
-    theta + asin(r' / D), r' = r (1 + CULL_REL) + CULL_ABS D; so are the
-    spheres with r' >= D (holding the eye) and every sphere of a run whose
-    cone reaches 90 degrees. Every pixel of the image is live; the padding
-    of a row's last run is not. Returns (H, ceil(W / 32), N) bool."""
+    theta + asin(r' / D), r' = R (1 + CULL_REL) + CULL_ABS D, R = r sqrt(1 +
+    SOFT_CULL tau); so are the spheres with r' >= D (holding the eye) and
+    every sphere of a run whose cone reaches 90 degrees. At tau = 0, R = r,
+    the reach of a hard ray (rows 4-6); at tau > 0 it covers the soft
+    ranking's r sqrt(1 + 6.91 tau) (row 7). Every pixel of the image is
+    live; the padding of a row's last run is not. Returns (H, ceil(W / 32),
+    N) bool."""
     lv = runs(torch.ones_like(d[0], dtype=torch.bool), False)
     dd = torch.stack([runs(x, 0.0) for x in d], dim=-1)  # (H, R, 32, 3)
     s = torch.where(lv[..., None], dd, 0.0).sum(2)
@@ -92,7 +96,8 @@ def primary_candidates(spheres, eye, d):
     wc = spheres.center - eye  # (N, 3)
     D2 = (wc * wc).sum(-1)
     D = torch.sqrt(D2)
-    r = spheres.radius * (1.0 + CULL_REL) + CULL_ABS * D
+    r = (spheres.radius * (1.0 + SOFT_CULL[torch.float32] * tau) ** 0.5 * (1.0 + CULL_REL)
+         + CULL_ABS * D)
     reach = cmin[..., None] * torch.sqrt(torch.clamp(D2 - r * r, min=0.0)) - smax[..., None] * r
     return ((~(cmin > 0.0))[..., None] | (r >= D)
             | ((a[:, :, None] * wc).sum(-1) >= reach))

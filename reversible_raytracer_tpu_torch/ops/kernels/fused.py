@@ -727,14 +727,42 @@ def winner_surface(scene, w, o, d, t, zero):
     return w
 
 
+def forward_terms(scene, cfg, nearest, visibility):
+    """The forward of the hard kernels in eager torch, with what their
+    adjoint needs: the primary rays (``ray``), the nearest hit (``t``) and
+    the winner's surface (``w``), the shadow origins (``so``), per light its
+    terms and visibility plane (``per_light``), the unclipped image
+    (``pre``) and the image (``img``), each a tuple of (H, W) channels.
+    ``nearest(scene, o, d) -> (t, k)`` is the trace's nearest hit;
+    ``visibility(li, so, f, zero, hit)`` gives light li's visibility plane
+    where the rays ``hit`` (`traced_visibility`, `saved_visibility`)."""
+    lt = scene.lights
+    zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
+    ray = primary_ray_terms(scene, cfg)
+    o, d = ray.o, ray.d
+    t, kbest = nearest(scene, o, d)
+    w = winner_surface(scene, winner_geometry(scene, kbest, zero), o, d, t, zero)
+    amb = vm.splat(scene.ambient)
+    col = vm.vscale(vm.vmul(w.base, amb), w.ka)
+    so = vm.vadd(vm.vadd(o, vm.vscale(d, t)), vm.vscale(w.n, SHADOW_EPS))
+    per_light = []
+    for li in range(lt.count):
+        f = light_terms(lt, li, so, w.n, d, w.base, w.kd, w.ksp, w.shin)
+        vis = visibility(li, so, f, zero, w.hit)
+        col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
+        per_light.append((f, vis))
+    bg = vm.splat(scene.background)
+    pre = tuple(torch.where(w.hit, c, b) for c, b in zip(col, bg))
+    img = tuple(vm.clip01(c) for c in pre) if cfg.clip else pre
+    return SimpleNamespace(ray=ray, t=t, w=w, so=so, per_light=per_light, pre=pre, img=img)
+
+
 def _adjoint(scene, cfg, nearest, cotangent, visibility):
     """The per-pixel adjoint of the step and of the render backward: ``(sum
-    of squared residuals, grads as a Scene)``. ``nearest(scene, o, d) -> (t,
-    k)`` is the trace's nearest hit; ``cotangent(img)`` gives the cotangent
-    of the clipped image per channel and the squared error
-    (`residual_cotangent`, `image_cotangent`); ``visibility(li, so, f,
-    zero, hit)`` gives light li's visibility plane where the rays ``hit``
-    (`traced_visibility`, `saved_visibility`)."""
+    of squared residuals, grads as a Scene)``. ``nearest`` and
+    ``visibility`` as `forward_terms` takes them; ``cotangent(img)`` gives
+    the cotangent of the clipped image per channel and the squared error
+    (`residual_cotangent`, `image_cotangent`)."""
     dev = scene.device
     H, W = cfg.height, cfg.width
     sp, rc, lt, cam = scene.spheres, scene.rects, scene.lights, scene.camera
@@ -742,31 +770,16 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility):
     like = dict(device=dev, dtype=scene.ambient.dtype)
     zero = torch.zeros((H, W), **like)
 
-    # ---- forward: camera ray (perspective), kept with its intermediates
-    ray = primary_ray_terms(scene, cfg)
+    # ---- forward: the camera ray with its intermediates, the nearest hit,
+    # the winner's attributes, the shading
+    fw = forward_terms(scene, cfg, nearest, visibility)
+    ray, t, w, per_light, pre, img = fw.ray, fw.t, fw.w, fw.per_light, fw.pre, fw.img
     o, d = ray.o, ray.d
-
-    # ---- nearest hit and the winner's attributes
-    t, kbest = nearest(scene, o, d)
-    w = winner_surface(scene, winner_geometry(scene, kbest, zero), o, d, t, zero)
     is_sph, is_rct, hit, ks_, kr_ = w.is_sph, w.is_rct, w.hit, w.ks, w.kr
     sc, sr, p0, eu, ev = w.sc, w.sr, w.p0, w.eu, w.ev
     pick, n, use2, base = w.pick, w.n, w.use2, w.base
     ka, kd, ksp, shin = w.ka, w.kd, w.ksp, w.shin
-
-    # ---- shade forward
     amb = vm.splat(scene.ambient)
-    col = vm.vscale(vm.vmul(base, amb), ka)
-    so = vm.vadd(vm.vadd(o, vm.vscale(d, t)), vm.vscale(n, SHADOW_EPS))
-    per_light = []
-    for li in range(L):
-        f = light_terms(lt, li, so, n, d, base, kd, ksp, shin)
-        vis = visibility(li, so, f, zero, hit)
-        col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
-        per_light.append((f, vis))
-    bg = vm.splat(scene.background)
-    pre = tuple(torch.where(hit, c, b) for c, b in zip(col, bg))
-    img = tuple(vm.clip01(c) for c in pre) if cfg.clip else pre
 
     # ---- the image's cotangent, through the clip
     g_img, sq = cotangent(img)

@@ -22,13 +22,17 @@ wrappers and their plain versions.
   `loss_grad_vec_adjoint_eager` runs the kernel's hand-written adjoint in
   eager torch.
 
-The step and the render backward walk, for each warp of 32 pixels of a row,
-only the spheres that a conservative per-warp test keeps (``csrc/cull.cuh``;
+The three kernels walk, for each warp of 32 pixels of a row, only the
+spheres that a conservative per-warp test keeps (``csrc/cull.cuh``;
 `cull.primary_candidates` for the primary rays, `cull.warp_candidates` at
-tau = 0 for the step's shadow rays): a dropped sphere misses every ray of
-the warp, so winners, t and visibility are those of the walk over every
-sphere, to the bit. Their eager twins walk the same candidates; the plain
-versions and `render_eager_vec` walk every object.
+tau = 0 for the forward's and the step's shadow rays): a dropped sphere
+misses every ray of the warp, so winners, t and visibility are those of the
+walk over every sphere, to the bit. Their eager twins (`render_vec_culled`,
+`loss_grad_vec_adjoint_eager`, `render_vec_bwd_adjoint_eager`) walk the same
+candidates; the plain versions and `render_eager_vec` walk every object.
+The forward writes 0 into a light's visibility plane where the ray hits
+nothing (no surface, no shadow ray); the backward reads the planes only
+where the ray hit.
 
 The scene enters both kernels as the JAX package's packed rows: one flat
 vector of the object-count-independent globals (`flatten_globals`), the
@@ -235,6 +239,13 @@ def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
     return most_rows(VEC_STEP.lib().rrt_vec_step_smem, n_rect, n_light)
 
 
+def most_render_spheres(n_rect: int = 1, n_light: int = 1) -> int:
+    """The most spheres that the vec forward takes beside ``n_rect`` rects
+    and ``n_light`` lights on the current card (csrc/cull.cuh
+    `forward_smem`)."""
+    return most_rows(VEC_RENDER.lib().rrt_vec_render_smem, n_rect, n_light)
+
+
 def check_smem(kernel: Kernel, entry: str, scene) -> None:
     """Refuse, with the numbers, a scene whose rows do not fit the shared
     memory a block of this card can have."""
@@ -418,6 +429,22 @@ def culled_visibility(scene, cfg: RenderConfig):
         occ = occluded_any(scene, so, f.ldir, f.dist, per_pixel(cand, cfg.width))
         return torch.where(occ, 0.0, 1.0)
     return visibility
+
+
+def render_vec_culled(scene, cfg: RenderConfig):
+    """The vec forward kernel's algorithm in eager torch: the nearest hit
+    over each warp's primary candidates and the any-hit shadow test over
+    each light's shadow candidates of its hit pixels, then the shading of
+    the step's forward. Returns the (H, W, 3) image and the (L, H, W)
+    visibility planes (0 where the ray hits nothing, as the kernel writes
+    them; none without shadows)."""
+    check_vec_kernel_config(scene, cfg)
+    with torch.no_grad():
+        fw = fused.forward_terms(scene, cfg, culled_nearest, culled_visibility(scene, cfg))
+    img = torch.stack(fw.img, dim=-1)
+    if not cfg.shadows:
+        return img, img.new_zeros((0, cfg.height, cfg.width))
+    return img, torch.stack([torch.where(fw.w.hit, vis, 0.0) for _, vis in fw.per_light])
 
 
 def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse"):

@@ -23,13 +23,17 @@ their plain versions: the annealed inversion's soft stages.
   `loss_grad_vec_soft_adjoint_eager` runs the kernel's hand-written adjoint
   in eager torch.
 
-The step and the backward drop a sphere from a pixel's shadow product where
-its factor 1 - alpha is exactly 1 (`shadow_kept`, `SOFT_CULL`), and each
-warp of 32 pixels visits only the spheres its conservative test keeps
+The three kernels drop a sphere from a pixel's shadow product where its
+factor 1 - alpha is exactly 1 (`shadow_kept`, `SOFT_CULL`), and each warp of
+32 pixels visits only the spheres its conservative test keeps
 (`cull.warp_candidates`, the plain version of that test, used by the tests):
-their images are the forward's to the bit, and their gradients drop terms
-each under 2^-25 of their cotangent. The eager twins apply the same
-per-pixel rule.
+the products keep their bits, and the step's and backward's gradients drop
+terms each under 2^-25 of their cotangent. The forward also ranks only each
+warp's primary candidates of a cone widened to the soft ranking's reach
+(`cull.primary_candidates` at tau): a sphere outside it ranks BIG for every
+ray of the warp, so the two layers are the full ranking's to the bit. The
+eager twins apply the same per-pixel rule (`render_vec_soft_culled`, the
+forward's twin, the warp tests as well).
 
 Semantics are the JAX package's `_render_soft`: two layers ranked by the
 soft t (strict < ranking, first-wins ties), sphere coverage alpha =
@@ -66,7 +70,7 @@ from ..pipeline_vec import (
     two_layers,
 )
 from . import fused, fused_vec
-from .cull import SOFT_CULL
+from .cull import SOFT_CULL, per_pixel, primary_candidates, warp_candidates
 from ._build import Kernel
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -147,6 +151,13 @@ def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
     lights on the current card: what a block's shared memory holds with one
     prefix slot per lane (csrc/soft_step.cuh `soft_plan`)."""
     return fused_vec.most_rows(SOFT_STEP.lib().rrt_soft_step_smem, n_rect, n_light)
+
+
+def most_render_spheres(n_rect: int = 1, n_light: int = 1) -> int:
+    """The most spheres that the soft forward takes beside ``n_rect`` rects
+    and ``n_light`` lights on the current card (csrc/cull.cuh
+    `forward_smem`)."""
+    return fused_vec.most_rows(SOFT_RENDER.lib().rrt_soft_render_smem, n_rect, n_light)
 
 
 def render_vec_soft(scene, cfg: RenderConfig):
@@ -332,11 +343,13 @@ def _shadow_alpha_adjoint(spheres, so, ld, dist, tau, g_alpha):
     return g_so, g_ld, g_c, g_r.sum((1, 2))
 
 
-def _layer(scene, cfg, ray, k, tau, zero):
+def _layer(scene, cfg, ray, k, tau, zero, warp_cull=False):
     """One soft layer's forward with the intermediates its adjoint needs:
     the winner's geometry and coverage, its surface, and per light the
     Phong terms and the shadow factors (sphere 1 - alpha, exactly 1 where
-    `shadow_kept` drops the sphere; the hard rect factor) and visibility."""
+    `shadow_kept` drops the sphere, and with ``warp_cull`` also outside the
+    warp's candidates, `cull.warp_candidates`; the hard rect factor) and
+    visibility."""
     sp, rc, lt = scene.spheres, scene.rects, scene.lights
     N, M = sp.count, rc.count
     o, d = ray.o, ray.d
@@ -368,7 +381,11 @@ def _layer(scene, cfg, ray, k, tau, zero):
             if N:  # a culled factor is exactly 1 already: the product keeps its bits
                 c, r = sphere_axis(sp)
                 so, ld = tuple(x[None] for x in y.so), tuple(x[None] for x in f.ldir)
-                f.one_m = torch.where(shadow_kept(c, r, so, ld, f.dist[None], tau),
+                kept = shadow_kept(c, r, so, ld, f.dist[None], tau)
+                if warp_cull:
+                    kept = kept & per_pixel(warp_candidates(sp, y.so, y.hit, lt.position[li],
+                                                            tau), cfg.width)
+                f.one_m = torch.where(kept,
                                       1.0 - sphere_shadow_alpha(c, r, so, ld, f.dist[None], tau),
                                       1.0)
                 f.vis = 1.0 - (1.0 - torch.prod(f.one_m, 0) * rect_f)
@@ -378,6 +395,39 @@ def _layer(scene, cfg, ray, k, tau, zero):
     y.col = tuple(torch.where(y.hit, c, b_) for c, b_ in zip(col, bg))
     y.a = torch.where(y.hit, y.alpha, 0.0)
     return y
+
+
+def _soft_forward(scene, cfg, cull=False):
+    """The soft kernels' forward in eager torch, with what the adjoint
+    needs: the primary rays, the two layers (`_layer`), the background, the
+    composite behind layer 1 and in front, and the image. With ``cull``, as
+    the soft forward kernel walks: the ranking over each warp's primary
+    candidates of the widened cone (`cull.primary_candidates` at tau), and
+    each shadow product over the warp's candidates as well."""
+    tau = cfg.soft_tau
+    zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
+    ray = fused.primary_ray_terms(scene, cfg)
+    keep = None
+    if cull and scene.spheres.count:
+        keep = per_pixel(primary_candidates(scene.spheres, scene.camera.eye, ray.d, tau),
+                         cfg.width)
+    y1, y2 = (_layer(scene, cfg, ray, k, tau, zero, warp_cull=cull)
+              for _, k in two_layers(scene, ray.o, ray.d, tau, keep))
+    bg = vm.splat(scene.background)
+    behind = tuple(y2.a * y2.col[c] + (1.0 - y2.a) * bg[c] for c in range(3))
+    comp = tuple(y1.a * y1.col[c] + (1.0 - y1.a) * behind[c] for c in range(3))
+    img = tuple(vm.clip01(c) for c in comp) if cfg.clip else comp
+    return SimpleNamespace(ray=ray, y1=y1, y2=y2, bg=bg, behind=behind, comp=comp, img=img)
+
+
+def render_vec_soft_culled(scene, cfg: RenderConfig):
+    """The soft forward kernel's algorithm in eager torch: the two layers
+    ranked over each warp's primary candidates, each shadow product over
+    the warp's candidates by the per-pixel rule, the composite. The (H, W,
+    3) image."""
+    check_soft_kernel_config(scene, cfg)
+    with torch.no_grad():
+        return torch.stack(_soft_forward(scene, cfg, cull=True).img, dim=-1)
 
 
 def _soft_adjoint(scene, cfg, cotangent):
@@ -390,16 +440,12 @@ def _soft_adjoint(scene, cfg, cotangent):
     N, M, L = sp.count, rc.count, lt.count
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     zero = torch.zeros((cfg.height, cfg.width), **like)
-    ray = fused.primary_ray_terms(scene, cfg)
+    fw = _soft_forward(scene, cfg)
+    ray, y1, y2, bg, behind, comp = fw.ray, fw.y1, fw.y2, fw.bg, fw.behind, fw.comp
     o, d = ray.o, ray.d
-    y1, y2 = (_layer(scene, cfg, ray, k, tau, zero) for _, k in two_layers(scene, o, d, tau))
 
-    # ---- composite, and the image's cotangent through the clip
-    bg = vm.splat(scene.background)
-    behind = tuple(y2.a * y2.col[c] + (1.0 - y2.a) * bg[c] for c in range(3))
-    comp = tuple(y1.a * y1.col[c] + (1.0 - y1.a) * behind[c] for c in range(3))
-    img = tuple(vm.clip01(c) for c in comp) if cfg.clip else comp
-    g_img, sq = cotangent(img)
+    # ---- the image's cotangent through the clip
+    g_img, sq = cotangent(fw.img)
     g_comp = tuple(g * (fused._clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, comp))
 
     # ---- composite adjoint

@@ -212,16 +212,19 @@ def occluded_soft(scene, so, ld, dist, tau):
     return 1.0 - torch.prod(torch.cat(factors), dim=0)
 
 
-def two_layers(scene, o, d, tau):
+def two_layers(scene, o, d, tau, keep=None):
     """[(t1, k1), (t2, k2)]: the nearest and next-nearest soft layers by
     t_rank (argmin with first-wins ties, then the winner-masked re-argmin,
     so the later of a tied pair is layer 2). k numbers spheres 0..N-1 and
-    rects N..N+M-1; a dead layer has k = -1 and t = BIG. No gradient."""
+    rects N..N+M-1; a dead layer has k = -1 and t = BIG. No gradient.
+    ``keep`` (N, H, W) bool, if given, limits each ray's spheres to those it
+    marks (the soft forward kernel's culled ranking)."""
     with torch.no_grad():
         parts = []
         if scene.spheres.count:
             c, r = sphere_axis(scene.spheres)
-            parts.append(sphere_soft(c, r, _lead(o), _lead(d), tau)[0])
+            ts = sphere_soft(c, r, _lead(o), _lead(d), tau)[0]
+            parts.append(ts if keep is None else torch.where(keep, ts, BIG))
         if scene.rects.count:
             parts.append(rect_ts(scene.rects, o, d))
         t_all = torch.cat(parts)

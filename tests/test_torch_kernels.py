@@ -683,3 +683,89 @@ def test_flat_kernels_leave_no_state_in_their_scratch(cuda):
     alone = step(flat_a, torch.full((n,), 7.0, device=cuda))
     assert torch.equal(first, again) and torch.equal(first, alone)
     assert not torch.equal(first, other)
+
+
+# ---------------------------------------------------------------------------
+# The per-warp culls of the forwards, rows 4 and 7 (csrc/fused_vec_render.cu,
+# csrc/fused_vec_soft_render.cu)
+# ---------------------------------------------------------------------------
+
+
+def _forwards_hold(scene, cfg, tau):
+    """Row 4 against `render_vec_plain` (image and hit-pixel planes bit for
+    bit, planes 0 on a miss) and row 7 at ``tau`` against
+    `render_vec_soft_plain` (the oracle rule), each three calls
+    bit-identical; rows 6 and 9 against the forwards' images give a loss
+    and every gradient of exactly 0."""
+    before = (fused_vec.VEC_RENDER.launches, fused_vec_soft.SOFT_RENDER.launches)
+    vec = [fused_vec.render_vec(scene, cfg) for _ in range(3)]
+    soft_cfg = dataclasses.replace(cfg, soft_tau=tau)
+    soft = [fused_vec_soft.render_vec_soft(scene, soft_cfg) for _ in range(3)]
+    assert (fused_vec.VEC_RENDER.launches, fused_vec_soft.SOFT_RENDER.launches) == (
+        before[0] + 3, before[1] + 3)
+    assert all(torch.equal(vec[0][0], v[0]) and torch.equal(vec[0][1], v[1]) for v in vec[1:])
+    assert all(torch.equal(soft[0], s) for s in soft[1:])
+    img_k, vis_k = vec[0]
+    img_p, vis_p = fused_vec.render_vec_plain(scene, cfg)
+    o, d = pipeline.primary_rays(scene, cfg)
+    hit = nearest_vec(scene, o, d)[1] >= 0
+    assert torch.equal(img_k, img_p)
+    assert torch.equal(vis_k[:, hit], vis_p[:, hit])
+    assert not vis_k[:, ~hit].any()
+    err = (soft[0] - fused_vec_soft.render_vec_soft_plain(scene, soft_cfg)).abs()
+    assert float((err > 2e-3).float().mean()) < 1e-3
+    assert float(err.mean()) < 1e-4
+    l_0, g_0 = fused_vec.loss_grad_vec(scene, cfg, img_k.detach())
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+    l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, soft_cfg, soft[0].detach())
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_forwards_at_a_ragged_size(cuda, seed):
+    """At 203x333 the last warp of each row has 13 live lanes and the last
+    tile row 3 live rows of 8: rows 4 and 7 (tau 0.08) from perturb seeds
+    0-2, without a hang."""
+    scene, spec, _ = configs.config5_many_spheres(device=cuda)
+    scene = configs.perturb(scene, spec, scale=0.05, seed=seed)
+    _forwards_hold(scene, RenderConfig(height=203, width=333, shadows=True), 0.08)
+
+
+@pytest.mark.cuda
+def test_forwards_at_the_edges_of_the_culls(cuda):
+    """Spheres straddling warp boundaries and grazing the limb of a pixel's
+    primary or shadow ray (`_cull_edge_scene`): rows 4 and 7 (tau 0.01)."""
+    scene, _, _ = configs.config5_many_spheres(device=cuda)
+    cfg = RenderConfig(height=96, width=160, shadows=True)
+    _forwards_hold(_cull_edge_scene(scene, cfg), cfg, 0.01)
+
+
+@pytest.mark.cuda
+def test_forwards_at_the_shared_memory_limit(cuda):
+    """Rows 4 and 7 at the most spheres a block's shared memory holds (read
+    from the card: at least the 3392 of the layout before the culls, with
+    the H100's 227 KB), on a 64x96 image; 16 spheres more are refused with
+    the numbers."""
+    n = fused_vec.most_render_spheres()
+    assert fused_vec_soft.most_render_spheres() == n  # one layout
+    if fused_vec.VEC_RENDER.lib().rrt_smem_optin() >= 232448:
+        assert n >= 3392
+    scene, spec, _ = configs.config5_many_spheres(n_spheres=n, device=cuda)
+    scene = configs.perturb(scene, spec, scale=0.05, seed=4)
+    cfg = RenderConfig(height=64, width=96, shadows=True)
+    img_k, vis_k = fused_vec.render_vec(scene, cfg)
+    img_p, vis_p = fused_vec.render_vec_plain(scene, cfg)
+    o, d = pipeline.primary_rays(scene, cfg)
+    hit = nearest_vec(scene, o, d)[1] >= 0
+    assert torch.equal(img_k, img_p) and torch.equal(vis_k[:, hit], vis_p[:, hit])
+    soft_cfg = dataclasses.replace(cfg, soft_tau=0.08)
+    err = (fused_vec_soft.render_vec_soft(scene, soft_cfg)
+           - fused_vec_soft.render_vec_soft_plain(scene, soft_cfg)).abs()
+    assert float((err > 2e-3).float().mean()) < 1e-3 and float(err.mean()) < 1e-4
+    more, _, _ = configs.config5_many_spheres(n_spheres=n + 16, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+            fused_vec.render_vec(more, cfg)
+        with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+            fused_vec_soft.render_vec_soft(more, soft_cfg)

@@ -1,11 +1,11 @@
 """The split tools' cuts against the current CUDA sources, on the CPU.
 
 tools/flat_step_split.py and tools/vec_step_split.py time variant builds
-of the step kernels, each with one part cut by a text substitution that
-must match its source exactly once (make_variant raises otherwise). A cut
-that no longer matches would show only on the card, after the build; here
-every cut of the set each tool picks for the current sources is applied to
-a copy of them, without nvcc. Nothing here imports JAX; the file runs in
+of the step and forward kernels, each with one part cut by a text
+substitution that must match its source exactly once (make_variant raises
+otherwise). A cut that no longer matches would show only on the card, after
+the build; here every cut of the set each tool picks for the current
+sources is applied to a copy of them, without nvcc. Nothing here imports JAX; the file runs in
 about a second, on one torch thread.
 """
 
@@ -42,6 +42,9 @@ def _current_cuts():
     cases = [("flat", name, subs, "fused_step.cu") for name, subs in flat.items()]
     cases += [("vec", name, subs, "fused_vec_step.cu")
               for name, subs in vec_step_split.CUTS_CULLED.items()]
+    for kernel, source in (("fwd", "fused_vec_render.cu"), ("soft_fwd", "fused_vec_soft_render.cu")):
+        _, cuts = vec_step_split.cut_set(CSRC, kernel)
+        cases += [(kernel, name, subs, source) for name, subs in cuts.items()]
     return cases
 
 
@@ -52,6 +55,14 @@ def test_the_flat_tool_picks_the_one_launch_cuts():
     which, cuts = flat_step_split.cut_set(CSRC)
     assert which == "one_launch" and cuts is flat_step_split.CUTS
     assert set(flat_step_split.CUTS_PARENT) <= set(cuts)
+
+
+@pytest.mark.parametrize("kernel, cuts", [("fwd", "FWD_CULLED"), ("soft_fwd", "SOFT_FWD_CULLED")])
+def test_the_vec_tool_picks_the_culled_forward_cuts(kernel, cuts):
+    which, got = vec_step_split.cut_set(CSRC, kernel)
+    assert which == "culled" and got is getattr(vec_step_split, cuts)
+    parent = getattr(vec_step_split, cuts.replace("CULLED", "PARENT"))
+    assert set(parent) <= set(got)
 
 
 @pytest.mark.parametrize("tool, name, subs, source", CASES,
