@@ -10,14 +10,17 @@ non-zero:
                ops/kernels/csrc (one process per source, all started
                together), and with them the contracted builds of phase 7.
   3. render  - the forward render kernel against its plain version (eager
-               torch on the same card): config 2 at 512^2, config 3 at 256^2
+               torch on the same card): config 2 at 512^2, config 3 at 512^2
                (two lights, two visibility planes), config 1 at 64^2 (no
-               shadows, no planes). Image: fewer than 0.1% of pixel-channels
-               off by more than 2e-3 and a mean error under 1e-4 (the rule of
-               tests/test_render_vs_oracle.py). Visibility: under 0.1% of the
-               pixels that hit an object differ (on a miss the plane holds
-               the shadow test of a ray cast from the BIG sentinel, noise in
-               any implementation, and nothing reads it).
+               shadows, no planes) and 23 spheres of config 5 with its ground
+               at 512^2 (24 objects, the most the kernel takes). The image bit
+               for bit, the planes bit for bit on the pixels that hit an
+               object and 0 where the ray hits nothing
+               (the plain version's planes hold the shadow test of a ray cast
+               from the BIG sentinel there, and nothing reads them); and the
+               rule of tests/test_render_vs_oracle.py, printed beside (fewer
+               than 0.1% of pixel-channels off by more than 2e-3, a mean
+               error under 1e-4).
   4. step    - the fused step kernel against autograd and against the eager
                hand-written adjoint, config 2 at 512^2 from
                perturb(scale=0.1, seed=4): loss within 1e-4 relative, every
@@ -29,7 +32,9 @@ non-zero:
                (median of 20 after warm-up), beside the kernel's bound; and
                each kernel's device time by launch and its launches per call
                (torch.profiler's CUDA activity over 20 calls: `device`); the
-               step kernel must make one launch a call.
+               step kernel must make one launch a call. The forward also at
+               config 3 and at 24 objects, 512^2 (`render_shapes`: events and
+               device time).
   7. fmad    - both kernels built as the port builds them (--fmad=false)
                and with nvcc's default FMA contraction, timed on the same
                inputs, and the contracted build's distance from the plain
@@ -119,7 +124,9 @@ non-zero:
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
-time per call, and `launches_per_call`), and last
+time per call, and `launches_per_call`; the three forwards add
+`launches_render_fn`, their launches in phase 17's run of their family,
+beside `launches` on their CLI path), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -224,36 +231,51 @@ def _hit_mask(scene, cfg):
     return pl.trace_nearest(scene, o, d, cfg.shape)[1]
 
 
+# Row 2's shapes: (label, config number or the spheres of config 5, size,
+# visibility planes).
+RENDER_CASES = (("config2_512", 2, 512, 1), ("config3_512", 3, 512, 2), ("config1_64", 1, 64, 0),
+                ("24obj_512", 23, 512, 1))
+
+
+def _render_case(num, size):
+    from reversible_raytracer_tpu_torch.models import configs
+
+    if num in configs.CONFIGS:
+        return configs.CONFIGS[num](size=size, device="cuda")
+    return configs.config5_many_spheres(size=size, n_spheres=num, device="cuda")
+
+
 def phase_render():
     import torch
 
-    from reversible_raytracer_tpu_torch.models import configs
     from reversible_raytracer_tpu_torch.ops.kernels import fused
 
     rows = []
-    for num, size, planes in ((2, 512, 1), (3, 256, 2), (1, 64, 0)):
-        scene, _, cfg = configs.CONFIGS[num](size=size, device="cuda")
+    for label, num, size, planes in RENDER_CASES:
+        scene, _, cfg = _render_case(num, size)
         img_k, vis_k = fused.render_fused(scene, cfg)
         img_p, vis_p = fused.render_fused_plain(scene, cfg)
         torch.cuda.synchronize()
         if img_k.shape != img_p.shape or vis_k.shape != vis_p.shape or vis_k.shape[0] != planes:
-            raise AssertionError(f"config {num}: shapes {img_k.shape}/{vis_k.shape} "
+            raise AssertionError(f"{label}: shapes {img_k.shape}/{vis_k.shape} "
                                  f"vs {img_p.shape}/{vis_p.shape}")
         if not torch.isfinite(img_k).all():
-            raise AssertionError(f"config {num}: non-finite pixels")
+            raise AssertionError(f"{label}: non-finite pixels")
         err = (img_k - img_p).abs()
-        frac_bad = float((err > 2e-3).float().mean())
-        mean_err = float(err.mean())
         hit = _hit_mask(scene, cfg)
-        vis_hit = float((vis_k != vis_p)[:, hit].float().mean()) if planes else 0.0
-        vis_all = float((vis_k != vis_p).float().mean()) if planes else 0.0
-        row = dict(config=num, size=size, planes=planes, frac_bad=frac_bad, mean_err=mean_err,
-                   max_abs_err=float(err.max()), vis_diff_hit=vis_hit, vis_diff_all=vis_all)
+        row = dict(shape=label, objects=scene.spheres.count + scene.rects.count, size=size,
+                   planes=planes, frac_bad=float((err > 2e-3).float().mean()),
+                   mean_err=float(err.mean()), max_abs_err=float(err.max()),
+                   bit_identical=bool(torch.equal(img_k, img_p)
+                                      and torch.equal(vis_k[:, hit], vis_p[:, hit])),
+                   vis_on_miss_zero=not bool(vis_k[:, ~hit].any()),
+                   hit_share=float(hit.float().mean()))
         rows.append(row)
-        if not (frac_bad < 1e-3 and mean_err < 1e-4 and vis_hit < 1e-3):
+        if not (row["frac_bad"] < 1e-3 and row["mean_err"] < 1e-4 and row["bit_identical"]
+                and row["vis_on_miss_zero"]):
             raise AssertionError(f"forward kernel disagrees with its plain version: {row}")
     emit("render", ok=True, rows=rows)
-    return max(r["max_abs_err"] for r in rows if r["config"] == 2)
+    return max(r["max_abs_err"] for r in rows if r["shape"] == "config2_512")
 
 
 def _grad_errors(ga, gb):
@@ -521,18 +543,22 @@ def _common_ops(c):
     return launch + lines + c["pixels"] * (OPS["ray"] + trace)
 
 
-def render_ops(c, cull=False):
+def render_ops(c, cull=False, misses=True):
     """A hard forward's operations: every object's primary test per pixel
-    and, as rows 2 and 4 shaded before the culls, the shadow rays of every
-    pixel (a miss's from the BIG sentinel); ``cull``: row 4's per-warp culls
-    (`_cull_ops` over the counts of `work_counts(..., cull=True)`) and no
-    shadow rays where the ray hits nothing."""
+    and, as rows 2 and 4 shaded before their redesigns, the shadow rays of
+    every pixel (a miss's from the BIG sentinel); ``misses=False``: as row 2
+    shades since its redesign, no shading and no shadow rays where the ray
+    hits nothing; ``cull``: row 4's per-warp culls (`_cull_ops` over the
+    counts of `work_counts(..., cull=True)`) and no shadow rays on a miss."""
     miss = c["pixels"] - c["hit"]
     shade = c["sph"] * OPS["surf_sphere"] + c["rect"] * OPS["surf_rect"] + c["lit"] * OPS["phong"]
+    hit_shadows = c["hit"] * (OPS["so"] + c["lights"] * OPS["light"]) + shade
     if cull:
         culled, _ = _cull_ops(c)
         return (_common_ops(c) - c["pixels"] * c["n_sph"] * OPS["sphere_primary"] + culled
-                + c["hit"] * (OPS["so"] + c["lights"] * OPS["light"]) + shade
+                + hit_shadows + c["shadow_rect_hit"] * OPS["rect_shadow"])
+    if not misses:
+        return (_common_ops(c) + hit_shadows + c["shadow_sph_hit"] * OPS["sphere_shadow"]
                 + c["shadow_rect_hit"] * OPS["rect_shadow"])
     return (_common_ops(c) + c["pixels"] * (OPS["so"] + c["lights"] * OPS["light"])
             + miss * OPS["miss_point"] + shade
@@ -587,6 +613,28 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _render_shape_times(num, size):
+    """Row 2 at another shape: its event and device time, and its bound."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+
+    scene, _, cfg = _render_case(num, size)
+    flat = fused._cuda_flat(scene, cfg)
+    geom = fused._geometry(scene, cfg)
+    img = torch.empty((size, size, 3), device="cuda")
+    vis = torch.empty((scene.lights.count, size, size), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        fused.FUSED_RENDER.call("rrt_render", flat.data_ptr(), *geom, img.data_ptr(),
+                                vis.data_ptr(), stream)
+
+    nbytes = 4 * (flat.numel() + size * size * (3 + vis.shape[0]))
+    return dict(ms=time_ms(call), device=device_ms(call),
+                bound=bound(render_ops(work_counts(scene, cfg), misses=False), nbytes))
+
+
 def phase_times(step_inputs, launches, render_err, step_err):
     import torch
 
@@ -619,11 +667,13 @@ def phase_times(step_inputs, launches, render_err, step_err):
         raise AssertionError(f"row 1 did not make one launch a call: {device['fused_step']}")
     render_plain_ms = time_ms(lambda: fused.render_fused_plain(scene, cfg))
     step_plain_ms = time_ms(lambda: fused.loss_grad_fused_plain(scene, cfg, target))
+    render_shapes = {label: _render_shape_times(num, size) for label, num, size, _ in RENDER_CASES
+                     if label in ("config3_512", "24obj_512")}
     for k in fused.KERNELS:
         k.launches = saved[k.name]
 
     c = work_counts(scene, cfg)
-    r_bound, r_by = bound(render_ops(c), 4 * (S + H * W * (3 + n_vis)))
+    r_bound, r_by = bound(render_ops(c, misses=False), 4 * (S + H * W * (3 + n_vis)))
     s_bound, s_by = bound(step_ops(c), 4 * (S + H * W * 3 + 1 + S))
     kernels = [
         dict(name="fused_step", route="cuda",
@@ -641,9 +691,10 @@ def phase_times(step_inputs, launches, render_err, step_err):
              device_ms=device["fused_render"]["ms"],
              launches_per_call=device["fused_render"]["launches"]),
     ]
-    emit("times", ok=True, size=H, work=c, render_ops=render_ops(c), step_ops=step_ops(c),
-         step_rays_per_s=H * W / (step_ms * 1e-3), ms={"fused_render": render_ms,
-                                                       "fused_step": step_ms}, device=device)
+    emit("times", ok=True, size=H, work=c, render_ops=render_ops(c, misses=False),
+         step_ops=step_ops(c), step_rays_per_s=H * W / (step_ms * 1e-3),
+         ms={"fused_render": render_ms, "fused_step": step_ms}, device=device,
+         render_shapes=render_shapes)
     return kernels
 
 
@@ -1619,6 +1670,10 @@ def main() -> int:
             bound_ms=gt[label]["bound"][0], bound_by=gt[label]["bound"][1], library_ms=None,
             device_ms=gt[label]["bwd_device"]["ms"],
             launches_per_call=gt[label]["bwd_device"]["launches"]))
+    for label, family, *_ in GRAD_CASES:  # the forwards' launches on the render_fn path
+        for k in kernels:
+            if k["name"] == FWD_NAMES[family]:
+                k["launches_render_fn"] = grad_launches[label][k["name"]]
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

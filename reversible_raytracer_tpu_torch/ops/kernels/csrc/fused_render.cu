@@ -1,39 +1,60 @@
 // Forward render kernel: the (H, W, 3) image and the shadow-visibility
-// planes of a hard-shaded, untextured scene (spp 1, perspective, Phong).
+// planes of a hard-shaded, untextured scene of at most 24 objects (spp 1,
+// perspective, Phong).
 //
 // Replaces the TPU kernel _make_fused.fwd_kernel
 // (reversible_raytracer_tpu/ops/kernels/fused.py:224, pallas_call at :237).
 //
-// Design: one thread per pixel, 32 x 8 pixels per block. The flat scene
-// (a few hundred floats) is staged once per block into shared memory; rays
-// are generated in the kernel, so the only device-memory traffic is the
-// output: 12 bytes of image and 4 bytes per visibility plane per pixel.
-// The bound on this card is operations, not bytes: each pixel runs the
-// intersection loop over every object for the primary ray and again for
-// each light's shadow ray (see chip_smoke.py for the count). Threads past
-// the ragged edge write nothing; there is no padded canvas.
+// Design: one thread per pixel, 32 x 8 pixels per block, one block a tile.
+// The block stages the flat scene (a few hundred floats) into shared memory
+// while one thread computes the camera basis and tan(fov/2) into it, with
+// the operations every pixel would otherwise repeat, so with their bits.
+// Each pixel walks every object for its primary ray (trace), and only where
+// the ray hit: the winner's attributes (surface), per light the any-hit walk
+// of its shadow ray (occluded, stops at the first occluder) and the Phong
+// terms (shade_hit). The launch bound of 4 blocks an SM lets ptxas keep 50
+// registers, where it keeps 48 without one or at 5 blocks: 3-7% faster at
+// configs 2 and 3 (tools/flat_step_split.py). Rays are generated in the
+// kernel, so the only device-memory traffic is the output: 12 bytes of image
+// and 4 bytes per visibility plane per pixel. Threads past the ragged edge
+// write nothing; there is no padded canvas.
 //
-// The visibility plane of a light is 1 where the shadow ray reaches it.
-// Like render_tile, it is also written for pixels that miss every object,
-// where its value is that of a shadow ray cast from the BIG sentinel and
-// carries no meaning; the render backward reads it only where the ray hit.
+// The visibility plane of a light is 1 where the shadow ray of a hit pixel
+// reaches it and 0 where it is blocked, and 0 on a pixel that hits nothing
+// (there is no surface to shade; the render backward reads the planes only
+// where the ray hit).
 #include "render_common.cuh"
 
 using namespace rrt;
 
-__global__ void __launch_bounds__(BLOCK_THREADS)
+constexpr int FWD_MIN_BLOCKS = 4;  // blocks an SM at the least
+
+__global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
     render_kernel(const float* __restrict__ flat, Params p, Layout ly, float* __restrict__ img,
                   float* __restrict__ vis) {
-  extern __shared__ float sc[];
-  stage(sc, flat, ly.S);
+  extern __shared__ float sc_s[];
+  __shared__ Camera cam;
+  stage(sc_s, flat, ly.S);
+  if (threadIdx.x == 0 && threadIdx.y == 0) cam = camera(FlatScene{flat, ly});
   __syncthreads();
+  const FlatScene sc{sc_s, ly};
 
   const int j = blockIdx.x * BLOCK_X + threadIdx.x;
   const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
   if (i >= p.H || j >= p.W) return;
 
-  unsigned bits;
-  const V3 col = render_pixel(FlatScene{sc, ly}, p, i, j, &bits);
+  const V3 d = primary_ray(cam, p, i, j).d;
+  const Nearest h = trace(sc, cam.eye, d);
+  V3 col = sc.background();
+  unsigned bits = 0u;
+  if (h.k >= 0)
+    col = shade_hit(
+        sc, cam.eye, d, h.t, surface(sc, cam.eye, d, h),
+        [&](int, V3 so, const LightGeo& g) {
+          return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
+        },
+        &bits);
+  if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
   const long long px = (long long)i * p.W + j;
   img[3 * px + 0] = col.x;
   img[3 * px + 1] = col.y;

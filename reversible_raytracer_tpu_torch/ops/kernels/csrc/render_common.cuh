@@ -474,26 +474,6 @@ __device__ __forceinline__ V3 shade_hit(const S& sc, V3 o, V3 d, float t, const 
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
-// The clipped color and visibility bits of pixel (i, j): the forward
-// kernels' whole per-pixel work.
-template <class S>
-__device__ __forceinline__ V3 render_pixel(const S& sc, const Params& p, int i, int j,
-                                           unsigned* bits) {
-  const Camera cam = camera(sc);
-  const Ray r = primary_ray(cam, p, i, j);
-  const Nearest h = trace(sc, cam.eye, r.d);
-  const Surface s = surface(sc, cam.eye, r.d, h);
-  V3 col = shade_hit(
-      sc, cam.eye, r.d, h.t, s,
-      [&](int, V3 so, const LightGeo& g) {
-        return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
-      },
-      bits);
-  if (h.k < 0) col = sc.background();
-  if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
-  return col;
-}
-
 // Stage n floats into shared memory, once per block.
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -593,8 +573,9 @@ struct ResidualSource {
 // CotangentSource, the render backwards: the caller's cotangent of the
 // clipped image (zero outside the image) and no loss; a light's visibility
 // is the forward's saved plane. lit() runs only where the ray hit (on a
-// miss the plane holds the test of a ray from the BIG sentinel), and not
-// at all without shadows, when there are no planes.
+// miss the forward kernels' planes hold 0 and the plain versions' the test
+// of a ray from the BIG sentinel), and not at all without shadows, when
+// there are no planes.
 struct CotangentSource {
   static constexpr bool casts_shadows = false;
   const float* g_img;  // (H, W, 3)

@@ -206,9 +206,12 @@ def render_fused_plain(scene, cfg: RenderConfig):
 
 def render_fused(scene, cfg: RenderConfig):
     """Image (H, W, 3) and visibility planes (n_vis, H, W). The forward
-    kernel on CUDA, `render_fused_plain` on the CPU. The image carries the
-    scene's gradient on both: on CUDA through the render backward kernel
-    (the planes carry none)."""
+    kernel on CUDA, `render_fused_plain` on the CPU: the same image to the
+    bit, the same planes where the ray hit an object; where it hit nothing
+    the kernel's planes are 0 (the plain version's hold the shadow test of a
+    ray from the BIG sentinel; the render backward reads neither). The image
+    carries the scene's gradient on both: on CUDA through the render
+    backward kernel (the planes carry none)."""
     dev = scene.device
     if dev.type == "cpu":
         return render_fused_plain(scene, cfg)

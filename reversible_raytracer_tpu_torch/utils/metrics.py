@@ -1,6 +1,6 @@
 """Structured per-step metrics: one JSON record per logged step, to stderr
-and/or a JSONL file. The file is truncated when a logger opens it, so a
-file holds one run."""
+and/or a JSONL file. A logger appends to the file, as the JAX package's
+does, so a resumed run's records follow the first run's."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ class MetricsLogger:
     def __post_init__(self):
         if self.jsonl_path:
             os.makedirs(os.path.dirname(os.path.abspath(self.jsonl_path)), exist_ok=True)
-            self._fh = open(self.jsonl_path, "w", buffering=1)
+            self._fh = open(self.jsonl_path, "a", buffering=1)
 
     def log(self, **record) -> None:
         record.setdefault("t", round(time.perf_counter() - self._t0, 6))

@@ -67,14 +67,25 @@ def test_save_png_round_trip(tmp_path):
     np.testing.assert_array_equal(back, (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8))
 
 
-def test_metrics_logger_truncates(tmp_path):
-    path = tmp_path / "m.jsonl"
-    for run in range(2):
-        log = MetricsLogger(jsonl_path=str(path), echo=False)
-        log.log(step=0, run=run)
-        log.close()
-    recs = [json.loads(line) for line in path.read_text().splitlines()]
-    assert [r["run"] for r in recs] == [1]
+def test_metrics_logger_appends_as_jax_does(tmp_path):
+    """Two runs into one file, through the port's logger and through the JAX
+    package's: both files hold both runs' records, in the same order."""
+    from reversible_raytracer_tpu.utils.metrics import MetricsLogger as JaxMetricsLogger
+
+    def two_runs(logger_cls, path):
+        for run in range(2):
+            log = logger_cls(jsonl_path=str(path), echo=False)
+            for step in range(3):
+                log.log(step=step, run=run, loss=0.5 / (step + 1))
+            log.close()
+        recs = [json.loads(line) for line in path.read_text().splitlines()]
+        assert all("t" in r for r in recs)
+        return [{k: v for k, v in r.items() if k != "t"} for r in recs]
+
+    port = two_runs(MetricsLogger, tmp_path / "port.jsonl")
+    jax_recs = two_runs(JaxMetricsLogger, tmp_path / "jax.jsonl")
+    assert port == jax_recs
+    assert [(r["run"], r["step"]) for r in port] == [(r, s) for r in range(2) for s in range(3)]
 
 
 def test_package_imports_no_jax():

@@ -1,7 +1,7 @@
 """The split tools' cuts against the current CUDA sources, on the CPU.
 
 tools/flat_step_split.py and tools/vec_step_split.py time variant builds
-of the step and forward kernels, each with one part cut by a text
+of the step and forward kernels (rows 1-2 and 4-7), each with one part cut by a text
 substitution that must match its source exactly once (make_variant raises
 otherwise). A cut that no longer matches would show only on the card, after
 the build; here every cut of the set each tool picks for the current
@@ -40,6 +40,8 @@ def _current_cuts():
     _, flat = flat_step_split.cut_set(CSRC)
     assert (CSRC / "cull.cuh").exists()  # vec_step_split picks CUTS_CULLED
     cases = [("flat", name, subs, "fused_step.cu") for name, subs in flat.items()]
+    _, flat_fwd = flat_step_split.cut_set(CSRC, "fwd")
+    cases += [("flat_fwd", name, subs, "fused_render.cu") for name, subs in flat_fwd.items()]
     cases += [("vec", name, subs, "fused_vec_step.cu")
               for name, subs in vec_step_split.CUTS_CULLED.items()]
     for kernel, source in (("fwd", "fused_vec_render.cu"), ("soft_fwd", "fused_vec_soft_render.cu")):
@@ -55,6 +57,8 @@ def test_the_flat_tool_picks_the_one_launch_cuts():
     which, cuts = flat_step_split.cut_set(CSRC)
     assert which == "one_launch" and cuts is flat_step_split.CUTS
     assert set(flat_step_split.CUTS_PARENT) <= set(cuts)
+    which, cuts = flat_step_split.cut_set(CSRC, "fwd")  # row 2 after its redesign
+    assert which == "redesign" and cuts is flat_step_split.FWD_REDESIGN
 
 
 @pytest.mark.parametrize("kernel, cuts", [("fwd", "FWD_CULLED"), ("soft_fwd", "SOFT_FWD_CULLED")])

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the small-scene step (row 1, csrc/fused_step.cu, body
-csrc/flat_step.cuh) goes: variant builds of its CUDA sources with one part
-cut each, timed on the card beside the unchanged build.
+"""Where the time of the small-scene kernels goes: variant builds of their
+CUDA sources with one part cut each, timed on the card beside the unchanged
+build. By default the step (row 1, csrc/fused_step.cu, body
+csrc/flat_step.cuh).
 
-    python3 tools/flat_step_split.py [--tree DIR] [--reps 2] [--kernel step|bwd]
+    python3 tools/flat_step_split.py [--tree DIR] [--reps 2] [--kernel step|bwd|fwd]
 
 The method of tools/vec_step_split.py, whose variant builds this script
 reuses: ``--tree`` names a checkout whose kernels are split (its port
@@ -32,6 +33,25 @@ and the step of one cooperative launch, told apart by flat_step.cuh):
     error stay);
   - shadow_lit: the shadow rays' any-hit walk cut to a read of the forward
     kernel's visibility plane (the same bits, so the same later work).
+``--kernel fwd`` splits the forward (row 2, csrc/fused_render.cu) through
+``rrt_render`` at 512^2: config 2, config 3, and config5_many_spheres with
+23 spheres and its ground (24 objects, the most the unrolled kernels take),
+each from perturb(seed=4) (scale 0.1, 0.05 for config 5). Its cuts, in
+both sets:
+  - primary_winner: the primary walk cut to a read of the winner from a
+    plane the script computes (`nearest_vec`), its t recomputed;
+  - shadow_plane: the shadow walks cut to a read of the shipped forward's
+    visibility planes (the same bits on hit pixels);
+  - no_phong: the Phong terms of each light cut to the visibility alone;
+  - no_writes: the image's and planes' stores cut to one that never runs.
+Before the redesign (each thread calling render_pixel, told apart by
+whether fused_render.cu calls it) also:
+  - camera_once: the camera basis and tan(fov/2) computed once a block by
+    one thread into shared memory, not per pixel;
+  - skip_miss: no shading and no shadow walk where the primary ray missed.
+After it also the cut floor (every ray misses: what is left is the launch,
+the block's staging and camera, the rays and the stores), and min_blocks_N,
+a build with the launch bound of N blocks an SM for the shipped 4.
 A part's time is the unchanged build's less the variant's. Prints one JSON
 line per shape, then the card's nvidia-smi line; stops on a build failure.
 """
@@ -46,8 +66,8 @@ import sys
 from pathlib import Path
 
 from kernel_timing import device_ms, time_ms
-from vec_step_split import (CLIP_GRAD, CUT_ADJOINT, HERE, LIT_CULLED, LIT_CULLED_PLANE,
-                            build_variants)
+from vec_step_split import (CLIP_GRAD, CUT_ADJOINT, FWD_PARENT, HERE, LIT_CULLED,
+                            LIT_CULLED_PLANE, NS_END, SPLIT_NEAREST, build_variants)
 
 PUT = "  v = warp_sum(v);\n  if (lane == 0) row[slot] = v;\n"
 KEEP = "  if (v == 1.5e-45f) row[slot] = v;  // keeps v live, no shuffles\n"
@@ -92,17 +112,167 @@ CUTS = {
 }
 
 
-def cut_set(csrc: Path) -> tuple[str, dict]:
-    """The cuts that fit the tree's flat_step.cuh, and their set's name."""
+# The forward (row 2) before its redesign: one thread a pixel, each calling
+# render_pixel (render_common.cuh), which row 4's parent also called: its
+# primary_winner, shadow_plane and no_phong cuts are row 4's.
+FWD_STORES_PARENT = """  img[3 * px + 0] = col.x;
+  img[3 * px + 1] = col.y;
+  img[3 * px + 2] = col.z;
+  if (p.shadows) {
+    const long long plane = (long long)p.H * p.W;
+    for (int l = 0; l < ly.L; ++l) vis[l * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
+  }
+"""
+FWD_RENDER_PIXEL = {
+    "full": [],
+    "camera_once": [
+        ("render_common.cuh", "struct Camera {\n  V3 eye, right, up, fwd;\n  float tan_half;\n};\n",
+         "struct Camera {\n  V3 eye, right, up, fwd;\n  float tan_half;\n};\n\n"
+         "__shared__ Camera split_cam;\n"),
+        ("render_common.cuh",
+         "  const Camera cam = camera(sc);\n  const Ray r = primary_ray(cam, p, i, j);",
+         "  const Camera cam = split_cam;\n  const Ray r = primary_ray(cam, p, i, j);"),
+        ("fused_render.cu", "  stage(sc, flat, ly.S);\n  __syncthreads();\n",
+         "  stage(sc, flat, ly.S);\n  __syncthreads();\n"
+         "  if (threadIdx.x == 0 && threadIdx.y == 0) split_cam = camera(FlatScene{sc, ly});\n"
+         "  __syncthreads();\n")],
+    "primary_winner": FWD_PARENT["primary_winner"],
+    "shadow_plane": FWD_PARENT["shadow_plane"],
+    "no_phong": FWD_PARENT["no_phong"],
+    "skip_miss": [("render_common.cuh", "  V3 col = shade_hit(\n      sc, cam.eye, r.d, h.t, s,",
+                   "  V3 col = sc.background();\n  *bits = 0u;\n  if (h.k >= 0)\n"
+                   "    col = shade_hit(\n      sc, cam.eye, r.d, h.t, s,")],
+    "no_writes": [("fused_render.cu", FWD_STORES_PARENT,
+                   "  if (col.x + col.y + col.z == -7.0f + (float)bits) img[px] = 0.0f;\n")],
+}
+
+# The forward after its redesign: the camera once a block, no shading where
+# the primary ray missed, the launch bound of FWD_MIN_BLOCKS blocks an SM.
+# Besides its cuts, the bounds it was chosen among, each a build of its own.
+FWD_TRACE = "  const Nearest h = trace(sc, cam.eye, d);\n"
+FWD_LIT = """        [&](int, V3 so, const LightGeo& g) {
+          return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows"""
+FWD_REDESIGN = {
+    "full": [],
+    "primary_winner": [
+        ("render_common.cuh", NS_END, SPLIT_NEAREST),
+        ("fused_render.cu", FWD_TRACE,
+         "  const Nearest h = split_nearest(sc, cam.eye, d, (long long)i * p.W + j);\n")],
+    "floor": [("fused_render.cu", FWD_TRACE, "  const Nearest h = {BIG, -1};\n")],
+    "shadow_plane": [("fused_render.cu", FWD_LIT, """        [&](int l, V3, const LightGeo&) {
+          return !p.shadows || split_vis[((long long)l * p.H + i) * p.W + j] != 0.0f;""")],
+    "no_phong": FWD_PARENT["no_phong"],
+    "no_writes": FWD_RENDER_PIXEL["no_writes"],
+    **{f"min_blocks_{n}": [("fused_render.cu", "constexpr int FWD_MIN_BLOCKS = 4;",
+                            f"constexpr int FWD_MIN_BLOCKS = {n};")] for n in (1, 5, 6)},
+}
+
+
+def cut_set(csrc: Path, kernel: str = "step") -> tuple[str, dict]:
+    """The cuts of ``kernel`` that fit the tree's sources, and their set's
+    name."""
+    if kernel == "fwd":
+        if "render_pixel(" in (csrc / "fused_render.cu").read_text():
+            return "render_pixel", FWD_RENDER_PIXEL
+        return "redesign", FWD_REDESIGN
     three = "flat_finalize_kernel<<<" in (csrc / "flat_step.cuh").read_text()
-    return ("three_launches", CUTS_PARENT) if three else ("one_launch", CUTS)
+    cuts = CUTS_PARENT if three else CUTS
+    if kernel == "bwd":  # it casts no shadow rays
+        cuts = {name: subs for name, subs in cuts.items() if name != "shadow_lit"}
+    return ("three_launches" if three else "one_launch"), cuts
+
+
+def _print_smi():
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
+
+
+def _timed_rounds(calls, reps):
+    """Each call's event time and device time, every call once a round."""
+    ms = {name: [] for name in calls}
+    dev = {name: [] for name in calls}
+    launches = {}
+    for _ in range(reps):
+        for name, call in calls.items():
+            ms[name].append(time_ms(call))
+            d = device_ms(call)
+            dev[name].append(d["ms"])
+            launches[name] = d["kernels"]
+    full, full_dev = statistics.mean(ms["full"]), statistics.mean(dev["full"])
+    return {
+        "ms": ms, "device_ms": dev,
+        "part_ms": {name: full - statistics.mean(t) for name, t in ms.items() if name != "full"},
+        "part_device_ms": {name: full_dev - statistics.mean(t) for name, t in dev.items()
+                           if name != "full"},
+        "kernels": launches}
+
+
+FWD_SHAPES = (("config2_512", 2, 0.1), ("config3_512", 3, 0.1), ("24obj_512", 23, 0.05))
+
+
+def split_forward(tree: Path, reps: int) -> int:
+    """The forward's split (``--kernel fwd``)."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops.kernels import _build, fused
+    from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
+
+    which, cuts = cut_set(_build.CSRC, "fwd")
+    libs, ptxas = build_variants(_build, cuts, fused.FUSED_RENDER, "render_kernel")
+    print(json.dumps({"split": "build", "kernel": "fused_render", "cuts": which,
+                      "tree": str(tree), "ptxas": ptxas}), flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, num, scale in FWD_SHAPES:
+        if num in configs.CONFIGS:
+            scene, spec, cfg = configs.CONFIGS[num](size=512, device="cuda")
+        else:
+            scene, spec, cfg = configs.config5_many_spheres(size=512, n_spheres=num,
+                                                            device="cuda")
+        start = configs.perturb(scene, spec, scale=scale, seed=4)
+        flat = fused._cuda_flat(start, cfg)
+        geom = fused._geometry(start, cfg)
+        H, W = cfg.height, cfg.width
+        o, d = pl.primary_rays(start, cfg)
+        winner = nearest_vec(start, o, d)[1].to(torch.int32).contiguous()
+        shipped_img, vis = fused.render_fused(start, cfg)
+        vis = vis.contiguous()
+        outs = {name: torch.empty((H, W, 3), device="cuda") for name in libs}
+        planes = {name: torch.empty_like(vis) for name in libs}
+        calls = {}
+        for name, lib in libs.items():
+            if lib.rrt_split_set(winner.data_ptr(), vis.data_ptr()) != 0:
+                raise RuntimeError(f"rrt_split_set failed for {name}")
+
+            def call(lib=lib, out=outs[name], vo=planes[name]):
+                err = lib.rrt_render(flat.data_ptr(), *geom, out.data_ptr(), vo.data_ptr(),
+                                     stream)
+                if err != 0:
+                    raise RuntimeError(f"fused_render ({name}) failed: CUDA error {err}")
+            calls[name] = call
+            call()
+        torch.cuda.synchronize()
+        hit = winner >= 0
+        line = {"split": label, "objects": start.spheres.count + start.rects.count,
+                "lights": start.lights.count, "hit_share": float(hit.float().mean()),
+                **_timed_rounds(calls, reps),
+                "max_diff_from_full": {name: float((outs[name] - outs["full"]).abs().max())
+                                       for name in libs},
+                "planes_on_hits_as_full": {name: bool(torch.equal(planes[name][:, hit],
+                                                                  planes["full"][:, hit]))
+                                           for name in libs},
+                "full_is_shipped": bool(torch.equal(shipped_img, outs["full"]))}
+        print(json.dumps(line), flush=True)
+    _print_smi()
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--reps", type=int, default=2)
-    ap.add_argument("--kernel", choices=("step", "bwd"), default="step")
+    ap.add_argument("--kernel", choices=("step", "bwd", "fwd"), default="step")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -112,14 +282,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flat_step_split: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel == "fwd":
+        return split_forward(tree, args.reps)
     from reversible_raytracer_tpu_torch.models import configs
     from reversible_raytracer_tpu_torch.ops.kernels import _build, fused
 
-    which, cuts = cut_set(_build.CSRC)
+    which, cuts = cut_set(_build.CSRC, args.kernel)
     step = args.kernel == "step"
     kernel = fused.FUSED_STEP if step else fused.FUSED_RENDER_BWD
-    if not step:
-        cuts = {name: subs for name, subs in cuts.items() if name != "shadow_lit"}
     libs, ptxas = build_variants(_build, cuts, kernel, "flat_step_kernel")
     print(json.dumps({"split": "build", "kernel": kernel.name, "cuts": which, "tree": str(tree),
                       "ptxas": ptxas}), flush=True)
@@ -164,26 +334,10 @@ def main() -> int:
                     scratch.data_ptr(), shipped.data_ptr(), stream)
         torch.cuda.synchronize()
         diff = {name: float((outs[name] - outs["full"]).abs().max()) for name in libs}
-        ms = {name: [] for name in libs}
-        dev = {name: [] for name in libs}
-        launches = {}
-        for _ in range(args.reps):
-            for name, call in calls.items():
-                ms[name].append(time_ms(call))
-                d = device_ms(call)
-                dev[name].append(d["ms"])
-                launches[name] = d["kernels"]
-        full, full_dev = statistics.mean(ms["full"]), statistics.mean(dev["full"])
         print(json.dumps({
-            "split": label, "ms": ms, "device_ms": dev,
-            "part_ms": {name: full - statistics.mean(t) for name, t in ms.items()
-                        if name != "full"},
-            "part_device_ms": {name: full_dev - statistics.mean(t) for name, t in dev.items()
-                               if name != "full"},
-            "kernels": launches, "max_diff_from_full": diff,
+            "split": label, **_timed_rounds(calls, args.reps), "max_diff_from_full": diff,
             "full_is_shipped": bool(torch.equal(shipped, outs["full"]))}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip())
+    _print_smi()
     return 0
 
 
