@@ -27,7 +27,9 @@ non-zero:
                gradient leaf within 1e-2 of the leaf's scale; three calls
                bit-identical.
   5. main    - the port's CLI: invert --config 2 --size 512 --iters 50 on the
-               card, with the launch counts read around it.
+               card (each step one replay of `optim.make_step`'s CUDA graph),
+               with the launch counts read around it and the loop's ms a step
+               (the first step's capture included).
   6. times   - each kernel and its plain version at 512^2 with CUDA events
                (median of 20 after warm-up), beside the kernel's bound; and
                each kernel's device time by launch and its launches per call
@@ -59,7 +61,8 @@ non-zero:
                and in row 4 (at least 1520 and 3392, what they took before
                the culls, on a card with the H100's 227 KB a block).
  10. vec_main - the port's CLI: invert --config 5 --size 1024 --iters 20 on
-               the card, with the launch counts read around it.
+               the card, with the launch counts read around it and the loop's
+               ms a step.
  11. vec_times - both vec kernels and their plain versions at the two shapes
                of phase 8 (CUDA events, median of 20 after warm-up), beside
                their bounds (with the per-warp culls, and without them as
@@ -89,7 +92,8 @@ non-zero:
                the soft forward 3 times (the stage targets), the soft step
                60, the vec step 20, the vec forward at least twice, rows 1-2
                never; each soft stage's loss falls; the final parameter RMS
-               is below the start's.
+               is below the start's; the loop's ms a step (each stage runs
+               through `optim.optimize_scan`: graph replays).
  15. soft_times - both soft kernels and their plain versions at config 5
                (512^2 and 1024^2, tau 0.08) and at 513 objects (512^2), with
                CUDA events (median of 20 after warm-up), beside their bounds
@@ -121,6 +125,19 @@ non-zero:
                and without it as before); the backward's device time by
                launch and its launches per call, as in phase 6
                (`bwd_device`; row 3 must make one launch a call).
+ 19. loop    - the training loop eager (`optim.make_eager_step`, every launch
+               from the host) and captured (`optim.make_step`, one CUDA graph
+               replay a step) from the same start: config 2 at 512^2 (row 1,
+               50 steps), config 5 at 1024^2 (row 6, 20 steps), config 5 at
+               512^2 tau 0.08 (row 9, 20 steps), and config 2 at 512^2 by
+               autograd of `render` (rows 2+3, 20 steps). The per-step losses
+               and the final trainable vector bit for bit; `optimize_scan` in
+               chunks of 7 bit for bit one chunk; one launch of each kernel a
+               step in both loops; the host ms a step of each loop (the card
+               synchronized at both ends: the first step, which captures the
+               graph, apart from the rest, and the whole loop); and the
+               device's idle share over 7 more steps of each, 1 - the kernels'
+               device time (tools/kernel_timing.py) / the host wall time.
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
@@ -345,7 +362,8 @@ def phase_main():
           and math.isfinite(last) and last < first and png.exists()
           and math.isfinite(summary["param_err"]))
     emit("main", ok=ok, launches=launches, first_loss=first, final_loss=last,
-         param_err=summary["param_err"], seconds=summary["seconds"], png_bytes=png.stat().st_size
+         param_err=summary["param_err"], seconds=summary["seconds"],
+         loop_ms_per_step=summary["seconds"] * 1e3 / 50, png_bytes=png.stat().st_size
          if png.exists() else 0)
     if not ok:
         raise AssertionError("main path did not run through both kernels or did not descend")
@@ -857,6 +875,7 @@ def phase_vec_main():
           and math.isfinite(summary["param_err"]))
     emit("vec_main", ok=ok, launches=launches, first_loss=first, final_loss=last,
          param_err=summary["param_err"], loop_seconds=summary["seconds"], wall_seconds=wall,
+         loop_ms_per_step=summary["seconds"] * 1e3 / 20,
          png_bytes=png.stat().st_size if png.exists() else 0)
     if not ok:
         raise AssertionError("config-5 main path did not run through the vec kernels only, "
@@ -1089,6 +1108,7 @@ def phase_anneal_main():
          stage_first_last=[[st[0], st[-1]] for st in stages], soft_stages_fall=soft_fall,
          start_param_err=summary["start_param_err"], param_err=summary["param_err"],
          loop_seconds=summary["seconds"], wall_seconds=wall,
+         loop_ms_per_step=summary["seconds"] * 1e3 / len(la),
          png_bytes=png.stat().st_size if png.exists() else 0)
     if not ok:
         raise AssertionError("the annealed path did not run through the expected kernels, a "
@@ -1584,6 +1604,117 @@ def phase_render_grad_times():
     return rows
 
 
+# The loop phase's paths: (label, family, spheres, size, soft_tau, perturb scale,
+# lr, steps, route): the step kernels' routes of phases 5, 10 and 14 (rows 1,
+# 6, 9) and the render_fn route of phase 17 for the small-scene family (rows 2+3).
+LOOP_CASES = (("config2_512", "fused", 4, 512, 0.0, 0.1, 1e-2, 50, "step"),
+              ("config5_1024", "vec", 64, 1024, 0.0, 0.05, 1e-2, 20, "step"),
+              ("config5_512_t0.08", "soft", 64, 512, 0.08, 0.03, 2e-3, 20, "step"),
+              ("config2_512_render_fn", "fused", 4, 512, 0.0, 0.1, 1e-2, 20, "render"))
+STEP_NAMES = {"fused": "fused_step", "vec": "fused_vec_step", "soft": "fused_vec_soft_step"}
+LOOP_CHUNK = 7
+
+
+def _host_ms(fn, n):
+    """Host milliseconds a step of ``fn`` (n steps), the card synchronized at
+    both ends."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _idle_share(fn, n):
+    """1 - the kernels' summed device time / the wall time of ``fn`` (n
+    steps): torch.profiler's device time over 3 calls, the host clock's
+    median over 3 others."""
+    import statistics
+
+    dev = device_ms(fn, reps=3, warmup=1)
+    wall = statistics.median(_host_ms(fn, 1) for _ in range(3))
+    return dict(idle_share=1.0 - dev["ms"] / wall, device_ms_per_step=dev["ms"] / n,
+                wall_ms_per_step=wall / n, kernels_traced=len(dev["kernels"]),
+                launches_per_step=dev["launches"] / n)
+
+
+def phase_loop():
+    """The training loop eager (`make_eager_step`: every launch from the
+    host) and captured (`make_step`: one CUDA graph replay a step) from the
+    same start on each path of LOOP_CASES: the per-step losses and the final
+    trainable vector bit for bit, `optimize_scan` in chunks of LOOP_CHUNK bit
+    for bit one chunk, the launches of the captured loop (one of each kernel
+    a step), the host ms a step of each loop, and the device's idle share
+    over one chunk of steps of each."""
+    import torch
+
+    from reversible_raytracer_tpu_torch import optim
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    rows = []
+    for label, family, n_spheres, size, tau, scale, lr, n, route in LOOP_CASES:
+        scene, spec, cfg = _grad_case(family, n_spheres, size, tau)
+        target = render(scene, cfg).detach()
+        start = configs.perturb(scene, spec, scale=scale, seed=0)
+        ocfg = optim.OptConfig(iters=n, lr=lr)
+        render_fn = (lambda s, cfg=cfg: render(s, cfg)) if route == "render" else None
+        flags = optim.trainable_flags(spec)
+        runs = {}
+        for mode, make in (("eager", optim.make_eager_step), ("captured", optim.make_step)):
+            step, init = make(cfg, spec, ocfg, render_fn=render_fn)
+            losses = torch.empty((n,), device="cuda")
+            box = {"scene": start, "state": init(start)}
+
+            def steps(first, last, step=step, box=box, losses=losses):
+                for i in range(first, last):
+                    box["scene"], box["state"], loss, _ = step(box["scene"], box["state"],
+                                                               target)
+                    losses[i] = loss
+
+            for k in _all_kernels():
+                k.launches = 0
+            first_ms = _host_ms(lambda: steps(0, 1), 1)  # the captured one captures here
+            ms = _host_ms(lambda: steps(1, n), n - 1)
+            runs[mode] = dict(losses=losses.clone(),
+                              launches={k.name: k.launches for k in _all_kernels() if k.launches},
+                              flat=optim.ravel_trainable(box["scene"], flags).clone(),
+                              first_step_ms=first_ms, ms_per_step=ms,
+                              loop_ms_per_step=(first_ms + ms * (n - 1)) / n)
+            # one more chunk of steps from where the loop ended, under the profiler
+            runs[mode]["chunk"] = _idle_share(lambda: steps(0, LOOP_CHUNK), LOOP_CHUNK)
+        one, one_losses = optim.optimize_scan(start, target, spec, cfg, ocfg,
+                                              render_fn=render_fn)
+        chunked, chunk_losses = optim.optimize_scan(start, target, spec, cfg, ocfg,
+                                                    render_fn=render_fn, max_chunk=LOOP_CHUNK)
+        eager, captured = runs["eager"], runs["captured"]
+        want = ({STEP_NAMES[family]: n} if route == "step"
+                else {FWD_NAMES[family]: n, BWD_NAMES[family]: n})
+        row = dict(
+            case=label, route=route, steps=n,
+            bit_equal=bool(torch.equal(eager["losses"], captured["losses"])
+                           and torch.equal(eager["flat"], captured["flat"])),
+            chunks_bit_equal=bool(torch.equal(one_losses, chunk_losses)
+                                  and torch.equal(one_losses, captured["losses"])
+                                  and torch.equal(optim.ravel_trainable(one, flags),
+                                                  optim.ravel_trainable(chunked, flags))),
+            launches=captured["launches"], expected=want,
+            first_loss=float(captured["losses"][0]), final_loss=float(captured["losses"][-1]),
+            **{f"{mode}_{key}": runs[mode][key] for mode in runs
+               for key in ("loop_ms_per_step", "first_step_ms", "ms_per_step", "chunk")})
+        rows.append(row)
+        if not (row["bit_equal"] and row["chunks_bit_equal"] and captured["launches"] == want
+                and eager["launches"] == want
+                and math.isfinite(row["final_loss"]) and row["final_loss"] < row["first_loss"]):
+            raise AssertionError(f"captured loop disagrees with the eager loop: {row}")
+    emit("loop", ok=True, rows=rows)
+    return {r["case"]: r for r in rows}
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -1634,6 +1765,7 @@ def main() -> int:
     grad_err = run_phase("render_grad", phase_render_grad)
     grad_launches = run_phase("render_grad_main", phase_render_grad_main)
     gt = run_phase("render_grad_times", phase_render_grad_times)
+    run_phase("loop", phase_loop)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",

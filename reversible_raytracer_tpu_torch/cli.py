@@ -7,7 +7,12 @@ Examples:
         --anneal-size 512 --lr 2e-3 --iters 300 --perturb 0.03
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
-kernels; ``--device cpu`` runs the eager torch twin instead.
+kernels, each training step one replay of a CUDA graph; ``--device cpu``
+runs the eager torch twin instead. ``invert`` takes the JAX package's
+observability flags: ``--target`` (a PNG to invert instead of the truth's
+render), ``--scene`` / ``--save-scene`` (JSON scenes), ``--checkpoint``,
+``--checkpoint-every`` and ``--resume``, ``--frame-every`` /
+``--frames-dir`` and ``--quiet``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ def _add_common(p):
                    help="image size (default: the config's native size)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the eager twin)")
+    p.add_argument("--scene", type=str, default=None,
+                   help="JSON scene file overriding the config's parameters")
 
 
 def _build(args):
@@ -34,7 +41,12 @@ def _build(args):
     kw = {"device": args.device}
     if args.size:
         kw["size"] = args.size
-    return builder(**kw)
+    scene, spec, cfg = builder(**kw)
+    if args.scene:
+        from .utils.sceneio import load_scene
+
+        scene = load_scene(args.scene, scene)
+    return scene, spec, cfg
 
 
 def cmd_render(args):
@@ -51,43 +63,80 @@ def cmd_render(args):
     return {"output": args.output}
 
 
+def _target(args, cfg):
+    """The ``--target`` PNG as an (H, W, 3) float32 tensor on the device."""
+    import torch
+
+    from .models.scene import resolve_device
+    from .utils.imageio import load_png
+
+    img = load_png(args.target)
+    if img.shape[:2] != (cfg.height, cfg.width):
+        sys.exit(f"error: --target is {img.shape[1]}x{img.shape[0]}, the render "
+                 f"{cfg.width}x{cfg.height} (pass --size)")
+    return torch.from_numpy(img).to(resolve_device(args.device))
+
+
 def cmd_invert(args):
     from .models.configs import perturb
     from .ops.render import loss_and_grad_fn, render
     from .optim import OptConfig, optimize, param_error
-    from .utils.imageio import save_png
     from .utils.metrics import MetricsLogger
 
     scene, spec, cfg = _build(args)
-    target = render(scene, cfg)
+    if args.target:
+        target, truth = _target(args, cfg), None
+    else:
+        target, truth = render(scene, cfg).detach(), scene
     start = perturb(scene, spec, scale=args.perturb, seed=args.seed)
     ocfg = OptConfig(iters=args.iters, lr=args.lr, loss=args.loss, schedule=args.schedule)
     if args.anneal:
+        if truth is None:
+            sys.exit("error: --anneal needs the ground-truth scene (no --target)")
         return _invert_annealed(args, scene, spec, cfg, target, start, ocfg)
-    logger = MetricsLogger(jsonl_path=args.metrics)
+    logger = MetricsLogger(jsonl_path=args.metrics, echo=not args.quiet)
     try:
         vag = loss_and_grad_fn(scene, cfg, loss=args.loss)
         t0 = time.perf_counter()
-        final, history, _ = optimize(start, target, spec, cfg, ocfg, vag_fn=vag,
-                                     logger=logger, log_every=args.log_every, truth=scene)
-        err = float(param_error(final, scene, spec))
+        final, history, _ = optimize(
+            start, target, spec, cfg, ocfg, vag_fn=vag, logger=logger,
+            log_every=args.log_every, truth=truth, frame_every=args.frame_every,
+            frame_dir=args.frames_dir, checkpoint_every=args.checkpoint_every,
+            checkpoint_path=args.checkpoint, resume=args.resume)
+        err = float(param_error(final, truth, spec)) if truth is not None else None
         dt = time.perf_counter() - t0
     finally:
         logger.close()
-    print(f"final param RMS error vs truth: {err:.5f}", file=sys.stderr)
+    if err is not None:
+        print(f"final param RMS error vs truth: {err:.5f}", file=sys.stderr)
     final_loss = f"{history[-1]['loss']:.3e}" if history else "n/a (--log-every 0)"
     print(f"optimized {args.iters} iters in {dt:.1f}s (final loss {final_loss})",
           file=sys.stderr)
+    _save_outputs(args, final, cfg)
+    return {"history": history, "param_err": err, "seconds": dt, "output": args.output,
+            "scene": final}
+
+
+def _save_outputs(args, final, cfg):
+    from .ops.render import render
+    from .utils.imageio import save_png
+
+    if args.save_scene:
+        from .utils.sceneio import save_scene
+
+        save_scene(args.save_scene, final)
+        print(args.save_scene)
     if args.output:
-        save_png(args.output, render(final, cfg))
+        save_png(args.output, render(final, cfg).detach())
         print(args.output)
-    return {"history": history, "param_err": err, "seconds": dt, "output": args.output}
 
 
 def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     """``invert --anneal``: the soft stages against the truth rendered at
     each tau (at ``--anneal-size``), then the hard polish against the
-    target; the per-step losses come back in one transfer at the end."""
+    target; the per-step losses come back in one transfer at the end. With
+    ``--frame-every`` the chunks shrink to the frame cadence and each chunk
+    ends with a frame of the current scene under the hard configuration."""
     from .ops.render import render
     from .optim import optimize_annealed, param_error
     from .utils.imageio import save_png
@@ -98,12 +147,20 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     except ValueError:
         sys.exit(f"error: --anneal expects comma-separated floats "
                  f"(e.g. '0.08,0.03,0'), got {args.anneal!r}")
+    frame_cb, max_chunk = None, 100
+    if args.frame_every and args.frames_dir:
+        max_chunk = max(1, min(100, args.frame_every))
+
+        def frame_cb(s, it):
+            save_png(f"{args.frames_dir}/frame_{it:05d}.png", render(s, cfg).detach())
+
     err0 = float(param_error(start, scene, spec))
-    logger = MetricsLogger(jsonl_path=args.metrics)
+    logger = MetricsLogger(jsonl_path=args.metrics, echo=not args.quiet)
     try:
         t0 = time.perf_counter()
         final, losses = optimize_annealed(start, target, spec, cfg, ocfg, taus=taus,
-                                          target_scene=scene, soft_size=args.anneal_size)
+                                          target_scene=scene, soft_size=args.anneal_size,
+                                          max_chunk=max_chunk, chunk_callback=frame_cb)
         la = losses.cpu().tolist()  # each stage's loss is comparable within the stage only
         err = float(param_error(final, scene, spec))
         dt = time.perf_counter() - t0
@@ -116,11 +173,9 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     print(f"final param RMS error vs truth: {err:.5f} (start {err0:.5f})", file=sys.stderr)
     print(f"annealed {len(taus)} stages x {args.iters} iters in {dt:.1f}s "
           f"(final loss {la[-1]:.3e})", file=sys.stderr)
-    if args.output:
-        save_png(args.output, render(final, cfg))
-        print(args.output)
+    _save_outputs(args, final, cfg)
     return {"history": [{"loss": la[-1]}], "losses": la, "taus": list(taus), "param_err": err,
-            "start_param_err": err0, "seconds": dt, "output": args.output}
+            "start_param_err": err0, "seconds": dt, "output": args.output, "scene": final}
 
 
 def main(argv=None):
@@ -143,8 +198,24 @@ def main(argv=None):
     pi.add_argument("--perturb", type=float, default=0.05,
                     help="perturbation scale applied to trainable params")
     pi.add_argument("--seed", type=int, default=0)
+    pi.add_argument("--target", type=str, default=None,
+                    help="PNG target image (default: render the ground truth); with it "
+                         "no parameter error is reported")
     pi.add_argument("--log-every", type=int, default=25)
     pi.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
+    pi.add_argument("--quiet", action="store_true", help="suppress per-step stderr logs")
+    pi.add_argument("--frame-every", type=int, default=0,
+                    help="render the scene to --frames-dir every N steps (with --anneal: "
+                         "after every chunk of at most N steps)")
+    pi.add_argument("--frames-dir", type=str, default="frames")
+    pi.add_argument("--checkpoint", type=str, default=None,
+                    help="npz checkpoint path (the JAX package's schema), saved at the end")
+    pi.add_argument("--checkpoint-every", type=int, default=0,
+                    help="also save the checkpoint every N steps")
+    pi.add_argument("--resume", type=str, default=None,
+                    help="restart from a checkpoint (of either package)")
+    pi.add_argument("--save-scene", type=str, default=None,
+                    help="save the final scene as JSON")
     pi.add_argument("-o", "--output", type=str, default=None,
                     help="save the final render as PNG")
     pi.add_argument("--anneal", type=str, default=None, metavar="TAUS",

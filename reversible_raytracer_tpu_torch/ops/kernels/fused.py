@@ -180,10 +180,24 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_HOST_QUERIES: dict = {}
+
+
+def host_query(kernel: Kernel, entry: str, *args, device=None) -> int:
+    """``kernel``'s host entry ``entry(*args)`` (a size that depends on the
+    card), asked once per card and arguments: a launch inside a CUDA graph
+    capture then makes no query of the card."""
+    key = (kernel.name, entry, args, torch.cuda.current_device() if device is None else device)
+    n = _HOST_QUERIES.get(key)
+    if n is None:
+        n = _HOST_QUERIES[key] = int(getattr(kernel.lib(), entry)(*args))
+    return n
+
+
 def _scratch(kernel: Kernel, entry: str, dims, dev):
     """The partial rows a step or backward call writes, sized for this
     card's grid (``dims``: the entry's scene counts and image size)."""
-    n = getattr(kernel.lib(), entry)(*dims)
+    n = host_query(kernel, entry, *dims, device=dev.index)
     if n <= 0:
         raise RuntimeError(f"{kernel.name}: the card's SM count could not be read")
     return torch.empty((n,), device=dev)

@@ -143,8 +143,14 @@ def pad_rows(rows, n_pad: int, pad_row):
     """Pad object rows to ``n_pad`` with copies of the benign ``pad_row``."""
     if rows.shape[0] == n_pad:
         return rows
-    fill = torch.as_tensor(pad_row, dtype=rows.dtype, device=rows.device)
+    key = (pad_row.tobytes(), rows.dtype, rows.device)
+    fill = _PAD_FILLS.get(key)
+    if fill is None:  # made once per device: no host copy inside a graph capture
+        fill = _PAD_FILLS[key] = torch.as_tensor(pad_row, dtype=rows.dtype, device=rows.device)
     return torch.cat([rows, fill.expand(n_pad - rows.shape[0], -1)])
+
+
+_PAD_FILLS: dict = {}
 
 
 def globals_tree(scene) -> dict:
@@ -225,7 +231,7 @@ def most_rows(smem_fn, n_rect: int, n_light: int) -> int:
     """The most spheres, in the rows' steps of 16, whose block needs at most
     the shared memory the current card allows, by ``smem_fn(n_sph, n_rect,
     n_light)`` (bytes a block of some kernel needs)."""
-    have = VEC_RENDER.lib().rrt_smem_optin()
+    have = fused.host_query(VEC_RENDER, "rrt_smem_optin")
     n = 0
     while smem_fn(n + 16, n_rect, n_light) <= have:
         n += 16
@@ -249,9 +255,9 @@ def most_render_spheres(n_rect: int = 1, n_light: int = 1) -> int:
 def check_smem(kernel: Kernel, entry: str, scene) -> None:
     """Refuse, with the numbers, a scene whose rows do not fit the shared
     memory a block of this card can have."""
-    lib = kernel.lib()
-    need = getattr(lib, entry)(scene.spheres.count, scene.rects.count, scene.lights.count)
-    have = VEC_RENDER.lib().rrt_smem_optin()
+    need = fused.host_query(kernel, entry, scene.spheres.count, scene.rects.count,
+                            scene.lights.count)
+    have = fused.host_query(VEC_RENDER, "rrt_smem_optin")
     if need > have:
         raise NotImplementedError(
             f"{kernel.name} needs {need} bytes of shared memory per block for "

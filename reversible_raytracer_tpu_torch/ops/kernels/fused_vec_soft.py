@@ -215,8 +215,8 @@ def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img):
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = fused_vec._geometry(scene_like, cfg)
-    scratch = torch.empty(
-        (SOFT_RENDER_BWD.lib().rrt_soft_render_bwd_scratch_floats(*geom[2:7]),), device=dev)
+    scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_scratch_floats", geom[2:7],
+                             dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     SOFT_RENDER_BWD.call("rrt_soft_render_bwd", glob.data_ptr(), sph.data_ptr(),
                          rct.data_ptr(), *geom, float(cfg.soft_tau), g_img.data_ptr(),
@@ -250,8 +250,7 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
     fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
     target = target.contiguous()
     geom = fused_vec._geometry(scene, cfg)
-    scratch = torch.empty((SOFT_STEP.lib().rrt_soft_step_scratch_floats(*geom[2:7]),),
-                          device=dev)
+    scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_scratch_floats", geom[2:7], dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     SOFT_STEP.call("rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
                    float(cfg.soft_tau), target.data_ptr(), norm, scratch.data_ptr(),

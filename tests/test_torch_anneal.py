@@ -61,13 +61,16 @@ def _np_leaves(tree):
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
 
 
-@pytest.mark.parametrize("lr_scales, schedule", [((), "constant"),
-                                                 ((("spheres.radius", 0.3),), "constant"),
-                                                 ((), "cosine")])
-def test_sgd_update_matches_jax_bitwise(lr_scales, schedule):
+@pytest.mark.parametrize("lr_scales, schedule, momentum",
+                         [((), "constant", 0.0), ((("spheres.radius", 0.3),), "constant", 0.0),
+                          ((), "cosine", 0.0), ((), "cosine", 0.9)],
+                         ids=["lr_scales0-constant", "lr_scales1-constant", "lr_scales2-cosine",
+                              "lr_scales3-cosine-momentum"])
+def test_sgd_update_matches_jax_bitwise(lr_scales, schedule, momentum):
     js, jspec, _ = jconfigs.config5_many_spheres(16, n_spheres=9)
     ts, tspec, _ = configs.config5_many_spheres(16, n_spheres=9, device="cpu")
-    kw = dict(iters=5, lr=0.3, optimizer="sgd", schedule=schedule, lr_scales=lr_scales)
+    kw = dict(iters=5, lr=0.3, optimizer="sgd", schedule=schedule, lr_scales=lr_scales,
+              momentum=momentum)
     jinit, japply = joptim.make_flat_update(js, jspec, joptim.OptConfig(**kw))
     tinit, tapply = optim.make_flat_update(ts, tspec, optim.OptConfig(**kw))
     jstate, tstate = jinit(js), tinit(ts)

@@ -857,3 +857,81 @@ def test_render_bwd_reads_row2_planes(cuda, case):
     flat = fused._cuda_flat(scene, cfg)
     by_plain = fused._render_bwd_launch(scene, cfg, flat, g, vis_p)
     assert torch.equal(fused.flatten_scene(got), by_plain)
+
+
+# (label, family, config number, size, soft_tau, route): the training steps that
+# `optim.make_step` captures, through a step kernel (rows 1, 6, 9) or through
+# autograd of `render` (a forward and its render backward, rows 4+5)
+GRAPH_CASES = [("row1", 2, 48, 0.0, "step"), ("row6", 5, 64, 0.0, "step"),
+               ("row9", 5, 48, 0.08, "step"), ("rows4-5", 5, 48, 0.0, "render")]
+
+
+def _graph_case(cuda, num, size, tau, route, iters=6):
+    from reversible_raytracer_tpu_torch import optim
+
+    scene, spec, _ = configs.CONFIGS[num](size=size, device=cuda)
+    cfg = RenderConfig(height=size, width=size + 8, shadows=True, soft_tau=tau)
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    ocfg = optim.OptConfig(iters=iters, lr=2e-3)
+    render_fn = (lambda s: render(s, cfg)) if route == "render" else None
+    return start, target, spec, cfg, ocfg, render_fn
+
+
+def _run_steps(make, start, target, spec, cfg, ocfg, render_fn, n):
+    step, init = make(cfg, spec, ocfg, render_fn=render_fn)
+    scene, state, losses = start, init(start), []
+    for _ in range(n):
+        scene, state, loss, _ = step(scene, state, target)
+        losses.append(loss.clone())
+    return torch.stack(losses), fused.flatten_scene(scene).clone(), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label, num, size, tau, route", GRAPH_CASES,
+                         ids=[c[0] for c in GRAPH_CASES])
+def test_graph_step_is_the_eager_step(cuda, label, num, size, tau, route):
+    """`make_step`'s CUDA graph against `make_eager_step` from the same start:
+    the per-step losses and the final scene bit for bit; `optimize_scan` in
+    chunks of 2 the same bits; and the launches of N replays N times those
+    of one step."""
+    from reversible_raytracer_tpu_torch import graphs, optim
+
+    args = _graph_case(cuda, num, size, tau, route)
+    eager_losses, eager_flat, _ = _run_steps(optim.make_eager_step, *args, n=6)
+    per_step = {k.name: k.launches for k in graphs.graph_kernels()}
+    _run_steps(optim.make_eager_step, *args, n=1)
+    per_step = {k.name: k.launches - per_step[k.name] for k in graphs.graph_kernels()}
+    before = {k.name: k.launches for k in graphs.graph_kernels()}
+    losses, flat, _ = _run_steps(optim.make_step, *args, n=6)
+    assert torch.equal(losses, eager_losses) and torch.equal(flat, eager_flat)
+    for k in graphs.graph_kernels():  # one eager (warm-up) step, then five replays
+        assert k.launches - before[k.name] == 6 * per_step[k.name], k.name
+    start, target, spec, cfg, ocfg, render_fn = args
+    final, scan_losses = optim.optimize_scan(start, target, spec, cfg, ocfg,
+                                             render_fn=render_fn, max_chunk=2)
+    assert torch.equal(scan_losses, eager_losses)
+    assert torch.equal(fused.flatten_scene(final), eager_flat)
+
+
+@pytest.mark.cuda
+def test_graph_step_that_cannot_be_captured_raises(cuda):
+    """A step that waits for the card (``float(loss)``) runs eagerly once and
+    then raises `CaptureError` at its capture; it never runs eagerly in the
+    graph's place, and the card stays usable."""
+    from reversible_raytracer_tpu_torch import graphs, optim
+
+    start, target, spec, cfg, ocfg, _ = _graph_case(cuda, 2, 32, 0.0, "step")
+    vag = loss_and_grad_fn(start, cfg)
+
+    def syncing(scene, tgt):
+        loss, grads = vag(scene, tgt)
+        float(loss)
+        return loss, grads
+
+    step, init = optim.make_step(cfg, spec, ocfg, vag_fn=syncing)
+    with pytest.raises(graphs.CaptureError, match="captured"):
+        step(start, init(start), target)
+    with pytest.raises(graphs.CaptureError):
+        optim.optimize(start, target, spec, cfg, ocfg, vag_fn=syncing, log_every=0)
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
