@@ -138,12 +138,32 @@ non-zero:
                graph, apart from the rest, and the whole loop); and the
                device's idle share over 7 more steps of each, 1 - the kernels'
                device time (tools/kernel_timing.py) / the host wall time.
+ 20. checker - the soft checker (checker_tau > 0) in rows 7, 8 and 9 at
+               config 4 (checker materials + camera pose), 512^2, tau 0.08,
+               checker_tau 1.0: row 7 by the rule of phase 3; rows 9 and 8
+               (by autograd of `render`) against autograd and their eager
+               twins, every leaf within 1e-2 of its scale (the camera's eye,
+               look_at and up on the largest of the three), the checker
+               columns and the eye's gradient not 0; three calls
+               bit-identical; row 9 against row 7's own image a loss of
+               exactly 0; the three rows' soft-checker instances on config 5
+               bit for bit the others; each row's event and device time,
+               plain version and bound.
+ 21. checker_main - the port's CLI on config 4: invert --anneal 0.08,0.03,0
+               --checker-ratio 12.5 --lr 5e-3 --iters 100 --perturb 0.05 at
+               512^2 and 64^2 (row 9 200 times, row 7 twice, row 1 100 times
+               for the hard polish, row 2 twice), and invert --iters 50 at
+               512^2 (row 1 50 times, row 2 twice); each stage's first and
+               last loss, the eye's RMS error at the start and the end (at
+               64^2 it must end below 0.02 of its start) and the loop's ms a
+               step.
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
 time per call, and `launches_per_call`; the three forwards add
 `launches_render_fn`, their launches in phase 17's run of their family,
-beside `launches` on their CLI path), and last
+beside `launches` on their CLI path; rows 7, 8 and 9 add `checker`, their
+soft-checker instances' numbers from phases 20 and 21), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -155,9 +175,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-from tools.kernel_timing import device_ms, time_ms
-
 REPO = Path(__file__).resolve().parent
+# device_ms and time_ms (tools/kernel_timing.py) are imported by main, once
+# it has found the repo beside this script.
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, non-tensor float32, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -1130,9 +1150,16 @@ def phase_anneal_main():
 # light) with a live lane the warp test, per live lane of a warp's
 # candidate the pixel test, and a kept pair at its soft test and adjoint;
 # and, as before the cull, every pair at its soft test and each pair whose
-# coverage is not gated to zero at its adjoint.
+# coverage is not gated to zero at its adjoint. The soft checker (checker_tau
+# > 0) adds per live layer pixel its blend (per axis x s, mod, |.|, the
+# squash; the product, the parity, u, c1 + u (c2 - c1)) and in the step its
+# adjoint (the colours' split, g_u, each axis's cotangent from the others'
+# product, into p - c and the scale; a rect's (a, b) again and their
+# normalizations into rel, the edges and t) and two more fields summed.
 SOFT_OPS = dict(rank_sigmoid=4, shadow_soft=26, adj_shadow=42, shadow_cull=16, warp_test=25,
-                layer_alpha=4, adj_alpha=12, composite=18, adj_composite=30)
+                layer_alpha=4, adj_alpha=12, composite=18, adj_composite=30,
+                checker_sphere=53, checker_rect=39, adj_checker_sphere=56,
+                adj_checker_rect=125, sum_checker=2)
 
 
 def soft_work_counts(scene, cfg):
@@ -1146,7 +1173,8 @@ def soft_work_counts(scene, cfg):
     and the layer-and-light walks with a candidate; by
     `cull.primary_candidates` at tau (row 7's ranking), the warps, their
     candidate visits, the (pixel, candidate) pairs the ranking tests, and
-    those of them that rank by their sigmoid."""
+    those of them that rank by their sigmoid; and whether the soft checker
+    is on (``checker_tau > 0``)."""
     import torch
 
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
@@ -1197,7 +1225,8 @@ def soft_work_counts(scene, cfg):
                 walks += int((n > 0).sum())
         shadows = live * L if cfg.shadows else 0
     return dict(height=H, width=W, pixels=H * W, n_sph=N, n_rect=M, lights=L, live=live,
-                live_sph=live_sph, live_rect=live_rect, ranked_sigmoid=ranked, **prim,
+                live_sph=live_sph, live_rect=live_rect, ranked_sigmoid=ranked,
+                checker=cfg.checker_tau > 0.0, **prim,
                 shadow_tests=shadows * N, shadow_rect=shadows * M,
                 shadow_gated=gated if cfg.shadows else 0,
                 shadow_kept=kept if cfg.shadows else 0,
@@ -1223,6 +1252,8 @@ def soft_render_ops(c, cull=False):
     ops = (_common_ops(c) + c["ranked_sigmoid"] * SOFT_OPS["rank_sigmoid"]
            + c["live_sph"] * (OPS["surf_sphere"] + SOFT_OPS["layer_alpha"])
            + c["live_rect"] * OPS["surf_rect"]
+           + c["checker"] * (c["live_sph"] * SOFT_OPS["checker_sphere"]
+                             + c["live_rect"] * SOFT_OPS["checker_rect"])
            + c["live"] * (OPS["so"] + c["lights"] * (OPS["light"] + OPS["phong"]))
            + c["shadow_tests"] * SOFT_OPS["shadow_soft"] + c["shadow_rect"] * OPS["rect_shadow"]
            + c["pixels"] * SOFT_OPS["composite"])
@@ -1250,7 +1281,11 @@ def soft_step_ops(c, cull=True):
                              + OPS["adj_camera"] + OPS["sum_hit"])
             + c["live"] * (OPS["adj_base"] + c["lights"] * (OPS["adj_light"] + OPS["sum_light"]))
             + c["live_sph"] * (OPS["adj_sphere"] + SOFT_OPS["adj_alpha"] + OPS["sum_sphere"])
-            + c["live_rect"] * (OPS["adj_rect"] + OPS["sum_rect"]))
+            + c["live_rect"] * (OPS["adj_rect"] + OPS["sum_rect"])
+            + c["checker"] * (c["live_sph"] * (SOFT_OPS["adj_checker_sphere"]
+                                               + SOFT_OPS["sum_checker"])
+                              + c["live_rect"] * (SOFT_OPS["adj_checker_rect"]
+                                                  + SOFT_OPS["sum_checker"])))
 
 
 def phase_soft_times():
@@ -1275,12 +1310,13 @@ def phase_soft_times():
         out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
         w = 1.0 / (H * W * 3)
         render = lambda: fused_vec_soft.SOFT_RENDER.call(  # noqa: E731
-            "rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau,
+            "rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau, 0.0,
             img.data_ptr(), stream)
         render_ms, render_device = time_ms(render), device_ms(render)
-        step_ms = time_ms(lambda: fused_vec_soft.SOFT_STEP.call(
-            "rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau,
-            target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream))
+        step = lambda: fused_vec_soft.SOFT_STEP.call(  # noqa: E731
+            "rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom, tau, 0.0,
+            target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), stream)
+        step_ms, step_device = time_ms(step), device_ms(step)
         render_plain_ms = time_ms(lambda: fused_vec_soft.render_vec_soft_plain(start, cfg),
                                   reps=5, warmup=1)
         step_plain_ms = time_ms(
@@ -1295,7 +1331,8 @@ def phase_soft_times():
                            step_plain_ms=step_plain_ms,
                            render_bound=bound(soft_render_ops(c, cull=True), r_bytes),
                            render_bound_uncull=bound(soft_render_ops(c), r_bytes),
-                           render_device=render_device, step_bound=s_bound,
+                           render_device=render_device, step_device=step_device,
+                           step_bound=s_bound,
                            step_bound_uncull=bound(soft_step_ops(c, cull=False), s_bytes),
                            kept_pairs=c["shadow_kept"], all_pairs=c["shadow_tests"],
                            render_ops=soft_render_ops(c, cull=True),
@@ -1556,16 +1593,16 @@ def _raw_calls(family, start, cfg, g, target):
         c["bound_uncull"] = bound(bwd_ops(c), nbytes)
         c["cull"] = cull_counters(c)
         return fwd, bwd, step, bound(bwd_ops(c, cull=True), nbytes), c
-    tau = float(cfg.soft_tau)
+    tau, ctau = float(cfg.soft_tau), float(cfg.checker_tau)
     scratch = torch.empty((fused_vec_soft.SOFT_STEP.lib().rrt_soft_step_scratch_floats(
         *geom[2:7]),), device="cuda")
     fwd = lambda: fused_vec_soft.SOFT_RENDER.call(  # noqa: E731
-        "rrt_soft_render", *rows(), *geom, tau, img.data_ptr(), stream)
+        "rrt_soft_render", *rows(), *geom, tau, ctau, img.data_ptr(), stream)
     bwd = lambda: fused_vec_soft.SOFT_RENDER_BWD.call(  # noqa: E731
-        "rrt_soft_render_bwd", *rows(), *geom, tau, g.data_ptr(), scratch.data_ptr(),
+        "rrt_soft_render_bwd", *rows(), *geom, tau, ctau, g.data_ptr(), scratch.data_ptr(),
         out.data_ptr(), stream)
     step = lambda: fused_vec_soft.SOFT_STEP.call(  # noqa: E731
-        "rrt_soft_step", *rows(), *geom, tau, target.data_ptr(), w, scratch.data_ptr(),
+        "rrt_soft_step", *rows(), *geom, tau, ctau, target.data_ptr(), w, scratch.data_ptr(),
         out.data_ptr(), stream)
     c = soft_work_counts(start, cfg)
     c["bound_uncull"] = bound(soft_bwd_ops(c, cull=False), vec_step_bytes(c, Sg, ns_pad, nr_pad))
@@ -1715,6 +1752,248 @@ def phase_loop():
     return {r["case"]: r for r in rows}
 
 
+# ---------------------------------------------------------------------------
+# Config 4: the soft checker (checker_tau > 0) of rows 7, 8 and 9
+# ---------------------------------------------------------------------------
+
+# Config 4 at its published 512^2, at the anneal's first stage (tau 0.08,
+# checker_tau = 12.5 * 0.08 = 1.0, the recipe's checker_ratio).
+CHECKER_SIZE, CHECKER_TAU, CHECKER_CTAU = 512, 0.08, 1.0
+# The camera's eye, look_at and up gradients come from one chain (the basis
+# from the ten ray-form cotangents), each held to the largest of the three:
+# up's is a float32 cancellation far below eye's on config 4.
+CAMERA_CHAIN = ("camera.eye", "camera.look_at", "camera.up")
+
+
+def _chain_errors(ga, gb):
+    """`_grad_errors`, the camera chain's leaves on the chain's scale."""
+    errs = _grad_errors(ga, gb)
+    leaves = {p: (getattr(ga.camera, p[7:]), getattr(gb.camera, p[7:])) for p in CAMERA_CHAIN}
+    chain = max(float(a.abs().max()) for a, _ in leaves.values())
+    for path, (a, b) in leaves.items():
+        errs[path] = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-6, chain)
+    return errs
+
+
+def _worst(errs):
+    worst = max(errs, key=errs.get)
+    return dict(worst_leaf=worst, worst_err=errs[worst])
+
+
+def phase_checker():
+    """Rows 7, 8 and 9 with the soft checker (their SOFT_CHECKER instances)
+    at config 4, 512^2, tau 0.08, checker_tau 1.0, from perturb(0.05, seed
+    4): row 7 against its plain version by the rule of phase 3; row 9 and
+    row 8 (reached by autograd of `render`, one launch a call) against
+    autograd of the plain render and against their eager twins, every leaf
+    within 1e-2 of its scale (`_chain_errors`), the camera's and the checker
+    columns' included, the eye's gradient above 1e-6; three calls of each
+    bit-identical; row 9 against row 7's own image a loss and every gradient
+    exactly 0. On config 5 (no checkered material) at 512^2, tau 0.08, the
+    three rows' instances at checker_tau 1.0 give the bits of checker_tau 0.
+    Each row's event and device time, its plain version's, and its bound
+    with the soft checker's operations, beside the device time of its hard
+    checker's instance on the same inputs. Returns {row name: that row's
+    numbers}."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+    from reversible_raytracer_tpu_torch.ops.render import resolve_impl
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    scene, spec, cfg = configs.config4_checker_camera(CHECKER_SIZE, device="cuda")
+    cfg = dataclasses.replace(cfg, soft_tau=CHECKER_TAU, checker_tau=CHECKER_CTAU)
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    # row 7
+    img_k = fused_vec_soft.render_vec_soft(scene, cfg)
+    img_p = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    torch.cuda.synchronize()
+    err = (img_k - img_p).abs()
+    fwd = dict(frac_bad=float((err > 2e-3).float().mean()), mean_err=float(err.mean()),
+               max_abs_err=float(err.max()), bit_identical=bool(torch.equal(img_k, img_p)),
+               finite=bool(torch.isfinite(img_k).all()))
+    # row 9
+    target = img_p
+    runs = [fused_vec_soft.loss_grad_vec_soft(start, cfg, target) for _ in range(3)]
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    l_k, g_k = runs[0]
+    l_p, g_p = fused_vec_soft.loss_grad_vec_soft_plain(start, cfg, target)
+    l_a, g_a = fused_vec_soft.loss_grad_vec_soft_adjoint_eager(start, cfg, target)
+    torch.cuda.synchronize()
+    step = dict(loss=float(l_k), deterministic=all(torch.equal(flat[0], f) for f in flat[1:]),
+                eye_grad=float(g_k.camera.eye.abs().max()),
+                checker_grads={f"{grp}.{f}": float(getattr(getattr(g_k, grp).material, f)
+                                                   .abs().max())
+                               for grp in ("spheres", "rects")
+                               for f in ("checker", "checker_scale")},
+                max_abs_err=max(float((a - b).abs().max())
+                                for a, b in zip(tree_leaves(g_p), tree_leaves(g_k)) if a.numel()))
+    for name, (l_ref, g_ref) in (("autograd", (l_p, g_p)), ("adjoint_eager", (l_a, g_a))):
+        step[name] = dict(loss_rel=abs(float(l_k) - float(l_ref)) / max(abs(float(l_ref)), 1e-12),
+                          **_worst(_chain_errors(g_ref, g_k)))
+    l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg, img_k)
+    torch.cuda.synchronize()
+    step["zero_residual_exact"] = bool(float(l_0) == 0.0 and not fused.flatten_scene(g_0).any())
+    # row 8, by autograd of render
+    g = _seeded_cotangent(cfg)
+    before = fused_vec_soft.SOFT_RENDER_BWD.launches
+    bwds = [_bwd(start, cfg, g) for _ in range(3)]
+    b_plain = fused_vec_soft.render_vec_soft_bwd_plain(start, cfg, g)
+    b_twin = fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g)
+    torch.cuda.synchronize()
+    bwd = dict(one_launch=fused_vec_soft.SOFT_RENDER_BWD.launches == before + 3,
+               deterministic=all(torch.equal(fused.flatten_scene(bwds[0]), fused.flatten_scene(b))
+                                 for b in bwds[1:]),
+               plain=_worst(_chain_errors(b_plain, bwds[0])),
+               twin=_worst(_chain_errors(b_twin, bwds[0])),
+               max_abs_err=max(float((a - b).abs().max()) for a, b in
+                               zip(tree_leaves(b_plain), tree_leaves(bwds[0])) if a.numel()))
+    # the soft-checker instances on a scene without a checkered material: its
+    # blend is c1 + 0 (c2 - c1), and at the true scene, where color2 is
+    # color, the checker column's gradient par (c2 - c1) . g_base is 0 too
+    s5, spec5, c5 = configs.config5_many_spheres(size=CHECKER_SIZE, device="cuda")
+    c5 = dataclasses.replace(c5, soft_tau=CHECKER_TAU)
+    c5k = dataclasses.replace(c5, checker_tau=CHECKER_CTAU)
+    tgt5 = fused_vec_soft.render_vec_soft(configs.perturb(s5, spec5, scale=0.05, seed=4), c5)
+    g5 = _seeded_cotangent(c5)
+
+    def step_bits(c):
+        l5, gr5 = fused_vec_soft.loss_grad_vec_soft(s5, c, tgt5)
+        return torch.cat([l5.reshape(1), fused.flatten_scene(gr5)])
+
+    same = dict(row7=bool(torch.equal(fused_vec_soft.render_vec_soft(s5, c5),
+                                      fused_vec_soft.render_vec_soft(s5, c5k))),
+                row9=bool(torch.equal(step_bits(c5), step_bits(c5k))),
+                row8=bool(torch.equal(fused.flatten_scene(_bwd(s5, c5, g5)),
+                                      fused.flatten_scene(_bwd(s5, c5k, g5)))))
+    # times and bounds; beside them the hard checker's instances on the same
+    # inputs (checker_tau 0), what the soft checker costs
+    hard = _raw_calls("soft", start, dataclasses.replace(cfg, checker_tau=0.0), g, target)
+    hard_device = dict(zip(("fused_vec_soft_render", "fused_vec_soft_render_bwd",
+                            "fused_vec_soft_step"), (device_ms(f)["ms"] for f in hard[:3])))
+    fwd_call, bwd_call, step_call, bwd_bound, c = _raw_calls("soft", start, cfg, g, target)
+    glob = fused_vec_soft._cuda_inputs(start, cfg)[0]
+    Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
+    r_bytes = 4 * (Sg + ns_pad * 17 + nr_pad * 22) + 4 * cfg.height * cfg.width * 3
+    times = {
+        "fused_vec_soft_render": dict(
+            ms=time_ms(fwd_call), device=device_ms(fwd_call),
+            plain_ms=time_ms(lambda: fused_vec_soft.render_vec_soft_plain(start, cfg), reps=5,
+                             warmup=1),
+            bound=bound(soft_render_ops(c, cull=True), r_bytes), max_abs_err=fwd["max_abs_err"]),
+        "fused_vec_soft_step": dict(
+            ms=time_ms(step_call), device=device_ms(step_call),
+            plain_ms=time_ms(lambda: fused_vec_soft.loss_grad_vec_soft_plain(start, cfg, target),
+                             reps=5, warmup=1),
+            bound=bound(soft_step_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad)),
+            max_abs_err=step["max_abs_err"]),
+        "fused_vec_soft_render_bwd": dict(
+            ms=time_ms(bwd_call), device=device_ms(bwd_call),
+            plain_ms=time_ms(lambda: fused_vec_soft.render_vec_soft_bwd_plain(start, cfg, g),
+                             reps=5, warmup=1),
+            bound=bwd_bound, max_abs_err=bwd["max_abs_err"])}
+    for name, t in times.items():
+        t["hard_checker_device_ms"] = hard_device[name]
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    checks = dict(
+        impl=resolve_impl(start, cfg) == "cuda_vec_soft",
+        fwd=fwd["frac_bad"] < 1e-3 and fwd["mean_err"] < 1e-4 and fwd["finite"],
+        step=(all(step[n]["loss_rel"] <= 1e-4 and step[n]["worst_err"] <= 1e-2
+                  for n in ("autograd", "adjoint_eager"))
+              and step["deterministic"] and step["zero_residual_exact"]
+              and step["eye_grad"] > 1e-6 and step["checker_grads"]["rects.checker"] > 0.0),
+        bwd=(bwd["one_launch"] and bwd["deterministic"] and bwd["plain"]["worst_err"] <= 1e-2
+             and bwd["twin"]["worst_err"] <= 1e-2),
+        unchecked_bits=all(same.values()))
+    emit("checker", ok=all(checks.values()), checks=checks, case=f"config4_{CHECKER_SIZE}",
+         tau=CHECKER_TAU, checker_tau=CHECKER_CTAU, render=fwd, step=step, render_bwd=bwd,
+         config5_same_bits=same, times=times, work=c)
+    if not all(checks.values()):
+        raise AssertionError(f"the soft checker's kernels failed a check: {checks}")
+    return times
+
+
+# The config-4 paths of the CLI: the JAX package's recipe (tests/
+# test_soft_checker.py:260: taus 0.08, 0.03, 0, checker_ratio 12.5, 100 Adam
+# steps a stage at lr 5e-3 from perturb(0.05, seed 0)) at 512^2 and 64^2,
+# and the hard inversion at 512^2 (50 steps).
+CHECKER_ITERS = 100
+CHECKER_RUNS = (("anneal_512", 512, True), ("anneal_64", 64, True), ("hard_512", 512, False))
+
+
+def phase_checker_main():
+    """The CLI's config-4 runs (CHECKER_RUNS) on the card, with the launch
+    counts read around each: the anneal runs row 9 200 times (its two soft
+    stages), row 7 twice (their targets), row 1 100 times (the hard polish,
+    three objects) and row 2 twice (the target and the final image); the
+    hard run row 1 50 times and row 2 twice; nothing else. Each stage's
+    first and last loss, the eye's RMS error at the start and the end, and
+    the loop's ms a step. At 64^2 the eye's RMS error must end below 0.02 of
+    its start (the JAX test's criterion). Returns each run's numbers."""
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.models import configs
+
+    out_dir = REPO / "smoke_out"
+    rows = {}
+    for label, size, anneal in CHECKER_RUNS:
+        truth, spec, _ = configs.config4_checker_camera(size, device="cuda")
+        start = configs.perturb(truth, spec, scale=0.05, seed=0)
+
+        def eye_rms(s, truth=truth):
+            return float(((s.camera.eye - truth.camera.eye) ** 2).mean().sqrt())
+
+        png = out_dir / f"final_config4_{label}.png"
+        argv = ["invert", "--config", "4", "--size", str(size), "--seed", "0", "--perturb",
+                "0.05", "--quiet", "--metrics", str(out_dir / f"metrics_config4_{label}.jsonl"),
+                "-o", str(png)]
+        if anneal:
+            argv += ["--anneal", "0.08,0.03,0", "--checker-ratio", "12.5", "--lr", "5e-3",
+                     "--iters", str(CHECKER_ITERS)]
+            expect = {"fused_vec_soft_step": 2 * CHECKER_ITERS, "fused_vec_soft_render": 2,
+                      "fused_step": CHECKER_ITERS, "fused_render": 2}
+        else:
+            argv += ["--iters", "50", "--log-every", "49"]
+            expect = {"fused_step": 50, "fused_render": 2}
+        for k in _all_kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        summary = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _all_kernels()}
+        if anneal:
+            la = summary["losses"]
+            stages = [la[i * CHECKER_ITERS:(i + 1) * CHECKER_ITERS] for i in range(3)]
+            first_last, n_steps = [[st[0], st[-1]] for st in stages], len(la)
+        else:
+            hist = summary["history"]
+            first_last, n_steps = [[hist[0]["loss"], hist[-1]["loss"]]], 50
+        row = dict(launches=launches, expected=expect, stage_first_last=first_last,
+                   eye_rms_start=eye_rms(start), eye_rms_end=eye_rms(summary["scene"]),
+                   param_err=summary["param_err"], loop_seconds=summary["seconds"],
+                   loop_ms_per_step=summary["seconds"] * 1e3 / n_steps, wall_seconds=wall,
+                   png_bytes=png.stat().st_size if png.exists() else 0)
+        row["eye_rms_ratio"] = row["eye_rms_end"] / row["eye_rms_start"]
+        rows[label] = row
+        ok = (all(launches[name] == expect.get(name, 0) for name in launches)
+              and all(math.isfinite(x) for st in first_last for x in st) and png.exists()
+              and (label != "anneal_64" or row["eye_rms_ratio"] < 0.02))
+        if not ok:
+            raise AssertionError(f"config 4's {label} run did not run through the expected "
+                                 f"kernels, or did not recover the camera: {row}")
+    emit("checker_main", ok=True, rows=rows)
+    return rows
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -1744,6 +2023,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    global device_ms, time_ms
+    from tools.kernel_timing import device_ms, time_ms  # the repo's, beside this script
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1766,6 +2048,8 @@ def main() -> int:
     grad_launches = run_phase("render_grad_main", phase_render_grad_main)
     gt = run_phase("render_grad_times", phase_render_grad_times)
     run_phase("loop", phase_loop)
+    checker = run_phase("checker", phase_checker)
+    checker_runs = run_phase("checker_main", phase_checker_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -1806,6 +2090,16 @@ def main() -> int:
         for k in kernels:
             if k["name"] == FWD_NAMES[family]:
                 k["launches_render_fn"] = grad_launches[label][k["name"]]
+    for k in kernels:  # the soft checker's instances at config 4 (phases checker, checker_main)
+        if k["name"] in checker:
+            t = checker[k["name"]]
+            k["checker"] = dict(case=f"config4_{CHECKER_SIZE}_t{CHECKER_TAU}_c{CHECKER_CTAU}",
+                                launches=checker_runs["anneal_512"]["launches"][k["name"]],
+                                max_abs_err=t["max_abs_err"], ms=t["ms"],
+                                device_ms=t["device"]["ms"],
+                                launches_per_call=t["device"]["launches"],
+                                plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                                bound_by=t["bound"][1])
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

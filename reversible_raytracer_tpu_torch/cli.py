@@ -1,10 +1,12 @@
-"""Command-line interface: ``render`` and ``invert`` for configs 1-3 and 5.
+"""Command-line interface: ``render`` and ``invert`` for configs 1-5.
 
 Examples:
     python -m reversible_raytracer_tpu_torch.cli render --config 2 --size 512 -o out.png
     python -m reversible_raytracer_tpu_torch.cli invert --config 2 --size 512 --iters 200
     python -m reversible_raytracer_tpu_torch.cli invert --config 5 --anneal 0.08,0.03,0.01,0 \
         --anneal-size 512 --lr 2e-3 --iters 300 --perturb 0.03
+    python -m reversible_raytracer_tpu_torch.cli invert --config 4 --anneal 0.08,0.03,0 \
+        --checker-ratio 12.5 --lr 5e-3 --iters 100 --perturb 0.05
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
 kernels, each training step one replay of a CUDA graph; ``--device cpu``
@@ -23,9 +25,10 @@ import time
 
 
 def _add_common(p):
-    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3, 5],
+    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3, 4, 5],
                    help="benchmark config (1: one sphere, 2: four spheres + ground, "
-                        "3: two lights, 5: 64 spheres + ground)")
+                        "3: two lights, 4: checker materials + camera pose, "
+                        "5: 64 spheres + ground)")
     p.add_argument("--size", type=int, default=None,
                    help="image size (default: the config's native size)")
     p.add_argument("--device", default="cuda",
@@ -160,7 +163,8 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
         t0 = time.perf_counter()
         final, losses = optimize_annealed(start, target, spec, cfg, ocfg, taus=taus,
                                           target_scene=scene, soft_size=args.anneal_size,
-                                          max_chunk=max_chunk, chunk_callback=frame_cb)
+                                          max_chunk=max_chunk, chunk_callback=frame_cb,
+                                          checker_ratio=args.checker_ratio)
         la = losses.cpu().tolist()  # each stage's loss is comparable within the stage only
         err = float(param_error(final, scene, spec))
         dt = time.perf_counter() - t0
@@ -174,7 +178,8 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     print(f"annealed {len(taus)} stages x {args.iters} iters in {dt:.1f}s "
           f"(final loss {la[-1]:.3e})", file=sys.stderr)
     _save_outputs(args, final, cfg)
-    return {"history": [{"loss": la[-1]}], "losses": la, "taus": list(taus), "param_err": err,
+    return {"history": [{"loss": la[-1]}], "losses": la, "taus": list(taus),
+            "checker_ratio": args.checker_ratio, "param_err": err,
             "start_param_err": err0, "seconds": dt, "output": args.output, "scene": final}
 
 
@@ -223,6 +228,10 @@ def main(argv=None):
                          "--iters steps each, e.g. 0.08,0.03,0.01,0")
     pi.add_argument("--anneal-size", type=int, default=None,
                     help="image size of the soft (tau > 0) stages (default: --size)")
+    pi.add_argument("--checker-ratio", type=float, default=0.0,
+                    help="soft-checker temperature per anneal tau unit (checker_tau = ratio "
+                         "* tau per stage; 12.5 recovers the camera pose against checkers, "
+                         "config 4). 0 = hard checker (default)")
     pi.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)

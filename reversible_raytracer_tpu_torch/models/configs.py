@@ -1,4 +1,4 @@
-"""Benchmark scenes 1-3 and 5, and the inverse-render start.
+"""Benchmark scenes 1-5, and the inverse-render start.
 
 The counterpart of `reversible_raytracer_tpu.models.configs` for the
 configs the CUDA kernels cover (hard shading, untextured). Each builder
@@ -113,6 +113,39 @@ def config3_multi_light(size: int = 256, device="cuda"):
     return scene, spec, RenderConfig(height=size, width=size, shadows=True)
 
 
+def config4_checker_camera(size: int = 512, device="cuda"):
+    """Config 4: checker materials (a checkered sphere and ground) +
+    camera-pose optimization, 512^2. Its camera inversion needs the soft
+    checker (`RenderConfig.checker_tau`, `optim.optimize_annealed`'s
+    ``checker_ratio``): the hard checker gives hit positions no gradient."""
+    dev = resolve_device(device)
+    m = lambda c, **kw: Materials.make(c, device=dev, **kw)
+    parts = [
+        sphere((-0.9, 0.0, 0.0), 0.65,
+               m((0.9, 0.25, 0.2), color2=(0.95, 0.9, 0.85), checker=1.0, checker_scale=4.0,
+                 ks=0.4, shininess=40.0), device=dev),
+        sphere((0.95, 0.1, -0.3), 0.6, m((0.2, 0.5, 0.9), ks=0.5, shininess=60.0), device=dev),
+    ]
+    plane = ground_plane(-0.75, 14.0,
+                         m((0.85, 0.85, 0.85), color2=(0.15, 0.15, 0.18), checker=1.0,
+                           checker_scale=18.0, ka=0.15, kd=0.85), device=dev)
+    scene = Scene.make(
+        spheres=merge_spheres(parts),
+        rects=plane,
+        lights=_lights([[4.0, 6.0, 4.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.3, 1.3, 4.6), (0.0, 0.0, 0.0), fov_deg=55.0, device=dev),
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("camera.eye", lower=-10.0, upper=10.0)
+        .train("camera.look_at", lower=-5.0, upper=5.0)
+        .train("spheres.material.color", lower=0.0, upper=1.0)
+        .train("spheres.material.color2", lower=0.0, upper=1.0)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True)
+
+
 def config5_many_spheres(size: int = 1024, n_spheres: int = 64, seed: int = 0,
                          device="cuda"):
     """Config 5: a jittered square grid of spheres (8x8 by default) over a
@@ -157,6 +190,7 @@ CONFIGS = {
     1: config1_single_sphere,
     2: config2_four_spheres,
     3: config3_multi_light,
+    4: config4_checker_camera,
     5: config5_many_spheres,
 }
 

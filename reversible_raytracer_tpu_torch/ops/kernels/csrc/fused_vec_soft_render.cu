@@ -8,7 +8,13 @@
 // loop, a chunk-skipped resolve of each layer's attributes and coverage, a
 // soft shadow product loop per layer and light, and the two-layer
 // composite. tau is a runtime argument, as the TPU kernel's SMEM scalar: one
-// build serves every anneal stage.
+// build serves every anneal stage. So is checker_tau, the TPU kernel's
+// second SMEM scalar (fused_vec_soft.py:1082): the soft checker's blend of a
+// layer's base colour (soft_common.cuh soft_surface). The kernel is built
+// in two instances, SOFT_CHECKER true and false, and the launch takes the
+// first where checker_tau > 0: at checker_tau = 0 the hard checker's code
+// and bits stay as they were, where the TPU kernel selects at run time
+// (fused_vec.py:523-538).
 //
 // Design: one block of 32 x 8 threads per 32 x 8 tile, one thread per
 // pixel, the globals and the packed rows (the sphere rows without their
@@ -54,10 +60,11 @@ using namespace rrt;
 
 namespace {
 
+template <bool SOFT_CHECKER>
 __global__ void __launch_bounds__(BLOCK_THREADS)
     soft_render_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                        const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
-                       GLayout gl, Params p, float tau, float* __restrict__ img) {
+                       GLayout gl, Params p, float tau, float ctau, float* __restrict__ img) {
   extern __shared__ float smem[];
   const ForwardBlock fb = stage_forward(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
   const auto& sc = fb.sc;
@@ -84,7 +91,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
       const bool live = h.k >= 0;  // implies inside
       LayerColor lc = {bg, 0.0f};
       if (__any_sync(FULL, live)) {  // a warp without a live lane here shades nothing
-        const Surface s = surface(sc, o, d, h);
+        const Surface s = layer_surface<SOFT_CHECKER>(sc, o, d, h, ctau);
         auto vis = [&](int l, V3 so, const LightGeo& lg) {
           return p.shadows ? soft_visibility(sc, so, lg, sc.l_pos(l), live, tau, lane, fb.wm)
                            : 1.0f;
@@ -113,19 +120,33 @@ extern "C" long long rrt_soft_render_smem(int n_sph, int n_rect, int n_light) {
   return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light);
 }
 
-extern "C" int rrt_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
-                               int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                               int shadows, int clip, float tau, float* img, void* stream) {
+template <bool SOFT_CHECKER>
+static int launch_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
+                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
+                              int shadows, int clip, float tau, float ctau, float* img,
+                              void* stream) {
   const GLayout gl = make_glayout(n_light);
   const Params p = make_params(H, W, shadows, clip);
   const size_t smem = forward_smem(ns_pad, nr_pad, n_light);
+  const auto kernel = soft_render_kernel<SOFT_CHECKER>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        soft_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 tiles = pixel_grid(H, W);
-  soft_render_kernel<<<tiles.x * tiles.y, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
-      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, tau, img);
+  kernel<<<tiles.x * tiles.y, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
+      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, tau, ctau, img);
   return (int)cudaGetLastError();
+}
+
+extern "C" int rrt_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
+                               int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
+                               int shadows, int clip, float tau, float ctau, float* img,
+                               void* stream) {
+  if (ctau > 0.0f)
+    return launch_soft_render<true>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                                    shadows, clip, tau, ctau, img, stream);
+  return launch_soft_render<false>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                                   shadows, clip, tau, ctau, img, stream);
 }

@@ -25,7 +25,8 @@
 //
 // Bound: operations, as the soft step's less its residual; bytes: the rows
 // and the cotangent (12 bytes per pixel) read once, the gradient written
-// once (chip_smoke.py counts both).
+// once (chip_smoke.py counts both). checker_tau as the step's: the soft
+// checker's instance where it is above 0.
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -43,9 +44,9 @@ extern "C" long long rrt_soft_render_bwd_scratch_floats(int ns_pad, int nr_pad, 
 // out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)].
 extern "C" int rrt_soft_render_bwd(const float* glob, const float* sph, const float* rct,
                                    int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
-                                   int H, int W, int shadows, int clip, float tau,
+                                   int H, int W, int shadows, int clip, float tau, float ctau,
                                    const float* g_img, float* scratch, float* out,
                                    void* stream) {
   return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
-                          clip, tau, CotangentSource{g_img, nullptr}, scratch, out, stream);
+                          clip, tau, ctau, CotangentSource{g_img, nullptr}, scratch, out, stream);
 }

@@ -30,6 +30,10 @@
 // chip_smoke.py counts the warp test once per warp, sphere, layer and
 // light, the per-pixel test for each live pixel of a warp's candidate, and
 // a kept pair at the sigmoid, the factor and its adjoint.
+//
+// checker_tau, the TPU kernel's second SMEM scalar (fused_vec_soft.py:1133),
+// is a runtime argument as tau is: checker_tau > 0 launches the soft
+// checker's instance of the body (soft_step.cuh), 0 the other.
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -46,8 +50,8 @@ extern "C" long long rrt_soft_step_scratch_floats(int ns_pad, int nr_pad, int n_
 
 extern "C" int rrt_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                             int shadows, int clip, float tau, const float* target, float w,
-                             float* scratch, float* out, void* stream) {
+                             int shadows, int clip, float tau, float ctau, const float* target,
+                             float w, float* scratch, float* out, void* stream) {
   return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
-                          clip, tau, ResidualSource{target, w}, scratch, out, stream);
+                          clip, tau, ctau, ResidualSource{target, w}, scratch, out, stream);
 }

@@ -18,7 +18,14 @@
 //     (1 - alpha) over the sphere occluders between the surface and the
 //     light (in row order) and of the hard 0/1 rect factors; the kernels
 //     take it over a warp's candidates by the per-pixel rule (shadow_term),
-//     which keeps its bits.
+//     which keeps its bits;
+//   - the soft checker (checker_tau > 0; pipeline.py:229-254 and the
+//     checker_tau branch of _gather_layer, pipeline_vec.py:276-327): a
+//     layer's base colour c1 + u (c2 - c1), u = checker (0.5 - 0.5 q), q the
+//     product over the axes of tri / (|tri| + checker_tau + 1e-6), tri =
+//     2 |mod(x - 0.5, 2) - 1| - 1 at x = a sphere's (p - c) s or a rect's
+//     (a s, b s), s the checker scale; mod floored (mod2), as jnp.mod and
+//     torch.remainder are.
 #pragma once
 
 #include "cull.cuh"
@@ -236,6 +243,73 @@ __device__ __forceinline__ V3 composite(const LayerColor& c1, const LayerColor& 
   *behind = b;
   return {c1.a * c1.col.x + (1.0f - c1.a) * b.x, c1.a * c1.col.y + (1.0f - c1.a) * b.y,
           c1.a * c1.col.z + (1.0f - c1.a) * b.z};
+}
+
+// One axis of the soft checker at coordinate x: f = tri / (|tri| + ctau +
+// 1e-6), with what its adjoint reads.
+struct CheckerAxis {
+  float m1, tri, den, f;  // m1 = mod(x - 0.5, 2) - 1
+};
+
+__device__ __forceinline__ CheckerAxis checker_axis(float x, float ctau) {
+  CheckerAxis a;
+  a.m1 = mod2(x - 0.5f) - 1.0f;
+  a.tri = 2.0f * fabsf(a.m1) - 1.0f;
+  a.den = (fabsf(a.tri) + ctau) + 1e-6f;
+  a.f = a.tri / a.den;
+  return a;
+}
+
+// The cotangent of x for a cotangent g_f of the axis's factor f: df/dtri =
+// (den - |tri|) / den^2 (|tri| has the subgradient 0 at 0), dtri/dm =
+// 2 sign(m1), and the floored mod's derivative is 1.
+__device__ __forceinline__ float checker_axis_adjoint(const CheckerAxis& a, float g_f) {
+  const float g_tri = g_f * (a.den - fabsf(a.tri)) / (a.den * a.den);
+  return g_tri * 2.0f * (a.m1 > 0.0f ? 1.0f : (a.m1 < 0.0f ? -1.0f : 0.0f));
+}
+
+// c1 + u (c2 - c1), per channel.
+__device__ __forceinline__ V3 checker_blend(V3 c1, V3 c2, float u) {
+  return {c1.x + u * (c2.x - c1.x), c1.y + u * (c2.y - c1.y), c1.z + u * (c2.z - c1.z)};
+}
+
+// The surface of a live layer under the soft checker: surface's normal and
+// material scalars, the base colour blended by the soft parity at the hit
+// (a sphere's p - c at the layer's rank t, a rect's (a, b)); use2 is false.
+// surface() stays the hard checker of every other kernel and of
+// checker_tau = 0.
+template <class S>
+__device__ __forceinline__ Surface soft_surface(const S& sc, V3 o, V3 d, Nearest h, float ctau) {
+  Surface s = surface(sc, o, d, h);
+  if (h.k < 0) return s;
+  s.use2 = false;
+  if (h.k < sc.rect_base()) {
+    const int k = h.k;
+    const V3 pl = (o + d * h.t) - sc.s_center(k);
+    const float cs = sc.s_cscale(k);
+    const float q = checker_axis(pl.x * cs, ctau).f * checker_axis(pl.y * cs, ctau).f *
+                    checker_axis(pl.z * cs, ctau).f;
+    s.base = checker_blend(sc.s_color(k, false), sc.s_color(k, true),
+                           sc.s_checker(k) * (0.5f - 0.5f * q));
+  } else {
+    const int k = h.k - sc.rect_base();
+    float a, b;
+    hit_rect(o, d, sc.r_origin(k), sc.r_eu(k), sc.r_ev(k), &a, &b);
+    const float cs = sc.r_cscale(k);
+    const float q = checker_axis(a * cs, ctau).f * checker_axis(b * cs, ctau).f;
+    s.base = checker_blend(sc.r_color(k, false), sc.r_color(k, true),
+                           sc.r_checker(k) * (0.5f - 0.5f * q));
+  }
+  return s;
+}
+
+// A layer's surface: the soft checker's in the kernels' SOFT_CHECKER
+// instance, the hard one otherwise.
+template <bool SOFT_CHECKER, class S>
+__device__ __forceinline__ Surface layer_surface(const S& sc, V3 o, V3 d, Nearest h,
+                                                 float ctau) {
+  if constexpr (SOFT_CHECKER) return soft_surface(sc, o, d, h, ctau);
+  else return surface(sc, o, d, h);
 }
 
 }  // namespace rrt

@@ -50,9 +50,21 @@
 // 3. vec_finalize_kernel copies out [sq, dglob, dsph, drct] and applies the
 //    camera chain once.
 //
+// The soft checker (checker_tau > 0, soft_common.cuh soft_surface) is the
+// SOFT_CHECKER instance of the step kernel, which the launch takes where
+// checker_tau > 0; the other instance is the code of checker_tau = 0 as it
+// was. Its adjoint adds, per layer's winner, the blend's: (1 - u) g_base to
+// color and u g_base to color2, u = checker (0.5 - 0.5 q); the checker and
+// checker-scale columns' gradients; and through q the cotangent of the hit
+// position, a sphere's p - c (so o, d, the rank t and the centre) or a
+// rect's (a, b) (so o, d, t, the origin and, through their normalizations,
+// the edges). Each factor's cotangent is the product of the others, never a
+// division by a factor, which is 0 on a cell boundary.
+//
 // No atomics: the result is bit-for-bit the same from call to call on one
 // card. Pad rows are never read and their gradient is exactly zero; so are
-// the checker, checker-scale and mirror columns.
+// the mirror columns, and without the soft checker the checker and
+// checker-scale columns.
 #pragma once
 
 #include "cull.cuh"
@@ -101,6 +113,15 @@ inline SoftPlan soft_plan(int ns_pad, int nr_pad, int n_light) {
   s.pcap = (int)(room < 1 ? 1 : room > PCAP ? PCAP : room);
   s.smem = base + s.pcap * per_slot;
   return s;
+}
+
+// The packed column of field f of the SOFT_CHECKER instance's per-object
+// gradient: the fields of sph_col / rct_col, then checker and checker scale.
+__host__ __device__ inline int sph_col_ck(int f) {
+  return f < SPH_FIELDS ? sph_col(f) : 10 + (f - SPH_FIELDS);
+}
+__host__ __device__ inline int rct_col_ck(int f) {
+  return f < RECT_FIELDS ? rct_col(f) : 15 + (f - RECT_FIELDS);
 }
 
 // Adds the warp's sums of the 4 components of v to row[0..3] in 6 shuffles
@@ -228,12 +249,15 @@ __device__ __forceinline__ void shadow_pass2(const S& sc, V3 so, const LightGeo&
 // Two blocks per SM: 128 registers a thread. One block lets ptxas keep
 // everything in 172 registers, but half the warps in flight took it from
 // 0.20 to 0.30 ms at config 5, 512^2 (PERF.md).
-template <class Src>
+template <class Src, bool SOFT_CHECKER>
 __global__ void __launch_bounds__(BLOCK_THREADS, 2)
     soft_step_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                      const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
-                     GLayout gl, Params p, float tau, int pcap, Src src,
+                     GLayout gl, Params p, float tau, float ctau, int pcap, Src src,
                      float* __restrict__ partials) {
+  // the per-object gradient's fields: the soft checker adds checker and scale
+  constexpr int SF = SOFT_CHECKER ? SPH_FIELDS + 2 : SPH_FIELDS;
+  constexpr int RF = SOFT_CHECKER ? RECT_FIELDS + 2 : RECT_FIELDS;
   extern __shared__ float smem[];
   const int GROW = 1 + gl.Sg + CAM_EXTRA;
   const int OROW = ns_pad * P_SPH + nr_pad * P_RCT;
@@ -284,7 +308,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
   for (int ly = 0; ly < 2; ++ly) {
     const Nearest h = y.l[ly];
     const bool live = h.k >= 0;  // implies inside
-    const Surface s = surface(sc, o, d, h);
+    const Surface s = layer_surface<SOFT_CHECKER>(sc, o, d, h, ctau);
     const V3 so = shadow_origin(o, d, live ? h.t : 0.0f, s.n);
     for (int l = 0; l < sc.n_light(); ++l) {
       const int cb = ly * gl.L + l;
@@ -335,7 +359,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
     if (!live) g_bg = g_bg + g_col;
     const V3 gh = live ? g_col : zero3();
     const float g_alpha = live ? (ly == 0 ? g_a0 : g_a1) : 0.0f;
-    const Surface s = surface(sc, o, d, h);
+    const Surface s = layer_surface<SOFT_CHECKER>(sc, o, d, h, ctau);
     const float t = live ? h.t : 0.0f;
     V3 g_base = {gh.x * amb.x * s.ka, gh.y * amb.y * s.ka, gh.z * amb.z * s.ka};
     g_amb = g_amb + V3{gh.x * s.base.x * s.ka, gh.y * s.base.y * s.ka, gh.z * s.base.z * s.ka};
@@ -415,11 +439,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
     g_n = g_n + g_so * SHADOW_EPS;
 
     // ---- the layer's winner
-    float obj[RECT_FIELDS];
+    float obj[RF];
 #pragma unroll
-    for (int f = 0; f < RECT_FIELDS; ++f) obj[f] = 0.0f;
-    const V3 g_c1 = s.use2 ? zero3() : g_base;
-    const V3 g_c2 = s.use2 ? g_base : zero3();
+    for (int f = 0; f < RF; ++f) obj[f] = 0.0f;
+    V3 g_c1 = s.use2 ? zero3() : g_base;
+    V3 g_c2 = s.use2 ? g_base : zero3();
     if (live && h.k < ns_pad) {
       // n = (o + d t - c) / r, t = -b - sqrt(disc) on a hit, -b on a near
       // miss; alpha = sigmoid(disc / (tau r^2))
@@ -428,7 +452,25 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
       const float rad = sc.s_radius(k);
       const float inv_r = 1.0f / rad;
       const V3 pl = (o + d * t) - c;
-      const V3 g_pl = g_n * inv_r;
+      V3 g_pl = g_n * inv_r;
+      if constexpr (SOFT_CHECKER) {  // base = c1 + u (c2 - c1) at (p - c) s
+        const float cs = sc.s_cscale(k), chk = sc.s_checker(k);
+        const CheckerAxis ax = checker_axis(pl.x * cs, ctau), ay = checker_axis(pl.y * cs, ctau),
+                          az = checker_axis(pl.z * cs, ctau);
+        const float par = 0.5f - 0.5f * (ax.f * ay.f * az.f);
+        const float u = chk * par;
+        const V3 c1 = sc.s_color(k, false), c2 = sc.s_color(k, true);
+        g_c1 = g_base * (1.0f - u);
+        g_c2 = g_base * u;
+        const float g_u = dot(g_base, c2 - c1);
+        const float g_q = -0.5f * chk * g_u;
+        const V3 g_x = {checker_axis_adjoint(ax, g_q * ay.f * az.f),
+                        checker_axis_adjoint(ay, g_q * ax.f * az.f),
+                        checker_axis_adjoint(az, g_q * ax.f * ay.f)};
+        g_pl = g_pl + g_x * cs;
+        obj[SPH_FIELDS] = g_u * par;
+        obj[SPH_FIELDS + 1] = g_x.x * pl.x + g_x.y * pl.y + g_x.z * pl.z;
+      }
       float g_r = -dot(g_n, pl) * inv_r * inv_r;
       g_o = g_o + g_pl;
       g_d = g_d + g_pl * t;
@@ -478,15 +520,49 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
       const float denom = dot(d, nraw);
       const V3 p0o = p0 - o;
       const float num = dot(p0o, nraw);
-      const float g_num = g_t / denom;
-      const float g_den = -g_t * num / (denom * denom);
-      const V3 g_p0 = nraw * g_num;
+      float g_tr = g_t;
+      V3 g_rel = zero3(), g_eu_ck = zero3(), g_ev_ck = zero3();
+      if constexpr (SOFT_CHECKER) {
+        // base = c1 + u (c2 - c1) at (a s, b s), (a, b) = (rel . eu / |eu|^2,
+        // rel . ev / |ev|^2), rel = (o + d t) - p0 (hit_rect's)
+        const float cs = sc.r_cscale(k), chk = sc.r_checker(k);
+        const V3 rel = (o + d * t) - p0;
+        const float inv_uu = 1.0f / dot(eu, eu), inv_vv = 1.0f / dot(ev, ev);
+        const float a = dot(rel, eu) * inv_uu, b = dot(rel, ev) * inv_vv;
+        const CheckerAxis aa = checker_axis(a * cs, ctau), ab = checker_axis(b * cs, ctau);
+        const float par = 0.5f - 0.5f * (aa.f * ab.f);
+        const float u = chk * par;
+        const V3 c1 = sc.r_color(k, false), c2 = sc.r_color(k, true);
+        g_c1 = g_base * (1.0f - u);
+        g_c2 = g_base * u;
+        const float g_u = dot(g_base, c2 - c1);
+        const float g_q = -0.5f * chk * g_u;
+        const float g_xa = checker_axis_adjoint(aa, g_q * ab.f);
+        const float g_xb = checker_axis_adjoint(ab, g_q * aa.f);
+        obj[RECT_FIELDS] = g_u * par;
+        obj[RECT_FIELDS + 1] = g_xa * a + g_xb * b;
+        const float ga = g_xa * cs * inv_uu, gb = g_xb * cs * inv_vv;
+        g_rel = eu * ga + ev * gb;
+        g_eu_ck = rel * ga + eu * (-2.0f * ga * dot(rel, eu) * inv_uu);
+        g_ev_ck = rel * gb + ev * (-2.0f * gb * dot(rel, ev) * inv_vv);
+        g_tr = g_t + dot(g_rel, d);
+      }
+      const float g_num = g_tr / denom;
+      const float g_den = -g_tr * num / (denom * denom);
+      V3 g_p0 = nraw * g_num;
       g_o = g_o - g_p0;
       g_d = g_d + nraw * g_den;
       const V3 g_nraw =
           p0o * g_num + d * g_den + normalize_adjoint(nraw, inv_n, nn2, g_n * facing);
-      const V3 g_eu = cross(ev, g_nraw);
-      const V3 g_ev = cross(g_nraw, eu);
+      V3 g_eu = cross(ev, g_nraw);
+      V3 g_ev = cross(g_nraw, eu);
+      if constexpr (SOFT_CHECKER) {  // rel = (o + d t) - p0, and (a, b)'s edges
+        g_p0 = g_p0 - g_rel;
+        g_o = g_o + g_rel;
+        g_d = g_d + g_rel * t;
+        g_eu = g_eu + g_eu_ck;
+        g_ev = g_ev + g_ev_ck;
+      }
       obj[0] = g_p0.x;
       obj[1] = g_p0.y;
       obj[2] = g_p0.z;
@@ -516,16 +592,16 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
     // sums, as lane 0 reduced them), then the block's row, warp by warp
     const int kw = live ? h.k : -1;
     int n = 0, ke = -1;
-    float acc[RECT_FIELDS];
+    float acc[RF];
 #pragma unroll
-    for (int f = 0; f < RECT_FIELDS; ++f) acc[f] = 0.0f;
+    for (int f = 0; f < RF; ++f) acc[f] = 0.0f;
     for (unsigned todo = __ballot_sync(FULL, kw >= 0); todo;) {
       const int k = __shfl_sync(FULL, kw, __ffs(todo) - 1);
       const unsigned same = __ballot_sync(FULL, kw == k);
       const bool mine = kw == k;
-      const int nf = k < ns_pad ? SPH_FIELDS : RECT_FIELDS;  // the same in every lane
+      const int nf = k < ns_pad ? SF : RF;  // the same in every lane
 #pragma unroll
-      for (int f = 0; f < RECT_FIELDS; ++f) {
+      for (int f = 0; f < RF; ++f) {
         if (f < nf) {
           const float v = __shfl_sync(FULL, warp_sum(mine ? obj[f] : 0.0f), 0);
           if (lane == n) acc[f] = v;
@@ -539,11 +615,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 2)
       if (v == warp && ke >= 0) {
         if (ke < ns_pad) {
 #pragma unroll
-          for (int f = 0; f < SPH_FIELDS; ++f) orow[ke * P_SPH + sph_col(f)] += acc[f];
+          for (int f = 0; f < SF; ++f) orow[ke * P_SPH + sph_col_ck(f)] += acc[f];
         } else {
 #pragma unroll
-          for (int f = 0; f < RECT_FIELDS; ++f)
-            orow[ns_pad * P_SPH + (ke - ns_pad) * P_RCT + rct_col(f)] += acc[f];
+          for (int f = 0; f < RF; ++f)
+            orow[ns_pad * P_SPH + (ke - ns_pad) * P_RCT + rct_col_ck(f)] += acc[f];
         }
       }
       __syncthreads();
@@ -593,10 +669,11 @@ inline long long soft_step_scratch_floats(int ns_pad, int nr_pad, int n_light, i
 }
 
 // The three launches on one stream; out = [sq, dglob, dsph, drct].
-template <class Src>
-int launch_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
-                     int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
-                     int clip, float tau, Src src, float* scratch, float* out, void* stream) {
+template <class Src, bool SOFT_CHECKER>
+int launch_soft_step_instance(const float* glob, const float* sph, const float* rct, int n_sph,
+                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
+                              int shadows, int clip, float tau, float ctau, Src src,
+                              float* scratch, float* out, void* stream) {
   const GLayout gl = make_glayout(n_light);
   const Params p = make_params(H, W, shadows, clip);
   const SoftPlan plan = soft_plan(ns_pad, nr_pad, n_light);
@@ -607,12 +684,12 @@ int launch_soft_step(const float* glob, const float* sph, const float* rct, int 
   float* rowsum = scratch + (long long)nrows * plan.ROW;
   cudaError_t err;
   if (plan.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(soft_step_kernel<Src>,
+    err = cudaFuncSetAttribute(soft_step_kernel<Src, SOFT_CHECKER>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  soft_step_kernel<Src><<<grid, dim3(BLOCK_X, BLOCK_Y), plan.smem, st>>>(
-      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, tau, plan.pcap, src, partials);
+  soft_step_kernel<Src, SOFT_CHECKER><<<grid, dim3(BLOCK_X, BLOCK_Y), plan.smem, st>>>(
+      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, tau, ctau, plan.pcap, src, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_rows_kernel<SOFT_REDUCE_RY><<<(plan.ROW + 31) / 32, dim3(32, SOFT_REDUCE_RY), 0, st>>>(
@@ -621,6 +698,21 @@ int launch_soft_step(const float* glob, const float* sph, const float* rct, int 
   if (err != cudaSuccess) return (int)err;
   vec_finalize_kernel<<<1, 256, 0, st>>>(rowsum, glob, gl, plan.OROW, out);
   return (int)cudaGetLastError();
+}
+
+// The soft checker's instance where checker_tau > 0, else the other.
+template <class Src>
+int launch_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
+                     int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                     int clip, float tau, float ctau, Src src, float* scratch, float* out,
+                     void* stream) {
+  if (ctau > 0.0f)
+    return launch_soft_step_instance<Src, true>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
+                                                n_light, H, W, shadows, clip, tau, ctau, src,
+                                                scratch, out, stream);
+  return launch_soft_step_instance<Src, false>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
+                                               n_light, H, W, shadows, clip, tau, ctau, src,
+                                               scratch, out, stream);
 }
 
 }  // namespace rrt

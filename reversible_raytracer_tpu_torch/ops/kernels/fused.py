@@ -57,6 +57,7 @@ from ..pipeline import (
     n_vis_planes,
     occluded,
     render_tile,
+    soft_checker_q,
 )
 from ._build import Kernel
 
@@ -602,14 +603,15 @@ def light_geometry_adjoint(f, g_ldir):
     return vm.vadd(g_lvec, vm.vscale(f.lvec, 2.0 * g_dist2))
 
 
-def sphere_winner_adjoint(o, d, t, c, r, g_t, g_n, soft=None):
+def sphere_winner_adjoint(o, d, t, c, r, g_t, g_n, soft=None, g_pl=None):
     """Cotangents (o, d, center, radius) of a winning sphere's n = (o + d t
     - c) / r and t = -b - sqrt(disc) (-b for a soft layer's near miss: no
     sqrt term where the ray misses). ``soft = (tau, g_alpha)`` adds the
-    coverage alpha = sigmoid(disc / (tau r^2))."""
+    coverage alpha = sigmoid(disc / (tau r^2)); ``g_pl`` a cotangent of the
+    local hit position p - c besides the normal's (the soft checker's)."""
     inv_r = 1.0 / r
     pl = vm.vsub(vm.vadd(o, vm.vscale(d, t)), c)
-    g_pl = vm.vscale(g_n, inv_r)
+    g_pl = vm.vscale(g_n, inv_r) if g_pl is None else vm.vadd(vm.vscale(g_n, inv_r), g_pl)
     g_r = -vm.vdot(g_n, pl) * inv_r * inv_r
     g_o = g_pl
     g_d = vm.vscale(g_pl, t)
@@ -703,18 +705,21 @@ def winner_geometry(scene, k, zero):
     return w
 
 
-def winner_surface(scene, w, o, d, t, zero):
+def winner_surface(scene, w, o, d, t, zero, checker_tau=0.0):
     """Add to ``w`` (from `winner_geometry`) the winner's surface at ray
     distance ``t``: the normal ``n`` (a sphere's is (p - c) / r), the
     checker pick ``use2``, the ``base`` colour, ``ka``/``kd``/``ksp``/
-    ``shin``, and ``pick(sphere_value, rect_value, miss_value)``."""
+    ``shin``, and ``pick(sphere_value, rect_value, miss_value)``. At
+    ``checker_tau > 0`` the base is the soft checker's blend c1 + u (c2 -
+    c1) and ``use2`` is False; ``w.ck`` keeps what its adjoint reads
+    (`pipeline.sphere_hit`)."""
     sp, rc = scene.spheres, scene.rects
     p = vm.vadd(o, vm.vscale(d, t))
     s_pl = vm.vsub(p, w.sc)
     s_n = vm.vscale(s_pl, 1.0 / w.sr)
-    s_par = torch.remainder(sum(torch.floor(c * gather_rows(sp.material.checker_scale, w.ks, zero))
-                                for c in s_pl), 2.0)
-    s_use2 = gather_rows(sp.material.checker, w.ks, zero) * s_par > 0.5
+    s_cs = gather_rows(sp.material.checker_scale, w.ks, zero)
+    s_chk = gather_rows(sp.material.checker, w.ks, zero)
+    s_use2 = s_chk * torch.remainder(sum(torch.floor(c * s_cs) for c in s_pl), 2.0) > 0.5
 
     nu = vm.vnormalize(vm.vcross(w.eu, w.ev))
     r_n = vm.vscale(nu, torch.where(vm.vdot(nu, d) < 0.0, 1.0, -1.0))
@@ -722,8 +727,8 @@ def winner_surface(scene, w, o, d, t, zero):
     ra = vm.vdot(rel, w.eu) * (1.0 / vm.vdot(w.eu, w.eu))
     rb = vm.vdot(rel, w.ev) * (1.0 / vm.vdot(w.ev, w.ev))
     r_cs = gather_rows(rc.material.checker_scale, w.kr, zero)
-    r_par = torch.remainder(torch.floor(ra * r_cs) + torch.floor(rb * r_cs), 2.0)
-    r_use2 = gather_rows(rc.material.checker, w.kr, zero) * r_par > 0.5
+    r_chk = gather_rows(rc.material.checker, w.kr, zero)
+    r_use2 = r_chk * torch.remainder(torch.floor(ra * r_cs) + torch.floor(rb * r_cs), 2.0) > 0.5
 
     def pick(sv, rv, miss):
         return torch.where(w.is_sph, sv, torch.where(w.is_rct, rv, miss))
@@ -734,12 +739,22 @@ def winner_surface(scene, w, o, d, t, zero):
 
     w.pick = pick
     w.n = tuple(pick(a, b, zero) for a, b in zip(s_n, r_n))
-    w.use2 = torch.where(w.is_sph, s_use2, r_use2)
-    w.base = tuple(pick(torch.where(s_use2, a2, a1), torch.where(r_use2, b2, b1), zero)
-                   for a1, a2, b1, b2 in zip(gather_rows(sp.material.color, w.ks, zero),
-                                             gather_rows(sp.material.color2, w.ks, zero),
-                                             gather_rows(rc.material.color, w.kr, zero),
-                                             gather_rows(rc.material.color2, w.kr, zero)))
+    s_c1, s_c2 = (gather_rows(getattr(sp.material, f), w.ks, zero) for f in ("color", "color2"))
+    r_c1, r_c2 = (gather_rows(getattr(rc.material, f), w.kr, zero) for f in ("color", "color2"))
+    if checker_tau > 0.0:
+        s_parts, r_parts = tuple(c * s_cs for c in s_pl), (ra * r_cs, rb * r_cs)
+        s_u = s_chk * (0.5 - 0.5 * soft_checker_q(s_parts, checker_tau))
+        r_u = r_chk * (0.5 - 0.5 * soft_checker_q(r_parts, checker_tau))
+        w.use2 = torch.zeros_like(w.hit)
+        w.base = tuple(pick(a1 + s_u * (a2 - a1), b1 + r_u * (b2 - b1), zero)
+                       for a1, a2, b1, b2 in zip(s_c1, s_c2, r_c1, r_c2))
+        w.ck = SimpleNamespace(s_pl=s_pl, s_cs=s_cs, s_chk=s_chk, s_parts=s_parts, s_u=s_u,
+                               s_dc=vm.vsub(s_c2, s_c1), rel=rel, ra=ra, rb=rb, r_cs=r_cs,
+                               r_chk=r_chk, r_parts=r_parts, r_u=r_u, r_dc=vm.vsub(r_c2, r_c1))
+    else:
+        w.use2 = torch.where(w.is_sph, s_use2, r_use2)
+        w.base = tuple(pick(torch.where(s_use2, a2, a1), torch.where(r_use2, b2, b1), zero)
+                       for a1, a2, b1, b2 in zip(s_c1, s_c2, r_c1, r_c2))
     w.ka, w.kd, w.ksp, w.shin = mat("ka"), mat("kd"), mat("ks"), mat("shininess", 1.0)
     return w
 

@@ -42,10 +42,21 @@ shadow product over the sphere occluders (rect occluders hard), and the
 composite a1 c1 + (1 - a1) (a2 c2 + (1 - a2) bg), clipped. tau is a runtime
 argument of both kernels: one build serves every anneal stage.
 
+The soft checker (``checker_tau > 0``, the anneal's ``checker_ratio``): a
+layer's base colour is c1 + u (c2 - c1), u = checker (0.5 - 0.5 q), q the
+smooth parity `pipeline.soft_checker_q` of its hit position (a sphere's p
+- c at its rank t, a rect's (a, b)) times the checker scale, so the hit
+positions, the camera and the checker columns get gradients. checker_tau
+is a runtime argument too, as the TPU kernels' second SMEM scalar; each
+kernel is built twice from one body (a ``SOFT_CHECKER`` template flag), and
+the wrapper launches the checker instance where ``checker_tau > 0`` and the
+other where it is 0, which keeps the hard select's code, bits and time (the
+TPU kernels' runtime select, fused_vec.py:523-538).
+
 The scene enters as `fused_vec`'s packed rows (globals, sphere and rect
 rows padded to 16, rects numbered from the padded sphere count). Covered:
 spp 1, perspective, Phong, untextured objects, no environment map, no
-soft checker, no mirror levels; anything else raises on CUDA. On a CPU
+mirror levels; anything else raises on CUDA. On a CPU
 tensor each wrapper runs its plain version; on a CUDA tensor it launches
 its kernel or raises.
 """
@@ -61,7 +72,7 @@ from torch.autograd.function import once_differentiable
 
 from ...models.scene import tree_leaves, tree_unflatten
 from .. import vecmath as vm
-from ..pipeline import BIG, SHADOW_EPS, RenderConfig
+from ..pipeline import BIG, SHADOW_EPS, RenderConfig, soft_checker_q
 from ..pipeline_vec import (
     sphere_axis,
     rect_ts,
@@ -77,16 +88,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = fused_vec._GEOM  # n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows, clip
 
 SOFT_RENDER = Kernel("fused_vec_soft_render", {
-    "rrt_soft_render": ([_P, _P, _P, *_GEOM, _F, _P, _P], _I),
+    "rrt_soft_render": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P], _I),
     "rrt_soft_render_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_STEP = Kernel("fused_vec_soft_step", {
-    "rrt_soft_step": ([_P, _P, _P, *_GEOM, _F, _P, _F, _P, _P, _P], _I),
+    "rrt_soft_step": ([_P, _P, _P, *_GEOM, _F, _F, _P, _F, _P, _P, _P], _I),
     "rrt_soft_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
-    "rrt_soft_render_bwd": ([_P, _P, _P, *_GEOM, _F, _P, _P, _P, _P], _I),
+    "rrt_soft_render_bwd": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P, _P], _I),
     "rrt_soft_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
@@ -106,8 +117,6 @@ def soft_uncovered(scene, cfg: RenderConfig):
     if cfg.spp != 1:
         return (f"spp={cfg.spp} (a spp-4 soft stage needs subsample offsets in the soft "
                 "forward and backward kernels)")
-    if cfg.checker_tau > 0.0:
-        return "checker_tau > 0 (the soft checker)"
     if cfg.reflections:
         return "mirror reflections"
     if cfg.shader != "phong":
@@ -124,6 +133,10 @@ def soft_uncovered(scene, cfg: RenderConfig):
 def check_soft_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise for a configuration the soft kernels do not take."""
     if not cfg.soft_tau > 0.0:
+        if cfg.checker_tau > 0.0:
+            raise NotImplementedError(
+                "the checker-only relaxation (soft_tau = 0, checker_tau > 0) has no soft kernel: "
+                "it renders through pipeline_vec.render_eager_vec, as in the JAX package")
         raise ValueError("the soft kernels need soft_tau > 0 (the hard path is fused_vec)")
     why = soft_uncovered(scene, cfg)
     if why is not None:
@@ -187,8 +200,8 @@ class _SoftRender(torch.autograd.Function):
             fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
         img = torch.empty((cfg.height, cfg.width, 3), device=glob.device)
         SOFT_RENDER.call("rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                         *fused_vec._geometry(scene, cfg), float(cfg.soft_tau), img.data_ptr(),
-                         fused._stream(glob.device))
+                         *fused_vec._geometry(scene, cfg), float(cfg.soft_tau),
+                         float(cfg.checker_tau), img.data_ptr(), fused._stream(glob.device))
         SOFT_RENDER.launches += 1
         ctx.scene, ctx.cfg = scene, cfg
         ctx.save_for_backward(glob, sph, rct)
@@ -219,8 +232,8 @@ def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img):
                              dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     SOFT_RENDER_BWD.call("rrt_soft_render_bwd", glob.data_ptr(), sph.data_ptr(),
-                         rct.data_ptr(), *geom, float(cfg.soft_tau), g_img.data_ptr(),
-                         scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+                         rct.data_ptr(), *geom, float(cfg.soft_tau), float(cfg.checker_tau),
+                         g_img.data_ptr(), scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     SOFT_RENDER_BWD.launches += 1
     return fused_vec._unpack_out(scene_like, out, glob, sph, rct)
 
@@ -253,8 +266,8 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
     scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_scratch_floats", geom[2:7], dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
     SOFT_STEP.call("rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
-                   float(cfg.soft_tau), target.data_ptr(), norm, scratch.data_ptr(),
-                   out.data_ptr(), fused._stream(dev))
+                   float(cfg.soft_tau), float(cfg.checker_tau), target.data_ptr(), norm,
+                   scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     SOFT_STEP.launches += 1
     return norm * out[0], fused_vec._unpack_out(scene, out, glob, sph, rct)
 
@@ -362,7 +375,7 @@ def _layer(scene, cfg, ray, k, tau, zero, warp_cull=False):
     t_r = fused.intersect_rect(o, d, y.p0, y.eu, y.ev)[0]
     y.t = torch.where(y.is_sph, t_s, torch.where(y.is_rct, t_r, BIG))
     y.alpha = torch.where(y.is_sph, a_s, torch.where(y.is_rct, 1.0, 0.0))
-    fused.winner_surface(scene, y, o, d, y.t, zero)
+    fused.winner_surface(scene, y, o, d, y.t, zero, cfg.checker_tau)
 
     # shading with the soft shadow product
     amb = vm.splat(scene.ambient)
@@ -498,23 +511,28 @@ def _soft_adjoint(scene, cfg, cotangent):
         g_t = vm.vdot(g_so, d)
         g_n = vm.vadd(g_n, vm.vscale(g_so, SHADOW_EPS))
 
-        # ---- the layer's winner
-        s_go, s_gd, g_c, g_r = fused.sphere_winner_adjoint(o, d, y.t, y.sc, y.sr, g_t, g_n,
-                                                           soft=(tau, g_alpha))
-        r_go, r_gd, g_p0, g_eu, g_ev = fused.rect_winner_adjoint(o, d, y.p0, y.eu, y.ev,
-                                                                 y.is_rct, g_t, g_n)
+        # ---- the layer's winner (and its soft checker's hit position)
+        ck = _checker_adjoint(y, g.base, cfg.checker_tau) if cfg.checker_tau > 0.0 else None
+        s_go, s_gd, g_c, g_r = fused.sphere_winner_adjoint(
+            o, d, y.t, y.sc, y.sr, g_t, g_n, soft=(tau, g_alpha),
+            g_pl=None if ck is None else ck.s_pl)
+        r_go, r_gd, g_p0, g_eu, g_ev = fused.rect_winner_adjoint(
+            o, d, y.p0, y.eu, y.ev, y.is_rct, g_t if ck is None else g_t + vm.vdot(ck.rel, d), g_n)
+        if ck is not None:  # rel = (o + d t) - origin, (a, b) = (rel . eu / |eu|^2, rel . ev / |ev|^2)
+            r_go, r_gd = vm.vadd(r_go, ck.rel), vm.vadd(r_gd, vm.vscale(ck.rel, y.t))
+            g_p0, g_eu, g_ev = vm.vsub(g_p0, ck.rel), vm.vadd(g_eu, ck.eu), vm.vadd(g_ev, ck.ev)
         g_o_cam = tuple(a + torch.where(y.hit, g_o[c] + y.pick(s_go[c], r_go[c], zero), 0.0)
                         for c, a in enumerate(g_o_cam))
         g_d_cam = tuple(a + torch.where(y.hit, g_d[c] + y.pick(s_gd[c], r_gd[c], zero), 0.0)
                         for c, a in enumerate(g_d_cam))
         if N:
-            mg = fused.material_grads(spheres.material, N, y.ks, y.is_sph, y.use2, g, like)
+            mg = _winner_materials(spheres.material, N, y.ks, y.is_sph, y.use2, g, ck, "s", like)
             spheres = dc.replace(
                 spheres, center=spheres.center + fused.winner_rows(N, y.ks, y.is_sph, g_c, like),
                 radius=spheres.radius + fused.winner_rows(N, y.ks, y.is_sph, [g_r], like)[:, 0],
                 material=_add_materials(spheres.material, mg))
         if M:
-            mg = fused.material_grads(rects.material, M, y.kr, y.is_rct, y.use2, g, like)
+            mg = _winner_materials(rects.material, M, y.kr, y.is_rct, y.use2, g, ck, "r", like)
             rects = dc.replace(
                 rects, origin=rects.origin + fused.winner_rows(M, y.kr, y.is_rct, g_p0, like),
                 edge_u=rects.edge_u + fused.winner_rows(M, y.kr, y.is_rct, g_eu, like),
@@ -535,8 +553,88 @@ def _soft_adjoint(scene, cfg, cotangent):
     return sq, grads
 
 
+_MATERIAL_GRADS = ("color", "color2", "checker", "checker_scale", "ka", "kd", "ks", "shininess")
+
+
 def _add_materials(acc, inc):
-    """``acc`` plus the winners' material gradients ``inc`` (the fields
-    `fused.material_grads` fills)."""
-    return dc.replace(acc, **{f: getattr(acc, f) + getattr(inc, f)
-                              for f in ("color", "color2", "ka", "kd", "ks", "shininess")})
+    """``acc`` plus the winners' material gradients ``inc`` (from
+    `_winner_materials`)."""
+    return dc.replace(acc, **{f: getattr(acc, f) + getattr(inc, f) for f in _MATERIAL_GRADS})
+
+
+def _winner_materials(mat_like, count, idx, mask, use2, g, ck, kind, like):
+    """The material leaves' gradients of a layer's winners of one kind
+    (``kind``: "s" spheres, "r" rects): `fused.material_grads` for the hard
+    checker (``ck`` None: the base to color or color2 as the checker
+    picked, no gradient to the checker columns), else the soft checker's
+    (`_checker_adjoint`): the base's (1 - u) to color and u to color2, and
+    the checker and checker-scale columns'."""
+    zeros = torch.zeros((count,), **like)
+    if ck is None:
+        return dc.replace(fused.material_grads(mat_like, count, idx, mask, use2, g, like),
+                          checker=zeros, checker_scale=zeros)
+    mg = fused.material_grads(mat_like, count, idx, mask, use2,
+                              SimpleNamespace(**{**vars(g), "base": getattr(ck, kind + "_c1")}),
+                              like)
+    cols = fused.winner_rows(count, idx, mask, [getattr(ck, kind + "_chk"),
+                                                getattr(ck, kind + "_cs")], like)
+    return dc.replace(mg, color2=fused.winner_rows(count, idx, mask, getattr(ck, kind + "_c2"),
+                                                   like),
+                      checker=cols[:, 0], checker_scale=cols[:, 1])
+
+
+def _soft_checker_q_adjoint(parts, tau, g_q):
+    """Cotangents of the coordinates ``parts`` of q = `soft_checker_q`(parts,
+    tau) for q's cotangent ``g_q``: factor i's is g_q times the product of
+    the others (never a division by a factor, which is 0 on a cell
+    boundary); f = tri / (|tri| + tau + 1e-6) has df/dtri = tau' / den^2,
+    written (den - |tri|) / den^2 (1 / den where tri = 0, where |tri| has the
+    subgradient 0); tri = 2 |m - 1| - 1 with the floored m = mod(x - 0.5, 2),
+    whose derivative is 1."""
+    m1 = [torch.remainder(x - 0.5, 2.0) - 1.0 for x in parts]
+    tri = [2.0 * torch.abs(m) - 1.0 for m in m1]
+    den = [torch.abs(t) + tau + 1e-6 for t in tri]
+    f = [t / dn for t, dn in zip(tri, den)]
+    out = []
+    for i in range(len(parts)):
+        others = g_q
+        for j in range(len(parts)):
+            if j != i:
+                others = others * f[j]
+        g_tri = others * (den[i] - torch.abs(tri[i])) / (den[i] * den[i])
+        out.append(g_tri * 2.0 * torch.sign(m1[i]))
+    return out
+
+
+def _checker_adjoint(y, g_base, ctau):
+    """The soft checker's adjoint for a layer's winners (``y`` from `_layer`,
+    its ``ck`` from `fused.winner_surface`), given the base colour's
+    cotangent ``g_base``, each term for a sphere winner and for a rect
+    winner: base = c1 + u (c2 - c1), u = checker (0.5 - 0.5 q), q =
+    soft_checker_q(parts), parts a sphere's (p - c) s or a rect's (a s, b s).
+    Gives the cotangents of c1 and c2 (``s_c1`` ...), of the checker and
+    checker-scale columns (``s_chk``, ``s_cs``), of a sphere's p - c
+    (``s_pl``), and of a rect's rel = p - origin (``rel``) and, through the
+    normalizations of (a, b), of its edges (``eu``, ``ev``)."""
+    k = y.ck
+    out = SimpleNamespace()
+    for kind, parts, u, chk, dc_ in (("s", k.s_parts, k.s_u, k.s_chk, k.s_dc),
+                                     ("r", k.r_parts, k.r_u, k.r_chk, k.r_dc)):
+        parity = 0.5 - 0.5 * soft_checker_q(parts, ctau)
+        g_u = vm.vdot(g_base, dc_)
+        setattr(out, kind + "_c1", vm.vscale(g_base, 1.0 - u))
+        setattr(out, kind + "_c2", vm.vscale(g_base, u))
+        setattr(out, kind + "_chk", g_u * parity)
+        setattr(out, kind + "_parts", _soft_checker_q_adjoint(parts, ctau, -0.5 * chk * g_u))
+    out.s_pl = tuple(g * k.s_cs for g in out.s_parts)
+    out.s_cs = sum(g * p for g, p in zip(out.s_parts, k.s_pl))
+    g_a, g_b = (g * k.r_cs for g in out.r_parts)
+    out.r_cs = out.r_parts[0] * k.ra + out.r_parts[1] * k.rb
+    inv_uu, inv_vv = 1.0 / vm.vdot(y.eu, y.eu), 1.0 / vm.vdot(y.ev, y.ev)
+    ga_n, gb_n = g_a * inv_uu, g_b * inv_vv
+    out.rel = vm.vadd(vm.vscale(y.eu, ga_n), vm.vscale(y.ev, gb_n))
+    out.eu = vm.vadd(vm.vscale(k.rel, ga_n),
+                     vm.vscale(y.eu, -2.0 * ga_n * vm.vdot(k.rel, y.eu) * inv_uu))
+    out.ev = vm.vadd(vm.vscale(k.rel, gb_n),
+                     vm.vscale(y.ev, -2.0 * gb_n * vm.vdot(k.rel, y.ev) * inv_vv))
+    return out

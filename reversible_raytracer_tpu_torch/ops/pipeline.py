@@ -6,8 +6,11 @@ with solid or checker materials, nearest hit by a first-wins ``where``
 chain, hard shadow rays, and the phong, depth and normal shaders with spp 1
 or 4. `shade_from_attrs` also takes a soft occlusion in [0, 1], which the
 soft renderer (`pipeline_vec.shade_soft`, ``soft_tau > 0``) feeds it.
-Textures, environment maps, mirror reflections and the soft checker
-(``checker_tau > 0``) raise `NotImplementedError`.
+`sphere_hit` and `rect_hit` also take the soft checker (``checker_tau >
+0``, `soft_checker_q`), which only the object-vectorized renderer
+(`pipeline_vec`) passes them: the where chain (`shade`) refuses it, as the
+JAX package's hard family does. Textures, environment maps and mirror
+reflections raise `NotImplementedError`.
 
 This is the plain version of the CUDA kernels (`ops.kernels.fused`): on
 the CPU it is the renderer, and on the card it is what the kernels are held
@@ -53,12 +56,16 @@ class RenderConfig:
         return (self.height, self.width)
 
 
-def _require_hard(scene, cfg: RenderConfig) -> None:
+def _require_hard(scene, cfg: RenderConfig, soft_checker: bool = False) -> None:
     """Raise for what no eager renderer covers. ``soft_tau > 0`` passes: the
     shader that `render_tile` is given decides (`shade` and
-    `pipeline_vec.shade_vec` refuse it, `pipeline_vec.shade_soft` needs it)."""
-    if cfg.checker_tau > 0.0:
-        raise NotImplementedError("checker_tau (soft checker) rendering is not ported yet")
+    `pipeline_vec.shade_vec` refuse it, `pipeline_vec.shade_soft` needs it).
+    ``checker_tau > 0`` passes only for a shader that takes the soft checker
+    (``soft_checker``: the object-vectorized ones); the where chain refuses
+    it (the JAX package's pipeline.py:99-101)."""
+    if cfg.checker_tau > 0.0 and not soft_checker:
+        raise NotImplementedError(
+            "checker_tau > 0 (the soft checker) renders through pipeline_vec (render_eager_vec)")
     if cfg.reflections and cfg.shader == "phong":
         raise NotImplementedError("mirror reflections are not ported yet")
     if scene.env_mapped:
@@ -175,31 +182,57 @@ def _checker_select(m, parity) -> Vec3:
     return vm.vwhere(m["checker"] * parity > 0.5, m["color2"], m["color"])
 
 
+def soft_checker_q(parts, tau):
+    """The smooth parity sign q in [-1, 1] of the soft checker (JAX
+    pipeline.py:229-254): per axis tri(x) = 2 |mod(x - 0.5, 2) - 1| - 1, the
+    wave that is (-1)^floor(x) at cell centres and 0 at integers, squashed
+    to tri / (|tri| + tau + 1e-6), and q the product over the axes; sign(q)
+    is the hard parity as tau -> 0. The 1e-6 guard keeps q and its gradient
+    finite where tri is 0 even at tau = 0. ``torch.remainder`` is floored,
+    as ``jnp.mod`` is (and as the kernels' `mod2`)."""
+    q = 1.0
+    for p in parts:
+        tri = 2.0 * torch.abs(torch.remainder(p - 0.5, 2.0) - 1.0) - 1.0
+        q = q * (tri / (torch.abs(tri) + tau + 1e-6))
+    return q
+
+
+def _checker_base(m, parts, checker_tau) -> Vec3:
+    """The base colour of a hit at checker coordinates ``parts`` (the hit's
+    local position times the checker scale): the hard select at
+    ``checker_tau == 0``; above it the blend color + u (color2 - color), u =
+    checker (0.5 - 0.5 q), which carries gradient to the hit position."""
+    if checker_tau > 0.0:
+        u = m["checker"] * (0.5 - 0.5 * soft_checker_q(parts, checker_tau))
+        return tuple(c1 + u * (c2 - c1) for c1, c2 in zip(m["color"], m["color2"]))
+    parity = torch.remainder(sum(torch.floor(p) for p in parts), 2.0)
+    return _checker_select(m, parity)
+
+
 def miss_color(scene, d: Vec3, shape) -> Vec3:
     if scene.env_mapped:
         raise NotImplementedError("environment maps are not ported yet")
     return vm.vbroadcast(vm.splat(scene.background), shape)
 
 
-def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m, t=None):
+def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m, t=None, checker_tau=0.0):
     """(t, normal, base colour) of a sphere with material rows ``m``. A
     given ``t`` (a soft layer's rank t, which may be a near miss's closest
     approach) replaces the intersection; the normal (p - c) / r is then not
-    a unit vector, as in the JAX package's `_gather_layer`."""
+    a unit vector, as in the JAX package's `_gather_layer`. The checker is
+    the hard select, or at ``checker_tau > 0`` the soft blend
+    (`_checker_base`)."""
     if t is None:
         t = intersect_sphere(o, d, center, radius)
     p_local = vm.vsub(vm.vadd(o, vm.vscale(d, t)), center)
     n_unit = vm.vscale(p_local, 1.0 / radius)
     s = m["scale"]
-    parity = torch.remainder(
-        torch.floor(p_local[0] * s) + torch.floor(p_local[1] * s)
-        + torch.floor(p_local[2] * s), 2.0,
-    )
-    return t, n_unit, _checker_select(m, parity)
+    return t, n_unit, _checker_base(m, tuple(x * s for x in p_local), checker_tau)
 
 
-def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m):
-    """(t, unit normal facing the ray, base colour) of a rect."""
+def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m, checker_tau=0.0):
+    """(t, unit normal facing the ray, base colour) of a rect; the checker
+    as `sphere_hit`'s, at the in-face coordinates (a, b)."""
     t, a, b, n = intersect_rect(o, d, origin, edge_u, edge_v)
     n_unit = vm.vnormalize(n)
     # Two-sided shading: flip the normal toward the incoming ray. The sign
@@ -207,8 +240,7 @@ def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m):
     # round a float64 normal to float32.
     facing = torch.where(vm.vdot(n_unit, d) < 0.0, 1.0, -1.0).to(t.dtype)
     s = m["scale"]
-    parity = torch.remainder(torch.floor(a * s) + torch.floor(b * s), 2.0)
-    return t, vm.vscale(n_unit, facing), _checker_select(m, parity)
+    return t, vm.vscale(n_unit, facing), _checker_base(m, (a * s, b * s), checker_tau)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +391,7 @@ def render_tile(scene, cfg: RenderConfig, row0, col0, bh: int, bw: int,
     Returns SoA (r, g, b), plus the visibility planes with ``return_vis``.
     ``shade_fn`` traces and shades one subsample's rays: `shade` (the
     where chain) or `pipeline_vec.shade_vec` (objects on a leading axis)."""
-    _require_hard(scene, cfg)
+    _require_hard(scene, cfg, soft_checker=shade_fn is not shade)
     if cfg.spp not in SPP_OFFSETS:
         raise ValueError(f"spp must be 1 or 4, got {cfg.spp}")
     like = dict(device=scene.device, dtype=scene.ambient.dtype)

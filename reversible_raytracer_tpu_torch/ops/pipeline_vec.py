@@ -20,8 +20,14 @@ where its sigmoid coverage exceeds 1e-3), the two nearest layers are
 shaded with a soft shadow product and alpha-composited over the
 background. The ranking has no gradient; the two layers' winners, their
 coverage and the shadow products do. This is the plain version of the
-soft kernels (`kernels.fused_vec_soft`). Textures, environment maps, mirror
-reflections and the soft checker raise `NotImplementedError`.
+soft kernels (`kernels.fused_vec_soft`).
+
+Both take the soft checker (``checker_tau > 0``, the JAX package's
+`_gather_layer` branch): each winner's base colour blends color and color2
+by the smooth parity `pipeline.soft_checker_q` of its hit position, which
+gives the hit positions, and through them the camera, a gradient. With
+``checker_tau == 0`` the checker is the hard select, bit for bit. Textures,
+environment maps and mirror reflections raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -114,10 +120,11 @@ def _take(rows, idx):
     return out.reshape(*idx.shape, *rows.shape[1:])
 
 
-def trace_nearest_vec(scene, o, d, shape):
+def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0):
     """`pipeline.trace_nearest` with the objects on a leading axis: (t, hit,
     attrs), where only the winner's intersection and attributes are
-    evaluated (with gradient) per pixel."""
+    evaluated (with gradient) per pixel; the checker soft at
+    ``checker_tau > 0``."""
     if scene.spheres.textured or scene.rects.textured:
         raise NotImplementedError("object textures are not ported yet")
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
@@ -130,7 +137,8 @@ def trace_nearest_vec(scene, o, d, shape):
         ks = k.clamp(0, N - 1)
         pick = lambda x: _take(x, ks)
         m = material_rows(sp.material, pick)
-        t_s, n_unit, col = sphere_hit(o, d, _xyz(pick(sp.center)), pick(sp.radius), m)
+        t_s, n_unit, col = sphere_hit(o, d, _xyz(pick(sp.center)), pick(sp.radius), m,
+                                      checker_tau=checker_tau)
         is_sph = (k >= 0) & (k < N)
         t = torch.where(is_sph, t_s, t)
         best = merge_attrs(best, is_sph, n_unit, col, m)
@@ -139,7 +147,7 @@ def trace_nearest_vec(scene, o, d, shape):
         pick = lambda x: _take(x, kr)
         m = material_rows(rc.material, pick)
         t_r, n_unit, col = rect_hit(o, d, _xyz(pick(rc.origin)), _xyz(pick(rc.edge_u)),
-                                    _xyz(pick(rc.edge_v)), m)
+                                    _xyz(pick(rc.edge_v)), m, checker_tau=checker_tau)
         t = torch.where(k >= N, t_r, t)
         best = merge_attrs(best, k >= N, n_unit, col, m)
     return t, t < BIG * 0.5, best
@@ -150,7 +158,7 @@ def shade_vec(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
     require_hard_visibility(cfg)
     if cfg.reflections and cfg.shader == "phong":
         raise NotImplementedError("mirror reflections are not ported yet")
-    t, hit, at = trace_nearest_vec(scene, o, d, shape)
+    t, hit, at = trace_nearest_vec(scene, o, d, shape, cfg.checker_tau)
     return shade_from_attrs(scene, o, d, cfg, shape, t, hit, at, return_vis=return_vis,
                             occluded_fn=occluded_any)
 
@@ -237,11 +245,11 @@ def two_layers(scene, o, d, tau, keep=None):
         return layers
 
 
-def soft_layer(scene, o, d, k, tau, shape):
+def soft_layer(scene, o, d, k, tau, shape, checker_tau=0.0):
     """(t, live, attrs, alpha) of one layer's winners ``k`` (per pixel),
     with gradient: a sphere's soft t_rank and coverage, its normal (p - c)/r
-    at that t, a rect's hit with coverage 1; t = BIG and alpha 0 where the
-    layer is dead."""
+    and checker at that t, a rect's hit with coverage 1; t = BIG and alpha
+    0 where the layer is dead."""
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     sp, rc = scene.spheres, scene.rects
     N, M = sp.count, rc.count
@@ -253,7 +261,7 @@ def soft_layer(scene, o, d, k, tau, shape):
         c, r = _xyz(pick(sp.center)), pick(sp.radius)
         t_s, a_s = sphere_soft(c, r, o, d, tau)
         m = material_rows(sp.material, pick)
-        _, n, col = sphere_hit(o, d, c, r, m, t=t_s)
+        _, n, col = sphere_hit(o, d, c, r, m, t=t_s, checker_tau=checker_tau)
         is_sph = (k >= 0) & (k < N)
         t = torch.where(is_sph, t_s, t)
         alpha = torch.where(is_sph, a_s, alpha)
@@ -262,7 +270,7 @@ def soft_layer(scene, o, d, k, tau, shape):
         pick = lambda x: _take(x, (k - N).clamp(0, M - 1))
         m = material_rows(rc.material, pick)
         t_r, n, col = rect_hit(o, d, _xyz(pick(rc.origin)), _xyz(pick(rc.edge_u)),
-                               _xyz(pick(rc.edge_v)), m)
+                               _xyz(pick(rc.edge_v)), m, checker_tau=checker_tau)
         t = torch.where(k >= N, t_r, t)
         alpha = torch.where(k >= N, 1.0, alpha)
         best = merge_attrs(best, k >= N, n, col, m)
@@ -284,7 +292,7 @@ def shade_soft(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
     occ = lambda sc, so, ld, dist: occluded_soft(sc, so, ld, dist, tau)
     layers = []
     for _, k in two_layers(scene, o, d, tau):
-        t, live, at, alpha = soft_layer(scene, o, d, k, tau, shape)
+        t, live, at, alpha = soft_layer(scene, o, d, k, tau, shape, cfg.checker_tau)
         col = shade_from_attrs(scene, o, d, cfg_layer, shape, t, live, at, occluded_fn=occ)
         layers.append((torch.where(live, alpha, 0.0), col))
     (a1, c1), (a2, c2) = layers
@@ -299,8 +307,9 @@ def shade_soft(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
 
 def render_eager_vec(scene, cfg: RenderConfig):
     """Render the full image with the objects on a leading axis (the twin
-    of `render_jnp_vec`), soft when ``cfg.soft_tau > 0``. Returns (H, W, 3)
-    in the scene's dtype."""
+    of `render_jnp_vec`), soft when ``cfg.soft_tau > 0``, with the soft
+    checker when ``cfg.checker_tau > 0``. Returns (H, W, 3) in the scene's
+    dtype."""
     shade_fn = shade_soft if cfg.soft_tau > 0.0 else shade_vec
     r, g, b = render_tile(scene, cfg, 0, 0, cfg.height, cfg.width, shade_fn=shade_fn)
     return torch.stack([r, g, b], dim=-1)

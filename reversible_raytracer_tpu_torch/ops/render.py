@@ -10,7 +10,11 @@ the unrolled family (`kernels.fused`; `render_eager`), larger ones the
 object-chunked family (`kernels.fused_vec`; `render_eager_vec`), the JAX
 package's threshold. A soft render (``soft_tau > 0``) takes the soft
 kernels (`kernels.fused_vec_soft`) on CUDA and the soft branch of
-`render_eager_vec` on the CPU, whatever the object count.
+`render_eager_vec` on the CPU, whatever the object count, with the soft
+checker (``checker_tau > 0``) or without. The checker-only relaxation
+(``soft_tau == 0``, ``checker_tau > 0``) has no kernel here, as it has none
+in the JAX package (whose TPU dispatch sends it to `render_jnp_vec`): it
+runs `render_eager_vec` on either device.
 """
 
 from __future__ import annotations
@@ -35,11 +39,15 @@ def resolve_impl(scene, cfg: RenderConfig) -> str:
     """``"cuda"`` / ``"cuda_vec"`` for a scene on a CUDA device whose
     configuration the kernels cover, ``"eager"`` / ``"eager_vec"`` on the
     CPU, by object count; ``"cuda_vec_soft"`` / ``"eager_vec"`` for
-    ``soft_tau > 0`` (the JAX package's render.py:51-71); raises otherwise."""
+    ``soft_tau > 0``, with any ``checker_tau``; ``"eager_vec"`` on either
+    device for the checker-only relaxation (``soft_tau == 0``,
+    ``checker_tau > 0``), as the JAX package's render.py:51-64 decides;
+    raises otherwise."""
     soft = cfg.soft_tau > 0.0
-    vec = soft or scene.spheres.count + scene.rects.count > VEC_THRESHOLD
+    checker_only = not soft and cfg.checker_tau > 0.0
+    vec = soft or checker_only or scene.spheres.count + scene.rects.count > VEC_THRESHOLD
     dev = scene.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (checker_only and dev.type == "cuda"):
         return "eager_vec" if vec else "eager"
     if dev.type == "cuda":
         if soft:
@@ -79,10 +87,14 @@ def render(scene, cfg: RenderConfig):
 
 def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
     """``f(scene, target) -> (loss, grads)``: one fused step kernel call per
-    call on CUDA, torch autograd over the eager renderer on the CPU. A soft
+    call on CUDA, torch autograd over the eager renderer on the CPU (and on
+    either device for the checker-only relaxation, `resolve_impl`). A soft
     step (``soft_tau > 0``) at spp 4 raises on CUDA (the soft kernels take
     no subsample offsets yet)."""
     impl = resolve_step_impl(scene_like, cfg, loss)
+    if cfg.soft_tau == 0.0 and cfg.checker_tau > 0.0:
+        return lambda scene, target: fused.autograd_loss_grad(render_eager_vec, scene, cfg,
+                                                              target, loss)
     if cfg.soft_tau > 0.0:
         step = fused_vec_soft.loss_grad_vec_soft
     else:

@@ -464,7 +464,8 @@ def param_error(scene: Scene, truth: Scene, spec: ParamSpec):
 def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
                       ocfg: OptConfig, taus=(0.08, 0.03, 0.01, 0.0),
                       target_scene: Scene | None = None, soft_size: int | None = None,
-                      max_chunk: int | None = 100, hard_ocfg="auto", chunk_callback=None):
+                      max_chunk: int | None = 100, hard_ocfg="auto", chunk_callback=None,
+                      checker_ratio: float = 0.0):
     """Soft-visibility annealing for the joint geometry inversion (the JAX
     package's `optimize_annealed`): ``ocfg.iters`` steps per tau stage with
     ``soft_tau = tau``, each stage warm-started from the last and run by
@@ -475,8 +476,11 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
     if given); the tau = 0 stage runs against ``target``, with
     ``hard_ocfg`` ("auto": SGD at lr 0.3 without momentum; None: ``ocfg``).
     ``chunk_callback(scene, it)`` runs after each chunk with the global
-    iteration. Returns (final_scene, losses[len(taus) * iters]) on the
-    scene's device."""
+    iteration. ``checker_ratio > 0`` relaxes the checker as well, each stage
+    at ``checker_tau = checker_ratio * tau`` (the soft checker, which gives
+    the camera a gradient against checkered materials: config 4's recipe is
+    12.5), so the tau = 0 polish keeps the hard checker. Returns
+    (final_scene, losses[len(taus) * iters]) on the scene's device."""
     import dataclasses
 
     from .ops.render import render
@@ -489,7 +493,8 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
         hard_ocfg = dataclasses.replace(ocfg, optimizer="sgd", lr=0.3, momentum=0.0)
     all_losses = []
     for tau in taus:
-        cfg_t = dataclasses.replace(rcfg, soft_tau=float(tau))
+        cfg_t = dataclasses.replace(rcfg, soft_tau=float(tau),
+                                    checker_tau=float(checker_ratio) * float(tau))
         if tau > 0.0 and soft_size is not None:
             cfg_t = dataclasses.replace(cfg_t, height=soft_size, width=soft_size)
         tgt = target
@@ -499,7 +504,7 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
         done = sum(int(l.shape[0]) for l in all_losses)
         scene, losses = optimize_scan(
             scene, tgt, spec, cfg_t, stage_ocfg, max_chunk=max_chunk,
-            cache_key=("annealed-step", float(tau), soft_size),
+            cache_key=("annealed-step", float(tau), cfg_t.checker_tau, soft_size),
             chunk_callback=(None if chunk_callback is None
                             else (lambda s, it, base=done: chunk_callback(s, base + it))))
         all_losses.append(losses)

@@ -935,3 +935,109 @@ def test_graph_step_that_cannot_be_captured_raises(cuda):
     with pytest.raises(graphs.CaptureError):
         optim.optimize(start, target, spec, cfg, ocfg, vag_fn=syncing, log_every=0)
     assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+# ---------------------------------------------------------------------------
+# The soft checker (checker_tau > 0) of rows 7, 8 and 9: config 4
+# ---------------------------------------------------------------------------
+
+# The camera's eye, look_at and up gradients come from one chain (the basis
+# from the ten ray-form cotangents): each is held to the largest of the
+# three, as up's is a float32 cancellation far below eye's on config 4.
+CAMERA_CHAIN = ("camera.eye", "camera.look_at", "camera.up")
+
+
+def _close_leaves_chain(g_ref, g_got, rel=1e-2):
+    chain = max(float(getattr(g_ref.camera, p.split(".")[1]).abs().max()) for p in CAMERA_CHAIN)
+    for path, a, b in zip(leaf_paths(g_ref), tree_leaves(g_ref), tree_leaves(g_got)):
+        if a.numel():
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            scale = max(np.abs(a).max(), 1e-6, chain if path in CAMERA_CHAIN else 0.0)
+            np.testing.assert_allclose(b, a, atol=rel * scale, rtol=0, err_msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 512])
+def test_soft_checker_kernels_match_plain(cuda, size):
+    """Config 4 at tau 0.08, checker_tau 1.0: row 7 against its plain version
+    by the oracle rule; rows 9 and 8 (through autograd of `render`) against
+    autograd and their eager twins, every leaf within 1e-2 of its scale, the
+    camera's and the checker columns' included, and the eye's gradient not
+    0; row 9 against row 7's own image a loss of exactly 0."""
+    scene, spec, cfg = configs.config4_checker_camera(size, device=cuda)
+    cfg = dataclasses.replace(cfg, soft_tau=0.08, checker_tau=1.0)
+    assert resolve_impl(scene, cfg) == "cuda_vec_soft"
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    img_k = fused_vec_soft.render_vec_soft(scene, cfg)
+    err = (img_k - fused_vec_soft.render_vec_soft_plain(scene, cfg)).abs()
+    assert float((err > 2e-3).float().mean()) < 1e-3 and float(err.mean()) < 1e-4
+    target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    l_k, g_k = fused_vec_soft.loss_grad_vec_soft(start, cfg, target)
+    for ref in (fused_vec_soft.loss_grad_vec_soft_adjoint_eager,
+                fused_vec_soft.loss_grad_vec_soft_plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves_chain(g_r, g_k)
+    assert float(g_k.camera.eye.abs().max()) > 1e-6
+    assert g_k.rects.material.checker.any() and g_k.rects.material.checker_scale.any()
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=(size, size, 3)).astype(
+        np.float32)).to(cuda)
+    before = fused_vec_soft.SOFT_RENDER_BWD.launches
+    g_8 = fused.autograd_vjp(render, start, cfg, g)
+    assert fused_vec_soft.SOFT_RENDER_BWD.launches == before + 1
+    _close_leaves_chain(fused_vec_soft.render_vec_soft_bwd_plain(start, cfg, g), g_8)
+    _close_leaves_chain(fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g), g_8)
+    l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg, img_k)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+def test_soft_checker_instance_keeps_unchecked_bits(cuda):
+    """Config 5 (no checkered material) at 512^2, tau 0.08: rows 7, 8 and 9
+    give the same image, loss and gradient bits at checker_tau 1.0 (the
+    kernels' soft-checker instance) as at checker_tau 0 (the instance of the
+    hard checker). Its blend is c1 + 0 (c2 - c1) there; at the true scene,
+    where color2 is color, the checker column's gradient par (c2 - c1) .
+    g_base is 0 as well (at a perturbed colour it is not, and rightly)."""
+    scene, spec, _ = configs.config5_many_spheres(size=512, device=cuda)
+    cfg0 = RenderConfig(height=512, width=512, shadows=True, soft_tau=0.08)
+    cfg1 = dataclasses.replace(cfg0, checker_tau=1.0)
+    img = fused_vec_soft.render_vec_soft(scene, cfg0)
+    assert torch.equal(img, fused_vec_soft.render_vec_soft(scene, cfg1))
+    target = fused_vec_soft.render_vec_soft(configs.perturb(scene, spec, scale=0.05, seed=4),
+                                            cfg0)
+    l0, g0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg0, target)
+    l1, g1 = fused_vec_soft.loss_grad_vec_soft(scene, cfg1, target)
+    assert float(l0) == float(l1) > 0.0
+    assert torch.equal(fused.flatten_scene(g0), fused.flatten_scene(g1))
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 512, 3)).astype(
+        np.float32)).to(cuda)
+    assert torch.equal(fused.flatten_scene(fused.autograd_vjp(render, scene, cfg0, g)),
+                       fused.flatten_scene(fused.autograd_vjp(render, scene, cfg1, g)))
+
+
+@pytest.mark.cuda
+def test_config4_anneal_recovers_the_camera(cuda):
+    """The JAX package's config-4 recipe (tests/test_soft_checker.py:260) at
+    64^2 on the card: taus 0.08, 0.03, 0 with checker_ratio 12.5, 100 Adam
+    steps a stage at lr 5e-3 from perturb(0.05, seed 0); the eye's RMS
+    error ends below 0.02 of its start. Row 9 steps the soft stages (200),
+    row 7 renders their targets (2), row 1 the hard polish (100)."""
+    from reversible_raytracer_tpu_torch import optim
+
+    scene, spec, cfg = configs.config4_checker_camera(64, device=cuda)
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.05, seed=0)
+    rms = lambda s: float(((s.camera.eye - scene.camera.eye) ** 2).mean().sqrt())  # noqa: E731
+    kernels = fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS
+    for k in kernels:
+        k.launches = 0
+    final, losses = optim.optimize_annealed(start, target, spec, cfg,
+                                            optim.OptConfig(iters=100, lr=5e-3),
+                                            taus=(0.08, 0.03, 0.0), target_scene=scene,
+                                            checker_ratio=12.5)
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    assert launches == {"fused_vec_soft_step": 200, "fused_vec_soft_render": 2,
+                        "fused_step": 100}
+    assert torch.isfinite(losses).all()
+    assert rms(final) < 0.02 * rms(start)

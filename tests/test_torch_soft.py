@@ -188,13 +188,18 @@ def test_soft_dispatch_on_cpu():
     assert float(l_a) == float(l_b)
     for a, b in zip(tree_leaves(g_a), tree_leaves(g_b)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # the soft checker renders through the same path; the where chain refuses it
+    checker = dataclasses.replace(cfg, checker_tau=0.5)
+    assert resolve_impl(ts, checker) == "eager_vec"
+    torch.testing.assert_close(render(ts, checker), render_eager_vec(ts, checker), rtol=0,
+                               atol=0)
     with pytest.raises(NotImplementedError, match="checker_tau"):
-        render(ts, dataclasses.replace(cfg, checker_tau=0.5))
+        render_eager(ts, dataclasses.replace(checker, soft_tau=0.0))
 
 
 @pytest.mark.parametrize("kw, exc, why", [
     (dict(spp=4), NotImplementedError, "subsample offsets"),
-    (dict(checker_tau=0.1), NotImplementedError, "checker"),
+    (dict(checker_tau=0.1, soft_tau=0.0), NotImplementedError, "checker"),
     (dict(reflections=1), NotImplementedError, "reflections"),
     (dict(soft_tau=0.0), ValueError, "soft_tau > 0"),
 ])

@@ -336,9 +336,9 @@ SOFT_FWD_CULLED = {
     "no_writes": [("fused_vec_soft_render.cu", STORES_CULLED,
                    STORES_NEVER.replace(" + (float)bits", ""))],
     "resident_grid": [("fused_vec_soft_render.cu", """  const dim3 tiles = pixel_grid(H, W);
-  soft_render_kernel<<<tiles.x * tiles.y,""", """  const int nblocks = resident_blocks(soft_render_kernel, smem, H, W);
+  kernel<<<tiles.x * tiles.y,""", """  const int nblocks = resident_blocks(kernel, smem, H, W);
   if (nblocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  soft_render_kernel<<<nblocks,""")],
+  kernel<<<nblocks,""")],
     "three_blocks": [("fused_vec_soft_render.cu", *three_blocks("soft_render_kernel"))],
 }
 
@@ -510,7 +510,7 @@ def main() -> int:
                 if args.kernel == "fwd":
                     err = lib.rrt_vec_render(*rows, out.data_ptr(), planes_out.data_ptr(), stream)
                 elif args.kernel == "soft_fwd":
-                    err = lib.rrt_soft_render(*rows, tau, out.data_ptr(), stream)
+                    err = lib.rrt_soft_render(*rows, tau, 0.0, out.data_ptr(), stream)
                 elif step:
                     err = lib.rrt_vec_step(*rows, target.data_ptr(), 1.0 / (H * W * 3),
                                            scratch.data_ptr(), out.data_ptr(), stream)
