@@ -157,14 +157,40 @@ non-zero:
                last loss, the eye's RMS error at the start and the end (at
                64^2 it must end below 0.02 of its start) and the loop's ms a
                step.
+ 22. spp4    - rows 1-8 at spp 4 (2x2 supersampling) at each family's
+               full-width shape: config 2 at 512^2 (rows 1-3), config 5 at
+               1024^2 (rows 4-6), config 5 at 512^2, tau 0.08 (rows 7-8),
+               reached as the main path reaches them, by the rules of phases
+               3, 4, 9, 13 and 16: rows 2 and 4 bit for bit their plain
+               versions (the image; each subsample's planes on the pixels its
+               ray hit, 0 where it hit nothing), row 7 within 1e-6; rows 1
+               and 6 against autograd and their eager twins and, given the
+               forward kernel's own spp-4 image, a loss and every gradient of
+               exactly 0; rows 3, 5 and 8 (autograd of `render`) against
+               autograd of the plain render and their twins; the wrappers'
+               launches a call (one for rows 1, 2, 3 and 6, four for rows 4,
+               5, 7 and 8); two calls bit-identical; row 9 refuses spp 4 by
+               name. Each row's event time, device time and launches per call
+               on its C entries, its plain version's time and its bound
+               (`spp_work`: every pixel's work four times, the scene's once).
+ 23. spp4_main - the CLI at --spp 4: `render` on configs 1-5; invert --config
+               2 --size 512 --iters 50 (row 1 50 times, row 2 twice); invert
+               --config 5 --size 1024 --iters 20 (row 6 20, row 4 8); the
+               anneal of phase 14 at spp 4 (row 7 12 + 4 x 60 times, row 8 4 x
+               60 by autograd of the four-launch soft render in each soft
+               step's CUDA graph, row 9 never, row 6 20, row 4 8); every
+               stage's loss falls; the host ms a step.
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
 time per call, and `launches_per_call`; the three forwards add
 `launches_render_fn`, their launches in phase 17's run of their family,
 beside `launches` on their CLI path; rows 7, 8 and 9 add `checker`, their
-soft-checker instances' numbers from phases 20 and 21), and last
-{"ok": true, "device": {...}}.
+soft-checker instances' numbers from phases 20 and 21; rows 1-8 add
+`spp4`, their numbers at spp 4 from phases 22 and 23: `ms`, `device_ms`,
+`launches_per_call` of the profiler and `wrapper_launches_per_call` of the
+counters, `max_abs_err`, `plain_ms`, `bound_ms`, and `launches` on the spp-4
+CLI path), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -488,8 +514,10 @@ OPS = dict(
 )
 
 
-def work_counts(scene, cfg, cull=False):
-    """Pixels by winner type, lit (pixel, light) pairs, and the shadow-ray
+def work_counts(scene, cfg, cull=False, off=(0.0, 0.0)):
+    """The work of one subsample, at the offset ``off`` from the pixel
+    centres (`spp_work` sums the subsamples of spp 4): pixels by winner
+    type, lit (pixel, light) pairs, and the shadow-ray
     sphere and rect tests the kernels run (the any-hit loop tests spheres,
     then rects, and stops at the first occluder), on hit pixels and on all
     pixels. With ``cull``, also the per-warp culls' work (csrc/cull.cuh, by
@@ -508,7 +536,7 @@ def work_counts(scene, cfg, cull=False):
     H, W = cfg.height, cfg.width
     dev = scene.device
     sp, rc = scene.spheres, scene.rects
-    o, d = pl.primary_rays(scene, cfg)
+    o, d = pl.primary_rays(scene, cfg, off)
     t_best = torch.full((H, W), pl.BIG, device=dev)
     kind = torch.zeros((H, W), dtype=torch.int32, device=dev)  # 0 miss, 1 sphere, 2 rect
     tests = [(1, lambda oo, dd, k=k: pl.intersect_sphere(oo, dd, sp.center[k], sp.radius[k]))
@@ -649,6 +677,31 @@ def step_ops(c, cull=False):
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# Counts of `work_counts` / `soft_work_counts` that depend on the scene or the
+# image's size alone, not on how many subsamples it takes.
+SCENE_KEYS = ("height", "width", "n_sph", "n_rect", "lights", "checker")
+
+
+def spp_work(count_fn, scene, cfg):
+    """``count_fn(scene, cfg, off=...)``'s counts at ``cfg.spp``: each
+    subsample's pixel work, counted at its offsets, summed; the scene's work
+    once (at spp 4 the bound counts each pixel four times, the scene once)."""
+    import dataclasses
+
+    from reversible_raytracer_tpu_torch.ops.pipeline import SPP_OFFSETS
+
+    cfg1, out = dataclasses.replace(cfg, spp=1), None
+    for off in SPP_OFFSETS[cfg.spp]:
+        c = count_fn(scene, cfg1, off=off)
+        if out is None:
+            out = dict(c)
+        else:
+            for k, v in c.items():
+                if k not in SCENE_KEYS:
+                    out[k] += v
+    return out
 
 
 def _render_shape_times(num, size):
@@ -1162,8 +1215,9 @@ SOFT_OPS = dict(rank_sigmoid=4, shadow_soft=26, adj_shadow=42, shadow_cull=16, w
                 adj_checker_rect=125, sum_checker=2)
 
 
-def soft_work_counts(scene, cfg):
-    """What the soft kernels' work depends on in this run's data: live
+def soft_work_counts(scene, cfg, off=(0.0, 0.0)):
+    """What the soft kernels' work depends on in this run's data, for the
+    subsample at the offset ``off`` from the pixel centres: live
     layers by winner type, sphere-ray pairs that rank by their sigmoid, and
     the soft shadow tests, the ones whose coverage is not gated to zero and
     the ones the cull keeps, over both layers and every light; by
@@ -1187,7 +1241,7 @@ def soft_work_counts(scene, cfg):
         tau = cfg.soft_tau
         sp, rc = scene.spheres, scene.rects
         N, M, L = sp.count, rc.count, scene.lights.count
-        o, d = pl.primary_rays(scene, cfg)
+        o, d = pl.primary_rays(scene, cfg, off)
         c, r = pv.sphere_axis(sp)
         oc = pl.vm.vsub(pv._lead(o), c)
         b = pl.vm.vdot(oc, pv._lead(d))
@@ -1536,77 +1590,111 @@ def soft_bwd_ops(c, cull=True):
 
 
 def _raw_calls(family, start, cfg, g, target):
-    """(forward, backward, step) launches of the family's C entries on fixed
-    buffers (no wrapper, no counter), the backward's bound and the work
-    counts. The forward runs once here, so the planes the backward reads
-    are this scene's."""
+    """(forward, backward, step or None) of the family's functions at
+    ``cfg.spp`` as calls of their C entries on fixed buffers (no wrapper,
+    no counter): rows 2, 3, 1 and 6 one call with the spp; rows 4, 5, 7 and
+    8 one call at each subsample's offsets (the backward given ``g`` over
+    the spp, as autograd of the average gives it each launch); row 9 at spp
+    1 only. The forward runs once here, so the planes the backward reads
+    are this scene's. Then the three's bounds (`spp_work`: each pixel's work
+    once a subsample, the scene's once; bytes: each input read once and
+    each output written once, the image once and spp L planes) and the work
+    counts."""
     import torch
 
     from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+    from reversible_raytracer_tpu_torch.ops.pipeline import SPP_OFFSETS
 
     stream = torch.cuda.current_stream().cuda_stream
-    H, W = cfg.height, cfg.width
+    H, W, spp = cfg.height, cfg.width, cfg.spp
+    offs, planes = SPP_OFFSETS[spp], spp * start.lights.count
     w = 1.0 / (H * W * 3)
     img = torch.empty((H, W, 3), device="cuda")
     if family == "fused":
         flat = fused._cuda_flat(start, cfg)
         geom = fused._geometry(start, cfg)
         S = flat.numel()
-        vis = torch.empty((start.lights.count, H, W), device="cuda")
+        vis = torch.empty((planes, H, W), device="cuda")
         scratch = torch.empty((fused.FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5]),),
                               device="cuda")
         out = torch.empty((1 + S,), device="cuda")
-        fwd = lambda: fused.FUSED_RENDER.call("rrt_render", flat.data_ptr(), *geom,  # noqa: E731
-                                              img.data_ptr(), vis.data_ptr(), stream)
+        fwd = lambda: fused.FUSED_RENDER.call(  # noqa: E731
+            "rrt_render_spp", flat.data_ptr(), *geom, spp, img.data_ptr(), vis.data_ptr(), stream)
         bwd = lambda: fused.FUSED_RENDER_BWD.call(  # noqa: E731
-            "rrt_render_bwd", flat.data_ptr(), *geom, g.data_ptr(), vis.data_ptr(),
+            "rrt_render_bwd_spp", flat.data_ptr(), *geom, spp, g.data_ptr(), vis.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), stream)
         step = lambda: fused.FUSED_STEP.call(  # noqa: E731
-            "rrt_step", flat.data_ptr(), *geom, target.data_ptr(), w, scratch.data_ptr(),
-            out.data_ptr(), stream)
+            "rrt_step_spp", flat.data_ptr(), *geom, spp, target.data_ptr(), w,
+            scratch.data_ptr(), out.data_ptr(), stream)
         fwd()
-        c = work_counts(start, cfg)
-        return fwd, bwd, step, bound(bwd_ops(c), 4 * (S + H * W * (3 + vis.shape[0]) + 1 + S)), c
+        c = spp_work(work_counts, start, cfg)
+        return fwd, bwd, step, dict(
+            fwd=bound(render_ops(c, misses=False), 4 * (S + H * W * (3 + planes))),
+            bwd=bound(bwd_ops(c), 4 * (S + H * W * (3 + planes) + 1 + S)),
+            step=bound(step_ops(c), 4 * (S + H * W * 3 + 1 + S))), c
     glob, sph, rct = fused_vec.packed_inputs(start)
     geom = fused_vec._geometry(start, cfg)
     Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
-    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
+    n_rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
+    outs = [torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
+            for _ in offs]
+    imgs = [img] + [torch.empty((H, W, 3), device="cuda") for _ in offs[1:]]
+    g_sub = g if spp == 1 else (g * (1.0 / spp)).contiguous()
 
-    def rows():  # the lambdas below keep the row tensors alive through this
+    def rows():  # the functions below keep the row tensors alive through this
         return glob.data_ptr(), sph.data_ptr(), rct.data_ptr()
 
     if family == "vec":
-        vis = torch.empty((start.lights.count, H, W), device="cuda")
+        vis = [torch.empty((planes // spp, H, W), device="cuda") for _ in offs]
         scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_scratch_floats(
             *geom[2:7]),), device="cuda")
-        fwd = lambda: fused_vec.VEC_RENDER.call(  # noqa: E731
-            "rrt_vec_render", *rows(), *geom, img.data_ptr(), vis.data_ptr(), stream)
-        bwd = lambda: fused_vec.VEC_RENDER_BWD.call(  # noqa: E731
-            "rrt_vec_render_bwd", *rows(), *geom, g.data_ptr(), vis.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), stream)
+
+        def fwd():
+            for (oi, oj), im, v in zip(offs, imgs, vis):
+                fused_vec.VEC_RENDER.call("rrt_vec_render_at", *rows(), *geom, oi, oj,
+                                          im.data_ptr(), v.data_ptr(), stream)
+
+        def bwd():
+            for (oi, oj), v, o in zip(offs, vis, outs):
+                fused_vec.VEC_RENDER_BWD.call("rrt_vec_render_bwd_at", *rows(), *geom, oi, oj,
+                                              g_sub.data_ptr(), v.data_ptr(), scratch.data_ptr(),
+                                              o.data_ptr(), stream)
+
         step = lambda: fused_vec.VEC_STEP.call(  # noqa: E731
-            "rrt_vec_step", *rows(), *geom, target.data_ptr(), w, scratch.data_ptr(),
-            out.data_ptr(), stream)
+            "rrt_vec_step_spp", *rows(), *geom, spp, target.data_ptr(), w, scratch.data_ptr(),
+            outs[0].data_ptr(), stream)
         fwd()
-        c = work_counts(start, cfg, cull=True)
-        nbytes = vec_step_bytes(c, Sg, ns_pad, nr_pad, planes=vis.shape[0])
-        c["bound_uncull"] = bound(bwd_ops(c), nbytes)
+        c = spp_work(lambda s, cf, off: work_counts(s, cf, cull=True, off=off), start, cfg)
+        b_bytes = 2 * n_rows + 4 * (H * W * (3 + planes) + 1)
+        c["bound_uncull"] = bound(bwd_ops(c), b_bytes)
         c["cull"] = cull_counters(c)
-        return fwd, bwd, step, bound(bwd_ops(c, cull=True), nbytes), c
+        return fwd, bwd, step, dict(
+            fwd=bound(render_ops(c, cull=True), n_rows + 4 * H * W * (3 + planes)),
+            bwd=bound(bwd_ops(c, cull=True), b_bytes),
+            step=bound(step_ops(c, cull=True), 2 * n_rows + 4 * (H * W * 3 + 1))), c
     tau, ctau = float(cfg.soft_tau), float(cfg.checker_tau)
     scratch = torch.empty((fused_vec_soft.SOFT_STEP.lib().rrt_soft_step_scratch_floats(
         *geom[2:7]),), device="cuda")
-    fwd = lambda: fused_vec_soft.SOFT_RENDER.call(  # noqa: E731
-        "rrt_soft_render", *rows(), *geom, tau, ctau, img.data_ptr(), stream)
-    bwd = lambda: fused_vec_soft.SOFT_RENDER_BWD.call(  # noqa: E731
-        "rrt_soft_render_bwd", *rows(), *geom, tau, ctau, g.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), stream)
-    step = lambda: fused_vec_soft.SOFT_STEP.call(  # noqa: E731
+
+    def fwd():
+        for (oi, oj), im in zip(offs, imgs):
+            fused_vec_soft.SOFT_RENDER.call("rrt_soft_render_at", *rows(), *geom, oi, oj, tau,
+                                            ctau, im.data_ptr(), stream)
+
+    def bwd():
+        for (oi, oj), o in zip(offs, outs):
+            fused_vec_soft.SOFT_RENDER_BWD.call("rrt_soft_render_bwd_at", *rows(), *geom, oi, oj,
+                                                tau, ctau, g_sub.data_ptr(), scratch.data_ptr(),
+                                                o.data_ptr(), stream)
+
+    step = None if spp != 1 else lambda: fused_vec_soft.SOFT_STEP.call(
         "rrt_soft_step", *rows(), *geom, tau, ctau, target.data_ptr(), w, scratch.data_ptr(),
-        out.data_ptr(), stream)
-    c = soft_work_counts(start, cfg)
-    c["bound_uncull"] = bound(soft_bwd_ops(c, cull=False), vec_step_bytes(c, Sg, ns_pad, nr_pad))
-    return fwd, bwd, step, bound(soft_bwd_ops(c), vec_step_bytes(c, Sg, ns_pad, nr_pad)), c
+        outs[0].data_ptr(), stream)
+    c = spp_work(soft_work_counts, start, cfg)
+    b_bytes = 2 * n_rows + 4 * (H * W * 3 + 1)
+    c["bound_uncull"] = bound(soft_bwd_ops(c, cull=False), b_bytes)
+    return fwd, bwd, step, dict(fwd=bound(soft_render_ops(c, cull=True), n_rows + 4 * H * W * 3),
+                                bwd=bound(soft_bwd_ops(c), b_bytes)), c
 
 
 def phase_render_grad_times():
@@ -1622,14 +1710,15 @@ def phase_render_grad_times():
         start = _grad_start(family, scene, spec)
         target = render(scene, cfg)
         g = _seeded_cotangent(cfg)
-        fwd, bwd, step, b, c = _raw_calls(family, start, cfg, g, target)
+        fwd, bwd, step, bounds, c = _raw_calls(family, start, cfg, g, target)
         plain = _bwd_plain(family)
         soft = family == "soft"
         rows[label] = dict(
             bwd_ms=time_ms(bwd), bwd_device=device_ms(bwd),
             plain_ms=time_ms(lambda: plain(start, cfg, g), reps=5 if soft else 10,
                              warmup=1 if soft else 3),
-            fwd_bwd_ms=time_ms(lambda: (fwd(), bwd())), step_ms=time_ms(step), bound=b,
+            fwd_bwd_ms=time_ms(lambda: (fwd(), bwd())), step_ms=time_ms(step),
+            bound=bounds["bwd"],
             ops=soft_bwd_ops(c) if soft else bwd_ops(c, cull=family == "vec"), work=c)
         rows[label]["rays_per_s"] = cfg.height * cfg.width / (rows[label]["bwd_ms"] * 1e-3)
     for k in _all_kernels():
@@ -1875,16 +1964,15 @@ def phase_checker():
     hard = _raw_calls("soft", start, dataclasses.replace(cfg, checker_tau=0.0), g, target)
     hard_device = dict(zip(("fused_vec_soft_render", "fused_vec_soft_render_bwd",
                             "fused_vec_soft_step"), (device_ms(f)["ms"] for f in hard[:3])))
-    fwd_call, bwd_call, step_call, bwd_bound, c = _raw_calls("soft", start, cfg, g, target)
+    fwd_call, bwd_call, step_call, bounds, c = _raw_calls("soft", start, cfg, g, target)
     glob = fused_vec_soft._cuda_inputs(start, cfg)[0]
     Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
-    r_bytes = 4 * (Sg + ns_pad * 17 + nr_pad * 22) + 4 * cfg.height * cfg.width * 3
     times = {
         "fused_vec_soft_render": dict(
             ms=time_ms(fwd_call), device=device_ms(fwd_call),
             plain_ms=time_ms(lambda: fused_vec_soft.render_vec_soft_plain(start, cfg), reps=5,
                              warmup=1),
-            bound=bound(soft_render_ops(c, cull=True), r_bytes), max_abs_err=fwd["max_abs_err"]),
+            bound=bounds["fwd"], max_abs_err=fwd["max_abs_err"]),
         "fused_vec_soft_step": dict(
             ms=time_ms(step_call), device=device_ms(step_call),
             plain_ms=time_ms(lambda: fused_vec_soft.loss_grad_vec_soft_plain(start, cfg, target),
@@ -1895,7 +1983,7 @@ def phase_checker():
             ms=time_ms(bwd_call), device=device_ms(bwd_call),
             plain_ms=time_ms(lambda: fused_vec_soft.render_vec_soft_bwd_plain(start, cfg, g),
                              reps=5, warmup=1),
-            bound=bwd_bound, max_abs_err=bwd["max_abs_err"])}
+            bound=bounds["bwd"], max_abs_err=bwd["max_abs_err"])}
     for name, t in times.items():
         t["hard_checker_device_ms"] = hard_device[name]
     for k in _all_kernels():
@@ -1994,6 +2082,275 @@ def phase_checker_main():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# spp 4 (2x2 supersampling): rows 1, 2, 3 and 6 loop over the subsamples in
+# the kernel; rows 4, 5, 7 and 8 make one launch a subsample
+# ---------------------------------------------------------------------------
+
+# (label, family, spheres, size, soft_tau): each row's full-width shape, as
+# phases 3-4 (rows 1-3), 8-9 (rows 4-6) and 12 (rows 7-8) hold them at spp 1.
+SPP4_CASES = (("config2_512", "fused", 4, 512, 0.0), ("config5_1024", "vec", 64, 1024, 0.0),
+              ("config5_512_t0.08", "soft", 64, 512, 0.08))
+def _check_grads(row, name, ref, got):
+    """Record the worst leaf of ``got`` against ``ref`` (1e-2 of its scale
+    holds) and its largest absolute difference."""
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+
+    errs = _grad_errors(ref, got)
+    worst = max(errs, key=errs.get)
+    row[name] = dict(worst_leaf=worst, worst_err=errs[worst], max_abs_err=max(
+        float((a - b).abs().max()) for a, b in zip(tree_leaves(ref), tree_leaves(got))
+        if a.numel()))
+    return errs[worst] <= 1e-2
+
+
+def phase_spp4():
+    """Rows 1-8 at spp 4 at each family's full-width shape (SPP4_CASES),
+    reached as the main path reaches them, by the rules of phases 3, 4, 9,
+    13 and 16: rows 2 and 4 bit for bit their plain versions (the image;
+    each subsample's planes on the pixels its ray hit, 0 where it hit
+    nothing), row 7 within 1e-6; rows 1 and 6 against autograd and their
+    eager twins (loss within 1e-4 relative, every leaf within 1e-2 of its
+    scale) and, given the forward kernel's own spp-4 image, a loss and every
+    gradient of exactly 0; rows 3, 5 and 8 (autograd of `render`) against
+    autograd of the plain render and their eager twins, every leaf within
+    1e-2 of its scale; every call's wrapper launches (one a call for rows 1,
+    2, 3 and 6, four for rows 4, 5, 7 and 8); two calls bit-identical; row 9
+    refuses spp 4 by name and launches nothing. Then each row's event time,
+    device time and launches per call (profiler) on its C entries, its
+    plain version's time and its bound. Returns each kernel's numbers."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+    from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    kern = {k.name: k for k in _all_kernels()}
+    forwards = {
+        "fused": (fused.render_fused, fused.render_fused_plain),
+        "vec": (fused_vec.render_vec, fused_vec.render_vec_plain),
+        "soft": (lambda s, c: (fused_vec_soft.render_vec_soft(s, c), None),
+                 lambda s, c: (fused_vec_soft.render_vec_soft_plain(s, c), None))}
+    steps = {"fused": (fused.loss_grad_fused, fused.loss_grad_fused_plain,
+                       fused.loss_grad_adjoint_eager),
+             "vec": (fused_vec.loss_grad_vec, fused_vec.loss_grad_vec_plain,
+                     fused_vec.loss_grad_vec_adjoint_eager)}
+    rows, numbers = [], {}
+    for label, family, n_spheres, size, tau in SPP4_CASES:
+        scene, spec, cfg1 = _grad_case(family, n_spheres, size, tau)
+        cfg = dataclasses.replace(cfg1, spp=4)
+        start = _grad_start(family, scene, spec)
+        g = _seeded_cotangent(cfg)
+        per_call = 1 if family == "fused" else 4
+        row, oks = dict(case=label), []
+
+        # ---- the forward (rows 2, 4, 7)
+        call, plain = forwards[family]
+        fname = FWD_NAMES[family]
+        before = kern[fname].launches
+        with torch.no_grad():
+            img_k, vis_k = call(scene, cfg)
+            launches = kern[fname].launches - before
+            img_2, vis_2 = call(scene, cfg)
+            img_p, vis_p = plain(scene, cfg)
+        torch.cuda.synchronize()
+        r = dict(wrapper_launches_per_call=launches, max_abs_err=float((img_k - img_p).abs().max()),
+                 deterministic=bool(torch.equal(img_k, img_2) and (
+                     vis_k is None or torch.equal(vis_k, vis_2))),
+                 finite=bool(torch.isfinite(img_k).all()))
+        if family == "soft":
+            ok = r["max_abs_err"] <= 1e-6
+        else:
+            L = scene.lights.count
+            ok = tuple(vis_k.shape) == tuple(vis_p.shape) == (4 * L, cfg.height, cfg.width)
+            for q, off in enumerate(pl.SPP_OFFSETS[4]):
+                o, d = pl.primary_rays(scene, cfg1, off)
+                hit = nearest_vec(scene, o, d)[1] >= 0
+                pk, pp = vis_k[q * L:(q + 1) * L], vis_p[q * L:(q + 1) * L]
+                ok = ok and bool(torch.equal(pk[:, hit], pp[:, hit])) and not bool(
+                    pk[:, ~hit].any())
+            r["bit_identical"] = ok = ok and bool(torch.equal(img_k, img_p))
+        row[fname] = r
+        oks.append(ok and r["deterministic"] and r["finite"] and launches == per_call)
+
+        # ---- the step (rows 1, 6): against autograd and the twin, and zero
+        # against the forward's own image
+        if family in steps:
+            step, step_plain, twin = steps[family]
+            sname = STEP_NAMES[family]
+            before = kern[sname].launches
+            l_k, g_k = step(start, cfg, img_k)
+            launches = kern[sname].launches - before
+            l_2, g_2 = step(start, cfg, img_k)
+            l_0, g_0 = step(scene, cfg, img_k)
+            r = dict(wrapper_launches_per_call=launches, loss=float(l_k),
+                     deterministic=bool(torch.equal(
+                         torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
+                         torch.cat([l_2.reshape(1), fused.flatten_scene(g_2)]))),
+                     zero_residual_exact=bool(float(l_0) == 0.0
+                                              and not fused.flatten_scene(g_0).any()))
+            ok = r["deterministic"] and r["zero_residual_exact"] and launches == 1
+            for name, ref in (("autograd", step_plain), ("adjoint_eager", twin)):
+                l_r, g_r = ref(start, cfg, img_k)
+                rel = abs(float(l_k) - float(l_r)) / max(abs(float(l_r)), 1e-12)
+                ok = _check_grads(r, name, g_r, g_k) and ok and rel <= 1e-4
+                r[name]["loss_rel"] = rel
+            r["max_abs_err"] = r["autograd"]["max_abs_err"]
+            row[sname] = r
+            oks.append(ok)
+
+        # ---- the render backward (rows 3, 5, 8), by autograd of `render`
+        bname = BWD_NAMES[family]
+        before = kern[bname].launches
+        got = _bwd(start, cfg, g)
+        launches = kern[bname].launches - before
+        again = _bwd(start, cfg, g)
+        r = dict(wrapper_launches_per_call=launches, deterministic=bool(torch.equal(
+            fused.flatten_scene(got), fused.flatten_scene(again))))
+        if family == "fused":
+            twin = fused.render_bwd_adjoint_eager(start, cfg, g, fused.render_fused(start, cfg)[1])
+        elif family == "vec":
+            twin = fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g,
+                                                          fused_vec.render_vec(start, cfg)[1])
+        else:
+            twin = fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g)
+        ok = _check_grads(r, "plain", _bwd_plain(family)(start, cfg, g), got)
+        ok = _check_grads(r, "twin", twin, got) and ok
+        r["max_abs_err"] = r["plain"]["max_abs_err"]
+        row[bname] = r
+        oks.append(ok and r["deterministic"] and launches == per_call)
+
+        # ---- row 9 refuses spp 4 by name, and launches nothing
+        if family == "soft":
+            before = kern["fused_vec_soft_step"].launches
+            try:
+                fused_vec_soft.loss_grad_vec_soft(start, cfg, img_k)
+                refused = ""
+            except NotImplementedError as exc:
+                refused = str(exc)
+            row["fused_vec_soft_step"] = dict(refusal=refused)
+            oks.append("spp=4 in the soft step" in refused
+                       and kern["fused_vec_soft_step"].launches == before)
+
+        # ---- times: the C entries of each row at spp 4, the plain versions
+        fwd, bwd, step, bounds, c = _raw_calls(family, start, cfg, g, img_k)
+        plain_reps = dict(reps=3, warmup=1)
+        timed = [(fname, fwd, bounds["fwd"], lambda: forwards[family][1](start, cfg)),
+                 (bname, bwd, bounds["bwd"], lambda: _bwd_plain(family)(start, cfg, g))]
+        if step is not None:
+            timed.append((STEP_NAMES[family], step, bounds["step"],
+                          lambda: steps[family][1](start, cfg, img_k)))
+        for name, fn, b, plain_fn in timed:
+            dev = device_ms(fn)
+            row[name].update(ms=time_ms(fn), device_ms=dev["ms"], launches_per_call=dev["launches"],
+                             device=dev, plain_ms=time_ms(plain_fn, **plain_reps),
+                             bound_ms=b[0], bound_by=b[1])
+            numbers[name] = dict(case=f"{label}_spp4", **{
+                k: row[name][k] for k in ("ms", "device_ms", "launches_per_call",
+                                          "wrapper_launches_per_call", "max_abs_err",
+                                          "plain_ms", "bound_ms", "bound_by")})
+        row["work"] = c
+        rows.append(row)
+        if not all(oks):
+            raise AssertionError(f"a spp-4 kernel failed a check at {label}: {row}")
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    emit("spp4", ok=True, rows=rows)
+    return numbers
+
+
+# The spp-4 runs of the CLI: (label, argv, the launches each kernel must make,
+# the steps of each stage whose losses must fall).
+SPP4_ANNEAL_TAUS = ANNEAL_TAUS
+SPP4_RUNS = (
+    ("invert_config2_512", ["invert", "--config", "2", "--size", "512", "--spp", "4", "--iters",
+                            "50", "--perturb", "0.1", "--seed", "0", "--log-every", "1",
+                            "--quiet"],
+     {"fused_step": 50, "fused_render": 2}),
+    ("invert_config5_1024", ["invert", "--config", "5", "--size", "1024", "--spp", "4",
+                             "--iters", "20", "--seed", "0", "--log-every", "1", "--quiet"],
+     {"fused_vec_step": 20, "fused_vec_render": 8}),
+    ("anneal_config5_1024", ["invert", "--config", "5", "--size", "1024", "--spp", "4",
+                             "--anneal", ",".join(str(t) for t in SPP4_ANNEAL_TAUS),
+                             "--anneal-size", "512", "--lr", "2e-3", "--perturb", "0.03",
+                             "--iters", str(ANNEAL_ITERS), "--seed", "0", "--quiet"],
+     {"fused_vec_soft_render": 4 * 3 + 4 * 3 * ANNEAL_ITERS,
+      "fused_vec_soft_render_bwd": 4 * 3 * ANNEAL_ITERS, "fused_vec_step": ANNEAL_ITERS,
+      "fused_vec_render": 8}),
+)
+
+
+def phase_spp4_main():
+    """The port's CLI at --spp 4 on the card, with the launch counts read
+    around each run (every other kernel never): `render` for configs 1-5 at
+    their native sizes (row 2 once, config 5 row 4 four times); `invert
+    --config 2 --size 512` (row 1 50 times, row 2 twice: the target and the
+    final image); `invert --config 5 --size 1024` (row 6 20 times, row 4
+    eight times); the annealed inversion (each soft stage's target four
+    launches of row 7, each soft step autograd of the four-launch soft
+    render, four launches of rows 7 and 8 replayed in its CUDA graph: row 7
+    12 + 4 x 60 times, row 8 4 x 60, row 9 never; the hard polish row 6 20
+    times; row 4 eight times). Each run's loss must fall (each stage's, for
+    the anneal); its host ms a step. Returns each run's launch counts."""
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+
+    out_dir = REPO / "smoke_out"
+    rows, counts = {}, {}
+    for num in (1, 2, 3, 4, 5):
+        png = out_dir / f"render_spp4_config{num}.png"
+        for k in _all_kernels():
+            k.launches = 0
+        cli.main(["render", "--config", str(num), "--spp", "4", "-o", str(png)])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in _all_kernels()}
+        expect = {"fused_vec_render": 4} if num == 5 else {"fused_render": 1}
+        rows[f"render_config{num}"] = dict(launches=launches, expected=expect,
+                                           png_bytes=png.stat().st_size if png.exists() else 0)
+        if not (all(launches[n] == expect.get(n, 0) for n in launches) and png.exists()):
+            raise AssertionError(f"render --config {num} --spp 4 did not run through the "
+                                 f"expected kernels: {rows[f'render_config{num}']}")
+    for label, argv, expect in SPP4_RUNS:
+        png = out_dir / f"final_spp4_{label}.png"
+        for k in _all_kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        summary = cli.main(argv + ["-o", str(png)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _all_kernels()}
+        if "losses" in summary:
+            la = summary["losses"]
+            stages = [la[i * ANNEAL_ITERS:(i + 1) * ANNEAL_ITERS]
+                      for i in range(len(SPP4_ANNEAL_TAUS))]
+        else:
+            la = [h["loss"] for h in summary["history"]]
+            stages = [la]
+        row = dict(launches=launches, expected=expect,
+                   stage_first_last=[[st[0], st[-1]] for st in stages],
+                   stages_fall=[st[-1] < st[0] for st in stages],
+                   start_param_err=summary.get("start_param_err"),
+                   param_err=summary["param_err"], loop_seconds=summary["seconds"],
+                   loop_ms_per_step=summary["seconds"] * 1e3 / len(la), wall_seconds=wall,
+                   png_bytes=png.stat().st_size if png.exists() else 0)
+        rows[label] = row
+        counts[label] = launches
+        ok = (all(launches[n] == expect.get(n, 0) for n in launches) and all(row["stages_fall"])
+              and all(math.isfinite(x) for x in la) and png.exists()
+              and math.isfinite(summary["param_err"]))
+        if not ok:
+            raise AssertionError(f"the spp-4 run {label} did not run through the expected "
+                                 f"kernels, or a stage did not descend: {row}")
+    emit("spp4_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -2050,6 +2407,8 @@ def main() -> int:
     run_phase("loop", phase_loop)
     checker = run_phase("checker", phase_checker)
     checker_runs = run_phase("checker_main", phase_checker_main)
+    spp4 = run_phase("spp4", phase_spp4)
+    spp4_runs = run_phase("spp4_main", phase_spp4_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -2100,6 +2459,14 @@ def main() -> int:
                                 launches_per_call=t["device"]["launches"],
                                 plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                                 bound_by=t["bound"][1])
+    spp4_launches = {}  # each kernel's launches on its spp-4 CLI path (phase spp4_main)
+    for label, *_ in SPP4_RUNS:
+        for name, n in spp4_runs[label].items():
+            if n and name not in spp4_launches:
+                spp4_launches[name] = dict(run=label, launches=n)
+    for k in kernels:  # rows 1-8 at spp 4 (phases spp4, spp4_main)
+        if k["name"] in spp4:
+            k["spp4"] = dict(**spp4[k["name"]], launches=spp4_launches.get(k["name"]))
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

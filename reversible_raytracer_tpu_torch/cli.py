@@ -7,6 +7,8 @@ Examples:
         --anneal-size 512 --lr 2e-3 --iters 300 --perturb 0.03
     python -m reversible_raytracer_tpu_torch.cli invert --config 4 --anneal 0.08,0.03,0 \
         --checker-ratio 12.5 --lr 5e-3 --iters 100 --perturb 0.05
+    python -m reversible_raytracer_tpu_torch.cli invert --config 5 --size 1024 --spp 4 \
+        --anneal 0.08,0.03,0.01,0 --anneal-size 512
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
 kernels, each training step one replay of a CUDA graph; ``--device cpu``
@@ -14,7 +16,8 @@ runs the eager torch twin instead. ``invert`` takes the JAX package's
 observability flags: ``--target`` (a PNG to invert instead of the truth's
 render), ``--scene`` / ``--save-scene`` (JSON scenes), ``--checkpoint``,
 ``--checkpoint-every`` and ``--resume``, ``--frame-every`` /
-``--frames-dir`` and ``--quiet``.
+``--frames-dir`` and ``--quiet``. Both take ``--spp 4`` (2x2
+supersampling, on every kernel family).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def _add_common(p):
                    help="torch device (default cuda; cpu runs the eager twin)")
     p.add_argument("--scene", type=str, default=None,
                    help="JSON scene file overriding the config's parameters")
+    p.add_argument("--spp", type=int, default=1, choices=[1, 4],
+                   help="samples per pixel (4 = 2x2 supersampling AA)")
 
 
 def _build(args):
@@ -49,6 +54,10 @@ def _build(args):
         from .utils.sceneio import load_scene
 
         scene = load_scene(args.scene, scene)
+    if args.spp != 1:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, spp=args.spp)
     return scene, spec, cfg
 
 

@@ -25,6 +25,12 @@
 //     order, writes [sq, grads] and applies the camera_basis / normalize /
 //     tan(deg2rad) chain once.
 //
+// spp 4 (the TPU kernels' 2x2 loop): each thread takes its pixel's four
+// subsamples in turn (render_common.cuh pixel_grads: the step runs the four
+// forwards first, since its residual is of their average), and each
+// subsample's gradient goes into the sums as a pixel's would. Each spp is
+// its own instance of the kernel (SPP), so the spp-1 one keeps its code.
+//
 // No atomics and no counter: nothing in the scratch is read before this
 // call writes it, and the grid follows from the card and the scene alone,
 // so for a given image size the result is bit-for-bit the same from call to
@@ -120,7 +126,7 @@ inline FlatPlan flat_plan(const Layout& ly) {
   return f;
 }
 
-template <class Src>
+template <int SPP, class Src>
 __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
     flat_step_kernel(const float* __restrict__ flat, Params p, Layout ly, FlatPlan fp, Src src,
                      float* __restrict__ partials, float* __restrict__ out) {
@@ -150,7 +156,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
     const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
     const int i = (t / tiles.x) * BLOCK_Y + threadIdx.y;
-    const PixelGrad g = pixel_step(
+    pixel_grads<SPP>(
         scene, p, i, j, i < p.H && j < p.W, src, FullWalk{},
         [&](int l, V3 g_lpos, V3 g_lcol, bool) {
           float* q = mine + 6 * l * BLOCK_THREADS;
@@ -160,37 +166,40 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
           q[3 * BLOCK_THREADS] += g_lcol.x;
           q[4 * BLOCK_THREADS] += g_lcol.y;
           q[5 * BLOCK_THREADS] += g_lcol.z;
-        });
-    a_sq += g.sq;
-    a_amb = a_amb + g.g_amb;
-    a_bg = a_bg + g.g_bg;
-    a_eye = a_eye + g.g_eye;
-    a_dt = a_dt + g.g_dt;
-    a_dtx = a_dtx + g.g_dt * g.sx;
-    a_dty = a_dty + g.g_dt * g.sy;
-    a_tan += g.g_tan;
+        },
+        [&](const PixelGrad& g) {
+          a_sq += g.sq;
+          a_amb = a_amb + g.g_amb;
+          a_bg = a_bg + g.g_bg;
+          a_eye = a_eye + g.g_eye;
+          a_dt = a_dt + g.g_dt;
+          a_dtx = a_dtx + g.g_dt * g.sx;
+          a_dty = a_dty + g.g_dt * g.sy;
+          a_tan += g.g_tan;
 
-    // ---- the fields of each object some lane hit, one tree per object,
-    // in the order of the lowest lane that hit it (each object's slots get
-    // one add per tile, so the order of objects does not touch the bits)
-    for (unsigned todo = __ballot_sync(FULL, g.k >= 0); todo;) {
-      const int k = __shfl_sync(FULL, g.k, __ffs(todo) - 1);
-      const bool hit_k = g.k == k;
-      todo &= ~__ballot_sync(FULL, hit_k);
-      if (k < ly.N) {
-        float v[16] = {};
+          // ---- the fields of each object some lane hit, one tree per
+          // object, in the order of the lowest lane that hit it (each
+          // object's slots get one add per tile, so the order of objects
+          // does not touch the bits)
+          for (unsigned todo = __ballot_sync(FULL, g.k >= 0); todo;) {
+            const int k = __shfl_sync(FULL, g.k, __ffs(todo) - 1);
+            const bool hit_k = g.k == k;
+            todo &= ~__ballot_sync(FULL, hit_k);
+            if (k < ly.N) {
+              float v[16] = {};
 #pragma unroll
-        for (int f = 0; f < SPH_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
-        const float s = warp_sum_many(v, lane);
-        if (lane < SPH_FIELDS) gs[sphere_slot(ly, k, lane)] += s;
-      } else {
-        float v[32] = {};
+              for (int f = 0; f < SPH_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
+              const float s = warp_sum_many(v, lane);
+              if (lane < SPH_FIELDS) gs[sphere_slot(ly, k, lane)] += s;
+            } else {
+              float v[32] = {};
 #pragma unroll
-        for (int f = 0; f < RECT_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
-        const float s = warp_sum_many(v, lane);
-        if (lane < RECT_FIELDS) gs[rect_slot(ly, k - ly.N, lane)] += s;
-      }
-    }
+              for (int f = 0; f < RECT_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
+              const float s = warp_sum_many(v, lane);
+              if (lane < RECT_FIELDS) gs[rect_slot(ly, k - ly.N, lane)] += s;
+            }
+          }
+        });
   }
 
   // ---- the lanes' sums, once per warp, then the block's partial row
@@ -264,10 +273,10 @@ inline long long flat_step_scratch_floats(int n_sph, int n_rect, int n_light, in
 }
 
 // The one cooperative launch on the caller's stream; out = [sq, grads (S)].
-template <class Src>
-int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
-                     int shadows, int clip, Src src, float* scratch, float* out,
-                     void* stream) {
+template <int SPP, class Src>
+int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, Src src, float* scratch, float* out,
+                              void* stream) {
   Layout ly = make_layout(n_sph, n_rect, n_light);
   Params p = make_params(H, W, shadows, clip);
   FlatPlan fp = flat_plan(ly);
@@ -282,16 +291,29 @@ int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, int 
   // 124,304 bytes.
   if (fp.smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   if (fp.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(flat_step_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)fp.smem);
+    err = cudaFuncSetAttribute(flat_step_kernel<SPP, Src>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fp.smem);
     if (err != cudaSuccess) return (int)err;
   }
   void* args[] = {&flat, &p, &ly, &fp, &src, &scratch, &out};
-  err = cudaLaunchCooperativeKernel((const void*)flat_step_kernel<Src>, dim3(nblocks),
+  err = cudaLaunchCooperativeKernel((const void*)flat_step_kernel<SPP, Src>, dim3(nblocks),
                                     dim3(BLOCK_X, BLOCK_Y), args, fp.smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The instance of spp 1 or 4.
+template <class Src>
+int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
+                     int shadows, int clip, int spp, Src src, float* scratch, float* out,
+                     void* stream) {
+  if (spp == 4)
+    return launch_flat_step_instance<4>(flat, n_sph, n_rect, n_light, H, W, shadows, clip, src,
+                                        scratch, out, stream);
+  if (spp != 1) return (int)cudaErrorInvalidValue;
+  return launch_flat_step_instance<1>(flat, n_sph, n_rect, n_light, H, W, shadows, clip, src,
+                                      scratch, out, stream);
 }
 
 }  // namespace rrt

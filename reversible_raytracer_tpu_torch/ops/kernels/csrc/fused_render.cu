@@ -1,6 +1,6 @@
 // Forward render kernel: the (H, W, 3) image and the shadow-visibility
-// planes of a hard-shaded, untextured scene of at most 24 objects (spp 1,
-// perspective, Phong).
+// planes of a hard-shaded, untextured scene of at most 24 objects (spp 1 or
+// 4, perspective, Phong).
 //
 // Replaces the TPU kernel _make_fused.fwd_kernel
 // (reversible_raytracer_tpu/ops/kernels/fused.py:224, pallas_call at :237).
@@ -23,12 +23,21 @@
 // reaches it and 0 where it is blocked, and 0 on a pixel that hits nothing
 // (there is no surface to shade; the render backward reads the planes only
 // where the ray hit).
+//
+// spp 4 (the TPU kernel's 2x2 loop, render_tile's): each thread runs its
+// pixel's four subsamples (render_common.cuh subsample) in turn, each its
+// own ray, walks and planes (4 L planes, plane s L + l for subsample s and
+// light l, the layout of pipeline.n_vis_planes), and writes the average of
+// the clipped colours, ((c0 + c1) + c2) + c3 times 0.25 as render_tile sums
+// them. Each spp is its own instance (SPP); the spp-1 one runs one ray at the
+// pixel centre.
 #include "render_common.cuh"
 
 using namespace rrt;
 
 constexpr int FWD_MIN_BLOCKS = 4;  // blocks an SM at the least
 
+template <int SPP>
 __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
     render_kernel(const float* __restrict__ flat, Params p, Layout ly, float* __restrict__ img,
                   float* __restrict__ vis) {
@@ -43,33 +52,49 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
   const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
   if (i >= p.H || j >= p.W) return;
 
-  const V3 d = primary_ray(cam, p, i, j).d;
-  const Nearest h = trace(sc, cam.eye, d);
-  V3 col = sc.background();
-  unsigned bits = 0u;
-  if (h.k >= 0)
-    col = shade_hit(
-        sc, cam.eye, d, h.t, surface(sc, cam.eye, d, h),
-        [&](int, V3 so, const LightGeo& g) {
-          return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
-        },
-        &bits);
-  if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
   const long long px = (long long)i * p.W + j;
-  img[3 * px + 0] = col.x;
-  img[3 * px + 1] = col.y;
-  img[3 * px + 2] = col.z;
-  if (p.shadows) {
-    const long long plane = (long long)p.H * p.W;
-    for (int l = 0; l < ly.L; ++l) vis[l * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
+  const long long plane = (long long)p.H * p.W;
+  V3 acc = zero3();
+#pragma unroll 1
+  for (int q = 0; q < SPP; ++q) {
+    const V3 d = primary_ray(cam, SPP == 1 ? p : subsample(p, q), i, j).d;
+    const Nearest h = trace(sc, cam.eye, d);
+    V3 col = sc.background();
+    unsigned bits = 0u;
+    if (h.k >= 0)
+      col = shade_hit(
+          sc, cam.eye, d, h.t, surface(sc, cam.eye, d, h),
+          [&](int, V3 so, const LightGeo& g) {
+            return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
+          },
+          &bits);
+    if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
+    acc = q == 0 ? col : acc + col;
+    if (p.shadows)
+      for (int l = 0; l < ly.L; ++l)
+        vis[(q * ly.L + l) * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
   }
+  if (SPP == 4) acc = acc * 0.25f;
+  img[3 * px + 0] = acc.x;
+  img[3 * px + 1] = acc.y;
+  img[3 * px + 2] = acc.z;
 }
 
-extern "C" int rrt_render(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
-                          int shadows, int clip, float* img, float* vis, void* stream) {
+// spp 1 or 4; 4 L planes at spp 4.
+extern "C" int rrt_render_spp(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, int spp, float* img, float* vis,
+                              void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
   const Params p = make_params(H, W, shadows, clip);
-  render_kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
-                  (cudaStream_t)stream>>>(flat, p, ly, img, vis);
+  if (spp != 1 && spp != 4) return (int)cudaErrorInvalidValue;
+  const auto kernel = spp == 4 ? render_kernel<4> : render_kernel<1>;
+  kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
+           (cudaStream_t)stream>>>(flat, p, ly, img, vis);
   return (int)cudaGetLastError();
+}
+
+// spp 1 (the entry of the tools and of earlier checkouts).
+extern "C" int rrt_render(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
+                          int shadows, int clip, float* img, float* vis, void* stream) {
+  return rrt_render_spp(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 1, img, vis, stream);
 }

@@ -33,10 +33,19 @@ extern "C" long long rrt_render_bwd_scratch_floats(int n_sph, int n_rect, int n_
   return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
 }
 
-// out = [0, d flat (S)].
+// out = [0, d flat (S)]. spp 1 or 4: at spp 4 g_img is the cotangent of the
+// average and vis the forward's 4 L planes (render_common.cuh pixel_grads).
+extern "C" int rrt_render_bwd_spp(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                                  int W, int shadows, int clip, int spp, const float* g_img,
+                                  const float* vis, float* scratch, float* out, void* stream) {
+  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp,
+                          CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+}
+
+// spp 1 (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_render_bwd(const float* flat, int n_sph, int n_rect, int n_light, int H,
                               int W, int shadows, int clip, const float* g_img,
                               const float* vis, float* scratch, float* out, void* stream) {
-  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
-                          CotangentSource{g_img, vis}, scratch, out, stream);
+  return rrt_render_bwd_spp(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 1, g_img, vis,
+                            scratch, out, stream);
 }

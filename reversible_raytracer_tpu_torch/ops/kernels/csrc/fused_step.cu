@@ -40,9 +40,19 @@ extern "C" long long rrt_step_scratch_floats(int n_sph, int n_rect, int n_light,
   return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
 }
 
+// spp 1 or 4: at spp 4 the loss is of the average of the four clipped
+// subsamples (render_common.cuh pixel_grads).
+extern "C" int rrt_step_spp(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
+                            int shadows, int clip, int spp, const float* target, float w,
+                            float* scratch, float* out, void* stream) {
+  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp,
+                          ResidualSource{target, w}, scratch, out, stream);
+}
+
+// spp 1 (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
                         int shadows, int clip, const float* target, float w, float* scratch,
                         float* out, void* stream) {
-  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
-                          ResidualSource{target, w}, scratch, out, stream);
+  return rrt_step_spp(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 1, target, w, scratch,
+                      out, stream);
 }

@@ -1,6 +1,9 @@
 // Object-chunked forward render kernel: the (H, W, 3) image and one
 // shadow-visibility plane per light of a hard-shaded, untextured scene of
-// any object count (spp 1, perspective, Phong).
+// any object count (perspective, Phong), at one subsample offset: spp 1 is
+// one launch at the pixel centre, spp 4 four launches at the offsets of
+// render_common.cuh subsample(), averaged by the caller (the TPU kernel's
+// four launches at the runtime offsets of off_ref, fused_vec.py:1443-1481).
 //
 // Replaces the TPU kernel _make_fused_vec.fwd_kernel
 // (reversible_raytracer_tpu/ops/kernels/fused_vec.py:897, pallas_call at
@@ -121,11 +124,14 @@ extern "C" long long rrt_smem_optin() {
   return bytes;
 }
 
-extern "C" int rrt_vec_render(const float* glob, const float* sph, const float* rct, int n_sph,
-                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                              int shadows, int clip, float* img, float* vis, void* stream) {
+// At the subsample offset (oi, oj) from the pixel centre, in rows and
+// columns.
+extern "C" int rrt_vec_render_at(const float* glob, const float* sph, const float* rct,
+                                 int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                 int H, int W, int shadows, int clip, float oi, float oj,
+                                 float* img, float* vis, void* stream) {
   const GLayout gl = make_glayout(n_light);
-  const Params p = make_params(H, W, shadows, clip);
+  const Params p = make_params(H, W, shadows, clip, oi, oj);
   const size_t smem = forward_smem(ns_pad, nr_pad, n_light);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -137,4 +143,12 @@ extern "C" int rrt_vec_render(const float* glob, const float* sph, const float* 
   vec_render_kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
       glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, img, vis);
   return (int)cudaGetLastError();
+}
+
+// At the pixel centre (the entry of the tools and of earlier checkouts).
+extern "C" int rrt_vec_render(const float* glob, const float* sph, const float* rct, int n_sph,
+                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
+                              int shadows, int clip, float* img, float* vis, void* stream) {
+  return rrt_vec_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
+                           clip, 0.0f, 0.0f, img, vis, stream);
 }

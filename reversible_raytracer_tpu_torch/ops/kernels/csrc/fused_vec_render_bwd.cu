@@ -38,11 +38,24 @@ extern "C" long long rrt_vec_render_bwd_scratch_floats(int ns_pad, int nr_pad, i
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
 }
 
-// out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)].
+// out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)], at
+// the subsample offset (oi, oj) (0 at spp 1; at spp 4 one launch a
+// subsample, each with its cotangent and the planes of its forward launch).
+extern "C" int rrt_vec_render_bwd_at(const float* glob, const float* sph, const float* rct,
+                                     int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                     int n_light, int H, int W, int shadows, int clip, float oi,
+                                     float oj, const float* g_img, const float* vis,
+                                     float* scratch, float* out, void* stream) {
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                         make_params(H, W, shadows, clip, oi, oj), 1,
+                         CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+}
+
+// At the pixel centre (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_vec_render_bwd(const float* glob, const float* sph, const float* rct,
                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
                                   int H, int W, int shadows, int clip, const float* g_img,
                                   const float* vis, float* scratch, float* out, void* stream) {
-  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
-                         clip, CotangentSource{g_img, vis}, scratch, out, stream);
+  return rrt_vec_render_bwd_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                               shadows, clip, 0.0f, 0.0f, g_img, vis, scratch, out, stream);
 }

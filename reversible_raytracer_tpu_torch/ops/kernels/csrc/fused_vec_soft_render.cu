@@ -1,6 +1,8 @@
 // Soft-visibility forward render kernel: the (H, W, 3) image of an
-// untextured scene of any object count under soft_tau > 0 (spp 1,
-// perspective, Phong): the annealed inversion's stage targets.
+// untextured scene of any object count under soft_tau > 0 (perspective,
+// Phong): the annealed inversion's stage targets. One subsample offset a
+// launch: spp 1 at the pixel centre, spp 4 four launches averaged by the
+// caller (fused_vec_soft.py:1059-1092).
 //
 // Replaces the TPU kernel fwd_kernel
 // (reversible_raytracer_tpu/ops/kernels/fused_vec_soft.py:494, pallas_call at
@@ -122,11 +124,10 @@ extern "C" long long rrt_soft_render_smem(int n_sph, int n_rect, int n_light) {
 
 template <bool SOFT_CHECKER>
 static int launch_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
-                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                              int shadows, int clip, float tau, float ctau, float* img,
-                              void* stream) {
+                              int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p,
+                              float tau, float ctau, float* img, void* stream) {
   const GLayout gl = make_glayout(n_light);
-  const Params p = make_params(H, W, shadows, clip);
+  const int H = p.H, W = p.W;
   const size_t smem = forward_smem(ns_pad, nr_pad, n_light);
   const auto kernel = soft_render_kernel<SOFT_CHECKER>;
   if (smem > 48 * 1024) {
@@ -140,13 +141,26 @@ static int launch_soft_render(const float* glob, const float* sph, const float* 
   return (int)cudaGetLastError();
 }
 
+// At the subsample offset (oi, oj) from the pixel centre, in rows and
+// columns (spp 4: four launches, averaged by the caller, as the TPU kernel's
+// fused_vec_soft.py:1059-1092).
+extern "C" int rrt_soft_render_at(const float* glob, const float* sph, const float* rct,
+                                  int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                  int H, int W, int shadows, int clip, float oi, float oj,
+                                  float tau, float ctau, float* img, void* stream) {
+  const Params p = make_params(H, W, shadows, clip, oi, oj);
+  if (ctau > 0.0f)
+    return launch_soft_render<true>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, p,
+                                    tau, ctau, img, stream);
+  return launch_soft_render<false>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, p,
+                                   tau, ctau, img, stream);
+}
+
+// At the pixel centre (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
                                int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
                                int shadows, int clip, float tau, float ctau, float* img,
                                void* stream) {
-  if (ctau > 0.0f)
-    return launch_soft_render<true>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
-                                    shadows, clip, tau, ctau, img, stream);
-  return launch_soft_render<false>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
-                                   shadows, clip, tau, ctau, img, stream);
+  return rrt_soft_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                            shadows, clip, 0.0f, 0.0f, tau, ctau, img, stream);
 }

@@ -52,6 +52,7 @@ extern "C" int rrt_soft_step(const float* glob, const float* sph, const float* r
                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
                              int shadows, int clip, float tau, float ctau, const float* target,
                              float w, float* scratch, float* out, void* stream) {
-  return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
-                          clip, tau, ctau, ResidualSource{target, w}, scratch, out, stream);
+  return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                          make_params(H, W, shadows, clip), tau, ctau, ResidualSource{target, w},
+                          scratch, out, stream);
 }

@@ -38,10 +38,23 @@ extern "C" long long rrt_vec_step_scratch_floats(int ns_pad, int nr_pad, int n_l
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
 }
 
+// spp 1 or 4: at spp 4 the loss is of the average of the four clipped
+// subsamples (render_common.cuh pixel_grads).
+extern "C" int rrt_vec_step_spp(const float* glob, const float* sph, const float* rct,
+                                int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                int H, int W, int shadows, int clip, int spp,
+                                const float* target, float w, float* scratch, float* out,
+                                void* stream) {
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                         make_params(H, W, shadows, clip), spp, ResidualSource{target, w},
+                         scratch, out, stream);
+}
+
+// spp 1 (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
                             int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
                             int shadows, int clip, const float* target, float w,
                             float* scratch, float* out, void* stream) {
-  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
-                         clip, ResidualSource{target, w}, scratch, out, stream);
+  return rrt_vec_step_spp(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows,
+                          clip, 1, target, w, scratch, out, stream);
 }

@@ -3,8 +3,9 @@
 // loop, the any-hit shadow test, Phong shading, the per-pixel forward and
 // hand-written adjoint of the fused training steps and the render
 // backwards (pixel_step, with the two sources of its cotangent and
-// visibility: ResidualSource, CotangentSource), and the reduction and
-// camera-chain passes. soft_common.cuh adds the soft-visibility code.
+// visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
+// the subsamples of spp 4), and the reduction and camera-chain passes.
+// soft_common.cuh adds the soft-visibility code.
 //
 // Two layouts of the same scene, read through one interface, so that every
 // kernel runs the same arithmetic:
@@ -18,7 +19,7 @@
 //     space, so a pad row's index never names a real object.
 //
 // Semantics follow reversible_raytracer_tpu/ops/pipeline.py (hard shading,
-// spp 1, perspective camera, untextured objects, flat background):
+// spp 1 or 4, perspective camera, untextured objects, flat background):
 //   - BIG, T_EPS and SHADOW_EPS as there;
 //   - nearest hit on strict <, spheres before rects, so ties go to the
 //     earlier object;
@@ -249,14 +250,30 @@ __host__ __device__ inline int rct_col(int f) { return f < 15 ? f : f + 2; }
 // ---------------------------------------------------------------------------
 
 // Launch constants. The pixel-grid factors are rounded once on the host,
-// like the Python floats 2.0 / W, 2.0 / H and W / H of camera_rays.
+// like the Python floats 2.0 / W, 2.0 / H and W / H of camera_rays. (oi, oj)
+// is the subsample's offset from the pixel centre in rows and columns: 0 at
+// spp 1; a launch of one subsample of spp 4 (rows 4, 5, 7, 8) takes it from
+// the host, a kernel that loops over the subsamples sets it (subsample).
 struct Params {
   int H, W, shadows, clip;
   float two_over_w, two_over_h, aspect;
+  float oi, oj;
 };
 
-inline Params make_params(int H, int W, int shadows, int clip) {
-  return {H, W, shadows, clip, (float)(2.0 / W), (float)(2.0 / H), (float)((double)W / H)};
+inline Params make_params(int H, int W, int shadows, int clip, float oi = 0.0f,
+                          float oj = 0.0f) {
+  return {H, W, shadows, clip, (float)(2.0 / W), (float)(2.0 / H), (float)((double)W / H),
+          oi, oj};
+}
+
+// Subsample s of spp 4, the 2x2 grid of pipeline.py's SPP_OFFSETS: (row,
+// column) offsets (-0.25, -0.25), (-0.25, 0.25), (0.25, -0.25), (0.25, 0.25)
+// for s = 0..3, the order in which the average sums them. Quarters are exact
+// in float32.
+__host__ __device__ __forceinline__ Params subsample(Params p, int s) {
+  p.oi = (s & 2) ? 0.25f : -0.25f;
+  p.oj = (s & 1) ? 0.25f : -0.25f;
+  return p;
 }
 
 // rsqrt of the vnormalize guard: rsqrt(n2 > 1e-12 ? n2 : 1).
@@ -290,9 +307,11 @@ __device__ __forceinline__ Camera camera(const S& sc) {
   return c;
 }
 
-// Perspective primary ray of pixel (i, j): d = normalize(fwd + right sx +
-// up sy) with sx = ax tan(fov/2) aspect, sy = ay tan(fov/2). The
-// intermediates are what the step kernel's camera adjoint needs.
+// Perspective primary ray of pixel (i, j) at the subsample offset (p.oi,
+// p.oj): d = normalize(fwd + right sx + up sy) with sx = ax tan(fov/2)
+// aspect, sy = ay tan(fov/2), ax from the column j + oj and ay from the row
+// i + oi (render_tile's ii + oi, then camera_rays). The intermediates are
+// what the step kernel's camera adjoint needs.
 struct Ray {
   V3 d, dt;
   float n2, inv, ax, ay, sx, sy;
@@ -300,8 +319,8 @@ struct Ray {
 
 __device__ __forceinline__ Ray primary_ray(const Camera& c, const Params& p, int i, int j) {
   Ray r;
-  r.ax = ((float)j + 0.5f) * p.two_over_w - 1.0f;
-  r.ay = 1.0f - ((float)i + 0.5f) * p.two_over_h;
+  r.ax = (((float)j + p.oj) + 0.5f) * p.two_over_w - 1.0f;
+  r.ay = 1.0f - (((float)i + p.oi) + 0.5f) * p.two_over_h;
   r.sx = r.ax * c.tan_half * p.aspect;
   r.sy = r.ay * c.tan_half;
   r.dt = c.fwd + (c.right * r.sx + c.up * r.sy);
@@ -571,25 +590,56 @@ struct ResidualSource {
 };
 
 // CotangentSource, the render backwards: the caller's cotangent of the
-// clipped image (zero outside the image) and no loss; a light's visibility
-// is the forward's saved plane. lit() runs only where the ray hit (on a
-// miss the forward kernels' planes hold 0 and the plain versions' the test
-// of a ray from the BIG sentinel), and not at all without shadows, when
+// clipped image (zero outside the image) times scale, and no loss; a light's
+// visibility is the forward's saved plane. lit() runs only where the ray hit
+// (on a miss the forward kernels' planes hold 0 and the plain versions' the
+// test of a ray from the BIG sentinel), and not at all without shadows, when
 // there are no planes.
 struct CotangentSource {
   static constexpr bool casts_shadows = false;
   const float* g_img;  // (H, W, 3)
   const float* vis;    // (n_vis, H, W); unused by the soft backward
+  float scale;         // 1; 0.25 for a subsample of spp 4 (at)
 
   __device__ __forceinline__ V3 cotangent(const Params& p, int i, int j, bool inside, V3,
                                           float* sq) const {
     *sq = 0.0f;
-    return inside ? ld3(g_img + 3 * ((long long)i * p.W + j)) : zero3();
+    return inside ? ld3(g_img + 3 * ((long long)i * p.W + j)) * scale : zero3();
   }
 
   template <class Occ>
   __device__ __forceinline__ bool lit(const Params& p, int i, int j, int l, Occ) const {
     return !p.shadows || vis[((long long)l * p.H + i) * p.W + j] != 0.0f;
+  }
+
+  // Subsample s of spp 4: a quarter of the average's cotangent (the
+  // average's 0.25, before each subsample's own clip gradient) and the
+  // subsample's n_light planes, s L + l in the forward's layout.
+  __device__ __forceinline__ CotangentSource at(const Params& p, int s, int n_light) const {
+    return {g_img, vis + (long long)s * n_light * p.H * p.W, scale * 0.25f};
+  }
+};
+
+// SubsampleSource, the replay of one subsample of a spp-4 step
+// (pixel_grads): the cotangent of the average's residual times 0.25, the
+// same for the four subsamples (pixel_step then takes each one's own clip
+// gradient), the squared residual on the first subsample only, and the
+// visibility bits the subsample's first forward found with its shadow rays,
+// so the replay casts none.
+struct SubsampleSource {
+  static constexpr bool casts_shadows = false;
+  V3 g;
+  float sq;
+  unsigned bits;
+
+  __device__ __forceinline__ V3 cotangent(const Params&, int, int, bool, V3, float* out) const {
+    *out = sq;
+    return g;
+  }
+
+  template <class Occ>
+  __device__ __forceinline__ bool lit(const Params&, int, int, int l, Occ) const {
+    return ((bits >> l) & 1u) != 0;
   }
 };
 
@@ -623,6 +673,42 @@ struct PixelGrad {
   float obj[RECT_FIELDS];  // its gradient, SPH_FIELDS or RECT_FIELDS order
 };
 
+// The forward of pixel (i, j) as pixel_step runs it: the camera and the
+// primary ray, the nearest hit (walk), the winner's surface, the visibility
+// bits (src.lit) and the unclipped colour pre.
+struct PixelForward {
+  Camera cam;
+  Ray r;
+  Nearest h;
+  Surface s;
+  V3 pre;
+  unsigned bits;
+};
+
+template <class S, class Src, class Walk>
+__device__ __forceinline__ PixelForward pixel_forward(const S& sc, const Params& p, int i, int j,
+                                                      bool inside, const Src& src,
+                                                      const Walk& walk) {
+  PixelForward f;
+  f.cam = camera(sc);
+  f.r = primary_ray(f.cam, p, inside ? i : 0, inside ? j : 0);
+  const V3 o = f.cam.eye, d = f.r.d;
+  f.h = walk.trace(sc, o, d, inside);
+  const bool hit = f.h.k >= 0;
+  f.s = surface(sc, o, d, f.h);
+  walk.shadows(sc, p, src, shadow_origin(o, d, f.h.t, f.s.n), hit);
+  f.bits = 0;
+  f.pre = sc.background();
+  if (hit)
+    f.pre = shade_hit(
+        sc, o, d, f.h.t, f.s,
+        [&](int l, V3 so, const LightGeo& g) {
+          return src.lit(p, i, j, l, [&] { return walk.occluded(sc, l, so, g); });
+        },
+        &f.bits);
+  return f;
+}
+
 // Forward (its objects walked as walk walks them), the image cotangent from
 // src (ResidualSource: the residual against the target; CotangentSource:
 // the caller's) and the hand-written adjoint of pixel (i, j): shade adjoint,
@@ -639,22 +725,15 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
                                                 OnLight on_light) {
   PixelGrad out;
   // ---- forward
-  const Camera cam = camera(sc);
-  const Ray r = primary_ray(cam, p, inside ? i : 0, inside ? j : 0);
+  const PixelForward fw = pixel_forward(sc, p, i, j, inside, src, walk);
+  const Camera& cam = fw.cam;
+  const Ray& r = fw.r;
   const V3 o = cam.eye, d = r.d;
-  const Nearest h = walk.trace(sc, o, d, inside);
+  const Nearest& h = fw.h;
   const bool hit = h.k >= 0;
-  const Surface s = surface(sc, o, d, h);
-  walk.shadows(sc, p, src, shadow_origin(o, d, h.t, s.n), hit);
-  unsigned bits = 0;
-  V3 pre = sc.background();
-  if (hit)
-    pre = shade_hit(
-        sc, o, d, h.t, s,
-        [&](int l, V3 so, const LightGeo& g) {
-          return src.lit(p, i, j, l, [&] { return walk.occluded(sc, l, so, g); });
-        },
-        &bits);
+  const Surface& s = fw.s;
+  const unsigned bits = fw.bits;
+  const V3 pre = fw.pre;
   const V3 img = p.clip ? V3{clip01(pre.x), clip01(pre.y), clip01(pre.z)} : pre;
 
   // ---- the clipped image's cotangent, then the clip's
@@ -819,6 +898,53 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
   out.sy = r.sy;
   out.k = h.k;
   return out;
+}
+
+// The gradient of pixel (i, j) at SPP samples a pixel, handed to
+// take(const PixelGrad&) once per subsample (the flat and vec step kernels
+// add each into their sums as they would a pixel's). At spp 1, pixel_step.
+// At spp 4 the image is the average of the four clipped subsamples of
+// subsample(), ((c0 + c1) + c2) + c3 times 0.25 as render_tile sums them:
+//   - where src casts shadow rays (the steps), the residual is of the
+//     average, so the four forwards run first, each keeping its visibility
+//     bits; then src's cotangent of the average, times 0.25, and each
+//     subsample's forward and adjoint replayed with it and its bits
+//     (SubsampleSource: no shadow rays the second time);
+//   - the render backwards' caller gives the average's cotangent: each
+//     subsample's adjoint takes a quarter of it and reads its own planes
+//     (CotangentSource::at).
+// Every lane runs every subsample (the walks' warp-wide votes).
+template <int SPP, class S, class Src, class Walk, class OnLight, class Take>
+__device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i, int j,
+                                            bool inside, const Src& src, const Walk& walk,
+                                            OnLight on_light, Take take) {
+  static_assert(SPP == 1 || SPP == 4, "spp is 1 or 4");
+  if constexpr (SPP == 1) {
+    take(pixel_step(sc, p, i, j, inside, src, walk, on_light));
+  } else if constexpr (Src::casts_shadows) {
+    V3 acc = zero3();
+    unsigned long long bits = 0;  // 16 bits a subsample: at most 16 lights (MAX_LIGHTS)
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+      const PixelForward fw = pixel_forward(sc, subsample(p, q), i, j, inside, src, walk);
+      const V3 img = p.clip ? V3{clip01(fw.pre.x), clip01(fw.pre.y), clip01(fw.pre.z)} : fw.pre;
+      acc = q == 0 ? img : acc + img;
+      bits |= (unsigned long long)(fw.bits & 0xffffu) << (16 * q);
+    }
+    float sq;
+    const V3 g = src.cotangent(p, i, j, inside, acc * 0.25f, &sq) * 0.25f;
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q)
+      take(pixel_step(sc, subsample(p, q), i, j, inside,
+                      SubsampleSource{g, q == 0 ? sq : 0.0f,
+                                      (unsigned)(bits >> (16 * q)) & 0xffffu},
+                      walk, on_light));
+  } else {
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q)
+      take(pixel_step(sc, subsample(p, q), i, j, inside, src.at(p, q, sc.n_light()), walk,
+                      on_light));
+  }
 }
 
 // The camera chain, once per step: pull the summed ray-form cotangents gx =

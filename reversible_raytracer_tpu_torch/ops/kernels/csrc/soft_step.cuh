@@ -671,14 +671,13 @@ inline long long soft_step_scratch_floats(int ns_pad, int nr_pad, int n_light, i
 // The three launches on one stream; out = [sq, dglob, dsph, drct].
 template <class Src, bool SOFT_CHECKER>
 int launch_soft_step_instance(const float* glob, const float* sph, const float* rct, int n_sph,
-                              int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                              int shadows, int clip, float tau, float ctau, Src src,
-                              float* scratch, float* out, void* stream) {
+                              int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p,
+                              float tau, float ctau, Src src, float* scratch, float* out,
+                              void* stream) {
   const GLayout gl = make_glayout(n_light);
-  const Params p = make_params(H, W, shadows, clip);
   const SoftPlan plan = soft_plan(ns_pad, nr_pad, n_light);
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid = pixel_grid(H, W);
+  const dim3 grid = pixel_grid(p.H, p.W);
   const int nrows = grid.x * grid.y;
   float* partials = scratch;
   float* rowsum = scratch + (long long)nrows * plan.ROW;
@@ -700,19 +699,20 @@ int launch_soft_step_instance(const float* glob, const float* sph, const float* 
   return (int)cudaGetLastError();
 }
 
-// The soft checker's instance where checker_tau > 0, else the other.
+// The soft checker's instance where checker_tau > 0, else the other. p
+// gives the image, the flags and the subsample offset: 0 for the step,
+// which is spp 1 (as the TPU's, fused_vec_soft.py:365-380); one of spp 4's
+// four for a launch of the render backward.
 template <class Src>
 int launch_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
-                     int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
-                     int clip, float tau, float ctau, Src src, float* scratch, float* out,
-                     void* stream) {
+                     int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p, float tau,
+                     float ctau, Src src, float* scratch, float* out, void* stream) {
   if (ctau > 0.0f)
     return launch_soft_step_instance<Src, true>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
-                                                n_light, H, W, shadows, clip, tau, ctau, src,
-                                                scratch, out, stream);
+                                                n_light, p, tau, ctau, src, scratch, out,
+                                                stream);
   return launch_soft_step_instance<Src, false>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
-                                               n_light, H, W, shadows, clip, tau, ctau, src,
-                                               scratch, out, stream);
+                                               n_light, p, tau, ctau, src, scratch, out, stream);
 }
 
 }  // namespace rrt

@@ -42,6 +42,13 @@
 // 3. vec_finalize_kernel copies out [sq, dglob, dsph, drct] and applies the
 //    camera chain once.
 //
+// spp 4: the step (row 6) takes the TPU kernel's 2x2 loop (fused_vec.py:
+// 997-1006) in each thread, as the flat step does (render_common.cuh
+// pixel_grads), each subsample's walk culled by its own warp's rays; the
+// render backward (row 5) is launched once per subsample at that
+// subsample's offsets (Params oi, oj), as the TPU's four launches at the
+// runtime offsets of off_ref. Each spp is its own instance (SPP).
+//
 // No atomics, and a grid that follows from the card and the scene alone:
 // for a given image size the result is bit-for-bit the same from run to run
 // on one card, and the render backward's gradient for the mse cotangent is
@@ -106,7 +113,7 @@ struct WarpCull {
   }
 };
 
-template <class Src>
+template <int SPP, class Src>
 __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
     vec_step_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                     const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
@@ -139,61 +146,63 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
     const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
     const int i = (t / tiles.x) * BLOCK_Y + threadIdx.y;
-    const PixelGrad pg = pixel_step(
+    pixel_grads<SPP>(
         scene, p, i, j, i < p.H && j < p.W, src, walk,
         [&](int l, V3 g_lpos, V3 g_lcol, bool warp_hit) {
           if (warp_hit) {
             add3(gs, gl.l_pos + 3 * l, g_lpos, lane);
             add3(gs, gl.l_col + 3 * l, g_lcol, lane);
           }
+        },
+        [&](const PixelGrad& pg) {
+          // ---- warp sums of the globals into this warp's row
+          add(wrow, 0, pg.sq, lane);
+          add3(gs, gl.ambient, pg.g_amb, lane);
+          add3(gs, gl.background, pg.g_bg, lane);
+          add3(gs, gl.c_eye, pg.g_eye, lane);
+          add3(gx, 0, pg.g_dt, lane);
+          add3(gx, 3, pg.g_dt * pg.sx, lane);
+          add3(gx, 6, pg.g_dt * pg.sy, lane);
+          add(gx, 9, pg.g_tan, lane);
+
+          // ---- the warp's list of winners, one entry per distinct object
+          // in the order of the lowest lane that hit it, lane e holding
+          // entry e's sums (as lane 0 reduced them); then the block's row,
+          // warp by warp
+          int n = 0, ke = -1;
+          float acc[RECT_FIELDS];
+#pragma unroll
+          for (int f = 0; f < RECT_FIELDS; ++f) acc[f] = 0.0f;
+          for (unsigned todo = __ballot_sync(FULL, pg.k >= 0); todo;) {
+            const int k = __shfl_sync(FULL, pg.k, __ffs(todo) - 1);
+            const unsigned same = __ballot_sync(FULL, pg.k == k);
+            const bool mine = pg.k == k;
+            const int nf = k < ns_pad ? SPH_FIELDS : RECT_FIELDS;  // the same in every lane
+#pragma unroll
+            for (int f = 0; f < RECT_FIELDS; ++f) {
+              if (f < nf) {
+                const float v = __shfl_sync(FULL, warp_sum(mine ? pg.obj[f] : 0.0f), 0);
+                if (lane == n) acc[f] = v;
+              }
+            }
+            if (lane == n) ke = k;
+            ++n;
+            todo &= ~same;
+          }
+          for (int v = 0; v < NWARPS; ++v) {
+            if (v == warp && ke >= 0) {
+              if (ke < ns_pad) {
+#pragma unroll
+                for (int f = 0; f < SPH_FIELDS; ++f) orow[ke * P_SPH + sph_col(f)] += acc[f];
+              } else {
+#pragma unroll
+                for (int f = 0; f < RECT_FIELDS; ++f)
+                  orow[ns_pad * P_SPH + (ke - ns_pad) * P_RCT + rct_col(f)] += acc[f];
+              }
+            }
+            __syncthreads();
+          }
         });
-
-    // ---- warp sums of the globals into this warp's row
-    add(wrow, 0, pg.sq, lane);
-    add3(gs, gl.ambient, pg.g_amb, lane);
-    add3(gs, gl.background, pg.g_bg, lane);
-    add3(gs, gl.c_eye, pg.g_eye, lane);
-    add3(gx, 0, pg.g_dt, lane);
-    add3(gx, 3, pg.g_dt * pg.sx, lane);
-    add3(gx, 6, pg.g_dt * pg.sy, lane);
-    add(gx, 9, pg.g_tan, lane);
-
-    // ---- the warp's list of winners, one entry per distinct object in the
-    // order of the lowest lane that hit it, lane e holding entry e's sums (as
-    // lane 0 reduced them); then the block's row, warp by warp
-    int n = 0, ke = -1;
-    float acc[RECT_FIELDS];
-#pragma unroll
-    for (int f = 0; f < RECT_FIELDS; ++f) acc[f] = 0.0f;
-    for (unsigned todo = __ballot_sync(FULL, pg.k >= 0); todo;) {
-      const int k = __shfl_sync(FULL, pg.k, __ffs(todo) - 1);
-      const unsigned same = __ballot_sync(FULL, pg.k == k);
-      const bool mine = pg.k == k;
-      const int nf = k < ns_pad ? SPH_FIELDS : RECT_FIELDS;  // the same in every lane
-#pragma unroll
-      for (int f = 0; f < RECT_FIELDS; ++f) {
-        if (f < nf) {
-          const float v = __shfl_sync(FULL, warp_sum(mine ? pg.obj[f] : 0.0f), 0);
-          if (lane == n) acc[f] = v;
-        }
-      }
-      if (lane == n) ke = k;
-      ++n;
-      todo &= ~same;
-    }
-    for (int v = 0; v < NWARPS; ++v) {
-      if (v == warp && ke >= 0) {
-        if (ke < ns_pad) {
-#pragma unroll
-          for (int f = 0; f < SPH_FIELDS; ++f) orow[ke * P_SPH + sph_col(f)] += acc[f];
-        } else {
-#pragma unroll
-          for (int f = 0; f < RECT_FIELDS; ++f)
-            orow[ns_pad * P_SPH + (ke - ns_pad) * P_RCT + rct_col(f)] += acc[f];
-        }
-      }
-      __syncthreads();
-    }
   }
 
   // ---- the block's partial row
@@ -216,26 +225,29 @@ inline long long vec_step_scratch_floats(int ns_pad, int nr_pad, int n_light, in
   return nblocks > 0 ? ((long long)nblocks + 1) * plan.ROW : -1;
 }
 
-// The three launches on one stream; out = [sq, dglob, dsph, drct].
+// The three launches on one stream; out = [sq, dglob, dsph, drct]. p gives
+// the image, the flags and a subsample's offsets; spp is 1 or 4 (the 2x2
+// loop in the kernel, p's offsets 0).
 template <class Src>
 int launch_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
-                    int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
-                    int clip, Src src, float* scratch, float* out, void* stream) {
+                    int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p, int spp,
+                    Src src, float* scratch, float* out, void* stream) {
   const GLayout gl = make_glayout(n_light);
-  const Params p = make_params(H, W, shadows, clip);
   const StepPlan plan = step_plan(ns_pad, nr_pad, n_light);
   const cudaStream_t st = (cudaStream_t)stream;
-  const int nblocks = step_blocks(plan.smem, H, W);
+  const int nblocks = step_blocks(plan.smem, p.H, p.W);
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
+  if (spp != 1 && spp != 4) return (int)cudaErrorInvalidValue;
+  const auto kernel = spp == 4 ? vec_step_kernel<4, Src> : vec_step_kernel<1, Src>;
   float* partials = scratch;
   float* rowsum = scratch + (long long)nblocks * plan.ROW;
   cudaError_t err;
   if (plan.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(vec_step_kernel<Src>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  vec_step_kernel<Src><<<nblocks, dim3(BLOCK_X, BLOCK_Y), plan.smem, st>>>(
+  kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), plan.smem, st>>>(
       glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, src, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

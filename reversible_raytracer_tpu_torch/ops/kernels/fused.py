@@ -4,7 +4,8 @@ their plain versions.
 - `render_fused`: the forward render kernel (``csrc/fused_render.cu``),
   replacing the TPU kernel ``_make_fused.fwd_kernel``
   (reversible_raytracer_tpu/ops/kernels/fused.py:224). It writes the
-  (H, W, 3) image and the shadow-visibility planes. Plain version:
+  (H, W, 3) image and the shadow-visibility planes (per subsample and
+  light). Plain version:
   `render_fused_plain`. On CUDA the image is differentiable: `_FusedRender`
   pairs this kernel with the render backward, as the JAX package's
   ``custom_vjp`` (fused.py:297-311) pairs its two.
@@ -29,6 +30,14 @@ The scene enters the kernels as one flat float32 vector in the leaf
 order of `models.scene.tree_leaves` (`flatten_scene`); the kernels find
 each leaf from the object and light counts alone (`flat_offsets`).
 
+spp 4 (2x2 supersampling) is the TPU kernels' loop inside each kernel: a
+pixel is the average of four clipped subsamples at quarter-pixel offsets
+(`pipeline.SPP_OFFSETS`), summed in that order and times 0.25, as
+`render_tile` sums them. The forward writes each subsample's planes; the
+step's residual is of the average, so it runs the four forwards before
+the adjoints (`subsample_adjoint` is its eager twin); the render backward
+gives each subsample a quarter of the average's cotangent.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. There is no fallback between the two.
 """
@@ -44,12 +53,13 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...models.scene import tree_leaves, tree_unflatten
+from ...models.scene import tree_leaves, tree_map, tree_unflatten
 from .. import vecmath as vm
 from ..pipeline import (
     BIG,
     SHADOW_EPS,
     T_EPS,
+    SPP_OFFSETS,
     RenderConfig,
     camera_basis,
     intersect_rect,
@@ -67,14 +77,19 @@ MAX_LIGHTS = 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, clip
 
+# Each kernel's entry takes the spp (1 or 4) after the geometry; the entries
+# without it are spp 1, for tools/ and for checkouts from before spp 4.
 FUSED_RENDER = Kernel("fused_render", {
+    "rrt_render_spp": ([_P, *_GEOM, _I, _P, _P, _P], _I),
     "rrt_render": ([_P, *_GEOM, _P, _P, _P], _I),
 })
 FUSED_STEP = Kernel("fused_step", {
+    "rrt_step_spp": ([_P, *_GEOM, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step": ([_P, *_GEOM, _P, _F, _P, _P, _P], _I),
     "rrt_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 FUSED_RENDER_BWD = Kernel("fused_render_bwd", {
+    "rrt_render_bwd_spp": ([_P, *_GEOM, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd": ([_P, *_GEOM, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
@@ -137,8 +152,8 @@ def uncovered(scene, cfg: RenderConfig):
         return "soft_tau/checker_tau"
     if cfg.reflections:
         return "mirror reflections"
-    if cfg.spp != 1:
-        return f"spp={cfg.spp}"
+    if cfg.spp not in SPP_OFFSETS:
+        return f"spp={cfg.spp} (spp is 1 or 4)"
     if cfg.shader != "phong":
         return f"the {cfg.shader} shader"
     if cfg.projection != "perspective":
@@ -246,7 +261,7 @@ class _FusedRender(torch.autograd.Function):
         flat = _cuda_flat(scene, cfg)
         img = torch.empty((cfg.height, cfg.width, 3), device=flat.device)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=flat.device)
-        FUSED_RENDER.call("rrt_render", flat.data_ptr(), *_geometry(scene, cfg),
+        FUSED_RENDER.call("rrt_render_spp", flat.data_ptr(), *_geometry(scene, cfg), cfg.spp,
                           img.data_ptr(), vis.data_ptr(), _stream(flat.device))
         FUSED_RENDER.launches += 1
         ctx.scene, ctx.cfg = scene, cfg
@@ -285,8 +300,9 @@ def _render_bwd_launch(scene_like, cfg, flat, g_img, vis):
     geom = _geometry(scene_like, cfg)
     scratch = _scratch(FUSED_RENDER_BWD, "rrt_render_bwd_scratch_floats", geom[:5], dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_RENDER_BWD.call("rrt_render_bwd", flat.data_ptr(), *geom, g_img.data_ptr(),
-                          vis.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(dev))
+    FUSED_RENDER_BWD.call("rrt_render_bwd_spp", flat.data_ptr(), *geom, cfg.spp,
+                          g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                          _stream(dev))
     FUSED_RENDER_BWD.launches += 1
     return out[1:]
 
@@ -340,7 +356,7 @@ def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
     geom = _geometry(scene, cfg)
     scratch = _scratch(FUSED_STEP, "rrt_step_scratch_floats", geom[:5], dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_STEP.call("rrt_step", flat.data_ptr(), *geom, target.data_ptr(),
+    FUSED_STEP.call("rrt_step_spp", flat.data_ptr(), *geom, cfg.spp, target.data_ptr(),
                     norm, scratch.data_ptr(), out.data_ptr(), _stream(dev))
     FUSED_STEP.launches += 1
     return norm * out[0], unflatten_scene(scene, out[1:])
@@ -437,8 +453,9 @@ def loss_grad_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse")
     norm = _loss_norm(cfg, loss)
     _check_target(target, cfg, scene)
     with torch.no_grad():
-        sq, grads = _adjoint(scene, cfg, _nearest_chain, residual_cotangent(target, norm),
-                             traced_visibility(scene, cfg, occluded))
+        sq, grads = subsample_adjoint(scene, cfg, _nearest_chain,
+                                      residual_cotangent(target, norm),
+                                      lambda q: traced_visibility(scene, cfg, occluded))
     return norm * sq, grads
 
 
@@ -450,8 +467,8 @@ def render_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img, vis):
     check_kernel_config(scene, cfg)
     _check_target(g_img, cfg, scene, "cotangent")
     with torch.no_grad():
-        return _adjoint(scene, cfg, _nearest_chain, image_cotangent(g_img),
-                        saved_visibility(cfg, vis))[1]
+        return subsample_adjoint(scene, cfg, _nearest_chain, image_cotangent(g_img),
+                                 subsample_planes(scene, cfg, vis))[1]
 
 
 def residual_cotangent(target, norm):
@@ -490,6 +507,14 @@ def saved_visibility(cfg: RenderConfig, vis):
     return lambda li, so, f, zero, hit: vis[li].to(zero.dtype) if cfg.shadows else zero + 1.0
 
 
+def subsample_planes(scene_like, cfg: RenderConfig, vis):
+    """``q -> saved_visibility`` of subsample q's planes (planes q L .. q L +
+    L - 1 of the forward's (spp L, H, W) planes, the `n_vis_planes`
+    layout), as `subsample_adjoint` takes its visibility."""
+    L = scene_like.lights.count
+    return lambda q: saved_visibility(cfg, vis[q * L:(q + 1) * L])
+
+
 def _nearest_chain(scene, o, d):
     """(t, k) of every ray's nearest hit by the first-wins where chain:
     spheres 0..N-1, rects N..N+M-1, -1 on a miss."""
@@ -510,16 +535,17 @@ def _nearest_chain(scene, o, d):
     return t_best, kbest
 
 
-def primary_ray_terms(scene, cfg: RenderConfig):
-    """The perspective primary rays with the intermediates their adjoint
+def primary_ray_terms(scene, cfg: RenderConfig, off=(0.0, 0.0)):
+    """The perspective primary rays at the subsample offset ``off`` (rows,
+    columns; `pipeline.SPP_OFFSETS`) with the intermediates their adjoint
     needs: o = eye, d = normalize(dt), dt = fwd + right sx + up sy."""
     H, W = cfg.height, cfg.width
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     right, up, fwd = camera_basis(scene.camera)
     tanf = torch.tan(scene.camera.fov_deg * (math.pi / 180.0) * 0.5)
     aspect = W / H
-    ii = torch.arange(H, **like)[:, None].expand(H, W)
-    jj = torch.arange(W, **like)[None, :].expand(H, W)
+    ii = torch.arange(H, **like)[:, None].expand(H, W) + off[0]
+    jj = torch.arange(W, **like)[None, :].expand(H, W) + off[1]
     ax = (jj + 0.5) * (2.0 / W) - 1.0
     ay = 1.0 - (ii + 0.5) * (2.0 / H)
     sx = ax * tanf * aspect
@@ -759,8 +785,9 @@ def winner_surface(scene, w, o, d, t, zero, checker_tau=0.0):
     return w
 
 
-def forward_terms(scene, cfg, nearest, visibility):
-    """The forward of the hard kernels in eager torch, with what their
+def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
+    """The forward of the hard kernels in eager torch at the subsample offset
+    ``off``, with what their
     adjoint needs: the primary rays (``ray``), the nearest hit (``t``) and
     the winner's surface (``w``), the shadow origins (``so``), per light its
     terms and visibility plane (``per_light``), the unclipped image
@@ -770,7 +797,7 @@ def forward_terms(scene, cfg, nearest, visibility):
     where the rays ``hit`` (`traced_visibility`, `saved_visibility`)."""
     lt = scene.lights
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
-    ray = primary_ray_terms(scene, cfg)
+    ray = primary_ray_terms(scene, cfg, off)
     o, d = ray.o, ray.d
     t, kbest = nearest(scene, o, d)
     w = winner_surface(scene, winner_geometry(scene, kbest, zero), o, d, t, zero)
@@ -789,8 +816,44 @@ def forward_terms(scene, cfg, nearest, visibility):
     return SimpleNamespace(ray=ray, t=t, w=w, so=so, per_light=per_light, pre=pre, img=img)
 
 
-def _adjoint(scene, cfg, nearest, cotangent, visibility):
-    """The per-pixel adjoint of the step and of the render backward: ``(sum
+def subsample_average(imgs):
+    """The image of spp subsamples: ((c0 + c1) + c2) + c3 times 0.25 at spp
+    4, summed in `pipeline.SPP_OFFSETS` order as `render_tile` sums them;
+    the one image at spp 1. Each image is a tensor or a tuple of channels."""
+    if len(imgs) == 1:
+        return imgs[0]
+    tup = isinstance(imgs[0], tuple)
+    acc = imgs[0]
+    for img in imgs[1:]:
+        acc = vm.vadd(acc, img) if tup else acc + img
+    return vm.vscale(acc, 1.0 / len(imgs)) if tup else acc * (1.0 / len(imgs))
+
+
+def subsample_adjoint(scene, cfg, nearest, cotangent, visibility_at):
+    """The adjoint of every subsample of the pixels, as the kernels' spp
+    loop runs it (csrc/render_common.cuh `pixel_grads`): ``(sum of squared
+    residuals, grads as a Scene)``. At spp 1 `_adjoint`. At spp 4 the four
+    forwards, the cotangent of their average (`subsample_average`), and
+    each subsample's adjoint with a quarter of it (the average's 0.25,
+    before each subsample's own clip gradient), summed. ``visibility_at(q)``
+    is subsample q's visibility, as `forward_terms` takes it."""
+    offsets = SPP_OFFSETS[cfg.spp]
+    if len(offsets) == 1:
+        return _adjoint(scene, cfg, nearest, cotangent, visibility_at(0))
+    imgs = [forward_terms(scene, cfg, nearest, visibility_at(q), off).img
+            for q, off in enumerate(offsets)]
+    g, sq = cotangent(subsample_average(imgs))
+    g = vm.vscale(g, 1.0 / len(offsets))
+    grads = None
+    for q, off in enumerate(offsets):
+        _, gq = _adjoint(scene, cfg, nearest, lambda img: (g, 0.0), visibility_at(q), off)
+        grads = gq if grads is None else tree_map(torch.add, grads, gq)
+    return sq, grads
+
+
+def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
+    """The per-pixel adjoint of the step and of the render backward at one
+    subsample offset ``off``: ``(sum
     of squared residuals, grads as a Scene)``. ``nearest`` and
     ``visibility`` as `forward_terms` takes them; ``cotangent(img)`` gives
     the cotangent of the clipped image per channel and the squared error
@@ -804,7 +867,7 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility):
 
     # ---- forward: the camera ray with its intermediates, the nearest hit,
     # the winner's attributes, the shading
-    fw = forward_terms(scene, cfg, nearest, visibility)
+    fw = forward_terms(scene, cfg, nearest, visibility, off)
     ray, t, w, per_light, pre, img = fw.ray, fw.t, fw.w, fw.per_light, fw.pre, fw.img
     o, d = ray.o, ray.d
     is_sph, is_rct, hit, ks_, kr_ = w.is_sph, w.is_rct, w.hit, w.ks, w.kr

@@ -43,9 +43,16 @@ only, number the rects from the padded sphere count in winner-index space,
 and leave the gradient of every pad row exactly zero. The step's gradient
 comes back through the transpose of the packing (`unpack_grads`).
 
-Covered: hard shading, spp 1, perspective, Phong, untextured objects, no
-environment map, no mirror bounces (the TPU kernels' spp-4 loop, reflection
-levels, texel tails and env global are not ported yet and raise). On a CPU
+Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects,
+no environment map, no mirror bounces (the TPU kernels' reflection levels,
+texel tails and env global are not ported yet and raise). spp 4 as the TPU
+kernels run it: the forward and the render backward are launched once per
+subsample at its offsets (`pipeline.SPP_OFFSETS`; fused_vec.py:1443-1481),
+the image is the average of the four (`fused.subsample_average`) formed in
+torch, through which autograd gives each backward launch a quarter of the
+cotangent, and the planes are the four launches' in order; the step runs
+the 2x2 loop in the kernel (fused_vec.py:997-1006), its residual of the
+average. On a CPU
 tensor each wrapper runs its plain version; on a CUDA tensor it launches its
 kernel or raises. The step (gradient rows of the padded packing) and the
 render backward deliver their gradients alike, through `unpack_grads`.
@@ -54,13 +61,14 @@ render backward deliver their gradients alike, through `unpack_grads`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses as dc
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from ...models.scene import tree_leaves, tree_unflatten
-from ..pipeline import RenderConfig, n_vis_planes, render_tile
+from ..pipeline import SPP_OFFSETS, RenderConfig, n_vis_planes, render_tile
 from ..pipeline_vec import nearest_vec, occluded_any, render_eager_vec, shade_vec
 from . import fused
 from ._build import Kernel
@@ -79,17 +87,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows, clip
 _GEOM = [_I] * 9
 
+# Entries with a subsample's (row, column) offset (``_at``, rows 4-5) or the
+# spp (``_spp``, row 6) after the geometry; those without are spp 1, for
+# tools/ and for checkouts from before spp 4.
 VEC_RENDER = Kernel("fused_vec_render", {
+    "rrt_vec_render_at": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P], _I),
     "rrt_vec_render": ([_P, _P, _P, *_GEOM, _P, _P, _P], _I),
     "rrt_vec_render_smem": ([_I, _I, _I], ctypes.c_longlong),
     "rrt_smem_optin": ([], ctypes.c_longlong),
 })
 VEC_STEP = Kernel("fused_vec_step", {
+    "rrt_vec_step_spp": ([_P, _P, _P, *_GEOM, _I, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step": ([_P, _P, _P, *_GEOM, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_vec_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 VEC_RENDER_BWD = Kernel("fused_vec_render_bwd", {
+    "rrt_vec_render_bwd_at": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P, _P, _P], _I),
     "rrt_vec_render_bwd": ([_P, _P, _P, *_GEOM, _P, _P, _P, _P, _P], _I),
     "rrt_vec_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_vec_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
@@ -214,8 +228,8 @@ def unpack_grads(scene_like, dglob, dsph, drct):
 
 def check_vec_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for what the two vec kernels do not cover
-    (the TPU kernels' spp-4 loop, reflection levels, texel tails and env
-    global are still to port); any object count is covered."""
+    (the TPU kernels' reflection levels, texel tails and env global are
+    still to port); any object count is covered."""
     why = fused.uncovered(scene, cfg)
     if why is not None:
         raise NotImplementedError(f"the object-chunked CUDA kernels do not cover {why}")
@@ -303,37 +317,46 @@ def render_vec_plain(scene, cfg: RenderConfig):
 
 def render_vec(scene, cfg: RenderConfig):
     """Image (H, W, 3) and visibility planes (n_vis, H, W). The forward
-    kernel on CUDA, `render_vec_plain` on the CPU. The image carries the
-    scene's gradient on both: on CUDA through the render backward kernel
-    (the planes carry none)."""
+    kernel on CUDA, once per subsample (the image the subsamples' average,
+    the planes theirs in order), `render_vec_plain` on the CPU. The image
+    carries the scene's gradient on both: on CUDA through the render
+    backward kernel, once per subsample (the planes carry none)."""
     dev = scene.device
     if dev.type == "cpu":
         return render_vec_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render kernel for device {dev}")
-    return _VecRender.apply(scene, cfg, *tree_leaves(scene))
+    rows = _cuda_inputs(scene, cfg)
+    cfg1 = dc.replace(cfg, spp=1)
+    leaves = tree_leaves(scene)
+    outs = [_VecRender.apply(scene, cfg1, off, rows, *leaves) for off in SPP_OFFSETS[cfg.spp]]
+    if len(outs) == 1:
+        return outs[0]
+    return fused.subsample_average([img for img, _ in outs]), torch.cat([v for _, v in outs])
 
 
 class _VecRender(torch.autograd.Function):
-    """The vec forward and render backward kernels as one differentiable
-    function of the scene's leaves (the ``custom_vjp`` of
-    fused_vec.py:1340-1364): the forward saves the packed rows and the
-    visibility planes, the backward launches the backward kernel once."""
+    """The vec forward and render backward kernels at one subsample offset
+    ``off`` as one differentiable function of the scene's leaves (the
+    ``custom_vjp`` of fused_vec.py:1340-1364), given the scene's packed
+    ``rows`` (`packed_inputs`, which carry no gradient): the forward saves
+    them and the visibility planes, the backward launches the backward
+    kernel once."""
 
     @staticmethod
-    def forward(ctx, scene, cfg, *leaves):
-        glob, sph, rct = _cuda_inputs(scene, cfg)
+    def forward(ctx, scene, cfg, off, rows, *leaves):
+        glob, sph, rct = rows
         check_smem(VEC_RENDER, "rrt_vec_render_smem", scene)
         if any(ctx.needs_input_grad):
             check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_smem", scene)
         dev = glob.device
         img = torch.empty((cfg.height, cfg.width, 3), device=dev)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
-        VEC_RENDER.call("rrt_vec_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                        *_geometry(scene, cfg), img.data_ptr(), vis.data_ptr(),
+        VEC_RENDER.call("rrt_vec_render_at", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
+                        *_geometry(scene, cfg), *off, img.data_ptr(), vis.data_ptr(),
                         fused._stream(dev))
         VEC_RENDER.launches += 1
-        ctx.scene, ctx.cfg = scene, cfg
+        ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
         ctx.save_for_backward(glob, sph, rct, vis)
         ctx.mark_non_differentiable(vis)
         ctx.set_materialize_grads(False)
@@ -343,10 +366,10 @@ class _VecRender(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_img, _g_vis):
         if g_img is None:
-            return (None, None, *(None for _ in tree_leaves(ctx.scene)))
+            return (None, None, None, None, *(None for _ in tree_leaves(ctx.scene)))
         glob, sph, rct, vis = ctx.saved_tensors
-        grads = _render_bwd_launch(ctx.scene, ctx.cfg, glob, sph, rct, g_img, vis)
-        return (None, None, *tree_leaves(grads))
+        grads = _render_bwd_launch(ctx.scene, ctx.cfg, ctx.off, glob, sph, rct, g_img, vis)
+        return (None, None, None, None, *tree_leaves(grads))
 
 
 # ---------------------------------------------------------------------------
@@ -354,17 +377,18 @@ class _VecRender(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img, vis):
-    """The scene's gradient (a Scene) from one backward-kernel call."""
+def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, vis):
+    """The scene's gradient (a Scene) from one backward-kernel call at the
+    subsample offset ``off``."""
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
     scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_scratch_floats", geom[2:7],
                              dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    VEC_RENDER_BWD.call("rrt_vec_render_bwd", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                        *geom, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
-                        out.data_ptr(), fused._stream(dev))
+    VEC_RENDER_BWD.call("rrt_vec_render_bwd_at", glob.data_ptr(), sph.data_ptr(),
+                        rct.data_ptr(), *geom, *off, g_img.data_ptr(), vis.data_ptr(),
+                        scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     VEC_RENDER_BWD.launches += 1
     return _unpack_out(scene_like, out, glob, sph, rct)
 
@@ -405,8 +429,8 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
     geom = _geometry(scene, cfg)
     scratch = fused._scratch(VEC_STEP, "rrt_vec_step_scratch_floats", geom[2:7], dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    VEC_STEP.call("rrt_vec_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
-                  target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
+    VEC_STEP.call("rrt_vec_step_spp", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
+                  cfg.spp, target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
                   fused._stream(dev))
     VEC_STEP.launches += 1
     return norm * out[0], _unpack_out(scene, out, glob, sph, rct)
@@ -438,19 +462,26 @@ def culled_visibility(scene, cfg: RenderConfig):
 
 
 def render_vec_culled(scene, cfg: RenderConfig):
-    """The vec forward kernel's algorithm in eager torch: the nearest hit
-    over each warp's primary candidates and the any-hit shadow test over
-    each light's shadow candidates of its hit pixels, then the shading of
-    the step's forward. Returns the (H, W, 3) image and the (L, H, W)
-    visibility planes (0 where the ray hits nothing, as the kernel writes
-    them; none without shadows)."""
+    """The vec forward kernel's algorithm in eager torch, once per
+    subsample: the nearest hit over each warp's primary candidates and the
+    any-hit shadow test over each light's shadow candidates of its hit
+    pixels, then the shading of the step's forward. Returns the (H, W, 3)
+    image (the subsamples' average) and the (spp L, H, W) visibility planes
+    (0 where the ray hits nothing, as the kernel writes them; none without
+    shadows)."""
     check_vec_kernel_config(scene, cfg)
+    imgs, planes = [], []
     with torch.no_grad():
-        fw = fused.forward_terms(scene, cfg, culled_nearest, culled_visibility(scene, cfg))
-    img = torch.stack(fw.img, dim=-1)
+        for off in SPP_OFFSETS[cfg.spp]:
+            fw = fused.forward_terms(scene, cfg, culled_nearest, culled_visibility(scene, cfg),
+                                     off)
+            imgs.append(torch.stack(fw.img, dim=-1))
+            if cfg.shadows:
+                planes += [torch.where(fw.w.hit, vis, 0.0) for _, vis in fw.per_light]
+    img = fused.subsample_average(imgs)
     if not cfg.shadows:
         return img, img.new_zeros((0, cfg.height, cfg.width))
-    return img, torch.stack([torch.where(fw.w.hit, vis, 0.0) for _, vis in fw.per_light])
+    return img, torch.stack(planes)
 
 
 def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse"):
@@ -463,9 +494,9 @@ def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "m
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
     with torch.no_grad():
-        sq, grads = fused._adjoint(scene, cfg, culled_nearest,
-                                   fused.residual_cotangent(target, norm),
-                                   culled_visibility(scene, cfg))
+        sq, grads = fused.subsample_adjoint(scene, cfg, culled_nearest,
+                                            fused.residual_cotangent(target, norm),
+                                            lambda q: culled_visibility(scene, cfg))
     return norm * sq, grads
 
 
@@ -477,5 +508,5 @@ def render_vec_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img, vis):
     check_vec_kernel_config(scene, cfg)
     fused._check_target(g_img, cfg, scene, "cotangent")
     with torch.no_grad():
-        return fused._adjoint(scene, cfg, culled_nearest, fused.image_cotangent(g_img),
-                              fused.saved_visibility(cfg, vis))[1]
+        return fused.subsample_adjoint(scene, cfg, culled_nearest, fused.image_cotangent(g_img),
+                                       fused.subsample_planes(scene, cfg, vis))[1]

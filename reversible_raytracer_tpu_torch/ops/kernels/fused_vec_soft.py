@@ -55,8 +55,13 @@ TPU kernels' runtime select, fused_vec.py:523-538).
 
 The scene enters as `fused_vec`'s packed rows (globals, sphere and rect
 rows padded to 16, rects numbered from the padded sphere count). Covered:
-spp 1, perspective, Phong, untextured objects, no environment map, no
-mirror levels; anything else raises on CUDA. On a CPU
+perspective, Phong, untextured objects, no environment map, no mirror
+levels; spp 1 and 4 in the render, spp 1 in the step, as in the JAX
+package (fused_vec_soft.py:365-380): at spp 4 the forward and the render
+backward are launched once per subsample at its offsets and the image is
+their average in torch (fused_vec_soft.py:1059-1092), so a spp-4 soft step
+is autograd of that render (`ops.render.loss_and_grad_fn`,
+`optim.anneal_stage_uses_step`). Anything else raises on CUDA. On a CPU
 tensor each wrapper runs its plain version; on a CUDA tensor it launches
 its kernel or raises.
 """
@@ -70,9 +75,9 @@ from types import SimpleNamespace
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...models.scene import tree_leaves, tree_unflatten
+from ...models.scene import tree_leaves, tree_map, tree_unflatten
 from .. import vecmath as vm
-from ..pipeline import BIG, SHADOW_EPS, RenderConfig, soft_checker_q
+from ..pipeline import BIG, SHADOW_EPS, SPP_OFFSETS, RenderConfig, soft_checker_q
 from ..pipeline_vec import (
     sphere_axis,
     rect_ts,
@@ -87,7 +92,11 @@ from ._build import Kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = fused_vec._GEOM  # n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows, clip
 
+# Entries with a subsample's (row, column) offset (``_at``, rows 7-8) after
+# the geometry; those without are at the pixel centre, for tools/ and for
+# checkouts from before spp 4.
 SOFT_RENDER = Kernel("fused_vec_soft_render", {
+    "rrt_soft_render_at": ([_P, _P, _P, *_GEOM, _F, _F, _F, _F, _P, _P], _I),
     "rrt_soft_render": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P], _I),
     "rrt_soft_render_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
@@ -97,6 +106,7 @@ SOFT_STEP = Kernel("fused_vec_soft_step", {
     "rrt_soft_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
+    "rrt_soft_render_bwd_at": ([_P, _P, _P, *_GEOM, _F, _F, _F, _F, _P, _P, _P, _P], _I),
     "rrt_soft_render_bwd": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P, _P], _I),
     "rrt_soft_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
@@ -112,11 +122,15 @@ def soft_kernel_ok(scene_like) -> bool:
                 or scene_like.env_mapped)
 
 
-def soft_uncovered(scene, cfg: RenderConfig):
-    """What the soft kernels do not cover (a reason), or None."""
-    if cfg.spp != 1:
-        return (f"spp={cfg.spp} (a spp-4 soft stage needs subsample offsets in the soft "
-                "forward and backward kernels)")
+def soft_uncovered(scene, cfg: RenderConfig, step: bool = False):
+    """What the soft kernels do not cover (a reason), or None: the render
+    (rows 7-8) or, with ``step``, the soft step (row 9)."""
+    if cfg.spp not in SPP_OFFSETS:
+        return f"spp={cfg.spp} (spp is 1 or 4)"
+    if step and cfg.spp != 1:
+        return (f"spp={cfg.spp} in the soft step, which is spp 1 as in the JAX package "
+                "(fused_vec_soft.py:365-380) and takes no subsample offsets: a spp-4 soft step "
+                "is autograd of the four-launch soft render (ops.render.loss_and_grad_fn)")
     if cfg.reflections:
         return "mirror reflections"
     if cfg.shader != "phong":
@@ -130,21 +144,22 @@ def soft_uncovered(scene, cfg: RenderConfig):
     return None
 
 
-def check_soft_kernel_config(scene, cfg: RenderConfig) -> None:
-    """Raise for a configuration the soft kernels do not take."""
+def check_soft_kernel_config(scene, cfg: RenderConfig, step: bool = False) -> None:
+    """Raise for a configuration the soft render kernels (or, with
+    ``step``, the soft step) do not take."""
     if not cfg.soft_tau > 0.0:
         if cfg.checker_tau > 0.0:
             raise NotImplementedError(
                 "the checker-only relaxation (soft_tau = 0, checker_tau > 0) has no soft kernel: "
                 "it renders through pipeline_vec.render_eager_vec, as in the JAX package")
         raise ValueError("the soft kernels need soft_tau > 0 (the hard path is fused_vec)")
-    why = soft_uncovered(scene, cfg)
+    why = soft_uncovered(scene, cfg, step)
     if why is not None:
         raise NotImplementedError(f"the soft CUDA kernels do not cover {why}")
 
 
-def _cuda_inputs(scene, cfg: RenderConfig):
-    check_soft_kernel_config(scene, cfg)
+def _cuda_inputs(scene, cfg: RenderConfig, step: bool = False):
+    check_soft_kernel_config(scene, cfg, step)
     return fused_vec.packed_inputs(scene)
 
 
@@ -174,36 +189,42 @@ def most_render_spheres(n_rect: int = 1, n_light: int = 1) -> int:
 
 
 def render_vec_soft(scene, cfg: RenderConfig):
-    """The soft (H, W, 3) image: the forward kernel on CUDA,
-    `render_vec_soft_plain` on the CPU. Differentiable on both: on CUDA
-    through the soft render backward kernel."""
+    """The soft (H, W, 3) image: the forward kernel on CUDA, once per
+    subsample (the image their average), `render_vec_soft_plain` on the
+    CPU. Differentiable on both: on CUDA through the soft render backward
+    kernel, once per subsample."""
     dev = scene.device
     if dev.type == "cpu":
         return render_vec_soft_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft render kernel for device {dev}")
-    return _SoftRender.apply(scene, cfg, *tree_leaves(scene))
+    rows = _cuda_inputs(scene, cfg)
+    cfg1 = dc.replace(cfg, spp=1)
+    leaves = tree_leaves(scene)
+    return fused.subsample_average([_SoftRender.apply(scene, cfg1, off, rows, *leaves)
+                                    for off in SPP_OFFSETS[cfg.spp]])
 
 
 class _SoftRender(torch.autograd.Function):
-    """The soft forward and soft render backward kernels as one
-    differentiable function of the scene's leaves (the ``custom_vjp`` of
-    fused_vec_soft.py:1008-1040): the forward saves the packed rows (tau
-    is in the saved configuration), the backward launches the backward
-    kernel once."""
+    """The soft forward and soft render backward kernels at one subsample
+    offset ``off`` as one differentiable function of the scene's leaves (the
+    ``custom_vjp`` of fused_vec_soft.py:1008-1040), given the scene's packed
+    ``rows`` (`fused_vec.packed_inputs`): the forward saves them (tau is in
+    the saved configuration), the backward launches the backward kernel
+    once."""
 
     @staticmethod
-    def forward(ctx, scene, cfg, *leaves):
-        glob, sph, rct = _cuda_inputs(scene, cfg)
+    def forward(ctx, scene, cfg, off, rows, *leaves):
+        glob, sph, rct = rows
         fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
         if any(ctx.needs_input_grad):
             fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
         img = torch.empty((cfg.height, cfg.width, 3), device=glob.device)
-        SOFT_RENDER.call("rrt_soft_render", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                         *fused_vec._geometry(scene, cfg), float(cfg.soft_tau),
+        SOFT_RENDER.call("rrt_soft_render_at", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
+                         *fused_vec._geometry(scene, cfg), *off, float(cfg.soft_tau),
                          float(cfg.checker_tau), img.data_ptr(), fused._stream(glob.device))
         SOFT_RENDER.launches += 1
-        ctx.scene, ctx.cfg = scene, cfg
+        ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
         ctx.save_for_backward(glob, sph, rct)
         ctx.set_materialize_grads(False)
         return img
@@ -212,10 +233,10 @@ class _SoftRender(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_img):
         if g_img is None:
-            return (None, None, *(None for _ in tree_leaves(ctx.scene)))
+            return (None, None, None, None, *(None for _ in tree_leaves(ctx.scene)))
         glob, sph, rct = ctx.saved_tensors
-        grads = _render_bwd_launch(ctx.scene, ctx.cfg, glob, sph, rct, g_img)
-        return (None, None, *tree_leaves(grads))
+        grads = _render_bwd_launch(ctx.scene, ctx.cfg, ctx.off, glob, sph, rct, g_img)
+        return (None, None, None, None, *tree_leaves(grads))
 
 
 # ---------------------------------------------------------------------------
@@ -223,17 +244,19 @@ class _SoftRender(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _render_bwd_launch(scene_like, cfg, glob, sph, rct, g_img):
-    """The scene's gradient (a Scene) from one soft backward-kernel call."""
+def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img):
+    """The scene's gradient (a Scene) from one soft backward-kernel call at
+    the subsample offset ``off``."""
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = fused_vec._geometry(scene_like, cfg)
     scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_scratch_floats", geom[2:7],
                              dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    SOFT_RENDER_BWD.call("rrt_soft_render_bwd", glob.data_ptr(), sph.data_ptr(),
-                         rct.data_ptr(), *geom, float(cfg.soft_tau), float(cfg.checker_tau),
-                         g_img.data_ptr(), scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+    SOFT_RENDER_BWD.call("rrt_soft_render_bwd_at", glob.data_ptr(), sph.data_ptr(),
+                         rct.data_ptr(), *geom, *off, float(cfg.soft_tau),
+                         float(cfg.checker_tau), g_img.data_ptr(), scratch.data_ptr(),
+                         out.data_ptr(), fused._stream(dev))
     SOFT_RENDER_BWD.launches += 1
     return fused_vec._unpack_out(scene_like, out, glob, sph, rct)
 
@@ -259,7 +282,7 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
         return loss_grad_vec_soft_plain(scene, cfg, target, loss)
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft step kernel for device {dev}")
-    glob, sph, rct = _cuda_inputs(scene, cfg)
+    glob, sph, rct = _cuda_inputs(scene, cfg, step=True)
     fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
     target = target.contiguous()
     geom = fused_vec._geometry(scene, cfg)
@@ -285,8 +308,8 @@ def loss_grad_vec_soft_adjoint_eager(scene, cfg: RenderConfig, target, loss: str
     factor is the exclusive product of the others, from prefix and suffix
     products, never a division), of the light geometry and of the layer's
     winner, and the camera chain once. Same contract as
-    `loss_grad_vec_soft`."""
-    check_soft_kernel_config(scene, cfg)
+    `loss_grad_vec_soft`, and spp 1 as the kernel."""
+    check_soft_kernel_config(scene, cfg, step=True)
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
     with torch.no_grad():
@@ -297,11 +320,19 @@ def loss_grad_vec_soft_adjoint_eager(scene, cfg: RenderConfig, target, loss: str
 def render_vec_soft_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img):
     """The soft render backward kernel's algorithm in eager torch: the soft
     step's adjoint (`_soft_adjoint`) with the image cotangent ``g_img`` in
-    place of the residual: the scene's gradient (a Scene)."""
+    place of the residual: the scene's gradient (a Scene). At spp 4 the sum
+    of the four subsamples' adjoints, each with a quarter of ``g_img``, as
+    the four backward launches take it through the average."""
     check_soft_kernel_config(scene, cfg)
     fused._check_target(g_img, cfg, scene, "cotangent")
+    offsets = SPP_OFFSETS[cfg.spp]
+    g = g_img if len(offsets) == 1 else g_img * (1.0 / len(offsets))
+    grads = None
     with torch.no_grad():
-        return _soft_adjoint(scene, cfg, fused.image_cotangent(g_img))[1]
+        for off in offsets:
+            gq = _soft_adjoint(scene, cfg, fused.image_cotangent(g), off)[1]
+            grads = gq if grads is None else tree_map(torch.add, grads, gq)
+    return grads
 
 
 def shadow_kept(c, r, so, ld, dist, tau):
@@ -409,16 +440,17 @@ def _layer(scene, cfg, ray, k, tau, zero, warp_cull=False):
     return y
 
 
-def _soft_forward(scene, cfg, cull=False):
-    """The soft kernels' forward in eager torch, with what the adjoint
-    needs: the primary rays, the two layers (`_layer`), the background, the
-    composite behind layer 1 and in front, and the image. With ``cull``, as
-    the soft forward kernel walks: the ranking over each warp's primary
-    candidates of the widened cone (`cull.primary_candidates` at tau), and
-    each shadow product over the warp's candidates as well."""
+def _soft_forward(scene, cfg, cull=False, off=(0.0, 0.0)):
+    """The soft kernels' forward in eager torch at the subsample offset
+    ``off``, with what the adjoint needs: the primary rays, the two layers
+    (`_layer`), the background, the composite behind layer 1 and in front,
+    and the image. With ``cull``, as the soft forward kernel walks: the
+    ranking over each warp's primary candidates of the widened cone
+    (`cull.primary_candidates` at tau), and each shadow product over the
+    warp's candidates as well."""
     tau = cfg.soft_tau
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
-    ray = fused.primary_ray_terms(scene, cfg)
+    ray = fused.primary_ray_terms(scene, cfg, off)
     keep = None
     if cull and scene.spheres.count:
         keep = per_pixel(primary_candidates(scene.spheres, scene.camera.eye, ray.d, tau),
@@ -433,26 +465,29 @@ def _soft_forward(scene, cfg, cull=False):
 
 
 def render_vec_soft_culled(scene, cfg: RenderConfig):
-    """The soft forward kernel's algorithm in eager torch: the two layers
-    ranked over each warp's primary candidates, each shadow product over
-    the warp's candidates by the per-pixel rule, the composite. The (H, W,
-    3) image."""
+    """The soft forward kernel's algorithm in eager torch, once per
+    subsample: the two layers ranked over each warp's primary candidates,
+    each shadow product over the warp's candidates by the per-pixel rule,
+    the composite. The (H, W, 3) image (the subsamples' average)."""
     check_soft_kernel_config(scene, cfg)
     with torch.no_grad():
-        return torch.stack(_soft_forward(scene, cfg, cull=True).img, dim=-1)
+        return fused.subsample_average([
+            torch.stack(_soft_forward(scene, cfg, cull=True, off=off).img, dim=-1)
+            for off in SPP_OFFSETS[cfg.spp]])
 
 
-def _soft_adjoint(scene, cfg, cotangent):
-    """The per-pixel soft adjoint of the step and of the render backward:
-    ``(sum of squared residuals, grads as a Scene)``; ``cotangent(img)``
-    gives the clipped image's cotangent per channel and the squared error
-    (`fused.residual_cotangent`, `fused.image_cotangent`)."""
+def _soft_adjoint(scene, cfg, cotangent, off=(0.0, 0.0)):
+    """The per-pixel soft adjoint of the step and of the render backward at
+    the subsample offset ``off``: ``(sum of squared residuals, grads as a
+    Scene)``; ``cotangent(img)`` gives the clipped image's cotangent per
+    channel and the squared error (`fused.residual_cotangent`,
+    `fused.image_cotangent`)."""
     tau = cfg.soft_tau
     sp, rc, lt = scene.spheres, scene.rects, scene.lights
     N, M, L = sp.count, rc.count, lt.count
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     zero = torch.zeros((cfg.height, cfg.width), **like)
-    fw = _soft_forward(scene, cfg)
+    fw = _soft_forward(scene, cfg, off=off)
     ray, y1, y2, bg, behind, comp = fw.ray, fw.y1, fw.y2, fw.bg, fw.behind, fw.comp
     o, d = ray.o, ray.d
 

@@ -113,13 +113,14 @@ def camera_rays(cam, ii, jj, H: int, W: int, projection: str = "perspective"):
     return vm.splat(cam.eye), d
 
 
-def primary_rays(scene, cfg: "RenderConfig"):
-    """Pixel-center rays (origin, direction) of the whole image, each
-    component an (H, W) tensor."""
+def primary_rays(scene, cfg: "RenderConfig", off=(0.0, 0.0)):
+    """The rays (origin, direction) of the whole image at the subsample
+    offset ``off`` (rows, columns; `SPP_OFFSETS`) from the pixel centres,
+    each component an (H, W) tensor."""
     H, W = cfg.height, cfg.width
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
-    ii = torch.arange(H, **like)[:, None].expand(H, W)
-    jj = torch.arange(W, **like)[None, :].expand(H, W)
+    ii = torch.arange(H, **like)[:, None].expand(H, W) + off[0]
+    jj = torch.arange(W, **like)[None, :].expand(H, W) + off[1]
     o, d = camera_rays(scene.camera, ii, jj, H, W, cfg.projection)
     return vm.vbroadcast(o, (H, W)), vm.vbroadcast(d, (H, W))
 

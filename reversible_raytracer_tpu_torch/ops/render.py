@@ -14,7 +14,10 @@ kernels (`kernels.fused_vec_soft`) on CUDA and the soft branch of
 checker (``checker_tau > 0``) or without. The checker-only relaxation
 (``soft_tau == 0``, ``checker_tau > 0``) has no kernel here, as it has none
 in the JAX package (whose TPU dispatch sends it to `render_jnp_vec`): it
-runs `render_eager_vec` on either device.
+runs `render_eager_vec` on either device. Every kernel family renders spp
+1 and 4; the training step of a spp-4 soft render has no kernel, as in the
+JAX package (whose `loss_and_grad_fn` sends it to ``"vag"``), and is
+autograd of `render` (`loss_and_grad_fn`).
 """
 
 from __future__ import annotations
@@ -87,14 +90,19 @@ def render(scene, cfg: RenderConfig):
 
 def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
     """``f(scene, target) -> (loss, grads)``: one fused step kernel call per
-    call on CUDA, torch autograd over the eager renderer on the CPU (and on
-    either device for the checker-only relaxation, `resolve_impl`). A soft
-    step (``soft_tau > 0``) at spp 4 raises on CUDA (the soft kernels take
-    no subsample offsets yet)."""
+    call on CUDA (rows 1, 6 and 9; rows 1 and 6 at spp 1 and 4), torch
+    autograd over the eager renderer on the CPU (and on either device for
+    the checker-only relaxation, `resolve_impl`). A soft step (``soft_tau >
+    0``) at spp 4 is torch autograd of `render` on either device: on CUDA
+    four launches of the soft forward and four of its render backward
+    (rows 7 and 8), as the JAX package's value_and_grad over its four-launch
+    render (optim.py:822-839)."""
     impl = resolve_step_impl(scene_like, cfg, loss)
     if cfg.soft_tau == 0.0 and cfg.checker_tau > 0.0:
         return lambda scene, target: fused.autograd_loss_grad(render_eager_vec, scene, cfg,
                                                               target, loss)
+    if cfg.soft_tau > 0.0 and cfg.spp != 1:
+        return lambda scene, target: fused.autograd_loss_grad(render, scene, cfg, target, loss)
     if cfg.soft_tau > 0.0:
         step = fused_vec_soft.loss_grad_vec_soft
     else:

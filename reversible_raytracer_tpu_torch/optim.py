@@ -461,6 +461,19 @@ def param_error(scene: Scene, truth: Scene, spec: ParamSpec):
     return torch.sqrt(sq / max(count, 1))
 
 
+def anneal_stage_uses_step(impl_name: str, spp: int) -> bool:
+    """Whether an `optimize_annealed` stage runs a fused training-step kernel
+    (the JAX package's `anneal_stage_uses_step`, optim.py:822-839, over the
+    port's `ops.render.resolve_impl` names) rather than autograd of the
+    stage's `render`. The hard steps (rows 1 and 6) take spp 1 and 4 in the
+    kernel: the residual is of the clipped subsamples' average. The soft
+    step (row 9) is spp 1, so a spp-4 soft stage is autograd through four
+    launches of the soft forward and of its render backward (rows 7 and 8).
+    The eager twins have no step kernel."""
+    return (impl_name in ("cuda", "cuda_vec") and spp in (1, 4)) or (
+        impl_name == "cuda_vec_soft" and spp == 1)
+
+
 def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
                       ocfg: OptConfig, taus=(0.08, 0.03, 0.01, 0.0),
                       target_scene: Scene | None = None, soft_size: int | None = None,
@@ -471,7 +484,9 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
     ``soft_tau = tau``, each stage warm-started from the last and run by
     `optimize_scan` in chunks of at most ``max_chunk`` steps, through
     `ops.render`'s dispatch (on CUDA the soft step kernel for tau > 0 and
-    the hard one for tau = 0). With ``target_scene`` each soft stage's
+    the hard one for tau = 0; autograd of `ops.render.render` where
+    `anneal_stage_uses_step` says no step kernel serves the stage, as for a
+    soft stage at spp 4). With ``target_scene`` each soft stage's
     target is the truth rendered at that stage's tau (and at ``soft_size``,
     if given); the tau = 0 stage runs against ``target``, with
     ``hard_ocfg`` ("auto": SGD at lr 0.3 without momentum; None: ``ocfg``).
@@ -483,7 +498,7 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
     (final_scene, losses[len(taus) * iters]) on the scene's device."""
     import dataclasses
 
-    from .ops.render import render
+    from .ops.render import render, resolve_impl
 
     if soft_size is not None and target_scene is None:
         raise ValueError("soft_size requires target_scene (stage targets are re-rendered)")
@@ -502,9 +517,12 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
             tgt = render(target_scene, cfg_t).detach()
         stage_ocfg = hard_ocfg if (tau == 0.0 and hard_ocfg is not None) else ocfg
         done = sum(int(l.shape[0]) for l in all_losses)
+        use_step = anneal_stage_uses_step(resolve_impl(scene, cfg_t), cfg_t.spp)
         scene, losses = optimize_scan(
             scene, tgt, spec, cfg_t, stage_ocfg, max_chunk=max_chunk,
-            cache_key=("annealed-step", float(tau), cfg_t.checker_tau, soft_size),
+            render_fn=None if use_step else (lambda s, c=cfg_t: render(s, c)),
+            cache_key=("annealed-step" if use_step else "annealed-render", float(tau),
+                       cfg_t.checker_tau, soft_size),
             chunk_callback=(None if chunk_callback is None
                             else (lambda s, it, base=done: chunk_callback(s, base + it))))
         all_losses.append(losses)

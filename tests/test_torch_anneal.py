@@ -108,8 +108,11 @@ def test_anneal_stage_decisions():
         for cfg in (soft, hard):
             with pytest.raises(NotImplementedError):
                 resolve_impl(bad, cfg)
-    with pytest.raises(NotImplementedError, match="subsample offsets"):
-        resolve_impl(card(), dataclasses.replace(soft, spp=4))
+    # spp 4 renders on the soft kernels (a spp-4 soft step is autograd of
+    # that render, optim.anneal_stage_uses_step); any other spp is refused
+    assert resolve_impl(card(), dataclasses.replace(soft, spp=4)) == "cuda_vec_soft"
+    with pytest.raises(NotImplementedError, match="spp=2"):
+        resolve_impl(card(), dataclasses.replace(soft, spp=2))
     with pytest.raises(NotImplementedError):
         resolve_impl(card(device="meta"), soft)
 

@@ -113,8 +113,8 @@ def test_step_kernel_is_deterministic(cuda):
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_cover(cuda):
     scene, _, cfg = configs.config2_four_spheres(size=32, device=cuda)
-    with pytest.raises(NotImplementedError):
-        fused.render_fused(scene, RenderConfig(height=32, width=32, spp=4))
+    with pytest.raises(NotImplementedError, match="spp=2"):
+        fused.render_fused(scene, RenderConfig(height=32, width=32, spp=2))
     with pytest.raises(ValueError):
         fused.loss_grad_fused(scene, cfg, torch.zeros((32, 32, 3), device=cuda, dtype=torch.float64))
 
@@ -293,15 +293,16 @@ def test_soft_step_kernel_matches_adjoint(cuda, loss, shadows):
 
 @pytest.mark.cuda
 def test_soft_kernels_refuse(cuda):
-    """spp 4 names what the soft kernels lack (subsample offsets), in the
-    step and in a render that would need the backward."""
+    """The soft step (row 9) refuses spp 4 by name, as the JAX package's
+    does; the render (rows 7-8) refuses spp 2, in a render that would need
+    the backward."""
     scene, _, _ = configs.config5_many_spheres(size=32, device=cuda)
     spp4 = RenderConfig(height=32, width=32, spp=4, soft_tau=0.05)
-    with pytest.raises(NotImplementedError, match="subsample offsets"):
+    with pytest.raises(NotImplementedError, match="spp=4 in the soft step"):
         fused_vec_soft.loss_grad_vec_soft(scene, spp4, torch.zeros((32, 32, 3), device=cuda))
     leaves = [l.clone().requires_grad_(True) for l in tree_leaves(scene)]
-    with pytest.raises(NotImplementedError, match="subsample offsets"):
-        render(tree_unflatten(scene, leaves), spp4)
+    with pytest.raises(NotImplementedError, match="spp=2"):
+        render(tree_unflatten(scene, leaves), dataclasses.replace(spp4, spp=2))
 
 
 # ---------------------------------------------------------------------------
@@ -1041,3 +1042,133 @@ def test_config4_anneal_recovers_the_camera(cuda):
                         "fused_step": 100}
     assert torch.isfinite(losses).all()
     assert rms(final) < 0.02 * rms(start)
+
+
+# ---------------------------------------------------------------------------
+# spp 4 (2x2 supersampling): rows 1, 2, 3 and 6 loop over the subsamples in
+# the kernel, rows 4, 5, 7 and 8 make one launch a subsample
+# ---------------------------------------------------------------------------
+
+# (family, config number, soft_tau, launches a call of the forward and of
+# the render backward)
+SPP4_CASES = [("fused", 2, 0.0, 1), ("vec", 5, 0.0, 4), ("soft", 5, 0.08, 4)]
+SPP4_SIZE = 32
+
+
+def _spp4_case(cuda, num, tau):
+    scene, spec, _ = configs.CONFIGS[num](size=SPP4_SIZE, device=cuda)
+    cfg = RenderConfig(height=SPP4_SIZE, width=SPP4_SIZE, shadows=True, soft_tau=tau, spp=4)
+    return scene, configs.perturb(scene, spec, scale=0.05, seed=4), cfg
+
+
+def _forward(family):
+    """(kernel, wrapper giving (image, planes), plain version) of a family's
+    forward."""
+    return {"fused": (fused.FUSED_RENDER, fused.render_fused, fused.render_fused_plain),
+            "vec": (fused_vec.VEC_RENDER, fused_vec.render_vec, fused_vec.render_vec_plain),
+            "soft": (fused_vec_soft.SOFT_RENDER,
+                     lambda s, c: (fused_vec_soft.render_vec_soft(s, c), None),
+                     lambda s, c: (fused_vec_soft.render_vec_soft_plain(s, c), None))}[family]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family, num, tau, per_call", SPP4_CASES)
+def test_spp4_forward_matches_plain(cuda, family, num, tau, per_call):
+    """Rows 2, 4 and 7 at spp 4: rows 2 and 4 bit for bit their plain
+    versions (the image; each subsample's planes on the pixels its ray hit,
+    and 0 where it hit nothing), row 7 within 1e-6; one launch a call for
+    row 2, four for rows 4 and 7; two calls bit-identical."""
+    scene, _, cfg = _spp4_case(cuda, num, tau)
+    kernel, call, plain = _forward(family)
+    before = kernel.launches
+    img_k, vis_k = call(scene, cfg)
+    assert kernel.launches == before + per_call
+    again = call(scene, cfg)
+    assert torch.equal(img_k, again[0])
+    img_p, vis_p = plain(scene, cfg)
+    if family == "soft":
+        assert float((img_k - img_p).abs().max()) <= 1e-6
+        return
+    assert torch.equal(img_k, img_p) and torch.equal(vis_k, again[1])
+    L = scene.lights.count
+    assert vis_k.shape == vis_p.shape == (4 * L, cfg.height, cfg.width)
+    for q, off in enumerate(pipeline.SPP_OFFSETS[4]):
+        o, d = pipeline.primary_rays(scene, cfg, off)
+        hit = nearest_vec(scene, o, d)[1] >= 0
+        planes_k, planes_p = vis_k[q * L:(q + 1) * L], vis_p[q * L:(q + 1) * L]
+        assert torch.equal(planes_k[:, hit], planes_p[:, hit])
+        assert not planes_k[:, ~hit].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family, num", [("fused", 2), ("vec", 5)])
+def test_spp4_step_matches_adjoint(cuda, family, num):
+    """Rows 1 and 6 at spp 4 (the residual of the subsamples' average):
+    loss within 1e-4 relative and every leaf within 1e-2 of its scale
+    against autograd and against the eager twin; one launch a call; two
+    calls bit-identical; against the forward kernel's own spp-4 image of the
+    same scene a loss of exactly 0 and every gradient exactly 0."""
+    scene, start, cfg = _spp4_case(cuda, num, 0.0)
+    kernel, step, twin, plain, forward = {
+        "fused": (fused.FUSED_STEP, fused.loss_grad_fused, fused.loss_grad_adjoint_eager,
+                  fused.loss_grad_fused_plain, fused.render_fused),
+        "vec": (fused_vec.VEC_STEP, fused_vec.loss_grad_vec,
+                fused_vec.loss_grad_vec_adjoint_eager, fused_vec.loss_grad_vec_plain,
+                fused_vec.render_vec)}[family]
+    target = forward(scene, cfg)[0].detach()
+    before = kernel.launches
+    l_k, g_k = step(start, cfg, target)
+    assert kernel.launches == before + 1
+    l_2, g_2 = step(start, cfg, target)
+    assert torch.equal(torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
+                       torch.cat([l_2.reshape(1), fused.flatten_scene(g_2)]))
+    for ref in (twin, plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    l_0, g_0 = step(scene, cfg, target)
+    assert float(l_0) == 0.0
+    assert not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family, num, tau, per_call", SPP4_CASES)
+def test_spp4_render_bwd_matches_plain(cuda, family, num, tau, per_call):
+    """Rows 3, 5 and 8 at spp 4, reached by autograd of `render`: against
+    autograd of the eager render and against the eager twin, every leaf
+    within 1e-2 of its scale; one launch a call for row 3, four for rows 5
+    and 8; two calls bit-identical."""
+    _, start, cfg = _spp4_case(cuda, num, tau)
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    kernel = _bwd_kernel(family)
+    before = kernel.launches
+    got, ref = _bwd_call(family, start, cfg, g)
+    assert kernel.launches == before + per_call
+    _close_leaves(ref, got)
+    if family == "fused":
+        twin = fused.render_bwd_adjoint_eager(start, cfg, g, fused.render_fused(start, cfg)[1])
+    elif family == "vec":
+        twin = fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g,
+                                                      fused_vec.render_vec(start, cfg)[1])
+    else:
+        twin = fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g)
+    _close_leaves(twin, got)
+    again = _bwd_call(family, start, cfg, g)[0]
+    assert torch.equal(fused.flatten_scene(got), fused.flatten_scene(again))
+
+
+@pytest.mark.cuda
+def test_spp4_soft_step_is_autograd_of_the_render(cuda):
+    """A spp-4 soft training step (`loss_and_grad_fn`) never launches row 9:
+    four launches of row 7 and four of row 8 a call, its gradient the
+    autograd of the plain render's within 1e-2 of each leaf's scale."""
+    scene, start, cfg = _spp4_case(cuda, 5, 0.08)
+    target = render(scene, cfg).detach()
+    before = [k.launches for k in fused_vec_soft.KERNELS]
+    l_k, g_k = loss_and_grad_fn(start, cfg)(start, target)
+    assert [k.launches - b for k, b in zip(fused_vec_soft.KERNELS, before)] == [4, 0, 4]
+    l_p, g_p = fused_vec_soft.loss_grad_vec_soft_plain(start, cfg, target)
+    assert abs(float(l_k) - float(l_p)) <= 1e-4 * float(l_p)
+    _close_leaves(g_p, g_k)
+

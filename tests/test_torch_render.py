@@ -97,12 +97,15 @@ def test_cpu_dispatch_is_eager():
 
 
 @pytest.mark.parametrize("kw, why", [
-    (dict(spp=4), "spp"), (dict(reflections=1), "reflections"),
+    (dict(spp=2), "spp"), (dict(reflections=1), "reflections"),
     (dict(shader="depth"), "depth"), (dict(projection="orthographic"), "orthographic"),
     (dict(soft_tau=0.1), "soft_tau"),
 ])
 def test_kernels_refuse_uncovered_configs(kw, why):
+    """spp 4 is covered since the kernels take the 2x2 loop; any other spp
+    is refused by name."""
     ts, _, cfg = configs.config2_four_spheres(16, device="cpu")
+    fused.check_kernel_config(ts, dataclasses.replace(cfg, spp=4))
     with pytest.raises(NotImplementedError, match=why):
         fused.check_kernel_config(ts, dataclasses.replace(cfg, **kw))
 

@@ -204,9 +204,13 @@ def test_soft_dispatch_on_cpu():
     (dict(soft_tau=0.0), ValueError, "soft_tau > 0"),
 ])
 def test_soft_kernels_refuse_uncovered_configs(kw, exc, why):
+    """What the soft step (row 9) refuses: spp 4 too, as the JAX package's
+    soft step does (the render, rows 7-8, takes spp 4 in four launches)."""
     ts, _, _ = configs.config5_many_spheres(16, n_spheres=9, device="cpu")
     cfg = dataclasses.replace(RenderConfig(height=16, width=16, soft_tau=0.05), **kw)
     with pytest.raises(exc, match=why):
+        fused_vec_soft.check_soft_kernel_config(ts, cfg, step=True)
+    if cfg.spp == 4:
         fused_vec_soft.check_soft_kernel_config(ts, cfg)
     env = dataclasses.replace(ts, env=torch.ones((4, 4, 3)))
     assert not fused_vec_soft.soft_kernel_ok(env)

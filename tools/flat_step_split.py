@@ -150,8 +150,16 @@ FWD_RENDER_PIXEL = {
 # the primary ray missed, the launch bound of FWD_MIN_BLOCKS blocks an SM.
 # Besides its cuts, the bounds it was chosen among, each a build of its own.
 FWD_TRACE = "  const Nearest h = trace(sc, cam.eye, d);\n"
-FWD_LIT = """        [&](int, V3 so, const LightGeo& g) {
-          return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows"""
+FWD_LIT = """          [&](int, V3 so, const LightGeo& g) {
+            return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows"""
+FWD_STORES = """  img[3 * px + 0] = acc.x;
+  img[3 * px + 1] = acc.y;
+  img[3 * px + 2] = acc.z;
+"""
+FWD_PLANES = """    if (p.shadows)
+      for (int l = 0; l < ly.L; ++l)
+        vis[(q * ly.L + l) * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
+"""
 FWD_REDESIGN = {
     "full": [],
     "primary_winner": [
@@ -159,10 +167,13 @@ FWD_REDESIGN = {
         ("fused_render.cu", FWD_TRACE,
          "  const Nearest h = split_nearest(sc, cam.eye, d, (long long)i * p.W + j);\n")],
     "floor": [("fused_render.cu", FWD_TRACE, "  const Nearest h = {BIG, -1};\n")],
-    "shadow_plane": [("fused_render.cu", FWD_LIT, """        [&](int l, V3, const LightGeo&) {
-          return !p.shadows || split_vis[((long long)l * p.H + i) * p.W + j] != 0.0f;""")],
+    "shadow_plane": [("fused_render.cu", FWD_LIT, """          [&](int l, V3, const LightGeo&) {
+            return !p.shadows || split_vis[((long long)l * p.H + i) * p.W + j] != 0.0f;""")],
     "no_phong": FWD_PARENT["no_phong"],
-    "no_writes": FWD_RENDER_PIXEL["no_writes"],
+    "no_writes": [("fused_render.cu", FWD_PLANES,
+                   "    if (col.x + col.y + col.z == -7.0f + (float)bits) vis[px] = 0.0f;\n"),
+                  ("fused_render.cu", FWD_STORES,
+                   "  if (acc.x + acc.y + acc.z == -7.0f) img[px] = 0.0f;\n")],
     **{f"min_blocks_{n}": [("fused_render.cu", "constexpr int FWD_MIN_BLOCKS = 4;",
                             f"constexpr int FWD_MIN_BLOCKS = {n};")] for n in (1, 5, 6)},
 }

@@ -47,7 +47,8 @@ def build(_build, csrc: Path, out: Path):
 
 
 def load(procs, out: Path, csrc: Path, kernels):
-    """The built libraries, their entries typed by this tree's signatures,
+    """The built libraries, their entries typed by this tree's signatures
+    (those the library has: an older tree's lacks the subsample entries),
     less the checker_tau float where ``csrc``'s entries take none."""
     libs = {}
     has_ctau = "float ctau" in (csrc / "fused_vec_soft_render.cu").read_text()
@@ -57,6 +58,8 @@ def load(procs, out: Path, csrc: Path, kernels):
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         for fn, (argtypes, restype) in kernels[name].signatures.items():
+            if not hasattr(lib, fn):
+                continue
             if not has_ctau and fn in ("rrt_soft_render", "rrt_soft_step", "rrt_soft_render_bwd"):
                 argtypes = argtypes[:13] + argtypes[14:]  # drop checker_tau after tau
             getattr(lib, fn).argtypes = argtypes

@@ -149,21 +149,21 @@ LIT_CULLED_PLANE = """  template <class Occ>
   __device__ __forceinline__ bool lit(const Params& p, int i, int j, int l, Occ) const {
     return !p.shadows || split_vis[((long long)l * p.H + i) * p.W + j] != 0.0f;
   }"""
-LIST_ADDS = """    for (int v = 0; v < NWARPS; ++v) {
-      if (v == warp && ke >= 0) {"""
-LIST_KEPT = """    if (ke == -7) {  // never: keeps the lists' sums without the adds
-      float z = 0.0f;
-      for (int f = 0; f < RECT_FIELDS; ++f) z += acc[f];
-      orow[0] = z;
-    }
-    for (int v = 0; v < 0; ++v) {
-      if (v == warp && ke >= 0) {"""
+LIST_ADDS = """          for (int v = 0; v < NWARPS; ++v) {
+            if (v == warp && ke >= 0) {"""
+LIST_KEPT = """          if (ke == -7) {  // never: keeps the lists' sums without the adds
+            float z = 0.0f;
+            for (int f = 0; f < RECT_FIELDS; ++f) z += acc[f];
+            orow[0] = z;
+          }
+          for (int v = 0; v < 0; ++v) {
+            if (v == warp && ke >= 0) {"""
 CUTS_CULLED = {
     "full": [],
-    "primary_winner": [("render_common.cuh", "const Nearest h = walk.trace(sc, o, d, inside);",
-                        WINNER_ONLY)],
+    "primary_winner": [("render_common.cuh", "  f.h = walk.trace(sc, o, d, inside);",
+                        "  " + WINNER_ONLY + "\n  f.h = h;")],
     "shadow_lit": [("render_common.cuh",
-                    "  walk.shadows(sc, p, src, shadow_origin(o, d, h.t, s.n), hit);\n", ""),
+                    "  walk.shadows(sc, p, src, shadow_origin(o, d, f.h.t, f.s.n), hit);\n", ""),
                    ("render_common.cuh", LIT_CULLED, LIT_CULLED_PLANE)],
     "no_adjoint": [("render_common.cuh", CLIP_GRAD, CLIP_GRAD + CUT_ADJOINT)],
     "no_block_row": [
