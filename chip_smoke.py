@@ -180,6 +180,33 @@ non-zero:
                60 by autograd of the four-launch soft render in each soft
                step's CUDA graph, row 9 never, row 6 20, row 4 8); every
                stage's loss falls; the host ms a step.
+ 24. mirror  - one mirror bounce (reflections 1) in rows 1-3 at config 6
+               (a chrome sphere, a diffuse one, a reflective checkered floor),
+               512^2, from perturb(scale=0.3, seed=3) of its mirror
+               coefficients: row 2 bit for bit `render_fused_plain` (the
+               image; 2 L planes, level 0's on the pixels the primary ray hit
+               and level 1's where both levels hit, 0 elsewhere); row 1 given
+               row 2's image of the true scene a loss and gradient of exactly
+               0, and from the true scene (the diffuse sphere's coefficient 0)
+               against row 2's image of perturb seed 1 (0.246 there) that
+               coefficient's gradient not 0 and within 1e-2 of autograd's;
+               row 1 against autograd and its eager twin, row 3 (by
+               autograd of `render`) against autograd of the plain render and
+               its twin for a unit normal cotangent (every leaf within 1e-2 of
+               its scale, the largest difference printed); row 3's mse
+               gradient row 1's bit for bit; one wrapper launch a call; two
+               calls bit-identical. Each row's event time, device time and
+               launches per call on its C entries, its plain version's time
+               and its bound (`bounce_counts`: the reflected rays' walks,
+               shading, shadow rays and adjoint counted in `OPS`).
+ 25. mirror_main - the CLI on config 6: `render --config 6` (row 2 once);
+               invert --config 6 --perturb 0.3 --lr 2e-2 --iters 150 --seed 3
+               at 512^2 and at 48^2 (row 1 150 times, row 2 twice; the mirror
+               coefficients' RMS error from its start, about 0.19, below
+               1e-3); 20 steps of optimize(render_fn=render) at 512^2 (row 2
+               21 times, row 3 20); `render --config 5 --reflections 1` and
+               `invert --config 6 --anneal 0.05,0` each raising by name, no
+               kernel launched but the target's row 2.
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
@@ -190,7 +217,8 @@ soft-checker instances' numbers from phases 20 and 21; rows 1-8 add
 `spp4`, their numbers at spp 4 from phases 22 and 23: `ms`, `device_ms`,
 `launches_per_call` of the profiler and `wrapper_launches_per_call` of the
 counters, `max_abs_err`, `plain_ms`, `bound_ms`, and `launches` on the spp-4
-CLI path), and last {"ok": true, "device": {...}}.
+CLI path); rows 1-3 add `mirror`, their numbers with a bounce level from
+phases 24 and 25), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -511,6 +539,12 @@ OPS = dict(
     adj_sphere=53, adj_rect=61,  # the winning object's adjoint
     sum_pixel=1, sum_miss=3, sum_hit=16,  # adds into the sums: sq; bg; ambient, eye, camera 10
     sum_sphere=14, sum_rect=19, sum_light=6,  # object fields; light position and color
+    # A mirror bounce (a reflected ray's object tests cost a shadow ray's: its
+    # origin is per pixel): the reflected direction d - 2 (d . n) n, the blend
+    # col + m (col1 - col0), their adjoints (the mirror coefficient's (col1 -
+    # col0) . gc, the cotangents m gc and (1 - m) gc; d and n from d1), and the
+    # mirror field's add into the sums
+    reflect=12, blend=9, adj_blend=15, adj_reflect=21, sum_mirror=1,
 )
 
 
@@ -2351,6 +2385,346 @@ def phase_spp4_main():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# One mirror bounce in rows 1-3 (config 6)
+# ---------------------------------------------------------------------------
+
+MIRROR_SIZE = 512
+
+
+def bounce_counts(scene, cfg):
+    """Level 0's `work_counts` and level 1's work (``l1_*``): the reflected
+    rays (one per pixel whose primary ray hit), their winners by type, lit
+    (pixel, light) pairs and the shadow-ray sphere and rect tests of the
+    any-hit walks (stopping at the first occluder) from level 1's hits."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+
+    c = work_counts(scene, dataclasses.replace(cfg, reflections=0))
+    H, W = cfg.height, cfg.width
+    sp, rc = scene.spheres, scene.rects
+    o, d = pl.primary_rays(scene, cfg)
+    t, hit0, at = pl.trace_nearest(scene, o, d, cfg.shape)
+    n = (at["nx"], at["ny"], at["nz"])
+    o1, d1 = pl.shadow_origin(o, d, t, n), pl.reflect_dir(d, n)
+    tests = [(1, lambda oo, dd, k=k: pl.intersect_sphere(oo, dd, sp.center[k], sp.radius[k]))
+             for k in range(sp.count)]
+    tests += [(2, lambda oo, dd, k=k: pl.intersect_rect(oo, dd, rc.origin[k], rc.edge_u[k],
+                                                        rc.edge_v[k])[0])
+              for k in range(rc.count)]
+    t_best = torch.full((H, W), pl.BIG, device=scene.device)
+    kind = torch.zeros((H, W), dtype=torch.int32, device=scene.device)
+    for kk, test in tests:
+        t1 = test(o1, d1)
+        closer = t1 < t_best
+        t_best = torch.where(closer, t1, t_best)
+        kind = torch.where(closer, kk, kind)
+    kind = torch.where(hit0, kind, 0)
+    hit1 = kind > 0
+    _, _, at1 = pl.trace_nearest(scene, o1, d1, cfg.shape)
+    so1 = pl.shadow_origin(o1, d1, t_best, (at1["nx"], at1["ny"], at1["nz"]))
+    lit, shadow = 0, {1: 0, 2: 0}
+    for li in range(scene.lights.count):
+        ldir, dist = pl.light_geometry(scene.lights, li, so1)
+        done = torch.zeros((H, W), dtype=torch.bool, device=scene.device)
+        for kk, test in tests:
+            if cfg.shadows:
+                shadow[kk] += int((hit1 & ~done).sum())
+            done = done | (test(so1, ldir) < dist)
+        lit += int((hit1 & ~done).sum()) if cfg.shadows else int(hit1.sum())
+    c.update(l1_rays=int(hit0.sum()), l1_sph=int((kind == 1).sum()),
+             l1_rect=int((kind == 2).sum()), l1_hit=int(hit1.sum()), l1_lit=lit,
+             l1_shadow_sph=shadow[1], l1_shadow_rect=shadow[2])
+    return c
+
+
+def _bounce_render_ops(c):
+    """Row 2's operations beyond level 0's: per reflected ray its direction,
+    its walk over every object and the blend; level 1's shading and shadow
+    rays where it hit."""
+    return (c["l1_rays"] * (OPS["reflect"] + OPS["blend"] + c["n_sph"] * OPS["sphere_shadow"]
+                            + c["n_rect"] * OPS["rect_shadow"])
+            + c["l1_sph"] * OPS["surf_sphere"] + c["l1_rect"] * OPS["surf_rect"]
+            + c["l1_hit"] * (OPS["so"] + c["lights"] * OPS["light"]) + c["l1_lit"] * OPS["phong"])
+
+
+def _bounce_step_ops(c, shadows=True):
+    """Row 1's (``shadows``) or row 3's operations beyond level 0's: row 2's
+    bounce work (the shadow walks only where the step casts them), the
+    blend's and the reflection's adjoints, level 1's shade and winner
+    adjoints and their adds into the sums."""
+    ops = (_bounce_render_ops(c)
+           + c["l1_rays"] * (OPS["adj_blend"] + OPS["adj_reflect"] + OPS["sum_mirror"])
+           + c["l1_hit"] * OPS["adj_base"]
+           + c["l1_sph"] * (OPS["adj_sphere"] + OPS["sum_sphere"])
+           + c["l1_rect"] * (OPS["adj_rect"] + OPS["sum_rect"])
+           + c["l1_lit"] * (OPS["adj_light"] + OPS["sum_light"]))
+    if shadows:
+        ops += c["l1_shadow_sph"] * OPS["sphere_shadow"] + c["l1_shadow_rect"] * OPS["rect_shadow"]
+    return ops
+
+
+def mirror_bounds(c, S, planes):
+    """Rows 2, 1 and 3's bounds with a bounce level: (ms, by) each."""
+    H, W = c["height"], c["width"]
+    return dict(
+        fused_render=bound(render_ops(c, misses=False) + _bounce_render_ops(c),
+                           4 * (S + H * W * (3 + planes))),
+        fused_step=bound(step_ops(c) + _bounce_step_ops(c), 4 * (S + H * W * 3 + 1 + S)),
+        fused_render_bwd=bound(bwd_ops(c) + _bounce_step_ops(c, shadows=False),
+                               4 * (S + H * W * (3 + planes) + 1 + S)))
+
+
+def _mirror_case(size=MIRROR_SIZE):
+    from reversible_raytracer_tpu_torch.models import configs
+
+    scene, spec, cfg = configs.config6_mirror(size=size, device="cuda")
+    return scene, spec, cfg, configs.perturb(scene, spec, scale=0.3, seed=3)
+
+
+def phase_mirror():
+    """Rows 1-3 with one bounce level at config 6 512^2 (see the module's
+    docstring, phase 24). Returns each row's numbers."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    scene, spec, cfg, start = _mirror_case()
+    H, W, L = cfg.height, cfg.width, scene.lights.count
+    rows, oks = {}, []
+
+    # ---- row 2: the image and the planes of both levels
+    before = fused.FUSED_RENDER.launches
+    img_k, vis_k = fused.render_fused(start, cfg)
+    per_call = fused.FUSED_RENDER.launches - before
+    img_2, vis_2 = fused.render_fused(start, cfg)
+    img_p, vis_p = fused.render_fused_plain(start, cfg)
+    torch.cuda.synchronize()
+    hits = fused.level_hits(start, cfg)
+    planes = {}
+    for lv, hit in enumerate(hits):
+        k, p_ = vis_k[lv * L:(lv + 1) * L], vis_p[lv * L:(lv + 1) * L]
+        planes[f"level{lv}"] = dict(hit_share=float(hit.float().mean()),
+                                    on_hits=bool(torch.equal(k[:, hit], p_[:, hit])),
+                                    zero_elsewhere=not bool(k[:, ~hit].any()))
+    r = dict(wrapper_launches_per_call=per_call, planes=planes,
+             max_abs_err=float((img_k - img_p).abs().max()),
+             image_bit_identical=bool(torch.equal(img_k, img_p)),
+             deterministic=bool(torch.equal(img_k, img_2) and torch.equal(vis_k, vis_2)),
+             finite=bool(torch.isfinite(img_k).all()),
+             bounce_changes_image=float((img_k - fused.render_fused(
+                 start, dataclasses.replace(cfg, reflections=0))[0]).abs().max()))
+    rows["fused_render"] = r
+    oks.append(r["image_bit_identical"] and r["deterministic"] and r["finite"] and per_call == 1
+               and tuple(vis_k.shape) == (2 * L, H, W)
+               and all(v["on_hits"] and v["zero_elsewhere"] for v in planes.values()))
+
+    # ---- row 1: zero against row 2's own image, then against autograd and the twin
+    target = fused.render_fused(scene, cfg)[0]
+    l_0, g_0 = fused.loss_grad_fused(scene, cfg, target)
+    before = fused.FUSED_STEP.launches
+    l_k, g_k = fused.loss_grad_fused(start, cfg, target)
+    per_call = fused.FUSED_STEP.launches - before
+    l_2, g_2 = fused.loss_grad_fused(start, cfg, target)
+    r = dict(wrapper_launches_per_call=per_call, loss=float(l_k),
+             zero_residual_exact=bool(float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()),
+             deterministic=bool(torch.equal(
+                 torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
+                 torch.cat([l_2.reshape(1), fused.flatten_scene(g_2)]))),
+             )
+    # the diffuse sphere's coefficient at 0 (the true scene) against row 2's image of
+    # perturb seed 1, where it is 0.246: a gradient from the bounce traced where m = 0
+    up = configs.perturb(scene, spec, scale=0.3, seed=1)
+    target_up = fused.render_fused(up, cfg)[0]
+    g_u = fused.loss_grad_fused(scene, cfg, target_up)[1].spheres.material.mirror[1]
+    g_up = fused.loss_grad_fused_plain(scene, cfg, target_up)[1].spheres.material.mirror[1]
+    r["diffuse_mirror_from_0"] = dict(start=float(scene.spheres.material.mirror[1]),
+                                      target=float(up.spheres.material.mirror[1]),
+                                      grad=float(g_u), autograd=float(g_up))
+    ok = (r["zero_residual_exact"] and r["deterministic"] and per_call == 1
+          and float(g_u) < 0.0 and abs(float(g_u - g_up)) <= 1e-2 * abs(float(g_up)))
+    for name, ref in (("autograd", fused.loss_grad_fused_plain),
+                      ("adjoint_eager", fused.loss_grad_adjoint_eager)):
+        l_r, g_r = ref(start, cfg, target)
+        rel = abs(float(l_k) - float(l_r)) / max(abs(float(l_r)), 1e-12)
+        ok = _check_grads(r, name, g_r, g_k) and ok and rel <= 1e-4
+        r[name]["loss_rel"] = rel
+    r["max_abs_err"] = r["autograd"]["max_abs_err"]
+    rows["fused_step"] = r
+    oks.append(ok)
+
+    # ---- row 3 by autograd of `render`: against autograd of the plain render and
+    # the twin for a unit normal cotangent; its mse gradient row 1's bit for bit
+    g = _seeded_cotangent(cfg)
+    before = fused.FUSED_RENDER_BWD.launches
+    got = _bwd(start, cfg, g)
+    per_call = fused.FUSED_RENDER_BWD.launches - before
+    again = _bwd(start, cfg, g)
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([l.grad.reshape(-1) for l in leaves])
+    by_step = fused.flatten_scene(loss_and_grad_fn(start, cfg)(start, target)[1])
+    r = dict(wrapper_launches_per_call=per_call,
+             deterministic=bool(torch.equal(fused.flatten_scene(got), fused.flatten_scene(again))),
+             mse_bit_equal_to_row1=bool(torch.equal(by_render, by_step)),
+             mse_max_abs_diff_to_row1=float((by_render - by_step).abs().max()))
+    ok = _check_grads(r, "plain", fused.render_fused_bwd_plain(start, cfg, g), got)
+    ok = _check_grads(r, "twin", fused.render_bwd_adjoint_eager(start, cfg, g, vis_k), got) and ok
+    r["max_abs_err"] = r["plain"]["max_abs_err"]
+    rows["fused_render_bwd"] = r
+    oks.append(ok and r["deterministic"] and r["mse_bit_equal_to_row1"] and per_call == 1)
+
+    # ---- times: the C entries with the bounce (refl 1), the plain versions, the bounds
+    flat = fused._cuda_flat(start, cfg)
+    geom = fused._geometry(start, cfg)
+    S = flat.numel()
+    stream = torch.cuda.current_stream().cuda_stream
+    img = torch.empty((H, W, 3), device="cuda")
+    vis = torch.empty((2 * L, H, W), device="cuda")
+    scratch = torch.empty((fused.FUSED_STEP.lib().rrt_step_scratch_floats(*geom[:5]),),
+                          device="cuda")
+    out = torch.empty((1 + S,), device="cuda")
+    w = 1.0 / (H * W * 3)
+    calls = {
+        "fused_render": lambda: fused.FUSED_RENDER.call(
+            "rrt_render_refl", flat.data_ptr(), *geom, 1, 1, img.data_ptr(), vis.data_ptr(),
+            stream),
+        "fused_step": lambda: fused.FUSED_STEP.call(
+            "rrt_step_refl", flat.data_ptr(), *geom, 1, 1, target.data_ptr(), w,
+            scratch.data_ptr(), out.data_ptr(), stream),
+        "fused_render_bwd": lambda: fused.FUSED_RENDER_BWD.call(
+            "rrt_render_bwd_refl", flat.data_ptr(), *geom, 1, 1, g.data_ptr(), vis.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), stream)}
+    calls["fused_render"]()
+    plain = {"fused_render": lambda: fused.render_fused_plain(start, cfg),
+             "fused_step": lambda: fused.loss_grad_fused_plain(start, cfg, target),
+             "fused_render_bwd": lambda: fused.render_fused_bwd_plain(start, cfg, g)}
+    c = bounce_counts(start, cfg)
+    bounds = mirror_bounds(c, S, 2 * L)
+    numbers = {}
+    for name, fn in calls.items():
+        dev = device_ms(fn)
+        rows[name].update(ms=time_ms(fn), device_ms=dev["ms"], launches_per_call=dev["launches"],
+                          device=dev, plain_ms=time_ms(plain[name], reps=5, warmup=1),
+                          bound_ms=bounds[name][0], bound_by=bounds[name][1])
+        oks.append(dev["launches"] == 1)
+        numbers[name] = dict(case=f"config6_{MIRROR_SIZE}", **{
+            k: rows[name][k] for k in ("ms", "device_ms", "launches_per_call",
+                                      "wrapper_launches_per_call", "max_abs_err", "plain_ms",
+                                      "bound_ms", "bound_by")})
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    rows["work"] = c
+    if not all(oks):
+        raise AssertionError(f"a kernel with a bounce level failed a check: {rows}")
+    emit("mirror", ok=True, rows=rows)
+    return numbers
+
+
+MIRROR_ITERS = 150
+MIRROR_RUNS = (("invert_512", 512), ("invert_48", 48))
+MIRROR_GRAD_ITERS = 20
+
+
+def phase_mirror_main():
+    """The CLI and `optimize(render_fn=render)` on config 6 (see the
+    module's docstring, phase 25). Returns each run's launch counts."""
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize, param_error
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    out_dir = REPO / "smoke_out"
+    rows, counts, oks = {}, {}, []
+
+    def counted(fn):
+        for k in _all_kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k.name: k.launches for k in _all_kernels()}, time.perf_counter() - t0
+
+    def only(launches, expect):
+        return all(n == expect.get(name, 0) for name, n in launches.items())
+
+    png = out_dir / "render_config6.png"
+    _, launches, wall = counted(lambda: cli.main(["render", "--config", "6", "-o", str(png)]))
+    rows["render_config6"] = dict(launches=launches, wall_seconds=wall)
+    oks.append(only(launches, {"fused_render": 1}) and png.exists())
+
+    for label, size in MIRROR_RUNS:
+        png = out_dir / f"final_mirror_{label}.png"
+        argv = ["invert", "--config", "6", "--size", str(size), "--perturb", "0.3", "--lr", "2e-2",
+                "--iters", str(MIRROR_ITERS), "--seed", "3", "--log-every", "1", "--quiet",
+                "-o", str(png)]
+        summary, launches, wall = counted(lambda: cli.main(argv))
+        hist = summary["history"]
+        expect = {"fused_step": MIRROR_ITERS, "fused_render": 2}
+        row = dict(launches=launches, expected=expect, first_loss=hist[0]["loss"],
+                   final_loss=hist[-1]["loss"], start_param_err=hist[0]["param_err"],
+                   param_err=summary["param_err"], loop_seconds=summary["seconds"],
+                   loop_ms_per_step=summary["seconds"] * 1e3 / MIRROR_ITERS, wall_seconds=wall)
+        rows[label] = row
+        counts[label] = launches
+        oks.append(only(launches, expect) and row["param_err"] < 1e-3
+                   and row["final_loss"] < row["first_loss"] and png.exists())
+
+    scene, spec, cfg, _ = _mirror_case()
+
+    def by_render():
+        target = render(scene, cfg)
+        start = _mirror_case()[3]
+        final, _, losses = optimize(start, target, spec, cfg,
+                                    OptConfig(iters=MIRROR_GRAD_ITERS, lr=2e-2), log_every=0,
+                                    render_fn=lambda s: render(s, cfg))
+        return start, final, losses.cpu().tolist()
+
+    (start, final, la), launches, wall = counted(by_render)
+    expect = {"fused_render": MIRROR_GRAD_ITERS + 1, "fused_render_bwd": MIRROR_GRAD_ITERS}
+    rows["render_fn_512"] = dict(launches=launches, expected=expect, first_loss=la[0],
+                                 final_loss=la[-1],
+                                 start_param_err=float(param_error(start, scene, spec)),
+                                 param_err=float(param_error(final, scene, spec)),
+                                 wall_seconds=wall)
+    counts["render_fn_512"] = launches
+    oks.append(only(launches, expect) and la[-1] < la[0] and all(math.isfinite(x) for x in la))
+
+    for label, argv, why, expect in (
+            ("render_config5_reflections", ["render", "--config", "5", "--reflections", "1",
+                                            "-o", str(out_dir / "refused.png")],
+             "mirror reflections", {}),
+            ("invert_config6_anneal", ["invert", "--config", "6", "--size", "64", "--anneal",
+                                       "0.05,0", "--iters", "2", "--quiet"],
+             "mirror reflections require hard semantics", {"fused_render": 1})):
+        def refused(argv=argv):
+            try:
+                cli.main(argv)
+            except NotImplementedError as exc:
+                return str(exc)
+            return ""
+        msg, launches, _ = counted(refused)
+        rows[label] = dict(refusal=msg, launches=launches)
+        oks.append(why in msg and only(launches, expect))
+    if not all(oks):
+        raise AssertionError(f"a config-6 run did not run through the expected kernels, did "
+                             f"not recover the mirror coefficients or did not refuse: {rows}")
+    emit("mirror_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -2409,6 +2783,8 @@ def main() -> int:
     checker_runs = run_phase("checker_main", phase_checker_main)
     spp4 = run_phase("spp4", phase_spp4)
     spp4_runs = run_phase("spp4_main", phase_spp4_main)
+    mirror = run_phase("mirror", phase_mirror)
+    mirror_runs = run_phase("mirror_main", phase_mirror_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -2467,6 +2843,12 @@ def main() -> int:
     for k in kernels:  # rows 1-8 at spp 4 (phases spp4, spp4_main)
         if k["name"] in spp4:
             k["spp4"] = dict(**spp4[k["name"]], launches=spp4_launches.get(k["name"]))
+    for k in kernels:  # rows 1-3 with a bounce level (phases mirror, mirror_main)
+        if k["name"] in mirror:
+            run = "render_fn_512" if k["name"] == "fused_render_bwd" else "invert_512"
+            k["mirror"] = dict(**mirror[k["name"]], launches=mirror_runs[run][k["name"]])
+            if k["name"] == "fused_render":
+                k["mirror"]["launches_render_fn"] = mirror_runs["render_fn_512"][k["name"]]
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

@@ -1,4 +1,4 @@
-"""Command-line interface: ``render`` and ``invert`` for configs 1-5.
+"""Command-line interface: ``render`` and ``invert`` for configs 1-6.
 
 Examples:
     python -m reversible_raytracer_tpu_torch.cli render --config 2 --size 512 -o out.png
@@ -9,6 +9,8 @@ Examples:
         --checker-ratio 12.5 --lr 5e-3 --iters 100 --perturb 0.05
     python -m reversible_raytracer_tpu_torch.cli invert --config 5 --size 1024 --spp 4 \
         --anneal 0.08,0.03,0.01,0 --anneal-size 512
+    python -m reversible_raytracer_tpu_torch.cli invert --config 6 --perturb 0.3 --lr 2e-2 \
+        --iters 150 --seed 3
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
 kernels, each training step one replay of a CUDA graph; ``--device cpu``
@@ -17,7 +19,9 @@ observability flags: ``--target`` (a PNG to invert instead of the truth's
 render), ``--scene`` / ``--save-scene`` (JSON scenes), ``--checkpoint``,
 ``--checkpoint-every`` and ``--resume``, ``--frame-every`` /
 ``--frames-dir`` and ``--quiet``. Both take ``--spp 4`` (2x2
-supersampling, on every kernel family).
+supersampling, on every kernel family) and ``--reflections N`` (mirror
+bounces, overriding the config's count: config 6 renders with 1, and
+``--reflections 0`` renders it with none).
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ import time
 
 
 def _add_common(p):
-    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3, 4, 5],
+    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3, 4, 5, 6],
                    help="benchmark config (1: one sphere, 2: four spheres + ground, "
                         "3: two lights, 4: checker materials + camera pose, "
-                        "5: 64 spheres + ground)")
+                        "5: 64 spheres + ground, 6: mirror reflections)")
     p.add_argument("--size", type=int, default=None,
                    help="image size (default: the config's native size)")
     p.add_argument("--device", default="cuda",
@@ -40,6 +44,9 @@ def _add_common(p):
                    help="JSON scene file overriding the config's parameters")
     p.add_argument("--spp", type=int, default=1, choices=[1, 4],
                    help="samples per pixel (4 = 2x2 supersampling AA)")
+    p.add_argument("--reflections", type=int, default=None,
+                   help="mirror bounces (each object's `mirror` coefficient sets its "
+                        "reflectivity; 0 = none). Default: the config's own (config 6: 1)")
 
 
 def _build(args):
@@ -58,6 +65,10 @@ def _build(args):
         import dataclasses
 
         cfg = dataclasses.replace(cfg, spp=args.spp)
+    if args.reflections is not None:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, reflections=args.reflections)
     return scene, spec, cfg
 
 

@@ -1,4 +1,5 @@
-"""Benchmark scenes 1-5, and the inverse-render start.
+"""Benchmark scenes 1-5, config 6 (mirror reflections), and the
+inverse-render start.
 
 The counterpart of `reversible_raytracer_tpu.models.configs` for the
 configs the CUDA kernels cover (hard shading, untextured). Each builder
@@ -186,12 +187,47 @@ def config5_many_spheres(size: int = 1024, n_spheres: int = 64, seed: int = 0,
     return scene, spec, RenderConfig(height=size, width=size, shadows=True)
 
 
+def config6_mirror(size: int = 512, device="cuda"):
+    """Config 6: mirror reflections. A chrome-ish sphere (mirror 0.65) and a
+    diffuse sphere (mirror 0) over a checkered, slightly reflective floor
+    (mirror 0.18), rendered with one bounce (``reflections=1``); the inverse
+    render recovers every object's mirror coefficient, whose gradient runs
+    through the bounce."""
+    dev = resolve_device(device)
+    parts = [
+        sphere((-0.55, 0.05, 0.0), 0.85,
+               Materials.make((0.55, 0.56, 0.6), ka=0.08, kd=0.25, ks=0.5, shininess=80.0,
+                              mirror=0.65, device=dev), device=dev),
+        sphere((1.25, -0.15, -0.9), 0.65,
+               Materials.make((0.2, 0.55, 0.9), ks=0.3, shininess=40.0, device=dev),
+               device=dev),
+    ]
+    plane = ground_plane(-0.8, 14.0,
+                         Materials.make((0.85, 0.85, 0.85), color2=(0.12, 0.12, 0.14),
+                                        checker=1.0, checker_scale=16.0, ka=0.15, kd=0.8,
+                                        mirror=0.18, device=dev), device=dev)
+    scene = Scene.make(
+        spheres=merge_spheres(parts),
+        rects=plane,
+        lights=_lights([[4.0, 6.0, 4.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.2, 1.1, 4.4), (0.0, 0.0, 0.0), fov_deg=55.0, device=dev),
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("spheres.material.mirror", lower=0.0, upper=0.95)
+        .train("rects.material.mirror", lower=0.0, upper=0.95)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True, reflections=1)
+
+
 CONFIGS = {
     1: config1_single_sphere,
     2: config2_four_spheres,
     3: config3_multi_light,
     4: config4_checker_camera,
     5: config5_many_spheres,
+    6: config6_mirror,
 }
 
 

@@ -31,6 +31,14 @@
 // subsample's gradient goes into the sums as a pixel's would. Each spp is
 // its own instance of the kernel (SPP), so the spp-1 one keeps its code.
 //
+// One mirror bounce (REFL = 1, spp 1): each pixel adds into its level-0
+// winner's fields (with the mirror coefficient's) and its level-1 winner's.
+// A warp's list of objects is the union of both levels' winners, still one
+// transposing tree per object a tile (a lane's value is the sum of its two
+// levels' for that object). The instance has its own launch bound
+// (REFL_STEP_BLOCKS_PER_SM blocks an SM: the bounce's adjoint does not fit
+// the 128 registers of two), and a grid sized to match.
+//
 // No atomics and no counter: nothing in the scratch is read before this
 // call writes it, and the grid follows from the card and the scene alone,
 // so for a given image size the result is bit-for-bit the same from call to
@@ -107,6 +115,24 @@ __device__ __forceinline__ float warp_sum_many(float (&v)[V], int lane) {
 // load at a time waits out the L2's latency 33 times at 512^2 on 132 SMs.
 constexpr int SUM_LOADS = 16;
 
+// Blocks an SM of the instances with a bounce level.
+constexpr int REFL_STEP_BLOCKS_PER_SM = 1;
+
+template <int REFL>
+constexpr int step_blocks_per_sm() {
+  return REFL ? REFL_STEP_BLOCKS_PER_SM : STEP_BLOCKS_PER_SM;
+}
+
+// Mirror field of a sphere (SPH_FIELDS) and a rect (RECT_FIELDS) in the
+// reduction's order: the flat layout holds the mirror leaf after shininess.
+__device__ __forceinline__ int sphere_field_slot(const Layout& ly, int k, int f) {
+  return f < SPH_FIELDS ? sphere_slot(ly, k, f) : ly.s_shin + ly.N + k;
+}
+
+__device__ __forceinline__ int rect_field_slot(const Layout& ly, int k, int f) {
+  return f < RECT_FIELDS ? rect_slot(ly, k, f) : ly.r_shin + ly.M + k;
+}
+
 // The shared memory of a block, in floats: block 0's row subsets (the
 // partial rows as float4 columns), the scene, the warp rows, the lanes'
 // light sums.
@@ -126,8 +152,8 @@ inline FlatPlan flat_plan(const Layout& ly) {
   return f;
 }
 
-template <int SPP, class Src>
-__global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
+template <int SPP, int REFL, class Src>
+__global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
     flat_step_kernel(const float* __restrict__ flat, Params p, Layout ly, FlatPlan fp, Src src,
                      float* __restrict__ partials, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -156,7 +182,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
     const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
     const int i = (t / tiles.x) * BLOCK_Y + threadIdx.y;
-    pixel_grads<SPP>(
+    pixel_grads<SPP, REFL>(
         scene, p, i, j, i < p.H && j < p.W, src, FullWalk{},
         [&](int l, V3 g_lpos, V3 g_lcol, bool) {
           float* q = mine + 6 * l * BLOCK_THREADS;
@@ -167,7 +193,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
           q[4 * BLOCK_THREADS] += g_lcol.y;
           q[5 * BLOCK_THREADS] += g_lcol.z;
         },
-        [&](const PixelGrad& g) {
+        [&](const typename Levels<REFL>::Grad& g) {
           a_sq += g.sq;
           a_amb = a_amb + g.g_amb;
           a_bg = a_bg + g.g_bg;
@@ -181,22 +207,55 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
           // object, in the order of the lowest lane that hit it (each
           // object's slots get one add per tile, so the order of objects
           // does not touch the bits)
-          for (unsigned todo = __ballot_sync(FULL, g.k >= 0); todo;) {
-            const int k = __shfl_sync(FULL, g.k, __ffs(todo) - 1);
-            const bool hit_k = g.k == k;
-            todo &= ~__ballot_sync(FULL, hit_k);
-            if (k < ly.N) {
-              float v[16] = {};
+          if constexpr (REFL == 0) {
+            for (unsigned todo = __ballot_sync(FULL, g.k >= 0); todo;) {
+              const int k = __shfl_sync(FULL, g.k, __ffs(todo) - 1);
+              const bool hit_k = g.k == k;
+              todo &= ~__ballot_sync(FULL, hit_k);
+              if (k < ly.N) {
+                float v[16] = {};
 #pragma unroll
-              for (int f = 0; f < SPH_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
-              const float s = warp_sum_many(v, lane);
-              if (lane < SPH_FIELDS) gs[sphere_slot(ly, k, lane)] += s;
-            } else {
-              float v[32] = {};
+                for (int f = 0; f < SPH_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
+                const float s = warp_sum_many(v, lane);
+                if (lane < SPH_FIELDS) gs[sphere_slot(ly, k, lane)] += s;
+              } else {
+                float v[32] = {};
 #pragma unroll
-              for (int f = 0; f < RECT_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
-              const float s = warp_sum_many(v, lane);
-              if (lane < RECT_FIELDS) gs[rect_slot(ly, k - ly.N, lane)] += s;
+                for (int f = 0; f < RECT_FIELDS; ++f) v[f] = hit_k ? g.obj[f] : 0.0f;
+                const float s = warp_sum_many(v, lane);
+                if (lane < RECT_FIELDS) gs[rect_slot(ly, k - ly.N, lane)] += s;
+              }
+            }
+          } else {
+            // ---- with a bounce: the union of both levels' winners; a lane adds
+            // its level-0 fields and mirror coefficient where it hit k at level
+            // 0, and its level-1 fields where it hit k at level 1
+            bool pend0 = g.k >= 0, pend1 = g.k1 >= 0;
+            for (;;) {
+              const unsigned t0 = __ballot_sync(FULL, pend0), t1 = __ballot_sync(FULL, pend1);
+              if (!(t0 | t1)) break;
+              const int k = t0 ? __shfl_sync(FULL, g.k, __ffs(t0) - 1)
+                               : __shfl_sync(FULL, g.k1, __ffs(t1) - 1);
+              const bool at0 = g.k == k, at1 = g.k1 == k;
+              pend0 = pend0 && !at0;
+              pend1 = pend1 && !at1;
+              if (k < ly.N) {
+                float v[16] = {};
+#pragma unroll
+                for (int f = 0; f < SPH_FIELDS; ++f)
+                  v[f] = (at0 ? g.obj[f] : 0.0f) + (at1 ? g.obj1[f] : 0.0f);
+                v[SPH_FIELDS] = at0 ? g.g_mir : 0.0f;
+                const float s = warp_sum_many(v, lane);
+                if (lane <= SPH_FIELDS) gs[sphere_field_slot(ly, k, lane)] += s;
+              } else {
+                float v[32] = {};
+#pragma unroll
+                for (int f = 0; f < RECT_FIELDS; ++f)
+                  v[f] = (at0 ? g.obj[f] : 0.0f) + (at1 ? g.obj1[f] : 0.0f);
+                v[RECT_FIELDS] = at0 ? g.g_mir : 0.0f;
+                const float s = warp_sum_many(v, lane);
+                if (lane <= RECT_FIELDS) gs[rect_field_slot(ly, k - ly.N, lane)] += s;
+              }
             }
           }
         });
@@ -273,14 +332,16 @@ inline long long flat_step_scratch_floats(int n_sph, int n_rect, int n_light, in
 }
 
 // The one cooperative launch on the caller's stream; out = [sq, grads (S)].
-template <int SPP, class Src>
+// The scratch of flat_step_scratch_floats holds the rows of every instance
+// (those with a bounce level have fewer blocks).
+template <int SPP, int REFL, class Src>
 int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_light, int H,
                               int W, int shadows, int clip, Src src, float* scratch, float* out,
                               void* stream) {
   Layout ly = make_layout(n_sph, n_rect, n_light);
   Params p = make_params(H, W, shadows, clip);
   FlatPlan fp = flat_plan(ly);
-  const int nblocks = step_blocks(fp.smem, H, W);
+  const int nblocks = step_blocks(fp.smem, H, W, step_blocks_per_sm<REFL>());
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -291,29 +352,34 @@ int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_li
   // 124,304 bytes.
   if (fp.smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   if (fp.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(flat_step_kernel<SPP, Src>,
+    err = cudaFuncSetAttribute(flat_step_kernel<SPP, REFL, Src>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fp.smem);
     if (err != cudaSuccess) return (int)err;
   }
   void* args[] = {&flat, &p, &ly, &fp, &src, &scratch, &out};
-  err = cudaLaunchCooperativeKernel((const void*)flat_step_kernel<SPP, Src>, dim3(nblocks),
+  err = cudaLaunchCooperativeKernel((const void*)flat_step_kernel<SPP, REFL, Src>, dim3(nblocks),
                                     dim3(BLOCK_X, BLOCK_Y), args, fp.smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The instance of spp 1 or 4.
+// The instance of spp 1 or 4 without a bounce, or of spp 1 with one
+// (refl 1).
 template <class Src>
 int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
-                     int shadows, int clip, int spp, Src src, float* scratch, float* out,
-                     void* stream) {
+                     int shadows, int clip, int spp, int refl, Src src, float* scratch,
+                     float* out, void* stream) {
+  if (refl == 1 && spp == 1)
+    return launch_flat_step_instance<1, 1>(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
+                                           src, scratch, out, stream);
+  if (refl != 0) return (int)cudaErrorInvalidValue;
   if (spp == 4)
-    return launch_flat_step_instance<4>(flat, n_sph, n_rect, n_light, H, W, shadows, clip, src,
-                                        scratch, out, stream);
+    return launch_flat_step_instance<4, 0>(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
+                                           src, scratch, out, stream);
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  return launch_flat_step_instance<1>(flat, n_sph, n_rect, n_light, H, W, shadows, clip, src,
-                                      scratch, out, stream);
+  return launch_flat_step_instance<1, 0>(flat, n_sph, n_rect, n_light, H, W, shadows, clip, src,
+                                         scratch, out, stream);
 }
 
 }  // namespace rrt

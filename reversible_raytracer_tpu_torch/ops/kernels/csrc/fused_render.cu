@@ -31,16 +31,27 @@
 // the clipped colours, ((c0 + c1) + c2) + c3 times 0.25 as render_tile sums
 // them. Each spp is its own instance (SPP); the spp-1 one runs one ray at the
 // pixel centre.
+//
+// One mirror bounce (REFL = 1, spp 1; the TPU kernel traces shade's bounce
+// recursion, pipeline.py:658-724): where the primary ray hit, a second
+// level from its shadow origin along the reflected direction (the same
+// walks, surface and Phong terms), its colour blended unclipped into the
+// first by the winner's mirror coefficient, col + m (col1 - col), and one
+// clip at the end. A hit with mirror 0 traces its bounce too (the same
+// bits: the blend adds 0). 2 L planes, bounce-major: plane L + l is level
+// 1's light l, 0 where either level missed. Each REFL is its own instance,
+// so the REFL = 0 ones keep their code.
 #include "render_common.cuh"
 
 using namespace rrt;
 
 constexpr int FWD_MIN_BLOCKS = 4;  // blocks an SM at the least
 
-template <int SPP>
+template <int SPP, int REFL>
 __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
     render_kernel(const float* __restrict__ flat, Params p, Layout ly, float* __restrict__ img,
                   float* __restrict__ vis) {
+  static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
   extern __shared__ float sc_s[];
   __shared__ Camera cam;
   stage(sc_s, flat, ly.S);
@@ -68,6 +79,27 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
             return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
           },
           &bits);
+    if constexpr (REFL != 0) {  // the bounce: level 1 where level 0 hit, then the blend
+      unsigned bits1 = 0u;
+      if (h.k >= 0) {
+        const Surface s0 = surface(sc, cam.eye, d, h);
+        const V3 o1 = shadow_origin(cam.eye, d, h.t, s0.n);
+        const V3 d1 = reflect_dir(d, s0.n);
+        const Nearest h1 = trace(sc, o1, d1);
+        V3 col1 = sc.background();
+        if (h1.k >= 0)
+          col1 = shade_hit(
+              sc, o1, d1, h1.t, surface(sc, o1, d1, h1),
+              [&](int, V3 so1, const LightGeo& g1) {
+                return !p.shadows || !occluded(sc, so1, g1.ldir, g1.dist);
+              },
+              &bits1);
+        col = blend(col, col1, mirror(sc, h));
+      }
+      if (p.shadows)
+        for (int l = 0; l < ly.L; ++l)
+          vis[(ly.L + l) * plane + px] = ((bits1 >> l) & 1u) ? 1.0f : 0.0f;
+    }
     if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
     acc = q == 0 ? col : acc + col;
     if (p.shadows)
@@ -80,17 +112,28 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
   img[3 * px + 2] = acc.z;
 }
 
-// spp 1 or 4; 4 L planes at spp 4.
-extern "C" int rrt_render_spp(const float* flat, int n_sph, int n_rect, int n_light, int H,
-                              int W, int shadows, int clip, int spp, float* img, float* vis,
-                              void* stream) {
+// spp 1 or 4 without a bounce (4 L planes at spp 4), spp 1 with one (refl
+// 1, 2 L planes).
+extern "C" int rrt_render_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                               int W, int shadows, int clip, int spp, int refl, float* img,
+                               float* vis, void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
   const Params p = make_params(H, W, shadows, clip);
-  if (spp != 1 && spp != 4) return (int)cudaErrorInvalidValue;
-  const auto kernel = spp == 4 ? render_kernel<4> : render_kernel<1>;
+  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || (refl == 1 && spp != 1))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = refl ? render_kernel<1, 1> : spp == 4 ? render_kernel<4, 0>
+                                                            : render_kernel<1, 0>;
   kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
            (cudaStream_t)stream>>>(flat, p, ly, img, vis);
   return (int)cudaGetLastError();
+}
+
+// spp 1 or 4 without a bounce.
+extern "C" int rrt_render_spp(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, int spp, float* img, float* vis,
+                              void* stream) {
+  return rrt_render_refl(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, 0, img, vis,
+                         stream);
 }
 
 // spp 1 (the entry of the tools and of earlier checkouts).

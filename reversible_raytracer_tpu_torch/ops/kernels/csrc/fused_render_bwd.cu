@@ -24,6 +24,10 @@
 // Bound: operations: the step's per-pixel work without the shadow rays'
 // any-hit loops, against 12 bytes of cotangent and 4 bytes per visibility
 // plane read per pixel (chip_smoke.py counts both).
+//
+// One mirror bounce (refl 1, spp 1): the step's bounce adjoint, level 1's
+// visibility read from the forward's planes L + l (2 L planes, bounce-major),
+// only where both levels hit.
 #include "flat_step.cuh"
 
 using namespace rrt;
@@ -33,13 +37,23 @@ extern "C" long long rrt_render_bwd_scratch_floats(int n_sph, int n_rect, int n_
   return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
 }
 
-// out = [0, d flat (S)]. spp 1 or 4: at spp 4 g_img is the cotangent of the
-// average and vis the forward's 4 L planes (render_common.cuh pixel_grads).
+// out = [0, d flat (S)]. spp 1 or 4 without a bounce, spp 1 with one (refl
+// 1): at spp 4 g_img is the cotangent of the average and vis the forward's
+// 4 L planes (render_common.cuh pixel_grads); with a bounce the forward's 2 L.
+extern "C" int rrt_render_bwd_refl(const float* flat, int n_sph, int n_rect, int n_light,
+                                   int H, int W, int shadows, int clip, int spp, int refl,
+                                   const float* g_img, const float* vis, float* scratch,
+                                   float* out, void* stream) {
+  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, refl,
+                          CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+}
+
+// No bounce (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_render_bwd_spp(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                   int W, int shadows, int clip, int spp, const float* g_img,
                                   const float* vis, float* scratch, float* out, void* stream) {
-  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp,
-                          CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+  return rrt_render_bwd_refl(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, 0, g_img,
+                             vis, scratch, out, stream);
 }
 
 // spp 1 (the entry of the tools and of earlier checkouts).

@@ -32,6 +32,13 @@
 // The kernel takes some 20x that (PERF.md): IEEE divisions, square roots,
 // exp and log cost many instructions each, and the per-pixel adjoint
 // (tools/flat_step_split.py) is most of its time.
+//
+// One mirror bounce (refl 1, spp 1; the TPU kernel traces shade's bounce
+// recursion, pipeline.py:658-724): each pixel traces and shades a second
+// level from its shadow origin along the reflected direction wherever the
+// primary ray hit, blends the two unclipped colours by the winner's mirror
+// coefficient, clips once, and runs the bounce's adjoint (render_common.cuh
+// pixel_step, flat_step.cuh's REFL instance).
 #include "flat_step.cuh"
 
 using namespace rrt;
@@ -40,13 +47,23 @@ extern "C" long long rrt_step_scratch_floats(int n_sph, int n_rect, int n_light,
   return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
 }
 
-// spp 1 or 4: at spp 4 the loss is of the average of the four clipped
-// subsamples (render_common.cuh pixel_grads).
+// spp 1 or 4 without a bounce, spp 1 with one (refl 1): at spp 4 the loss
+// is of the average of the four clipped subsamples (render_common.cuh
+// pixel_grads).
+extern "C" int rrt_step_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                             int W, int shadows, int clip, int spp, int refl,
+                             const float* target, float w, float* scratch, float* out,
+                             void* stream) {
+  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, refl,
+                          ResidualSource{target, w}, scratch, out, stream);
+}
+
+// No bounce (the entry of the tools and of earlier checkouts).
 extern "C" int rrt_step_spp(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
                             int shadows, int clip, int spp, const float* target, float w,
                             float* scratch, float* out, void* stream) {
-  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp,
-                          ResidualSource{target, w}, scratch, out, stream);
+  return rrt_step_refl(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, 0, target, w,
+                       scratch, out, stream);
 }
 
 // spp 1 (the entry of the tools and of earlier checkouts).

@@ -4,8 +4,9 @@
 // hand-written adjoint of the fused training steps and the render
 // backwards (pixel_step, with the two sources of its cotangent and
 // visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
-// the subsamples of spp 4), and the reduction and camera-chain passes.
-// soft_common.cuh adds the soft-visibility code.
+// the subsamples of spp 4; with REFL, one mirror bounce level), and the
+// reduction and camera-chain passes. soft_common.cuh adds the
+// soft-visibility code.
 //
 // Two layouts of the same scene, read through one interface, so that every
 // kernel runs the same arithmetic:
@@ -144,6 +145,7 @@ struct FlatScene {
   __device__ float s_kd(int k) const { return sc[ly.s_kd + k]; }
   __device__ float s_ks(int k) const { return sc[ly.s_ks + k]; }
   __device__ float s_shin(int k) const { return sc[ly.s_shin + k]; }
+  __device__ float s_mirror(int k) const { return sc[ly.s_shin + ly.N + k]; }  // after shin
 
   __device__ V3 r_origin(int k) const { return ld3(sc + ly.r_origin + 3 * k); }
   __device__ V3 r_eu(int k) const { return ld3(sc + ly.r_eu + 3 * k); }
@@ -157,6 +159,7 @@ struct FlatScene {
   __device__ float r_kd(int k) const { return sc[ly.r_kd + k]; }
   __device__ float r_ks(int k) const { return sc[ly.r_ks + k]; }
   __device__ float r_shin(int k) const { return sc[ly.r_shin + k]; }
+  __device__ float r_mirror(int k) const { return sc[ly.r_shin + ly.M + k]; }  // after shin
 
   __device__ V3 l_pos(int l) const { return ld3(sc + ly.l_pos + 3 * l); }
   __device__ V3 l_col(int l) const { return ld3(sc + ly.l_col + 3 * l); }
@@ -464,6 +467,22 @@ __device__ __forceinline__ V3 shadow_origin(V3 o, V3 d, float t, V3 n) {
   return (o + d * t) + n * SHADOW_EPS;
 }
 
+// Mirror bounces (pipeline.py shade_levels): the reflected ray starts at the
+// hit's shadow origin and points along d - 2 (d . n) n, the JAX package's
+// reflect_dir; each level's colour is unclipped, and the level above blends
+// col + m (rcol - col) with m the winner's mirror coefficient (0 on a miss).
+__device__ __forceinline__ V3 reflect_dir(V3 d, V3 n) { return d - n * (2.0f * dot(d, n)); }
+
+template <class S>
+__device__ __forceinline__ float mirror(const S& sc, Nearest h) {
+  if (h.k < 0) return 0.0f;
+  return h.k < sc.rect_base() ? sc.s_mirror(h.k) : sc.r_mirror(h.k - sc.rect_base());
+}
+
+__device__ __forceinline__ V3 blend(V3 col, V3 rcol, float m) {
+  return {col.x + m * (rcol.x - col.x), col.y + m * (rcol.y - col.y), col.z + m * (rcol.z - col.z)};
+}
+
 // Unclipped Phong color of a hit pixel; bit l of *vis is light l's
 // visibility, lit(l, so, g) for the shadow origin so and light geometry g.
 template <class S, class Lit>
@@ -673,6 +692,14 @@ struct PixelGrad {
   float obj[RECT_FIELDS];  // its gradient, SPH_FIELDS or RECT_FIELDS order
 };
 
+// With one bounce level (REFL): also the gradient of the level-0 winner's
+// mirror coefficient and level 1's winner and its gradient.
+struct BounceGrad : PixelGrad {
+  float g_mir;
+  int k1;                   // level 1's winner, -1 where level 0 or 1 missed
+  float obj1[RECT_FIELDS];  // its gradient
+};
+
 // The forward of pixel (i, j) as pixel_step runs it: the camera and the
 // primary ray, the nearest hit (walk), the winner's surface, the visibility
 // bits (src.lit) and the unclipped colour pre.
@@ -685,11 +712,41 @@ struct PixelForward {
   unsigned bits;
 };
 
-template <class S, class Src, class Walk>
-__device__ __forceinline__ PixelForward pixel_forward(const S& sc, const Params& p, int i, int j,
-                                                      bool inside, const Src& src,
-                                                      const Walk& walk) {
-  PixelForward f;
+// Level 1 of a bounce: the reflected ray (o, d), its nearest hit, surface
+// and visibility bits (src.lit of planes L + l), its unclipped colour col;
+// level 0's unclipped colour col0 and mirror weight m (0 on a miss).
+struct Bounce {
+  V3 o, d;
+  Nearest h;
+  Surface s;
+  V3 col0, col;
+  unsigned bits;
+  float m;
+};
+
+struct BounceForward : PixelForward {
+  Bounce b;
+};
+
+// The forward's and the gradient's types at REFL bounce levels (0 or 1).
+template <int REFL>
+struct Levels {
+  using Forward = PixelForward;
+  using Grad = PixelGrad;
+};
+template <>
+struct Levels<1> {
+  using Forward = BounceForward;
+  using Grad = BounceGrad;
+};
+
+// With REFL, level 1 is traced only where level 0 hit (elsewhere m = 0 and
+// the blend keeps col0 to the bit) with the same walk; pre is then the
+// blend, unclipped. The bounce takes FullWalk (no warp-wide votes).
+template <int REFL = 0, class S, class Src, class Walk>
+__device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
+    const S& sc, const Params& p, int i, int j, bool inside, const Src& src, const Walk& walk) {
+  typename Levels<REFL>::Forward f;
   f.cam = camera(sc);
   f.r = primary_ray(f.cam, p, inside ? i : 0, inside ? j : 0);
   const V3 o = f.cam.eye, d = f.r.d;
@@ -706,51 +763,57 @@ __device__ __forceinline__ PixelForward pixel_forward(const S& sc, const Params&
           return src.lit(p, i, j, l, [&] { return walk.occluded(sc, l, so, g); });
         },
         &f.bits);
+  if constexpr (REFL != 0) {
+    Bounce& b = f.b;
+    b.col0 = f.pre;
+    b.m = mirror(sc, f.h);
+    b.o = shadow_origin(o, d, f.h.t, f.s.n);
+    b.d = reflect_dir(d, f.s.n);
+    b.h = walk.trace(sc, b.o, b.d, hit);
+    b.s = surface(sc, b.o, b.d, b.h);
+    b.bits = 0;
+    b.col = sc.background();
+    if (b.h.k >= 0)
+      b.col = shade_hit(
+          sc, b.o, b.d, b.h.t, b.s,
+          [&](int l, V3 so1, const LightGeo& g1) {
+            return src.lit(p, i, j, sc.n_light() + l,
+                           [&] { return walk.occluded(sc, l, so1, g1); });
+          },
+          &b.bits);
+    f.pre = blend(b.col0, b.col, b.m);
+  }
   return f;
 }
 
-// Forward (its objects walked as walk walks them), the image cotangent from
-// src (ResidualSource: the residual against the target; CotangentSource:
-// the caller's) and the hand-written adjoint of pixel (i, j): shade adjoint,
-// then the adjoint of the winning object only (the where chain passes no
-// gradient to the losers, and visibility is a step with zero gradient,
-// though the shadow origin still carries gradient through light_geometry
-// into t, n and d), then the camera. Light l's position and color gradients
-// go to on_light(l, g_lpos, g_lcol, warp_hit) inside the light loop, which
-// every lane of a warp runs together. Lanes outside the image run every step
-// with zero cotangents: the warp-wide shuffles and votes need all 32.
-template <class S, class Src, class Walk, class OnLight>
-__device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, int i, int j,
-                                                bool inside, const Src& src, const Walk& walk,
-                                                OnLight on_light) {
-  PixelGrad out;
-  // ---- forward
-  const PixelForward fw = pixel_forward(sc, p, i, j, inside, src, walk);
-  const Camera& cam = fw.cam;
-  const Ray& r = fw.r;
-  const V3 o = cam.eye, d = r.d;
-  const Nearest& h = fw.h;
-  const bool hit = h.k >= 0;
-  const Surface& s = fw.s;
-  const unsigned bits = fw.bits;
-  const V3 pre = fw.pre;
-  const V3 img = p.clip ? V3{clip01(pre.x), clip01(pre.y), clip01(pre.z)} : pre;
+// The shade adjoint of one level for the cotangent gh of its colour (zero
+// where the ray missed): the ambient term, then light by light (a shadowed
+// light, bit l of bits clear, contributes nothing). Light l's position and
+// color gradients go to on_light(l, g_lpos, g_lcol, warp_hit) inside the
+// light loop, which every lane of a warp runs together (warp_hit: some lane
+// of the warp hit at this level).
+struct ShadeGrad {
+  V3 g_base, g_amb, g_n, g_d, g_so;
+  float g_ka, g_kd, g_ks, g_shin;
+};
 
-  // ---- the clipped image's cotangent, then the clip's
-  V3 gc = src.cotangent(p, i, j, inside, img, &out.sq);
-  if (p.clip) gc = {gc.x * clipgrad(pre.x), gc.y * clipgrad(pre.y), gc.z * clipgrad(pre.z)};
-
-  // ---- shade adjoint: ambient term, then light by light
-  const V3 gh = hit ? gc : zero3();
-  out.g_bg = hit ? zero3() : gc;
+template <class S, class OnLight>
+__device__ __forceinline__ ShadeGrad shade_adjoint(const S& sc, V3 gh, V3 o, V3 d, float t,
+                                                   const Surface& s, bool hit, unsigned bits,
+                                                   OnLight on_light) {
+  ShadeGrad a;
   const V3 amb = sc.ambient();
-  V3 g_base = {gh.x * amb.x * s.ka, gh.y * amb.y * s.ka, gh.z * amb.z * s.ka};
-  out.g_amb = {gh.x * s.base.x * s.ka, gh.y * s.base.y * s.ka, gh.z * s.base.z * s.ka};
-  const float g_ka = gh.x * s.base.x * amb.x + gh.y * s.base.y * amb.y + gh.z * s.base.z * amb.z;
-  float g_kd = 0.0f, g_ks = 0.0f, g_shin = 0.0f;
-  V3 g_n = zero3(), g_d = zero3(), g_so = zero3();
+  a.g_base = {gh.x * amb.x * s.ka, gh.y * amb.y * s.ka, gh.z * amb.z * s.ka};
+  a.g_amb = {gh.x * s.base.x * s.ka, gh.y * s.base.y * s.ka, gh.z * s.base.z * s.ka};
+  a.g_ka = gh.x * s.base.x * amb.x + gh.y * s.base.y * amb.y + gh.z * s.base.z * amb.z;
+  a.g_kd = 0.0f;
+  a.g_ks = 0.0f;
+  a.g_shin = 0.0f;
+  a.g_n = zero3();
+  a.g_d = zero3();
+  a.g_so = zero3();
   const V3 view = -d;
-  const V3 so = shadow_origin(o, d, h.t, s.n);
+  const V3 so = shadow_origin(o, d, t, s.n);
   const bool warp_hit = __any_sync(FULL, hit);
   for (int l = 0; l < sc.n_light(); ++l) {
     V3 g_lpos = zero3(), g_lcol = zero3();
@@ -769,23 +832,23 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
       g_lcol = {gh.x * q.x, gh.y * q.y, gh.z * q.z};
       const V3 g_q = {gh.x * lcol.x, gh.y * lcol.y, gh.z * lcol.z};
       const float g_spec = g_q.x + g_q.y + g_q.z;
-      g_kd += g_q.x * ndotl * s.base.x + g_q.y * ndotl * s.base.y + g_q.z * ndotl * s.base.z;
+      a.g_kd += g_q.x * ndotl * s.base.x + g_q.y * ndotl * s.base.y + g_q.z * ndotl * s.base.z;
       float g_ndotl = g_q.x * s.kd * s.base.x + g_q.y * s.kd * s.base.y + g_q.z * s.kd * s.base.z;
-      g_base = g_base + g_q * (s.kd * ndotl);
-      g_ks += g_spec * pw;
+      a.g_base = a.g_base + g_q * (s.kd * ndotl);
+      a.g_ks += g_spec * pw;
       const float g_pw = g_spec * s.ks;
       float g_rdotv = 0.0f;
       if (rdotv > 0.0f) {  // safe_pow: exp(shin * log x), no gradient at x <= 0
         g_rdotv = g_pw * pw * s.shin / rdotv;
-        g_shin += g_pw * pw * logf(rdotv);
+        a.g_shin += g_pw * pw * logf(rdotv);
       }
       const float g_rdv = g_rdotv * maxgrad(rdv);
       const V3 g_refl = view * g_rdv;
-      g_d = g_d - refl * g_rdv;
-      g_n = g_n + g_refl * (2.0f * ndotl);
+      a.g_d = a.g_d - refl * g_rdv;
+      a.g_n = a.g_n + g_refl * (2.0f * ndotl);
       g_ndotl += 2.0f * dot(g_refl, s.n);
       const float g_ndl = g_ndotl * maxgrad(ndl);
-      g_n = g_n + g.ldir * g_ndl;
+      a.g_n = a.g_n + g.ldir * g_ndl;
       const V3 g_ldir = s.n * g_ndl - g_refl;
       // ldir = lvec / guarded(dist), dist = guarded sqrt(|lvec|^2)
       V3 g_lvec = g_ldir * g.inv;
@@ -794,21 +857,26 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
       const float g_dist2 = g.dist2 > 0.0f ? g_dist * 0.5f / g.dist : 0.0f;
       g_lvec = g_lvec + g.lvec * (2.0f * g_dist2);
       g_lpos = g_lvec;
-      g_so = g_so - g_lvec;
+      a.g_so = a.g_so - g_lvec;
     }
     on_light(l, g_lpos, g_lcol, warp_hit);
   }
-  // shadow origin so = (o + d t) + n SHADOW_EPS
-  V3 g_o = g_so;
-  g_d = g_d + g_so * h.t;
-  const float g_t = dot(g_so, d);
-  g_n = g_n + g_so * SHADOW_EPS;
+  return a;
+}
 
-  // ---- the winning object's adjoint
+// The winning object's adjoint for the cotangents g_t of the level's ray
+// distance and g_n of its normal, and a's of its material: adds the ray's
+// (o, d) cotangents to g_o and g_d and writes the winner's fields to obj
+// (SPH_FIELDS or RECT_FIELDS order; zero where the ray missed).
+template <class S>
+__device__ __forceinline__ void object_adjoint(const S& sc, V3 o, V3 d, const Nearest& h,
+                                               bool hit, const Surface& s, const ShadeGrad& a,
+                                               float g_t, V3 g_n, V3& g_o, V3& g_d,
+                                               float (&obj)[RECT_FIELDS]) {
 #pragma unroll
-  for (int f = 0; f < RECT_FIELDS; ++f) out.obj[f] = 0.0f;
-  const V3 g_col = s.use2 ? zero3() : g_base;
-  const V3 g_col2 = s.use2 ? g_base : zero3();
+  for (int f = 0; f < RECT_FIELDS; ++f) obj[f] = 0.0f;
+  const V3 g_col = s.use2 ? zero3() : a.g_base;
+  const V3 g_col2 = s.use2 ? a.g_base : zero3();
   if (hit && h.k < sc.rect_base()) {
     // n = (o + d t - c) / r;  t = -b - sqrt(b^2 - |oc|^2 + r^2), b = oc . d
     const int k = h.k;
@@ -833,20 +901,20 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
     g_d = g_d + oc * g_b;
     g_o = g_o + g_oc;
     g_c = g_c - g_oc;
-    out.obj[0] = g_c.x;
-    out.obj[1] = g_c.y;
-    out.obj[2] = g_c.z;
-    out.obj[3] = g_r;
-    out.obj[4] = g_col.x;
-    out.obj[5] = g_col.y;
-    out.obj[6] = g_col.z;
-    out.obj[7] = g_col2.x;
-    out.obj[8] = g_col2.y;
-    out.obj[9] = g_col2.z;
-    out.obj[10] = g_ka;
-    out.obj[11] = g_kd;
-    out.obj[12] = g_ks;
-    out.obj[13] = g_shin;
+    obj[0] = g_c.x;
+    obj[1] = g_c.y;
+    obj[2] = g_c.z;
+    obj[3] = g_r;
+    obj[4] = g_col.x;
+    obj[5] = g_col.y;
+    obj[6] = g_col.z;
+    obj[7] = g_col2.x;
+    obj[8] = g_col2.y;
+    obj[9] = g_col2.z;
+    obj[10] = a.g_ka;
+    obj[11] = a.g_kd;
+    obj[12] = a.g_ks;
+    obj[13] = a.g_shin;
   } else if (hit) {
     // t = ((p0 - o) . nraw) / (d . nraw), n = facing * normalize(nraw),
     // nraw = edge_u x edge_v; facing is a sign with no gradient.
@@ -869,26 +937,112 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
         p0o * g_num + d * g_den + normalize_adjoint(nraw, inv_n, nn2, g_n * facing);
     const V3 g_eu = cross(ev, g_nraw);
     const V3 g_ev = cross(g_nraw, eu);
-    out.obj[0] = g_p0.x;
-    out.obj[1] = g_p0.y;
-    out.obj[2] = g_p0.z;
-    out.obj[3] = g_eu.x;
-    out.obj[4] = g_eu.y;
-    out.obj[5] = g_eu.z;
-    out.obj[6] = g_ev.x;
-    out.obj[7] = g_ev.y;
-    out.obj[8] = g_ev.z;
-    out.obj[9] = g_col.x;
-    out.obj[10] = g_col.y;
-    out.obj[11] = g_col.z;
-    out.obj[12] = g_col2.x;
-    out.obj[13] = g_col2.y;
-    out.obj[14] = g_col2.z;
-    out.obj[15] = g_ka;
-    out.obj[16] = g_kd;
-    out.obj[17] = g_ks;
-    out.obj[18] = g_shin;
+    obj[0] = g_p0.x;
+    obj[1] = g_p0.y;
+    obj[2] = g_p0.z;
+    obj[3] = g_eu.x;
+    obj[4] = g_eu.y;
+    obj[5] = g_eu.z;
+    obj[6] = g_ev.x;
+    obj[7] = g_ev.y;
+    obj[8] = g_ev.z;
+    obj[9] = g_col.x;
+    obj[10] = g_col.y;
+    obj[11] = g_col.z;
+    obj[12] = g_col2.x;
+    obj[13] = g_col2.y;
+    obj[14] = g_col2.z;
+    obj[15] = a.g_ka;
+    obj[16] = a.g_kd;
+    obj[17] = a.g_ks;
+    obj[18] = a.g_shin;
   }
+}
+
+// Forward (its objects walked as walk walks them), the image cotangent from
+// src (ResidualSource: the residual against the target; CotangentSource:
+// the caller's) and the hand-written adjoint of pixel (i, j): shade adjoint,
+// then the adjoint of the winning object only (the where chain passes no
+// gradient to the losers, and visibility is a step with zero gradient,
+// though the shadow origin still carries gradient through light_geometry
+// into t, n and d), then the camera. Light l's position and color gradients
+// go to on_light(l, g_lpos, g_lcol, warp_hit) inside the light loop, which
+// every lane of a warp runs together. Lanes outside the image run every step
+// with zero cotangents: the warp-wide shuffles and votes need all 32.
+//
+// With REFL the adjoint runs deepest level first: of pre = col0 + m (col1 -
+// col0), level 1's shading and winner under m gc (its lights' gradients to
+// on_light too), the cotangents of its ray (o1, d1)
+// carried into level 0's shadow origin (o1 is that point), normal and
+// direction (d1 = d - 2 (d . n) n), then level 0 under (1 - m) gc, and the
+// mirror coefficient's (col1 - col0) . gc.
+template <int REFL = 0, class S, class Src, class Walk, class OnLight>
+__device__ __forceinline__ typename Levels<REFL>::Grad pixel_step(
+    const S& sc, const Params& p, int i, int j, bool inside, const Src& src, const Walk& walk,
+    OnLight on_light) {
+  typename Levels<REFL>::Grad out;
+  // ---- forward
+  const typename Levels<REFL>::Forward fw = pixel_forward<REFL>(sc, p, i, j, inside, src, walk);
+  const Camera& cam = fw.cam;
+  const Ray& r = fw.r;
+  const V3 o = cam.eye, d = r.d;
+  const Nearest& h = fw.h;
+  const bool hit = h.k >= 0;
+  const Surface& s = fw.s;
+  const unsigned bits = fw.bits;
+  const V3 pre = fw.pre;
+  const V3 img = p.clip ? V3{clip01(pre.x), clip01(pre.y), clip01(pre.z)} : pre;
+
+  // ---- the clipped image's cotangent, then the clip's
+  V3 gc = src.cotangent(p, i, j, inside, img, &out.sq);
+  if (p.clip) gc = {gc.x * clipgrad(pre.x), gc.y * clipgrad(pre.y), gc.z * clipgrad(pre.z)};
+
+  // ---- level 1, and its ray's cotangents into level 0's
+  [[maybe_unused]] V3 g_so_in, g_n_in, g_d_in, g_bg1;
+  [[maybe_unused]] ShadeGrad a1;
+  if constexpr (REFL != 0) {
+    const Bounce& b = fw.b;
+    out.g_mir = hit ? dot(gc, b.col - b.col0) : 0.0f;
+    const V3 gc1 = gc * b.m;
+    gc = gc * (1.0f - b.m);
+    const bool hit1 = b.h.k >= 0;
+    g_bg1 = hit1 ? zero3() : gc1;
+    a1 = shade_adjoint(sc, hit1 ? gc1 : zero3(), b.o, b.d, b.h.t, b.s, hit1, b.bits, on_light);
+    // shadow origin so1 = (o1 + d1 t1) + n1 SHADOW_EPS
+    V3 g_o1 = a1.g_so;
+    V3 g_d1 = a1.g_d + a1.g_so * b.h.t;
+    const float g_t1 = dot(a1.g_so, b.d);
+    const V3 g_n1 = a1.g_n + a1.g_so * SHADOW_EPS;
+    object_adjoint(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1);
+    out.k1 = b.h.k;
+    // o1 = so0; d1 = d - 2 (d . n) n
+    g_so_in = hit ? g_o1 : zero3();
+    const float gdn = hit ? dot(s.n, g_d1) : 0.0f;
+    g_d_in = hit ? g_d1 - s.n * (2.0f * gdn) : zero3();
+    g_n_in = hit ? (d * gdn + g_d1 * dot(d, s.n)) * -2.0f : zero3();
+  }
+
+  // ---- shade adjoint: ambient term, then light by light
+  const V3 gh = hit ? gc : zero3();
+  out.g_bg = hit ? zero3() : gc;
+  const ShadeGrad a = shade_adjoint(sc, gh, o, d, h.t, s, hit, bits, on_light);
+  out.g_amb = a.g_amb;
+  V3 g_n = a.g_n, g_d = a.g_d, g_so = a.g_so;
+  if constexpr (REFL != 0) {
+    out.g_bg = out.g_bg + g_bg1;
+    out.g_amb = out.g_amb + a1.g_amb;
+    g_so = g_so + g_so_in;
+    g_n = g_n + g_n_in;
+    g_d = g_d + g_d_in;
+  }
+  // shadow origin so = (o + d t) + n SHADOW_EPS
+  V3 g_o = g_so;
+  g_d = g_d + g_so * h.t;
+  const float g_t = dot(g_so, d);
+  g_n = g_n + g_so * SHADOW_EPS;
+
+  // ---- the winning object's adjoint
+  object_adjoint(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj);
 
   // ---- camera: o = eye, d = normalize(dt), dt = fwd + right sx + up sy
   out.g_dt = hit ? normalize_adjoint(r.dt, r.inv, r.n2, g_d) : zero3();
@@ -902,7 +1056,8 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
 
 // The gradient of pixel (i, j) at SPP samples a pixel, handed to
 // take(const PixelGrad&) once per subsample (the flat and vec step kernels
-// add each into their sums as they would a pixel's). At spp 1, pixel_step.
+// add each into their sums as they would a pixel's). At spp 1, pixel_step
+// (with REFL bounce levels, spp 1 only: take then gets a BounceGrad).
 // At spp 4 the image is the average of the four clipped subsamples of
 // subsample(), ((c0 + c1) + c2) + c3 times 0.25 as render_tile sums them:
 //   - where src casts shadow rays (the steps), the residual is of the
@@ -914,13 +1069,14 @@ __device__ __forceinline__ PixelGrad pixel_step(const S& sc, const Params& p, in
 //     subsample's adjoint takes a quarter of it and reads its own planes
 //     (CotangentSource::at).
 // Every lane runs every subsample (the walks' warp-wide votes).
-template <int SPP, class S, class Src, class Walk, class OnLight, class Take>
+template <int SPP, int REFL = 0, class S, class Src, class Walk, class OnLight, class Take>
 __device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i, int j,
                                             bool inside, const Src& src, const Walk& walk,
                                             OnLight on_light, Take take) {
   static_assert(SPP == 1 || SPP == 4, "spp is 1 or 4");
+  static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
   if constexpr (SPP == 1) {
-    take(pixel_step(sc, p, i, j, inside, src, walk, on_light));
+    take(pixel_step<REFL>(sc, p, i, j, inside, src, walk, on_light));
   } else if constexpr (Src::casts_shadows) {
     V3 acc = zero3();
     unsigned long long bits = 0;  // 16 bits a subsample: at most 16 lights (MAX_LIGHTS)
@@ -1029,10 +1185,10 @@ __host__ __device__ inline dim3 pixel_grid(int H, int W) {
 }
 
 // The grid of the flat and vec steps: the blocks of smem bytes that the
-// current card holds at once (its SM count times STEP_BLOCKS_PER_SM, fewer
-// where shared memory allows fewer), never more than the image has tiles;
-// 0 if the card cannot be queried.
-inline int step_blocks(size_t smem, int H, int W) {
+// current card holds at once (its SM count times max_per_sm, by default
+// STEP_BLOCKS_PER_SM, fewer where shared memory allows fewer), never more
+// than the image has tiles; 0 if the card cannot be queried.
+inline int step_blocks(size_t smem, int H, int W, int max_per_sm = STEP_BLOCKS_PER_SM) {
   int dev = 0, sms = 0, smem_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
@@ -1040,8 +1196,7 @@ inline int step_blocks(size_t smem, int H, int W) {
           cudaSuccess)
     return 0;
   const long long by_smem = smem_sm / ((long long)smem + 1024);  // 1 KB reserved a block
-  const int per_sm = by_smem < 1 ? 1 : by_smem < STEP_BLOCKS_PER_SM ? (int)by_smem
-                                                                     : STEP_BLOCKS_PER_SM;
+  const int per_sm = by_smem < 1 ? 1 : by_smem < max_per_sm ? (int)by_smem : max_per_sm;
   const dim3 tiles = pixel_grid(H, W);
   const long long n = (long long)tiles.x * tiles.y;
   return (int)(n < (long long)sms * per_sm ? n : (long long)sms * per_sm);

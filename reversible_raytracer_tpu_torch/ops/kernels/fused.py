@@ -30,6 +30,14 @@ The scene enters the kernels as one flat float32 vector in the leaf
 order of `models.scene.tree_leaves` (`flatten_scene`); the kernels find
 each leaf from the object and light counts alone (`flat_offsets`).
 
+One mirror bounce (``cfg.reflections == 1``, spp 1) is the TPU kernels'
+trace of `shade`'s bounce recursion: each kernel has an instance with a
+second level (REFL), traced from the shadow origin along the reflected
+direction where the primary ray hit, blended unclipped by the winner's
+mirror coefficient; the forward writes 2 L planes, bounce-major. The eager
+twins run the same levels (`forward_terms`, `_adjoint`). Two levels, and
+spp 4 with a bounce, are refused by name (`uncovered`).
+
 spp 4 (2x2 supersampling) is the TPU kernels' loop inside each kernel: a
 pixel is the average of four clipped subsamples at quarter-pixel offsets
 (`pipeline.SPP_OFFSETS`), summed in that order and times 0.25, as
@@ -66,8 +74,12 @@ from ..pipeline import (
     intersect_sphere,
     n_vis_planes,
     occluded,
+    primary_rays,
+    reflect_dir,
     render_tile,
+    shadow_origin,
     soft_checker_q,
+    trace_nearest,
 )
 from ._build import Kernel
 
@@ -77,18 +89,22 @@ MAX_LIGHTS = 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, clip
 
-# Each kernel's entry takes the spp (1 or 4) after the geometry; the entries
-# without it are spp 1, for tools/ and for checkouts from before spp 4.
+# Each kernel's entry takes the spp (1 or 4) and the bounce levels (0 or 1,
+# at spp 1) after the geometry; the entries without them are spp 1 or the
+# given spp without a bounce, for tools/ and for checkouts from before them.
 FUSED_RENDER = Kernel("fused_render", {
+    "rrt_render_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P], _I),
     "rrt_render_spp": ([_P, *_GEOM, _I, _P, _P, _P], _I),
     "rrt_render": ([_P, *_GEOM, _P, _P, _P], _I),
 })
 FUSED_STEP = Kernel("fused_step", {
+    "rrt_step_refl": ([_P, *_GEOM, _I, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step_spp": ([_P, *_GEOM, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step": ([_P, *_GEOM, _P, _F, _P, _P, _P], _I),
     "rrt_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 FUSED_RENDER_BWD = Kernel("fused_render_bwd", {
+    "rrt_render_bwd_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_spp": ([_P, *_GEOM, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd": ([_P, *_GEOM, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
@@ -136,10 +152,11 @@ def flat_offsets(n_sph: int, n_rect: int, n_light: int) -> dict:
     return {
         "s_center": 0, "s_radius": 3 * N, "s_color": 4 * N, "s_color2": 7 * N,
         "s_checker": 10 * N, "s_cscale": 11 * N, "s_ka": 12 * N, "s_kd": 13 * N,
-        "s_ks": 14 * N, "s_shin": 15 * N,
+        "s_ks": 14 * N, "s_shin": 15 * N, "s_mirror": 16 * N,
         "r_origin": R, "r_eu": R + 3 * M, "r_ev": R + 6 * M, "r_color": R + 9 * M,
         "r_color2": R + 12 * M, "r_checker": R + 15 * M, "r_cscale": R + 16 * M,
         "r_ka": R + 17 * M, "r_kd": R + 18 * M, "r_ks": R + 19 * M, "r_shin": R + 20 * M,
+        "r_mirror": R + 21 * M,
         "l_pos": Lb, "l_col": Lb + 3 * L,
         "c_eye": C, "c_look": C + 3, "c_up": C + 6, "c_fov": C + 9,
         "ambient": C + 10, "background": C + 13, "S": C + 16,
@@ -150,10 +167,12 @@ def uncovered(scene, cfg: RenderConfig):
     """What neither kernel family covers (a reason), or None."""
     if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
         return "soft_tau/checker_tau"
-    if cfg.reflections:
-        return "mirror reflections"
     if cfg.spp not in SPP_OFFSETS:
         return f"spp={cfg.spp} (spp is 1 or 4)"
+    if cfg.reflections > 1:
+        return "reflections > 1 (one bounce level is ported)"
+    if cfg.reflections and cfg.spp != 1:
+        return "spp 4 with mirror reflections"
     if cfg.shader != "phong":
         return f"the {cfg.shader} shader"
     if cfg.projection != "perspective":
@@ -239,15 +258,31 @@ def render_fused(scene, cfg: RenderConfig):
     kernel on CUDA, `render_fused_plain` on the CPU: the same image to the
     bit, the same planes where the ray hit an object; where it hit nothing
     the kernel's planes are 0 (the plain version's hold the shadow test of a
-    ray from the BIG sentinel; the render backward reads neither). The image
-    carries the scene's gradient on both: on CUDA through the render
-    backward kernel (the planes carry none)."""
+    ray from the BIG sentinel; the render backward reads neither). With a
+    bounce, a level-1 plane is the same where both levels hit, and 0 where
+    either missed. The image carries the scene's gradient on both: on CUDA
+    through the render backward kernel (the planes carry none)."""
     dev = scene.device
     if dev.type == "cpu":
         return render_fused_plain(scene, cfg)
     if dev.type != "cuda":
         raise NotImplementedError(f"no render kernel for device {dev}")
     return _FusedRender.apply(scene, cfg, *tree_leaves(scene))
+
+
+def level_hits(scene, cfg: RenderConfig):
+    """Per bounce level, the (H, W) pixels whose ray hit an object at spp 1:
+    level 0's primary rays, and with a bounce level 1's reflected rays where
+    level 0 hit too: where the forward kernel's planes of that level are the
+    plain version's (elsewhere the kernel's are 0)."""
+    o, d = primary_rays(scene, cfg)
+    t, hit, at = trace_nearest(scene, o, d, cfg.shape)
+    hits = [hit]
+    if cfg.reflections:
+        n = (at["nx"], at["ny"], at["nz"])
+        hit1 = trace_nearest(scene, shadow_origin(o, d, t, n), reflect_dir(d, n), cfg.shape)[1]
+        hits.append(hit & hit1)
+    return hits
 
 
 class _FusedRender(torch.autograd.Function):
@@ -261,8 +296,8 @@ class _FusedRender(torch.autograd.Function):
         flat = _cuda_flat(scene, cfg)
         img = torch.empty((cfg.height, cfg.width, 3), device=flat.device)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=flat.device)
-        FUSED_RENDER.call("rrt_render_spp", flat.data_ptr(), *_geometry(scene, cfg), cfg.spp,
-                          img.data_ptr(), vis.data_ptr(), _stream(flat.device))
+        FUSED_RENDER.call("rrt_render_refl", flat.data_ptr(), *_geometry(scene, cfg), cfg.spp,
+                          cfg.reflections, img.data_ptr(), vis.data_ptr(), _stream(flat.device))
         FUSED_RENDER.launches += 1
         ctx.scene, ctx.cfg = scene, cfg
         ctx.save_for_backward(flat, vis)
@@ -300,9 +335,9 @@ def _render_bwd_launch(scene_like, cfg, flat, g_img, vis):
     geom = _geometry(scene_like, cfg)
     scratch = _scratch(FUSED_RENDER_BWD, "rrt_render_bwd_scratch_floats", geom[:5], dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_RENDER_BWD.call("rrt_render_bwd_spp", flat.data_ptr(), *geom, cfg.spp,
-                          g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                          _stream(dev))
+    FUSED_RENDER_BWD.call("rrt_render_bwd_refl", flat.data_ptr(), *geom, cfg.spp,
+                          cfg.reflections, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
+                          out.data_ptr(), _stream(dev))
     FUSED_RENDER_BWD.launches += 1
     return out[1:]
 
@@ -356,8 +391,8 @@ def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
     geom = _geometry(scene, cfg)
     scratch = _scratch(FUSED_STEP, "rrt_step_scratch_floats", geom[:5], dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_STEP.call("rrt_step_spp", flat.data_ptr(), *geom, cfg.spp, target.data_ptr(),
-                    norm, scratch.data_ptr(), out.data_ptr(), _stream(dev))
+    FUSED_STEP.call("rrt_step_refl", flat.data_ptr(), *geom, cfg.spp, cfg.reflections,
+                    target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(), _stream(dev))
     FUSED_STEP.launches += 1
     return norm * out[0], unflatten_scene(scene, out[1:])
 
@@ -487,32 +522,34 @@ def image_cotangent(g_img):
 
 
 def traced_visibility(scene, cfg: RenderConfig, occluded_fn):
-    """The step's visibility of light ``li``: a shadow ray from the shadow
-    origin toward it, tested by ``occluded_fn`` (1 everywhere without
-    shadows)."""
-    def visibility(li, so, f, zero, hit):
+    """The step's visibility of light ``li`` (at any bounce ``level``): a
+    shadow ray from the shadow origin toward it, tested by ``occluded_fn``
+    (1 everywhere without shadows)."""
+    def visibility(li, so, f, zero, hit, level=0):
         if not cfg.shadows:
             return zero + 1.0
         return torch.where(occluded_fn(scene, so, f.ldir, f.dist), 0.0, 1.0)
     return visibility
 
 
-def saved_visibility(cfg: RenderConfig, vis):
-    """The render backward's visibility of light ``li``: the forward's plane
-    (`n_vis_planes` layout; a miss pixel's value is never used, as its
-    cotangents are masked to zero)."""
+def saved_visibility(cfg: RenderConfig, vis, n_light: int):
+    """The render backward's visibility of light ``li`` at bounce ``level``:
+    the forward's plane level L + li (`n_vis_planes` layout; a miss pixel's
+    value is never used, as its cotangents are masked to zero)."""
     if tuple(vis.shape[1:]) != (cfg.height, cfg.width):
         raise ValueError(f"visibility planes {tuple(vis.shape)} do not fit "
                          f"{(cfg.height, cfg.width)}")
-    return lambda li, so, f, zero, hit: vis[li].to(zero.dtype) if cfg.shadows else zero + 1.0
+    return lambda li, so, f, zero, hit, level=0: (vis[level * n_light + li].to(zero.dtype)
+                                                  if cfg.shadows else zero + 1.0)
 
 
 def subsample_planes(scene_like, cfg: RenderConfig, vis):
-    """``q -> saved_visibility`` of subsample q's planes (planes q L .. q L +
-    L - 1 of the forward's (spp L, H, W) planes, the `n_vis_planes`
-    layout), as `subsample_adjoint` takes its visibility."""
+    """``q -> saved_visibility`` of subsample q's planes (its (1 + R) L
+    planes of the forward's (spp (1 + R) L, H, W) planes for R bounces, the
+    `n_vis_planes` layout), as `subsample_adjoint` takes its visibility."""
     L = scene_like.lights.count
-    return lambda q: saved_visibility(cfg, vis[q * L:(q + 1) * L])
+    P = L * (1 + cfg.reflections)
+    return lambda q: saved_visibility(cfg, vis[q * P:(q + 1) * P], L)
 
 
 def _nearest_chain(scene, o, d):
@@ -705,13 +742,17 @@ def winner_rows(count, idx, mask, vals, like):
 
 def material_grads(mat_like, count, idx, mask, use2, g, like):
     """The material leaves' gradients of the winners: ``g`` holds the
-    per-pixel cotangents base (Vec3), ka, kd, ks, shin; base goes to color
-    or color2 as the checker picked."""
+    per-pixel cotangents base (Vec3), ka, kd, ks, shin, and mir (the mirror
+    coefficient's, or None for none); base goes to color or color2 as the
+    checker picked."""
     rows = winner_rows(count, idx, mask, [g.ka, g.kd, g.ks, g.shin], like)
-    return dc.replace(mat_like,
-                      color=winner_rows(count, idx, mask & ~use2, g.base, like),
-                      color2=winner_rows(count, idx, mask & use2, g.base, like),
-                      ka=rows[:, 0], kd=rows[:, 1], ks=rows[:, 2], shininess=rows[:, 3])
+    out = dc.replace(mat_like,
+                     color=winner_rows(count, idx, mask & ~use2, g.base, like),
+                     color2=winner_rows(count, idx, mask & use2, g.base, like),
+                     ka=rows[:, 0], kd=rows[:, 1], ks=rows[:, 2], shininess=rows[:, 3])
+    if getattr(g, "mir", None) is not None:
+        out = dc.replace(out, mirror=winner_rows(count, idx, mask, [g.mir], like)[:, 0])
+    return out
 
 
 def winner_geometry(scene, k, zero):
@@ -782,23 +823,21 @@ def winner_surface(scene, w, o, d, t, zero, checker_tau=0.0):
         w.base = tuple(pick(torch.where(s_use2, a2, a1), torch.where(r_use2, b2, b1), zero)
                        for a1, a2, b1, b2 in zip(s_c1, s_c2, r_c1, r_c2))
     w.ka, w.kd, w.ksp, w.shin = mat("ka"), mat("kd"), mat("ks"), mat("shininess", 1.0)
+    w.mir = mat("mirror")
     return w
 
 
-def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
-    """The forward of the hard kernels in eager torch at the subsample offset
-    ``off``, with what their
-    adjoint needs: the primary rays (``ray``), the nearest hit (``t``) and
-    the winner's surface (``w``), the shadow origins (``so``), per light its
-    terms and visibility plane (``per_light``), the unclipped image
-    (``pre``) and the image (``img``), each a tuple of (H, W) channels.
-    ``nearest(scene, o, d) -> (t, k)`` is the trace's nearest hit;
-    ``visibility(li, so, f, zero, hit)`` gives light li's visibility plane
-    where the rays ``hit`` (`traced_visibility`, `saved_visibility`)."""
+def level_terms(scene, nearest, visibility, o, d, zero, level=0):
+    """One level of the hard kernels' forward in eager torch, for the rays
+    (``o``, ``d``): the nearest hit (``t``) and the winner's surface
+    (``w``), the shadow origins (``so``), per light its terms and
+    visibility plane (``per_light``), and the unclipped colour (``col``,
+    the background where the ray hit nothing), each a tuple of (H, W)
+    channels. ``nearest(scene, o, d) -> (t, k)`` is the trace's nearest
+    hit; ``visibility(li, so, f, zero, hit, level)`` gives light li's
+    visibility plane at this bounce ``level`` where the rays ``hit``
+    (`traced_visibility`, `saved_visibility`)."""
     lt = scene.lights
-    zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
-    ray = primary_ray_terms(scene, cfg, off)
-    o, d = ray.o, ray.d
     t, kbest = nearest(scene, o, d)
     w = winner_surface(scene, winner_geometry(scene, kbest, zero), o, d, t, zero)
     amb = vm.splat(scene.ambient)
@@ -807,13 +846,38 @@ def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
     per_light = []
     for li in range(lt.count):
         f = light_terms(lt, li, so, w.n, d, w.base, w.kd, w.ksp, w.shin)
-        vis = visibility(li, so, f, zero, w.hit)
+        vis = (visibility(li, so, f, zero, w.hit, level=level) if level
+               else visibility(li, so, f, zero, w.hit))
         col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
         per_light.append((f, vis))
     bg = vm.splat(scene.background)
-    pre = tuple(torch.where(w.hit, c, b) for c, b in zip(col, bg))
+    col = tuple(torch.where(w.hit, c, b) for c, b in zip(col, bg))
+    return SimpleNamespace(o=o, d=d, t=t, w=w, so=so, per_light=per_light, col=col)
+
+
+def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
+    """The forward of the hard kernels in eager torch at the subsample offset
+    ``off``, with what their adjoint needs: the primary rays (``ray``), each
+    bounce level's `level_terms` (``levels``; level 0's ``t``, ``w``,
+    ``so`` and ``per_light`` also as attributes), the mirror weight ``m`` =
+    where(hit, mirror, 0) of a reflective render, the unclipped image
+    (``pre``) and the image (``img``), each a tuple of (H, W) channels. With
+    ``cfg.reflections`` (one level, as the kernels take it) level 1 traces
+    the reflected rays from level 0's shadow origins along `reflect_dir`,
+    and pre = col0 + m (col1 - col0) (`pipeline.shade_levels`)."""
+    zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
+    ray = primary_ray_terms(scene, cfg, off)
+    lv = level_terms(scene, nearest, visibility, ray.o, ray.d, zero)
+    levels, m, pre = [lv], None, lv.col
+    if cfg.reflections:
+        lv1 = level_terms(scene, nearest, visibility, lv.so, reflect_dir(ray.d, lv.w.n), zero,
+                          level=1)
+        levels.append(lv1)
+        m = torch.where(lv.w.hit, lv.w.mir, 0.0)
+        pre = tuple(c + m * (rc - c) for c, rc in zip(lv.col, lv1.col))
     img = tuple(vm.clip01(c) for c in pre) if cfg.clip else pre
-    return SimpleNamespace(ray=ray, t=t, w=w, so=so, per_light=per_light, pre=pre, img=img)
+    return SimpleNamespace(ray=ray, t=lv.t, w=lv.w, so=lv.so, per_light=lv.per_light,
+                           levels=levels, m=m, pre=pre, img=img)
 
 
 def subsample_average(imgs):
@@ -857,40 +921,71 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
     of squared residuals, grads as a Scene)``. ``nearest`` and
     ``visibility`` as `forward_terms` takes them; ``cotangent(img)`` gives
     the cotangent of the clipped image per channel and the squared error
-    (`residual_cotangent`, `image_cotangent`)."""
-    dev = scene.device
-    H, W = cfg.height, cfg.width
-    sp, rc, lt, cam = scene.spheres, scene.rects, scene.lights, scene.camera
-    N, M, L = sp.count, rc.count, lt.count
-    like = dict(device=dev, dtype=scene.ambient.dtype)
-    zero = torch.zeros((H, W), **like)
-
-    # ---- forward: the camera ray with its intermediates, the nearest hit,
-    # the winner's attributes, the shading
+    (`residual_cotangent`, `image_cotangent`). With a bounce level the
+    adjoint runs deepest level first: level 1's shading and winner under the
+    cotangent m gc, its ray's cotangents carried back into level 0's shadow
+    origin (the reflected ray's origin), normal and direction; then level 0
+    under (1 - m) gc, and the mirror coefficient's (col1 - col0) . gc."""
+    zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
     fw = forward_terms(scene, cfg, nearest, visibility, off)
-    ray, t, w, per_light, pre, img = fw.ray, fw.t, fw.w, fw.per_light, fw.pre, fw.img
-    o, d = ray.o, ray.d
-    is_sph, is_rct, hit, ks_, kr_ = w.is_sph, w.is_rct, w.hit, w.ks, w.kr
-    sc, sr, p0, eu, ev = w.sc, w.sr, w.p0, w.eu, w.ev
-    pick, n, use2, base = w.pick, w.n, w.use2, w.base
-    ka, kd, ksp, shin = w.ka, w.kd, w.ksp, w.shin
-    amb = vm.splat(scene.ambient)
+    lv = fw.levels[0]
+    hit = lv.w.hit
 
     # ---- the image's cotangent, through the clip
-    g_img, sq = cotangent(img)
-    gc = tuple(g * (_clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, pre))
+    g_img, sq = cotangent(fw.img)
+    gc = tuple(g * (_clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, fw.pre))
+
+    # ---- the bounce, col = col0 + m (col1 - col0): level 1, then what it
+    # hands level 0
+    bounce, grads1 = None, None
+    if cfg.reflections:
+        lv1, m = fw.levels[1], fw.m
+        g_o1, g_d1, grads1 = level_adjoint(scene, lv1, tuple(g * m for g in gc), zero)
+        n, d = lv.w.n, lv.d  # d1 = d - 2 (d . n) n
+        gdn, dn = vm.vdot(n, g_d1), vm.vdot(d, n)
+        bounce = dict(so=g_o1, d=vm.vsub(g_d1, vm.vscale(n, 2.0 * gdn)),
+                      n=vm.vscale(vm.vadd(vm.vscale(d, gdn), vm.vscale(g_d1, dn)), -2.0),
+                      mir=sum(g * (c1 - c0) for g, c0, c1 in zip(gc, lv.col, lv1.col)))
+        gc = tuple(g * (1.0 - m) for g in gc)
+    g_o, g_d, grads = level_adjoint(scene, lv, gc, zero, bounce)
+    if grads1 is not None:
+        grads = tree_map(torch.add, grads, grads1)
+
+    # ---- camera
+    g_eye, g_look, g_uph, g_fov = camera_grads(
+        scene.camera, fw.ray, tuple(torch.where(hit, x, 0.0) for x in g_o),
+        tuple(torch.where(hit, x, 0.0) for x in g_d))
+    camera = dc.replace(grads.camera, eye=g_eye, look_at=g_look, up=g_uph, fov_deg=g_fov)
+    return sq, dc.replace(grads, camera=camera)
+
+
+def level_adjoint(scene, lv, g_col, zero, bounce=None):
+    """The adjoint of one level (`level_terms`) for the cotangent ``g_col``
+    of its unclipped colour: the shade adjoint (the background's where the
+    ray hit nothing), the shadow origin's, and the winning object's only.
+    ``bounce``, from the level it reflects: the cotangents of this level's
+    shadow origin ``so``, ray direction ``d`` and normal ``n``, and of its
+    winner's mirror coefficient ``mir`` (each used where the ray hit).
+    Returns the per-pixel cotangents of the level's ray origin and direction
+    (not masked) and the gradient of every leaf but the camera's (a Scene)."""
+    like = dict(device=zero.device, dtype=zero.dtype)
+    sp, rc, lt = scene.spheres, scene.rects, scene.lights
+    N, M, L = sp.count, rc.count, lt.count
+    w, o, d, t = lv.w, lv.o, lv.d, lv.t
+    hit, n, base = w.hit, w.n, w.base
+    amb = vm.splat(scene.ambient)
 
     # ---- shade adjoint (hit pixels; everything below is masked by hit)
-    gh = tuple(torch.where(hit, g, 0.0) for g in gc)
-    g_bg = tuple(torch.sum(torch.where(hit, 0.0, g)) for g in gc)
-    g = SimpleNamespace(base=tuple(gh[c] * amb[c] * ka for c in range(3)),
+    gh = tuple(torch.where(hit, g, 0.0) for g in g_col)
+    g_bg = tuple(torch.sum(torch.where(hit, 0.0, g)) for g in g_col)
+    g = SimpleNamespace(base=tuple(gh[c] * amb[c] * w.ka for c in range(3)),
                         ka=sum(gh[c] * base[c] * amb[c] for c in range(3)),
                         kd=zero, ks=zero, shin=zero)
-    g_amb = tuple(torch.sum(gh[c] * base[c] * ka) for c in range(3))
+    g_amb = tuple(torch.sum(gh[c] * base[c] * w.ka) for c in range(3))
     g_n, g_d, g_so = (zero,) * 3, (zero,) * 3, (zero,) * 3
     g_lpos, g_lcol = [], []
-    for f, vis in per_light:
-        gl = light_adjoint(f, gh, vis, n, d, base, kd, ksp, shin)
+    for f, vis in lv.per_light:
+        gl = light_adjoint(f, gh, vis, n, d, base, w.kd, w.ksp, w.shin)
         g_lcol.append(tuple(torch.sum(x) for x in gl.lcol))
         g.kd, g.ks, g.shin = g.kd + gl.kd, g.ks + gl.ks, g.shin + gl.shin
         g.base = vm.vadd(g.base, gl.base)
@@ -899,6 +994,9 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
         g_lvec = light_geometry_adjoint(f, gl.ldir)
         g_lpos.append(tuple(torch.sum(x) for x in g_lvec))
         g_so = vm.vsub(g_so, g_lvec)
+    if bounce is not None:
+        g_so, g_d, g_n = (vm.vadd(mine, tuple(torch.where(hit, x, 0.0) for x in bounce[key]))
+                          for mine, key in ((g_so, "so"), (g_d, "d"), (g_n, "n")))
     # so = (o + d t) + n * SHADOW_EPS
     g_o = g_so
     g_d = vm.vadd(g_d, vm.vscale(g_so, t))
@@ -906,33 +1004,30 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
     g_n = vm.vadd(g_n, vm.vscale(g_so, SHADOW_EPS))
 
     # ---- the winning object
-    s_go, s_gd, g_c, g_r = sphere_winner_adjoint(o, d, t, sc, sr, g_t, g_n)
-    r_go, r_gd, g_p0, g_eu, g_ev = rect_winner_adjoint(o, d, p0, eu, ev, is_rct, g_t, g_n)
-    g_o = tuple(g_o[c] + pick(s_go[c], r_go[c], zero) for c in range(3))
-    g_d = tuple(g_d[c] + pick(s_gd[c], r_gd[c], zero) for c in range(3))
+    s_go, s_gd, g_c, g_r = sphere_winner_adjoint(o, d, t, w.sc, w.sr, g_t, g_n)
+    r_go, r_gd, g_p0, g_eu, g_ev = rect_winner_adjoint(o, d, w.p0, w.eu, w.ev, w.is_rct, g_t, g_n)
+    g_o = tuple(g_o[c] + w.pick(s_go[c], r_go[c], zero) for c in range(3))
+    g_d = tuple(g_d[c] + w.pick(s_gd[c], r_gd[c], zero) for c in range(3))
 
-    # ---- camera, and the reduction into the scene's leaves
-    g_eye, g_look, g_uph, g_fov = camera_grads(
-        cam, ray, tuple(torch.where(hit, x, 0.0) for x in g_o),
-        tuple(torch.where(hit, x, 0.0) for x in g_d))
+    # ---- the reduction into the scene's leaves
     grads = tree_unflatten(scene, [torch.zeros_like(l) for l in tree_leaves(scene)])
     spheres, rects = grads.spheres, grads.rects
+    g.mir = None if bounce is None else bounce["mir"]
     if N:
-        spheres = dc.replace(spheres, center=winner_rows(N, ks_, is_sph, g_c, like),
-                             radius=winner_rows(N, ks_, is_sph, [g_r], like)[:, 0],
-                             material=material_grads(spheres.material, N, ks_, is_sph, use2,
-                                                     g, like))
+        spheres = dc.replace(spheres, center=winner_rows(N, w.ks, w.is_sph, g_c, like),
+                             radius=winner_rows(N, w.ks, w.is_sph, [g_r], like)[:, 0],
+                             material=material_grads(spheres.material, N, w.ks, w.is_sph,
+                                                     w.use2, g, like))
     if M:
-        rects = dc.replace(rects, origin=winner_rows(M, kr_, is_rct, g_p0, like),
-                           edge_u=winner_rows(M, kr_, is_rct, g_eu, like),
-                           edge_v=winner_rows(M, kr_, is_rct, g_ev, like),
-                           material=material_grads(rects.material, M, kr_, is_rct, use2, g,
+        rects = dc.replace(rects, origin=winner_rows(M, w.kr, w.is_rct, g_p0, like),
+                           edge_u=winner_rows(M, w.kr, w.is_rct, g_eu, like),
+                           edge_v=winner_rows(M, w.kr, w.is_rct, g_ev, like),
+                           material=material_grads(rects.material, M, w.kr, w.is_rct, w.use2, g,
                                                    like))
     lights = grads.lights
     if L:
         lights = dc.replace(lights, position=torch.stack([torch.stack(x) for x in g_lpos]),
                             color=torch.stack([torch.stack(x) for x in g_lcol]))
-    camera = dc.replace(grads.camera, eye=g_eye, look_at=g_look, up=g_uph, fov_deg=g_fov)
-    grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights, camera=camera,
+    grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights,
                        ambient=torch.stack(g_amb), background=torch.stack(g_bg))
-    return sq, grads
+    return g_o, g_d, grads

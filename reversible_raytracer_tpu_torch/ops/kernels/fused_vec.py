@@ -231,6 +231,8 @@ def check_vec_kernel_config(scene, cfg: RenderConfig) -> None:
     (the TPU kernels' reflection levels, texel tails and env global are
     still to port); any object count is covered."""
     why = fused.uncovered(scene, cfg)
+    if why is None and cfg.reflections:
+        why = "mirror reflections (their bounce levels in rows 4-6 are still to port)"
     if why is not None:
         raise NotImplementedError(f"the object-chunked CUDA kernels do not cover {why}")
 

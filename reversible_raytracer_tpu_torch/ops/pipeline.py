@@ -9,8 +9,12 @@ soft renderer (`pipeline_vec.shade_soft`, ``soft_tau > 0``) feeds it.
 `sphere_hit` and `rect_hit` also take the soft checker (``checker_tau >
 0``, `soft_checker_q`), which only the object-vectorized renderer
 (`pipeline_vec`) passes them: the where chain (`shade`) refuses it, as the
-JAX package's hard family does. Textures, environment maps and mirror
-reflections raise `NotImplementedError`.
+JAX package's hard family does. Mirror reflections (``cfg.reflections``
+bounces, each object's ``mirror`` coefficient) follow the JAX package's
+reflective `shade`: each level shaded unclipped, the reflected colour
+blended in deepest level first, one clip at the top; they take hard
+semantics only (``soft_tau`` and ``checker_tau`` 0). Textures and
+environment maps raise `NotImplementedError`.
 
 This is the plain version of the CUDA kernels (`ops.kernels.fused`): on
 the CPU it is the renderer, and on the card it is what the kernels are held
@@ -19,6 +23,7 @@ against. Its gradients come from torch autograd.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -63,11 +68,13 @@ def _require_hard(scene, cfg: RenderConfig, soft_checker: bool = False) -> None:
     ``checker_tau > 0`` passes only for a shader that takes the soft checker
     (``soft_checker``: the object-vectorized ones); the where chain refuses
     it (the JAX package's pipeline.py:99-101)."""
+    if cfg.reflections and (cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0):
+        raise NotImplementedError(
+            "mirror reflections require hard semantics (reflections=0 when soft_tau/checker_tau "
+            "> 0; anneal to hard, then polish with reflections on)")
     if cfg.checker_tau > 0.0 and not soft_checker:
         raise NotImplementedError(
             "checker_tau > 0 (the soft checker) renders through pipeline_vec (render_eager_vec)")
-    if cfg.reflections and cfg.shader == "phong":
-        raise NotImplementedError("mirror reflections are not ported yet")
     if scene.env_mapped:
         raise NotImplementedError("environment maps are not ported yet")
     if scene.spheres.textured or scene.rects.textured:
@@ -174,7 +181,8 @@ def material_rows(mat, pick) -> dict:
     each pixel's winner's row (a per-pixel gather)."""
     return dict(color=_xyz(pick(mat.color)), color2=_xyz(pick(mat.color2)),
                 checker=pick(mat.checker), scale=pick(mat.checker_scale), ka=pick(mat.ka),
-                kd=pick(mat.kd), ks=pick(mat.ks), shin=pick(mat.shininess))
+                kd=pick(mat.kd), ks=pick(mat.ks), shin=pick(mat.shininess),
+                mir=pick(mat.mirror))
 
 
 def _checker_select(m, parity) -> Vec3:
@@ -251,27 +259,32 @@ def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m, chec
 _ATTRS = ("nx", "ny", "nz", "cr", "cg", "cb", "ka", "kd", "ks", "shin")
 
 
-def init_attrs(shape, like) -> dict:
-    """The attributes of a pixel that hits nothing."""
+def init_attrs(shape, like, with_mirror: bool = False) -> dict:
+    """The attributes of a pixel that hits nothing; ``with_mirror`` adds the
+    mirror coefficient ("mir", 0), which only a level that blends in a
+    reflection reads."""
     best = {k: torch.zeros(shape, **like) for k in _ATTRS}
     best["shin"] = torch.ones(shape, **like)
+    if with_mirror:
+        best["mir"] = torch.zeros(shape, **like)
     return best
 
 
 def merge_attrs(best: dict, mask, n_unit: Vec3, col: Vec3, m) -> dict:
     """``best`` with the attributes of a hit where ``mask`` holds."""
-    new = dict(zip(_ATTRS, (*n_unit, *col, m["ka"], m["kd"], m["ks"], m["shin"])))
+    new = dict(zip(_ATTRS, (*n_unit, *col, m["ka"], m["kd"], m["ks"], m["shin"])), mir=m["mir"])
     return {key: torch.where(mask, new[key], best[key]) for key in best}
 
 
-def trace_nearest(scene, o: Vec3, d: Vec3, shape):
+def trace_nearest(scene, o: Vec3, d: Vec3, shape, with_mirror: bool = False):
     """Closest hit over all spheres, then all rects. Returns (t, hit, attrs)
-    with per-pixel unit normal, base color and material scalars."""
+    with per-pixel unit normal, base color and material scalars, and with
+    ``with_mirror`` the mirror coefficient ("mir")."""
     if scene.spheres.textured or scene.rects.textured:
         raise NotImplementedError("object textures are not ported yet")
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     t_best = torch.full(shape, BIG, **like)
-    best = init_attrs(shape, like)
+    best = init_attrs(shape, like, with_mirror)
     sp, rc = scene.spheres, scene.rects
     for k in range(sp.count):
         m = material_rows(sp.material, lambda x: x[k])
@@ -365,13 +378,53 @@ def shade_from_attrs(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape,
     return col
 
 
+def reflect_dir(d: Vec3, n: Vec3) -> Vec3:
+    """Specular reflection of (unit) ``d`` about (unit) ``n``: d - 2 (d . n) n,
+    the JAX package's primitive sequence (and the kernels')."""
+    return vm.vsub(d, vm.vscale(n, 2.0 * vm.vdot(d, n)))
+
+
+def shade_levels(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape, trace_fn,
+                 return_vis: bool = False, occluded_fn=occluded):
+    """Trace + shade plus ``cfg.reflections`` mirror bounces (the phong
+    shader only), through ``trace_fn(scene, o, d, shape, with_mirror) ->
+    (t, hit, attrs)``. Each level's colour is unclipped; a level that blends
+    (every one above the deepest) traces the reflected ray from its shadow
+    origin along `reflect_dir`, and composes col + m (rcol - col) with m =
+    where(hit, mirror, 0), deepest level first; one clip at the top. The
+    visibility planes go level by level (level 0's L lights first)."""
+    bounces = cfg.reflections if cfg.shader == "phong" else 0
+    if bounces == 0:
+        t, hit, at = trace_fn(scene, o, d, shape, False)
+        return shade_from_attrs(scene, o, d, cfg, shape, t, hit, at, return_vis=return_vis,
+                                occluded_fn=occluded_fn)
+    cfg_level = dataclasses.replace(cfg, clip=False)
+    vis_out = []
+
+    def level(o_l, d_l, depth):
+        t, hit, at = trace_fn(scene, o_l, d_l, shape, depth < bounces)
+        out = shade_from_attrs(scene, o_l, d_l, cfg_level, shape, t, hit, at,
+                               return_vis=return_vis, occluded_fn=occluded_fn)
+        col, vis = out if return_vis else (out, ())
+        vis_out.extend(vis)
+        if depth < bounces:
+            n = (at["nx"], at["ny"], at["nz"])
+            rcol = level(shadow_origin(o_l, d_l, t, n), reflect_dir(d_l, n), depth + 1)
+            m = torch.where(hit, at["mir"], 0.0)
+            col = tuple(c + m * (rc - c) for c, rc in zip(col, rcol))
+        return col
+
+    col = level(o, d, 0)
+    if cfg.clip:
+        col = tuple(vm.clip01(c) for c in col)
+    return (col, tuple(vis_out)) if return_vis else col
+
+
 def shade(scene, o: Vec3, d: Vec3, cfg: RenderConfig, shape, return_vis: bool = False):
-    """Trace + shade with no mirror bounces."""
+    """Trace (the where chain) + shade, with ``cfg.reflections`` mirror
+    bounces (`shade_levels`)."""
     require_hard_visibility(cfg)
-    if cfg.reflections and cfg.shader == "phong":
-        raise NotImplementedError("mirror reflections are not ported yet")
-    t, hit, at = trace_nearest(scene, o, d, shape)
-    return shade_from_attrs(scene, o, d, cfg, shape, t, hit, at, return_vis=return_vis)
+    return shade_levels(scene, o, d, cfg, shape, trace_nearest, return_vis=return_vis)
 
 
 def n_vis_planes(scene_like, cfg: RenderConfig) -> int:

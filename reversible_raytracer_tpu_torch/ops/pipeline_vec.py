@@ -1,7 +1,7 @@
 """Object-vectorized renderer in eager torch, hard and soft.
 
 The counterpart of `reversible_raytracer_tpu.ops.pipeline_vec` for the
-untextured, bounce-free branches. Hard: the objects of a scene lie on a
+untextured branches. Hard: the objects of a scene lie on a
 leading axis (`t_all: (N + M, H, W)`), the nearest hit is an argmin over
 that axis with first-wins ties (spheres first, then rects), and the shadow
 test is an any-hit over it. Only the winning object's intersection and
@@ -26,8 +26,12 @@ Both take the soft checker (``checker_tau > 0``, the JAX package's
 `_gather_layer` branch): each winner's base colour blends color and color2
 by the smooth parity `pipeline.soft_checker_q` of its hit position, which
 gives the hit positions, and through them the camera, a gradient. With
-``checker_tau == 0`` the checker is the hard select, bit for bit. Textures,
-environment maps and mirror reflections raise `NotImplementedError`.
+``checker_tau == 0`` the checker is the hard select, bit for bit. The hard
+shader takes mirror reflections (``cfg.reflections`` levels, as
+`pipeline.shade_levels` composes them, with the winner's mirror coefficient
+gathered per level: the JAX package's `_render_hard_once` levels); the soft
+one and the soft checker refuse them, as the JAX package's `render_jnp_vec`
+does. Textures and environment maps raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from .pipeline import (
     render_tile,
     require_hard_visibility,
     shade_from_attrs,
+    shade_levels,
     sphere_hit,
 )
 
@@ -120,11 +125,12 @@ def _take(rows, idx):
     return out.reshape(*idx.shape, *rows.shape[1:])
 
 
-def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0):
+def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0, with_mirror=False):
     """`pipeline.trace_nearest` with the objects on a leading axis: (t, hit,
     attrs), where only the winner's intersection and attributes are
     evaluated (with gradient) per pixel; the checker soft at
-    ``checker_tau > 0``."""
+    ``checker_tau > 0``; with ``with_mirror`` the winner's mirror
+    coefficient ("mir") too."""
     if scene.spheres.textured or scene.rects.textured:
         raise NotImplementedError("object textures are not ported yet")
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
@@ -132,7 +138,7 @@ def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0):
     N, M = sp.count, rc.count
     _, k = nearest_vec(scene, o, d)
     t = torch.full(shape, BIG, **like)
-    best = init_attrs(shape, like)
+    best = init_attrs(shape, like, with_mirror)
     if N:
         ks = k.clamp(0, N - 1)
         pick = lambda x: _take(x, ks)
@@ -154,13 +160,13 @@ def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0):
 
 
 def shade_vec(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
-    """`pipeline.shade` through the object-vectorized trace and any-hit."""
+    """`pipeline.shade` through the object-vectorized trace and any-hit,
+    with its mirror bounces (`pipeline.shade_levels`)."""
     require_hard_visibility(cfg)
-    if cfg.reflections and cfg.shader == "phong":
-        raise NotImplementedError("mirror reflections are not ported yet")
-    t, hit, at = trace_nearest_vec(scene, o, d, shape, cfg.checker_tau)
-    return shade_from_attrs(scene, o, d, cfg, shape, t, hit, at, return_vis=return_vis,
-                            occluded_fn=occluded_any)
+    trace = lambda sc, o_l, d_l, sh, mir: trace_nearest_vec(sc, o_l, d_l, sh, cfg.checker_tau,
+                                                            mir)
+    return shade_levels(scene, o, d, cfg, shape, trace, return_vis=return_vis,
+                        occluded_fn=occluded_any)
 
 
 # ---------------------------------------------------------------------------

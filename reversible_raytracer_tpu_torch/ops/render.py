@@ -17,7 +17,11 @@ in the JAX package (whose TPU dispatch sends it to `render_jnp_vec`): it
 runs `render_eager_vec` on either device. Every kernel family renders spp
 1 and 4; the training step of a spp-4 soft render has no kernel, as in the
 JAX package (whose `loss_and_grad_fn` sends it to ``"vag"``), and is
-autograd of `render` (`loss_and_grad_fn`).
+autograd of `render` (`loss_and_grad_fn`). Mirror reflections (one bounce
+level, spp 1) take the unrolled kernels on CUDA, as the JAX package's
+render.py:116-128 sends them there; a reflective scene of more than 24
+objects, two levels or spp 4 with reflections are refused there by name,
+and render on the CPU through both eager twins.
 """
 
 from __future__ import annotations

@@ -494,12 +494,20 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
     iteration. ``checker_ratio > 0`` relaxes the checker as well, each stage
     at ``checker_tau = checker_ratio * tau`` (the soft checker, which gives
     the camera a gradient against checkered materials: config 4's recipe is
-    12.5), so the tau = 0 polish keeps the hard checker. Returns
+    12.5), so the tau = 0 polish keeps the hard checker. A reflective
+    ``rcfg`` with a soft stage raises before any stage runs: soft rendering
+    takes no mirror bounce, as in the JAX package (anneal the geometry
+    without it, then polish with it). Returns
     (final_scene, losses[len(taus) * iters]) on the scene's device."""
     import dataclasses
 
     from .ops.render import render, resolve_impl
 
+    if rcfg.reflections and any(float(tau) > 0.0 for tau in taus):
+        raise NotImplementedError(
+            "mirror reflections require hard semantics: the soft (tau > 0) stages of "
+            "optimize_annealed take reflections=0 (anneal without the bounce, then polish "
+            "with reflections on)")
     if soft_size is not None and target_scene is None:
         raise ValueError("soft_size requires target_scene (stage targets are re-rendered)")
     if hard_ocfg == "auto":

@@ -293,4 +293,4 @@ def test_invert_config4_checker_ratio_on_cpu(tmp_path):
                      "2", "--log-every", "1", "--quiet"])
     assert len(hard["history"]) == 2 and np.isfinite(hard["param_err"])
     with pytest.raises(SystemExit):
-        cli.main(["invert", "--device", "cpu", "--config", "6", "--size", "8"])
+        cli.main(["invert", "--device", "cpu", "--config", "7", "--size", "8"])

@@ -1172,3 +1172,122 @@ def test_spp4_soft_step_is_autograd_of_the_render(cuda):
     assert abs(float(l_k) - float(l_p)) <= 1e-4 * float(l_p)
     _close_leaves(g_p, g_k)
 
+
+
+# ---------------------------------------------------------------------------
+# One mirror bounce (reflections 1) in rows 1-3: config 6
+# ---------------------------------------------------------------------------
+
+MIRROR_SHAPES = [(512, 512), (200, 333), (57, 70)]
+
+
+def _mirror_case(cuda, H=512, W=512, seed=3):
+    scene, spec, _ = configs.config6_mirror(device=cuda)
+    cfg = RenderConfig(height=H, width=W, shadows=True, reflections=1)
+    return scene, configs.perturb(scene, spec, scale=0.3, seed=seed), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W", MIRROR_SHAPES)
+def test_mirror_forward_bit_identical(cuda, H, W):
+    """Row 2 with a bounce level against `render_fused_plain`: the image bit
+    for bit; 2 L planes, level 0's bit for bit where the primary ray hit and
+    level 1's where both levels hit, 0 elsewhere; one launch a call."""
+    _, scene, cfg = _mirror_case(cuda, H, W)
+    before = fused.FUSED_RENDER.launches
+    img_k, vis_k = fused.render_fused(scene, cfg)
+    assert fused.FUSED_RENDER.launches == before + 1
+    img_p, vis_p = fused.render_fused_plain(scene, cfg)
+    L = scene.lights.count
+    assert vis_k.shape == vis_p.shape == (2 * L, H, W)
+    assert torch.equal(img_k, img_p)
+    for lv, hit in enumerate(fused.level_hits(scene, cfg)):
+        k, p = vis_k[lv * L:(lv + 1) * L], vis_p[lv * L:(lv + 1) * L]
+        assert torch.equal(k[:, hit], p[:, hit]) and not k[:, ~hit].any()
+    assert not torch.equal(img_k, fused.render_fused(scene, dataclasses.replace(
+        cfg, reflections=0))[0])
+
+
+@pytest.mark.cuda
+def test_mirror_step_matches_adjoint(cuda):
+    """Row 1 with a bounce level at 512^2: against the eager twin and
+    autograd (loss within 1e-4 relative, every leaf within 1e-2 of its
+    scale, the diffuse sphere's centre too); one launch a call, the same
+    bits twice; against row 2's own image of the true scene a loss and
+    gradient of exactly 0. The diffuse sphere's mirror coefficient at 0 has
+    a gradient toward an image where it reflects (perturb seed 1 takes it
+    to 0.246): the bounce is traced where m = 0."""
+    scene, start, cfg = _mirror_case(cuda)
+    target = fused.render_fused(scene, cfg)[0]
+    before = fused.FUSED_STEP.launches
+    l_k, g_k = fused.loss_grad_fused(start, cfg, target)
+    assert fused.FUSED_STEP.launches == before + 1
+    l_2, g_2 = fused.loss_grad_fused(start, cfg, target)
+    assert torch.equal(torch.cat([l_k.reshape(1), fused.flatten_scene(g_k)]),
+                       torch.cat([l_2.reshape(1), fused.flatten_scene(g_2)]))
+    for ref in (fused.loss_grad_adjoint_eager, fused.loss_grad_fused_plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    assert float(g_k.spheres.center[1].abs().max()) > 0.0
+    l_0, g_0 = fused.loss_grad_fused(scene, cfg, target)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+    up = _mirror_case(cuda, seed=1)[1]
+    assert float(scene.spheres.material.mirror[1]) == 0.0 < float(up.spheres.material.mirror[1])
+    target_up = fused.render_fused(up, cfg)[0]
+    g_u = fused.loss_grad_fused(scene, cfg, target_up)[1]
+    _close_leaves(fused.loss_grad_fused_plain(scene, cfg, target_up)[1], g_u)
+    assert float(g_u.spheres.material.mirror[1]) < 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W", MIRROR_SHAPES)
+def test_mirror_render_bwd_matches_plain(cuda, H, W):
+    """Row 3 with a bounce level, by autograd of `render`: against autograd
+    of the eager render and the eager twin fed row 2's planes, every leaf
+    within 1e-2 of its scale; one launch a call; its mse gradient row 1's
+    bit for bit."""
+    scene, start, cfg = _mirror_case(cuda, H, W)
+    g = _seeded(cfg, 0, cuda)
+    before = fused.FUSED_RENDER_BWD.launches
+    got = fused.autograd_vjp(render, start, cfg, g)
+    assert fused.FUSED_RENDER_BWD.launches == before + 1
+    _close_leaves(fused.render_fused_bwd_plain(start, cfg, g), got)
+    _close_leaves(fused.render_bwd_adjoint_eager(start, cfg, g,
+                                                 fused.render_fused(start, cfg)[1]), got)
+    target = render(scene, cfg).detach()
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([l.grad.reshape(-1) for l in leaves])
+    assert torch.equal(by_render, fused.flatten_scene(fused.loss_grad_fused(start, cfg,
+                                                                            target)[1]))
+
+
+@pytest.mark.cuda
+def test_mirror_inversion_recovers_the_coefficients(cuda):
+    """`invert --config 6 --perturb 0.3 --lr 2e-2 --iters 150 --seed 3` at
+    48^2 on the card: the mirror coefficients' RMS error from its start
+    below 1e-3, through row 1 (150 launches) and row 2 (2)."""
+    from reversible_raytracer_tpu_torch import cli
+
+    for k in fused.KERNELS:
+        k.launches = 0
+    out = cli.main(["invert", "--config", "6", "--size", "48", "--perturb", "0.3", "--lr",
+                    "2e-2", "--iters", "150", "--seed", "3", "--log-every", "0", "--quiet"])
+    assert (fused.FUSED_STEP.launches, fused.FUSED_RENDER.launches) == (150, 1)
+    assert out["param_err"] < 1e-3
+
+
+@pytest.mark.cuda
+def test_mirror_refusals_on_cuda(cuda):
+    """On CUDA two bounce levels, spp 4 with a bounce and a reflective scene
+    of more than 24 objects raise by name and launch nothing."""
+    scene, _, cfg = _mirror_case(cuda, 32, 32)
+    big, _, cfg5 = configs.config5_many_spheres(size=32, device=cuda)
+    before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS]
+    for s, c, why in ((scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
+                      (scene, dataclasses.replace(cfg, spp=4), "spp 4 with mirror reflections"),
+                      (big, dataclasses.replace(cfg5, reflections=1), "mirror reflections")):
+        with pytest.raises(NotImplementedError, match=why):
+            render(s, c)
+    assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS] == before

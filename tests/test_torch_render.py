@@ -97,13 +97,14 @@ def test_cpu_dispatch_is_eager():
 
 
 @pytest.mark.parametrize("kw, why", [
-    (dict(spp=2), "spp"), (dict(reflections=1), "reflections"),
+    (dict(spp=2), "spp"), (dict(reflections=2), "reflections"),
     (dict(shader="depth"), "depth"), (dict(projection="orthographic"), "orthographic"),
     (dict(soft_tau=0.1), "soft_tau"),
 ])
 def test_kernels_refuse_uncovered_configs(kw, why):
     """spp 4 is covered since the kernels take the 2x2 loop; any other spp
-    is refused by name."""
+    is refused by name. One bounce level is covered (reflections=1); two
+    are refused by name."""
     ts, _, cfg = configs.config2_four_spheres(16, device="cpu")
     fused.check_kernel_config(ts, dataclasses.replace(cfg, spp=4))
     with pytest.raises(NotImplementedError, match=why):
@@ -111,9 +112,11 @@ def test_kernels_refuse_uncovered_configs(kw, why):
 
 
 def test_unported_features_raise():
+    """Environment maps, and reflections under soft visibility (hard
+    semantics only, as in the JAX package), raise."""
     ts, _, cfg = configs.config2_four_spheres(16, device="cpu")
     with pytest.raises(NotImplementedError):
-        render_eager(ts, dataclasses.replace(cfg, reflections=1))
+        render_eager(ts, dataclasses.replace(cfg, reflections=1, soft_tau=0.1))
     env = dataclasses.replace(ts, env=torch.ones((4, 4, 3)))
     with pytest.raises(NotImplementedError):
         render_eager(env, cfg)

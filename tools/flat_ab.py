@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Rows 1, 2, 3, 5 and 6 (the small-scene step, forward and render backward,
+and the vec render backward and step: the kernels built from
+csrc/render_common.cuh's pixel_step or csrc/fused_render.cu) of this
+checkout beside those of another, on one card, in one process.
+
+    python3 tools/flat_ab.py --tree DIR [--reps 2]
+
+Builds the five sources (csrc/fused_step.cu, fused_render.cu,
+fused_render_bwd.cu, fused_vec_render_bwd.cu, fused_vec_step.cu) of this
+checkout and of the checkout ``DIR`` (a ``git archive`` of an older commit,
+say) with this checkout's nvcc flags, all ten at once, and loads each with
+ctypes. For each source it compares the two trees' machine code
+(``cuobjdump -sass``) kernel by kernel, the instances of this tree that
+take a bounce level (REFL = 1) left out and the rest named as the other
+tree names them. Then it calls each row's entry without a bounce on the
+same inputs, through the entries both trees have: rows 1-3 at config 2
+512^2 from perturb(scale=0.1, seed=4) against the plain render of the true
+scene, rows 5-6 at config 5 1024^2 from perturb(scale=0.05, seed=4), and a
+seeded normal cotangent for the backwards (with the forward's planes).
+Each row's outputs must be bit for bit the other tree's, and each row's
+device time per call (`kernel_timing.device_ms`, median of 20 after 3
+warm-ups) is taken in turns, other, this, this, other, for ``--reps``
+rounds. Prints one JSON line per source (its SASS comparison) and per row
+(the rounds' times, each tree's mean and this / other), then the card's
+nvidia-smi line; exits 1 if an output differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE))
+sys.path.insert(0, str(HERE.parent))
+
+SOURCES = ("fused_step", "fused_render", "fused_render_bwd", "fused_vec_render_bwd",
+           "fused_vec_step")
+
+
+def build(_build, csrc: Path, out: Path):
+    """Start nvcc on the sources of ``csrc`` into ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
+    return {name: subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
+         str(csrc / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in SOURCES}
+
+
+def load(procs, out: Path, csrc: Path, kernels):
+    """The built libraries, their entries typed by this tree's signatures
+    (those the library has)."""
+    import ctypes
+
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        for fn, (argtypes, restype) in kernels[name].signatures.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+        libs[name] = lib
+    return libs
+
+
+def sass(cuobjdump: str, lib: Path) -> dict:
+    """{kernel name: [instructions]} of a library, addresses and encodings
+    stripped."""
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        found = re.match(r"\s*Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            out[name] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name is not None and ins:
+            out[name].append(ins.group(1))
+    return out
+
+
+def other_name(name: str) -> str | None:
+    """This tree's kernel name as a tree without the REFL template argument
+    names it; None for an instance with a bounce level."""
+    if "ILi1ELi1E" in name:  # <SPP = 1, REFL = 1>
+        return None
+    out = name.replace("ILi1ELi0E", "ILi1E").replace("ILi4ELi0E", "ILi4E")
+    if "flat_step_kernel" in name:  # Src, the third template parameter, was the second
+        out = out.replace("ET1_", "ET0_")
+    return out
+
+
+def compare_sass(root: Path):
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    rows = []
+    for name in SOURCES:
+        this = sass(cuobjdump, root / "this" / f"lib{name}.so")
+        other = sass(cuobjdump, root / "other" / f"lib{name}.so")
+        kernels = {}
+        for k, ins in this.items():
+            ok = other_name(k)
+            if ok is None:
+                continue
+            theirs = other.get(ok)
+            kernels[ok] = ("missing in the other tree" if theirs is None else
+                           "same" if theirs == ins else
+                           f"differs ({len(ins)} against {len(theirs)} instructions)")
+        rows.append({"source": name, "kernels": kernels,
+                     "same": all(v == "same" for v in kernels.values())})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", required=True, help="the other checkout's root")
+    ap.add_argument("--reps", type=int, default=2)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flat_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from kernel_timing import device_ms
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.kernels import _build, fused, fused_vec
+
+    kernels = {k.name: k for k in fused.KERNELS + fused_vec.KERNELS}
+    other_csrc = Path(args.tree).resolve() / _build.CSRC.relative_to(HERE.parent)
+    root = _build.BUILD_DIR / "flat_ab"
+    procs = {"other": build(_build, other_csrc, root / "other"),
+             "this": build(_build, _build.CSRC, root / "this")}
+    libs = {"other": load(procs["other"], root / "other", other_csrc, kernels),
+            "this": load(procs["this"], root / "this", _build.CSRC, kernels)}
+    compare_sass(root)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def cotangent(H, W):
+        return torch.from_numpy(np.random.default_rng(0).normal(size=(H, W, 3)).astype(
+            np.float32)).cuda()
+
+    # rows 1-3: config 2 at 512^2
+    scene, spec, cfg = configs.config2_four_spheres(size=512, device="cuda")
+    start = configs.perturb(scene, spec, scale=0.1, seed=4)
+    target = fused.render_fused_plain(scene, cfg)[0].contiguous()
+    H, W = cfg.height, cfg.width
+    g2 = cotangent(H, W)
+    flat = fused._cuda_flat(start, cfg)
+    geom = fused._geometry(start, cfg)
+    n_scratch = max(lib["fused_step"].rrt_step_scratch_floats(*geom[:5])
+                    for lib in libs.values())
+    scratch = torch.empty((n_scratch,), device="cuda")
+    vis = torch.empty((start.lights.count, H, W), device="cuda")
+    libs["this"]["fused_render"].rrt_render_spp(flat.data_ptr(), *geom, 1,
+                                                torch.empty((H, W, 3), device="cuda").data_ptr(),
+                                                vis.data_ptr(), stream)
+    # rows 5-6: config 5 at 1024^2
+    scene5, spec5, cfg5 = configs.config5_many_spheres(size=1024, device="cuda")
+    start5 = configs.perturb(scene5, spec5, scale=0.05, seed=4)
+    target5 = fused_vec.render_vec_plain(scene5, cfg5)[0].contiguous()
+    vis5 = fused_vec.render_vec(start5, cfg5)[1].contiguous()
+    g5 = cotangent(cfg5.height, cfg5.width)
+    glob, sph, rct = fused_vec.packed_inputs(start5)
+    geom5 = fused_vec._geometry(start5, cfg5)
+    rows5 = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom5)
+    n_out5 = 1 + glob.numel() + sph.numel() + rct.numel()
+    n_scratch5 = max(max(lib["fused_vec_step"].rrt_vec_step_scratch_floats(*geom5[2:7]),
+                         lib["fused_vec_render_bwd"].rrt_vec_render_bwd_scratch_floats(
+                             *geom5[2:7])) for lib in libs.values())
+    scratch5 = torch.empty((n_scratch5,), device="cuda")
+    sizes = {1: 1 + flat.numel(), 2: H * W * 3, 3: 1 + flat.numel(), 5: n_out5, 6: n_out5}
+    outs = {(t, r): torch.empty((n,), device="cuda") for t in libs for r, n in sizes.items()}
+    planes = {t: torch.empty_like(vis) for t in libs}
+
+    def call(tree, row):
+        lib, out = libs[tree], outs[tree, row].data_ptr()
+        if row == 1:
+            err = lib["fused_step"].rrt_step_spp(flat.data_ptr(), *geom, 1, target.data_ptr(),
+                                                 1.0 / (H * W * 3), scratch.data_ptr(), out,
+                                                 stream)
+        elif row == 2:
+            err = lib["fused_render"].rrt_render_spp(flat.data_ptr(), *geom, 1, out,
+                                                     planes[tree].data_ptr(), stream)
+        elif row == 3:
+            err = lib["fused_render_bwd"].rrt_render_bwd_spp(
+                flat.data_ptr(), *geom, 1, g2.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
+                out, stream)
+        elif row == 5:
+            err = lib["fused_vec_render_bwd"].rrt_vec_render_bwd_at(
+                *rows5, 0.0, 0.0, g5.data_ptr(), vis5.data_ptr(), scratch5.data_ptr(), out,
+                stream)
+        else:
+            err = lib["fused_vec_step"].rrt_vec_step_spp(
+                *rows5, 1, target5.data_ptr(), 1.0 / (cfg5.height * cfg5.width * 3),
+                scratch5.data_ptr(), out, stream)
+        if err != 0:
+            raise RuntimeError(f"row {row} of {tree} failed: CUDA error {err}")
+
+    same = True
+    for row, case in ((1, "config2_512"), (2, "config2_512"), (3, "config2_512"),
+                      (5, "config5_1024"), (6, "config5_1024")):
+        for tree in libs:
+            call(tree, row)
+        torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(outs["other", row], outs["this", row]))
+        if row == 2:
+            bit_equal = bit_equal and bool(torch.equal(planes["other"], planes["this"]))
+        same = same and bit_equal
+        times = {"other": [], "this": []}
+        for _ in range(args.reps):
+            for tree in ("other", "this", "this", "other"):
+                times[tree].append(device_ms(lambda tree=tree: call(tree, row))["ms"])
+        mean = {t: sum(v) / len(v) for t, v in times.items()}
+        print(json.dumps({"row": row, "case": case, "bit_equal": bit_equal,
+                          "device_ms": times, "mean_ms": mean,
+                          "this_over_other": mean["this"] / mean["other"]}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
