@@ -1,4 +1,4 @@
-"""Command-line interface: ``render`` and ``invert`` for configs 1-6.
+"""Command-line interface: ``render`` and ``invert`` for configs 1-9.
 
 Examples:
     python -m reversible_raytracer_tpu_torch.cli render --config 2 --size 512 -o out.png
@@ -11,6 +11,8 @@ Examples:
         --anneal 0.08,0.03,0.01,0 --anneal-size 512
     python -m reversible_raytracer_tpu_torch.cli invert --config 6 --perturb 0.3 --lr 2e-2 \
         --iters 150 --seed 3
+    python -m reversible_raytracer_tpu_torch.cli invert --config 7 --lr 3e-2 --perturb 0.4 \
+        --iters 200
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
 kernels, each training step one replay of a CUDA graph; ``--device cpu``
@@ -20,8 +22,11 @@ render), ``--scene`` / ``--save-scene`` (JSON scenes), ``--checkpoint``,
 ``--checkpoint-every`` and ``--resume``, ``--frame-every`` /
 ``--frames-dir`` and ``--quiet``. Both take ``--spp 4`` (2x2
 supersampling, on every kernel family) and ``--reflections N`` (mirror
-bounces, overriding the config's count: config 6 renders with 1, and
-``--reflections 0`` renders it with none).
+bounces, overriding the config's count: configs 6 and 9 render with 1,
+and ``--reflections 0`` renders them with none). Configs 7, 8 and 9 carry
+texel grids (a textured floor, a textured globe, a sky environment map);
+their recipe is the JAX package's examples/run_config.py, ``--lr 3e-2
+--perturb 0.4 --iters 200``.
 """
 
 from __future__ import annotations
@@ -32,10 +37,11 @@ import time
 
 
 def _add_common(p):
-    p.add_argument("--config", type=int, default=2, choices=[1, 2, 3, 4, 5, 6],
+    p.add_argument("--config", type=int, default=2, choices=list(range(1, 10)),
                    help="benchmark config (1: one sphere, 2: four spheres + ground, "
                         "3: two lights, 4: checker materials + camera pose, "
-                        "5: 64 spheres + ground, 6: mirror reflections)")
+                        "5: 64 spheres + ground, 6: mirror reflections, 7: textured floor, "
+                        "8: textured globe, 9: sky environment map + mirror sphere)")
     p.add_argument("--size", type=int, default=None,
                    help="image size (default: the config's native size)")
     p.add_argument("--device", default="cuda",
@@ -46,7 +52,7 @@ def _add_common(p):
                    help="samples per pixel (4 = 2x2 supersampling AA)")
     p.add_argument("--reflections", type=int, default=None,
                    help="mirror bounces (each object's `mirror` coefficient sets its "
-                        "reflectivity; 0 = none). Default: the config's own (config 6: 1)")
+                        "reflectivity; 0 = none). Default: the config's own (configs 6, 9: 1)")
 
 
 def _build(args):

@@ -1,8 +1,8 @@
-"""Benchmark scenes 1-5, config 6 (mirror reflections), and the
-inverse-render start.
+"""Benchmark scenes 1-5, config 6 (mirror reflections), configs 7-9
+(texture, globe and sky recovery), and the inverse-render start.
 
 The counterpart of `reversible_raytracer_tpu.models.configs` for the
-configs the CUDA kernels cover (hard shading, untextured). Each builder
+configs the CUDA kernels cover (hard shading). Each builder
 returns ``(scene, spec, cfg)``: the ground-truth Scene on ``device``, the
 ParamSpec of what the inverse render optimizes, and the RenderConfig.
 """
@@ -221,6 +221,101 @@ def config6_mirror(size: int = 512, device="cuda"):
     return scene, spec, RenderConfig(height=size, width=size, shadows=True, reflections=1)
 
 
+def _grid(k: int):
+    """The (k, k) meshgrids of ``linspace(0, 1, k)`` the texel patterns are
+    drawn on (axis 0 first)."""
+    return np.meshgrid(np.linspace(0, 1, k), np.linspace(0, 1, k), indexing="ij")
+
+
+def config7_texture(size: int = 512, tex_k: int = 16, seed: int = 0, device="cuda"):
+    """Config 7: texture recovery. A glossy sphere over a floor carrying a
+    (tex_k, tex_k, 3) image texture, sampled bilinearly at the floor's (a, b);
+    the inverse render recovers the texel grid (3 tex_k^2 parameters) from a
+    perturbed start. The texels are the JAX package's (configs.py:242-290),
+    drawn from numpy in its order, so both packages hold the same bits."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    ii, jj = _grid(tex_k)
+    tex = np.stack([0.25 + 0.6 * ii, 0.25 + 0.6 * jj,
+                    0.5 + 0.4 * np.sin(6.0 * ii) * np.cos(4.0 * jj)], axis=-1)
+    for _ in range(4):
+        ci, cj = rng.uniform(0.15, 0.85, size=2)
+        r2 = (ii - ci) ** 2 + (jj - cj) ** 2
+        tex += rng.uniform(-0.35, 0.35, size=3) * np.exp(-r2 / 0.02)[..., None]
+    tex = np.clip(tex, 0.05, 0.95).astype(np.float32)
+    scene = Scene.make(
+        spheres=sphere((0.4, 0.1, 0.3), 0.75,
+                       Materials.make((0.85, 0.3, 0.25), ks=0.45, shininess=50.0, device=dev),
+                       device=dev),
+        rects=ground_plane(-0.7, 4.5, Materials.make((1.0, 1.0, 1.0), ka=0.2, kd=0.85,
+                                                     device=dev), texture=tex, device=dev),
+        lights=_lights([[3.0, 7.0, 4.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 4.2, 5.2), (0.0, -0.7, 0.0), fov_deg=55.0, device=dev),
+        device=dev,
+    )
+    spec = ParamSpec.none(scene).train("rects.texture", lower=0.0, upper=1.0)
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True)
+
+
+def config8_globe(size: int = 512, tex_k: int = 16, seed: int = 0, device="cuda"):
+    """Config 8: sphere-texture recovery. A globe carrying a (tex_k, tex_k,
+    3) lat-long texture (`pipeline.sphere_uv`: the azimuth wraps at the
+    atan2 seam, the polar axis clamps) over a plain floor; the inverse render
+    recovers the texel grid, whose far hemisphere gets no gradient (JAX
+    configs.py:293-344, the same draws)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    ii, jj = _grid(tex_k)
+    tex = np.stack([0.15 + 0.1 * jj, 0.25 + 0.25 * ii, 0.55 + 0.3 * jj], axis=-1)
+    for _ in range(5):
+        ci, cj = rng.uniform(0.1, 0.9, size=2)
+        r2 = (ii - ci) ** 2 + (jj - cj) ** 2
+        tex += np.array([0.35, 0.3, -0.25]) * np.exp(-r2 / 0.015)[..., None]
+    tex = np.clip(tex, 0.05, 0.95).astype(np.float32)
+    scene = Scene.make(
+        spheres=sphere((0.0, 0.3, 0.0), 1.1,
+                       Materials.make((1.0, 1.0, 1.0), ka=0.25, kd=0.9, ks=0.25, shininess=40.0,
+                                      device=dev), texture=tex, device=dev),
+        rects=ground_plane(-0.9, 5.0, Materials.make((0.75, 0.75, 0.78), ka=0.2, kd=0.8,
+                                                     device=dev), device=dev),
+        lights=_lights([[3.5, 5.0, 4.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 0.9, 3.6), (0.0, 0.1, 0.0), fov_deg=50.0, device=dev),
+        device=dev,
+    )
+    spec = ParamSpec.none(scene).train("spheres.texture", lower=0.0, upper=1.0)
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True)
+
+
+def config9_sky(size: int = 512, env_k: int = 16, seed: int = 0, device="cuda"):
+    """Config 9: environment-map recovery. A chrome-ish mirror sphere over a
+    floor under a (env_k, env_k, 3) lat-long sky (`Scene.env`, sampled by a
+    missed ray's direction), rendered with one bounce; miss pixels and the
+    sphere's reflected misses give the sky texels their gradient (JAX
+    configs.py:347-396, the same draws)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    ii, jj = _grid(env_k)
+    env = np.stack([0.2 + 0.15 * ii, 0.3 + 0.2 * jj, 0.6 + 0.3 * (1.0 - jj)], axis=-1)
+    for _ in range(3):
+        ci, cj = rng.uniform(0.1, 0.9, size=2)
+        r2 = (ii - ci) ** 2 + (jj - cj) ** 2
+        env += np.array([0.5, 0.4, 0.1]) * np.exp(-r2 / 0.01)[..., None]
+    env = np.clip(env, 0.05, 0.95).astype(np.float32)
+    scene = Scene.make(
+        spheres=sphere((0.0, 0.1, 0.0), 0.9,
+                       Materials.make((0.9, 0.9, 0.9), ka=0.1, kd=0.3, ks=0.5, shininess=80.0,
+                                      mirror=0.7, device=dev), device=dev),
+        rects=ground_plane(-0.8, 4.5, Materials.make((0.55, 0.5, 0.45), ka=0.2, kd=0.8,
+                                                     device=dev), device=dev),
+        lights=_lights([[3.0, 6.0, 3.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 0.6, 3.8), (0.0, 0.1, 0.0), fov_deg=55.0, device=dev),
+        env=env,
+        device=dev,
+    )
+    spec = ParamSpec.none(scene).train("env", lower=0.0, upper=1.0)
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True, reflections=1)
+
+
 CONFIGS = {
     1: config1_single_sphere,
     2: config2_four_spheres,
@@ -228,6 +323,9 @@ CONFIGS = {
     4: config4_checker_camera,
     5: config5_many_spheres,
     6: config6_mirror,
+    7: config7_texture,
+    8: config8_globe,
+    9: config9_sky,
 }
 
 
@@ -249,6 +347,6 @@ def perturb(scene: Scene, spec: ParamSpec, scale: float = 0.25, seed: int = 0) -
         host = leaf.detach().cpu().numpy()
         mag = max(float(np.std(host)), 1.0) * scale
         noise = rng.normal(0.0, mag, size=host.shape).astype(np.float32)
-        moved = np.clip(host + noise, np.float32(l), np.float32(h))
+        moved = np.asarray(np.clip(host + noise, np.float32(l), np.float32(h)), np.float32)
         out.append(torch.from_numpy(moved).to(leaf.device))
     return tree_unflatten(scene, out)

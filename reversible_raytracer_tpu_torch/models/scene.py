@@ -231,8 +231,10 @@ class Scene:
 
     @staticmethod
     def make(spheres=None, rects=None, lights=None, camera=None,
-             ambient=(1.0, 1.0, 1.0), background=(0.0, 0.0, 0.0),
+             ambient=(1.0, 1.0, 1.0), background=(0.0, 0.0, 0.0), env=None,
              device="cuda") -> "Scene":
+        """``env``: an optional (K, K, 3) lat-long environment map, sampled
+        by a missed ray's direction in place of ``background``."""
         dev = resolve_device(device)
         if lights is None:
             lights = Lights(position=_f32([[0.0, 5.0, 0.0]], dev),
@@ -245,7 +247,8 @@ class Scene:
             else Camera.make((0, 0, 5), (0, 0, 0), device=dev),
             ambient=_f32(ambient, dev),
             background=_f32(background, dev),
-            env=torch.zeros((0, 0, 3), device=dev),
+            env=(torch.zeros((0, 0, 3), device=dev) if env is None
+                 else _square_grid(env, dev, "env map")),
         )
 
 
@@ -255,30 +258,50 @@ def scene_textured(scene: Scene) -> bool:
     return scene.rects.textured or scene.spheres.textured or scene.env_mapped
 
 
-def sphere(center, radius, material: Materials, device="cuda") -> Spheres:
+def _square_grid(grid, dev, what: str) -> torch.Tensor:
+    """A (K, K, 3) texel grid as float32 on ``dev`` (square, as the JAX
+    package requires)."""
+    g = _f32(grid, dev)
+    if g.dim() != 3 or g.shape[-1] != 3 or g.shape[0] != g.shape[1]:
+        raise ValueError(f"{what} must be square (K, K, 3), got {tuple(g.shape)}")
+    return g
+
+
+def _texture_leaf(texture, dev) -> torch.Tensor:
+    """(K, K, 3) grid (or None) -> the (1, K, K, 3) stacked-texture leaf."""
+    if texture is None:
+        return torch.zeros((1, 0, 0, 3), device=dev)
+    return _square_grid(texture, dev, "texture")[None]
+
+
+def sphere(center, radius, material: Materials, texture=None, device="cuda") -> Spheres:
+    """``texture``: an optional (K, K, 3) lat-long texel grid (azimuth on
+    its first axis, `pipeline.sphere_uv`)."""
     dev = resolve_device(device)
     return Spheres(center=_f32(center, dev).reshape(1, 3),
                    radius=_f32(radius, dev).reshape(1),
                    material=material,
-                   texture=torch.zeros((1, 0, 0, 3), device=dev))
+                   texture=_texture_leaf(texture, dev))
 
 
-def rect(origin, edge_u, edge_v, material: Materials, device="cuda") -> Rects:
+def rect(origin, edge_u, edge_v, material: Materials, texture=None, device="cuda") -> Rects:
+    """``texture``: an optional (K, K, 3) texel grid sampled at the in-face
+    coordinates (a, b)."""
     dev = resolve_device(device)
     return Rects(origin=_f32(origin, dev).reshape(1, 3),
                  edge_u=_f32(edge_u, dev).reshape(1, 3),
                  edge_v=_f32(edge_v, dev).reshape(1, 3),
                  material=material,
-                 texture=torch.zeros((1, 0, 0, 3), device=dev))
+                 texture=_texture_leaf(texture, dev))
 
 
-def ground_plane(y, half_extent, material: Materials, center_xz=(0.0, 0.0),
+def ground_plane(y, half_extent, material: Materials, center_xz=(0.0, 0.0), texture=None,
                  device="cuda") -> Rects:
     """Horizontal rect of side 2*half_extent at height y, facing +y."""
     cx, cz = center_xz
     s = float(half_extent)
     return rect(origin=(cx - s, y, cz - s), edge_u=(0.0, 0.0, 2 * s),
-                edge_v=(2 * s, 0.0, 0.0), material=material, device=device)
+                edge_v=(2 * s, 0.0, 0.0), material=material, texture=texture, device=device)
 
 
 def merge_spheres(parts: "list[Spheres]") -> Spheres:

@@ -39,6 +39,17 @@
 // (REFL_STEP_BLOCKS_PER_SM blocks an SM: the bounce's adjoint does not fit
 // the 128 registers of two), and a grid sized to match.
 //
+// Texel grids (flat_step_tex_kernel, TEX: spp 1, object textures without a
+// bounce or the environment map with or without one): the body runs on a
+// TexFlatScene, whose S includes the grids, and each pixel's one texel
+// record (render_common.cuh pixel_step) is scattered into the warp's row
+// after the objects' trees (scatter_texels): every lane stages its four
+// corners and 12 values in shared memory, corners that coincide merged
+// first (a clamped edge, a 1-texel wrapped axis), and lanes 0-11 add one
+// lane's record at a time, in lane order. The block then stages 8 x 32
+// records of 16 words more; at 16 x 16 grids S is 829, and block 0 sums rows
+// of 840 slots.
+//
 // No atomics and no counter: nothing in the scratch is read before this
 // call writes it, and the grid follows from the card and the scene alone,
 // so for a given image size the result is bit-for-bit the same from call to
@@ -133,29 +144,84 @@ __device__ __forceinline__ int rect_field_slot(const Layout& ly, int k, int f) {
   return f < RECT_FIELDS ? rect_slot(ly, k, f) : ly.r_shin + ly.M + k;
 }
 
+// Words a lane stages of its texel record: 4 corner slots, 12 values.
+constexpr int TEX_REC = 16;
+
 // The shared memory of a block, in floats: block 0's row subsets (the
 // partial rows as float4 columns), the scene, the warp rows, the lanes'
-// light sums.
+// light sums, and with texel grids (tex) the warps' texel records.
 struct FlatPlan {
   int ROW, ROWP, SUB;
   size_t smem;
 };
 
-inline FlatPlan flat_plan(const Layout& ly) {
+inline FlatPlan flat_plan(const Layout& ly, bool tex = false) {
   FlatPlan f;
   f.ROW = 1 + ly.S + CAM_EXTRA;  // [sq, scene grads (S), camera basis (10)]
   f.ROWP = (f.ROW + 3) / 4 * 4;  // a partial row, padded to float4
   const int cols = f.ROWP / 4;
   f.SUB = cols >= BLOCK_THREADS ? 1 : BLOCK_THREADS / cols;
-  f.smem = (size_t)(f.SUB * f.ROWP + ly.S + NWARPS * f.ROW + 6 * ly.L * BLOCK_THREADS) *
+  f.smem = (size_t)(f.SUB * f.ROWP + ly.S + NWARPS * f.ROW + 6 * ly.L * BLOCK_THREADS +
+                    (tex ? NWARPS * 32 * TEX_REC : 0)) *
            sizeof(float);
   return f;
 }
 
-template <int SPP, int REFL, class Src>
-__global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
-    flat_step_kernel(const float* __restrict__ flat, Params p, Layout ly, FlatPlan fp, Src src,
-                     float* __restrict__ partials, float* __restrict__ out) {
+// Add the warp's texel records to gs, the warp's row of scene gradients (in
+// flat slots), in lane order; rec is the warp's 32 x TEX_REC staging words.
+// Corner (i0, j0), (i0, j1), (i1, j0), (i1, j1) of a record takes weight (1 -
+// fi)(1 - fj), (1 - fi) fj, fi (1 - fj), fi fj of its cotangent; a corner that
+// coincides with an earlier one is merged into it and its slot set to -1, so
+// that lanes 0-11 (corner lane / 3, channel lane % 3) add to distinct slots.
+__device__ __forceinline__ void scatter_texels(const TexelRec& r, float* gs, float* rec,
+                                               int lane) {
+  const bool has = r.base >= 0;
+  const unsigned todo = __ballot_sync(FULL, has);
+  if (!todo) return;
+  if (has) {
+    const TexW& w = r.w;
+    const float a1 = 1.0f - w.fi, b1 = 1.0f - w.fj;
+    const V3 ga = r.g * a1, gb = r.g * w.fi;
+    V3 v[4] = {ga * b1, ga * w.fj, gb * b1, gb * w.fj};
+    int slot[4] = {r.base + 3 * (w.i0 * r.K + w.j0), r.base + 3 * (w.i0 * r.K + w.j1),
+                   r.base + 3 * (w.i1 * r.K + w.j0), r.base + 3 * (w.i1 * r.K + w.j1)};
+    if (w.j1 == w.j0) {
+      v[0] = v[0] + v[1];
+      v[2] = v[2] + v[3];
+      slot[1] = slot[3] = -1;
+    }
+    if (w.i1 == w.i0) {
+      v[0] = v[0] + v[2];
+      if (slot[3] >= 0) v[1] = v[1] + v[3];
+      slot[2] = slot[3] = -1;
+    }
+    float* mine = rec + TEX_REC * lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      mine[q] = __int_as_float(slot[q]);
+      mine[4 + 3 * q] = v[q].x;
+      mine[5 + 3 * q] = v[q].y;
+      mine[6 + 3 * q] = v[q].z;
+    }
+  }
+  __syncwarp();
+  for (unsigned left = todo; left; left &= left - 1) {
+    const float* theirs = rec + TEX_REC * (__ffs(left) - 1);
+    if (lane < 12) {
+      const int slot = __float_as_int(theirs[lane / 3]);
+      if (slot >= 0) gs[slot + lane % 3] += theirs[4 + lane];
+    }
+    __syncwarp();
+  }
+}
+
+// The kernel's body on the scene type SC (FlatScene, or TexFlatScene for the
+// textured instances) of layout LY.
+template <int SPP, int REFL, class Src, class SC, class LY>
+__device__ __forceinline__ void flat_step_body(const float* __restrict__ flat, Params p, LY ly,
+                                               FlatPlan fp, Src src,
+                                               float* __restrict__ partials,
+                                               float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* sub = (float*)smem4;          // block 0's SUB row subsets (ROWP each)
   float* sc = sub + fp.SUB * fp.ROWP;  // the scene (S)
@@ -177,7 +243,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
   float a_sq = 0.0f, a_tan = 0.0f;
   V3 a_amb = zero3(), a_bg = zero3(), a_eye = zero3(), a_dt = zero3(), a_dtx = zero3(),
      a_dty = zero3();
-  const FlatScene scene{sc, ly};
+  const SC scene = scene_view(sc, ly);
+  [[maybe_unused]] float* trec = lacc + 6 * ly.L * BLOCK_THREADS + warp * 32 * TEX_REC;
   const dim3 tiles = pixel_grid(p.H, p.W);
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
     const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
@@ -193,7 +260,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
           q[4 * BLOCK_THREADS] += g_lcol.y;
           q[5 * BLOCK_THREADS] += g_lcol.z;
         },
-        [&](const typename Levels<REFL>::Grad& g) {
+        [&](const auto& g) {
           a_sq += g.sq;
           a_amb = a_amb + g.g_amb;
           a_bg = a_bg + g.g_bg;
@@ -258,6 +325,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
               }
             }
           }
+          if constexpr (Textured<SC>::value) scatter_texels(g.tex, gs, trec, lane);
         });
   }
 
@@ -323,6 +391,21 @@ __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
                  sc[ly.c_fov], out + 1, ly.c_eye, ly.c_look, ly.c_up, ly.c_fov);
 }
 
+template <int SPP, int REFL, class Src>
+__global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
+    flat_step_kernel(const float* __restrict__ flat, Params p, Layout ly, FlatPlan fp, Src src,
+                     float* __restrict__ partials, float* __restrict__ out) {
+  flat_step_body<SPP, REFL, Src, FlatScene>(flat, p, ly, fp, src, partials, out);
+}
+
+// The textured instances (spp 1).
+template <int REFL, class Src>
+__global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
+    flat_step_tex_kernel(const float* __restrict__ flat, Params p, TexLayout ly, FlatPlan fp,
+                         Src src, float* __restrict__ partials, float* __restrict__ out) {
+  flat_step_body<1, REFL, Src, TexFlatScene>(flat, p, ly, fp, src, partials, out);
+}
+
 // Floats of scratch a call needs (the partial rows); -1 if the card cannot
 // be queried.
 inline long long flat_step_scratch_floats(int n_sph, int n_rect, int n_light, int H, int W) {
@@ -331,17 +414,24 @@ inline long long flat_step_scratch_floats(int n_sph, int n_rect, int n_light, in
   return nblocks > 0 ? (long long)nblocks * fp.ROWP : -1;
 }
 
-// The one cooperative launch on the caller's stream; out = [sq, grads (S)].
-// The scratch of flat_step_scratch_floats holds the rows of every instance
-// (those with a bounce level have fewer blocks).
-template <int SPP, int REFL, class Src>
-int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_light, int H,
-                              int W, int shadows, int clip, Src src, float* scratch, float* out,
-                              void* stream) {
-  Layout ly = make_layout(n_sph, n_rect, n_light);
+// The same for the textured instances, whose grids have sides Ks, Kr, Ke.
+inline long long flat_step_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H, int W,
+                                              int Ks, int Kr, int Ke) {
+  const FlatPlan fp = flat_plan(make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke), true);
+  const int nblocks = step_blocks(fp.smem, H, W);
+  return nblocks > 0 ? (long long)nblocks * fp.ROWP : -1;
+}
+
+// The one cooperative launch of kernel (an instance taking layout LY) on the
+// caller's stream; out = [sq, grads (S)]. The scratch of
+// flat_step_scratch_floats (or _tex_) holds the rows of every instance (those
+// with a bounce level have fewer blocks).
+template <class LY, class Src>
+int launch_flat(const void* kernel, int per_sm, const float* flat, LY ly, FlatPlan fp, int H,
+                int W, int shadows, int clip, Src src, float* scratch, float* out,
+                void* stream) {
   Params p = make_params(H, W, shadows, clip);
-  FlatPlan fp = flat_plan(ly);
-  const int nblocks = step_blocks(fp.smem, H, W, step_blocks_per_sm<REFL>());
+  const int nblocks = step_blocks(fp.smem, H, W, per_sm);
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -349,19 +439,41 @@ int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_li
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   // At most 24 objects and 16 lights (more are refused in Python) take
-  // 124,304 bytes.
+  // 124,304 bytes without texel grids; Python refuses grids that need more
+  // than a block holds (fused.step_smem_bytes).
   if (fp.smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   if (fp.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(flat_step_kernel<SPP, REFL, Src>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fp.smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)fp.smem);
     if (err != cudaSuccess) return (int)err;
   }
   void* args[] = {&flat, &p, &ly, &fp, &src, &scratch, &out};
-  err = cudaLaunchCooperativeKernel((const void*)flat_step_kernel<SPP, REFL, Src>, dim3(nblocks),
-                                    dim3(BLOCK_X, BLOCK_Y), args, fp.smem,
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nblocks), dim3(BLOCK_X, BLOCK_Y), args, fp.smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int SPP, int REFL, class Src>
+int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, Src src, float* scratch, float* out,
+                              void* stream) {
+  const Layout ly = make_layout(n_sph, n_rect, n_light);
+  return launch_flat((const void*)flat_step_kernel<SPP, REFL, Src>, step_blocks_per_sm<REFL>(),
+                     flat, ly, flat_plan(ly), H, W, shadows, clip, src, scratch, out, stream);
+}
+
+// The textured instance of refl 0 or 1 (spp 1).
+template <class Src>
+int launch_flat_step_tex(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
+                         int shadows, int clip, int refl, int Ks, int Kr, int Ke, Src src,
+                         float* scratch, float* out, void* stream) {
+  if (refl != 0 && refl != 1) return (int)cudaErrorInvalidValue;
+  const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
+  const void* kernel = refl ? (const void*)flat_step_tex_kernel<1, Src>
+                            : (const void*)flat_step_tex_kernel<0, Src>;
+  return launch_flat(kernel, refl ? step_blocks_per_sm<1>() : step_blocks_per_sm<0>(), flat, ly,
+                     flat_plan(ly, true), H, W, shadows, clip, src, scratch, out, stream);
 }
 
 // The instance of spp 1 or 4 without a bounce, or of spp 1 with one

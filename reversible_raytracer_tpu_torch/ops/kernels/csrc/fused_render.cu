@@ -41,23 +41,33 @@
 // bits: the blend adds 0). 2 L planes, bounce-major: plane L + l is level
 // 1's light l, 0 where either level missed. Each REFL is its own instance,
 // so the REFL = 0 ones keep their code.
+//
+// Texel grids (spp 1, REFL 0 or 1; render_kernel_tex, the TEX instances):
+// the scene staged with its grids (TexFlatScene), a textured winner's base
+// colour its grid's bilinear sample at a rect's (a, b) or at the lat-long
+// coordinates of a sphere's normal, and a missed ray's colour, at either
+// level, the environment map's at its direction (render_common.cuh surface,
+// miss_color; atan2 and asin are vecmath.py's polynomials, op for op, so that
+// with --fmad=false the image is the plain version's to the bit). The planes
+// are as without grids.
 #include "render_common.cuh"
 
 using namespace rrt;
 
 constexpr int FWD_MIN_BLOCKS = 4;  // blocks an SM at the least
 
-template <int SPP, int REFL>
-__global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
-    render_kernel(const float* __restrict__ flat, Params p, Layout ly, float* __restrict__ img,
-                  float* __restrict__ vis) {
+// The kernel's body on the scene type SC (FlatScene, or TexFlatScene for the
+// textured instances) of layout LY.
+template <int SPP, int REFL, class SC, class LY>
+__device__ __forceinline__ void render_body(const float* __restrict__ flat, Params p, LY ly,
+                                            float* __restrict__ img, float* __restrict__ vis) {
   static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
   extern __shared__ float sc_s[];
   __shared__ Camera cam;
   stage(sc_s, flat, ly.S);
   if (threadIdx.x == 0 && threadIdx.y == 0) cam = camera(FlatScene{flat, ly});
   __syncthreads();
-  const FlatScene sc{sc_s, ly};
+  const SC sc = scene_view(sc_s, ly);
 
   const int j = blockIdx.x * BLOCK_X + threadIdx.x;
   const int i = blockIdx.y * BLOCK_Y + threadIdx.y;
@@ -71,6 +81,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
     const V3 d = primary_ray(cam, SPP == 1 ? p : subsample(p, q), i, j).d;
     const Nearest h = trace(sc, cam.eye, d);
     V3 col = sc.background();
+    if constexpr (Textured<SC>::value) {
+      if (h.k < 0) col = miss_color(sc, d);
+    }
     unsigned bits = 0u;
     if (h.k >= 0)
       col = shade_hit(
@@ -86,7 +99,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
         const V3 o1 = shadow_origin(cam.eye, d, h.t, s0.n);
         const V3 d1 = reflect_dir(d, s0.n);
         const Nearest h1 = trace(sc, o1, d1);
-        V3 col1 = sc.background();
+        V3 col1 = miss_color(sc, d1);
         if (h1.k >= 0)
           col1 = shade_hit(
               sc, o1, d1, h1.t, surface(sc, o1, d1, h1),
@@ -110,6 +123,40 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
   img[3 * px + 0] = acc.x;
   img[3 * px + 1] = acc.y;
   img[3 * px + 2] = acc.z;
+}
+
+template <int SPP, int REFL>
+__global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
+    render_kernel(const float* __restrict__ flat, Params p, Layout ly, float* __restrict__ img,
+                  float* __restrict__ vis) {
+  render_body<SPP, REFL, FlatScene>(flat, p, ly, img, vis);
+}
+
+template <int REFL>
+__global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
+    render_kernel_tex(const float* __restrict__ flat, Params p, TexLayout ly,
+                      float* __restrict__ img, float* __restrict__ vis) {
+  render_body<1, REFL, TexFlatScene>(flat, p, ly, img, vis);
+}
+
+// The textured instances: spp 1, refl 0 or 1 (L or 2 L planes), the texel
+// grids' sides Ks, Kr, Ke (0 for none) in make_tex_layout's flat layout.
+extern "C" int rrt_render_tex(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
+                              float* img, float* vis, void* stream) {
+  const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
+  const Params p = make_params(H, W, shadows, clip);
+  if (refl != 0 && refl != 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = ly.S * sizeof(float);
+  const auto kernel = refl ? render_kernel_tex<1> : render_kernel_tex<0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(flat, p, ly,
+                                                                                   img, vis);
+  return (int)cudaGetLastError();
 }
 
 // spp 1 or 4 without a bounce (4 L planes at spp 4), spp 1 with one (refl

@@ -28,6 +28,9 @@
 // One mirror bounce (refl 1, spp 1): the step's bounce adjoint, level 1's
 // visibility read from the forward's planes L + l (2 L planes, bounce-major),
 // only where both levels hit.
+//
+// Texel grids (spp 1, refl 0 or 1): the step's textured instance with the
+// forward's planes (flat_step.cuh TEX).
 #include "flat_step.cuh"
 
 using namespace rrt;
@@ -46,6 +49,20 @@ extern "C" int rrt_render_bwd_refl(const float* flat, int n_sph, int n_rect, int
                                    float* out, void* stream) {
   return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, refl,
                           CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+}
+
+// The textured instance: spp 1, refl 0 or 1, the grids' sides Ks, Kr, Ke.
+extern "C" long long rrt_render_bwd_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H,
+                                                       int W, int Ks, int Kr, int Ke) {
+  return flat_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, Ks, Kr, Ke);
+}
+
+extern "C" int rrt_render_bwd_tex(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                                  int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
+                                  const float* g_img, const float* vis, float* scratch,
+                                  float* out, void* stream) {
+  return launch_flat_step_tex(flat, n_sph, n_rect, n_light, H, W, shadows, clip, refl, Ks, Kr,
+                              Ke, CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
 // No bounce (the entry of the tools and of earlier checkouts).

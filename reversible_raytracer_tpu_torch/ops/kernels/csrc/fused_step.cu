@@ -39,6 +39,14 @@
 // primary ray hit, blends the two unclipped colours by the winner's mirror
 // coefficient, clips once, and runs the bounce's adjoint (render_common.cuh
 // pixel_step, flat_step.cuh's REFL instance).
+//
+// Texel grids (spp 1; the TPU kernel samples them in render_tile, fused.py
+// :93-160, with its dense hat basis, a Mosaic workaround not carried over):
+// flat_step.cuh's TEX instance samples a textured winner's grid or, at a
+// miss, the environment map by the bilinear gather, and scatters each
+// pixel's texel record into the warp's row in lane order. Bound: operations,
+// the 4 texel reads, the bilinear weights and the atan2 / asin of a sphere or
+// a miss counted a pixel (chip_smoke.py).
 #include "flat_step.cuh"
 
 using namespace rrt;
@@ -56,6 +64,21 @@ extern "C" int rrt_step_refl(const float* flat, int n_sph, int n_rect, int n_lig
                              void* stream) {
   return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, refl,
                           ResidualSource{target, w}, scratch, out, stream);
+}
+
+// The textured instance: spp 1, refl 0 or 1, the texel grids' sides Ks, Kr,
+// Ke (0 for none) in make_tex_layout's flat layout.
+extern "C" long long rrt_step_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H, int W,
+                                                 int Ks, int Kr, int Ke) {
+  return flat_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, Ks, Kr, Ke);
+}
+
+extern "C" int rrt_step_tex(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
+                            int shadows, int clip, int refl, int Ks, int Kr, int Ke,
+                            const float* target, float w, float* scratch, float* out,
+                            void* stream) {
+  return launch_flat_step_tex(flat, n_sph, n_rect, n_light, H, W, shadows, clip, refl, Ks, Kr,
+                              Ke, ResidualSource{target, w}, scratch, out, stream);
 }
 
 // No bounce (the entry of the tools and of earlier checkouts).

@@ -4,14 +4,16 @@
 // hand-written adjoint of the fused training steps and the render
 // backwards (pixel_step, with the two sources of its cotangent and
 // visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
-// the subsamples of spp 4; with REFL, one mirror bounce level), and the
+// the subsamples of spp 4; with REFL, one mirror bounce level; with a
+// TexFlatScene, object textures and the environment map), and the
 // reduction and camera-chain passes. soft_common.cuh adds the
 // soft-visibility code.
 //
 // Two layouts of the same scene, read through one interface, so that every
 // kernel runs the same arithmetic:
 //   - FlatScene: the flat scene vector in models/scene.py leaf order
-//     (fused_render.cu, fused_step.cu, scenes of at most 24 objects);
+//     (fused_render.cu, fused_step.cu, scenes of at most 24 objects), and
+//     TexFlatScene, the same with texel grids (the TEX instances);
 //   - PackedRows: the JAX package's packed rows (fused_vec.py: globals,
 //     P_SPH = 17 scalars per sphere, P_RCT = 22 per rect, each group padded
 //     to a multiple of 16 rows; the object-chunked and soft kernels), the
@@ -20,7 +22,8 @@
 //     space, so a pad row's index never names a real object.
 //
 // Semantics follow reversible_raytracer_tpu/ops/pipeline.py (hard shading,
-// spp 1 or 4, perspective camera, untextured objects, flat background):
+// spp 1 or 4, perspective camera; untextured objects and a flat background,
+// or at spp 1 the texel grids of a TexFlatScene):
 //   - BIG, T_EPS and SHADOW_EPS as there;
 //   - nearest hit on strict <, spheres before rects, so ties go to the
 //     earlier object;
@@ -33,6 +36,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace rrt {
 
@@ -70,9 +75,10 @@ __device__ __forceinline__ V3 zero3() { return {0.0f, 0.0f, 0.0f}; }
 // ---------------------------------------------------------------------------
 
 // Start of each leaf in the flat scene vector: the leaf order of
-// models/scene.py (the JAX treedef order) for an untextured scene with no
-// environment map, N spheres, M rects and L lights. Python's
-// fused.flat_offsets computes the same table and checks S.
+// models/scene.py (the JAX treedef order) for N spheres, M rects and L
+// lights, untextured and with no environment map (make_tex_layout shifts it
+// by the texel grids). Python's fused.flat_offsets computes the same table
+// and checks S.
 struct Layout {
   int N, M, L;
   int s_center, s_radius, s_color, s_color2, s_checker, s_cscale, s_ka, s_kd, s_ks, s_shin;
@@ -83,7 +89,7 @@ struct Layout {
   int S;
 };
 
-inline Layout make_layout(int N, int M, int L) {
+inline Layout make_layout(int N, int M, int L, int ds = 0, int dr = 0, int de = 0) {
   Layout ly;
   ly.N = N;
   ly.M = M;
@@ -97,8 +103,8 @@ inline Layout make_layout(int N, int M, int L) {
   ly.s_ka = 12 * N;
   ly.s_kd = 13 * N;
   ly.s_ks = 14 * N;
-  ly.s_shin = 15 * N;  // then mirror (N), texture (empty)
-  const int R = 17 * N;
+  ly.s_shin = 15 * N;  // then mirror (N), texture (ds floats)
+  const int R = 17 * N + ds;
   ly.r_origin = R;
   ly.r_eu = R + 3 * M;
   ly.r_ev = R + 6 * M;
@@ -109,8 +115,8 @@ inline Layout make_layout(int N, int M, int L) {
   ly.r_ka = R + 17 * M;
   ly.r_kd = R + 18 * M;
   ly.r_ks = R + 19 * M;
-  ly.r_shin = R + 20 * M;  // then mirror (M), texture (empty)
-  const int Lb = R + 22 * M;
+  ly.r_shin = R + 20 * M;  // then mirror (M), texture (dr floats)
+  const int Lb = R + 22 * M + dr;
   ly.l_pos = Lb;
   ly.l_col = Lb + 3 * L;
   const int C = Lb + 6 * L;
@@ -120,8 +126,29 @@ inline Layout make_layout(int N, int M, int L) {
   ly.c_fov = C + 9;
   ly.ambient = C + 10;
   ly.background = C + 13;
-  ly.S = C + 16;  // env (empty) ends the vector
+  ly.S = C + 16 + de;  // env (de floats) ends the vector
   return ly;
+}
+
+// The layout of a scene with texel grids (the TEX instances): each group's
+// (n, K, K, 3) texture follows its mirror leaf and shifts what comes after
+// it, and the (Ke, Ke, 3) environment map ends the vector. Ks, Kr, Ke are
+// the grids' sides, 0 for none; s_tex, r_tex, env their starts.
+struct TexLayout : Layout {
+  int Ks, Kr, Ke;
+  int s_tex, r_tex, env;
+};
+
+inline TexLayout make_tex_layout(int N, int M, int L, int Ks, int Kr, int Ke) {
+  TexLayout t;
+  static_cast<Layout&>(t) = make_layout(N, M, L, 3 * N * Ks * Ks, 3 * M * Kr * Kr, 3 * Ke * Ke);
+  t.Ks = Ks;
+  t.Kr = Kr;
+  t.Ke = Ke;
+  t.s_tex = 17 * N;
+  t.r_tex = t.r_shin + 2 * M;  // after the rects' shininess and mirror leaves
+  t.env = t.background + 3;
+  return t;
 }
 
 // Reads a flat scene (staged in shared memory).
@@ -170,6 +197,30 @@ struct FlatScene {
   __device__ V3 up_hint() const { return ld3(sc + ly.c_up); }
   __device__ float fov() const { return sc[ly.c_fov]; }
 };
+
+// A flat scene with texel grids: FlatScene's reads of the shifted layout,
+// and each grid's texels (row-major (K, K, 3)).
+struct TexFlatScene : FlatScene {
+  int Ks, Kr, Ke, s_tex, r_tex, env;
+
+  __device__ const float* s_texels(int k) const { return sc + s_tex + 3 * Ks * Ks * k; }
+  __device__ const float* r_texels(int k) const { return sc + r_tex + 3 * Kr * Kr * k; }
+  __device__ const float* env_texels() const { return sc + env; }
+};
+
+// The scene as a kernel reads it from its staged copy sc.
+__device__ __forceinline__ FlatScene scene_view(const float* sc, const Layout& ly) {
+  return FlatScene{sc, ly};
+}
+__device__ __forceinline__ TexFlatScene scene_view(const float* sc, const TexLayout& tl) {
+  return TexFlatScene{{sc, tl}, tl.Ks, tl.Kr, tl.Ke, tl.s_tex, tl.r_tex, tl.env};
+}
+
+// Does a scene type carry texel grids? Only TexFlatScene's code samples them.
+template <class S>
+struct Textured : std::false_type {};
+template <>
+struct Textured<TexFlatScene> : std::true_type {};
 
 // ---------------------------------------------------------------------------
 // Packed layout (fused_vec.py: pack_spheres, pack_rects, globals_tree)
@@ -405,6 +456,139 @@ __device__ __forceinline__ bool occluded(const S& sc, V3 o, V3 ldir, float dist)
   return occluded_rects(sc, o, ldir, dist);
 }
 
+// ---------------------------------------------------------------------------
+// Texel grids (pipeline.py texture_weights, sample_texture, sphere_uv)
+// ---------------------------------------------------------------------------
+
+constexpr float PI_F = 3.14159265358979323846f;
+// The Cephes atanf polynomial and fold point of vecmath.py (float32 as the
+// JAX package and torch round the Python constants).
+constexpr float ATAN_P0 = 8.05374449538e-2f, ATAN_P1 = -1.38776856032e-1f,
+                ATAN_P2 = 1.99777106478e-1f, ATAN_P3 = -3.33329491539e-1f;
+constexpr float TAN_PI_8 = 0.4142135623730951f;
+
+// vecmath._atan_01 op for op: atan of r in [0, 1], folded above tan(pi/8)
+// to pi/4 + atan((r - 1) / (r + 1)), then the odd polynomial.
+__device__ __forceinline__ float atan_01(float r) {
+  const bool fold = r > TAN_PI_8;
+  const float x = fold ? (r - 1.0f) / (r + 1.0f) : r;
+  const float z = x * x;
+  float p = ATAN_P0 * z + ATAN_P1;
+  p = p * z + ATAN_P2;
+  p = p * z + ATAN_P3;
+  const float y = p * z * x + x;
+  return fold ? y + (float)(3.141592653589793 / 4) : y;
+}
+
+// vecmath.atan2 op for op (not atan2f): octant-reduced, the denominator
+// guarded, atan2(0, 0) = 0, and the y < 0 select, so atan2(-0, x < 0) = +pi.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
+  float a = atan_01(lo / (hi > 0.0f ? hi : 1.0f));
+  a = ay > ax ? (float)(3.141592653589793 / 2) - a : a;
+  a = x < 0.0f ? PI_F - a : a;
+  return y < 0.0f ? -a : a;
+}
+
+// vecmath.asin (not asinf): atan2(t, guarded sqrt((1 - t)(1 + t))).
+__device__ __forceinline__ float asin_poly(float t) {
+  const float w = (1.0f - t) * (1.0f + t);
+  return atan2_poly(t, sqrtf(w > 0.0f ? w : 1.0f));
+}
+
+constexpr float UV_CLIP_LO = (float)(-1.0 + 1e-6), UV_CLIP_HI = (float)(1.0 - 1e-6);
+
+struct UV {
+  float u, v;
+};
+
+// pipeline.sphere_uv of a unit direction: u = atan2(z, x) (0.5 / pi) + 0.5, v
+// = 0.5 - asin(clip(y)) / pi. The division by pi is a multiply by the float
+// 1 / pi, as torch's CUDA division by a Python scalar takes it.
+__device__ __forceinline__ UV sphere_uv(V3 n) {
+  const float u = atan2_poly(n.z, n.x) * (float)(0.5 / 3.141592653589793) + 0.5f;
+  const float cy = fminf(fmaxf(n.y, UV_CLIP_LO), UV_CLIP_HI);
+  return {u, 0.5f - asin_poly(cy) * (1.0f / PI_F)};
+}
+
+// The bilinear corners (i0, i1) x (j0, j1) and weights (fi, fj) of uv (a, b)
+// over a K x K grid (pipeline.texture_weights): b clamps at the edges, a
+// clamps too or, with wrap (the azimuth), wraps; dfi and dfj are the
+// weights' derivatives in a and b (a clamp's ties split as jnp.clip's).
+struct TexW {
+  int i0, i1, j0, j1;
+  float fi, fj, dfi, dfj;
+};
+
+__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+// d max(x, 0) / dx, with the 0.5 tie split of jnp.maximum.
+__device__ __forceinline__ float maxgrad(float x) {
+  return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+}
+
+// d clip(x, 0, 1) / dx as jnp.clip takes it: maximum, then minimum.
+__device__ __forceinline__ float clipgrad(float x) {
+  const float m = fmaxf(x, 0.0f);
+  return maxgrad(x) * (m < 1.0f ? 1.0f : (m == 1.0f ? 0.5f : 0.0f));
+}
+
+__device__ __forceinline__ TexW tex_weights(float a, float b, int K, bool wrap) {
+  TexW w;
+  const float kf = (float)K;
+  const float u = a * kf - 0.5f, v = b * kf - 0.5f;
+  if (wrap) {
+    const float i0f = floorf(u);
+    w.fi = u - i0f;
+    w.i0 = (int)i0f % K;
+    if (w.i0 < 0) w.i0 += K;
+    w.i1 = (w.i0 + 1) % K;
+    w.dfi = kf;
+  } else {
+    const float i0f = fminf(fmaxf(floorf(u), 0.0f), (float)(K - 1));
+    w.fi = clip01(u - i0f);
+    w.i0 = (int)i0f;
+    w.i1 = min(w.i0 + 1, K - 1);
+    w.dfi = kf * clipgrad(u - i0f);
+  }
+  const float j0f = fminf(fmaxf(floorf(v), 0.0f), (float)(K - 1));
+  w.fj = clip01(v - j0f);
+  w.j0 = (int)j0f;
+  w.j1 = min(w.j0 + 1, K - 1);
+  w.dfj = kf * clipgrad(v - j0f);
+  return w;
+}
+
+__device__ __forceinline__ V3 texel(const float* grid, int K, int i, int j) {
+  return ld3(grid + 3 * (i * K + j));
+}
+
+// pipeline.sample_texture per channel, op for op: (1 - fi) ((1 - fj) t00 +
+// fj t01) + fi ((1 - fj) t10 + fj t11).
+__device__ __forceinline__ V3 bilinear(const float* grid, int K, const TexW& w) {
+  const V3 t00 = texel(grid, K, w.i0, w.j0), t01 = texel(grid, K, w.i0, w.j1);
+  const V3 t10 = texel(grid, K, w.i1, w.j0), t11 = texel(grid, K, w.i1, w.j1);
+  const float a1 = 1.0f - w.fi, b1 = 1.0f - w.fj;
+  return {a1 * (b1 * t00.x + w.fj * t01.x) + w.fi * (b1 * t10.x + w.fj * t11.x),
+          a1 * (b1 * t00.y + w.fj * t01.y) + w.fi * (b1 * t10.y + w.fj * t11.y),
+          a1 * (b1 * t00.z + w.fj * t01.z) + w.fi * (b1 * t10.z + w.fj * t11.z)};
+}
+
+// What a missed ray sees: the environment map's sample at sphere_uv of its
+// direction (azimuth wrapped) where a TexFlatScene has one, else the flat
+// background.
+template <class S>
+__device__ __forceinline__ V3 miss_color(const S& sc, V3 d) {
+  if constexpr (Textured<S>::value) {
+    if (sc.Ke) {
+      const UV uv = sphere_uv(d);
+      return bilinear(sc.env_texels(), sc.Ke, tex_weights(uv.u, uv.v, sc.Ke, true));
+    }
+  }
+  return sc.background();
+}
+
 // Shading attributes of the winning object (the trace_nearest defaults on
 // a miss).
 struct Surface {
@@ -425,6 +609,13 @@ __device__ __forceinline__ Surface surface(const S& sc, V3 o, V3 d, Nearest h) {
     const float par = mod2(floorf(pl.x * cs) + floorf(pl.y * cs) + floorf(pl.z * cs));
     s.use2 = sc.s_checker(k) * par > 0.5f;
     s.base = sc.s_color(k, s.use2);
+    if constexpr (Textured<S>::value) {
+      if (sc.Ks) {  // the lat-long texture at the normal, azimuth wrapped
+        const UV uv = sphere_uv(s.n);
+        s.use2 = false;
+        s.base = bilinear(sc.s_texels(k), sc.Ks, tex_weights(uv.u, uv.v, sc.Ks, true));
+      }
+    }
     s.ka = sc.s_ka(k);
     s.kd = sc.s_kd(k);
     s.ks = sc.s_ks(k);
@@ -440,6 +631,12 @@ __device__ __forceinline__ Surface surface(const S& sc, V3 o, V3 d, Nearest h) {
     const float cs = sc.r_cscale(k);
     s.use2 = sc.r_checker(k) * mod2(floorf(a * cs) + floorf(b * cs)) > 0.5f;
     s.base = sc.r_color(k, s.use2);
+    if constexpr (Textured<S>::value) {
+      if (sc.Kr) {  // the texture at the in-face coordinates
+        s.use2 = false;
+        s.base = bilinear(sc.r_texels(k), sc.Kr, tex_weights(a, b, sc.Kr, false));
+      }
+    }
     s.ka = sc.r_ka(k);
     s.kd = sc.r_kd(k);
     s.ks = sc.r_ks(k);
@@ -510,8 +707,6 @@ __device__ __forceinline__ V3 shade_hit(const S& sc, V3 o, V3 d, float t, const 
   return col;
 }
 
-__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
-
 // Stage n floats into shared memory, once per block.
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -530,17 +725,6 @@ __device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__
 // ---------------------------------------------------------------------------
 // The fused step's per-pixel forward and adjoint
 // ---------------------------------------------------------------------------
-
-// d max(x, 0) / dx, with the 0.5 tie split of jnp.maximum.
-__device__ __forceinline__ float maxgrad(float x) {
-  return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
-}
-
-// d clip(x, 0, 1) / dx as jnp.clip takes it: maximum, then minimum.
-__device__ __forceinline__ float clipgrad(float x) {
-  const float m = fmaxf(x, 0.0f);
-  return maxgrad(x) * (m < 1.0f ? 1.0f : (m == 1.0f ? 0.5f : 0.0f));
-}
 
 // Cotangent of a, for normalize(a) = a * inv with inv = 1 / sqrt(guarded n2).
 __device__ __forceinline__ V3 normalize_adjoint(V3 a, float inv, float n2, V3 g) {
@@ -740,6 +924,28 @@ struct Levels<1> {
   using Grad = BounceGrad;
 };
 
+// A pixel's texel record: the cotangent g of one bilinear sample (a textured
+// winner's base colour, or the environment's colour at a miss of either
+// level) and its corners in the grid of side K whose texel (0, 0) starts at
+// flat slot base (-1: the pixel has none). A pixel has at most one: object
+// textures take no bounce, and a level-1 miss follows a level-0 hit.
+struct TexelRec {
+  int base, K;
+  TexW w;
+  V3 g;
+};
+
+template <class G>
+struct WithTexels : G {
+  TexelRec tex;
+};
+
+// The gradient type of a pixel at REFL bounce levels in scene type S.
+template <int REFL, class S>
+using GradOf = typename std::conditional<Textured<S>::value,
+                                         WithTexels<typename Levels<REFL>::Grad>,
+                                         typename Levels<REFL>::Grad>::type;
+
 // With REFL, level 1 is traced only where level 0 hit (elsewhere m = 0 and
 // the blend keeps col0 to the bit) with the same walk; pre is then the
 // blend, unclipped. The bounce takes FullWalk (no warp-wide votes).
@@ -756,6 +962,9 @@ __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
   walk.shadows(sc, p, src, shadow_origin(o, d, f.h.t, f.s.n), hit);
   f.bits = 0;
   f.pre = sc.background();
+  if constexpr (Textured<S>::value) {
+    if (!hit) f.pre = miss_color(sc, d);
+  }
   if (hit)
     f.pre = shade_hit(
         sc, o, d, f.h.t, f.s,
@@ -773,6 +982,9 @@ __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
     b.s = surface(sc, b.o, b.d, b.h);
     b.bits = 0;
     b.col = sc.background();
+    if constexpr (Textured<S>::value) {
+      if (hit) b.col = miss_color(sc, b.d);  // (where level 0 missed, m = 0 drops it)
+    }
     if (b.h.k >= 0)
       b.col = shade_hit(
           sc, b.o, b.d, b.h.t, b.s,
@@ -959,6 +1171,145 @@ __device__ __forceinline__ void object_adjoint(const S& sc, V3 o, V3 d, const Ne
   }
 }
 
+// ---- the adjoints of the texel samples (fused.py grid_adjoint, uv_adjoint)
+
+// The cotangents of uv (a, b) of bilinear(grid, K, w) for the colour
+// cotangent g, through the weights: d/dfi = B - A, d/dfj = (1 - fi)(t01 -
+// t00) + fi (t11 - t10), times dfi, dfj.
+__device__ __forceinline__ void bilinear_adjoint(const float* grid, int K, const TexW& w, V3 g,
+                                                 float* g_a, float* g_b) {
+  const V3 t00 = texel(grid, K, w.i0, w.j0), t01 = texel(grid, K, w.i0, w.j1);
+  const V3 t10 = texel(grid, K, w.i1, w.j0), t11 = texel(grid, K, w.i1, w.j1);
+  const float a1 = 1.0f - w.fi, b1 = 1.0f - w.fj;
+  const V3 A = t00 * b1 + t01 * w.fj, B = t10 * b1 + t11 * w.fj;
+  *g_a = dot(g, B - A) * w.dfi;
+  *g_b = dot(g, (t01 - t00) * a1 + (t11 - t10) * w.fi) * w.dfj;
+}
+
+// d atan_01 / dr: the polynomial's derivative (not 1 / (1 + r^2)), through
+// the fold x = (r - 1) / (r + 1) above tan(pi/8).
+__device__ __forceinline__ float atan01_grad(float r) {
+  const bool fold = r > TAN_PI_8;
+  const float x = fold ? (r - 1.0f) / (r + 1.0f) : r;
+  const float z = x * x;
+  float p = ATAN_P0, dp = 0.0f;
+  dp = dp * z + p;
+  p = p * z + ATAN_P1;
+  dp = dp * z + p;
+  p = p * z + ATAN_P2;
+  dp = dp * z + p;
+  p = p * z + ATAN_P3;
+  const float dy = (dp * z + p) * 2.0f * x * x + p * z + 1.0f;  // d (p(z) z x + x) / dx
+  return fold ? dy * 2.0f / ((r + 1.0f) * (r + 1.0f)) : dy;
+}
+
+__device__ __forceinline__ float signf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// The cotangents of y and x of atan2_poly for the cotangent g of its value,
+// as autograd takes them through vecmath.atan2's selects.
+__device__ __forceinline__ void atan2_adjoint(float y, float x, float g, float* g_y, float* g_x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
+  const float den = hi > 0.0f ? hi : 1.0f;
+  const float r = lo / den;
+  if (y < 0.0f) g = -g;
+  if (x < 0.0f) g = -g;
+  if (ay > ax) g = -g;
+  const float g_r = g * atan01_grad(r);
+  const float g_lo = g_r / den;
+  const float g_hi = hi > 0.0f ? -g_r * r / den : 0.0f;
+  // d max(a, b) / da = d min(b, a) / da = maxgrad(a - b), ties split
+  *g_x = (g_hi * maxgrad(ax - ay) + g_lo * maxgrad(ay - ax)) * signf(x);
+  *g_y = (g_hi * maxgrad(ay - ax) + g_lo * maxgrad(ax - ay)) * signf(y);
+}
+
+// The cotangent of t of asin_poly.
+__device__ __forceinline__ float asin_adjoint(float t, float g) {
+  const float w = (1.0f - t) * (1.0f + t);
+  const float s = sqrtf(w > 0.0f ? w : 1.0f);
+  float g_y, g_x;
+  atan2_adjoint(t, s, g, &g_y, &g_x);
+  const float g_w = w > 0.0f ? g_x * 0.5f / s : 0.0f;
+  return g_y - g_w * (1.0f + t) + g_w * (1.0f - t);
+}
+
+// The cotangent of the direction n of sphere_uv for those of (u, v).
+__device__ __forceinline__ V3 uv_adjoint(V3 n, float g_u, float g_v) {
+  V3 g;
+  atan2_adjoint(n.z, n.x, g_u * (float)(0.5 / 3.141592653589793), &g.z, &g.x);
+  const float cy = fminf(fmaxf(n.y, UV_CLIP_LO), UV_CLIP_HI);
+  g.y = asin_adjoint(cy, -g_v * (1.0f / PI_F)) * maxgrad(n.y - UV_CLIP_LO) *
+        maxgrad(UV_CLIP_HI - fmaxf(n.y, UV_CLIP_LO));
+  return g;
+}
+
+// The environment's sample at sphere_uv(d) for the colour cotangent g: its
+// texel record, and the cotangent of the direction d.
+template <class S>
+__device__ __forceinline__ V3 env_adjoint(const S& sc, V3 d, V3 g, TexelRec& rec) {
+  const UV uv = sphere_uv(d);
+  rec = {sc.env, sc.Ke, tex_weights(uv.u, uv.v, sc.Ke, true), g};
+  float g_u, g_v;
+  bilinear_adjoint(sc.env_texels(), sc.Ke, rec.w, g, &g_u, &g_v);
+  return uv_adjoint(d, g_u, g_v);
+}
+
+// object_adjoint of a winner in a TexFlatScene: a textured group's base
+// colour is its grid's sample, so its cotangent a.g_base goes to the texel
+// record (and not to color or color2), and through the weights to the
+// sample's coordinates: a sphere's normal (sphere_uv), a rect's (a, b) =
+// ((rel . edge_u) / |edge_u|^2, (rel . edge_v) / |edge_v|^2), rel = o + d t -
+// origin, into o, d, t, origin, edge_u and edge_v.
+template <class S>
+__device__ __forceinline__ void object_adjoint_tex(const S& sc, V3 o, V3 d, const Nearest& h,
+                                                   bool hit, const Surface& s, ShadeGrad a,
+                                                   float g_t, V3 g_n, V3& g_o, V3& g_d,
+                                                   float (&obj)[RECT_FIELDS], TexelRec& rec) {
+  const bool sph = hit && h.k < sc.rect_base();
+  const int K = !hit ? 0 : sph ? sc.Ks : sc.Kr;
+  if (K == 0) {
+    object_adjoint(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, obj);
+    return;
+  }
+  const V3 g = a.g_base;
+  a.g_base = zero3();
+  float g_a, g_b;
+  if (sph) {
+    const int k = h.k;
+    const UV uv = sphere_uv(s.n);
+    rec = {sc.s_tex + 3 * K * K * k, K, tex_weights(uv.u, uv.v, K, true), g};
+    bilinear_adjoint(sc.s_texels(k), K, rec.w, g, &g_a, &g_b);
+    object_adjoint(sc, o, d, h, hit, s, a, g_t, g_n + uv_adjoint(s.n, g_a, g_b), g_o, g_d, obj);
+    return;
+  }
+  const int k = h.k - sc.rect_base();
+  const V3 p0 = sc.r_origin(k), eu = sc.r_eu(k), ev = sc.r_ev(k);
+  float ra, rb;
+  hit_rect(o, d, p0, eu, ev, &ra, &rb);
+  rec = {sc.r_tex + 3 * K * K * k, K, tex_weights(ra, rb, K, false), g};
+  bilinear_adjoint(sc.r_texels(k), K, rec.w, g, &g_a, &g_b);
+  const V3 rel = (o + d * h.t) - p0;
+  const float inv_u2 = 1.0f / dot(eu, eu), inv_v2 = 1.0f / dot(ev, ev);
+  const float ga = g_a * inv_u2, gb = g_b * inv_v2;
+  const V3 g_rel = eu * ga + ev * gb;
+  g_o = g_o + g_rel;
+  g_d = g_d + g_rel * h.t;
+  object_adjoint(sc, o, d, h, hit, s, a, g_t + dot(g_rel, d), g_n, g_o, g_d, obj);
+  const V3 g_eu = rel * ga - eu * (2.0f * ga * dot(rel, eu) * inv_u2);
+  const V3 g_ev = rel * gb - ev * (2.0f * gb * dot(rel, ev) * inv_v2);
+  obj[0] -= g_rel.x;
+  obj[1] -= g_rel.y;
+  obj[2] -= g_rel.z;
+  obj[3] += g_eu.x;
+  obj[4] += g_eu.y;
+  obj[5] += g_eu.z;
+  obj[6] += g_ev.x;
+  obj[7] += g_ev.y;
+  obj[8] += g_ev.z;
+}
+
 // Forward (its objects walked as walk walks them), the image cotangent from
 // src (ResidualSource: the residual against the target; CotangentSource:
 // the caller's) and the hand-written adjoint of pixel (i, j): shade adjoint,
@@ -976,11 +1327,20 @@ __device__ __forceinline__ void object_adjoint(const S& sc, V3 o, V3 d, const Ne
 // carried into level 0's shadow origin (o1 is that point), normal and
 // direction (d1 = d - 2 (d . n) n), then level 0 under (1 - m) gc, and the
 // mirror coefficient's (col1 - col0) . gc.
+//
+// In a TexFlatScene (GradOf's WithTexels) the pixel's texel record goes out
+// with its gradient: a textured winner's (object_adjoint_tex), or the
+// environment's at a miss of level 0, or of level 1 where level 0 hit, whose
+// cotangent also reaches that level's ray direction (env_adjoint: the
+// camera, or through d1 = d - 2 (d . n) n level 0's d and n); the
+// background then gets none.
 template <int REFL = 0, class S, class Src, class Walk, class OnLight>
-__device__ __forceinline__ typename Levels<REFL>::Grad pixel_step(
-    const S& sc, const Params& p, int i, int j, bool inside, const Src& src, const Walk& walk,
-    OnLight on_light) {
-  typename Levels<REFL>::Grad out;
+__device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params& p, int i, int j,
+                                                      bool inside, const Src& src,
+                                                      const Walk& walk, OnLight on_light) {
+  constexpr bool TEX = Textured<S>::value;
+  GradOf<REFL, S> out;
+  if constexpr (TEX) out.tex.base = -1;
   // ---- forward
   const typename Levels<REFL>::Forward fw = pixel_forward<REFL>(sc, p, i, j, inside, src, walk);
   const Camera& cam = fw.cam;
@@ -1013,6 +1373,12 @@ __device__ __forceinline__ typename Levels<REFL>::Grad pixel_step(
     V3 g_d1 = a1.g_d + a1.g_so * b.h.t;
     const float g_t1 = dot(a1.g_so, b.d);
     const V3 g_n1 = a1.g_n + a1.g_so * SHADOW_EPS;
+    if constexpr (TEX) {
+      if (sc.Ke) {
+        g_bg1 = zero3();
+        if (hit && !hit1) g_d1 = g_d1 + env_adjoint(sc, b.d, gc1, out.tex);
+      }
+    }
     object_adjoint(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1);
     out.k1 = b.h.k;
     // o1 = so0; d1 = d - 2 (d . n) n
@@ -1028,6 +1394,14 @@ __device__ __forceinline__ typename Levels<REFL>::Grad pixel_step(
   const ShadeGrad a = shade_adjoint(sc, gh, o, d, h.t, s, hit, bits, on_light);
   out.g_amb = a.g_amb;
   V3 g_n = a.g_n, g_d = a.g_d, g_so = a.g_so;
+  [[maybe_unused]] bool env_miss = false;
+  if constexpr (TEX) {
+    if (sc.Ke) {
+      out.g_bg = zero3();
+      env_miss = inside && !hit;
+      if (env_miss) g_d = g_d + env_adjoint(sc, d, gc, out.tex);
+    }
+  }
   if constexpr (REFL != 0) {
     out.g_bg = out.g_bg + g_bg1;
     out.g_amb = out.g_amb + a1.g_amb;
@@ -1042,10 +1416,14 @@ __device__ __forceinline__ typename Levels<REFL>::Grad pixel_step(
   g_n = g_n + g_so * SHADOW_EPS;
 
   // ---- the winning object's adjoint
-  object_adjoint(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj);
+  if constexpr (TEX)
+    object_adjoint_tex(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj, out.tex);
+  else
+    object_adjoint(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj);
 
   // ---- camera: o = eye, d = normalize(dt), dt = fwd + right sx + up sy
-  out.g_dt = hit ? normalize_adjoint(r.dt, r.inv, r.n2, g_d) : zero3();
+  // (with an environment map a missed ray's direction has a cotangent too)
+  out.g_dt = hit || env_miss ? normalize_adjoint(r.dt, r.inv, r.n2, g_d) : zero3();
   out.g_tan = dot(out.g_dt, cam.right) * r.ax * p.aspect + dot(out.g_dt, cam.up) * r.ay;
   out.g_eye = hit ? g_o : zero3();
   out.sx = r.sx;
@@ -1075,6 +1453,7 @@ __device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i,
                                             OnLight on_light, Take take) {
   static_assert(SPP == 1 || SPP == 4, "spp is 1 or 4");
   static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
+  static_assert(!Textured<S>::value || SPP == 1, "texel grids are spp 1");
   if constexpr (SPP == 1) {
     take(pixel_step<REFL>(sc, p, i, j, inside, src, walk, on_light));
   } else if constexpr (Src::casts_shadows) {

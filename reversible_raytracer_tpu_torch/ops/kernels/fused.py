@@ -46,6 +46,15 @@ step's residual is of the average, so it runs the four forwards before
 the adjoints (`subsample_adjoint` is its eager twin); the render backward
 gives each subsample a quarter of the average's cotangent.
 
+Object textures and the environment map (spp 1; the env with one bounce,
+not object textures with one, as in the JAX package's fused.py:191-197)
+are each kernel's textured instance (TEX): the texel grids ride in the
+flat scene (`flat_offsets`), the winner's base colour is its grid's
+bilinear sample and a missed ray's colour the environment's
+(`pipeline.sample_texture`, `pipeline.sphere_uv`), and the adjoint
+scatters each hit's four corners into its texels and carries the weights'
+gradient through the hit's coordinates (`grid_adjoint`, `uv_adjoint`).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. There is no fallback between the two.
 """
@@ -61,7 +70,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...models.scene import tree_leaves, tree_map, tree_unflatten
+from ...models.scene import scene_textured, tree_leaves, tree_map, tree_unflatten
 from .. import vecmath as vm
 from ..pipeline import (
     BIG,
@@ -79,12 +88,18 @@ from ..pipeline import (
     render_tile,
     shadow_origin,
     soft_checker_q,
+    sample_grid,
+    sphere_uv,
     trace_nearest,
 )
 from ._build import Kernel
 
 MAX_OBJECTS = 24
 MAX_LIGHTS = 16
+# Shared memory a block of the H100 may opt in to (227 KB): the textured step
+# and render backward stage the scene, texels included, and each warp's row of
+# every scalar's gradient (`step_smem_bytes`).
+MAX_BLOCK_SMEM = 232448
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, clip
@@ -92,18 +107,27 @@ _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, c
 # Each kernel's entry takes the spp (1 or 4) and the bounce levels (0 or 1,
 # at spp 1) after the geometry; the entries without them are spp 1 or the
 # given spp without a bounce, for tools/ and for checkouts from before them.
+# The textured instances (spp 1, bounce levels 0 or 1) take the texel grids'
+# sides after the bounce levels: spheres', rects' and the environment's, 0 for
+# none (`texel_sizes`).
+_TEX = [_I, _I, _I]
 FUSED_RENDER = Kernel("fused_render", {
+    "rrt_render_tex": ([_P, *_GEOM, _I, *_TEX, _P, _P, _P], _I),
     "rrt_render_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P], _I),
     "rrt_render_spp": ([_P, *_GEOM, _I, _P, _P, _P], _I),
     "rrt_render": ([_P, *_GEOM, _P, _P, _P], _I),
 })
 FUSED_STEP = Kernel("fused_step", {
+    "rrt_step_tex": ([_P, *_GEOM, _I, *_TEX, _P, _F, _P, _P, _P], _I),
+    "rrt_step_tex_scratch_floats": ([_I, _I, _I, _I, _I, *_TEX], ctypes.c_longlong),
     "rrt_step_refl": ([_P, *_GEOM, _I, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step_spp": ([_P, *_GEOM, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step": ([_P, *_GEOM, _P, _F, _P, _P, _P], _I),
     "rrt_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 FUSED_RENDER_BWD = Kernel("fused_render_bwd", {
+    "rrt_render_bwd_tex": ([_P, *_GEOM, _I, *_TEX, _P, _P, _P, _P, _P], _I),
+    "rrt_render_bwd_tex_scratch_floats": ([_I, _I, _I, _I, _I, *_TEX], ctypes.c_longlong),
     "rrt_render_bwd_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_spp": ([_P, *_GEOM, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd": ([_P, *_GEOM, _P, _P, _P, _P, _P], _I),
@@ -142,12 +166,23 @@ def unflatten_scene(scene_like, flat):
     return tree_unflatten(scene_like, leaves)
 
 
-def flat_offsets(n_sph: int, n_rect: int, n_light: int) -> dict:
-    """Start of each leaf the kernels read, for an untextured scene without
-    an environment map (``csrc/render_common.cuh`` computes the same)."""
+def texel_sizes(scene_like):
+    """(ks, kr, ke): the side of the spheres', the rects' and the
+    environment's texel grids, 0 where there is none."""
+    sp, rc = scene_like.spheres, scene_like.rects
+    return (sp.texture.shape[1] if sp.textured else 0, rc.texture.shape[1] if rc.textured else 0,
+            scene_like.env.shape[0] if scene_like.env_mapped else 0)
+
+
+def flat_offsets(n_sph: int, n_rect: int, n_light: int, ks: int = 0, kr: int = 0,
+                 ke: int = 0) -> dict:
+    """Start of each leaf the kernels read (``csrc/render_common.cuh``
+    make_layout and make_tex_layout compute the same): the spheres' texels
+    (N ks^2 3) follow their mirror leaf, the rects' (M kr^2 3) theirs, and the
+    environment's (ke^2 3) end the vector."""
     N, M, L = n_sph, n_rect, n_light
-    R = 17 * N
-    Lb = R + 22 * M
+    R = 17 * N + N * ks * ks * 3
+    Lb = R + 22 * M + M * kr * kr * 3
     C = Lb + 6 * L
     return {
         "s_center": 0, "s_radius": 3 * N, "s_color": 4 * N, "s_color2": 7 * N,
@@ -159,12 +194,28 @@ def flat_offsets(n_sph: int, n_rect: int, n_light: int) -> dict:
         "r_mirror": R + 21 * M,
         "l_pos": Lb, "l_col": Lb + 3 * L,
         "c_eye": C, "c_look": C + 3, "c_up": C + 6, "c_fov": C + 9,
-        "ambient": C + 10, "background": C + 13, "S": C + 16,
+        "ambient": C + 10, "background": C + 13, "s_tex": 17 * N, "r_tex": R + 22 * M,
+        "env": C + 16, "S": C + 16 + ke * ke * 3,
     }
 
 
-def uncovered(scene, cfg: RenderConfig):
-    """What neither kernel family covers (a reason), or None."""
+def step_smem_bytes(n_sph: int, n_rect: int, n_light: int, ks: int = 0, kr: int = 0,
+                    ke: int = 0) -> int:
+    """Shared memory of a block of the textured step and render backward
+    (csrc/flat_step.cuh flat_plan): block 0's row subsets, the scene, 8 warp
+    rows of 1 + S + 10 slots, 6 L light sums a thread, and 8 warps' staging
+    of 32 texel records of 16 words."""
+    S = flat_offsets(n_sph, n_rect, n_light, ks, kr, ke)["S"]
+    row = 1 + S + 10
+    rowp = (row + 3) // 4 * 4
+    sub = 1 if rowp // 4 >= 256 else 256 // (rowp // 4)
+    return 4 * (sub * rowp + S + 8 * row + 6 * n_light * 256 + 8 * 32 * 16)
+
+
+def uncovered(scene, cfg: RenderConfig, texels: bool = False):
+    """What the kernels do not cover (a reason), or None: with ``texels``
+    the unrolled family's (object textures and the environment map at spp 1,
+    the environment with a bounce), else both families' (no texel grid)."""
     if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
         return "soft_tau/checker_tau"
     if cfg.spp not in SPP_OFFSETS:
@@ -177,18 +228,35 @@ def uncovered(scene, cfg: RenderConfig):
         return f"the {cfg.shader} shader"
     if cfg.projection != "perspective":
         return f"the {cfg.projection} projection"
-    if scene.spheres.textured or scene.rects.textured:
-        return "object textures"
-    if scene.env_mapped:
-        return "environment maps"
     if scene.lights.count > MAX_LIGHTS:
         return f"more than {MAX_LIGHTS} lights"
+    objects = scene.spheres.textured or scene.rects.textured
+    if not texels:
+        if objects:
+            return "object textures"
+        if scene.env_mapped:
+            return "environment maps"
+        return None
+    if not scene_textured(scene):
+        return None
+    if cfg.spp != 1:
+        return "spp 4 with a texel grid (object textures or an environment map)"
+    if objects and cfg.reflections:
+        return ("object textures with mirror reflections (the JAX package's kernels refuse "
+                "that pair too, fused.py:191-197)")
+    need = step_smem_bytes(scene.spheres.count, scene.rects.count, scene.lights.count,
+                           *texel_sizes(scene))
+    if need > MAX_BLOCK_SMEM:
+        S = flat_offsets(scene.spheres.count, scene.rects.count, scene.lights.count,
+                         *texel_sizes(scene))["S"]
+        return (f"a texel grid this large: {S} scene scalars need {need} bytes of shared "
+                f"memory a block in the textured step, above the {MAX_BLOCK_SMEM} a block has")
     return None
 
 
 def check_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for what the two kernels do not cover."""
-    why = uncovered(scene, cfg)
+    why = uncovered(scene, cfg, texels=True)
     if why is None and scene.spheres.count + scene.rects.count > MAX_OBJECTS:
         why = f"more than {MAX_OBJECTS} objects"
     if why is not None:
@@ -200,12 +268,25 @@ def _geometry(scene, cfg: RenderConfig):
             cfg.height, cfg.width, int(cfg.shadows), int(cfg.clip)]
 
 
+def instance(scene_like, cfg: RenderConfig):
+    """The kernels' instance the wrappers launch: (the suffix of its C
+    entries, their arguments after the geometry, the suffix of its scratch
+    entries, their arguments after the image size). The textured instances
+    (``_tex``) take the bounce levels and the grids' sides, the others
+    (``_refl``) the spp and the bounce levels."""
+    if scene_textured(scene_like):
+        tex = texel_sizes(scene_like)
+        return "_tex", (cfg.reflections, *tex), "_tex", tex
+    return "_refl", (cfg.spp, cfg.reflections), "", ()
+
+
 def _cuda_flat(scene, cfg):
     check_kernel_config(scene, cfg)
     if scene.ambient.dtype != torch.float32:
         raise ValueError(f"the kernels take float32 scenes, not {scene.ambient.dtype}")
     flat = flatten_scene(scene).detach().contiguous()
-    off = flat_offsets(scene.spheres.count, scene.rects.count, scene.lights.count)
+    off = flat_offsets(scene.spheres.count, scene.rects.count, scene.lights.count,
+                       *texel_sizes(scene))
     if flat.numel() != off["S"]:
         raise ValueError(f"flat scene has {flat.numel()} scalars, layout expects {off['S']}")
     return flat
@@ -296,8 +377,9 @@ class _FusedRender(torch.autograd.Function):
         flat = _cuda_flat(scene, cfg)
         img = torch.empty((cfg.height, cfg.width, 3), device=flat.device)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=flat.device)
-        FUSED_RENDER.call("rrt_render_refl", flat.data_ptr(), *_geometry(scene, cfg), cfg.spp,
-                          cfg.reflections, img.data_ptr(), vis.data_ptr(), _stream(flat.device))
+        sfx, args, _, _ = instance(scene, cfg)
+        FUSED_RENDER.call("rrt_render" + sfx, flat.data_ptr(), *_geometry(scene, cfg), *args,
+                          img.data_ptr(), vis.data_ptr(), _stream(flat.device))
         FUSED_RENDER.launches += 1
         ctx.scene, ctx.cfg = scene, cfg
         ctx.save_for_backward(flat, vis)
@@ -333,11 +415,12 @@ def _render_bwd_launch(scene_like, cfg, flat, g_img, vis):
     dev = flat.device
     g_img = cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
-    scratch = _scratch(FUSED_RENDER_BWD, "rrt_render_bwd_scratch_floats", geom[:5], dev)
+    sfx, args, ssfx, sargs = instance(scene_like, cfg)
+    scratch = _scratch(FUSED_RENDER_BWD, f"rrt_render_bwd{ssfx}_scratch_floats",
+                       (*geom[:5], *sargs), dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_RENDER_BWD.call("rrt_render_bwd_refl", flat.data_ptr(), *geom, cfg.spp,
-                          cfg.reflections, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
-                          out.data_ptr(), _stream(dev))
+    FUSED_RENDER_BWD.call("rrt_render_bwd" + sfx, flat.data_ptr(), *geom, *args, g_img.data_ptr(),
+                          vis.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(dev))
     FUSED_RENDER_BWD.launches += 1
     return out[1:]
 
@@ -389,10 +472,11 @@ def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
     flat = _cuda_flat(scene, cfg)
     target = target.contiguous()
     geom = _geometry(scene, cfg)
-    scratch = _scratch(FUSED_STEP, "rrt_step_scratch_floats", geom[:5], dev)
+    sfx, args, ssfx, sargs = instance(scene, cfg)
+    scratch = _scratch(FUSED_STEP, f"rrt_step{ssfx}_scratch_floats", (*geom[:5], *sargs), dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_STEP.call("rrt_step_refl", flat.data_ptr(), *geom, cfg.spp, cfg.reflections,
-                    target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(), _stream(dev))
+    FUSED_STEP.call("rrt_step" + sfx, flat.data_ptr(), *geom, *args, target.data_ptr(), norm,
+                    scratch.data_ptr(), out.data_ptr(), _stream(dev))
     FUSED_STEP.launches += 1
     return norm * out[0], unflatten_scene(scene, out[1:])
 
@@ -432,17 +516,6 @@ def autograd_vjp(render_fn, scene, cfg: RenderConfig, g_img):
 # ---------------------------------------------------------------------------
 # The step kernel's hand-written adjoint, in eager torch
 # ---------------------------------------------------------------------------
-
-
-def _maxgrad(x):
-    """d max(x, 0)/dx with the tie split of jnp.maximum."""
-    return torch.where(x > 0.0, 1.0, torch.where(x == 0.0, 0.5, 0.0))
-
-
-def _clipgrad(x):
-    """d clip(x, 0, 1)/dx (maximum then minimum, ties split)."""
-    m = torch.clamp_min(x, 0.0)
-    return _maxgrad(x) * torch.where(m < 1.0, 1.0, torch.where(m == 1.0, 0.5, 0.0))
 
 
 def _normalize_adjoint(a, inv, n2, g):
@@ -646,11 +719,11 @@ def light_adjoint(f, gh, vis, n, d, base, kd, ksp, shin):
     safe_r = torch.where(pos, f.rdotv, 1.0)
     g_rdotv = torch.where(pos, g_pw * f.pw * shin / safe_r, 0.0)
     g.shin = torch.where(pos, g_pw * f.pw * torch.log(safe_r), 0.0)
-    g_rdv = g_rdotv * _maxgrad(f.rdv)
+    g_rdv = g_rdotv * vm.maxgrad(f.rdv)
     g_refl = vm.vscale(view, g_rdv)
     g.d = vm.vneg(vm.vscale(f.refl, g_rdv))
     g_ndotl = g_ndotl + 2.0 * vm.vdot(g_refl, n)
-    g_ndl = g_ndotl * _maxgrad(f.ndl)
+    g_ndl = g_ndotl * vm.maxgrad(f.ndl)
     g.n = vm.vadd(vm.vscale(g_refl, 2.0 * f.ndotl), vm.vscale(f.ldir, g_ndl))
     g.ldir = vm.vsub(vm.vscale(n, g_ndl), g_refl)
     return g
@@ -704,24 +777,113 @@ def sphere_winner_adjoint(o, d, t, c, r, g_t, g_n, soft=None, g_pl=None):
     return g_o, g_d, g_c, g_r
 
 
-def rect_winner_adjoint(o, d, p0, eu, ev, is_rct, g_t, g_n):
+def rect_winner_adjoint(o, d, p0, eu, ev, is_rct, g_t, g_n, g_ab=None):
     """Cotangents (o, d, origin, edge_u, edge_v) of a winning rect's t =
     ((p0 - o) . nraw) / (d . nraw) and n = facing * normalize(nraw), nraw =
-    edge_u x edge_v (facing is a sign with no gradient)."""
+    edge_u x edge_v (facing is a sign with no gradient). ``g_ab``, the
+    cotangents of its in-face coordinates (a textured rect's): a = (rel .
+    edge_u) / |edge_u|^2, b likewise, rel = o + d t - origin."""
     nraw = vm.vcross(eu, ev)
     nn2 = vm.vdot(nraw, nraw)
     inv_n = torch.rsqrt(torch.where(nn2 > 1e-12, nn2, 1.0))
     facing = torch.where(vm.vdot(vm.vscale(nraw, inv_n), d) < 0.0, 1.0, -1.0)
     denom = torch.where(is_rct, vm.vdot(d, nraw), 1.0)
     num = vm.vdot(vm.vsub(p0, o), nraw)
+    if g_ab is not None:
+        t = num / denom
+        rel = vm.vsub(vm.vadd(o, vm.vscale(d, t)), p0)
+        inv_u2, inv_v2 = 1.0 / vm.vdot(eu, eu), 1.0 / vm.vdot(ev, ev)
+        ga, gb = g_ab[0] * inv_u2, g_ab[1] * inv_v2
+        g_rel = vm.vadd(vm.vscale(eu, ga), vm.vscale(ev, gb))
+        g_eu_ab = vm.vsub(vm.vscale(rel, ga), vm.vscale(eu, 2.0 * ga * vm.vdot(rel, eu) * inv_u2))
+        g_ev_ab = vm.vsub(vm.vscale(rel, gb), vm.vscale(ev, 2.0 * gb * vm.vdot(rel, ev) * inv_v2))
+        g_t = g_t + vm.vdot(g_rel, d)
     g_num = g_t / denom
     g_den = -g_t * num / (denom * denom)
     g_p0 = vm.vscale(nraw, g_num)
     g_nraw = vm.vscale(vm.vsub(p0, o), g_num)
     g_nraw = vm.vadd(g_nraw, vm.vscale(d, g_den))
     g_nraw = vm.vadd(g_nraw, _normalize_adjoint(nraw, inv_n, nn2, vm.vscale(g_n, facing)))
-    return (vm.vneg(g_p0), vm.vscale(nraw, g_den), g_p0, vm.vcross(ev, g_nraw),
-            vm.vcross(g_nraw, eu))
+    out = (vm.vneg(g_p0), vm.vscale(nraw, g_den), g_p0, vm.vcross(ev, g_nraw),
+           vm.vcross(g_nraw, eu))
+    if g_ab is None:
+        return out
+    return (vm.vadd(out[0], g_rel), vm.vadd(out[1], vm.vscale(g_rel, t)), vm.vsub(out[2], g_rel),
+            vm.vadd(out[3], g_eu_ab), vm.vadd(out[4], g_ev_ab))
+
+
+def grid_adjoint(ts, g, mask, n_rows: int):
+    """The adjoint of a `pipeline.sample_grid` ``ts`` for the colour cotangent ``g``
+    where ``mask`` holds: the (n_rows, 3) texel rows' gradient (each pixel's
+    four corners, weights (1 - fi)(1 - fj), (1 - fi) fj, fi (1 - fj), fi fj,
+    scattered), and the per-pixel cotangents of the coordinates (a, b)
+    through the weights (not masked)."""
+    fi, fj, t = ts.fi, ts.fj, ts.t
+    weights = ((1.0 - fi) * (1.0 - fj), (1.0 - fi) * fj, fi * (1.0 - fj), fi * fj)
+    out = torch.zeros((n_rows, 3), dtype=fi.dtype, device=fi.device)
+    for ix, wq in zip(ts.idx, weights):
+        vals = torch.stack([torch.where(mask, g[c] * wq, 0.0) for c in range(3)], dim=-1)
+        out.index_add_(0, ix.reshape(-1), vals.reshape(-1, 3))
+    g_fi = sum(g[c] * (((1.0 - fj) * t[2][..., c] + fj * t[3][..., c])
+                       - ((1.0 - fj) * t[0][..., c] + fj * t[1][..., c])) for c in range(3))
+    g_fj = sum(g[c] * ((1.0 - fi) * (t[1][..., c] - t[0][..., c])
+                       + fi * (t[3][..., c] - t[2][..., c])) for c in range(3))
+    return out, g_fi * ts.dfi, g_fj * ts.dfj
+
+
+def _atan01_grad(r):
+    """d `vecmath._atan_01` / dr: the derivative of its polynomial (not 1 /
+    (1 + r^2)), through the fold x = (r - 1) / (r + 1) above tan(pi/8)."""
+    fold = r > vm._TAN_PI_8
+    x = torch.where(fold, (r - 1.0) / (r + 1.0), r)
+    z = x * x
+    p, dp = vm._ATAN_P[0], 0.0
+    for c in vm._ATAN_P[1:]:
+        dp = dp * z + p
+        p = p * z + c
+    dy = (dp * z + p) * 2.0 * x * x + p * z + 1.0  # d (p(z) z x + x) / dx
+    return torch.where(fold, dy * 2.0 / ((r + 1.0) * (r + 1.0)), dy)
+
+
+def atan2_adjoint(y, x, g):
+    """(cotangent of y, of x) of `vecmath.atan2` for the cotangent ``g`` of
+    its value, as autograd takes them through its selects: the max and min
+    split a tie, |.| has gradient 0 at 0."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    hi, lo = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    den = torch.where(hi > 0.0, hi, 1.0)
+    r = lo / den
+    g = torch.where(y < 0.0, -g, g)
+    g = torch.where(x < 0.0, -g, g)
+    g = torch.where(ay > ax, -g, g)
+    g_r = g * _atan01_grad(r)
+    g_lo = g_r / den
+    g_hi = torch.where(hi > 0.0, -g_r * r / den, 0.0)
+    # d max(a, b) / da = d min(b, a) / da = maxgrad(a - b), ties split
+    g_ax = g_hi * vm.maxgrad(ax - ay) + g_lo * vm.maxgrad(ay - ax)
+    g_ay = g_hi * vm.maxgrad(ay - ax) + g_lo * vm.maxgrad(ax - ay)
+    return g_ay * torch.sign(y), g_ax * torch.sign(x)
+
+
+def asin_adjoint(t, g):
+    """Cotangent of t of `vecmath.asin` = atan2(t, guarded sqrt((1 - t)(1 +
+    t)))."""
+    w = (1.0 - t) * (1.0 + t)
+    s = torch.sqrt(torch.where(w > 0.0, w, 1.0))
+    g_y, g_x = atan2_adjoint(t, s, g)
+    g_w = torch.where(w > 0.0, g_x * 0.5 / s, 0.0)
+    return g_y - g_w * (1.0 + t) + g_w * (1.0 - t)
+
+
+def uv_adjoint(n, g_u, g_v):
+    """Cotangent (a Vec3) of the direction ``n`` of `pipeline.sphere_uv` for
+    the cotangents of its (u, v)."""
+    nx, ny, nz = n
+    g_nz, g_nx = atan2_adjoint(nz, nx, g_u * (0.5 / math.pi))
+    lo, hi = -1.0 + 1e-6, 1.0 - 1e-6
+    g_cy = asin_adjoint(vm.clip(ny, lo, hi), -g_v / math.pi)
+    g_ny = g_cy * vm.maxgrad(ny - lo) * vm.maxgrad(hi - torch.clamp_min(ny, lo))
+    return g_nx, g_ny, g_nz
 
 
 def gather_rows(leaf, idx, zero, fill=0.0):
@@ -740,15 +902,17 @@ def winner_rows(count, idx, mask, vals, like):
     return out.index_add_(0, idx.reshape(-1), v.reshape(-1, len(vals)))
 
 
-def material_grads(mat_like, count, idx, mask, use2, g, like):
+def material_grads(mat_like, count, idx, mask, use2, g, like, textured=False):
     """The material leaves' gradients of the winners: ``g`` holds the
     per-pixel cotangents base (Vec3), ka, kd, ks, shin, and mir (the mirror
     coefficient's, or None for none); base goes to color or color2 as the
-    checker picked."""
+    checker picked, and to neither for a ``textured`` group (its texels take
+    it)."""
     rows = winner_rows(count, idx, mask, [g.ka, g.kd, g.ks, g.shin], like)
+    colour = mask & ~torch.full_like(mask, textured)
     out = dc.replace(mat_like,
-                     color=winner_rows(count, idx, mask & ~use2, g.base, like),
-                     color2=winner_rows(count, idx, mask & use2, g.base, like),
+                     color=winner_rows(count, idx, colour & ~use2, g.base, like),
+                     color2=winner_rows(count, idx, colour & use2, g.base, like),
                      ka=rows[:, 0], kd=rows[:, 1], ks=rows[:, 2], shininess=rows[:, 3])
     if getattr(g, "mir", None) is not None:
         out = dc.replace(out, mirror=winner_rows(count, idx, mask, [g.mir], like)[:, 0])
@@ -779,8 +943,13 @@ def winner_surface(scene, w, o, d, t, zero, checker_tau=0.0):
     ``shin``, and ``pick(sphere_value, rect_value, miss_value)``. At
     ``checker_tau > 0`` the base is the soft checker's blend c1 + u (c2 -
     c1) and ``use2`` is False; ``w.ck`` keeps what its adjoint reads
-    (`pipeline.sphere_hit`)."""
+    (`pipeline.sphere_hit`). A textured group's base is its grid's sample
+    (``w.tex_s``, ``w.tex_r``: `pipeline.sample_grid` at `pipeline.sphere_uv` of the
+    sphere's normal ``w.s_n``, or at the rect's (a, b)) and its ``use2``
+    False."""
     sp, rc = scene.spheres, scene.rects
+    if checker_tau > 0.0 and (sp.textured or rc.textured):
+        raise NotImplementedError("object textures take the hard checker only")
     p = vm.vadd(o, vm.vscale(d, t))
     s_pl = vm.vsub(p, w.sc)
     s_n = vm.vscale(s_pl, 1.0 / w.sr)
@@ -796,6 +965,13 @@ def winner_surface(scene, w, o, d, t, zero, checker_tau=0.0):
     r_cs = gather_rows(rc.material.checker_scale, w.kr, zero)
     r_chk = gather_rows(rc.material.checker, w.kr, zero)
     r_use2 = r_chk * torch.remainder(torch.floor(ra * r_cs) + torch.floor(rb * r_cs), 2.0) > 0.5
+    w.s_n, w.tex_s, w.tex_r = s_n, None, None
+    if sp.textured:
+        w.tex_s = sample_grid(sp.texture, w.ks, *sphere_uv(s_n), wrap_a=True)
+        s_use2 = torch.zeros_like(s_use2)
+    if rc.textured:
+        w.tex_r = sample_grid(rc.texture, w.kr, ra, rb)
+        r_use2 = torch.zeros_like(r_use2)
 
     def pick(sv, rv, miss):
         return torch.where(w.is_sph, sv, torch.where(w.is_rct, rv, miss))
@@ -820,8 +996,11 @@ def winner_surface(scene, w, o, d, t, zero, checker_tau=0.0):
                                r_chk=r_chk, r_parts=r_parts, r_u=r_u, r_dc=vm.vsub(r_c2, r_c1))
     else:
         w.use2 = torch.where(w.is_sph, s_use2, r_use2)
-        w.base = tuple(pick(torch.where(s_use2, a2, a1), torch.where(r_use2, b2, b1), zero)
-                       for a1, a2, b1, b2 in zip(s_c1, s_c2, r_c1, r_c2))
+        s_base = (w.tex_s.col if sp.textured else
+                  tuple(torch.where(s_use2, a2, a1) for a1, a2 in zip(s_c1, s_c2)))
+        r_base = (w.tex_r.col if rc.textured else
+                  tuple(torch.where(r_use2, b2, b1) for b1, b2 in zip(r_c1, r_c2)))
+        w.base = tuple(pick(a, b, zero) for a, b in zip(s_base, r_base))
     w.ka, w.kd, w.ksp, w.shin = mat("ka"), mat("kd"), mat("ks"), mat("shininess", 1.0)
     w.mir = mat("mirror")
     return w
@@ -836,7 +1015,9 @@ def level_terms(scene, nearest, visibility, o, d, zero, level=0):
     channels. ``nearest(scene, o, d) -> (t, k)`` is the trace's nearest
     hit; ``visibility(li, so, f, zero, hit, level)`` gives light li's
     visibility plane at this bounce ``level`` where the rays ``hit``
-    (`traced_visibility`, `saved_visibility`)."""
+    (`traced_visibility`, `saved_visibility`). With an environment map a
+    miss takes its sample at `pipeline.sphere_uv` of the ray's direction
+    (``env``, a `pipeline.sample_grid`)."""
     lt = scene.lights
     t, kbest = nearest(scene, o, d)
     w = winner_surface(scene, winner_geometry(scene, kbest, zero), o, d, t, zero)
@@ -850,9 +1031,14 @@ def level_terms(scene, nearest, visibility, o, d, zero, level=0):
                else visibility(li, so, f, zero, w.hit))
         col = vm.vadd(col, tuple(vis * f.q[c] * f.lcol[c] for c in range(3)))
         per_light.append((f, vis))
-    bg = vm.splat(scene.background)
+    env = None
+    if scene.env_mapped:
+        env = sample_grid(scene.env[None], 0, *sphere_uv(d), wrap_a=True)
+        bg = env.col
+    else:
+        bg = vm.splat(scene.background)
     col = tuple(torch.where(w.hit, c, b) for c, b in zip(col, bg))
-    return SimpleNamespace(o=o, d=d, t=t, w=w, so=so, per_light=per_light, col=col)
+    return SimpleNamespace(o=o, d=d, t=t, w=w, so=so, per_light=per_light, col=col, env=env)
 
 
 def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
@@ -933,7 +1119,7 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
 
     # ---- the image's cotangent, through the clip
     g_img, sq = cotangent(fw.img)
-    gc = tuple(g * (_clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, fw.pre))
+    gc = tuple(g * (vm.clip01_grad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, fw.pre))
 
     # ---- the bounce, col = col0 + m (col1 - col0): level 1, then what it
     # hands level 0
@@ -951,10 +1137,11 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
     if grads1 is not None:
         grads = tree_map(torch.add, grads, grads1)
 
-    # ---- camera
+    # ---- camera (a missed ray's direction has the environment's cotangent)
+    live = hit | scene.env_mapped
     g_eye, g_look, g_uph, g_fov = camera_grads(
         scene.camera, fw.ray, tuple(torch.where(hit, x, 0.0) for x in g_o),
-        tuple(torch.where(hit, x, 0.0) for x in g_d))
+        tuple(torch.where(live, x, 0.0) for x in g_d))
     camera = dc.replace(grads.camera, eye=g_eye, look_at=g_look, up=g_uph, fov_deg=g_fov)
     return sq, dc.replace(grads, camera=camera)
 
@@ -967,7 +1154,11 @@ def level_adjoint(scene, lv, g_col, zero, bounce=None):
     shadow origin ``so``, ray direction ``d`` and normal ``n``, and of its
     winner's mirror coefficient ``mir`` (each used where the ray hit).
     Returns the per-pixel cotangents of the level's ray origin and direction
-    (not masked) and the gradient of every leaf but the camera's (a Scene)."""
+    (not masked) and the gradient of every leaf but the camera's (a Scene).
+    A textured winner's base cotangent goes to its texels and, through the
+    sample's weights, to its coordinates (the sphere's normal, the rect's a
+    and b); with an environment map a miss's goes to the environment's texels
+    and the ray's direction, and the background gets none."""
     like = dict(device=zero.device, dtype=zero.dtype)
     sp, rc, lt = scene.spheres, scene.rects, scene.lights
     N, M, L = sp.count, rc.count, lt.count
@@ -977,7 +1168,7 @@ def level_adjoint(scene, lv, g_col, zero, bounce=None):
 
     # ---- shade adjoint (hit pixels; everything below is masked by hit)
     gh = tuple(torch.where(hit, g, 0.0) for g in g_col)
-    g_bg = tuple(torch.sum(torch.where(hit, 0.0, g)) for g in g_col)
+    g_bg = tuple(torch.sum(torch.where(hit | scene.env_mapped, 0.0, g)) for g in g_col)
     g = SimpleNamespace(base=tuple(gh[c] * amb[c] * w.ka for c in range(3)),
                         ka=sum(gh[c] * base[c] * amb[c] for c in range(3)),
                         kd=zero, ks=zero, shin=zero)
@@ -1002,10 +1193,26 @@ def level_adjoint(scene, lv, g_col, zero, bounce=None):
     g_d = vm.vadd(g_d, vm.vscale(g_so, t))
     g_t = vm.vdot(g_so, d)
     g_n = vm.vadd(g_n, vm.vscale(g_so, SHADOW_EPS))
+    g_env = None
+    if scene.env_mapped:  # a miss: the environment's sample at sphere_uv(d)
+        miss = ~hit
+        g_env, g_u, g_v = grid_adjoint(lv.env, g_col, miss, scene.env.shape[0] ** 2)
+        g_d = vm.vadd(g_d, uv_adjoint(d, torch.where(miss, g_u, 0.0), torch.where(miss, g_v, 0.0)))
 
-    # ---- the winning object
-    s_go, s_gd, g_c, g_r = sphere_winner_adjoint(o, d, t, w.sc, w.sr, g_t, g_n)
-    r_go, r_gd, g_p0, g_eu, g_ev = rect_winner_adjoint(o, d, w.p0, w.eu, w.ev, w.is_rct, g_t, g_n)
+    # ---- the winning object (a textured one's texels and coordinates)
+    g_n_s, g_ab, g_tex = g_n, None, {}
+    if sp.textured:
+        g_tex["s"], g_u, g_v = grid_adjoint(w.tex_s, g.base, hit & w.is_sph,
+                                            sp.texture[..., 0].numel())
+        g_n_s = vm.vadd(g_n, uv_adjoint(w.s_n, torch.where(w.is_sph, g_u, 0.0),
+                                        torch.where(w.is_sph, g_v, 0.0)))
+    if rc.textured:
+        g_tex["r"], g_a, g_b = grid_adjoint(w.tex_r, g.base, hit & w.is_rct,
+                                            rc.texture[..., 0].numel())
+        g_ab = (torch.where(w.is_rct, g_a, 0.0), torch.where(w.is_rct, g_b, 0.0))
+    s_go, s_gd, g_c, g_r = sphere_winner_adjoint(o, d, t, w.sc, w.sr, g_t, g_n_s)
+    r_go, r_gd, g_p0, g_eu, g_ev = rect_winner_adjoint(o, d, w.p0, w.eu, w.ev, w.is_rct, g_t, g_n,
+                                                       g_ab)
     g_o = tuple(g_o[c] + w.pick(s_go[c], r_go[c], zero) for c in range(3))
     g_d = tuple(g_d[c] + w.pick(s_gd[c], r_gd[c], zero) for c in range(3))
 
@@ -1017,17 +1224,23 @@ def level_adjoint(scene, lv, g_col, zero, bounce=None):
         spheres = dc.replace(spheres, center=winner_rows(N, w.ks, w.is_sph, g_c, like),
                              radius=winner_rows(N, w.ks, w.is_sph, [g_r], like)[:, 0],
                              material=material_grads(spheres.material, N, w.ks, w.is_sph,
-                                                     w.use2, g, like))
+                                                     w.use2, g, like, sp.textured))
+        if sp.textured:
+            spheres = dc.replace(spheres, texture=g_tex["s"].reshape(sp.texture.shape))
     if M:
         rects = dc.replace(rects, origin=winner_rows(M, w.kr, w.is_rct, g_p0, like),
                            edge_u=winner_rows(M, w.kr, w.is_rct, g_eu, like),
                            edge_v=winner_rows(M, w.kr, w.is_rct, g_ev, like),
                            material=material_grads(rects.material, M, w.kr, w.is_rct, w.use2, g,
-                                                   like))
+                                                   like, rc.textured))
+        if rc.textured:
+            rects = dc.replace(rects, texture=g_tex["r"].reshape(rc.texture.shape))
     lights = grads.lights
     if L:
         lights = dc.replace(lights, position=torch.stack([torch.stack(x) for x in g_lpos]),
                             color=torch.stack([torch.stack(x) for x in g_lcol]))
     grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights,
                        ambient=torch.stack(g_amb), background=torch.stack(g_bg))
+    if g_env is not None:
+        grads = dc.replace(grads, env=g_env.reshape(scene.env.shape))
     return g_o, g_d, grads

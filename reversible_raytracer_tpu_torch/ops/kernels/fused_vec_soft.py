@@ -493,7 +493,7 @@ def _soft_adjoint(scene, cfg, cotangent, off=(0.0, 0.0)):
 
     # ---- the image's cotangent through the clip
     g_img, sq = cotangent(fw.img)
-    g_comp = tuple(g * (fused._clipgrad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, comp))
+    g_comp = tuple(g * (vm.clip01_grad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, comp))
 
     # ---- composite adjoint
     y1.g_a = sum(g_comp[c] * (y1.col[c] - behind[c]) for c in range(3))

@@ -13,8 +13,12 @@ JAX package's hard family does. Mirror reflections (``cfg.reflections``
 bounces, each object's ``mirror`` coefficient) follow the JAX package's
 reflective `shade`: each level shaded unclipped, the reflected colour
 blended in deepest level first, one clip at the top; they take hard
-semantics only (``soft_tau`` and ``checker_tau`` 0). Textures and
-environment maps raise `NotImplementedError`.
+semantics only (``soft_tau`` and ``checker_tau`` 0). Object textures and
+the environment map (JAX pipeline.py:258-316, :392-459) are sampled by the
+4-corner bilinear gather (`sample_texture`) at a rect's (a, b) or at the
+lat-long coordinates of a sphere's normal or a missed ray's direction
+(`sphere_uv`, through the JAX package's polynomial `atan2`/`asin`); the
+where chain (`shade`) takes them, the object-vectorized shaders refuse them.
 
 This is the plain version of the CUDA kernels (`ops.kernels.fused`): on
 the CPU it is the renderer, and on the card it is what the kernels are held
@@ -26,9 +30,11 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import torch
 
+from ..models.scene import scene_textured
 from . import vecmath as vm
 from .vecmath import Vec3
 
@@ -61,24 +67,25 @@ class RenderConfig:
         return (self.height, self.width)
 
 
-def _require_hard(scene, cfg: RenderConfig, soft_checker: bool = False) -> None:
-    """Raise for what no eager renderer covers. ``soft_tau > 0`` passes: the
-    shader that `render_tile` is given decides (`shade` and
+def _require_hard(scene, cfg: RenderConfig, where_chain: bool = True) -> None:
+    """Raise for what the eager renderer does not cover. ``soft_tau > 0``
+    passes: the shader that `render_tile` is given decides (`shade` and
     `pipeline_vec.shade_vec` refuse it, `pipeline_vec.shade_soft` needs it).
-    ``checker_tau > 0`` passes only for a shader that takes the soft checker
-    (``soft_checker``: the object-vectorized ones); the where chain refuses
-    it (the JAX package's pipeline.py:99-101)."""
+    ``checker_tau > 0`` passes only for the object-vectorized shaders, which
+    take the soft checker; the where chain (``where_chain``) refuses it (the
+    JAX package's pipeline.py:99-101). Object textures and the environment
+    map pass only for the where chain."""
     if cfg.reflections and (cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0):
         raise NotImplementedError(
             "mirror reflections require hard semantics (reflections=0 when soft_tau/checker_tau "
             "> 0; anneal to hard, then polish with reflections on)")
-    if cfg.checker_tau > 0.0 and not soft_checker:
+    if cfg.checker_tau > 0.0 and where_chain:
         raise NotImplementedError(
             "checker_tau > 0 (the soft checker) renders through pipeline_vec (render_eager_vec)")
-    if scene.env_mapped:
-        raise NotImplementedError("environment maps are not ported yet")
-    if scene.spheres.textured or scene.rects.textured:
-        raise NotImplementedError("object textures are not ported yet")
+    if not where_chain and scene_textured(scene):
+        raise NotImplementedError(
+            "object textures and environment maps render through the where chain "
+            "(render_eager); the object-vectorized and soft eager paths do not sample texels yet")
 
 
 def require_hard_visibility(cfg: RenderConfig) -> None:
@@ -218,36 +225,114 @@ def _checker_base(m, parts, checker_tau) -> Vec3:
     return _checker_select(m, parity)
 
 
+def texture_weights(a, b, ka: int, kb: int, wrap_a: bool = False):
+    """Bilinear corner indices and weights of uv (a, b) over a (ka, kb) grid
+    (JAX pipeline.py:258-286): (i0, i1, j0, j1, fi, fj). The b axis clamps
+    at its edges; the a axis clamps too, or with ``wrap_a`` wraps (the
+    lat-long azimuth seam: i1 is 0 where i0 is ka - 1). The clamps' ties
+    split the gradient as ``jnp.clip``'s do; the indices carry none."""
+    u = a * ka - 0.5
+    v = b * kb - 0.5
+    if wrap_a:
+        i0f = torch.floor(u)
+        fi = u - i0f
+        i0 = torch.remainder(i0f.long(), ka)
+        i1 = torch.remainder(i0 + 1, ka)
+    else:
+        i0f = torch.clamp(torch.floor(u), 0.0, ka - 1)
+        fi = vm.clip01(u - i0f)
+        i0 = i0f.long()
+        i1 = torch.clamp_max(i0 + 1, ka - 1)
+    j0f = torch.clamp(torch.floor(v), 0.0, kb - 1)
+    fj = vm.clip01(v - j0f)
+    j0 = j0f.long()
+    j1 = torch.clamp_max(j0 + 1, kb - 1)
+    return i0, i1, j0, j1, fi, fj
+
+
+def sample_grid(grids, k, a, b, wrap_a: bool = False):
+    """Bilinear sample of grid ``k`` (an index, or one per pixel) of the
+    stacked (n, ka, kb, 3) texel ``grids`` at uv (a, b), a indexing the first
+    axis (`texture_weights`): the 4-corner gather of JAX pipeline.py:289-316,
+    per channel (1 - fi) ((1 - fj) t00 + fj t01) + fi ((1 - fj) t10 + fj t11).
+    Its gradient reaches the four texels and, through the weights, the
+    coordinates. Returns the colour (``col``) with what the kernels' adjoint
+    twin reads (`kernels.fused.grid_adjoint`): the corners' rows of the
+    flattened grids (``idx``: (i0, j0), (i0, j1), (i1, j0), (i1, j1)), their
+    texels (``t``), the weights ``fi``, ``fj`` and their derivatives in a and
+    b (``dfi``, ``dfj``; a clamp's ties split as ``jnp.clip``'s)."""
+    ka, kb = grids.shape[1], grids.shape[2]
+    i0, i1, j0, j1, fi, fj = texture_weights(a, b, ka, kb, wrap_a)
+    rows = grids.reshape(-1, 3)
+    base = k * (ka * kb)
+    idx = tuple(base + i * kb + j for i, j in ((i0, j0), (i0, j1), (i1, j0), (i1, j1)))
+    t = tuple(rows[ix] for ix in idx)
+    col = tuple((1.0 - fi) * ((1.0 - fj) * t[0][..., c] + fj * t[1][..., c])
+                + fi * ((1.0 - fj) * t[2][..., c] + fj * t[3][..., c]) for c in range(3))
+    dfi = ka if wrap_a else ka * vm.clip01_grad(a * ka - 0.5 - i0.to(a.dtype))
+    dfj = kb * vm.clip01_grad(b * kb - 0.5 - j0.to(b.dtype))
+    return SimpleNamespace(col=col, idx=idx, t=t, fi=fi, fj=fj, dfi=dfi, dfj=dfj)
+
+
+def sample_texture(tex, a, b, wrap_a: bool = False) -> Vec3:
+    """`sample_grid` of one (ka, kb, 3) texel grid: its colour."""
+    return sample_grid(tex[None], 0, a, b, wrap_a).col
+
+
+def sphere_uv(n_unit: Vec3):
+    """Lat-long coordinates of a unit direction, y up (JAX pipeline.py:392):
+    u = atan2(z, x) / (2 pi) + 0.5 (the azimuth, wrapping at the seam), v =
+    0.5 - asin(clip(y, -1 + 1e-6, 1 - 1e-6)) / pi (0 at +y), through the
+    polynomial `vecmath.atan2`/`asin` and with their guards, so that no ray
+    puts NaN into a gradient."""
+    nx, ny, nz = n_unit
+    u = vm.atan2(nz, nx) * (0.5 / math.pi) + 0.5
+    v = 0.5 - vm.asin(vm.clip(ny, -1.0 + 1e-6, 1.0 - 1e-6)) / math.pi
+    return u, v
+
+
 def miss_color(scene, d: Vec3, shape) -> Vec3:
+    """What a ray that hits nothing sees: the environment map's sample at
+    `sphere_uv` of its (unit) direction, azimuth wrapped, where the scene has
+    one; else the flat background."""
     if scene.env_mapped:
-        raise NotImplementedError("environment maps are not ported yet")
+        u, v = sphere_uv(d)
+        return vm.vbroadcast(sample_texture(scene.env, u, v, wrap_a=True), shape)
     return vm.vbroadcast(vm.splat(scene.background), shape)
 
 
-def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m, t=None, checker_tau=0.0):
+def sphere_hit(o: Vec3, d: Vec3, center: Vec3, radius, m, t=None, checker_tau=0.0, tex=None):
     """(t, normal, base colour) of a sphere with material rows ``m``. A
     given ``t`` (a soft layer's rank t, which may be a near miss's closest
     approach) replaces the intersection; the normal (p - c) / r is then not
     a unit vector, as in the JAX package's `_gather_layer`. The checker is
     the hard select, or at ``checker_tau > 0`` the soft blend
-    (`_checker_base`)."""
+    (`_checker_base`); a texel grid ``tex`` replaces it, sampled at
+    `sphere_uv` of the normal with the azimuth wrapped."""
     if t is None:
         t = intersect_sphere(o, d, center, radius)
     p_local = vm.vsub(vm.vadd(o, vm.vscale(d, t)), center)
     n_unit = vm.vscale(p_local, 1.0 / radius)
+    if tex is not None:
+        u, v = sphere_uv(n_unit)
+        return t, n_unit, sample_texture(tex, u, v, wrap_a=True)
     s = m["scale"]
     return t, n_unit, _checker_base(m, tuple(x * s for x in p_local), checker_tau)
 
 
-def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m, checker_tau=0.0):
+def rect_hit(o: Vec3, d: Vec3, origin: Vec3, edge_u: Vec3, edge_v: Vec3, m, checker_tau=0.0,
+             tex=None):
     """(t, unit normal facing the ray, base colour) of a rect; the checker
-    as `sphere_hit`'s, at the in-face coordinates (a, b)."""
+    as `sphere_hit`'s, at the in-face coordinates (a, b), or the texel grid
+    ``tex`` sampled there."""
     t, a, b, n = intersect_rect(o, d, origin, edge_u, edge_v)
     n_unit = vm.vnormalize(n)
     # Two-sided shading: flip the normal toward the incoming ray. The sign
     # takes the scene's dtype: a 0-d normal times a float32 (H, W) sign would
     # round a float64 normal to float32.
     facing = torch.where(vm.vdot(n_unit, d) < 0.0, 1.0, -1.0).to(t.dtype)
+    if tex is not None:
+        return t, vm.vscale(n_unit, facing), sample_texture(tex, a, b)
     s = m["scale"]
     return t, vm.vscale(n_unit, facing), _checker_base(m, (a * s, b * s), checker_tau)
 
@@ -279,23 +364,24 @@ def merge_attrs(best: dict, mask, n_unit: Vec3, col: Vec3, m) -> dict:
 def trace_nearest(scene, o: Vec3, d: Vec3, shape, with_mirror: bool = False):
     """Closest hit over all spheres, then all rects. Returns (t, hit, attrs)
     with per-pixel unit normal, base color and material scalars, and with
-    ``with_mirror`` the mirror coefficient ("mir")."""
-    if scene.spheres.textured or scene.rects.textured:
-        raise NotImplementedError("object textures are not ported yet")
+    ``with_mirror`` the mirror coefficient ("mir"). A textured group's base
+    colour is its texture's sample (`sphere_hit`, `rect_hit`)."""
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     t_best = torch.full(shape, BIG, **like)
     best = init_attrs(shape, like, with_mirror)
     sp, rc = scene.spheres, scene.rects
     for k in range(sp.count):
         m = material_rows(sp.material, lambda x: x[k])
-        t, n_unit, col = sphere_hit(o, d, _xyz(sp.center[k]), sp.radius[k], m)
+        t, n_unit, col = sphere_hit(o, d, _xyz(sp.center[k]), sp.radius[k], m,
+                                    tex=sp.texture[k] if sp.textured else None)
         closer = t < t_best
         t_best = torch.where(closer, t, t_best)
         best = merge_attrs(best, closer, n_unit, col, m)
     for k in range(rc.count):
         m = material_rows(rc.material, lambda x: x[k])
         t, n_unit, col = rect_hit(o, d, _xyz(rc.origin[k]), _xyz(rc.edge_u[k]),
-                                  _xyz(rc.edge_v[k]), m)
+                                  _xyz(rc.edge_v[k]), m,
+                                  tex=rc.texture[k] if rc.textured else None)
         closer = t < t_best
         t_best = torch.where(closer, t, t_best)
         best = merge_attrs(best, closer, n_unit, col, m)
@@ -445,7 +531,7 @@ def render_tile(scene, cfg: RenderConfig, row0, col0, bh: int, bw: int,
     Returns SoA (r, g, b), plus the visibility planes with ``return_vis``.
     ``shade_fn`` traces and shades one subsample's rays: `shade` (the
     where chain) or `pipeline_vec.shade_vec` (objects on a leading axis)."""
-    _require_hard(scene, cfg, soft_checker=shade_fn is not shade)
+    _require_hard(scene, cfg, where_chain=shade_fn is shade)
     if cfg.spp not in SPP_OFFSETS:
         raise ValueError(f"spp must be 1 or 4, got {cfg.spp}")
     like = dict(device=scene.device, dtype=scene.ambient.dtype)

@@ -21,7 +21,13 @@ autograd of `render` (`loss_and_grad_fn`). Mirror reflections (one bounce
 level, spp 1) take the unrolled kernels on CUDA, as the JAX package's
 render.py:116-128 sends them there; a reflective scene of more than 24
 objects, two levels or spp 4 with reflections are refused there by name,
-and render on the CPU through both eager twins.
+and render on the CPU through both eager twins. Object textures and the
+environment map (configs 7-9) take the unrolled kernels' textured
+instances on CUDA, as the JAX package's render.py:45-138 sends a textured
+scene of at most 24 objects to its unrolled kernels, and `render_eager` on
+the CPU; spp 4 with a texel grid and object textures with a bounce are
+refused by name on CUDA, and so are texel grids in the object-chunked and
+soft kernels (and their eager paths).
 """
 
 from __future__ import annotations
@@ -48,8 +54,9 @@ def resolve_impl(scene, cfg: RenderConfig) -> str:
     CPU, by object count; ``"cuda_vec_soft"`` / ``"eager_vec"`` for
     ``soft_tau > 0``, with any ``checker_tau``; ``"eager_vec"`` on either
     device for the checker-only relaxation (``soft_tau == 0``,
-    ``checker_tau > 0``), as the JAX package's render.py:51-64 decides;
-    raises otherwise."""
+    ``checker_tau > 0``), as the JAX package's render.py:51-64 decides; a
+    textured or env-mapped scene of at most 24 objects is ``"cuda"`` (rows
+    1-3's textured instances); raises otherwise."""
     soft = cfg.soft_tau > 0.0
     checker_only = not soft and cfg.checker_tau > 0.0
     vec = soft or checker_only or scene.spheres.count + scene.rects.count > VEC_THRESHOLD

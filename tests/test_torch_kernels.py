@@ -1291,3 +1291,155 @@ def test_mirror_refusals_on_cuda(cuda):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS] == before
+
+
+# ---------------------------------------------------------------------------
+# Texel grids (object textures, the environment map) in rows 1-3: configs 7-9
+# ---------------------------------------------------------------------------
+
+# name: (config, keyword arguments of its builder, a camera (eye, look_at) or None)
+TEXEL_CASES = {
+    "config7": (7, {}, None),
+    "config8": (8, {}, None),
+    "config9": (9, {}, None),
+    # the floor's edges in view at 4 texels a side: both axes clamp there
+    "config7_k4_edges": (7, {"tex_k": 4}, ((0.0, 8.0, 10.0), (0.0, -0.7, 0.0))),
+    # looking down the -x axis: the azimuth's atan2 seam runs down the frame
+    "config8_seam": (8, {}, ((-3.6, 0.9, 0.0), (0.0, 0.1, 0.0))),
+    "config9_seam": (9, {}, ((-3.8, 0.6, 0.0), (0.0, 0.1, 0.0))),
+    # one texel a side: the wrapped axis's two corners are one texel
+    "config8_k1": (8, {"tex_k": 1}, None),
+    "config9_k1": (9, {"env_k": 1}, None),
+}
+
+
+def _texel_case(cuda, name, size=64, seed=0):
+    """(truth, start, cfg): the case's scene at ``size``^2 and its texels
+    moved by perturb(scale=0.4, seed)."""
+    num, kw, cam = TEXEL_CASES[name]
+    scene, spec, cfg = configs.CONFIGS[num](size=size, device=cuda, **kw)
+    if cam is not None:
+        c = scene.camera
+        scene = dataclasses.replace(scene, camera=dataclasses.replace(
+            c, eye=torch.tensor(cam[0], device=cuda), look_at=torch.tensor(cam[1], device=cuda)))
+    return scene, configs.perturb(scene, spec, scale=0.4, seed=seed), cfg
+
+
+def _texel_leaf(grads, scene):
+    return (grads.env if scene.env_mapped else
+            grads.spheres.texture if scene.spheres.textured else grads.rects.texture)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TEXEL_CASES))
+def test_texture_forward_bit_identical(cuda, name):
+    """Row 2's textured instances against `render_fused_plain`: the image bit
+    for bit, each level's planes on the pixels it hit and 0 elsewhere
+    (`fused.level_hits`); one launch a call, three calls the same bits."""
+    _, start, cfg = _texel_case(cuda, name)
+    before = fused.FUSED_RENDER.launches
+    runs = [fused.render_fused(start, cfg) for _ in range(3)]
+    assert fused.FUSED_RENDER.launches == before + 3
+    assert all(torch.equal(runs[0][0], r[0]) and torch.equal(runs[0][1], r[1]) for r in runs[1:])
+    img, vis = runs[0]
+    img_p, vis_p = fused.render_fused_plain(start, cfg)
+    assert torch.equal(img, img_p) and vis.shape == vis_p.shape
+    L = start.lights.count
+    for lv, hit in enumerate(fused.level_hits(start, cfg)):
+        k, p_ = vis[lv * L:(lv + 1) * L], vis_p[lv * L:(lv + 1) * L]
+        assert torch.equal(k[:, hit], p_[:, hit]) and not k[:, ~hit].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TEXEL_CASES))
+def test_texture_step_matches_adjoint(cuda, name):
+    """Row 1's textured instances against the eager adjoint and autograd
+    (every leaf, texels, camera and geometry, within 1e-2 of its scale), one
+    launch a call, the same bits over three calls; against row 2's own image
+    of the truth a loss and gradient of exactly 0; the texels get a
+    gradient."""
+    scene, start, cfg = _texel_case(cuda, name)
+    target = fused.render_fused(scene, cfg)[0]
+    g_k = _flat_rows_hold(start, target, cfg)
+    assert float(_texel_leaf(g_k, scene).abs().max()) > 0.0
+    l_0, g_0 = fused.loss_grad_fused(scene, cfg, target)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TEXEL_CASES))
+def test_texture_render_bwd_matches_plain(cuda, name):
+    """Row 3's textured instances, by autograd of `render`: against autograd
+    of the eager render and the eager twin fed row 2's planes, every leaf
+    within 1e-2 of its scale; one launch a call, three calls the same bits;
+    its mse gradient row 1's bit for bit."""
+    scene, start, cfg = _texel_case(cuda, name)
+    g = _seeded(cfg, 1, cuda)
+    before = fused.FUSED_RENDER_BWD.launches
+    got = fused.autograd_vjp(render, start, cfg, g)
+    assert fused.FUSED_RENDER_BWD.launches == before + 1
+    for _ in range(2):
+        assert torch.equal(fused.flatten_scene(got),
+                           fused.flatten_scene(fused.autograd_vjp(render, start, cfg, g)))
+    _close_leaves(fused.render_fused_bwd_plain(start, cfg, g), got)
+    _close_leaves(fused.render_bwd_adjoint_eager(start, cfg, g,
+                                                 fused.render_fused(start, cfg)[1]), got)
+    target = render(scene, cfg).detach()
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([l.grad.reshape(-1) for l in leaves])
+    assert torch.equal(by_render, fused.flatten_scene(fused.loss_grad_fused(start, cfg,
+                                                                            target)[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num, frac", [(7, 0.25), (8, 0.3), (9, 0.3)])
+def test_texture_inversion_meets_the_jax_criteria(cuda, num, frac):
+    """`invert --config N --lr 3e-2 --perturb 0.4 --iters 200` at 64^2 on the
+    card, through row 1 (200 launches) and row 2 (the target): a final loss
+    below 1e-5 and the observable texels' RMS error below ``frac`` of its
+    start (tests/test_texture.py:385-408, :490-512; tests/test_env.py:95-117);
+    observable: a gradient at the truth towards 0.9 times its image."""
+    from reversible_raytracer_tpu_torch import cli
+
+    scene, spec, cfg = configs.CONFIGS[num](size=64, device=cuda)
+    for k in fused.KERNELS:
+        k.launches = 0
+    out = cli.main(["invert", "--config", str(num), "--size", "64", "--lr", "3e-2", "--perturb",
+                    "0.4", "--iters", "200", "--log-every", "199", "--quiet"])
+    assert (fused.FUSED_STEP.launches, fused.FUSED_RENDER.launches) == (200, 1)
+    target = fused.render_fused(scene, cfg)[0] * 0.9
+    mask = _texel_leaf(fused.loss_grad_fused(scene, cfg, target)[1], scene).abs() > 1e-10
+    start = configs.perturb(scene, spec, scale=0.4, seed=0)
+    truth = _texel_leaf(scene, scene)
+    err0 = float(((_texel_leaf(start, scene) - truth)[mask] ** 2).mean().sqrt())
+    err1 = float(((_texel_leaf(out["scene"], scene) - truth)[mask] ** 2).mean().sqrt())
+    assert out["history"][-1]["loss"] < 1e-5
+    assert err1 < frac * err0, (err0, err1)
+
+
+@pytest.mark.cuda
+def test_texture_refusals_on_cuda(cuda):
+    """On CUDA each combination the textured instances do not take raises by
+    name and launches nothing: spp 4 with a texel grid, object textures with
+    a bounce, two bounce levels with the environment map, a textured scene of
+    more than 24 objects (the object-chunked kernels), a soft render of one,
+    and a grid whose rows do not fit a block's shared memory."""
+    tex, _, cfg7 = configs.config7_texture(size=32, device=cuda)
+    sky, _, cfg9 = configs.config9_sky(size=32, device=cuda)
+    big = configs.config9_sky(size=32, env_k=48, device=cuda)[0]
+    many, _, cfg5 = configs.config5_many_spheres(size=32, device=cuda)
+    many = dataclasses.replace(many, env=sky.env)
+    before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
+    for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4), "spp 4 with a texel grid"),
+                      (tex, dataclasses.replace(cfg7, reflections=1),
+                       "object textures with mirror reflections"),
+                      (sky, dataclasses.replace(cfg9, reflections=2), "reflections > 1"),
+                      (many, cfg5, "environment maps"),
+                      (tex, dataclasses.replace(cfg7, soft_tau=0.05),
+                       "object textures or environment maps"),
+                      (big, cfg9, "a texel grid this large")):
+        with pytest.raises(NotImplementedError, match=why):
+            render(s, c)
+    assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS
+            + fused_vec_soft.KERNELS] == before

@@ -2,7 +2,8 @@
 """Rows 1, 2, 3, 5 and 6 (the small-scene step, forward and render backward,
 and the vec render backward and step: the kernels built from
 csrc/render_common.cuh's pixel_step or csrc/fused_render.cu) of this
-checkout beside those of another, on one card, in one process.
+checkout beside those of another, on one card, in one process: their
+instances without texel grids.
 
     python3 tools/flat_ab.py --tree DIR [--reps 2]
 
@@ -11,13 +12,14 @@ fused_render_bwd.cu, fused_vec_render_bwd.cu, fused_vec_step.cu) of this
 checkout and of the checkout ``DIR`` (a ``git archive`` of an older commit,
 say) with this checkout's nvcc flags, all ten at once, and loads each with
 ctypes. For each source it compares the two trees' machine code
-(``cuobjdump -sass``) kernel by kernel, the instances of this tree that
-take a bounce level (REFL = 1) left out and the rest named as the other
-tree names them. Then it calls each row's entry without a bounce on the
-same inputs, through the entries both trees have: rows 1-3 at config 2
-512^2 from perturb(scale=0.1, seed=4) against the plain render of the true
-scene, rows 5-6 at config 5 1024^2 from perturb(scale=0.05, seed=4), and a
-seeded normal cotangent for the backwards (with the forward's planes).
+(``cuobjdump -sass``) kernel by kernel, this tree's textured instances
+(flat_step_tex_kernel, render_kernel_tex) left out. Then it calls each
+row's entry on the same inputs, through the entries both trees have: rows
+1-3 at config 2 512^2 from perturb(scale=0.1, seed=4) against the plain
+render of the true scene, and with their bounce level (rows 1r-3r, the
+refl entries) at config 6 512^2 from perturb(scale=0.3, seed=3), rows 5-6
+at config 5 1024^2 from perturb(scale=0.05, seed=4), and a seeded normal
+cotangent for the backwards (with the forward's planes).
 Each row's outputs must be bit for bit the other tree's, and each row's
 device time per call (`kernel_timing.device_ms`, median of 20 after 3
 warm-ups) is taken in turns, other, this, this, other, for ``--reps``
@@ -91,14 +93,11 @@ def sass(cuobjdump: str, lib: Path) -> dict:
 
 
 def other_name(name: str) -> str | None:
-    """This tree's kernel name as a tree without the REFL template argument
-    names it; None for an instance with a bounce level."""
-    if "ILi1ELi1E" in name:  # <SPP = 1, REFL = 1>
+    """This tree's kernel name as the other tree names it; None for a
+    textured instance, which a tree without texel grids lacks."""
+    if "_tex_kernel" in name or "render_kernel_tex" in name:
         return None
-    out = name.replace("ILi1ELi0E", "ILi1E").replace("ILi4ELi0E", "ILi4E")
-    if "flat_step_kernel" in name:  # Src, the third template parameter, was the second
-        out = out.replace("ET1_", "ET0_")
-    return out
+    return name
 
 
 def compare_sass(root: Path):
@@ -167,6 +166,16 @@ def main() -> int:
     libs["this"]["fused_render"].rrt_render_spp(flat.data_ptr(), *geom, 1,
                                                 torch.empty((H, W, 3), device="cuda").data_ptr(),
                                                 vis.data_ptr(), stream)
+    # rows 1r-3r: config 6 at 512^2, one bounce level
+    scene6, spec6, cfg6 = configs.config6_mirror(size=512, device="cuda")
+    start6 = configs.perturb(scene6, spec6, scale=0.3, seed=3)
+    target6 = fused.render_fused_plain(scene6, cfg6)[0].contiguous()
+    flat6 = fused._cuda_flat(start6, cfg6)
+    geom6 = fused._geometry(start6, cfg6)
+    vis6 = torch.empty((2 * start6.lights.count, H, W), device="cuda")
+    libs["this"]["fused_render"].rrt_render_refl(
+        flat6.data_ptr(), *geom6, 1, 1, torch.empty((H, W, 3), device="cuda").data_ptr(),
+        vis6.data_ptr(), stream)
     # rows 5-6: config 5 at 1024^2
     scene5, spec5, cfg5 = configs.config5_many_spheres(size=1024, device="cuda")
     start5 = configs.perturb(scene5, spec5, scale=0.05, seed=4)
@@ -181,9 +190,10 @@ def main() -> int:
                          lib["fused_vec_render_bwd"].rrt_vec_render_bwd_scratch_floats(
                              *geom5[2:7])) for lib in libs.values())
     scratch5 = torch.empty((n_scratch5,), device="cuda")
-    sizes = {1: 1 + flat.numel(), 2: H * W * 3, 3: 1 + flat.numel(), 5: n_out5, 6: n_out5}
+    sizes = {1: 1 + flat.numel(), 2: H * W * 3, 3: 1 + flat.numel(), 5: n_out5, 6: n_out5,
+             "1r": 1 + flat6.numel(), "2r": H * W * 3, "3r": 1 + flat6.numel()}
     outs = {(t, r): torch.empty((n,), device="cuda") for t in libs for r, n in sizes.items()}
-    planes = {t: torch.empty_like(vis) for t in libs}
+    planes = {(t, r): torch.empty_like(v) for t in libs for r, v in ((2, vis), ("2r", vis6))}
 
     def call(tree, row):
         lib, out = libs[tree], outs[tree, row].data_ptr()
@@ -193,7 +203,18 @@ def main() -> int:
                                                  stream)
         elif row == 2:
             err = lib["fused_render"].rrt_render_spp(flat.data_ptr(), *geom, 1, out,
-                                                     planes[tree].data_ptr(), stream)
+                                                     planes[tree, 2].data_ptr(), stream)
+        elif row == "1r":
+            err = lib["fused_step"].rrt_step_refl(flat6.data_ptr(), *geom6, 1, 1,
+                                                  target6.data_ptr(), 1.0 / (H * W * 3),
+                                                  scratch.data_ptr(), out, stream)
+        elif row == "2r":
+            err = lib["fused_render"].rrt_render_refl(flat6.data_ptr(), *geom6, 1, 1, out,
+                                                      planes[tree, "2r"].data_ptr(), stream)
+        elif row == "3r":
+            err = lib["fused_render_bwd"].rrt_render_bwd_refl(
+                flat6.data_ptr(), *geom6, 1, 1, g2.data_ptr(), vis6.data_ptr(),
+                scratch.data_ptr(), out, stream)
         elif row == 3:
             err = lib["fused_render_bwd"].rrt_render_bwd_spp(
                 flat.data_ptr(), *geom, 1, g2.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
@@ -211,13 +232,15 @@ def main() -> int:
 
     same = True
     for row, case in ((1, "config2_512"), (2, "config2_512"), (3, "config2_512"),
+                      ("1r", "config6_512"), ("2r", "config6_512"), ("3r", "config6_512"),
                       (5, "config5_1024"), (6, "config5_1024")):
         for tree in libs:
             call(tree, row)
         torch.cuda.synchronize()
         bit_equal = bool(torch.equal(outs["other", row], outs["this", row]))
-        if row == 2:
-            bit_equal = bit_equal and bool(torch.equal(planes["other"], planes["this"]))
+        if row in (2, "2r"):
+            bit_equal = bit_equal and bool(torch.equal(planes["other", row],
+                                                       planes["this", row]))
         same = same and bit_equal
         times = {"other": [], "this": []}
         for _ in range(args.reps):

@@ -52,6 +52,12 @@ whether fused_render.cu calls it) also:
 After it also the cut floor (every ray misses: what is left is the launch,
 the block's staging and camera, the rays and the stores), and min_blocks_N,
 a build with the launch bound of N blocks an SM for the shipped 4.
+``--textured`` splits the textured instances of the step or backward
+instead (flat_step_tex_kernel, through ``rrt_step_tex`` /
+``rrt_render_bwd_tex``) at configs 7, 8 and 9, 512^2, from perturb(scale=0.4,
+seed=0) of their texels, with one cut more:
+  - no_texels: the texel records' scatter into the warp rows cut (their
+    adjoint stays).
 A part's time is the unchanged build's less the variant's. Prints one JSON
 line per shape, then the card's nvidia-smi line; stops on a build failure.
 """
@@ -73,6 +79,8 @@ PUT = "  v = warp_sum(v);\n  if (lane == 0) row[slot] = v;\n"
 KEEP = "  if (v == 1.5e-45f) row[slot] = v;  // keeps v live, no shuffles\n"
 SHADOW_LIT = [("render_common.cuh", LIT_CULLED, LIT_CULLED_PLANE)]
 NO_ADJOINT = [("render_common.cuh", CLIP_GRAD, CLIP_GRAD + CUT_ADJOINT)]
+NO_TEXELS = [("flat_step.cuh", "          if constexpr (Textured<SC>::value) "
+                               "scatter_texels(g.tex, gs, trec, lane);\n", "")]
 
 # Three launches: the step kernel over one block per tile, reduce_rows_kernel,
 # flat_finalize_kernel.
@@ -284,6 +292,8 @@ def main() -> int:
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--kernel", choices=("step", "bwd", "fwd"), default="step")
+    ap.add_argument("--textured", action="store_true",
+                    help="the textured instances at configs 7, 8 and 9 (step or bwd)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -296,9 +306,12 @@ def main() -> int:
     if args.kernel == "fwd":
         return split_forward(tree, args.reps)
     from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops import pipeline
     from reversible_raytracer_tpu_torch.ops.kernels import _build, fused
 
     which, cuts = cut_set(_build.CSRC, args.kernel)
+    if args.textured:
+        cuts = {**cuts, "no_texels": NO_TEXELS}
     step = args.kernel == "step"
     kernel = fused.FUSED_STEP if step else fused.FUSED_RENDER_BWD
     libs, ptxas = build_variants(_build, cuts, kernel, "flat_step_kernel")
@@ -306,22 +319,27 @@ def main() -> int:
                       "ptxas": ptxas}), flush=True)
 
     stream = torch.cuda.current_stream().cuda_stream
-    for label, num in (("config2_512", 2), ("config3_512", 3)):
+    shapes = ((("config7_512", 7), ("config8_512", 8), ("config9_512", 9)) if args.textured
+              else (("config2_512", 2), ("config3_512", 3)))
+    for label, num in shapes:
         scene, spec, cfg = configs.CONFIGS[num](size=512, device="cuda")
-        start = configs.perturb(scene, spec, scale=0.1, seed=4)
+        start = (configs.perturb(scene, spec, scale=0.4, seed=0) if args.textured
+                 else configs.perturb(scene, spec, scale=0.1, seed=4))
         target = fused.render_fused_plain(scene, cfg)[0].contiguous()
         flat = fused._cuda_flat(start, cfg)
         geom = fused._geometry(start, cfg)
         H, W = cfg.height, cfg.width
-        vis = torch.empty((start.lights.count, H, W), device="cuda")
+        vis = torch.empty((pipeline.n_vis_planes(start, cfg), H, W), device="cuda")
         img = torch.empty((H, W, 3), device="cuda")
-        fused.FUSED_RENDER.call("rrt_render", flat.data_ptr(), *geom, img.data_ptr(),
-                                vis.data_ptr(), stream)
+        extra = (cfg.reflections, *fused.texel_sizes(start)) if args.textured else ()
+        fused.FUSED_RENDER.call("rrt_render_tex" if args.textured else "rrt_render",
+                                flat.data_ptr(), *geom, *extra, img.data_ptr(), vis.data_ptr(),
+                                stream)
         g_img = torch.from_numpy(np.random.default_rng(0).normal(size=(H, W, 3)).astype(
             np.float32)).cuda()
-        entry = "rrt_step" if step else "rrt_render_bwd"
-        scratch = torch.empty((getattr(libs["full"], f"{entry}_scratch_floats")(*geom[:5]),),
-                              device="cuda")
+        entry = ("rrt_step" if step else "rrt_render_bwd") + ("_tex" if args.textured else "")
+        scratch = torch.empty((getattr(libs["full"], f"{entry}_scratch_floats")(
+            *geom[:5], *extra[1:]),), device="cuda")
         outs = {name: torch.empty((1 + flat.numel(),), device="cuda") for name in libs}
         calls = {}
         for name, lib in libs.items():
@@ -331,15 +349,15 @@ def main() -> int:
             def call(lib=lib, out=outs[name]):
                 src = ((target.data_ptr(), 1.0 / (H * W * 3)) if step
                        else (g_img.data_ptr(), vis.data_ptr()))
-                err = getattr(lib, entry)(flat.data_ptr(), *geom, *src, scratch.data_ptr(),
-                                          out.data_ptr(), stream)
+                err = getattr(lib, entry)(flat.data_ptr(), *geom, *extra, *src,
+                                          scratch.data_ptr(), out.data_ptr(), stream)
                 if err != 0:
                     raise RuntimeError(f"{kernel.name} ({name}) failed: CUDA error {err}")
             calls[name] = call
             call()
         torch.cuda.synchronize()
         shipped = torch.empty_like(outs["full"])  # the full build's row is the shipped kernel's
-        kernel.call(entry, flat.data_ptr(), *geom,
+        kernel.call(entry, flat.data_ptr(), *geom, *extra,
                     *((target.data_ptr(), 1.0 / (H * W * 3)) if step
                       else (g_img.data_ptr(), vis.data_ptr())),
                     scratch.data_ptr(), shipped.data_ptr(), stream)
