@@ -204,9 +204,10 @@ non-zero:
                at 512^2 and at 48^2 (row 1 150 times, row 2 twice; the mirror
                coefficients' RMS error from its start, about 0.19, below
                1e-3); 20 steps of optimize(render_fn=render) at 512^2 (row 2
-               21 times, row 3 20); `render --config 5 --reflections 1` and
-               `invert --config 6 --anneal 0.05,0` each raising by name, no
-               kernel launched but the target's row 2.
+               21 times, row 3 20); `render --config 5 --reflections 2` (two
+               bounces, in rows 4-6) and `invert --config 6 --anneal 0.05,0`
+               each raising by name, no kernel launched but the target's row
+               2.
  26. texture - rows 1-3's textured instances (TEX: object textures, the
                environment map, spp 1) at configs 7 (a textured floor), 8 (a
                textured globe) and 9 (a sky environment map, one bounce),
@@ -234,6 +235,43 @@ non-zero:
                row 3 20); and three refusals by name (`render --config 7 --spp
                4`, `render --config 8 --reflections 1`, `invert --config 7
                --anneal 0.05,0`).
+ 28. chrome  - rows 4-6's environment-map and bounce instances (the ``_levels``
+               entries: level 1 over every sphere, its shadow rays culled,
+               the env ending the globals) at config 10 (64 chrome spheres
+               under a 16 x 16 sky, one bounce), 512^2, from perturb(scale=0.2,
+               seed=10) of its mirror coefficients and sky, and at config 5
+               with one bounce, 1024^2, from perturb(scale=0.05, seed=4): row 4
+               by the oracle rule and bit for bit `render_vec_plain` (the
+               image; 2 L planes, level 0's on the pixels the primary ray hit
+               and level 1's where both levels hit, 0 elsewhere); row 6 given
+               row 4's image of the truth a loss and gradient of exactly 0,
+               and against autograd and its eager twin (every leaf within
+               1e-2 of its scale, the env and mirror leaves included); row 5
+               (by autograd of `render`) against autograd of the plain render
+               and its twin for a unit normal cotangent, its mse gradient row
+               6's bit for bit; one wrapper launch a call; three calls
+               bit-identical. Each row's event time, device time and launches
+               per call on the ``_levels`` entries, its plain version's time
+               and its bound (`chrome_bounds`: level 0's culled walks, level
+               1's sphere tests at the per-warp cull of
+               `cull.bounce_candidates` and its culled shadow rays
+               (`vec_bounce_counts`), the env's samples in `TEX_OPS`) beside
+               the bound before the culls (every sphere at both levels); the
+               most spheres a block takes with the env and the bounce.
+ 29. chrome_main - `render --config 10` (row 4 once); invert --config 10
+               --perturb 0.2 --lr 2e-2 --iters 300 --seed 10 at 512^2 (the JAX
+               package's scripts/config10_check.py; row 6 300 times, row 4
+               twice): the loss falls, the mirror coefficients' RMS error ends
+               below 1e-3, the observable texels' (|d sum(image) / d env| > 0
+               at the truth, one autograd call of `render`) below 0.05 of its
+               start, the others unchanged to the bit; at 48^2 the JAX test's
+               run (tests/test_env.py:335-358: 60 steps, lr 2e-2, perturb
+               0.25, seed 0; final loss < 5e-4, parameter error < 0.8 of its
+               start, both groups moved by > 1e-3); 20 steps of
+               optimize(render_fn=render) at 512^2 (lr 2e-2) and on config 5
+               with one bounce at 1024^2 (lr 1e-2, the CLI's; row 4 21 times,
+               row 5 20 in each; the loss falls); invert --config 5 --reflections 1 --iters 20 at 1024^2
+               (row 6 20 times, row 4 twice; the loss falls).
 Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
@@ -246,8 +284,9 @@ soft-checker instances' numbers from phases 20 and 21; rows 1-8 add
 counters, `max_abs_err`, `plain_ms`, `bound_ms`, and `launches` on the spp-4
 CLI path); rows 1-3 add `mirror`, their numbers with a bounce level from
 phases 24 and 25; rows 1-3 add `texture`, their textured instances'
-numbers per config from phases 26 and 27), and last {"ok": true, "device":
-{...}}.
+numbers per config from phases 26 and 27; rows 4-6 add `chrome`, their env
+and bounce instances' numbers per case from phases 28 and 29), and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2790,9 +2829,9 @@ def phase_mirror_main():
     oks.append(_only(launches, expect) and la[-1] < la[0] and all(math.isfinite(x) for x in la))
 
     oks.append(_refusals((
-        ("render_config5_reflections", ["render", "--config", "5", "--reflections", "1",
-                                        "-o", str(out_dir / "refused.png")],
-         "mirror reflections", {}),
+        ("render_config5_two_bounces", ["render", "--config", "5", "--size", "64",
+                                        "--reflections", "2", "-o", str(out_dir / "refused.png")],
+         "reflections > 1", {}),
         ("invert_config6_anneal", ["invert", "--config", "6", "--size", "64", "--anneal",
                                    "0.05,0", "--iters", "2", "--quiet"],
          "mirror reflections require hard semantics", {"fused_render": 1})), rows))
@@ -3022,6 +3061,448 @@ def phase_texture_main():
     return counts
 
 
+# The object-chunked kernels' env and bounce instances (rows 4-6; phases
+# chrome and chrome_main): config 10 at 512^2 (64 chrome spheres under a
+# sky, one bounce) and config 5 at 1024^2 with one bounce, from
+# perturb(scale, seed) of their trained leaves.
+CHROME_CASES = (("config10_512", 10, 512, 0.2, 10), ("config5r_1024", 5, 1024, 0.05, 4))
+
+
+def _chrome_case(num, size, scale, seed):
+    import dataclasses
+
+    from reversible_raytracer_tpu_torch.models import configs
+
+    scene, spec, cfg = configs.CONFIGS[num](size=size, device="cuda")
+    cfg = dataclasses.replace(cfg, reflections=1)
+    return scene, spec, cfg, configs.perturb(scene, spec, scale=scale, seed=seed)
+
+
+def vec_bounce_counts(scene, cfg):
+    """Level 0's `work_counts(..., cull=True)`, `bounce_counts`' level 1 (the
+    reflected rays, their winners and lit pairs), the reflected rays' sphere
+    tests at the per-warp cull of `cull.bounce_candidates` (a ball of the
+    warp's origins, a cone of its directions): the warps with a reflected ray
+    (``l1_warps``), their candidates (``l1_prim_visits``) and the (ray,
+    candidate) pairs (``l1_prim_pairs``; before the cull ``l1_prim_all``,
+    every sphere for every reflected ray, as rows 4-6 walk them), and level
+    1's shadow culls as rows 4 and 6 run them (csrc/cull.cuh warp_candidates
+    over the level-1 hit lanes' shadow origins): the warps with such a lane
+    per light (``l1_shadow_warps``) and the sphere tests of the hit pixels'
+    any-hit walks over their candidates until the first occluder
+    (``l1_shadow_sph_culled``)."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops.kernels import cull as cl
+    from reversible_raytracer_tpu_torch.ops.pipeline_vec import sphere_ts
+
+    c = work_counts(scene, dataclasses.replace(cfg, reflections=0), cull=True)
+    c.update({k: v for k, v in bounce_counts(scene, cfg).items() if k.startswith("l1_")})
+    sp, W = scene.spheres, cfg.width
+    o, d = pl.primary_rays(scene, cfg)
+    t, hit0, at = pl.trace_nearest(scene, o, d, cfg.shape)
+    n = (at["nx"], at["ny"], at["nz"])
+    o1, d1 = pl.shadow_origin(o, d, t, n), pl.reflect_dir(d, n)
+    t1, hit1, at1 = pl.trace_nearest(scene, o1, d1, cfg.shape)
+    live = hit0 & hit1
+    so1 = pl.shadow_origin(o1, d1, t1, (at1["nx"], at1["ny"], at1["nz"]))
+    warps, tests = 0, 0
+    with torch.no_grad():
+        rays = cl.runs(hit0, False).sum(-1)
+        n_b = cl.bounce_candidates(sp, o1, d1, hit0).sum(-1)  # (H, R)
+        c.update(l1_warps=int((rays > 0).sum()), l1_prim_visits=int(n_b.sum()),
+                 l1_prim_pairs=int((n_b * rays).sum()), l1_prim_all=int(hit0.sum()) * sp.count)
+        lanes = cl.runs(live, False).sum(-1)
+        for li in range(scene.lights.count if cfg.shadows else 0):
+            ldir, dist = pl.light_geometry(scene.lights, li, so1)
+            keep = cl.per_pixel(cl.warp_candidates(sp, so1, live, scene.lights.position[li], 0.0),
+                                W)
+            occ = (sphere_ts(sp, so1, ldir) < dist[None]) & keep
+            visited = torch.cumsum(keep, 0, dtype=torch.int16)
+            first = occ.to(torch.uint8).argmax(0)
+            tests_px = torch.where(occ.any(0), visited.gather(0, first[None])[0], visited[-1])
+            warps += int((lanes > 0).sum())
+            tests += int(tests_px[live].sum())
+            del occ, visited, keep
+    c.update(l1_shadow_warps=warps, l1_shadow_sph_culled=tests)
+    return c
+
+
+def _vec_bounce_ops(c, step, shadows=True, cull=True):
+    """Rows 4-6's level-1 operations: `_bounce_render_ops` (the reflected
+    rays' walk over every object, their shading and the blend), with
+    ``cull`` the reflected rays' sphere tests at `cull.bounce_candidates`
+    (per warp with a reflected ray its cone and ball; per (warp, sphere) the
+    sphere's distance and widened radius from the ball's centre and the cone
+    test; per (ray, candidate) the sphere test) in place of the walk over
+    every sphere, level 1's culled shadow walks where the row casts shadow
+    rays (per warp with a level-1 hit lane and sphere the segment test, the
+    hit pixels' sphere tests until the first occluder, the rects'), and in a
+    step or backward `_bounce_step_ops`' adjoints."""
+    ops = _bounce_render_ops(c)
+    if cull:
+        ops += (c["l1_warps"] * (CULL_OPS["cone_warp"]
+                                 + c["n_sph"] * (CULL_OPS["cone_sphere"] + CULL_OPS["cone_test"]))
+                + (c["l1_prim_pairs"] - c["l1_prim_all"]) * OPS["sphere_shadow"])
+    if shadows:
+        ops += (c["l1_shadow_warps"] * c["n_sph"] * SOFT_OPS["warp_test"]
+                + c["l1_shadow_sph_culled"] * OPS["sphere_shadow"]
+                + c["l1_shadow_rect"] * OPS["rect_shadow"])
+    if step:
+        ops += _bounce_step_ops(c, shadows=False) - _bounce_render_ops(c)
+    return ops
+
+
+def chrome_bounds(scene, cfg, Sg, planes):
+    """Rows 4, 6 and 5's bounds in their env and bounce instances: (ms, by)
+    each, the culled level 0 (`render_ops`, `step_ops`, `bwd_ops` with
+    ``cull``), the culled level 1 (`_vec_bounce_ops` over
+    `vec_bounce_counts`) and the env's samples (`texel_ops` over
+    `texel_counts`); the same before the culls (every sphere at both
+    levels); and the counts."""
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
+
+    c = vec_bounce_counts(scene, cfg)
+    t = texel_counts(scene, cfg)
+    ns_pad, nr_pad = fused_vec.row_plan(scene)
+    H, W = cfg.height, cfg.width
+    rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
+    nbytes = dict(fused_vec_render=rows + 4 * H * W * (3 + planes),
+                  fused_vec_step=vec_step_bytes(c, Sg, ns_pad, nr_pad),
+                  fused_vec_render_bwd=vec_step_bytes(c, Sg, ns_pad, nr_pad, planes))
+
+    def bounds(cull):
+        return dict(
+            fused_vec_render=render_ops(c, cull=cull) + _vec_bounce_ops(c, False, cull=cull)
+            + texel_ops(t, False),
+            fused_vec_step=step_ops(c, cull=cull) + _vec_bounce_ops(c, True, cull=cull)
+            + texel_ops(t, True),
+            fused_vec_render_bwd=bwd_ops(c, cull=cull) + _vec_bounce_ops(c, True, False, cull)
+            + texel_ops(t, True))
+
+    culled, full = bounds(True), bounds(False)
+    return ({k: bound(v, nbytes[k]) for k, v in culled.items()},
+            {k: bound(v, nbytes[k]) for k, v in full.items()}, dict(c, **t))
+
+
+def _vec_rows(scene, start, cfg):
+    """Rows 4, 6 and 5 (`render_vec`, `loss_grad_vec`, autograd of `render`)
+    at ``cfg`` from ``start``, by the rules of phase chrome: row 4 by the
+    oracle rule against `render_vec_plain` and bit for bit (the image; each
+    level's planes on the pixels it hit, `fused_vec.level_hits`, 0 elsewhere); row
+    6 given row 4's image of the truth ``scene`` a loss and gradient of
+    exactly 0, and against autograd and its eager twin (the loss within 1e-4
+    relative, every leaf within 1e-2 of its scale); row 5 against autograd
+    of the plain render and its twin for a unit normal cotangent, its mse
+    gradient row 6's bit for bit; each one wrapper launch a call, three calls
+    bit-identical. Returns (rows, ok, what the callers read further: the
+    target, the cotangent, row 4's planes)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+    from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render
+
+    H, W, L = cfg.height, cfg.width, scene.lights.count
+    rows, oks = {}, []
+    flat = lambda loss, g: torch.cat([loss.reshape(1), fused.flatten_scene(g)])  # noqa: E731
+
+    # ---- row 4: the image and each level's planes
+    before = fused_vec.VEC_RENDER.launches
+    img_k, vis_k = fused_vec.render_vec(start, cfg)
+    per_call = fused_vec.VEC_RENDER.launches - before
+    again = [fused_vec.render_vec(start, cfg) for _ in range(2)]
+    img_p, vis_p = fused_vec.render_vec_plain(start, cfg)
+    torch.cuda.synchronize()
+    err = (img_k - img_p).abs()
+    planes = {}
+    for lv, hit in enumerate(fused_vec.level_hits(start, cfg)):
+        k, p_ = vis_k[lv * L:(lv + 1) * L], vis_p[lv * L:(lv + 1) * L]
+        planes[f"level{lv}"] = dict(hit_share=float(hit.float().mean()),
+                                    on_hits=bool(torch.equal(k[:, hit], p_[:, hit])),
+                                    zero_elsewhere=not bool(k[:, ~hit].any()))
+    r = dict(wrapper_launches_per_call=per_call, planes=planes,
+             frac_bad=float((err > 2e-3).float().mean()), mean_err=float(err.mean()),
+             max_abs_err=float(err.max()), image_bit_identical=bool(torch.equal(img_k, img_p)),
+             deterministic=all(torch.equal(img_k, a) and torch.equal(vis_k, b) for a, b in again),
+             finite=bool(torch.isfinite(img_k).all()))
+    rows["fused_vec_render"] = r
+    oks.append(r["frac_bad"] < 1e-3 and r["mean_err"] < 1e-4 and r["image_bit_identical"]
+               and r["deterministic"] and r["finite"] and per_call == 1
+               and tuple(vis_k.shape) == (fused_vec.n_vis_planes(start, cfg), H, W)
+               and all(v["on_hits"] and v["zero_elsewhere"] for v in planes.values()))
+
+    # ---- row 6: zero against row 4's own image, then against autograd and the twin
+    target = fused_vec.render_vec(scene, cfg)[0]
+    l_0, g_0 = fused_vec.loss_grad_vec(scene, cfg, target)
+    before = fused_vec.VEC_STEP.launches
+    l_k, g_k = fused_vec.loss_grad_vec(start, cfg, target)
+    per_call = fused_vec.VEC_STEP.launches - before
+    again = [flat(*fused_vec.loss_grad_vec(start, cfg, target)) for _ in range(2)]
+    r = dict(wrapper_launches_per_call=per_call, loss=float(l_k),
+             zero_residual_exact=bool(float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()),
+             deterministic=all(torch.equal(flat(l_k, g_k), a) for a in again),
+             mirror_grad_nonzero=float((g_k.spheres.material.mirror != 0).float().mean()),
+             env_grad_nonzero=float((g_k.env != 0).float().mean()) if start.env_mapped else None)
+    ok = r["zero_residual_exact"] and r["deterministic"] and per_call == 1
+    for name, ref in (("autograd", fused_vec.loss_grad_vec_plain),
+                      ("adjoint_eager", fused_vec.loss_grad_vec_adjoint_eager)):
+        l_r, g_r = ref(start, cfg, target)
+        rel = abs(float(l_k) - float(l_r)) / max(abs(float(l_r)), 1e-12)
+        ok = _check_grads(r, name, g_r, g_k) and ok and rel <= 1e-4
+        r[name]["loss_rel"] = rel
+    r["max_abs_err"] = r["autograd"]["max_abs_err"]
+    rows["fused_vec_step"] = r
+    oks.append(ok and r["mirror_grad_nonzero"] > 0)
+
+    # ---- row 5 by autograd of `render`: against autograd of the plain render and
+    # the twin for a unit normal cotangent; its mse gradient row 6's bit for bit
+    g = _seeded_cotangent(cfg)
+    before = fused_vec.VEC_RENDER_BWD.launches
+    got = _bwd(start, cfg, g)
+    per_call = fused_vec.VEC_RENDER_BWD.launches - before
+    again = [fused.flatten_scene(_bwd(start, cfg, g)) for _ in range(2)]
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([(torch.zeros_like(l) if l.grad is None else l.grad).reshape(-1)
+                           for l in leaves])
+    by_step = fused.flatten_scene(loss_and_grad_fn(start, cfg)(start, target)[1])
+    r = dict(wrapper_launches_per_call=per_call,
+             deterministic=all(torch.equal(fused.flatten_scene(got), a) for a in again),
+             mse_bit_equal_to_row6=bool(torch.equal(by_render, by_step)),
+             mse_max_abs_diff_to_row6=float((by_render - by_step).abs().max()))
+    ok = _check_grads(r, "plain", fused_vec.render_vec_bwd_plain(start, cfg, g), got)
+    ok = _check_grads(r, "twin", fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g, vis_k),
+                      got) and ok
+    r["max_abs_err"] = r["plain"]["max_abs_err"]
+    rows["fused_vec_render_bwd"] = r
+    oks.append(ok and r["deterministic"] and r["mse_bit_equal_to_row6"] and per_call == 1)
+    return rows, all(oks), SimpleNamespace(target=target, g=g, vis=vis_k)
+
+
+def _vec_times(rows, start, cfg, target, g, vis, bounds, case, uncull):
+    """Rows 4, 6 and 5's event time, device time and launches per call on
+    their ``_levels`` C entries, the plain versions' times, ``bounds`` and
+    the bounds before the culls ``uncull`` into ``rows``; returns the
+    kernels line's numbers."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
+
+    glob, sph, rct = fused_vec._cuda_inputs(start, cfg)
+    geom = fused_vec._geometry(start, cfg)
+    lv = fused_vec.levels(start, cfg)
+    H, W = cfg.height, cfg.width
+    stream = torch.cuda.current_stream().cuda_stream
+    img = torch.empty((H, W, 3), device="cuda")
+    planes = torch.empty_like(vis)
+    scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_levels_scratch_floats(
+        *geom[2:7], lv[1]),), device="cuda")
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom)
+    calls = {
+        "fused_vec_render": lambda: fused_vec.VEC_RENDER.call(
+            "rrt_vec_render_levels", *ptrs, 0.0, 0.0, *lv, img.data_ptr(), planes.data_ptr(),
+            stream),
+        "fused_vec_step": lambda: fused_vec.VEC_STEP.call(
+            "rrt_vec_step_levels", *ptrs, 1, *lv, target.data_ptr(), 1.0 / (H * W * 3),
+            scratch.data_ptr(), out.data_ptr(), stream),
+        "fused_vec_render_bwd": lambda: fused_vec.VEC_RENDER_BWD.call(
+            "rrt_vec_render_bwd_levels", *ptrs, 0.0, 0.0, *lv, g.data_ptr(), vis.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), stream)}
+    plain = {"fused_vec_render": lambda: fused_vec.render_vec_plain(start, cfg),
+             "fused_vec_step": lambda: fused_vec.loss_grad_vec_plain(start, cfg, target),
+             "fused_vec_render_bwd": lambda: fused_vec.render_vec_bwd_plain(start, cfg, g)}
+    numbers = {}
+    for name, fn in calls.items():
+        dev = device_ms(fn)
+        rows[name].update(ms=time_ms(fn), device_ms=dev["ms"], launches_per_call=dev["launches"],
+                          device=dev, plain_ms=time_ms(plain[name], reps=3, warmup=1),
+                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                          bound_uncull_ms=uncull[name][0])
+        numbers[name] = dict(case=case, **{
+            k: rows[name][k] for k in ("ms", "device_ms", "launches_per_call",
+                                      "wrapper_launches_per_call", "max_abs_err", "plain_ms",
+                                      "bound_ms", "bound_by", "bound_uncull_ms")})
+    return numbers
+
+
+def phase_chrome():
+    """Rows 4-6's env and bounce instances at config 10 512^2 and config 5
+    1024^2 with one bounce (see the module's docstring, phase 28). Returns
+    each row's numbers per case."""
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    rows, oks, numbers = {}, [], {}
+    for label, num, size, scale, seed in CHROME_CASES:
+        scene, spec, cfg, start = _chrome_case(num, size, scale, seed)
+        case, ok, got = _vec_rows(scene, start, cfg)
+        Sg = fused_vec.flatten_globals(start).numel()
+        bounds, uncull, case["work"] = chrome_bounds(start, cfg, Sg,
+                                                     fused_vec.n_vis_planes(start, cfg))
+        nums = _vec_times(case, start, cfg, got.target, got.g, got.vis, bounds, label, uncull)
+        for name, n in nums.items():
+            numbers.setdefault(name, {})[n.pop("case")] = n
+        case["Sg"] = Sg
+        case["most_spheres"] = dict(
+            step=fused_vec.most_spheres(1, 1, fused_vec.levels(start, cfg)[1]),
+            render=fused_vec.most_render_spheres(1, 1, *fused_vec.levels(start, cfg)))
+        rows[label] = case
+        oks.append(ok)
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    if not all(oks):
+        raise AssertionError(f"an env or bounce instance of rows 4-6 failed a check: {rows}")
+    emit("chrome", ok=True, rows=rows)
+    return numbers
+
+
+CHROME_ITERS = 300  # scripts/config10_check.py: --perturb 0.2 --lr 2e-2 --iters 300, cosine
+CHROME_SMALL = dict(size=48, iters=60, lr="2e-2", perturb="0.25", seed="0")  # tests/test_env.py
+CHROME_GRAD_ITERS = 20
+CHROME_C5_ITERS = 20
+
+
+def _render_fn_losses(scene, spec, cfg, scale, seed, lr):
+    """The losses of `CHROME_GRAD_ITERS` steps of `optimize(render_fn=render)`
+    (rows 4 + 5) at the learning rate ``lr`` from perturb(scale, seed) of
+    ``scene`` toward its render."""
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    start = configs.perturb(scene, spec, scale=scale, seed=seed)
+    target = render(scene, cfg)
+    _, _, losses = optimize(start, target, spec, cfg, OptConfig(iters=CHROME_GRAD_ITERS, lr=lr),
+                            log_every=0, render_fn=lambda s: render(s, cfg))
+    return losses.cpu().tolist()
+
+
+def phase_chrome_main():
+    """The CLI and `optimize(render_fn=render)` on config 10, and config 5
+    with one bounce (see the module's docstring, phase 29). Returns each
+    run's launch counts."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.optim import param_error
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    out_dir = REPO / "smoke_out"
+    rows, counts, oks = {}, {}, []
+    t_phase = time.perf_counter()
+
+    png = out_dir / "render_config10.png"
+    _, launches, wall = _counted(lambda: cli.main(["render", "--config", "10", "-o", str(png)]))
+    rows["render_config10"] = dict(launches=launches, wall_seconds=wall)
+    oks.append(_only(launches, {"fused_vec_render": 1}) and png.exists())
+
+    # ---- the JAX recipe at 512^2: the mirror coefficients and the sky's texels
+    scene, spec, cfg = configs.config10_chrome_field(size=512, device="cuda")
+    ones = torch.ones((cfg.height, cfg.width, 3), device="cuda")
+    obs = (fused.autograd_vjp(render, scene, cfg, ones).env.abs() > 0.0).any(-1)  # (K, K)
+
+    def split(s):
+        mir = float(((s.spheres.material.mirror - scene.spheres.material.mirror) ** 2)
+                    .mean().sqrt())
+        d2 = ((s.env - scene.env) ** 2).mean(-1)
+        return mir, float(d2[obs].mean().sqrt()), float(d2[~obs].mean().sqrt())
+
+    png = out_dir / "final_config10_512.png"
+    argv = ["invert", "--config", "10", "--perturb", "0.2", "--lr", "2e-2", "--iters",
+            str(CHROME_ITERS), "--seed", "10", "--log-every", str(CHROME_ITERS - 1), "--quiet",
+            "-o", str(png)]
+    summary, launches, wall = _counted(lambda: cli.main(argv))
+    start = configs.perturb(scene, spec, scale=0.2, seed=10)
+    (m0, e0, u0), (m1, e1, u1) = split(start), split(summary["scene"])
+    hist = summary["history"]
+    expect = {"fused_vec_step": CHROME_ITERS, "fused_vec_render": 2}
+    row = dict(launches=launches, expected=expect, first_loss=hist[0]["loss"],
+               final_loss=hist[-1]["loss"], observable_share=float(obs.float().mean()),
+               mirror_rms_start=m0, mirror_rms=m1, env_rms_observable_start=e0,
+               env_rms_observable=e1, env_rms_observable_ratio=e1 / e0,
+               env_rms_unobservable_start=u0, env_rms_unobservable=u1,
+               unobservable_unchanged=bool(torch.equal(summary["scene"].env[~obs],
+                                                       start.env[~obs])),
+               loop_seconds=summary["seconds"],
+               loop_ms_per_step=summary["seconds"] * 1e3 / CHROME_ITERS, wall_seconds=wall)
+    rows["invert_config10_512"] = row
+    counts["invert_config10_512"] = launches
+    oks.append(_only(launches, expect) and row["final_loss"] < row["first_loss"] and m1 < 1e-3
+               and e1 < 0.05 * e0 and row["unobservable_unchanged"] and png.exists())
+
+    # ---- the JAX test's run at 48^2 (tests/test_env.py:335-358)
+    small, sspec, _ = configs.config10_chrome_field(size=CHROME_SMALL["size"], device="cuda")
+    argv = ["invert", "--config", "10", "--size", str(CHROME_SMALL["size"]), "--iters",
+            str(CHROME_SMALL["iters"]), "--lr", CHROME_SMALL["lr"], "--perturb",
+            CHROME_SMALL["perturb"], "--seed", CHROME_SMALL["seed"], "--log-every",
+            str(CHROME_SMALL["iters"] - 1), "--quiet"]
+    summary, launches, wall = _counted(lambda: cli.main(argv))
+    s0 = configs.perturb(small, sspec, scale=0.25, seed=0)
+    final = summary["scene"]
+    loss = summary["history"][-1]["loss"]  # the last step's, as the JAX test's losses[-1]
+    err0, err1 = float(param_error(s0, small, sspec)), float(param_error(final, small, sspec))
+    expect = {"fused_vec_step": CHROME_SMALL["iters"], "fused_vec_render": 1}
+    row = dict(launches=launches, expected=expect, final_loss=loss, param_err_start=err0,
+               param_err=err1,
+               mirror_moved=float((final.spheres.material.mirror
+                                   - s0.spheres.material.mirror).abs().max()),
+               env_moved=float((final.env - s0.env).abs().max()), wall_seconds=wall)
+    rows["invert_config10_48"] = row
+    counts["invert_config10_48"] = launches
+    oks.append(_only(launches, expect) and loss < 5e-4 and err1 < 0.8 * err0
+               and row["mirror_moved"] > 1e-3 and row["env_moved"] > 1e-3)
+
+    # ---- 20 steps of optimize(render_fn=render) on rows 4 + 5, on config 10 at its
+    # recipe's learning rate and on config 5 with one bounce at the CLI's (as
+    # phase render_grad_main's config-5 case)
+    c5, c5spec, c5cfg = configs.CONFIGS[5](size=1024, device="cuda")
+    c5cfg = dataclasses.replace(c5cfg, reflections=1)
+    for run, truth, tspec, tcfg, scale, seed, lr in (
+            ("render_fn_config10_512", scene, spec, cfg, 0.2, 10, 2e-2),
+            ("render_fn_config5_reflections_1024", c5, c5spec, c5cfg, 0.05, 4, 1e-2)):
+        la, launches, wall = _counted(
+            lambda a=(truth, tspec, tcfg, scale, seed, lr): _render_fn_losses(*a))
+        expect = {"fused_vec_render": CHROME_GRAD_ITERS + 1,
+                  "fused_vec_render_bwd": CHROME_GRAD_ITERS}
+        rows[run] = dict(launches=launches, expected=expect, first_loss=la[0],
+                         final_loss=la[-1], wall_seconds=wall)
+        counts[run] = launches
+        oks.append(_only(launches, expect) and la[-1] < la[0]
+                   and all(math.isfinite(x) for x in la))
+
+    # ---- config 5 with one bounce at 1024^2
+    png = out_dir / "final_config5_reflections.png"
+    argv = ["invert", "--config", "5", "--reflections", "1", "--iters", str(CHROME_C5_ITERS),
+            "--log-every", "1", "--quiet", "-o", str(png)]
+    summary, launches, wall = _counted(lambda: cli.main(argv))
+    hist = summary["history"]
+    expect = {"fused_vec_step": CHROME_C5_ITERS, "fused_vec_render": 2}
+    rows["invert_config5_reflections_1024"] = dict(
+        launches=launches, expected=expect, first_loss=hist[0]["loss"],
+        final_loss=hist[-1]["loss"], param_err=summary["param_err"],
+        loop_ms_per_step=summary["seconds"] * 1e3 / CHROME_C5_ITERS, wall_seconds=wall)
+    counts["invert_config5_reflections_1024"] = launches
+    oks.append(_only(launches, expect) and hist[-1]["loss"] < hist[0]["loss"] and png.exists())
+    rows["phase_seconds"] = time.perf_counter() - t_phase
+    if not all(oks):
+        raise AssertionError(f"a config-10 or config-5 bounce run did not run through the "
+                             f"expected kernels or did not recover its leaves: {rows}")
+    emit("chrome_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -3084,6 +3565,8 @@ def main() -> int:
     mirror_runs = run_phase("mirror_main", phase_mirror_main)
     texture = run_phase("texture", phase_texture)
     texture_runs = run_phase("texture_main", phase_texture_main)
+    chrome = run_phase("chrome", phase_chrome)
+    chrome_runs = run_phase("chrome_main", phase_chrome_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -3157,6 +3640,16 @@ def main() -> int:
             if k["name"] == "fused_render":
                 k["texture"][case]["launches_render_fn"] = texture_runs[
                     f"render_fn_config{num}_{TEX_SIZE}"][k["name"]]
+    for k in kernels:  # rows 4-6's env and bounce instances (phases chrome, chrome_main)
+        for case, nums in chrome.get(k["name"], {}).items():
+            run, by_render = {"config10_512": ("invert_config10_512", "render_fn_config10_512"),
+                              "config5r_1024": ("invert_config5_reflections_1024",
+                                                "render_fn_config5_reflections_1024")}[case]
+            if k["name"] == "fused_vec_render_bwd":
+                run = by_render
+            k.setdefault("chrome", {})[case] = dict(**nums, launches=chrome_runs[run][k["name"]])
+            if k["name"] == "fused_vec_render":
+                k["chrome"][case]["launches_render_fn"] = chrome_runs[by_render][k["name"]]
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

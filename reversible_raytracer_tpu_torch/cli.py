@@ -1,4 +1,4 @@
-"""Command-line interface: ``render`` and ``invert`` for configs 1-9.
+"""Command-line interface: ``render`` and ``invert`` for configs 1-10.
 
 Examples:
     python -m reversible_raytracer_tpu_torch.cli render --config 2 --size 512 -o out.png
@@ -13,6 +13,8 @@ Examples:
         --iters 150 --seed 3
     python -m reversible_raytracer_tpu_torch.cli invert --config 7 --lr 3e-2 --perturb 0.4 \
         --iters 200
+    python -m reversible_raytracer_tpu_torch.cli invert --config 10 --perturb 0.2 --lr 2e-2 \
+        --iters 300 --seed 10
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
 kernels, each training step one replay of a CUDA graph; ``--device cpu``
@@ -22,11 +24,16 @@ render), ``--scene`` / ``--save-scene`` (JSON scenes), ``--checkpoint``,
 ``--checkpoint-every`` and ``--resume``, ``--frame-every`` /
 ``--frames-dir`` and ``--quiet``. Both take ``--spp 4`` (2x2
 supersampling, on every kernel family) and ``--reflections N`` (mirror
-bounces, overriding the config's count: configs 6 and 9 render with 1,
-and ``--reflections 0`` renders them with none). Configs 7, 8 and 9 carry
-texel grids (a textured floor, a textured globe, a sky environment map);
-their recipe is the JAX package's examples/run_config.py, ``--lr 3e-2
---perturb 0.4 --iters 200``.
+bounces, overriding the config's count: configs 6, 9 and 10 render with
+1, and ``--reflections 0`` renders them with none; ``--reflections 1`` on
+config 5 takes the object-chunked kernels' bounce instances). Configs 7, 8
+and 9 carry texel grids (a textured floor, a textured globe, a sky
+environment map); their recipe is the JAX package's examples/run_config.py,
+``--lr 3e-2 --perturb 0.4 --iters 200``. Config 10 (64 chrome spheres under
+config 9's sky, one bounce) recovers the spheres' mirror coefficients and
+the sky's texels together through the object-chunked kernels; its recipe is
+the JAX package's scripts/config10_check.py, ``--perturb 0.2 --lr 2e-2
+--iters 300 --seed 10`` (cosine, the default schedule).
 """
 
 from __future__ import annotations
@@ -37,11 +44,12 @@ import time
 
 
 def _add_common(p):
-    p.add_argument("--config", type=int, default=2, choices=list(range(1, 10)),
+    p.add_argument("--config", type=int, default=2, choices=list(range(1, 11)),
                    help="benchmark config (1: one sphere, 2: four spheres + ground, "
                         "3: two lights, 4: checker materials + camera pose, "
                         "5: 64 spheres + ground, 6: mirror reflections, 7: textured floor, "
-                        "8: textured globe, 9: sky environment map + mirror sphere)")
+                        "8: textured globe, 9: sky environment map + mirror sphere, "
+                        "10: 64 chrome spheres under a sky)")
     p.add_argument("--size", type=int, default=None,
                    help="image size (default: the config's native size)")
     p.add_argument("--device", default="cuda",
@@ -52,7 +60,8 @@ def _add_common(p):
                    help="samples per pixel (4 = 2x2 supersampling AA)")
     p.add_argument("--reflections", type=int, default=None,
                    help="mirror bounces (each object's `mirror` coefficient sets its "
-                        "reflectivity; 0 = none). Default: the config's own (configs 6, 9: 1)")
+                        "reflectivity; 0 = none). Default: the config's own (configs 6, 9, "
+                        "10: 1)")
 
 
 def _build(args):

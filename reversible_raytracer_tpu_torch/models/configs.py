@@ -1,5 +1,6 @@
 """Benchmark scenes 1-5, config 6 (mirror reflections), configs 7-9
-(texture, globe and sky recovery), and the inverse-render start.
+(texture, globe and sky recovery), config 10 (64 chrome spheres under a
+sky), and the inverse-render start.
 
 The counterpart of `reversible_raytracer_tpu.models.configs` for the
 configs the CUDA kernels cover (hard shading). Each builder
@@ -316,6 +317,54 @@ def config9_sky(size: int = 512, env_k: int = 16, seed: int = 0, device="cuda"):
     return scene, spec, RenderConfig(height=size, width=size, shadows=True, reflections=1)
 
 
+def config10_chrome_field(size: int = 512, n_spheres: int = 64, env_k: int = 16, seed: int = 0,
+                          device="cuda"):
+    """Config 10: a field of 64 chrome spheres (config 5's jittered grid, each
+    with its own mirror coefficient) over a floor under config 9's sky,
+    rendered with one bounce; the inverse render recovers the mirror
+    coefficients and the sky's texels together. Past 24 objects it takes the
+    object-chunked kernels with the environment map and the bounce. The
+    draws are the JAX package's (configs.py:398-456): per sphere jitter x, z,
+    y, radius, colour, mirror; then the sky's three sun blobs."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    g = int(np.ceil(np.sqrt(n_spheres)))
+    parts = []
+    for k in range(n_spheres):
+        gx, gz = k % g, k // g
+        x = (gx - (g - 1) / 2) * 1.1 + rng.uniform(-0.2, 0.2)
+        z = (gz - (g - 1) / 2) * 1.1 + rng.uniform(-0.2, 0.2)
+        y = rng.uniform(-0.1, 0.45)
+        radius = rng.uniform(0.28, 0.5)
+        color = rng.uniform(0.3, 0.9, size=3)
+        mirror = float(rng.uniform(0.3, 0.8))
+        parts.append(sphere((x, y, z), radius,
+                            Materials.make(color, ka=0.1, kd=0.35, ks=0.4, shininess=60.0,
+                                           mirror=mirror, device=dev), device=dev))
+    ii, jj = _grid(env_k)
+    env = np.stack([0.2 + 0.15 * ii, 0.3 + 0.2 * jj, 0.6 + 0.3 * (1.0 - jj)], axis=-1)
+    for _ in range(3):
+        ci, cj = rng.uniform(0.1, 0.9, size=2)
+        r2 = (ii - ci) ** 2 + (jj - cj) ** 2
+        env += np.array([0.5, 0.4, 0.1]) * np.exp(-r2 / 0.01)[..., None]
+    env = np.clip(env, 0.05, 0.95).astype(np.float32)
+    scene = Scene.make(
+        spheres=merge_spheres(parts),
+        rects=ground_plane(-0.6, 30.0, Materials.make((0.5, 0.5, 0.52), ka=0.15, kd=0.85,
+                                                      device=dev), device=dev),
+        lights=_lights([[6.0, 12.0, 6.0]], [[1.0, 1.0, 1.0]], dev),
+        camera=Camera.make((0.0, 7.0, 9.5), (0.0, 0.0, 0.0), fov_deg=60.0, device=dev),
+        env=env,
+        device=dev,
+    )
+    spec = (
+        ParamSpec.none(scene)
+        .train("spheres.material.mirror", lower=0.0, upper=1.0)
+        .train("env", lower=0.0, upper=1.0)
+    )
+    return scene, spec, RenderConfig(height=size, width=size, shadows=True, reflections=1)
+
+
 CONFIGS = {
     1: config1_single_sphere,
     2: config2_four_spheres,
@@ -326,6 +375,7 @@ CONFIGS = {
     7: config7_texture,
     8: config8_globe,
     9: config9_sky,
+    10: config10_chrome_field,
 }
 
 

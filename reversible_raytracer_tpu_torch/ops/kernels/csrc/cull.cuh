@@ -160,37 +160,43 @@ __device__ __forceinline__ bool occluded_candidates(const S& sc, V3 so, const Li
 }
 
 // Shared memory of a forward (rows 4 and 7): the globals (padded to 4
-// floats), the sphere rows of FWD_SPH floats and the rect rows, then per
-// warp one cull's mask words, which its primary rays and each light's shadow
-// rays take in turn.
-inline size_t forward_smem(int ns_pad, int nr_pad, int n_light) {
-  const int sg = (make_glayout(n_light).Sg + 3) & ~3;
-  return (size_t)(sg + ns_pad * FWD_SPH + nr_pad * P_RCT) * sizeof(float) +
+// floats; with an environment map of side ke its 3 ke^2 texels end them),
+// the sphere rows of FWD_SPH floats (P_SPH with refl bounce levels: the
+// mirror column) and the rect rows, then per warp one cull's mask words,
+// which its primary rays and each light's shadow rays take in turn.
+inline size_t forward_smem(int ns_pad, int nr_pad, int n_light, int refl = 0, int ke = 0) {
+  const int sg = (make_glayout(n_light).Sg + 3 * ke * ke + 3) & ~3;
+  return (size_t)(sg + ns_pad * (refl ? P_SPH : FWD_SPH) + nr_pad * P_RCT) * sizeof(float) +
          (size_t)NWARPS * ((ns_pad + 31) / 32) * sizeof(unsigned);
 }
 
 // A forward's block: its shared memory laid out as forward_smem counts it,
-// the globals and rows staged, and this warp's mask words.
-struct ForwardBlock {
-  PackedRows<FWD_SPH> sc;
+// the globals and rows staged (PS floats a sphere row; GL the globals'
+// layout, EnvGLayout with an environment map), and this warp's mask words.
+template <int PS, class GL>
+struct ForwardBlockOf {
+  typename std::conditional<std::is_same<GL, EnvGLayout>::value, PackedEnvRows<PS>,
+                            PackedRows<PS>>::type sc;
   unsigned* wm;
   int nw;
 };
 
-__device__ __forceinline__ ForwardBlock stage_forward(float* smem, const float* __restrict__ glob,
-                                                      const float* __restrict__ sph,
-                                                      const float* __restrict__ rct, int N, int M,
-                                                      int ns_pad, int nr_pad, GLayout gl) {
+using ForwardBlock = ForwardBlockOf<FWD_SPH, GLayout>;
+
+template <int PS = FWD_SPH, class GL = GLayout>
+__device__ __forceinline__ ForwardBlockOf<PS, GL> stage_forward(
+    float* smem, const float* __restrict__ glob, const float* __restrict__ sph,
+    const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad, GL gl) {
   float* g = smem;
   float* s_sph = g + ((gl.Sg + 3) & ~3);
-  float* s_rct = s_sph + ns_pad * FWD_SPH;
+  float* s_rct = s_sph + ns_pad * PS;
   unsigned* masks = (unsigned*)(s_rct + nr_pad * P_RCT);
   stage(g, glob, gl.Sg);
-  stage_cols<FWD_SPH>(s_sph, sph, ns_pad, P_SPH);
+  stage_cols<PS>(s_sph, sph, ns_pad, P_SPH);
   stage(s_rct, rct, nr_pad * P_RCT);
   __syncthreads();
   const int nw = (N + 31) >> 5;
-  return {{g, s_sph, s_rct, gl, N, M, ns_pad}, masks + threadIdx.y * nw, nw};
+  return {packed_view<PS>(g, s_sph, s_rct, gl, N, M, ns_pad), masks + threadIdx.y * nw, nw};
 }
 
 }  // namespace rrt

@@ -126,14 +126,6 @@ __device__ __forceinline__ float warp_sum_many(float (&v)[V], int lane) {
 // load at a time waits out the L2's latency 33 times at 512^2 on 132 SMs.
 constexpr int SUM_LOADS = 16;
 
-// Blocks an SM of the instances with a bounce level.
-constexpr int REFL_STEP_BLOCKS_PER_SM = 1;
-
-template <int REFL>
-constexpr int step_blocks_per_sm() {
-  return REFL ? REFL_STEP_BLOCKS_PER_SM : STEP_BLOCKS_PER_SM;
-}
-
 // Mirror field of a sphere (SPH_FIELDS) and a rect (RECT_FIELDS) in the
 // reduction's order: the flat layout holds the mirror leaf after shininess.
 __device__ __forceinline__ int sphere_field_slot(const Layout& ly, int k, int f) {
@@ -143,9 +135,6 @@ __device__ __forceinline__ int sphere_field_slot(const Layout& ly, int k, int f)
 __device__ __forceinline__ int rect_field_slot(const Layout& ly, int k, int f) {
   return f < RECT_FIELDS ? rect_slot(ly, k, f) : ly.r_shin + ly.M + k;
 }
-
-// Words a lane stages of its texel record: 4 corner slots, 12 values.
-constexpr int TEX_REC = 16;
 
 // The shared memory of a block, in floats: block 0's row subsets (the
 // partial rows as float4 columns), the scene, the warp rows, the lanes'
@@ -165,54 +154,6 @@ inline FlatPlan flat_plan(const Layout& ly, bool tex = false) {
                     (tex ? NWARPS * 32 * TEX_REC : 0)) *
            sizeof(float);
   return f;
-}
-
-// Add the warp's texel records to gs, the warp's row of scene gradients (in
-// flat slots), in lane order; rec is the warp's 32 x TEX_REC staging words.
-// Corner (i0, j0), (i0, j1), (i1, j0), (i1, j1) of a record takes weight (1 -
-// fi)(1 - fj), (1 - fi) fj, fi (1 - fj), fi fj of its cotangent; a corner that
-// coincides with an earlier one is merged into it and its slot set to -1, so
-// that lanes 0-11 (corner lane / 3, channel lane % 3) add to distinct slots.
-__device__ __forceinline__ void scatter_texels(const TexelRec& r, float* gs, float* rec,
-                                               int lane) {
-  const bool has = r.base >= 0;
-  const unsigned todo = __ballot_sync(FULL, has);
-  if (!todo) return;
-  if (has) {
-    const TexW& w = r.w;
-    const float a1 = 1.0f - w.fi, b1 = 1.0f - w.fj;
-    const V3 ga = r.g * a1, gb = r.g * w.fi;
-    V3 v[4] = {ga * b1, ga * w.fj, gb * b1, gb * w.fj};
-    int slot[4] = {r.base + 3 * (w.i0 * r.K + w.j0), r.base + 3 * (w.i0 * r.K + w.j1),
-                   r.base + 3 * (w.i1 * r.K + w.j0), r.base + 3 * (w.i1 * r.K + w.j1)};
-    if (w.j1 == w.j0) {
-      v[0] = v[0] + v[1];
-      v[2] = v[2] + v[3];
-      slot[1] = slot[3] = -1;
-    }
-    if (w.i1 == w.i0) {
-      v[0] = v[0] + v[2];
-      if (slot[3] >= 0) v[1] = v[1] + v[3];
-      slot[2] = slot[3] = -1;
-    }
-    float* mine = rec + TEX_REC * lane;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      mine[q] = __int_as_float(slot[q]);
-      mine[4 + 3 * q] = v[q].x;
-      mine[5 + 3 * q] = v[q].y;
-      mine[6 + 3 * q] = v[q].z;
-    }
-  }
-  __syncwarp();
-  for (unsigned left = todo; left; left &= left - 1) {
-    const float* theirs = rec + TEX_REC * (__ffs(left) - 1);
-    if (lane < 12) {
-      const int slot = __float_as_int(theirs[lane / 3]);
-      if (slot >= 0) gs[slot + lane % 3] += theirs[4 + lane];
-    }
-    __syncwarp();
-  }
 }
 
 // The kernel's body on the scene type SC (FlatScene, or TexFlatScene for the

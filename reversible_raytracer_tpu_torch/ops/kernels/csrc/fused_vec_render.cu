@@ -49,24 +49,79 @@
 // reaches it and 0 where it is blocked, and 0 on a pixel that hits nothing
 // (there is no surface, and the culls give such a lane no candidates); the
 // render backward reads the planes only where the ray hit.
+//
+// The environment map and one mirror bounce (spp 1; vec_render_levels_kernel,
+// REFL and ENV, the TPU kernel's env global and reflection levels,
+// fused_vec.py:405-440 and :907-946): with ENV the globals end with the
+// (Ke, Ke, 3) map (PackedEnvRows) and a missed ray's colour is its bilinear
+// sample at the lat-long coordinates of the ray's direction
+// (render_common.cuh miss_color: vecmath.py's atan2 and asin, op for op);
+// with REFL the sphere rows are staged with their mirror column and, where
+// level 0 hit, level 1 is traced from its shadow origin along the reflected
+// direction over every sphere (the 32 reflected rays leave 32 points in
+// scattered directions: the primary cone does not bound them), then every
+// rect; its shadow rays take the warp's ball cull of their origins
+// (warp_candidates) in the mask words that level 0's lights are done with;
+// its colour (the env's or the background at a miss) blends unclipped into
+// level 0's, col + m (col1 - col) with m the winner's mirror coefficient,
+// and one clip ends the pixel. 2 L planes, bounce-major: plane L + l is level
+// 1's light l, 0 where either level missed. Every instance runs one body
+// (vec_render_body), the bounce and the env behind if constexpr, so that
+// vec_render_kernel, its <0, false> instance, keeps its code.
 #include "cull.cuh"
 
 using namespace rrt;
 
 namespace {
 
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    vec_render_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
-                      const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
-                      GLayout gl, Params p, float* __restrict__ img, float* __restrict__ vis) {
+// The forward of every instance: REFL bounce levels (0 or 1), and with ENV
+// the environment map at the end of the globals.
+template <int REFL, bool ENV>
+__device__ __forceinline__ void vec_render_body(const float* __restrict__ glob,
+                                                const float* __restrict__ sph,
+                                                const float* __restrict__ rct, int N, int M,
+                                                int ns_pad, int nr_pad, GLayoutOf<ENV> gl,
+                                                Params p, float* __restrict__ img,
+                                                float* __restrict__ vis) {
   extern __shared__ float smem[];
-  const ForwardBlock fb = stage_forward(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
+  const auto fb =
+      stage_forward<REFL ? P_SPH : FWD_SPH>(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
   const auto& sc = fb.sc;
   const int lane = threadIdx.x;
   const Camera cam = camera(sc);
   const V3 o = cam.eye;
   const dim3 tiles = pixel_grid(p.H, p.W);
   const long long plane = (long long)p.H * p.W;
+
+  // the visibility bits of the shadow rays from so of the live lanes, each
+  // light's over its culled candidates (every lane calls it)
+  const auto shadow_bits = [&](V3 so, bool live) {
+    unsigned bits = p.shadows ? 0u : ~0u;  // without shadows every light is lit
+    if (p.shadows && __any_sync(FULL, live)) {
+      for (int l = 0; l < gl.L; ++l) {
+        __syncwarp();
+        warp_candidates(sc, so, sc.l_pos(l), live, 0.0f, lane, fb.wm);
+        if (live && !occluded_candidates(sc, so, light_geometry(sc.l_pos(l), so), fb.wm, fb.nw))
+          bits |= 1u << l;
+      }
+    }
+    return bits;
+  };
+  // a level's colour: shaded where its ray hit, else the background (with
+  // ENV the map's sample)
+  const auto shade = [&](V3 o_l, V3 d_l, const Nearest& h_l, const Surface& s_l,
+                         unsigned bits) {
+    V3 col = sc.background();
+    if (h_l.k >= 0) {
+      unsigned lit;
+      col = shade_hit(
+          sc, o_l, d_l, h_l.t, s_l,
+          [&](int l, V3, const LightGeo&) { return ((bits >> l) & 1u) != 0; }, &lit);
+    } else if constexpr (ENV) {
+      col = miss_color(sc, d_l);
+    }
+    return col;
+  };
 
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
     const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
@@ -80,21 +135,17 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     const bool hit = h.k >= 0;
     const Surface s = surface(sc, o, d, h);
     const V3 so = shadow_origin(o, d, h.t, s.n);
-    unsigned bits = p.shadows ? 0u : ~0u;  // without shadows every light is lit
-    if (p.shadows && __any_sync(FULL, hit)) {
-      for (int l = 0; l < gl.L; ++l) {
-        __syncwarp();
-        warp_candidates(sc, so, sc.l_pos(l), hit, 0.0f, lane, fb.wm);
-        if (hit && !occluded_candidates(sc, so, light_geometry(sc.l_pos(l), so), fb.wm, fb.nw))
-          bits |= 1u << l;
-      }
-    }
-    V3 col = sc.background();
-    if (hit) {
-      unsigned lit;
-      col = shade_hit(
-          sc, o, d, h.t, s, [&](int l, V3, const LightGeo&) { return ((bits >> l) & 1u) != 0; },
-          &lit);
+    const unsigned bits = shadow_bits(so, hit);
+    V3 col = shade(o, d, h, s, bits);
+    [[maybe_unused]] unsigned bits1 = 0u;
+    [[maybe_unused]] bool hit1 = false;
+    if constexpr (REFL != 0) {  // level 1 where level 0 hit, then the blend
+      const V3 d1 = reflect_dir(d, s.n);
+      const Nearest h1 = hit ? trace(sc, so, d1) : Nearest{BIG, -1};
+      hit1 = h1.k >= 0;
+      const Surface s1 = surface(sc, so, d1, h1);
+      bits1 = shadow_bits(shadow_origin(so, d1, h1.t, s1.n), hit1);
+      if (hit) col = blend(col, shade(so, d1, h1, s1, bits1), mirror(sc, h));
     }
     if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
     if (!inside) continue;
@@ -105,14 +156,67 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     if (p.shadows)
       for (int l = 0; l < gl.L; ++l)
         vis[l * plane + px] = (hit && ((bits >> l) & 1u)) ? 1.0f : 0.0f;
+    if constexpr (REFL != 0) {
+      if (p.shadows)
+        for (int l = 0; l < gl.L; ++l)
+          vis[(gl.L + l) * plane + px] = (hit1 && ((bits1 >> l) & 1u)) ? 1.0f : 0.0f;
+    }
   }
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    vec_render_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                      const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                      GLayout gl, Params p, float* __restrict__ img, float* __restrict__ vis) {
+  vec_render_body<0, false>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, img, vis);
+}
+
+// The instances with the environment map (ENV) and/or one bounce level
+// (REFL), spp 1.
+template <int REFL, bool ENV>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    vec_render_levels_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                             const float* __restrict__ rct, int N, int M, int ns_pad,
+                             int nr_pad, GLayoutOf<ENV> gl, Params p, float* __restrict__ img,
+                             float* __restrict__ vis) {
+  vec_render_body<REFL, ENV>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, img, vis);
+}
+
+// One launch of a forward kernel: as many blocks as the card holds at once
+// with smem bytes each.
+template <class K, class GL>
+int launch_forward(K kernel, size_t smem, const float* glob, const float* sph, const float* rct,
+                   int n_sph, int n_rect, int ns_pad, int nr_pad, GL gl, const Params& p,
+                   float* img, float* vis, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nblocks = resident_blocks(kernel, smem, p.H, p.W);
+  if (nblocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
+      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, img, vis);
+  return (int)cudaGetLastError();
+}
+
+template <int REFL, bool ENV>
+int launch_levels(const float* glob, const float* sph, const float* rct, int n_sph, int n_rect,
+                  int ns_pad, int nr_pad, int n_light, int ke, const Params& p, float* img,
+                  float* vis, void* stream) {
+  return launch_forward(vec_render_levels_kernel<REFL, ENV>,
+                        forward_smem(ns_pad, nr_pad, n_light, REFL, ke), glob, sph, rct, n_sph,
+                        n_rect, ns_pad, nr_pad, globals_layout<ENV>(n_light, ke), p, img, vis,
+                        stream);
 }
 
 }  // namespace
 
-// Shared memory a block of this kernel needs, in bytes.
-extern "C" long long rrt_vec_render_smem(int n_sph, int n_rect, int n_light) {
-  return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light);
+// Shared memory a block of the instance with refl bounce levels and an
+// environment map of side ke (0 for none) needs, in bytes.
+extern "C" long long rrt_vec_render_levels_smem(int n_sph, int n_rect, int n_light, int refl,
+                                                int ke) {
+  return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light, refl, ke);
 }
 
 // The most shared memory a block may have on the current device (opt-in).
@@ -130,19 +234,27 @@ extern "C" int rrt_vec_render_at(const float* glob, const float* sph, const floa
                                  int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
                                  int H, int W, int shadows, int clip, float oi, float oj,
                                  float* img, float* vis, void* stream) {
-  const GLayout gl = make_glayout(n_light);
+  return launch_forward(vec_render_kernel, forward_smem(ns_pad, nr_pad, n_light), glob, sph, rct,
+                        n_sph, n_rect, ns_pad, nr_pad, make_glayout(n_light),
+                        make_params(H, W, shadows, clip, oi, oj), img, vis, stream);
+}
+
+// The instance of refl bounce levels (0 or 1) and an environment map of
+// side ke (0 for none) at the subsample offset (oi, oj): rrt_vec_render_at's
+// at 0 and 0 (L planes), else L (1 + refl) planes.
+extern "C" int rrt_vec_render_levels(const float* glob, const float* sph, const float* rct,
+                                     int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                     int H, int W, int shadows, int clip, float oi, float oj,
+                                     int refl, int ke, float* img, float* vis, void* stream) {
+  if ((refl != 0 && refl != 1) || ke < 0) return (int)cudaErrorInvalidValue;
+  if (!refl && !ke)
+    return rrt_vec_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                             shadows, clip, oi, oj, img, vis, stream);
   const Params p = make_params(H, W, shadows, clip, oi, oj);
-  const size_t smem = forward_smem(ns_pad, nr_pad, n_light);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        vec_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int nblocks = resident_blocks(vec_render_kernel, smem, H, W);
-  if (nblocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  vec_render_kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
-      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, img, vis);
-  return (int)cudaGetLastError();
+  const auto launch = refl ? (ke ? &launch_levels<1, true> : &launch_levels<1, false>)
+                           : &launch_levels<0, true>;
+  return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, img, vis,
+                stream);
 }
 
 // At the pixel centre (the entry of the tools and of earlier checkouts).

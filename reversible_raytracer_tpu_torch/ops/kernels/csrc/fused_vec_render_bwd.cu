@@ -24,18 +24,39 @@
 // Bound: operations: the step's per-pixel work without the shadow rays
 // (their votes and any-hit walks); bytes: the cotangent (12 bytes per
 // pixel) and 4 bytes per visibility plane (chip_smoke.py counts both).
+//
+// The environment map and one bounce level (spp 1): the step's
+// vec_step_levels_kernel with CotangentSource, level 1's light l read from
+// plane L + l of the forward's 2 L.
 #include "vec_step.cuh"
 
 using namespace rrt;
 
-// Shared memory a block of the backward kernel needs, in bytes.
-extern "C" long long rrt_vec_render_bwd_smem(int n_sph, int n_rect, int n_light) {
-  return (long long)step_plan(pad16(n_sph), pad16(n_rect), n_light).smem;
-}
-
 extern "C" long long rrt_vec_render_bwd_scratch_floats(int ns_pad, int nr_pad, int n_light,
                                                        int H, int W) {
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
+}
+
+// With an environment map of side ke (0 for none; a bounce adds no shared
+// memory), at spp 1 (the pixel centre: oi = oj = 0).
+extern "C" long long rrt_vec_render_bwd_levels_smem(int n_sph, int n_rect, int n_light, int ke) {
+  return (long long)step_plan(pad16(n_sph), pad16(n_rect), n_light, ke).smem;
+}
+
+extern "C" long long rrt_vec_render_bwd_levels_scratch_floats(int ns_pad, int nr_pad,
+                                                              int n_light, int H, int W, int ke) {
+  return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W, ke);
+}
+
+extern "C" int rrt_vec_render_bwd_levels(const float* glob, const float* sph, const float* rct,
+                                         int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                         int n_light, int H, int W, int shadows, int clip,
+                                         float oi, float oj, int refl, int ke, const float* g_img,
+                                         const float* vis, float* scratch, float* out,
+                                         void* stream) {
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                         make_params(H, W, shadows, clip, oi, oj), 1,
+                         CotangentSource{g_img, vis, 1.0f}, scratch, out, stream, refl, ke);
 }
 
 // out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)], at

@@ -24,18 +24,42 @@
 // warp's candidates for its primary ray and for each shadow ray until an
 // occluder, the shading and the adjoint; chip_smoke.py counts them). The
 // partial rows, one per block (a few hundred), are 1-2 MB of scratch.
+//
+// The environment map and one bounce level (spp 1, the TPU kernel's env
+// global and reflection levels: vec_step.cuh's vec_step_levels_kernel) add
+// per pixel the reflected ray's walk over every object, its shading, its
+// shadow rays over their culled candidates and its adjoint, the mirror
+// coefficient's gradient, and at a miss of either level the env's bilinear
+// sample and its adjoint (chip_smoke.py's bounce_counts and texel_counts
+// count them).
 #include "vec_step.cuh"
 
 using namespace rrt;
 
-// Shared memory a block of the step kernel needs, in bytes.
-extern "C" long long rrt_vec_step_smem(int n_sph, int n_rect, int n_light) {
-  return (long long)step_plan(pad16(n_sph), pad16(n_rect), n_light).smem;
-}
-
 extern "C" long long rrt_vec_step_scratch_floats(int ns_pad, int nr_pad, int n_light, int H,
                                                  int W) {
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
+}
+
+// With an environment map of side ke (0 for none; a bounce adds no shared
+// memory), at spp 1.
+extern "C" long long rrt_vec_step_levels_smem(int n_sph, int n_rect, int n_light, int ke) {
+  return (long long)step_plan(pad16(n_sph), pad16(n_rect), n_light, ke).smem;
+}
+
+extern "C" long long rrt_vec_step_levels_scratch_floats(int ns_pad, int nr_pad, int n_light,
+                                                        int H, int W, int ke) {
+  return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W, ke);
+}
+
+extern "C" int rrt_vec_step_levels(const float* glob, const float* sph, const float* rct,
+                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                   int H, int W, int shadows, int clip, int spp, int refl, int ke,
+                                   const float* target, float w, float* scratch, float* out,
+                                   void* stream) {
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                         make_params(H, W, shadows, clip), spp, ResidualSource{target, w},
+                         scratch, out, stream, refl, ke);
 }
 
 // spp 1 or 4: at spp 4 the loss is of the average of the four clipped

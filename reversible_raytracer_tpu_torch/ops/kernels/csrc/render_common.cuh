@@ -5,7 +5,8 @@
 // backwards (pixel_step, with the two sources of its cotangent and
 // visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
 // the subsamples of spp 4; with REFL, one mirror bounce level; with a
-// TexFlatScene, object textures and the environment map), and the
+// TexFlatScene, object textures and the environment map; with a
+// PackedEnvRows, the environment map), the texel records' scatter, and the
 // reduction and camera-chain passes. soft_common.cuh adds the
 // soft-visibility code.
 //
@@ -17,7 +18,9 @@
 //   - PackedRows: the JAX package's packed rows (fused_vec.py: globals,
 //     P_SPH = 17 scalars per sphere, P_RCT = 22 per rect, each group padded
 //     to a multiple of 16 rows; the object-chunked and soft kernels), the
-//     forwards' sphere rows staged without the mirror column.
+//     forwards' sphere rows staged without the mirror column but where a
+//     bounce reads it; and PackedEnvRows, the same with the environment map
+//     ending the globals (make_env_glayout).
 //     Rects are numbered from the padded sphere count (ns_pad) in winner
 //     space, so a pad row's index never names a real object.
 //
@@ -50,6 +53,15 @@ constexpr int BLOCK_THREADS = BLOCK_X * BLOCK_Y;
 constexpr int NWARPS = BLOCK_THREADS / 32;
 // Blocks per SM of the flat and vec steps: ptxas keeps a thread in 128 registers.
 constexpr int STEP_BLOCKS_PER_SM = 2;
+// Blocks an SM of the step instances with a bounce level (flat_step.cuh,
+// vec_step.cuh): the bounce's adjoint does not fit 128 registers.
+constexpr int REFL_STEP_BLOCKS_PER_SM = 1;
+
+template <int REFL>
+constexpr int step_blocks_per_sm() {
+  return REFL ? REFL_STEP_BLOCKS_PER_SM : STEP_BLOCKS_PER_SM;
+}
+
 constexpr int CAM_EXTRA = 10;  // g_fwd (3), g_right (3), g_up (3), g_tan
 constexpr int SPH_FIELDS = 14;  // center (3), radius, color (3), color2 (3), ka, kd, ks, shin
 constexpr int RECT_FIELDS = 19;  // origin, edge_u, edge_v, color, color2 (3 each), ka, kd, ks, shin
@@ -241,9 +253,40 @@ inline GLayout make_glayout(int L) {
   return {L, 0, 3, 6, 9, 12, 15, 16, 16 + 3 * L, 16 + 6 * L};
 }
 
+// The globals of a scene with an environment map: GLayout's, then the
+// (Ke, Ke, 3) map from slot env, counted in Sg (fused_vec.globals_offsets
+// with ke). A type of its own, so that the kernels without one keep their
+// parameters.
+struct EnvGLayout : GLayout {
+  int env, Ke;
+};
+
+inline EnvGLayout make_env_glayout(int L, int Ke) {
+  EnvGLayout e;
+  static_cast<GLayout&>(e) = make_glayout(L);
+  e.env = e.Sg;
+  e.Ke = Ke;
+  e.Sg += 3 * Ke * Ke;
+  return e;
+}
+
+// The globals layout of a kernel instance with (ENV) or without an
+// environment map of side Ke.
+template <bool ENV>
+using GLayoutOf = typename std::conditional<ENV, EnvGLayout, GLayout>::type;
+
+template <bool ENV>
+inline GLayoutOf<ENV> globals_layout(int L, int Ke) {
+  if constexpr (ENV)
+    return make_env_glayout(L, Ke);
+  else
+    return make_glayout(L);
+}
+
 // The packed rows as staged in shared memory, PS floats a sphere row: the
 // step kernels stage all P_SPH columns, the forwards (FWD_SPH) all but the
-// mirror column, which no kernel reads.
+// mirror column, which only a bounce reads (the forwards' REFL instances
+// stage P_SPH).
 template <int PS>
 struct PackedRows {
   const float* g;    // Sg globals
@@ -268,6 +311,7 @@ struct PackedRows {
   __device__ float s_kd(int k) const { return srow(k)[13]; }
   __device__ float s_ks(int k) const { return srow(k)[14]; }
   __device__ float s_shin(int k) const { return srow(k)[15]; }
+  __device__ float s_mirror(int k) const { return srow(k)[16]; }  // rows of P_SPH only
 
   __device__ V3 r_origin(int k) const { return ld3(rrow(k)); }
   __device__ V3 r_eu(int k) const { return ld3(rrow(k) + 3); }
@@ -279,6 +323,7 @@ struct PackedRows {
   __device__ float r_kd(int k) const { return rrow(k)[18]; }
   __device__ float r_ks(int k) const { return rrow(k)[19]; }
   __device__ float r_shin(int k) const { return rrow(k)[20]; }
+  __device__ float r_mirror(int k) const { return rrow(k)[21]; }
 
   __device__ V3 l_pos(int l) const { return ld3(g + gl.l_pos + 3 * l); }
   __device__ V3 l_col(int l) const { return ld3(g + gl.l_col + 3 * l); }
@@ -293,9 +338,44 @@ struct PackedRows {
 using PackedScene = PackedRows<P_SPH>;
 constexpr int FWD_SPH = 16;  // a sphere row of the forwards: center .. shininess
 
+// Packed rows whose globals end with the environment map: Ke its side, env
+// its first slot in the globals (where a texel record of it points).
+template <int PS>
+struct PackedEnvRows : PackedRows<PS> {
+  int Ke, env;
+
+  __device__ const float* env_texels() const { return this->g + env; }
+};
+
+using PackedEnvScene = PackedEnvRows<P_SPH>;
+
+// The packed scene over the staged globals g and rows: PackedRows for
+// GLayout's globals, PackedEnvRows for EnvGLayout's.
+template <int PS>
+__device__ __forceinline__ PackedRows<PS> packed_view(const float* g, const float* sph,
+                                                      const float* rct, const GLayout& gl, int N,
+                                                      int M, int ns_pad) {
+  return {g, sph, rct, gl, N, M, ns_pad};
+}
+template <int PS>
+__device__ __forceinline__ PackedEnvRows<PS> packed_view(const float* g, const float* sph,
+                                                         const float* rct, const EnvGLayout& gl,
+                                                         int N, int M, int ns_pad) {
+  return {{g, sph, rct, gl, N, M, ns_pad}, gl.Ke, gl.env};
+}
+
+// Does a scene type carry an environment map (sampled at misses, its
+// gradient scattered as texel records)? TexFlatScene's (when Ke > 0) and
+// PackedEnvRows'.
+template <class S>
+struct HasEnv : Textured<S> {};
+template <int PS>
+struct HasEnv<PackedEnvRows<PS>> : std::true_type {};
+
 // Packed column of field f of the step's per-object gradient (SPH_FIELDS /
 // RECT_FIELDS order): the checker and checker-scale columns, which get no
-// gradient, are skipped.
+// gradient, are skipped; field SPH_FIELDS (RECT_FIELDS), a bounce's mirror
+// coefficient, is the last column.
 __host__ __device__ inline int sph_col(int f) { return f < 10 ? f : f + 2; }
 __host__ __device__ inline int rct_col(int f) { return f < 15 ? f : f + 2; }
 
@@ -576,11 +656,11 @@ __device__ __forceinline__ V3 bilinear(const float* grid, int K, const TexW& w) 
 }
 
 // What a missed ray sees: the environment map's sample at sphere_uv of its
-// direction (azimuth wrapped) where a TexFlatScene has one, else the flat
+// direction (azimuth wrapped) where the scene has one (HasEnv), else the flat
 // background.
 template <class S>
 __device__ __forceinline__ V3 miss_color(const S& sc, V3 d) {
-  if constexpr (Textured<S>::value) {
+  if constexpr (HasEnv<S>::value) {
     if (sc.Ke) {
       const UV uv = sphere_uv(d);
       return bilinear(sc.env_texels(), sc.Ke, tex_weights(uv.u, uv.v, sc.Ke, true));
@@ -847,14 +927,19 @@ struct SubsampleSource {
 };
 
 // How pixel_step walks the objects. FullWalk, the small-scene step and
-// render backward (flat_step.cuh): every object for the primary ray and for
-// each shadow ray. vec_step.cuh's WarpCull walks the candidates of per-warp
-// culls (cull.cuh) instead, and casts its warp-wide votes in shadows(),
-// which pixel_step calls from every lane before it branches on the hit.
+// render backward (flat_step.cuh): every object for the primary ray, the
+// reflected ray (trace_bounce) and each shadow ray. vec_step.cuh's WarpCull
+// walks the candidates of per-warp culls (cull.cuh) instead, and casts its
+// warp-wide votes in shadows(), which pixel_forward calls from every lane
+// before it branches on a level's hit.
 struct FullWalk {
   template <class S>
   __device__ __forceinline__ Nearest trace(const S& sc, V3 o, V3 d, bool inside) const {
     return inside ? rrt::trace(sc, o, d) : Nearest{BIG, -1};
+  }
+  template <class S>
+  __device__ __forceinline__ Nearest trace_bounce(const S& sc, V3 o, V3 d, bool live) const {
+    return live ? rrt::trace(sc, o, d) : Nearest{BIG, -1};
   }
   template <class S, class Src>
   __device__ __forceinline__ void shadows(const S&, const Params&, const Src&, V3, bool) const {}
@@ -927,8 +1012,10 @@ struct Levels<1> {
 // A pixel's texel record: the cotangent g of one bilinear sample (a textured
 // winner's base colour, or the environment's colour at a miss of either
 // level) and its corners in the grid of side K whose texel (0, 0) starts at
-// flat slot base (-1: the pixel has none). A pixel has at most one: object
-// textures take no bounce, and a level-1 miss follows a level-0 hit.
+// slot base of the gradient row it is scattered into (the flat scene's, or
+// a PackedEnvRows' globals; -1: the pixel has none). A pixel has at most
+// one: object textures take no bounce, and a level-1 miss follows a level-0
+// hit.
 struct TexelRec {
   int base, K;
   TexW w;
@@ -942,13 +1029,66 @@ struct WithTexels : G {
 
 // The gradient type of a pixel at REFL bounce levels in scene type S.
 template <int REFL, class S>
-using GradOf = typename std::conditional<Textured<S>::value,
+using GradOf = typename std::conditional<HasEnv<S>::value,
                                          WithTexels<typename Levels<REFL>::Grad>,
                                          typename Levels<REFL>::Grad>::type;
 
+// Words a lane stages of its texel record: 4 corner slots, 12 values.
+constexpr int TEX_REC = 16;
+
+// Add the warp's texel records to gs, the warp's row of scene gradients (in
+// the slots the records' bases count in: flat_step.cuh's flat scene,
+// vec_step.cuh's globals), in lane order; rec is the warp's 32 x TEX_REC
+// staging words. Corner (i0, j0), (i0, j1), (i1, j0), (i1, j1) of a record takes weight (1 -
+// fi)(1 - fj), (1 - fi) fj, fi (1 - fj), fi fj of its cotangent; a corner that
+// coincides with an earlier one is merged into it and its slot set to -1, so
+// that lanes 0-11 (corner lane / 3, channel lane % 3) add to distinct slots.
+__device__ __forceinline__ void scatter_texels(const TexelRec& r, float* gs, float* rec,
+                                               int lane) {
+  const bool has = r.base >= 0;
+  const unsigned todo = __ballot_sync(FULL, has);
+  if (!todo) return;
+  if (has) {
+    const TexW& w = r.w;
+    const float a1 = 1.0f - w.fi, b1 = 1.0f - w.fj;
+    const V3 ga = r.g * a1, gb = r.g * w.fi;
+    V3 v[4] = {ga * b1, ga * w.fj, gb * b1, gb * w.fj};
+    int slot[4] = {r.base + 3 * (w.i0 * r.K + w.j0), r.base + 3 * (w.i0 * r.K + w.j1),
+                   r.base + 3 * (w.i1 * r.K + w.j0), r.base + 3 * (w.i1 * r.K + w.j1)};
+    if (w.j1 == w.j0) {
+      v[0] = v[0] + v[1];
+      v[2] = v[2] + v[3];
+      slot[1] = slot[3] = -1;
+    }
+    if (w.i1 == w.i0) {
+      v[0] = v[0] + v[2];
+      if (slot[3] >= 0) v[1] = v[1] + v[3];
+      slot[2] = slot[3] = -1;
+    }
+    float* mine = rec + TEX_REC * lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      mine[q] = __int_as_float(slot[q]);
+      mine[4 + 3 * q] = v[q].x;
+      mine[5 + 3 * q] = v[q].y;
+      mine[6 + 3 * q] = v[q].z;
+    }
+  }
+  __syncwarp();
+  for (unsigned left = todo; left; left &= left - 1) {
+    const float* theirs = rec + TEX_REC * (__ffs(left) - 1);
+    if (lane < 12) {
+      const int slot = __float_as_int(theirs[lane / 3]);
+      if (slot >= 0) gs[slot + lane % 3] += theirs[4 + lane];
+    }
+    __syncwarp();
+  }
+}
+
 // With REFL, level 1 is traced only where level 0 hit (elsewhere m = 0 and
-// the blend keeps col0 to the bit) with the same walk; pre is then the
-// blend, unclipped. The bounce takes FullWalk (no warp-wide votes).
+// the blend keeps col0 to the bit) by the walk's trace_bounce, and its
+// shadow rays' votes are cast (walk.shadows) after level 0's shadow rays
+// are done; pre is then the blend, unclipped.
 template <int REFL = 0, class S, class Src, class Walk>
 __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
     const S& sc, const Params& p, int i, int j, bool inside, const Src& src, const Walk& walk) {
@@ -962,7 +1102,7 @@ __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
   walk.shadows(sc, p, src, shadow_origin(o, d, f.h.t, f.s.n), hit);
   f.bits = 0;
   f.pre = sc.background();
-  if constexpr (Textured<S>::value) {
+  if constexpr (HasEnv<S>::value) {
     if (!hit) f.pre = miss_color(sc, d);
   }
   if (hit)
@@ -978,11 +1118,12 @@ __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
     b.m = mirror(sc, f.h);
     b.o = shadow_origin(o, d, f.h.t, f.s.n);
     b.d = reflect_dir(d, f.s.n);
-    b.h = walk.trace(sc, b.o, b.d, hit);
+    b.h = walk.trace_bounce(sc, b.o, b.d, hit);
     b.s = surface(sc, b.o, b.d, b.h);
+    walk.shadows(sc, p, src, shadow_origin(b.o, b.d, b.h.t, b.s.n), b.h.k >= 0);
     b.bits = 0;
     b.col = sc.background();
-    if constexpr (Textured<S>::value) {
+    if constexpr (HasEnv<S>::value) {
       if (hit) b.col = miss_color(sc, b.d);  // (where level 0 missed, m = 0 drops it)
     }
     if (b.h.k >= 0)
@@ -1328,19 +1469,20 @@ __device__ __forceinline__ void object_adjoint_tex(const S& sc, V3 o, V3 d, cons
 // direction (d1 = d - 2 (d . n) n), then level 0 under (1 - m) gc, and the
 // mirror coefficient's (col1 - col0) . gc.
 //
-// In a TexFlatScene (GradOf's WithTexels) the pixel's texel record goes out
-// with its gradient: a textured winner's (object_adjoint_tex), or the
-// environment's at a miss of level 0, or of level 1 where level 0 hit, whose
-// cotangent also reaches that level's ray direction (env_adjoint: the
-// camera, or through d1 = d - 2 (d . n) n level 0's d and n); the
-// background then gets none.
+// In a TexFlatScene or a PackedEnvRows (HasEnv: GradOf's WithTexels) the
+// pixel's texel record goes out with its gradient: a textured winner's
+// (object_adjoint_tex, a TexFlatScene's only), or the environment's at a
+// miss of level 0, or of level 1 where level 0 hit, whose cotangent also
+// reaches that level's ray direction (env_adjoint: the camera, or through
+// d1 = d - 2 (d . n) n level 0's d and n); the background then gets none.
 template <int REFL = 0, class S, class Src, class Walk, class OnLight>
 __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params& p, int i, int j,
                                                       bool inside, const Src& src,
                                                       const Walk& walk, OnLight on_light) {
   constexpr bool TEX = Textured<S>::value;
+  constexpr bool ENV = HasEnv<S>::value;
   GradOf<REFL, S> out;
-  if constexpr (TEX) out.tex.base = -1;
+  if constexpr (ENV) out.tex.base = -1;
   // ---- forward
   const typename Levels<REFL>::Forward fw = pixel_forward<REFL>(sc, p, i, j, inside, src, walk);
   const Camera& cam = fw.cam;
@@ -1373,7 +1515,7 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
     V3 g_d1 = a1.g_d + a1.g_so * b.h.t;
     const float g_t1 = dot(a1.g_so, b.d);
     const V3 g_n1 = a1.g_n + a1.g_so * SHADOW_EPS;
-    if constexpr (TEX) {
+    if constexpr (ENV) {
       if (sc.Ke) {
         g_bg1 = zero3();
         if (hit && !hit1) g_d1 = g_d1 + env_adjoint(sc, b.d, gc1, out.tex);
@@ -1395,7 +1537,7 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
   out.g_amb = a.g_amb;
   V3 g_n = a.g_n, g_d = a.g_d, g_so = a.g_so;
   [[maybe_unused]] bool env_miss = false;
-  if constexpr (TEX) {
+  if constexpr (ENV) {
     if (sc.Ke) {
       out.g_bg = zero3();
       env_miss = inside && !hit;
@@ -1453,7 +1595,7 @@ __device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i,
                                             OnLight on_light, Take take) {
   static_assert(SPP == 1 || SPP == 4, "spp is 1 or 4");
   static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
-  static_assert(!Textured<S>::value || SPP == 1, "texel grids are spp 1");
+  static_assert(!HasEnv<S>::value || SPP == 1, "texel grids are spp 1");
   if constexpr (SPP == 1) {
     take(pixel_step<REFL>(sc, p, i, j, inside, src, walk, on_light));
   } else if constexpr (Src::casts_shadows) {

@@ -49,13 +49,40 @@
 // subsample's offsets (Params oi, oj), as the TPU's four launches at the
 // runtime offsets of off_ref. Each spp is its own instance (SPP).
 //
+// The environment map and one mirror bounce (spp 1; vec_step_levels_kernel,
+// REFL and ENV, the TPU kernel's env global and reflection levels,
+// fused_vec.py:405-440, :1015-1054, :1220-1266): each thread runs
+// pixel_step<REFL> on a PackedEnvRows (ENV: the env ends the globals,
+// make_env_glayout) or a PackedScene.
+//    - Level 1 is traced where level 0 hit, from level 0's shadow origin
+//      along the reflected direction, over every sphere (WarpCull::
+//      trace_bounce: the 32 rays leave 32 surface points in scattered
+//      directions, so the primary cone does not bound them), then every
+//      rect. Its shadow rays take the warp's ball cull of their origins
+//      (warp_candidates, valid from any origins), cast after level 0's
+//      shadow rays are done with the lights' mask words.
+//    - The winner lists: a warp can hit 64 distinct objects over two levels,
+//      but its list holds 32 (one entry a lane), so it builds one list per
+//      level, level 0's (with the mirror coefficient's gradient, column 16
+//      of P_SPH and 21 of P_RCT, the field after the others) then level
+//      1's, each added to the block row in warp order.
+//    - The env's gradient: each pixel's texel record (a miss of level 0, or
+//      of level 1 where level 0 hit) is scattered into the warp's globals
+//      row, in lane order (render_common.cuh scatter_texels), with 32 x 16
+//      words of staging a warp; the row grows by the 3 Ke^2 texels.
+//    - A bounce needs more registers than two blocks an SM leave
+//      (step_blocks_per_sm: one block an SM with REFL, and a grid to
+//      match).
+// Every instance runs one body (vec_step_body), the bounce and the env
+// behind if constexpr, so that vec_step_kernel's instances keep their code.
+//
 // No atomics, and a grid that follows from the card and the scene alone:
 // for a given image size the result is bit-for-bit the same from run to run
 // on one card, and the render backward's gradient for the mse cotangent is
 // the step's, bit for bit (same body, same order). Pad rows are never read
-// by the loops and their gradient is exactly zero; so are the checker,
-// checker-scale and mirror columns (a step, a floor, and no reflection
-// levels).
+// by the loops and their gradient is exactly zero; so are the checker and
+// checker-scale columns (a step and a floor), and the mirror column
+// without a bounce.
 #pragma once
 
 #include "cull.cuh"
@@ -67,24 +94,28 @@ struct StepPlan {
   size_t smem;
 };
 
-inline StepPlan step_plan(int ns_pad, int nr_pad, int n_light) {
+// The shared memory of a block: the globals (with an environment map of
+// side ke, its 3 ke^2 texels), the rows, the warp rows, the block object
+// row; per warp the primary cull's mask words, then each light's; with an
+// environment map, per warp 32 texel records of TEX_REC words.
+inline StepPlan step_plan(int ns_pad, int nr_pad, int n_light, int ke = 0) {
   StepPlan s;
-  s.Sg = make_glayout(n_light).Sg;
+  s.Sg = make_glayout(n_light).Sg + 3 * ke * ke;
   s.GROW = 1 + s.Sg + CAM_EXTRA;
   s.OROW = ns_pad * P_SPH + nr_pad * P_RCT;
   s.ROW = s.GROW + s.OROW;
   s.NWP = (ns_pad + 31) / 32;  // mask words of one cull
-  // globals, rows, warp rows, block object row; per warp the primary cull's
-  // mask words, then each light's
   s.smem = (size_t)(s.Sg + s.OROW + NWARPS * s.GROW + s.OROW) * sizeof(float) +
-           (size_t)NWARPS * (1 + n_light) * s.NWP * sizeof(unsigned);
+           (size_t)NWARPS * (1 + n_light) * s.NWP * sizeof(unsigned) +
+           (ke ? (size_t)NWARPS * 32 * TEX_REC * sizeof(float) : 0);
   return s;
 }
 
 // vec_step's walk (see the notes at the top): the spheres culled per warp,
 // for the primary rays and, where the source casts shadow rays, for each
-// light's; the rects every time. wm holds the warp's mask words (nw words
-// for the primary rays, then nw per light).
+// light's; the rects every time; a bounce's reflected rays over every
+// sphere. wm holds the warp's mask words (nw words for the primary rays,
+// then nw per light).
 struct WarpCull {
   unsigned* wm;
   int nw, lane;
@@ -95,6 +126,11 @@ struct WarpCull {
     primary_candidates(sc, o, d, inside, 0.0f, lane, wm);
     if (!inside) return {BIG, -1};
     return trace_candidates(sc, o, d, wm, nw);
+  }
+
+  template <class S>
+  __device__ __forceinline__ Nearest trace_bounce(const S& sc, V3 o, V3 d, bool live) const {
+    return live ? rrt::trace(sc, o, d) : Nearest{BIG, -1};
   }
 
   template <class S, class Src>
@@ -113,11 +149,66 @@ struct WarpCull {
   }
 };
 
-template <int SPP, class Src>
-__global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
-    vec_step_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
-                    const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
-                    GLayout gl, Params p, Src src, float* __restrict__ partials) {
+// One level's winner list: the warp's distinct objects k (-1: the lane's ray
+// missed at this level) in the order of the lowest lane that hit each, lane e
+// holding entry e's sums of the fields obj (as lane 0 reduced them; with MIR
+// also the mirror coefficient's g_mir, the field after them); then the warps
+// add their lists to the block's object row, warp by warp.
+template <bool MIR>
+__device__ __forceinline__ void add_level_winners(int k_px, const float (&obj)[RECT_FIELDS],
+                                                  float g_mir, int ns_pad, float* orow, int lane,
+                                                  int warp) {
+  constexpr int NF = RECT_FIELDS + (MIR ? 1 : 0);
+  int n = 0, ke = -1;
+  float acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = 0.0f;
+  for (unsigned todo = __ballot_sync(FULL, k_px >= 0); todo;) {
+    const int k = __shfl_sync(FULL, k_px, __ffs(todo) - 1);
+    const unsigned same = __ballot_sync(FULL, k_px == k);
+    const bool mine = k_px == k;
+    const int nf = k < ns_pad ? SPH_FIELDS : RECT_FIELDS;  // the same in every lane
+#pragma unroll
+    for (int f = 0; f < RECT_FIELDS; ++f) {
+      if (f < nf) {
+        const float v = __shfl_sync(FULL, warp_sum(mine ? obj[f] : 0.0f), 0);
+        if (lane == n) acc[f] = v;
+      }
+    }
+    if constexpr (MIR) {
+      const float v = __shfl_sync(FULL, warp_sum(mine ? g_mir : 0.0f), 0);
+      if (lane == n) acc[RECT_FIELDS] = v;
+    }
+    if (lane == n) ke = k;
+    ++n;
+    todo &= ~same;
+  }
+  for (int v = 0; v < NWARPS; ++v) {
+    if (v == warp && ke >= 0) {
+      if (ke < ns_pad) {
+#pragma unroll
+        for (int f = 0; f < SPH_FIELDS; ++f) orow[ke * P_SPH + sph_col(f)] += acc[f];
+        if constexpr (MIR) orow[ke * P_SPH + sph_col(SPH_FIELDS)] += acc[RECT_FIELDS];
+      } else {
+        float* row = orow + ns_pad * P_SPH + (ke - ns_pad) * P_RCT;
+#pragma unroll
+        for (int f = 0; f < RECT_FIELDS; ++f) row[rct_col(f)] += acc[f];
+        if constexpr (MIR) row[rct_col(RECT_FIELDS)] += acc[RECT_FIELDS];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The kernels' body on the scene type SC (PackedScene, or PackedEnvScene
+// with an environment map) of globals layout GL (GLayout, EnvGLayout), at
+// REFL bounce levels.
+template <int SPP, int REFL, class Src, class SC, class GL>
+__device__ __forceinline__ void vec_step_body(const float* __restrict__ glob,
+                                              const float* __restrict__ sph,
+                                              const float* __restrict__ rct, int N, int M,
+                                              int ns_pad, int nr_pad, GL gl, Params p, Src src,
+                                              float* __restrict__ partials) {
   extern __shared__ float smem[];
   const int GROW = 1 + gl.Sg + CAM_EXTRA;
   const int OROW = ns_pad * P_SPH + nr_pad * P_RCT;
@@ -139,14 +230,17 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
   float* wrow = wp + warp * GROW;  // [sq, globals (Sg), camera basis (10)]
   float* gs = wrow + 1;
   float* gx = wrow + 1 + gl.Sg;
+  // the warps' texel records, after the mask words step_plan counts
+  [[maybe_unused]] float* trec =
+      (float*)(masks + NWARPS * (1 + gl.L) * ((ns_pad + 31) / 32)) + warp * 32 * TEX_REC;
   const WarpCull walk{masks + warp * (1 + gl.L) * nw, nw, lane};
-  const PackedScene scene{g, s_sph, s_rct, gl, N, M, ns_pad};
+  const SC scene = packed_view<P_SPH>(g, s_sph, s_rct, gl, N, M, ns_pad);
   const dim3 tiles = pixel_grid(p.H, p.W);
 
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
     const int j = (t % tiles.x) * BLOCK_X + threadIdx.x;
     const int i = (t / tiles.x) * BLOCK_Y + threadIdx.y;
-    pixel_grads<SPP>(
+    pixel_grads<SPP, REFL>(
         scene, p, i, j, i < p.H && j < p.W, src, walk,
         [&](int l, V3 g_lpos, V3 g_lcol, bool warp_hit) {
           if (warp_hit) {
@@ -154,7 +248,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
             add3(gs, gl.l_col + 3 * l, g_lcol, lane);
           }
         },
-        [&](const PixelGrad& pg) {
+        [&](const auto& pg) {
           // ---- warp sums of the globals into this warp's row
           add(wrow, 0, pg.sq, lane);
           add3(gs, gl.ambient, pg.g_amb, lane);
@@ -165,47 +259,21 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
           add3(gx, 6, pg.g_dt * pg.sy, lane);
           add(gx, 9, pg.g_tan, lane);
 
-          // ---- the warp's list of winners, one entry per distinct object
-          // in the order of the lowest lane that hit it, lane e holding
-          // entry e's sums (as lane 0 reduced them); then the block's row,
-          // warp by warp
-          int n = 0, ke = -1;
-          float acc[RECT_FIELDS];
-#pragma unroll
-          for (int f = 0; f < RECT_FIELDS; ++f) acc[f] = 0.0f;
-          for (unsigned todo = __ballot_sync(FULL, pg.k >= 0); todo;) {
-            const int k = __shfl_sync(FULL, pg.k, __ffs(todo) - 1);
-            const unsigned same = __ballot_sync(FULL, pg.k == k);
-            const bool mine = pg.k == k;
-            const int nf = k < ns_pad ? SPH_FIELDS : RECT_FIELDS;  // the same in every lane
-#pragma unroll
-            for (int f = 0; f < RECT_FIELDS; ++f) {
-              if (f < nf) {
-                const float v = __shfl_sync(FULL, warp_sum(mine ? pg.obj[f] : 0.0f), 0);
-                if (lane == n) acc[f] = v;
-              }
-            }
-            if (lane == n) ke = k;
-            ++n;
-            todo &= ~same;
+          if constexpr (REFL == 0) {
+            add_level_winners<false>(pg.k, pg.obj, 0.0f, ns_pad, orow, lane, warp);
+          } else {
+            // ---- with a bounce: level 0's list (its mirror coefficients'
+            // gradient too), then level 1's
+            add_level_winners<true>(pg.k, pg.obj, pg.g_mir, ns_pad, orow, lane, warp);
+            add_level_winners<false>(pg.k1, pg.obj1, 0.0f, ns_pad, orow, lane, warp);
           }
-          for (int v = 0; v < NWARPS; ++v) {
-            if (v == warp && ke >= 0) {
-              if (ke < ns_pad) {
-#pragma unroll
-                for (int f = 0; f < SPH_FIELDS; ++f) orow[ke * P_SPH + sph_col(f)] += acc[f];
-              } else {
-#pragma unroll
-                for (int f = 0; f < RECT_FIELDS; ++f)
-                  orow[ns_pad * P_SPH + (ke - ns_pad) * P_RCT + rct_col(f)] += acc[f];
-              }
-            }
-            __syncthreads();
-          }
+          if constexpr (HasEnv<SC>::value) scatter_texels(pg.tex, gs, trec, lane);
         });
   }
 
-  // ---- the block's partial row
+  // ---- the block's partial row (the last tile's texel scatter into the warp
+  // rows comes after its winner lists' last barrier)
+  if constexpr (HasEnv<SC>::value) __syncthreads();
   float* prow = partials + (long long)blockIdx.x * (GROW + OROW);
   for (int s = tid; s < GROW; s += BLOCK_THREADS) {
     float acc = 0.0f;
@@ -215,30 +283,48 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
   for (int s = tid; s < OROW; s += BLOCK_THREADS) prow[GROW + s] = orow[s];
 }
 
+template <int SPP, class Src>
+__global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
+    vec_step_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                    const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                    GLayout gl, Params p, Src src, float* __restrict__ partials) {
+  vec_step_body<SPP, 0, Src, PackedScene>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src,
+                                          partials);
+}
+
+// The instances with the environment map (ENV) and/or one bounce level
+// (REFL), spp 1.
+template <int REFL, bool ENV, class Src>
+__global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
+    vec_step_levels_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                           const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                           GLayoutOf<ENV> gl, Params p, Src src, float* __restrict__ partials) {
+  using SC = typename std::conditional<ENV, PackedEnvScene, PackedScene>::type;
+  vec_step_body<1, REFL, Src, SC>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src, partials);
+}
+
 constexpr int VEC_REDUCE_RY = 32;  // row subsets per slot in the reduction
 
-// Floats of scratch a call needs: the partial rows and their sum; -1 if
-// the card cannot be queried.
-inline long long vec_step_scratch_floats(int ns_pad, int nr_pad, int n_light, int H, int W) {
-  const StepPlan plan = step_plan(ns_pad, nr_pad, n_light);
+// Floats of scratch a call needs (with an environment map of side ke): the
+// partial rows and their sum; -1 if the card cannot be queried. Sized for
+// the grid of two blocks an SM, which holds the bounce instances' too.
+inline long long vec_step_scratch_floats(int ns_pad, int nr_pad, int n_light, int H, int W,
+                                         int ke = 0) {
+  const StepPlan plan = step_plan(ns_pad, nr_pad, n_light, ke);
   const int nblocks = step_blocks(plan.smem, H, W);
   return nblocks > 0 ? ((long long)nblocks + 1) * plan.ROW : -1;
 }
 
-// The three launches on one stream; out = [sq, dglob, dsph, drct]. p gives
-// the image, the flags and a subsample's offsets; spp is 1 or 4 (the 2x2
-// loop in the kernel, p's offsets 0).
-template <class Src>
-int launch_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
-                    int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p, int spp,
-                    Src src, float* scratch, float* out, void* stream) {
-  const GLayout gl = make_glayout(n_light);
-  const StepPlan plan = step_plan(ns_pad, nr_pad, n_light);
+// The three launches of one instance on one stream; out = [sq, dglob, dsph,
+// drct].
+template <class K, class GL, class Src>
+int launch_vec_instance(K kernel, int per_sm, const float* glob, const float* sph,
+                        const float* rct, int n_sph, int n_rect, int ns_pad, int nr_pad, GL gl,
+                        const StepPlan& plan, const Params& p, Src src, float* scratch,
+                        float* out, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int nblocks = step_blocks(plan.smem, p.H, p.W);
+  const int nblocks = step_blocks(plan.smem, p.H, p.W, per_sm);
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
-  if (spp != 1 && spp != 4) return (int)cudaErrorInvalidValue;
-  const auto kernel = spp == 4 ? vec_step_kernel<4, Src> : vec_step_kernel<1, Src>;
   float* partials = scratch;
   float* rowsum = scratch + (long long)nblocks * plan.ROW;
   cudaError_t err;
@@ -257,6 +343,43 @@ int launch_vec_step(const float* glob, const float* sph, const float* rct, int n
   if (err != cudaSuccess) return (int)err;
   vec_finalize_kernel<<<1, 256, 0, st>>>(rowsum, glob, gl, plan.OROW, out);
   return (int)cudaGetLastError();
+}
+
+template <int REFL, bool ENV, class Src>
+int launch_vec_levels(const float* glob, const float* sph, const float* rct, int n_sph,
+                      int n_rect, int ns_pad, int nr_pad, int n_light, int ke, const Params& p,
+                      Src src, float* scratch, float* out, void* stream) {
+  return launch_vec_instance(vec_step_levels_kernel<REFL, ENV, Src>, step_blocks_per_sm<REFL>(),
+                             glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
+                             globals_layout<ENV>(n_light, ke),
+                             step_plan(ns_pad, nr_pad, n_light, ke), p, src, scratch, out,
+                             stream);
+}
+
+// The instance of the call, on one stream; out = [sq, dglob, dsph, drct]. p
+// gives the image, the flags and a subsample's offsets; spp is 1 or 4 (the
+// 2x2 loop in the kernel, p's offsets 0) without a bounce or an environment
+// map; refl 0 or 1 bounce levels and an environment map of side ke (0 for
+// none) at spp 1.
+template <class Src>
+int launch_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
+                    int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p, int spp,
+                    Src src, float* scratch, float* out, void* stream, int refl = 0,
+                    int ke = 0) {
+  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || ke < 0 ||
+      ((refl || ke) && spp != 1))
+    return (int)cudaErrorInvalidValue;
+  if (refl || ke) {
+    const auto launch = refl ? (ke ? &launch_vec_levels<1, true, Src>
+                                   : &launch_vec_levels<1, false, Src>)
+                             : &launch_vec_levels<0, true, Src>;
+    return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, src, scratch,
+                  out, stream);
+  }
+  return launch_vec_instance(spp == 4 ? vec_step_kernel<4, Src> : vec_step_kernel<1, Src>,
+                             STEP_BLOCKS_PER_SM, glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
+                             make_glayout(n_light), step_plan(ns_pad, nr_pad, n_light), p, src,
+                             scratch, out, stream);
 }
 
 }  // namespace rrt

@@ -11,7 +11,10 @@ for a run without a live pixel. `per_pixel` spreads them to (N, H, W).
 - `warp_candidates`: the shadow rays of a run toward one light (rows 4-6's
   hard any-hit at tau = 0; rows 7-9's soft shadow products at tau > 0);
 - `primary_candidates`: the primary rays of a run, which all leave the eye
-  (rows 4-6's nearest hit at tau = 0; row 7's soft ranking at tau > 0).
+  (rows 4-6's nearest hit at tau = 0; row 7's soft ranking at tau > 0);
+- `bounce_candidates`: the reflected rays of a run, which leave scattered
+  points. No kernel walks it yet (rows 4-6 walk every sphere at level 1);
+  the bounds of rows 4-6 with a bounce count level 1's sphere tests by it.
 """
 
 from __future__ import annotations
@@ -101,3 +104,41 @@ def primary_candidates(spheres, eye, d, tau=0.0):
     reach = cmin[..., None] * torch.sqrt(torch.clamp(D2 - r * r, min=0.0)) - smax[..., None] * r
     return ((~(cmin > 0.0))[..., None] | (r >= D)
             | ((a[:, :, None] * wc).sum(-1) >= reach))
+
+
+def bounce_candidates(spheres, o, d, live):
+    """The spheres each run of 32 pixels of a row could hit with rays that
+    leave scattered points, as a bounce's reflected rays do: the live pixels'
+    origins ``o`` lie in a ball (centre c_w, the midpoint of their box;
+    radius rho, the farthest from it) and their unit directions ``d`` within
+    theta of their normalized sum a (cos theta the least d . a, sin theta the
+    largest |d x a|). A ray o + t d hitting sphere k passes within r_k of its
+    centre, so c_w + t d passes within r_k + rho of it: the sphere is a
+    candidate if the cone from c_w about a reaches that far, gamma <= theta +
+    asin(r' / D) as in `primary_candidates` with D = |c_k - c_w| and r' =
+    (r_k + rho)(1 + CULL_REL) + CULL_ABS (D + rho); so are the spheres with
+    r' >= D and every sphere of a run whose cone reaches 90 degrees. ``o``
+    and ``d`` are Vec3s of (H, W) tensors, ``live`` (H, W) bool. Returns (H,
+    ceil(W / 32), N) bool, nothing for a run without a live pixel."""
+    lv = runs(live, False)
+    xyz = torch.stack([runs(x, 0.0) for x in o], dim=-1)  # (H, R, 32, 3)
+    dd = torch.stack([runs(x, 0.0) for x in d], dim=-1)
+    inf = torch.tensor(float("inf"), dtype=xyz.dtype, device=xyz.device)
+    lo = torch.where(lv[..., None], xyz, inf).amin(2)
+    hi = torch.where(lv[..., None], xyz, -inf).amax(2)
+    any_live = lv.any(2)
+    cw = torch.where(any_live[..., None], (lo + hi) * 0.5, 0.0)  # (H, R, 3)
+    off = xyz - cw[:, :, None]
+    rho = torch.sqrt(torch.where(lv, (off * off).sum(-1), 0.0).amax(2))  # (H, R)
+    s = torch.where(lv[..., None], dd, 0.0).sum(2)
+    a = s * torch.rsqrt(torch.clamp((s * s).sum(-1, keepdim=True), min=1e-30))
+    cmin = torch.where(lv, (dd * a[:, :, None]).sum(-1), 1.0).amin(2)
+    x = torch.linalg.cross(dd, a[:, :, None].expand_as(dd), dim=-1)
+    smax = torch.sqrt(torch.where(lv, (x * x).sum(-1), 0.0).amax(2))
+    wc = spheres.center[:, None, None] - cw  # (N, H, R, 3)
+    D2 = (wc * wc).sum(-1)
+    D = torch.sqrt(D2)
+    r = (spheres.radius[:, None, None] + rho) * (1.0 + CULL_REL) + CULL_ABS * (D + rho)
+    reach = cmin * torch.sqrt(torch.clamp(D2 - r * r, min=0.0)) - smax * r
+    near = ~(cmin > 0.0) | (r >= D) | ((a * wc).sum(-1) >= reach)
+    return (near & any_live).permute(1, 2, 0)

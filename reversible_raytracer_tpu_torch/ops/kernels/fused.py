@@ -212,10 +212,12 @@ def step_smem_bytes(n_sph: int, n_rect: int, n_light: int, ks: int = 0, kr: int 
     return 4 * (sub * rowp + S + 8 * row + 6 * n_light * 256 + 8 * 32 * 16)
 
 
-def uncovered(scene, cfg: RenderConfig, texels: bool = False):
+def uncovered(scene, cfg: RenderConfig, texels: bool = False, env: bool = False):
     """What the kernels do not cover (a reason), or None: with ``texels``
     the unrolled family's (object textures and the environment map at spp 1,
-    the environment with a bounce), else both families' (no texel grid)."""
+    the environment with a bounce), with ``env`` the object-chunked family's
+    (the environment map at spp 1, no object textures), else every family's
+    (no texel grid)."""
     if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
         return "soft_tau/checker_tau"
     if cfg.spp not in SPP_OFFSETS:
@@ -234,8 +236,10 @@ def uncovered(scene, cfg: RenderConfig, texels: bool = False):
     if not texels:
         if objects:
             return "object textures"
-        if scene.env_mapped:
+        if scene.env_mapped and not env:
             return "environment maps"
+        if scene.env_mapped and cfg.spp != 1:
+            return "spp 4 with an environment map"
         return None
     if not scene_textured(scene):
         return None
@@ -1041,7 +1045,7 @@ def level_terms(scene, nearest, visibility, o, d, zero, level=0):
     return SimpleNamespace(o=o, d=d, t=t, w=w, so=so, per_light=per_light, col=col, env=env)
 
 
-def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
+def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0), nearest1=None):
     """The forward of the hard kernels in eager torch at the subsample offset
     ``off``, with what their adjoint needs: the primary rays (``ray``), each
     bounce level's `level_terms` (``levels``; level 0's ``t``, ``w``,
@@ -1049,15 +1053,17 @@ def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0)):
     where(hit, mirror, 0) of a reflective render, the unclipped image
     (``pre``) and the image (``img``), each a tuple of (H, W) channels. With
     ``cfg.reflections`` (one level, as the kernels take it) level 1 traces
-    the reflected rays from level 0's shadow origins along `reflect_dir`,
-    and pre = col0 + m (col1 - col0) (`pipeline.shade_levels`)."""
+    the reflected rays from level 0's shadow origins along `reflect_dir`
+    (by ``nearest1``, ``nearest`` if None: the object-chunked kernels walk
+    every sphere there), and pre = col0 + m (col1 - col0)
+    (`pipeline.shade_levels`)."""
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
     ray = primary_ray_terms(scene, cfg, off)
     lv = level_terms(scene, nearest, visibility, ray.o, ray.d, zero)
     levels, m, pre = [lv], None, lv.col
     if cfg.reflections:
-        lv1 = level_terms(scene, nearest, visibility, lv.so, reflect_dir(ray.d, lv.w.n), zero,
-                          level=1)
+        lv1 = level_terms(scene, nearest1 or nearest, visibility, lv.so,
+                          reflect_dir(ray.d, lv.w.n), zero, level=1)
         levels.append(lv1)
         m = torch.where(lv.w.hit, lv.w.mir, 0.0)
         pre = tuple(c + m * (rc - c) for c, rc in zip(lv.col, lv1.col))
@@ -1079,17 +1085,18 @@ def subsample_average(imgs):
     return vm.vscale(acc, 1.0 / len(imgs)) if tup else acc * (1.0 / len(imgs))
 
 
-def subsample_adjoint(scene, cfg, nearest, cotangent, visibility_at):
+def subsample_adjoint(scene, cfg, nearest, cotangent, visibility_at, nearest1=None):
     """The adjoint of every subsample of the pixels, as the kernels' spp
     loop runs it (csrc/render_common.cuh `pixel_grads`): ``(sum of squared
     residuals, grads as a Scene)``. At spp 1 `_adjoint`. At spp 4 the four
     forwards, the cotangent of their average (`subsample_average`), and
     each subsample's adjoint with a quarter of it (the average's 0.25,
     before each subsample's own clip gradient), summed. ``visibility_at(q)``
-    is subsample q's visibility, as `forward_terms` takes it."""
+    is subsample q's visibility, and ``nearest1`` the bounce level's trace,
+    as `forward_terms` takes them."""
     offsets = SPP_OFFSETS[cfg.spp]
     if len(offsets) == 1:
-        return _adjoint(scene, cfg, nearest, cotangent, visibility_at(0))
+        return _adjoint(scene, cfg, nearest, cotangent, visibility_at(0), nearest1=nearest1)
     imgs = [forward_terms(scene, cfg, nearest, visibility_at(q), off).img
             for q, off in enumerate(offsets)]
     g, sq = cotangent(subsample_average(imgs))
@@ -1101,11 +1108,11 @@ def subsample_adjoint(scene, cfg, nearest, cotangent, visibility_at):
     return sq, grads
 
 
-def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
+def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0), nearest1=None):
     """The per-pixel adjoint of the step and of the render backward at one
     subsample offset ``off``: ``(sum
-    of squared residuals, grads as a Scene)``. ``nearest`` and
-    ``visibility`` as `forward_terms` takes them; ``cotangent(img)`` gives
+    of squared residuals, grads as a Scene)``. ``nearest``, ``visibility``
+    and ``nearest1`` as `forward_terms` takes them; ``cotangent(img)`` gives
     the cotangent of the clipped image per channel and the squared error
     (`residual_cotangent`, `image_cotangent`). With a bounce level the
     adjoint runs deepest level first: level 1's shading and winner under the
@@ -1113,7 +1120,7 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0)):
     origin (the reflected ray's origin), normal and direction; then level 0
     under (1 - m) gc, and the mirror coefficient's (col1 - col0) . gc."""
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
-    fw = forward_terms(scene, cfg, nearest, visibility, off)
+    fw = forward_terms(scene, cfg, nearest, visibility, off, nearest1)
     lv = fw.levels[0]
     hit = lv.w.hit
 

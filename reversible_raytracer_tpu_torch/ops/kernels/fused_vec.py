@@ -43,10 +43,20 @@ only, number the rects from the padded sphere count in winner-index space,
 and leave the gradient of every pad row exactly zero. The step's gradient
 comes back through the transpose of the packing (`unpack_grads`).
 
-Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects,
-no environment map, no mirror bounces (the TPU kernels' reflection levels,
-texel tails and env global are not ported yet and raise). spp 4 as the TPU
-kernels run it: the forward and the render backward are launched once per
+Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects
+(the TPU kernels' texel tails are not ported yet and raise). At spp 1 also
+the environment map and one mirror bounce, together or apart (the TPU
+kernels' env global, globals_tree at fused_vec.py:405, and their reflection
+levels, :907-946 and :1015-1054): the env ends the globals (`globals_offsets`)
+and a missed ray's colour, at either level, is its bilinear sample at the
+lat-long coordinates of the ray's direction; the bounce traces level 1 from
+level 0's shadow origins along the reflected direction where level 0 hit,
+over every sphere (the primary cone assumes rays leaving the eye; the shadow
+rays of level 1 keep their per-warp cull), blends col0 + m (col1 - col0) by
+the winner's mirror coefficient and clips once; the forward writes 2 L
+planes, bounce-major. Each such combination is its own instance of each
+kernel (the ``_levels`` entries), so the others keep their code. spp 4 as the
+TPU kernels run it: the forward and the render backward are launched once per
 subsample at its offsets (`pipeline.SPP_OFFSETS`; fused_vec.py:1443-1481),
 the image is the average of the four (`fused.subsample_average`) formed in
 torch, through which autograd gives each backward launch a quarter of the
@@ -68,7 +78,15 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ...models.scene import tree_leaves, tree_unflatten
-from ..pipeline import SPP_OFFSETS, RenderConfig, n_vis_planes, render_tile
+from ..pipeline import (
+    SPP_OFFSETS,
+    RenderConfig,
+    n_vis_planes,
+    primary_rays,
+    reflect_dir,
+    render_tile,
+    shadow_origin,
+)
 from ..pipeline_vec import nearest_vec, occluded_any, render_eager_vec, shade_vec
 from . import fused
 from ._build import Kernel
@@ -87,26 +105,37 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows, clip
 _GEOM = [_I] * 9
 
-# Entries with a subsample's (row, column) offset (``_at``, rows 4-5) or the
-# spp (``_spp``, row 6) after the geometry; those without are spp 1, for
-# tools/ and for checkouts from before spp 4.
+# The wrappers call the ``_levels`` entries alone: after the geometry a
+# subsample's (row, column) offset (rows 4-5) or the spp (row 6), then the
+# bounce levels (0 or 1) and the environment map's side (0 for none). At 0
+# and 0 they launch the instances of the older entries, which stay only for
+# tools/flat_ab.py's and tools/vec_step_split.py's builds of checkouts from
+# before them (``_at`` / ``_spp``: spp 4; none: spp 1) and for chip_smoke.py's
+# timings of rows 4-6: they are superseded, and go when no tool needs an
+# entry that both trees have.
+_LV = [_I, _I]  # refl, ke
 VEC_RENDER = Kernel("fused_vec_render", {
+    "rrt_vec_render_levels": ([_P, _P, _P, *_GEOM, _F, _F, *_LV, _P, _P, _P], _I),
+    "rrt_vec_render_levels_smem": ([_I, _I, _I, *_LV], ctypes.c_longlong),
     "rrt_vec_render_at": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P], _I),
     "rrt_vec_render": ([_P, _P, _P, *_GEOM, _P, _P, _P], _I),
-    "rrt_vec_render_smem": ([_I, _I, _I], ctypes.c_longlong),
     "rrt_smem_optin": ([], ctypes.c_longlong),
 })
 VEC_STEP = Kernel("fused_vec_step", {
+    "rrt_vec_step_levels": ([_P, _P, _P, *_GEOM, _I, *_LV, _P, _F, _P, _P, _P], _I),
+    "rrt_vec_step_levels_scratch_floats": ([_I] * 6, ctypes.c_longlong),
+    "rrt_vec_step_levels_smem": ([_I] * 4, ctypes.c_longlong),
     "rrt_vec_step_spp": ([_P, _P, _P, *_GEOM, _I, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step": ([_P, _P, _P, *_GEOM, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
-    "rrt_vec_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 VEC_RENDER_BWD = Kernel("fused_vec_render_bwd", {
+    "rrt_vec_render_bwd_levels": ([_P, _P, _P, *_GEOM, _F, _F, *_LV, _P, _P, _P, _P, _P], _I),
+    "rrt_vec_render_bwd_levels_scratch_floats": ([_I] * 6, ctypes.c_longlong),
+    "rrt_vec_render_bwd_levels_smem": ([_I] * 4, ctypes.c_longlong),
     "rrt_vec_render_bwd_at": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P, _P, _P], _I),
     "rrt_vec_render_bwd": ([_P, _P, _P, *_GEOM, _P, _P, _P, _P, _P], _I),
     "rrt_vec_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
-    "rrt_vec_render_bwd_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 KERNELS = (VEC_RENDER, VEC_STEP, VEC_RENDER_BWD)
 
@@ -169,9 +198,12 @@ _PAD_FILLS: dict = {}
 
 def globals_tree(scene) -> dict:
     """The object-count-independent parameters, in the key order in which
-    JAX flattens a dict (sorted): ambient, background, camera, env, lights."""
+    JAX flattens a dict (sorted: ambient, background, camera, lights), but
+    with the environment map last, as `fused.flat_offsets` ends the flat scene
+    with it (a scene without one has an empty env: the order of JAX's
+    globals)."""
     return {"ambient": scene.ambient, "background": scene.background,
-            "camera": scene.camera, "env": scene.env, "lights": scene.lights}
+            "camera": scene.camera, "lights": scene.lights, "env": scene.env}
 
 
 def _globals_leaves(scene) -> list:
@@ -183,11 +215,14 @@ def flatten_globals(scene):
     return torch.cat([l.reshape(-1) for l in _globals_leaves(scene)])
 
 
-def globals_offsets(n_light: int) -> dict:
-    """Start of each global the kernels read, for a scene without an
-    environment map (``csrc/render_common.cuh`` computes the same)."""
+def globals_offsets(n_light: int, ke: int = 0) -> dict:
+    """Start of each global the kernels read, the (ke, ke, 3) environment
+    map last (``csrc/render_common.cuh`` make_glayout and make_env_glayout
+    compute the same)."""
+    env = 16 + 6 * n_light
     return {"ambient": 0, "background": 3, "c_eye": 6, "c_look": 9, "c_up": 12,
-            "c_fov": 15, "l_pos": 16, "l_col": 16 + 3 * n_light, "Sg": 16 + 6 * n_light}
+            "c_fov": 15, "l_pos": 16, "l_col": 16 + 3 * n_light, "env": env,
+            "Sg": env + 3 * ke * ke}
 
 
 def unpack_grads(scene_like, dglob, dsph, drct):
@@ -227,14 +262,20 @@ def unpack_grads(scene_like, dglob, dsph, drct):
 
 
 def check_vec_kernel_config(scene, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for what the two vec kernels do not cover
-    (the TPU kernels' reflection levels, texel tails and env global are
-    still to port); any object count is covered."""
-    why = fused.uncovered(scene, cfg)
-    if why is None and cfg.reflections:
-        why = "mirror reflections (their bounce levels in rows 4-6 are still to port)"
+    """Raise NotImplementedError for what the three vec kernels do not
+    cover: object textures (the TPU kernels' texel tails are still to port),
+    spp 4 with a bounce or an environment map, two or more bounces; any
+    object count is covered, and at spp 1 the environment map and one bounce
+    level."""
+    why = fused.uncovered(scene, cfg, env=True)
     if why is not None:
         raise NotImplementedError(f"the object-chunked CUDA kernels do not cover {why}")
+
+
+def levels(scene_like, cfg: RenderConfig):
+    """The ``_levels`` entries' (bounce levels, the environment map's side,
+    0 for none) of a scene and config."""
+    return cfg.reflections, fused.texel_sizes(scene_like)[2]
 
 
 def _geometry(scene, cfg: RenderConfig):
@@ -243,36 +284,41 @@ def _geometry(scene, cfg: RenderConfig):
             cfg.height, cfg.width, int(cfg.shadows), int(cfg.clip)]
 
 
-def most_rows(smem_fn, n_rect: int, n_light: int) -> int:
+def most_rows(smem_fn, *rest) -> int:
     """The most spheres, in the rows' steps of 16, whose block needs at most
-    the shared memory the current card allows, by ``smem_fn(n_sph, n_rect,
-    n_light)`` (bytes a block of some kernel needs)."""
+    the shared memory the current card allows, by ``smem_fn(n_sph, *rest)``
+    (bytes a block of some kernel needs; ``rest``: the rects, the lights, the
+    bounce levels and the environment map's side)."""
     have = fused.host_query(VEC_RENDER, "rrt_smem_optin")
     n = 0
-    while smem_fn(n + 16, n_rect, n_light) <= have:
+    while smem_fn(n + 16, *rest) <= have:
         n += 16
     return n
 
 
-def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
+def most_spheres(n_rect: int = 1, n_light: int = 1, ke: int = 0) -> int:
     """The most spheres that the vec step and render backward take beside
-    ``n_rect`` rects and ``n_light`` lights on the current card
-    (csrc/vec_step.cuh `step_plan`)."""
-    return most_rows(VEC_STEP.lib().rrt_vec_step_smem, n_rect, n_light)
+    ``n_rect`` rects and ``n_light`` lights (and an environment map of side
+    ``ke``; the bounce adds none) on the current card (csrc/vec_step.cuh
+    `step_plan`)."""
+    return most_rows(VEC_STEP.lib().rrt_vec_step_levels_smem, n_rect, n_light, ke)
 
 
-def most_render_spheres(n_rect: int = 1, n_light: int = 1) -> int:
+def most_render_spheres(n_rect: int = 1, n_light: int = 1, refl: int = 0, ke: int = 0) -> int:
     """The most spheres that the vec forward takes beside ``n_rect`` rects
-    and ``n_light`` lights on the current card (csrc/cull.cuh
+    and ``n_light`` lights, with ``refl`` bounce levels and an environment
+    map of side ``ke``, on the current card (csrc/cull.cuh
     `forward_smem`)."""
-    return most_rows(VEC_RENDER.lib().rrt_vec_render_smem, n_rect, n_light)
+    return most_rows(VEC_RENDER.lib().rrt_vec_render_levels_smem, n_rect, n_light, refl, ke)
 
 
-def check_smem(kernel: Kernel, entry: str, scene) -> None:
+def check_smem(kernel: Kernel, entry: str, scene, *extra) -> None:
     """Refuse, with the numbers, a scene whose rows do not fit the shared
-    memory a block of this card can have."""
+    memory a block of this card can have, by ``entry(n_sph, n_rect, n_light,
+    *extra)`` (the ``_levels_smem`` entries' ``extra``: the forward's
+    `levels`, the step's and backward's environment map side)."""
     need = fused.host_query(kernel, entry, scene.spheres.count, scene.rects.count,
-                            scene.lights.count)
+                            scene.lights.count, *extra)
     have = fused.host_query(VEC_RENDER, "rrt_smem_optin")
     if need > have:
         raise NotImplementedError(
@@ -296,9 +342,9 @@ def packed_inputs(scene):
         glob = flatten_globals(scene).contiguous()
         sph = pad_rows(pack_spheres(scene), ns_pad, SPH_PAD_ROW).contiguous()
         rct = pad_rows(pack_rects(scene), nr_pad, RCT_PAD_ROW).contiguous()
-    if glob.numel() != globals_offsets(scene.lights.count)["Sg"]:
-        raise ValueError(f"globals have {glob.numel()} scalars, layout expects "
-                         f"{globals_offsets(scene.lights.count)['Sg']}")
+    want = globals_offsets(scene.lights.count, fused.texel_sizes(scene)[2])["Sg"]
+    if glob.numel() != want:
+        raise ValueError(f"globals have {glob.numel()} scalars, layout expects {want}")
     return glob, sph, rct
 
 
@@ -337,6 +383,23 @@ def render_vec(scene, cfg: RenderConfig):
     return fused.subsample_average([img for img, _ in outs]), torch.cat([v for _, v in outs])
 
 
+def level_hits(scene, cfg: RenderConfig):
+    """Per bounce level, the (H, W) pixels whose ray hit an object at spp 1
+    (`fused.level_hits` by the object-vectorized trace): level 0's primary
+    rays, and with a bounce level 1's reflected rays where level 0 hit too:
+    where the forward kernel's planes of that level are the plain version's
+    (elsewhere the kernel's are 0)."""
+    o, d = primary_rays(scene, cfg)
+    t, k = nearest_vec(scene, o, d)
+    hits = [k >= 0]
+    if cfg.reflections:
+        zero = torch.zeros(cfg.shape, device=scene.device, dtype=scene.ambient.dtype)
+        w = fused.winner_surface(scene, fused.winner_geometry(scene, k, zero), o, d, t, zero)
+        k1 = nearest_vec(scene, shadow_origin(o, d, t, w.n), reflect_dir(d, w.n))[1]
+        hits.append(hits[0] & (k1 >= 0))
+    return hits
+
+
 class _VecRender(torch.autograd.Function):
     """The vec forward and render backward kernels at one subsample offset
     ``off`` as one differentiable function of the scene's leaves (the
@@ -348,15 +411,16 @@ class _VecRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, scene, cfg, off, rows, *leaves):
         glob, sph, rct = rows
-        check_smem(VEC_RENDER, "rrt_vec_render_smem", scene)
+        check_smem(VEC_RENDER, "rrt_vec_render_levels_smem", scene, *levels(scene, cfg))
         if any(ctx.needs_input_grad):
-            check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_smem", scene)
+            check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_smem", scene,
+                       levels(scene, cfg)[1])
         dev = glob.device
         img = torch.empty((cfg.height, cfg.width, 3), device=dev)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
-        VEC_RENDER.call("rrt_vec_render_at", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                        *_geometry(scene, cfg), *off, img.data_ptr(), vis.data_ptr(),
-                        fused._stream(dev))
+        VEC_RENDER.call("rrt_vec_render_levels", glob.data_ptr(), sph.data_ptr(),
+                        rct.data_ptr(), *_geometry(scene, cfg), *off, *levels(scene, cfg),
+                        img.data_ptr(), vis.data_ptr(), fused._stream(dev))
         VEC_RENDER.launches += 1
         ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
         ctx.save_for_backward(glob, sph, rct, vis)
@@ -385,11 +449,12 @@ def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, vis):
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
-    scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_scratch_floats", geom[2:7],
-                             dev)
+    refl, ke = levels(scene_like, cfg)
+    scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_scratch_floats",
+                             (*geom[2:7], ke), dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    VEC_RENDER_BWD.call("rrt_vec_render_bwd_at", glob.data_ptr(), sph.data_ptr(),
-                        rct.data_ptr(), *geom, *off, g_img.data_ptr(), vis.data_ptr(),
+    VEC_RENDER_BWD.call("rrt_vec_render_bwd_levels", glob.data_ptr(), sph.data_ptr(),
+                        rct.data_ptr(), *geom, *off, refl, ke, g_img.data_ptr(), vis.data_ptr(),
                         scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     VEC_RENDER_BWD.launches += 1
     return _unpack_out(scene_like, out, glob, sph, rct)
@@ -426,13 +491,15 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
     if dev.type != "cuda":
         raise NotImplementedError(f"no step kernel for device {dev}")
     glob, sph, rct = _cuda_inputs(scene, cfg)
-    check_smem(VEC_STEP, "rrt_vec_step_smem", scene)
+    check_smem(VEC_STEP, "rrt_vec_step_levels_smem", scene, levels(scene, cfg)[1])
     target = target.contiguous()
     geom = _geometry(scene, cfg)
-    scratch = fused._scratch(VEC_STEP, "rrt_vec_step_scratch_floats", geom[2:7], dev)
+    refl, ke = levels(scene, cfg)
+    scratch = fused._scratch(VEC_STEP, "rrt_vec_step_levels_scratch_floats", (*geom[2:7], ke),
+                             dev)
     out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    VEC_STEP.call("rrt_vec_step_spp", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
-                  cfg.spp, target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
+    VEC_STEP.call("rrt_vec_step_levels", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
+                  cfg.spp, refl, ke, target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
                   fused._stream(dev))
     VEC_STEP.launches += 1
     return norm * out[0], _unpack_out(scene, out, glob, sph, rct)
@@ -451,10 +518,11 @@ def culled_nearest(scene, o, d):
 
 
 def culled_visibility(scene, cfg: RenderConfig):
-    """The step kernel's visibility of light ``li``: the any-hit test over
-    each warp's shadow candidates for its hit pixels (`cull.warp_candidates`
-    at tau = 0), then the rects (1 everywhere without shadows)."""
-    def visibility(li, so, f, zero, hit):
+    """The step kernel's visibility of light ``li`` at either bounce level:
+    the any-hit test over each warp's shadow candidates for the pixels whose
+    ray hit at that level (`cull.warp_candidates` at tau = 0), then the
+    rects (1 everywhere without shadows)."""
+    def visibility(li, so, f, zero, hit, level=0):
         if not cfg.shadows:
             return zero + 1.0
         cand = warp_candidates(scene.spheres, so, hit, scene.lights.position[li], 0.0)
@@ -465,21 +533,23 @@ def culled_visibility(scene, cfg: RenderConfig):
 
 def render_vec_culled(scene, cfg: RenderConfig):
     """The vec forward kernel's algorithm in eager torch, once per
-    subsample: the nearest hit over each warp's primary candidates and the
-    any-hit shadow test over each light's shadow candidates of its hit
-    pixels, then the shading of the step's forward. Returns the (H, W, 3)
-    image (the subsamples' average) and the (spp L, H, W) visibility planes
-    (0 where the ray hits nothing, as the kernel writes them; none without
-    shadows)."""
+    subsample: the nearest hit over each warp's primary candidates (with a
+    bounce, level 1's over every sphere) and, at each level, the any-hit
+    shadow test over each light's shadow candidates of its hit pixels, then
+    the shading of the step's forward. Returns the (H, W, 3) image (the
+    subsamples' average) and the (spp (1 + R) L, H, W) visibility planes (0
+    where that level's ray hits nothing, as the kernel writes them; none
+    without shadows)."""
     check_vec_kernel_config(scene, cfg)
     imgs, planes = [], []
     with torch.no_grad():
         for off in SPP_OFFSETS[cfg.spp]:
             fw = fused.forward_terms(scene, cfg, culled_nearest, culled_visibility(scene, cfg),
-                                     off)
+                                     off, nearest1=nearest_vec)
             imgs.append(torch.stack(fw.img, dim=-1))
             if cfg.shadows:
-                planes += [torch.where(fw.w.hit, vis, 0.0) for _, vis in fw.per_light]
+                planes += [torch.where(lv.w.hit, vis, 0.0)
+                           for lv in fw.levels for _, vis in lv.per_light]
     img = fused.subsample_average(imgs)
     if not cfg.shadows:
         return img, img.new_zeros((0, cfg.height, cfg.width))
@@ -489,16 +559,19 @@ def render_vec_culled(scene, cfg: RenderConfig):
 def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse"):
     """The vec step kernel's algorithm in eager torch: the object-vectorized
     nearest hit over each warp's primary candidates and any-hit shadow test
-    over its shadow candidates, then the same per-pixel adjoint as the
+    over its shadow candidates (with a bounce, level 1 over every sphere and
+    its own shadow candidates), then the same per-pixel adjoint as the
     small-scene step (`fused.loss_grad_adjoint_eager`): shade, the winning
-    object only, the camera. Same contract as `loss_grad_vec`."""
+    object only, the camera; with a bounce level 1 first, then level 0 and
+    the mirror coefficient. Same contract as `loss_grad_vec`."""
     check_vec_kernel_config(scene, cfg)
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)
     with torch.no_grad():
         sq, grads = fused.subsample_adjoint(scene, cfg, culled_nearest,
                                             fused.residual_cotangent(target, norm),
-                                            lambda q: culled_visibility(scene, cfg))
+                                            lambda q: culled_visibility(scene, cfg),
+                                            nearest1=nearest_vec)
     return norm * sq, grads
 
 
@@ -511,4 +584,5 @@ def render_vec_bwd_adjoint_eager(scene, cfg: RenderConfig, g_img, vis):
     fused._check_target(g_img, cfg, scene, "cotangent")
     with torch.no_grad():
         return fused.subsample_adjoint(scene, cfg, culled_nearest, fused.image_cotangent(g_img),
-                                       fused.subsample_planes(scene, cfg, vis))[1]
+                                       fused.subsample_planes(scene, cfg, vis),
+                                       nearest1=nearest_vec)[1]

@@ -31,7 +31,9 @@ shader takes mirror reflections (``cfg.reflections`` levels, as
 `pipeline.shade_levels` composes them, with the winner's mirror coefficient
 gathered per level: the JAX package's `_render_hard_once` levels); the soft
 one and the soft checker refuse them, as the JAX package's `render_jnp_vec`
-does. Textures and environment maps raise `NotImplementedError`.
+does. The hard shader takes the environment map (a missed ray's colour at
+either level is its sample, `pipeline.miss_color`); the soft shader refuses
+it, and both refuse object textures (`NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -161,7 +163,8 @@ def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0, with_mirror=False):
 
 def shade_vec(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
     """`pipeline.shade` through the object-vectorized trace and any-hit,
-    with its mirror bounces (`pipeline.shade_levels`)."""
+    with its mirror bounces (`pipeline.shade_levels`) and, where the scene
+    has one, the environment map at every level's misses."""
     require_hard_visibility(cfg)
     trace = lambda sc, o_l, d_l, sh, mir: trace_nearest_vec(sc, o_l, d_l, sh, cfg.checker_tau,
                                                             mir)
@@ -293,6 +296,8 @@ def shade_soft(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
         raise NotImplementedError("mirror reflections require hard semantics (soft_tau = 0)")
     if scene.spheres.textured or scene.rects.textured:
         raise NotImplementedError("object textures are not ported yet")
+    if scene.env_mapped:
+        raise NotImplementedError("environment maps in the soft shader are not ported yet")
     tau = cfg.soft_tau
     cfg_layer = dataclasses.replace(cfg, clip=False, soft_tau=0.0)
     occ = lambda sc, so, ld, dist: occluded_soft(sc, so, ld, dist, tau)

@@ -18,16 +18,21 @@ runs `render_eager_vec` on either device. Every kernel family renders spp
 1 and 4; the training step of a spp-4 soft render has no kernel, as in the
 JAX package (whose `loss_and_grad_fn` sends it to ``"vag"``), and is
 autograd of `render` (`loss_and_grad_fn`). Mirror reflections (one bounce
-level, spp 1) take the unrolled kernels on CUDA, as the JAX package's
-render.py:116-128 sends them there; a reflective scene of more than 24
-objects, two levels or spp 4 with reflections are refused there by name,
-and render on the CPU through both eager twins. Object textures and the
-environment map (configs 7-9) take the unrolled kernels' textured
-instances on CUDA, as the JAX package's render.py:45-138 sends a textured
-scene of at most 24 objects to its unrolled kernels, and `render_eager` on
-the CPU; spp 4 with a texel grid and object textures with a bounce are
-refused by name on CUDA, and so are texel grids in the object-chunked and
-soft kernels (and their eager paths).
+level, spp 1) take either hard family on CUDA by the object count, as the
+JAX package's render.py:116-128 sends them: the unrolled kernels' REFL
+instances up to 24 objects, the object-chunked kernels' bounce instances
+past it (config 10, config 5 with ``--reflections 1``); two levels or spp 4
+with reflections are refused there by name, and render on the CPU through
+both eager twins. Object textures and the environment map (configs 7-9)
+take the unrolled kernels' textured instances on CUDA up to 24 objects, as
+the JAX package's render.py:45-138 sends a textured scene of at most 24
+objects to its unrolled kernels, and `render_eager` on the CPU; past 24
+objects the environment map takes the object-chunked kernels' env
+instances (with or without the bounce; `render_eager_vec` on the CPU), as
+the JAX package's render.py:107-115 takes an env in its vec kernels'
+globals. spp 4 with a texel grid, object textures with a bounce, object
+textures past 24 objects and texel grids in the soft kernels (and the soft
+eager path) are refused by name on CUDA.
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ def resolve_impl(scene, cfg: RenderConfig) -> str:
     device for the checker-only relaxation (``soft_tau == 0``,
     ``checker_tau > 0``), as the JAX package's render.py:51-64 decides; a
     textured or env-mapped scene of at most 24 objects is ``"cuda"`` (rows
-    1-3's textured instances); raises otherwise."""
+    1-3's textured instances), an env-mapped and/or reflective one (one
+    bounce, spp 1) of more than 24 ``"cuda_vec"`` (rows 4-6's env and bounce
+    instances); raises otherwise, by name."""
     soft = cfg.soft_tau > 0.0
     checker_only = not soft and cfg.checker_tau > 0.0
     vec = soft or checker_only or scene.spheres.count + scene.rects.count > VEC_THRESHOLD

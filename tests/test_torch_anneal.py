@@ -104,10 +104,12 @@ def test_anneal_stage_decisions():
 
     assert resolve_impl(card(), soft) == "cuda_vec_soft"
     assert resolve_impl(card(), hard) == "cuda_vec"
-    for bad in (card(textured=True), card(env=True)):
-        for cfg in (soft, hard):
-            with pytest.raises(NotImplementedError):
-                resolve_impl(bad, cfg)
+    for bad, cfg in ((card(textured=True), soft), (card(textured=True), hard),
+                     (card(env=True), soft)):
+        with pytest.raises(NotImplementedError):
+            resolve_impl(bad, cfg)
+    # the hard object-chunked kernels take the environment map (config 10)
+    assert resolve_impl(card(env=True), hard) == "cuda_vec"
     # spp 4 renders on the soft kernels (a spp-4 soft step is autograd of
     # that render, optim.anneal_stage_uses_step); any other spp is refused
     assert resolve_impl(card(), dataclasses.replace(soft, spp=4)) == "cuda_vec_soft"

@@ -292,5 +292,5 @@ def test_invert_config4_checker_ratio_on_cpu(tmp_path):
     hard = cli.main(["invert", "--device", "cpu", "--config", "4", "--size", "16", "--iters",
                      "2", "--log-every", "1", "--quiet"])
     assert len(hard["history"]) == 2 and np.isfinite(hard["param_err"])
-    with pytest.raises(SystemExit):  # config 10 is not ported: argparse refuses it
-        cli.main(["invert", "--device", "cpu", "--config", "10", "--size", "8"])
+    with pytest.raises(SystemExit):  # there is no config 11: argparse refuses it
+        cli.main(["invert", "--device", "cpu", "--config", "11", "--size", "8"])

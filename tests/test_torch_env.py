@@ -233,8 +233,11 @@ def test_cuda_route_refuses_by_name():
     for kw, why in ((dict(spp=4, reflections=0), "spp 4 with a texel grid"),
                     (dict(reflections=2), "reflections > 1")):
         assert why in fused.uncovered(ts, dataclasses.replace(cfg, **kw), texels=True)
-    with pytest.raises(NotImplementedError, match="environment maps"):
-        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, reflections=0))
+    # past 24 objects the object-chunked kernels take the env, at spp 1 only
+    for refl in (0, 1):
+        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, reflections=refl))
+    with pytest.raises(NotImplementedError, match="spp 4 with an environment map"):
+        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4, reflections=0))
     big = configs.config9_sky(16, env_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
     from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_annealed

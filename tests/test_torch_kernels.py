@@ -1280,14 +1280,16 @@ def test_mirror_inversion_recovers_the_coefficients(cuda):
 
 @pytest.mark.cuda
 def test_mirror_refusals_on_cuda(cuda):
-    """On CUDA two bounce levels, spp 4 with a bounce and a reflective scene
-    of more than 24 objects raise by name and launch nothing."""
+    """On CUDA two bounce levels and spp 4 with a bounce raise by name and
+    launch nothing, in both hard families (the object-chunked kernels take
+    one bounce level at spp 1)."""
     scene, _, cfg = _mirror_case(cuda, 32, 32)
     big, _, cfg5 = configs.config5_many_spheres(size=32, device=cuda)
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS]
     for s, c, why in ((scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
                       (scene, dataclasses.replace(cfg, spp=4), "spp 4 with mirror reflections"),
-                      (big, dataclasses.replace(cfg5, reflections=1), "mirror reflections")):
+                      (big, dataclasses.replace(cfg5, reflections=1, spp=4),
+                       "spp 4 with mirror reflections")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS] == before
@@ -1422,20 +1424,22 @@ def test_texture_inversion_meets_the_jax_criteria(cuda, num, frac):
 def test_texture_refusals_on_cuda(cuda):
     """On CUDA each combination the textured instances do not take raises by
     name and launches nothing: spp 4 with a texel grid, object textures with
-    a bounce, two bounce levels with the environment map, a textured scene of
-    more than 24 objects (the object-chunked kernels), a soft render of one,
-    and a grid whose rows do not fit a block's shared memory."""
+    a bounce, two bounce levels with the environment map, object textures
+    past 24 objects (the object-chunked kernels, which take the environment
+    map), a soft render of a textured scene, and a grid whose rows do not
+    fit a block's shared memory."""
     tex, _, cfg7 = configs.config7_texture(size=32, device=cuda)
     sky, _, cfg9 = configs.config9_sky(size=32, device=cuda)
     big = configs.config9_sky(size=32, env_k=48, device=cuda)[0]
     many, _, cfg5 = configs.config5_many_spheres(size=32, device=cuda)
-    many = dataclasses.replace(many, env=sky.env)
+    many = dataclasses.replace(many, rects=dataclasses.replace(
+        many.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
     for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4), "spp 4 with a texel grid"),
                       (tex, dataclasses.replace(cfg7, reflections=1),
                        "object textures with mirror reflections"),
                       (sky, dataclasses.replace(cfg9, reflections=2), "reflections > 1"),
-                      (many, cfg5, "environment maps"),
+                      (many, cfg5, "object textures"),
                       (tex, dataclasses.replace(cfg7, soft_tau=0.05),
                        "object textures or environment maps"),
                       (big, cfg9, "a texel grid this large")):
@@ -1443,3 +1447,116 @@ def test_texture_refusals_on_cuda(cuda):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS
             + fused_vec_soft.KERNELS] == before
+
+
+# ---------------------------------------------------------------------------
+# The environment map and one bounce level in rows 4-6: config 10
+# ---------------------------------------------------------------------------
+
+# name: (config, keyword arguments of its builder, image size, bounce levels)
+CHROME_CASES = {
+    "config10": (10, {}, (96, 128), 1),
+    "config10_no_bounce": (10, {}, (96, 128), 0),
+    "config10_k1": (10, {"env_k": 1}, (64, 64), 1),
+    "config5_bounce": (5, {}, (96, 128), 1),
+}
+
+
+def _chrome_case(cuda, name, seed=10):
+    num, kw, (H, W), refl = CHROME_CASES[name]
+    scene, spec, cfg = configs.CONFIGS[num](device=cuda, **kw)
+    cfg = dataclasses.replace(cfg, height=H, width=W, reflections=refl)
+    return scene, configs.perturb(scene, spec, scale=0.2 if num == 10 else 0.05, seed=seed), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CHROME_CASES))
+def test_chrome_forward_bit_identical(cuda, name):
+    """Row 4's env and bounce instances against `render_vec_plain`: the
+    image bit for bit; (1 + R) L planes, level 0's bit for bit where the
+    primary ray hit and level 1's where both levels hit, 0 elsewhere; one
+    launch a call, three calls the same bits."""
+    _, start, cfg = _chrome_case(cuda, name)
+    before = fused_vec.VEC_RENDER.launches
+    runs = [fused_vec.render_vec(start, cfg) for _ in range(3)]
+    assert fused_vec.VEC_RENDER.launches == before + 3
+    assert all(torch.equal(runs[0][0], r[0]) and torch.equal(runs[0][1], r[1]) for r in runs[1:])
+    img_k, vis_k = runs[0]
+    img_p, vis_p = fused_vec.render_vec_plain(start, cfg)
+    L = start.lights.count
+    assert vis_k.shape == vis_p.shape == ((1 + cfg.reflections) * L, cfg.height, cfg.width)
+    assert torch.equal(img_k, img_p)
+    for lv, hit in enumerate(fused_vec.level_hits(start, cfg)):
+        k, p = vis_k[lv * L:(lv + 1) * L], vis_p[lv * L:(lv + 1) * L]
+        assert torch.equal(k[:, hit], p[:, hit]) and not k[:, ~hit].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CHROME_CASES))
+def test_chrome_step_matches_adjoint(cuda, name):
+    """Row 6's env and bounce instances against the eager twin and autograd
+    (loss within 1e-4 relative, every leaf within 1e-2 of its scale, the
+    env's and the mirror coefficients' included); one launch a call, three
+    calls the same bits; against row 4's own image of the true scene a loss
+    and gradient of exactly 0."""
+    scene, start, cfg = _chrome_case(cuda, name)
+    target = fused_vec.render_vec(scene, cfg)[0]
+    before = fused_vec.VEC_STEP.launches
+    runs = [fused_vec.loss_grad_vec(start, cfg, target) for _ in range(3)]
+    assert fused_vec.VEC_STEP.launches == before + 3
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    assert all(torch.equal(flat[0], f) for f in flat[1:])
+    l_k, g_k = runs[0]
+    for ref in (fused_vec.loss_grad_vec_adjoint_eager, fused_vec.loss_grad_vec_plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    if cfg.reflections:
+        assert float(g_k.spheres.material.mirror.abs().max()) > 0.0
+    l_0, g_0 = fused_vec.loss_grad_vec(scene, cfg, target)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CHROME_CASES))
+def test_chrome_render_bwd_matches_plain(cuda, name):
+    """Row 5's env and bounce instances, by autograd of `render`: against
+    autograd of the eager render and the eager twin fed row 4's planes,
+    every leaf within 1e-2 of its scale; one launch a call, three calls the
+    same bits; its mse gradient row 6's bit for bit."""
+    scene, start, cfg = _chrome_case(cuda, name)
+    g = _seeded(cfg, 0, cuda)
+    before = fused_vec.VEC_RENDER_BWD.launches
+    runs = [fused.flatten_scene(fused.autograd_vjp(render, start, cfg, g)) for _ in range(3)]
+    assert fused_vec.VEC_RENDER_BWD.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    got = fused.autograd_vjp(render, start, cfg, g)
+    _close_leaves(fused_vec.render_vec_bwd_plain(start, cfg, g), got)
+    _close_leaves(fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g,
+                                                         fused_vec.render_vec(start, cfg)[1]),
+                  got)
+    target = render(scene, cfg).detach()
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([(torch.zeros_like(l) if l.grad is None else l.grad).reshape(-1)
+                           for l in leaves])
+    assert torch.equal(by_render, fused.flatten_scene(
+        fused_vec.loss_grad_vec(start, cfg, target)[1]))
+
+
+@pytest.mark.cuda
+def test_chrome_refusals_on_cuda(cuda):
+    """Past 24 objects, object textures, spp 4 with the env or a bounce and
+    two bounces raise by name and launch nothing."""
+    scene, _, cfg = _chrome_case(cuda, "config10")
+    tex = dataclasses.replace(scene, rects=dataclasses.replace(
+        scene.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
+    before = [k.launches for k in fused_vec.KERNELS]
+    for s, c, why in ((tex, cfg, "object textures"),
+                      (scene, dataclasses.replace(cfg, spp=4), "spp 4 with mirror reflections"),
+                      (scene, dataclasses.replace(cfg, spp=4, reflections=0),
+                       "spp 4 with an environment map"),
+                      (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1")):
+        with pytest.raises(NotImplementedError, match=why):
+            render(s, c)
+    assert [k.launches for k in fused_vec.KERNELS] == before

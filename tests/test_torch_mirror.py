@@ -245,8 +245,11 @@ def test_reflections_refused_by_name():
     assert fused.uncovered(ts, cfg) is None
     assert "reflections > 1" in fused.uncovered(ts, dataclasses.replace(cfg, reflections=2))
     assert fused.uncovered(ts, dataclasses.replace(cfg, spp=4)) == "spp 4 with mirror reflections"
-    with pytest.raises(NotImplementedError, match="mirror reflections"):
-        fused_vec.check_vec_kernel_config(ts, cfg)
+    fused_vec.check_vec_kernel_config(ts, cfg)  # one bounce level in rows 4-6 too
+    for kw, why in ((dict(reflections=2), "reflections > 1"),
+                    (dict(spp=4), "spp 4 with mirror reflections")):
+        with pytest.raises(NotImplementedError, match=why):
+            fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, **kw))
     target = render_eager(ts, cfg)
     with pytest.raises(NotImplementedError, match="mirror reflections require hard"):
         optim.optimize_annealed(ts, target, spec, cfg, optim.OptConfig(iters=1),

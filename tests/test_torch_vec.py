@@ -181,7 +181,7 @@ def test_cpu_render_stays_differentiable(pair):
 
 
 @pytest.mark.parametrize("kw, why", [
-    (dict(spp=2), "spp"), (dict(reflections=1), "reflections"),
+    (dict(spp=2), "spp"), (dict(reflections=2), "reflections"),
     (dict(shader="depth"), "depth"), (dict(projection="orthographic"), "orthographic"),
     (dict(soft_tau=0.1), "soft_tau"),
 ])

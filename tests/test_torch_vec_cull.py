@@ -14,6 +14,11 @@ float32:
   in its warp's primary candidates, and every pair whose shadow test gives
   t < dist lies in its warp's shadow candidates; the same with a sphere
   added just inside a warp's bound, which a ray of the warp hits;
+- (a') the same of a bounce's reflected rays and `cull.bounce_candidates`
+  (a ball of the warp's origins and a cone of its directions), which the
+  bounds of rows 4-6 with a bounce count level 1's walk by: every hit pair
+  of a reflected ray lies in its warp's candidates, on the config-5 cut
+  and on config 10 at 64x64, and the candidates drop some pairs;
 - (b) the eager twins of the step and of the render backward, which walk
   the culled candidates, against the same twins with the culls keeping
   every sphere: nearest hit (so the image), visibility, loss and every
@@ -95,6 +100,30 @@ def test_candidates_hold_every_hit_pair(seed):
     missed_p, missed_s, prim, shadow = _uncovered(start, cfg)
     assert missed_p == 0 and missed_s == 0
     assert 0.0 < prim < 1.0 and all(0.0 < f < 1.0 for f in shadow), (prim, shadow)
+
+
+def _bounce_uncovered(scene, cfg):
+    """Reflected-ray hit pairs outside their warp's bounce candidates, and
+    the share of (ray, sphere) pairs the candidates keep."""
+    ray, hit, so = _forward(scene, cfg)
+    _, _, at = pl.trace_nearest(scene, ray.o, ray.d, cfg.shape)
+    d1 = pl.reflect_dir(ray.d, (at["nx"], at["ny"], at["nz"]))
+    cand = cull.bounce_candidates(scene.spheres, so, d1, hit)
+    hits = (sphere_ts(scene.spheres, so, d1) < BIG) & hit[None]
+    kept = float((cand.sum(-1) * cull.runs(hit, False).sum(-1)).sum())
+    return (int((hits & ~cull.per_pixel(cand, cfg.width)).sum()), int(hits.sum()),
+            kept / (int(hit.sum()) * scene.spheres.count))
+
+
+@pytest.mark.parametrize("config, seed", [(5, 0), (5, 1), (5, 2), (10, 0)])
+def test_bounce_candidates_hold_every_hit_pair(config, seed):
+    if config == 5:
+        _, start, cfg = _scene(seed)
+    else:
+        start, _, cfg = configs.CONFIGS[10](size=64, device="cpu")
+    missed, hits, kept = _bounce_uncovered(start, cfg)
+    assert missed == 0 and hits > 0
+    assert 0.0 < kept < 1.0, kept
 
 
 def _with_sphere(scene, centre, radius):

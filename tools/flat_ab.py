@@ -1,36 +1,42 @@
 #!/usr/bin/env python3
-"""Rows 1, 2, 3, 5 and 6 (the small-scene step, forward and render backward,
-and the vec render backward and step: the kernels built from
-csrc/render_common.cuh's pixel_step or csrc/fused_render.cu) of this
-checkout beside those of another, on one card, in one process: their
-instances without texel grids.
+"""Rows 1-6 (the small-scene step, forward and render backward, and the
+vec forward, render backward and step: the kernels built from
+csrc/render_common.cuh's pixel_step, csrc/fused_render.cu or
+csrc/fused_vec_render.cu) of this checkout beside those of another, on one
+card, in one process: their instances without texel grids.
 
     python3 tools/flat_ab.py --tree DIR [--reps 2]
 
-Builds the five sources (csrc/fused_step.cu, fused_render.cu,
-fused_render_bwd.cu, fused_vec_render_bwd.cu, fused_vec_step.cu) of this
-checkout and of the checkout ``DIR`` (a ``git archive`` of an older commit,
-say) with this checkout's nvcc flags, all ten at once, and loads each with
-ctypes. For each source it compares the two trees' machine code
-(``cuobjdump -sass``) kernel by kernel, this tree's textured instances
-(flat_step_tex_kernel, render_kernel_tex) left out. Then it calls each
-row's entry on the same inputs, through the entries both trees have: rows
-1-3 at config 2 512^2 from perturb(scale=0.1, seed=4) against the plain
-render of the true scene, and with their bounce level (rows 1r-3r, the
-refl entries) at config 6 512^2 from perturb(scale=0.3, seed=3), rows 5-6
-at config 5 1024^2 from perturb(scale=0.05, seed=4), and a seeded normal
-cotangent for the backwards (with the forward's planes).
-Each row's outputs must be bit for bit the other tree's, and each row's
-device time per call (`kernel_timing.device_ms`, median of 20 after 3
-warm-ups) is taken in turns, other, this, this, other, for ``--reps``
-rounds. Prints one JSON line per source (its SASS comparison) and per row
-(the rounds' times, each tree's mean and this / other), then the card's
-nvidia-smi line; exits 1 if an output differs.
+Builds the six sources (csrc/fused_step.cu, fused_render.cu,
+fused_render_bwd.cu, fused_vec_render.cu, fused_vec_render_bwd.cu,
+fused_vec_step.cu) of this checkout and of the checkout ``DIR`` (a ``git
+archive`` of an older commit, say) with this checkout's nvcc flags, all
+twelve at once, and loads each with ctypes. For each source it compares the
+two trees' machine code (``cuobjdump -sass``) kernel by kernel, this tree's
+textured instances (flat_step_tex_kernel, render_kernel_tex) and the vec
+family's env and bounce instances (vec_render_levels_kernel,
+vec_step_levels_kernel) left out. Then it calls each row's entry on the
+same inputs, through the entries both trees have: rows 1-3 at config 2
+512^2 from perturb(scale=0.1, seed=4) against the plain render of the true
+scene, and with their bounce level (rows 1r-3r, the refl entries) at config
+6 512^2 from perturb(scale=0.3, seed=3), rows 4-6 at config 5 1024^2 from
+perturb(scale=0.05, seed=4), and with the env and the bounce (rows 4r-6r,
+the ``_levels`` entries) at config 10 512^2 from perturb(scale=0.2,
+seed=10), and a seeded normal cotangent for the backwards (with the
+forward's planes). A row whose entry the other tree lacks is timed in this
+tree alone. Each row's outputs must be bit for bit the other tree's, and
+each row's device time per call (`kernel_timing.device_ms`, median of 20
+after 3 warm-ups) is taken in turns, other, this, this, other, for
+``--reps`` rounds. Prints one JSON line per source (its SASS comparison;
+for a kernel that differs, the lines a line diff changes and the first)
+and per row (the rounds' times, each tree's mean and this / other), then
+the card's nvidia-smi line; exits 1 if an output differs.
 """
 
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import re
 import shutil
@@ -42,8 +48,8 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 
-SOURCES = ("fused_step", "fused_render", "fused_render_bwd", "fused_vec_render_bwd",
-           "fused_vec_step")
+SOURCES = ("fused_step", "fused_render", "fused_render_bwd", "fused_vec_render",
+           "fused_vec_render_bwd", "fused_vec_step")
 
 
 def build(_build, csrc: Path, out: Path):
@@ -74,6 +80,16 @@ def load(procs, out: Path, csrc: Path, kernels):
     return libs
 
 
+def unnamed(name: str) -> str:
+    """A mangled name with the anonymous namespace's file-specific id (the
+    length-prefixed ``_GLOBAL__N_...`` after ``_ZN``) replaced by one token,
+    so that a kernel keeps its name when its file's text changes."""
+    found = re.match(r"_ZN(\d+)", name)
+    if found and name[found.end():].startswith("_GLOBAL__N_"):
+        return "_ZN_anon_" + name[found.end() + int(found.group(1)):]
+    return name
+
+
 def sass(cuobjdump: str, lib: Path) -> dict:
     """{kernel name: [instructions]} of a library, addresses and encodings
     stripped."""
@@ -83,7 +99,7 @@ def sass(cuobjdump: str, lib: Path) -> dict:
     for line in text.splitlines():
         found = re.match(r"\s*Function : (\S+)", line)
         if found:
-            name = found.group(1)
+            name = unnamed(found.group(1))
             out[name] = []
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
@@ -94,10 +110,23 @@ def sass(cuobjdump: str, lib: Path) -> dict:
 
 def other_name(name: str) -> str | None:
     """This tree's kernel name as the other tree names it; None for a
-    textured instance, which a tree without texel grids lacks."""
-    if "_tex_kernel" in name or "render_kernel_tex" in name:
+    textured instance, or an env or bounce instance of the vec family, which
+    a tree without them lacks."""
+    if "_tex_kernel" in name or "render_kernel_tex" in name or "_levels_kernel" in name:
         return None
     return name
+
+
+def sass_changes(this: list, other: list) -> str:
+    """How two kernels' instructions differ: the lines a line diff changes on
+    each side, and the first change."""
+    ops = [op for op in difflib.SequenceMatcher(a=other, b=this, autojunk=False).get_opcodes()
+           if op[0] != "equal"]
+    n_other = sum(i2 - i1 for _, i1, i2, _, _ in ops)
+    n_this = sum(j2 - j1 for _, _, _, j1, j2 in ops)
+    _, i1, i2, j1, j2 = ops[0]
+    return (f"{n_this} lines here against {n_other} there changed; first at instruction {j1}: "
+            f"{this[j1:j2][:2]} against {other[i1:i2][:2]}")
 
 
 def compare_sass(root: Path):
@@ -114,7 +143,8 @@ def compare_sass(root: Path):
             theirs = other.get(ok)
             kernels[ok] = ("missing in the other tree" if theirs is None else
                            "same" if theirs == ins else
-                           f"differs ({len(ins)} against {len(theirs)} instructions)")
+                           f"differs ({len(ins)} against {len(theirs)} instructions; "
+                           f"{sass_changes(ins, theirs)})")
         rows.append({"source": name, "kernels": kernels,
                      "same": all(v == "same" for v in kernels.values())})
         print(json.dumps(rows[-1]), flush=True)
@@ -176,7 +206,7 @@ def main() -> int:
     libs["this"]["fused_render"].rrt_render_refl(
         flat6.data_ptr(), *geom6, 1, 1, torch.empty((H, W, 3), device="cuda").data_ptr(),
         vis6.data_ptr(), stream)
-    # rows 5-6: config 5 at 1024^2
+    # rows 4-6: config 5 at 1024^2
     scene5, spec5, cfg5 = configs.config5_many_spheres(size=1024, device="cuda")
     start5 = configs.perturb(scene5, spec5, scale=0.05, seed=4)
     target5 = fused_vec.render_vec_plain(scene5, cfg5)[0].contiguous()
@@ -190,10 +220,28 @@ def main() -> int:
                          lib["fused_vec_render_bwd"].rrt_vec_render_bwd_scratch_floats(
                              *geom5[2:7])) for lib in libs.values())
     scratch5 = torch.empty((n_scratch5,), device="cuda")
-    sizes = {1: 1 + flat.numel(), 2: H * W * 3, 3: 1 + flat.numel(), 5: n_out5, 6: n_out5,
-             "1r": 1 + flat6.numel(), "2r": H * W * 3, "3r": 1 + flat6.numel()}
+    # rows 4r-6r: config 10 at 512^2, the env and one bounce level
+    scene10, spec10, cfg10 = configs.config10_chrome_field(size=512, device="cuda")
+    start10 = configs.perturb(scene10, spec10, scale=0.2, seed=10)
+    target10 = fused_vec.render_vec_plain(scene10, cfg10)[0].contiguous()
+    vis10 = fused_vec.render_vec(start10, cfg10)[1].contiguous()
+    glob10, sph10, rct10 = fused_vec.packed_inputs(start10)
+    lv10 = fused_vec.levels(start10, cfg10)
+    rows10 = (glob10.data_ptr(), sph10.data_ptr(), rct10.data_ptr(),
+              *fused_vec._geometry(start10, cfg10))
+    n_out10 = 1 + glob10.numel() + sph10.numel() + rct10.numel()
+    scratch10 = torch.empty((libs["this"]["fused_vec_step"].rrt_vec_step_levels_scratch_floats(
+        *fused_vec._geometry(start10, cfg10)[2:7], lv10[1]),), device="cuda")
+    sizes = {1: 1 + flat.numel(), 2: H * W * 3, 3: 1 + flat.numel(),
+             4: cfg5.height * cfg5.width * 3, 5: n_out5, 6: n_out5, "1r": 1 + flat6.numel(), "2r": H * W * 3,
+             "3r": 1 + flat6.numel(), "4r": H * W * 3, "5r": n_out10, "6r": n_out10}
     outs = {(t, r): torch.empty((n,), device="cuda") for t in libs for r, n in sizes.items()}
-    planes = {(t, r): torch.empty_like(v) for t in libs for r, v in ((2, vis), ("2r", vis6))}
+    planes = {(t, r): torch.empty_like(v) for t in libs
+              for r, v in ((2, vis), ("2r", vis6), (4, vis5), ("4r", vis10))}
+    entries = {4: ("fused_vec_render", "rrt_vec_render_at"),
+               "4r": ("fused_vec_render", "rrt_vec_render_levels"),
+               "5r": ("fused_vec_render_bwd", "rrt_vec_render_bwd_levels"),
+               "6r": ("fused_vec_step", "rrt_vec_step_levels")}
 
     def call(tree, row):
         lib, out = libs[tree], outs[tree, row].data_ptr()
@@ -219,6 +267,20 @@ def main() -> int:
             err = lib["fused_render_bwd"].rrt_render_bwd_spp(
                 flat.data_ptr(), *geom, 1, g2.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
                 out, stream)
+        elif row == 4:
+            err = lib["fused_vec_render"].rrt_vec_render_at(*rows5, 0.0, 0.0, out,
+                                                           planes[tree, 4].data_ptr(), stream)
+        elif row == "4r":
+            err = lib["fused_vec_render"].rrt_vec_render_levels(
+                *rows10, 0.0, 0.0, *lv10, out, planes[tree, "4r"].data_ptr(), stream)
+        elif row == "5r":
+            err = lib["fused_vec_render_bwd"].rrt_vec_render_bwd_levels(
+                *rows10, 0.0, 0.0, *lv10, g2.data_ptr(), vis10.data_ptr(), scratch10.data_ptr(),
+                out, stream)
+        elif row == "6r":
+            err = lib["fused_vec_step"].rrt_vec_step_levels(
+                *rows10, 1, *lv10, target10.data_ptr(), 1.0 / (H * W * 3), scratch10.data_ptr(),
+                out, stream)
         elif row == 5:
             err = lib["fused_vec_render_bwd"].rrt_vec_render_bwd_at(
                 *rows5, 0.0, 0.0, g5.data_ptr(), vis5.data_ptr(), scratch5.data_ptr(), out,
@@ -233,23 +295,30 @@ def main() -> int:
     same = True
     for row, case in ((1, "config2_512"), (2, "config2_512"), (3, "config2_512"),
                       ("1r", "config6_512"), ("2r", "config6_512"), ("3r", "config6_512"),
-                      (5, "config5_1024"), (6, "config5_1024")):
-        for tree in libs:
+                      (4, "config5_1024"), (5, "config5_1024"), (6, "config5_1024"),
+                      ("4r", "config10_512"), ("5r", "config10_512"), ("6r", "config10_512")):
+        src, fn = entries.get(row, (None, None))
+        trees = [t for t in libs if src is None or hasattr(libs[t][src], fn)]
+        for tree in trees:
             call(tree, row)
         torch.cuda.synchronize()
-        bit_equal = bool(torch.equal(outs["other", row], outs["this", row]))
-        if row in (2, "2r"):
-            bit_equal = bit_equal and bool(torch.equal(planes["other", row],
-                                                       planes["this", row]))
-        same = same and bit_equal
-        times = {"other": [], "this": []}
+        times = {t: [] for t in trees}
         for _ in range(args.reps):
             for tree in ("other", "this", "this", "other"):
-                times[tree].append(device_ms(lambda tree=tree: call(tree, row))["ms"])
+                if tree in times:
+                    times[tree].append(device_ms(lambda tree=tree: call(tree, row))["ms"])
         mean = {t: sum(v) / len(v) for t, v in times.items()}
-        print(json.dumps({"row": row, "case": case, "bit_equal": bit_equal,
-                          "device_ms": times, "mean_ms": mean,
-                          "this_over_other": mean["this"] / mean["other"]}), flush=True)
+        line = {"row": row, "case": case, "device_ms": times, "mean_ms": mean}
+        if "other" in trees:
+            bit_equal = bool(torch.equal(outs["other", row], outs["this", row]))
+            if row in (2, "2r", 4, "4r"):
+                bit_equal = bit_equal and bool(torch.equal(planes["other", row],
+                                                           planes["this", row]))
+            same = same and bit_equal
+            line.update(bit_equal=bit_equal, this_over_other=mean["this"] / mean["other"])
+        else:
+            line["other"] = "the other tree lacks the entry"
+        print(json.dumps(line), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0 if same else 1

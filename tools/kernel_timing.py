@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import re
 import statistics
+import time
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -41,8 +42,10 @@ def kernel_name(name: str) -> str:
 
 
 # Profiler windows device_ms takes before it reports the last one's, when the
-# tracer lost launches (see device_ms).
-PROFILE_TRIES = 3
+# tracer lost launches (see device_ms); three empty windows in a row have
+# happened on the H100 (row 2 at config 7), so it waits a little and warms up
+# again before each further window.
+PROFILE_TRIES = 8
 
 
 def device_ms(fn, reps=20, warmup=3):
@@ -60,7 +63,12 @@ def device_ms(fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(0.05 * attempt)
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
         by_name = {}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):

@@ -149,15 +149,15 @@ LIT_CULLED_PLANE = """  template <class Occ>
   __device__ __forceinline__ bool lit(const Params& p, int i, int j, int l, Occ) const {
     return !p.shadows || split_vis[((long long)l * p.H + i) * p.W + j] != 0.0f;
   }"""
-LIST_ADDS = """          for (int v = 0; v < NWARPS; ++v) {
-            if (v == warp && ke >= 0) {"""
-LIST_KEPT = """          if (ke == -7) {  // never: keeps the lists' sums without the adds
-            float z = 0.0f;
-            for (int f = 0; f < RECT_FIELDS; ++f) z += acc[f];
-            orow[0] = z;
-          }
-          for (int v = 0; v < 0; ++v) {
-            if (v == warp && ke >= 0) {"""
+LIST_ADDS = """  for (int v = 0; v < NWARPS; ++v) {
+    if (v == warp && ke >= 0) {"""
+LIST_KEPT = """  if (ke == -7) {  // never: keeps the lists' sums without the adds
+    float z = 0.0f;
+    for (int f = 0; f < RECT_FIELDS; ++f) z += acc[f];
+    orow[0] = z;
+  }
+  for (int v = 0; v < 0; ++v) {
+    if (v == warp && ke >= 0) {"""
 CUTS_CULLED = {
     "full": [],
     "primary_winner": [("render_common.cuh", "  f.h = walk.trace(sc, o, d, inside);",
@@ -286,11 +286,6 @@ STORES_NEVER = """    const long long px = (long long)i * p.W + j;
 """
 
 
-def tile_grid(kernel_fn):
-    return ("  const int nblocks = resident_blocks(" + kernel_fn + ", smem, H, W);",
-            "  const int nblocks = pixel_grid(H, W).x * pixel_grid(H, W).y;")
-
-
 def three_blocks(kernel_fn):
     return ("__global__ void __launch_bounds__(BLOCK_THREADS)\n    " + kernel_fn,
             "__global__ void __launch_bounds__(BLOCK_THREADS, 3)\n    " + kernel_fn)
@@ -304,19 +299,16 @@ FWD_CULLED = {
     const Nearest h = inside ? trace_candidates(sc, o, d, fb.wm, fb.nw) : Nearest{BIG, -1};""",
          """    const Nearest h = inside ? split_nearest(sc, o, d, (long long)i * p.W + j)
                              : Nearest{BIG, -1};""")],
-    "shadow_plane": [("fused_vec_render.cu", """    if (p.shadows && __any_sync(FULL, hit)) {
-      for (int l = 0; l < gl.L; ++l) {
-        __syncwarp();
-        warp_candidates(sc, so, sc.l_pos(l), hit, 0.0f, lane, fb.wm);
-        if (hit && !occluded_candidates(sc, so, light_geometry(sc.l_pos(l), so), fb.wm, fb.nw))
-          bits |= 1u << l;
-      }
-    }""", """    if (p.shadows && hit)
+    "shadow_plane": [("fused_vec_render.cu", """    const unsigned bits = shadow_bits(so, hit);""",
+                      """    unsigned bits = p.shadows ? 0u : ~0u;
+    if (p.shadows && hit)
       for (int l = 0; l < gl.L; ++l)
         if (split_vis[l * plane + (long long)i * p.W + j] != 0.0f) bits |= 1u << l;""")],
     "no_phong": [("render_common.cuh", PHONG, PHONG_CUT)],
     "no_writes": [("fused_vec_render.cu", STORES_CULLED + PLANE_STORES, STORES_NEVER)],
-    "tile_grid": [("fused_vec_render.cu", *tile_grid("vec_render_kernel"))],
+    "tile_grid": [("fused_vec_render.cu",
+                   "  const int nblocks = resident_blocks(kernel, smem, p.H, p.W);",
+                   "  const int nblocks = pixel_grid(p.H, p.W).x * pixel_grid(p.H, p.W).y;")],
     "three_blocks": [("fused_vec_render.cu", *three_blocks("vec_render_kernel"))],
 }
 
