@@ -233,7 +233,7 @@ non-zero:
                0.3 of its start, `observable_texels`); 20 steps of
                optimize(render_fn=render) on each at 512^2 (row 2 21 times,
                row 3 20); and three refusals by name (`render --config 7 --spp
-               4`, `render --config 8 --reflections 1`, `invert --config 7
+               4`, `render --config 8 --reflections 2`, `invert --config 7
                --anneal 0.05,0`).
  28. chrome  - rows 4-6's environment-map and bounce instances (the ``_levels``
                entries: level 1 over every sphere, its shadow rays culled,
@@ -272,7 +272,34 @@ non-zero:
                with one bounce at 1024^2 (lr 1e-2, the CLI's; row 4 21 times,
                row 5 20 in each; the loss falls); invert --config 5 --reflections 1 --iters 20 at 1024^2
                (row 6 20 times, row 4 twice; the loss falls).
-Then the card's nvidia-smi line, the {"kernels": [...]} line (each kernel
+ 30. globes  - rows 4-6's textured instances (the ``_tex`` entries: object
+               texel grids gathered from global memory, their gradient in a
+               block texel row) on the 64 textured globes (config 5's 64
+               spheres + ground, a 16 x 16 grid each, as the JAX package's
+               scripts/vec_textured_tpu_check.py draws them: `globes_case`) at
+               512^2 without and with one bounce, and on configs 7 and 8 with
+               one bounce at 512^2, from perturb(scale=0.4, seed=0) of their
+               texels, by the rules of phase 28 (row 4 by the oracle rule and
+               bit for bit; rows 6 and 5 against autograd and their twins,
+               every leaf within 1e-2 of its scale, the texels' gradient not
+               0; three calls bit-identical; row 5's mse gradient row 6's bit
+               for bit); each row's event and device time, launches per call,
+               plain version's time and bound (`chrome_bounds`: the texel
+               samples of both levels' textured winners in `TEX_OPS`, the
+               texels read once and their gradient written once); the
+               textured step's shared memory, Python's count against the C
+               entries'.
+ 31. globes_main - invert --config 8|7 --reflections 1 --lr 3e-2 --perturb 0.4
+               --iters 200 at 512^2 and 64^2 (row 6 200 times, row 4 twice,
+               no other kernel; every loss falls; at 64^2 the JAX tests'
+               criteria: a final loss below 1e-5 and the observable texels'
+               RMS error below 0.3 / 0.25 of its start); 20 steps of
+               `optimize_scan` (row 6 20 times, captured) and of
+               optimize(render_fn=render) (rows 4 + 5, 20 times each) on the
+               globes' texels at 512^2 without and with the bounce; each loss
+               falls.
+Then a `timing` line (each phase's wall seconds), the card's nvidia-smi
+line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
 event time, and rows 1-5, 7 and 8 add `device_ms`, their kernels' device
 time per call, and `launches_per_call`; the three forwards add
@@ -285,7 +312,8 @@ counters, `max_abs_err`, `plain_ms`, `bound_ms`, and `launches` on the spp-4
 CLI path); rows 1-3 add `mirror`, their numbers with a bounce level from
 phases 24 and 25; rows 1-3 add `texture`, their textured instances'
 numbers per config from phases 26 and 27; rows 4-6 add `chrome`, their env
-and bounce instances' numbers per case from phases 28 and 29), and last
+and bounce instances' numbers per case from phases 28 and 29, and `globes`,
+their textured instances' per case from phases 30 and 31), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -308,12 +336,20 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+PHASE_SECONDS: dict = {}  # each phase's wall seconds, printed before the card's line
+
+
 def run_phase(name, fn, *args):
+    import time
+
+    t0 = time.perf_counter()
     try:
         return fn(*args)
     except BaseException as exc:
         emit(name, ok=False, error=f"{type(exc).__name__}: {exc}")
         raise
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -2860,33 +2896,46 @@ TEX_CASES = (("config7", 7), ("config8", 8), ("config9", 9))
 
 def texel_counts(scene, cfg):
     """The pixels that sample a texel grid at spp 1: level 0's winners in a
-    textured group (``tex_sph``, ``tex_rect``), level 0's misses with an
-    environment map (``env0``) and, with a bounce, level 1's misses where
+    textured group (``tex_sph``, ``tex_rect``), with a bounce level 1's
+    (``tex_sph1``, ``tex_rect1``, where level 0 hit), level 0's misses with
+    an environment map (``env0``) and, with a bounce, level 1's misses where
     level 0 hit (``env1``)."""
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
     from reversible_raytracer_tpu_torch.ops.kernels import fused
 
     o, d = pl.primary_rays(scene, cfg)
-    _, k = fused._nearest_chain(scene, o, d)
+    t, k = fused._nearest_chain(scene, o, d)
     N = scene.spheres.count
+    sp_tex, rc_tex = scene.spheres.textured, scene.rects.textured
     hits = fused.level_hits(scene, cfg)
     env = scene.env_mapped
-    return dict(tex_sph=int((k >= 0).logical_and(k < N).sum()) if scene.spheres.textured else 0,
-                tex_rect=int((k >= N).sum()) if scene.rects.textured else 0,
-                env0=int((~hits[0]).sum()) if env else 0,
-                env1=int((hits[0] & ~hits[1]).sum()) if env and cfg.reflections else 0)
+    c = dict(tex_sph=int((k >= 0).logical_and(k < N).sum()) if sp_tex else 0,
+             tex_rect=int((k >= N).sum()) if rc_tex else 0, tex_sph1=0, tex_rect1=0,
+             env0=int((~hits[0]).sum()) if env else 0,
+             env1=int((hits[0] & ~hits[1]).sum()) if env and cfg.reflections else 0)
+    if cfg.reflections and (sp_tex or rc_tex):
+        import torch
+
+        zero = torch.zeros(cfg.shape, device=scene.device)
+        w = fused.winner_surface(scene, fused.winner_geometry(scene, k, zero), o, d, t, zero)
+        k1 = fused._nearest_chain(scene, pl.shadow_origin(o, d, t, w.n), pl.reflect_dir(d, w.n))[1]
+        k1 = torch.where(hits[0], k1, -1)
+        c.update(tex_sph1=int((k1 >= 0).logical_and(k1 < N).sum()) if sp_tex else 0,
+                 tex_rect1=int((k1 >= N).sum()) if rc_tex else 0)
+    return c
 
 
 def texel_ops(t, step):
     """The operations the texel samples add to a forward (``step`` False) or
     to a step or render backward (their adjoints too)."""
     sample = TEX_OPS["tex_weights"] + TEX_OPS["tex_read"] + TEX_OPS["tex_mix"]
-    uv_px = t["tex_sph"] + t["env0"] + t["env1"]
-    n = t["tex_sph"] + t["tex_rect"] + t["env0"] + t["env1"]
+    uv_px = t["tex_sph"] + t["tex_sph1"] + t["env0"] + t["env1"]
+    n = uv_px + t["tex_rect"] + t["tex_rect1"]
     ops = n * sample + uv_px * TEX_OPS["uv"]
     if step:
         ops += (n * (TEX_OPS["adj_tex"] + TEX_OPS["sum_texel"]) + uv_px * TEX_OPS["adj_uv"]
-                + t["tex_rect"] * TEX_OPS["adj_ab"] + t["env0"] * OPS["adj_camera"])
+                + (t["tex_rect"] + t["tex_rect1"]) * TEX_OPS["adj_ab"]
+                + t["env0"] * OPS["adj_camera"])
     return ops
 
 
@@ -2957,13 +3006,14 @@ TEX_GRAD_ITERS = 20
 
 def observable_texels(scene, spec, cfg):
     """The texels that have a gradient at the truth towards 0.9 times its
-    image (row 1's; the JAX tests' mask, test_texture.py:392-393), as a mask of
-    the config's trained texel leaf."""
+    image (the step kernel's the dispatch takes: row 1's, or with object
+    textures and a bounce row 6's; the JAX tests' mask, test_texture.py:392-393),
+    as a mask of the config's trained texel leaf."""
     from reversible_raytracer_tpu_torch.models.scene import tree_leaves
-    from reversible_raytracer_tpu_torch.ops.kernels import fused
+    from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render
 
-    target = fused.render_fused(scene, cfg)[0] * 0.9
-    grads = fused.loss_grad_fused(scene, cfg, target)[1]
+    target = render(scene, cfg) * 0.9
+    grads = loss_and_grad_fn(scene, cfg)(scene, target)[1]
     for g, t in zip(tree_leaves(grads), tree_leaves(spec.trainable)):
         if t:
             return g.abs() > 1e-10
@@ -3047,9 +3097,9 @@ def phase_texture_main():
     oks.append(_refusals((
         ("render_config7_spp4", ["render", "--config", "7", "--size", "64", "--spp", "4", "-o",
                                  refused], "spp 4 with a texel grid", {}),
-        ("render_config8_reflections", ["render", "--config", "8", "--size", "64",
-                                        "--reflections", "1", "-o", refused],
-         "object textures with mirror reflections", {}),
+        ("render_config8_reflections_2", ["render", "--config", "8", "--size", "64",
+                                          "--reflections", "2", "-o", refused],
+         "reflections > 1", {}),
         ("invert_config7_anneal", ["invert", "--config", "7", "--size", "64", "--anneal",
                                    "0.05,0", "--iters", "2", "--quiet"],
          "do not sample texels yet", {"fused_render": 1})), rows))
@@ -3157,30 +3207,35 @@ def _vec_bounce_ops(c, step, shadows=True, cull=True):
 
 
 def chrome_bounds(scene, cfg, Sg, planes):
-    """Rows 4, 6 and 5's bounds in their env and bounce instances: (ms, by)
-    each, the culled level 0 (`render_ops`, `step_ops`, `bwd_ops` with
-    ``cull``), the culled level 1 (`_vec_bounce_ops` over
-    `vec_bounce_counts`) and the env's samples (`texel_ops` over
-    `texel_counts`); the same before the culls (every sphere at both
+    """Rows 4, 6 and 5's bounds in their env, bounce and textured instances:
+    (ms, by) each, the culled level 0 (`render_ops`, `step_ops`, `bwd_ops`
+    with ``cull``), with a bounce the culled level 1 (`_vec_bounce_ops` over
+    `vec_bounce_counts`), and the env's and the object texels' samples
+    (`texel_ops` over `texel_counts`; the object grids read once and their
+    gradient written once); the same before the culls (every sphere at both
     levels); and the counts."""
     from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
 
-    c = vec_bounce_counts(scene, cfg)
+    c = (vec_bounce_counts(scene, cfg) if cfg.reflections
+         else dict(work_counts(scene, cfg, cull=True), l1_rays=0))
     t = texel_counts(scene, cfg)
     ns_pad, nr_pad = fused_vec.row_plan(scene)
     H, W = cfg.height, cfg.width
+    tex = 4 * fused_vec.texel_row(scene)  # object texels: read once, their gradient written once
     rows = 4 * (Sg + ns_pad * 17 + nr_pad * 22)
-    nbytes = dict(fused_vec_render=rows + 4 * H * W * (3 + planes),
-                  fused_vec_step=vec_step_bytes(c, Sg, ns_pad, nr_pad),
-                  fused_vec_render_bwd=vec_step_bytes(c, Sg, ns_pad, nr_pad, planes))
+    nbytes = dict(fused_vec_render=rows + tex + 4 * H * W * (3 + planes),
+                  fused_vec_step=vec_step_bytes(c, Sg, ns_pad, nr_pad) + 2 * tex,
+                  fused_vec_render_bwd=vec_step_bytes(c, Sg, ns_pad, nr_pad, planes) + 2 * tex)
+
+    def level1(step, shadows=True, cull=True):
+        return _vec_bounce_ops(c, step, shadows, cull) if cfg.reflections else 0
 
     def bounds(cull):
         return dict(
-            fused_vec_render=render_ops(c, cull=cull) + _vec_bounce_ops(c, False, cull=cull)
+            fused_vec_render=render_ops(c, cull=cull) + level1(False, cull=cull)
             + texel_ops(t, False),
-            fused_vec_step=step_ops(c, cull=cull) + _vec_bounce_ops(c, True, cull=cull)
-            + texel_ops(t, True),
-            fused_vec_render_bwd=bwd_ops(c, cull=cull) + _vec_bounce_ops(c, True, False, cull)
+            fused_vec_step=step_ops(c, cull=cull) + level1(True, cull=cull) + texel_ops(t, True),
+            fused_vec_render_bwd=bwd_ops(c, cull=cull) + level1(True, False, cull)
             + texel_ops(t, True))
 
     culled, full = bounds(True), bounds(False)
@@ -3247,8 +3302,11 @@ def _vec_rows(scene, start, cfg):
     r = dict(wrapper_launches_per_call=per_call, loss=float(l_k),
              zero_residual_exact=bool(float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()),
              deterministic=all(torch.equal(flat(l_k, g_k), a) for a in again),
-             mirror_grad_nonzero=float((g_k.spheres.material.mirror != 0).float().mean()),
-             env_grad_nonzero=float((g_k.env != 0).float().mean()) if start.env_mapped else None)
+             mirror_grad_nonzero=float((torch.cat([g_k.spheres.material.mirror,
+                                                   g_k.rects.material.mirror]) != 0)
+                                       .float().mean()),
+             env_grad_nonzero=float((g_k.env != 0).float().mean()) if start.env_mapped else None,
+             texel_grad_nonzero=_texel_share(start, g_k))
     ok = r["zero_residual_exact"] and r["deterministic"] and per_call == 1
     for name, ref in (("autograd", fused_vec.loss_grad_vec_plain),
                       ("adjoint_eager", fused_vec.loss_grad_vec_adjoint_eager)):
@@ -3258,7 +3316,8 @@ def _vec_rows(scene, start, cfg):
         r[name]["loss_rel"] = rel
     r["max_abs_err"] = r["autograd"]["max_abs_err"]
     rows["fused_vec_step"] = r
-    oks.append(ok and r["mirror_grad_nonzero"] > 0)
+    oks.append(ok and (r["mirror_grad_nonzero"] > 0 or not cfg.reflections)
+               and (r["texel_grad_nonzero"] is None or r["texel_grad_nonzero"] > 0))
 
     # ---- row 5 by autograd of `render`: against autograd of the plain render and
     # the twin for a unit normal cotangent; its mse gradient row 6's bit for bit
@@ -3274,6 +3333,7 @@ def _vec_rows(scene, start, cfg):
     by_step = fused.flatten_scene(loss_and_grad_fn(start, cfg)(start, target)[1])
     r = dict(wrapper_launches_per_call=per_call,
              deterministic=all(torch.equal(fused.flatten_scene(got), a) for a in again),
+             texel_grad_nonzero=_texel_share(start, got),
              mse_bit_equal_to_row6=bool(torch.equal(by_render, by_step)),
              mse_max_abs_diff_to_row6=float((by_render - by_step).abs().max()))
     ok = _check_grads(r, "plain", fused_vec.render_vec_bwd_plain(start, cfg, g), got)
@@ -3281,39 +3341,67 @@ def _vec_rows(scene, start, cfg):
                       got) and ok
     r["max_abs_err"] = r["plain"]["max_abs_err"]
     rows["fused_vec_render_bwd"] = r
-    oks.append(ok and r["deterministic"] and r["mse_bit_equal_to_row6"] and per_call == 1)
+    oks.append(ok and r["deterministic"] and r["mse_bit_equal_to_row6"] and per_call == 1
+               and (r["texel_grad_nonzero"] is None or r["texel_grad_nonzero"] > 0))
     return rows, all(oks), SimpleNamespace(target=target, g=g, vis=vis_k)
+
+
+def _texel_share(scene, grads):
+    """The share of the object texels whose gradient is not 0 (None for a
+    scene without object texel grids)."""
+    import torch
+
+    if not (scene.spheres.textured or scene.rects.textured):
+        return None
+    g = torch.cat([grads.spheres.texture.reshape(-1), grads.rects.texture.reshape(-1)])
+    return float((g != 0).float().mean())
+
+
+# One timed call of each plain version in phases chrome and globes (warm from
+# their checks): at 512^2 and 64 textured spheres one takes 0.1-0.2 s.
+VEC_PLAIN_REPS = dict(reps=1, warmup=0)
 
 
 def _vec_times(rows, start, cfg, target, g, vis, bounds, case, uncull):
     """Rows 4, 6 and 5's event time, device time and launches per call on
-    their ``_levels`` C entries, the plain versions' times, ``bounds`` and
-    the bounds before the culls ``uncull`` into ``rows``; returns the
-    kernels line's numbers."""
+    their ``_levels`` C entries (with object texel grids the ``_tex``
+    entries), the plain versions' times, ``bounds`` and the bounds before the
+    culls ``uncull`` into ``rows``; returns the kernels line's numbers."""
     import torch
 
     from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
 
     glob, sph, rct = fused_vec._cuda_inputs(start, cfg)
     geom = fused_vec._geometry(start, cfg)
-    lv = fused_vec.levels(start, cfg)
     H, W = cfg.height, cfg.width
     stream = torch.cuda.current_stream().cuda_stream
     img = torch.empty((H, W, 3), device="cuda")
     planes = torch.empty_like(vis)
-    scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_levels_scratch_floats(
-        *geom[2:7], lv[1]),), device="cuda")
-    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device="cuda")
-    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom)
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel()
+                       + fused_vec.texel_row(start),), device="cuda")
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
+    if fused_vec.object_textured(start):
+        tex = fused_vec.texel_inputs(start)
+        ptrs += tuple(t.data_ptr() for t in tex)
+        sfx, lv = "_tex", fused_vec.tex_levels(start, cfg)
+        scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_tex_scratch_floats(
+            geom[0], geom[1], *geom[4:7], *lv[1:]),), device="cuda")
+        spp = ()
+    else:
+        sfx, lv = "_levels", fused_vec.levels(start, cfg)
+        scratch = torch.empty((fused_vec.VEC_STEP.lib().rrt_vec_step_levels_scratch_floats(
+            *geom[2:7], lv[1]),), device="cuda")
+        spp = (1,)
+    ptrs += tuple(geom)
     calls = {
         "fused_vec_render": lambda: fused_vec.VEC_RENDER.call(
-            "rrt_vec_render_levels", *ptrs, 0.0, 0.0, *lv, img.data_ptr(), planes.data_ptr(),
+            "rrt_vec_render" + sfx, *ptrs, 0.0, 0.0, *lv, img.data_ptr(), planes.data_ptr(),
             stream),
         "fused_vec_step": lambda: fused_vec.VEC_STEP.call(
-            "rrt_vec_step_levels", *ptrs, 1, *lv, target.data_ptr(), 1.0 / (H * W * 3),
+            "rrt_vec_step" + sfx, *ptrs, *spp, *lv, target.data_ptr(), 1.0 / (H * W * 3),
             scratch.data_ptr(), out.data_ptr(), stream),
         "fused_vec_render_bwd": lambda: fused_vec.VEC_RENDER_BWD.call(
-            "rrt_vec_render_bwd_levels", *ptrs, 0.0, 0.0, *lv, g.data_ptr(), vis.data_ptr(),
+            "rrt_vec_render_bwd" + sfx, *ptrs, 0.0, 0.0, *lv, g.data_ptr(), vis.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), stream)}
     plain = {"fused_vec_render": lambda: fused_vec.render_vec_plain(start, cfg),
              "fused_vec_step": lambda: fused_vec.loss_grad_vec_plain(start, cfg, target),
@@ -3322,7 +3410,7 @@ def _vec_times(rows, start, cfg, target, g, vis, bounds, case, uncull):
     for name, fn in calls.items():
         dev = device_ms(fn)
         rows[name].update(ms=time_ms(fn), device_ms=dev["ms"], launches_per_call=dev["launches"],
-                          device=dev, plain_ms=time_ms(plain[name], reps=3, warmup=1),
+                          device=dev, plain_ms=time_ms(plain[name], **VEC_PLAIN_REPS),
                           bound_ms=bounds[name][0], bound_by=bounds[name][1],
                           bound_uncull_ms=uncull[name][0])
         numbers[name] = dict(case=case, **{
@@ -3503,6 +3591,176 @@ def phase_chrome_main():
     return counts
 
 
+# The 64 textured globes (phases globes and globes_main): config 5's 64
+# spheres + ground, each sphere with a (16, 16, 3) texel grid drawn
+# uniform(0.1, 0.9) from default_rng(7), as the JAX package's
+# scripts/vec_textured_tpu_check.py builds them (tex mode, :151-153 and
+# :183-194; with a bounce its texrefl mode, :221-224: mirror coefficients
+# uniform(0.2, 0.8) drawn next, reflections 1); trained on spheres.texture.
+GLOBE_SIZE = 512
+GLOBE_K = 16
+
+
+def globes_case(size=GLOBE_SIZE, reflections=0, device="cuda"):
+    """(scene, spec, cfg) of the textured globes at ``size``^2, with
+    ``reflections`` bounce levels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import ParamSpec
+
+    scene, _, cfg = configs.config5_many_spheres(size, device=device)
+    sp = scene.spheres
+    rng = np.random.default_rng(7)
+    tex = rng.uniform(0.1, 0.9, (sp.count, GLOBE_K, GLOBE_K, 3))
+    sp = dataclasses.replace(sp, texture=torch.tensor(tex, dtype=torch.float32, device=device))
+    if reflections:
+        mir = torch.tensor(rng.uniform(0.2, 0.8, (sp.count,)), dtype=torch.float32, device=device)
+        sp = dataclasses.replace(sp, material=dataclasses.replace(sp.material, mirror=mir))
+    scene = dataclasses.replace(scene, spheres=sp)
+    spec = ParamSpec.none(scene).train("spheres.texture", lower=0.0, upper=1.0)
+    return scene, spec, dataclasses.replace(cfg, reflections=reflections)
+
+
+GLOBE_CASES = (("globes_512", "globes", 0), ("globes_r1_512", "globes", 1),
+               ("config7_r1_512", 7, 1), ("config8_r1_512", 8, 1))
+
+
+def _globe_case(kind, refl, size=GLOBE_SIZE):
+    """(scene, spec, cfg, start) of a case of phase globes: the globes
+    (`globes_case`) or config 7 / 8 with ``refl`` bounce levels, from
+    perturb(scale=0.4, seed=0) of their texels."""
+    import dataclasses
+
+    from reversible_raytracer_tpu_torch.models import configs
+
+    if kind == "globes":
+        scene, spec, cfg = globes_case(size, refl)
+    else:
+        scene, spec, cfg = configs.CONFIGS[kind](size=size, device="cuda")
+        cfg = dataclasses.replace(cfg, reflections=refl)
+    return scene, spec, cfg, configs.perturb(scene, spec, scale=0.4, seed=0)
+
+
+def phase_globes():
+    """Rows 4-6's textured instances on the 64 textured globes at 512^2
+    without and with a bounce, and on configs 7 and 8 with one bounce at
+    512^2 (see the module's docstring, phase 30). Returns each row's numbers
+    per case."""
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    rows, oks, numbers = {}, [], {}
+    for label, kind, refl in GLOBE_CASES:
+        scene, spec, cfg, start = _globe_case(kind, refl)
+        case, ok, got = _vec_rows(scene, start, cfg)
+        Sg = fused_vec.flatten_globals(start).numel()
+        bounds, uncull, case["work"] = chrome_bounds(start, cfg, Sg,
+                                                     fused_vec.n_vis_planes(start, cfg))
+        nums = _vec_times(case, start, cfg, got.target, got.g, got.vis, bounds, label, uncull)
+        for name, n in nums.items():
+            numbers.setdefault(name, {})[n.pop("case")] = n
+        tl = fused_vec.tex_levels(start, cfg)[1:]
+        dims = (start.spheres.count, start.rects.count, start.lights.count, *tl)
+        smem = dict(python=fused_vec.texel_step_smem_bytes(start),
+                    step=fused.host_query(fused_vec.VEC_STEP, "rrt_vec_step_tex_smem", *dims),
+                    render_bwd=fused.host_query(fused_vec.VEC_RENDER_BWD,
+                                                "rrt_vec_render_bwd_tex_smem", *dims))
+        case.update(Sg=Sg, texels=fused_vec.texel_row(start), smem_bytes=smem)
+        rows[label] = case
+        oks.append(ok and smem["python"] == smem["step"] == smem["render_bwd"])
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    if not all(oks):
+        raise AssertionError(f"a textured instance of rows 4-6 failed a check: {rows}")
+    emit("globes", ok=True, rows=rows)
+    return numbers
+
+
+GLOBE_RUNS = ((8, 0.3), (7, 0.25))  # config, the texels' error bound of its JAX test
+GLOBE_ITERS = 20
+
+
+def phase_globes_main():
+    """The CLI on configs 8 and 7 with one bounce, `optimize_scan` and
+    `optimize(render_fn=render)` on the textured globes (see the module's
+    docstring, phase 31). Returns each run's launch counts."""
+    import time
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize, optimize_scan
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    out_dir = REPO / "smoke_out"
+    rows, counts, oks = {}, {}, []
+    t_phase = time.perf_counter()
+
+    def texel_rms(scene, truth, spec, mask):
+        for a, b, t in zip(tree_leaves(scene), tree_leaves(truth), tree_leaves(spec.trainable)):
+            if t:
+                return float(((a - b)[mask] ** 2).mean().sqrt())
+
+    # ---- invert --config 8|7 --reflections 1, the JAX recipe, at 512^2 and 64^2
+    for num, frac in GLOBE_RUNS:
+        for size in TEX_RUN_SIZES:
+            label = f"invert_config{num}_r1_{size}"
+            png = out_dir / f"final_{label}.png"
+            argv = ["invert", "--config", str(num), "--reflections", "1", "--size", str(size),
+                    "--lr", "3e-2", "--perturb", "0.4", "--iters", str(TEX_ITERS), "--log-every",
+                    str(TEX_ITERS - 1), "--quiet", "-o", str(png)]
+            summary, launches, wall = _counted(lambda: cli.main(argv))
+            scene, spec, cfg = _globe_case(num, 1, size)[:3]
+            start = configs.perturb(scene, spec, scale=0.4, seed=0)
+            mask = observable_texels(scene, spec, cfg)
+            err0 = texel_rms(start, scene, spec, mask)
+            err1 = texel_rms(summary["scene"], scene, spec, mask)
+            hist = summary["history"]
+            expect = {"fused_vec_step": TEX_ITERS, "fused_vec_render": 2}
+            row = dict(launches=launches, expected=expect, first_loss=hist[0]["loss"],
+                       final_loss=hist[-1]["loss"], observable_share=float(mask.float().mean()),
+                       start_texel_rms=err0, texel_rms=err1, texel_rms_ratio=err1 / err0,
+                       bound_ratio=frac, loop_seconds=summary["seconds"],
+                       loop_ms_per_step=summary["seconds"] * 1e3 / TEX_ITERS, wall_seconds=wall)
+            rows[label] = row
+            counts[label] = launches
+            ok = (_only(launches, expect) and row["final_loss"] < row["first_loss"]
+                  and png.exists())
+            if size == 64:  # the JAX tests' criteria (at 64^2)
+                ok = ok and row["final_loss"] < 1e-5 and err1 < frac * err0
+            oks.append(ok)
+
+    # ---- the globes' texels: optimize_scan (row 6, captured) and optimize(render_fn=render)
+    # (rows 4 + 5), without and with the bounce
+    for refl in (0, 1):
+        scene, spec, cfg, start = _globe_case("globes", refl)
+        target = render(scene, cfg)
+        ocfg = OptConfig(iters=GLOBE_ITERS, lr=3e-2)
+        for run, fn, expect in (
+                ("scan", lambda: optimize_scan(start, target, spec, cfg, ocfg)[1],
+                 {"fused_vec_step": GLOBE_ITERS}),
+                ("render_fn", lambda: optimize(start, target, spec, cfg, ocfg, log_every=0,
+                                               render_fn=lambda s: render(s, cfg))[2],
+                 {"fused_vec_render": GLOBE_ITERS, "fused_vec_render_bwd": GLOBE_ITERS})):
+            losses, launches, wall = _counted(lambda: fn().cpu().tolist())
+            label = f"{run}_globes_r{refl}_{GLOBE_SIZE}"
+            rows[label] = dict(launches=launches, expected=expect, first_loss=losses[0],
+                               final_loss=losses[-1], wall_seconds=wall)
+            counts[label] = launches
+            oks.append(_only(launches, expect) and losses[-1] < losses[0]
+                       and all(math.isfinite(x) for x in losses))
+    rows["phase_seconds"] = time.perf_counter() - t_phase
+    if not all(oks):
+        raise AssertionError(f"a textured-globe or config 7/8 bounce run did not run through the "
+                             f"expected kernels or did not recover its texels: {rows}")
+    emit("globes_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -3567,6 +3825,8 @@ def main() -> int:
     texture_runs = run_phase("texture_main", phase_texture_main)
     chrome = run_phase("chrome", phase_chrome)
     chrome_runs = run_phase("chrome_main", phase_chrome_main)
+    globes = run_phase("globes", phase_globes)
+    globes_runs = run_phase("globes_main", phase_globes_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -3650,9 +3910,22 @@ def main() -> int:
             k.setdefault("chrome", {})[case] = dict(**nums, launches=chrome_runs[run][k["name"]])
             if k["name"] == "fused_vec_render":
                 k["chrome"][case]["launches_render_fn"] = chrome_runs[by_render][k["name"]]
+    for k in kernels:  # rows 4-6's textured instances (phases globes, globes_main)
+        for case, nums in globes.get(k["name"], {}).items():
+            run, by_render = {"globes_512": ("scan_globes_r0_512", "render_fn_globes_r0_512"),
+                              "globes_r1_512": ("scan_globes_r1_512", "render_fn_globes_r1_512"),
+                              "config7_r1_512": ("invert_config7_r1_512", None),
+                              "config8_r1_512": ("invert_config8_r1_512", None)}[case]
+            if k["name"] == "fused_vec_render_bwd":
+                run = by_render
+            k.setdefault("globes", {})[case] = dict(
+                **nums, launches=globes_runs[run][k["name"]] if run else None, run=run)
+            if k["name"] == "fused_vec_render" and by_render:
+                k["globes"][case]["launches_render_fn"] = globes_runs[by_render][k["name"]]
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")
+    emit("timing", ok=True, seconds=PHASE_SECONDS)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

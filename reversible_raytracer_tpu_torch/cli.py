@@ -29,7 +29,9 @@ bounces, overriding the config's count: configs 6, 9 and 10 render with
 config 5 takes the object-chunked kernels' bounce instances). Configs 7, 8
 and 9 carry texel grids (a textured floor, a textured globe, a sky
 environment map); their recipe is the JAX package's examples/run_config.py,
-``--lr 3e-2 --perturb 0.4 --iters 200``. Config 10 (64 chrome spheres under
+``--lr 3e-2 --perturb 0.4 --iters 200``. ``--reflections 1`` on config 7 or
+8 (object textures with a bounce) takes the object-chunked kernels'
+textured instances, as the JAX package's dispatch does. Config 10 (64 chrome spheres under
 config 9's sky, one bounce) recovers the spheres' mirror coefficients and
 the sky's texels together through the object-chunked kernels; its recipe is
 the JAX package's scripts/config10_check.py, ``--perturb 0.2 --lr 2e-2

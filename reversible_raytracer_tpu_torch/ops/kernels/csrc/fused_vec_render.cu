@@ -68,25 +68,46 @@
 // 1's light l, 0 where either level missed. Every instance runs one body
 // (vec_render_body), the bounce and the env behind if constexpr, so that
 // vec_render_kernel, its <0, false> instance, keeps its code.
+//
+// Object texel grids (spp 1, up to one bounce, with or without the env;
+// vec_render_tex_kernel, the TPU kernel's texel tails, _row_plan:370,
+// _sphere_eval:467-471, _rect_eval:503): a textured winner's base colour at
+// either level is its grid's bilinear sample at the lat-long coordinates of
+// a sphere's normal (the azimuth wrapped) or a rect's (a, b), gathered from
+// global memory (render_common.cuh PackedTexRows: the grids stay out of the
+// staged rows); the TPU kernel's dense hat-basis sampler exists because
+// Mosaic cannot gather, and is not carried over.
 #include "cull.cuh"
 
 using namespace rrt;
 
 namespace {
 
+// The scene a forward's tiles read: the staged rows, and with TEX the object
+// texel grids tg beside them (PackedTexRows).
+template <bool TEX, class S>
+__device__ __forceinline__ decltype(auto) forward_scene(const S& staged, const TexGrids& tg) {
+  if constexpr (TEX)
+    return tex_view(staged, tg);
+  else
+    return (staged);
+}
+
 // The forward of every instance: REFL bounce levels (0 or 1), and with ENV
-// the environment map at the end of the globals.
-template <int REFL, bool ENV>
+// the environment map at the end of the globals; with TEX (and ENV, the map's
+// side Ke 0 for none) object texel grids.
+template <int REFL, bool ENV, bool TEX = false>
 __device__ __forceinline__ void vec_render_body(const float* __restrict__ glob,
                                                 const float* __restrict__ sph,
                                                 const float* __restrict__ rct, int N, int M,
                                                 int ns_pad, int nr_pad, GLayoutOf<ENV> gl,
                                                 Params p, float* __restrict__ img,
-                                                float* __restrict__ vis) {
+                                                float* __restrict__ vis, TexGrids tg = {}) {
+  static_assert(ENV || !TEX, "the textured instances read the env's globals layout");
   extern __shared__ float smem[];
   const auto fb =
       stage_forward<REFL ? P_SPH : FWD_SPH>(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
-  const auto& sc = fb.sc;
+  const auto& sc = forward_scene<TEX>(fb.sc, tg);
   const int lane = threadIdx.x;
   const Camera cam = camera(sc);
   const V3 o = cam.eye;
@@ -183,11 +204,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
 }
 
 // One launch of a forward kernel: as many blocks as the card holds at once
-// with smem bytes each.
-template <class K, class GL>
+// with smem bytes each; extra, the kernel's arguments after the planes.
+template <class K, class GL, class... Extra>
 int launch_forward(K kernel, size_t smem, const float* glob, const float* sph, const float* rct,
                    int n_sph, int n_rect, int ns_pad, int nr_pad, GL gl, const Params& p,
-                   float* img, float* vis, void* stream) {
+                   float* img, float* vis, void* stream, Extra... extra) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -196,8 +217,19 @@ int launch_forward(K kernel, size_t smem, const float* glob, const float* sph, c
   const int nblocks = resident_blocks(kernel, smem, p.H, p.W);
   if (nblocks <= 0) return (int)cudaErrorInvalidConfiguration;
   kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
-      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, img, vis);
+      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, img, vis, extra...);
   return (int)cudaGetLastError();
+}
+
+// The instances with object texel grids (spp 1, REFL bounce levels, the
+// environment map's side Ke 0 for none).
+template <int REFL>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    vec_render_tex_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                          const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                          EnvGLayout gl, Params p, float* __restrict__ img,
+                          float* __restrict__ vis, TexGrids tg) {
+  vec_render_body<REFL, true, true>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, img, vis, tg);
 }
 
 template <int REFL, bool ENV>
@@ -255,6 +287,24 @@ extern "C" int rrt_vec_render_levels(const float* glob, const float* sph, const 
                            : &launch_levels<0, true>;
   return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, img, vis,
                 stream);
+}
+
+// The instance with object texel grids of sides ks (the spheres', from stex)
+// and kr (the rects', from rtex), 0 for none, beside refl bounce levels and
+// an environment map of side ke, at the subsample offset (oi, oj): L (1 +
+// refl) planes. Its shared memory is rrt_vec_render_levels_smem's (the grids
+// are read from global memory).
+extern "C" int rrt_vec_render_tex(const float* glob, const float* sph, const float* rct,
+                                  const float* stex, const float* rtex, int n_sph, int n_rect,
+                                  int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                  int clip, float oi, float oj, int refl, int ke, int ks, int kr,
+                                  float* img, float* vis, void* stream) {
+  if ((refl != 0 && refl != 1) || ke < 0 || ks < 0 || kr < 0) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(H, W, shadows, clip, oi, oj);
+  return launch_forward(refl ? vec_render_tex_kernel<1> : vec_render_tex_kernel<0>,
+                        forward_smem(ns_pad, nr_pad, n_light, refl, ke), glob, sph, rct, n_sph,
+                        n_rect, ns_pad, nr_pad, make_env_glayout(n_light, ke), p, img, vis,
+                        stream, TexGrids{stex, rtex, ks, kr});
 }
 
 // At the pixel centre (the entry of the tools and of earlier checkouts).

@@ -27,7 +27,8 @@
 //
 // The environment map and one bounce level (spp 1): the step's
 // vec_step_levels_kernel with CotangentSource, level 1's light l read from
-// plane L + l of the forward's 2 L.
+// plane L + l of the forward's 2 L. Object texel grids: the step's
+// vec_step_tex_kernel with CotangentSource.
 #include "vec_step.cuh"
 
 using namespace rrt;
@@ -57,6 +58,32 @@ extern "C" int rrt_vec_render_bwd_levels(const float* glob, const float* sph, co
   return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
                          make_params(H, W, shadows, clip, oi, oj), 1,
                          CotangentSource{g_img, vis, 1.0f}, scratch, out, stream, refl, ke);
+}
+
+// The textured instances (spp 1): object texel grids of sides ks and kr (0
+// for none) read from stex and rtex; out = [0, dglob, dsph, drct, dstex,
+// drtex], at the pixel centre (oi = oj = 0) or a subsample's offset.
+extern "C" long long rrt_vec_render_bwd_tex_smem(int n_sph, int n_rect, int n_light, int ke,
+                                                 int ks, int kr) {
+  return (long long)tex_step_plan(n_sph, n_rect, n_light, ke, ks, kr).smem;
+}
+
+extern "C" long long rrt_vec_render_bwd_tex_scratch_floats(int n_sph, int n_rect, int n_light,
+                                                           int H, int W, int ke, int ks, int kr) {
+  return vec_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
+}
+
+extern "C" int rrt_vec_render_bwd_tex(const float* glob, const float* sph, const float* rct,
+                                      const float* stex, const float* rtex, int n_sph, int n_rect,
+                                      int ns_pad, int nr_pad, int n_light, int H, int W,
+                                      int shadows, int clip, float oi, float oj, int refl, int ke,
+                                      int ks, int kr, const float* g_img, const float* vis,
+                                      float* scratch, float* out, void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
+  return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                             TexGrids{stex, rtex, ks, kr},
+                             make_params(H, W, shadows, clip, oi, oj), refl,
+                             CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
 // out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)], at

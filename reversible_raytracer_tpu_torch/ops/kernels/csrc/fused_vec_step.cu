@@ -32,6 +32,16 @@
 // coefficient's gradient, and at a miss of either level the env's bilinear
 // sample and its adjoint (chip_smoke.py's bounce_counts and texel_counts
 // count them).
+//
+// Object texel grids (spp 1, up to one bounce, with or without the env; the
+// TPU kernel's texel tails, _tex_nest and the _sphere_eval / _rect_eval
+// samples, fused_vec.py:207, :467-471, :503): vec_step.cuh's
+// vec_step_tex_kernel. A textured winner's base colour at either level is
+// its grid's bilinear sample, gathered from global memory (the TPU kernel's
+// dense hat-basis sampler, _make_sample_mxu, exists because Mosaic cannot
+// gather, and is not carried over); each level's texel record of each pixel
+// is scattered, warp by warp and in lane order, into the block's texel row
+// in shared memory, which ends the block's partial row.
 #include "vec_step.cuh"
 
 using namespace rrt;
@@ -60,6 +70,31 @@ extern "C" int rrt_vec_step_levels(const float* glob, const float* sph, const fl
   return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
                          make_params(H, W, shadows, clip), spp, ResidualSource{target, w},
                          scratch, out, stream, refl, ke);
+}
+
+// The textured instances (spp 1): object texel grids of sides ks (the
+// spheres') and kr (the rects'), 0 for none, read from stex and rtex, beside
+// refl bounce levels and an environment map of side ke; out = [sq, dglob,
+// dsph, drct, dstex, drtex].
+extern "C" long long rrt_vec_step_tex_smem(int n_sph, int n_rect, int n_light, int ke, int ks,
+                                           int kr) {
+  return (long long)tex_step_plan(n_sph, n_rect, n_light, ke, ks, kr).smem;
+}
+
+extern "C" long long rrt_vec_step_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H,
+                                                     int W, int ke, int ks, int kr) {
+  return vec_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
+}
+
+extern "C" int rrt_vec_step_tex(const float* glob, const float* sph, const float* rct,
+                                const float* stex, const float* rtex, int n_sph, int n_rect,
+                                int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                int clip, int refl, int ke, int ks, int kr, const float* target,
+                                float w, float* scratch, float* out, void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
+  return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                             TexGrids{stex, rtex, ks, kr}, make_params(H, W, shadows, clip), refl,
+                             ResidualSource{target, w}, scratch, out, stream);
 }
 
 // spp 1 or 4: at spp 4 the loss is of the average of the four clipped

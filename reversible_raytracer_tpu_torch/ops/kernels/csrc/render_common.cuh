@@ -6,7 +6,8 @@
 // visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
 // the subsamples of spp 4; with REFL, one mirror bounce level; with a
 // TexFlatScene, object textures and the environment map; with a
-// PackedEnvRows, the environment map), the texel records' scatter, and the
+// PackedEnvRows, the environment map; with a PackedTexRows, both, the
+// object grids read from global memory), the texel records' scatter, and the
 // reduction and camera-chain passes. soft_common.cuh adds the
 // soft-visibility code.
 //
@@ -20,7 +21,8 @@
 //     to a multiple of 16 rows; the object-chunked and soft kernels), the
 //     forwards' sphere rows staged without the mirror column but where a
 //     bounce reads it; and PackedEnvRows, the same with the environment map
-//     ending the globals (make_env_glayout).
+//     ending the globals (make_env_glayout), and PackedTexRows, that with
+//     the object texel grids beside it in global memory.
 //     Rects are numbered from the padded sphere count (ns_pad) in winner
 //     space, so a pad row's index never names a real object.
 //
@@ -348,6 +350,48 @@ struct PackedEnvRows : PackedRows<PS> {
 };
 
 using PackedEnvScene = PackedEnvRows<P_SPH>;
+
+// The object texel grids of rows 4-6's textured instances: the spheres'
+// (N, Ks, Ks, 3) and the rects' (M, Kr, Kr, 3), row-major, in global memory
+// (sides 0 for none).
+struct TexGrids {
+  const float* stex;
+  const float* rtex;
+  int Ks, Kr;
+};
+
+// Packed rows (the globals ending with the environment map, Ke 0 for none)
+// and object texel grids read from global memory: 64 globes at Ks = 16 are
+// 192 KiB of texels, which a block's shared memory cannot hold beside their
+// gradient. A texel record's base counts in the block's texel row, the
+// spheres' grids from s_tex = 0, then the rects' from r_tex.
+template <int PS>
+struct PackedTexRows : PackedEnvRows<PS> {
+  const float* stex;
+  const float* rtex;
+  int Ks, Kr, s_tex, r_tex;
+
+  __device__ const float* s_texels(int k) const { return stex + 3 * Ks * Ks * k; }
+  __device__ const float* r_texels(int k) const { return rtex + 3 * Kr * Kr * k; }
+};
+
+using PackedTexScene = PackedTexRows<P_SPH>;
+
+template <int PS>
+__device__ __forceinline__ PackedTexRows<PS> tex_view(const PackedEnvRows<PS>& sc,
+                                                      const TexGrids& tg) {
+  return {sc, tg.stex, tg.rtex, tg.Ks, tg.Kr, 0, 3 * tg.Ks * tg.Ks * sc.N};
+}
+
+template <int PS>
+struct Textured<PackedTexRows<PS>> : std::true_type {};
+
+// Does a scene type give each bounce level's textured winner a texel record
+// of its own (PackedTexRows; a TexFlatScene's pixel has one record at most)?
+template <class S>
+struct ObjTexRows : std::false_type {};
+template <int PS>
+struct ObjTexRows<PackedTexRows<PS>> : std::true_type {};
 
 // The packed scene over the staged globals g and rows: PackedRows for
 // GLayout's globals, PackedEnvRows for EnvGLayout's.
@@ -1013,9 +1057,11 @@ struct Levels<1> {
 // winner's base colour, or the environment's colour at a miss of either
 // level) and its corners in the grid of side K whose texel (0, 0) starts at
 // slot base of the gradient row it is scattered into (the flat scene's, or
-// a PackedEnvRows' globals; -1: the pixel has none). A pixel has at most
-// one: object textures take no bounce, and a level-1 miss follows a level-0
-// hit.
+// a PackedEnvRows' globals, or a PackedTexRows' block texel row; -1: the
+// pixel has none). In a TexFlatScene or a PackedEnvRows a pixel has at most
+// one: their object textures take no bounce, and a level-1 miss follows a
+// level-0 hit. A PackedTexRows pixel has besides one record of each level's
+// textured winner (WithObjTexels).
 struct TexelRec {
   int base, K;
   TexW w;
@@ -1027,11 +1073,18 @@ struct WithTexels : G {
   TexelRec tex;
 };
 
+// NL levels' winners' texel records besides the environment's.
+template <class G, int NL>
+struct WithObjTexels : WithTexels<G> {
+  TexelRec otex[NL];
+};
+
 // The gradient type of a pixel at REFL bounce levels in scene type S.
 template <int REFL, class S>
-using GradOf = typename std::conditional<HasEnv<S>::value,
-                                         WithTexels<typename Levels<REFL>::Grad>,
-                                         typename Levels<REFL>::Grad>::type;
+using GradOf = typename std::conditional<
+    ObjTexRows<S>::value, WithObjTexels<typename Levels<REFL>::Grad, 1 + REFL>,
+    typename std::conditional<HasEnv<S>::value, WithTexels<typename Levels<REFL>::Grad>,
+                              typename Levels<REFL>::Grad>::type>::type;
 
 // Words a lane stages of its texel record: 4 corner slots, 12 values.
 constexpr int TEX_REC = 16;
@@ -1475,14 +1528,21 @@ __device__ __forceinline__ void object_adjoint_tex(const S& sc, V3 o, V3 d, cons
 // miss of level 0, or of level 1 where level 0 hit, whose cotangent also
 // reaches that level's ray direction (env_adjoint: the camera, or through
 // d1 = d - 2 (d . n) n level 0's d and n); the background then gets none.
+// In a PackedTexRows (WithObjTexels) each level's textured winner has its
+// own record (otex[level]), the environment's the other (tex).
 template <int REFL = 0, class S, class Src, class Walk, class OnLight>
 __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params& p, int i, int j,
                                                       bool inside, const Src& src,
                                                       const Walk& walk, OnLight on_light) {
   constexpr bool TEX = Textured<S>::value;
   constexpr bool ENV = HasEnv<S>::value;
+  constexpr bool OBJTEX = ObjTexRows<S>::value;
   GradOf<REFL, S> out;
   if constexpr (ENV) out.tex.base = -1;
+  if constexpr (OBJTEX) {
+#pragma unroll
+    for (int q = 0; q <= REFL; ++q) out.otex[q].base = -1;
+  }
   // ---- forward
   const typename Levels<REFL>::Forward fw = pixel_forward<REFL>(sc, p, i, j, inside, src, walk);
   const Camera& cam = fw.cam;
@@ -1521,7 +1581,11 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
         if (hit && !hit1) g_d1 = g_d1 + env_adjoint(sc, b.d, gc1, out.tex);
       }
     }
-    object_adjoint(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1);
+    if constexpr (OBJTEX)  // level 1's textured winner: its own texel record
+      object_adjoint_tex(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1,
+                         out.otex[1]);
+    else
+      object_adjoint(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1);
     out.k1 = b.h.k;
     // o1 = so0; d1 = d - 2 (d . n) n
     g_so_in = hit ? g_o1 : zero3();
@@ -1558,7 +1622,9 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
   g_n = g_n + g_so * SHADOW_EPS;
 
   // ---- the winning object's adjoint
-  if constexpr (TEX)
+  if constexpr (OBJTEX)
+    object_adjoint_tex(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj, out.otex[0]);
+  else if constexpr (TEX)
     object_adjoint_tex(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj, out.tex);
   else
     object_adjoint(sc, o, d, h, hit, s, a, g_t, g_n, g_o, g_d, out.obj);

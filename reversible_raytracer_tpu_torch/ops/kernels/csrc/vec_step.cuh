@@ -73,8 +73,25 @@
 //    - A bounce needs more registers than two blocks an SM leave
 //      (step_blocks_per_sm: one block an SM with REFL, and a grid to
 //      match).
-// Every instance runs one body (vec_step_body), the bounce and the env
-// behind if constexpr, so that vec_step_kernel's instances keep their code.
+// Object texel grids (spp 1; vec_step_tex_kernel, REFL, the env's side Ke 0
+// for none, the TPU kernel's texel tails, fused_vec.py:207, :467-471, :503):
+// each thread runs pixel_step<REFL> on a PackedTexScene, whose grids stay in
+// global memory (64 globes at 16 x 16 texels are 192 KiB: a block cannot
+// stage them beside their gradient).
+//    - A pixel has a texel record for each level's textured winner (level
+//      1's winner can be any sphere) besides the env's. After each tile's
+//      winner lists the warps take turns, a barrier between, each
+//      scattering its records in lane order (scatter_texels, level 0's then
+//      level 1's; the env's into its globals row) through one staging of 32
+//      records that the block shares.
+//    - The block's texel row (3 (N Ks^2 + M Kr^2) floats in shared memory,
+//      tex_step_plan) ends its partial row, so reduce_rows_kernel sums it in
+//      its fixed order and vec_finalize_kernel copies it out after the rows:
+//      out = [sq, dglob, dsph, drct, dstex, drtex]. One block an SM: the
+//      row leaves no room for a second (211 KB for the globes).
+// Every instance runs one body (vec_step_body), the bounce, the env and the
+// texels behind if constexpr, so that vec_step_kernel's instances keep
+// their code.
 //
 // No atomics, and a grid that follows from the card and the scene alone:
 // for a given image size the result is bit-for-bit the same from run to run
@@ -90,7 +107,7 @@
 namespace rrt {
 
 struct StepPlan {
-  int Sg, GROW, OROW, ROW, NWP;
+  int Sg, GROW, OROW, TROW, ROW, NWP;
   size_t smem;
 };
 
@@ -103,11 +120,30 @@ inline StepPlan step_plan(int ns_pad, int nr_pad, int n_light, int ke = 0) {
   s.Sg = make_glayout(n_light).Sg + 3 * ke * ke;
   s.GROW = 1 + s.Sg + CAM_EXTRA;
   s.OROW = ns_pad * P_SPH + nr_pad * P_RCT;
+  s.TROW = 0;
   s.ROW = s.GROW + s.OROW;
   s.NWP = (ns_pad + 31) / 32;  // mask words of one cull
   s.smem = (size_t)(s.Sg + s.OROW + NWARPS * s.GROW + s.OROW) * sizeof(float) +
            (size_t)NWARPS * (1 + n_light) * s.NWP * sizeof(unsigned) +
            (ke ? (size_t)NWARPS * 32 * TEX_REC * sizeof(float) : 0);
+  return s;
+}
+
+// The shared memory of a block of the textured instances (n_sph spheres with
+// grids of side ks, n_rect rects with grids of side kr, an environment map of
+// side ke): step_plan's without the per-warp staging, then one staging of 32
+// texel records, which the warps take in turn, and the block's texel row of
+// 3 (n_sph ks^2 + n_rect kr^2) floats, which each partial row ends with.
+inline StepPlan tex_step_plan(int n_sph, int n_rect, int n_light, int ke, int ks, int kr) {
+  const int ns_pad = pad16(n_sph), nr_pad = pad16(n_rect);
+  StepPlan s = step_plan(ns_pad, nr_pad, n_light);
+  s.Sg += 3 * ke * ke;
+  s.GROW += 3 * ke * ke;
+  s.TROW = 3 * (n_sph * ks * ks + n_rect * kr * kr);
+  s.ROW = s.GROW + s.OROW + s.TROW;
+  s.smem = (size_t)(s.Sg + s.OROW + NWARPS * s.GROW + s.OROW + 32 * TEX_REC + s.TROW) *
+               sizeof(float) +
+           (size_t)NWARPS * (1 + n_light) * s.NWP * sizeof(unsigned);
   return s;
 }
 
@@ -201,14 +237,16 @@ __device__ __forceinline__ void add_level_winners(int k_px, const float (&obj)[R
 }
 
 // The kernels' body on the scene type SC (PackedScene, or PackedEnvScene
-// with an environment map) of globals layout GL (GLayout, EnvGLayout), at
-// REFL bounce levels.
+// with an environment map, or PackedTexScene with object texel grids tg) of
+// globals layout GL (GLayout, EnvGLayout), at REFL bounce levels.
 template <int SPP, int REFL, class Src, class SC, class GL>
 __device__ __forceinline__ void vec_step_body(const float* __restrict__ glob,
                                               const float* __restrict__ sph,
                                               const float* __restrict__ rct, int N, int M,
                                               int ns_pad, int nr_pad, GL gl, Params p, Src src,
-                                              float* __restrict__ partials) {
+                                              float* __restrict__ partials,
+                                              TexGrids tg = {}) {
+  constexpr bool OBJTEX = ObjTexRows<SC>::value;
   extern __shared__ float smem[];
   const int GROW = 1 + gl.Sg + CAM_EXTRA;
   const int OROW = ns_pad * P_SPH + nr_pad * P_RCT;
@@ -230,11 +268,22 @@ __device__ __forceinline__ void vec_step_body(const float* __restrict__ glob,
   float* wrow = wp + warp * GROW;  // [sq, globals (Sg), camera basis (10)]
   float* gs = wrow + 1;
   float* gx = wrow + 1 + gl.Sg;
-  // the warps' texel records, after the mask words step_plan counts
-  [[maybe_unused]] float* trec =
-      (float*)(masks + NWARPS * (1 + gl.L) * ((ns_pad + 31) / 32)) + warp * 32 * TEX_REC;
+  // the warps' texel records, after the mask words step_plan counts (with
+  // object texel grids, tex_step_plan's one staging the warps take in turn,
+  // then the block's texel row of TROW floats)
+  float* const after_masks = (float*)(masks + NWARPS * (1 + gl.L) * ((ns_pad + 31) / 32));
+  [[maybe_unused]] float* trec = after_masks + (OBJTEX ? 0 : warp * 32 * TEX_REC);
+  [[maybe_unused]] float* trow = after_masks + 32 * TEX_REC;
+  const int TROW = OBJTEX ? 3 * (N * tg.Ks * tg.Ks + M * tg.Kr * tg.Kr) : 0;
+  if constexpr (OBJTEX)
+    for (int s = tid; s < TROW; s += BLOCK_THREADS) trow[s] = 0.0f;
   const WarpCull walk{masks + warp * (1 + gl.L) * nw, nw, lane};
-  const SC scene = packed_view<P_SPH>(g, s_sph, s_rct, gl, N, M, ns_pad);
+  const SC scene = [&] {
+    if constexpr (OBJTEX)
+      return tex_view<P_SPH>(packed_view<P_SPH>(g, s_sph, s_rct, gl, N, M, ns_pad), tg);
+    else
+      return packed_view<P_SPH>(g, s_sph, s_rct, gl, N, M, ns_pad);
+  }();
   const dim3 tiles = pixel_grid(p.H, p.W);
 
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
@@ -267,20 +316,36 @@ __device__ __forceinline__ void vec_step_body(const float* __restrict__ glob,
             add_level_winners<true>(pg.k, pg.obj, pg.g_mir, ns_pad, orow, lane, warp);
             add_level_winners<false>(pg.k1, pg.obj1, 0.0f, ns_pad, orow, lane, warp);
           }
-          if constexpr (HasEnv<SC>::value) scatter_texels(pg.tex, gs, trec, lane);
+          if constexpr (OBJTEX) {
+            // ---- the texel records into the block's texel row (the env's
+            // into the warp's globals row), warp by warp, each warp's in
+            // lane order, level 0's before level 1's
+            for (int v = 0; v < NWARPS; ++v) {
+              if (v == warp) {
+                scatter_texels(pg.tex, gs, trec, lane);
+#pragma unroll
+                for (int q = 0; q <= REFL; ++q) scatter_texels(pg.otex[q], trow, trec, lane);
+              }
+              __syncthreads();
+            }
+          } else if constexpr (HasEnv<SC>::value) {
+            scatter_texels(pg.tex, gs, trec, lane);
+          }
         });
   }
 
   // ---- the block's partial row (the last tile's texel scatter into the warp
   // rows comes after its winner lists' last barrier)
   if constexpr (HasEnv<SC>::value) __syncthreads();
-  float* prow = partials + (long long)blockIdx.x * (GROW + OROW);
+  float* prow = partials + (long long)blockIdx.x * (GROW + OROW + TROW);
   for (int s = tid; s < GROW; s += BLOCK_THREADS) {
     float acc = 0.0f;
     for (int v = 0; v < NWARPS; ++v) acc += wp[v * GROW + s];
     prow[s] = acc;
   }
   for (int s = tid; s < OROW; s += BLOCK_THREADS) prow[GROW + s] = orow[s];
+  if constexpr (OBJTEX)  // the texel row ends the partial row
+    for (int s = tid; s < TROW; s += BLOCK_THREADS) prow[GROW + OROW + s] = trow[s];
 }
 
 template <int SPP, class Src>
@@ -303,6 +368,19 @@ __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
   vec_step_body<1, REFL, Src, SC>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src, partials);
 }
 
+// The instances with object texel grids (spp 1; the environment map's side
+// Ke 0 for none, REFL bounce levels): one block an SM, as their block's texel
+// row leaves no room for a second.
+template <int REFL, class Src>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+    vec_step_tex_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                        const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                        EnvGLayout gl, Params p, Src src, float* __restrict__ partials,
+                        TexGrids tg) {
+  vec_step_body<1, REFL, Src, PackedTexScene>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src,
+                                              partials, tg);
+}
+
 constexpr int VEC_REDUCE_RY = 32;  // row subsets per slot in the reduction
 
 // Floats of scratch a call needs (with an environment map of side ke): the
@@ -315,13 +393,23 @@ inline long long vec_step_scratch_floats(int ns_pad, int nr_pad, int n_light, in
   return nblocks > 0 ? ((long long)nblocks + 1) * plan.ROW : -1;
 }
 
+// The same for the textured instances.
+inline long long vec_step_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H, int W,
+                                             int ke, int ks, int kr) {
+  const StepPlan plan = tex_step_plan(n_sph, n_rect, n_light, ke, ks, kr);
+  const int nblocks = step_blocks(plan.smem, H, W);
+  return nblocks > 0 ? ((long long)nblocks + 1) * plan.ROW : -1;
+}
+
 // The three launches of one instance on one stream; out = [sq, dglob, dsph,
-// drct].
-template <class K, class GL, class Src>
+// drct] (the textured instances' ends with the texel row: the spheres'
+// grids, then the rects'); extra, the kernel's arguments after the partial
+// rows.
+template <class K, class GL, class Src, class... Extra>
 int launch_vec_instance(K kernel, int per_sm, const float* glob, const float* sph,
                         const float* rct, int n_sph, int n_rect, int ns_pad, int nr_pad, GL gl,
                         const StepPlan& plan, const Params& p, Src src, float* scratch,
-                        float* out, void* stream) {
+                        float* out, void* stream, Extra... extra) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int nblocks = step_blocks(plan.smem, p.H, p.W, per_sm);
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
@@ -334,14 +422,14 @@ int launch_vec_instance(K kernel, int per_sm, const float* glob, const float* sp
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<nblocks, dim3(BLOCK_X, BLOCK_Y), plan.smem, st>>>(
-      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, src, partials);
+      glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, gl, p, src, partials, extra...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_rows_kernel<VEC_REDUCE_RY><<<(plan.ROW + 31) / 32, dim3(32, VEC_REDUCE_RY), 0, st>>>(
       partials, nblocks, plan.ROW, rowsum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  vec_finalize_kernel<<<1, 256, 0, st>>>(rowsum, glob, gl, plan.OROW, out);
+  vec_finalize_kernel<<<1, 256, 0, st>>>(rowsum, glob, gl, plan.OROW + plan.TROW, out);
   return (int)cudaGetLastError();
 }
 
@@ -354,6 +442,28 @@ int launch_vec_levels(const float* glob, const float* sph, const float* rct, int
                              globals_layout<ENV>(n_light, ke),
                              step_plan(ns_pad, nr_pad, n_light, ke), p, src, scratch, out,
                              stream);
+}
+
+// The textured instance of refl 0 or 1 bounce levels, an environment map of
+// side ke (0 for none) and object texel grids tg, at spp 1; out = [sq, dglob,
+// dsph, drct, the spheres' texels, the rects'].
+template <class Src>
+int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, int n_sph,
+                        int n_rect, int n_light, int ke, const TexGrids& tg, const Params& p,
+                        int refl, Src src, float* scratch, float* out, void* stream) {
+  if ((refl != 0 && refl != 1) || ke < 0 || tg.Ks < 0 || tg.Kr < 0)
+    return (int)cudaErrorInvalidValue;
+  const StepPlan plan = tex_step_plan(n_sph, n_rect, n_light, ke, tg.Ks, tg.Kr);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (plan.smem > (size_t)optin) return (int)cudaErrorInvalidValue;  // Python refuses it first
+  const auto kernel = refl ? vec_step_tex_kernel<1, Src> : vec_step_tex_kernel<0, Src>;
+  return launch_vec_instance(kernel, 1, glob, sph, rct, n_sph, n_rect, pad16(n_sph),
+                             pad16(n_rect), make_env_glayout(n_light, ke), plan, p, src, scratch,
+                             out, stream, tg);
 }
 
 // The instance of the call, on one stream; out = [sq, dglob, dsph, drct]. p

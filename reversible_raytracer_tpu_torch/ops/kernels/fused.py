@@ -216,8 +216,9 @@ def uncovered(scene, cfg: RenderConfig, texels: bool = False, env: bool = False)
     """What the kernels do not cover (a reason), or None: with ``texels``
     the unrolled family's (object textures and the environment map at spp 1,
     the environment with a bounce), with ``env`` the object-chunked family's
-    (the environment map at spp 1, no object textures), else every family's
-    (no texel grid)."""
+    (object textures and the environment map at spp 1, either with a bounce;
+    `fused_vec.check_vec_kernel_config` adds the shared memory of object
+    texel grids), else every family's (no texel grid)."""
     if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
         return "soft_tau/checker_tau"
     if cfg.spp not in SPP_OFFSETS:
@@ -234,10 +235,12 @@ def uncovered(scene, cfg: RenderConfig, texels: bool = False, env: bool = False)
         return f"more than {MAX_LIGHTS} lights"
     objects = scene.spheres.textured or scene.rects.textured
     if not texels:
-        if objects:
+        if objects and not env:
             return "object textures"
         if scene.env_mapped and not env:
             return "environment maps"
+        if objects and cfg.spp != 1:
+            return "spp 4 with a texel grid (object textures)"
         if scene.env_mapped and cfg.spp != 1:
             return "spp 4 with an environment map"
         return None

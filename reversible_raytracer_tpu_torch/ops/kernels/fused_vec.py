@@ -43,8 +43,17 @@ only, number the rects from the padded sphere count in winner-index space,
 and leave the gradient of every pad row exactly zero. The step's gradient
 comes back through the transpose of the packing (`unpack_grads`).
 
-Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects
-(the TPU kernels' texel tails are not ported yet and raise). At spp 1 also
+Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects.
+At spp 1 also object texel grids, with or without the environment map and
+one bounce (the TPU kernels' texel tails, ``_tex_nest`` at fused_vec.py:207
+and the samples of ``_sphere_eval`` / ``_rect_eval`` at :467-471 and :503):
+the grids are not in the rows but read apart (`pack_texels`), a textured
+winner's base colour at either level is its grid's bilinear sample, gathered
+(the TPU kernels' dense hat-basis sampler, ``_make_sample_mxu`` at :253,
+exists because Mosaic cannot gather, and is not carried over), and the step
+and the render backward end their output with the grids' gradient (the
+``_tex`` entries; `texel_step_smem_bytes` refuses grids whose gradient row
+does not fit a block's shared memory). And at spp 1
 the environment map and one mirror bounce, together or apart (the TPU
 kernels' env global, globals_tree at fused_vec.py:405, and their reflection
 levels, :907-946 and :1015-1054): the env ends the globals (`globals_offsets`)
@@ -114,7 +123,14 @@ _GEOM = [_I] * 9
 # timings of rows 4-6: they are superseded, and go when no tool needs an
 # entry that both trees have.
 _LV = [_I, _I]  # refl, ke
+# The textured instances' ``_tex`` entries take the texel grids' pointers
+# after the rows, and after the bounce levels and the env's side the grids'
+# sides (spheres', rects'; 0 for none); their output ends with the grids'
+# gradient.
+_TX = [_P, _P]  # stex, rtex
+_KS = [_I, _I]  # ks, kr
 VEC_RENDER = Kernel("fused_vec_render", {
+    "rrt_vec_render_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, *_LV, *_KS, _P, _P, _P], _I),
     "rrt_vec_render_levels": ([_P, _P, _P, *_GEOM, _F, _F, *_LV, _P, _P, _P], _I),
     "rrt_vec_render_levels_smem": ([_I, _I, _I, *_LV], ctypes.c_longlong),
     "rrt_vec_render_at": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P], _I),
@@ -122,6 +138,9 @@ VEC_RENDER = Kernel("fused_vec_render", {
     "rrt_smem_optin": ([], ctypes.c_longlong),
 })
 VEC_STEP = Kernel("fused_vec_step", {
+    "rrt_vec_step_tex": ([_P, _P, _P, *_TX, *_GEOM, *_LV, *_KS, _P, _F, _P, _P, _P], _I),
+    "rrt_vec_step_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
+    "rrt_vec_step_tex_smem": ([_I] * 6, ctypes.c_longlong),
     "rrt_vec_step_levels": ([_P, _P, _P, *_GEOM, _I, *_LV, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_levels_scratch_floats": ([_I] * 6, ctypes.c_longlong),
     "rrt_vec_step_levels_smem": ([_I] * 4, ctypes.c_longlong),
@@ -130,6 +149,10 @@ VEC_STEP = Kernel("fused_vec_step", {
     "rrt_vec_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 VEC_RENDER_BWD = Kernel("fused_vec_render_bwd", {
+    "rrt_vec_render_bwd_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, *_LV, *_KS, _P, _P, _P, _P, _P],
+                               _I),
+    "rrt_vec_render_bwd_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
+    "rrt_vec_render_bwd_tex_smem": ([_I] * 6, ctypes.c_longlong),
     "rrt_vec_render_bwd_levels": ([_P, _P, _P, *_GEOM, _F, _F, *_LV, _P, _P, _P, _P, _P], _I),
     "rrt_vec_render_bwd_levels_scratch_floats": ([_I] * 6, ctypes.c_longlong),
     "rrt_vec_render_bwd_levels_smem": ([_I] * 4, ctypes.c_longlong),
@@ -163,23 +186,35 @@ def _mat_cols(mat):
 
 
 def pack_spheres(scene):
-    """(N, P_SPH) sphere rows (differentiable)."""
+    """(N, P_SPH) sphere rows (differentiable); a texel grid is not in them
+    (`pack_texels`)."""
     sp = scene.spheres
-    if sp.textured:
-        raise NotImplementedError("texel tails of the packed rows are not ported yet")
     if sp.count == 0:
         return scene.ambient.new_zeros((0, P_SPH))
     return torch.cat([sp.center, sp.radius[:, None], *_mat_cols(sp.material)], dim=1)
 
 
 def pack_rects(scene):
-    """(M, P_RCT) rect rows (differentiable)."""
+    """(M, P_RCT) rect rows (differentiable); a texel grid is not in them
+    (`pack_texels`)."""
     rc = scene.rects
-    if rc.textured:
-        raise NotImplementedError("texel tails of the packed rows are not ported yet")
     if rc.count == 0:
         return scene.ambient.new_zeros((0, P_RCT))
     return torch.cat([rc.origin, rc.edge_u, rc.edge_v, *_mat_cols(rc.material)], dim=1)
+
+
+def object_textured(scene_like) -> bool:
+    """Does either object group carry texel grids?"""
+    return scene_like.spheres.textured or scene_like.rects.textured
+
+
+def pack_texels(scene):
+    """The object texel grids as the textured instances read them: the
+    spheres' (N ks^2 3,) and the rects' (M kr^2 3,), row-major, each empty
+    where its group has none (differentiable). The step's and the render
+    backward's output ends with their gradient in the same order: the JAX
+    package's texel tails of the rows (fused_vec.py:370), read apart."""
+    return scene.spheres.texture.reshape(-1), scene.rects.texture.reshape(-1)
 
 
 def pad_rows(rows, n_pad: int, pad_row):
@@ -225,9 +260,11 @@ def globals_offsets(n_light: int, ke: int = 0) -> dict:
             "Sg": env + 3 * ke * ke}
 
 
-def unpack_grads(scene_like, dglob, dsph, drct):
-    """The transpose of the packing: gradients of the flat globals and of
-    the (padded) sphere and rect rows -> a Scene of gradients."""
+def unpack_grads(scene_like, dglob, dsph, drct, dtex=None):
+    """The transpose of the packing: gradients of the flat globals, of the
+    (padded) sphere and rect rows and of the texel grids (``dtex``, the
+    spheres' then the rects' as `pack_texels` lays them out; zeros where it
+    is None) -> a Scene of gradients."""
     N, M = scene_like.spheres.count, scene_like.rects.count
 
     def mat(rows, c0, like):
@@ -238,10 +275,17 @@ def unpack_grads(scene_like, dglob, dsph, drct):
 
     sp, rc = scene_like.spheres, scene_like.rects
     ds, dr = dsph[:N], drct[:M]
+    if dtex is None:
+        s_tex, r_tex = torch.zeros_like(sp.texture), torch.zeros_like(rc.texture)
+    else:
+        if dtex.numel() != texel_row(scene_like):
+            raise ValueError(f"dtex has {dtex.numel()} scalars, the grids {texel_row(scene_like)}")
+        n = sp.texture.numel()
+        s_tex, r_tex = dtex[:n].view(sp.texture.shape), dtex[n:].view(rc.texture.shape)
     spheres = type(sp)(center=ds[:, 0:3], radius=ds[:, 3], material=mat(ds, 4, sp.material),
-                       texture=torch.zeros_like(sp.texture))
+                       texture=s_tex)
     rects = type(rc)(origin=dr[:, 0:3], edge_u=dr[:, 3:6], edge_v=dr[:, 6:9],
-                     material=mat(dr, 9, rc.material), texture=torch.zeros_like(rc.texture))
+                     material=mat(dr, 9, rc.material), texture=r_tex)
     g_leaves, off = [], 0
     for leaf in _globals_leaves(scene_like):
         g_leaves.append(dglob[off:off + leaf.numel()].reshape(leaf.shape))
@@ -263,19 +307,53 @@ def unpack_grads(scene_like, dglob, dsph, drct):
 
 def check_vec_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for what the three vec kernels do not
-    cover: object textures (the TPU kernels' texel tails are still to port),
-    spp 4 with a bounce or an environment map, two or more bounces; any
-    object count is covered, and at spp 1 the environment map and one bounce
-    level."""
+    cover: spp 4 with a bounce or a texel grid (object textures or an
+    environment map), two or more bounces, object texel grids whose
+    gradient row does not fit a block's shared memory
+    (`texel_step_smem_bytes`); any object count is covered, and at spp 1
+    object textures, the environment map and one bounce level."""
     why = fused.uncovered(scene, cfg, env=True)
+    if why is None and object_textured(scene):
+        need = texel_step_smem_bytes(scene)
+        if need > fused.MAX_BLOCK_SMEM:
+            why = (f"object texel grids this large: {texel_row(scene)} texels' gradient needs "
+                   f"{need} bytes of shared memory a block in the textured step, above the "
+                   f"{fused.MAX_BLOCK_SMEM} a block has")
     if why is not None:
         raise NotImplementedError(f"the object-chunked CUDA kernels do not cover {why}")
+
+
+def texel_row(scene_like) -> int:
+    """The scalars of the object texel grids (the block's texel row)."""
+    return scene_like.spheres.texture.numel() + scene_like.rects.texture.numel()
+
+
+def texel_step_smem_bytes(scene_like) -> int:
+    """Shared memory of a block of the textured step and render backward
+    (csrc/vec_step.cuh `tex_step_plan`): the globals (with the environment
+    map's texels), the rows, 8 warp rows of 1 + Sg + 10 slots, the block's
+    object row, each warp's mask words of the primary cull and of each
+    light's, one staging of 32 texel records of 16 words, and the block's
+    texel row."""
+    ns_pad, nr_pad = row_plan(scene_like)
+    L = scene_like.lights.count
+    Sg = globals_offsets(L, fused.texel_sizes(scene_like)[2])["Sg"]
+    orow = ns_pad * P_SPH + nr_pad * P_RCT
+    words = Sg + orow + 8 * (1 + Sg + 10) + orow + 32 * 16 + texel_row(scene_like)
+    return 4 * words + 4 * 8 * (1 + L) * ((ns_pad + 31) // 32)
 
 
 def levels(scene_like, cfg: RenderConfig):
     """The ``_levels`` entries' (bounce levels, the environment map's side,
     0 for none) of a scene and config."""
     return cfg.reflections, fused.texel_sizes(scene_like)[2]
+
+
+def tex_levels(scene_like, cfg: RenderConfig):
+    """The ``_tex`` entries' (bounce levels, the environment map's side, the
+    spheres' and the rects' grids' sides; 0 for none)."""
+    ks, kr, ke = fused.texel_sizes(scene_like)
+    return cfg.reflections, ke, ks, kr
 
 
 def _geometry(scene, cfg: RenderConfig):
@@ -332,6 +410,12 @@ def _cuda_inputs(scene, cfg: RenderConfig):
     return packed_inputs(scene)
 
 
+def texel_inputs(scene):
+    """`pack_texels`, contiguous float32, without gradient."""
+    with torch.no_grad():
+        return tuple(t.contiguous() for t in pack_texels(scene))
+
+
 def packed_inputs(scene):
     """(globals, padded sphere rows, padded rect rows), contiguous float32,
     without gradient."""
@@ -375,6 +459,8 @@ def render_vec(scene, cfg: RenderConfig):
     if dev.type != "cuda":
         raise NotImplementedError(f"no render kernel for device {dev}")
     rows = _cuda_inputs(scene, cfg)
+    if object_textured(scene):
+        rows = (*rows, *texel_inputs(scene))
     cfg1 = dc.replace(cfg, spp=1)
     leaves = tree_leaves(scene)
     outs = [_VecRender.apply(scene, cfg1, off, rows, *leaves) for off in SPP_OFFSETS[cfg.spp]]
@@ -404,26 +490,36 @@ class _VecRender(torch.autograd.Function):
     """The vec forward and render backward kernels at one subsample offset
     ``off`` as one differentiable function of the scene's leaves (the
     ``custom_vjp`` of fused_vec.py:1340-1364), given the scene's packed
-    ``rows`` (`packed_inputs`, which carry no gradient): the forward saves
-    them and the visibility planes, the backward launches the backward
-    kernel once."""
+    ``rows`` (`packed_inputs`, and with object texel grids `texel_inputs`
+    after them; they carry no gradient): the forward saves them and the
+    visibility planes, the backward launches the backward kernel once."""
 
     @staticmethod
     def forward(ctx, scene, cfg, off, rows, *leaves):
-        glob, sph, rct = rows
+        glob, sph, rct, *tex = rows
         check_smem(VEC_RENDER, "rrt_vec_render_levels_smem", scene, *levels(scene, cfg))
         if any(ctx.needs_input_grad):
-            check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_smem", scene,
-                       levels(scene, cfg)[1])
+            if tex:
+                check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_tex_smem", scene,
+                           *tex_levels(scene, cfg)[1:])
+            else:
+                check_smem(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_smem", scene,
+                           levels(scene, cfg)[1])
         dev = glob.device
         img = torch.empty((cfg.height, cfg.width, 3), device=dev)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
-        VEC_RENDER.call("rrt_vec_render_levels", glob.data_ptr(), sph.data_ptr(),
-                        rct.data_ptr(), *_geometry(scene, cfg), *off, *levels(scene, cfg),
-                        img.data_ptr(), vis.data_ptr(), fused._stream(dev))
+        ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
+        if tex:
+            VEC_RENDER.call("rrt_vec_render_tex", *ptrs, *(t.data_ptr() for t in tex),
+                            *_geometry(scene, cfg), *off, *tex_levels(scene, cfg),
+                            img.data_ptr(), vis.data_ptr(), fused._stream(dev))
+        else:
+            VEC_RENDER.call("rrt_vec_render_levels", *ptrs, *_geometry(scene, cfg), *off,
+                            *levels(scene, cfg), img.data_ptr(), vis.data_ptr(),
+                            fused._stream(dev))
         VEC_RENDER.launches += 1
         ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
-        ctx.save_for_backward(glob, sph, rct, vis)
+        ctx.save_for_backward(glob, sph, rct, vis, *tex)
         ctx.mark_non_differentiable(vis)
         ctx.set_materialize_grads(False)
         return img, vis
@@ -433,8 +529,8 @@ class _VecRender(torch.autograd.Function):
     def backward(ctx, g_img, _g_vis):
         if g_img is None:
             return (None, None, None, None, *(None for _ in tree_leaves(ctx.scene)))
-        glob, sph, rct, vis = ctx.saved_tensors
-        grads = _render_bwd_launch(ctx.scene, ctx.cfg, ctx.off, glob, sph, rct, g_img, vis)
+        glob, sph, rct, vis, *tex = ctx.saved_tensors
+        grads = _render_bwd_launch(ctx.scene, ctx.cfg, ctx.off, glob, sph, rct, g_img, vis, tex)
         return (None, None, None, None, *tree_leaves(grads))
 
 
@@ -443,29 +539,43 @@ class _VecRender(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, vis):
+def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, vis, tex=()):
     """The scene's gradient (a Scene) from one backward-kernel call at the
-    subsample offset ``off``."""
+    subsample offset ``off`` (``tex``: `texel_inputs` of a scene with object
+    texel grids, the ``_tex`` entries)."""
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = _geometry(scene_like, cfg)
     refl, ke = levels(scene_like, cfg)
-    scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_scratch_floats",
-                             (*geom[2:7], ke), dev)
-    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    VEC_RENDER_BWD.call("rrt_vec_render_bwd_levels", glob.data_ptr(), sph.data_ptr(),
-                        rct.data_ptr(), *geom, *off, refl, ke, g_img.data_ptr(), vis.data_ptr(),
-                        scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel() + texel_row(scene_like),),
+                      device=dev)
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
+    if tex:
+        tl = tex_levels(scene_like, cfg)
+        scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_tex_scratch_floats",
+                                 (geom[0], geom[1], *geom[4:7], *tl[1:]), dev)
+        VEC_RENDER_BWD.call("rrt_vec_render_bwd_tex", *ptrs, *(t.data_ptr() for t in tex),
+                            *geom, *off, *tl, g_img.data_ptr(), vis.data_ptr(),
+                            scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+    else:
+        scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_scratch_floats",
+                                 (*geom[2:7], ke), dev)
+        VEC_RENDER_BWD.call("rrt_vec_render_bwd_levels", *ptrs, *geom, *off, refl, ke,
+                            g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                            fused._stream(dev))
     VEC_RENDER_BWD.launches += 1
     return _unpack_out(scene_like, out, glob, sph, rct)
 
 
 def _unpack_out(scene_like, out, glob, sph, rct):
-    """A step or backward kernel's output [sq, dglob, dsph, drct] -> the
-    scene's gradient (a Scene)."""
+    """A step or backward kernel's output [sq, dglob, dsph, drct] (and with
+    object texel grids their gradient, `pack_texels`' layout) -> the scene's
+    gradient (a Scene)."""
     a = 1 + glob.numel()
     b = a + sph.numel()
-    return unpack_grads(scene_like, out[1:a], out[a:b].view(sph.shape), out[b:].view(rct.shape))
+    c = b + rct.numel()
+    return unpack_grads(scene_like, out[1:a], out[a:b].view(sph.shape), out[b:c].view(rct.shape),
+                        out[c:] if object_textured(scene_like) else None)
 
 
 def render_vec_bwd_plain(scene, cfg: RenderConfig, g_img):
@@ -491,16 +601,27 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
     if dev.type != "cuda":
         raise NotImplementedError(f"no step kernel for device {dev}")
     glob, sph, rct = _cuda_inputs(scene, cfg)
-    check_smem(VEC_STEP, "rrt_vec_step_levels_smem", scene, levels(scene, cfg)[1])
     target = target.contiguous()
     geom = _geometry(scene, cfg)
     refl, ke = levels(scene, cfg)
-    scratch = fused._scratch(VEC_STEP, "rrt_vec_step_levels_scratch_floats", (*geom[2:7], ke),
-                             dev)
-    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    VEC_STEP.call("rrt_vec_step_levels", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
-                  cfg.spp, refl, ke, target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
-                  fused._stream(dev))
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel() + texel_row(scene),),
+                      device=dev)
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
+    if object_textured(scene):
+        tl = tex_levels(scene, cfg)
+        check_smem(VEC_STEP, "rrt_vec_step_tex_smem", scene, *tl[1:])
+        stex, rtex = texel_inputs(scene)
+        scratch = fused._scratch(VEC_STEP, "rrt_vec_step_tex_scratch_floats",
+                                 (geom[0], geom[1], *geom[4:7], *tl[1:]), dev)
+        VEC_STEP.call("rrt_vec_step_tex", *ptrs, stex.data_ptr(), rtex.data_ptr(), *geom, *tl,
+                      target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
+                      fused._stream(dev))
+    else:
+        check_smem(VEC_STEP, "rrt_vec_step_levels_smem", scene, ke)
+        scratch = fused._scratch(VEC_STEP, "rrt_vec_step_levels_scratch_floats",
+                                 (*geom[2:7], ke), dev)
+        VEC_STEP.call("rrt_vec_step_levels", *ptrs, *geom, cfg.spp, refl, ke, target.data_ptr(),
+                      norm, scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     VEC_STEP.launches += 1
     return norm * out[0], _unpack_out(scene, out, glob, sph, rct)
 

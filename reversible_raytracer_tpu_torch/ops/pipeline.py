@@ -18,8 +18,8 @@ the environment map (JAX pipeline.py:258-316, :392-459) are sampled by the
 4-corner bilinear gather (`sample_texture`) at a rect's (a, b) or at the
 lat-long coordinates of a sphere's normal or a missed ray's direction
 (`sphere_uv`, through the JAX package's polynomial `atan2`/`asin`); the
-where chain (`shade`) takes both, the hard object-vectorized shader the
-environment map only, and the soft shader neither.
+where chain (`shade`) and the hard object-vectorized shader take both, the
+soft shader neither.
 
 This is the plain version of the CUDA kernels (`ops.kernels.fused`): on
 the CPU it is the renderer, and on the card it is what the kernels are held
@@ -73,9 +73,9 @@ def _require_hard(scene, cfg: RenderConfig, where_chain: bool = True) -> None:
     `pipeline_vec.shade_vec` refuse it, `pipeline_vec.shade_soft` needs it).
     ``checker_tau > 0`` passes only for the object-vectorized shaders, which
     take the soft checker; the where chain (``where_chain``) refuses it (the
-    JAX package's pipeline.py:99-101). Object textures pass only for the
-    where chain; the environment map passes for both, and the soft shader
-    (`pipeline_vec.shade_soft`) refuses it itself."""
+    JAX package's pipeline.py:99-101). Object textures and the environment
+    map pass for both; the soft shader (`pipeline_vec.shade_soft`) refuses
+    them itself."""
     if cfg.reflections and (cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0):
         raise NotImplementedError(
             "mirror reflections require hard semantics (reflections=0 when soft_tau/checker_tau "
@@ -83,10 +83,6 @@ def _require_hard(scene, cfg: RenderConfig, where_chain: bool = True) -> None:
     if cfg.checker_tau > 0.0 and where_chain:
         raise NotImplementedError(
             "checker_tau > 0 (the soft checker) renders through pipeline_vec (render_eager_vec)")
-    if not where_chain and (scene.spheres.textured or scene.rects.textured):
-        raise NotImplementedError(
-            "object textures render through the where chain (render_eager); the "
-            "object-vectorized and soft eager paths do not sample object texels yet")
 
 
 def require_hard_visibility(cfg: RenderConfig) -> None:

@@ -1,7 +1,7 @@
 """Object-vectorized renderer in eager torch, hard and soft.
 
-The counterpart of `reversible_raytracer_tpu.ops.pipeline_vec` for the
-untextured branches. Hard: the objects of a scene lie on a
+The counterpart of `reversible_raytracer_tpu.ops.pipeline_vec`. Hard: the
+objects of a scene lie on a
 leading axis (`t_all: (N + M, H, W)`), the nearest hit is an argmin over
 that axis with first-wins ties (spheres first, then rects), and the shadow
 test is an any-hit over it. Only the winning object's intersection and
@@ -32,8 +32,12 @@ shader takes mirror reflections (``cfg.reflections`` levels, as
 gathered per level: the JAX package's `_render_hard_once` levels); the soft
 one and the soft checker refuse them, as the JAX package's `render_jnp_vec`
 does. The hard shader takes the environment map (a missed ray's colour at
-either level is its sample, `pipeline.miss_color`); the soft shader refuses
-it, and both refuse object textures (`NotImplementedError`).
+either level is its sample, `pipeline.miss_color`) and object texel grids
+(the JAX package's `_gather_layer` texture branches: each winner's grid
+sampled at the lat-long coordinates of its normal, the azimuth wrapped, or
+at a rect's (a, b), by the 4-corner gather `pipeline.sample_grid` over every
+pixel's winner, as the where chain samples one grid: `render_eager`'s bits);
+the soft shader refuses both (`NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -57,9 +61,11 @@ from .pipeline import (
     rect_hit,
     render_tile,
     require_hard_visibility,
+    sample_grid,
     shade_from_attrs,
     shade_levels,
     sphere_hit,
+    sphere_uv,
 )
 
 # pipeline_vec.py:101 SPP4_OFFSETS and :104 spp_average are
@@ -132,9 +138,9 @@ def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0, with_mirror=False):
     attrs), where only the winner's intersection and attributes are
     evaluated (with gradient) per pixel; the checker soft at
     ``checker_tau > 0``; with ``with_mirror`` the winner's mirror
-    coefficient ("mir") too."""
-    if scene.spheres.textured or scene.rects.textured:
-        raise NotImplementedError("object textures are not ported yet")
+    coefficient ("mir") too. A textured group's base colour is its winner's
+    grid sampled at the hit (`pipeline.sample_grid`), in place of the
+    checker, as the JAX package's `_gather_layer` overrides it."""
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     sp, rc = scene.spheres, scene.rects
     N, M = sp.count, rc.count
@@ -147,6 +153,8 @@ def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0, with_mirror=False):
         m = material_rows(sp.material, pick)
         t_s, n_unit, col = sphere_hit(o, d, _xyz(pick(sp.center)), pick(sp.radius), m,
                                       checker_tau=checker_tau)
+        if sp.textured:
+            col = sample_grid(sp.texture, ks, *sphere_uv(n_unit), wrap_a=True).col
         is_sph = (k >= 0) & (k < N)
         t = torch.where(is_sph, t_s, t)
         best = merge_attrs(best, is_sph, n_unit, col, m)
@@ -154,8 +162,11 @@ def trace_nearest_vec(scene, o, d, shape, checker_tau=0.0, with_mirror=False):
         kr = (k - N).clamp(0, M - 1)
         pick = lambda x: _take(x, kr)
         m = material_rows(rc.material, pick)
-        t_r, n_unit, col = rect_hit(o, d, _xyz(pick(rc.origin)), _xyz(pick(rc.edge_u)),
-                                    _xyz(pick(rc.edge_v)), m, checker_tau=checker_tau)
+        p0, eu, ev = _xyz(pick(rc.origin)), _xyz(pick(rc.edge_u)), _xyz(pick(rc.edge_v))
+        t_r, n_unit, col = rect_hit(o, d, p0, eu, ev, m, checker_tau=checker_tau)
+        if rc.textured:
+            _, a, b, _ = intersect_rect(o, d, p0, eu, ev)
+            col = sample_grid(rc.texture, kr, a, b).col
         t = torch.where(k >= N, t_r, t)
         best = merge_attrs(best, k >= N, n_unit, col, m)
     return t, t < BIG * 0.5, best
@@ -295,7 +306,7 @@ def shade_soft(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
     if cfg.reflections:
         raise NotImplementedError("mirror reflections require hard semantics (soft_tau = 0)")
     if scene.spheres.textured or scene.rects.textured:
-        raise NotImplementedError("object textures are not ported yet")
+        raise NotImplementedError("object textures in the soft shader are not ported yet")
     if scene.env_mapped:
         raise NotImplementedError("environment maps in the soft shader are not ported yet")
     tau = cfg.soft_tau

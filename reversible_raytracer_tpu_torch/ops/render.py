@@ -27,12 +27,15 @@ both eager twins. Object textures and the environment map (configs 7-9)
 take the unrolled kernels' textured instances on CUDA up to 24 objects, as
 the JAX package's render.py:45-138 sends a textured scene of at most 24
 objects to its unrolled kernels, and `render_eager` on the CPU; past 24
-objects the environment map takes the object-chunked kernels' env
-instances (with or without the bounce; `render_eager_vec` on the CPU), as
-the JAX package's render.py:107-115 takes an env in its vec kernels'
-globals. spp 4 with a texel grid, object textures with a bounce, object
-textures past 24 objects and texel grids in the soft kernels (and the soft
-eager path) are refused by name on CUDA.
+objects, and object textures with a bounce at any object count (which the
+unrolled kernels refuse, as the JAX package's do: render.py:108-111), the
+object-chunked kernels' textured, env and bounce instances
+(`render_eager_vec` on the CPU), as the JAX package's render.py:95-115 sends
+them to its vec kernels. The JAX package sends a textured scene of at most
+24 objects by `tile_object_count`, a budget of the TPU's VMEM; the port
+keeps the object count, as for every other scene. spp 4 with a texel grid,
+two bounces and texel grids in the soft kernels (and the soft eager path)
+are refused by name on CUDA.
 """
 
 from __future__ import annotations
@@ -61,12 +64,15 @@ def resolve_impl(scene, cfg: RenderConfig) -> str:
     device for the checker-only relaxation (``soft_tau == 0``,
     ``checker_tau > 0``), as the JAX package's render.py:51-64 decides; a
     textured or env-mapped scene of at most 24 objects is ``"cuda"`` (rows
-    1-3's textured instances), an env-mapped and/or reflective one (one
-    bounce, spp 1) of more than 24 ``"cuda_vec"`` (rows 4-6's env and bounce
-    instances); raises otherwise, by name."""
+    1-3's textured instances) but with object textures and a bounce
+    ``"cuda_vec"``; a textured, env-mapped and/or reflective one (one
+    bounce, spp 1) of more than 24 ``"cuda_vec"`` (rows 4-6's textured, env
+    and bounce instances); the CPU takes the same family's eager twin;
+    raises otherwise, by name."""
     soft = cfg.soft_tau > 0.0
     checker_only = not soft and cfg.checker_tau > 0.0
-    vec = soft or checker_only or scene.spheres.count + scene.rects.count > VEC_THRESHOLD
+    vec = (soft or checker_only or scene.spheres.count + scene.rects.count > VEC_THRESHOLD
+           or (cfg.reflections > 0 and fused_vec.object_textured(scene)))
     dev = scene.device
     if dev.type == "cpu" or (checker_only and dev.type == "cuda"):
         return "eager_vec" if vec else "eager"

@@ -104,7 +104,10 @@ def test_anneal_stage_decisions():
 
     assert resolve_impl(card(), soft) == "cuda_vec_soft"
     assert resolve_impl(card(), hard) == "cuda_vec"
-    for bad, cfg in ((card(textured=True), soft), (card(textured=True), hard),
+    # object textures past 24 objects take the hard object-chunked kernels at
+    # spp 1; they refuse them at spp 4, and the soft kernels refuse them
+    for bad, cfg in ((card(textured=True), soft),
+                     (card(textured=True), dataclasses.replace(hard, spp=4)),
                      (card(env=True), soft)):
         with pytest.raises(NotImplementedError):
             resolve_impl(bad, cfg)

@@ -22,8 +22,8 @@ against the JAX package.
   shadow, every leaf within 1e-2 of its scale;
 - the packed globals with the env last, and the transpose of the packing;
 - the routes: the object-chunked kernels take the env and one bounce at spp
-  1, and refuse object textures, spp 4 with a bounce and two bounces by
-  name;
+  1, and refuse spp 4 with object textures, spp 4 with a bounce and two
+  bounces by name;
 - the CLI: `invert --config 10` on the CPU.
 
 One compiled JAX function (both renders and the bounce's vjp, at XLA's
@@ -241,7 +241,10 @@ def test_routes_take_env_and_bounce():
 
 
 @pytest.mark.parametrize("what, kw, why", [
-    ("textures", dict(), "object textures"),
+    # object textures (spp 1, up to one bounce) are covered: this case holds
+    # the refusal that remains, spp 4 with a texel grid (its id kept)
+    pytest.param("textures", dict(spp=4, reflections=0), "spp 4 with a texel grid",
+                 id="textures-kw0-object textures"),
     ("spp4", dict(spp=4), "spp 4 with mirror reflections"),
     ("two_bounces", dict(reflections=2), "reflections > 1"),
 ])

@@ -1423,11 +1423,11 @@ def test_texture_inversion_meets_the_jax_criteria(cuda, num, frac):
 @pytest.mark.cuda
 def test_texture_refusals_on_cuda(cuda):
     """On CUDA each combination the textured instances do not take raises by
-    name and launches nothing: spp 4 with a texel grid, object textures with
-    a bounce, two bounce levels with the environment map, object textures
-    past 24 objects (the object-chunked kernels, which take the environment
-    map), a soft render of a textured scene, and a grid whose rows do not
-    fit a block's shared memory."""
+    name and launches nothing: spp 4 with a texel grid, at most 24 objects
+    and past 24 (the object-chunked kernels' textured instances are spp 1
+    too), two bounce levels with the environment map, a soft render of a
+    textured scene at most 24 objects and past 24, and a grid whose rows do
+    not fit a block's shared memory."""
     tex, _, cfg7 = configs.config7_texture(size=32, device=cuda)
     sky, _, cfg9 = configs.config9_sky(size=32, device=cuda)
     big = configs.config9_sky(size=32, env_k=48, device=cuda)[0]
@@ -1436,10 +1436,10 @@ def test_texture_refusals_on_cuda(cuda):
         many.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
     for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4), "spp 4 with a texel grid"),
-                      (tex, dataclasses.replace(cfg7, reflections=1),
-                       "object textures with mirror reflections"),
+                      (many, dataclasses.replace(cfg5, spp=4), "spp 4 with a texel grid"),
                       (sky, dataclasses.replace(cfg9, reflections=2), "reflections > 1"),
-                      (many, cfg5, "object textures"),
+                      (many, dataclasses.replace(cfg5, soft_tau=0.05),
+                       "object textures or environment maps"),
                       (tex, dataclasses.replace(cfg7, soft_tau=0.05),
                        "object textures or environment maps"),
                       (big, cfg9, "a texel grid this large")):
@@ -1546,13 +1546,14 @@ def test_chrome_render_bwd_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 def test_chrome_refusals_on_cuda(cuda):
-    """Past 24 objects, object textures, spp 4 with the env or a bounce and
-    two bounces raise by name and launch nothing."""
+    """Past 24 objects, spp 4 with object textures, with the env or with a
+    bounce, and two bounces raise by name and launch nothing."""
     scene, _, cfg = _chrome_case(cuda, "config10")
     tex = dataclasses.replace(scene, rects=dataclasses.replace(
         scene.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused_vec.KERNELS]
-    for s, c, why in ((tex, cfg, "object textures"),
+    for s, c, why in ((tex, dataclasses.replace(cfg, spp=4, reflections=0),
+                       "spp 4 with a texel grid"),
                       (scene, dataclasses.replace(cfg, spp=4), "spp 4 with mirror reflections"),
                       (scene, dataclasses.replace(cfg, spp=4, reflections=0),
                        "spp 4 with an environment map"),
@@ -1560,3 +1561,236 @@ def test_chrome_refusals_on_cuda(cuda):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused_vec.KERNELS] == before
+
+
+# ---------------------------------------------------------------------------
+# Object texel grids in rows 4-6: the textured globes, configs 7 and 8 with a
+# bounce
+# ---------------------------------------------------------------------------
+
+# name: (what, image size, bounce levels, the grids' side, the env's side, the floor's grid side)
+VEC_TEX_CASES = {
+    "globes": ("globes", (64, 64), 0, 16, 0, 0),
+    "globes_bounce": ("globes", (64, 96), 1, 16, 0, 0),
+    "globes_env_bounce": ("globes", (48, 64), 1, 8, 16, 0),
+    "globes_floor_env_bounce": ("globes", (48, 64), 1, 8, 16, 4),
+    "config7_bounce": (7, (64, 64), 1, 16, 0, 0),
+    "config8_bounce": (8, (64, 64), 1, 16, 0, 0),
+}
+
+
+def _globes(cuda, size, refl, k=16, env_k=0, floor_k=0):
+    """Config 5's 64 spheres + ground, each sphere with a (k, k, 3) texel
+    grid uniform(0.1, 0.9) of default_rng(7) and, with ``refl``, mirror
+    coefficients uniform(0.2, 0.8) drawn next (the JAX package's
+    scripts/vec_textured_tpu_check.py); with ``env_k`` config 9's sky of that
+    side, with ``floor_k`` a ground grid of that side drawn next (the rects'
+    texels after the spheres' in the texel row). Trains the object texels."""
+    scene, _, cfg = configs.config5_many_spheres(size=size, device=cuda)
+    sp = scene.spheres
+    rng = np.random.default_rng(7)
+    sp = dataclasses.replace(sp, texture=torch.tensor(
+        rng.uniform(0.1, 0.9, (sp.count, k, k, 3)), dtype=torch.float32, device=cuda))
+    if refl:
+        mir = torch.tensor(rng.uniform(0.2, 0.8, (sp.count,)), dtype=torch.float32, device=cuda)
+        sp = dataclasses.replace(sp, material=dataclasses.replace(sp.material, mirror=mir))
+    scene = dataclasses.replace(scene, spheres=sp)
+    if env_k:
+        scene = dataclasses.replace(scene, env=configs.config9_sky(size=size, env_k=env_k,
+                                                                   device=cuda)[0].env)
+    spec = configs.ParamSpec.none(scene).train("spheres.texture", lower=0.0, upper=1.0)
+    if floor_k:
+        floor = torch.tensor(rng.uniform(0.1, 0.9, (1, floor_k, floor_k, 3)), dtype=torch.float32,
+                             device=cuda)
+        scene = dataclasses.replace(scene, rects=dataclasses.replace(scene.rects, texture=floor))
+        spec = configs.ParamSpec.none(scene).train(
+            lambda path: path.endswith("texture"), lower=0.0, upper=1.0)
+    return scene, spec, dataclasses.replace(cfg, reflections=refl)
+
+
+def _vec_tex_case(cuda, name, seed=0):
+    """(truth, start, cfg): the case at its size, its object texels moved by
+    perturb(scale=0.4, seed)."""
+    what, (H, W), refl, k, env_k, floor_k = VEC_TEX_CASES[name]
+    if what == "globes":
+        scene, spec, cfg = _globes(cuda, H, refl, k, env_k, floor_k)
+    else:
+        scene, spec, cfg = configs.CONFIGS[what](size=H, device=cuda)
+        cfg = dataclasses.replace(cfg, reflections=refl)
+    cfg = dataclasses.replace(cfg, height=H, width=W)
+    return scene, configs.perturb(scene, spec, scale=0.4, seed=seed), cfg
+
+
+def _object_texels(grads):
+    return torch.cat([grads.spheres.texture.reshape(-1), grads.rects.texture.reshape(-1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(VEC_TEX_CASES))
+def test_vec_texture_forward_bit_identical(cuda, name):
+    """Row 4's textured instances against `render_vec_plain`: the image bit
+    for bit; (1 + R) L planes, level 0's bit for bit where the primary ray
+    hit and level 1's where both levels hit, 0 elsewhere; one launch a call,
+    three calls the same bits; `resolve_impl` takes them."""
+    _, start, cfg = _vec_tex_case(cuda, name)
+    assert resolve_impl(start, cfg) == "cuda_vec"
+    before = fused_vec.VEC_RENDER.launches
+    runs = [fused_vec.render_vec(start, cfg) for _ in range(3)]
+    assert fused_vec.VEC_RENDER.launches == before + 3
+    assert all(torch.equal(runs[0][0], r[0]) and torch.equal(runs[0][1], r[1]) for r in runs[1:])
+    img_k, vis_k = runs[0]
+    img_p, vis_p = fused_vec.render_vec_plain(start, cfg)
+    L = start.lights.count
+    assert vis_k.shape == vis_p.shape == ((1 + cfg.reflections) * L, cfg.height, cfg.width)
+    assert torch.equal(img_k, img_p)
+    for lv, hit in enumerate(fused_vec.level_hits(start, cfg)):
+        k, p = vis_k[lv * L:(lv + 1) * L], vis_p[lv * L:(lv + 1) * L]
+        assert torch.equal(k[:, hit], p[:, hit]) and not k[:, ~hit].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(VEC_TEX_CASES))
+def test_vec_texture_step_matches_adjoint(cuda, name):
+    """Row 6's textured instances against the eager twin and autograd (loss
+    within 1e-4 relative, every leaf within 1e-2 of its scale, the texels'
+    included and not all 0); one launch a call, three calls the same bits;
+    against row 4's own image of the true scene a loss and gradient of
+    exactly 0."""
+    scene, start, cfg = _vec_tex_case(cuda, name)
+    target = fused_vec.render_vec(scene, cfg)[0]
+    before = fused_vec.VEC_STEP.launches
+    runs = [fused_vec.loss_grad_vec(start, cfg, target) for _ in range(3)]
+    assert fused_vec.VEC_STEP.launches == before + 3
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    assert all(torch.equal(flat[0], f) for f in flat[1:])
+    l_k, g_k = runs[0]
+    assert bool(_object_texels(g_k).any())
+    for ref in (fused_vec.loss_grad_vec_adjoint_eager, fused_vec.loss_grad_vec_plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    l_0, g_0 = fused_vec.loss_grad_vec(scene, cfg, target)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(VEC_TEX_CASES))
+def test_vec_texture_render_bwd_matches_plain(cuda, name):
+    """Row 5's textured instances, by autograd of `render`: against autograd
+    of the eager render and the eager twin fed row 4's planes, every leaf
+    within 1e-2 of its scale, the texels' not all 0; one launch a call, three
+    calls the same bits; its mse gradient row 6's bit for bit."""
+    scene, start, cfg = _vec_tex_case(cuda, name)
+    g = _seeded(cfg, 0, cuda)
+    before = fused_vec.VEC_RENDER_BWD.launches
+    runs = [fused.flatten_scene(fused.autograd_vjp(render, start, cfg, g)) for _ in range(3)]
+    assert fused_vec.VEC_RENDER_BWD.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    got = fused.autograd_vjp(render, start, cfg, g)
+    assert bool(_object_texels(got).any())
+    _close_leaves(fused_vec.render_vec_bwd_plain(start, cfg, g), got)
+    _close_leaves(fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g,
+                                                         fused_vec.render_vec(start, cfg)[1]),
+                  got)
+    target = render(scene, cfg).detach()
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([(torch.zeros_like(l) if l.grad is None else l.grad).reshape(-1)
+                           for l in leaves])
+    assert torch.equal(by_render, fused.flatten_scene(
+        fused_vec.loss_grad_vec(start, cfg, target)[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(VEC_TEX_CASES))
+def test_vec_texture_smem_matches_python(cuda, name):
+    """`fused_vec.texel_step_smem_bytes`, which the dispatch refuses by, is
+    what the textured step's and render backward's C entries count."""
+    _, start, cfg = _vec_tex_case(cuda, name)
+    dims = (start.spheres.count, start.rects.count, start.lights.count,
+            *fused_vec.tex_levels(start, cfg)[1:])
+    want = fused_vec.texel_step_smem_bytes(start)
+    assert fused_vec.VEC_STEP.lib().rrt_vec_step_tex_smem(*dims) == want
+    assert fused_vec.VEC_RENDER_BWD.lib().rrt_vec_render_bwd_tex_smem(*dims) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num, frac", [(7, 0.25), (8, 0.3)])
+def test_vec_texture_inversion_meets_the_jax_criteria(cuda, num, frac):
+    """`invert --config N --reflections 1 --lr 3e-2 --perturb 0.4 --iters 200`
+    at 64^2 on the card, through row 6 (200 launches) and row 4 (the
+    target), no row 1-3: a final loss below 1e-5 and the observable texels'
+    RMS error below ``frac`` of its start (the JAX tests' criteria; the
+    configs' mirror coefficients are 0, so the bounce adds nothing to the
+    image)."""
+    from reversible_raytracer_tpu_torch import cli
+
+    scene, spec, cfg = configs.CONFIGS[num](size=64, device=cuda)
+    cfg = dataclasses.replace(cfg, reflections=1)
+    for k in fused.KERNELS + fused_vec.KERNELS:
+        k.launches = 0
+    out = cli.main(["invert", "--config", str(num), "--reflections", "1", "--size", "64", "--lr",
+                    "3e-2", "--perturb", "0.4", "--iters", "200", "--log-every", "199",
+                    "--quiet"])
+    assert (fused_vec.VEC_STEP.launches, fused_vec.VEC_RENDER.launches) == (200, 1)
+    assert all(k.launches == 0 for k in fused.KERNELS)
+    target = fused_vec.render_vec(scene, cfg)[0] * 0.9
+    mask = _texel_leaf(fused_vec.loss_grad_vec(scene, cfg, target)[1], scene).abs() > 1e-10
+    start = configs.perturb(scene, spec, scale=0.4, seed=0)
+    truth = _texel_leaf(scene, scene)
+    err0 = float(((_texel_leaf(start, scene) - truth)[mask] ** 2).mean().sqrt())
+    err1 = float(((_texel_leaf(out["scene"], scene) - truth)[mask] ** 2).mean().sqrt())
+    assert out["history"][-1]["loss"] < 1e-5
+    assert err1 < frac * err0, (err0, err1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refl", [0, 1])
+def test_vec_texture_captured_loop_matches_eager(cuda, refl):
+    """The globes' 49,152 texels through the captured step (`optim.make_step`:
+    the static buffers and the flat Adam update) and the eager one
+    (`make_eager_step`) from the same start: the losses and the final
+    trainable vector bit for bit, one launch of row 6 a step, the loss
+    falling."""
+    from reversible_raytracer_tpu_torch import optim
+
+    scene, spec, cfg = _globes(cuda, 64, refl)
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.4, seed=0)
+    ocfg = optim.OptConfig(iters=6, lr=3e-2)
+    flags = optim.trainable_flags(spec)
+    assert int(optim.ravel_trainable(start, flags).numel()) == 64 * 16 * 16 * 3
+    runs = []
+    for make in (optim.make_step, optim.make_eager_step):
+        step, init = make(cfg, spec, ocfg)
+        s, state = start, init(start)
+        losses = torch.empty((ocfg.iters,), device=cuda)
+        before = fused_vec.VEC_STEP.launches
+        for i in range(ocfg.iters):
+            s, state, loss, _ = step(s, state, target)
+            losses[i] = loss
+        assert fused_vec.VEC_STEP.launches - before == ocfg.iters
+        runs.append((losses, optim.ravel_trainable(s, flags).clone()))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert float(runs[0][0][-1]) < float(runs[0][0][0])
+
+
+@pytest.mark.cuda
+def test_vec_texture_refusals_on_cuda(cuda):
+    """Object texel grids past 24 objects at spp 4, with two bounces, in a
+    soft render, and grids whose gradient row does not fit a block's shared
+    memory (the 64 globes' 16 x 16 grids beside a 16 x 16 sky) raise by name
+    and launch nothing."""
+    scene, _, cfg = _globes(cuda, 32, 1)
+    big = _globes(cuda, 32, 1, env_k=16)[0]
+    before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
+    for s, c, why in ((scene, dataclasses.replace(cfg, spp=4, reflections=0),
+                       "spp 4 with a texel grid"),
+                      (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
+                      (scene, dataclasses.replace(cfg, soft_tau=0.05, reflections=0),
+                       "object textures or environment maps"),
+                      (big, cfg, "object texel grids this large")):
+        with pytest.raises(NotImplementedError, match=why):
+            render(s, c)
+    assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS
+            + fused_vec_soft.KERNELS] == before

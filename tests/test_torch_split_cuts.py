@@ -1,12 +1,13 @@
 """The split tools' cuts against the current CUDA sources, on the CPU.
 
 tools/flat_step_split.py and tools/vec_step_split.py time variant builds
-of the step and forward kernels (rows 1-2 and 4-7), each with one part cut by a text
-substitution that must match its source exactly once (make_variant raises
-otherwise). A cut that no longer matches would show only on the card, after
-the build; here every cut of the set each tool picks for the current
-sources is applied to a copy of them, without nvcc. Nothing here imports JAX; the file runs in
-about a second, on one torch thread.
+of the step and forward kernels (rows 1-2 and 4-7; the textured step too),
+each with one part cut by a text substitution that must match its source
+exactly once (make_variant raises otherwise). A cut that no longer matches
+would show only on the card, after the build; here every cut of the set
+each tool picks for the current sources is applied to a copy of them,
+without nvcc. Nothing here imports JAX; the file runs in about a second, on
+one torch thread.
 """
 
 import sys
@@ -44,6 +45,8 @@ def _current_cuts():
     cases += [("flat_fwd", name, subs, "fused_render.cu") for name, subs in flat_fwd.items()]
     cases += [("vec", name, subs, "fused_vec_step.cu")
               for name, subs in vec_step_split.CUTS_CULLED.items()]
+    cases += [("vec_tex", name, subs, "fused_vec_step.cu")
+              for name, subs in vec_step_split.TEX_CUTS.items()]
     for kernel, source in (("fwd", "fused_vec_render.cu"), ("soft_fwd", "fused_vec_soft_render.cu")):
         _, cuts = vec_step_split.cut_set(CSRC, kernel)
         cases += [(kernel, name, subs, source) for name, subs in cuts.items()]

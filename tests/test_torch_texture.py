@@ -288,8 +288,8 @@ def test_cuda_route_refuses_by_name():
     for kw, why in ((dict(spp=4), "spp 4 with a texel grid"),
                     (dict(reflections=1), "object textures with mirror reflections")):
         assert why in fused.uncovered(ts, dataclasses.replace(cfg, **kw), texels=True)
-    with pytest.raises(NotImplementedError, match="object textures"):
-        fused_vec.check_vec_kernel_config(ts, cfg)
+    with pytest.raises(NotImplementedError, match="spp 4 with a texel grid"):
+        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4))
     big = configs.config7_texture(16, tex_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
     assert fused.step_smem_bytes(1, 1, 1, 0, 16, 0) <= fused.MAX_BLOCK_SMEM

@@ -13,9 +13,10 @@ fused_vec_step.cu) of this checkout and of the checkout ``DIR`` (a ``git
 archive`` of an older commit, say) with this checkout's nvcc flags, all
 twelve at once, and loads each with ctypes. For each source it compares the
 two trees' machine code (``cuobjdump -sass``) kernel by kernel, this tree's
-textured instances (flat_step_tex_kernel, render_kernel_tex) and the vec
-family's env and bounce instances (vec_render_levels_kernel,
-vec_step_levels_kernel) left out. Then it calls each row's entry on the
+textured instances (flat_step_tex_kernel, render_kernel_tex,
+vec_render_tex_kernel, vec_step_tex_kernel) and the vec family's env and
+bounce instances (vec_render_levels_kernel, vec_step_levels_kernel) left
+out. Then it calls each row's entry on the
 same inputs, through the entries both trees have: rows 1-3 at config 2
 512^2 from perturb(scale=0.1, seed=4) against the plain render of the true
 scene, and with their bounce level (rows 1r-3r, the refl entries) at config

@@ -5,7 +5,7 @@ unchanged build. By default the step (row 6, csrc/fused_vec_step.cu, body
 csrc/vec_step.cuh).
 
     python3 tools/vec_step_split.py [--tree DIR] [--reps 2]
-                                    [--kernel step|bwd|fwd|soft_fwd]
+                                    [--kernel step|bwd|fwd|soft_fwd] [--textured]
 
 ``--tree`` names a checkout of the repository whose kernels are split (by
 default the one this script lies in); its port package is imported and its
@@ -55,6 +55,14 @@ told apart by whether the forward's source calls primary_candidates):
   - three_blocks (after the culls): not a cut but the launch bound of 3
     blocks an SM, which lets ptxas give a thread 85 registers where it
     otherwise keeps 64.
+``--textured`` (with ``--kernel step`` or ``bwd``) splits the textured
+instances instead (vec_step_tex_kernel, through the ``_tex`` entries) on
+chip_smoke.py's 64 textured globes at 512^2 without and with one bounce
+(`globes_case`, perturb(scale=0.4, seed=0) of the texels), with the cuts of
+the object texel records' pass:
+  - no_texel_scatter: the records' scatter into the block's texel row cut
+    (the warp-by-warp loop and its barriers stay);
+  - no_texel_pass: the whole warp-by-warp loop cut, barriers included.
 A part's time is the unchanged build's less the variant's. Prints one JSON
 line per shape, then the card's nvidia-smi line; stops on a build failure.
 """
@@ -173,6 +181,18 @@ CUTS_CULLED = {
          "  if (tid == 0) prow[GROW] = orow[0];"),
     ],
     "no_reduce": [("vec_step.cuh", REDUCE_LAUNCH.replace("nrows", "nblocks"), "")],
+}
+
+
+# The textured step and backward (vec_step_tex_kernel): the object texel
+# records' pass after each tile's winner lists.
+TEX_CUTS = {
+    "full": [],
+    "no_texel_scatter": [("vec_step.cuh", "scatter_texels(pg.otex[q], trow, trec, lane);",
+                          "(void)q;")],
+    "no_texel_pass": [("vec_step.cuh",
+                       "            for (int v = 0; v < NWARPS; ++v) {\n              if (v == warp) {",
+                       "            for (int v = 0; v < 0; ++v) {\n              if (v == warp) {")],
 }
 
 
@@ -431,7 +451,11 @@ def main() -> int:
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--kernel", choices=("step", "bwd", "fwd", "soft_fwd"), default="step")
+    ap.add_argument("--textured", action="store_true",
+                    help="the textured instances of the step or backward, on the globes")
     args = ap.parse_args()
+    if args.textured and args.kernel not in ("step", "bwd"):
+        ap.error("--textured splits the step or the render backward")
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -448,17 +472,21 @@ def main() -> int:
     from reversible_raytracer_tpu_torch.ops.pipeline_vec import nearest_vec
 
     which, cuts = cut_set(_build.CSRC, args.kernel)
+    if args.textured:
+        which, cuts = "textured", TEX_CUTS
     step = args.kernel == "step"
     forward = args.kernel in ("fwd", "soft_fwd")
     kernel = {"step": fused_vec.VEC_STEP, "bwd": fused_vec.VEC_RENDER_BWD,
               "fwd": fused_vec.VEC_RENDER, "soft_fwd": fused_vec_soft.SOFT_RENDER}[args.kernel]
     kernel_fn = {"fwd": "vec_render_kernel", "soft_fwd": "soft_render_kernel"}.get(
-        args.kernel, "vec_step_kernel")
+        args.kernel, "vec_step_tex_kernel" if args.textured else "vec_step_kernel")
     libs, ptxas = build_variants(_build, cuts, kernel, kernel_fn)
     print(json.dumps({"split": "build", "kernel": kernel.name, "cuts": which,
                       "ptxas": ptxas}), flush=True)
 
     stream = torch.cuda.current_stream().cuda_stream
+    if args.textured:
+        return split_textured(args, libs, kernel, step, tree)
     shapes = ((("config5_1024", 64, 1024, 0.0), ("513obj_512", 512, 512, 0.0))
               if args.kernel != "soft_fwd" else
               (("config5_512_t0.08", 64, 512, 0.08), ("config5_1024_t0.08", 64, 1024, 0.08),
@@ -547,6 +575,81 @@ def main() -> int:
             line.update(device_ms=dev, part_device_ms={
                 name: dfull - statistics.mean(t) for name, t in dev.items() if name != "full"})
         print(json.dumps(line), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
+    return 0
+
+
+def split_textured(args, libs, kernel, step, tree) -> int:
+    """The ``--textured`` split: every build's event time through the
+    ``_tex`` entries on the globes at 512^2 without and with one bounce."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(tree))
+    from chip_smoke import globes_case
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for refl in (0, 1):
+        scene, spec, cfg = globes_case(512, refl)
+        start = configs.perturb(scene, spec, scale=0.4, seed=0)
+        target = fused_vec.render_vec(scene, cfg)[0].contiguous()
+        vis = fused_vec.render_vec(start, cfg)[1].contiguous()
+        glob, sph, rct = fused_vec.packed_inputs(start)
+        tex = fused_vec.texel_inputs(start)
+        geom = fused_vec._geometry(start, cfg)
+        tl = fused_vec.tex_levels(start, cfg)
+        H, W = cfg.height, cfg.width
+        g_img = torch.from_numpy(np.random.default_rng(0).normal(size=(H, W, 3)).astype(
+            np.float32)).cuda()
+        entry = "vec_step" if step else "vec_render_bwd"
+        scratch = torch.empty((getattr(libs["full"], f"rrt_{entry}_tex_scratch_floats")(
+            geom[0], geom[1], *geom[4:7], *tl[1:]),), device="cuda")
+        n_out = 1 + glob.numel() + sph.numel() + rct.numel() + fused_vec.texel_row(start)
+        outs = {name: torch.empty((n_out,), device="cuda") for name in libs}
+        rows = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *(t.data_ptr() for t in tex),
+                *geom)
+        calls = {}
+        for name, lib in libs.items():
+            def call(lib=lib, out=outs[name]):
+                if step:
+                    err = lib.rrt_vec_step_tex(*rows, *tl, target.data_ptr(), 1.0 / (H * W * 3),
+                                               scratch.data_ptr(), out.data_ptr(), stream)
+                else:
+                    err = lib.rrt_vec_render_bwd_tex(*rows, 0.0, 0.0, *tl, g_img.data_ptr(),
+                                                     vis.data_ptr(), scratch.data_ptr(),
+                                                     out.data_ptr(), stream)
+                if err != 0:
+                    raise RuntimeError(f"{kernel.name} failed: CUDA error {err}")
+            calls[name] = call
+            call()
+        torch.cuda.synchronize()
+        if step:  # the full build's loss and gradient are the shipped kernel's
+            l_s, g_s = fused_vec.loss_grad_vec(start, cfg, target)
+            norm = fused_vec.fused._loss_norm(cfg, "mse")
+            same_as_shipped = bool(torch.equal(l_s, norm * outs["full"][0]) and torch.equal(
+                torch.cat([t.reshape(-1) for t in fused_vec.pack_texels(g_s)]),
+                outs["full"][n_out - fused_vec.texel_row(start):]))
+        else:
+            shipped = fused_vec._render_bwd_launch(start, cfg, (0.0, 0.0), glob, sph, rct, g_img,
+                                                   vis, tex)
+            same_as_shipped = bool(torch.equal(
+                torch.cat([t.reshape(-1) for t in fused_vec.pack_texels(shipped)]),
+                outs["full"][n_out - fused_vec.texel_row(start):]))
+        diff = {name: float((outs[name] - outs["full"]).abs().max()) for name in libs}
+        times = {name: [] for name in libs}
+        for _ in range(args.reps):
+            for name, call in calls.items():
+                times[name].append(time_ms(call))
+        full = statistics.mean(times["full"])
+        print(json.dumps({"split": f"globes_r{refl}_512", "ms": times,
+                          "part_ms": {name: full - statistics.mean(t)
+                                      for name, t in times.items() if name != "full"},
+                          "max_diff_from_full": diff, "full_is_shipped": same_as_shipped}),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0
