@@ -233,8 +233,8 @@ non-zero:
                0.3 of its start, `observable_texels`); 20 steps of
                optimize(render_fn=render) on each at 512^2 (row 2 21 times,
                row 3 20); and three refusals by name (`render --config 7 --spp
-               4`, `render --config 8 --reflections 2`, `invert --config 7
-               --anneal 0.05,0`).
+               4`, `render --config 8 --reflections 2`, `invert --config 9
+               --anneal 0.05,0`: its bounce under a soft stage).
  28. chrome  - rows 4-6's environment-map and bounce instances (the ``_levels``
                entries: level 1 over every sphere, its shadow rays culled,
                the env ending the globals) at config 10 (64 chrome spheres
@@ -298,6 +298,36 @@ non-zero:
                optimize(render_fn=render) (rows 4 + 5, 20 times each) on the
                globes' texels at 512^2 without and with the bounce; each loss
                falls.
+ 32. soft_texture - rows 7, 8 and 9's texel instances (the ``_tex`` entries:
+               each soft layer's textured winner's grid gathered from global
+               memory, the environment's sample the composite's blend target at
+               every pixel; the texel records into a block texel row) on the
+               globes (softtex) and the sky field (softenv: `sky_field_case`)
+               at 512^2, tau 0.05, and configs 7, 8 and 9 without its bounce at
+               512^2, tau 0.08, from perturb(scale=0.4, seed=0) of their texels:
+               row 7 by the oracle rule against its plain version; rows 9 and
+               8 (by autograd of `render`) against autograd and their twins,
+               every leaf within 1e-2 of its scale, the texels' gradient not 0;
+               three calls of each bit-identical; row 9 against row 7's own
+               image a loss and gradient of exactly 0; row 8's mse gradient row
+               9's bit for bit; each row's event and device time, launches per
+               call, plain version's time and bound (`soft_texture_bounds`: both
+               layers' textured winners and the env's sample at every pixel in
+               `TEX_OPS`, the texels read once and their gradient written
+               once); the textured step's shared memory and prefix slots
+               (pcap), Python's count against the C entries', with and without
+               the grids, and the share of warps whose shadow walks overflow
+               each (`prefix_overflow`).
+ 33. soft_texture_main - invert --config 7|8|9 --anneal 0.08,0.03,0.01,0 --lr
+               3e-2 --perturb 0.4 --iters 50 (config 9 with --reflections 0) at
+               512^2 and 64^2: row 7 three times, row 9 150, row 1 50 and row 2
+               twice, no other kernel; every stage's loss falls and the
+               observable texels' RMS error ends below its start;
+               `optimize_annealed` on the globes' texels and on the sky field's
+               env at 512^2 (taus 0.08, 0.03, 0.01, 0, 20 steps a stage: rows 7
+               and 9 in the soft stages, row 6's texel or env instance in the
+               polish); 20 steps of optimize(render_fn=render) on the globes at
+               tau 0.05 (row 7 21 times, row 8 20); every loss falls.
 Then a `timing` line (each phase's wall seconds), the card's nvidia-smi
 line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
@@ -313,7 +343,9 @@ CLI path); rows 1-3 add `mirror`, their numbers with a bounce level from
 phases 24 and 25; rows 1-3 add `texture`, their textured instances'
 numbers per config from phases 26 and 27; rows 4-6 add `chrome`, their env
 and bounce instances' numbers per case from phases 28 and 29, and `globes`,
-their textured instances' per case from phases 30 and 31), and last
+their textured instances' per case from phases 30 and 31; rows 7-9 add
+`soft_texture`, their texel instances' per case from phases 32 and 33), and
+last
 {"ok": true, "device": {...}}.
 """
 
@@ -3100,9 +3132,9 @@ def phase_texture_main():
         ("render_config8_reflections_2", ["render", "--config", "8", "--size", "64",
                                           "--reflections", "2", "-o", refused],
          "reflections > 1", {}),
-        ("invert_config7_anneal", ["invert", "--config", "7", "--size", "64", "--anneal",
+        ("invert_config9_anneal", ["invert", "--config", "9", "--size", "64", "--anneal",
                                    "0.05,0", "--iters", "2", "--quiet"],
-         "do not sample texels yet", {"fused_render": 1})), rows))
+         "mirror reflections require hard semantics", {"fused_render": 1})), rows))
     rows["phase_seconds"] = time.perf_counter() - t_phase
     if not all(oks):
         raise AssertionError(f"a config 7-9 run did not run through the expected kernels, did "
@@ -3761,6 +3793,368 @@ def phase_globes_main():
     return counts
 
 
+# Rows 7-9's texel instances (phases soft_texture and soft_texture_main): the
+# JAX package's scripts/vec_textured_tpu_check.py softtex and softenv modes
+# at 512^2, tau 0.05 (the globes, `globes_case`; the sky field: config 5's 64
+# spheres + ground under a 16 x 16 sky uniform(0.1, 0.9) from default_rng(7),
+# seen from (0, 1.5, 9.5) toward (0, 2.5, 0) at 60 degrees, so that misses
+# exist), and configs 7, 8 and 9 (without its bounce) at 512^2, tau 0.08;
+# each from perturb(scale=0.4, seed=0) of its trained texels.
+SOFT_TEX_CASES = (("softtex_512", "globes", 0.05), ("softenv_512", "sky", 0.05),
+                  ("config7_512", 7, 0.08), ("config8_512", 8, 0.08),
+                  ("config9_r0_512", 9, 0.08))
+SOFT_TEX_SIZE = 512
+
+
+def sky_field_case(size=SOFT_TEX_SIZE, device="cuda"):
+    """(scene, spec, cfg) of the sky field at ``size``^2: config 5's 64
+    spheres + ground under a (16, 16, 3) sky, trained on the sky."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import Camera, ParamSpec
+
+    scene, _, cfg = configs.config5_many_spheres(size, device=device)
+    env = np.random.default_rng(7).uniform(0.1, 0.9, (GLOBE_K, GLOBE_K, 3))
+    scene = dataclasses.replace(
+        scene, env=torch.tensor(env, dtype=torch.float32, device=device),
+        camera=Camera.make((0.0, 1.5, 9.5), (0.0, 2.5, 0.0), fov_deg=60.0, device=device))
+    return scene, ParamSpec.none(scene).train("env", lower=0.0, upper=1.0), cfg
+
+
+def _soft_tex_case(kind, tau, size=SOFT_TEX_SIZE):
+    """(scene, spec, cfg, start) of a case of phase soft_texture at ``size``^2
+    and soft_tau ``tau`` (no bounce), from perturb(scale=0.4, seed=0)."""
+    import dataclasses
+
+    from reversible_raytracer_tpu_torch.models import configs
+
+    if kind == "globes":
+        scene, spec, cfg = globes_case(size)
+    elif kind == "sky":
+        scene, spec, cfg = sky_field_case(size)
+    else:
+        scene, spec, cfg = configs.CONFIGS[kind](size=size, device="cuda")
+    cfg = dataclasses.replace(cfg, soft_tau=tau, reflections=0)
+    return scene, spec, cfg, configs.perturb(scene, spec, scale=0.4, seed=0)
+
+
+def _soft_texel_leaf(grads, scene):
+    """The gradient of a scene's texel grids (the objects' and the env's), flat."""
+    import torch
+
+    leaves = [grads.spheres.texture, grads.rects.texture] + ([grads.env] if scene.env_mapped
+                                                             else [])
+    return torch.cat([x.reshape(-1) for x in leaves])
+
+
+def prefix_overflow(scene, cfg, pcaps):
+    """The share of the warps (32 pixels of a row) whose shadow walks, over
+    both soft layers and every light (`cull.warp_candidates` at tau), hold
+    more candidates than each ``pcaps`` value: where the soft step's kept
+    prefixes run out and its backward walk rebuilds them."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops import pipeline as pl
+    from reversible_raytracer_tpu_torch.ops import pipeline_vec as pv
+    from reversible_raytracer_tpu_torch.ops.kernels import cull
+
+    with torch.no_grad():
+        o, d = pl.primary_rays(scene, cfg)
+        total = 0
+        for _, k in pv.two_layers(scene, o, d, cfg.soft_tau):
+            tt, lv, at, _ = pv.soft_layer(scene, o, d, k, cfg.soft_tau, cfg.shape)
+            so = pl.shadow_origin(o, d, tt, (at["nx"], at["ny"], at["nz"]))
+            for li in range(scene.lights.count):
+                total = total + cull.warp_candidates(scene.spheres, so, lv,
+                                                     scene.lights.position[li],
+                                                     cfg.soft_tau).sum(-1)
+    return {str(p): float((total > p).float().mean()) for p in pcaps}
+
+
+def soft_texture_bounds(start, cfg, nbytes):
+    """Rows 7, 8 and 9's bounds on a scene with texel grids: (ms, by) each,
+    `soft_work_counts` with `texel_ops` of both layers' textured winners and
+    the environment's sample at every pixel; ``nbytes``: each row's bytes."""
+    c = soft_work_counts(start, cfg)
+    sp, rc = start.spheres, start.rects
+    t = dict(tex_sph=c["live_sph"] if sp.textured else 0,
+             tex_rect=c["live_rect"] if rc.textured else 0, tex_sph1=0, tex_rect1=0,
+             env0=c["pixels"] if start.env_mapped else 0, env1=0)
+    ops = dict(fused_vec_soft_render=soft_render_ops(c, cull=True) + texel_ops(t, False),
+               fused_vec_soft_step=soft_step_ops(c) + texel_ops(t, True),
+               fused_vec_soft_render_bwd=soft_bwd_ops(c) + texel_ops(t, True))
+    return {name: bound(ops[name], nbytes[name]) for name in ops}, dict(c, **t)
+
+
+def phase_soft_texture():
+    """Rows 7, 8 and 9's texel instances (the ``_tex`` entries) on the
+    SOFT_TEX_CASES (see the module's docstring, phase 32). Returns each
+    row's numbers per case."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft as fvs
+    from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn, render, resolve_impl
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    stream = torch.cuda.current_stream().cuda_stream
+    optin = fused.host_query(fused_vec.VEC_RENDER, "rrt_smem_optin")
+    rows, oks, numbers = {}, [], {}
+    flat = lambda loss, g: torch.cat([loss.reshape(1), fused.flatten_scene(g)])  # noqa: E731
+    for label, kind, tau in SOFT_TEX_CASES:
+        scene, _, cfg, start = _soft_tex_case(kind, tau)
+        H, W = cfg.height, cfg.width
+        case = dict(impl=resolve_impl(start, cfg))
+        ok = [case["impl"] == "cuda_vec_soft"]
+        # ---- row 7 against its plain version (the oracle rule), three calls
+        before = fvs.SOFT_RENDER.launches
+        imgs = [fvs.render_vec_soft(start, cfg) for _ in range(3)]
+        per_call = (fvs.SOFT_RENDER.launches - before) / 3
+        img_p = fvs.render_vec_soft_plain(start, cfg)
+        torch.cuda.synchronize()
+        err = (imgs[0] - img_p).abs()
+        r = dict(wrapper_launches_per_call=per_call, frac_bad=float((err > 2e-3).float().mean()),
+                 mean_err=float(err.mean()), max_abs_err=float(err.max()),
+                 bit_identical=bool(torch.equal(imgs[0], img_p)),
+                 deterministic=all(torch.equal(imgs[0], i) for i in imgs[1:]),
+                 finite=bool(torch.isfinite(imgs[0]).all()))
+        case["fused_vec_soft_render"] = r
+        ok.append(r["frac_bad"] < 1e-3 and r["mean_err"] < 1e-4 and r["deterministic"]
+                  and r["finite"] and per_call == 1)
+        # ---- row 9: zero against row 7's own image, then autograd and the twin
+        target = fvs.render_vec_soft_plain(scene, cfg)
+        l_0, g_0 = fvs.loss_grad_vec_soft(scene, cfg, fvs.render_vec_soft(scene, cfg))
+        before = fvs.SOFT_STEP.launches
+        runs = [fvs.loss_grad_vec_soft(start, cfg, target) for _ in range(3)]
+        per_call = (fvs.SOFT_STEP.launches - before) / 3
+        l_k, g_k = runs[0]
+        r = dict(wrapper_launches_per_call=per_call, loss=float(l_k),
+                 zero_residual_exact=bool(float(l_0) == 0.0
+                                          and not fused.flatten_scene(g_0).any()),
+                 deterministic=all(torch.equal(flat(*runs[0]), flat(*x)) for x in runs[1:]),
+                 texel_grad_nonzero=float((_soft_texel_leaf(g_k, start) != 0).float().mean()))
+        good = r["zero_residual_exact"] and r["deterministic"] and per_call == 1
+        for name, ref in (("autograd", fvs.loss_grad_vec_soft_plain),
+                          ("adjoint_eager", fvs.loss_grad_vec_soft_adjoint_eager)):
+            l_r, g_r = ref(start, cfg, target)
+            rel = abs(float(l_k) - float(l_r)) / max(abs(float(l_r)), 1e-12)
+            good = _check_grads(r, name, g_r, g_k) and good and rel <= 1e-4
+            r[name]["loss_rel"] = rel
+        r["max_abs_err"] = r["autograd"]["max_abs_err"]
+        case["fused_vec_soft_step"] = r
+        ok.append(good and r["texel_grad_nonzero"] > 0)
+        # ---- row 8 by autograd of `render`: against the plain render's autograd
+        # and the twin; its mse gradient row 9's bit for bit
+        g = _seeded_cotangent(cfg)
+        before = fvs.SOFT_RENDER_BWD.launches
+        bwds = [_bwd(start, cfg, g) for _ in range(3)]
+        per_call = (fvs.SOFT_RENDER_BWD.launches - before) / 3
+        leaves = [x.clone().requires_grad_(True) for x in tree_leaves(start)]
+        ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+        by_render = torch.cat([(torch.zeros_like(x) if x.grad is None else x.grad).reshape(-1)
+                               for x in leaves])
+        by_step = fused.flatten_scene(loss_and_grad_fn(start, cfg)(start, target)[1])
+        r = dict(wrapper_launches_per_call=per_call,
+                 deterministic=all(torch.equal(fused.flatten_scene(bwds[0]),
+                                               fused.flatten_scene(b)) for b in bwds[1:]),
+                 texel_grad_nonzero=float((_soft_texel_leaf(bwds[0], start) != 0)
+                                          .float().mean()),
+                 mse_bit_equal_to_row9=bool(torch.equal(by_render, by_step)),
+                 mse_max_abs_diff_to_row9=float((by_render - by_step).abs().max()))
+        good = _check_grads(r, "plain", fvs.render_vec_soft_bwd_plain(start, cfg, g), bwds[0])
+        good = _check_grads(r, "twin", fvs.render_vec_soft_bwd_adjoint_eager(start, cfg, g),
+                            bwds[0]) and good
+        r["max_abs_err"] = r["plain"]["max_abs_err"]
+        case["fused_vec_soft_render_bwd"] = r
+        ok.append(good and r["deterministic"] and r["mse_bit_equal_to_row9"] and per_call == 1
+                  and r["texel_grad_nonzero"] > 0)
+        # ---- the textured step's block: shared memory and prefix slots, Python's
+        # count against the C entries', beside the same scene without its grids
+        sides = fused_vec.tex_levels(start, cfg)[1:]  # ke, ks, kr
+        dims = (start.spheres.count, start.rects.count, start.lights.count)
+        plan = fvs.soft_step_plan(start, optin)
+        smem = dict(python=plan["smem"],
+                    step=fused.host_query(fvs.SOFT_STEP, "rrt_soft_step_tex_smem", *dims, *sides),
+                    render_bwd=fused.host_query(fvs.SOFT_RENDER_BWD,
+                                                "rrt_soft_render_bwd_tex_smem", *dims, *sides))
+        bare = dataclasses.replace(
+            start, env=start.env[:0, :0],
+            spheres=dataclasses.replace(start.spheres, texture=start.spheres.texture[:, :0, :0]),
+            rects=dataclasses.replace(start.rects, texture=start.rects.texture[:, :0, :0]))
+        pcap = dict(python=plan["pcap"],
+                    c=fused.host_query(fvs.SOFT_STEP, "rrt_soft_step_pcap", *dims, *sides),
+                    without_grids_python=fvs.soft_step_plan(bare, optin)["pcap"],
+                    without_grids_c=fused.host_query(fvs.SOFT_STEP, "rrt_soft_step_pcap", *dims,
+                                                     0, 0, 0))
+        case.update(smem_bytes=smem, pcap=pcap, texels=fused_vec.texel_row(start),
+                    Sg=plan["Sg"],
+                    prefix_overflow=prefix_overflow(start, cfg, (pcap["c"], fvs.PCAP)))
+        ok.append(smem["python"] == smem["step"] == smem["render_bwd"]
+                  and pcap["python"] == pcap["c"]
+                  and pcap["without_grids_python"] == pcap["without_grids_c"])
+        # ---- times on the ``_tex`` entries, the plain versions', the bounds
+        glob, sph, rct, stex, rtex = fvs._cuda_inputs(start, cfg)
+        geom = fused_vec._geometry(start, cfg)
+        ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), stex.data_ptr(),
+                rtex.data_ptr(), *geom)
+        img = torch.empty((H, W, 3), device="cuda")
+        out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel()
+                           + fused_vec.texel_row(start),), device="cuda")
+        scratch = torch.empty((fused.host_query(fvs.SOFT_STEP, "rrt_soft_step_tex_scratch_floats",
+                                                *dims[:2], dims[2], H, W, *sides),),
+                              device="cuda")
+        calls = {
+            "fused_vec_soft_render": lambda: fvs.SOFT_RENDER.call(
+                "rrt_soft_render_tex", *ptrs, 0.0, 0.0, tau, *sides, img.data_ptr(), stream),
+            "fused_vec_soft_step": lambda: fvs.SOFT_STEP.call(
+                "rrt_soft_step_tex", *ptrs, tau, *sides, target.data_ptr(), 1.0 / (H * W * 3),
+                scratch.data_ptr(), out.data_ptr(), stream),
+            "fused_vec_soft_render_bwd": lambda: fvs.SOFT_RENDER_BWD.call(
+                "rrt_soft_render_bwd_tex", *ptrs, 0.0, 0.0, tau, *sides, g.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), stream)}
+        plain = {"fused_vec_soft_render": lambda: fvs.render_vec_soft_plain(start, cfg),
+                 "fused_vec_soft_step": lambda: fvs.loss_grad_vec_soft_plain(start, cfg, target),
+                 "fused_vec_soft_render_bwd": lambda: fvs.render_vec_soft_bwd_plain(start, cfg,
+                                                                                    g)}
+        Sg, (ns_pad, nr_pad) = glob.numel(), fused_vec.row_plan(start)
+        n_rows, n_tex = 4 * (Sg + ns_pad * 17 + nr_pad * 22), 4 * fused_vec.texel_row(start)
+        nbytes = dict(fused_vec_soft_render=n_rows + n_tex + 4 * H * W * 3,
+                      fused_vec_soft_step=2 * (n_rows + n_tex) + 4 * (H * W * 3 + 1),
+                      fused_vec_soft_render_bwd=2 * (n_rows + n_tex) + 4 * (H * W * 3 + 1))
+        bounds, case["work"] = soft_texture_bounds(start, cfg, nbytes)
+        for name, fn in calls.items():
+            dev = device_ms(fn)
+            case[name].update(ms=time_ms(fn), device_ms=dev["ms"],
+                              launches_per_call=dev["launches"], device=dev,
+                              plain_ms=time_ms(plain[name], **VEC_PLAIN_REPS),
+                              bound_ms=bounds[name][0], bound_by=bounds[name][1])
+            numbers.setdefault(name, {})[label] = {
+                k: case[name][k] for k in ("ms", "device_ms", "launches_per_call",
+                                           "wrapper_launches_per_call", "max_abs_err",
+                                           "plain_ms", "bound_ms", "bound_by")}
+        rows[label] = case
+        oks.append(all(ok))
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    if not all(oks):
+        raise AssertionError(f"a texel instance of rows 7-9 failed a check: {rows}")
+    emit("soft_texture", ok=True, rows=rows)
+    return numbers
+
+
+SOFT_TEX_TAUS = (0.08, 0.03, 0.01, 0.0)
+SOFT_TEX_ITERS = 50
+SOFT_TEX_RUN_SIZES = (512, 64)
+SOFT_TEX_OPT_ITERS = 20
+
+
+def phase_soft_texture_main():
+    """`invert --anneal` on configs 7, 8 and 9 (without its bounce), and
+    `optimize_annealed` and optimize(render_fn=render) on the globes and the
+    sky field (see the module's docstring, phase 33). Returns each run's
+    launch counts."""
+    import dataclasses
+    import time
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize, optimize_annealed
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    rows, counts, oks = {}, {}, []
+    t_phase = time.perf_counter()
+    n = len(SOFT_TEX_TAUS)
+
+    def texel_rms(scene, truth, spec, mask):
+        for a, b, t in zip(tree_leaves(scene), tree_leaves(truth), tree_leaves(spec.trainable)):
+            if t:
+                return float(((a - b)[mask] ** 2).mean().sqrt())
+
+    def stages(la, iters):
+        return [la[i * iters:(i + 1) * iters] for i in range(n)]
+
+    # ---- invert --config 7|8|9 --anneal (config 9 without its bounce)
+    for num in (7, 8, 9):
+        for size in SOFT_TEX_RUN_SIZES:
+            label = f"invert_config{num}_anneal_{size}"
+            argv = ["invert", "--config", str(num), "--size", str(size), "--anneal",
+                    ",".join(str(t) for t in SOFT_TEX_TAUS), "--lr", "3e-2", "--perturb", "0.4",
+                    "--iters", str(SOFT_TEX_ITERS), "--log-every", "0", "--quiet", "-o",
+                    str(REPO / "smoke_out" / f"final_{label}.png")]
+            if num == 9:
+                argv += ["--reflections", "0"]
+            summary, launches, wall = _counted(lambda: cli.main(argv))
+            scene, spec, cfg = configs.CONFIGS[num](size=size, device="cuda")
+            cfg = dataclasses.replace(cfg, reflections=0)
+            start = configs.perturb(scene, spec, scale=0.4, seed=0)
+            mask = observable_texels(scene, spec, cfg)
+            err0 = texel_rms(start, scene, spec, mask)
+            err1 = texel_rms(summary["scene"], scene, spec, mask)
+            st = stages(summary["losses"], SOFT_TEX_ITERS)
+            expect = {"fused_vec_soft_render": n - 1,
+                      "fused_vec_soft_step": (n - 1) * SOFT_TEX_ITERS,
+                      "fused_step": SOFT_TEX_ITERS, "fused_render": 2}
+            rows[label] = dict(launches=launches, expected=expect,
+                               stage_first_last=[[x[0], x[-1]] for x in st],
+                               start_texel_rms=err0, texel_rms=err1, texel_rms_ratio=err1 / err0,
+                               loop_seconds=summary["seconds"], wall_seconds=wall)
+            counts[label] = launches
+            oks.append(_only(launches, expect) and all(x[-1] < x[0] for x in st)
+                       and all(math.isfinite(x) for x in summary["losses"]) and err1 < err0)
+
+    # ---- optimize_annealed on the globes' texels and the sky field's env
+    for kind in ("globes", "sky"):
+        scene, spec, cfg = globes_case() if kind == "globes" else sky_field_case()
+        start = configs.perturb(scene, spec, scale=0.4, seed=0)
+        target = render(scene, cfg).detach()
+        ocfg = OptConfig(iters=SOFT_TEX_OPT_ITERS, lr=3e-2)
+        (final, losses), launches, wall = _counted(lambda: optimize_annealed(
+            start, target, spec, cfg, ocfg, taus=SOFT_TEX_TAUS, target_scene=scene))
+        la = losses.cpu().tolist()
+        st = stages(la, SOFT_TEX_OPT_ITERS)
+        expect = {"fused_vec_soft_render": n - 1,
+                  "fused_vec_soft_step": (n - 1) * SOFT_TEX_OPT_ITERS,
+                  "fused_vec_step": SOFT_TEX_OPT_ITERS}
+        label = f"anneal_{kind}_{SOFT_TEX_SIZE}"
+        rows[label] = dict(launches=launches, expected=expect,
+                           stage_first_last=[[x[0], x[-1]] for x in st], wall_seconds=wall)
+        counts[label] = launches
+        oks.append(_only(launches, expect) and all(x[-1] < x[0] for x in st)
+                   and all(math.isfinite(x) for x in la))
+
+    # ---- optimize(render_fn=render) at tau 0.05 on the globes, its target
+    # rendered in the run: rows 7 and 8
+    scene, spec, cfg, start = _soft_tex_case("globes", 0.05)
+
+    def by_render():
+        target = render(scene, cfg).detach()
+        return optimize(start, target, spec, cfg, OptConfig(iters=SOFT_TEX_OPT_ITERS, lr=3e-2),
+                        log_every=0, render_fn=lambda s: render(s, cfg))[2].cpu().tolist()
+
+    la, launches, wall = _counted(by_render)
+    expect = {"fused_vec_soft_render": SOFT_TEX_OPT_ITERS + 1,
+              "fused_vec_soft_render_bwd": SOFT_TEX_OPT_ITERS}
+    label = f"render_fn_globes_{SOFT_TEX_SIZE}"
+    rows[label] = dict(launches=launches, expected=expect, first_loss=la[0], final_loss=la[-1],
+                       wall_seconds=wall)
+    counts[label] = launches
+    oks.append(_only(launches, expect) and la[-1] < la[0] and all(math.isfinite(x) for x in la))
+    rows["phase_seconds"] = time.perf_counter() - t_phase
+    if not all(oks):
+        raise AssertionError(f"a soft texel run did not run through the expected kernels or did "
+                             f"not descend: {rows}")
+    emit("soft_texture_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -3827,6 +4221,8 @@ def main() -> int:
     chrome_runs = run_phase("chrome_main", phase_chrome_main)
     globes = run_phase("globes", phase_globes)
     globes_runs = run_phase("globes_main", phase_globes_main)
+    soft_tex = run_phase("soft_texture", phase_soft_texture)
+    soft_tex_runs = run_phase("soft_texture_main", phase_soft_texture_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -3922,6 +4318,19 @@ def main() -> int:
                 **nums, launches=globes_runs[run][k["name"]] if run else None, run=run)
             if k["name"] == "fused_vec_render" and by_render:
                 k["globes"][case]["launches_render_fn"] = globes_runs[by_render][k["name"]]
+    for k in kernels:  # rows 7-9's texel instances (phases soft_texture, soft_texture_main)
+        for case, nums in soft_tex.get(k["name"], {}).items():
+            run = {"softtex_512": "anneal_globes_512", "softenv_512": "anneal_sky_512",
+                   "config7_512": "invert_config7_anneal_512",
+                   "config8_512": "invert_config8_anneal_512",
+                   "config9_r0_512": "invert_config9_anneal_512"}[case]
+            if k["name"] == "fused_vec_soft_render_bwd":
+                run = f"render_fn_globes_{SOFT_TEX_SIZE}" if case == "softtex_512" else None
+            k.setdefault("soft_texture", {})[case] = dict(
+                **nums, launches=soft_tex_runs[run][k["name"]] if run else None, run=run)
+            if k["name"] == "fused_vec_soft_render" and case == "softtex_512":
+                k["soft_texture"][case]["launches_render_fn"] = soft_tex_runs[
+                    f"render_fn_globes_{SOFT_TEX_SIZE}"][k["name"]]
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

@@ -13,6 +13,8 @@ Examples:
         --iters 150 --seed 3
     python -m reversible_raytracer_tpu_torch.cli invert --config 7 --lr 3e-2 --perturb 0.4 \
         --iters 200
+    python -m reversible_raytracer_tpu_torch.cli invert --config 8 --anneal 0.08,0.03,0.01,0 \
+        --lr 3e-2 --perturb 0.4 --iters 50
     python -m reversible_raytracer_tpu_torch.cli invert --config 10 --perturb 0.2 --lr 2e-2 \
         --iters 300 --seed 10
 
@@ -35,7 +37,10 @@ textured instances, as the JAX package's dispatch does. Config 10 (64 chrome sph
 config 9's sky, one bounce) recovers the spheres' mirror coefficients and
 the sky's texels together through the object-chunked kernels; its recipe is
 the JAX package's scripts/config10_check.py, ``--perturb 0.2 --lr 2e-2
---iters 300 --seed 10`` (cosine, the default schedule).
+--iters 300 --seed 10`` (cosine, the default schedule). ``--anneal`` runs on
+configs 7 and 8 as they are and on configs 9 and 10 with ``--reflections
+0`` (their soft stages take the soft kernels' texel instances; a bounce
+under a soft stage is refused by name, as in the JAX package).
 """
 
 from __future__ import annotations

@@ -199,4 +199,14 @@ __device__ __forceinline__ ForwardBlockOf<PS, GL> stage_forward(
   return {packed_view<PS>(g, s_sph, s_rct, gl, N, M, ns_pad), masks + threadIdx.y * nw, nw};
 }
 
+// The scene a forward's tiles read: the staged rows, and with TEX the object
+// texel grids tg beside them (PackedTexRows).
+template <bool TEX, class S>
+__device__ __forceinline__ decltype(auto) forward_scene(const S& staged, const TexGrids& tg) {
+  if constexpr (TEX)
+    return tex_view(staged, tg);
+  else
+    return (staged);
+}
+
 }  // namespace rrt

@@ -83,16 +83,6 @@ using namespace rrt;
 
 namespace {
 
-// The scene a forward's tiles read: the staged rows, and with TEX the object
-// texel grids tg beside them (PackedTexRows).
-template <bool TEX, class S>
-__device__ __forceinline__ decltype(auto) forward_scene(const S& staged, const TexGrids& tg) {
-  if constexpr (TEX)
-    return tex_view(staged, tg);
-  else
-    return (staged);
-}
-
 // The forward of every instance: REFL bounce levels (0 or 1), and with ENV
 // the environment map at the end of the globals; with TEX (and ENV, the map's
 // side Ke 0 for none) object texel grids.

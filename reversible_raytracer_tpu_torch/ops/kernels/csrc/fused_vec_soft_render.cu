@@ -1,5 +1,5 @@
-// Soft-visibility forward render kernel: the (H, W, 3) image of an
-// untextured scene of any object count under soft_tau > 0 (perspective,
+// Soft-visibility forward render kernel: the (H, W, 3) image of a scene of
+// any object count under soft_tau > 0 (perspective,
 // Phong): the annealed inversion's stage targets. One subsample offset a
 // launch: spp 1 at the pixel centre, spp 4 four launches averaged by the
 // caller (fused_vec_soft.py:1059-1092).
@@ -17,6 +17,18 @@
 // first where checker_tau > 0: at checker_tau = 0 the hard checker's code
 // and bits stay as they were, where the TPU kernel selects at run time
 // (fused_vec.py:523-538).
+//
+// Texel grids (spp 1, the hard checker; soft_render_tex_kernel, the TPU
+// kernel's texel tails and env global, fused_vec_soft.py:382-443 and
+// :458-492): each layer's textured winner's base colour is its own grid's
+// bilinear sample at the lat-long coordinates of its normal (p - c) / r at
+// the layer's rank t, not renormalised at a near miss (sphere_uv clamps its
+// y), or at a rect's (a, b), gathered from global memory (PackedTexRows: the
+// grids stay out of the staged rows, as in row 4's texel instance); the
+// composite's blend target is the environment map's sample at the primary
+// ray's direction, once a pixel, where the scene has one. Texels change
+// colours, not ranks: the layers and the widened cone's candidates are the
+// other instances'.
 //
 // Design: one block of 32 x 8 threads per 32 x 8 tile, one thread per
 // pixel, the globals and the packed rows (the sphere rows without their
@@ -62,18 +74,25 @@ using namespace rrt;
 
 namespace {
 
-template <bool SOFT_CHECKER>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    soft_render_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
-                       const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
-                       GLayout gl, Params p, float tau, float ctau, float* __restrict__ img) {
+// The forward of every instance: the soft checker's (SOFT_CHECKER) or the
+// hard one's, and with TEX (the hard checker) the texel grids: the
+// environment map at the end of the globals (its side Ke, 0 for none) and the
+// object grids tg read from global memory (PackedTexRows).
+template <bool SOFT_CHECKER, bool TEX = false>
+__device__ __forceinline__ void soft_render_body(const float* __restrict__ glob,
+                                                 const float* __restrict__ sph,
+                                                 const float* __restrict__ rct, int N, int M,
+                                                 int ns_pad, int nr_pad, GLayoutOf<TEX> gl,
+                                                 Params p, float tau, float ctau,
+                                                 float* __restrict__ img, TexGrids tg = {}) {
+  static_assert(!(SOFT_CHECKER && TEX), "the texel instance takes the hard checker");
   extern __shared__ float smem[];
-  const ForwardBlock fb = stage_forward(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
-  const auto& sc = fb.sc;
+  const auto fb = stage_forward(smem, glob, sph, rct, N, M, ns_pad, nr_pad, gl);
+  const auto& sc = forward_scene<TEX>(fb.sc, tg);
   const int lane = threadIdx.x;
   const Camera cam = camera(sc);
   const V3 o = cam.eye;
-  const V3 bg = sc.background();
+  const V3 bg_flat = sc.background();
   const dim3 tiles = pixel_grid(p.H, p.W);
 
   for (int t = blockIdx.x; t < (int)(tiles.x * tiles.y); t += gridDim.x) {
@@ -82,6 +101,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     const bool inside = i < p.H && j < p.W;
     if (!__any_sync(FULL, inside)) continue;  // a warp wholly past the ragged edge
     const V3 d = primary_ray(cam, p, inside ? i : 0, inside ? j : 0).d;
+    V3 bg = bg_flat;
+    if constexpr (TEX) bg = miss_color(sc, d);  // the environment's sample, once a pixel
     __syncwarp();  // the previous tile's walks are done with the mask words
     primary_candidates(sc, o, d, inside, tau, lane, fb.wm);
     Layers y = {{{BIG, -1}, {BIG, -1}}};
@@ -113,6 +134,24 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     img[3 * px + 1] = col.y;
     img[3 * px + 2] = col.z;
   }
+}
+
+template <bool SOFT_CHECKER>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    soft_render_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                       const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                       GLayout gl, Params p, float tau, float ctau, float* __restrict__ img) {
+  soft_render_body<SOFT_CHECKER>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, tau, ctau, img);
+}
+
+// The instance with texel grids (spp 1, the hard checker).
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    soft_render_tex_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
+                           const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
+                           EnvGLayout gl, Params p, float tau, float* __restrict__ img,
+                           TexGrids tg) {
+  soft_render_body<false, true>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, tau, 0.0f, img,
+                                tg);
 }
 
 }  // namespace
@@ -163,4 +202,34 @@ extern "C" int rrt_soft_render(const float* glob, const float* sph, const float*
                                void* stream) {
   return rrt_soft_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
                             shadows, clip, 0.0f, 0.0f, tau, ctau, img, stream);
+}
+
+// Shared memory a block of the texel instance needs (an environment map of
+// side ke, 0 for none; the object grids stay in global memory), in bytes.
+extern "C" long long rrt_soft_render_tex_smem(int n_sph, int n_rect, int n_light, int ke) {
+  return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light, 0, ke);
+}
+
+// The texel instance (spp 1): object texel grids of sides ks (the spheres',
+// from stex) and kr (the rects', from rtex) and an environment map of side ke
+// ending the globals, each 0 for none, at the subsample offset (oi, oj).
+extern "C" int rrt_soft_render_tex(const float* glob, const float* sph, const float* rct,
+                                   const float* stex, const float* rtex, int n_sph, int n_rect,
+                                   int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                   int clip, float oi, float oj, float tau, int ke, int ks,
+                                   int kr, float* img, void* stream) {
+  if (ke < 0 || ks < 0 || kr < 0) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(H, W, shadows, clip, oi, oj);
+  const size_t smem = forward_smem(ns_pad, nr_pad, n_light, 0, ke);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        soft_render_tex_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 tiles = pixel_grid(H, W);
+  soft_render_tex_kernel<<<tiles.x * tiles.y, dim3(BLOCK_X, BLOCK_Y), smem,
+                           (cudaStream_t)stream>>>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
+                                                   make_env_glayout(n_light, ke), p, tau, img,
+                                                   TexGrids{stex, rtex, ks, kr});
+  return (int)cudaGetLastError();
 }

@@ -26,7 +26,8 @@
 // Bound: operations, as the soft step's less its residual; bytes: the rows
 // and the cotangent (12 bytes per pixel) read once, the gradient written
 // once (chip_smoke.py counts both). checker_tau as the step's: the soft
-// checker's instance where it is above 0.
+// checker's instance where it is above 0. The _tex entries run the step's
+// texel instance (spp 1): the grids' gradient ends the output.
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -63,4 +64,30 @@ extern "C" int rrt_soft_render_bwd(const float* glob, const float* sph, const fl
   return rrt_soft_render_bwd_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
                                 shadows, clip, 0.0f, 0.0f, tau, ctau, g_img, scratch, out,
                                 stream);
+}
+
+// The texel instance (spp 1; the step's _tex entries with the caller's
+// cotangent): out = [0, dglob, dsph, drct, dstex, drtex].
+extern "C" long long rrt_soft_render_bwd_tex_smem(int n_sph, int n_rect, int n_light, int ke,
+                                                  int ks, int kr) {
+  return (long long)soft_tex_plan(n_sph, n_rect, n_light, ke, ks, kr).smem;
+}
+
+extern "C" long long rrt_soft_render_bwd_tex_scratch_floats(int n_sph, int n_rect, int n_light,
+                                                            int H, int W, int ke, int ks,
+                                                            int kr) {
+  return soft_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
+}
+
+extern "C" int rrt_soft_render_bwd_tex(const float* glob, const float* sph, const float* rct,
+                                       const float* stex, const float* rtex, int n_sph,
+                                       int n_rect, int ns_pad, int nr_pad, int n_light, int H,
+                                       int W, int shadows, int clip, float oi, float oj,
+                                       float tau, int ke, int ks, int kr, const float* g_img,
+                                       float* scratch, float* out, void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
+  return launch_soft_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                              TexGrids{stex, rtex, ks, kr},
+                              make_params(H, W, shadows, clip, oi, oj), tau,
+                              CotangentSource{g_img, nullptr, 1.0f}, scratch, out, stream);
 }

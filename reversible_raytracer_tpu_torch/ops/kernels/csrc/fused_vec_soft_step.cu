@@ -34,6 +34,12 @@
 // checker_tau, the TPU kernel's second SMEM scalar (fused_vec_soft.py:1133),
 // is a runtime argument as tau is: checker_tau > 0 launches the soft
 // checker's instance of the body (soft_step.cuh), 0 the other.
+//
+// Texel grids (spp 1, the hard checker: the TPU kernel's texel tails and env
+// global, fused_vec_soft.py:382-443, :458-492): the _tex entries launch the
+// body's texel instance, which gives each layer's textured winner a texel
+// record and the composite's blend target, the environment's sample, one at
+// every pixel, and ends its output with the grids' gradient (soft_step.cuh).
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -55,4 +61,37 @@ extern "C" int rrt_soft_step(const float* glob, const float* sph, const float* r
   return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
                           make_params(H, W, shadows, clip), tau, ctau, ResidualSource{target, w},
                           scratch, out, stream);
+}
+
+// The texel instance (spp 1): object texel grids of sides ks (the spheres',
+// from stex) and kr (the rects', from rtex) and an environment map of side ke
+// ending the globals, each 0 for none; out = [sq, dglob, dsph, drct, dstex,
+// drtex].
+extern "C" long long rrt_soft_step_tex_smem(int n_sph, int n_rect, int n_light, int ke, int ks,
+                                            int kr) {
+  return (long long)soft_tex_plan(n_sph, n_rect, n_light, ke, ks, kr).smem;
+}
+
+// The prefix slots a lane of the instance for these sides gets (the untextured
+// instances' where ke, ks and kr are all 0).
+extern "C" int rrt_soft_step_pcap(int n_sph, int n_rect, int n_light, int ke, int ks, int kr) {
+  if (!ke && !ks && !kr) return soft_plan(pad16(n_sph), pad16(n_rect), n_light).pcap;
+  return soft_tex_plan(n_sph, n_rect, n_light, ke, ks, kr).pcap;
+}
+
+extern "C" long long rrt_soft_step_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H,
+                                                      int W, int ke, int ks, int kr) {
+  return soft_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
+}
+
+extern "C" int rrt_soft_step_tex(const float* glob, const float* sph, const float* rct,
+                                 const float* stex, const float* rtex, int n_sph, int n_rect,
+                                 int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                 int clip, float tau, int ke, int ks, int kr,
+                                 const float* target, float w, float* scratch, float* out,
+                                 void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
+  return launch_soft_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                              TexGrids{stex, rtex, ks, kr}, make_params(H, W, shadows, clip), tau,
+                              ResidualSource{target, w}, scratch, out, stream);
 }

@@ -53,11 +53,27 @@ the wrapper launches the checker instance where ``checker_tau > 0`` and the
 other where it is 0, which keeps the hard select's code, bits and time (the
 TPU kernels' runtime select, fused_vec.py:523-538).
 
+Object texel grids and the environment map (spp 1, the hard checker; the
+TPU kernels' texel tails and env global, fused_vec_soft.py:382-443 and
+:458-492): each kernel has a texel instance (the ``_tex`` entries) beside
+the other two. Each layer's textured winner's base colour is its own grid's
+bilinear sample at `pipeline.sphere_uv` of its normal (p - c) / r at the
+layer's rank t, not renormalised at a near miss, or at a rect's (a, b),
+gathered from global memory (`fused_vec.pack_texels`); the composite's
+blend target is the environment's sample at the primary ray's direction
+(`pipeline.miss_color`), so the backward scatters an environment texel
+record at every pixel, and each layer's textured winner its own record,
+into a block texel row in shared memory that ends each block's partial row
+(`soft_step_plan`: with the 64 globes' grids it leaves 10 prefix slots a
+lane of the 32 the untextured step has). The step then walks the image's
+tiles from a grid of one block an SM, as rows 5-6's textured instances do.
+A grid whose gradient does not fit a block, spp 4 and the soft checker
+with a grid are refused by name (`soft_uncovered`).
+
 The scene enters as `fused_vec`'s packed rows (globals, sphere and rect
 rows padded to 16, rects numbered from the padded sphere count). Covered:
-perspective, Phong, untextured objects, no environment map, no mirror
-levels; spp 1 and 4 in the render, spp 1 in the step, as in the JAX
-package (fused_vec_soft.py:365-380): at spp 4 the forward and the render
+perspective, Phong, no mirror levels; spp 1 and 4 in the render, spp 1 in
+the step, as in the JAX package (fused_vec_soft.py:365-380): at spp 4 the forward and the render
 backward are launched once per subsample at its offsets and the image is
 their average in torch (fused_vec_soft.py:1059-1092), so a spp-4 soft step
 is autograd of that render (`ops.render.loss_and_grad_fn`,
@@ -75,9 +91,17 @@ from types import SimpleNamespace
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...models.scene import tree_leaves, tree_map, tree_unflatten
+from ...models.scene import scene_textured, tree_leaves, tree_map, tree_unflatten
 from .. import vecmath as vm
-from ..pipeline import BIG, SHADOW_EPS, SPP_OFFSETS, RenderConfig, soft_checker_q
+from ..pipeline import (
+    BIG,
+    SHADOW_EPS,
+    SPP_OFFSETS,
+    RenderConfig,
+    sample_grid,
+    soft_checker_q,
+    sphere_uv,
+)
 from ..pipeline_vec import (
     sphere_axis,
     rect_ts,
@@ -95,17 +119,33 @@ _GEOM = fused_vec._GEOM  # n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows
 # Entries with a subsample's (row, column) offset (``_at``, rows 7-8) after
 # the geometry; those without are at the pixel centre, for tools/ and for
 # checkouts from before spp 4.
+# The texel instances' ``_tex`` entries take the object grids' pointers after
+# the rows, and after tau the environment map's and the grids' sides (ke, ks,
+# kr; 0 for none); the step's and backward's output ends with the grids'
+# gradient.
+_TX = [_P, _P]  # stex, rtex
+_KS = [_I, _I, _I]  # ke, ks, kr
 SOFT_RENDER = Kernel("fused_vec_soft_render", {
+    "rrt_soft_render_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, _F, *_KS, _P, _P], _I),
+    "rrt_soft_render_tex_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_render_at": ([_P, _P, _P, *_GEOM, _F, _F, _F, _F, _P, _P], _I),
     "rrt_soft_render": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P], _I),
     "rrt_soft_render_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_STEP = Kernel("fused_vec_soft_step", {
+    "rrt_soft_step_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, *_KS, _P, _F, _P, _P, _P], _I),
+    "rrt_soft_step_tex_smem": ([_I] * 6, ctypes.c_longlong),
+    "rrt_soft_step_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
+    "rrt_soft_step_pcap": ([_I] * 6, _I),
     "rrt_soft_step": ([_P, _P, _P, *_GEOM, _F, _F, _P, _F, _P, _P, _P], _I),
     "rrt_soft_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
+    "rrt_soft_render_bwd_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, _F, *_KS, _P, _P, _P, _P],
+                                _I),
+    "rrt_soft_render_bwd_tex_smem": ([_I] * 6, ctypes.c_longlong),
+    "rrt_soft_render_bwd_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "rrt_soft_render_bwd_at": ([_P, _P, _P, *_GEOM, _F, _F, _F, _F, _P, _P, _P, _P], _I),
     "rrt_soft_render_bwd": ([_P, _P, _P, *_GEOM, _F, _F, _P, _P, _P, _P], _I),
     "rrt_soft_render_bwd_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
@@ -114,12 +154,48 @@ SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
 KERNELS = (SOFT_RENDER, SOFT_STEP, SOFT_RENDER_BWD)
 
 
+# The soft step's prefix slots per lane at most, and its per-sphere shadow
+# gradient (csrc/soft_step.cuh PCAP, GEO).
+PCAP, GEO = 32, 4
+
+
+def soft_step_plan(scene_like, optin: int = fused.MAX_BLOCK_SMEM) -> dict:
+    """The shared memory of a block of the soft step and render backward
+    (csrc/soft_step.cuh `soft_plan`, and with a texel grid `soft_tex_plan`)
+    on a card whose blocks may have ``optin`` bytes: the globals (with the
+    environment map's texels), the rows, 8 warp rows of 1 + Sg + 10 slots,
+    the block's object row, 8 warp rows of the spheres' shadow gradient, per
+    warp and layer-and-light 32 visibilities, the candidate mask words and
+    3 words of bookkeeping; with a texel grid one staging of 32 texel records
+    of 16 words and the block's texel row (``trow``, 3 (N ks^2 + M kr^2)
+    floats); then as many prefix slots a lane (``pcap``, 1 to 32) as the
+    rest holds, 8 x 32 floats each. ``smem`` above ``optin`` (at one slot)
+    does not fit."""
+    ns_pad, nr_pad = fused_vec.row_plan(scene_like)
+    L = scene_like.lights.count
+    ks, kr, ke = fused.texel_sizes(scene_like)
+    tex = scene_textured(scene_like)
+    sg = fused_vec.globals_offsets(L, ke)["Sg"]
+    grow = 1 + sg + 10
+    orow = ns_pad * fused_vec.P_SPH + nr_pad * fused_vec.P_RCT
+    nc, nwp = 2 * L, (ns_pad + 31) // 32
+    trow = fused_vec.texel_row(scene_like) if tex else 0
+    words = (sg + orow + 8 * grow + orow + 8 * ns_pad * GEO + 8 * nc * 32
+             + (32 * 16 + trow if tex else 0))
+    base = 4 * words + 4 * 8 * nc * (nwp + 3)
+    per_slot = 4 * 8 * 32
+    pcap = min(max((optin - base) // per_slot, 1), PCAP)
+    return dict(smem=base + pcap * per_slot, pcap=pcap, texels=trow, Sg=sg)
+
+
 def soft_kernel_ok(scene_like) -> bool:
     """Can the soft kernels take this scene (the JAX package's
-    `soft_kernel_ok`)? Untextured scenes with no environment map, until the
-    texel tails and the env global are ported."""
-    return not (scene_like.spheres.textured or scene_like.rects.textured
-                or scene_like.env_mapped)
+    `soft_kernel_ok`)? Object texel grids and the environment map too,
+    where the textured soft step's block (`soft_step_plan`, its texel row in
+    shared memory) fits the shared memory a block has: the port's budget in
+    place of the JAX package's `vec_smem_ok` and its K <= 32 cap."""
+    return (not scene_textured(scene_like)
+            or soft_step_plan(scene_like)["smem"] <= fused.MAX_BLOCK_SMEM)
 
 
 def soft_uncovered(scene, cfg: RenderConfig, step: bool = False):
@@ -137,10 +213,22 @@ def soft_uncovered(scene, cfg: RenderConfig, step: bool = False):
         return f"the {cfg.shader} shader"
     if cfg.projection != "perspective":
         return f"the {cfg.projection} projection"
-    if not soft_kernel_ok(scene):
-        return "object textures or environment maps"
     if scene.lights.count > fused.MAX_LIGHTS:
         return f"more than {fused.MAX_LIGHTS} lights"
+    if not scene_textured(scene):
+        return None
+    if cfg.spp != 1:
+        return ("spp 4 with a texel grid (object textures or an environment map): the soft "
+                "kernels' texel instances are spp 1")
+    if cfg.checker_tau > 0.0:
+        return ("the soft checker (checker_tau > 0) with a texel grid (object textures or an "
+                "environment map): the soft kernels' texel instances take the hard checker")
+    if not soft_kernel_ok(scene):
+        need = soft_step_plan(scene)["smem"]
+        return (f"a texel grid this large: {fused_vec.texel_row(scene)} object texels and an "
+                f"environment map of side {fused.texel_sizes(scene)[2]} need {need} bytes of "
+                f"shared memory a block in the textured soft step, above the "
+                f"{fused.MAX_BLOCK_SMEM} a block has")
     return None
 
 
@@ -159,8 +247,11 @@ def check_soft_kernel_config(scene, cfg: RenderConfig, step: bool = False) -> No
 
 
 def _cuda_inputs(scene, cfg: RenderConfig, step: bool = False):
+    """The packed rows, and for a scene with a texel grid the object grids
+    after them (`fused_vec.texel_inputs`: the texel instances' inputs)."""
     check_soft_kernel_config(scene, cfg, step)
-    return fused_vec.packed_inputs(scene)
+    rows = fused_vec.packed_inputs(scene)
+    return (*rows, *fused_vec.texel_inputs(scene)) if scene_textured(scene) else rows
 
 
 # ---------------------------------------------------------------------------
@@ -215,17 +306,28 @@ class _SoftRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, scene, cfg, off, rows, *leaves):
-        glob, sph, rct = rows
-        fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
-        if any(ctx.needs_input_grad):
-            fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
+        glob, sph, rct, *tex = rows
         img = torch.empty((cfg.height, cfg.width, 3), device=glob.device)
-        SOFT_RENDER.call("rrt_soft_render_at", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(),
-                         *fused_vec._geometry(scene, cfg), *off, float(cfg.soft_tau),
-                         float(cfg.checker_tau), img.data_ptr(), fused._stream(glob.device))
+        geom, stream = fused_vec._geometry(scene, cfg), fused._stream(glob.device)
+        if tex:
+            sides = fused_vec.tex_levels(scene, cfg)[1:]  # ke, ks, kr
+            fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_tex_smem", scene, sides[0])
+            if any(ctx.needs_input_grad):
+                fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_tex_smem", scene,
+                                     *sides)
+            SOFT_RENDER.call("rrt_soft_render_tex", glob.data_ptr(), sph.data_ptr(),
+                             rct.data_ptr(), *(t.data_ptr() for t in tex), *geom, *off,
+                             float(cfg.soft_tau), *sides, img.data_ptr(), stream)
+        else:
+            fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
+            if any(ctx.needs_input_grad):
+                fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
+            SOFT_RENDER.call("rrt_soft_render_at", glob.data_ptr(), sph.data_ptr(),
+                             rct.data_ptr(), *geom, *off, float(cfg.soft_tau),
+                             float(cfg.checker_tau), img.data_ptr(), stream)
         SOFT_RENDER.launches += 1
         ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
-        ctx.save_for_backward(glob, sph, rct)
+        ctx.save_for_backward(glob, sph, rct, *tex)
         ctx.set_materialize_grads(False)
         return img
 
@@ -234,8 +336,8 @@ class _SoftRender(torch.autograd.Function):
     def backward(ctx, g_img):
         if g_img is None:
             return (None, None, None, None, *(None for _ in tree_leaves(ctx.scene)))
-        glob, sph, rct = ctx.saved_tensors
-        grads = _render_bwd_launch(ctx.scene, ctx.cfg, ctx.off, glob, sph, rct, g_img)
+        glob, sph, rct, *tex = ctx.saved_tensors
+        grads = _render_bwd_launch(ctx.scene, ctx.cfg, ctx.off, glob, sph, rct, g_img, tex)
         return (None, None, None, None, *tree_leaves(grads))
 
 
@@ -244,19 +346,29 @@ class _SoftRender(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img):
+def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, tex=()):
     """The scene's gradient (a Scene) from one soft backward-kernel call at
-    the subsample offset ``off``."""
+    the subsample offset ``off`` (``tex``: the object grids of a scene with a
+    texel grid, the ``_tex`` entry)."""
     dev = glob.device
     g_img = fused.cotangent_f32(g_img, cfg)
     geom = fused_vec._geometry(scene_like, cfg)
-    scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_scratch_floats", geom[2:7],
-                             dev)
-    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    SOFT_RENDER_BWD.call("rrt_soft_render_bwd_at", glob.data_ptr(), sph.data_ptr(),
-                         rct.data_ptr(), *geom, *off, float(cfg.soft_tau),
-                         float(cfg.checker_tau), g_img.data_ptr(), scratch.data_ptr(),
-                         out.data_ptr(), fused._stream(dev))
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel()
+                       + fused_vec.texel_row(scene_like),), device=dev)
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
+    if tex:
+        sides = fused_vec.tex_levels(scene_like, cfg)[1:]  # ke, ks, kr
+        scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_tex_scratch_floats",
+                                 (geom[0], geom[1], *geom[4:7], *sides), dev)
+        SOFT_RENDER_BWD.call("rrt_soft_render_bwd_tex", *ptrs, *(t.data_ptr() for t in tex),
+                             *geom, *off, float(cfg.soft_tau), *sides, g_img.data_ptr(),
+                             scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+    else:
+        scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_scratch_floats",
+                                 geom[2:7], dev)
+        SOFT_RENDER_BWD.call("rrt_soft_render_bwd_at", *ptrs, *geom, *off, float(cfg.soft_tau),
+                             float(cfg.checker_tau), g_img.data_ptr(), scratch.data_ptr(),
+                             out.data_ptr(), fused._stream(dev))
     SOFT_RENDER_BWD.launches += 1
     return fused_vec._unpack_out(scene_like, out, glob, sph, rct)
 
@@ -282,15 +394,26 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
         return loss_grad_vec_soft_plain(scene, cfg, target, loss)
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft step kernel for device {dev}")
-    glob, sph, rct = _cuda_inputs(scene, cfg, step=True)
-    fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
+    glob, sph, rct, *tex = _cuda_inputs(scene, cfg, step=True)
     target = target.contiguous()
     geom = fused_vec._geometry(scene, cfg)
-    scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_scratch_floats", geom[2:7], dev)
-    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=dev)
-    SOFT_STEP.call("rrt_soft_step", glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), *geom,
-                   float(cfg.soft_tau), float(cfg.checker_tau), target.data_ptr(), norm,
-                   scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel()
+                       + fused_vec.texel_row(scene),), device=dev)
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
+    if tex:
+        sides = fused_vec.tex_levels(scene, cfg)[1:]  # ke, ks, kr
+        fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_tex_smem", scene, *sides)
+        scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_tex_scratch_floats",
+                                 (geom[0], geom[1], *geom[4:7], *sides), dev)
+        SOFT_STEP.call("rrt_soft_step_tex", *ptrs, *(t.data_ptr() for t in tex), *geom,
+                       float(cfg.soft_tau), *sides, target.data_ptr(), norm, scratch.data_ptr(),
+                       out.data_ptr(), fused._stream(dev))
+    else:
+        fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
+        scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_scratch_floats", geom[2:7], dev)
+        SOFT_STEP.call("rrt_soft_step", *ptrs, *geom, float(cfg.soft_tau),
+                       float(cfg.checker_tau), target.data_ptr(), norm, scratch.data_ptr(),
+                       out.data_ptr(), fused._stream(dev))
     SOFT_STEP.launches += 1
     return norm * out[0], fused_vec._unpack_out(scene, out, glob, sph, rct)
 
@@ -388,7 +511,8 @@ def _shadow_alpha_adjoint(spheres, so, ld, dist, tau, g_alpha):
 
 def _layer(scene, cfg, ray, k, tau, zero, warp_cull=False):
     """One soft layer's forward with the intermediates its adjoint needs:
-    the winner's geometry and coverage, its surface, and per light the
+    the winner's geometry and coverage, its surface (a textured winner's
+    base colour its grid's sample, `fused.winner_surface`), and per light the
     Phong terms and the shadow factors (sphere 1 - alpha, exactly 1 where
     `shadow_kept` drops the sphere, and with ``warp_cull`` also outside the
     warp's candidates, `cull.warp_candidates`; the hard rect factor) and
@@ -443,11 +567,12 @@ def _layer(scene, cfg, ray, k, tau, zero, warp_cull=False):
 def _soft_forward(scene, cfg, cull=False, off=(0.0, 0.0)):
     """The soft kernels' forward in eager torch at the subsample offset
     ``off``, with what the adjoint needs: the primary rays, the two layers
-    (`_layer`), the background, the composite behind layer 1 and in front,
-    and the image. With ``cull``, as the soft forward kernel walks: the
-    ranking over each warp's primary candidates of the widened cone
-    (`cull.primary_candidates` at tau), and each shadow product over the
-    warp's candidates as well."""
+    (`_layer`), the blend target (the background, or the environment map's
+    sample at the primary ray's direction, ``env``, a `pipeline.sample_grid`),
+    the composite behind layer 1 and in front, and the image. With ``cull``,
+    as the soft forward kernel walks: the ranking over each warp's primary
+    candidates of the widened cone (`cull.primary_candidates` at tau), and
+    each shadow product over the warp's candidates as well."""
     tau = cfg.soft_tau
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
     ray = fused.primary_ray_terms(scene, cfg, off)
@@ -457,11 +582,17 @@ def _soft_forward(scene, cfg, cull=False, off=(0.0, 0.0)):
                          cfg.width)
     y1, y2 = (_layer(scene, cfg, ray, k, tau, zero, warp_cull=cull)
               for _, k in two_layers(scene, ray.o, ray.d, tau, keep))
-    bg = vm.splat(scene.background)
+    env = None
+    if scene.env_mapped:  # the blend target: the environment's sample at sphere_uv(d)
+        env = sample_grid(scene.env[None], 0, *sphere_uv(ray.d), wrap_a=True)
+        bg = env.col
+    else:
+        bg = vm.splat(scene.background)
     behind = tuple(y2.a * y2.col[c] + (1.0 - y2.a) * bg[c] for c in range(3))
     comp = tuple(y1.a * y1.col[c] + (1.0 - y1.a) * behind[c] for c in range(3))
     img = tuple(vm.clip01(c) for c in comp) if cfg.clip else comp
-    return SimpleNamespace(ray=ray, y1=y1, y2=y2, bg=bg, behind=behind, comp=comp, img=img)
+    return SimpleNamespace(ray=ray, y1=y1, y2=y2, bg=bg, env=env, behind=behind, comp=comp,
+                           img=img)
 
 
 def render_vec_soft_culled(scene, cfg: RenderConfig):
@@ -504,13 +635,22 @@ def _soft_adjoint(scene, cfg, cotangent, off=(0.0, 0.0)):
     g_bg = [g * (1.0 - y2.a) for g in g_beh]
     for y in (y1, y2):  # a dead layer's colour is the background
         g_bg = [a + torch.where(y.hit, 0.0, g) for a, g in zip(g_bg, y.g_col)]
+    g_env = None
+    if fw.env is not None:  # every pixel's blend target: the environment's texels and d
+        g_env, g_u, g_v = fused.grid_adjoint(fw.env, g_bg, torch.ones_like(zero, dtype=torch.bool),
+                                             scene.env.shape[0] ** 2)
+        g_d_env = fused.uv_adjoint(d, g_u, g_v)
+        g_bg = [zero] * 3
 
     grads = tree_unflatten(scene, [torch.zeros_like(l) for l in tree_leaves(scene)])
     spheres, rects = grads.spheres, grads.rects
+    tex_s, tex_r = spheres.texture.reshape(-1, 3), rects.texture.reshape(-1, 3)
     g_lpos = [(zero,) * 3 for _ in range(L)]
     g_lcol = [(zero,) * 3 for _ in range(L)]
     g_amb = (zero,) * 3
     g_o_cam, g_d_cam = (zero,) * 3, (zero,) * 3
+    if g_env is not None:
+        g_d_cam = g_d_env
     amb = vm.splat(scene.ambient)
     for y in (y1, y2):
         # ---- shading adjoint of the layer (zero where it is dead)
@@ -546,13 +686,28 @@ def _soft_adjoint(scene, cfg, cotangent, off=(0.0, 0.0)):
         g_t = vm.vdot(g_so, d)
         g_n = vm.vadd(g_n, vm.vscale(g_so, SHADOW_EPS))
 
-        # ---- the layer's winner (and its soft checker's hit position)
+        # ---- the layer's winner (and its soft checker's hit position, or
+        # a textured winner's texels and, through the sample's weights, its
+        # normal or (a, b))
         ck = _checker_adjoint(y, g.base, cfg.checker_tau) if cfg.checker_tau > 0.0 else None
+        g_n_s, g_ab = g_n, None
+        if sp.textured:
+            g_ts, g_u, g_v = fused.grid_adjoint(y.tex_s, g.base, y.hit & y.is_sph,
+                                                sp.texture[..., 0].numel())
+            tex_s = tex_s + g_ts
+            g_n_s = vm.vadd(g_n, fused.uv_adjoint(y.s_n, torch.where(y.is_sph, g_u, 0.0),
+                                                   torch.where(y.is_sph, g_v, 0.0)))
+        if rc.textured:
+            g_tr, g_a, g_b = fused.grid_adjoint(y.tex_r, g.base, y.hit & y.is_rct,
+                                                rc.texture[..., 0].numel())
+            tex_r = tex_r + g_tr
+            g_ab = (torch.where(y.is_rct, g_a, 0.0), torch.where(y.is_rct, g_b, 0.0))
         s_go, s_gd, g_c, g_r = fused.sphere_winner_adjoint(
-            o, d, y.t, y.sc, y.sr, g_t, g_n, soft=(tau, g_alpha),
+            o, d, y.t, y.sc, y.sr, g_t, g_n_s, soft=(tau, g_alpha),
             g_pl=None if ck is None else ck.s_pl)
         r_go, r_gd, g_p0, g_eu, g_ev = fused.rect_winner_adjoint(
-            o, d, y.p0, y.eu, y.ev, y.is_rct, g_t if ck is None else g_t + vm.vdot(ck.rel, d), g_n)
+            o, d, y.p0, y.eu, y.ev, y.is_rct, g_t if ck is None else g_t + vm.vdot(ck.rel, d), g_n,
+            g_ab)
         if ck is not None:  # rel = (o + d t) - origin, (a, b) = (rel . eu / |eu|^2, rel . ev / |ev|^2)
             r_go, r_gd = vm.vadd(r_go, ck.rel), vm.vadd(r_gd, vm.vscale(ck.rel, y.t))
             g_p0, g_eu, g_ev = vm.vsub(g_p0, ck.rel), vm.vadd(g_eu, ck.eu), vm.vadd(g_ev, ck.ev)
@@ -561,13 +716,15 @@ def _soft_adjoint(scene, cfg, cotangent, off=(0.0, 0.0)):
         g_d_cam = tuple(a + torch.where(y.hit, g_d[c] + y.pick(s_gd[c], r_gd[c], zero), 0.0)
                         for c, a in enumerate(g_d_cam))
         if N:
-            mg = _winner_materials(spheres.material, N, y.ks, y.is_sph, y.use2, g, ck, "s", like)
+            mg = _winner_materials(spheres.material, N, y.ks, y.is_sph, y.use2, g, ck, "s", like,
+                                   sp.textured)
             spheres = dc.replace(
                 spheres, center=spheres.center + fused.winner_rows(N, y.ks, y.is_sph, g_c, like),
                 radius=spheres.radius + fused.winner_rows(N, y.ks, y.is_sph, [g_r], like)[:, 0],
                 material=_add_materials(spheres.material, mg))
         if M:
-            mg = _winner_materials(rects.material, M, y.kr, y.is_rct, y.use2, g, ck, "r", like)
+            mg = _winner_materials(rects.material, M, y.kr, y.is_rct, y.use2, g, ck, "r", like,
+                                   rc.textured)
             rects = dc.replace(
                 rects, origin=rects.origin + fused.winner_rows(M, y.kr, y.is_rct, g_p0, like),
                 edge_u=rects.edge_u + fused.winner_rows(M, y.kr, y.is_rct, g_eu, like),
@@ -582,9 +739,13 @@ def _soft_adjoint(scene, cfg, cotangent, off=(0.0, 0.0)):
             lights, position=torch.stack([torch.stack([x.sum() for x in v]) for v in g_lpos]),
             color=torch.stack([torch.stack([x.sum() for x in v]) for v in g_lcol]))
     camera = dc.replace(grads.camera, eye=g_eye, look_at=g_look, up=g_uph, fov_deg=g_fov)
+    spheres = dc.replace(spheres, texture=tex_s.reshape(sp.texture.shape))
+    rects = dc.replace(rects, texture=tex_r.reshape(rc.texture.shape))
     grads = dc.replace(grads, spheres=spheres, rects=rects, lights=lights, camera=camera,
                        ambient=torch.stack([x.sum() for x in g_amb]),
                        background=torch.stack([x.sum() for x in g_bg]))
+    if g_env is not None:
+        grads = dc.replace(grads, env=g_env.reshape(scene.env.shape))
     return sq, grads
 
 
@@ -597,16 +758,17 @@ def _add_materials(acc, inc):
     return dc.replace(acc, **{f: getattr(acc, f) + getattr(inc, f) for f in _MATERIAL_GRADS})
 
 
-def _winner_materials(mat_like, count, idx, mask, use2, g, ck, kind, like):
+def _winner_materials(mat_like, count, idx, mask, use2, g, ck, kind, like, textured=False):
     """The material leaves' gradients of a layer's winners of one kind
     (``kind``: "s" spheres, "r" rects): `fused.material_grads` for the hard
     checker (``ck`` None: the base to color or color2 as the checker
-    picked, no gradient to the checker columns), else the soft checker's
+    picked, to neither for a ``textured`` group, no gradient to the checker
+    columns), else the soft checker's
     (`_checker_adjoint`): the base's (1 - u) to color and u to color2, and
     the checker and checker-scale columns'."""
     zeros = torch.zeros((count,), **like)
     if ck is None:
-        return dc.replace(fused.material_grads(mat_like, count, idx, mask, use2, g, like),
+        return dc.replace(fused.material_grads(mat_like, count, idx, mask, use2, g, like, textured),
                           checker=zeros, checker_scale=zeros)
     mg = fused.material_grads(mat_like, count, idx, mask, use2,
                               SimpleNamespace(**{**vars(g), "base": getattr(ck, kind + "_c1")}),

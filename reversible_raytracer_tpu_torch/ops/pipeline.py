@@ -18,8 +18,7 @@ the environment map (JAX pipeline.py:258-316, :392-459) are sampled by the
 4-corner bilinear gather (`sample_texture`) at a rect's (a, b) or at the
 lat-long coordinates of a sphere's normal or a missed ray's direction
 (`sphere_uv`, through the JAX package's polynomial `atan2`/`asin`); the
-where chain (`shade`) and the hard object-vectorized shader take both, the
-soft shader neither.
+where chain (`shade`) and both object-vectorized shaders take both.
 
 This is the plain version of the CUDA kernels (`ops.kernels.fused`): on
 the CPU it is the renderer, and on the card it is what the kernels are held
@@ -74,8 +73,7 @@ def _require_hard(scene, cfg: RenderConfig, where_chain: bool = True) -> None:
     ``checker_tau > 0`` passes only for the object-vectorized shaders, which
     take the soft checker; the where chain (``where_chain``) refuses it (the
     JAX package's pipeline.py:99-101). Object textures and the environment
-    map pass for both; the soft shader (`pipeline_vec.shade_soft`) refuses
-    them itself."""
+    map pass for every shader."""
     if cfg.reflections and (cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0):
         raise NotImplementedError(
             "mirror reflections require hard semantics (reflections=0 when soft_tau/checker_tau "

@@ -31,13 +31,16 @@ shader takes mirror reflections (``cfg.reflections`` levels, as
 `pipeline.shade_levels` composes them, with the winner's mirror coefficient
 gathered per level: the JAX package's `_render_hard_once` levels); the soft
 one and the soft checker refuse them, as the JAX package's `render_jnp_vec`
-does. The hard shader takes the environment map (a missed ray's colour at
-either level is its sample, `pipeline.miss_color`) and object texel grids
-(the JAX package's `_gather_layer` texture branches: each winner's grid
-sampled at the lat-long coordinates of its normal, the azimuth wrapped, or
-at a rect's (a, b), by the 4-corner gather `pipeline.sample_grid` over every
-pixel's winner, as the where chain samples one grid: `render_eager`'s bits);
-the soft shader refuses both (`NotImplementedError`).
+does. Both take the environment map (a missed ray's colour at either hard
+level is its sample, `pipeline.miss_color`; the soft composite's blend target
+is the sample of the primary ray at every pixel) and object texel grids (the
+JAX package's `_gather_layer` texture branches: each winner's grid sampled
+at the lat-long coordinates of its normal, the azimuth wrapped, or at a
+rect's (a, b), by the 4-corner gather `pipeline.sample_grid` over every
+pixel's winner, as the where chain samples one grid: `render_eager`'s bits).
+Each soft layer samples its own winner's grid; a sphere layer's normal (p -
+c) / r at its rank t is not renormalised at a near miss, so `sphere_uv`'s
+clamp of its y is part of the result, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -269,7 +272,9 @@ def soft_layer(scene, o, d, k, tau, shape, checker_tau=0.0):
     """(t, live, attrs, alpha) of one layer's winners ``k`` (per pixel),
     with gradient: a sphere's soft t_rank and coverage, its normal (p - c)/r
     and checker at that t, a rect's hit with coverage 1; t = BIG and alpha
-    0 where the layer is dead."""
+    0 where the layer is dead. A textured group's base colour is its
+    winner's grid sampled at `sphere_uv` of that normal (the azimuth wrapped)
+    or at the rect's (a, b), in place of the checker."""
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     sp, rc = scene.spheres, scene.rects
     N, M = sp.count, rc.count
@@ -277,20 +282,27 @@ def soft_layer(scene, o, d, k, tau, shape, checker_tau=0.0):
     alpha = torch.zeros(shape, **like)
     best = init_attrs(shape, like)
     if N:
-        pick = lambda x: _take(x, k.clamp(0, N - 1))
+        ks = k.clamp(0, N - 1)
+        pick = lambda x: _take(x, ks)
         c, r = _xyz(pick(sp.center)), pick(sp.radius)
         t_s, a_s = sphere_soft(c, r, o, d, tau)
         m = material_rows(sp.material, pick)
         _, n, col = sphere_hit(o, d, c, r, m, t=t_s, checker_tau=checker_tau)
+        if sp.textured:  # at the unnormalised (p - c) / r of the rank t
+            col = sample_grid(sp.texture, ks, *sphere_uv(n), wrap_a=True).col
         is_sph = (k >= 0) & (k < N)
         t = torch.where(is_sph, t_s, t)
         alpha = torch.where(is_sph, a_s, alpha)
         best = merge_attrs(best, is_sph, n, col, m)
     if M:
-        pick = lambda x: _take(x, (k - N).clamp(0, M - 1))
+        kr = (k - N).clamp(0, M - 1)
+        pick = lambda x: _take(x, kr)
         m = material_rows(rc.material, pick)
-        t_r, n, col = rect_hit(o, d, _xyz(pick(rc.origin)), _xyz(pick(rc.edge_u)),
-                               _xyz(pick(rc.edge_v)), m, checker_tau=checker_tau)
+        p0, eu, ev = _xyz(pick(rc.origin)), _xyz(pick(rc.edge_u)), _xyz(pick(rc.edge_v))
+        t_r, n, col = rect_hit(o, d, p0, eu, ev, m, checker_tau=checker_tau)
+        if rc.textured:
+            _, a, b, _ = intersect_rect(o, d, p0, eu, ev)
+            col = sample_grid(rc.texture, kr, a, b).col
         t = torch.where(k >= N, t_r, t)
         alpha = torch.where(k >= N, 1.0, alpha)
         best = merge_attrs(best, k >= N, n, col, m)
@@ -300,15 +312,12 @@ def soft_layer(scene, o, d, k, tau, shape, checker_tau=0.0):
 def shade_soft(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
     """Two-layer soft compositing (`_render_soft`): each layer shaded
     unclipped with the soft shadow product, then a1 c1 + (1 - a1) (a2 c2 +
-    (1 - a2) bg), clipped."""
+    (1 - a2) bg), clipped; bg is `pipeline.miss_color` of the primary ray
+    (the environment map's sample where the scene has one)."""
     if return_vis:
         raise NotImplementedError("the soft renderer writes no visibility planes")
     if cfg.reflections:
         raise NotImplementedError("mirror reflections require hard semantics (soft_tau = 0)")
-    if scene.spheres.textured or scene.rects.textured:
-        raise NotImplementedError("object textures in the soft shader are not ported yet")
-    if scene.env_mapped:
-        raise NotImplementedError("environment maps in the soft shader are not ported yet")
     tau = cfg.soft_tau
     cfg_layer = dataclasses.replace(cfg, clip=False, soft_tau=0.0)
     occ = lambda sc, so, ld, dist: occluded_soft(sc, so, ld, dist, tau)

@@ -33,9 +33,13 @@ object-chunked kernels' textured, env and bounce instances
 (`render_eager_vec` on the CPU), as the JAX package's render.py:95-115 sends
 them to its vec kernels. The JAX package sends a textured scene of at most
 24 objects by `tile_object_count`, a budget of the TPU's VMEM; the port
-keeps the object count, as for every other scene. spp 4 with a texel grid,
-two bounces and texel grids in the soft kernels (and the soft eager path)
-are refused by name on CUDA.
+keeps the object count, as for every other scene. A soft render of a
+textured or sky-lit scene (spp 1, the hard checker, no bounce) takes the
+soft kernels' texel instances on CUDA at any object count, as the JAX
+package's render.py:51-69 sends it to its soft kernels, and the soft branch
+of `render_eager_vec` on the CPU. spp 4 with a texel grid and two bounces
+are refused by name on CUDA, and so are, in a soft render, a bounce, spp 4
+or the soft checker beside a texel grid.
 """
 
 from __future__ import annotations
@@ -67,8 +71,9 @@ def resolve_impl(scene, cfg: RenderConfig) -> str:
     1-3's textured instances) but with object textures and a bounce
     ``"cuda_vec"``; a textured, env-mapped and/or reflective one (one
     bounce, spp 1) of more than 24 ``"cuda_vec"`` (rows 4-6's textured, env
-    and bounce instances); the CPU takes the same family's eager twin;
-    raises otherwise, by name."""
+    and bounce instances); a soft render of a textured or env-mapped scene
+    ``"cuda_vec_soft"`` (rows 7-9's texel instances) at any count; the CPU
+    takes the same family's eager twin; raises otherwise, by name."""
     soft = cfg.soft_tau > 0.0
     checker_only = not soft and cfg.checker_tau > 0.0
     vec = (soft or checker_only or scene.spheres.count + scene.rects.count > VEC_THRESHOLD

@@ -497,20 +497,15 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
     12.5), so the tau = 0 polish keeps the hard checker. A reflective
     ``rcfg`` with a soft stage raises before any stage runs: soft rendering
     takes no mirror bounce, as in the JAX package (anneal the geometry
-    without it, then polish with it). So does a scene with a texel grid
-    (object textures or an environment map): the soft stages do not sample
-    texels yet. Returns (final_scene, losses[len(taus) * iters]) on the
+    without it, then polish with it). A scene with a texel grid (object
+    textures or an environment map) takes the soft kernels' texel instances
+    in its soft stages and polishes where `ops.render.resolve_impl` sends its
+    hard render. Returns (final_scene, losses[len(taus) * iters]) on the
     scene's device."""
     import dataclasses
 
-    from .models.scene import scene_textured
     from .ops.render import render, resolve_impl
 
-    if scene_textured(scene) and any(float(tau) > 0.0 for tau in taus):
-        raise NotImplementedError(
-            "object textures and environment maps take the hard renderer only: the soft "
-            "(tau > 0) stages of optimize_annealed do not sample texels yet (invert without "
-            "--anneal)")
     if rcfg.reflections and any(float(tau) > 0.0 for tau in taus):
         raise NotImplementedError(
             "mirror reflections require hard semantics: the soft (tau > 0) stages of "

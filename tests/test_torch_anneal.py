@@ -97,18 +97,26 @@ def test_anneal_stage_decisions():
     assert resolve_impl(cpu_scene, hard) == "eager"  # 10 objects: the unrolled twin
 
     def card(textured=False, env=False, device="cuda"):  # what the dispatch reads
+        k = 16 if textured else 0
         return SimpleNamespace(device=torch.device(device), env_mapped=env,
-                               spheres=SimpleNamespace(count=64, textured=textured),
-                               rects=SimpleNamespace(count=1, textured=False),
+                               env=torch.zeros((16, 16, 3) if env else (0, 0, 3)),
+                               spheres=SimpleNamespace(count=64, textured=textured,
+                                                       texture=torch.zeros((64, k, k, 3))),
+                               rects=SimpleNamespace(count=1, textured=False,
+                                                     texture=torch.zeros((1, 0, 0, 3))),
                                lights=SimpleNamespace(count=1))
 
     assert resolve_impl(card(), soft) == "cuda_vec_soft"
     assert resolve_impl(card(), hard) == "cuda_vec"
     # object textures past 24 objects take the hard object-chunked kernels at
-    # spp 1; they refuse them at spp 4, and the soft kernels refuse them
-    for bad, cfg in ((card(textured=True), soft),
+    # spp 1 and the soft kernels' texel instances; both refuse them at spp 4,
+    # and the soft kernels refuse the globes' grids beside a sky (their
+    # gradient does not fit a block)
+    assert resolve_impl(card(textured=True), soft) == "cuda_vec_soft"
+    assert resolve_impl(card(env=True), soft) == "cuda_vec_soft"
+    for bad, cfg in ((card(textured=True), dataclasses.replace(soft, spp=4)),
                      (card(textured=True), dataclasses.replace(hard, spp=4)),
-                     (card(env=True), soft)):
+                     (card(textured=True, env=True), soft)):
         with pytest.raises(NotImplementedError):
             resolve_impl(bad, cfg)
     # the hard object-chunked kernels take the environment map (config 10)

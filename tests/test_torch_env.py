@@ -240,9 +240,16 @@ def test_cuda_route_refuses_by_name():
         fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4, reflections=0))
     big = configs.config9_sky(16, env_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
+    # the soft kernels take the env at spp 1 without the bounce; the anneal's
+    # soft stages refuse config 9's bounce by name, as the JAX package does
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
     from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_annealed
 
-    with pytest.raises(NotImplementedError, match="do not sample texels yet"):
+    soft = dataclasses.replace(cfg, soft_tau=0.05, reflections=0)
+    fused_vec_soft.check_soft_kernel_config(ts, soft, step=True)
+    with pytest.raises(NotImplementedError, match="spp 4 with a texel grid"):
+        fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, spp=4))
+    with pytest.raises(NotImplementedError, match="mirror reflections"):
         optimize_annealed(ts, render_eager(ts, cfg), spec, cfg, OptConfig(iters=1),
                           taus=(0.05, 0.0))
 

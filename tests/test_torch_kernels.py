@@ -1426,8 +1426,10 @@ def test_texture_refusals_on_cuda(cuda):
     name and launches nothing: spp 4 with a texel grid, at most 24 objects
     and past 24 (the object-chunked kernels' textured instances are spp 1
     too), two bounce levels with the environment map, a soft render of a
-    textured scene at most 24 objects and past 24, and a grid whose rows do
-    not fit a block's shared memory."""
+    textured scene past 24 objects at spp 4 and of one of at most 24 under
+    the soft checker (the soft kernels' texel instances are spp 1 and take
+    the hard checker), and a grid whose rows do not fit a block's shared
+    memory."""
     tex, _, cfg7 = configs.config7_texture(size=32, device=cuda)
     sky, _, cfg9 = configs.config9_sky(size=32, device=cuda)
     big = configs.config9_sky(size=32, env_k=48, device=cuda)[0]
@@ -1438,10 +1440,10 @@ def test_texture_refusals_on_cuda(cuda):
     for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4), "spp 4 with a texel grid"),
                       (many, dataclasses.replace(cfg5, spp=4), "spp 4 with a texel grid"),
                       (sky, dataclasses.replace(cfg9, reflections=2), "reflections > 1"),
-                      (many, dataclasses.replace(cfg5, soft_tau=0.05),
-                       "object textures or environment maps"),
-                      (tex, dataclasses.replace(cfg7, soft_tau=0.05),
-                       "object textures or environment maps"),
+                      (many, dataclasses.replace(cfg5, soft_tau=0.05, spp=4),
+                       "spp 4 with a texel grid"),
+                      (tex, dataclasses.replace(cfg7, soft_tau=0.05, checker_tau=0.5),
+                       "the soft checker"),
                       (big, cfg9, "a texel grid this large")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
@@ -1778,19 +1780,168 @@ def test_vec_texture_captured_loop_matches_eager(cuda, refl):
 @pytest.mark.cuda
 def test_vec_texture_refusals_on_cuda(cuda):
     """Object texel grids past 24 objects at spp 4, with two bounces, in a
-    soft render, and grids whose gradient row does not fit a block's shared
-    memory (the 64 globes' 16 x 16 grids beside a 16 x 16 sky) raise by name
-    and launch nothing."""
+    soft render with a bounce, and grids whose gradient row does not fit a
+    block's shared memory (the 64 globes' 16 x 16 grids beside a 16 x 16
+    sky, in rows 4-6 and in the soft step) raise by name and launch
+    nothing."""
     scene, _, cfg = _globes(cuda, 32, 1)
     big = _globes(cuda, 32, 1, env_k=16)[0]
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
     for s, c, why in ((scene, dataclasses.replace(cfg, spp=4, reflections=0),
                        "spp 4 with a texel grid"),
                       (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
-                      (scene, dataclasses.replace(cfg, soft_tau=0.05, reflections=0),
-                       "object textures or environment maps"),
-                      (big, cfg, "object texel grids this large")):
+                      (scene, dataclasses.replace(cfg, soft_tau=0.05), "mirror reflections"),
+                      (big, cfg, "object texel grids this large"),
+                      (big, dataclasses.replace(cfg, soft_tau=0.05, reflections=0),
+                       "a texel grid this large")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS
             + fused_vec_soft.KERNELS] == before
+
+
+# Rows 7-9's texel instances (the soft kernels' ``_tex`` entries): name ->
+# (what, size, tau); "globes" is `_globes` without the bounce, "sky" config
+# 5 under config 9's sky seen toward the horizon (the JAX package's
+# scripts/vec_textured_tpu_check.py softenv camera), configs 7 and 9 (the
+# latter without its bounce).
+SOFT_TEX_CASES = {"globes": ("globes", (96, 120), 0.05), "sky": ("sky", (96, 96), 0.05),
+                  "config7": (7, (80, 96), 0.08), "config9": (9, (96, 80), 0.08)}
+
+
+def _soft_tex_case(cuda, name):
+    """(truth, start, cfg): the case, its texels moved by perturb(scale=0.4,
+    seed=0)."""
+    what, (H, W), tau = SOFT_TEX_CASES[name]
+    if what == "globes":
+        scene, spec, cfg = _globes(cuda, H, 0)
+    elif what == "sky":
+        scene, _, cfg = configs.config5_many_spheres(size=H, device=cuda)
+        scene = dataclasses.replace(
+            scene, env=configs.config9_sky(size=H, device=cuda)[0].env,
+            camera=configs.Camera.make((0.0, 1.5, 9.5), (0.0, 2.5, 0.0), fov_deg=60.0,
+                                       device=cuda))
+        spec = configs.ParamSpec.none(scene).train("env", lower=0.0, upper=1.0)
+    else:
+        scene, spec, cfg = configs.CONFIGS[what](size=H, device=cuda)
+    cfg = dataclasses.replace(cfg, height=H, width=W, soft_tau=tau, reflections=0)
+    return scene, configs.perturb(scene, spec, scale=0.4, seed=0), cfg
+
+
+def _all_texels(grads, scene):
+    return torch.cat([grads.spheres.texture.reshape(-1), grads.rects.texture.reshape(-1)]
+                     + ([grads.env.reshape(-1)] if scene.env_mapped else []))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SOFT_TEX_CASES))
+def test_soft_texture_forward_matches_plain(cuda, name):
+    """Row 7's texel instance against `render_vec_soft_plain` by the oracle
+    rule; one launch a call, three calls the same bits; `resolve_impl` takes
+    it."""
+    _, start, cfg = _soft_tex_case(cuda, name)
+    assert resolve_impl(start, cfg) == "cuda_vec_soft"
+    before = fused_vec_soft.SOFT_RENDER.launches
+    runs = [fused_vec_soft.render_vec_soft(start, cfg) for _ in range(3)]
+    assert fused_vec_soft.SOFT_RENDER.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    err = (runs[0] - fused_vec_soft.render_vec_soft_plain(start, cfg)).abs()
+    assert float((err > 2e-3).float().mean()) < 1e-3
+    assert float(err.mean()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SOFT_TEX_CASES))
+def test_soft_texture_step_matches_adjoint(cuda, name):
+    """Row 9's texel instance against the eager twin and autograd (loss
+    within 1e-4 relative, every leaf within 1e-2 of its scale, the texels'
+    or the env's included and not all 0); one launch a call, three calls the
+    same bits; against row 7's own image of the true scene a loss and
+    gradient of exactly 0."""
+    scene, start, cfg = _soft_tex_case(cuda, name)
+    target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    before = fused_vec_soft.SOFT_STEP.launches
+    runs = [fused_vec_soft.loss_grad_vec_soft(start, cfg, target) for _ in range(3)]
+    assert fused_vec_soft.SOFT_STEP.launches == before + 3
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    assert all(torch.equal(flat[0], f) for f in flat[1:])
+    l_k, g_k = runs[0]
+    assert bool(_all_texels(g_k, start).any())
+    for ref in (fused_vec_soft.loss_grad_vec_soft_adjoint_eager,
+                fused_vec_soft.loss_grad_vec_soft_plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    l_0, g_0 = fused_vec_soft.loss_grad_vec_soft(scene, cfg,
+                                                 fused_vec_soft.render_vec_soft(scene, cfg))
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SOFT_TEX_CASES))
+def test_soft_texture_render_bwd_matches_plain(cuda, name):
+    """Row 8's texel instance, by autograd of `render`: against autograd of
+    the eager render and the eager twin, every leaf within 1e-2 of its
+    scale, the texels' not all 0; one launch a call, three calls the same
+    bits; its mse gradient row 9's bit for bit."""
+    scene, start, cfg = _soft_tex_case(cuda, name)
+    g = _seeded(cfg, 0, cuda)
+    before = fused_vec_soft.SOFT_RENDER_BWD.launches
+    runs = [fused.flatten_scene(fused.autograd_vjp(render, start, cfg, g)) for _ in range(3)]
+    assert fused_vec_soft.SOFT_RENDER_BWD.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    got = fused.autograd_vjp(render, start, cfg, g)
+    assert bool(_all_texels(got, start).any())
+    _close_leaves(fused_vec_soft.render_vec_soft_bwd_plain(start, cfg, g), got)
+    _close_leaves(fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g), got)
+    target = render(scene, cfg).detach()
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([(torch.zeros_like(l) if l.grad is None else l.grad).reshape(-1)
+                           for l in leaves])
+    by_step = fused.flatten_scene(fused_vec_soft.loss_grad_vec_soft(start, cfg, target)[1])
+    assert torch.equal(by_render, by_step)
+
+
+@pytest.mark.cuda
+def test_soft_texel_instance_without_grids_is_the_untextured_one(cuda):
+    """On config 5 without a texel grid, the texel instances' entries at
+    sides 0 reduce to the untextured instances' arithmetic: row 7's image
+    bit for bit, and rows 9 and 8's loss and gradient (summed over another
+    grid of blocks) within 1e-5 of each leaf's scale; the wrappers take the
+    untextured entries there, and the texel instance's block keeps the 32
+    prefix slots of the untextured one."""
+    scene, spec, _ = configs.config5_many_spheres(device=cuda)
+    cfg = RenderConfig(height=96, width=128, shadows=True, soft_tau=0.05)
+    start = configs.perturb(scene, spec, scale=0.05, seed=4)
+    target = fused_vec_soft.render_vec_soft_plain(scene, cfg)
+    glob, sph, rct = fused_vec_soft._cuda_inputs(start, cfg)
+    none = torch.zeros((0,), device=cuda)
+    geom = fused_vec._geometry(start, cfg)
+    ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr(), none.data_ptr(), none.data_ptr(),
+            *geom)
+    stream = torch.cuda.current_stream().cuda_stream
+    img = torch.empty((96, 128, 3), device=cuda)
+    fused_vec_soft.SOFT_RENDER.call("rrt_soft_render_tex", *ptrs, 0.0, 0.0, 0.05, 0, 0, 0,
+                                    img.data_ptr(), stream)
+    assert torch.equal(img, fused_vec_soft.render_vec_soft(start, cfg))
+    dims = (start.spheres.count, start.rects.count, start.lights.count)
+    scratch = torch.empty((fused_vec_soft.SOFT_STEP.lib().rrt_soft_step_tex_scratch_floats(
+        *dims, 96, 128, 0, 0, 0),), device=cuda)
+    out = torch.empty((1 + glob.numel() + sph.numel() + rct.numel(),), device=cuda)
+    for entry, args, ref in (
+            ("rrt_soft_step_tex", (target.data_ptr(), 1.0 / target.numel()),
+             fused_vec_soft.loss_grad_vec_soft(start, cfg, target)),
+            ("rrt_soft_render_bwd_tex", (_seeded(cfg, 0, cuda).data_ptr(),),
+             (torch.zeros(()), fused_vec_soft._render_bwd_launch(
+                 start, cfg, (0.0, 0.0), glob, sph, rct, _seeded(cfg, 0, cuda))))):
+        kernel = (fused_vec_soft.SOFT_STEP if entry == "rrt_soft_step_tex"
+                  else fused_vec_soft.SOFT_RENDER_BWD)
+        offs = () if entry == "rrt_soft_step_tex" else (0.0, 0.0)
+        kernel.call(entry, *ptrs, *offs, 0.05, 0, 0, 0, *args, scratch.data_ptr(),
+                    out.data_ptr(), stream)
+        got = fused_vec._unpack_out(start, out, glob, sph, rct)
+        _close_leaves(ref[1], got, rel=1e-5)
+    lib = fused_vec_soft.SOFT_STEP.lib()
+    assert lib.rrt_soft_step_pcap(*dims, 0, 0, 0) == fused_vec_soft.soft_step_plan(
+        start, fused_vec.VEC_RENDER.lib().rrt_smem_optin())["pcap"]

@@ -112,15 +112,15 @@ def test_kernels_refuse_uncovered_configs(kw, why):
 
 
 def test_unported_features_raise():
-    """Environment maps in the soft shader (the where chain and the hard
-    object-vectorized shader render them; the soft one does not sample texels
-    yet), and reflections under soft visibility (hard semantics only, as in
-    the JAX package), raise."""
+    """Reflections under soft visibility (hard semantics only, as in the JAX
+    package) raise, in the where chain and in the soft shader, which renders
+    environment maps without a bounce."""
     from reversible_raytracer_tpu_torch.ops.pipeline_vec import render_eager_vec
 
     ts, _, cfg = configs.config2_four_spheres(16, device="cpu")
     with pytest.raises(NotImplementedError):
         render_eager(ts, dataclasses.replace(cfg, reflections=1, soft_tau=0.1))
     env = dataclasses.replace(ts, env=torch.ones((4, 4, 3)))
-    with pytest.raises(NotImplementedError, match="environment maps"):
-        render_eager_vec(env, dataclasses.replace(cfg, soft_tau=0.1))
+    assert torch.isfinite(render_eager_vec(env, dataclasses.replace(cfg, soft_tau=0.1))).all()
+    with pytest.raises(NotImplementedError, match="mirror reflections"):
+        render_eager_vec(env, dataclasses.replace(cfg, soft_tau=0.1, reflections=1))

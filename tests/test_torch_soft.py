@@ -213,7 +213,9 @@ def test_soft_kernels_refuse_uncovered_configs(kw, exc, why):
     if cfg.spp == 4:
         fused_vec_soft.check_soft_kernel_config(ts, cfg)
     env = dataclasses.replace(ts, env=torch.ones((4, 4, 3)))
-    assert not fused_vec_soft.soft_kernel_ok(env)
-    with pytest.raises(NotImplementedError, match="environment"):
-        fused_vec_soft.check_soft_kernel_config(env, RenderConfig(height=8, width=8,
+    assert fused_vec_soft.soft_kernel_ok(env)
+    big = dataclasses.replace(ts, env=torch.ones((72, 72, 3)))  # its gradient fits no block
+    assert not fused_vec_soft.soft_kernel_ok(big)
+    with pytest.raises(NotImplementedError, match="a texel grid this large"):
+        fused_vec_soft.check_soft_kernel_config(big, RenderConfig(height=8, width=8,
                                                                   soft_tau=0.05))

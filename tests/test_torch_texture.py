@@ -293,10 +293,20 @@ def test_cuda_route_refuses_by_name():
     big = configs.config7_texture(16, tex_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
     assert fused.step_smem_bytes(1, 1, 1, 0, 16, 0) <= fused.MAX_BLOCK_SMEM
-    with pytest.raises(NotImplementedError, match="do not sample texels yet"):
-        from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_annealed
+    # the soft kernels take the grid at spp 1 with the hard checker; the
+    # anneal's soft stages refuse a bounce by name, as the JAX package does
+    from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_annealed
 
-        optimize_annealed(ts, render_eager(ts, cfg), spec, cfg, OptConfig(iters=1),
+    soft = dataclasses.replace(cfg, soft_tau=0.05)
+    fused_vec_soft.check_soft_kernel_config(ts, soft, step=True)
+    for kw, why in ((dict(spp=4), "spp 4 with a texel grid"),
+                    (dict(checker_tau=0.5), "the soft checker")):
+        with pytest.raises(NotImplementedError, match=why):
+            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, **kw))
+    with pytest.raises(NotImplementedError, match="mirror reflections"):
+        optimize_annealed(ts, render_eager(ts, cfg), spec,
+                          dataclasses.replace(cfg, reflections=1), OptConfig(iters=1),
                           taus=(0.05, 0.0))
 
 

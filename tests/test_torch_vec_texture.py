@@ -288,11 +288,14 @@ def test_vec_kernels_refuse_by_name(what, kw, why):
     bad = dataclasses.replace(cfg, **kw)
     with pytest.raises(NotImplementedError, match=why):
         fused_vec.check_vec_kernel_config(ts, bad)
-    if what == "soft":
-        with pytest.raises(NotImplementedError, match="object textures or environment maps"):
-            fused_vec_soft.check_soft_kernel_config(ts, bad)
-        with pytest.raises(NotImplementedError, match="object textures in the soft shader"):
-            render_eager_vec(ts, bad)
+    if what == "soft":  # the soft kernels take the grids at spp 1, but not the bounce
+        with pytest.raises(NotImplementedError, match="mirror reflections"):
+            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(bad, reflections=1))
+        with pytest.raises(NotImplementedError, match="spp 4 with a texel grid"):
+            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(bad, spp=4))
+        fused_vec_soft.check_soft_kernel_config(ts, bad)
+        with pytest.raises(NotImplementedError, match="mirror reflections"):
+            render_eager_vec(ts, dataclasses.replace(bad, reflections=1))
 
 
 def test_shared_memory_refuses_grids_too_large():
