@@ -328,6 +328,34 @@ non-zero:
                and 9 in the soft stages, row 6's texel or env instance in the
                polish); 20 steps of optimize(render_fn=render) on the globes at
                tau 0.05 (row 7 21 times, row 8 20); every loss falls.
+ 34. restarts - the restart proposals (`optim.propose_restart`) on config 2 at
+               512^2 from perturb(scale=0.45, seed=2), r = 1..4, jitter 0.3,
+               seed 7, each on the card against the port's CPU result from the
+               same start and target: the five blind families bit for bit;
+               `resid` (its attribution through row 2) the same suspect and
+               peak pixel, every leaf within 1e-5 of its largest, the suspect
+               compared only where its suspicion is more than 1e-4 (relative)
+               from its neighbours' in the order (`guard_fired` counts the
+               others); `resid` on config 5 at 512^2 (attribution through row
+               4) the same way; a 3-restart chained `resid` multistart on
+               config 2 at 64^2 (taus 0.08, 0.03, 0, 30 steps a stage):
+               restart 0's final loss the plain `optimize_annealed`'s bit for
+               bit, `optim._SCAN_CACHE` no longer than after that anneal (no
+               capture beyond it), the start's leaves untouched, and row 7 6
+               times, row 9 180, row 1 90, row 2 5 (3 rankings, 2
+               attributions).
+ 35. restarts_main - invert --restarts on the card at full width: config 2's
+               documented stall (--size 512 --iters 150 --perturb 0.45 --seed 2
+               --anneal 0.08,0.03,0 --restarts 12 --restart-jitter 0.3
+               --restart-proposal resid --restart-chain) must end below a hard
+               loss of 1e-6 and a param RMS error of 1e-3 (row 7 24 times, row
+               9 3600, row 1 1800, row 2 24: the target, 12 rankings, 11
+               attributions); config 5 (--size 512 --anneal 0.08,0 --iters 20
+               --perturb 0.03 --lr 2e-3 --restarts 3 --restart-proposal resid
+               --restart-chain): row 7 3, row 9 60, row 6 60, row 4 6; every
+               final finite, the best their minimum; each run's finals,
+               restart 0's, the winner and its host-clock wall time, the
+               captures included.
 Then a `timing` line (each phase's wall seconds), the card's nvidia-smi
 line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
@@ -344,8 +372,9 @@ phases 24 and 25; rows 1-3 add `texture`, their textured instances'
 numbers per config from phases 26 and 27; rows 4-6 add `chrome`, their env
 and bounce instances' numbers per case from phases 28 and 29, and `globes`,
 their textured instances' per case from phases 30 and 31; rows 7-9 add
-`soft_texture`, their texel instances' per case from phases 32 and 33), and
-last
+`soft_texture`, their texel instances' per case from phases 32 and 33;
+each kernel the restarts launch adds `restarts`, its launches in each run of
+phases 34 and 35), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -4155,6 +4184,192 @@ def phase_soft_texture_main():
     return counts
 
 
+RESTART_SIZE = 512
+RESTART_RANKS = (1, 2, 3, 4)
+RESTART_JITTER, RESTART_SEED = 0.3, 7
+RESTART_TIE = 1e-4  # suspicions closer than this, relative: the suspect may differ by device
+RESTART_REL = 1e-5  # a resid proposal's leaves, card against CPU, relative to each leaf's largest
+RESTART_SMALL = dict(size=64, iters=30, restarts=3, seed=1002)  # the chained run's mechanics
+RESTART_TAUS = (0.08, 0.03, 0.0)
+
+
+def _near_tie(suspicion, rank):
+    """Whether the rank-th suspect's suspicion lies within RESTART_TIE
+    (relative) of a neighbour's in the order of `optim.reseed_pick`, where
+    the card's and the CPU's renders may order two spheres differently."""
+    import numpy as np
+
+    s = suspicion[np.argsort(-suspicion, kind="stable")]
+    k = rank % len(s)
+    pairs = [(s[j], s[j + 1]) for j in (k - 1, k) if 0 <= j < len(s) - 1]
+    return any(np.isfinite(a) and np.isfinite(b)
+               and abs(a - b) <= RESTART_TIE * max(abs(a), abs(b)) for a, b in pairs)
+
+
+def _resid_card_vs_cpu(start, spec, target, cfg, ranks):
+    """The `resid` proposals of ``ranks`` on the card against the port's CPU
+    result from the same start and target: the same suspect (where no
+    near-tie guards it) and peak pixel, every leaf within RESTART_REL of its
+    largest. Returns (ok, a row of the comparisons)."""
+    import numpy as np
+
+    from reversible_raytracer_tpu_torch import optim
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_map
+
+    cpu_start = tree_map(lambda l: l.cpu(), start)
+    cpu_target = target.cpu()
+    card_attr = [x.cpu().numpy() for x in optim.restart_attribution(start, target, cfg)]
+    cpu_attr = [x.numpy() for x in optim.restart_attribution(cpu_start, cpu_target, cfg)]
+    ok, guarded, rows = True, 0, []
+    for r in ranks:
+        pick_k = optim.reseed_pick(*card_attr, r - 1)
+        pick_c = optim.reseed_pick(*cpu_attr, r - 1)
+        tie = _near_tie(cpu_attr[1], r - 1)
+        guarded += tie
+        card = optim.propose_restart(start, spec, r, RESTART_JITTER, RESTART_SEED, "resid",
+                                     target=target, rcfg=cfg)
+        cpu = optim.propose_restart(cpu_start, spec, r, RESTART_JITTER, RESTART_SEED, "resid",
+                                    target=cpu_target, rcfg=cfg)
+        rel = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(tree_leaves(card), tree_leaves(cpu)) if b.numel())
+        same = pick_k == pick_c
+        ok = ok and (pick_k[1] == pick_c[1]) and (tie or (same and rel <= RESTART_REL))
+        rows.append(dict(r=r, card=[pick_k[0], list(pick_k[1])], cpu=[pick_c[0], list(pick_c[1])],
+                         near_tie=bool(tie), max_rel=rel))
+    sk, sc = card_attr[1], cpu_attr[1]
+    fin = np.isfinite(sc)
+    ok = ok and np.array_equal(np.isfinite(sk), fin)  # the same spheres nearest nowhere
+    return ok, dict(proposals=rows, guard_fired=guarded, of=len(ranks), nowhere=int((~fin).sum()),
+                    suspicion_max_rel=float(np.max(np.abs(sk[fin] - sc[fin]) / sc[fin], initial=0.0)))
+
+
+def phase_restarts():
+    """The restart proposals and the multistart's graphs and start (see the
+    module's docstring, phase 34). Returns the chained run's launches."""
+    import time
+
+    import torch
+
+    from reversible_raytracer_tpu_torch import optim
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_map
+    from reversible_raytracer_tpu_torch.ops.render import mse_loss, render
+
+    rows, oks = {}, []
+    t_phase = time.perf_counter()
+
+    # ---- config 2 at 512^2: every family's proposals, card against CPU
+    scene, spec, cfg = configs.config2_four_spheres(size=RESTART_SIZE, device="cuda")
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.45, seed=2)
+    cpu_start = tree_map(lambda l: l.cpu(), start)
+    blind = {}
+    for family in (f for f in optim.RESTART_PROPOSALS if f != "resid"):
+        same = all(
+            all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree_leaves(optim.propose_restart(start, spec, r, RESTART_JITTER, RESTART_SEED,
+                                                  family)),
+                tree_leaves(optim.propose_restart(cpu_start, spec, r, RESTART_JITTER,
+                                                  RESTART_SEED, family))))
+            for r in RESTART_RANKS)
+        blind[family] = same
+        oks.append(same)
+    ok2, rows["resid_config2_512"] = _resid_card_vs_cpu(start, spec, target, cfg, RESTART_RANKS)
+    rows["blind_config2_512_bit_identical"] = blind
+    oks.append(ok2)
+
+    # ---- config 5 at 512^2: resid through row 4
+    scene5, spec5, cfg5 = configs.config5_many_spheres(size=RESTART_SIZE, device="cuda")
+    target5 = render(scene5, cfg5).detach()
+    start5 = configs.perturb(scene5, spec5, scale=0.03, seed=0)
+    ok5, rows["resid_config5_512"] = _resid_card_vs_cpu(start5, spec5, target5, cfg5,
+                                                        RESTART_RANKS)
+    oks.append(ok5)
+
+    # ---- a chained resid multistart at 64^2: restart 0 is the plain
+    # anneal's bits, no capture beyond the anneal's, the start untouched
+    small = RESTART_SMALL
+    scene, spec, cfg = configs.config2_four_spheres(size=small["size"], device="cuda")
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.45, seed=2)
+    before = [l.clone() for l in tree_leaves(start)]
+    ocfg = optim.OptConfig(iters=small["iters"], lr=1e-2)
+    kw = dict(taus=RESTART_TAUS, target_scene=scene)
+    n0 = len(optim._SCAN_CACHE)
+    final, _ = optim.optimize_annealed(start, target, spec, cfg, ocfg, **kw)
+    with torch.no_grad():
+        plain = float(mse_loss(render(final, cfg), target))
+    n1 = len(optim._SCAN_CACHE)
+    (best, best_loss, finals), launches, wall = _counted(lambda: optim.optimize_multistart(
+        start, target, spec, cfg, ocfg, restarts=small["restarts"], jitter=RESTART_JITTER,
+        seed=small["seed"], proposal="resid", chain=True, **kw))
+    n2 = len(optim._SCAN_CACHE)
+    untouched = all(torch.equal(a, b) for a, b in zip(before, tree_leaves(start)))
+    k, iters = small["restarts"], small["iters"]
+    soft = sum(t > 0 for t in RESTART_TAUS)
+    expect = {"fused_vec_soft_render": k * soft, "fused_vec_soft_step": k * soft * iters,
+              "fused_step": k * iters, "fused_render": k + (k - 1)}
+    label = f"multistart_config2_{small['size']}"
+    rows[label] = dict(finals=finals, best=best_loss, plain_anneal=plain,
+                       restart0_bits=finals[0] == plain, scan_cache=[n0, n1, n2],
+                       start_untouched=untouched, launches=launches, expected=expect,
+                       wall_seconds=wall)
+    oks.append(finals[0] == plain and n2 == n1 and untouched and best_loss == min(finals)
+               and _only(launches, expect) and all(math.isfinite(x) for x in finals))
+    rows["phase_seconds"] = time.perf_counter() - t_phase
+    if not all(oks):
+        raise AssertionError(f"a restart check failed: {rows}")
+    emit("restarts", ok=True, rows=rows)
+    return {label: launches}
+
+
+# (label, argv, launches): each soft stage's target and steps (rows 7, 9), the
+# polish (row 1 or 6), and the forward (row 2 or 4) for the CLI's target, one
+# ranking a restart and one attribution a resid restart after the first
+RESTART_RUNS = (
+    ("stall_config2_512", ["--config", "2", "--size", "512", "--iters", "150", "--perturb", "0.45",
+                           "--seed", "2", "--anneal", "0.08,0.03,0", "--restarts", "12",
+                           "--restart-jitter", "0.3", "--restart-proposal", "resid",
+                           "--restart-chain"],
+     {"fused_vec_soft_render": 12 * 2, "fused_vec_soft_step": 12 * 2 * 150,
+      "fused_step": 12 * 150, "fused_render": 1 + 12 + 11}),
+    ("chain_config5_512", ["--config", "5", "--size", "512", "--anneal", "0.08,0", "--iters", "20",
+                           "--perturb", "0.03", "--lr", "2e-3", "--restarts", "3",
+                           "--restart-proposal", "resid", "--restart-chain"],
+     {"fused_vec_soft_render": 3, "fused_vec_soft_step": 3 * 20, "fused_vec_step": 3 * 20,
+      "fused_vec_render": 1 + 3 + 2}),
+)
+STALL_LOSS, STALL_RMS = 1e-6, 1e-3  # the recipe's recovery (JAX's run: 7.0e-11, RMS 0.00000)
+
+
+def phase_restarts_main():
+    """`invert --restarts` on the card at full width: config 2's documented
+    stall recipe and a chained config-5 run (see the module's docstring,
+    phase 35). Returns each run's launch counts."""
+    from reversible_raytracer_tpu_torch import cli
+
+    rows, counts, oks = {}, {}, []
+    for label, args, expect in RESTART_RUNS:
+        argv = ["invert", *args, "--quiet"]
+        summary, launches, wall = _counted(lambda: cli.main(argv))
+        finals, best = summary["finals"], summary["best_loss"]
+        row = dict(launches=launches, expected=expect, finals=finals, best=best,
+                   restart0_final=finals[0], winner=finals.index(best),
+                   param_err=summary["param_err"], start_param_err=summary["start_param_err"],
+                   loop_seconds=summary["seconds"], wall_seconds=wall)
+        ok = (_only(launches, expect) and all(math.isfinite(x) for x in finals)
+              and best == min(finals) and len(finals) == int(args[args.index("--restarts") + 1]))
+        if label.startswith("stall"):
+            ok = ok and best < STALL_LOSS and summary["param_err"] < STALL_RMS
+        rows[label] = row
+        counts[label] = launches
+        oks.append(ok)
+    if not all(oks):
+        raise AssertionError(f"a restart run missed its kernels or its recovery: {rows}")
+    emit("restarts_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -4223,6 +4438,8 @@ def main() -> int:
     globes_runs = run_phase("globes_main", phase_globes_main)
     soft_tex = run_phase("soft_texture", phase_soft_texture)
     soft_tex_runs = run_phase("soft_texture_main", phase_soft_texture_main)
+    restart_runs = run_phase("restarts", phase_restarts)
+    restart_runs.update(run_phase("restarts_main", phase_restarts_main))
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -4331,6 +4548,10 @@ def main() -> int:
             if k["name"] == "fused_vec_soft_render" and case == "softtex_512":
                 k["soft_texture"][case]["launches_render_fn"] = soft_tex_runs[
                     f"render_fn_globes_{SOFT_TEX_SIZE}"][k["name"]]
+    for k in kernels:  # each kernel's launches on the restarts' paths (phases restarts, restarts_main)
+        runs = {label: n[k["name"]] for label, n in restart_runs.items() if n.get(k["name"])}
+        if runs:
+            k["restarts"] = runs
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

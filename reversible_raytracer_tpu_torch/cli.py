@@ -17,6 +17,9 @@ Examples:
         --lr 3e-2 --perturb 0.4 --iters 50
     python -m reversible_raytracer_tpu_torch.cli invert --config 10 --perturb 0.2 --lr 2e-2 \
         --iters 300 --seed 10
+    python -m reversible_raytracer_tpu_torch.cli invert --config 2 --size 512 --iters 150 \
+        --perturb 0.45 --seed 2 --anneal 0.08,0.03,0 --restarts 12 --restart-jitter 0.3 \
+        --restart-proposal resid --restart-chain
 
 Both run on the GPU (``--device cuda``, the default) through the CUDA
 kernels, each training step one replay of a CUDA graph; ``--device cpu``
@@ -40,7 +43,12 @@ the JAX package's scripts/config10_check.py, ``--perturb 0.2 --lr 2e-2
 --iters 300 --seed 10`` (cosine, the default schedule). ``--anneal`` runs on
 configs 7 and 8 as they are and on configs 9 and 10 with ``--reflections
 0`` (their soft stages take the soft kernels' texel instances; a bounce
-under a soft stage is refused by name, as in the JAX package).
+under a soft stage is refused by name, as in the JAX package). ``--restarts N``
+runs the whole anneal from N starts (`optim.optimize_multistart`: restart 0
+from the perturbed start, the others from ``--restart-proposal``'s family
+at ``--restart-jitter``, each from the best scene so far with
+``--restart-chain``) and keeps the best final hard loss; the last example
+is the JAX package's recipe for config 2's documented topology stall.
 """
 
 from __future__ import annotations
@@ -181,9 +189,13 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     each tau (at ``--anneal-size``), then the hard polish against the
     target; the per-step losses come back in one transfer at the end. With
     ``--frame-every`` the chunks shrink to the frame cadence and each chunk
-    ends with a frame of the current scene under the hard configuration."""
+    ends with a frame of the current scene under the hard configuration.
+    With ``--restarts N > 1`` the anneal runs from N starts
+    (`optim.optimize_multistart`, seed ``--seed + 1000``, the JAX package's),
+    the losses logged are the best final hard loss alone, and the finals
+    print on stderr."""
     from .ops.render import render
-    from .optim import optimize_annealed, param_error
+    from .optim import optimize_annealed, optimize_multistart, param_error
     from .utils.imageio import save_png
     from .utils.metrics import MetricsLogger
 
@@ -203,11 +215,21 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     logger = MetricsLogger(jsonl_path=args.metrics, echo=not args.quiet)
     try:
         t0 = time.perf_counter()
-        final, losses = optimize_annealed(start, target, spec, cfg, ocfg, taus=taus,
-                                          target_scene=scene, soft_size=args.anneal_size,
-                                          max_chunk=max_chunk, chunk_callback=frame_cb,
-                                          checker_ratio=args.checker_ratio)
-        la = losses.cpu().tolist()  # each stage's loss is comparable within the stage only
+        anneal_kw = dict(taus=taus, target_scene=scene, soft_size=args.anneal_size,
+                         max_chunk=max_chunk, chunk_callback=frame_cb,
+                         checker_ratio=args.checker_ratio)
+        finals = best_loss = None
+        if args.restarts > 1:
+            final, best_loss, finals = optimize_multistart(
+                start, target, spec, cfg, ocfg, restarts=args.restarts,
+                jitter=args.restart_jitter, seed=args.seed + 1000,
+                proposal=args.restart_proposal, chain=args.restart_chain, **anneal_kw)
+            la = [best_loss]
+            print(f"multistart finals: {['%.3e' % f for f in finals]} -> best {best_loss:.3e}",
+                  file=sys.stderr)
+        else:
+            final, losses = optimize_annealed(start, target, spec, cfg, ocfg, **anneal_kw)
+            la = losses.cpu().tolist()  # each stage's loss is comparable within the stage only
         err = float(param_error(final, scene, spec))
         dt = time.perf_counter() - t0
         stride = max(len(la) // 20, 1) if args.log_every else len(la)
@@ -217,16 +239,20 @@ def _invert_annealed(args, scene, spec, cfg, target, start, ocfg):
     finally:
         logger.close()
     print(f"final param RMS error vs truth: {err:.5f} (start {err0:.5f})", file=sys.stderr)
-    print(f"annealed {len(taus)} stages x {args.iters} iters in {dt:.1f}s "
+    runs = f" x {args.restarts} restarts" if finals else ""
+    print(f"annealed {len(taus)} stages x {args.iters} iters{runs} in {dt:.1f}s "
           f"(final loss {la[-1]:.3e})", file=sys.stderr)
     _save_outputs(args, final, cfg)
     return {"history": [{"loss": la[-1]}], "losses": la, "taus": list(taus),
             "checker_ratio": args.checker_ratio, "param_err": err,
-            "start_param_err": err0, "seconds": dt, "output": args.output, "scene": final}
+            "start_param_err": err0, "seconds": dt, "output": args.output, "scene": final,
+            "finals": finals, "best_loss": best_loss}
 
 
 def main(argv=None):
     """Parse ``argv`` and run the subcommand; returns its summary dict."""
+    from .optim import RESTART_PROPOSALS
+
     ap = argparse.ArgumentParser(prog="reversible_raytracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -274,6 +300,20 @@ def main(argv=None):
                     help="soft-checker temperature per anneal tau unit (checker_tau = ratio "
                          "* tau per stage; 12.5 recovers the camera pose against checkers, "
                          "config 4). 0 = hard checker (default)")
+    pi.add_argument("--restarts", type=int, default=1,
+                    help="with --anneal: seeded multi-start — run the whole anneal from N "
+                         "jittered starts and keep the best final hard loss (widens recovery "
+                         "basins; see docs/OPTIMIZATION_NOTES.md)")
+    pi.add_argument("--restart-jitter", type=float, default=0.15,
+                    help="relative re-perturbation scale for --restarts")
+    pi.add_argument("--restart-proposal", default="jitter", choices=list(RESTART_PROPOSALS),
+                    help="restart proposal family (optim.propose_restart): structure-aware "
+                         "moves (per-sphere re-jitter, pairwise identity swaps, residual-guided "
+                         "re-seeding) attack topology stalls that i.i.d. jitter cannot reach")
+    pi.add_argument("--restart-chain", action="store_true",
+                    help="propose each restart from the best converged scene so far "
+                         "(sequential repair; with --restart-proposal resid this closed the "
+                         "0.45/seed-2 stall — OPTIMIZATION_NOTES)")
     pi.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)

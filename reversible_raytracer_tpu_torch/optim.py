@@ -538,3 +538,260 @@ def optimize_annealed(scene: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
                             else (lambda s, it, base=done: chunk_callback(s, base + it))))
         all_losses.append(losses)
     return scene, torch.cat(all_losses)
+
+
+# ---------------------------------------------------------------------------
+# Restarts: seeded and structure-aware starting points over the anneal
+# ---------------------------------------------------------------------------
+
+
+def swap_spheres(scene: Scene, i: int, j: int, geometry_only: bool = True) -> Scene:
+    """``scene`` with the rows of spheres ``i`` and ``j`` exchanged, in new
+    tensors (the JAX package's `swap_spheres`). ``geometry_only`` swaps the
+    center rows alone: a topology stall is an identity error (the sphere
+    with A's appearance sits in B's basin), and a center swap is its exact
+    inverse. Swapping every sphere leaf whose first dimension is the sphere
+    count re-indexes the scene, which renders the same."""
+    import dataclasses
+
+    n = scene.spheres.count
+
+    def swap_leaf(x):
+        if x.dim() >= 1 and x.shape[0] == n:
+            perm = list(range(n))
+            perm[i], perm[j] = j, i
+            return x[torch.tensor(perm, device=x.device)]
+        return x
+
+    if geometry_only:
+        return dataclasses.replace(scene, spheres=dataclasses.replace(
+            scene.spheres, center=swap_leaf(scene.spheres.center)))
+    return dataclasses.replace(scene, spheres=tree_map(swap_leaf, scene.spheres))
+
+
+def rejitter_one_sphere(start: Scene, spec: ParamSpec, idx: int, scale: float,
+                        seed: int) -> Scene:
+    """``start`` with only sphere ``idx``'s rows re-drawn: the whole scene is
+    perturbed (`models.configs.perturb`, the same draws as the JAX package's)
+    and that sphere's rows are kept, every other parameter stays at
+    ``start``. A kick at one suspect leaves the converged spheres alone."""
+    import dataclasses
+
+    from .models.configs import perturb
+
+    n = start.spheres.count
+    jittered = perturb(start, spec, scale=scale, seed=seed)
+
+    def merge(a, b):
+        if a.dim() >= 1 and a.shape[0] == n:
+            out = a.clone()
+            out[idx] = b[idx]
+            return out
+        return a
+
+    return dataclasses.replace(start, spheres=tree_map(merge, start.spheres, jittered.spheres))
+
+
+def restart_attribution(scene: Scene, target, rcfg: RenderConfig):
+    """``(resid, suspicion)`` on the scene's device: the signed luma residual
+    ``target - render`` of the hard render (``soft_tau = checker_tau = 0``,
+    through `ops.render.render`: a forward kernel on CUDA), an (H, W)
+    tensor, and each sphere's mean |residual| over the pixels whose nearest
+    sphere it is (camera rays against the spheres alone, ties to the lower
+    index), ``inf`` for a sphere that is nearest nowhere. The attribution of
+    the JAX package's `residual_reseed`."""
+    import dataclasses
+
+    from .ops.pipeline import BIG, camera_rays, intersect_sphere
+    from .ops.render import render
+
+    hard = dataclasses.replace(rcfg, soft_tau=0.0, checker_tau=0.0)
+    H, W = rcfg.height, rcfg.width
+    with torch.no_grad():
+        img = render(scene, hard)
+        resid = target.mean(-1) - img.mean(-1)
+        like = dict(device=img.device, dtype=torch.float32)
+        ii = torch.arange(H, **like)[:, None].expand(H, W)
+        jj = torch.arange(W, **like)[None, :].expand(H, W)
+        o, d = camera_rays(scene.camera, ii, jj, H, W, rcfg.projection)
+        c = scene.spheres.center.T[:, :, None, None]  # (3, N, 1, 1): every sphere at once
+        ts = intersect_sphere(o, d, c, scene.spheres.radius[:, None, None])  # (N, H, W)
+        tmin, kbest = ts.min(0)  # the first index of the least t
+        vis = tmin < BIG * 0.5
+        won = vis & (kbest == torch.arange(scene.spheres.count, device=img.device)[:, None, None])
+        count = won.sum((1, 2))
+        total = (resid.abs() * won).sum((1, 2))
+        suspicion = torch.where(count > 0, total / count.clamp(min=1), torch.inf)
+    return resid, suspicion
+
+
+def reseed_pick(resid: np.ndarray, suspicion: np.ndarray, rank: int):
+    """``(idx, (py, px))`` on the host, from `restart_attribution`'s results:
+    the rank-th suspect in the order of falling suspicion (stable, so the
+    spheres nearest nowhere first, ties to the lower index; ``rank`` cycles
+    through the spheres) and, for the ``rank // N``-th cycle, that cycle's
+    peak of the positive residual under non-maximum suppression (peaks at
+    least ``max(2, H // 10)`` pixels apart, ties to the later pixel), so
+    successive cycles try distinct unexplained regions."""
+    n = suspicion.shape[0]
+    H, W = resid.shape
+    idx = int(np.argsort(-suspicion, kind="stable")[rank % n])
+    cycle = rank // n
+    pos = np.clip(resid, 0.0, None)
+    r_sup2 = float(max(2, H // 10)) ** 2
+    peaks = []
+    for p in np.argsort(pos.ravel(), kind="stable")[::-1]:
+        py, px = divmod(int(p), W)
+        if all((py - a) ** 2 + (px - b) ** 2 > r_sup2 for a, b in peaks):
+            peaks.append((py, px))
+            if len(peaks) > cycle:
+                break
+    return idx, peaks[min(cycle, len(peaks) - 1)]
+
+
+def residual_reseed(start: Scene, spec: ParamSpec, target, rcfg: RenderConfig, rank: int,
+                    seed: int, jitter: float) -> Scene:
+    """The residual-guided restart proposal (the JAX package's
+    `residual_reseed`): move one suspect sphere's center onto the camera ray
+    of the brightest unexplained image region, then half-jitter the scene.
+    The suspect and the region come from `restart_attribution` (on the
+    scene's device, one read back to the host) and `reseed_pick`; the center
+    keeps its depth, the blind axis: its distance from the eye under
+    perspective, its depth along the view direction under an orthographic
+    camera, whose rays start across the image plane. The jitter is
+    `models.configs.perturb` at ``0.5 * jitter`` with ``seed``."""
+    import dataclasses
+
+    from .models.configs import perturb
+    from .ops.pipeline import camera_rays
+
+    resid, suspicion = restart_attribution(start, target, rcfg)
+    resid, suspicion = resid.cpu().numpy(), suspicion.cpu().numpy()
+    idx, (py, px) = reseed_pick(resid, suspicion, rank)
+    center = start.spheres.center.detach().cpu().numpy()[idx]
+    eye = start.camera.eye.detach().cpu().numpy()
+    if rcfg.projection == "orthographic":
+        fwd = start.camera.look_at.detach().cpu().numpy() - eye
+        fwd = fwd / np.linalg.norm(fwd)
+        t_keep = float(np.dot(center - eye, fwd))
+    else:
+        t_keep = float(np.linalg.norm(center - eye))
+    dev = start.spheres.center.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        o, d = camera_rays(start.camera, f32(py), f32(px), rcfg.height, rcfg.width,
+                           rcfg.projection)
+        new_c = torch.stack([oc + f32(t_keep) * dc for oc, dc in zip(o, d)])
+        centers = start.spheres.center.clone()
+        centers[idx] = new_c
+    out = dataclasses.replace(start, spheres=dataclasses.replace(start.spheres, center=centers))
+    return perturb(out, spec, scale=0.5 * jitter, seed=seed)
+
+
+RESTART_PROPOSALS = ("jitter", "per_sphere", "swap", "swap_jitter", "mixed", "resid")
+
+
+def propose_restart(start: Scene, spec: ParamSpec, r: int, jitter: float, seed: int,
+                    proposal: str = "jitter", target=None, rcfg: RenderConfig | None = None
+                    ) -> Scene:
+    """The starting point of restart ``r`` (the JAX package's
+    `propose_restart`); restart 0 is ``start`` itself. The families:
+
+    - ``"jitter"``: every trainable leaf re-perturbed by ``jitter`` with
+      seed ``seed + r``;
+    - ``"per_sphere"``: only sphere ``(r - 1) % N`` re-jittered, the kick
+      growing by ``jitter`` each full cycle;
+    - ``"swap"``: the centers of pair ``(r - 1) % C(N, 2)`` of a fixed
+      enumeration exchanged, with no draw;
+    - ``"swap_jitter"``: the same swap, then every trainable leaf at half
+      the jitter;
+    - ``"mixed"``: swap on odd ``r``, per_sphere on even;
+    - ``"resid"``: `residual_reseed` of suspect ``r - 1`` (needs ``target``
+      and ``rcfg``).
+
+    A scene without spheres takes ``"jitter"`` whatever the family, and a
+    swap in a one-sphere scene re-kicks sphere 0."""
+    from itertools import combinations
+
+    from .models.configs import perturb
+
+    if r == 0:
+        return start
+    if proposal == "jitter":
+        return perturb(start, spec, scale=jitter, seed=seed + r)
+    n = start.spheres.count
+    if n == 0:
+        return perturb(start, spec, scale=jitter, seed=seed + r)
+    if proposal == "resid":
+        if target is None or rcfg is None:
+            raise ValueError("proposal='resid' needs target and rcfg")
+        return residual_reseed(start, spec, target, rcfg, r - 1, seed + r, jitter)
+    if proposal in ("swap", "swap_jitter") or (proposal == "mixed" and r % 2 == 1):
+        k = (r - 1) if proposal != "mixed" else (r - 1) // 2
+        pairs = list(combinations(range(n), 2))
+        if not pairs:
+            return rejitter_one_sphere(start, spec, 0, jitter, seed + r)
+        i, j = pairs[k % len(pairs)]
+        out = swap_spheres(start, i, j)
+        if proposal == "swap_jitter":
+            out = perturb(out, spec, scale=0.5 * jitter, seed=seed + r)
+        return out
+    if proposal in ("per_sphere", "mixed"):
+        k = (r - 1) if proposal == "per_sphere" else (r - 2) // 2
+        return rejitter_one_sphere(start, spec, k % n, jitter * (1.0 + k // n), seed + r)
+    raise ValueError(f"unknown restart proposal {proposal!r}")
+
+
+def optimize_multistart(start: Scene, target, spec: ParamSpec, rcfg: RenderConfig,
+                        ocfg: OptConfig, restarts: int = 4, jitter: float = 0.15, seed: int = 0,
+                        optimize_fn=None, proposal: str = "jitter", chain: bool = False,
+                        **anneal_kw):
+    """Run the inner optimizer from ``restarts`` starting points and keep
+    the best final hard loss (the JAX package's `optimize_multistart`): a
+    start outside every first-order basin stalls any optimizer, a different
+    start can land inside one. Restart 0 runs from ``start``, restart r
+    from `propose_restart` of family ``proposal``. Candidates are ranked on
+    ``ocfg.loss`` of the hard render (``soft_tau = checker_tau = 0``)
+    against ``target``, never on a relaxed stage's loss: one forward launch
+    and one read back to the host a restart.
+
+    ``optimize_fn(scene) -> (final_scene, losses)`` overrides the inner
+    optimizer, `optimize_annealed` with ``**anneal_kw`` by default, whose
+    captured steps every restart replays (`optimize_scan`'s cache). With
+    ``chain`` each restart after the first proposes from the best final
+    scene so far, so repairs compound (``"resid"`` re-derives its suspects
+    from that scene's residual): the proposal index climbs while no restart
+    improves and starts again at 1 after one does, the seed is ``seed +
+    r``. Returns (best_scene, best_loss, the final loss of each restart)."""
+    import dataclasses
+
+    from .ops.render import LOSSES, render
+
+    if optimize_fn is None:
+        def optimize_fn(s):
+            return optimize_annealed(s, target, spec, rcfg, ocfg, **anneal_kw)
+
+    hard_cfg = dataclasses.replace(rcfg, soft_tau=0.0, checker_tau=0.0)
+    lossf = LOSSES[ocfg.loss]
+
+    def eval_loss(s):
+        with torch.no_grad():
+            return float(lossf(render(s, hard_cfg), target))
+
+    best_scene, best_loss, finals = None, None, []
+    stale = 0  # chained: the restarts since the last improvement
+    for r in range(restarts):
+        if chain and best_scene is not None:
+            base, ri, sd = best_scene, stale + 1, seed + r
+        else:
+            base, ri, sd = start, r, seed
+        s0 = propose_restart(base, spec, ri, jitter, sd, proposal, target=target, rcfg=rcfg)
+        final, _ = optimize_fn(s0)
+        loss = eval_loss(final)
+        finals.append(loss)
+        if best_loss is None or loss < best_loss:
+            best_scene, best_loss = final, loss
+            stale = 0
+        else:
+            stale += 1
+    return best_scene, best_loss, finals

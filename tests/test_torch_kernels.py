@@ -1945,3 +1945,69 @@ def test_soft_texel_instance_without_grids_is_the_untextured_one(cuda):
     lib = fused_vec_soft.SOFT_STEP.lib()
     assert lib.rrt_soft_step_pcap(*dims, 0, 0, 0) == fused_vec_soft.soft_step_plan(
         start, fused_vec.VEC_RENDER.lib().rrt_smem_optin())["pcap"]
+
+
+@pytest.mark.cuda
+def test_multistart_recovers_topology_stall(cuda):
+    """The JAX package's CI-size recovery (tests/test_soft_inversion.py
+    `test_multistart_recovers_topology_stall`) through the port's
+    `optimize_multistart` on the card: config 2 at 48^2 from perturb(scale=0.3,
+    seed=2), 100 steps a stage, 4 jittered restarts (jitter 0.15, seed 100).
+    Restart 0 reproduces the stall, a jittered restart escapes it and wins on
+    the hard loss, and the parameters end nearer the truth."""
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_multistart, param_error
+
+    scene, spec, _ = configs.config2_four_spheres(48, device=cuda)
+    cfg = RenderConfig(height=48, width=48, shadows=True)
+    target = render(scene, cfg).detach()
+    ocfg = OptConfig(iters=100, lr=1e-2, schedule="cosine")
+    start = configs.perturb(scene, spec, scale=0.3, seed=2)
+    err0 = float(param_error(start, scene, spec))
+    best, best_loss, finals = optimize_multistart(
+        start, target, spec, cfg, ocfg, restarts=4, jitter=0.15, seed=100,
+        taus=(0.08, 0.03, 0.0), target_scene=scene)
+    assert finals[0] > 4e-3, finals
+    assert best_loss < 0.5 * finals[0], finals
+    assert best_loss == min(finals)
+    err1 = float(param_error(best, scene, spec))
+    assert err1 < 0.45 * err0, (err0, err1)
+
+
+@pytest.mark.cuda
+def test_resid_proposal_card_matches_cpu(cuda):
+    """The `resid` proposal on config 5 at 256^2 (its attribution through
+    row 4) against the port's CPU result from the same start and target,
+    r = 1..4: the same peak pixel, and the same suspect with every leaf
+    within 1e-5 of its largest wherever the suspect's suspicion is more than
+    1e-4 (relative) from its neighbours' in the order."""
+    from reversible_raytracer_tpu_torch.models.scene import tree_map
+    from reversible_raytracer_tpu_torch.optim import (
+        propose_restart,
+        reseed_pick,
+        restart_attribution,
+    )
+
+    scene, spec, cfg = configs.config5_many_spheres(256, device=cuda)
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.03, seed=0)
+    cpu_start, cpu_target = tree_map(lambda l: l.cpu(), start), target.cpu()
+    card = [x.cpu().numpy() for x in restart_attribution(start, target, cfg)]
+    cpu = [x.numpy() for x in restart_attribution(cpu_start, cpu_target, cfg)]
+    np.testing.assert_array_equal(np.isfinite(card[1]), np.isfinite(cpu[1]))
+    ordered = cpu[1][np.argsort(-cpu[1], kind="stable")]
+    for r in range(1, 5):
+        k = (r - 1) % len(ordered)
+        near = [(ordered[j], ordered[j + 1]) for j in (k - 1, k) if 0 <= j < len(ordered) - 1]
+        tie = any(np.isfinite(a) and np.isfinite(b) and abs(a - b) <= 1e-4 * max(a, b)
+                  for a, b in near)
+        pick_k, pick_c = reseed_pick(*card, r - 1), reseed_pick(*cpu, r - 1)
+        assert pick_k[1] == pick_c[1], r
+        if tie:
+            continue
+        assert pick_k[0] == pick_c[0], r
+        got = propose_restart(start, spec, r, 0.3, 7, "resid", target=target, rcfg=cfg)
+        want = propose_restart(cpu_start, spec, r, 0.3, 7, "resid", target=cpu_target, rcfg=cfg)
+        for path, a, b in zip(leaf_paths(want), tree_leaves(got), tree_leaves(want)):
+            if b.numel():
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                           atol=1e-5 * float(b.abs().max()), err_msg=path)
