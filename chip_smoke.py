@@ -356,6 +356,37 @@ non-zero:
                final finite, the best their minimum; each run's finals,
                restart 0's, the winner and its host-clock wall time, the
                captures included.
+ 36. bands   - rows 1-9 in row bands (each wrapper's ``row0`` / ``out_height``,
+               the kernels' ``_band`` entries) at each family's full-width
+               shape: config 2 at 512^2 (rows 1-3), config 5 at 1024^2 (rows
+               4-6), config 5 at 512^2 and tau 0.08 (rows 7-9), from
+               perturb(scale=0.05, seed=1), in 2 and in 4 bands: the forwards'
+               bands put together equal the whole-image call to the bit (image,
+               and the planes of rows 2 and 4); the sums of the bands' steps
+               (the whole image's norm) and of the render backwards (a seeded
+               normal cotangent) equal the whole-image call within 1e-4 of
+               each leaf's scale (the worst printed); the last band of 4 held
+               to its plain version at its row0 by phases 3, 4, 9, 11, 12 and
+               16's rules (rows 2 and 4 bit for bit, row 7 by the oracle rule,
+               the steps' loss within 1e-4 and leaves within 1e-2 of scale,
+               the backwards within 1e-2); each row's device time for the
+               whole image and summed over the bands of 2 and of 4.
+ 37. sharded_main - the sharded inverse render (`parallel`) on the one card:
+               `invert --config 5 --size 1024 --iters 20 --sharded` (one rank
+               over NCCL, the step a replayed CUDA graph holding the
+               all-reduce) gives `invert`'s losses without the flag to the
+               bit (row 6 20, row 4 1), and so does config 2 at 512^2 over 50
+               steps (row 1 50, row 2 1), both runs' host-clock wall times
+               printed, the captures included; `optimize_sharded_scan` with 2
+               bands on the rank over 10 steps in each family, through the
+               band step (rows 1, 6, 9: 20 launches) and through autograd of
+               the band render (rows 2 + 3, 4 + 5, 7 + 8: 20 each), every
+               loss finite and the last below the first; then
+               `parallel.worker` as two ranks over gloo sharing the card
+               (config 5 at 1024^2, 20 steps): the gathered image the one-rank
+               render to the bit, the ranks' final scenes bit-identical, the
+               loss falling, and its wall time (a gloo all-reduce goes through
+               the host: it measures no NCCL scaling).
 Then a `timing` line (each phase's wall seconds), the card's nvidia-smi
 line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
@@ -374,7 +405,9 @@ and bounce instances' numbers per case from phases 28 and 29, and `globes`,
 their textured instances' per case from phases 30 and 31; rows 7-9 add
 `soft_texture`, their texel instances' per case from phases 32 and 33;
 each kernel the restarts launch adds `restarts`, its launches in each run of
-phases 34 and 35), and last
+phases 34 and 35; every row adds `bands`, its case, its worst difference and
+device times from phase 36 and its launches on the sharded paths of phase
+37), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -2525,7 +2558,7 @@ def phase_spp4_main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.name: k.launches for k in _all_kernels()}
-        if "losses" in summary:
+        if "taus" in summary:  # the anneal's summary holds every stage's losses
             la = summary["losses"]
             stages = [la[i * ANNEAL_ITERS:(i + 1) * ANNEAL_ITERS]
                       for i in range(len(SPP4_ANNEAL_TAUS))]
@@ -4370,6 +4403,272 @@ def phase_restarts_main():
     return counts
 
 
+BAND_CASES = (  # (label, config, size, tau, the rows' kernels: step, forward, backward)
+    ("config2_512", 2, 512, 0.0, ("fused_step", "fused_render", "fused_render_bwd")),
+    ("config5_1024", 5, 1024, 0.0, ("fused_vec_step", "fused_vec_render",
+                                    "fused_vec_render_bwd")),
+    ("config5_512_t0.08", 5, 512, 0.08, ("fused_vec_soft_step", "fused_vec_soft_render",
+                                         "fused_vec_soft_render_bwd")),
+)
+BAND_COUNTS = (2, 4)
+BAND_TOL = 1e-4  # the bands' sums against the whole image, of each leaf's scale
+
+
+def _band_calls(start, cfg, target, g):
+    """(forward, step, backward) of ``start`` as the wrappers launch them on
+    ``cfg`` (a band's or the whole image's), each a no-argument call; the
+    backward is the family's launch of its render backward kernel on the
+    forward's planes and the cotangent's rows."""
+    import torch
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+    from reversible_raytracer_tpu_torch.ops.render import loss_and_grad_fn
+
+    rows = slice(cfg.row0, cfg.row0 + cfg.height)
+    t, gb = target[rows].contiguous(), g[rows].contiguous()
+    step = loss_and_grad_fn(start, cfg)
+    off = (0.0, 0.0)
+    with torch.no_grad():
+        if cfg.soft_tau > 0:
+            ins = fused_vec_soft._cuda_inputs(start, cfg)
+            fwd = lambda: fused_vec_soft.render_vec_soft(start, cfg)  # noqa: E731
+            bwd = lambda: fused_vec_soft._render_bwd_launch(start, cfg, off, *ins, gb)  # noqa: E731
+        elif start.spheres.count + start.rects.count > fused.MAX_OBJECTS:
+            ins = fused_vec._cuda_inputs(start, cfg)
+            vis = fused_vec.render_vec(start, cfg)[1]
+            fwd = lambda: fused_vec.render_vec(start, cfg)  # noqa: E731
+            bwd = lambda: fused_vec._render_bwd_launch(start, cfg, off, *ins, gb, vis)  # noqa: E731
+        else:
+            flat, vis = fused._cuda_flat(start, cfg), fused.render_fused(start, cfg)[1]
+            fwd = lambda: fused.render_fused(start, cfg)  # noqa: E731
+            bwd = lambda: fused.unflatten_scene(  # noqa: E731
+                start, fused._render_bwd_launch(start, cfg, flat, gb, vis))
+    return fwd, (lambda: step(start, t)), bwd
+
+
+def _tree_sum(trees):
+    from reversible_raytracer_tpu_torch.models.scene import tree_leaves, tree_unflatten
+
+    total = [l.clone() for l in tree_leaves(trees[0])]
+    for tr in trees[1:]:
+        total = [a + b for a, b in zip(total, tree_leaves(tr))]
+    return tree_unflatten(trees[0], total)
+
+
+def phase_bands():
+    """Rows 1-9 in 2 and 4 row bands against the whole image and their plain
+    versions (see the module's docstring, phase 36). Returns each row's
+    numbers by kernel name."""
+    import dataclasses
+
+    import torch
+
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
+    from reversible_raytracer_tpu_torch.ops.pipeline import band_config
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    out, oks, rows = {}, [], {}
+    for label, num, size, tau, (step_k, fwd_k, bwd_k) in BAND_CASES:
+        scene, spec, cfg = configs.CONFIGS[num](size=size, device="cuda")
+        cfg = dataclasses.replace(cfg, soft_tau=tau)
+        soft = tau > 0
+        start = configs.perturb(scene, spec, scale=0.05, seed=1)
+        target = render(scene, cfg).detach()
+        g = _seeded_cotangent(cfg)
+        fwd, step, bwd = _band_calls(start, cfg, target, g)
+        with torch.no_grad():
+            whole_f, (whole_l, whole_g), whole_b = fwd(), step(), bwd()
+        row = dict(case=label, whole_device_ms={k: device_ms(fn)["ms"] for k, fn in (
+            (fwd_k, fwd), (step_k, step), (bwd_k, bwd))})
+        worst = {fwd_k: 0.0, step_k: 0.0, bwd_k: 0.0}
+        for n in BAND_COUNTS:
+            b = cfg.height // n
+            bcfgs = [band_config(cfg, i * b, b) for i in range(n)]
+            calls = [_band_calls(start, c, target, g) for c in bcfgs]
+            with torch.no_grad():
+                fs = [c[0]() for c in calls]
+                ss = [c[1]() for c in calls]
+                bs = [c[2]() for c in calls]
+            img = torch.cat([f if soft else f[0] for f in fs])
+            bits = bool(torch.equal(img, whole_f if soft else whole_f[0]))
+            if not soft:
+                bits = bits and bool(torch.equal(torch.cat([f[1] for f in fs], dim=1),
+                                                 whole_f[1]))
+            loss_sum = sum(float(l) for l, _ in ss)
+            loss_rel = abs(loss_sum - float(whole_l)) / float(whole_l)
+            step_errs = _grad_errors(whole_g, _tree_sum([gr for _, gr in ss]))
+            bwd_errs = _grad_errors(whole_b, _tree_sum(bs))
+            w_step, w_bwd = max(max(step_errs.values()), loss_rel), max(bwd_errs.values())
+            worst[step_k] = max(worst[step_k], w_step)
+            worst[bwd_k] = max(worst[bwd_k], w_bwd)
+            row[f"bands{n}"] = dict(
+                forward_bits=bits, step_loss_rel=loss_rel, step_worst=w_step,
+                step_worst_leaf=max(step_errs, key=step_errs.get), bwd_worst=w_bwd,
+                bwd_worst_leaf=max(bwd_errs, key=bwd_errs.get),
+                device_ms={k: sum(device_ms(c[i])["ms"] for c in calls)
+                           for i, k in enumerate((fwd_k, step_k, bwd_k))})
+            oks.append(bits and w_step <= BAND_TOL and w_bwd <= BAND_TOL)
+        # the last band of 4 against its plain version at its row0
+        last = bcfgs[-1]
+        r0, h = last.row0, last.height
+        tb, gb = target[r0:r0 + h], g[r0:r0 + h]
+        fam = (fused_vec_soft if soft else fused_vec if num == 5 else fused)
+        fwd_plain = {fused: fused.render_fused_plain, fused_vec: fused_vec.render_vec_plain,
+                     fused_vec_soft: fused_vec_soft.render_vec_soft_plain}[fam]
+        step_plain = {fused: fused.loss_grad_fused_plain, fused_vec: fused_vec.loss_grad_vec_plain,
+                      fused_vec_soft: fused_vec_soft.loss_grad_vec_soft_plain}[fam]
+        bwd_plain = {fused: fused.render_fused_bwd_plain, fused_vec: fused_vec.render_vec_bwd_plain,
+                     fused_vec_soft: fused_vec_soft.render_vec_soft_bwd_plain}[fam]
+        pf = fwd_plain(start, cfg, r0, h)
+        kf = fs[-1]
+        if soft:
+            err = (kf - pf).abs()
+            f_ok = bool(float((err > 2e-3).float().mean()) < 1e-3 and float(err.mean()) < 1e-4)
+            f_err = float(err.max())
+        else:
+            f_ok = bool(torch.equal(kf[0], pf[0]))
+            f_err = float((kf[0] - pf[0]).abs().max())
+        lp, gp = step_plain(start, cfg, tb, row0=r0, out_height=h)
+        lk, gk = ss[-1]
+        s_rel = abs(float(lk) - float(lp)) / float(lp)
+        s_errs = _grad_errors(gp, gk)
+        b_errs = _grad_errors(bwd_plain(start, last, gb), bs[-1])
+        row["last_band_vs_plain"] = dict(row0=r0, rows=h, forward_ok=f_ok, forward_max_abs=f_err,
+                                         step_loss_rel=s_rel, step_worst=max(s_errs.values()),
+                                         bwd_worst=max(b_errs.values()))
+        oks.append(f_ok and s_rel <= 1e-4 and max(s_errs.values()) <= 1e-2
+                   and max(b_errs.values()) <= 1e-2)
+        worst[fwd_k] = 0.0 if all(row[f"bands{n}"]["forward_bits"] for n in BAND_COUNTS) \
+            else float("inf")
+        rows[label] = row
+        for k in (fwd_k, step_k, bwd_k):
+            out[k] = dict(case=label, worst=worst[k], whole_device_ms=row["whole_device_ms"][k],
+                          **{f"bands{n}_device_ms": row[f"bands{n}"]["device_ms"][k]
+                             for n in BAND_COUNTS})
+        if not all(oks):
+            raise AssertionError(f"a band check failed: {row}")
+    emit("bands", ok=True, rows=rows)
+    return out
+
+
+SHARDED_CLI = (  # (label, argv, launches of both runs)
+    ("config5_1024", ["--config", "5", "--size", "1024", "--iters", "20"],
+     {"fused_vec_step": 20, "fused_vec_render": 1}),
+    ("config2_512", ["--config", "2", "--size", "512", "--iters", "50"],
+     {"fused_step": 50, "fused_render": 1}),
+)
+SHARDED_ITERS = 10  # the library runs' steps, 2 bands on the rank
+
+
+def phase_sharded_main():
+    """The sharded inverse render on the one card (see the module's
+    docstring, phase 37). Returns each kernel's launches on its sharded
+    paths."""
+    import dataclasses
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from reversible_raytracer_tpu_torch import cli, parallel
+    from reversible_raytracer_tpu_torch.models import configs
+    from reversible_raytracer_tpu_torch.ops.render import render
+    from reversible_raytracer_tpu_torch.optim import OptConfig
+    from reversible_raytracer_tpu_torch.parallel import shard
+
+    rows, launches, oks = {}, {}, []
+    try:
+        for label, args, expect in SHARDED_CLI:
+            argv = ["invert", *args, "--quiet"]
+            plain, lp, wall_p = _counted(lambda: cli.main(argv))
+            sharded, ls, wall_s = _counted(lambda: cli.main([*argv, "--sharded"]))
+            graphs = [st.captured() for st, _ in shard._SHARD_SCAN_CACHE.values()]
+            same = plain["losses"] == sharded["losses"]
+            rows[f"invert_{label}"] = dict(
+                losses_bit_identical=same, backend=dist.get_backend(), captured=all(graphs),
+                loss_first=sharded["losses"][0], loss_last=sharded["losses"][-1],
+                wall_seconds=wall_s, plain_wall_seconds=wall_p, loop_seconds=sharded["seconds"],
+                plain_loop_seconds=plain["seconds"], launches=ls, plain_launches=lp)
+            oks.append(same and all(graphs) and _only(ls, expect) and _only(lp, expect)
+                       and dist.get_backend() == "nccl")
+            for k, n in ls.items():
+                if n:
+                    launches.setdefault(k, {})[f"invert_{label}"] = n
+        mesh = parallel.make_ray_mesh(2)
+        for label, num, size, tau, kernels in BAND_CASES:
+            scene, spec, cfg = configs.CONFIGS[num](size=size, device="cuda")
+            cfg = dataclasses.replace(cfg, soft_tau=tau)
+            target = render(scene, cfg).detach()
+            start = configs.perturb(scene, spec, scale=0.05, seed=1)
+            ocfg = OptConfig(iters=SHARDED_ITERS, lr=1e-2)
+            for impl, names in ((None, kernels[:1]), ("render", kernels[1:])):
+                (_, losses), ln, wall = _counted(lambda: parallel.optimize_sharded_scan(
+                    start, target, mesh, cfg, spec, ocfg, impl=impl))
+                la = losses.cpu().tolist()
+                run = f"bands2_{label}_{impl or 'step'}"
+                expect = {k: 2 * SHARDED_ITERS for k in names}
+                rows[run] = dict(loss_first=la[0], loss_last=la[-1], launches=ln,
+                                 wall_seconds=wall)
+                oks.append(all(math.isfinite(x) for x in la) and la[-1] < la[0]
+                           and _only(ln, expect))
+                for k in names:
+                    launches.setdefault(k, {})[run] = ln[k]
+        dist.destroy_process_group()
+
+        # two ranks over gloo on the one card: the worker
+        scene, spec, cfg = configs.config5_many_spheres(size=1024, device="cuda")
+        with torch.no_grad():
+            one_rank = render(scene, cfg).cpu().numpy()
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        with tempfile.TemporaryDirectory() as outdir:
+            cmd = [sys.executable, "-m", "reversible_raytracer_tpu_torch.parallel.worker",
+                   f"127.0.0.1:{port}", "2"]
+            tail = [outdir, "--backend", "gloo", "--config", "5", "--size", "1024",
+                    "--iters", "20"]
+            env = {**os.environ, "PYTHONPATH": str(REPO)}
+            procs = [subprocess.Popen([*cmd, str(pid), *tail], cwd=REPO, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for pid in (0, 1)]
+            try:
+                logs = [p.communicate(timeout=300)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            if any(p.returncode for p in procs):
+                raise AssertionError(f"a worker failed: {logs}")
+            got = np.load(Path(outdir) / "worker.npz")
+            ranks = [json.loads(line) for log in logs for line in log.splitlines()
+                     if line.startswith("{")]
+            la = got["losses"]
+            row = dict(image_bits=bool(np.array_equal(got["image"], one_rank)),
+                       scenes_equal=bool(got["scenes_equal"]), loss_first=float(la[0]),
+                       loss_last=float(la[-1]), wall_seconds=float(got["wall_s"]),
+                       ranks=ranks, note="a gloo all-reduce goes through the host: this "
+                                         "measures no NCCL scaling")
+            rows["worker_gloo_2ranks_config5_1024"] = row
+            oks.append(row["image_bits"] and row["scenes_equal"] and la[-1] < la[0]
+                       and all(r["backend"] == "gloo" for r in ranks) and len(ranks) == 2)
+            for r in ranks:
+                for k, n in r.get("launches", {}).items():
+                    if n:
+                        launches.setdefault(k, {})[f"worker_rank{r['rank']}"] = n
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if not all(oks):
+        raise AssertionError(f"a sharded run failed: {rows}")
+    emit("sharded_main", ok=True, rows=rows)
+    return launches
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -4440,6 +4739,8 @@ def main() -> int:
     soft_tex_runs = run_phase("soft_texture_main", phase_soft_texture_main)
     restart_runs = run_phase("restarts", phase_restarts)
     restart_runs.update(run_phase("restarts_main", phase_restarts_main))
+    bands = run_phase("bands", phase_bands)
+    sharded = run_phase("sharded_main", phase_sharded_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -4552,6 +4853,8 @@ def main() -> int:
         runs = {label: n[k["name"]] for label, n in restart_runs.items() if n.get(k["name"])}
         if runs:
             k["restarts"] = runs
+    for k in kernels:  # every row's bands (phase bands) and its sharded launches (sharded_main)
+        k["bands"] = dict(**bands[k["name"]], launches_sharded=sharded.get(k["name"], {}))
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

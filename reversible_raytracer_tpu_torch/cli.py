@@ -49,6 +49,14 @@ from the perturbed start, the others from ``--restart-proposal``'s family
 at ``--restart-jitter``, each from the best scene so far with
 ``--restart-chain``) and keeps the best final hard loss; the last example
 is the JAX package's recipe for config 2's documented topology stall.
+``--sharded`` runs the inversion over row bands of the image, one band a
+rank of a ``torch.distributed`` group (`parallel.optimize_sharded_scan`:
+each rank's band step, one all-reduce of the loss and gradient a step, the
+same update on every rank; a CUDA graph under NCCL). Alone it is a group of
+one rank; ``--coordinator host:port --num-processes N --process-id I``
+makes rank I of N (one process per card, each started with its own id).
+NCCL on CUDA, gloo with ``--device cpu``. Only rank 0 writes the image, the
+scene and the metrics.
 """
 
 from __future__ import annotations
@@ -136,6 +144,10 @@ def cmd_invert(args):
     from .optim import OptConfig, optimize, param_error
     from .utils.metrics import MetricsLogger
 
+    if args.sharded or args.coordinator or (args.num_processes or 0) > 1:
+        from .parallel import initialize
+
+        initialize(args.coordinator, args.num_processes, args.process_id, device=args.device)
     scene, spec, cfg = _build(args)
     if args.target:
         target, truth = _target(args, cfg), None
@@ -147,17 +159,20 @@ def cmd_invert(args):
         if truth is None:
             sys.exit("error: --anneal needs the ground-truth scene (no --target)")
         return _invert_annealed(args, scene, spec, cfg, target, start, ocfg)
+    if args.sharded:
+        return _invert_sharded(args, scene, spec, cfg, target, start, ocfg, truth)
     logger = MetricsLogger(jsonl_path=args.metrics, echo=not args.quiet)
     try:
         vag = loss_and_grad_fn(scene, cfg, loss=args.loss)
         t0 = time.perf_counter()
-        final, history, _ = optimize(
+        final, history, losses = optimize(
             start, target, spec, cfg, ocfg, vag_fn=vag, logger=logger,
             log_every=args.log_every, truth=truth, frame_every=args.frame_every,
             frame_dir=args.frames_dir, checkpoint_every=args.checkpoint_every,
             checkpoint_path=args.checkpoint, resume=args.resume)
         err = float(param_error(final, truth, spec)) if truth is not None else None
         dt = time.perf_counter() - t0
+        losses = losses.cpu().tolist()
     finally:
         logger.close()
     if err is not None:
@@ -166,8 +181,41 @@ def cmd_invert(args):
     print(f"optimized {args.iters} iters in {dt:.1f}s (final loss {final_loss})",
           file=sys.stderr)
     _save_outputs(args, final, cfg)
-    return {"history": history, "param_err": err, "seconds": dt, "output": args.output,
-            "scene": final}
+    return {"history": history, "losses": losses, "param_err": err, "seconds": dt,
+            "output": args.output, "scene": final}
+
+
+def _invert_sharded(args, scene, spec, cfg, target, start, ocfg, truth):
+    """``invert --sharded``: the inversion over row bands, one a rank
+    (`parallel.optimize_sharded_scan`), the per-step losses back in one
+    transfer at the end; ``wall_s`` on the host clock, captures included.
+    Only the primary rank logs and writes."""
+    from .optim import param_error
+    from .parallel import is_primary, make_ray_mesh, optimize_sharded_scan
+    from .utils.metrics import MetricsLogger
+
+    primary = is_primary()
+    mesh = make_ray_mesh()
+    logger = MetricsLogger(jsonl_path=args.metrics if primary else None,
+                           echo=primary and not args.quiet)
+    try:
+        t0 = time.perf_counter()
+        final, losses = optimize_sharded_scan(start, target, mesh, cfg, spec, ocfg)
+        la = losses.cpu().tolist()
+        dt = time.perf_counter() - t0
+        logger.log(step=args.iters, loss=la[-1], wall_s=round(dt, 3), mesh=str(mesh.shape),
+                   ranks=mesh.ranks)
+    finally:
+        logger.close()
+    err = float(param_error(final, truth, spec)) if truth is not None else None
+    if primary:
+        if err is not None:
+            print(f"final param RMS error vs truth: {err:.5f}", file=sys.stderr)
+        print(f"optimized {args.iters} iters over {mesh.ranks} ranks ({mesh.shape}) in "
+              f"{dt:.1f}s (final loss {la[-1]:.3e})", file=sys.stderr)
+        _save_outputs(args, final, cfg)
+    return {"history": [{"loss": la[-1]}], "losses": la, "param_err": err, "seconds": dt,
+            "output": args.output, "scene": final, "mesh": mesh.shape, "ranks": mesh.ranks}
 
 
 def _save_outputs(args, final, cfg):
@@ -274,6 +322,14 @@ def main(argv=None):
     pi.add_argument("--target", type=str, default=None,
                     help="PNG target image (default: render the ground truth); with it "
                          "no parameter error is reported")
+    pi.add_argument("--sharded", action="store_true",
+                    help="shard rays over all ranks of the process group (P1; alone: one rank)")
+    pi.add_argument("--coordinator", type=str, default=None,
+                    help="multi-host: coordinator address for torch.distributed (P3)")
+    pi.add_argument("--num-processes", type=int, default=None,
+                    help="multi-host: total process count")
+    pi.add_argument("--process-id", type=int, default=None,
+                    help="multi-host: this process's id")
     pi.add_argument("--log-every", type=int, default=25)
     pi.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
     pi.add_argument("--quiet", action="store_true", help="suppress per-step stderr logs")

@@ -368,11 +368,9 @@ inline long long flat_step_tex_scratch_floats(int n_sph, int n_rect, int n_light
 // flat_step_scratch_floats (or _tex_) holds the rows of every instance (those
 // with a bounce level have fewer blocks).
 template <class LY, class Src>
-int launch_flat(const void* kernel, int per_sm, const float* flat, LY ly, FlatPlan fp, int H,
-                int W, int shadows, int clip, Src src, float* scratch, float* out,
-                void* stream) {
-  Params p = make_params(H, W, shadows, clip);
-  const int nblocks = step_blocks(fp.smem, H, W, per_sm);
+int launch_flat(const void* kernel, int per_sm, const float* flat, LY ly, FlatPlan fp, Params p,
+                Src src, float* scratch, float* out, void* stream) {
+  const int nblocks = step_blocks(fp.smem, p.H, p.W, per_sm);
   if (nblocks <= 0) return (int)cudaErrorInvalidDevice;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -396,43 +394,42 @@ int launch_flat(const void* kernel, int per_sm, const float* flat, LY ly, FlatPl
 }
 
 template <int SPP, int REFL, class Src>
-int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_light, int H,
-                              int W, int shadows, int clip, Src src, float* scratch, float* out,
+int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_light,
+                              const Params& p, Src src, float* scratch, float* out,
                               void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
   return launch_flat((const void*)flat_step_kernel<SPP, REFL, Src>, step_blocks_per_sm<REFL>(),
-                     flat, ly, flat_plan(ly), H, W, shadows, clip, src, scratch, out, stream);
+                     flat, ly, flat_plan(ly), p, src, scratch, out, stream);
 }
 
 // The textured instance of refl 0 or 1 (spp 1).
 template <class Src>
-int launch_flat_step_tex(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
-                         int shadows, int clip, int refl, int Ks, int Kr, int Ke, Src src,
-                         float* scratch, float* out, void* stream) {
+int launch_flat_step_tex(const float* flat, int n_sph, int n_rect, int n_light, const Params& p,
+                         int refl, int Ks, int Kr, int Ke, Src src, float* scratch, float* out,
+                         void* stream) {
   if (refl != 0 && refl != 1) return (int)cudaErrorInvalidValue;
   const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
   const void* kernel = refl ? (const void*)flat_step_tex_kernel<1, Src>
                             : (const void*)flat_step_tex_kernel<0, Src>;
   return launch_flat(kernel, refl ? step_blocks_per_sm<1>() : step_blocks_per_sm<0>(), flat, ly,
-                     flat_plan(ly, true), H, W, shadows, clip, src, scratch, out, stream);
+                     flat_plan(ly, true), p, src, scratch, out, stream);
 }
 
 // The instance of spp 1 or 4 without a bounce, or of spp 1 with one
 // (refl 1).
 template <class Src>
-int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
-                     int shadows, int clip, int spp, int refl, Src src, float* scratch,
-                     float* out, void* stream) {
+int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, const Params& p,
+                     int spp, int refl, Src src, float* scratch, float* out, void* stream) {
   if (refl == 1 && spp == 1)
-    return launch_flat_step_instance<1, 1>(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
-                                           src, scratch, out, stream);
+    return launch_flat_step_instance<1, 1>(flat, n_sph, n_rect, n_light, p, src, scratch, out,
+                                           stream);
   if (refl != 0) return (int)cudaErrorInvalidValue;
   if (spp == 4)
-    return launch_flat_step_instance<4, 0>(flat, n_sph, n_rect, n_light, H, W, shadows, clip,
-                                           src, scratch, out, stream);
+    return launch_flat_step_instance<4, 0>(flat, n_sph, n_rect, n_light, p, src, scratch, out,
+                                           stream);
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  return launch_flat_step_instance<1, 0>(flat, n_sph, n_rect, n_light, H, W, shadows, clip, src,
-                                         scratch, out, stream);
+  return launch_flat_step_instance<1, 0>(flat, n_sph, n_rect, n_light, p, src, scratch, out,
+                                         stream);
 }
 
 }  // namespace rrt

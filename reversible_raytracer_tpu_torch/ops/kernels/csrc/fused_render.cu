@@ -139,14 +139,18 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
   render_body<1, REFL, TexFlatScene>(flat, p, ly, img, vis);
 }
 
-// The textured instances: spp 1, refl 0 or 1 (L or 2 L planes), the texel
-// grids' sides Ks, Kr, Ke (0 for none) in make_tex_layout's flat layout.
-extern "C" int rrt_render_tex(const float* flat, int n_sph, int n_rect, int n_light, int H,
-                              int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
-                              float* img, float* vis, void* stream) {
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params); img (H, W, 3) and the
+// planes (n_vis, H, W) are the band's. The textured instances: spp 1, refl 0
+// or 1 (L or 2 L planes), the texel grids' sides Ks, Kr, Ke (0 for none) in
+// make_tex_layout's flat layout.
+extern "C" int rrt_render_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                                   int W, int shadows, int clip, int row0, int image_h, int refl,
+                                   int Ks, int Kr, int Ke, float* img, float* vis,
+                                   void* stream) {
   const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
-  const Params p = make_params(H, W, shadows, clip);
-  if (refl != 0 && refl != 1) return (int)cudaErrorInvalidValue;
+  const Params p = band_params(H, W, shadows, clip, row0, image_h);
+  if ((refl != 0 && refl != 1) || !band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
   const size_t smem = ly.S * sizeof(float);
   const auto kernel = refl ? render_kernel_tex<1> : render_kernel_tex<0>;
   if (smem > 48 * 1024) {
@@ -161,18 +165,34 @@ extern "C" int rrt_render_tex(const float* flat, int n_sph, int n_rect, int n_li
 
 // spp 1 or 4 without a bounce (4 L planes at spp 4), spp 1 with one (refl
 // 1, 2 L planes).
-extern "C" int rrt_render_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
-                               int W, int shadows, int clip, int spp, int refl, float* img,
-                               float* vis, void* stream) {
+extern "C" int rrt_render_refl_band(const float* flat, int n_sph, int n_rect, int n_light,
+                                    int H, int W, int shadows, int clip, int row0, int image_h,
+                                    int spp, int refl, float* img, float* vis, void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
-  const Params p = make_params(H, W, shadows, clip);
-  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || (refl == 1 && spp != 1))
+  const Params p = band_params(H, W, shadows, clip, row0, image_h);
+  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || (refl == 1 && spp != 1) ||
+      !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
   const auto kernel = refl ? render_kernel<1, 1> : spp == 4 ? render_kernel<4, 0>
                                                             : render_kernel<1, 0>;
   kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
            (cudaStream_t)stream>>>(flat, p, ly, img, vis);
   return (int)cudaGetLastError();
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_render_tex(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                              int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
+                              float* img, float* vis, void* stream) {
+  return rrt_render_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, Ks,
+                             Kr, Ke, img, vis, stream);
+}
+
+extern "C" int rrt_render_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                               int W, int shadows, int clip, int spp, int refl, float* img,
+                               float* vis, void* stream) {
+  return rrt_render_refl_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, spp, refl,
+                              img, vis, stream);
 }
 
 // spp 1 or 4 without a bounce.
@@ -183,7 +203,7 @@ extern "C" int rrt_render_spp(const float* flat, int n_sph, int n_rect, int n_li
                          stream);
 }
 
-// spp 1 (the entry of the tools and of earlier checkouts).
+// spp 1.
 extern "C" int rrt_render(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
                           int shadows, int clip, float* img, float* vis, void* stream) {
   return rrt_render_spp(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 1, img, vis, stream);

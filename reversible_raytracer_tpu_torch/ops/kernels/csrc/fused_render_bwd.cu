@@ -40,32 +40,58 @@ extern "C" long long rrt_render_bwd_scratch_floats(int n_sph, int n_rect, int n_
   return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
 }
 
-// out = [0, d flat (S)]. spp 1 or 4 without a bounce, spp 1 with one (refl
-// 1): at spp 4 g_img is the cotangent of the average and vis the forward's
-// 4 L planes (render_common.cuh pixel_grads); with a bounce the forward's 2 L.
-extern "C" int rrt_render_bwd_refl(const float* flat, int n_sph, int n_rect, int n_light,
-                                   int H, int W, int shadows, int clip, int spp, int refl,
-                                   const float* g_img, const float* vis, float* scratch,
-                                   float* out, void* stream) {
-  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, refl,
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params); g_img the band's (H, W,
+// 3) cotangent and vis the band forward's planes. out = [0, d flat (S)]. spp
+// 1 or 4 without a bounce, spp 1 with one (refl 1): at spp 4 g_img is the
+// cotangent of the average and vis the forward's 4 L planes
+// (render_common.cuh pixel_grads); with a bounce the forward's 2 L.
+extern "C" int rrt_render_bwd_refl_band(const float* flat, int n_sph, int n_rect, int n_light,
+                                        int H, int W, int shadows, int clip, int row0,
+                                        int image_h, int spp, int refl, const float* g_img,
+                                        const float* vis, float* scratch, float* out,
+                                        void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_flat_step(flat, n_sph, n_rect, n_light,
+                          band_params(H, W, shadows, clip, row0, image_h), spp, refl,
                           CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
 // The textured instance: spp 1, refl 0 or 1, the grids' sides Ks, Kr, Ke.
+extern "C" int rrt_render_bwd_tex_band(const float* flat, int n_sph, int n_rect, int n_light,
+                                       int H, int W, int shadows, int clip, int row0,
+                                       int image_h, int refl, int Ks, int Kr, int Ke,
+                                       const float* g_img, const float* vis, float* scratch,
+                                       float* out, void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_flat_step_tex(flat, n_sph, n_rect, n_light,
+                              band_params(H, W, shadows, clip, row0, image_h), refl, Ks, Kr, Ke,
+                              CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+}
+
 extern "C" long long rrt_render_bwd_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H,
                                                        int W, int Ks, int Kr, int Ke) {
   return flat_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, Ks, Kr, Ke);
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_render_bwd_refl(const float* flat, int n_sph, int n_rect, int n_light,
+                                   int H, int W, int shadows, int clip, int spp, int refl,
+                                   const float* g_img, const float* vis, float* scratch,
+                                   float* out, void* stream) {
+  return rrt_render_bwd_refl_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, spp,
+                                  refl, g_img, vis, scratch, out, stream);
 }
 
 extern "C" int rrt_render_bwd_tex(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                   int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
                                   const float* g_img, const float* vis, float* scratch,
                                   float* out, void* stream) {
-  return launch_flat_step_tex(flat, n_sph, n_rect, n_light, H, W, shadows, clip, refl, Ks, Kr,
-                              Ke, CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+  return rrt_render_bwd_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl,
+                                 Ks, Kr, Ke, g_img, vis, scratch, out, stream);
 }
 
-// No bounce (the entry of the tools and of earlier checkouts).
+// No bounce.
 extern "C" int rrt_render_bwd_spp(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                   int W, int shadows, int clip, int spp, const float* g_img,
                                   const float* vis, float* scratch, float* out, void* stream) {
@@ -73,7 +99,7 @@ extern "C" int rrt_render_bwd_spp(const float* flat, int n_sph, int n_rect, int 
                              vis, scratch, out, stream);
 }
 
-// spp 1 (the entry of the tools and of earlier checkouts).
+// spp 1.
 extern "C" int rrt_render_bwd(const float* flat, int n_sph, int n_rect, int n_light, int H,
                               int W, int shadows, int clip, const float* g_img,
                               const float* vis, float* scratch, float* out, void* stream) {

@@ -55,19 +55,44 @@ extern "C" long long rrt_step_scratch_floats(int n_sph, int n_rect, int n_light,
   return flat_step_scratch_floats(n_sph, n_rect, n_light, H, W);
 }
 
-// spp 1 or 4 without a bounce, spp 1 with one (refl 1): at spp 4 the loss
-// is of the average of the four clipped subsamples (render_common.cuh
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params), the target the band's
+// (H, W, 3); w the caller's normalization (a band of a sharded step passes
+// the whole image's, so that the bands' sums are the whole image's step).
+// spp 1 or 4 without a bounce, spp 1 with one (refl 1): at spp 4 the loss is
+// of the average of the four clipped subsamples (render_common.cuh
 // pixel_grads).
-extern "C" int rrt_step_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
-                             int W, int shadows, int clip, int spp, int refl,
-                             const float* target, float w, float* scratch, float* out,
-                             void* stream) {
-  return launch_flat_step(flat, n_sph, n_rect, n_light, H, W, shadows, clip, spp, refl,
+extern "C" int rrt_step_refl_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                                  int W, int shadows, int clip, int row0, int image_h, int spp,
+                                  int refl, const float* target, float w, float* scratch,
+                                  float* out, void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_flat_step(flat, n_sph, n_rect, n_light,
+                          band_params(H, W, shadows, clip, row0, image_h), spp, refl,
                           ResidualSource{target, w}, scratch, out, stream);
 }
 
 // The textured instance: spp 1, refl 0 or 1, the texel grids' sides Ks, Kr,
 // Ke (0 for none) in make_tex_layout's flat layout.
+extern "C" int rrt_step_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                                 int W, int shadows, int clip, int row0, int image_h, int refl,
+                                 int Ks, int Kr, int Ke, const float* target, float w,
+                                 float* scratch, float* out, void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_flat_step_tex(flat, n_sph, n_rect, n_light,
+                              band_params(H, W, shadows, clip, row0, image_h), refl, Ks, Kr, Ke,
+                              ResidualSource{target, w}, scratch, out, stream);
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_step_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                             int W, int shadows, int clip, int spp, int refl,
+                             const float* target, float w, float* scratch, float* out,
+                             void* stream) {
+  return rrt_step_refl_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, spp, refl,
+                            target, w, scratch, out, stream);
+}
+
 extern "C" long long rrt_step_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H, int W,
                                                  int Ks, int Kr, int Ke) {
   return flat_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, Ks, Kr, Ke);
@@ -77,11 +102,11 @@ extern "C" int rrt_step_tex(const float* flat, int n_sph, int n_rect, int n_ligh
                             int shadows, int clip, int refl, int Ks, int Kr, int Ke,
                             const float* target, float w, float* scratch, float* out,
                             void* stream) {
-  return launch_flat_step_tex(flat, n_sph, n_rect, n_light, H, W, shadows, clip, refl, Ks, Kr,
-                              Ke, ResidualSource{target, w}, scratch, out, stream);
+  return rrt_step_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, Ks, Kr,
+                           Ke, target, w, scratch, out, stream);
 }
 
-// No bounce (the entry of the tools and of earlier checkouts).
+// No bounce.
 extern "C" int rrt_step_spp(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
                             int shadows, int clip, int spp, const float* target, float w,
                             float* scratch, float* out, void* stream) {
@@ -89,7 +114,7 @@ extern "C" int rrt_step_spp(const float* flat, int n_sph, int n_rect, int n_ligh
                        scratch, out, stream);
 }
 
-// spp 1 (the entry of the tools and of earlier checkouts).
+// spp 1.
 extern "C" int rrt_step(const float* flat, int n_sph, int n_rect, int n_light, int H, int W,
                         int shadows, int clip, const float* target, float w, float* scratch,
                         float* out, void* stream) {

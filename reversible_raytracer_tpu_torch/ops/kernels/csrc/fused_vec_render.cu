@@ -250,29 +250,24 @@ extern "C" long long rrt_smem_optin() {
   return bytes;
 }
 
-// At the subsample offset (oi, oj) from the pixel centre, in rows and
-// columns.
-extern "C" int rrt_vec_render_at(const float* glob, const float* sph, const float* rct,
-                                 int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
-                                 int H, int W, int shadows, int clip, float oi, float oj,
-                                 float* img, float* vis, void* stream) {
-  return launch_forward(vec_render_kernel, forward_smem(ns_pad, nr_pad, n_light), glob, sph, rct,
-                        n_sph, n_rect, ns_pad, nr_pad, make_glayout(n_light),
-                        make_params(H, W, shadows, clip, oi, oj), img, vis, stream);
-}
-
-// The instance of refl bounce levels (0 or 1) and an environment map of
-// side ke (0 for none) at the subsample offset (oi, oj): rrt_vec_render_at's
-// at 0 and 0 (L planes), else L (1 + refl) planes.
-extern "C" int rrt_vec_render_levels(const float* glob, const float* sph, const float* rct,
-                                     int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
-                                     int H, int W, int shadows, int clip, float oi, float oj,
-                                     int refl, int ke, float* img, float* vis, void* stream) {
-  if ((refl != 0 && refl != 1) || ke < 0) return (int)cudaErrorInvalidValue;
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params); img (H, W, 3) and the
+// planes are the band's. The instance of refl bounce levels (0 or 1) and an
+// environment map of side ke (0 for none) at the subsample offset (oi, oj)
+// from the pixel centre, in rows and columns: at 0 and 0 L planes (the
+// instance of rrt_vec_render_at), else L (1 + refl) planes.
+extern "C" int rrt_vec_render_levels_band(const float* glob, const float* sph, const float* rct,
+                                          int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                          int n_light, int H, int W, int shadows, int clip,
+                                          int row0, int image_h, float oi, float oj, int refl,
+                                          int ke, float* img, float* vis, void* stream) {
+  if ((refl != 0 && refl != 1) || ke < 0 || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  const Params p = band_params(H, W, shadows, clip, row0, image_h, oi, oj);
   if (!refl && !ke)
-    return rrt_vec_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
-                             shadows, clip, oi, oj, img, vis, stream);
-  const Params p = make_params(H, W, shadows, clip, oi, oj);
+    return launch_forward(vec_render_kernel, forward_smem(ns_pad, nr_pad, n_light), glob, sph,
+                          rct, n_sph, n_rect, ns_pad, nr_pad, make_glayout(n_light), p, img, vis,
+                          stream);
   const auto launch = refl ? (ke ? &launch_levels<1, true> : &launch_levels<1, false>)
                            : &launch_levels<0, true>;
   return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, img, vis,
@@ -284,20 +279,50 @@ extern "C" int rrt_vec_render_levels(const float* glob, const float* sph, const 
 // an environment map of side ke, at the subsample offset (oi, oj): L (1 +
 // refl) planes. Its shared memory is rrt_vec_render_levels_smem's (the grids
 // are read from global memory).
-extern "C" int rrt_vec_render_tex(const float* glob, const float* sph, const float* rct,
-                                  const float* stex, const float* rtex, int n_sph, int n_rect,
-                                  int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
-                                  int clip, float oi, float oj, int refl, int ke, int ks, int kr,
-                                  float* img, float* vis, void* stream) {
-  if ((refl != 0 && refl != 1) || ke < 0 || ks < 0 || kr < 0) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(H, W, shadows, clip, oi, oj);
+extern "C" int rrt_vec_render_tex_band(const float* glob, const float* sph, const float* rct,
+                                       const float* stex, const float* rtex, int n_sph,
+                                       int n_rect, int ns_pad, int nr_pad, int n_light, int H,
+                                       int W, int shadows, int clip, int row0, int image_h,
+                                       float oi, float oj, int refl, int ke, int ks, int kr,
+                                       float* img, float* vis, void* stream) {
+  if ((refl != 0 && refl != 1) || ke < 0 || ks < 0 || kr < 0 || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  const Params p = band_params(H, W, shadows, clip, row0, image_h, oi, oj);
   return launch_forward(refl ? vec_render_tex_kernel<1> : vec_render_tex_kernel<0>,
                         forward_smem(ns_pad, nr_pad, n_light, refl, ke), glob, sph, rct, n_sph,
                         n_rect, ns_pad, nr_pad, make_env_glayout(n_light, ke), p, img, vis,
                         stream, TexGrids{stex, rtex, ks, kr});
 }
 
-// At the pixel centre (the entry of the tools and of earlier checkouts).
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_vec_render_levels(const float* glob, const float* sph, const float* rct,
+                                     int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                     int H, int W, int shadows, int clip, float oi, float oj,
+                                     int refl, int ke, float* img, float* vis, void* stream) {
+  return rrt_vec_render_levels_band(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                                    shadows, clip, 0, H, oi, oj, refl, ke, img, vis, stream);
+}
+
+extern "C" int rrt_vec_render_tex(const float* glob, const float* sph, const float* rct,
+                                  const float* stex, const float* rtex, int n_sph, int n_rect,
+                                  int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                  int clip, float oi, float oj, int refl, int ke, int ks, int kr,
+                                  float* img, float* vis, void* stream) {
+  return rrt_vec_render_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
+                                 n_light, H, W, shadows, clip, 0, H, oi, oj, refl, ke, ks, kr,
+                                 img, vis, stream);
+}
+
+// At the subsample offset (oi, oj), without a bounce or an environment map.
+extern "C" int rrt_vec_render_at(const float* glob, const float* sph, const float* rct,
+                                 int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                 int H, int W, int shadows, int clip, float oi, float oj,
+                                 float* img, float* vis, void* stream) {
+  return rrt_vec_render_levels(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                               shadows, clip, oi, oj, 0, 0, img, vis, stream);
+}
+
+// At the pixel centre.
 extern "C" int rrt_vec_render(const float* glob, const float* sph, const float* rct, int n_sph,
                               int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
                               int shadows, int clip, float* img, float* vis, void* stream) {

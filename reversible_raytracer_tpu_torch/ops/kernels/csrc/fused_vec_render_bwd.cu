@@ -49,17 +49,6 @@ extern "C" long long rrt_vec_render_bwd_levels_scratch_floats(int ns_pad, int nr
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W, ke);
 }
 
-extern "C" int rrt_vec_render_bwd_levels(const float* glob, const float* sph, const float* rct,
-                                         int n_sph, int n_rect, int ns_pad, int nr_pad,
-                                         int n_light, int H, int W, int shadows, int clip,
-                                         float oi, float oj, int refl, int ke, const float* g_img,
-                                         const float* vis, float* scratch, float* out,
-                                         void* stream) {
-  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
-                         make_params(H, W, shadows, clip, oi, oj), 1,
-                         CotangentSource{g_img, vis, 1.0f}, scratch, out, stream, refl, ke);
-}
-
 // The textured instances (spp 1): object texel grids of sides ks and kr (0
 // for none) read from stex and rtex; out = [0, dglob, dsph, drct, dstex,
 // drtex], at the pixel centre (oi = oj = 0) or a subsample's offset.
@@ -73,17 +62,58 @@ extern "C" long long rrt_vec_render_bwd_tex_scratch_floats(int n_sph, int n_rect
   return vec_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
 }
 
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params); g_img the band's (H, W,
+// 3) cotangent and vis the band forward's planes.
+extern "C" int rrt_vec_render_bwd_levels_band(const float* glob, const float* sph,
+                                              const float* rct, int n_sph, int n_rect, int ns_pad,
+                                              int nr_pad, int n_light, int H, int W, int shadows,
+                                              int clip, int row0, int image_h, float oi, float oj,
+                                              int refl, int ke, const float* g_img,
+                                              const float* vis, float* scratch, float* out,
+                                              void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                         band_params(H, W, shadows, clip, row0, image_h, oi, oj), 1,
+                         CotangentSource{g_img, vis, 1.0f}, scratch, out, stream, refl, ke);
+}
+
+extern "C" int rrt_vec_render_bwd_tex_band(const float* glob, const float* sph, const float* rct,
+                                           const float* stex, const float* rtex, int n_sph,
+                                           int n_rect, int ns_pad, int nr_pad, int n_light, int H,
+                                           int W, int shadows, int clip, int row0, int image_h,
+                                           float oi, float oj, int refl, int ke, int ks, int kr,
+                                           const float* g_img, const float* vis, float* scratch,
+                                           float* out, void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect) || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                             TexGrids{stex, rtex, ks, kr},
+                             band_params(H, W, shadows, clip, row0, image_h, oi, oj), refl,
+                             CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_vec_render_bwd_levels(const float* glob, const float* sph, const float* rct,
+                                         int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                         int n_light, int H, int W, int shadows, int clip,
+                                         float oi, float oj, int refl, int ke, const float* g_img,
+                                         const float* vis, float* scratch, float* out,
+                                         void* stream) {
+  return rrt_vec_render_bwd_levels_band(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                                        H, W, shadows, clip, 0, H, oi, oj, refl, ke, g_img, vis,
+                                        scratch, out, stream);
+}
+
 extern "C" int rrt_vec_render_bwd_tex(const float* glob, const float* sph, const float* rct,
                                       const float* stex, const float* rtex, int n_sph, int n_rect,
                                       int ns_pad, int nr_pad, int n_light, int H, int W,
                                       int shadows, int clip, float oi, float oj, int refl, int ke,
                                       int ks, int kr, const float* g_img, const float* vis,
                                       float* scratch, float* out, void* stream) {
-  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
-  return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
-                             TexGrids{stex, rtex, ks, kr},
-                             make_params(H, W, shadows, clip, oi, oj), refl,
-                             CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+  return rrt_vec_render_bwd_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
+                                     n_light, H, W, shadows, clip, 0, H, oi, oj, refl, ke, ks, kr,
+                                     g_img, vis, scratch, out, stream);
 }
 
 // out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)], at
@@ -99,7 +129,7 @@ extern "C" int rrt_vec_render_bwd_at(const float* glob, const float* sph, const 
                          CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
-// At the pixel centre (the entry of the tools and of earlier checkouts).
+// At the pixel centre.
 extern "C" int rrt_vec_render_bwd(const float* glob, const float* sph, const float* rct,
                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
                                   int H, int W, int shadows, int clip, const float* g_img,

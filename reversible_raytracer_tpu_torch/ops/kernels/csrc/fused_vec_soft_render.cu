@@ -180,14 +180,24 @@ static int launch_soft_render(const float* glob, const float* sph, const float* 
   return (int)cudaGetLastError();
 }
 
-// At the subsample offset (oi, oj) from the pixel centre, in rows and
+// Shared memory a block of the texel instance needs (an environment map of
+// side ke, 0 for none; the object grids stay in global memory), in bytes.
+extern "C" long long rrt_soft_render_tex_smem(int n_sph, int n_rect, int n_light, int ke) {
+  return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light, 0, ke);
+}
+
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params); img (H, W, 3) is the
+// band's. At the subsample offset (oi, oj) from the pixel centre, in rows and
 // columns (spp 4: four launches, averaged by the caller, as the TPU kernel's
 // fused_vec_soft.py:1059-1092).
-extern "C" int rrt_soft_render_at(const float* glob, const float* sph, const float* rct,
-                                  int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
-                                  int H, int W, int shadows, int clip, float oi, float oj,
-                                  float tau, float ctau, float* img, void* stream) {
-  const Params p = make_params(H, W, shadows, clip, oi, oj);
+extern "C" int rrt_soft_render_at_band(const float* glob, const float* sph, const float* rct,
+                                       int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                       int n_light, int H, int W, int shadows, int clip,
+                                       int row0, int image_h, float oi, float oj, float tau,
+                                       float ctau, float* img, void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  const Params p = band_params(H, W, shadows, clip, row0, image_h, oi, oj);
   if (ctau > 0.0f)
     return launch_soft_render<true>(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, p,
                                     tau, ctau, img, stream);
@@ -195,31 +205,18 @@ extern "C" int rrt_soft_render_at(const float* glob, const float* sph, const flo
                                    tau, ctau, img, stream);
 }
 
-// At the pixel centre (the entry of the tools and of earlier checkouts).
-extern "C" int rrt_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
-                               int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                               int shadows, int clip, float tau, float ctau, float* img,
-                               void* stream) {
-  return rrt_soft_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
-                            shadows, clip, 0.0f, 0.0f, tau, ctau, img, stream);
-}
-
-// Shared memory a block of the texel instance needs (an environment map of
-// side ke, 0 for none; the object grids stay in global memory), in bytes.
-extern "C" long long rrt_soft_render_tex_smem(int n_sph, int n_rect, int n_light, int ke) {
-  return (long long)forward_smem(pad16(n_sph), pad16(n_rect), n_light, 0, ke);
-}
-
 // The texel instance (spp 1): object texel grids of sides ks (the spheres',
 // from stex) and kr (the rects', from rtex) and an environment map of side ke
 // ending the globals, each 0 for none, at the subsample offset (oi, oj).
-extern "C" int rrt_soft_render_tex(const float* glob, const float* sph, const float* rct,
-                                   const float* stex, const float* rtex, int n_sph, int n_rect,
-                                   int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
-                                   int clip, float oi, float oj, float tau, int ke, int ks,
-                                   int kr, float* img, void* stream) {
-  if (ke < 0 || ks < 0 || kr < 0) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(H, W, shadows, clip, oi, oj);
+extern "C" int rrt_soft_render_tex_band(const float* glob, const float* sph, const float* rct,
+                                        const float* stex, const float* rtex, int n_sph,
+                                        int n_rect, int ns_pad, int nr_pad, int n_light, int H,
+                                        int W, int shadows, int clip, int row0, int image_h,
+                                        float oi, float oj, float tau, int ke, int ks, int kr,
+                                        float* img, void* stream) {
+  if (ke < 0 || ks < 0 || kr < 0 || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  const Params p = band_params(H, W, shadows, clip, row0, image_h, oi, oj);
   const size_t smem = forward_smem(ns_pad, nr_pad, n_light, 0, ke);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -232,4 +229,32 @@ extern "C" int rrt_soft_render_tex(const float* glob, const float* sph, const fl
                                                    make_env_glayout(n_light, ke), p, tau, img,
                                                    TexGrids{stex, rtex, ks, kr});
   return (int)cudaGetLastError();
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_soft_render_at(const float* glob, const float* sph, const float* rct,
+                                  int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                  int H, int W, int shadows, int clip, float oi, float oj,
+                                  float tau, float ctau, float* img, void* stream) {
+  return rrt_soft_render_at_band(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                                 shadows, clip, 0, H, oi, oj, tau, ctau, img, stream);
+}
+
+extern "C" int rrt_soft_render_tex(const float* glob, const float* sph, const float* rct,
+                                   const float* stex, const float* rtex, int n_sph, int n_rect,
+                                   int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                   int clip, float oi, float oj, float tau, int ke, int ks,
+                                   int kr, float* img, void* stream) {
+  return rrt_soft_render_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
+                                  n_light, H, W, shadows, clip, 0, H, oi, oj, tau, ke, ks, kr,
+                                  img, stream);
+}
+
+// At the pixel centre.
+extern "C" int rrt_soft_render(const float* glob, const float* sph, const float* rct, int n_sph,
+                               int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
+                               int shadows, int clip, float tau, float ctau, float* img,
+                               void* stream) {
+  return rrt_soft_render_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                            shadows, clip, 0.0f, 0.0f, tau, ctau, img, stream);
 }

@@ -42,30 +42,6 @@ extern "C" long long rrt_soft_render_bwd_scratch_floats(int ns_pad, int nr_pad, 
   return soft_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
 }
 
-// out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x P_RCT)], at
-// the subsample offset (oi, oj) (0 at spp 1; at spp 4 one launch a
-// subsample, each with its cotangent).
-extern "C" int rrt_soft_render_bwd_at(const float* glob, const float* sph, const float* rct,
-                                      int n_sph, int n_rect, int ns_pad, int nr_pad,
-                                      int n_light, int H, int W, int shadows, int clip, float oi,
-                                      float oj, float tau, float ctau, const float* g_img,
-                                      float* scratch, float* out, void* stream) {
-  return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
-                          make_params(H, W, shadows, clip, oi, oj), tau, ctau,
-                          CotangentSource{g_img, nullptr, 1.0f}, scratch, out, stream);
-}
-
-// At the pixel centre (the entry of the tools and of earlier checkouts).
-extern "C" int rrt_soft_render_bwd(const float* glob, const float* sph, const float* rct,
-                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
-                                   int H, int W, int shadows, int clip, float tau, float ctau,
-                                   const float* g_img, float* scratch, float* out,
-                                   void* stream) {
-  return rrt_soft_render_bwd_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
-                                shadows, clip, 0.0f, 0.0f, tau, ctau, g_img, scratch, out,
-                                stream);
-}
-
 // The texel instance (spp 1; the step's _tex entries with the caller's
 // cotangent): out = [0, dglob, dsph, drct, dstex, drtex].
 extern "C" long long rrt_soft_render_bwd_tex_smem(int n_sph, int n_rect, int n_light, int ke,
@@ -79,15 +55,68 @@ extern "C" long long rrt_soft_render_bwd_tex_scratch_floats(int n_sph, int n_rec
   return soft_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
 }
 
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params); g_img the band's (H, W,
+// 3) cotangent. out = [0, dglob (Sg), dsph (ns_pad x P_SPH), drct (nr_pad x
+// P_RCT)], at the subsample offset (oi, oj) (0 at spp 1; at spp 4 one launch
+// a subsample, each with its cotangent).
+extern "C" int rrt_soft_render_bwd_at_band(const float* glob, const float* sph, const float* rct,
+                                           int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                           int n_light, int H, int W, int shadows, int clip,
+                                           int row0, int image_h, float oi, float oj, float tau,
+                                           float ctau, const float* g_img, float* scratch,
+                                           float* out, void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                          band_params(H, W, shadows, clip, row0, image_h, oi, oj), tau, ctau,
+                          CotangentSource{g_img, nullptr, 1.0f}, scratch, out, stream);
+}
+
+extern "C" int rrt_soft_render_bwd_tex_band(const float* glob, const float* sph,
+                                            const float* rct, const float* stex,
+                                            const float* rtex, int n_sph, int n_rect, int ns_pad,
+                                            int nr_pad, int n_light, int H, int W, int shadows,
+                                            int clip, int row0, int image_h, float oi, float oj,
+                                            float tau, int ke, int ks, int kr,
+                                            const float* g_img, float* scratch, float* out,
+                                            void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect) || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  return launch_soft_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                              TexGrids{stex, rtex, ks, kr},
+                              band_params(H, W, shadows, clip, row0, image_h, oi, oj), tau,
+                              CotangentSource{g_img, nullptr, 1.0f}, scratch, out, stream);
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_soft_render_bwd_at(const float* glob, const float* sph, const float* rct,
+                                      int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                      int n_light, int H, int W, int shadows, int clip, float oi,
+                                      float oj, float tau, float ctau, const float* g_img,
+                                      float* scratch, float* out, void* stream) {
+  return rrt_soft_render_bwd_at_band(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H,
+                                     W, shadows, clip, 0, H, oi, oj, tau, ctau, g_img, scratch,
+                                     out, stream);
+}
+
 extern "C" int rrt_soft_render_bwd_tex(const float* glob, const float* sph, const float* rct,
                                        const float* stex, const float* rtex, int n_sph,
                                        int n_rect, int ns_pad, int nr_pad, int n_light, int H,
                                        int W, int shadows, int clip, float oi, float oj,
                                        float tau, int ke, int ks, int kr, const float* g_img,
                                        float* scratch, float* out, void* stream) {
-  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
-  return launch_soft_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
-                              TexGrids{stex, rtex, ks, kr},
-                              make_params(H, W, shadows, clip, oi, oj), tau,
-                              CotangentSource{g_img, nullptr, 1.0f}, scratch, out, stream);
+  return rrt_soft_render_bwd_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
+                                      n_light, H, W, shadows, clip, 0, H, oi, oj, tau, ke, ks,
+                                      kr, g_img, scratch, out, stream);
+}
+
+// At the pixel centre.
+extern "C" int rrt_soft_render_bwd(const float* glob, const float* sph, const float* rct,
+                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                   int H, int W, int shadows, int clip, float tau, float ctau,
+                                   const float* g_img, float* scratch, float* out,
+                                   void* stream) {
+  return rrt_soft_render_bwd_at(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                                shadows, clip, 0.0f, 0.0f, tau, ctau, g_img, scratch, out,
+                                stream);
 }

@@ -54,15 +54,6 @@ extern "C" long long rrt_soft_step_scratch_floats(int ns_pad, int nr_pad, int n_
   return soft_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
 }
 
-extern "C" int rrt_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
-                             int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
-                             int shadows, int clip, float tau, float ctau, const float* target,
-                             float w, float* scratch, float* out, void* stream) {
-  return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
-                          make_params(H, W, shadows, clip), tau, ctau, ResidualSource{target, w},
-                          scratch, out, stream);
-}
-
 // The texel instance (spp 1): object texel grids of sides ks (the spheres',
 // from stex) and kr (the rects', from rtex) and an environment map of side ke
 // ending the globals, each 0 for none; out = [sq, dglob, dsph, drct, dstex,
@@ -84,14 +75,51 @@ extern "C" long long rrt_soft_step_tex_scratch_floats(int n_sph, int n_rect, int
   return soft_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
 }
 
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params), the target the band's
+// (H, W, 3); w the caller's normalization (a band of a sharded step passes
+// the whole image's, so that the bands' sums are the whole image's step).
+extern "C" int rrt_soft_step_band(const float* glob, const float* sph, const float* rct,
+                                  int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                  int H, int W, int shadows, int clip, int row0, int image_h,
+                                  float tau, float ctau, const float* target, float w,
+                                  float* scratch, float* out, void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_soft_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                          band_params(H, W, shadows, clip, row0, image_h), tau, ctau,
+                          ResidualSource{target, w}, scratch, out, stream);
+}
+
+extern "C" int rrt_soft_step_tex_band(const float* glob, const float* sph, const float* rct,
+                                      const float* stex, const float* rtex, int n_sph,
+                                      int n_rect, int ns_pad, int nr_pad, int n_light, int H,
+                                      int W, int shadows, int clip, int row0, int image_h,
+                                      float tau, int ke, int ks, int kr, const float* target,
+                                      float w, float* scratch, float* out, void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect) || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  return launch_soft_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                              TexGrids{stex, rtex, ks, kr},
+                              band_params(H, W, shadows, clip, row0, image_h), tau,
+                              ResidualSource{target, w}, scratch, out, stream);
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_soft_step(const float* glob, const float* sph, const float* rct, int n_sph,
+                             int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
+                             int shadows, int clip, float tau, float ctau, const float* target,
+                             float w, float* scratch, float* out, void* stream) {
+  return rrt_soft_step_band(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                            shadows, clip, 0, H, tau, ctau, target, w, scratch, out, stream);
+}
+
 extern "C" int rrt_soft_step_tex(const float* glob, const float* sph, const float* rct,
                                  const float* stex, const float* rtex, int n_sph, int n_rect,
                                  int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
                                  int clip, float tau, int ke, int ks, int kr,
                                  const float* target, float w, float* scratch, float* out,
                                  void* stream) {
-  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
-  return launch_soft_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
-                              TexGrids{stex, rtex, ks, kr}, make_params(H, W, shadows, clip), tau,
-                              ResidualSource{target, w}, scratch, out, stream);
+  return rrt_soft_step_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
+                                n_light, H, W, shadows, clip, 0, H, tau, ke, ks, kr, target, w,
+                                scratch, out, stream);
 }

@@ -62,16 +62,6 @@ extern "C" long long rrt_vec_step_levels_scratch_floats(int ns_pad, int nr_pad, 
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W, ke);
 }
 
-extern "C" int rrt_vec_step_levels(const float* glob, const float* sph, const float* rct,
-                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
-                                   int H, int W, int shadows, int clip, int spp, int refl, int ke,
-                                   const float* target, float w, float* scratch, float* out,
-                                   void* stream) {
-  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
-                         make_params(H, W, shadows, clip), spp, ResidualSource{target, w},
-                         scratch, out, stream, refl, ke);
-}
-
 // The textured instances (spp 1): object texel grids of sides ks (the
 // spheres') and kr (the rects'), 0 for none, read from stex and rtex, beside
 // refl bounce levels and an environment map of side ke; out = [sq, dglob,
@@ -86,15 +76,55 @@ extern "C" long long rrt_vec_step_tex_scratch_floats(int n_sph, int n_rect, int 
   return vec_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, ke, ks, kr);
 }
 
+// The band entries (the wrappers'): H rows from image row row0 of an
+// image_h-row image (render_common.cuh band_params), the target the band's
+// (H, W, 3); w the caller's normalization (a band of a sharded step passes
+// the whole image's, so that the bands' sums are the whole image's step).
+extern "C" int rrt_vec_step_levels_band(const float* glob, const float* sph, const float* rct,
+                                        int n_sph, int n_rect, int ns_pad, int nr_pad,
+                                        int n_light, int H, int W, int shadows, int clip,
+                                        int row0, int image_h, int spp, int refl, int ke,
+                                        const float* target, float w, float* scratch, float* out,
+                                        void* stream) {
+  if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  return launch_vec_step(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                         band_params(H, W, shadows, clip, row0, image_h), spp,
+                         ResidualSource{target, w}, scratch, out, stream, refl, ke);
+}
+
+extern "C" int rrt_vec_step_tex_band(const float* glob, const float* sph, const float* rct,
+                                     const float* stex, const float* rtex, int n_sph, int n_rect,
+                                     int ns_pad, int nr_pad, int n_light, int H, int W,
+                                     int shadows, int clip, int row0, int image_h, int refl,
+                                     int ke, int ks, int kr, const float* target, float w,
+                                     float* scratch, float* out, void* stream) {
+  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect) || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
+  return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
+                             TexGrids{stex, rtex, ks, kr},
+                             band_params(H, W, shadows, clip, row0, image_h), refl,
+                             ResidualSource{target, w}, scratch, out, stream);
+}
+
+// The whole image (the entries of the tools and of earlier checkouts).
+extern "C" int rrt_vec_step_levels(const float* glob, const float* sph, const float* rct,
+                                   int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
+                                   int H, int W, int shadows, int clip, int spp, int refl, int ke,
+                                   const float* target, float w, float* scratch, float* out,
+                                   void* stream) {
+  return rrt_vec_step_levels_band(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, H, W,
+                                  shadows, clip, 0, H, spp, refl, ke, target, w, scratch, out,
+                                  stream);
+}
+
 extern "C" int rrt_vec_step_tex(const float* glob, const float* sph, const float* rct,
                                 const float* stex, const float* rtex, int n_sph, int n_rect,
                                 int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
                                 int clip, int refl, int ke, int ks, int kr, const float* target,
                                 float w, float* scratch, float* out, void* stream) {
-  if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect)) return (int)cudaErrorInvalidValue;
-  return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
-                             TexGrids{stex, rtex, ks, kr}, make_params(H, W, shadows, clip), refl,
-                             ResidualSource{target, w}, scratch, out, stream);
+  return rrt_vec_step_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
+                               n_light, H, W, shadows, clip, 0, H, refl, ke, ks, kr, target, w,
+                               scratch, out, stream);
 }
 
 // spp 1 or 4: at spp 4 the loss is of the average of the four clipped
@@ -109,7 +139,7 @@ extern "C" int rrt_vec_step_spp(const float* glob, const float* sph, const float
                          scratch, out, stream);
 }
 
-// spp 1 (the entry of the tools and of earlier checkouts).
+// spp 1.
 extern "C" int rrt_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
                             int n_rect, int ns_pad, int nr_pad, int n_light, int H, int W,
                             int shadows, int clip, const float* target, float w,

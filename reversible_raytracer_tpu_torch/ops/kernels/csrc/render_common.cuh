@@ -427,21 +427,38 @@ __host__ __device__ inline int rct_col(int f) { return f < 15 ? f : f + 2; }
 // Forward
 // ---------------------------------------------------------------------------
 
-// Launch constants. The pixel-grid factors are rounded once on the host,
-// like the Python floats 2.0 / W, 2.0 / H and W / H of camera_rays. (oi, oj)
-// is the subsample's offset from the pixel centre in rows and columns: 0 at
-// spp 1; a launch of one subsample of spp 4 (rows 4, 5, 7, 8) takes it from
-// the host, a kernel that loops over the subsamples sets it (subsample).
+// Launch constants. A launch covers a row band: H whole image rows from
+// image row row0 (the whole image: row0 0 and H its height), W columns; every
+// extent, plane and pixel index of a launch is the band's, and only the ray
+// of local row i is that of image row i + row0 (the TPU kernels' ii = row0 +
+// iota, fused_vec.py:883-886). The pixel-grid factors are the whole image's,
+// rounded once on the host like the Python floats 2.0 / W, 2.0 / H and W / H
+// of camera_rays. (oi, oj) is the subsample's offset from the pixel centre in
+// rows and columns: 0 at spp 1; a launch of one subsample of spp 4 (rows 4,
+// 5, 7, 8) takes it from the host, a kernel that loops over the subsamples
+// sets it (subsample).
 struct Params {
-  int H, W, shadows, clip;
+  int H, W, shadows, clip, row0;
   float two_over_w, two_over_h, aspect;
   float oi, oj;
 };
 
+// The band of H rows from image row row0 of an image_h-row image.
+inline Params band_params(int H, int W, int shadows, int clip, int row0, int image_h,
+                          float oi = 0.0f, float oj = 0.0f) {
+  return {H, W, shadows, clip, row0, (float)(2.0 / W), (float)(2.0 / image_h),
+          (float)((double)W / image_h), oi, oj};
+}
+
+// The whole image.
 inline Params make_params(int H, int W, int shadows, int clip, float oi = 0.0f,
                           float oj = 0.0f) {
-  return {H, W, shadows, clip, (float)(2.0 / W), (float)(2.0 / H), (float)((double)W / H),
-          oi, oj};
+  return band_params(H, W, shadows, clip, 0, H, oi, oj);
+}
+
+// A band entry's arguments: row0 in [0, image_h - H], H >= 1.
+inline bool band_ok(int H, int row0, int image_h) {
+  return H >= 1 && row0 >= 0 && row0 <= image_h - H;
 }
 
 // Subsample s of spp 4, the 2x2 grid of pipeline.py's SPP_OFFSETS: (row,
@@ -485,11 +502,12 @@ __device__ __forceinline__ Camera camera(const S& sc) {
   return c;
 }
 
-// Perspective primary ray of pixel (i, j) at the subsample offset (p.oi,
-// p.oj): d = normalize(fwd + right sx + up sy) with sx = ax tan(fov/2)
-// aspect, sy = ay tan(fov/2), ax from the column j + oj and ay from the row
-// i + oi (render_tile's ii + oi, then camera_rays). The intermediates are
-// what the step kernel's camera adjoint needs.
+// Perspective primary ray of the band's pixel (i, j) at the subsample offset
+// (p.oi, p.oj): d = normalize(fwd + right sx + up sy) with sx = ax tan(fov/2)
+// aspect, sy = ay tan(fov/2), ax from the column j + oj and ay from the image
+// row (i + row0) + oi (render_tile's (iota + row0) + oi, then camera_rays;
+// the integer sum is exact). The intermediates are what the step kernel's
+// camera adjoint needs.
 struct Ray {
   V3 d, dt;
   float n2, inv, ax, ay, sx, sy;
@@ -498,7 +516,7 @@ struct Ray {
 __device__ __forceinline__ Ray primary_ray(const Camera& c, const Params& p, int i, int j) {
   Ray r;
   r.ax = (((float)j + p.oj) + 0.5f) * p.two_over_w - 1.0f;
-  r.ay = 1.0f - (((float)i + p.oi) + 0.5f) * p.two_over_h;
+  r.ay = 1.0f - (((float)(i + p.row0) + p.oi) + 0.5f) * p.two_over_h;
   r.sx = r.ax * c.tan_half * p.aspect;
   r.sy = r.ay * c.tan_half;
   r.dt = c.fwd + (c.right * r.sx + c.up * r.sy);

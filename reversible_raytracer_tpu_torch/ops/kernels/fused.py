@@ -55,6 +55,14 @@ bilinear sample and a missed ray's colour the environment's
 scatters each hit's four corners into its texels and carries the weights'
 gradient through the hit's coordinates (`grid_adjoint`, `uv_adjoint`).
 
+Row bands (the JAX package's ``row0`` / ``out_height``, fused.py:459-532):
+every wrapper and plain version takes ``row0`` and ``out_height`` (the steps
+also ``norm``) and renders, steps or pulls back only those whole image rows
+(`pipeline.band_config`); the kernels' ``_band`` entries launch over the
+band's rows alone, each ray that of its image row. A step's default
+``norm`` is the whole image's 1/(H W 3) for mse, so the bands' losses and
+gradients sum to the whole image's (the sharded step, `parallel.shard`).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. There is no fallback between the two.
 """
@@ -78,6 +86,7 @@ from ..pipeline import (
     T_EPS,
     SPP_OFFSETS,
     RenderConfig,
+    band_config,
     camera_basis,
     intersect_rect,
     intersect_sphere,
@@ -111,13 +120,21 @@ _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, c
 # sides after the bounce levels: spheres', rects' and the environment's, 0 for
 # none (`texel_sizes`).
 _TEX = [_I, _I, _I]
+# The wrappers call the ``_band`` entries alone: the band's first image row
+# and the image's height after the geometry, whose H is the band's rows; the
+# others are the whole image, for tools/ and for checkouts from before them.
+_BAND = [_I, _I]  # row0, image_h
 FUSED_RENDER = Kernel("fused_render", {
+    "rrt_render_tex_band": ([_P, *_GEOM, *_BAND, _I, *_TEX, _P, _P, _P], _I),
+    "rrt_render_refl_band": ([_P, *_GEOM, *_BAND, _I, _I, _P, _P, _P], _I),
     "rrt_render_tex": ([_P, *_GEOM, _I, *_TEX, _P, _P, _P], _I),
     "rrt_render_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P], _I),
     "rrt_render_spp": ([_P, *_GEOM, _I, _P, _P, _P], _I),
     "rrt_render": ([_P, *_GEOM, _P, _P, _P], _I),
 })
 FUSED_STEP = Kernel("fused_step", {
+    "rrt_step_tex_band": ([_P, *_GEOM, *_BAND, _I, *_TEX, _P, _F, _P, _P, _P], _I),
+    "rrt_step_refl_band": ([_P, *_GEOM, *_BAND, _I, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step_tex": ([_P, *_GEOM, _I, *_TEX, _P, _F, _P, _P, _P], _I),
     "rrt_step_tex_scratch_floats": ([_I, _I, _I, _I, _I, *_TEX], ctypes.c_longlong),
     "rrt_step_refl": ([_P, *_GEOM, _I, _I, _P, _F, _P, _P, _P], _I),
@@ -126,6 +143,8 @@ FUSED_STEP = Kernel("fused_step", {
     "rrt_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 FUSED_RENDER_BWD = Kernel("fused_render_bwd", {
+    "rrt_render_bwd_tex_band": ([_P, *_GEOM, *_BAND, _I, *_TEX, _P, _P, _P, _P, _P], _I),
+    "rrt_render_bwd_refl_band": ([_P, *_GEOM, *_BAND, _I, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_tex": ([_P, *_GEOM, _I, *_TEX, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_tex_scratch_floats": ([_I, _I, _I, _I, _I, *_TEX], ctypes.c_longlong),
     "rrt_render_bwd_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P, _P, _P], _I),
@@ -275,6 +294,12 @@ def _geometry(scene, cfg: RenderConfig):
             cfg.height, cfg.width, int(cfg.shadows), int(cfg.clip)]
 
 
+def band_args(cfg: RenderConfig):
+    """The ``_band`` entries' arguments after the geometry (whose H is the
+    band's rows): the band's first image row and the image's height."""
+    return [cfg.row0, cfg.image_height]
+
+
 def instance(scene_like, cfg: RenderConfig):
     """The kernels' instance the wrappers launch: (the suffix of its C
     entries, their arguments after the geometry, the suffix of its scratch
@@ -331,18 +356,22 @@ def _scratch(kernel: Kernel, entry: str, dims, dev):
 # ---------------------------------------------------------------------------
 
 
-def render_fused_plain(scene, cfg: RenderConfig):
+def render_fused_plain(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
     """`render_tile(return_vis=True)` in eager torch: the (H, W, 3) image
-    and the (n_vis, H, W) visibility planes (`n_vis_planes` layout)."""
-    (r, g, b), vis = render_tile(scene, cfg, 0, 0, cfg.height, cfg.width, return_vis=True)
+    and the (n_vis, H, W) visibility planes (`n_vis_planes` layout), H the
+    rows of the band of ``out_height`` rows from ``row0`` (`band_config`)."""
+    cfg = band_config(cfg, row0, out_height)
+    (r, g, b), vis = render_tile(scene, cfg, cfg.row0, 0, cfg.height, cfg.width,
+                                 return_vis=True)
     n_vis = n_vis_planes(scene, cfg)
     planes = (torch.stack(vis[:n_vis]) if n_vis
               else r.new_zeros((0, cfg.height, cfg.width)))
     return torch.stack([r, g, b], dim=-1), planes
 
 
-def render_fused(scene, cfg: RenderConfig):
-    """Image (H, W, 3) and visibility planes (n_vis, H, W). The forward
+def render_fused(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """Image (H, W, 3) and visibility planes (n_vis, H, W), of the band of
+    ``out_height`` rows from ``row0`` if given (H its rows). The forward
     kernel on CUDA, `render_fused_plain` on the CPU: the same image to the
     bit, the same planes where the ray hit an object; where it hit nothing
     the kernel's planes are 0 (the plain version's hold the shadow test of a
@@ -351,6 +380,7 @@ def render_fused(scene, cfg: RenderConfig):
     either missed. The image carries the scene's gradient on both: on CUDA
     through the render backward kernel (the planes carry none)."""
     dev = scene.device
+    cfg = band_config(cfg, row0, out_height)
     if dev.type == "cpu":
         return render_fused_plain(scene, cfg)
     if dev.type != "cuda":
@@ -385,8 +415,9 @@ class _FusedRender(torch.autograd.Function):
         img = torch.empty((cfg.height, cfg.width, 3), device=flat.device)
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=flat.device)
         sfx, args, _, _ = instance(scene, cfg)
-        FUSED_RENDER.call("rrt_render" + sfx, flat.data_ptr(), *_geometry(scene, cfg), *args,
-                          img.data_ptr(), vis.data_ptr(), _stream(flat.device))
+        FUSED_RENDER.call(f"rrt_render{sfx}_band", flat.data_ptr(), *_geometry(scene, cfg),
+                          *band_args(cfg), *args, img.data_ptr(), vis.data_ptr(),
+                          _stream(flat.device))
         FUSED_RENDER.launches += 1
         ctx.scene, ctx.cfg = scene, cfg
         ctx.save_for_backward(flat, vis)
@@ -426,8 +457,9 @@ def _render_bwd_launch(scene_like, cfg, flat, g_img, vis):
     scratch = _scratch(FUSED_RENDER_BWD, f"rrt_render_bwd{ssfx}_scratch_floats",
                        (*geom[:5], *sargs), dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_RENDER_BWD.call("rrt_render_bwd" + sfx, flat.data_ptr(), *geom, *args, g_img.data_ptr(),
-                          vis.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(dev))
+    FUSED_RENDER_BWD.call(f"rrt_render_bwd{sfx}_band", flat.data_ptr(), *geom, *band_args(cfg),
+                          *args, g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
+                          out.data_ptr(), _stream(dev))
     FUSED_RENDER_BWD.launches += 1
     return out[1:]
 
@@ -444,12 +476,14 @@ def render_fused_bwd_plain(scene, cfg: RenderConfig, g_img):
 # ---------------------------------------------------------------------------
 
 
-def _loss_norm(cfg: RenderConfig, loss: str) -> float:
-    if loss == "mse":
-        return 1.0 / (cfg.height * cfg.width * 3)
-    if loss == "sum":
-        return 1.0
-    raise ValueError(f"the step kernel takes loss 'mse' or 'sum', not {loss!r}")
+def _loss_norm(cfg: RenderConfig, loss: str, norm: float | None = None) -> float:
+    """``norm`` if given, else the whole image's: 1/(H W 3) for mse (of a
+    band too, as the JAX package's ``norm`` of a shard band), 1 for sum."""
+    if loss not in ("mse", "sum"):
+        raise ValueError(f"the step kernel takes loss 'mse' or 'sum', not {loss!r}")
+    if norm is not None:
+        return float(norm)
+    return 1.0 / (cfg.image_height * cfg.width * 3) if loss == "mse" else 1.0
 
 
 def _check_target(target, cfg: RenderConfig, scene, what: str = "target") -> None:
@@ -464,16 +498,20 @@ def _check_target(target, cfg: RenderConfig, scene, what: str = "target") -> Non
                          f"got {target.dtype} on {target.device}")
 
 
-def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
+def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
+                    out_height: int | None = None, norm: float | None = None):
     """``(norm * sq_sum, grads as a Scene)`` of the squared error between
     the render of ``scene`` and ``target``, with ``norm`` = 1/(H*W*3) for
-    mse and 1 for sum. One step-kernel launch on CUDA; autograd over the
-    eager renderer on the CPU."""
+    mse and 1 for sum unless given. With ``row0`` / ``out_height`` only that
+    band is rendered and ``target`` is the band's (its norm still the whole
+    image's). One step-kernel launch on CUDA; autograd over the eager
+    renderer on the CPU."""
     dev = scene.device
-    norm = _loss_norm(cfg, loss)
+    cfg = band_config(cfg, row0, out_height)
+    w = _loss_norm(cfg, loss, norm)
     _check_target(target, cfg, scene)
-    if dev.type == "cpu":
-        return loss_grad_fused_plain(scene, cfg, target, loss)
+    if dev.type == "cpu":  # the plain version takes the mean where no band or norm is given
+        return loss_grad_fused_plain(scene, cfg, target, loss, norm=norm)
     if dev.type != "cuda":
         raise NotImplementedError(f"no step kernel for device {dev}")
     flat = _cuda_flat(scene, cfg)
@@ -482,27 +520,38 @@ def loss_grad_fused(scene, cfg: RenderConfig, target, loss: str = "mse"):
     sfx, args, ssfx, sargs = instance(scene, cfg)
     scratch = _scratch(FUSED_STEP, f"rrt_step{ssfx}_scratch_floats", (*geom[:5], *sargs), dev)
     out = torch.empty((1 + flat.numel(),), device=dev)
-    FUSED_STEP.call("rrt_step" + sfx, flat.data_ptr(), *geom, *args, target.data_ptr(), norm,
-                    scratch.data_ptr(), out.data_ptr(), _stream(dev))
+    FUSED_STEP.call(f"rrt_step{sfx}_band", flat.data_ptr(), *geom, *band_args(cfg), *args,
+                    target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(), _stream(dev))
     FUSED_STEP.launches += 1
-    return norm * out[0], unflatten_scene(scene, out[1:])
+    return w * out[0], unflatten_scene(scene, out[1:])
 
 
-def loss_grad_fused_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
-    """torch.autograd of ``loss(render_eager(scene), target)``."""
+def loss_grad_fused_plain(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
+                          out_height: int | None = None, norm: float | None = None):
+    """torch.autograd of ``loss(render_eager(scene), target)`` (of the band's
+    ``norm`` times its squared error, `autograd_loss_grad`)."""
     from ..render import render_eager
 
-    return autograd_loss_grad(render_eager, scene, cfg, target, loss)
+    return autograd_loss_grad(render_eager, scene, band_config(cfg, row0, out_height), target,
+                              loss, norm)
 
 
-def autograd_loss_grad(render_fn, scene, cfg: RenderConfig, target, loss: str = "mse"):
+def autograd_loss_grad(render_fn, scene, cfg: RenderConfig, target, loss: str = "mse",
+                       norm: float | None = None):
     """``(loss, grads as a Scene)`` of ``loss(render_fn(scene, cfg), target)``
-    by torch autograd (the plain version of a step kernel)."""
+    by torch autograd (the plain version of a step kernel). For a band
+    (`band_config`), or with ``norm`` given, the loss is ``norm`` (by
+    default the whole image's, `_loss_norm`) times the squared error's sum."""
     from ..render import LOSSES
 
+    if norm is None and cfg.height == cfg.image_height:
+        loss_fn = LOSSES[loss]
+    else:
+        w = _loss_norm(cfg, loss, norm)
+        loss_fn = lambda img, t: w * torch.sum((img - t) * (img - t))  # noqa: E731
     leaves = [l.detach().clone().requires_grad_(True) for l in tree_leaves(scene)]
     with torch.enable_grad():
-        value = LOSSES[loss](render_fn(tree_unflatten(scene, leaves), cfg), target)
+        value = loss_fn(render_fn(tree_unflatten(scene, leaves), cfg), target)
         grads = torch.autograd.grad(value, leaves, allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g for l, g in zip(leaves, grads)]
     return value.detach(), tree_unflatten(scene, grads)
@@ -655,16 +704,17 @@ def _nearest_chain(scene, o, d):
 def primary_ray_terms(scene, cfg: RenderConfig, off=(0.0, 0.0)):
     """The perspective primary rays at the subsample offset ``off`` (rows,
     columns; `pipeline.SPP_OFFSETS`) with the intermediates their adjoint
-    needs: o = eye, d = normalize(dt), dt = fwd + right sx + up sy."""
-    H, W = cfg.height, cfg.width
+    needs: o = eye, d = normalize(dt), dt = fwd + right sx + up sy. Of a
+    band's rows (`pipeline.BandConfig`), each the ray of its image row."""
+    H, W, Hi = cfg.height, cfg.width, cfg.image_height
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
     right, up, fwd = camera_basis(scene.camera)
     tanf = torch.tan(scene.camera.fov_deg * (math.pi / 180.0) * 0.5)
-    aspect = W / H
-    ii = torch.arange(H, **like)[:, None].expand(H, W) + off[0]
+    aspect = W / Hi
+    ii = (torch.arange(H, **like) + cfg.row0)[:, None].expand(H, W) + off[0]
     jj = torch.arange(W, **like)[None, :].expand(H, W) + off[1]
     ax = (jj + 0.5) * (2.0 / W) - 1.0
-    ay = 1.0 - (ii + 0.5) * (2.0 / H)
+    ay = 1.0 - (ii + 0.5) * (2.0 / Hi)
     sx = ax * tanf * aspect
     sy = ay * tanf
     dt = vm.vadd(fwd, vm.vadd(vm.vscale(right, sx), vm.vscale(up, sy)))

@@ -90,6 +90,7 @@ from ...models.scene import tree_leaves, tree_unflatten
 from ..pipeline import (
     SPP_OFFSETS,
     RenderConfig,
+    band_config,
     n_vis_planes,
     primary_rays,
     reflect_dir,
@@ -129,7 +130,14 @@ _LV = [_I, _I]  # refl, ke
 # gradient.
 _TX = [_P, _P]  # stex, rtex
 _KS = [_I, _I]  # ks, kr
+# The wrappers call the ``_band`` entries of those two: the band's first
+# image row and the image's height after the geometry, whose H is the band's
+# rows (`fused.band_args`); the others are the whole image.
+_BAND = fused._BAND
 VEC_RENDER = Kernel("fused_vec_render", {
+    "rrt_vec_render_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, _F, _F, *_LV, *_KS, _P, _P,
+                                 _P], _I),
+    "rrt_vec_render_levels_band": ([_P, _P, _P, *_GEOM, *_BAND, _F, _F, *_LV, _P, _P, _P], _I),
     "rrt_vec_render_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, *_LV, *_KS, _P, _P, _P], _I),
     "rrt_vec_render_levels": ([_P, _P, _P, *_GEOM, _F, _F, *_LV, _P, _P, _P], _I),
     "rrt_vec_render_levels_smem": ([_I, _I, _I, *_LV], ctypes.c_longlong),
@@ -138,6 +146,9 @@ VEC_RENDER = Kernel("fused_vec_render", {
     "rrt_smem_optin": ([], ctypes.c_longlong),
 })
 VEC_STEP = Kernel("fused_vec_step", {
+    "rrt_vec_step_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, *_LV, *_KS, _P, _F, _P, _P, _P],
+                              _I),
+    "rrt_vec_step_levels_band": ([_P, _P, _P, *_GEOM, *_BAND, _I, *_LV, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_tex": ([_P, _P, _P, *_TX, *_GEOM, *_LV, *_KS, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
     "rrt_vec_step_tex_smem": ([_I] * 6, ctypes.c_longlong),
@@ -149,6 +160,10 @@ VEC_STEP = Kernel("fused_vec_step", {
     "rrt_vec_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 VEC_RENDER_BWD = Kernel("fused_vec_render_bwd", {
+    "rrt_vec_render_bwd_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, _F, _F, *_LV, *_KS, _P, _P,
+                                     _P, _P, _P], _I),
+    "rrt_vec_render_bwd_levels_band": ([_P, _P, _P, *_GEOM, *_BAND, _F, _F, *_LV, _P, _P, _P, _P,
+                                        _P], _I),
     "rrt_vec_render_bwd_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, *_LV, *_KS, _P, _P, _P, _P, _P],
                                _I),
     "rrt_vec_render_bwd_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
@@ -437,23 +452,27 @@ def packed_inputs(scene):
 # ---------------------------------------------------------------------------
 
 
-def render_vec_plain(scene, cfg: RenderConfig):
+def render_vec_plain(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
     """`render_eager_vec` with the visibility planes: the (H, W, 3) image and
-    the (n_vis, H, W) planes (`n_vis_planes` layout)."""
-    (r, g, b), vis = render_tile(scene, cfg, 0, 0, cfg.height, cfg.width, return_vis=True,
+    the (n_vis, H, W) planes (`n_vis_planes` layout), H the rows of the band
+    of ``out_height`` rows from ``row0`` (`band_config`)."""
+    cfg = band_config(cfg, row0, out_height)
+    (r, g, b), vis = render_tile(scene, cfg, cfg.row0, 0, cfg.height, cfg.width, return_vis=True,
                                  shade_fn=shade_vec)
     n_vis = n_vis_planes(scene, cfg)
     planes = torch.stack(vis[:n_vis]) if n_vis else r.new_zeros((0, cfg.height, cfg.width))
     return torch.stack([r, g, b], dim=-1), planes
 
 
-def render_vec(scene, cfg: RenderConfig):
-    """Image (H, W, 3) and visibility planes (n_vis, H, W). The forward
+def render_vec(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """Image (H, W, 3) and visibility planes (n_vis, H, W), of the band of
+    ``out_height`` rows from ``row0`` if given (H its rows). The forward
     kernel on CUDA, once per subsample (the image the subsamples' average,
     the planes theirs in order), `render_vec_plain` on the CPU. The image
     carries the scene's gradient on both: on CUDA through the render
     backward kernel, once per subsample (the planes carry none)."""
     dev = scene.device
+    cfg = band_config(cfg, row0, out_height)
     if dev.type == "cpu":
         return render_vec_plain(scene, cfg)
     if dev.type != "cuda":
@@ -510,13 +529,14 @@ class _VecRender(torch.autograd.Function):
         vis = torch.empty((n_vis_planes(scene, cfg), cfg.height, cfg.width), device=dev)
         ptrs = (glob.data_ptr(), sph.data_ptr(), rct.data_ptr())
         if tex:
-            VEC_RENDER.call("rrt_vec_render_tex", *ptrs, *(t.data_ptr() for t in tex),
-                            *_geometry(scene, cfg), *off, *tex_levels(scene, cfg),
-                            img.data_ptr(), vis.data_ptr(), fused._stream(dev))
-        else:
-            VEC_RENDER.call("rrt_vec_render_levels", *ptrs, *_geometry(scene, cfg), *off,
-                            *levels(scene, cfg), img.data_ptr(), vis.data_ptr(),
+            VEC_RENDER.call("rrt_vec_render_tex_band", *ptrs, *(t.data_ptr() for t in tex),
+                            *_geometry(scene, cfg), *fused.band_args(cfg), *off,
+                            *tex_levels(scene, cfg), img.data_ptr(), vis.data_ptr(),
                             fused._stream(dev))
+        else:
+            VEC_RENDER.call("rrt_vec_render_levels_band", *ptrs, *_geometry(scene, cfg),
+                            *fused.band_args(cfg), *off, *levels(scene, cfg), img.data_ptr(),
+                            vis.data_ptr(), fused._stream(dev))
         VEC_RENDER.launches += 1
         ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
         ctx.save_for_backward(glob, sph, rct, vis, *tex)
@@ -554,15 +574,16 @@ def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, vis, tex=())
         tl = tex_levels(scene_like, cfg)
         scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_tex_scratch_floats",
                                  (geom[0], geom[1], *geom[4:7], *tl[1:]), dev)
-        VEC_RENDER_BWD.call("rrt_vec_render_bwd_tex", *ptrs, *(t.data_ptr() for t in tex),
-                            *geom, *off, *tl, g_img.data_ptr(), vis.data_ptr(),
-                            scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+        VEC_RENDER_BWD.call("rrt_vec_render_bwd_tex_band", *ptrs, *(t.data_ptr() for t in tex),
+                            *geom, *fused.band_args(cfg), *off, *tl, g_img.data_ptr(),
+                            vis.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                            fused._stream(dev))
     else:
         scratch = fused._scratch(VEC_RENDER_BWD, "rrt_vec_render_bwd_levels_scratch_floats",
                                  (*geom[2:7], ke), dev)
-        VEC_RENDER_BWD.call("rrt_vec_render_bwd_levels", *ptrs, *geom, *off, refl, ke,
-                            g_img.data_ptr(), vis.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                            fused._stream(dev))
+        VEC_RENDER_BWD.call("rrt_vec_render_bwd_levels_band", *ptrs, *geom, *fused.band_args(cfg),
+                            *off, refl, ke, g_img.data_ptr(), vis.data_ptr(),
+                            scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     VEC_RENDER_BWD.launches += 1
     return _unpack_out(scene_like, out, glob, sph, rct)
 
@@ -588,16 +609,19 @@ def render_vec_bwd_plain(scene, cfg: RenderConfig, g_img):
 # ---------------------------------------------------------------------------
 
 
-def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
+def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
+                  out_height: int | None = None, norm: float | None = None):
     """``(norm * sq_sum, grads as a Scene)`` of the squared error between
     the render of ``scene`` and ``target`` (norm 1/(H*W*3) for mse, 1 for
-    sum). One step-kernel call on CUDA; autograd over `render_eager_vec` on
-    the CPU."""
+    sum, unless given), of the band of ``out_height`` rows from ``row0`` if
+    given (``target`` the band's; `fused.loss_grad_fused`). One step-kernel
+    call on CUDA; autograd over `render_eager_vec` on the CPU."""
     dev = scene.device
-    norm = fused._loss_norm(cfg, loss)
+    cfg = band_config(cfg, row0, out_height)
+    w = fused._loss_norm(cfg, loss, norm)
     fused._check_target(target, cfg, scene)
-    if dev.type == "cpu":
-        return loss_grad_vec_plain(scene, cfg, target, loss)
+    if dev.type == "cpu":  # the plain version takes the mean where no band or norm is given
+        return loss_grad_vec_plain(scene, cfg, target, loss, norm=norm)
     if dev.type != "cuda":
         raise NotImplementedError(f"no step kernel for device {dev}")
     glob, sph, rct = _cuda_inputs(scene, cfg)
@@ -613,22 +637,26 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse"):
         stex, rtex = texel_inputs(scene)
         scratch = fused._scratch(VEC_STEP, "rrt_vec_step_tex_scratch_floats",
                                  (geom[0], geom[1], *geom[4:7], *tl[1:]), dev)
-        VEC_STEP.call("rrt_vec_step_tex", *ptrs, stex.data_ptr(), rtex.data_ptr(), *geom, *tl,
-                      target.data_ptr(), norm, scratch.data_ptr(), out.data_ptr(),
-                      fused._stream(dev))
+        VEC_STEP.call("rrt_vec_step_tex_band", *ptrs, stex.data_ptr(), rtex.data_ptr(), *geom,
+                      *fused.band_args(cfg), *tl, target.data_ptr(), w, scratch.data_ptr(),
+                      out.data_ptr(), fused._stream(dev))
     else:
         check_smem(VEC_STEP, "rrt_vec_step_levels_smem", scene, ke)
         scratch = fused._scratch(VEC_STEP, "rrt_vec_step_levels_scratch_floats",
                                  (*geom[2:7], ke), dev)
-        VEC_STEP.call("rrt_vec_step_levels", *ptrs, *geom, cfg.spp, refl, ke, target.data_ptr(),
-                      norm, scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+        VEC_STEP.call("rrt_vec_step_levels_band", *ptrs, *geom, *fused.band_args(cfg), cfg.spp,
+                      refl, ke, target.data_ptr(), w, scratch.data_ptr(), out.data_ptr(),
+                      fused._stream(dev))
     VEC_STEP.launches += 1
-    return norm * out[0], _unpack_out(scene, out, glob, sph, rct)
+    return w * out[0], _unpack_out(scene, out, glob, sph, rct)
 
 
-def loss_grad_vec_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
-    """torch.autograd of ``loss(render_eager_vec(scene), target)``."""
-    return fused.autograd_loss_grad(render_eager_vec, scene, cfg, target, loss)
+def loss_grad_vec_plain(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
+                        out_height: int | None = None, norm: float | None = None):
+    """torch.autograd of ``loss(render_eager_vec(scene), target)`` (of a
+    band's, `fused.autograd_loss_grad`)."""
+    return fused.autograd_loss_grad(render_eager_vec, scene, band_config(cfg, row0, out_height),
+                                    target, loss, norm)
 
 
 def culled_nearest(scene, o, d):

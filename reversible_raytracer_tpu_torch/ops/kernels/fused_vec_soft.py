@@ -98,6 +98,7 @@ from ..pipeline import (
     SHADOW_EPS,
     SPP_OFFSETS,
     RenderConfig,
+    band_config,
     sample_grid,
     soft_checker_q,
     sphere_uv,
@@ -125,7 +126,14 @@ _GEOM = fused_vec._GEOM  # n_sph, n_rect, ns_pad, nr_pad, n_light, H, W, shadows
 # gradient.
 _TX = [_P, _P]  # stex, rtex
 _KS = [_I, _I, _I]  # ke, ks, kr
+# The wrappers call the ``_band`` entries: the band's first image row and the
+# image's height after the geometry, whose H is the band's rows
+# (`fused.band_args`); the others are the whole image.
+_BAND = fused._BAND
 SOFT_RENDER = Kernel("fused_vec_soft_render", {
+    "rrt_soft_render_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, _F, _F, _F, *_KS, _P, _P],
+                                 _I),
+    "rrt_soft_render_at_band": ([_P, _P, _P, *_GEOM, *_BAND, _F, _F, _F, _F, _P, _P], _I),
     "rrt_soft_render_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, _F, *_KS, _P, _P], _I),
     "rrt_soft_render_tex_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "rrt_soft_render_at": ([_P, _P, _P, *_GEOM, _F, _F, _F, _F, _P, _P], _I),
@@ -133,6 +141,9 @@ SOFT_RENDER = Kernel("fused_vec_soft_render", {
     "rrt_soft_render_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_STEP = Kernel("fused_vec_soft_step", {
+    "rrt_soft_step_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, _F, *_KS, _P, _F, _P, _P, _P],
+                               _I),
+    "rrt_soft_step_band": ([_P, _P, _P, *_GEOM, *_BAND, _F, _F, _P, _F, _P, _P, _P], _I),
     "rrt_soft_step_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, *_KS, _P, _F, _P, _P, _P], _I),
     "rrt_soft_step_tex_smem": ([_I] * 6, ctypes.c_longlong),
     "rrt_soft_step_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
@@ -142,6 +153,10 @@ SOFT_STEP = Kernel("fused_vec_soft_step", {
     "rrt_soft_step_smem": ([_I, _I, _I], ctypes.c_longlong),
 })
 SOFT_RENDER_BWD = Kernel("fused_vec_soft_render_bwd", {
+    "rrt_soft_render_bwd_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, _F, _F, _F, *_KS, _P, _P,
+                                      _P, _P], _I),
+    "rrt_soft_render_bwd_at_band": ([_P, _P, _P, *_GEOM, *_BAND, _F, _F, _F, _F, _P, _P, _P, _P],
+                                    _I),
     "rrt_soft_render_bwd_tex": ([_P, _P, _P, *_TX, *_GEOM, _F, _F, _F, *_KS, _P, _P, _P, _P],
                                 _I),
     "rrt_soft_render_bwd_tex_smem": ([_I] * 6, ctypes.c_longlong),
@@ -259,9 +274,10 @@ def _cuda_inputs(scene, cfg: RenderConfig, step: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def render_vec_soft_plain(scene, cfg: RenderConfig):
-    """The soft (H, W, 3) image in eager torch."""
-    return render_eager_vec(scene, cfg)
+def render_vec_soft_plain(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """The soft (H, W, 3) image in eager torch, of the band of
+    ``out_height`` rows from ``row0`` if given (`band_config`)."""
+    return render_eager_vec(scene, cfg, row0, out_height)
 
 
 def most_spheres(n_rect: int = 1, n_light: int = 1) -> int:
@@ -279,12 +295,14 @@ def most_render_spheres(n_rect: int = 1, n_light: int = 1) -> int:
     return fused_vec.most_rows(SOFT_RENDER.lib().rrt_soft_render_smem, n_rect, n_light)
 
 
-def render_vec_soft(scene, cfg: RenderConfig):
-    """The soft (H, W, 3) image: the forward kernel on CUDA, once per
+def render_vec_soft(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """The soft (H, W, 3) image, of the band of ``out_height`` rows from
+    ``row0`` if given (H its rows): the forward kernel on CUDA, once per
     subsample (the image their average), `render_vec_soft_plain` on the
     CPU. Differentiable on both: on CUDA through the soft render backward
     kernel, once per subsample."""
     dev = scene.device
+    cfg = band_config(cfg, row0, out_height)
     if dev.type == "cpu":
         return render_vec_soft_plain(scene, cfg)
     if dev.type != "cuda":
@@ -315,16 +333,17 @@ class _SoftRender(torch.autograd.Function):
             if any(ctx.needs_input_grad):
                 fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_tex_smem", scene,
                                      *sides)
-            SOFT_RENDER.call("rrt_soft_render_tex", glob.data_ptr(), sph.data_ptr(),
-                             rct.data_ptr(), *(t.data_ptr() for t in tex), *geom, *off,
-                             float(cfg.soft_tau), *sides, img.data_ptr(), stream)
+            SOFT_RENDER.call("rrt_soft_render_tex_band", glob.data_ptr(), sph.data_ptr(),
+                             rct.data_ptr(), *(t.data_ptr() for t in tex), *geom,
+                             *fused.band_args(cfg), *off, float(cfg.soft_tau), *sides,
+                             img.data_ptr(), stream)
         else:
             fused_vec.check_smem(SOFT_RENDER, "rrt_soft_render_smem", scene)
             if any(ctx.needs_input_grad):
                 fused_vec.check_smem(SOFT_RENDER_BWD, "rrt_soft_render_bwd_smem", scene)
-            SOFT_RENDER.call("rrt_soft_render_at", glob.data_ptr(), sph.data_ptr(),
-                             rct.data_ptr(), *geom, *off, float(cfg.soft_tau),
-                             float(cfg.checker_tau), img.data_ptr(), stream)
+            SOFT_RENDER.call("rrt_soft_render_at_band", glob.data_ptr(), sph.data_ptr(),
+                             rct.data_ptr(), *geom, *fused.band_args(cfg), *off,
+                             float(cfg.soft_tau), float(cfg.checker_tau), img.data_ptr(), stream)
         SOFT_RENDER.launches += 1
         ctx.scene, ctx.cfg, ctx.off = scene, cfg, off
         ctx.save_for_backward(glob, sph, rct, *tex)
@@ -360,15 +379,16 @@ def _render_bwd_launch(scene_like, cfg, off, glob, sph, rct, g_img, tex=()):
         sides = fused_vec.tex_levels(scene_like, cfg)[1:]  # ke, ks, kr
         scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_tex_scratch_floats",
                                  (geom[0], geom[1], *geom[4:7], *sides), dev)
-        SOFT_RENDER_BWD.call("rrt_soft_render_bwd_tex", *ptrs, *(t.data_ptr() for t in tex),
-                             *geom, *off, float(cfg.soft_tau), *sides, g_img.data_ptr(),
-                             scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
+        SOFT_RENDER_BWD.call("rrt_soft_render_bwd_tex_band", *ptrs,
+                             *(t.data_ptr() for t in tex), *geom, *fused.band_args(cfg), *off,
+                             float(cfg.soft_tau), *sides, g_img.data_ptr(), scratch.data_ptr(),
+                             out.data_ptr(), fused._stream(dev))
     else:
         scratch = fused._scratch(SOFT_RENDER_BWD, "rrt_soft_render_bwd_scratch_floats",
                                  geom[2:7], dev)
-        SOFT_RENDER_BWD.call("rrt_soft_render_bwd_at", *ptrs, *geom, *off, float(cfg.soft_tau),
-                             float(cfg.checker_tau), g_img.data_ptr(), scratch.data_ptr(),
-                             out.data_ptr(), fused._stream(dev))
+        SOFT_RENDER_BWD.call("rrt_soft_render_bwd_at_band", *ptrs, *geom, *fused.band_args(cfg),
+                             *off, float(cfg.soft_tau), float(cfg.checker_tau), g_img.data_ptr(),
+                             scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     SOFT_RENDER_BWD.launches += 1
     return fused_vec._unpack_out(scene_like, out, glob, sph, rct)
 
@@ -383,15 +403,19 @@ def render_vec_soft_bwd_plain(scene, cfg: RenderConfig, g_img):
 # ---------------------------------------------------------------------------
 
 
-def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
+def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
+                       out_height: int | None = None, norm: float | None = None):
     """``(norm * sq_sum, grads as a Scene)`` of the squared error between
-    the soft render of ``scene`` and ``target``. One step-kernel call on
-    CUDA; autograd over the soft render on the CPU."""
+    the soft render of ``scene`` and ``target``, of the band of
+    ``out_height`` rows from ``row0`` if given (``target`` the band's;
+    `fused.loss_grad_fused`). One step-kernel call on CUDA; autograd over
+    the soft render on the CPU."""
     dev = scene.device
-    norm = fused._loss_norm(cfg, loss)
+    cfg = band_config(cfg, row0, out_height)
+    w = fused._loss_norm(cfg, loss, norm)
     fused._check_target(target, cfg, scene)
-    if dev.type == "cpu":
-        return loss_grad_vec_soft_plain(scene, cfg, target, loss)
+    if dev.type == "cpu":  # the plain version takes the mean where no band or norm is given
+        return loss_grad_vec_soft_plain(scene, cfg, target, loss, norm=norm)
     if dev.type != "cuda":
         raise NotImplementedError(f"no soft step kernel for device {dev}")
     glob, sph, rct, *tex = _cuda_inputs(scene, cfg, step=True)
@@ -405,22 +429,25 @@ def loss_grad_vec_soft(scene, cfg: RenderConfig, target, loss: str = "mse"):
         fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_tex_smem", scene, *sides)
         scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_tex_scratch_floats",
                                  (geom[0], geom[1], *geom[4:7], *sides), dev)
-        SOFT_STEP.call("rrt_soft_step_tex", *ptrs, *(t.data_ptr() for t in tex), *geom,
-                       float(cfg.soft_tau), *sides, target.data_ptr(), norm, scratch.data_ptr(),
-                       out.data_ptr(), fused._stream(dev))
+        SOFT_STEP.call("rrt_soft_step_tex_band", *ptrs, *(t.data_ptr() for t in tex), *geom,
+                       *fused.band_args(cfg), float(cfg.soft_tau), *sides, target.data_ptr(),
+                       w, scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     else:
         fused_vec.check_smem(SOFT_STEP, "rrt_soft_step_smem", scene)
         scratch = fused._scratch(SOFT_STEP, "rrt_soft_step_scratch_floats", geom[2:7], dev)
-        SOFT_STEP.call("rrt_soft_step", *ptrs, *geom, float(cfg.soft_tau),
-                       float(cfg.checker_tau), target.data_ptr(), norm, scratch.data_ptr(),
-                       out.data_ptr(), fused._stream(dev))
+        SOFT_STEP.call("rrt_soft_step_band", *ptrs, *geom, *fused.band_args(cfg),
+                       float(cfg.soft_tau), float(cfg.checker_tau), target.data_ptr(), w,
+                       scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     SOFT_STEP.launches += 1
-    return norm * out[0], fused_vec._unpack_out(scene, out, glob, sph, rct)
+    return w * out[0], fused_vec._unpack_out(scene, out, glob, sph, rct)
 
 
-def loss_grad_vec_soft_plain(scene, cfg: RenderConfig, target, loss: str = "mse"):
-    """torch.autograd of ``loss(soft render(scene), target)``."""
-    return fused.autograd_loss_grad(render_eager_vec, scene, cfg, target, loss)
+def loss_grad_vec_soft_plain(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
+                             out_height: int | None = None, norm: float | None = None):
+    """torch.autograd of ``loss(soft render(scene), target)`` (of a band's,
+    `fused.autograd_loss_grad`)."""
+    return fused.autograd_loss_grad(render_eager_vec, scene, band_config(cfg, row0, out_height),
+                                    target, loss, norm)
 
 
 def loss_grad_vec_soft_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse"):

@@ -65,6 +65,54 @@ class RenderConfig:
     def shape(self):
         return (self.height, self.width)
 
+    @property
+    def row0(self) -> int:
+        """The image row of the first row rendered: 0 (a `BandConfig`'s own)."""
+        return 0
+
+    @property
+    def image_height(self) -> int:
+        """The height of the image the camera sees: ``height`` (a
+        `BandConfig` renders ``height`` rows of a taller image)."""
+        return self.height
+
+
+@dataclass(frozen=True)
+class BandConfig(RenderConfig):
+    """A row band of an image: ``height`` whole rows from image row ``row0``
+    of an image ``image_height`` rows high (the JAX package's ``row0`` and
+    ``out_height``). Every image, visibility plane, target and cotangent of
+    a band is the band's (``shape``); the camera still sees the whole image,
+    so a pixel of the band is the same pixel of the whole image and its ray
+    the same ray to the bit. Made by `band_config`."""
+
+    row0: int = 0
+    image_height: int = 0
+
+
+def band_config(cfg: RenderConfig, row0=0, out_height: int | None = None) -> RenderConfig:
+    """``cfg`` restricted to ``out_height`` rows (None: the rest of the
+    image) from image row ``row0`` (an int, or a float of integer value as
+    the JAX package passes it): ``cfg`` itself for the whole image or where
+    no band is asked (``row0`` 0, ``out_height`` None; so a `BandConfig`
+    passes through), else a `BandConfig`. A band of a band is refused."""
+    if row0 == 0 and out_height is None:
+        return cfg
+    H = cfg.image_height
+    r0 = int(row0)
+    if r0 != row0:
+        raise ValueError(f"row0 must be a whole row, got {row0!r}")
+    rows = H - r0 if out_height is None else int(out_height)
+    if r0 == cfg.row0 and rows == cfg.height:
+        return cfg
+    if cfg.height != H:
+        raise ValueError("a band of a band is not taken: pass the whole image's configuration")
+    if rows < 1 or r0 < 0 or r0 + rows > H:
+        raise ValueError(f"the band of {rows} rows from row {r0} does not fit an image of "
+                         f"{H} rows")
+    fields = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
+    return BandConfig(**{**fields, "height": rows}, row0=r0, image_height=H)
+
 
 def _require_hard(scene, cfg: RenderConfig, where_chain: bool = True) -> None:
     """Raise for what the eager renderer does not cover. ``soft_tau > 0``
@@ -123,14 +171,14 @@ def camera_rays(cam, ii, jj, H: int, W: int, projection: str = "perspective"):
 
 
 def primary_rays(scene, cfg: "RenderConfig", off=(0.0, 0.0)):
-    """The rays (origin, direction) of the whole image at the subsample
-    offset ``off`` (rows, columns; `SPP_OFFSETS`) from the pixel centres,
-    each component an (H, W) tensor."""
+    """The rays (origin, direction) of the image (of a `BandConfig`'s band)
+    at the subsample offset ``off`` (rows, columns; `SPP_OFFSETS`) from the
+    pixel centres, each component an (H, W) tensor."""
     H, W = cfg.height, cfg.width
     like = dict(device=scene.device, dtype=scene.ambient.dtype)
-    ii = torch.arange(H, **like)[:, None].expand(H, W) + off[0]
+    ii = (torch.arange(H, **like) + cfg.row0)[:, None].expand(H, W) + off[0]
     jj = torch.arange(W, **like)[None, :].expand(H, W) + off[1]
-    o, d = camera_rays(scene.camera, ii, jj, H, W, cfg.projection)
+    o, d = camera_rays(scene.camera, ii, jj, cfg.image_height, W, cfg.projection)
     return vm.vbroadcast(o, (H, W)), vm.vbroadcast(d, (H, W))
 
 
@@ -522,8 +570,10 @@ SPP_OFFSETS = {1: [(0.0, 0.0)],
 
 def render_tile(scene, cfg: RenderConfig, row0, col0, bh: int, bw: int,
                 return_vis: bool = False, shade_fn=shade):
-    """Render the (bh, bw) tile whose top-left pixel is (row0, col0).
-    Returns SoA (r, g, b), plus the visibility planes with ``return_vis``.
+    """Render the (bh, bw) tile whose top-left pixel is (row0, col0) of the
+    image the camera sees (``cfg.image_height`` rows; a `BandConfig`'s
+    caller passes its ``row0``). Returns SoA (r, g, b), plus the visibility
+    planes with ``return_vis``.
     ``shade_fn`` traces and shades one subsample's rays: `shade` (the
     where chain) or `pipeline_vec.shade_vec` (objects on a leading axis)."""
     _require_hard(scene, cfg, where_chain=shade_fn is shade)
@@ -537,7 +587,7 @@ def render_tile(scene, cfg: RenderConfig, row0, col0, bh: int, bw: int,
     acc = None
     vis_all = []
     for oi, oj in offsets:
-        o, d = camera_rays(scene.camera, ii + oi, jj + oj, cfg.height, cfg.width,
+        o, d = camera_rays(scene.camera, ii + oi, jj + oj, cfg.image_height, cfg.width,
                            cfg.projection)
         o = vm.vbroadcast(o, (bh, bw))
         d = vm.vbroadcast(d, (bh, bw))

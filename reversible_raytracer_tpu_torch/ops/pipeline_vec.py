@@ -55,6 +55,7 @@ from .pipeline import (
     T_EPS,
     RenderConfig,
     _xyz,
+    band_config,
     init_attrs,
     intersect_rect,
     intersect_sphere,
@@ -336,11 +337,13 @@ def shade_soft(scene, o, d, cfg: RenderConfig, shape, return_vis: bool = False):
     return tuple(out)
 
 
-def render_eager_vec(scene, cfg: RenderConfig):
-    """Render the full image with the objects on a leading axis (the twin
-    of `render_jnp_vec`), soft when ``cfg.soft_tau > 0``, with the soft
-    checker when ``cfg.checker_tau > 0``. Returns (H, W, 3) in the scene's
-    dtype."""
+def render_eager_vec(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """Render the image, or its band of ``out_height`` rows from ``row0``
+    (`band_config`; the JAX package's ``row0`` / ``height``), with the
+    objects on a leading axis (the twin of `render_jnp_vec`), soft when
+    ``cfg.soft_tau > 0``, with the soft checker when ``cfg.checker_tau >
+    0``. Returns (rows, W, 3) in the scene's dtype."""
+    cfg = band_config(cfg, row0, out_height)
     shade_fn = shade_soft if cfg.soft_tau > 0.0 else shade_vec
-    r, g, b = render_tile(scene, cfg, 0, 0, cfg.height, cfg.width, shade_fn=shade_fn)
+    r, g, b = render_tile(scene, cfg, cfg.row0, 0, cfg.height, cfg.width, shade_fn=shade_fn)
     return torch.stack([r, g, b], dim=-1)

@@ -47,16 +47,18 @@ from __future__ import annotations
 import torch
 
 from .kernels import fused, fused_vec, fused_vec_soft
-from .pipeline import RenderConfig, render_tile
+from .pipeline import RenderConfig, band_config, render_tile
 from .pipeline_vec import render_eager_vec
 
 VEC_THRESHOLD = fused.MAX_OBJECTS  # 24, as render.py:137 of the JAX package
 
 
-def render_eager(scene, cfg: RenderConfig):
-    """Render the full image in eager torch (the twin of `render_jnp`).
-    Returns (H, W, 3) in the scene's dtype."""
-    r, g, b = render_tile(scene, cfg, 0, 0, cfg.height, cfg.width)
+def render_eager(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """Render the image, or its band of ``out_height`` rows from ``row0``
+    (`band_config`; the JAX package's ``row0`` / ``height``), in eager torch
+    (the twin of `render_jnp`). Returns (rows, W, 3) in the scene's dtype."""
+    cfg = band_config(cfg, row0, out_height)
+    r, g, b = render_tile(scene, cfg, cfg.row0, 0, cfg.height, cfg.width)
     return torch.stack([r, g, b], dim=-1)
 
 
@@ -107,18 +109,24 @@ _RENDER = {"cuda": lambda s, c: fused.render_fused(s, c)[0],
            "eager": render_eager, "eager_vec": render_eager_vec}
 
 
-def render(scene, cfg: RenderConfig):
-    """Render the full (H, W, 3) image: a forward kernel on CUDA, an eager
-    twin on the CPU (`resolve_impl`). The image is differentiable in the
+def render(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
+    """Render the (H, W, 3) image, or its band of ``out_height`` rows from
+    ``row0`` (`band_config`): a forward kernel on CUDA, an eager twin on the
+    CPU (`resolve_impl`). The image is differentiable in the
     scene's leaves on both, as the JAX package's `render` is on every
     backend: on CUDA its backward is one launch of the family's render
     backward kernel (`fused._FusedRender`, `fused_vec._VecRender`,
     `fused_vec_soft._SoftRender`)."""
+    cfg = band_config(cfg, row0, out_height)
     return _RENDER[resolve_impl(scene, cfg)](scene, cfg)
 
 
-def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
-    """``f(scene, target) -> (loss, grads)``: one fused step kernel call per
+def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse", row0=0,
+                     out_height: int | None = None):
+    """``f(scene, target) -> (loss, grads)``, of the band of ``out_height``
+    rows from ``row0`` if given (``target`` the band's; the loss scaled by
+    the whole image's normalization, so that the bands' sums are the whole
+    image's: the JAX package's ``_band_vag_fn``): one fused step kernel call per
     call on CUDA (rows 1, 6 and 9; rows 1 and 6 at spp 1 and 4), torch
     autograd over the eager renderer on the CPU (and on either device for
     the checker-only relaxation, `resolve_impl`). A soft step (``soft_tau >
@@ -126,6 +134,7 @@ def loss_and_grad_fn(scene_like, cfg: RenderConfig, loss: str = "mse"):
     four launches of the soft forward and four of its render backward
     (rows 7 and 8), as the JAX package's value_and_grad over its four-launch
     render (optim.py:822-839)."""
+    cfg = band_config(cfg, row0, out_height)
     impl = resolve_step_impl(scene_like, cfg, loss)
     if cfg.soft_tau == 0.0 and cfg.checker_tau > 0.0:
         return lambda scene, target: fused.autograd_loss_grad(render_eager_vec, scene, cfg,

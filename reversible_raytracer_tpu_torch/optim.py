@@ -230,6 +230,7 @@ def _make_step(rcfg, spec, ocfg, render_fn, vag_fn, capture: bool):
             build(scene)
         return parts["step"](scene, state, target)
 
+    step.parts = parts  # the built step: a graphs.GraphStep where it is captured
     return step, init
 
 

@@ -2011,3 +2011,96 @@ def test_resid_proposal_card_matches_cpu(cuda):
             if b.numel():
                 np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                            atol=1e-5 * float(b.abs().max()), err_msg=path)
+
+
+# ---------------------------------------------------------------------------
+# Row bands (every row's ``_band`` entries) and the sharded step
+# ---------------------------------------------------------------------------
+
+
+def _band_family(cuda, row, size):
+    """(scene, spec, cfg) of the row's family: config 2 (rows 1-3), config 5
+    (rows 4-6), config 5 at tau 0.08 (rows 7-9)."""
+    if row <= 3:
+        return configs.config2_four_spheres(size, device=cuda)
+    scene, spec, cfg = configs.config5_many_spheres(size, device=cuda)
+    return scene, spec, dataclasses.replace(cfg, soft_tau=0.08 if row >= 7 else 0.0)
+
+
+def _leaf_rel(got, want):
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)) if b.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [2, 4, 7])
+@pytest.mark.parametrize("n", [2, 4])
+def test_band_forwards_put_together_are_the_image(cuda, row, n):
+    """Rows 2, 4 and 7 in n bands: each band the plain version's at its row0
+    (rows 2 and 4 bit for bit, row 7 by the oracle rule), the bands put
+    together the whole image's kernel output to the bit."""
+    scene, _, cfg = _band_family(cuda, row, 128)
+    fn = {2: lambda *a: fused.render_fused(*a)[0], 4: lambda *a: fused_vec.render_vec(*a)[0],
+          7: fused_vec_soft.render_vec_soft}[row]
+    plain = {2: lambda *a: fused.render_fused_plain(*a)[0],
+             4: lambda *a: fused_vec.render_vec_plain(*a)[0],
+             7: fused_vec_soft.render_vec_soft_plain}[row]
+    b = cfg.height // n
+    parts = [fn(scene, cfg, i * b, b).detach() for i in range(n)]
+    assert torch.equal(torch.cat(parts), fn(scene, cfg).detach())
+    for i, part in enumerate(parts):
+        ref = plain(scene, cfg, i * b, b).detach()
+        if row == 7:
+            assert float((part - ref).abs().max()) < 2e-3
+        else:
+            assert torch.equal(part, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [1, 6, 9])
+def test_band_steps_sum_to_the_image(cuda, row):
+    """Rows 1, 6 and 9 over 4 bands (the whole image's norm): the sums of
+    the bands' losses and gradients are the whole-image call's within 1e-4
+    of each leaf's scale."""
+    scene, spec, cfg = _band_family(cuda, row, 128)
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.05, seed=1)
+    l, g = loss_and_grad_fn(start, cfg)(start, target)
+    b, total, ls = cfg.height // 4, None, 0.0
+    for i in range(4):
+        lb, gb = loss_and_grad_fn(start, cfg, row0=i * b, out_height=b)(
+            start, target[i * b:(i + 1) * b])
+        ls += float(lb)
+        total = gb if total is None else tree_unflatten(
+            gb, [x + y for x, y in zip(tree_leaves(total), tree_leaves(gb))])
+    assert abs(ls - float(l)) <= 1e-4 * float(l)
+    assert _leaf_rel(total, g) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_sharded_step_is_a_graph_with_the_all_reduce(cuda):
+    """One NCCL rank: `optimize_sharded_scan` replays a CUDA graph that holds
+    the all-reduce, and gives `optimize_scan`'s losses to the bit."""
+    import torch.distributed as dist
+
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_scan
+    from reversible_raytracer_tpu_torch.parallel import (
+        initialize,
+        make_ray_mesh,
+        optimize_sharded_scan,
+    )
+
+    scene, spec, cfg = configs.config2_four_spheres(128, device=cuda)
+    target = render(scene, cfg).detach()
+    start = configs.perturb(scene, spec, scale=0.05, seed=1)
+    ocfg = OptConfig(iters=10)
+    initialize()
+    try:
+        assert dist.get_backend() == "nccl"
+        _, want = optimize_scan(start, target, spec, cfg, ocfg)
+        before = fused.FUSED_STEP.launches
+        _, got = optimize_sharded_scan(start, target, make_ray_mesh(), cfg, spec, ocfg)
+        assert fused.FUSED_STEP.launches == before + 10
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
