@@ -28,10 +28,12 @@
 // spp 4 (the TPU kernels' 2x2 loop): each thread takes its pixel's four
 // subsamples in turn (render_common.cuh pixel_grads: the step runs the four
 // forwards first, since its residual is of their average), and each
-// subsample's gradient goes into the sums as a pixel's would. Each spp is
-// its own instance of the kernel (SPP), so the spp-1 one keeps its code.
+// subsample's gradient goes into the sums as a pixel's would, with a bounce
+// level and with texel grids too (each subsample's texel record scattered
+// as a pixel's). Each spp is its own instance of the kernel (SPP), so the
+// spp-1 ones keep their code.
 //
-// One mirror bounce (REFL = 1, spp 1): each pixel adds into its level-0
+// One mirror bounce (REFL = 1, spp 1 or 4): each pixel adds into its level-0
 // winner's fields (with the mirror coefficient's) and its level-1 winner's.
 // A warp's list of objects is the union of both levels' winners, still one
 // transposing tree per object a tile (a lane's value is the sum of its two
@@ -39,8 +41,8 @@
 // (REFL_STEP_BLOCKS_PER_SM blocks an SM: the bounce's adjoint does not fit
 // the 128 registers of two), and a grid sized to match.
 //
-// Texel grids (flat_step_tex_kernel, TEX: spp 1, object textures without a
-// bounce or the environment map with or without one): the body runs on a
+// Texel grids (flat_step_tex_kernel, TEX: spp 1 or 4, object textures without
+// a bounce or the environment map with or without one): the body runs on a
 // TexFlatScene, whose S includes the grids, and each pixel's one texel
 // record (render_common.cuh pixel_step) is scattered into the warp's row
 // after the objects' trees (scatter_texels): every lane stages its four
@@ -339,12 +341,12 @@ __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
   flat_step_body<SPP, REFL, Src, FlatScene>(flat, p, ly, fp, src, partials, out);
 }
 
-// The textured instances (spp 1).
-template <int REFL, class Src>
+// The textured instances.
+template <int SPP, int REFL, class Src>
 __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
     flat_step_tex_kernel(const float* __restrict__ flat, Params p, TexLayout ly, FlatPlan fp,
                          Src src, float* __restrict__ partials, float* __restrict__ out) {
-  flat_step_body<1, REFL, Src, TexFlatScene>(flat, p, ly, fp, src, partials, out);
+  flat_step_body<SPP, REFL, Src, TexFlatScene>(flat, p, ly, fp, src, partials, out);
 }
 
 // Floats of scratch a call needs (the partial rows); -1 if the card cannot
@@ -402,34 +404,33 @@ int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_li
                      flat, ly, flat_plan(ly), p, src, scratch, out, stream);
 }
 
-// The textured instance of refl 0 or 1 (spp 1).
+// The textured instance of refl 0 or 1 at spp 1 or 4 (the shared memory and
+// the scratch do not depend on the spp).
 template <class Src>
 int launch_flat_step_tex(const float* flat, int n_sph, int n_rect, int n_light, const Params& p,
-                         int refl, int Ks, int Kr, int Ke, Src src, float* scratch, float* out,
-                         void* stream) {
-  if (refl != 0 && refl != 1) return (int)cudaErrorInvalidValue;
+                         int refl, int spp, int Ks, int Kr, int Ke, Src src, float* scratch,
+                         float* out, void* stream) {
+  if ((refl != 0 && refl != 1) || (spp != 1 && spp != 4)) return (int)cudaErrorInvalidValue;
   const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
-  const void* kernel = refl ? (const void*)flat_step_tex_kernel<1, Src>
-                            : (const void*)flat_step_tex_kernel<0, Src>;
+  const void* kernel =
+      spp == 4 ? (refl ? (const void*)flat_step_tex_kernel<4, 1, Src>
+                       : (const void*)flat_step_tex_kernel<4, 0, Src>)
+               : (refl ? (const void*)flat_step_tex_kernel<1, 1, Src>
+                       : (const void*)flat_step_tex_kernel<1, 0, Src>);
   return launch_flat(kernel, refl ? step_blocks_per_sm<1>() : step_blocks_per_sm<0>(), flat, ly,
                      flat_plan(ly, true), p, src, scratch, out, stream);
 }
 
-// The instance of spp 1 or 4 without a bounce, or of spp 1 with one
-// (refl 1).
+// The instance of spp 1 or 4 with refl 0 or 1 bounce levels.
 template <class Src>
 int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, const Params& p,
                      int spp, int refl, Src src, float* scratch, float* out, void* stream) {
-  if (refl == 1 && spp == 1)
-    return launch_flat_step_instance<1, 1>(flat, n_sph, n_rect, n_light, p, src, scratch, out,
-                                           stream);
-  if (refl != 0) return (int)cudaErrorInvalidValue;
-  if (spp == 4)
-    return launch_flat_step_instance<4, 0>(flat, n_sph, n_rect, n_light, p, src, scratch, out,
-                                           stream);
-  if (spp != 1) return (int)cudaErrorInvalidValue;
-  return launch_flat_step_instance<1, 0>(flat, n_sph, n_rect, n_light, p, src, scratch, out,
-                                         stream);
+  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1)) return (int)cudaErrorInvalidValue;
+  const auto launch = refl ? (spp == 4 ? &launch_flat_step_instance<4, 1, Src>
+                                       : &launch_flat_step_instance<1, 1, Src>)
+                           : (spp == 4 ? &launch_flat_step_instance<4, 0, Src>
+                                       : &launch_flat_step_instance<1, 0, Src>);
+  return launch(flat, n_sph, n_rect, n_light, p, src, scratch, out, stream);
 }
 
 }  // namespace rrt

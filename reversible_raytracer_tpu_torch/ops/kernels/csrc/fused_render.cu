@@ -32,17 +32,18 @@
 // them. Each spp is its own instance (SPP); the spp-1 one runs one ray at the
 // pixel centre.
 //
-// One mirror bounce (REFL = 1, spp 1; the TPU kernel traces shade's bounce
+// One mirror bounce (REFL = 1, spp 1 or 4; the TPU kernel traces shade's bounce
 // recursion, pipeline.py:658-724): where the primary ray hit, a second
 // level from its shadow origin along the reflected direction (the same
 // walks, surface and Phong terms), its colour blended unclipped into the
 // first by the winner's mirror coefficient, col + m (col1 - col), and one
 // clip at the end. A hit with mirror 0 traces its bounce too (the same
-// bits: the blend adds 0). 2 L planes, bounce-major: plane L + l is level
-// 1's light l, 0 where either level missed. Each REFL is its own instance,
-// so the REFL = 0 ones keep their code.
+// bits: the blend adds 0). 2 L planes a subsample, bounce-major: plane
+// (1 + REFL) L q + L + l is level 1's light l of subsample q, 0 where either
+// level missed (pipeline.n_vis_planes). Each REFL is its own instance, so the
+// REFL = 0 ones keep their code.
 //
-// Texel grids (spp 1, REFL 0 or 1; render_kernel_tex, the TEX instances):
+// Texel grids (spp 1 or 4, REFL 0 or 1; render_kernel_tex, the TEX instances):
 // the scene staged with its grids (TexFlatScene), a textured winner's base
 // colour its grid's bilinear sample at a rect's (a, b) or at the lat-long
 // coordinates of a sphere's normal, and a missed ray's colour, at either
@@ -61,7 +62,6 @@ constexpr int FWD_MIN_BLOCKS = 4;  // blocks an SM at the least
 template <int SPP, int REFL, class SC, class LY>
 __device__ __forceinline__ void render_body(const float* __restrict__ flat, Params p, LY ly,
                                             float* __restrict__ img, float* __restrict__ vis) {
-  static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
   extern __shared__ float sc_s[];
   __shared__ Camera cam;
   stage(sc_s, flat, ly.S);
@@ -75,6 +75,7 @@ __device__ __forceinline__ void render_body(const float* __restrict__ flat, Para
 
   const long long px = (long long)i * p.W + j;
   const long long plane = (long long)p.H * p.W;
+  const int per_sub = (1 + REFL) * ly.L;  // a subsample's planes
   V3 acc = zero3();
 #pragma unroll 1
   for (int q = 0; q < SPP; ++q) {
@@ -111,13 +112,13 @@ __device__ __forceinline__ void render_body(const float* __restrict__ flat, Para
       }
       if (p.shadows)
         for (int l = 0; l < ly.L; ++l)
-          vis[(ly.L + l) * plane + px] = ((bits1 >> l) & 1u) ? 1.0f : 0.0f;
+          vis[(q * per_sub + ly.L + l) * plane + px] = ((bits1 >> l) & 1u) ? 1.0f : 0.0f;
     }
     if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
     acc = q == 0 ? col : acc + col;
     if (p.shadows)
       for (int l = 0; l < ly.L; ++l)
-        vis[(q * ly.L + l) * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
+        vis[(q * per_sub + l) * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
   }
   if (SPP == 4) acc = acc * 0.25f;
   img[3 * px + 0] = acc.x;
@@ -132,27 +133,29 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
   render_body<SPP, REFL, FlatScene>(flat, p, ly, img, vis);
 }
 
-template <int REFL>
+template <int SPP, int REFL>
 __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
     render_kernel_tex(const float* __restrict__ flat, Params p, TexLayout ly,
                       float* __restrict__ img, float* __restrict__ vis) {
-  render_body<1, REFL, TexFlatScene>(flat, p, ly, img, vis);
+  render_body<SPP, REFL, TexFlatScene>(flat, p, ly, img, vis);
 }
 
 // The band entries (the wrappers'): H rows from image row row0 of an
 // image_h-row image (render_common.cuh band_params); img (H, W, 3) and the
-// planes (n_vis, H, W) are the band's. The textured instances: spp 1, refl 0
-// or 1 (L or 2 L planes), the texel grids' sides Ks, Kr, Ke (0 for none) in
-// make_tex_layout's flat layout.
+// planes (n_vis, H, W) are the band's. The textured instances: refl 0 or 1,
+// spp 1 or 4 (spp (1 + refl) L planes), the texel grids' sides Ks, Kr, Ke (0
+// for none) in make_tex_layout's flat layout.
 extern "C" int rrt_render_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                    int W, int shadows, int clip, int row0, int image_h, int refl,
-                                   int Ks, int Kr, int Ke, float* img, float* vis,
+                                   int spp, int Ks, int Kr, int Ke, float* img, float* vis,
                                    void* stream) {
   const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
   const Params p = band_params(H, W, shadows, clip, row0, image_h);
-  if ((refl != 0 && refl != 1) || !band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
+  if ((refl != 0 && refl != 1) || (spp != 1 && spp != 4) || !band_ok(H, row0, image_h))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = ly.S * sizeof(float);
-  const auto kernel = refl ? render_kernel_tex<1> : render_kernel_tex<0>;
+  const auto kernel = spp == 4 ? (refl ? render_kernel_tex<4, 1> : render_kernel_tex<4, 0>)
+                               : (refl ? render_kernel_tex<1, 1> : render_kernel_tex<1, 0>);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -163,28 +166,27 @@ extern "C" int rrt_render_tex_band(const float* flat, int n_sph, int n_rect, int
   return (int)cudaGetLastError();
 }
 
-// spp 1 or 4 without a bounce (4 L planes at spp 4), spp 1 with one (refl
-// 1, 2 L planes).
+// spp 1 or 4 (spp (1 + refl) L planes), refl 0 or 1.
 extern "C" int rrt_render_refl_band(const float* flat, int n_sph, int n_rect, int n_light,
                                     int H, int W, int shadows, int clip, int row0, int image_h,
                                     int spp, int refl, float* img, float* vis, void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
   const Params p = band_params(H, W, shadows, clip, row0, image_h);
-  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || (refl == 1 && spp != 1) ||
-      !band_ok(H, row0, image_h))
+  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = refl ? render_kernel<1, 1> : spp == 4 ? render_kernel<4, 0>
-                                                            : render_kernel<1, 0>;
+  const auto kernel = spp == 4 ? (refl ? render_kernel<4, 1> : render_kernel<4, 0>)
+                               : (refl ? render_kernel<1, 1> : render_kernel<1, 0>);
   kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
            (cudaStream_t)stream>>>(flat, p, ly, img, vis);
   return (int)cudaGetLastError();
 }
 
-// The whole image (the entries of the tools and of earlier checkouts).
+// The whole image (the entries of the tools and of earlier checkouts; the
+// textured ones at spp 1).
 extern "C" int rrt_render_tex(const float* flat, int n_sph, int n_rect, int n_light, int H,
                               int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
                               float* img, float* vis, void* stream) {
-  return rrt_render_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, Ks,
+  return rrt_render_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, 1, Ks,
                              Kr, Ke, img, vis, stream);
 }
 

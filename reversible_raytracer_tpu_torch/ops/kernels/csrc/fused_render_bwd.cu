@@ -25,12 +25,12 @@
 // any-hit loops, against 12 bytes of cotangent and 4 bytes per visibility
 // plane read per pixel (chip_smoke.py counts both).
 //
-// One mirror bounce (refl 1, spp 1): the step's bounce adjoint, level 1's
-// visibility read from the forward's planes L + l (2 L planes, bounce-major),
-// only where both levels hit.
+// One mirror bounce (refl 1, spp 1 or 4): the step's bounce adjoint, level
+// 1's visibility read from the forward's planes L + l of its subsample (2 L
+// planes a subsample, bounce-major), only where both levels hit.
 //
-// Texel grids (spp 1, refl 0 or 1): the step's textured instance with the
-// forward's planes (flat_step.cuh TEX).
+// Texel grids (spp 1 or 4, refl 0 or 1): the step's textured instance with
+// the forward's planes (flat_step.cuh TEX).
 #include "flat_step.cuh"
 
 using namespace rrt;
@@ -43,9 +43,9 @@ extern "C" long long rrt_render_bwd_scratch_floats(int n_sph, int n_rect, int n_
 // The band entries (the wrappers'): H rows from image row row0 of an
 // image_h-row image (render_common.cuh band_params); g_img the band's (H, W,
 // 3) cotangent and vis the band forward's planes. out = [0, d flat (S)]. spp
-// 1 or 4 without a bounce, spp 1 with one (refl 1): at spp 4 g_img is the
-// cotangent of the average and vis the forward's 4 L planes
-// (render_common.cuh pixel_grads); with a bounce the forward's 2 L.
+// 1 or 4, refl 0 or 1: vis holds (1 + refl) L planes a subsample, at spp 4
+// g_img is the cotangent of the average and vis the forward's 4 (1 + refl) L
+// planes (render_common.cuh pixel_grads).
 extern "C" int rrt_render_bwd_refl_band(const float* flat, int n_sph, int n_rect, int n_light,
                                         int H, int W, int shadows, int clip, int row0,
                                         int image_h, int spp, int refl, const float* g_img,
@@ -57,16 +57,16 @@ extern "C" int rrt_render_bwd_refl_band(const float* flat, int n_sph, int n_rect
                           CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
-// The textured instance: spp 1, refl 0 or 1, the grids' sides Ks, Kr, Ke.
-extern "C" int rrt_render_bwd_tex_band(const float* flat, int n_sph, int n_rect, int n_light,
-                                       int H, int W, int shadows, int clip, int row0,
-                                       int image_h, int refl, int Ks, int Kr, int Ke,
+// The textured instance: refl 0 or 1, spp 1 or 4, the grids' sides Ks, Kr, Ke.
+extern "C" int rrt_render_bwd_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
+                                       int W, int shadows, int clip, int row0, int image_h,
+                                       int refl, int spp, int Ks, int Kr, int Ke,
                                        const float* g_img, const float* vis, float* scratch,
                                        float* out, void* stream) {
   if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
   return launch_flat_step_tex(flat, n_sph, n_rect, n_light,
-                              band_params(H, W, shadows, clip, row0, image_h), refl, Ks, Kr, Ke,
-                              CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
+                              band_params(H, W, shadows, clip, row0, image_h), refl, spp, Ks, Kr,
+                              Ke, CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
 extern "C" long long rrt_render_bwd_tex_scratch_floats(int n_sph, int n_rect, int n_light, int H,
@@ -74,7 +74,8 @@ extern "C" long long rrt_render_bwd_tex_scratch_floats(int n_sph, int n_rect, in
   return flat_step_tex_scratch_floats(n_sph, n_rect, n_light, H, W, Ks, Kr, Ke);
 }
 
-// The whole image (the entries of the tools and of earlier checkouts).
+// The whole image (the entries of the tools and of earlier checkouts; the
+// textured ones at spp 1).
 extern "C" int rrt_render_bwd_refl(const float* flat, int n_sph, int n_rect, int n_light,
                                    int H, int W, int shadows, int clip, int spp, int refl,
                                    const float* g_img, const float* vis, float* scratch,
@@ -87,7 +88,7 @@ extern "C" int rrt_render_bwd_tex(const float* flat, int n_sph, int n_rect, int 
                                   int W, int shadows, int clip, int refl, int Ks, int Kr, int Ke,
                                   const float* g_img, const float* vis, float* scratch,
                                   float* out, void* stream) {
-  return rrt_render_bwd_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl,
+  return rrt_render_bwd_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, 1,
                                  Ks, Kr, Ke, g_img, vis, scratch, out, stream);
 }
 

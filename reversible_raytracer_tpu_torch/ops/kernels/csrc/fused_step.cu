@@ -33,14 +33,14 @@
 // exp and log cost many instructions each, and the per-pixel adjoint
 // (tools/flat_step_split.py) is most of its time.
 //
-// One mirror bounce (refl 1, spp 1; the TPU kernel traces shade's bounce
+// One mirror bounce (refl 1, spp 1 or 4; the TPU kernel traces shade's bounce
 // recursion, pipeline.py:658-724): each pixel traces and shades a second
 // level from its shadow origin along the reflected direction wherever the
 // primary ray hit, blends the two unclipped colours by the winner's mirror
 // coefficient, clips once, and runs the bounce's adjoint (render_common.cuh
 // pixel_step, flat_step.cuh's REFL instance).
 //
-// Texel grids (spp 1; the TPU kernel samples them in render_tile, fused.py
+// Texel grids (spp 1 or 4; the TPU kernel samples them in render_tile, fused.py
 // :93-160, with its dense hat basis, a Mosaic workaround not carried over):
 // flat_step.cuh's TEX instance samples a textured winner's grid or, at a
 // miss, the environment map by the bilinear gather, and scatters each
@@ -59,9 +59,8 @@ extern "C" long long rrt_step_scratch_floats(int n_sph, int n_rect, int n_light,
 // image_h-row image (render_common.cuh band_params), the target the band's
 // (H, W, 3); w the caller's normalization (a band of a sharded step passes
 // the whole image's, so that the bands' sums are the whole image's step).
-// spp 1 or 4 without a bounce, spp 1 with one (refl 1): at spp 4 the loss is
-// of the average of the four clipped subsamples (render_common.cuh
-// pixel_grads).
+// spp 1 or 4, refl 0 or 1 bounce levels: at spp 4 the loss is of the average
+// of the four clipped subsamples (render_common.cuh pixel_grads).
 extern "C" int rrt_step_refl_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                   int W, int shadows, int clip, int row0, int image_h, int spp,
                                   int refl, const float* target, float w, float* scratch,
@@ -72,19 +71,20 @@ extern "C" int rrt_step_refl_band(const float* flat, int n_sph, int n_rect, int 
                           ResidualSource{target, w}, scratch, out, stream);
 }
 
-// The textured instance: spp 1, refl 0 or 1, the texel grids' sides Ks, Kr,
-// Ke (0 for none) in make_tex_layout's flat layout.
+// The textured instance: refl 0 or 1, spp 1 or 4, the texel grids' sides Ks,
+// Kr, Ke (0 for none) in make_tex_layout's flat layout.
 extern "C" int rrt_step_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                  int W, int shadows, int clip, int row0, int image_h, int refl,
-                                 int Ks, int Kr, int Ke, const float* target, float w,
+                                 int spp, int Ks, int Kr, int Ke, const float* target, float w,
                                  float* scratch, float* out, void* stream) {
   if (!band_ok(H, row0, image_h)) return (int)cudaErrorInvalidValue;
   return launch_flat_step_tex(flat, n_sph, n_rect, n_light,
-                              band_params(H, W, shadows, clip, row0, image_h), refl, Ks, Kr, Ke,
-                              ResidualSource{target, w}, scratch, out, stream);
+                              band_params(H, W, shadows, clip, row0, image_h), refl, spp, Ks, Kr,
+                              Ke, ResidualSource{target, w}, scratch, out, stream);
 }
 
-// The whole image (the entries of the tools and of earlier checkouts).
+// The whole image (the entries of the tools and of earlier checkouts; the
+// textured ones at spp 1).
 extern "C" int rrt_step_refl(const float* flat, int n_sph, int n_rect, int n_light, int H,
                              int W, int shadows, int clip, int spp, int refl,
                              const float* target, float w, float* scratch, float* out,
@@ -102,7 +102,7 @@ extern "C" int rrt_step_tex(const float* flat, int n_sph, int n_rect, int n_ligh
                             int shadows, int clip, int refl, int Ks, int Kr, int Ke,
                             const float* target, float w, float* scratch, float* out,
                             void* stream) {
-  return rrt_step_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, Ks, Kr,
+  return rrt_step_tex_band(flat, n_sph, n_rect, n_light, H, W, shadows, clip, 0, H, refl, 1, Ks, Kr,
                            Ke, target, w, scratch, out, stream);
 }
 

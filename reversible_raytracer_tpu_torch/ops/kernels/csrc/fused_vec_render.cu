@@ -50,7 +50,8 @@
 // (there is no surface, and the culls give such a lane no candidates); the
 // render backward reads the planes only where the ray hit.
 //
-// The environment map and one mirror bounce (spp 1; vec_render_levels_kernel,
+// The environment map and one mirror bounce (one subsample a launch, four at
+// spp 4 as for every instance; vec_render_levels_kernel,
 // REFL and ENV, the TPU kernel's env global and reflection levels,
 // fused_vec.py:405-440 and :907-946): with ENV the globals end with the
 // (Ke, Ke, 3) map (PackedEnvRows) and a missed ray's colour is its bilinear
@@ -69,7 +70,7 @@
 // (vec_render_body), the bounce and the env behind if constexpr, so that
 // vec_render_kernel, its <0, false> instance, keeps its code.
 //
-// Object texel grids (spp 1, up to one bounce, with or without the env;
+// Object texel grids (one subsample a launch, up to one bounce, with or without the env;
 // vec_render_tex_kernel, the TPU kernel's texel tails, _row_plan:370,
 // _sphere_eval:467-471, _rect_eval:503): a textured winner's base colour at
 // either level is its grid's bilinear sample at the lat-long coordinates of
@@ -183,7 +184,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
 }
 
 // The instances with the environment map (ENV) and/or one bounce level
-// (REFL), spp 1.
+// (REFL), one subsample a launch.
 template <int REFL, bool ENV>
 __global__ void __launch_bounds__(BLOCK_THREADS)
     vec_render_levels_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
@@ -211,7 +212,7 @@ int launch_forward(K kernel, size_t smem, const float* glob, const float* sph, c
   return (int)cudaGetLastError();
 }
 
-// The instances with object texel grids (spp 1, REFL bounce levels, the
+// The instances with object texel grids (one subsample a launch, REFL bounce levels, the
 // environment map's side Ke 0 for none).
 template <int REFL>
 __global__ void __launch_bounds__(BLOCK_THREADS)

@@ -25,10 +25,11 @@
 // (their votes and any-hit walks); bytes: the cotangent (12 bytes per
 // pixel) and 4 bytes per visibility plane (chip_smoke.py counts both).
 //
-// The environment map and one bounce level (spp 1): the step's
+// The environment map and one bounce level: the step's spp-1
 // vec_step_levels_kernel with CotangentSource, level 1's light l read from
-// plane L + l of the forward's 2 L. Object texel grids: the step's
-// vec_step_tex_kernel with CotangentSource.
+// plane L + l of the forward's 2 L. Object texel grids: the step's spp-1
+// vec_step_tex_kernel with CotangentSource. At spp 4 either is launched
+// once a subsample, at its offsets, with that subsample's planes.
 #include "vec_step.cuh"
 
 using namespace rrt;
@@ -49,7 +50,7 @@ extern "C" long long rrt_vec_render_bwd_levels_scratch_floats(int ns_pad, int nr
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W, ke);
 }
 
-// The textured instances (spp 1): object texel grids of sides ks and kr (0
+// The textured instances (one subsample a launch): object texel grids of sides ks and kr (0
 // for none) read from stex and rtex; out = [0, dglob, dsph, drct, dstex,
 // drtex], at the pixel centre (oi = oj = 0) or a subsample's offset.
 extern "C" long long rrt_vec_render_bwd_tex_smem(int n_sph, int n_rect, int n_light, int ke,

@@ -18,7 +18,7 @@
 // and bits stay as they were, where the TPU kernel selects at run time
 // (fused_vec.py:523-538).
 //
-// Texel grids (spp 1, the hard checker; soft_render_tex_kernel, the TPU
+// Texel grids (one subsample a launch, the hard checker; soft_render_tex_kernel, the TPU
 // kernel's texel tails and env global, fused_vec_soft.py:382-443 and
 // :458-492): each layer's textured winner's base colour is its own grid's
 // bilinear sample at the lat-long coordinates of its normal (p - c) / r at
@@ -144,7 +144,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   soft_render_body<SOFT_CHECKER>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, tau, ctau, img);
 }
 
-// The instance with texel grids (spp 1, the hard checker).
+// The instance with texel grids (one subsample a launch, the hard checker).
 __global__ void __launch_bounds__(BLOCK_THREADS)
     soft_render_tex_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                            const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
@@ -205,7 +205,7 @@ extern "C" int rrt_soft_render_at_band(const float* glob, const float* sph, cons
                                    tau, ctau, img, stream);
 }
 
-// The texel instance (spp 1): object texel grids of sides ks (the spheres',
+// The texel instance (one subsample a launch): object texel grids of sides ks (the spheres',
 // from stex) and kr (the rects', from rtex) and an environment map of side ke
 // ending the globals, each 0 for none, at the subsample offset (oi, oj).
 extern "C" int rrt_soft_render_tex_band(const float* glob, const float* sph, const float* rct,

@@ -27,7 +27,7 @@
 // and the cotangent (12 bytes per pixel) read once, the gradient written
 // once (chip_smoke.py counts both). checker_tau as the step's: the soft
 // checker's instance where it is above 0. The _tex entries run the step's
-// texel instance (spp 1): the grids' gradient ends the output.
+// texel instance (spp 1, one launch a subsample): the grids' gradient ends the output.
 #include "soft_step.cuh"
 
 using namespace rrt;
@@ -42,7 +42,7 @@ extern "C" long long rrt_soft_render_bwd_scratch_floats(int ns_pad, int nr_pad, 
   return soft_step_scratch_floats(ns_pad, nr_pad, n_light, H, W);
 }
 
-// The texel instance (spp 1; the step's _tex entries with the caller's
+// The texel instance (one subsample a launch; the step's _tex entries with the caller's
 // cotangent): out = [0, dglob, dsph, drct, dstex, drtex].
 extern "C" long long rrt_soft_render_bwd_tex_smem(int n_sph, int n_rect, int n_light, int ke,
                                                   int ks, int kr) {

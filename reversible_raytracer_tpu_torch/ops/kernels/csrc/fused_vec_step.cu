@@ -25,7 +25,7 @@
 // occluder, the shading and the adjoint; chip_smoke.py counts them). The
 // partial rows, one per block (a few hundred), are 1-2 MB of scratch.
 //
-// The environment map and one bounce level (spp 1, the TPU kernel's env
+// The environment map and one bounce level (spp 1 or 4, the TPU kernel's env
 // global and reflection levels: vec_step.cuh's vec_step_levels_kernel) add
 // per pixel the reflected ray's walk over every object, its shading, its
 // shadow rays over their culled candidates and its adjoint, the mirror
@@ -33,7 +33,7 @@
 // sample and its adjoint (chip_smoke.py's bounce_counts and texel_counts
 // count them).
 //
-// Object texel grids (spp 1, up to one bounce, with or without the env; the
+// Object texel grids (spp 1 or 4, up to one bounce, with or without the env; the
 // TPU kernel's texel tails, _tex_nest and the _sphere_eval / _rect_eval
 // samples, fused_vec.py:207, :467-471, :503): vec_step.cuh's
 // vec_step_tex_kernel. A textured winner's base colour at either level is
@@ -52,7 +52,7 @@ extern "C" long long rrt_vec_step_scratch_floats(int ns_pad, int nr_pad, int n_l
 }
 
 // With an environment map of side ke (0 for none; a bounce adds no shared
-// memory), at spp 1.
+// memory), at spp 1 or 4.
 extern "C" long long rrt_vec_step_levels_smem(int n_sph, int n_rect, int n_light, int ke) {
   return (long long)step_plan(pad16(n_sph), pad16(n_rect), n_light, ke).smem;
 }
@@ -62,7 +62,7 @@ extern "C" long long rrt_vec_step_levels_scratch_floats(int ns_pad, int nr_pad, 
   return vec_step_scratch_floats(ns_pad, nr_pad, n_light, H, W, ke);
 }
 
-// The textured instances (spp 1): object texel grids of sides ks (the
+// The textured instances (spp 1 or 4): object texel grids of sides ks (the
 // spheres') and kr (the rects'), 0 for none, read from stex and rtex, beside
 // refl bounce levels and an environment map of side ke; out = [sq, dglob,
 // dsph, drct, dstex, drtex].
@@ -92,21 +92,23 @@ extern "C" int rrt_vec_step_levels_band(const float* glob, const float* sph, con
                          ResidualSource{target, w}, scratch, out, stream, refl, ke);
 }
 
+// The textured instances at spp 1 or 4 (the 2x2 loop in the kernel).
 extern "C" int rrt_vec_step_tex_band(const float* glob, const float* sph, const float* rct,
                                      const float* stex, const float* rtex, int n_sph, int n_rect,
-                                     int ns_pad, int nr_pad, int n_light, int H, int W,
-                                     int shadows, int clip, int row0, int image_h, int refl,
-                                     int ke, int ks, int kr, const float* target, float w,
-                                     float* scratch, float* out, void* stream) {
+                                     int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
+                                     int clip, int row0, int image_h, int spp, int refl, int ke,
+                                     int ks, int kr, const float* target, float w, float* scratch,
+                                     float* out, void* stream) {
   if (ns_pad != pad16(n_sph) || nr_pad != pad16(n_rect) || !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
   return launch_vec_step_tex(glob, sph, rct, n_sph, n_rect, n_light, ke,
                              TexGrids{stex, rtex, ks, kr},
                              band_params(H, W, shadows, clip, row0, image_h), refl,
-                             ResidualSource{target, w}, scratch, out, stream);
+                             ResidualSource{target, w}, scratch, out, stream, spp);
 }
 
-// The whole image (the entries of the tools and of earlier checkouts).
+// The whole image (the entries of the tools and of earlier checkouts; the
+// textured ones at spp 1).
 extern "C" int rrt_vec_step_levels(const float* glob, const float* sph, const float* rct,
                                    int n_sph, int n_rect, int ns_pad, int nr_pad, int n_light,
                                    int H, int W, int shadows, int clip, int spp, int refl, int ke,
@@ -122,9 +124,9 @@ extern "C" int rrt_vec_step_tex(const float* glob, const float* sph, const float
                                 int ns_pad, int nr_pad, int n_light, int H, int W, int shadows,
                                 int clip, int refl, int ke, int ks, int kr, const float* target,
                                 float w, float* scratch, float* out, void* stream) {
-  return rrt_vec_step_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad,
-                               n_light, H, W, shadows, clip, 0, H, refl, ke, ks, kr, target, w,
-                               scratch, out, stream);
+  return rrt_vec_step_tex_band(glob, sph, rct, stex, rtex, n_sph, n_rect, ns_pad, nr_pad, n_light,
+                               H, W, shadows, clip, 0, H, 1, refl, ke, ks, kr, target, w, scratch,
+                               out, stream);
 }
 
 // spp 1 or 4: at spp 4 the loss is of the average of the four clipped

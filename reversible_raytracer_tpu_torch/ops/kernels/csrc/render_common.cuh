@@ -4,8 +4,9 @@
 // hand-written adjoint of the fused training steps and the render
 // backwards (pixel_step, with the two sources of its cotangent and
 // visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
-// the subsamples of spp 4; with REFL, one mirror bounce level; with a
-// TexFlatScene, object textures and the environment map; with a
+// the subsamples of spp 4, with any of the below; with REFL, one mirror
+// bounce level; with a TexFlatScene, object textures and the environment
+// map; with a
 // PackedEnvRows, the environment map; with a PackedTexRows, both, the
 // object grids read from global memory), the texel records' scatter, and the
 // reduction and camera-chain passes. soft_common.cuh adds the
@@ -27,8 +28,9 @@
 //     space, so a pad row's index never names a real object.
 //
 // Semantics follow reversible_raytracer_tpu/ops/pipeline.py (hard shading,
-// spp 1 or 4, perspective camera; untextured objects and a flat background,
-// or at spp 1 the texel grids of a TexFlatScene):
+// spp 1 or 4, perspective camera, at most one mirror bounce; untextured
+// objects and a flat background, or the texel grids of a TexFlatScene, a
+// PackedEnvRows or a PackedTexRows, at either spp and bounce count):
 //   - BIG, T_EPS and SHADOW_EPS as there;
 //   - nearest hit on strict <, spheres before rects, so ties go to the
 //     earlier object;
@@ -959,9 +961,10 @@ struct CotangentSource {
 
   // Subsample s of spp 4: a quarter of the average's cotangent (the
   // average's 0.25, before each subsample's own clip gradient) and the
-  // subsample's n_light planes, s L + l in the forward's layout.
-  __device__ __forceinline__ CotangentSource at(const Params& p, int s, int n_light) const {
-    return {g_img, vis + (long long)s * n_light * p.H * p.W, scale * 0.25f};
+  // subsample's n_planes = (1 + R) L planes, from s (1 + R) L in the
+  // forward's layout (pipeline.n_vis_planes: subsample-major, then bounce).
+  __device__ __forceinline__ CotangentSource at(const Params& p, int s, int n_planes) const {
+    return {g_img, vis + (long long)s * n_planes * p.H * p.W, scale * 0.25f};
   }
 };
 
@@ -1659,52 +1662,53 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
 }
 
 // The gradient of pixel (i, j) at SPP samples a pixel, handed to
-// take(const PixelGrad&) once per subsample (the flat and vec step kernels
-// add each into their sums as they would a pixel's). At spp 1, pixel_step
-// (with REFL bounce levels, spp 1 only: take then gets a BounceGrad).
-// At spp 4 the image is the average of the four clipped subsamples of
-// subsample(), ((c0 + c1) + c2) + c3 times 0.25 as render_tile sums them:
+// take(const GradOf<REFL, S>&) once per subsample (the flat and vec step
+// kernels add each into their sums, its texel records into their rows, as
+// they would a pixel's). At spp 1, pixel_step. At spp 4 the image is the
+// average of the four clipped subsamples of subsample(), ((c0 + c1) + c2) +
+// c3 times 0.25 as render_tile sums them:
 //   - where src casts shadow rays (the steps), the residual is of the
 //     average, so the four forwards run first, each keeping its visibility
-//     bits; then src's cotangent of the average, times 0.25, and each
+//     bits (with REFL, level 0's in bits 0..L-1 and level 1's in L..2L-1:
+//     2 L <= 32, one word a subsample, as src.lit numbers level 1's lights L
+//     + l); then src's cotangent of the average, times 0.25, and each
 //     subsample's forward and adjoint replayed with it and its bits
-//     (SubsampleSource: no shadow rays the second time);
+//     (SubsampleSource: no shadow rays the second time, at either level);
 //   - the render backwards' caller gives the average's cotangent: each
-//     subsample's adjoint takes a quarter of it and reads its own planes
-//     (CotangentSource::at).
+//     subsample's adjoint takes a quarter of it and reads its own (1 + REFL)
+//     L planes (CotangentSource::at).
 // Every lane runs every subsample (the walks' warp-wide votes).
 template <int SPP, int REFL = 0, class S, class Src, class Walk, class OnLight, class Take>
 __device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i, int j,
                                             bool inside, const Src& src, const Walk& walk,
                                             OnLight on_light, Take take) {
   static_assert(SPP == 1 || SPP == 4, "spp is 1 or 4");
-  static_assert(REFL == 0 || SPP == 1, "a bounce level is spp 1");
-  static_assert(!HasEnv<S>::value || SPP == 1, "texel grids are spp 1");
   if constexpr (SPP == 1) {
     take(pixel_step<REFL>(sc, p, i, j, inside, src, walk, on_light));
   } else if constexpr (Src::casts_shadows) {
     V3 acc = zero3();
-    unsigned long long bits = 0;  // 16 bits a subsample: at most 16 lights (MAX_LIGHTS)
+    unsigned bits[4];  // one word a subsample: at most 16 lights (MAX_LIGHTS) a level
 #pragma unroll 1
     for (int q = 0; q < 4; ++q) {
-      const PixelForward fw = pixel_forward(sc, subsample(p, q), i, j, inside, src, walk);
+      const typename Levels<REFL>::Forward fw =
+          pixel_forward<REFL>(sc, subsample(p, q), i, j, inside, src, walk);
       const V3 img = p.clip ? V3{clip01(fw.pre.x), clip01(fw.pre.y), clip01(fw.pre.z)} : fw.pre;
       acc = q == 0 ? img : acc + img;
-      bits |= (unsigned long long)(fw.bits & 0xffffu) << (16 * q);
+      unsigned w = fw.bits;
+      if constexpr (REFL != 0) w |= fw.b.bits << sc.n_light();
+      bits[q] = w;
     }
     float sq;
     const V3 g = src.cotangent(p, i, j, inside, acc * 0.25f, &sq) * 0.25f;
 #pragma unroll 1
     for (int q = 0; q < 4; ++q)
-      take(pixel_step(sc, subsample(p, q), i, j, inside,
-                      SubsampleSource{g, q == 0 ? sq : 0.0f,
-                                      (unsigned)(bits >> (16 * q)) & 0xffffu},
-                      walk, on_light));
+      take(pixel_step<REFL>(sc, subsample(p, q), i, j, inside,
+                            SubsampleSource{g, q == 0 ? sq : 0.0f, bits[q]}, walk, on_light));
   } else {
 #pragma unroll 1
     for (int q = 0; q < 4; ++q)
-      take(pixel_step(sc, subsample(p, q), i, j, inside, src.at(p, q, sc.n_light()), walk,
-                      on_light));
+      take(pixel_step<REFL>(sc, subsample(p, q), i, j, inside,
+                            src.at(p, q, (1 + REFL) * sc.n_light()), walk, on_light));
   }
 }
 

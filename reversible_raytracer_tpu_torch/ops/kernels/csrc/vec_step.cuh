@@ -43,13 +43,15 @@
 //    camera chain once.
 //
 // spp 4: the step (row 6) takes the TPU kernel's 2x2 loop (fused_vec.py:
-// 997-1006) in each thread, as the flat step does (render_common.cuh
-// pixel_grads), each subsample's walk culled by its own warp's rays; the
-// render backward (row 5) is launched once per subsample at that
-// subsample's offsets (Params oi, oj), as the TPU's four launches at the
-// runtime offsets of off_ref. Each spp is its own instance (SPP).
+// 997-1006, with a bounce too: :772-780) in each thread, as the flat step
+// does (render_common.cuh pixel_grads), each subsample's walk culled by its
+// own warp's rays (a bounce level's walk stays the full walk), each
+// subsample's gradient and texel records added as a pixel's; the render
+// backward (row 5) is launched once per subsample at that subsample's
+// offsets (Params oi, oj), as the TPU's four launches at the runtime offsets
+// of off_ref. Each spp is its own instance (SPP).
 //
-// The environment map and one mirror bounce (spp 1; vec_step_levels_kernel,
+// The environment map and one mirror bounce (spp 1 or 4; vec_step_levels_kernel,
 // REFL and ENV, the TPU kernel's env global and reflection levels,
 // fused_vec.py:405-440, :1015-1054, :1220-1266): each thread runs
 // pixel_step<REFL> on a PackedEnvRows (ENV: the env ends the globals,
@@ -73,7 +75,7 @@
 //    - A bounce needs more registers than two blocks an SM leave
 //      (step_blocks_per_sm: one block an SM with REFL, and a grid to
 //      match).
-// Object texel grids (spp 1; vec_step_tex_kernel, REFL, the env's side Ke 0
+// Object texel grids (spp 1 or 4; vec_step_tex_kernel, REFL, the env's side Ke 0
 // for none, the TPU kernel's texel tails, fused_vec.py:207, :467-471, :503):
 // each thread runs pixel_step<REFL> on a PackedTexScene, whose grids stay in
 // global memory (64 globes at 16 x 16 texels are 192 KiB: a block cannot
@@ -358,27 +360,27 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
 }
 
 // The instances with the environment map (ENV) and/or one bounce level
-// (REFL), spp 1.
-template <int REFL, bool ENV, class Src>
+// (REFL), at SPP samples a pixel.
+template <int SPP, int REFL, bool ENV, class Src>
 __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
     vec_step_levels_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                            const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
                            GLayoutOf<ENV> gl, Params p, Src src, float* __restrict__ partials) {
   using SC = typename std::conditional<ENV, PackedEnvScene, PackedScene>::type;
-  vec_step_body<1, REFL, Src, SC>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src, partials);
+  vec_step_body<SPP, REFL, Src, SC>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src, partials);
 }
 
-// The instances with object texel grids (spp 1; the environment map's side
-// Ke 0 for none, REFL bounce levels): one block an SM, as their block's texel
-// row leaves no room for a second.
-template <int REFL, class Src>
+// The instances with object texel grids (the environment map's side Ke 0 for
+// none, REFL bounce levels, SPP samples a pixel): one block an SM, as their
+// block's texel row leaves no room for a second.
+template <int SPP, int REFL, class Src>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     vec_step_tex_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
                         const float* __restrict__ rct, int N, int M, int ns_pad, int nr_pad,
                         EnvGLayout gl, Params p, Src src, float* __restrict__ partials,
                         TexGrids tg) {
-  vec_step_body<1, REFL, Src, PackedTexScene>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, src,
-                                              partials, tg);
+  vec_step_body<SPP, REFL, Src, PackedTexScene>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p,
+                                                src, partials, tg);
 }
 
 constexpr int VEC_REDUCE_RY = 32;  // row subsets per slot in the reduction
@@ -433,11 +435,12 @@ int launch_vec_instance(K kernel, int per_sm, const float* glob, const float* sp
   return (int)cudaGetLastError();
 }
 
-template <int REFL, bool ENV, class Src>
+template <int SPP, int REFL, bool ENV, class Src>
 int launch_vec_levels(const float* glob, const float* sph, const float* rct, int n_sph,
                       int n_rect, int ns_pad, int nr_pad, int n_light, int ke, const Params& p,
                       Src src, float* scratch, float* out, void* stream) {
-  return launch_vec_instance(vec_step_levels_kernel<REFL, ENV, Src>, step_blocks_per_sm<REFL>(),
+  return launch_vec_instance(vec_step_levels_kernel<SPP, REFL, ENV, Src>,
+                             step_blocks_per_sm<REFL>(),
                              glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad,
                              globals_layout<ENV>(n_light, ke),
                              step_plan(ns_pad, nr_pad, n_light, ke), p, src, scratch, out,
@@ -445,13 +448,15 @@ int launch_vec_levels(const float* glob, const float* sph, const float* rct, int
 }
 
 // The textured instance of refl 0 or 1 bounce levels, an environment map of
-// side ke (0 for none) and object texel grids tg, at spp 1; out = [sq, dglob,
-// dsph, drct, the spheres' texels, the rects'].
+// side ke (0 for none) and object texel grids tg, at spp 1 or 4 (the shared
+// memory and the scratch do not depend on the spp); out = [sq, dglob, dsph,
+// drct, the spheres' texels, the rects'].
 template <class Src>
 int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, int n_sph,
                         int n_rect, int n_light, int ke, const TexGrids& tg, const Params& p,
-                        int refl, Src src, float* scratch, float* out, void* stream) {
-  if ((refl != 0 && refl != 1) || ke < 0 || tg.Ks < 0 || tg.Kr < 0)
+                        int refl, Src src, float* scratch, float* out, void* stream,
+                        int spp = 1) {
+  if ((refl != 0 && refl != 1) || (spp != 1 && spp != 4) || ke < 0 || tg.Ks < 0 || tg.Kr < 0)
     return (int)cudaErrorInvalidValue;
   const StepPlan plan = tex_step_plan(n_sph, n_rect, n_light, ke, tg.Ks, tg.Kr);
   int dev = 0, optin = 0;
@@ -460,7 +465,13 @@ int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, i
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (plan.smem > (size_t)optin) return (int)cudaErrorInvalidValue;  // Python refuses it first
-  const auto kernel = refl ? vec_step_tex_kernel<1, Src> : vec_step_tex_kernel<0, Src>;
+  auto kernel = refl ? vec_step_tex_kernel<1, 1, Src> : vec_step_tex_kernel<1, 0, Src>;
+  if (spp == 4) {  // the step's loop; the render backward launches a subsample at spp 1
+    if constexpr (Src::casts_shadows)
+      kernel = refl ? vec_step_tex_kernel<4, 1, Src> : vec_step_tex_kernel<4, 0, Src>;
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   return launch_vec_instance(kernel, 1, glob, sph, rct, n_sph, n_rect, pad16(n_sph),
                              pad16(n_rect), make_env_glayout(n_light, ke), plan, p, src, scratch,
                              out, stream, tg);
@@ -468,21 +479,29 @@ int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, i
 
 // The instance of the call, on one stream; out = [sq, dglob, dsph, drct]. p
 // gives the image, the flags and a subsample's offsets; spp is 1 or 4 (the
-// 2x2 loop in the kernel, p's offsets 0) without a bounce or an environment
-// map; refl 0 or 1 bounce levels and an environment map of side ke (0 for
-// none) at spp 1.
+// 2x2 loop in the kernel, p's offsets 0), with refl 0 or 1 bounce levels and
+// an environment map of side ke (0 for none).
 template <class Src>
 int launch_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
                     int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p, int spp,
                     Src src, float* scratch, float* out, void* stream, int refl = 0,
                     int ke = 0) {
-  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || ke < 0 ||
-      ((refl || ke) && spp != 1))
+  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || ke < 0)
     return (int)cudaErrorInvalidValue;
   if (refl || ke) {
-    const auto launch = refl ? (ke ? &launch_vec_levels<1, true, Src>
-                                   : &launch_vec_levels<1, false, Src>)
-                             : &launch_vec_levels<0, true, Src>;
+    auto launch = refl ? (ke ? &launch_vec_levels<1, 1, true, Src>
+                             : &launch_vec_levels<1, 1, false, Src>)
+                       : &launch_vec_levels<1, 0, true, Src>;
+    if (spp == 4) {
+      // only the step loops over the subsamples; the render backward is
+      // launched once a subsample at spp 1
+      if constexpr (Src::casts_shadows)
+        launch = refl ? (ke ? &launch_vec_levels<4, 1, true, Src>
+                            : &launch_vec_levels<4, 1, false, Src>)
+                      : &launch_vec_levels<4, 0, true, Src>;
+      else
+        return (int)cudaErrorInvalidValue;
+    }
     return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, src, scratch,
                   out, stream);
   }

@@ -30,27 +30,29 @@ The scene enters the kernels as one flat float32 vector in the leaf
 order of `models.scene.tree_leaves` (`flatten_scene`); the kernels find
 each leaf from the object and light counts alone (`flat_offsets`).
 
-One mirror bounce (``cfg.reflections == 1``, spp 1) is the TPU kernels'
-trace of `shade`'s bounce recursion: each kernel has an instance with a
-second level (REFL), traced from the shadow origin along the reflected
-direction where the primary ray hit, blended unclipped by the winner's
-mirror coefficient; the forward writes 2 L planes, bounce-major. The eager
-twins run the same levels (`forward_terms`, `_adjoint`). Two levels, and
-spp 4 with a bounce, are refused by name (`uncovered`).
+One mirror bounce (``cfg.reflections == 1``) is the TPU kernels' trace of
+`shade`'s bounce recursion: each kernel has an instance with a second level
+(REFL), traced from the shadow origin along the reflected direction where
+the primary ray hit, blended unclipped by the winner's mirror coefficient;
+the forward writes 2 L planes a subsample, bounce-major. The eager twins run
+the same levels (`forward_terms`, `_adjoint`). Two levels are refused by
+name (`uncovered`).
 
-spp 4 (2x2 supersampling) is the TPU kernels' loop inside each kernel: a
-pixel is the average of four clipped subsamples at quarter-pixel offsets
-(`pipeline.SPP_OFFSETS`), summed in that order and times 0.25, as
-`render_tile` sums them. The forward writes each subsample's planes; the
-step's residual is of the average, so it runs the four forwards before
-the adjoints (`subsample_adjoint` is its eager twin); the render backward
-gives each subsample a quarter of the average's cotangent.
+spp 4 (2x2 supersampling) is the TPU kernels' loop inside each kernel,
+with a bounce and with texel grids too: a pixel is the average of four
+clipped subsamples at quarter-pixel offsets (`pipeline.SPP_OFFSETS`), summed
+in that order and times 0.25, as `render_tile` sums them. The forward writes
+each subsample's (1 + R) L planes in turn; the step's residual is of the
+average, so it runs the four forwards before the adjoints, keeping each
+subsample's shadow bits of both levels (`subsample_adjoint` is its eager
+twin); the render backward gives each subsample a quarter of the average's
+cotangent and its own planes.
 
-Object textures and the environment map (spp 1; the env with one bounce,
-not object textures with one, as in the JAX package's fused.py:191-197)
-are each kernel's textured instance (TEX): the texel grids ride in the
-flat scene (`flat_offsets`), the winner's base colour is its grid's
-bilinear sample and a missed ray's colour the environment's
+Object textures and the environment map (spp 1 or 4; the env with one
+bounce, not object textures with one, as in the JAX package's
+fused.py:191-197) are each kernel's textured instance (TEX): the texel
+grids ride in the flat scene (`flat_offsets`), the winner's base colour is
+its grid's bilinear sample and a missed ray's colour the environment's
 (`pipeline.sample_texture`, `pipeline.sphere_uv`), and the adjoint
 scatters each hit's four corners into its texels and carries the weights'
 gradient through the hit's coordinates (`grid_adjoint`, `uv_adjoint`).
@@ -113,19 +115,19 @@ MAX_BLOCK_SMEM = 232448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, clip
 
-# Each kernel's entry takes the spp (1 or 4) and the bounce levels (0 or 1,
-# at spp 1) after the geometry; the entries without them are spp 1 or the
-# given spp without a bounce, for tools/ and for checkouts from before them.
-# The textured instances (spp 1, bounce levels 0 or 1) take the texel grids'
-# sides after the bounce levels: spheres', rects' and the environment's, 0 for
-# none (`texel_sizes`).
+# Each kernel's entry takes the spp (1 or 4) and the bounce levels (0 or 1)
+# after the geometry; the entries without them are spp 1 or the given spp
+# without a bounce, for tools/ and for checkouts from before them. The
+# textured instances (``_tex``) take the bounce levels, the spp (in the
+# ``_band`` entries; the whole image's are spp 1) and the texel grids' sides:
+# spheres', rects' and the environment's, 0 for none (`texel_sizes`).
 _TEX = [_I, _I, _I]
 # The wrappers call the ``_band`` entries alone: the band's first image row
 # and the image's height after the geometry, whose H is the band's rows; the
 # others are the whole image, for tools/ and for checkouts from before them.
 _BAND = [_I, _I]  # row0, image_h
 FUSED_RENDER = Kernel("fused_render", {
-    "rrt_render_tex_band": ([_P, *_GEOM, *_BAND, _I, *_TEX, _P, _P, _P], _I),
+    "rrt_render_tex_band": ([_P, *_GEOM, *_BAND, _I, _I, *_TEX, _P, _P, _P], _I),
     "rrt_render_refl_band": ([_P, *_GEOM, *_BAND, _I, _I, _P, _P, _P], _I),
     "rrt_render_tex": ([_P, *_GEOM, _I, *_TEX, _P, _P, _P], _I),
     "rrt_render_refl": ([_P, *_GEOM, _I, _I, _P, _P, _P], _I),
@@ -133,7 +135,7 @@ FUSED_RENDER = Kernel("fused_render", {
     "rrt_render": ([_P, *_GEOM, _P, _P, _P], _I),
 })
 FUSED_STEP = Kernel("fused_step", {
-    "rrt_step_tex_band": ([_P, *_GEOM, *_BAND, _I, *_TEX, _P, _F, _P, _P, _P], _I),
+    "rrt_step_tex_band": ([_P, *_GEOM, *_BAND, _I, _I, *_TEX, _P, _F, _P, _P, _P], _I),
     "rrt_step_refl_band": ([_P, *_GEOM, *_BAND, _I, _I, _P, _F, _P, _P, _P], _I),
     "rrt_step_tex": ([_P, *_GEOM, _I, *_TEX, _P, _F, _P, _P, _P], _I),
     "rrt_step_tex_scratch_floats": ([_I, _I, _I, _I, _I, *_TEX], ctypes.c_longlong),
@@ -143,7 +145,7 @@ FUSED_STEP = Kernel("fused_step", {
     "rrt_step_scratch_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 })
 FUSED_RENDER_BWD = Kernel("fused_render_bwd", {
-    "rrt_render_bwd_tex_band": ([_P, *_GEOM, *_BAND, _I, *_TEX, _P, _P, _P, _P, _P], _I),
+    "rrt_render_bwd_tex_band": ([_P, *_GEOM, *_BAND, _I, _I, *_TEX, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_refl_band": ([_P, *_GEOM, *_BAND, _I, _I, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_tex": ([_P, *_GEOM, _I, *_TEX, _P, _P, _P, _P, _P], _I),
     "rrt_render_bwd_tex_scratch_floats": ([_I, _I, _I, _I, _I, *_TEX], ctypes.c_longlong),
@@ -233,19 +235,19 @@ def step_smem_bytes(n_sph: int, n_rect: int, n_light: int, ks: int = 0, kr: int 
 
 def uncovered(scene, cfg: RenderConfig, texels: bool = False, env: bool = False):
     """What the kernels do not cover (a reason), or None: with ``texels``
-    the unrolled family's (object textures and the environment map at spp 1,
-    the environment with a bounce), with ``env`` the object-chunked family's
-    (object textures and the environment map at spp 1, either with a bounce;
+    the unrolled family's (object textures and the environment map, the
+    environment with a bounce), with ``env`` the object-chunked family's
+    (object textures and the environment map, either with a bounce;
     `fused_vec.check_vec_kernel_config` adds the shared memory of object
-    texel grids), else every family's (no texel grid)."""
+    texel grids), else every family's (no texel grid); each at spp 1 and 4,
+    with or without one bounce level. The spp changes no block's shared
+    memory (`step_smem_bytes`)."""
     if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
         return "soft_tau/checker_tau"
     if cfg.spp not in SPP_OFFSETS:
         return f"spp={cfg.spp} (spp is 1 or 4)"
     if cfg.reflections > 1:
         return "reflections > 1 (one bounce level is ported)"
-    if cfg.reflections and cfg.spp != 1:
-        return "spp 4 with mirror reflections"
     if cfg.shader != "phong":
         return f"the {cfg.shader} shader"
     if cfg.projection != "perspective":
@@ -258,15 +260,9 @@ def uncovered(scene, cfg: RenderConfig, texels: bool = False, env: bool = False)
             return "object textures"
         if scene.env_mapped and not env:
             return "environment maps"
-        if objects and cfg.spp != 1:
-            return "spp 4 with a texel grid (object textures)"
-        if scene.env_mapped and cfg.spp != 1:
-            return "spp 4 with an environment map"
         return None
     if not scene_textured(scene):
         return None
-    if cfg.spp != 1:
-        return "spp 4 with a texel grid (object textures or an environment map)"
     if objects and cfg.reflections:
         return ("object textures with mirror reflections (the JAX package's kernels refuse "
                 "that pair too, fused.py:191-197)")
@@ -304,11 +300,11 @@ def instance(scene_like, cfg: RenderConfig):
     """The kernels' instance the wrappers launch: (the suffix of its C
     entries, their arguments after the geometry, the suffix of its scratch
     entries, their arguments after the image size). The textured instances
-    (``_tex``) take the bounce levels and the grids' sides, the others
-    (``_refl``) the spp and the bounce levels."""
+    (``_tex``) take the bounce levels, the spp and the grids' sides, the
+    others (``_refl``) the spp and the bounce levels."""
     if scene_textured(scene_like):
         tex = texel_sizes(scene_like)
-        return "_tex", (cfg.reflections, *tex), "_tex", tex
+        return "_tex", (cfg.reflections, cfg.spp, *tex), "_tex", tex
     return "_refl", (cfg.spp, cfg.reflections), "", ()
 
 
@@ -388,12 +384,14 @@ def render_fused(scene, cfg: RenderConfig, row0=0, out_height: int | None = None
     return _FusedRender.apply(scene, cfg, *tree_leaves(scene))
 
 
-def level_hits(scene, cfg: RenderConfig):
-    """Per bounce level, the (H, W) pixels whose ray hit an object at spp 1:
-    level 0's primary rays, and with a bounce level 1's reflected rays where
-    level 0 hit too: where the forward kernel's planes of that level are the
-    plain version's (elsewhere the kernel's are 0)."""
-    o, d = primary_rays(scene, cfg)
+def level_hits(scene, cfg: RenderConfig, off=(0.0, 0.0)):
+    """Per bounce level, the (H, W) pixels whose ray at the subsample offset
+    ``off`` (`pipeline.SPP_OFFSETS`; the pixel centre at spp 1) hit an
+    object: level 0's primary rays, and with a bounce level 1's reflected
+    rays where level 0 hit too: where the forward kernel's planes of that
+    level and subsample are the plain version's (elsewhere the kernel's are
+    0)."""
+    o, d = primary_rays(scene, cfg, off)
     t, hit, at = trace_nearest(scene, o, d, cfg.shape)
     hits = [hit]
     if cfg.reflections:
@@ -1150,13 +1148,14 @@ def subsample_adjoint(scene, cfg, nearest, cotangent, visibility_at, nearest1=No
     offsets = SPP_OFFSETS[cfg.spp]
     if len(offsets) == 1:
         return _adjoint(scene, cfg, nearest, cotangent, visibility_at(0), nearest1=nearest1)
-    imgs = [forward_terms(scene, cfg, nearest, visibility_at(q), off).img
+    imgs = [forward_terms(scene, cfg, nearest, visibility_at(q), off, nearest1).img
             for q, off in enumerate(offsets)]
     g, sq = cotangent(subsample_average(imgs))
     g = vm.vscale(g, 1.0 / len(offsets))
     grads = None
     for q, off in enumerate(offsets):
-        _, gq = _adjoint(scene, cfg, nearest, lambda img: (g, 0.0), visibility_at(q), off)
+        _, gq = _adjoint(scene, cfg, nearest, lambda img: (g, 0.0), visibility_at(q), off,
+                         nearest1)
         grads = gq if grads is None else tree_map(torch.add, grads, gq)
     return sq, grads
 

@@ -43,9 +43,9 @@ only, number the rects from the padded sphere count in winner-index space,
 and leave the gradient of every pad row exactly zero. The step's gradient
 comes back through the transpose of the packing (`unpack_grads`).
 
-Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects.
-At spp 1 also object texel grids, with or without the environment map and
-one bounce (the TPU kernels' texel tails, ``_tex_nest`` at fused_vec.py:207
+Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects;
+and at either spp object texel grids, with or without the environment map
+and one bounce (the TPU kernels' texel tails, ``_tex_nest`` at fused_vec.py:207
 and the samples of ``_sphere_eval`` / ``_rect_eval`` at :467-471 and :503):
 the grids are not in the rows but read apart (`pack_texels`), a textured
 winner's base colour at either level is its grid's bilinear sample, gathered
@@ -53,7 +53,7 @@ winner's base colour at either level is its grid's bilinear sample, gathered
 exists because Mosaic cannot gather, and is not carried over), and the step
 and the render backward end their output with the grids' gradient (the
 ``_tex`` entries; `texel_step_smem_bytes` refuses grids whose gradient row
-does not fit a block's shared memory). And at spp 1
+does not fit a block's shared memory). And at either spp
 the environment map and one mirror bounce, together or apart (the TPU
 kernels' env global, globals_tree at fused_vec.py:405, and their reflection
 levels, :907-946 and :1015-1054): the env ends the globals (`globals_offsets`)
@@ -65,13 +65,14 @@ rays of level 1 keep their per-warp cull), blends col0 + m (col1 - col0) by
 the winner's mirror coefficient and clips once; the forward writes 2 L
 planes, bounce-major. Each such combination is its own instance of each
 kernel (the ``_levels`` entries), so the others keep their code. spp 4 as the
-TPU kernels run it: the forward and the render backward are launched once per
-subsample at its offsets (`pipeline.SPP_OFFSETS`; fused_vec.py:1443-1481),
-the image is the average of the four (`fused.subsample_average`) formed in
-torch, through which autograd gives each backward launch a quarter of the
-cotangent, and the planes are the four launches' in order; the step runs
-the 2x2 loop in the kernel (fused_vec.py:997-1006), its residual of the
-average. On a CPU
+TPU kernels run it, in every instance: the forward and the render backward
+are launched once per subsample at its offsets (`pipeline.SPP_OFFSETS`;
+fused_vec.py:1443-1481), the image is the average of the four
+(`fused.subsample_average`) formed in torch, through which autograd gives
+each backward launch a quarter of the cotangent, and the planes are the four
+launches' in order ((1 + R) L each); the step runs the 2x2 loop in the
+kernel (fused_vec.py:997-1006, with a bounce :772-780), its residual of the
+average (the textured step's ``_tex_band`` entry too). On a CPU
 tensor each wrapper runs its plain version; on a CUDA tensor it launches its
 kernel or raises. The step (gradient rows of the padded packing) and the
 render backward deliver their gradients alike, through `unpack_grads`.
@@ -116,7 +117,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I] * 9
 
 # The wrappers call the ``_levels`` entries alone: after the geometry a
-# subsample's (row, column) offset (rows 4-5) or the spp (row 6), then the
+# subsample's (row, column) offset (rows 4-5) or the spp (row 6, which takes
+# spp 4 in every instance; its textured ``_tex_band`` entry too), then the
 # bounce levels (0 or 1) and the environment map's side (0 for none). At 0
 # and 0 they launch the instances of the older entries, which stay only for
 # tools/flat_ab.py's and tools/vec_step_split.py's builds of checkouts from
@@ -146,8 +148,8 @@ VEC_RENDER = Kernel("fused_vec_render", {
     "rrt_smem_optin": ([], ctypes.c_longlong),
 })
 VEC_STEP = Kernel("fused_vec_step", {
-    "rrt_vec_step_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, *_LV, *_KS, _P, _F, _P, _P, _P],
-                              _I),
+    "rrt_vec_step_tex_band": ([_P, _P, _P, *_TX, *_GEOM, *_BAND, _I, *_LV, *_KS, _P, _F, _P, _P,
+                               _P], _I),
     "rrt_vec_step_levels_band": ([_P, _P, _P, *_GEOM, *_BAND, _I, *_LV, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_tex": ([_P, _P, _P, *_TX, *_GEOM, *_LV, *_KS, _P, _F, _P, _P, _P], _I),
     "rrt_vec_step_tex_scratch_floats": ([_I] * 8, ctypes.c_longlong),
@@ -322,11 +324,10 @@ def unpack_grads(scene_like, dglob, dsph, drct, dtex=None):
 
 def check_vec_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for what the three vec kernels do not
-    cover: spp 4 with a bounce or a texel grid (object textures or an
-    environment map), two or more bounces, object texel grids whose
-    gradient row does not fit a block's shared memory
-    (`texel_step_smem_bytes`); any object count is covered, and at spp 1
-    object textures, the environment map and one bounce level."""
+    cover: two or more bounces, object texel grids whose gradient row does
+    not fit a block's shared memory (`texel_step_smem_bytes`, the same at
+    spp 1 and 4); any object count is covered, and at spp 1 and 4 object
+    textures, the environment map and one bounce level."""
     why = fused.uncovered(scene, cfg, env=True)
     if why is None and object_textured(scene):
         need = texel_step_smem_bytes(scene)
@@ -488,13 +489,14 @@ def render_vec(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
     return fused.subsample_average([img for img, _ in outs]), torch.cat([v for _, v in outs])
 
 
-def level_hits(scene, cfg: RenderConfig):
-    """Per bounce level, the (H, W) pixels whose ray hit an object at spp 1
-    (`fused.level_hits` by the object-vectorized trace): level 0's primary
-    rays, and with a bounce level 1's reflected rays where level 0 hit too:
-    where the forward kernel's planes of that level are the plain version's
-    (elsewhere the kernel's are 0)."""
-    o, d = primary_rays(scene, cfg)
+def level_hits(scene, cfg: RenderConfig, off=(0.0, 0.0)):
+    """Per bounce level, the (H, W) pixels whose ray at the subsample offset
+    ``off`` hit an object (`fused.level_hits` by the object-vectorized
+    trace): level 0's primary rays, and with a bounce level 1's reflected
+    rays where level 0 hit too: where the forward kernel's planes of that
+    level and subsample are the plain version's (elsewhere the kernel's are
+    0)."""
+    o, d = primary_rays(scene, cfg, off)
     t, k = nearest_vec(scene, o, d)
     hits = [k >= 0]
     if cfg.reflections:
@@ -637,9 +639,9 @@ def loss_grad_vec(scene, cfg: RenderConfig, target, loss: str = "mse", row0=0,
         stex, rtex = texel_inputs(scene)
         scratch = fused._scratch(VEC_STEP, "rrt_vec_step_tex_scratch_floats",
                                  (geom[0], geom[1], *geom[4:7], *tl[1:]), dev)
-        VEC_STEP.call("rrt_vec_step_tex_band", *ptrs, stex.data_ptr(), rtex.data_ptr(), *geom,
-                      *fused.band_args(cfg), *tl, target.data_ptr(), w, scratch.data_ptr(),
-                      out.data_ptr(), fused._stream(dev))
+        VEC_STEP.call("rrt_vec_step_tex_band", *ptrs, stex.data_ptr(), rtex.data_ptr(),
+                      *geom, *fused.band_args(cfg), cfg.spp, *tl, target.data_ptr(), w,
+                      scratch.data_ptr(), out.data_ptr(), fused._stream(dev))
     else:
         check_smem(VEC_STEP, "rrt_vec_step_levels_smem", scene, ke)
         scratch = fused._scratch(VEC_STEP, "rrt_vec_step_levels_scratch_floats",

@@ -53,8 +53,8 @@ the wrapper launches the checker instance where ``checker_tau > 0`` and the
 other where it is 0, which keeps the hard select's code, bits and time (the
 TPU kernels' runtime select, fused_vec.py:523-538).
 
-Object texel grids and the environment map (spp 1, the hard checker; the
-TPU kernels' texel tails and env global, fused_vec_soft.py:382-443 and
+Object texel grids and the environment map (the hard checker; the TPU
+kernels' texel tails and env global, fused_vec_soft.py:382-443 and
 :458-492): each kernel has a texel instance (the ``_tex`` entries) beside
 the other two. Each layer's textured winner's base colour is its own grid's
 bilinear sample at `pipeline.sphere_uv` of its normal (p - c) / r at the
@@ -67,8 +67,10 @@ into a block texel row in shared memory that ends each block's partial row
 (`soft_step_plan`: with the 64 globes' grids it leaves 10 prefix slots a
 lane of the 32 the untextured step has). The step then walks the image's
 tiles from a grid of one block an SM, as rows 5-6's textured instances do.
-A grid whose gradient does not fit a block, spp 4 and the soft checker
-with a grid are refused by name (`soft_uncovered`).
+The render takes them at spp 1 and 4 (four launches at the offsets, as
+without a grid), the step at spp 1. A grid whose gradient does not fit a
+block and the soft checker with a grid are refused by name
+(`soft_uncovered`).
 
 The scene enters as `fused_vec`'s packed rows (globals, sphere and rect
 rows padded to 16, rects numbered from the padded sphere count). Covered:
@@ -232,9 +234,6 @@ def soft_uncovered(scene, cfg: RenderConfig, step: bool = False):
         return f"more than {fused.MAX_LIGHTS} lights"
     if not scene_textured(scene):
         return None
-    if cfg.spp != 1:
-        return ("spp 4 with a texel grid (object textures or an environment map): the soft "
-                "kernels' texel instances are spp 1")
     if cfg.checker_tau > 0.0:
         return ("the soft checker (checker_tau > 0) with a texel grid (object textures or an "
                 "environment map): the soft kernels' texel instances take the hard checker")

@@ -369,9 +369,12 @@ def make_batched_step(mesh: SceneRayMesh, rcfg: RenderConfig, spec: ParamSpec,
     with the other scenes', into one buffer and one all-reduce over this
     row's rays group (scenes never meet); each scene then takes the flat
     Adam update of its own gradient (adam, lr_scales, lr, as the JAX
-    package's optax chain), and ``grad_norm`` is that of this rank's
-    scenes' gradients together. The step runs eagerly: the batch's loop
-    over scenes is short and is not captured."""
+    package's optax chain), and ``grad_norm`` is that of the whole batch's
+    gradients together (the JAX package's ``optax.global_norm`` over the
+    batch): the squared norms of this rank's scenes summed, then one scalar
+    all-reduce over every rank, divided by the rays ranks (each rank of a row
+    holds its row's sums), before the root. The step runs eagerly: the
+    batch's loop over scenes is short and is not captured."""
     rays = mesh.rays
     band = rays.band_rows(rcfg)
     sums = _local_sums(rays, rcfg, band, ocfg.loss, impl)
@@ -404,6 +407,10 @@ def make_batched_step(mesh: SceneRayMesh, rcfg: RenderConfig, spec: ParamSpec,
             outs.append(s2)
             states.append(st2)
             sq = sq + gnorm * gnorm
+        if dist.is_initialized() and mesh.batch_ranks > 1:  # the other rows' scenes
+            sq = sq.reshape(1)
+            dist.all_reduce(sq)
+            sq = sq[0] / rays.ranks
         state = {k: torch.stack([st[k] for st in states]) for k in states[0]}
         return stack_scenes(outs), state, torch.stack(losses), torch.sqrt(sq)
 

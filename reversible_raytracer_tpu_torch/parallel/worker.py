@@ -14,8 +14,14 @@ scene (`shard.render_sharded`) and gathers the image
 the gathered image, the per-step losses, every rank's final scene as one
 flat float32 row (``final_flat``, rank-major), whether those rows are
 bit-identical (``scenes_equal``), the world size and the wall seconds of
-the steps (``wall_s``, captures included). Every rank prints one JSON line
-(with each kernel's launches in this process).
+the steps (``wall_s``, captures included). It then takes one step of a
+batch of B = max(2, N) inversions over the ranks (`shard.make_batched_step`
+on `shard.make_scene_ray_mesh(B, 1)`: a scene a rank, both on one rank)
+from the scene perturbed with seeds 0 .. B - 1 (scale 0.05) against the
+same image, and rank 0 also writes their losses (``batched_losses``, in
+scene order) and the step's grad norm, that of the whole batch
+(``batched_grad_norm``). Every rank prints one JSON line (with each
+kernel's launches in this process, the batched step's included).
 """
 
 from __future__ import annotations
@@ -76,10 +82,18 @@ def main(argv=None) -> int:
         equal = bool(all(np.array_equal(finals[0].view(np.uint32), f.view(np.uint32))
                          for f in finals))
         la = losses.cpu().numpy()
+        batch = max(2, args.num_processes)
+        starts = [configs.perturb(scene, spec, scale=0.05, seed=s) for s in range(batch)]
+        bstep, binit = shard.make_batched_step(shard.make_scene_ray_mesh(batch, 1), cfg, spec,
+                                               ocfg)
+        bs, bstate, brows = binit(shard.stack_scenes(starts), torch.stack([target] * batch))
+        _, _, blosses, bnorm = bstep(bs, bstate, brows)
+        blosses = distributed.all_gather_rows(blosses[None]).reshape(-1)
         if distributed.is_primary():
             os.makedirs(args.outdir, exist_ok=True)
             np.savez(os.path.join(args.outdir, "worker.npz"), image=image, losses=la,
-                     final_flat=finals, scenes_equal=equal, world=mesh.ranks, wall_s=wall)
+                     final_flat=finals, scenes_equal=equal, world=mesh.ranks, wall_s=wall,
+                     batched_losses=blosses, batched_grad_norm=float(bnorm))
         print(json.dumps({"rank": distributed.rank(), "world": mesh.ranks,
                           "backend": dist.get_backend(), "device": str(dev),
                           "loss0": float(la[0]), "loss": float(la[-1]), "wall_s": wall,

@@ -108,14 +108,17 @@ def test_anneal_stage_decisions():
 
     assert resolve_impl(card(), soft) == "cuda_vec_soft"
     assert resolve_impl(card(), hard) == "cuda_vec"
-    # object textures past 24 objects take the hard object-chunked kernels at
-    # spp 1 and the soft kernels' texel instances; both refuse them at spp 4,
-    # and the soft kernels refuse the globes' grids beside a sky (their
-    # gradient does not fit a block)
+    # object textures past 24 objects take the hard object-chunked kernels and
+    # the soft kernels' texel instances, at spp 1 and 4 (a spp-4 soft stage
+    # steps by autograd of the render); two bounces stay refused, and the soft
+    # kernels refuse the globes' grids beside a sky (their gradient does not
+    # fit a block)
     assert resolve_impl(card(textured=True), soft) == "cuda_vec_soft"
     assert resolve_impl(card(env=True), soft) == "cuda_vec_soft"
-    for bad, cfg in ((card(textured=True), dataclasses.replace(soft, spp=4)),
-                     (card(textured=True), dataclasses.replace(hard, spp=4)),
+    assert resolve_impl(card(textured=True), dataclasses.replace(soft, spp=4)) == "cuda_vec_soft"
+    assert not optim.anneal_stage_uses_step("cuda_vec_soft", 4)
+    assert resolve_impl(card(textured=True), dataclasses.replace(hard, spp=4)) == "cuda_vec"
+    for bad, cfg in ((card(textured=True), dataclasses.replace(hard, spp=4, reflections=2)),
                      (card(textured=True, env=True), soft)):
         with pytest.raises(NotImplementedError):
             resolve_impl(bad, cfg)

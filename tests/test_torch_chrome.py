@@ -22,8 +22,8 @@ against the JAX package.
   shadow, every leaf within 1e-2 of its scale;
 - the packed globals with the env last, and the transpose of the packing;
 - the routes: the object-chunked kernels take the env and one bounce at spp
-  1, and refuse spp 4 with object textures, spp 4 with a bounce and two
-  bounces by name;
+  1 and 4, and refuse two bounces by name, at either spp and with object
+  textures too;
 - the CLI: `invert --config 10` on the CPU.
 
 One compiled JAX function (both renders and the bounce's vjp, at XLA's
@@ -241,11 +241,12 @@ def test_routes_take_env_and_bounce():
 
 
 @pytest.mark.parametrize("what, kw, why", [
-    # object textures (spp 1, up to one bounce) are covered: this case holds
-    # the refusal that remains, spp 4 with a texel grid (its id kept)
-    pytest.param("textures", dict(spp=4, reflections=0), "spp 4 with a texel grid",
+    # object textures (spp 1 and 4, up to one bounce) are covered: this case
+    # holds the refusal that remains beside them, two bounces (its id kept)
+    pytest.param("textures", dict(spp=4, reflections=2), "reflections > 1",
                  id="textures-kw0-object textures"),
-    ("spp4", dict(spp=4), "spp 4 with mirror reflections"),
+    # spp 4 with the env and a bounce is covered: two bounces at spp 4 stay refused
+    ("spp4", dict(spp=4, reflections=2), "reflections > 1"),
     ("two_bounces", dict(reflections=2), "reflections > 1"),
 ])
 def test_vec_kernels_refuse_by_name(what, kw, why):
@@ -256,9 +257,9 @@ def test_vec_kernels_refuse_by_name(what, kw, why):
             ts.rects, texture=torch.full((1, 4, 4, 3), 0.5)))
     with pytest.raises(NotImplementedError, match=why):
         fused_vec.check_vec_kernel_config(ts, cfg)
-    if what == "spp4":
-        with pytest.raises(NotImplementedError, match="spp 4 with an environment map"):
-            fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, reflections=0))
+    if what == "spp4":  # the env at spp 4, with its bounce and without
+        for refl in (0, 1):
+            fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, reflections=refl))
 
 
 def test_cli_invert_config10_on_cpu():

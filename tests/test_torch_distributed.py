@@ -4,7 +4,9 @@ of a localhost group (a free port, a timeout on each process), config 2 at
 the bit; the two ranks end on bit-identical scenes; rank 0's stepped scene
 is the single-process 2-band step's (`make_sharded_step` on
 `make_ray_mesh(2)`, no process group) within 1e-6 of each leaf's scale.
-Imports no JAX itself."""
+Then the worker's batched step (two scenes, one a rank): its losses
+and its grad norm, the whole batch's, are the single-process batched
+step's of both scenes within 1e-6 relative. Imports no JAX itself."""
 
 import os
 import socket
@@ -20,7 +22,13 @@ from reversible_raytracer_tpu_torch.models import configs
 from reversible_raytracer_tpu_torch.models.scene import tree_leaves
 from reversible_raytracer_tpu_torch.ops.render import render
 from reversible_raytracer_tpu_torch.optim import OptConfig
-from reversible_raytracer_tpu_torch.parallel import make_ray_mesh, make_sharded_step
+from reversible_raytracer_tpu_torch.parallel import (
+    make_batched_step,
+    make_ray_mesh,
+    make_scene_ray_mesh,
+    make_sharded_step,
+    stack_scenes,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 SIZE, ITERS = 32, 3
@@ -82,3 +90,12 @@ def test_two_gloo_ranks_match_one_process(tmp_path):
         off += n
     assert off == got["final_flat"].shape[1]
     assert got["losses"][-1] < got["losses"][0]
+
+    # the batched step: the whole batch's grad norm over the two ranks
+    ocfg = OptConfig(iters=ITERS, lr=1e-2)
+    bstep, binit = make_batched_step(make_scene_ray_mesh(2, 1), cfg, spec, ocfg)
+    starts = [configs.perturb(scene, spec, scale=0.05, seed=s) for s in (0, 1)]
+    bs, bstate, brows = binit(stack_scenes(starts), torch.stack([image, image]))
+    _, _, blosses, bnorm = bstep(bs, bstate, brows)
+    np.testing.assert_allclose(got["batched_losses"], blosses.numpy(), rtol=1e-6)
+    assert abs(float(got["batched_grad_norm"]) - float(bnorm)) <= 1e-6 * float(bnorm)

@@ -230,25 +230,29 @@ def test_cuda_route_refuses_by_name():
     assert resolve_impl(ts, cfg) == "eager"
     assert fused.uncovered(ts, cfg, texels=True) is None
     assert fused.uncovered(ts, cfg) == "environment maps"
-    for kw, why in ((dict(spp=4, reflections=0), "spp 4 with a texel grid"),
-                    (dict(reflections=2), "reflections > 1")):
-        assert why in fused.uncovered(ts, dataclasses.replace(cfg, **kw), texels=True)
-    # past 24 objects the object-chunked kernels take the env, at spp 1 only
-    for refl in (0, 1):
-        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, reflections=refl))
-    with pytest.raises(NotImplementedError, match="spp 4 with an environment map"):
-        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4, reflections=0))
+    for kw in (dict(reflections=2), dict(spp=4, reflections=2)):
+        assert "reflections > 1" in fused.uncovered(ts, dataclasses.replace(cfg, **kw),
+                                                    texels=True)
+    # the env with and without its bounce at spp 1 and 4, in both hard families
+    # (past 24 objects the object-chunked kernels)
+    for spp in (1, 4):
+        for refl in (0, 1):
+            both = dataclasses.replace(cfg, spp=spp, reflections=refl)
+            assert fused.uncovered(ts, both, texels=True) is None
+            fused_vec.check_vec_kernel_config(ts, both)
     big = configs.config9_sky(16, env_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
-    # the soft kernels take the env at spp 1 without the bounce; the anneal's
+    # the soft kernels take the env without the bounce (the render at spp 4
+    # too, the step at spp 1 only); the anneal's
     # soft stages refuse config 9's bounce by name, as the JAX package does
     from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
     from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_annealed
 
     soft = dataclasses.replace(cfg, soft_tau=0.05, reflections=0)
     fused_vec_soft.check_soft_kernel_config(ts, soft, step=True)
-    with pytest.raises(NotImplementedError, match="spp 4 with a texel grid"):
-        fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, spp=4))
+    fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, spp=4))
+    with pytest.raises(NotImplementedError, match="spp=4 in the soft step"):
+        fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, spp=4), step=True)
     with pytest.raises(NotImplementedError, match="mirror reflections"):
         optimize_annealed(ts, render_eager(ts, cfg), spec, cfg, OptConfig(iters=1),
                           taus=(0.05, 0.0))

@@ -1175,6 +1175,134 @@ def test_spp4_soft_step_is_autograd_of_the_render(cuda):
 
 
 # ---------------------------------------------------------------------------
+# spp 4 with texel grids and with a bounce: rows 1-3 on configs 6, 7 and 9,
+# rows 4-6 on config 10, config 8 with a bounce and the textured globes, rows
+# 7-8 on config 8 at tau 0.08
+# ---------------------------------------------------------------------------
+
+# name: (family, how the case is made)
+SPP4_TEX_CASES = {"config6": "fused", "config7": "fused", "config9": "fused",
+                  "config10": "vec", "config8_r1": "vec", "globes": "vec"}
+SPP4_TEX_SIZE = 32
+
+
+def _spp4_tex_case(cuda, name):
+    """(truth, start, cfg) at spp 4 and SPP4_TEX_SIZE^2: the texels (config 6:
+    the mirror coefficients; config 10: the mirrors and the sky) moved by
+    perturb(scale 0.4, or 0.3 / 0.2 on configs 6 / 10)."""
+    if name == "globes":
+        scene, _, cfg = _globes(cuda, SPP4_TEX_SIZE, 0)
+        spec = configs.ParamSpec.none(scene).train("spheres.texture", lower=0.0, upper=1.0)
+    else:
+        num = int(name[6:].split("_")[0])
+        scene, spec, cfg = configs.CONFIGS[num](size=SPP4_TEX_SIZE, device=cuda)
+        if name.endswith("_r1"):
+            cfg = dataclasses.replace(cfg, reflections=1)
+    scale = {"config6": 0.3, "config10": 0.2}.get(name, 0.4)
+    start = configs.perturb(scene, spec, scale=scale, seed=3)
+    return scene, start, dataclasses.replace(cfg, spp=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPP4_TEX_CASES))
+def test_spp4_texels_forward_matches_plain(cuda, name):
+    """Rows 2 and 4's textured, env and bounce instances at spp 4: the image
+    bit for bit the plain version's; each subsample's planes of each level
+    bit for bit where that level's ray hit at its offset, 0 elsewhere; one
+    launch a call for row 2, four for row 4."""
+    family = SPP4_TEX_CASES[name]
+    _, scene, cfg = _spp4_tex_case(cuda, name)
+    kernel, call, plain = _forward(family)
+    before = kernel.launches
+    img_k, vis_k = call(scene, cfg)
+    assert kernel.launches == before + (1 if family == "fused" else 4)
+    img_p, vis_p = plain(scene, cfg)
+    assert torch.equal(img_k, img_p)
+    L, R = scene.lights.count, cfg.reflections
+    assert vis_k.shape == vis_p.shape == (4 * (1 + R) * L, cfg.height, cfg.width)
+    hits_at = fused.level_hits if family == "fused" else fused_vec.level_hits
+    for q, off in enumerate(pipeline.SPP_OFFSETS[4]):
+        for lv, hit in enumerate(hits_at(scene, cfg, off)):
+            base = q * (1 + R) * L + lv * L
+            k, p = vis_k[base:base + L], vis_p[base:base + L]
+            assert torch.equal(k[:, hit], p[:, hit]) and not k[:, ~hit].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPP4_TEX_CASES))
+def test_spp4_texels_step_matches_adjoint(cuda, name):
+    """Rows 1 and 6's textured, env and bounce instances at spp 4: against
+    the eager twin and autograd, the loss within 1e-4 relative and every
+    leaf within 1e-2 of its scale; one launch a call; against the forward
+    kernel's own spp-4 image a loss and every gradient of exactly 0."""
+    family = SPP4_TEX_CASES[name]
+    truth, start, cfg = _spp4_tex_case(cuda, name)
+    kernel, step, twin, plain, forward = {
+        "fused": (fused.FUSED_STEP, fused.loss_grad_fused, fused.loss_grad_adjoint_eager,
+                  fused.loss_grad_fused_plain, fused.render_fused),
+        "vec": (fused_vec.VEC_STEP, fused_vec.loss_grad_vec,
+                fused_vec.loss_grad_vec_adjoint_eager, fused_vec.loss_grad_vec_plain,
+                fused_vec.render_vec)}[family]
+    target = forward(truth, cfg)[0].detach()
+    before = kernel.launches
+    l_k, g_k = step(start, cfg, target)
+    assert kernel.launches == before + 1
+    for ref in (twin, plain):
+        l_r, g_r = ref(start, cfg, target)
+        assert abs(float(l_k) - float(l_r)) <= 1e-4 * float(l_r)
+        _close_leaves(g_r, g_k)
+    l_0, g_0 = step(truth, cfg, target)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPP4_TEX_CASES))
+def test_spp4_texels_render_bwd_matches_plain(cuda, name):
+    """Rows 3 and 5's textured, env and bounce instances at spp 4, reached by
+    autograd of `render`: against autograd of the eager render and the eager
+    twin, every leaf within 1e-2 of its scale; one launch a call for row 3,
+    four for row 5."""
+    family = SPP4_TEX_CASES[name]
+    _, start, cfg = _spp4_tex_case(cuda, name)
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    kernel = _bwd_kernel(family)
+    before = kernel.launches
+    got, ref = _bwd_call(family, start, cfg, g)
+    assert kernel.launches == before + (1 if family == "fused" else 4)
+    _close_leaves(ref, got)
+    if family == "fused":
+        twin = fused.render_bwd_adjoint_eager(start, cfg, g, fused.render_fused(start, cfg)[1])
+    else:
+        twin = fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g,
+                                                      fused_vec.render_vec(start, cfg)[1])
+    _close_leaves(twin, got)
+
+
+@pytest.mark.cuda
+def test_spp4_texels_soft_render_matches_plain(cuda):
+    """Rows 7 and 8's texel instances at spp 4 (config 8, tau 0.08): four
+    launches of each a call, the image within 1e-6 of the plain version's,
+    the gradient (autograd of `render`) within 1e-2 of each leaf's scale of
+    the plain render's autograd and of the twin; the soft step refuses spp
+    4 by name."""
+    scene, spec, cfg = configs.config8_globe(size=SPP4_TEX_SIZE, device=cuda)
+    cfg = dataclasses.replace(cfg, spp=4, soft_tau=0.08)
+    start = configs.perturb(scene, spec, scale=0.4, seed=3)
+    before = [k.launches for k in fused_vec_soft.KERNELS]
+    img = fused_vec_soft.render_vec_soft(start, cfg)
+    assert float((img - fused_vec_soft.render_vec_soft_plain(start, cfg)).abs().max()) <= 1e-6
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(cfg.height, cfg.width, 3)).astype(np.float32)).to(cuda)
+    got, ref = _bwd_call("soft", start, cfg, g)
+    assert [k.launches - b for k, b in zip(fused_vec_soft.KERNELS, before)] == [8, 0, 4]
+    _close_leaves(ref, got)
+    _close_leaves(fused_vec_soft.render_vec_soft_bwd_adjoint_eager(start, cfg, g), got)
+    with pytest.raises(NotImplementedError, match="spp=4 in the soft step"):
+        fused_vec_soft.loss_grad_vec_soft(start, cfg, img.detach())
+
+
+# ---------------------------------------------------------------------------
 # One mirror bounce (reflections 1) in rows 1-3: config 6
 # ---------------------------------------------------------------------------
 
@@ -1280,16 +1408,16 @@ def test_mirror_inversion_recovers_the_coefficients(cuda):
 
 @pytest.mark.cuda
 def test_mirror_refusals_on_cuda(cuda):
-    """On CUDA two bounce levels and spp 4 with a bounce raise by name and
-    launch nothing, in both hard families (the object-chunked kernels take
-    one bounce level at spp 1)."""
+    """On CUDA two bounce levels raise by name and launch nothing, at spp 1
+    and 4, in both hard families (which take one bounce level at either
+    spp)."""
     scene, _, cfg = _mirror_case(cuda, 32, 32)
     big, _, cfg5 = configs.config5_many_spheres(size=32, device=cuda)
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS]
     for s, c, why in ((scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
-                      (scene, dataclasses.replace(cfg, spp=4), "spp 4 with mirror reflections"),
-                      (big, dataclasses.replace(cfg5, reflections=1, spp=4),
-                       "spp 4 with mirror reflections")):
+                      (scene, dataclasses.replace(cfg, spp=4, reflections=2), "reflections > 1"),
+                      (big, dataclasses.replace(cfg5, reflections=2, spp=4),
+                       "reflections > 1")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS] == before
@@ -1423,13 +1551,12 @@ def test_texture_inversion_meets_the_jax_criteria(cuda, num, frac):
 @pytest.mark.cuda
 def test_texture_refusals_on_cuda(cuda):
     """On CUDA each combination the textured instances do not take raises by
-    name and launches nothing: spp 4 with a texel grid, at most 24 objects
-    and past 24 (the object-chunked kernels' textured instances are spp 1
-    too), two bounce levels with the environment map, a soft render of a
-    textured scene past 24 objects at spp 4 and of one of at most 24 under
-    the soft checker (the soft kernels' texel instances are spp 1 and take
-    the hard checker), and a grid whose rows do not fit a block's shared
-    memory."""
+    name and launches nothing: two bounce levels with a texel grid at spp 4,
+    at most 24 objects and past 24, two bounce levels with the environment
+    map, the soft step of a textured scene past 24 objects at spp 4 (the
+    soft render takes it) and a soft render of one of at most 24 under the
+    soft checker (the soft kernels' texel instances take the hard checker),
+    and a grid whose rows do not fit a block's shared memory."""
     tex, _, cfg7 = configs.config7_texture(size=32, device=cuda)
     sky, _, cfg9 = configs.config9_sky(size=32, device=cuda)
     big = configs.config9_sky(size=32, env_k=48, device=cuda)[0]
@@ -1437,16 +1564,19 @@ def test_texture_refusals_on_cuda(cuda):
     many = dataclasses.replace(many, rects=dataclasses.replace(
         many.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
-    for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4), "spp 4 with a texel grid"),
-                      (many, dataclasses.replace(cfg5, spp=4), "spp 4 with a texel grid"),
+    for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4, reflections=2), "reflections > 1"),
+                      (many, dataclasses.replace(cfg5, spp=4, reflections=2), "reflections > 1"),
                       (sky, dataclasses.replace(cfg9, reflections=2), "reflections > 1"),
                       (many, dataclasses.replace(cfg5, soft_tau=0.05, spp=4),
-                       "spp 4 with a texel grid"),
+                       "spp=4 in the soft step"),
                       (tex, dataclasses.replace(cfg7, soft_tau=0.05, checker_tau=0.5),
                        "the soft checker"),
                       (big, cfg9, "a texel grid this large")):
         with pytest.raises(NotImplementedError, match=why):
-            render(s, c)
+            if "soft step" in why:
+                fused_vec_soft.loss_grad_vec_soft(s, c, torch.zeros((32, 32, 3), device=cuda))
+            else:
+                render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS
             + fused_vec_soft.KERNELS] == before
 
@@ -1548,17 +1678,15 @@ def test_chrome_render_bwd_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 def test_chrome_refusals_on_cuda(cuda):
-    """Past 24 objects, spp 4 with object textures, with the env or with a
-    bounce, and two bounces raise by name and launch nothing."""
+    """Past 24 objects, two bounces raise by name and launch nothing, at spp
+    1 and 4, with object textures and the env or with the env alone."""
     scene, _, cfg = _chrome_case(cuda, "config10")
     tex = dataclasses.replace(scene, rects=dataclasses.replace(
         scene.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused_vec.KERNELS]
-    for s, c, why in ((tex, dataclasses.replace(cfg, spp=4, reflections=0),
-                       "spp 4 with a texel grid"),
-                      (scene, dataclasses.replace(cfg, spp=4), "spp 4 with mirror reflections"),
-                      (scene, dataclasses.replace(cfg, spp=4, reflections=0),
-                       "spp 4 with an environment map"),
+    for s, c, why in ((tex, dataclasses.replace(cfg, spp=4, reflections=2), "reflections > 1"),
+                      (scene, dataclasses.replace(cfg, spp=4, reflections=2), "reflections > 1"),
+                      (tex, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
                       (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
@@ -1779,16 +1907,16 @@ def test_vec_texture_captured_loop_matches_eager(cuda, refl):
 
 @pytest.mark.cuda
 def test_vec_texture_refusals_on_cuda(cuda):
-    """Object texel grids past 24 objects at spp 4, with two bounces, in a
-    soft render with a bounce, and grids whose gradient row does not fit a
-    block's shared memory (the 64 globes' 16 x 16 grids beside a 16 x 16
-    sky, in rows 4-6 and in the soft step) raise by name and launch
+    """Object texel grids past 24 objects with two bounces at spp 4 and at
+    spp 1, in a soft render with a bounce, and grids whose gradient row does
+    not fit a block's shared memory (the 64 globes' 16 x 16 grids beside a
+    16 x 16 sky, in rows 4-6 and in the soft step) raise by name and launch
     nothing."""
     scene, _, cfg = _globes(cuda, 32, 1)
     big = _globes(cuda, 32, 1, env_k=16)[0]
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
-    for s, c, why in ((scene, dataclasses.replace(cfg, spp=4, reflections=0),
-                       "spp 4 with a texel grid"),
+    for s, c, why in ((scene, dataclasses.replace(cfg, spp=4, reflections=2),
+                       "reflections > 1"),
                       (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
                       (scene, dataclasses.replace(cfg, soft_tau=0.05), "mirror reflections"),
                       (big, cfg, "object texel grids this large"),

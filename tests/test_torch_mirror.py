@@ -17,8 +17,8 @@ coefficient) and config 6 in the port, on the CPU, against the JAX package.
 - the CLI: `render --config 6`, `--reflections 0` overriding config 6, and a
   short `invert --config 6` whose mirror RMS error falls;
 - the refusals by name: reflections with soft_tau or checker_tau; on the
-  CUDA route (`fused.uncovered`) two levels and spp 4 with reflections, and
-  the object-chunked kernels' reflections; `optimize_annealed` with a soft
+  CUDA route (`fused.uncovered`) two levels at spp 1 and 4 (spp 4 with one
+  level is covered), in both hard families; `optimize_annealed` with a soft
   stage;
 - against the JAX package: `loss_grad_adjoint_eager` against the value and
   gradient of the mean squared error of `render_jnp` at R = 1 (48x48, from
@@ -244,10 +244,11 @@ def test_reflections_refused_by_name():
         render_eager(ts, dataclasses.replace(cfg, soft_tau=0.05))
     assert fused.uncovered(ts, cfg) is None
     assert "reflections > 1" in fused.uncovered(ts, dataclasses.replace(cfg, reflections=2))
-    assert fused.uncovered(ts, dataclasses.replace(cfg, spp=4)) == "spp 4 with mirror reflections"
+    assert fused.uncovered(ts, dataclasses.replace(cfg, spp=4)) is None  # spp 4 with the bounce
     fused_vec.check_vec_kernel_config(ts, cfg)  # one bounce level in rows 4-6 too
+    fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4))
     for kw, why in ((dict(reflections=2), "reflections > 1"),
-                    (dict(spp=4), "spp 4 with mirror reflections")):
+                    (dict(spp=4, reflections=2), "reflections > 1")):
         with pytest.raises(NotImplementedError, match=why):
             fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, **kw))
     target = render_eager(ts, cfg)

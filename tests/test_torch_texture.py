@@ -285,25 +285,33 @@ def test_cuda_route_refuses_by_name():
     assert resolve_impl(ts, cfg) == "eager"
     assert fused.uncovered(ts, cfg, texels=True) is None
     assert fused.uncovered(ts, cfg) == "object textures"
-    for kw, why in ((dict(spp=4), "spp 4 with a texel grid"),
-                    (dict(reflections=1), "object textures with mirror reflections")):
-        assert why in fused.uncovered(ts, dataclasses.replace(cfg, **kw), texels=True)
-    with pytest.raises(NotImplementedError, match="spp 4 with a texel grid"):
-        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4))
+    # spp 4 is covered as spp 1 is, in both hard families; a bounce beside
+    # object textures is the unrolled kernels' refusal at either spp
+    spp4 = dataclasses.replace(cfg, spp=4)
+    assert fused.uncovered(ts, spp4, texels=True) is None
+    fused.check_kernel_config(ts, spp4)
+    fused_vec.check_vec_kernel_config(ts, spp4)
+    for kw in (dict(reflections=1), dict(spp=4, reflections=1)):
+        assert "object textures with mirror reflections" in fused.uncovered(
+            ts, dataclasses.replace(cfg, **kw), texels=True)
+    with pytest.raises(NotImplementedError, match="reflections > 1"):
+        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(spp4, reflections=2))
     big = configs.config7_texture(16, tex_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
     assert fused.step_smem_bytes(1, 1, 1, 0, 16, 0) <= fused.MAX_BLOCK_SMEM
-    # the soft kernels take the grid at spp 1 with the hard checker; the
+    # the soft kernels take the grid with the hard checker (the render at spp
+    # 4 too, the step at spp 1 only); the
     # anneal's soft stages refuse a bounce by name, as the JAX package does
     from reversible_raytracer_tpu_torch.ops.kernels import fused_vec_soft
     from reversible_raytracer_tpu_torch.optim import OptConfig, optimize_annealed
 
     soft = dataclasses.replace(cfg, soft_tau=0.05)
     fused_vec_soft.check_soft_kernel_config(ts, soft, step=True)
-    for kw, why in ((dict(spp=4), "spp 4 with a texel grid"),
-                    (dict(checker_tau=0.5), "the soft checker")):
+    fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, spp=4))
+    for kw, step, why in ((dict(spp=4), True, "spp=4 in the soft step"),
+                          (dict(checker_tau=0.5), False, "the soft checker")):
         with pytest.raises(NotImplementedError, match=why):
-            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, **kw))
+            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(soft, **kw), step)
     with pytest.raises(NotImplementedError, match="mirror reflections"):
         optimize_annealed(ts, render_eager(ts, cfg), spec,
                           dataclasses.replace(cfg, reflections=1), OptConfig(iters=1),

@@ -23,8 +23,8 @@ Beside it config 7 (a textured floor) at 32^2 with one bounce.
   bounce's twins are held to float64 autograd above, and its render to
   JAX's);
 - the packing of the texel grids and the transpose of it;
-- the routes: the object-chunked kernels take object textures at spp 1 with
-  0 or 1 bounce (and refuse, by name, spp 4 with a texel grid, two bounces,
+- the routes: the object-chunked kernels take object textures at spp 1 and
+  4 with 0 or 1 bounce (and refuse, by name, two bounces at either spp,
   the soft kernels, and grids whose gradient does not fit a block); object
   textures with a bounce take the object-vectorized family at any count;
 - the CLI: `invert --config 8 --reflections 1` on the CPU.
@@ -279,7 +279,7 @@ def test_routes_take_object_textures(case):
 
 
 @pytest.mark.parametrize("what, kw, why", [
-    ("spp4", dict(spp=4, reflections=0), "spp 4 with a texel grid"),
+    ("spp4_two_bounces", dict(spp=4, reflections=2), "reflections > 1"),
     ("two_bounces", dict(reflections=2), "reflections > 1"),
     ("soft", dict(soft_tau=0.05, reflections=0), "soft_tau"),
 ])
@@ -288,11 +288,13 @@ def test_vec_kernels_refuse_by_name(what, kw, why):
     bad = dataclasses.replace(cfg, **kw)
     with pytest.raises(NotImplementedError, match=why):
         fused_vec.check_vec_kernel_config(ts, bad)
-    if what == "soft":  # the soft kernels take the grids at spp 1, but not the bounce
+    if what == "soft":  # the soft kernels take the grids (the render at spp 4 too), but
+        # not the bounce, nor the soft step at spp 4
         with pytest.raises(NotImplementedError, match="mirror reflections"):
             fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(bad, reflections=1))
-        with pytest.raises(NotImplementedError, match="spp 4 with a texel grid"):
-            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(bad, spp=4))
+        with pytest.raises(NotImplementedError, match="spp=4 in the soft step"):
+            fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(bad, spp=4), True)
+        fused_vec_soft.check_soft_kernel_config(ts, dataclasses.replace(bad, spp=4))
         fused_vec_soft.check_soft_kernel_config(ts, bad)
         with pytest.raises(NotImplementedError, match="mirror reflections"):
             render_eager_vec(ts, dataclasses.replace(bad, reflections=1))

@@ -20,11 +20,16 @@ out. Then it calls each row's entry on the
 same inputs, through the entries both trees have: rows 1-3 at config 2
 512^2 from perturb(scale=0.1, seed=4) against the plain render of the true
 scene, and with their bounce level (rows 1r-3r, the refl entries) at config
-6 512^2 from perturb(scale=0.3, seed=3), rows 4-6 at config 5 1024^2 from
+6 512^2 from perturb(scale=0.3, seed=3), their textured instances (the
+``_tex`` entries, spp 1) at config 7 512^2 (rows 1t-3t, a textured floor)
+and config 9 512^2 (rows 1s-3s, the sky and its bounce) from
+perturb(scale=0.4, seed=0), rows 4-6 at config 5 1024^2 from
 perturb(scale=0.05, seed=4), and with the env and the bounce (rows 4r-6r,
 the ``_levels`` entries) at config 10 512^2 from perturb(scale=0.2,
-seed=10), and a seeded normal cotangent for the backwards (with the
-forward's planes). A row whose entry the other tree lacks is timed in this
+seed=10), their textured instances (the ``_tex`` entries, spp 1) on the 64
+textured globes at 512^2 without and with a bounce (rows 4g-6g, 4h-6h) from
+perturb(scale=0.4, seed=0), and a seeded normal cotangent for the backwards
+(with the forward's planes). A row whose entry the other tree lacks is timed in this
 tree alone. Each row's outputs must be bit for bit the other tree's, and
 each row's device time per call (`kernel_timing.device_ms`, median of 20
 after 3 warm-ups) is taken in turns, other, this, this, other, for
@@ -207,6 +212,23 @@ def main() -> int:
     libs["this"]["fused_render"].rrt_render_refl(
         flat6.data_ptr(), *geom6, 1, 1, torch.empty((H, W, 3), device="cuda").data_ptr(),
         vis6.data_ptr(), stream)
+    # rows 1t-3t / 1s-3s: the textured instances at config 7 / config 9 (the sky,
+    # one bounce level), 512^2
+    tex_flat = {}
+    for tag, num in (("t", 7), ("s", 9)):
+        sc, sp_, cf = configs.CONFIGS[num](size=512, device="cuda")
+        st = configs.perturb(sc, sp_, scale=0.4, seed=0)
+        fl, ge = fused._cuda_flat(st, cf), fused._geometry(st, cf)
+        tl = (cf.reflections, *fused.texel_sizes(st))
+        n_s = max(lib["fused_step"].rrt_step_tex_scratch_floats(*ge[:5], *tl[1:])
+                  for lib in libs.values())
+        vs = torch.empty((fused.n_vis_planes(st, cf), H, W), device="cuda")
+        libs["this"]["fused_render"].rrt_render_tex(
+            fl.data_ptr(), *ge, *tl, torch.empty((H, W, 3), device="cuda").data_ptr(),
+            vs.data_ptr(), stream)
+        tex_flat[tag] = dict(flat=fl, geom=ge, tl=tl, vis=vs,
+                             target=fused.render_fused_plain(sc, cf)[0].contiguous(),
+                             scratch=torch.empty((n_s,), device="cuda"))
     # rows 4-6: config 5 at 1024^2
     scene5, spec5, cfg5 = configs.config5_many_spheres(size=1024, device="cuda")
     start5 = configs.perturb(scene5, spec5, scale=0.05, seed=4)
@@ -233,12 +255,39 @@ def main() -> int:
     n_out10 = 1 + glob10.numel() + sph10.numel() + rct10.numel()
     scratch10 = torch.empty((libs["this"]["fused_vec_step"].rrt_vec_step_levels_scratch_floats(
         *fused_vec._geometry(start10, cfg10)[2:7], lv10[1]),), device="cuda")
+    # rows 4g-6g / 4h-6h: the textured instances on the 64 textured globes at
+    # 512^2, without and with a bounce level
+    import chip_smoke
+
+    tex_vec = {}
+    for tag, refl in (("g", 0), ("h", 1)):
+        sc, sp_, cf = chip_smoke.globes_case(512, refl)
+        st = configs.perturb(sc, sp_, scale=0.4, seed=0)
+        gl, sh, rc_ = fused_vec.packed_inputs(st)
+        stex, rtex = fused_vec.texel_inputs(st)
+        ge = fused_vec._geometry(st, cf)
+        tl = fused_vec.tex_levels(st, cf)
+        tex_vec[tag] = dict(
+            rows=(gl.data_ptr(), sh.data_ptr(), rc_.data_ptr(), stex.data_ptr(),
+                  rtex.data_ptr(), *ge), keep=(gl, sh, rc_, stex, rtex), tl=tl,
+            target=fused_vec.render_vec_plain(sc, cf)[0].contiguous(),
+            vis=fused_vec.render_vec(st, cf)[1].contiguous(),
+            n_out=1 + gl.numel() + sh.numel() + rc_.numel() + fused_vec.texel_row(st),
+            scratch=torch.empty((libs["this"]["fused_vec_step"].rrt_vec_step_tex_scratch_floats(
+                ge[0], ge[1], *ge[4:7], *tl[1:]),), device="cuda"))
     sizes = {1: 1 + flat.numel(), 2: H * W * 3, 3: 1 + flat.numel(),
              4: cfg5.height * cfg5.width * 3, 5: n_out5, 6: n_out5, "1r": 1 + flat6.numel(), "2r": H * W * 3,
              "3r": 1 + flat6.numel(), "4r": H * W * 3, "5r": n_out10, "6r": n_out10}
+    for tag, c in tex_flat.items():
+        sizes.update({f"1{tag}": 1 + c["flat"].numel(), f"2{tag}": H * W * 3,
+                      f"3{tag}": 1 + c["flat"].numel()})
+    for tag, c in tex_vec.items():
+        sizes.update({f"4{tag}": H * W * 3, f"5{tag}": c["n_out"], f"6{tag}": c["n_out"]})
     outs = {(t, r): torch.empty((n,), device="cuda") for t in libs for r, n in sizes.items()}
     planes = {(t, r): torch.empty_like(v) for t in libs
-              for r, v in ((2, vis), ("2r", vis6), (4, vis5), ("4r", vis10))}
+              for r, v in ((2, vis), ("2r", vis6), (4, vis5), ("4r", vis10),
+                           *((f"2{k}", c["vis"]) for k, c in tex_flat.items()),
+                           *((f"4{k}", c["vis"]) for k, c in tex_vec.items()))}
     entries = {4: ("fused_vec_render", "rrt_vec_render_at"),
                "4r": ("fused_vec_render", "rrt_vec_render_levels"),
                "5r": ("fused_vec_render_bwd", "rrt_vec_render_bwd_levels"),
@@ -246,7 +295,29 @@ def main() -> int:
 
     def call(tree, row):
         lib, out = libs[tree], outs[tree, row].data_ptr()
-        if row == 1:
+        tag = row[1:] if isinstance(row, str) else ""
+        if tag in tex_flat:
+            c = tex_flat[tag]
+            head = (c["flat"].data_ptr(), *c["geom"], *c["tl"])
+            err = {"1": lambda: lib["fused_step"].rrt_step_tex(
+                       *head, c["target"].data_ptr(), 1.0 / (H * W * 3),
+                       c["scratch"].data_ptr(), out, stream),
+                   "2": lambda: lib["fused_render"].rrt_render_tex(
+                       *head, out, planes[tree, row].data_ptr(), stream),
+                   "3": lambda: lib["fused_render_bwd"].rrt_render_bwd_tex(
+                       *head, g2.data_ptr(), c["vis"].data_ptr(), c["scratch"].data_ptr(), out,
+                       stream)}[row[0]]()
+        elif tag in tex_vec:
+            c = tex_vec[tag]
+            err = {"4": lambda: lib["fused_vec_render"].rrt_vec_render_tex(
+                       *c["rows"], 0.0, 0.0, *c["tl"], out, planes[tree, row].data_ptr(), stream),
+                   "5": lambda: lib["fused_vec_render_bwd"].rrt_vec_render_bwd_tex(
+                       *c["rows"], 0.0, 0.0, *c["tl"], g2.data_ptr(), c["vis"].data_ptr(),
+                       c["scratch"].data_ptr(), out, stream),
+                   "6": lambda: lib["fused_vec_step"].rrt_vec_step_tex(
+                       *c["rows"], *c["tl"], c["target"].data_ptr(), 1.0 / (H * W * 3),
+                       c["scratch"].data_ptr(), out, stream)}[row[0]]()
+        elif row == 1:
             err = lib["fused_step"].rrt_step_spp(flat.data_ptr(), *geom, 1, target.data_ptr(),
                                                  1.0 / (H * W * 3), scratch.data_ptr(), out,
                                                  stream)
@@ -293,11 +364,17 @@ def main() -> int:
         if err != 0:
             raise RuntimeError(f"row {row} of {tree} failed: CUDA error {err}")
 
+    planes_rows = {r for _, r in planes}
     same = True
     for row, case in ((1, "config2_512"), (2, "config2_512"), (3, "config2_512"),
                       ("1r", "config6_512"), ("2r", "config6_512"), ("3r", "config6_512"),
                       (4, "config5_1024"), (5, "config5_1024"), (6, "config5_1024"),
-                      ("4r", "config10_512"), ("5r", "config10_512"), ("6r", "config10_512")):
+                      ("4r", "config10_512"), ("5r", "config10_512"), ("6r", "config10_512"),
+                      ("1t", "config7_512"), ("2t", "config7_512"), ("3t", "config7_512"),
+                      ("1s", "config9_512"), ("2s", "config9_512"), ("3s", "config9_512"),
+                      ("4g", "globes_512"), ("5g", "globes_512"), ("6g", "globes_512"),
+                      ("4h", "globes_r1_512"), ("5h", "globes_r1_512"),
+                      ("6h", "globes_r1_512")):
         src, fn = entries.get(row, (None, None))
         trees = [t for t in libs if src is None or hasattr(libs[t][src], fn)]
         for tree in trees:
@@ -312,7 +389,7 @@ def main() -> int:
         line = {"row": row, "case": case, "device_ms": times, "mean_ms": mean}
         if "other" in trees:
             bit_equal = bool(torch.equal(outs["other", row], outs["this", row]))
-            if row in (2, "2r", 4, "4r"):
+            if row in planes_rows:
                 bit_equal = bit_equal and bool(torch.equal(planes["other", row],
                                                            planes["this", row]))
             same = same and bit_equal

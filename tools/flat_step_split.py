@@ -166,7 +166,7 @@ FWD_STORES = """  img[3 * px + 0] = acc.x;
 """
 FWD_PLANES = """    if (p.shadows)
       for (int l = 0; l < ly.L; ++l)
-        vis[(q * ly.L + l) * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
+        vis[(q * per_sub + l) * plane + px] = ((bits >> l) & 1u) ? 1.0f : 0.0f;
 """
 FWD_REDESIGN = {
     "full": [],
