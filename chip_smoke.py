@@ -204,7 +204,7 @@ non-zero:
                at 512^2 and at 48^2 (row 1 150 times, row 2 twice; the mirror
                coefficients' RMS error from its start, about 0.19, below
                1e-3); 20 steps of optimize(render_fn=render) at 512^2 (row 2
-               21 times, row 3 20); `render --config 5 --reflections 2` (two
+               21 times, row 3 20); `render --config 5 --reflections 4` (four
                bounces, in rows 4-6) and `invert --config 6 --anneal 0.05,0`
                each raising by name, no kernel launched but the target's row
                2.
@@ -233,7 +233,7 @@ non-zero:
                0.3 of its start, `observable_texels`); 20 steps of
                optimize(render_fn=render) on each at 512^2 (row 2 21 times,
                row 3 20); `render --config 7 --spp 4` (row 2 once, a PNG); and
-               four refusals by name (`render --config 8 --reflections 2`, the
+               four refusals by name (`render --config 8 --reflections 4`, the
                same at --spp 4, `invert --config 7 --anneal 0.05,0
                --checker-ratio 12.5`: the soft checker beside a texel grid,
                `invert --config 9 --anneal 0.05,0`: its bounce under a soft
@@ -422,6 +422,33 @@ non-zero:
                (rows 2 and 3 20 each) and on the 64 textured globes (rows 4
                and 5 80 each); every stage's loss falls, no other kernel
                launches.
+ 40. bounces - rows 1-6 at two and three bounce levels, 512^2: rows 1-3
+               on config 6 (K = 2 and 3, spp 1 and 4) and config 9 (the env,
+               K = 2), rows 4-6 on config 10 (K = 2 and 3; K = 2 at spp 4
+               too) and config 8's globe with mirror coefficients 0.3 and its
+               floor's 0.4 (`with_mirrors`, the ``_tex`` instances, K = 2), from the
+               starts of phases mirror, texture, chrome and globes, by phase
+               spp4_texels' rules (rows 2 and 4 bit for bit, each subsample's
+               planes of each level on the pixels where it and every level
+               above hit, 0 elsewhere; rows 1 and 6 zero against the
+               forward's own image; rows 1, 3, 5 and 6 against autograd of
+               their plain versions within 1e-4 of each leaf's scale, or of
+               the float64 one's, or no farther than float32 from float64,
+               and against their twins within 1e-2; at spp 1 row 3's or row
+               5's mse gradient row 1's or row 6's bit for bit). Each row's
+               times, plain times and bounds (`bounce_counts`,
+               `vec_bounce_counts` and `texel_counts` count every bounce
+               level as they count level 1), and the new instances' registers
+               and spill bytes from ptxas.
+ 41. bounces_main - `render --config 6 --reflections 2` and `3` (row 2
+               once); invert --reflections 2 at 512^2: --config 6 (150 steps,
+               at 512^2 and 48^2: row 1 150, row 2 2, the mirror
+               coefficients' RMS error below 1e-3), --config 9 (row 1 20),
+               --config 10 and --config 8 (row 6 20, row 4 2), --config 6
+               --spp 4 (row 1 20) and --config 10 --spp 4 (row 6 20, row 4
+               8); 20 steps of optimize(render_fn=render) at K = 2 on config 6
+               (rows 2 + 3) and config 10 (rows 4 + 5); every loss falls; and
+               `render --config 6 --reflections 4` refused by name.
 Then a `timing` line (each phase's wall seconds), the card's nvidia-smi
 line, the {"kernels": [...]} line (each kernel
 with its status as PERF.md's table of TPU kernels records it; `ms` is the
@@ -443,7 +470,9 @@ each kernel the restarts launch adds `restarts`, its launches in each run of
 phases 34 and 35; every row adds `bands`, its case, its worst difference and
 device times from phase 36 and its launches on the sharded paths of phase
 37; rows 1-8 add `spp4_texels`, their numbers per case at spp 4 from phase
-38 beside their launches on each run of phase 39), and last
+38 beside their launches on each run of phase 39; rows 1-6 add `bounces`, their numbers per
+case at two and three bounce levels from phase 40 beside their launches on each run of phase
+41), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -506,8 +535,12 @@ def phase_build():
     """Build the nine kernels as the port builds them, and alongside (all
     eleven nvcc processes at once) the small-scene render and step sources
     with nvcc's default FMA contraction, for phase fmad. Returns the
-    contracted libraries."""
+    contracted libraries. Records the eleven nvcc processes' CPU seconds
+    and the cores they share: over the wall time, the cores the build kept
+    busy."""
     import ctypes
+    import os
+    import resource
     import time
 
     from reversible_raytracer_tpu_torch.ops.kernels import fused
@@ -515,6 +548,7 @@ def phase_build():
         BUILD_DIR, NVCC_FLAGS, build_all, nvcc_path)
 
     t0 = time.perf_counter()
+    ru0 = resource.getrusage(resource.RUSAGE_CHILDREN)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in NVCC_FLAGS if f != "--fmad=false"]
     timed = (fused.FUSED_RENDER, fused.FUSED_STEP)
@@ -538,7 +572,10 @@ def phase_build():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         contracted[k.name] = lib
+    ru1 = resource.getrusage(resource.RUSAGE_CHILDREN)
     emit("build", ok=True, seconds=seconds, with_contracted_seconds=time.perf_counter() - t0,
+         nvcc_cpu_seconds=ru1.ru_utime + ru1.ru_stime - ru0.ru_utime - ru0.ru_stime,
+         cpu_cores=len(os.sched_getaffinity(0)),
          ptxas={k.name: _ptxas(k.build_log) for k in _all_kernels()},
          ptxas_contracted={name: _ptxas(log) for name, log in logs.items()})
     return contracted
@@ -2653,11 +2690,13 @@ MIRROR_SIZE = 512
 
 
 def bounce_counts(scene, cfg, off=(0.0, 0.0)):
-    """Level 0's `work_counts` and level 1's work (``l1_*``): the reflected
-    rays (one per pixel whose primary ray hit), their winners by type, lit
-    (pixel, light) pairs and the shadow-ray sphere and rect tests of the
-    any-hit walks (stopping at the first occluder) from level 1's hits; of
-    one subsample, at the offset ``off`` (`spp_work` sums them)."""
+    """Level 0's `work_counts` and the bounce levels' work (``l1_*``, each of
+    the ``cfg.reflections`` levels' counted as level 1's and summed): the
+    reflected rays (one per pixel whose ray hit at every level above), their
+    winners by type, lit (pixel, light) pairs and the shadow-ray sphere and
+    rect tests of the any-hit walks (stopping at the first occluder) from the
+    level's hits; of one subsample, at the offset ``off`` (`spp_work` sums
+    them)."""
     import dataclasses
 
     import torch
@@ -2668,37 +2707,44 @@ def bounce_counts(scene, cfg, off=(0.0, 0.0)):
     H, W = cfg.height, cfg.width
     sp, rc = scene.spheres, scene.rects
     o, d = pl.primary_rays(scene, cfg, off)
-    t, hit0, at = pl.trace_nearest(scene, o, d, cfg.shape)
-    n = (at["nx"], at["ny"], at["nz"])
-    o1, d1 = pl.shadow_origin(o, d, t, n), pl.reflect_dir(d, n)
+    t, live, at = pl.trace_nearest(scene, o, d, cfg.shape)
     tests = [(1, lambda oo, dd, k=k: pl.intersect_sphere(oo, dd, sp.center[k], sp.radius[k]))
              for k in range(sp.count)]
     tests += [(2, lambda oo, dd, k=k: pl.intersect_rect(oo, dd, rc.origin[k], rc.edge_u[k],
                                                         rc.edge_v[k])[0])
               for k in range(rc.count)]
-    t_best = torch.full((H, W), pl.BIG, device=scene.device)
-    kind = torch.zeros((H, W), dtype=torch.int32, device=scene.device)
-    for kk, test in tests:
-        t1 = test(o1, d1)
-        closer = t1 < t_best
-        t_best = torch.where(closer, t1, t_best)
-        kind = torch.where(closer, kk, kind)
-    kind = torch.where(hit0, kind, 0)
-    hit1 = kind > 0
-    _, _, at1 = pl.trace_nearest(scene, o1, d1, cfg.shape)
-    so1 = pl.shadow_origin(o1, d1, t_best, (at1["nx"], at1["ny"], at1["nz"]))
-    lit, shadow = 0, {1: 0, 2: 0}
-    for li in range(scene.lights.count):
-        ldir, dist = pl.light_geometry(scene.lights, li, so1)
-        done = torch.zeros((H, W), dtype=torch.bool, device=scene.device)
+    sums = dict(l1_rays=0, l1_sph=0, l1_rect=0, l1_hit=0, l1_lit=0, l1_shadow_sph=0,
+                l1_shadow_rect=0)
+    for _ in range(cfg.reflections):
+        n = (at["nx"], at["ny"], at["nz"])
+        o1, d1 = pl.shadow_origin(o, d, t, n), pl.reflect_dir(d, n)
+        t_best = torch.full((H, W), pl.BIG, device=scene.device)
+        kind = torch.zeros((H, W), dtype=torch.int32, device=scene.device)
         for kk, test in tests:
-            if cfg.shadows:
-                shadow[kk] += int((hit1 & ~done).sum())
-            done = done | (test(so1, ldir) < dist)
-        lit += int((hit1 & ~done).sum()) if cfg.shadows else int(hit1.sum())
-    c.update(l1_rays=int(hit0.sum()), l1_sph=int((kind == 1).sum()),
-             l1_rect=int((kind == 2).sum()), l1_hit=int(hit1.sum()), l1_lit=lit,
-             l1_shadow_sph=shadow[1], l1_shadow_rect=shadow[2])
+            t1 = test(o1, d1)
+            closer = t1 < t_best
+            t_best = torch.where(closer, t1, t_best)
+            kind = torch.where(closer, kk, kind)
+        kind = torch.where(live, kind, 0)
+        hit1 = kind > 0
+        _, _, at1 = pl.trace_nearest(scene, o1, d1, cfg.shape)
+        so1 = pl.shadow_origin(o1, d1, t_best, (at1["nx"], at1["ny"], at1["nz"]))
+        lit, shadow = 0, {1: 0, 2: 0}
+        for li in range(scene.lights.count):
+            ldir, dist = pl.light_geometry(scene.lights, li, so1)
+            done = torch.zeros((H, W), dtype=torch.bool, device=scene.device)
+            for kk, test in tests:
+                if cfg.shadows:
+                    shadow[kk] += int((hit1 & ~done).sum())
+                done = done | (test(so1, ldir) < dist)
+            lit += int((hit1 & ~done).sum()) if cfg.shadows else int(hit1.sum())
+        for key, v in (("l1_rays", int(live.sum())), ("l1_sph", int((kind == 1).sum())),
+                       ("l1_rect", int((kind == 2).sum())), ("l1_hit", int(hit1.sum())),
+                       ("l1_lit", lit), ("l1_shadow_sph", shadow[1]),
+                       ("l1_shadow_rect", shadow[2])):
+            sums[key] += v
+        o, d, t, live, at = o1, d1, t_best, hit1, at1
+    c.update(sums)
     return c
 
 
@@ -3049,9 +3095,9 @@ def phase_mirror_main():
     oks.append(_only(launches, expect) and la[-1] < la[0] and all(math.isfinite(x) for x in la))
 
     oks.append(_refusals((
-        ("render_config5_two_bounces", ["render", "--config", "5", "--size", "64",
-                                        "--reflections", "2", "-o", str(out_dir / "refused.png")],
-         "reflections > 1", {}),
+        ("render_config5_four_bounces", ["render", "--config", "5", "--size", "64",
+                                         "--reflections", "4", "-o", str(out_dir / "refused.png")],
+         "reflections > 3", {}),
         ("invert_config6_anneal", ["invert", "--config", "6", "--size", "64", "--anneal",
                                    "0.05,0", "--iters", "2", "--quiet"],
          "mirror reflections require hard semantics", {"fused_render": 1})), rows))
@@ -3081,10 +3127,12 @@ TEX_CASES = (("config7", 7), ("config8", 8), ("config9", 9))
 def texel_counts(scene, cfg, off=(0.0, 0.0)):
     """The pixels that sample a texel grid in one subsample, at the offset
     ``off`` (`spp_work` sums them): level 0's winners in a textured group
-    (``tex_sph``, ``tex_rect``), with a bounce level 1's (``tex_sph1``,
-    ``tex_rect1``, where level 0 hit), level 0's misses with an environment
-    map (``env0``) and, with a bounce, level 1's misses where level 0 hit
-    (``env1``)."""
+    (``tex_sph``, ``tex_rect``), with bounces the bounce levels' (``tex_sph1``,
+    ``tex_rect1``, where every level above hit; the levels summed), level 0's
+    misses with an environment map (``env0``) and, with bounces, each bounce
+    level's misses where every level above hit (``env1``, summed)."""
+    import torch
+
     from reversible_raytracer_tpu_torch.ops import pipeline as pl
     from reversible_raytracer_tpu_torch.ops.kernels import fused
 
@@ -3097,16 +3145,17 @@ def texel_counts(scene, cfg, off=(0.0, 0.0)):
     c = dict(tex_sph=int((k >= 0).logical_and(k < N).sum()) if sp_tex else 0,
              tex_rect=int((k >= N).sum()) if rc_tex else 0, tex_sph1=0, tex_rect1=0,
              env0=int((~hits[0]).sum()) if env else 0,
-             env1=int((hits[0] & ~hits[1]).sum()) if env and cfg.reflections else 0)
-    if cfg.reflections and (sp_tex or rc_tex):
-        import torch
-
+             env1=sum(int((hits[v - 1] & ~hits[v]).sum()) for v in range(1, len(hits)))
+             if env else 0)
+    if sp_tex or rc_tex:
         zero = torch.zeros(cfg.shape, device=scene.device)
-        w = fused.winner_surface(scene, fused.winner_geometry(scene, k, zero), o, d, t, zero)
-        k1 = fused._nearest_chain(scene, pl.shadow_origin(o, d, t, w.n), pl.reflect_dir(d, w.n))[1]
-        k1 = torch.where(hits[0], k1, -1)
-        c.update(tex_sph1=int((k1 >= 0).logical_and(k1 < N).sum()) if sp_tex else 0,
-                 tex_rect1=int((k1 >= N).sum()) if rc_tex else 0)
+        for v in range(1, len(hits)):
+            w = fused.winner_surface(scene, fused.winner_geometry(scene, k, zero), o, d, t, zero)
+            o, d = pl.shadow_origin(o, d, t, w.n), pl.reflect_dir(d, w.n)
+            t, k = fused._nearest_chain(scene, o, d)
+            kv = torch.where(hits[v - 1], k, -1)
+            c["tex_sph1"] += int((kv >= 0).logical_and(kv < N).sum()) if sp_tex else 0
+            c["tex_rect1"] += int((kv >= N).sum()) if rc_tex else 0
     return c
 
 
@@ -3288,12 +3337,12 @@ def phase_texture_main():
     oks.append(_only(launches, {"fused_render": 1}) and png.exists())
     refused = str(out_dir / "refused.png")
     oks.append(_refusals((
-        ("render_config8_reflections_2", ["render", "--config", "8", "--size", "64",
-                                          "--reflections", "2", "-o", refused],
-         "reflections > 1", {}),
-        ("render_config8_spp4_reflections_2", ["render", "--config", "8", "--size", "64",
-                                               "--spp", "4", "--reflections", "2", "-o",
-                                               refused], "reflections > 1", {}),
+        ("render_config8_reflections_4", ["render", "--config", "8", "--size", "64",
+                                          "--reflections", "4", "-o", refused],
+         "reflections > 3", {}),
+        ("render_config8_spp4_reflections_4", ["render", "--config", "8", "--size", "64",
+                                               "--spp", "4", "--reflections", "4", "-o",
+                                               refused], "reflections > 3", {}),
         ("invert_config7_anneal_soft_checker", ["invert", "--config", "7", "--size", "64",
                                                 "--anneal", "0.05,0", "--checker-ratio", "12.5",
                                                 "--iters", "2", "--quiet"],
@@ -3327,19 +3376,20 @@ def _chrome_case(num, size, scale, seed):
 
 
 def vec_bounce_counts(scene, cfg, off=(0.0, 0.0)):
-    """Level 0's `work_counts(..., cull=True)`, `bounce_counts`' level 1 (the
-    reflected rays, their winners and lit pairs), the reflected rays' sphere
-    tests at the per-warp cull of `cull.bounce_candidates` (a ball of the
-    warp's origins, a cone of its directions): the warps with a reflected ray
-    (``l1_warps``), their candidates (``l1_prim_visits``) and the (ray,
+    """Level 0's `work_counts(..., cull=True)`, `bounce_counts`' bounce levels
+    (the reflected rays, their winners and lit pairs), the reflected rays'
+    sphere tests at the per-warp cull of `cull.bounce_candidates` (a ball of
+    the warp's origins, a cone of its directions): the warps with a reflected
+    ray (``l1_warps``), their candidates (``l1_prim_visits``) and the (ray,
     candidate) pairs (``l1_prim_pairs``; before the cull ``l1_prim_all``,
-    every sphere for every reflected ray, as rows 4-6 walk them), and level
-    1's shadow culls as rows 4 and 6 run them (csrc/cull.cuh warp_candidates
-    over the level-1 hit lanes' shadow origins): the warps with such a lane
-    per light (``l1_shadow_warps``) and the sphere tests of the hit pixels'
-    any-hit walks over their candidates until the first occluder
-    (``l1_shadow_sph_culled``). Of one subsample, at the offset ``off``
-    (`spp_work` sums them)."""
+    every sphere for every reflected ray, as rows 4-6 walk them), and the
+    bounce levels' shadow culls as rows 4 and 6 run them (csrc/cull.cuh
+    warp_candidates over the level's hit lanes' shadow origins): the warps
+    with such a lane per light (``l1_shadow_warps``) and the sphere tests of
+    the hit pixels' any-hit walks over their candidates until the first
+    occluder (``l1_shadow_sph_culled``); each of the ``cfg.reflections``
+    levels counted as level 1 and summed. Of one subsample, at the offset
+    ``off`` (`spp_work` sums them)."""
     import dataclasses
 
     import torch
@@ -3353,30 +3403,39 @@ def vec_bounce_counts(scene, cfg, off=(0.0, 0.0)):
     sp, W = scene.spheres, cfg.width
     o, d = pl.primary_rays(scene, cfg, off)
     t, hit0, at = pl.trace_nearest(scene, o, d, cfg.shape)
-    n = (at["nx"], at["ny"], at["nz"])
-    o1, d1 = pl.shadow_origin(o, d, t, n), pl.reflect_dir(d, n)
-    t1, hit1, at1 = pl.trace_nearest(scene, o1, d1, cfg.shape)
-    live = hit0 & hit1
-    so1 = pl.shadow_origin(o1, d1, t1, (at1["nx"], at1["ny"], at1["nz"]))
-    warps, tests = 0, 0
-    with torch.no_grad():
-        rays = cl.runs(hit0, False).sum(-1)
-        n_b = cl.bounce_candidates(sp, o1, d1, hit0).sum(-1)  # (H, R)
-        c.update(l1_warps=int((rays > 0).sum()), l1_prim_visits=int(n_b.sum()),
-                 l1_prim_pairs=int((n_b * rays).sum()), l1_prim_all=int(hit0.sum()) * sp.count)
-        lanes = cl.runs(live, False).sum(-1)
-        for li in range(scene.lights.count if cfg.shadows else 0):
-            ldir, dist = pl.light_geometry(scene.lights, li, so1)
-            keep = cl.per_pixel(cl.warp_candidates(sp, so1, live, scene.lights.position[li], 0.0),
-                                W)
-            occ = (sphere_ts(sp, so1, ldir) < dist[None]) & keep
-            visited = torch.cumsum(keep, 0, dtype=torch.int16)
-            first = occ.to(torch.uint8).argmax(0)
-            tests_px = torch.where(occ.any(0), visited.gather(0, first[None])[0], visited[-1])
-            warps += int((lanes > 0).sum())
-            tests += int(tests_px[live].sum())
-            del occ, visited, keep
-    c.update(l1_shadow_warps=warps, l1_shadow_sph_culled=tests)
+    sums = dict(l1_warps=0, l1_prim_visits=0, l1_prim_pairs=0, l1_prim_all=0,
+                l1_shadow_warps=0, l1_shadow_sph_culled=0)
+    for _ in range(cfg.reflections):
+        n = (at["nx"], at["ny"], at["nz"])
+        o1, d1 = pl.shadow_origin(o, d, t, n), pl.reflect_dir(d, n)
+        t1, hit1, at1 = pl.trace_nearest(scene, o1, d1, cfg.shape)
+        live = hit0 & hit1
+        so1 = pl.shadow_origin(o1, d1, t1, (at1["nx"], at1["ny"], at1["nz"]))
+        warps, tests = 0, 0
+        with torch.no_grad():
+            rays = cl.runs(hit0, False).sum(-1)
+            n_b = cl.bounce_candidates(sp, o1, d1, hit0).sum(-1)  # (H, R)
+            sums["l1_warps"] += int((rays > 0).sum())
+            sums["l1_prim_visits"] += int(n_b.sum())
+            sums["l1_prim_pairs"] += int((n_b * rays).sum())
+            sums["l1_prim_all"] += int(hit0.sum()) * sp.count
+            lanes = cl.runs(live, False).sum(-1)
+            for li in range(scene.lights.count if cfg.shadows else 0):
+                ldir, dist = pl.light_geometry(scene.lights, li, so1)
+                keep = cl.per_pixel(cl.warp_candidates(sp, so1, live, scene.lights.position[li],
+                                                       0.0), W)
+                occ = (sphere_ts(sp, so1, ldir) < dist[None]) & keep
+                visited = torch.cumsum(keep, 0, dtype=torch.int16)
+                first = occ.to(torch.uint8).argmax(0)
+                tests_px = torch.where(occ.any(0), visited.gather(0, first[None])[0],
+                                       visited[-1])
+                warps += int((lanes > 0).sum())
+                tests += int(tests_px[live].sum())
+                del occ, visited, keep
+        sums["l1_shadow_warps"] += warps
+        sums["l1_shadow_sph_culled"] += tests
+        o, d, t, hit0, at = o1, d1, t1, live, at1
+    c.update(sums)
     return c
 
 
@@ -5112,6 +5171,202 @@ def phase_spp4_texels_main():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Two and three mirror bounces in rows 1-6
+# ---------------------------------------------------------------------------
+
+BOUNCE_SIZE = 512
+# (label, config, bounce levels, spp): rows 1-3 on configs 6 and 9, rows 4-6 on
+# config 10 (``_levels`` with the env) and config 8's globe with mirror
+# coefficients (``_tex``); at spp 4 the instances that `invert --reflections 2
+# --spp 4` runs on configs 6 and 10, and config 6's at three levels (the other
+# spp-4 instances are held at 64^2 by tests/test_torch_kernels.py)
+BOUNCE_CASES = (("config6_r2", 6, 2, 1), ("config6_r3", 6, 3, 1), ("config9_r2", 9, 2, 1),
+                ("config10_r2", 10, 2, 1), ("config10_r3", 10, 3, 1),
+                ("config8_mirrors_r2", 8, 2, 1), ("config6_r2_spp4", 6, 2, 4),
+                ("config6_r3_spp4", 6, 3, 4), ("config10_r2_spp4", 10, 2, 4))
+# The instances this slice adds (mangled-name parts: REFL 2 or 3 after the
+# SPP, or first), in the hard families' sources.
+BOUNCE_INSTANCES = ("ELi2E", "ELi3E", "kernelILi2E", "kernelILi3E")
+
+
+def with_mirrors(scene, sphere_m=0.3, rect_m=0.4):
+    """``scene`` with every sphere's mirror coefficient ``sphere_m`` and
+    every rect's ``rect_m``: config 8's globe seen in its floor and the
+    floor in it, so that its texel grid is sampled at every bounce level."""
+    import dataclasses
+
+    import torch
+
+    sp, rc = scene.spheres, scene.rects
+    return dataclasses.replace(
+        scene,
+        spheres=dataclasses.replace(sp, material=dataclasses.replace(
+            sp.material, mirror=torch.full_like(sp.material.mirror, sphere_m))),
+        rects=dataclasses.replace(rc, material=dataclasses.replace(
+            rc.material, mirror=torch.full_like(rc.material.mirror, rect_m))))
+
+
+def _bounce_case(num, refl, spp):
+    """(scene, spec, cfg, start) of a case of phase bounces at BOUNCE_SIZE^2:
+    the starts of phases mirror (config 6), texture (config 9), chrome
+    (config 10) and globes (config 8, with `with_mirrors`)."""
+    import dataclasses
+
+    if num == 6:
+        scene, spec, cfg, start = _mirror_case(BOUNCE_SIZE)
+    elif num == 9:
+        scene, spec, cfg, start = _texture_case(9, BOUNCE_SIZE)
+    elif num == 10:
+        scene, spec, cfg, start = _chrome_case(10, BOUNCE_SIZE, 0.2, 10)
+    else:
+        scene, spec, cfg, start = _globe_case(8, refl, BOUNCE_SIZE)
+        scene, start = with_mirrors(scene), with_mirrors(start)
+    return scene, spec, dataclasses.replace(cfg, reflections=refl, spp=spp), start
+
+
+def phase_bounces():
+    """Rows 1-6 at two and three bounce levels, 512^2 (see the module's
+    docstring, phase 40). Returns each row's numbers per case."""
+    import time
+
+    from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec
+
+    saved = {k.name: k.launches for k in _all_kernels()}
+    rows, oks, numbers = {}, [], {}
+    t0 = time.perf_counter()
+    for label, num, refl, spp in BOUNCE_CASES:
+        scene, spec, cfg, start = _bounce_case(num, refl, spp)
+        if num in (6, 9):  # rows 1-3
+            case, ok, got = _flat_rows(scene, start, cfg, SPP4_TEX_TOL)
+            S = fused.flatten_scene(start).numel()
+            bounds, case["work"] = texture_bounds(start, cfg, S, fused.n_vis_planes(start, cfg))
+            nums, timed = _flat_times(case, start, cfg, got.target, got.g, bounds, label)
+            ok = ok and timed
+        else:  # rows 4-6
+            case, ok, got = _vec_rows(scene, start, cfg, SPP4_TEX_TOL)
+            Sg = fused_vec.flatten_globals(start).numel()
+            bounds, uncull, case["work"] = chrome_bounds(start, cfg, Sg,
+                                                         fused_vec.n_vis_planes(start, cfg))
+            nums = _vec_times(case, start, cfg, got.target, got.g, got.vis, bounds, label,
+                              uncull)
+        for name, n in nums.items():
+            numbers.setdefault(name, {})[n.pop("case")] = n
+        rows[label] = case
+        case["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
+        oks.append(ok)
+    for k in _all_kernels():
+        k.launches = saved[k.name]
+    regs = {name: r for name, r in ptxas_instances(BOUNCE_INSTANCES).items()
+            if "soft" not in r["source"]}
+    if not all(oks):
+        raise AssertionError(f"an instance with two or three bounce levels failed a check: "
+                             f"{rows}")
+    emit("bounces", ok=True, rows=rows, registers=regs)
+    return numbers
+
+
+BOUNCE_ITERS = 20
+# The entry points at two and three bounce levels, 512^2: (label, argv, the
+# launches each kernel must make; the mirror coefficients' RMS error must end
+# below this, or None)
+BOUNCE_RUNS = (
+    ("render_config6_r2", ["render", "--config", "6", "--reflections", "2"],
+     {"fused_render": 1}, None),
+    ("render_config6_r3", ["render", "--config", "6", "--reflections", "3"],
+     {"fused_render": 1}, None),
+    ("invert_config6_r2", ["invert", "--config", "6", "--reflections", "2", "--perturb", "0.3",
+                           "--lr", "2e-2", "--seed", "3", "--iters", str(MIRROR_ITERS)],
+     {"fused_step": MIRROR_ITERS, "fused_render": 2}, 1e-3),
+    ("invert_config6_r2_48", ["invert", "--config", "6", "--reflections", "2", "--size", "48",
+                              "--perturb", "0.3", "--lr", "2e-2", "--seed", "3", "--iters",
+                              str(MIRROR_ITERS)],
+     {"fused_step": MIRROR_ITERS, "fused_render": 2}, 1e-3),
+    ("invert_config9_r2", ["invert", "--config", "9", "--reflections", "2", "--perturb", "0.4",
+                           "--lr", "3e-2", "--iters", str(BOUNCE_ITERS)],
+     {"fused_step": BOUNCE_ITERS, "fused_render": 2}, None),
+    ("invert_config10_r2", ["invert", "--config", "10", "--reflections", "2", "--perturb", "0.2",
+                            "--lr", "2e-2", "--seed", "10", "--iters", str(BOUNCE_ITERS)],
+     {"fused_vec_step": BOUNCE_ITERS, "fused_vec_render": 2}, None),
+    ("invert_config8_r2", ["invert", "--config", "8", "--reflections", "2", "--perturb", "0.4",
+                           "--lr", "3e-2", "--iters", str(BOUNCE_ITERS)],
+     {"fused_vec_step": BOUNCE_ITERS, "fused_vec_render": 2}, None),
+    ("invert_config6_r2_spp4", ["invert", "--config", "6", "--reflections", "2", "--spp", "4",
+                                "--perturb", "0.3", "--lr", "2e-2", "--seed", "3", "--iters",
+                                str(BOUNCE_ITERS)],
+     {"fused_step": BOUNCE_ITERS, "fused_render": 2}, None),
+    ("invert_config10_r2_spp4", ["invert", "--config", "10", "--reflections", "2", "--spp", "4",
+                                 "--perturb", "0.2", "--lr", "2e-2", "--seed", "10", "--iters",
+                                 str(BOUNCE_ITERS)],
+     {"fused_vec_step": BOUNCE_ITERS, "fused_vec_render": 8}, None),
+)
+
+
+def phase_bounces_main():
+    """The entry points at two and three bounce levels (see the module's
+    docstring, phase 41). Returns each run's launch counts."""
+    import dataclasses
+
+    from reversible_raytracer_tpu_torch import cli
+    from reversible_raytracer_tpu_torch.optim import OptConfig, optimize
+    from reversible_raytracer_tpu_torch.ops.render import render
+
+    out_dir = REPO / "smoke_out"
+    rows, counts, oks = {}, {}, []
+    for label, argv, expect, crit in BOUNCE_RUNS:
+        png = out_dir / f"bounces_{label}.png"
+        full = [*argv, "-o", str(png)]
+        if argv[0] == "invert":
+            full += ["--log-every", "1", "--quiet"]
+        summary, launches, wall = _counted(lambda: cli.main(full))
+        row = dict(launches=launches, expected=expect, wall_seconds=wall,
+                   png_bytes=png.stat().st_size if png.exists() else 0)
+        ok = _only(launches, expect) and png.exists()
+        if argv[0] == "invert":
+            la = [h["loss"] for h in summary["history"]]
+            row.update(first_loss=la[0], final_loss=la[-1],
+                       start_param_err=summary["history"][0]["param_err"],
+                       param_err=summary["param_err"], loop_seconds=summary["seconds"],
+                       loop_ms_per_step=summary["seconds"] * 1e3 / len(la))
+            ok = ok and la[-1] < la[0] and all(math.isfinite(x) for x in la)
+            if crit is not None:
+                row["param_err_below"] = crit
+                ok = ok and summary["param_err"] < crit
+        rows[label] = row
+        counts[label] = launches
+        oks.append(ok)
+
+    # ---- optimize(render_fn=render) at two bounce levels: rows 2 + 3 on config 6,
+    # rows 4 + 5 on config 10
+    for label, num, expect in (
+            ("render_fn_config6_r2", 6,
+             {"fused_render": BOUNCE_ITERS + 1, "fused_render_bwd": BOUNCE_ITERS}),
+            ("render_fn_config10_r2", 10,
+             {"fused_vec_render": BOUNCE_ITERS + 1, "fused_vec_render_bwd": BOUNCE_ITERS})):
+        scene, spec, cfg, start = _bounce_case(num, 2, 1)
+        ocfg = OptConfig(iters=BOUNCE_ITERS, lr=2e-2)
+
+        def run(scene=scene, spec=spec, cfg=cfg, start=start, ocfg=ocfg):
+            target = render(scene, cfg).detach()
+            return optimize(start, target, spec, cfg, ocfg, log_every=0,
+                            render_fn=lambda s: render(s, cfg))[2].cpu().tolist()
+
+        losses, launches, wall = _counted(run)
+        rows[label] = dict(launches=launches, expected=expect, first_loss=losses[0],
+                           final_loss=losses[-1], wall_seconds=wall)
+        counts[label] = launches
+        oks.append(_only(launches, expect) and losses[-1] < losses[0]
+                   and all(math.isfinite(x) for x in losses))
+    oks.append(_refusals((
+        ("render_config6_r4", ["render", "--config", "6", "--size", "64", "--reflections", "4",
+                               "-o", str(out_dir / "refused.png")], "reflections > 3", {}),), rows))
+    if not all(oks):
+        raise AssertionError(f"a run at two or three bounce levels did not run through the "
+                             f"expected kernels, did not descend or did not recover: {rows}")
+    emit("bounces_main", ok=True, rows=rows)
+    return counts
+
+
 def kernel_status():
     """Each kernel's status as PERF.md's table of TPU kernels records it
     (ported, and redesigned, and when), by the CUDA source in its row."""
@@ -5186,6 +5441,8 @@ def main() -> int:
     sharded = run_phase("sharded_main", phase_sharded_main)
     spp4_tex = run_phase("spp4_texels", phase_spp4_texels)
     spp4_tex_runs = run_phase("spp4_texels_main", phase_spp4_texels_main)
+    bounces = run_phase("bounces", phase_bounces)
+    bounce_runs = run_phase("bounces_main", phase_bounces_main)
     src = "reversible_raytracer_tpu_torch/ops/kernels/csrc/"
     kernels += [
         dict(name="fused_vec_step", route="cuda", source=src + "fused_vec_step.cu",
@@ -5305,6 +5562,10 @@ def main() -> int:
             runs = {label: n[k["name"]] for label, n in spp4_tex_runs.items()
                     if n.get(k["name"])}
             k.setdefault("spp4_texels", {})[case] = dict(**nums, launches=runs)
+    for k in kernels:  # rows 1-6 at two and three bounce levels (bounces, bounces_main)
+        runs = {label: n[k["name"]] for label, n in bounce_runs.items() if n.get(k["name"])}
+        for case, nums in bounces.get(k["name"], {}).items():
+            k.setdefault("bounces", {})[case] = dict(**nums, launches=runs)
     status = kernel_status()
     for k in kernels:
         k["status"] = status.get(k["name"], "not recorded")

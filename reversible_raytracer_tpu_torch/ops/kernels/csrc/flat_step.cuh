@@ -33,16 +33,17 @@
 // as a pixel's). Each spp is its own instance of the kernel (SPP), so the
 // spp-1 ones keep their code.
 //
-// One mirror bounce (REFL = 1, spp 1 or 4): each pixel adds into its level-0
-// winner's fields (with the mirror coefficient's) and its level-1 winner's.
-// A warp's list of objects is the union of both levels' winners, still one
-// transposing tree per object a tile (a lane's value is the sum of its two
-// levels' for that object). The instance has its own launch bound
-// (REFL_STEP_BLOCKS_PER_SM blocks an SM: the bounce's adjoint does not fit
-// the 128 registers of two), and a grid sized to match.
+// Mirror bounces (REFL = 1 to MAX_REFL levels, spp 1 or 4): each pixel adds
+// into each level's winner's fields (with the mirror coefficient's at every
+// level above the deepest). A warp's list of objects is the union of the
+// 1 + REFL levels' winners, still one transposing tree per object a tile (a
+// lane's value is the sum of its levels' for that object, level 0's first).
+// The instances have their own launch bound (REFL_STEP_BLOCKS_PER_SM blocks
+// an SM: the bounce's adjoint does not fit the 128 registers of two), and a
+// grid sized to match.
 //
 // Texel grids (flat_step_tex_kernel, TEX: spp 1 or 4, object textures without
-// a bounce or the environment map with or without one): the body runs on a
+// a bounce or the environment map with or without bounces): the body runs on a
 // TexFlatScene, whose S includes the grids, and each pixel's one texel
 // record (render_common.cuh pixel_step) is scattered into the warp's row
 // after the objects' trees (scatter_texels): every lane stages its four
@@ -237,32 +238,59 @@ __device__ __forceinline__ void flat_step_body(const float* __restrict__ flat, P
               }
             }
           } else {
-            // ---- with a bounce: the union of both levels' winners; a lane adds
-            // its level-0 fields and mirror coefficient where it hit k at level
-            // 0, and its level-1 fields where it hit k at level 1
-            bool pend0 = g.k >= 0, pend1 = g.k1 >= 0;
+            // ---- with bounces: the union of every level's winners; a lane
+            // adds its fields of each level at which it hit k (level 0's
+            // first), and the mirror coefficient's of each such level above
+            // the deepest
+            bool pend[1 + REFL];
+            pend[0] = g.k >= 0;
+#pragma unroll
+            for (int v = 0; v < REFL; ++v) pend[1 + v] = g.k1[v] >= 0;
             for (;;) {
-              const unsigned t0 = __ballot_sync(FULL, pend0), t1 = __ballot_sync(FULL, pend1);
-              if (!(t0 | t1)) break;
-              const int k = t0 ? __shfl_sync(FULL, g.k, __ffs(t0) - 1)
-                               : __shfl_sync(FULL, g.k1, __ffs(t1) - 1);
-              const bool at0 = g.k == k, at1 = g.k1 == k;
-              pend0 = pend0 && !at0;
-              pend1 = pend1 && !at1;
+              unsigned tc = 0;  // the shallowest level with a winner left: its lowest lane's
+              int kc = 0;
+#pragma unroll
+              for (int v = REFL; v >= 0; --v) {
+                const unsigned tv = __ballot_sync(FULL, pend[v]);
+                if (tv) {
+                  tc = tv;
+                  kc = v == 0 ? g.k : g.k1[v - 1];
+                }
+              }
+              if (!tc) break;
+              const int k = __shfl_sync(FULL, kc, __ffs(tc) - 1);
+              bool at[1 + REFL];
+              at[0] = g.k == k;
+              pend[0] = pend[0] && !at[0];
+#pragma unroll
+              for (int v = 0; v < REFL; ++v) {
+                at[1 + v] = g.k1[v] == k;
+                pend[1 + v] = pend[1 + v] && !at[1 + v];
+              }
               if (k < ly.N) {
                 float v[16] = {};
 #pragma unroll
-                for (int f = 0; f < SPH_FIELDS; ++f)
-                  v[f] = (at0 ? g.obj[f] : 0.0f) + (at1 ? g.obj1[f] : 0.0f);
-                v[SPH_FIELDS] = at0 ? g.g_mir : 0.0f;
+                for (int f = 0; f < SPH_FIELDS; ++f) {
+                  v[f] = (at[0] ? g.obj[f] : 0.0f) + (at[1] ? g.obj1[0][f] : 0.0f);
+#pragma unroll
+                  for (int u = 1; u < REFL; ++u) v[f] += at[1 + u] ? g.obj1[u][f] : 0.0f;
+                }
+                v[SPH_FIELDS] = at[0] ? g.g_mir[0] : 0.0f;
+#pragma unroll
+                for (int u = 1; u < REFL; ++u) v[SPH_FIELDS] += at[u] ? g.g_mir[u] : 0.0f;
                 const float s = warp_sum_many(v, lane);
                 if (lane <= SPH_FIELDS) gs[sphere_field_slot(ly, k, lane)] += s;
               } else {
                 float v[32] = {};
 #pragma unroll
-                for (int f = 0; f < RECT_FIELDS; ++f)
-                  v[f] = (at0 ? g.obj[f] : 0.0f) + (at1 ? g.obj1[f] : 0.0f);
-                v[RECT_FIELDS] = at0 ? g.g_mir : 0.0f;
+                for (int f = 0; f < RECT_FIELDS; ++f) {
+                  v[f] = (at[0] ? g.obj[f] : 0.0f) + (at[1] ? g.obj1[0][f] : 0.0f);
+#pragma unroll
+                  for (int u = 1; u < REFL; ++u) v[f] += at[1 + u] ? g.obj1[u][f] : 0.0f;
+                }
+                v[RECT_FIELDS] = at[0] ? g.g_mir[0] : 0.0f;
+#pragma unroll
+                for (int u = 1; u < REFL; ++u) v[RECT_FIELDS] += at[u] ? g.g_mir[u] : 0.0f;
                 const float s = warp_sum_many(v, lane);
                 if (lane <= RECT_FIELDS) gs[rect_field_slot(ly, k - ly.N, lane)] += s;
               }
@@ -404,33 +432,43 @@ int launch_flat_step_instance(const float* flat, int n_sph, int n_rect, int n_li
                      flat, ly, flat_plan(ly), p, src, scratch, out, stream);
 }
 
-// The textured instance of refl 0 or 1 at spp 1 or 4 (the shared memory and
-// the scratch do not depend on the spp).
+// The kernel of a textured instance.
+template <int SPP, int REFL, class Src>
+const void* flat_step_tex_instance() {
+  return (const void*)flat_step_tex_kernel<SPP, REFL, Src>;
+}
+
+// The textured instance of refl 0 to MAX_REFL at spp 1 or 4 (the shared
+// memory and the scratch do not depend on the spp or refl).
 template <class Src>
 int launch_flat_step_tex(const float* flat, int n_sph, int n_rect, int n_light, const Params& p,
                          int refl, int spp, int Ks, int Kr, int Ke, Src src, float* scratch,
                          float* out, void* stream) {
-  if ((refl != 0 && refl != 1) || (spp != 1 && spp != 4)) return (int)cudaErrorInvalidValue;
+  if (refl < 0 || refl > MAX_REFL || (spp != 1 && spp != 4)) return (int)cudaErrorInvalidValue;
   const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
-  const void* kernel =
-      spp == 4 ? (refl ? (const void*)flat_step_tex_kernel<4, 1, Src>
-                       : (const void*)flat_step_tex_kernel<4, 0, Src>)
-               : (refl ? (const void*)flat_step_tex_kernel<1, 1, Src>
-                       : (const void*)flat_step_tex_kernel<1, 0, Src>);
-  return launch_flat(kernel, refl ? step_blocks_per_sm<1>() : step_blocks_per_sm<0>(), flat, ly,
+  using Pick = const void* (*)();
+  static const Pick kernels[2][1 + MAX_REFL] = {
+      {&flat_step_tex_instance<1, 0, Src>, &flat_step_tex_instance<1, 1, Src>,
+       &flat_step_tex_instance<1, 2, Src>, &flat_step_tex_instance<1, 3, Src>},
+      {&flat_step_tex_instance<4, 0, Src>, &flat_step_tex_instance<4, 1, Src>,
+       &flat_step_tex_instance<4, 2, Src>, &flat_step_tex_instance<4, 3, Src>}};
+  return launch_flat(kernels[spp == 4][refl](),
+                     refl ? step_blocks_per_sm<1>() : step_blocks_per_sm<0>(), flat, ly,
                      flat_plan(ly, true), p, src, scratch, out, stream);
 }
 
-// The instance of spp 1 or 4 with refl 0 or 1 bounce levels.
+// The instance of spp 1 or 4 with refl 0 to MAX_REFL bounce levels.
 template <class Src>
 int launch_flat_step(const float* flat, int n_sph, int n_rect, int n_light, const Params& p,
                      int spp, int refl, Src src, float* scratch, float* out, void* stream) {
-  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1)) return (int)cudaErrorInvalidValue;
-  const auto launch = refl ? (spp == 4 ? &launch_flat_step_instance<4, 1, Src>
-                                       : &launch_flat_step_instance<1, 1, Src>)
-                           : (spp == 4 ? &launch_flat_step_instance<4, 0, Src>
-                                       : &launch_flat_step_instance<1, 0, Src>);
-  return launch(flat, n_sph, n_rect, n_light, p, src, scratch, out, stream);
+  if ((spp != 1 && spp != 4) || refl < 0 || refl > MAX_REFL) return (int)cudaErrorInvalidValue;
+  using Launch = int (*)(const float*, int, int, int, const Params&, Src, float*, float*, void*);
+  static const Launch launches[2][1 + MAX_REFL] = {
+      {&launch_flat_step_instance<1, 0, Src>, &launch_flat_step_instance<1, 1, Src>,
+       &launch_flat_step_instance<1, 2, Src>, &launch_flat_step_instance<1, 3, Src>},
+      {&launch_flat_step_instance<4, 0, Src>, &launch_flat_step_instance<4, 1, Src>,
+       &launch_flat_step_instance<4, 2, Src>, &launch_flat_step_instance<4, 3, Src>}};
+  return launches[spp == 4][refl](flat, n_sph, n_rect, n_light, p, src, scratch, out, stream);
 }
 
 }  // namespace rrt

@@ -32,18 +32,19 @@
 // them. Each spp is its own instance (SPP); the spp-1 one runs one ray at the
 // pixel centre.
 //
-// One mirror bounce (REFL = 1, spp 1 or 4; the TPU kernel traces shade's bounce
-// recursion, pipeline.py:658-724): where the primary ray hit, a second
-// level from its shadow origin along the reflected direction (the same
-// walks, surface and Phong terms), its colour blended unclipped into the
-// first by the winner's mirror coefficient, col + m (col1 - col), and one
-// clip at the end. A hit with mirror 0 traces its bounce too (the same
-// bits: the blend adds 0). 2 L planes a subsample, bounce-major: plane
-// (1 + REFL) L q + L + l is level 1's light l of subsample q, 0 where either
-// level missed (pipeline.n_vis_planes). Each REFL is its own instance, so the
-// REFL = 0 ones keep their code.
+// Mirror bounces (REFL = 1 to MAX_REFL levels, spp 1 or 4; the TPU kernel
+// traces shade's bounce recursion, pipeline.py:658-724): where level v hit,
+// level v + 1 from its shadow origin along the reflected direction (the same
+// walks, surface and Phong terms; reflected()), each level's colour blended
+// unclipped into the one above by that level's winner's mirror coefficient,
+// col + m (rcol - col), deepest first, and one clip at the end. A hit with
+// mirror 0 traces its bounce too (the same bits: the blend adds 0). (1 +
+// REFL) L planes a subsample, bounce-major: plane (1 + REFL) L q + v L + l
+// is level v's light l of subsample q, 0 where that level or one above it
+// missed (pipeline.n_vis_planes). Each REFL is its own instance, so the
+// REFL = 0 and 1 ones keep their code.
 //
-// Texel grids (spp 1 or 4, REFL 0 or 1; render_kernel_tex, the TEX instances):
+// Texel grids (spp 1 or 4, REFL 0 to 3; render_kernel_tex, the TEX instances):
 // the scene staged with its grids (TexFlatScene), a textured winner's base
 // colour its grid's bilinear sample at a rect's (a, b) or at the lat-long
 // coordinates of a sphere's normal, and a missed ray's colour, at either
@@ -56,6 +57,30 @@
 using namespace rrt;
 
 constexpr int FWD_MIN_BLOCKS = 4;  // blocks an SM at the least
+
+// The levels below a hit (o, d, h) of a bounce: the colour of its reflected
+// ray's level blended with the LEFT - 1 levels below that, unclipped;
+// bits[v], the visibility bits of the v-th level down, where it is traced.
+template <int LEFT, class SC>
+__device__ __forceinline__ V3 reflected(const SC& sc, const Params& p, V3 o, V3 d, Nearest h,
+                                        unsigned* bits) {
+  const Surface s0 = surface(sc, o, d, h);
+  const V3 o1 = shadow_origin(o, d, h.t, s0.n);
+  const V3 d1 = reflect_dir(d, s0.n);
+  const Nearest h1 = trace(sc, o1, d1);
+  V3 col1 = miss_color(sc, d1);
+  if (h1.k >= 0) {
+    col1 = shade_hit(
+        sc, o1, d1, h1.t, surface(sc, o1, d1, h1),
+        [&](int, V3 so1, const LightGeo& g1) {
+          return !p.shadows || !occluded(sc, so1, g1.ldir, g1.dist);
+        },
+        bits);
+    if constexpr (LEFT > 1)
+      col1 = blend(col1, reflected<LEFT - 1>(sc, p, o1, d1, h1, bits + 1), mirror(sc, h1));
+  }
+  return col1;
+}
 
 // The kernel's body on the scene type SC (FlatScene, or TexFlatScene for the
 // textured instances) of layout LY.
@@ -93,26 +118,15 @@ __device__ __forceinline__ void render_body(const float* __restrict__ flat, Para
             return !p.shadows || !occluded(sc, so, g.ldir, g.dist);  // all lit without shadows
           },
           &bits);
-    if constexpr (REFL != 0) {  // the bounce: level 1 where level 0 hit, then the blend
-      unsigned bits1 = 0u;
-      if (h.k >= 0) {
-        const Surface s0 = surface(sc, cam.eye, d, h);
-        const V3 o1 = shadow_origin(cam.eye, d, h.t, s0.n);
-        const V3 d1 = reflect_dir(d, s0.n);
-        const Nearest h1 = trace(sc, o1, d1);
-        V3 col1 = miss_color(sc, d1);
-        if (h1.k >= 0)
-          col1 = shade_hit(
-              sc, o1, d1, h1.t, surface(sc, o1, d1, h1),
-              [&](int, V3 so1, const LightGeo& g1) {
-                return !p.shadows || !occluded(sc, so1, g1.ldir, g1.dist);
-              },
-              &bits1);
-        col = blend(col, col1, mirror(sc, h));
-      }
+    if constexpr (REFL != 0) {  // the bounces where level 0 hit, then the blend
+      unsigned bits1[REFL] = {};
+      if (h.k >= 0) col = blend(col, reflected<REFL>(sc, p, cam.eye, d, h, bits1), mirror(sc, h));
       if (p.shadows)
-        for (int l = 0; l < ly.L; ++l)
-          vis[(q * per_sub + ly.L + l) * plane + px] = ((bits1 >> l) & 1u) ? 1.0f : 0.0f;
+#pragma unroll
+        for (int v = 0; v < REFL; ++v)
+          for (int l = 0; l < ly.L; ++l)
+            vis[(q * per_sub + (v + 1) * ly.L + l) * plane + px] =
+                ((bits1[v] >> l) & 1u) ? 1.0f : 0.0f;
     }
     if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
     acc = q == 0 ? col : acc + col;
@@ -142,7 +156,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, FWD_MIN_BLOCKS)
 
 // The band entries (the wrappers'): H rows from image row row0 of an
 // image_h-row image (render_common.cuh band_params); img (H, W, 3) and the
-// planes (n_vis, H, W) are the band's. The textured instances: refl 0 or 1,
+// planes (n_vis, H, W) are the band's. The textured instances: refl 0 to 3,
 // spp 1 or 4 (spp (1 + refl) L planes), the texel grids' sides Ks, Kr, Ke (0
 // for none) in make_tex_layout's flat layout.
 extern "C" int rrt_render_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
@@ -151,11 +165,16 @@ extern "C" int rrt_render_tex_band(const float* flat, int n_sph, int n_rect, int
                                    void* stream) {
   const TexLayout ly = make_tex_layout(n_sph, n_rect, n_light, Ks, Kr, Ke);
   const Params p = band_params(H, W, shadows, clip, row0, image_h);
-  if ((refl != 0 && refl != 1) || (spp != 1 && spp != 4) || !band_ok(H, row0, image_h))
+  if (refl < 0 || refl > MAX_REFL || (spp != 1 && spp != 4) || !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
   const size_t smem = ly.S * sizeof(float);
-  const auto kernel = spp == 4 ? (refl ? render_kernel_tex<4, 1> : render_kernel_tex<4, 0>)
-                               : (refl ? render_kernel_tex<1, 1> : render_kernel_tex<1, 0>);
+  using K = void (*)(const float*, Params, TexLayout, float*, float*);
+  static const K kernels[2][1 + MAX_REFL] = {
+      {render_kernel_tex<1, 0>, render_kernel_tex<1, 1>, render_kernel_tex<1, 2>,
+       render_kernel_tex<1, 3>},
+      {render_kernel_tex<4, 0>, render_kernel_tex<4, 1>, render_kernel_tex<4, 2>,
+       render_kernel_tex<4, 3>}};
+  const K kernel = kernels[spp == 4][refl];
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -166,16 +185,19 @@ extern "C" int rrt_render_tex_band(const float* flat, int n_sph, int n_rect, int
   return (int)cudaGetLastError();
 }
 
-// spp 1 or 4 (spp (1 + refl) L planes), refl 0 or 1.
+// spp 1 or 4 (spp (1 + refl) L planes), refl 0 to 3.
 extern "C" int rrt_render_refl_band(const float* flat, int n_sph, int n_rect, int n_light,
                                     int H, int W, int shadows, int clip, int row0, int image_h,
                                     int spp, int refl, float* img, float* vis, void* stream) {
   const Layout ly = make_layout(n_sph, n_rect, n_light);
   const Params p = band_params(H, W, shadows, clip, row0, image_h);
-  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || !band_ok(H, row0, image_h))
+  if ((spp != 1 && spp != 4) || refl < 0 || refl > MAX_REFL || !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = spp == 4 ? (refl ? render_kernel<4, 1> : render_kernel<4, 0>)
-                               : (refl ? render_kernel<1, 1> : render_kernel<1, 0>);
+  using K = void (*)(const float*, Params, Layout, float*, float*);
+  static const K kernels[2][1 + MAX_REFL] = {
+      {render_kernel<1, 0>, render_kernel<1, 1>, render_kernel<1, 2>, render_kernel<1, 3>},
+      {render_kernel<4, 0>, render_kernel<4, 1>, render_kernel<4, 2>, render_kernel<4, 3>}};
+  const K kernel = kernels[spp == 4][refl];
   kernel<<<pixel_grid(H, W), dim3(BLOCK_X, BLOCK_Y), ly.S * sizeof(float),
            (cudaStream_t)stream>>>(flat, p, ly, img, vis);
   return (int)cudaGetLastError();

@@ -25,11 +25,12 @@
 // any-hit loops, against 12 bytes of cotangent and 4 bytes per visibility
 // plane read per pixel (chip_smoke.py counts both).
 //
-// One mirror bounce (refl 1, spp 1 or 4): the step's bounce adjoint, level
-// 1's visibility read from the forward's planes L + l of its subsample (2 L
-// planes a subsample, bounce-major), only where both levels hit.
+// Mirror bounces (refl 1 to 3, spp 1 or 4): the step's bounce adjoint, level
+// v's visibility read from the forward's planes v L + l of its subsample ((1
+// + refl) L planes a subsample, bounce-major), only where that level and
+// every level above hit.
 //
-// Texel grids (spp 1 or 4, refl 0 or 1): the step's textured instance with
+// Texel grids (spp 1 or 4, refl 0 to 3): the step's textured instance with
 // the forward's planes (flat_step.cuh TEX).
 #include "flat_step.cuh"
 
@@ -43,7 +44,7 @@ extern "C" long long rrt_render_bwd_scratch_floats(int n_sph, int n_rect, int n_
 // The band entries (the wrappers'): H rows from image row row0 of an
 // image_h-row image (render_common.cuh band_params); g_img the band's (H, W,
 // 3) cotangent and vis the band forward's planes. out = [0, d flat (S)]. spp
-// 1 or 4, refl 0 or 1: vis holds (1 + refl) L planes a subsample, at spp 4
+// 1 or 4, refl 0 to 3: vis holds (1 + refl) L planes a subsample, at spp 4
 // g_img is the cotangent of the average and vis the forward's 4 (1 + refl) L
 // planes (render_common.cuh pixel_grads).
 extern "C" int rrt_render_bwd_refl_band(const float* flat, int n_sph, int n_rect, int n_light,
@@ -57,7 +58,7 @@ extern "C" int rrt_render_bwd_refl_band(const float* flat, int n_sph, int n_rect
                           CotangentSource{g_img, vis, 1.0f}, scratch, out, stream);
 }
 
-// The textured instance: refl 0 or 1, spp 1 or 4, the grids' sides Ks, Kr, Ke.
+// The textured instance: refl 0 to 3, spp 1 or 4, the grids' sides Ks, Kr, Ke.
 extern "C" int rrt_render_bwd_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                        int W, int shadows, int clip, int row0, int image_h,
                                        int refl, int spp, int Ks, int Kr, int Ke,

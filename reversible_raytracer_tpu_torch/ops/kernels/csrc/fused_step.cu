@@ -59,7 +59,7 @@ extern "C" long long rrt_step_scratch_floats(int n_sph, int n_rect, int n_light,
 // image_h-row image (render_common.cuh band_params), the target the band's
 // (H, W, 3); w the caller's normalization (a band of a sharded step passes
 // the whole image's, so that the bands' sums are the whole image's step).
-// spp 1 or 4, refl 0 or 1 bounce levels: at spp 4 the loss is of the average
+// spp 1 or 4, refl 0 to 3 bounce levels: at spp 4 the loss is of the average
 // of the four clipped subsamples (render_common.cuh pixel_grads).
 extern "C" int rrt_step_refl_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                   int W, int shadows, int clip, int row0, int image_h, int spp,
@@ -71,7 +71,7 @@ extern "C" int rrt_step_refl_band(const float* flat, int n_sph, int n_rect, int 
                           ResidualSource{target, w}, scratch, out, stream);
 }
 
-// The textured instance: refl 0 or 1, spp 1 or 4, the texel grids' sides Ks,
+// The textured instance: refl 0 to 3, spp 1 or 4, the texel grids' sides Ks,
 // Kr, Ke (0 for none) in make_tex_layout's flat layout.
 extern "C" int rrt_step_tex_band(const float* flat, int n_sph, int n_rect, int n_light, int H,
                                  int W, int shadows, int clip, int row0, int image_h, int refl,

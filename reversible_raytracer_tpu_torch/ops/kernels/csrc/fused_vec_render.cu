@@ -50,27 +50,28 @@
 // (there is no surface, and the culls give such a lane no candidates); the
 // render backward reads the planes only where the ray hit.
 //
-// The environment map and one mirror bounce (one subsample a launch, four at
+// The environment map and mirror bounces (one subsample a launch, four at
 // spp 4 as for every instance; vec_render_levels_kernel,
 // REFL and ENV, the TPU kernel's env global and reflection levels,
 // fused_vec.py:405-440 and :907-946): with ENV the globals end with the
 // (Ke, Ke, 3) map (PackedEnvRows) and a missed ray's colour is its bilinear
 // sample at the lat-long coordinates of the ray's direction
 // (render_common.cuh miss_color: vecmath.py's atan2 and asin, op for op);
-// with REFL the sphere rows are staged with their mirror column and, where
-// level 0 hit, level 1 is traced from its shadow origin along the reflected
-// direction over every sphere (the 32 reflected rays leave 32 points in
-// scattered directions: the primary cone does not bound them), then every
-// rect; its shadow rays take the warp's ball cull of their origins
-// (warp_candidates) in the mask words that level 0's lights are done with;
-// its colour (the env's or the background at a miss) blends unclipped into
-// level 0's, col + m (col1 - col) with m the winner's mirror coefficient,
-// and one clip ends the pixel. 2 L planes, bounce-major: plane L + l is level
-// 1's light l, 0 where either level missed. Every instance runs one body
-// (vec_render_body), the bounce and the env behind if constexpr, so that
+// with REFL (1 to MAX_REFL levels) the sphere rows are staged with their
+// mirror column and, where level v hit, level v + 1 is traced from its
+// shadow origin along the reflected direction over every sphere (the 32
+// reflected rays leave 32 points in scattered directions: the primary cone
+// does not bound them), then every rect; its shadow rays take the warp's
+// ball cull of their origins (warp_candidates) in the mask words that the
+// level above's lights are done with; the levels' colours (the env's or the
+// background at a miss) blend unclipped deepest first, col + m (rcol - col)
+// with m the winner's mirror coefficient, and one clip ends the pixel. (1 +
+// REFL) L planes, bounce-major: plane v L + l is level v's light l, 0 where
+// that level or one above it missed. Every instance runs one body
+// (vec_render_body), the bounces and the env behind if constexpr, so that
 // vec_render_kernel, its <0, false> instance, keeps its code.
 //
-// Object texel grids (one subsample a launch, up to one bounce, with or without the env;
+// Object texel grids (one subsample a launch, up to MAX_REFL bounces, with or without the env;
 // vec_render_tex_kernel, the TPU kernel's texel tails, _row_plan:370,
 // _sphere_eval:467-471, _rect_eval:503): a textured winner's base colour at
 // either level is its grid's bilinear sample at the lat-long coordinates of
@@ -84,7 +85,7 @@ using namespace rrt;
 
 namespace {
 
-// The forward of every instance: REFL bounce levels (0 or 1), and with ENV
+// The forward of every instance: REFL bounce levels (0 to MAX_REFL), and with ENV
 // the environment map at the end of the globals; with TEX (and ENV, the map's
 // side Ke 0 for none) object texel grids.
 template <int REFL, bool ENV, bool TEX = false>
@@ -149,15 +150,37 @@ __device__ __forceinline__ void vec_render_body(const float* __restrict__ glob,
     const V3 so = shadow_origin(o, d, h.t, s.n);
     const unsigned bits = shadow_bits(so, hit);
     V3 col = shade(o, d, h, s, bits);
-    [[maybe_unused]] unsigned bits1 = 0u;
-    [[maybe_unused]] bool hit1 = false;
-    if constexpr (REFL != 0) {  // level 1 where level 0 hit, then the blend
-      const V3 d1 = reflect_dir(d, s.n);
-      const Nearest h1 = hit ? trace(sc, so, d1) : Nearest{BIG, -1};
-      hit1 = h1.k >= 0;
-      const Surface s1 = surface(sc, so, d1, h1);
-      bits1 = shadow_bits(shadow_origin(so, d1, h1.t, s1.n), hit1);
-      if (hit) col = blend(col, shade(so, d1, h1, s1, bits1), mirror(sc, h));
+    [[maybe_unused]] unsigned bits1[REFL > 0 ? REFL : 1] = {};
+    [[maybe_unused]] bool hit1[REFL > 0 ? REFL : 1] = {};
+    if constexpr (REFL != 0) {  // level v + 1 where level v hit, then the blends
+      V3 cols[REFL + 1] = {col};  // level v's colour, set where level v - 1 hit
+      float ms[REFL] = {};        // level v's mirror weight, set where it hit
+      V3 so_v = so, d_v = d;
+      Nearest h_v = h;
+      Surface s_v = s;
+#pragma unroll
+      for (int v = 0; v < REFL; ++v) {
+        const bool live = v == 0 ? hit : hit1[v - 1];
+        const V3 d1 = reflect_dir(d_v, s_v.n);
+        const Nearest h1 = live ? trace(sc, so_v, d1) : Nearest{BIG, -1};
+        hit1[v] = h1.k >= 0;
+        const Surface s1 = surface(sc, so_v, d1, h1);
+        const V3 so1 = shadow_origin(so_v, d1, h1.t, s1.n);
+        bits1[v] = shadow_bits(so1, hit1[v]);
+        if (live) {
+          cols[v + 1] = shade(so_v, d1, h1, s1, bits1[v]);
+          ms[v] = mirror(sc, h_v);
+        }
+        so_v = so1;
+        d_v = d1;
+        h_v = h1;
+        s_v = s1;
+      }
+      // deepest first, each level into the one above it where that one hit
+#pragma unroll
+      for (int v = REFL - 1; v >= 0; --v)
+        if (v == 0 ? hit : hit1[v - 1]) cols[v] = blend(cols[v], cols[v + 1], ms[v]);
+      col = cols[0];
     }
     if (p.clip) col = {clip01(col.x), clip01(col.y), clip01(col.z)};
     if (!inside) continue;
@@ -170,8 +193,11 @@ __device__ __forceinline__ void vec_render_body(const float* __restrict__ glob,
         vis[l * plane + px] = (hit && ((bits >> l) & 1u)) ? 1.0f : 0.0f;
     if constexpr (REFL != 0) {
       if (p.shadows)
-        for (int l = 0; l < gl.L; ++l)
-          vis[(gl.L + l) * plane + px] = (hit1 && ((bits1 >> l) & 1u)) ? 1.0f : 0.0f;
+#pragma unroll
+        for (int v = 0; v < REFL; ++v)
+          for (int l = 0; l < gl.L; ++l)
+            vis[((v + 1) * gl.L + l) * plane + px] =
+                (hit1[v] && ((bits1[v] >> l) & 1u)) ? 1.0f : 0.0f;
     }
   }
 }
@@ -183,8 +209,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   vec_render_body<0, false>(glob, sph, rct, N, M, ns_pad, nr_pad, gl, p, img, vis);
 }
 
-// The instances with the environment map (ENV) and/or one bounce level
-// (REFL), one subsample a launch.
+// The instances with the environment map (ENV) and/or REFL bounce levels,
+// one subsample a launch.
 template <int REFL, bool ENV>
 __global__ void __launch_bounds__(BLOCK_THREADS)
     vec_render_levels_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
@@ -253,7 +279,7 @@ extern "C" long long rrt_smem_optin() {
 
 // The band entries (the wrappers'): H rows from image row row0 of an
 // image_h-row image (render_common.cuh band_params); img (H, W, 3) and the
-// planes are the band's. The instance of refl bounce levels (0 or 1) and an
+// planes are the band's. The instance of refl bounce levels (0 to 3) and an
 // environment map of side ke (0 for none) at the subsample offset (oi, oj)
 // from the pixel centre, in rows and columns: at 0 and 0 L planes (the
 // instance of rrt_vec_render_at), else L (1 + refl) planes.
@@ -262,21 +288,26 @@ extern "C" int rrt_vec_render_levels_band(const float* glob, const float* sph, c
                                           int n_light, int H, int W, int shadows, int clip,
                                           int row0, int image_h, float oi, float oj, int refl,
                                           int ke, float* img, float* vis, void* stream) {
-  if ((refl != 0 && refl != 1) || ke < 0 || !band_ok(H, row0, image_h))
+  if (refl < 0 || refl > MAX_REFL || ke < 0 || !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
   const Params p = band_params(H, W, shadows, clip, row0, image_h, oi, oj);
   if (!refl && !ke)
     return launch_forward(vec_render_kernel, forward_smem(ns_pad, nr_pad, n_light), glob, sph,
                           rct, n_sph, n_rect, ns_pad, nr_pad, make_glayout(n_light), p, img, vis,
                           stream);
-  const auto launch = refl ? (ke ? &launch_levels<1, true> : &launch_levels<1, false>)
-                           : &launch_levels<0, true>;
+  using Launch = int (*)(const float*, const float*, const float*, int, int, int, int, int, int,
+                         const Params&, float*, float*, void*);
+  static const Launch launches[2][1 + MAX_REFL] = {
+      {nullptr, &launch_levels<1, false>, &launch_levels<2, false>, &launch_levels<3, false>},
+      {&launch_levels<0, true>, &launch_levels<1, true>, &launch_levels<2, true>,
+       &launch_levels<3, true>}};
+  const Launch launch = launches[ke != 0][refl];
   return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, img, vis,
                 stream);
 }
 
 // The instance with object texel grids of sides ks (the spheres', from stex)
-// and kr (the rects', from rtex), 0 for none, beside refl bounce levels and
+// and kr (the rects', from rtex), 0 for none, beside refl (0 to 3) bounce levels and
 // an environment map of side ke, at the subsample offset (oi, oj): L (1 +
 // refl) planes. Its shared memory is rrt_vec_render_levels_smem's (the grids
 // are read from global memory).
@@ -286,10 +317,14 @@ extern "C" int rrt_vec_render_tex_band(const float* glob, const float* sph, cons
                                        int W, int shadows, int clip, int row0, int image_h,
                                        float oi, float oj, int refl, int ke, int ks, int kr,
                                        float* img, float* vis, void* stream) {
-  if ((refl != 0 && refl != 1) || ke < 0 || ks < 0 || kr < 0 || !band_ok(H, row0, image_h))
+  if (refl < 0 || refl > MAX_REFL || ke < 0 || ks < 0 || kr < 0 || !band_ok(H, row0, image_h))
     return (int)cudaErrorInvalidValue;
   const Params p = band_params(H, W, shadows, clip, row0, image_h, oi, oj);
-  return launch_forward(refl ? vec_render_tex_kernel<1> : vec_render_tex_kernel<0>,
+  using K = void (*)(const float*, const float*, const float*, int, int, int, int, EnvGLayout,
+                     Params, float*, float*, TexGrids);
+  static const K kernels[1 + MAX_REFL] = {vec_render_tex_kernel<0>, vec_render_tex_kernel<1>,
+                                          vec_render_tex_kernel<2>, vec_render_tex_kernel<3>};
+  return launch_forward(kernels[refl],
                         forward_smem(ns_pad, nr_pad, n_light, refl, ke), glob, sph, rct, n_sph,
                         n_rect, ns_pad, nr_pad, make_env_glayout(n_light, ke), p, img, vis,
                         stream, TexGrids{stex, rtex, ks, kr});

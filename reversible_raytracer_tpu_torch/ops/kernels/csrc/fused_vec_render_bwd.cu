@@ -25,9 +25,9 @@
 // (their votes and any-hit walks); bytes: the cotangent (12 bytes per
 // pixel) and 4 bytes per visibility plane (chip_smoke.py counts both).
 //
-// The environment map and one bounce level: the step's spp-1
-// vec_step_levels_kernel with CotangentSource, level 1's light l read from
-// plane L + l of the forward's 2 L. Object texel grids: the step's spp-1
+// The environment map and one to three bounce levels: the step's spp-1
+// vec_step_levels_kernel with CotangentSource, level v's light l read from
+// plane v L + l of the forward's (1 + refl) L. Object texel grids: the step's spp-1
 // vec_step_tex_kernel with CotangentSource. At spp 4 either is launched
 // once a subsample, at its offsets, with that subsample's planes.
 #include "vec_step.cuh"

@@ -25,18 +25,18 @@
 // occluder, the shading and the adjoint; chip_smoke.py counts them). The
 // partial rows, one per block (a few hundred), are 1-2 MB of scratch.
 //
-// The environment map and one bounce level (spp 1 or 4, the TPU kernel's env
-// global and reflection levels: vec_step.cuh's vec_step_levels_kernel) add
-// per pixel the reflected ray's walk over every object, its shading, its
-// shadow rays over their culled candidates and its adjoint, the mirror
-// coefficient's gradient, and at a miss of either level the env's bilinear
+// The environment map and one to three bounce levels (spp 1 or 4, the TPU
+// kernel's env global and reflection levels: vec_step.cuh's
+// vec_step_levels_kernel) add per pixel each reflected ray's walk over every
+// object, its shading, its shadow rays over their culled candidates and its
+// adjoint, the mirror coefficients' gradient, and at a miss of any level the env's bilinear
 // sample and its adjoint (chip_smoke.py's bounce_counts and texel_counts
 // count them).
 //
-// Object texel grids (spp 1 or 4, up to one bounce, with or without the env; the
+// Object texel grids (spp 1 or 4, up to three bounces, with or without the env; the
 // TPU kernel's texel tails, _tex_nest and the _sphere_eval / _rect_eval
 // samples, fused_vec.py:207, :467-471, :503): vec_step.cuh's
-// vec_step_tex_kernel. A textured winner's base colour at either level is
+// vec_step_tex_kernel. A textured winner's base colour at any level is
 // its grid's bilinear sample, gathered from global memory (the TPU kernel's
 // dense hat-basis sampler, _make_sample_mxu, exists because Mosaic cannot
 // gather, and is not carried over); each level's texel record of each pixel

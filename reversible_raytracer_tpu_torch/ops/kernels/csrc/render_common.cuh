@@ -5,7 +5,7 @@
 // backwards (pixel_step, with the two sources of its cotangent and
 // visibility: ResidualSource, CotangentSource; pixel_grads, its loop over
 // the subsamples of spp 4, with any of the below; with REFL, one mirror
-// bounce level; with a TexFlatScene, object textures and the environment
+// bounce level or more; with a TexFlatScene, object textures and the environment
 // map; with a
 // PackedEnvRows, the environment map; with a PackedTexRows, both, the
 // object grids read from global memory), the texel records' scatter, and the
@@ -28,14 +28,15 @@
 //     space, so a pad row's index never names a real object.
 //
 // Semantics follow reversible_raytracer_tpu/ops/pipeline.py (hard shading,
-// spp 1 or 4, perspective camera, at most one mirror bounce; untextured
+// spp 1 or 4, perspective camera, at most MAX_REFL mirror bounces; untextured
 // objects and a flat background, or the texel grids of a TexFlatScene, a
 // PackedEnvRows or a PackedTexRows, at either spp and bounce count):
 //   - BIG, T_EPS and SHADOW_EPS as there;
 //   - nearest hit on strict <, spheres before rects, so ties go to the
 //     earlier object;
 //   - the guarded sqrt and normalize (sqrt(1) on the dead branch);
-//   - safe_pow(x, p) = exp(p * log x), zero at x <= 0.
+//   - safe_pow(x, p) = exp(p * log x), zero at x <= 0 (its exponent capped
+//     at POW_LOG_MAX, where the JAX package's overflows; see safe_pow).
 // Compiled without --use_fast_math (sqrtf, division, expf and logf stay
 // IEEE) and with --fmad=false, and the guarded normalize uses rsqrtf as
 // torch.rsqrt does on the card: the forward rounds op for op like the eager
@@ -57,9 +58,13 @@ constexpr int BLOCK_THREADS = BLOCK_X * BLOCK_Y;
 constexpr int NWARPS = BLOCK_THREADS / 32;
 // Blocks per SM of the flat and vec steps: ptxas keeps a thread in 128 registers.
 constexpr int STEP_BLOCKS_PER_SM = 2;
-// Blocks an SM of the step instances with a bounce level (flat_step.cuh,
+// Blocks an SM of the step instances with bounce levels (flat_step.cuh,
 // vec_step.cuh): the bounce's adjoint does not fit 128 registers.
 constexpr int REFL_STEP_BLOCKS_PER_SM = 1;
+// The most bounce levels an instance takes (fused.MAX_REFLECTIONS): a spp-4
+// step keeps a subsample's (1 + REFL) L shadow bits in one 64-bit word, at
+// most 16 lights a level.
+constexpr int MAX_REFL = 3;
 
 template <int REFL>
 constexpr int step_blocks_per_sm() {
@@ -478,8 +483,17 @@ __device__ __forceinline__ float guarded_inv(float n2) {
   return rsqrtf(n2 > 1e-12f ? n2 : 1.0f);
 }
 
+// safe_pow's exponent p log x is capped at POW_LOG_MAX (x^p <= e^64, about
+// 6e27). Of unit vectors the Phong term's x is at most 1 and the cap never
+// binds; past a near-tangent hit a bounce level's normal and reflected ray
+// lose their unit length, x^p can overflow, and the adjoint's zero cotangent
+// (the clip's) times that infinity would be NaN.
+constexpr float POW_LOG_MAX = 64.0f;
+
 __device__ __forceinline__ float safe_pow(float x, float p) {
-  return x > 0.0f ? expf(p * logf(x)) : 0.0f;
+  if (!(x > 0.0f)) return 0.0f;
+  const float z = p * logf(x);
+  return expf(z < POW_LOG_MAX ? z : POW_LOG_MAX);
 }
 
 // x - 2 floor(x / 2): jnp.mod / torch.remainder for the integer-valued
@@ -974,11 +988,12 @@ struct CotangentSource {
 // gradient), the squared residual on the first subsample only, and the
 // visibility bits the subsample's first forward found with its shadow rays,
 // so the replay casts none.
+template <class Word = unsigned>
 struct SubsampleSource {
   static constexpr bool casts_shadows = false;
   V3 g;
   float sq;
-  unsigned bits;
+  Word bits;  // light l of level v at bit v L + l
 
   __device__ __forceinline__ V3 cotangent(const Params&, int, int, bool, V3, float* out) const {
     *out = sq;
@@ -990,6 +1005,11 @@ struct SubsampleSource {
     return ((bits >> l) & 1u) != 0;
   }
 };
+
+// The word of a subsample's visibility bits at REFL bounce levels: 32 bits
+// hold (1 + REFL) L for REFL <= 1 at 16 lights, 64 for REFL <= 3.
+template <int REFL>
+using BitsWord = typename std::conditional<(REFL > 1), unsigned long long, unsigned>::type;
 
 // How pixel_step walks the objects. FullWalk, the small-scene step and
 // render backward (flat_step.cuh): every object for the primary ray, the
@@ -1026,12 +1046,14 @@ struct PixelGrad {
   float obj[RECT_FIELDS];  // its gradient, SPH_FIELDS or RECT_FIELDS order
 };
 
-// With one bounce level (REFL): also the gradient of the level-0 winner's
-// mirror coefficient and level 1's winner and its gradient.
+// With R bounce levels (REFL): also the gradient of the mirror coefficient
+// of each level's winner above the deepest (g_mir[l], level l's), and each
+// bounce level's winner and its gradient (k1[l] and obj1[l], level l + 1's).
+template <int R>
 struct BounceGrad : PixelGrad {
-  float g_mir;
-  int k1;                   // level 1's winner, -1 where level 0 or 1 missed
-  float obj1[RECT_FIELDS];  // its gradient
+  float g_mir[R];
+  int k1[R];                   // -1 where the level or one above it missed
+  float obj1[R][RECT_FIELDS];  // its gradient
 };
 
 // The forward of pixel (i, j) as pixel_step runs it: the camera and the
@@ -1046,32 +1068,36 @@ struct PixelForward {
   unsigned bits;
 };
 
-// Level 1 of a bounce: the reflected ray (o, d), its nearest hit, surface
-// and visibility bits (src.lit of planes L + l), its unclipped colour col;
-// level 0's unclipped colour col0 and mirror weight m (0 on a miss).
+// Bounce level l + 1 (b[l]): the reflected ray (o, d), its nearest hit,
+// surface and visibility bits (src.lit of planes (l + 1) L + light), its
+// unclipped colour col and the blend of it and the levels below it, rc; the
+// level above's unclipped colour col0 and mirror weight m (0 on a miss).
 struct Bounce {
   V3 o, d;
   Nearest h;
   Surface s;
-  V3 col0, col;
+  V3 col0, col, rc;
   unsigned bits;
   float m;
 };
 
+template <int R>
 struct BounceForward : PixelForward {
-  Bounce b;
+  Bounce b[R];
 };
 
-// The forward's and the gradient's types at REFL bounce levels (0 or 1).
+// The forward's and the gradient's types at REFL bounce levels (0 to
+// MAX_REFL).
 template <int REFL>
 struct Levels {
-  using Forward = PixelForward;
-  using Grad = PixelGrad;
+  static_assert(REFL >= 1 && REFL <= MAX_REFL, "0 to MAX_REFL bounce levels");
+  using Forward = BounceForward<REFL>;
+  using Grad = BounceGrad<REFL>;
 };
 template <>
-struct Levels<1> {
-  using Forward = BounceForward;
-  using Grad = BounceGrad;
+struct Levels<0> {
+  using Forward = PixelForward;
+  using Grad = PixelGrad;
 };
 
 // A pixel's texel record: the cotangent g of one bilinear sample (a textured
@@ -1080,9 +1106,9 @@ struct Levels<1> {
 // slot base of the gradient row it is scattered into (the flat scene's, or
 // a PackedEnvRows' globals, or a PackedTexRows' block texel row; -1: the
 // pixel has none). In a TexFlatScene or a PackedEnvRows a pixel has at most
-// one: their object textures take no bounce, and a level-1 miss follows a
-// level-0 hit. A PackedTexRows pixel has besides one record of each level's
-// textured winner (WithObjTexels).
+// one: their object textures take no bounce, and a miss at a bounce level
+// follows a hit at every level above it. A PackedTexRows pixel has besides
+// one record of each level's textured winner (WithObjTexels).
 struct TexelRec {
   int base, K;
   TexW w;
@@ -1159,10 +1185,10 @@ __device__ __forceinline__ void scatter_texels(const TexelRec& r, float* gs, flo
   }
 }
 
-// With REFL, level 1 is traced only where level 0 hit (elsewhere m = 0 and
-// the blend keeps col0 to the bit) by the walk's trace_bounce, and its
-// shadow rays' votes are cast (walk.shadows) after level 0's shadow rays
-// are done; pre is then the blend, unclipped.
+// With REFL, level l + 1 is traced only where level l hit (elsewhere m_l =
+// 0 and the blend keeps col_l to the bit) by the walk's trace_bounce, and its
+// shadow rays' votes are cast (walk.shadows) after level l's shadow rays are
+// done; pre is then the levels' blend, deepest first, unclipped.
 template <int REFL = 0, class S, class Src, class Walk>
 __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
     const S& sc, const Params& p, int i, int j, bool inside, const Src& src, const Walk& walk) {
@@ -1187,28 +1213,47 @@ __device__ __forceinline__ typename Levels<REFL>::Forward pixel_forward(
         },
         &f.bits);
   if constexpr (REFL != 0) {
-    Bounce& b = f.b;
-    b.col0 = f.pre;
-    b.m = mirror(sc, f.h);
-    b.o = shadow_origin(o, d, f.h.t, f.s.n);
-    b.d = reflect_dir(d, f.s.n);
-    b.h = walk.trace_bounce(sc, b.o, b.d, hit);
-    b.s = surface(sc, b.o, b.d, b.h);
-    walk.shadows(sc, p, src, shadow_origin(b.o, b.d, b.h.t, b.s.n), b.h.k >= 0);
-    b.bits = 0;
-    b.col = sc.background();
-    if constexpr (HasEnv<S>::value) {
-      if (hit) b.col = miss_color(sc, b.d);  // (where level 0 missed, m = 0 drops it)
+    V3 o_up = o, d_up = d, col_up = f.pre;
+    Nearest h_up = f.h;
+    Surface s_up = f.s;
+    bool live = hit;  // level v, the one above b, hit (and every level above it)
+#pragma unroll
+    for (int v = 0; v < REFL; ++v) {
+      Bounce& b = f.b[v];
+      b.col0 = col_up;
+      b.m = mirror(sc, h_up);
+      b.o = shadow_origin(o_up, d_up, h_up.t, s_up.n);
+      b.d = reflect_dir(d_up, s_up.n);
+      b.h = walk.trace_bounce(sc, b.o, b.d, live);
+      b.s = surface(sc, b.o, b.d, b.h);
+      walk.shadows(sc, p, src, shadow_origin(b.o, b.d, b.h.t, b.s.n), b.h.k >= 0);
+      b.bits = 0;
+      b.col = sc.background();
+      if constexpr (HasEnv<S>::value) {
+        if (live) b.col = miss_color(sc, b.d);  // (where a level above missed, m = 0 drops it)
+      }
+      if (b.h.k >= 0)
+        b.col = shade_hit(
+            sc, b.o, b.d, b.h.t, b.s,
+            [&](int l, V3 so1, const LightGeo& g1) {
+              return src.lit(p, i, j, (v + 1) * sc.n_light() + l,
+                             [&] { return walk.occluded(sc, l, so1, g1); });
+            },
+            &b.bits);
+      o_up = b.o;
+      d_up = b.d;
+      col_up = b.col;
+      h_up = b.h;
+      s_up = b.s;
+      live = b.h.k >= 0;
     }
-    if (b.h.k >= 0)
-      b.col = shade_hit(
-          sc, b.o, b.d, b.h.t, b.s,
-          [&](int l, V3 so1, const LightGeo& g1) {
-            return src.lit(p, i, j, sc.n_light() + l,
-                           [&] { return walk.occluded(sc, l, so1, g1); });
-          },
-          &b.bits);
-    f.pre = blend(b.col0, b.col, b.m);
+    V3 c = f.b[REFL - 1].col;
+#pragma unroll
+    for (int v = REFL - 1; v >= 0; --v) {
+      f.b[v].rc = c;
+      c = blend(f.b[v].col0, c, f.b[v].m);
+    }
+    f.pre = c;
   }
   return f;
 }
@@ -1265,7 +1310,8 @@ __device__ __forceinline__ ShadeGrad shade_adjoint(const S& sc, V3 gh, V3 o, V3 
       a.g_ks += g_spec * pw;
       const float g_pw = g_spec * s.ks;
       float g_rdotv = 0.0f;
-      if (rdotv > 0.0f) {  // safe_pow: exp(shin * log x), no gradient at x <= 0
+      // safe_pow: exp(shin * log x), no gradient at x <= 0 or past the cap
+      if (rdotv > 0.0f && s.shin * logf(rdotv) < POW_LOG_MAX) {
         g_rdotv = g_pw * pw * s.shin / rdotv;
         a.g_shin += g_pw * pw * logf(rdotv);
       }
@@ -1536,19 +1582,23 @@ __device__ __forceinline__ void object_adjoint_tex(const S& sc, V3 o, V3 d, cons
 // every lane of a warp runs together. Lanes outside the image run every step
 // with zero cotangents: the warp-wide shuffles and votes need all 32.
 //
-// With REFL the adjoint runs deepest level first: of pre = col0 + m (col1 -
-// col0), level 1's shading and winner under m gc (its lights' gradients to
-// on_light too), the cotangents of its ray (o1, d1)
-// carried into level 0's shadow origin (o1 is that point), normal and
-// direction (d1 = d - 2 (d . n) n), then level 0 under (1 - m) gc, and the
-// mirror coefficient's (col1 - col0) . gc.
+// With REFL the adjoint runs deepest level first. Of the blends c_v = col_v
+// + m_v (c_{v+1} - col_v) (c_REFL = col_REFL, pre = c_0), the cotangent g_v
+// of c_v gives g_{v+1} = m_v g_v, level v's colour (1 - m_v) g_v (the
+// deepest's g_REFL) and the mirror coefficient of level v's winner (c_{v+1}
+// - col_v) . g_v. Each bounce level's shading and winner under its colour's
+// cotangent (its lights' gradients to on_light too), the cotangents of its
+// ray (o', d') carried into the level above's shadow origin (o' is that
+// point), normal and direction (d' = d - 2 (d . n) n), where they join that
+// level's own; level 0 last.
 //
 // In a TexFlatScene or a PackedEnvRows (HasEnv: GradOf's WithTexels) the
 // pixel's texel record goes out with its gradient: a textured winner's
 // (object_adjoint_tex, a TexFlatScene's only), or the environment's at a
-// miss of level 0, or of level 1 where level 0 hit, whose cotangent also
-// reaches that level's ray direction (env_adjoint: the camera, or through
-// d1 = d - 2 (d . n) n level 0's d and n); the background then gets none.
+// miss of level 0, or of a bounce level where every level above hit, whose
+// cotangent also reaches that level's ray direction (env_adjoint: the camera,
+// or through d' = d - 2 (d . n) n the level above's d and n); the background
+// then gets none.
 // In a PackedTexRows (WithObjTexels) each level's textured winner has its
 // own record (otex[level]), the environment's the other (tex).
 template <int REFL = 0, class S, class Src, class Walk, class OnLight>
@@ -1580,39 +1630,64 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
   V3 gc = src.cotangent(p, i, j, inside, img, &out.sq);
   if (p.clip) gc = {gc.x * clipgrad(pre.x), gc.y * clipgrad(pre.y), gc.z * clipgrad(pre.z)};
 
-  // ---- level 1, and its ray's cotangents into level 0's
-  [[maybe_unused]] V3 g_so_in, g_n_in, g_d_in, g_bg1;
-  [[maybe_unused]] ShadeGrad a1;
+  // ---- the bounce levels, deepest first, each ray's cotangents into the
+  // level above's
+  [[maybe_unused]] V3 g_so_in = zero3(), g_n_in = zero3(), g_d_in = zero3(), g_bg1 = zero3(),
+                      g_amb1 = zero3();
   if constexpr (REFL != 0) {
-    const Bounce& b = fw.b;
-    out.g_mir = hit ? dot(gc, b.col - b.col0) : 0.0f;
-    const V3 gc1 = gc * b.m;
-    gc = gc * (1.0f - b.m);
-    const bool hit1 = b.h.k >= 0;
-    g_bg1 = hit1 ? zero3() : gc1;
-    a1 = shade_adjoint(sc, hit1 ? gc1 : zero3(), b.o, b.d, b.h.t, b.s, hit1, b.bits, on_light);
-    // shadow origin so1 = (o1 + d1 t1) + n1 SHADOW_EPS
-    V3 g_o1 = a1.g_so;
-    V3 g_d1 = a1.g_d + a1.g_so * b.h.t;
-    const float g_t1 = dot(a1.g_so, b.d);
-    const V3 g_n1 = a1.g_n + a1.g_so * SHADOW_EPS;
-    if constexpr (ENV) {
-      if (sc.Ke) {
-        g_bg1 = zero3();
-        if (hit && !hit1) g_d1 = g_d1 + env_adjoint(sc, b.d, gc1, out.tex);
-      }
+    V3 gv[REFL + 1];  // the blends' cotangents, then each level's colour's
+    gv[0] = gc;
+#pragma unroll
+    for (int v = 0; v < REFL; ++v) {
+      const Bounce& b = fw.b[v];
+      const bool hit_v = v == 0 ? hit : fw.b[v - 1].h.k >= 0;
+      out.g_mir[v] = hit_v ? dot(gv[v], b.rc - b.col0) : 0.0f;
+      gv[v + 1] = gv[v] * b.m;
+      gv[v] = gv[v] * (1.0f - b.m);
     }
-    if constexpr (OBJTEX)  // level 1's textured winner: its own texel record
-      object_adjoint_tex(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1,
-                         out.otex[1]);
-    else
-      object_adjoint(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1);
-    out.k1 = b.h.k;
-    // o1 = so0; d1 = d - 2 (d . n) n
-    g_so_in = hit ? g_o1 : zero3();
-    const float gdn = hit ? dot(s.n, g_d1) : 0.0f;
-    g_d_in = hit ? g_d1 - s.n * (2.0f * gdn) : zero3();
-    g_n_in = hit ? (d * gdn + g_d1 * dot(d, s.n)) * -2.0f : zero3();
+    gc = gv[0];
+#pragma unroll
+    for (int v = REFL; v >= 1; --v) {
+      const Bounce& b = fw.b[v - 1];
+      const bool live = v == 1 ? hit : fw.b[v - 2].h.k >= 0;  // the level above hit
+      const V3 gc1 = gv[v];
+      const bool hit1 = b.h.k >= 0;
+      V3 g_bgv = hit1 ? zero3() : gc1;
+      const ShadeGrad a1 =
+          shade_adjoint(sc, hit1 ? gc1 : zero3(), b.o, b.d, b.h.t, b.s, hit1, b.bits, on_light);
+      V3 g_sov = a1.g_so, g_dv = a1.g_d, g_nv = a1.g_n;
+      if (v < REFL) {  // the level below's ray leaves this level's shadow origin
+        g_sov = g_sov + g_so_in;
+        g_nv = g_nv + g_n_in;
+        g_dv = g_dv + g_d_in;
+      }
+      // shadow origin so' = (o' + d' t') + n' SHADOW_EPS
+      V3 g_o1 = g_sov;
+      V3 g_d1 = g_dv + g_sov * b.h.t;
+      const float g_t1 = dot(g_sov, b.d);
+      const V3 g_n1 = g_nv + g_sov * SHADOW_EPS;
+      if constexpr (ENV) {
+        if (sc.Ke) {
+          g_bgv = zero3();
+          if (live && !hit1) g_d1 = g_d1 + env_adjoint(sc, b.d, gc1, out.tex);
+        }
+      }
+      if constexpr (OBJTEX)  // this level's textured winner: its own texel record
+        object_adjoint_tex(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1,
+                           out.obj1[v - 1], out.otex[v]);
+      else
+        object_adjoint(sc, b.o, b.d, b.h, hit1, b.s, a1, g_t1, g_n1, g_o1, g_d1, out.obj1[v - 1]);
+      out.k1[v - 1] = b.h.k;
+      g_bg1 = v == REFL ? g_bgv : g_bg1 + g_bgv;
+      g_amb1 = v == REFL ? a1.g_amb : g_amb1 + a1.g_amb;
+      // o' = so; d' = d - 2 (d . n) n, of the level above
+      const V3 n_up = v == 1 ? s.n : fw.b[v - 2].s.n;
+      const V3 d_up = v == 1 ? d : fw.b[v - 2].d;
+      g_so_in = live ? g_o1 : zero3();
+      const float gdn = live ? dot(n_up, g_d1) : 0.0f;
+      g_d_in = live ? g_d1 - n_up * (2.0f * gdn) : zero3();
+      g_n_in = live ? (d_up * gdn + g_d1 * dot(d_up, n_up)) * -2.0f : zero3();
+    }
   }
 
   // ---- shade adjoint: ambient term, then light by light
@@ -1631,7 +1706,7 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
   }
   if constexpr (REFL != 0) {
     out.g_bg = out.g_bg + g_bg1;
-    out.g_amb = out.g_amb + a1.g_amb;
+    out.g_amb = out.g_amb + g_amb1;
     g_so = g_so + g_so_in;
     g_n = g_n + g_n_in;
     g_d = g_d + g_d_in;
@@ -1669,9 +1744,10 @@ __device__ __forceinline__ GradOf<REFL, S> pixel_step(const S& sc, const Params&
 // c3 times 0.25 as render_tile sums them:
 //   - where src casts shadow rays (the steps), the residual is of the
 //     average, so the four forwards run first, each keeping its visibility
-//     bits (with REFL, level 0's in bits 0..L-1 and level 1's in L..2L-1:
-//     2 L <= 32, one word a subsample, as src.lit numbers level 1's lights L
-//     + l); then src's cotangent of the average, times 0.25, and each
+//     bits (level v's in bits v L .. v L + L - 1, as src.lit numbers level
+//     v's lights v L + l: one word a subsample, BitsWord's 32 bits for (1 +
+//     REFL) L <= 32, 64 for REFL up to MAX_REFL at 16 lights); then src's
+//     cotangent of the average, times 0.25, and each
 //     subsample's forward and adjoint replayed with it and its bits
 //     (SubsampleSource: no shadow rays the second time, at either level);
 //   - the render backwards' caller gives the average's cotangent: each
@@ -1686,16 +1762,20 @@ __device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i,
   if constexpr (SPP == 1) {
     take(pixel_step<REFL>(sc, p, i, j, inside, src, walk, on_light));
   } else if constexpr (Src::casts_shadows) {
+    using Word = BitsWord<REFL>;
     V3 acc = zero3();
-    unsigned bits[4];  // one word a subsample: at most 16 lights (MAX_LIGHTS) a level
+    Word bits[4];  // one word a subsample: at most 16 lights (MAX_LIGHTS) a level
 #pragma unroll 1
     for (int q = 0; q < 4; ++q) {
       const typename Levels<REFL>::Forward fw =
           pixel_forward<REFL>(sc, subsample(p, q), i, j, inside, src, walk);
       const V3 img = p.clip ? V3{clip01(fw.pre.x), clip01(fw.pre.y), clip01(fw.pre.z)} : fw.pre;
       acc = q == 0 ? img : acc + img;
-      unsigned w = fw.bits;
-      if constexpr (REFL != 0) w |= fw.b.bits << sc.n_light();
+      Word w = fw.bits;
+      if constexpr (REFL != 0) {
+#pragma unroll
+        for (int v = 0; v < REFL; ++v) w |= (Word)fw.b[v].bits << ((v + 1) * sc.n_light());
+      }
       bits[q] = w;
     }
     float sq;
@@ -1703,7 +1783,8 @@ __device__ __forceinline__ void pixel_grads(const S& sc, const Params& p, int i,
 #pragma unroll 1
     for (int q = 0; q < 4; ++q)
       take(pixel_step<REFL>(sc, subsample(p, q), i, j, inside,
-                            SubsampleSource{g, q == 0 ? sq : 0.0f, bits[q]}, walk, on_light));
+                            SubsampleSource<Word>{g, q == 0 ? sq : 0.0f, bits[q]}, walk,
+                            on_light));
   } else {
 #pragma unroll 1
     for (int q = 0; q < 4; ++q)

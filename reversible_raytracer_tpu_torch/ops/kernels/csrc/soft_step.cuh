@@ -471,7 +471,8 @@ __device__ __forceinline__ void soft_step_body(const float* __restrict__ glob,
           g_ks += g_spec * pw;
           const float g_pw = g_spec * s.ks;
           float g_rdotv = 0.0f;
-          if (rdotv > 0.0f) {  // safe_pow: exp(shin * log x), no gradient at x <= 0
+          // safe_pow: exp(shin * log x), no gradient at x <= 0 or past the cap
+          if (rdotv > 0.0f && s.shin * logf(rdotv) < POW_LOG_MAX) {
             g_rdotv = g_pw * pw * s.shin / rdotv;
             g_shin += g_pw * pw * logf(rdotv);
           }

@@ -51,25 +51,25 @@
 // offsets (Params oi, oj), as the TPU's four launches at the runtime offsets
 // of off_ref. Each spp is its own instance (SPP).
 //
-// The environment map and one mirror bounce (spp 1 or 4; vec_step_levels_kernel,
+// The environment map and mirror bounces (spp 1 or 4; vec_step_levels_kernel,
 // REFL and ENV, the TPU kernel's env global and reflection levels,
 // fused_vec.py:405-440, :1015-1054, :1220-1266): each thread runs
 // pixel_step<REFL> on a PackedEnvRows (ENV: the env ends the globals,
 // make_env_glayout) or a PackedScene.
-//    - Level 1 is traced where level 0 hit, from level 0's shadow origin
-//      along the reflected direction, over every sphere (WarpCull::
-//      trace_bounce: the 32 rays leave 32 surface points in scattered
-//      directions, so the primary cone does not bound them), then every
-//      rect. Its shadow rays take the warp's ball cull of their origins
-//      (warp_candidates, valid from any origins), cast after level 0's
-//      shadow rays are done with the lights' mask words.
-//    - The winner lists: a warp can hit 64 distinct objects over two levels,
-//      but its list holds 32 (one entry a lane), so it builds one list per
-//      level, level 0's (with the mirror coefficient's gradient, column 16
-//      of P_SPH and 21 of P_RCT, the field after the others) then level
-//      1's, each added to the block row in warp order.
+//    - Level v + 1 (REFL = 1 to MAX_REFL levels) is traced where level v
+//      hit, from level v's shadow origin along the reflected direction, over
+//      every sphere (WarpCull::trace_bounce: the 32 rays leave 32 surface
+//      points in scattered directions, so the primary cone does not bound
+//      them), then every rect. Its shadow rays take the warp's ball cull of
+//      their origins (warp_candidates, valid from any origins), cast after
+//      level v's shadow rays are done with the lights' mask words.
+//    - The winner lists: a warp can hit 32 (1 + REFL) distinct objects over
+//      its levels, but its list holds 32 (one entry a lane), so it builds
+//      one list per level, level 0's first, each above the deepest with the
+//      mirror coefficient's gradient (column 16 of P_SPH and 21 of P_RCT, the
+//      field after the others), each added to the block row in warp order.
 //    - The env's gradient: each pixel's texel record (a miss of level 0, or
-//      of level 1 where level 0 hit) is scattered into the warp's globals
+//      of a bounce level where every level above hit) is scattered into the warp's globals
 //      row, in lane order (render_common.cuh scatter_texels), with 32 x 16
 //      words of staging a warp; the row grows by the 3 Ke^2 texels.
 //    - A bounce needs more registers than two blocks an SM leave
@@ -81,10 +81,10 @@
 // global memory (64 globes at 16 x 16 texels are 192 KiB: a block cannot
 // stage them beside their gradient).
 //    - A pixel has a texel record for each level's textured winner (level
-//      1's winner can be any sphere) besides the env's. After each tile's
+//      v's winner can be any sphere) besides the env's. After each tile's
 //      winner lists the warps take turns, a barrier between, each
-//      scattering its records in lane order (scatter_texels, level 0's then
-//      level 1's; the env's into its globals row) through one staging of 32
+//      scattering its records in lane order (scatter_texels, level 0's
+//      first; the env's into its globals row) through one staging of 32
 //      records that the block shares.
 //    - The block's texel row (3 (N Ks^2 + M Kr^2) floats in shared memory,
 //      tex_step_plan) ends its partial row, so reduce_rows_kernel sums it in
@@ -313,15 +313,20 @@ __device__ __forceinline__ void vec_step_body(const float* __restrict__ glob,
           if constexpr (REFL == 0) {
             add_level_winners<false>(pg.k, pg.obj, 0.0f, ns_pad, orow, lane, warp);
           } else {
-            // ---- with a bounce: level 0's list (its mirror coefficients'
-            // gradient too), then level 1's
-            add_level_winners<true>(pg.k, pg.obj, pg.g_mir, ns_pad, orow, lane, warp);
-            add_level_winners<false>(pg.k1, pg.obj1, 0.0f, ns_pad, orow, lane, warp);
+            // ---- with bounces: level 0's list, then each bounce level's (with
+            // the mirror coefficients' gradient, but the deepest)
+            add_level_winners<true>(pg.k, pg.obj, pg.g_mir[0], ns_pad, orow, lane, warp);
+#pragma unroll
+            for (int v = 1; v < REFL; ++v)
+              add_level_winners<true>(pg.k1[v - 1], pg.obj1[v - 1], pg.g_mir[v], ns_pad, orow,
+                                      lane, warp);
+            add_level_winners<false>(pg.k1[REFL - 1], pg.obj1[REFL - 1], 0.0f, ns_pad, orow,
+                                     lane, warp);
           }
           if constexpr (OBJTEX) {
             // ---- the texel records into the block's texel row (the env's
             // into the warp's globals row), warp by warp, each warp's in
-            // lane order, level 0's before level 1's
+            // lane order, level 0's first
             for (int v = 0; v < NWARPS; ++v) {
               if (v == warp) {
                 scatter_texels(pg.tex, gs, trec, lane);
@@ -359,8 +364,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, STEP_BLOCKS_PER_SM)
                                           partials);
 }
 
-// The instances with the environment map (ENV) and/or one bounce level
-// (REFL), at SPP samples a pixel.
+// The instances with the environment map (ENV) and/or REFL bounce levels, at
+// SPP samples a pixel.
 template <int SPP, int REFL, bool ENV, class Src>
 __global__ void __launch_bounds__(BLOCK_THREADS, step_blocks_per_sm<REFL>())
     vec_step_levels_kernel(const float* __restrict__ glob, const float* __restrict__ sph,
@@ -447,7 +452,7 @@ int launch_vec_levels(const float* glob, const float* sph, const float* rct, int
                              stream);
 }
 
-// The textured instance of refl 0 or 1 bounce levels, an environment map of
+// The textured instance of refl 0 to MAX_REFL bounce levels, an environment map of
 // side ke (0 for none) and object texel grids tg, at spp 1 or 4 (the shared
 // memory and the scratch do not depend on the spp); out = [sq, dglob, dsph,
 // drct, the spheres' texels, the rects'].
@@ -456,7 +461,7 @@ int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, i
                         int n_rect, int n_light, int ke, const TexGrids& tg, const Params& p,
                         int refl, Src src, float* scratch, float* out, void* stream,
                         int spp = 1) {
-  if ((refl != 0 && refl != 1) || (spp != 1 && spp != 4) || ke < 0 || tg.Ks < 0 || tg.Kr < 0)
+  if (refl < 0 || refl > MAX_REFL || (spp != 1 && spp != 4) || ke < 0 || tg.Ks < 0 || tg.Kr < 0)
     return (int)cudaErrorInvalidValue;
   const StepPlan plan = tex_step_plan(n_sph, n_rect, n_light, ke, tg.Ks, tg.Kr);
   int dev = 0, optin = 0;
@@ -465,12 +470,19 @@ int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, i
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (plan.smem > (size_t)optin) return (int)cudaErrorInvalidValue;  // Python refuses it first
-  auto kernel = refl ? vec_step_tex_kernel<1, 1, Src> : vec_step_tex_kernel<1, 0, Src>;
+  using K = decltype(&vec_step_tex_kernel<1, 0, Src>);
+  static const K spp1[1 + MAX_REFL] = {vec_step_tex_kernel<1, 0, Src>, vec_step_tex_kernel<1, 1, Src>,
+                                       vec_step_tex_kernel<1, 2, Src>, vec_step_tex_kernel<1, 3, Src>};
+  K kernel = spp1[refl];
   if (spp == 4) {  // the step's loop; the render backward launches a subsample at spp 1
-    if constexpr (Src::casts_shadows)
-      kernel = refl ? vec_step_tex_kernel<4, 1, Src> : vec_step_tex_kernel<4, 0, Src>;
-    else
+    if constexpr (Src::casts_shadows) {
+      static const K spp4[1 + MAX_REFL] = {
+          vec_step_tex_kernel<4, 0, Src>, vec_step_tex_kernel<4, 1, Src>,
+          vec_step_tex_kernel<4, 2, Src>, vec_step_tex_kernel<4, 3, Src>};
+      kernel = spp4[refl];
+    } else {
       return (int)cudaErrorInvalidValue;
+    }
   }
   return launch_vec_instance(kernel, 1, glob, sph, rct, n_sph, n_rect, pad16(n_sph),
                              pad16(n_rect), make_env_glayout(n_light, ke), plan, p, src, scratch,
@@ -479,28 +491,36 @@ int launch_vec_step_tex(const float* glob, const float* sph, const float* rct, i
 
 // The instance of the call, on one stream; out = [sq, dglob, dsph, drct]. p
 // gives the image, the flags and a subsample's offsets; spp is 1 or 4 (the
-// 2x2 loop in the kernel, p's offsets 0), with refl 0 or 1 bounce levels and
+// 2x2 loop in the kernel, p's offsets 0), with refl 0 to MAX_REFL bounce levels and
 // an environment map of side ke (0 for none).
 template <class Src>
 int launch_vec_step(const float* glob, const float* sph, const float* rct, int n_sph,
                     int n_rect, int ns_pad, int nr_pad, int n_light, const Params& p, int spp,
                     Src src, float* scratch, float* out, void* stream, int refl = 0,
                     int ke = 0) {
-  if ((spp != 1 && spp != 4) || (refl != 0 && refl != 1) || ke < 0)
+  if ((spp != 1 && spp != 4) || refl < 0 || refl > MAX_REFL || ke < 0)
     return (int)cudaErrorInvalidValue;
   if (refl || ke) {
-    auto launch = refl ? (ke ? &launch_vec_levels<1, 1, true, Src>
-                             : &launch_vec_levels<1, 1, false, Src>)
-                       : &launch_vec_levels<1, 0, true, Src>;
+    using Launch = decltype(&launch_vec_levels<1, 1, true, Src>);
+    static const Launch spp1[2][1 + MAX_REFL] = {
+        {nullptr, &launch_vec_levels<1, 1, false, Src>, &launch_vec_levels<1, 2, false, Src>,
+         &launch_vec_levels<1, 3, false, Src>},
+        {&launch_vec_levels<1, 0, true, Src>, &launch_vec_levels<1, 1, true, Src>,
+         &launch_vec_levels<1, 2, true, Src>, &launch_vec_levels<1, 3, true, Src>}};
+    Launch launch = spp1[ke != 0][refl];
     if (spp == 4) {
       // only the step loops over the subsamples; the render backward is
       // launched once a subsample at spp 1
-      if constexpr (Src::casts_shadows)
-        launch = refl ? (ke ? &launch_vec_levels<4, 1, true, Src>
-                            : &launch_vec_levels<4, 1, false, Src>)
-                      : &launch_vec_levels<4, 0, true, Src>;
-      else
+      if constexpr (Src::casts_shadows) {
+        static const Launch spp4[2][1 + MAX_REFL] = {
+            {nullptr, &launch_vec_levels<4, 1, false, Src>, &launch_vec_levels<4, 2, false, Src>,
+             &launch_vec_levels<4, 3, false, Src>},
+            {&launch_vec_levels<4, 0, true, Src>, &launch_vec_levels<4, 1, true, Src>,
+             &launch_vec_levels<4, 2, true, Src>, &launch_vec_levels<4, 3, true, Src>}};
+        launch = spp4[ke != 0][refl];
+      } else {
         return (int)cudaErrorInvalidValue;
+      }
     }
     return launch(glob, sph, rct, n_sph, n_rect, ns_pad, nr_pad, n_light, ke, p, src, scratch,
                   out, stream);

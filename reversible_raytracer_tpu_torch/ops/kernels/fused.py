@@ -30,13 +30,14 @@ The scene enters the kernels as one flat float32 vector in the leaf
 order of `models.scene.tree_leaves` (`flatten_scene`); the kernels find
 each leaf from the object and light counts alone (`flat_offsets`).
 
-One mirror bounce (``cfg.reflections == 1``) is the TPU kernels' trace of
-`shade`'s bounce recursion: each kernel has an instance with a second level
-(REFL), traced from the shadow origin along the reflected direction where
-the primary ray hit, blended unclipped by the winner's mirror coefficient;
-the forward writes 2 L planes a subsample, bounce-major. The eager twins run
-the same levels (`forward_terms`, `_adjoint`). Two levels are refused by
-name (`uncovered`).
+Mirror bounces (``cfg.reflections`` = K, 1 to `MAX_REFLECTIONS`) are the
+TPU kernels' trace of `shade`'s bounce recursion: each kernel has an
+instance of each K (REFL), whose level l + 1 is traced from level l's shadow
+origin along the reflected direction where every level above hit, the
+levels blended unclipped deepest first by each winner's mirror coefficient;
+the forward writes (1 + K) L planes a subsample, bounce-major. The eager
+twins run the same levels (`forward_terms`, `_adjoint`). More levels are
+refused by name (`uncovered`).
 
 spp 4 (2x2 supersampling) is the TPU kernels' loop inside each kernel,
 with a bounce and with texel grids too: a pixel is the average of four
@@ -44,7 +45,7 @@ clipped subsamples at quarter-pixel offsets (`pipeline.SPP_OFFSETS`), summed
 in that order and times 0.25, as `render_tile` sums them. The forward writes
 each subsample's (1 + R) L planes in turn; the step's residual is of the
 average, so it runs the four forwards before the adjoints, keeping each
-subsample's shadow bits of both levels (`subsample_adjoint` is its eager
+subsample's shadow bits of every level (`subsample_adjoint` is its eager
 twin); the render backward gives each subsample a quarter of the average's
 cotangent and its own planes.
 
@@ -107,6 +108,9 @@ from ._build import Kernel
 
 MAX_OBJECTS = 24
 MAX_LIGHTS = 16
+# Bounce levels the kernels take: a spp-4 step keeps each subsample's (1 + K)
+# L shadow bits in one 64-bit word, so K = 3 at 16 lights.
+MAX_REFLECTIONS = 3
 # Shared memory a block of the H100 may opt in to (227 KB): the textured step
 # and render backward stage the scene, texels included, and each warp's row of
 # every scalar's gradient (`step_smem_bytes`).
@@ -115,7 +119,7 @@ MAX_BLOCK_SMEM = 232448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I, _I, _I, _I, _I, _I, _I]  # n_sph, n_rect, n_light, H, W, shadows, clip
 
-# Each kernel's entry takes the spp (1 or 4) and the bounce levels (0 or 1)
+# Each kernel's entry takes the spp (1 or 4) and the bounce levels (0 to 3)
 # after the geometry; the entries without them are spp 1 or the given spp
 # without a bounce, for tools/ and for checkouts from before them. The
 # textured instances (``_tex``) take the bounce levels, the spp (in the
@@ -240,14 +244,18 @@ def uncovered(scene, cfg: RenderConfig, texels: bool = False, env: bool = False)
     (object textures and the environment map, either with a bounce;
     `fused_vec.check_vec_kernel_config` adds the shared memory of object
     texel grids), else every family's (no texel grid); each at spp 1 and 4,
-    with or without one bounce level. The spp changes no block's shared
-    memory (`step_smem_bytes`)."""
+    with or without bounce levels. The spp changes no block's shared
+    memory (`step_smem_bytes`); nor does the bounce count, 0 to
+    `MAX_REFLECTIONS` levels."""
     if cfg.soft_tau > 0.0 or cfg.checker_tau > 0.0:
         return "soft_tau/checker_tau"
     if cfg.spp not in SPP_OFFSETS:
         return f"spp={cfg.spp} (spp is 1 or 4)"
-    if cfg.reflections > 1:
-        return "reflections > 1 (one bounce level is ported)"
+    if cfg.reflections > MAX_REFLECTIONS:
+        return (f"reflections > {MAX_REFLECTIONS} (reflections={cfg.reflections}; the kernels "
+                f"take at most {MAX_REFLECTIONS} bounce levels: a spp-4 step keeps a subsample's "
+                f"(1 + K) L shadow bits in one 64-bit word, and (1 + {cfg.reflections}) x "
+                f"{MAX_LIGHTS} lights = {(1 + cfg.reflections) * MAX_LIGHTS} > 64)")
     if cfg.shader != "phong":
         return f"the {cfg.shader} shader"
     if cfg.projection != "perspective":
@@ -371,10 +379,11 @@ def render_fused(scene, cfg: RenderConfig, row0=0, out_height: int | None = None
     kernel on CUDA, `render_fused_plain` on the CPU: the same image to the
     bit, the same planes where the ray hit an object; where it hit nothing
     the kernel's planes are 0 (the plain version's hold the shadow test of a
-    ray from the BIG sentinel; the render backward reads neither). With a
-    bounce, a level-1 plane is the same where both levels hit, and 0 where
-    either missed. The image carries the scene's gradient on both: on CUDA
-    through the render backward kernel (the planes carry none)."""
+    ray from the BIG sentinel; the render backward reads neither). With
+    bounces, a bounce level's plane is the same where it and every level
+    above hit, and 0 where one of them missed. The image carries the scene's
+    gradient on both: on CUDA through the render backward kernel (the planes
+    carry none)."""
     dev = scene.device
     cfg = band_config(cfg, row0, out_height)
     if dev.type == "cpu":
@@ -387,17 +396,18 @@ def render_fused(scene, cfg: RenderConfig, row0=0, out_height: int | None = None
 def level_hits(scene, cfg: RenderConfig, off=(0.0, 0.0)):
     """Per bounce level, the (H, W) pixels whose ray at the subsample offset
     ``off`` (`pipeline.SPP_OFFSETS`; the pixel centre at spp 1) hit an
-    object: level 0's primary rays, and with a bounce level 1's reflected
-    rays where level 0 hit too: where the forward kernel's planes of that
-    level and subsample are the plain version's (elsewhere the kernel's are
-    0)."""
+    object: level 0's primary rays, and at each of the ``cfg.reflections``
+    bounce levels the reflected rays where every level above hit too: where
+    the forward kernel's planes of that level and subsample are the plain
+    version's (elsewhere the kernel's are 0)."""
     o, d = primary_rays(scene, cfg, off)
     t, hit, at = trace_nearest(scene, o, d, cfg.shape)
     hits = [hit]
-    if cfg.reflections:
+    for _ in range(cfg.reflections):
         n = (at["nx"], at["ny"], at["nz"])
-        hit1 = trace_nearest(scene, shadow_origin(o, d, t, n), reflect_dir(d, n), cfg.shape)[1]
-        hits.append(hit & hit1)
+        o, d = shadow_origin(o, d, t, n), reflect_dir(d, n)
+        t, hit1, at = trace_nearest(scene, o, d, cfg.shape)
+        hits.append(hits[-1] & hit1)
     return hits
 
 
@@ -772,8 +782,9 @@ def light_adjoint(f, gh, vis, n, d, base, kd, ksp, shin):
     g_pw = g_spec * ksp
     pos = f.rdotv > 0.0
     safe_r = torch.where(pos, f.rdotv, 1.0)
-    g_rdotv = torch.where(pos, g_pw * f.pw * shin / safe_r, 0.0)
-    g.shin = torch.where(pos, g_pw * f.pw * torch.log(safe_r), 0.0)
+    live = pos & (shin * torch.log(safe_r) < vm.POW_LOG_MAX)  # `safe_pow`'s cap
+    g_rdotv = torch.where(live, g_pw * f.pw * shin / safe_r, 0.0)
+    g.shin = torch.where(live, g_pw * f.pw * torch.log(safe_r), 0.0)
     g_rdv = g_rdotv * vm.maxgrad(f.rdv)
     g_refl = vm.vscale(view, g_rdv)
     g.d = vm.vneg(vm.vscale(f.refl, g_rdv))
@@ -1100,27 +1111,33 @@ def forward_terms(scene, cfg, nearest, visibility, off=(0.0, 0.0), nearest1=None
     """The forward of the hard kernels in eager torch at the subsample offset
     ``off``, with what their adjoint needs: the primary rays (``ray``), each
     bounce level's `level_terms` (``levels``; level 0's ``t``, ``w``,
-    ``so`` and ``per_light`` also as attributes), the mirror weight ``m`` =
-    where(hit, mirror, 0) of a reflective render, the unclipped image
-    (``pre``) and the image (``img``), each a tuple of (H, W) channels. With
-    ``cfg.reflections`` (one level, as the kernels take it) level 1 traces
-    the reflected rays from level 0's shadow origins along `reflect_dir`
-    (by ``nearest1``, ``nearest`` if None: the object-chunked kernels walk
-    every sphere there), and pre = col0 + m (col1 - col0)
-    (`pipeline.shade_levels`)."""
+    ``so`` and ``per_light`` also as attributes), per level above the
+    deepest the mirror weight ``ms[l]`` = where(hit, mirror, 0) and the
+    colour of the levels below it, blended (``rcols[l]``), the unclipped
+    image (``pre``) and the image (``img``), each a tuple of (H, W)
+    channels. With ``cfg.reflections`` = K bounce levels, level l + 1 traces
+    the reflected rays from level l's shadow origins along `reflect_dir` (by
+    ``nearest1``, ``nearest`` if None: the object-chunked kernels walk every
+    sphere there), and the levels compose deepest first, col_l + m_l
+    (rcol_l - col_l), one clip at the top (`pipeline.shade_levels`). ``m``
+    is level 0's weight (None without a bounce)."""
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
     ray = primary_ray_terms(scene, cfg, off)
     lv = level_terms(scene, nearest, visibility, ray.o, ray.d, zero)
-    levels, m, pre = [lv], None, lv.col
-    if cfg.reflections:
-        lv1 = level_terms(scene, nearest1 or nearest, visibility, lv.so,
-                          reflect_dir(ray.d, lv.w.n), zero, level=1)
-        levels.append(lv1)
-        m = torch.where(lv.w.hit, lv.w.mir, 0.0)
-        pre = tuple(c + m * (rc - c) for c, rc in zip(lv.col, lv1.col))
+    levels, ms = [lv], []
+    for depth in range(1, cfg.reflections + 1):
+        up = levels[-1]
+        levels.append(level_terms(scene, nearest1 or nearest, visibility, up.so,
+                                  reflect_dir(up.d, up.w.n), zero, level=depth))
+        ms.append(torch.where(up.w.hit, up.w.mir, 0.0))
+    pre, rcols = levels[-1].col, [None] * len(ms)
+    for l in reversed(range(len(ms))):
+        rcols[l] = pre
+        pre = tuple(c + ms[l] * (rc - c) for c, rc in zip(levels[l].col, pre))
     img = tuple(vm.clip01(c) for c in pre) if cfg.clip else pre
     return SimpleNamespace(ray=ray, t=lv.t, w=lv.w, so=lv.so, per_light=lv.per_light,
-                           levels=levels, m=m, pre=pre, img=img)
+                           levels=levels, ms=ms, rcols=rcols, m=ms[0] if ms else None, pre=pre,
+                           img=img)
 
 
 def subsample_average(imgs):
@@ -1166,11 +1183,14 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0), nearest
     of squared residuals, grads as a Scene)``. ``nearest``, ``visibility``
     and ``nearest1`` as `forward_terms` takes them; ``cotangent(img)`` gives
     the cotangent of the clipped image per channel and the squared error
-    (`residual_cotangent`, `image_cotangent`). With a bounce level the
-    adjoint runs deepest level first: level 1's shading and winner under the
-    cotangent m gc, its ray's cotangents carried back into level 0's shadow
-    origin (the reflected ray's origin), normal and direction; then level 0
-    under (1 - m) gc, and the mirror coefficient's (col1 - col0) . gc."""
+    (`residual_cotangent`, `image_cotangent`). With K bounce levels the
+    adjoint runs deepest level first: the blend c_l = col_l + m_l (c_{l+1} -
+    col_l) gives level l's colour the cotangent (1 - m_l) g_l (the deepest's
+    g_K) and the blend below it g_{l+1} = m_l g_l, g_0 the clipped image's;
+    each level's shading and winner under its cotangent, its ray's cotangents
+    carried back into the level above's shadow origin (the reflected ray's
+    origin), normal and direction, and that level's mirror coefficient's
+    (c_{l+1} - col_l) . g_l; level 0 last."""
     zero = torch.zeros((cfg.height, cfg.width), device=scene.device, dtype=scene.ambient.dtype)
     fw = forward_terms(scene, cfg, nearest, visibility, off, nearest1)
     lv = fw.levels[0]
@@ -1180,21 +1200,28 @@ def _adjoint(scene, cfg, nearest, cotangent, visibility, off=(0.0, 0.0), nearest
     g_img, sq = cotangent(fw.img)
     gc = tuple(g * (vm.clip01_grad(p_) if cfg.clip else 1.0) for g, p_ in zip(g_img, fw.pre))
 
-    # ---- the bounce, col = col0 + m (col1 - col0): level 1, then what it
-    # hands level 0
-    bounce, grads1 = None, None
-    if cfg.reflections:
-        lv1, m = fw.levels[1], fw.m
-        g_o1, g_d1, grads1 = level_adjoint(scene, lv1, tuple(g * m for g in gc), zero)
-        n, d = lv.w.n, lv.d  # d1 = d - 2 (d . n) n
+    # ---- the bounces, c_l = col_l + m_l (c_{l+1} - col_l) with c_K = col_K:
+    # each blend's cotangents top down, then the levels deepest first, each
+    # handing the level above what its ray's cotangents give (`level_adjoint`)
+    g_blend = [gc]
+    for m in fw.ms:
+        g_blend.append(tuple(g * m for g in g_blend[-1]))
+    bounce, grads = None, None
+    for l in reversed(range(1, len(fw.levels))):
+        lvl, up = fw.levels[l], fw.levels[l - 1]
+        g_col = g_blend[l] if l == len(fw.ms) else tuple(g * (1.0 - fw.ms[l]) for g in g_blend[l])
+        g_o1, g_d1, gl = level_adjoint(scene, lvl, g_col, zero, bounce)
+        grads = gl if grads is None else tree_map(torch.add, grads, gl)
+        n, d = up.w.n, up.d  # d1 = d - 2 (d . n) n
         gdn, dn = vm.vdot(n, g_d1), vm.vdot(d, n)
         bounce = dict(so=g_o1, d=vm.vsub(g_d1, vm.vscale(n, 2.0 * gdn)),
                       n=vm.vscale(vm.vadd(vm.vscale(d, gdn), vm.vscale(g_d1, dn)), -2.0),
-                      mir=sum(g * (c1 - c0) for g, c0, c1 in zip(gc, lv.col, lv1.col)))
-        gc = tuple(g * (1.0 - m) for g in gc)
-    g_o, g_d, grads = level_adjoint(scene, lv, gc, zero, bounce)
-    if grads1 is not None:
-        grads = tree_map(torch.add, grads, grads1)
+                      mir=sum(g * (rc - c) for g, c, rc in zip(g_blend[l - 1], up.col,
+                                                              fw.rcols[l - 1])))
+    if fw.ms:
+        gc = tuple(g * (1.0 - fw.ms[0]) for g in gc)
+    g_o, g_d, grads0 = level_adjoint(scene, lv, gc, zero, bounce)
+    grads = grads0 if grads is None else tree_map(torch.add, grads0, grads)
 
     # ---- camera (a missed ray's direction has the environment's cotangent)
     live = hit | scene.env_mapped

@@ -45,7 +45,7 @@ comes back through the transpose of the packing (`unpack_grads`).
 
 Covered: hard shading, spp 1 and 4, perspective, Phong, untextured objects;
 and at either spp object texel grids, with or without the environment map
-and one bounce (the TPU kernels' texel tails, ``_tex_nest`` at fused_vec.py:207
+and bounce levels (the TPU kernels' texel tails, ``_tex_nest`` at fused_vec.py:207
 and the samples of ``_sphere_eval`` / ``_rect_eval`` at :467-471 and :503):
 the grids are not in the rows but read apart (`pack_texels`), a textured
 winner's base colour at either level is its grid's bilinear sample, gathered
@@ -54,16 +54,18 @@ exists because Mosaic cannot gather, and is not carried over), and the step
 and the render backward end their output with the grids' gradient (the
 ``_tex`` entries; `texel_step_smem_bytes` refuses grids whose gradient row
 does not fit a block's shared memory). And at either spp
-the environment map and one mirror bounce, together or apart (the TPU
-kernels' env global, globals_tree at fused_vec.py:405, and their reflection
-levels, :907-946 and :1015-1054): the env ends the globals (`globals_offsets`)
-and a missed ray's colour, at either level, is its bilinear sample at the
-lat-long coordinates of the ray's direction; the bounce traces level 1 from
-level 0's shadow origins along the reflected direction where level 0 hit,
-over every sphere (the primary cone assumes rays leaving the eye; the shadow
-rays of level 1 keep their per-warp cull), blends col0 + m (col1 - col0) by
-the winner's mirror coefficient and clips once; the forward writes 2 L
-planes, bounce-major. Each such combination is its own instance of each
+the environment map and K = 1 to `fused.MAX_REFLECTIONS` mirror bounce
+levels, together or apart (the TPU kernels' env global, globals_tree at
+fused_vec.py:405, and their reflection levels, :907-946 and :1015-1054,
+:1029-1054 looping the levels in ``range(R + 1)``): the env ends the globals
+(`globals_offsets`) and a missed ray's colour, at any level, is its bilinear
+sample at the lat-long coordinates of the ray's direction; each bounce traces
+level l + 1 from level l's shadow origins along the reflected direction where
+every level above hit, over every sphere (the primary cone assumes rays
+leaving the eye; the shadow rays of every level keep their per-warp cull),
+the levels blend col_l + m_l (rcol_l - col_l) deepest first by the winners'
+mirror coefficients and clip once; the forward writes (1 + K) L planes,
+bounce-major. Each such combination is its own instance of each
 kernel (the ``_levels`` entries), so the others keep their code. spp 4 as the
 TPU kernels run it, in every instance: the forward and the render backward
 are launched once per subsample at its offsets (`pipeline.SPP_OFFSETS`;
@@ -119,7 +121,7 @@ _GEOM = [_I] * 9
 # The wrappers call the ``_levels`` entries alone: after the geometry a
 # subsample's (row, column) offset (rows 4-5) or the spp (row 6, which takes
 # spp 4 in every instance; its textured ``_tex_band`` entry too), then the
-# bounce levels (0 or 1) and the environment map's side (0 for none). At 0
+# bounce levels (0 to 3) and the environment map's side (0 for none). At 0
 # and 0 they launch the instances of the older entries, which stay only for
 # tools/flat_ab.py's and tools/vec_step_split.py's builds of checkouts from
 # before them (``_at`` / ``_spp``: spp 4; none: spp 1) and for chip_smoke.py's
@@ -324,10 +326,12 @@ def unpack_grads(scene_like, dglob, dsph, drct, dtex=None):
 
 def check_vec_kernel_config(scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for what the three vec kernels do not
-    cover: two or more bounces, object texel grids whose gradient row does
-    not fit a block's shared memory (`texel_step_smem_bytes`, the same at
-    spp 1 and 4); any object count is covered, and at spp 1 and 4 object
-    textures, the environment map and one bounce level."""
+    cover: more than `fused.MAX_REFLECTIONS` bounce levels, object texel
+    grids whose gradient row does not fit a block's shared memory
+    (`texel_step_smem_bytes`, the same at spp 1 and 4 and at every bounce
+    count); any object count is covered, and at spp 1 and 4 object
+    textures, the environment map and 1 to `fused.MAX_REFLECTIONS` bounce
+    levels."""
     why = fused.uncovered(scene, cfg, env=True)
     if why is None and object_textured(scene):
         need = texel_step_smem_bytes(scene)
@@ -492,18 +496,19 @@ def render_vec(scene, cfg: RenderConfig, row0=0, out_height: int | None = None):
 def level_hits(scene, cfg: RenderConfig, off=(0.0, 0.0)):
     """Per bounce level, the (H, W) pixels whose ray at the subsample offset
     ``off`` hit an object (`fused.level_hits` by the object-vectorized
-    trace): level 0's primary rays, and with a bounce level 1's reflected
-    rays where level 0 hit too: where the forward kernel's planes of that
-    level and subsample are the plain version's (elsewhere the kernel's are
-    0)."""
+    trace): level 0's primary rays, and at each bounce level the reflected
+    rays where every level above hit too: where the forward kernel's planes
+    of that level and subsample are the plain version's (elsewhere the
+    kernel's are 0)."""
     o, d = primary_rays(scene, cfg, off)
     t, k = nearest_vec(scene, o, d)
     hits = [k >= 0]
-    if cfg.reflections:
-        zero = torch.zeros(cfg.shape, device=scene.device, dtype=scene.ambient.dtype)
+    zero = torch.zeros(cfg.shape, device=scene.device, dtype=scene.ambient.dtype)
+    for _ in range(cfg.reflections):
         w = fused.winner_surface(scene, fused.winner_geometry(scene, k, zero), o, d, t, zero)
-        k1 = nearest_vec(scene, shadow_origin(o, d, t, w.n), reflect_dir(d, w.n))[1]
-        hits.append(hits[0] & (k1 >= 0))
+        o, d = shadow_origin(o, d, t, w.n), reflect_dir(d, w.n)
+        t, k = nearest_vec(scene, o, d)
+        hits.append(hits[-1] & (k >= 0))
     return hits
 
 
@@ -684,13 +689,13 @@ def culled_visibility(scene, cfg: RenderConfig):
 
 def render_vec_culled(scene, cfg: RenderConfig):
     """The vec forward kernel's algorithm in eager torch, once per
-    subsample: the nearest hit over each warp's primary candidates (with a
-    bounce, level 1's over every sphere) and, at each level, the any-hit
-    shadow test over each light's shadow candidates of its hit pixels, then
-    the shading of the step's forward. Returns the (H, W, 3) image (the
-    subsamples' average) and the (spp (1 + R) L, H, W) visibility planes (0
-    where that level's ray hits nothing, as the kernel writes them; none
-    without shadows)."""
+    subsample: the nearest hit over each warp's primary candidates (with
+    bounces, each bounce level's over every sphere) and, at each level, the
+    any-hit shadow test over each light's shadow candidates of its hit
+    pixels, then the shading of the step's forward. Returns the (H, W, 3)
+    image (the subsamples' average) and the (spp (1 + R) L, H, W) visibility
+    planes (0 where that level's ray or one above it hits nothing, as the
+    kernel writes them; none without shadows)."""
     check_vec_kernel_config(scene, cfg)
     imgs, planes = [], []
     with torch.no_grad():
@@ -698,9 +703,10 @@ def render_vec_culled(scene, cfg: RenderConfig):
             fw = fused.forward_terms(scene, cfg, culled_nearest, culled_visibility(scene, cfg),
                                      off, nearest1=nearest_vec)
             imgs.append(torch.stack(fw.img, dim=-1))
-            if cfg.shadows:
-                planes += [torch.where(lv.w.hit, vis, 0.0)
-                           for lv in fw.levels for _, vis in lv.per_light]
+            live = torch.ones_like(fw.w.hit)
+            for lv in fw.levels if cfg.shadows else ():
+                live = live & lv.w.hit
+                planes += [torch.where(live, vis, 0.0) for _, vis in lv.per_light]
     img = fused.subsample_average(imgs)
     if not cfg.shadows:
         return img, img.new_zeros((0, cfg.height, cfg.width))
@@ -710,11 +716,12 @@ def render_vec_culled(scene, cfg: RenderConfig):
 def loss_grad_vec_adjoint_eager(scene, cfg: RenderConfig, target, loss: str = "mse"):
     """The vec step kernel's algorithm in eager torch: the object-vectorized
     nearest hit over each warp's primary candidates and any-hit shadow test
-    over its shadow candidates (with a bounce, level 1 over every sphere and
-    its own shadow candidates), then the same per-pixel adjoint as the
-    small-scene step (`fused.loss_grad_adjoint_eager`): shade, the winning
-    object only, the camera; with a bounce level 1 first, then level 0 and
-    the mirror coefficient. Same contract as `loss_grad_vec`."""
+    over its shadow candidates (with bounces, each bounce level over every
+    sphere and its own shadow candidates), then the same per-pixel adjoint
+    as the small-scene step (`fused.loss_grad_adjoint_eager`): shade, the
+    winning object only, the camera; with bounces the deepest level first,
+    up to level 0, and the mirror coefficients. Same contract as
+    `loss_grad_vec`."""
     check_vec_kernel_config(scene, cfg)
     norm = fused._loss_norm(cfg, loss)
     fused._check_target(target, cfg, scene)

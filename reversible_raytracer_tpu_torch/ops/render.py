@@ -17,12 +17,13 @@ in the JAX package (whose TPU dispatch sends it to `render_jnp_vec`): it
 runs `render_eager_vec` on either device. Every kernel family renders spp
 1 and 4; the training step of a spp-4 soft render has no kernel, as in the
 JAX package (whose `loss_and_grad_fn` sends it to ``"vag"``), and is
-autograd of `render` (`loss_and_grad_fn`). Mirror reflections (one bounce
-level, spp 1 or 4) take either hard family on CUDA by the object count, as
-the JAX package's render.py:116-128 sends them: the unrolled kernels' REFL
-instances up to 24 objects, the object-chunked kernels' bounce instances
-past it (config 10, config 5 with ``--reflections 1``); two levels are
-refused there by name, and render on the CPU through both eager twins.
+autograd of `render` (`loss_and_grad_fn`). Mirror reflections (1 to
+`fused.MAX_REFLECTIONS` = 3 bounce levels, spp 1 or 4) take either hard
+family on CUDA by the object count, as the JAX package's render.py:116-128
+sends them: the unrolled kernels' REFL instances up to 24 objects, the
+object-chunked kernels' bounce instances past it (config 10, config 5 with
+``--reflections K``); more levels are refused there by name, and render on
+the CPU through both eager twins.
 Object textures and the environment map (configs 7-9, at spp 1 or 4)
 take the unrolled kernels' textured instances on CUDA up to 24 objects, as
 the JAX package's render.py:45-138 sends a textured scene of at most 24
@@ -39,8 +40,8 @@ soft kernels' texel instances on CUDA at any object count, as the JAX
 package's render.py:51-69 sends it to its soft kernels, and the soft branch
 of `render_eager_vec` on the CPU. Each of these takes spp 4 as it takes
 spp 1 (the JAX package's products of spp 4 with textures and with
-reflections), the soft step apart. Two bounces are refused by name on CUDA,
-and so are, in a soft render, a bounce or the soft checker beside a texel
+reflections), the soft step apart. More than three bounces are refused by
+name on CUDA, and so are, in a soft render, a bounce or the soft checker beside a texel
 grid, and the soft step at spp 4.
 """
 
@@ -73,8 +74,8 @@ def resolve_impl(scene, cfg: RenderConfig) -> str:
     ``checker_tau > 0``), as the JAX package's render.py:51-64 decides; a
     textured or env-mapped scene of at most 24 objects is ``"cuda"`` (rows
     1-3's textured instances) but with object textures and a bounce
-    ``"cuda_vec"``; a textured, env-mapped and/or reflective one (one
-    bounce) of more than 24 ``"cuda_vec"`` (rows 4-6's textured, env and
+    ``"cuda_vec"``; a textured, env-mapped and/or reflective one (1 to 3
+    bounces) of more than 24 ``"cuda_vec"`` (rows 4-6's textured, env and
     bounce instances); a soft render of a textured or env-mapped scene
     ``"cuda_vec_soft"`` (rows 7-9's texel instances) at any count; each at
     spp 1 or 4, the same route at either; the CPU takes the same family's

@@ -6,7 +6,8 @@ helpers keep the JAX package's gradient conventions, which the hand-written
 CUDA adjoints reproduce:
 
 - `safe_sqrt` takes sqrt(1) on the dead branch, so its gradient there is 0;
-- `safe_pow` is exp(p * log x) with zero value and zero gradient at x <= 0;
+- `safe_pow` is exp(p * log x) with zero value and zero gradient at x <= 0,
+  and its exponent capped at `POW_LOG_MAX` (the JAX package's overflows);
 - `vmax0` / `clip01` / `clip` split the gradient 0.5/0.5 at a tie, as
   ``jnp.maximum``/``jnp.clip`` do (``torch.clamp`` would pass all of it);
 - `atan2` and `asin` are the JAX package's polynomial versions, op for op
@@ -83,11 +84,21 @@ def safe_sqrt(x, guard: float = 1.0):
     return torch.sqrt(torch.where(x > 0.0, x, guard))
 
 
+# safe_pow's exponent p log x is capped here (x ** p <= e^64, about 6e27).
+# Of unit vectors the Phong term's x is at most 1 and the cap never binds;
+# past a near-tangent hit a bounce level's normal and reflected ray lose
+# their unit length, x ** p can overflow, and the zero cotangent of a
+# clipped pixel times that infinity would be NaN in the gradient.
+POW_LOG_MAX = 64.0
+
+
 def safe_pow(x, p):
-    """x ** p as exp(p * log x), with zero value and gradient at x <= 0."""
+    """x ** p as exp(p * log x), with zero value and gradient at x <= 0,
+    and e^POW_LOG_MAX with zero gradient where p log x reaches it."""
     pos = x > 0.0
     safe_x = torch.where(pos, x, 1.0)
-    return torch.where(pos, torch.exp(p * torch.log(safe_x)), 0.0)
+    z = p * torch.log(safe_x)
+    return torch.where(pos, torch.exp(torch.where(z < POW_LOG_MAX, z, POW_LOG_MAX)), 0.0)
 
 
 def vmax0(x):

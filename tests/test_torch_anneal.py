@@ -110,7 +110,7 @@ def test_anneal_stage_decisions():
     assert resolve_impl(card(), hard) == "cuda_vec"
     # object textures past 24 objects take the hard object-chunked kernels and
     # the soft kernels' texel instances, at spp 1 and 4 (a spp-4 soft stage
-    # steps by autograd of the render); two bounces stay refused, and the soft
+    # steps by autograd of the render); four bounces stay refused, and the soft
     # kernels refuse the globes' grids beside a sky (their gradient does not
     # fit a block)
     assert resolve_impl(card(textured=True), soft) == "cuda_vec_soft"
@@ -118,7 +118,9 @@ def test_anneal_stage_decisions():
     assert resolve_impl(card(textured=True), dataclasses.replace(soft, spp=4)) == "cuda_vec_soft"
     assert not optim.anneal_stage_uses_step("cuda_vec_soft", 4)
     assert resolve_impl(card(textured=True), dataclasses.replace(hard, spp=4)) == "cuda_vec"
-    for bad, cfg in ((card(textured=True), dataclasses.replace(hard, spp=4, reflections=2)),
+    assert resolve_impl(card(textured=True),
+                        dataclasses.replace(hard, spp=4, reflections=2)) == "cuda_vec"
+    for bad, cfg in ((card(textured=True), dataclasses.replace(hard, spp=4, reflections=4)),
                      (card(textured=True, env=True), soft)):
         with pytest.raises(NotImplementedError):
             resolve_impl(bad, cfg)

@@ -22,8 +22,8 @@ against the JAX package.
   shadow, every leaf within 1e-2 of its scale;
 - the packed globals with the env last, and the transpose of the packing;
 - the routes: the object-chunked kernels take the env and one bounce at spp
-  1 and 4, and refuse two bounces by name, at either spp and with object
-  textures too;
+  1 and 4 with one to three bounces, and refuse four by name, at either spp
+  and with object textures too;
 - the CLI: `invert --config 10` on the CPU.
 
 One compiled JAX function (both renders and the bounce's vjp, at XLA's
@@ -241,13 +241,13 @@ def test_routes_take_env_and_bounce():
 
 
 @pytest.mark.parametrize("what, kw, why", [
-    # object textures (spp 1 and 4, up to one bounce) are covered: this case
-    # holds the refusal that remains beside them, two bounces (its id kept)
-    pytest.param("textures", dict(spp=4, reflections=2), "reflections > 1",
+    # object textures (spp 1 and 4, up to three bounces) are covered: this case
+    # holds the refusal that remains beside them, four bounces (its id kept)
+    pytest.param("textures", dict(spp=4, reflections=4), "reflections > 3",
                  id="textures-kw0-object textures"),
-    # spp 4 with the env and a bounce is covered: two bounces at spp 4 stay refused
-    ("spp4", dict(spp=4, reflections=2), "reflections > 1"),
-    ("two_bounces", dict(reflections=2), "reflections > 1"),
+    # spp 4 with the env and up to three bounces is covered: four at spp 4 stay refused
+    ("spp4", dict(spp=4, reflections=4), "reflections > 3"),
+    ("two_bounces", dict(reflections=4), "reflections > 3"),
 ])
 def test_vec_kernels_refuse_by_name(what, kw, why):
     _, ts = _pair()
@@ -257,8 +257,8 @@ def test_vec_kernels_refuse_by_name(what, kw, why):
             ts.rects, texture=torch.full((1, 4, 4, 3), 0.5)))
     with pytest.raises(NotImplementedError, match=why):
         fused_vec.check_vec_kernel_config(ts, cfg)
-    if what == "spp4":  # the env at spp 4, with its bounce and without
-        for refl in (0, 1):
+    if what == "spp4":  # the env at spp 4, with its bounces and without
+        for refl in (0, 1, 2, 3):
             fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, reflections=refl))
 
 

@@ -230,9 +230,11 @@ def test_cuda_route_refuses_by_name():
     assert resolve_impl(ts, cfg) == "eager"
     assert fused.uncovered(ts, cfg, texels=True) is None
     assert fused.uncovered(ts, cfg) == "environment maps"
-    for kw in (dict(reflections=2), dict(spp=4, reflections=2)):
-        assert "reflections > 1" in fused.uncovered(ts, dataclasses.replace(cfg, **kw),
+    for kw in (dict(reflections=4), dict(spp=4, reflections=4)):
+        assert "reflections > 3" in fused.uncovered(ts, dataclasses.replace(cfg, **kw),
                                                     texels=True)
+    for kw in (dict(reflections=2), dict(spp=4, reflections=3)):  # the env with more bounces
+        assert fused.uncovered(ts, dataclasses.replace(cfg, **kw), texels=True) is None
     # the env with and without its bounce at spp 1 and 4, in both hard families
     # (past 24 objects the object-chunked kernels)
     for spp in (1, 4):

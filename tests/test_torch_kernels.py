@@ -15,7 +15,7 @@ import torch
 
 from reversible_raytracer_tpu_torch.models import configs
 from reversible_raytracer_tpu_torch.models.scene import leaf_paths, tree_leaves
-from reversible_raytracer_tpu_torch.models.scene import tree_unflatten
+from reversible_raytracer_tpu_torch.models.scene import tree_map, tree_unflatten
 from reversible_raytracer_tpu_torch.ops import pipeline
 from reversible_raytracer_tpu_torch.ops.kernels import fused, fused_vec, fused_vec_soft
 from reversible_raytracer_tpu_torch.ops.pipeline import RenderConfig
@@ -1408,16 +1408,16 @@ def test_mirror_inversion_recovers_the_coefficients(cuda):
 
 @pytest.mark.cuda
 def test_mirror_refusals_on_cuda(cuda):
-    """On CUDA two bounce levels raise by name and launch nothing, at spp 1
-    and 4, in both hard families (which take one bounce level at either
-    spp)."""
+    """On CUDA four bounce levels raise by name and launch nothing, at spp 1
+    and 4, in both hard families (which take one to three bounce levels at
+    either spp)."""
     scene, _, cfg = _mirror_case(cuda, 32, 32)
     big, _, cfg5 = configs.config5_many_spheres(size=32, device=cuda)
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS]
-    for s, c, why in ((scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
-                      (scene, dataclasses.replace(cfg, spp=4, reflections=2), "reflections > 1"),
-                      (big, dataclasses.replace(cfg5, reflections=2, spp=4),
-                       "reflections > 1")):
+    for s, c, why in ((scene, dataclasses.replace(cfg, reflections=4), "reflections > 3"),
+                      (scene, dataclasses.replace(cfg, spp=4, reflections=4), "reflections > 3"),
+                      (big, dataclasses.replace(cfg5, reflections=4, spp=4),
+                       "reflections > 3")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS] == before
@@ -1552,7 +1552,7 @@ def test_texture_inversion_meets_the_jax_criteria(cuda, num, frac):
 def test_texture_refusals_on_cuda(cuda):
     """On CUDA each combination the textured instances do not take raises by
     name and launches nothing: two bounce levels with a texel grid at spp 4,
-    at most 24 objects and past 24, two bounce levels with the environment
+    at most 24 objects and past 24, four bounce levels with the environment
     map, the soft step of a textured scene past 24 objects at spp 4 (the
     soft render takes it) and a soft render of one of at most 24 under the
     soft checker (the soft kernels' texel instances take the hard checker),
@@ -1564,9 +1564,9 @@ def test_texture_refusals_on_cuda(cuda):
     many = dataclasses.replace(many, rects=dataclasses.replace(
         many.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
-    for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4, reflections=2), "reflections > 1"),
-                      (many, dataclasses.replace(cfg5, spp=4, reflections=2), "reflections > 1"),
-                      (sky, dataclasses.replace(cfg9, reflections=2), "reflections > 1"),
+    for s, c, why in ((tex, dataclasses.replace(cfg7, spp=4, reflections=4), "reflections > 3"),
+                      (many, dataclasses.replace(cfg5, spp=4, reflections=4), "reflections > 3"),
+                      (sky, dataclasses.replace(cfg9, reflections=4), "reflections > 3"),
                       (many, dataclasses.replace(cfg5, soft_tau=0.05, spp=4),
                        "spp=4 in the soft step"),
                       (tex, dataclasses.replace(cfg7, soft_tau=0.05, checker_tau=0.5),
@@ -1678,16 +1678,16 @@ def test_chrome_render_bwd_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 def test_chrome_refusals_on_cuda(cuda):
-    """Past 24 objects, two bounces raise by name and launch nothing, at spp
+    """Past 24 objects, four bounces raise by name and launch nothing, at spp
     1 and 4, with object textures and the env or with the env alone."""
     scene, _, cfg = _chrome_case(cuda, "config10")
     tex = dataclasses.replace(scene, rects=dataclasses.replace(
         scene.rects, texture=torch.full((1, 4, 4, 3), 0.5, device=cuda)))
     before = [k.launches for k in fused_vec.KERNELS]
-    for s, c, why in ((tex, dataclasses.replace(cfg, spp=4, reflections=2), "reflections > 1"),
-                      (scene, dataclasses.replace(cfg, spp=4, reflections=2), "reflections > 1"),
-                      (tex, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
-                      (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1")):
+    for s, c, why in ((tex, dataclasses.replace(cfg, spp=4, reflections=4), "reflections > 3"),
+                      (scene, dataclasses.replace(cfg, spp=4, reflections=4), "reflections > 3"),
+                      (tex, dataclasses.replace(cfg, reflections=4), "reflections > 3"),
+                      (scene, dataclasses.replace(cfg, reflections=4), "reflections > 3")):
         with pytest.raises(NotImplementedError, match=why):
             render(s, c)
     assert [k.launches for k in fused_vec.KERNELS] == before
@@ -1907,7 +1907,7 @@ def test_vec_texture_captured_loop_matches_eager(cuda, refl):
 
 @pytest.mark.cuda
 def test_vec_texture_refusals_on_cuda(cuda):
-    """Object texel grids past 24 objects with two bounces at spp 4 and at
+    """Object texel grids past 24 objects with four bounces at spp 4 and at
     spp 1, in a soft render with a bounce, and grids whose gradient row does
     not fit a block's shared memory (the 64 globes' 16 x 16 grids beside a
     16 x 16 sky, in rows 4-6 and in the soft step) raise by name and launch
@@ -1915,9 +1915,9 @@ def test_vec_texture_refusals_on_cuda(cuda):
     scene, _, cfg = _globes(cuda, 32, 1)
     big = _globes(cuda, 32, 1, env_k=16)[0]
     before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS + fused_vec_soft.KERNELS]
-    for s, c, why in ((scene, dataclasses.replace(cfg, spp=4, reflections=2),
-                       "reflections > 1"),
-                      (scene, dataclasses.replace(cfg, reflections=2), "reflections > 1"),
+    for s, c, why in ((scene, dataclasses.replace(cfg, spp=4, reflections=4),
+                       "reflections > 3"),
+                      (scene, dataclasses.replace(cfg, reflections=4), "reflections > 3"),
                       (scene, dataclasses.replace(cfg, soft_tau=0.05), "mirror reflections"),
                       (big, cfg, "object texel grids this large"),
                       (big, dataclasses.replace(cfg, soft_tau=0.05, reflections=0),
@@ -1926,6 +1926,186 @@ def test_vec_texture_refusals_on_cuda(cuda):
             render(s, c)
     assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS
             + fused_vec_soft.KERNELS] == before
+
+
+# ---------------------------------------------------------------------------
+# Two and three bounce levels in rows 1-6: configs 6 and 9 (rows 1-3), config
+# 10 and config 8's globe with mirror coefficients (rows 4-6, ``_levels`` with
+# the env and ``_tex``)
+# ---------------------------------------------------------------------------
+
+# name: (family, config, its trained leaves' perturb scale)
+BOUNCE_CASES = {"config6": ("fused", 6, 0.3), "config9": ("fused", 9, 0.4),
+                "config10": ("vec", 10, 0.2), "config8_mirrors": ("vec", 8, 0.4)}
+BOUNCE_SIZE = 64
+
+
+def _bounce_case(cuda, name, refl, spp):
+    """(truth, start, cfg) of a case at BOUNCE_SIZE^2 with ``refl`` bounce
+    levels at ``spp``: config 8's globe with mirror coefficients 0.3 and its
+    floor 0.4, so that its grid is seen at every level."""
+    _, num, scale = BOUNCE_CASES[name]
+    scene, spec, cfg = configs.CONFIGS[num](size=BOUNCE_SIZE, device=cuda)
+    if name == "config8_mirrors":
+        sp, rc = scene.spheres, scene.rects
+        scene = dataclasses.replace(
+            scene,
+            spheres=dataclasses.replace(sp, material=dataclasses.replace(
+                sp.material, mirror=torch.full_like(sp.material.mirror, 0.3))),
+            rects=dataclasses.replace(rc, material=dataclasses.replace(
+                rc.material, mirror=torch.full_like(rc.material.mirror, 0.4))))
+    cfg = dataclasses.replace(cfg, reflections=refl, spp=spp)
+    return scene, configs.perturb(scene, spec, scale=scale, seed=3), cfg
+
+
+def _f64(scene):
+    return tree_map(lambda x: x.to(torch.float64), scene)
+
+
+def _close_by_rule(g32, got, f64_fn, tol=1e-4):
+    """Every leaf of ``got`` within ``tol`` of its scale of the float32 plain
+    gradient ``g32``, or of the float64 one (``f64_fn()``), or, where float32
+    does not determine it so closely, no farther from ``g32`` than ``g32`` is
+    from float64 (and within 1e-2): chip_smoke.py's rule."""
+    g64 = None
+    for path, a, b in zip(leaf_paths(g32), tree_leaves(g32), tree_leaves(got)):
+        if not a.numel():
+            continue
+        scale = max(float(a.abs().max()), 1e-6)
+        err = float((b - a).abs().max()) / scale
+        if err <= tol:
+            continue
+        if g64 is None:
+            g64 = dict(zip(leaf_paths(g32), tree_leaves(f64_fn())))
+        e = g64[path].to(a.device)
+        s64 = max(float(e.abs().max()), 1e-6)
+        if float((b.double() - e).abs().max()) / s64 <= tol:
+            continue
+        spread = float((a.double() - e).abs().max()) / s64
+        assert err <= min(1e-2, spread), (path, err, spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("refl", [2, 3])
+@pytest.mark.parametrize("name", list(BOUNCE_CASES))
+def test_bounces_forward_bit_identical(cuda, name, refl, spp):
+    """Rows 2 and 4 at two and three bounce levels: the image bit for bit the
+    plain version's; each subsample's planes of each level bit for bit where
+    that level and every level above hit at its offset, 0 elsewhere; one
+    launch a call for row 2, spp for row 4; three calls the same bits."""
+    family = BOUNCE_CASES[name][0]
+    _, scene, cfg = _bounce_case(cuda, name, refl, spp)
+    kernel, call, plain = _forward(family)
+    before = kernel.launches
+    runs = [call(scene, cfg) for _ in range(3)]
+    assert kernel.launches == before + 3 * (1 if family == "fused" else spp)
+    assert all(torch.equal(runs[0][0], r[0]) and torch.equal(runs[0][1], r[1]) for r in runs[1:])
+    img_k, vis_k = runs[0]
+    img_p, vis_p = plain(scene, cfg)
+    assert torch.equal(img_k, img_p)
+    L = scene.lights.count
+    assert vis_k.shape == vis_p.shape == (spp * (1 + refl) * L, cfg.height, cfg.width)
+    hits_at = fused.level_hits if family == "fused" else fused_vec.level_hits
+    for q, off in enumerate(pipeline.SPP_OFFSETS[spp]):
+        hits = hits_at(scene, cfg, off)
+        assert len(hits) == 1 + refl
+        for lv, hit in enumerate(hits):
+            base = q * (1 + refl) * L + lv * L
+            k, p = vis_k[base:base + L], vis_p[base:base + L]
+            assert torch.equal(k[:, hit], p[:, hit]) and not k[:, ~hit].any()
+    if name in ("config6", "config10"):  # a level-1 winner there reflects: the deeper level shows
+        assert not torch.equal(img_k, call(scene, dataclasses.replace(cfg,
+                                                                     reflections=refl - 1))[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("refl", [2, 3])
+@pytest.mark.parametrize("name", list(BOUNCE_CASES))
+def test_bounces_step_matches_plain(cuda, name, refl, spp):
+    """Rows 1 and 6 at two and three bounce levels: one launch a call, three
+    calls the same bits; against autograd of the plain render by
+    `_close_by_rule` (the loss within 1e-4 relative) and against the eager
+    twin within 1e-2 of each leaf's scale; against the forward kernel's own
+    image of the truth a loss and every gradient of exactly 0."""
+    family = BOUNCE_CASES[name][0]
+    truth, start, cfg = _bounce_case(cuda, name, refl, spp)
+    kernel, step, twin, plain, forward = {
+        "fused": (fused.FUSED_STEP, fused.loss_grad_fused, fused.loss_grad_adjoint_eager,
+                  fused.loss_grad_fused_plain, fused.render_fused),
+        "vec": (fused_vec.VEC_STEP, fused_vec.loss_grad_vec,
+                fused_vec.loss_grad_vec_adjoint_eager, fused_vec.loss_grad_vec_plain,
+                fused_vec.render_vec)}[family]
+    target = forward(truth, cfg)[0].detach()
+    before = kernel.launches
+    runs = [step(start, cfg, target) for _ in range(3)]
+    assert kernel.launches == before + 3
+    flat = [torch.cat([l.reshape(1), fused.flatten_scene(g)]) for l, g in runs]
+    assert all(torch.equal(flat[0], f) for f in flat[1:])
+    l_k, g_k = runs[0]
+    l_p, g_p = plain(start, cfg, target)
+    assert abs(float(l_k) - float(l_p)) <= 1e-4 * float(l_p)
+    _close_by_rule(g_p, g_k, lambda: plain(_f64(start), cfg, target.double())[1])
+    l_t, g_t = twin(start, cfg, target)
+    assert abs(float(l_k) - float(l_t)) <= 1e-4 * float(l_t)
+    _close_leaves(g_t, g_k)
+    assert float(g_k.spheres.material.mirror.abs().max()) > 0.0
+    l_0, g_0 = step(truth, cfg, target)
+    assert float(l_0) == 0.0 and not fused.flatten_scene(g_0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("refl", [2, 3])
+@pytest.mark.parametrize("name", list(BOUNCE_CASES))
+def test_bounces_render_bwd_matches_plain(cuda, name, refl, spp):
+    """Rows 3 and 5 at two and three bounce levels, by autograd of `render`:
+    one launch a call for row 3, spp for row 5, three calls the same bits;
+    against autograd of the plain render by `_close_by_rule` and against
+    the eager twin fed the forward's planes within 1e-2 of each leaf's
+    scale; its mse gradient row 1's or row 6's bit for bit (row 5's at spp 1,
+    where it is one launch)."""
+    family = BOUNCE_CASES[name][0]
+    truth, start, cfg = _bounce_case(cuda, name, refl, spp)
+    g = _seeded(cfg, 0, cuda)
+    kernel = _bwd_kernel(family)
+    before = kernel.launches
+    runs = [fused.autograd_vjp(render, start, cfg, g) for _ in range(3)]
+    assert kernel.launches == before + 3 * (1 if family == "fused" else spp)
+    assert all(torch.equal(fused.flatten_scene(runs[0]), fused.flatten_scene(r))
+               for r in runs[1:])
+    got = runs[0]
+    plain = fused.render_fused_bwd_plain if family == "fused" else fused_vec.render_vec_bwd_plain
+    _close_by_rule(plain(start, cfg, g), got, lambda: plain(_f64(start), cfg, g.double()))
+    if family == "fused":
+        twin = fused.render_bwd_adjoint_eager(start, cfg, g, fused.render_fused(start, cfg)[1])
+    else:
+        twin = fused_vec.render_vec_bwd_adjoint_eager(start, cfg, g,
+                                                      fused_vec.render_vec(start, cfg)[1])
+    _close_leaves(twin, got)
+    if family == "vec" and spp != 1:
+        return
+    target = render(truth, cfg).detach()
+    leaves = [l.clone().requires_grad_(True) for l in tree_leaves(start)]
+    ((render(tree_unflatten(start, leaves), cfg) - target) ** 2).mean().backward()
+    by_render = torch.cat([(torch.zeros_like(l) if l.grad is None else l.grad).reshape(-1)
+                           for l in leaves])
+    assert torch.equal(by_render, fused.flatten_scene(loss_and_grad_fn(start, cfg)(start,
+                                                                                   target)[1]))
+
+
+@pytest.mark.cuda
+def test_bounces_refusals_on_cuda(cuda):
+    """Four bounce levels raise by name with the numbers and launch nothing,
+    in both hard families, at spp 1 and 4."""
+    before = [k.launches for k in fused.KERNELS + fused_vec.KERNELS]
+    for name in ("config6", "config10"):
+        _, scene, cfg = _bounce_case(cuda, name, 4, 1)
+        for spp in (1, 4):
+            with pytest.raises(NotImplementedError, match=r"reflections > 3 \(reflections=4"):
+                render(scene, dataclasses.replace(cfg, spp=spp))
+    assert [k.launches for k in fused.KERNELS + fused_vec.KERNELS] == before
 
 
 # Rows 7-9's texel instances (the soft kernels' ``_tex`` entries): name ->

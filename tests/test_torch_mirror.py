@@ -17,8 +17,8 @@ coefficient) and config 6 in the port, on the CPU, against the JAX package.
 - the CLI: `render --config 6`, `--reflections 0` overriding config 6, and a
   short `invert --config 6` whose mirror RMS error falls;
 - the refusals by name: reflections with soft_tau or checker_tau; on the
-  CUDA route (`fused.uncovered`) two levels at spp 1 and 4 (spp 4 with one
-  level is covered), in both hard families; `optimize_annealed` with a soft
+  CUDA route (`fused.uncovered`) four levels at spp 1 and 4 (spp 4 with one
+  to three levels is covered), in both hard families; `optimize_annealed` with a soft
   stage;
 - against the JAX package: `loss_grad_adjoint_eager` against the value and
   gradient of the mean squared error of `render_jnp` at R = 1 (48x48, from
@@ -243,12 +243,17 @@ def test_reflections_refused_by_name():
     with pytest.raises(NotImplementedError, match="mirror reflections require hard"):
         render_eager(ts, dataclasses.replace(cfg, soft_tau=0.05))
     assert fused.uncovered(ts, cfg) is None
-    assert "reflections > 1" in fused.uncovered(ts, dataclasses.replace(cfg, reflections=2))
+    assert "reflections > 3" in fused.uncovered(ts, dataclasses.replace(cfg, reflections=4))
+    for refl in (2, 3):  # two and three bounce levels, at spp 1 and 4, in both hard families
+        for spp in (1, 4):
+            more = dataclasses.replace(cfg, reflections=refl, spp=spp)
+            assert fused.uncovered(ts, more) is None
+            fused_vec.check_vec_kernel_config(ts, more)
     assert fused.uncovered(ts, dataclasses.replace(cfg, spp=4)) is None  # spp 4 with the bounce
     fused_vec.check_vec_kernel_config(ts, cfg)  # one bounce level in rows 4-6 too
     fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, spp=4))
-    for kw, why in ((dict(reflections=2), "reflections > 1"),
-                    (dict(spp=4, reflections=2), "reflections > 1")):
+    for kw, why in ((dict(reflections=4), "reflections > 3"),
+                    (dict(spp=4, reflections=4), "reflections > 3")):
         with pytest.raises(NotImplementedError, match=why):
             fused_vec.check_vec_kernel_config(ts, dataclasses.replace(cfg, **kw))
     target = render_eager(ts, cfg)

@@ -97,16 +97,18 @@ def test_cpu_dispatch_is_eager():
 
 
 @pytest.mark.parametrize("kw, why", [
-    (dict(spp=2), "spp"), (dict(reflections=2), "reflections"),
+    (dict(spp=2), "spp"), (dict(reflections=4), "reflections"),
     (dict(shader="depth"), "depth"), (dict(projection="orthographic"), "orthographic"),
     (dict(soft_tau=0.1), "soft_tau"),
 ])
 def test_kernels_refuse_uncovered_configs(kw, why):
     """spp 4 is covered since the kernels take the 2x2 loop; any other spp
-    is refused by name. One bounce level is covered (reflections=1); two
-    are refused by name."""
+    is refused by name. One to three bounce levels are covered; four are
+    refused by name."""
     ts, _, cfg = configs.config2_four_spheres(16, device="cpu")
     fused.check_kernel_config(ts, dataclasses.replace(cfg, spp=4))
+    for refl in (2, 3):
+        fused.check_kernel_config(ts, dataclasses.replace(cfg, spp=4, reflections=refl))
     with pytest.raises(NotImplementedError, match=why):
         fused.check_kernel_config(ts, dataclasses.replace(cfg, **kw))
 

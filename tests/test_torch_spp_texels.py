@@ -299,18 +299,23 @@ def test_spp4_soft_render_of_config8():
                                   "config8_r1", "globes_r1"])
 def test_spp4_checks_cover_and_refuse_by_name(name):
     """The kernels' checks at spp 4: the family the card takes covers the
-    pair; two bounces stay refused in both hard families; the soft render
-    takes a texel grid at spp 4, the soft step does not; the soft checker
-    beside a texel grid stays refused."""
+    pair and two or three bounces; four stay refused in both hard families;
+    the soft render takes a texel grid at spp 4, the soft step does not; the
+    soft checker beside a texel grid stays refused."""
     scene, cfg = _case(name)
     n = scene.spheres.count + scene.rects.count
     if n <= fused.MAX_OBJECTS and not (cfg.reflections and fused_vec.object_textured(scene)):
         fused.check_kernel_config(scene, cfg)
     fused_vec.check_vec_kernel_config(scene, cfg)
-    two = dataclasses.replace(cfg, reflections=2)
-    with pytest.raises(NotImplementedError, match="reflections > 1"):
+    for refl in (2, 3):  # two and three bounces: where one is covered
+        more = dataclasses.replace(cfg, reflections=refl)
+        if n <= fused.MAX_OBJECTS and not fused_vec.object_textured(scene):
+            fused.check_kernel_config(scene, more)
+        fused_vec.check_vec_kernel_config(scene, more)
+    two = dataclasses.replace(cfg, reflections=4)
+    with pytest.raises(NotImplementedError, match="reflections > 3"):
         fused.check_kernel_config(scene, two)
-    with pytest.raises(NotImplementedError, match="reflections > 1"):
+    with pytest.raises(NotImplementedError, match="reflections > 3"):
         fused_vec.check_vec_kernel_config(scene, two)
     soft = dataclasses.replace(cfg, soft_tau=0.08, reflections=0)
     if fused.scene_textured(scene):

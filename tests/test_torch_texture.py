@@ -294,8 +294,9 @@ def test_cuda_route_refuses_by_name():
     for kw in (dict(reflections=1), dict(spp=4, reflections=1)):
         assert "object textures with mirror reflections" in fused.uncovered(
             ts, dataclasses.replace(cfg, **kw), texels=True)
-    with pytest.raises(NotImplementedError, match="reflections > 1"):
-        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(spp4, reflections=2))
+    with pytest.raises(NotImplementedError, match="reflections > 3"):
+        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(spp4, reflections=4))
+    fused_vec.check_vec_kernel_config(ts, dataclasses.replace(spp4, reflections=2))
     big = configs.config7_texture(16, tex_k=48, device="cpu")[0]
     assert "a texel grid this large" in fused.uncovered(big, cfg, texels=True)
     assert fused.step_smem_bytes(1, 1, 1, 0, 16, 0) <= fused.MAX_BLOCK_SMEM

@@ -181,15 +181,18 @@ def test_cpu_render_stays_differentiable(pair):
 
 
 @pytest.mark.parametrize("kw, why", [
-    (dict(spp=2), "spp"), (dict(reflections=2), "reflections"),
+    (dict(spp=2), "spp"), (dict(reflections=4), "reflections"),
     (dict(shader="depth"), "depth"), (dict(projection="orthographic"), "orthographic"),
     (dict(soft_tau=0.1), "soft_tau"),
 ])
 def test_vec_kernels_refuse_uncovered_configs(pair, kw, why):
     """spp 4 is covered (four launches of the forward and the backward, the
-    step's loop in the kernel); any other spp is refused by name."""
+    step's loop in the kernel); any other spp is refused by name. One to
+    three bounce levels are covered; four are refused by name."""
     _, _, ts, tcfg = pair
     fused_vec.check_vec_kernel_config(ts, dataclasses.replace(tcfg, spp=4))
+    for refl in (2, 3):
+        fused_vec.check_vec_kernel_config(ts, dataclasses.replace(tcfg, spp=4, reflections=refl))
     with pytest.raises(NotImplementedError, match=why):
         fused_vec.check_vec_kernel_config(ts, dataclasses.replace(tcfg, **kw))
 

@@ -24,7 +24,7 @@ Beside it config 7 (a textured floor) at 32^2 with one bounce.
   JAX's);
 - the packing of the texel grids and the transpose of it;
 - the routes: the object-chunked kernels take object textures at spp 1 and
-  4 with 0 or 1 bounce (and refuse, by name, two bounces at either spp,
+  4 with 0 to 3 bounces (and refuse, by name, four bounces at either spp,
   the soft kernels, and grids whose gradient does not fit a block); object
   textures with a bounce take the object-vectorized family at any count;
 - the CLI: `invert --config 8 --reflections 1` on the CPU.
@@ -279,8 +279,8 @@ def test_routes_take_object_textures(case):
 
 
 @pytest.mark.parametrize("what, kw, why", [
-    ("spp4_two_bounces", dict(spp=4, reflections=2), "reflections > 1"),
-    ("two_bounces", dict(reflections=2), "reflections > 1"),
+    ("spp4_two_bounces", dict(spp=4, reflections=4), "reflections > 3"),
+    ("two_bounces", dict(reflections=4), "reflections > 3"),
     ("soft", dict(soft_tau=0.05, reflections=0), "soft_tau"),
 ])
 def test_vec_kernels_refuse_by_name(what, kw, why):

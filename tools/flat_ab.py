@@ -12,11 +12,9 @@ fused_render_bwd.cu, fused_vec_render.cu, fused_vec_render_bwd.cu,
 fused_vec_step.cu) of this checkout and of the checkout ``DIR`` (a ``git
 archive`` of an older commit, say) with this checkout's nvcc flags, all
 twelve at once, and loads each with ctypes. For each source it compares the
-two trees' machine code (``cuobjdump -sass``) kernel by kernel, this tree's
-textured instances (flat_step_tex_kernel, render_kernel_tex,
-vec_render_tex_kernel, vec_step_tex_kernel) and the vec family's env and
-bounce instances (vec_render_levels_kernel, vec_step_levels_kernel) left
-out. Then it calls each row's entry on the
+two trees' machine code (``cuobjdump -sass``) kernel by kernel, each
+instance that both trees have (the others are counted). Then it calls each
+row's entry on the
 same inputs, through the entries both trees have: rows 1-3 at config 2
 512^2 from perturb(scale=0.1, seed=4) against the plain render of the true
 scene, and with their bounce level (rows 1r-3r, the refl entries) at config
@@ -114,15 +112,6 @@ def sass(cuobjdump: str, lib: Path) -> dict:
     return out
 
 
-def other_name(name: str) -> str | None:
-    """This tree's kernel name as the other tree names it; None for a
-    textured instance, or an env or bounce instance of the vec family, which
-    a tree without them lacks."""
-    if "_tex_kernel" in name or "render_kernel_tex" in name or "_levels_kernel" in name:
-        return None
-    return name
-
-
 def sass_changes(this: list, other: list) -> str:
     """How two kernels' instructions differ: the lines a line diff changes on
     each side, and the first change."""
@@ -141,18 +130,14 @@ def compare_sass(root: Path):
     for name in SOURCES:
         this = sass(cuobjdump, root / "this" / f"lib{name}.so")
         other = sass(cuobjdump, root / "other" / f"lib{name}.so")
-        kernels = {}
-        for k, ins in this.items():
-            ok = other_name(k)
-            if ok is None:
-                continue
-            theirs = other.get(ok)
-            kernels[ok] = ("missing in the other tree" if theirs is None else
-                           "same" if theirs == ins else
-                           f"differs ({len(ins)} against {len(theirs)} instructions; "
-                           f"{sass_changes(ins, theirs)})")
+        kernels = {k: "same" if other[k] == ins else
+                   f"differs ({len(ins)} against {len(other[k])} instructions; "
+                   f"{sass_changes(ins, other[k])})"
+                   for k, ins in this.items() if k in other}
         rows.append({"source": name, "kernels": kernels,
-                     "same": all(v == "same" for v in kernels.values())})
+                     "same": all(v == "same" for v in kernels.values()),
+                     "only_here": len(this) - len(kernels),
+                     "only_there": len(other) - len(kernels)})
         print(json.dumps(rows[-1]), flush=True)
     return rows
 

@@ -53,9 +53,10 @@ def device_ms(fn, reps=20, warmup=3):
     ``{"kernels": {name: {"launches": per call, "events": launches traced,
     "ms": median ms of one launch}}, "ms": the kernels' device time per call,
     "launches": per call}``. A window in which the profiler recorded no
-    device activity at all, or fewer launches of a kernel than half the calls
-    (both have happened on the H100: 0 and 10 of 20), is profiled again, up
-    to `PROFILE_TRIES` windows; ``kernels`` is empty if none recorded any."""
+    device activity at all, or no more launches of a kernel than half the
+    calls (both have happened on the H100: 0 and 10 of 20; half rounds to 0
+    launches a call), is profiled again, up to `PROFILE_TRIES` windows;
+    ``kernels`` is empty if none recorded any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -78,7 +79,7 @@ def device_ms(fn, reps=20, warmup=3):
             if e.device_type == DeviceType.CUDA:
                 by_name.setdefault(kernel_name(e.name), []).append(
                     e.time_range.elapsed_us() / 1e3)
-        if by_name and all(2 * len(ts) >= reps for ts in by_name.values()):
+        if by_name and all(2 * len(ts) > reps for ts in by_name.values()):
             break
     # the tracer may miss a launch at the edge of its window (up to 3 in 20
     # on the H100): launches per call are the events over the calls,
